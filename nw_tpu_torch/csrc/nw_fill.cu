@@ -1,0 +1,237 @@
+// Batched Needleman-Wunsch fill kernels for Hopper (sm_90a).
+//
+// Replaces two TPU (Pallas) kernels:
+//   K1 nw_tpu/ops/fill_pallas_banded.py:_make_banded_scores_kernel
+//      (build_scores_call, fill_scores_banded_batch)      -> nw_scores
+//   K2 nw_tpu/ops/fill_pallas_banded.py:_make_banded_arrows_kernel
+//      (build_arrows_call) in its pack_bits=2 greedy-code, with_counts
+//      and with_words=False modes                          -> nw_fill_codes
+//
+// Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163, with
+// the boundaries written explicitly (row 0: -c*d, LEFT, one path;
+// column 0: -j*d, UP, one path), so the result does not depend on a
+// NEG_INF decay and holds for every scoring.  Score arithmetic wraps as
+// int32, counts wrap mod 2^32.
+//
+// Design.  One warp per pair.  The side string's rows are cut into
+// bands of 32 rows, one row per lane; at step t lane jj computes cell
+// (row j0+jj, column c = t-jj), so a band is a 32-wide wavefront that
+// sweeps the whole top string in A+32 steps.  The up neighbour arrives
+// from lane jj-1 by __shfl_up_sync; the diagonal neighbour is the up
+// value of the previous step; the left neighbour is the lane's own
+// previous value.  Lane 0 reads the row above the band from a per-pair
+// int32 boundary row in device memory (plus a count row), which the
+// band overwrites in place with its last row for the next band: the
+// TPU kernel's band handoff (fill_pallas_banded.py:32-51) mapped onto a
+// warp.  The boundary row and the top string are loaded 32 columns at a
+// time, one coalesced load per lane, and handed to lane 0 by shuffle;
+// codes are stored 16 steps at a time by all lanes together, one
+// coalesced 128-byte store.  The only per-step stores are predicated
+// (lane 31's boundary value, the corner): no step branches, so the warp
+// never diverges.
+//
+// What bounds it on the H100: the serial dependence of each cell on the
+// lane above.  Every step waits for one shuffle and a short chain of
+// integer ops (sub, max, max, select), so a single warp is bound by
+// latency and by its own instruction slots; throughput comes from many
+// pairs in flight (one warp each, several warps per SM interleaving).
+// Batches of fewer than a few hundred pairs leave SMs idle.  The only
+// large memory traffic is the code store (2 bits per cell, written
+// once: 26 MB for one 10240 x 10240 pair); boundary rows are 8 bytes
+// per column per band and stay in L2.
+//
+// Code layout, band-major as on the TPU (fill_pallas_banded.py:356-362):
+// codes is uint32[B, nbands, TW, 32] with nbands = ceil(Bs/32) and
+// TW = 2*ceil((A+32)/32).  Cell (j >= 1, i) lives in band (j-1)/32 at
+// lane jj = (j-1)%32, band-local step t = i + jj: bits 2*(t%16) of
+// codes[b, band, t/16, jj].  0 diag, 1 left, 2 up (ties diag > left >
+// up, the first alignment the reference emits,
+// needleman-wunsch.c:305-324).  Fields of cells outside the table are 0.
+// Row 0 is not stored: every step there is LEFT.  All offsets are
+// 64-bit: the codes of one 128 x 10 kb sub-batch pass 3 GB.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kCodeDiag = 0;
+constexpr int kCodeLeft = 1;
+constexpr int kCodeUp = 2;
+
+// two's-complement wrapping int32 arithmetic (signed overflow is
+// undefined in C++; the reference fill wraps)
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int wmul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+template <bool EMIT_CODES, bool WITH_COUNTS>
+__global__ void __launch_bounds__(32) nw_fill_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2,
+    int A, int Bs, int m, int k, int d,
+    int* __restrict__ bnd, unsigned* __restrict__ cbnd,
+    unsigned* __restrict__ codes, int* __restrict__ scores,
+    unsigned* __restrict__ counts) {
+  const int lane = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  const int M = A + 1;
+  const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
+  const int nbands = (Bs + 31) >> 5;
+  const int* top = tops + b * A;
+  const int* side = sides + b * Bs;
+  int* brow = bnd + b * M;
+  unsigned* crow = WITH_COUNTS ? cbnd + b * M : nullptr;
+  const int l1 = lens1[b];
+  const int l2 = lens2[b];
+
+  // row 0: H[0][c] = -c*d, LEFT, one path
+  for (int c = lane; c < M; c += 32) {
+    brow[c] = wsub(0, wmul(c, d));
+    if (WITH_COUNTS) crow[c] = 1u;
+  }
+  if (l2 == 0 && lane == 0) {
+    scores[b] = wsub(0, wmul(l1, d));
+    if (WITH_COUNTS) counts[b] = 1u;
+  }
+  __syncwarp();
+
+  const int negk = wsub(0, k);
+  for (int band = 0; band < nbands; ++band) {
+    const int j = band * 32 + 1 + lane;  // this lane's row
+    const bool row_ok = j <= Bs;
+    const int sch = row_ok ? side[j - 1] : -5;
+    const int col0 = wsub(0, wmul(j, d));  // H[j][0]
+    unsigned* wbase = EMIT_CODES
+        ? codes + ((b * nbands + band) * static_cast<int64_t>(2 * nchunks)) * 32 + lane
+        : nullptr;
+    int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
+    unsigned cnt = 0, cup_prev = 0, pack = 0;
+
+    for (int t0 = 0; t0 < 32 * nchunks; t0 += 32) {
+      // the next 32 columns of the row above and of the top string;
+      // lane x holds column t0 + x until step t0 + x hands it to lane 0
+      const int cx = t0 + lane;
+      const int bval = cx < M ? brow[cx] : 0;
+      const unsigned cbval = (WITH_COUNTS && cx < M) ? crow[cx] : 0u;
+      const int tval = (cx >= 1 && cx <= A) ? top[cx - 1] : -4;
+#pragma unroll
+      for (int s = 0; s < 32; ++s) {
+        const int c = t0 + s - lane;
+        int up = __shfl_up_sync(kFull, h, 1);
+        const int ch_in = __shfl_up_sync(kFull, ch, 1);
+        const int b_up = __shfl_sync(kFull, bval, s);
+        const int b_ch = __shfl_sync(kFull, tval, s);
+        unsigned cup = 0;
+        if (WITH_COUNTS) {
+          cup = __shfl_up_sync(kFull, cnt, 1);
+          const unsigned cb_up = __shfl_sync(kFull, cbval, s);
+          cup = lane == 0 ? cb_up : cup;
+        }
+        up = lane == 0 ? b_up : up;
+        ch = lane == 0 ? b_ch : ch_in;
+
+        const int cand_d = wadd(up_prev, ch == sch ? m : negk);
+        const int cand_u = wsub(up, d);
+        const int cand_l = wsub(h, d);
+        int hn = max(max(cand_d, cand_u), cand_l);
+        unsigned code = cand_d == hn ? kCodeDiag : (cand_l == hn ? kCodeLeft : kCodeUp);
+        unsigned cn = 0;
+        if (WITH_COUNTS) {
+          cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
+               (cand_u == hn ? cup : 0u);
+        }
+        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
+        hn = col_zero ? col0 : hn;
+        code = col_zero ? kCodeUp : code;
+        cn = col_zero ? 1u : cn;
+        const bool in_row = c >= 0 && c <= A;
+        if (in_row && j == l2 && c == l1) {  // the true corner
+          scores[b] = hn;
+          if (WITH_COUNTS) counts[b] = cn;
+        }
+        // lane 31 writes its row over the boundary row, 31 columns
+        // behind lane 0's reads of it: lane 31's value of column c
+        // depends, through the shuffle chain, on lane 0's load of c
+        if (lane == 31 && in_row) {
+          brow[c] = hn;
+          if (WITH_COUNTS) crow[c] = cn;
+        }
+        if (EMIT_CODES) {
+          pack |= (in_row && row_ok ? code : 0u) << (2 * (s & 15));
+          if ((s & 15) == 15) {  // static: every lane stores together
+            wbase[static_cast<int64_t>((t0 + s) >> 4) * 32] = pack;
+            pack = 0;
+          }
+        }
+        up_prev = up;
+        h = hn;
+        if (WITH_COUNTS) {
+          cup_prev = cup;
+          cnt = cn;
+        }
+      }
+    }
+    __syncwarp();  // the band's boundary row is complete before the next band reads it
+  }
+}
+
+template <bool EMIT_CODES, bool WITH_COUNTS>
+int launch_fill(const int* tops, const int* sides, const int* lens1,
+                const int* lens2, int B, int A, int Bs, int m, int k, int d,
+                int* bnd, unsigned* cbnd, unsigned* codes, int* scores,
+                unsigned* counts, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  nw_fill_kernel<EMIT_CODES, WITH_COUNTS><<<B, 32, 0, stream>>>(
+      tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores,
+      counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1 port: int32 corner scores.  bnd is int32[B, A+1] scratch.
+extern "C" int nw_scores(const int* tops, const int* sides, const int* lens1,
+                         const int* lens2, int B, int A, int Bs, int m, int k,
+                         int d, int* bnd, int* scores, void* stream) {
+  return launch_fill<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                   d, bnd, nullptr, nullptr, scores, nullptr,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// K2 port: scores, plus greedy codes (emit_codes) and/or uint32 counts
+// (with_counts).  bnd / cbnd are [B, A+1] scratch; codes is
+// uint32[B, ceil(Bs/32), 2*ceil((A+32)/32), 32] when emit_codes.
+extern "C" int nw_fill_codes(const int* tops, const int* sides,
+                             const int* lens1, const int* lens2, int B, int A,
+                             int Bs, int m, int k, int d, int emit_codes,
+                             int with_counts, int* bnd, void* cbnd,
+                             void* codes, int* scores, void* counts,
+                             void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto cb = static_cast<unsigned*>(cbnd);
+  auto cw = static_cast<unsigned*>(codes);
+  auto ct = static_cast<unsigned*>(counts);
+  if (emit_codes && with_counts)
+    return launch_fill<true, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                   d, bnd, cb, cw, scores, ct, s);
+  if (emit_codes)
+    return launch_fill<true, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                    d, bnd, cb, cw, scores, ct, s);
+  if (with_counts)
+    return launch_fill<false, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                    d, bnd, cb, cw, scores, ct, s);
+  return launch_fill<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                   d, bnd, cb, cw, scores, ct, s);
+}
+
+extern "C" const char* nw_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,80 @@
+// Batched greedy traceback walk for Hopper (sm_90a).
+//
+// Replaces the JAX walk loops that read K2's 2-bit greedy words on the
+// TPU: nw_tpu/ops/banded_traceback.py:_make_walk_loop (the group walk
+// of the one-pass and two-pass engines) and
+// nw_tpu/ops/traceback.py:traceback_greedy2.  Those were jnp code, not
+// Pallas; in eager PyTorch a 20 000-step loop of small ops is bound by
+// launch overhead, so the walk is a kernel too.  Because the port fills
+// the codes of the whole sub-batch at once (nw_fill.cu), the group walk
+// and its on-device stitch (device_stitch_pack) have no counterpart:
+// each pair's ops come out in order in one pass.
+//
+// Design.  One thread per pair.  It starts at the true corner
+// (len2, len1), reads the 2-bit code of its cell from the band-major
+// layout of nw_fill.cu (0 diag, 1 left, 2 up; the code IS the op),
+// writes it, and steps to the predecessor until it reaches the origin;
+// on row 0, which is not stored, it steps LEFT.  ops[b] must arrive
+// filled with OP_NONE (3); the thread writes its n real ops in walk
+// order (corner -> origin).
+//
+// What bounds it on the H100: the chain of dependent loads — each step's
+// address depends on the previous step's code, and a diagonal step moves
+// to another row, i.e. another cache line, so one walk of 20 000 steps
+// is ~20 000 serial L2/HBM round trips.  Pairs walk in parallel; nothing
+// in the design hides the per-step latency (prefetching the words around
+// the path is left for later).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kOpLeft = 1;
+constexpr int kOpUp = 2;
+
+__global__ void nw_walk_kernel(const unsigned* __restrict__ codes,
+                               const int* __restrict__ lens1,
+                               const int* __restrict__ lens2, int B,
+                               int nbands, int TW, int S,
+                               signed char* __restrict__ ops,
+                               int* __restrict__ ns) {
+  const int bi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bi >= B) return;
+  const int64_t b = bi;
+  const unsigned* base = codes + b * nbands * TW * 32;
+  signed char* out = ops + b * S;
+  int i = lens1[b];
+  int j = lens2[b];
+  int n = 0;
+  while ((i > 0 || j > 0) && n < S) {
+    int a = kOpLeft;  // row 0 is not stored: LEFT to the origin
+    if (j > 0) {
+      const int band = (j - 1) >> 5;
+      const int jj = (j - 1) & 31;
+      const int t = i + jj;
+      const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 4)) * 32 + jj];
+      a = (w >> (2 * (t & 15))) & 3u;
+    }
+    out[n++] = static_cast<signed char>(a);
+    i -= a != kOpUp;
+    j -= a != kOpLeft;
+  }
+  ns[b] = n;
+}
+
+}  // namespace
+
+// codes: uint32[B, nbands, TW, 32] from nw_fill_codes; ops: int8[B, S]
+// prefilled with OP_NONE; ns: int32[B].  S must be >= every len1 + len2.
+extern "C" int nw_walk(const void* codes, const int* lens1, const int* lens2,
+                       int B, int nbands, int TW, int S, signed char* ops,
+                       int* ns, void* stream) {
+  if (B <= 0) return 0;
+  const int threads = 128;
+  nw_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(codes), lens1, lens2, B, nbands, TW, S, ops,
+      ns);
+  return static_cast<int>(cudaGetLastError());
+}

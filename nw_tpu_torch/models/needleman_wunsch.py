@@ -1,0 +1,216 @@
+"""Batched global alignment with linear gap penalties.
+
+Counterpart of ``nw_tpu/models/needleman_wunsch.py`` for the batched
+path (``NWAligner.align_batch``): one call aligns a batch of pairs padded
+to a length bucket and returns int32 scores, uint32 solution counts and
+the greedy first-emitted alignment of each pair.  The single-pair and
+huge-pair entry points (``align``, ``align_huge``, ``summary_huge``) are
+not ported yet.
+
+Routes, by what the caller asks for:
+
+* scores only -> :func:`nw_tpu_torch.ops.fill_auto.fill_scores_auto`
+  (``nw_scores``);
+* counts only -> :func:`nw_tpu_torch.ops.fill_banded.fill_scores_counts_banded_batch`
+  (``nw_fill_codes`` without codes);
+* strings, with or without counts -> sub-batches through
+  :func:`nw_tpu_torch.ops.banded_traceback.traceback_banded_dispatch`
+  (``nw_fill_codes`` then ``nw_walk``).  Only this route stores a value
+  per cell (2 bits), so only it is cut into sub-batches, sized so that
+  one sub-batch's codes fit :data:`CODE_BUDGET_BYTES`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from nw_tpu_torch.config import AlignConfig, ScoringParams
+from nw_tpu_torch.ops import encode as enc
+from nw_tpu_torch.ops import traceback
+from nw_tpu_torch.ops.banded_traceback import (
+    traceback_banded_dispatch,
+    traceback_banded_finalize,
+)
+from nw_tpu_torch.ops.fill_auto import (
+    BANDED_MIN_BATCH,
+    HUGE_PAIR_MIN_SIDE,
+    fill_scores_auto,
+)
+from nw_tpu_torch.ops.fill_banded import code_shape, fill_scores_counts_banded_batch
+
+# device bytes one strings sub-batch may spend on its 2-bit codes: at
+# 10 kb buckets (26 MB a pair) 640 pairs, i.e. several warps per SM
+CODE_BUDGET_BYTES = 16 << 30
+
+
+def _as_bytes(s: str | bytes) -> bytes:
+    return s.encode() if isinstance(s, str) else bytes(s)
+
+
+def code_bytes_per_pair(L1: int, L2: int) -> int:
+    """Device bytes of one pair's greedy codes at buckets (L1, L2)."""
+    _, nbands, TW, lanes = code_shape(1, L1, L2)
+    return nbands * TW * lanes * 4
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """Result for a batch of pairs (host numpy arrays)."""
+
+    scores: np.ndarray  # int32[B] optimal scores
+    counts: Optional[np.ndarray] = None  # uint32[B] optimal-alignment counts
+    ops: Optional[np.ndarray] = None  # int8[B, S] greedy traceback op codes
+    ops_len: Optional[np.ndarray] = None  # int32[B]
+    status: Optional[np.ndarray] = None  # uint8[B]: 0 = ok, 1 = rejected
+    _pairs: Optional[Sequence[Tuple[bytes, bytes]]] = None
+
+    STATUS_OK = 0
+    STATUS_TOO_LONG = 1
+
+    def alignment_strings(self) -> List[Tuple[bytes, bytes]]:
+        """One (first-)optimal aligned pair of byte strings per input."""
+        if self.ops is None:
+            raise ValueError("batch was run without traceback_strings")
+        return traceback.ops_to_strings_batch(self.ops, self.ops_len, self._pairs)
+
+
+class NWAligner:
+    """Needleman-Wunsch aligner configured once, applied to many inputs.
+
+    ``device`` is where the fills run: ``"cuda"`` (the default) launches
+    the CUDA kernels, ``"cpu"`` runs their plain PyTorch versions.  There
+    is no fallback from one to the other.
+    """
+
+    def __init__(
+        self, config: AlignConfig | None = None, device: str | torch.device = "cuda",
+        **scoring_kwargs,
+    ):
+        if config is None:
+            config = AlignConfig(scoring=ScoringParams(**scoring_kwargs))
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "NWAligner: no CUDA device is available; pass device='cpu' "
+                "to run the plain PyTorch path"
+            )
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"NWAligner runs on 'cuda' or 'cpu', not {dev}")
+        self.config = config
+        self.device = dev
+
+    def align_batch(
+        self,
+        pairs: Sequence[Tuple[str | bytes, str | bytes]],
+        traceback_strings: bool = False,
+        count: bool = False,
+        max_length: Optional[int] = None,
+        on_error: str = "raise",
+        sub_batch: Optional[int] = None,
+    ) -> BatchResult:
+        """Score a batch of pairs; optionally count optimal alignments
+        and trace back the first-emitted one.
+
+        With ``on_error="mask"``, pairs longer than ``max_length`` are
+        replaced by empty pairs and flagged in ``result.status`` instead
+        of failing the whole batch.  ``sub_batch`` caps the pairs per
+        strings sub-batch (default: as many as fit
+        :data:`CODE_BUDGET_BYTES`).
+        """
+        if on_error not in ("raise", "mask"):
+            raise ValueError(f"on_error must be 'raise' or 'mask', not {on_error!r}")
+        m, k, d = self.config.scoring.as_tuple()
+        norm = [(_as_bytes(a), _as_bytes(b)) for a, b in pairs]
+        status = np.zeros((len(norm),), np.uint8)
+        if max_length is not None:
+            bad = [
+                i for i, (a, b) in enumerate(norm)
+                if len(a) > max_length or len(b) > max_length
+            ]
+            if bad and on_error == "raise":
+                raise ValueError(
+                    f"{len(bad)} pair(s) exceed max_length={max_length} "
+                    f"(first: index {bad[0]}); pass on_error='mask' to "
+                    "isolate them"
+                )
+            for i in bad:
+                status[i] = BatchResult.STATUS_TOO_LONG
+                norm[i] = (b"", b"")
+        L1 = self.config.bucket_for(max((len(a) for a, _ in norm), default=1))
+        L2 = self.config.bucket_for(max((len(b) for _, b in norm), default=1))
+
+        if not (traceback_strings or count):
+            tops, sides, l1, l2 = enc.upload(enc.encode_batch(norm, L1, L2), self.device)
+            scores = fill_scores_auto(tops, sides, l1, l2, m, k, d)
+            return BatchResult(scores=scores.cpu().numpy(), status=status, _pairs=norm)
+
+        if L2 > HUGE_PAIR_MIN_SIDE and len(norm) < BANDED_MIN_BATCH:
+            raise NotImplementedError(
+                f"{len(norm)} pair(s) with sides over {HUGE_PAIR_MIN_SIDE} "
+                "need the huge-pair engines, not ported yet (ROADMAP queue 1 "
+                "item 6)"
+            )
+        if not traceback_strings:
+            tops, sides, l1, l2 = enc.upload(enc.encode_batch(norm, L1, L2), self.device)
+            scores, counts = fill_scores_counts_banded_batch(
+                tops, sides, l1, l2, m, k, d
+            )
+            return BatchResult(
+                scores=scores.cpu().numpy(),
+                counts=counts.cpu().numpy().astype(np.uint32),
+                status=status, _pairs=norm,
+            )
+
+        if sub_batch is None:
+            sub_batch = max(1, CODE_BUDGET_BYTES // code_bytes_per_pair(L1, L2))
+        scores_l, counts_l, ops_l, n_l = _pipelined_banded_walk(
+            norm, m, k, d, sub_batch, count, L1, L2, self.device
+        )
+        result = BatchResult(
+            scores=np.concatenate(scores_l),
+            ops=np.concatenate(ops_l),
+            ops_len=np.concatenate(n_l),
+            status=status,
+            _pairs=norm,
+        )
+        if count:
+            result.counts = np.concatenate(counts_l)
+        return result
+
+
+def _pipelined_banded_walk(norm, m, k, d, chunk, count, L1, L2, device):
+    """Banded tracebacks over sub-batches of ``chunk`` pairs.
+
+    Every sub-batch is padded to the whole batch's buckets (L1, L2), so
+    their op arrays share one width and concatenate.  Sub-batches run in
+    order: dispatch, then finalize (the host copy), then the next one.
+    """
+    scores_l, counts_l, ops_l, n_l = [], [], [], []
+    for lo in range(0, max(len(norm), 1), chunk):
+        sub = norm[lo : lo + chunk]
+        tops, sides, l1, l2 = enc.upload(enc.encode_batch(sub, L1, L2), device)
+        outs = traceback_banded_finalize(
+            traceback_banded_dispatch(tops, sides, l1, l2, m, k, d, with_counts=count)
+        )
+        if count:
+            sc, ct, ops, n = outs
+            counts_l.append(ct)
+        else:
+            sc, ops, n = outs
+        scores_l.append(sc)
+        ops_l.append(ops)
+        n_l.append(n)
+    return scores_l, counts_l, ops_l, n_l
+
+
+def align_batch(
+    pairs, m: int = 1, k: int = 1, d: int = 1, device: str = "cuda", **kw
+) -> BatchResult:
+    """One-shot batched alignment."""
+    return NWAligner(
+        AlignConfig(scoring=ScoringParams(m, k, d)), device=device
+    ).align_batch(pairs, **kw)

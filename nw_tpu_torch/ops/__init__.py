@@ -1,0 +1,11 @@
+"""Fills, walks and host helpers.
+
+* :mod:`nw_tpu_torch.ops.encode` — sequence encoding, padding, upload.
+* :mod:`nw_tpu_torch.ops.fill_scan` — plain anti-diagonal fill (the
+  version every fill kernel is held against).
+* :mod:`nw_tpu_torch.ops.pathcount` — optimal-path counts from tie masks.
+* :mod:`nw_tpu_torch.ops.traceback` — greedy walks and op strings.
+* :mod:`nw_tpu_torch.ops.fill_banded` — the K1 / K2 kernel wrappers.
+* :mod:`nw_tpu_torch.ops.banded_traceback` — code fill + walk.
+* :mod:`nw_tpu_torch.ops.fill_auto` — score routing.
+"""

@@ -1,0 +1,239 @@
+"""Banded batched fills: the ports of TPU kernels K1 and K2.
+
+Counterpart of ``nw_tpu/ops/fill_pallas_banded.py``.  Three wrappers,
+each with its plain PyTorch version in this module:
+
+* :func:`fill_scores_banded_batch` — int32 corner scores at any side
+  length (``nw_scores``, the K1 port);
+* :func:`fill_scores_counts_banded_batch` — scores and uint32 solution
+  counts with nothing stored per cell (``nw_fill_codes`` without codes,
+  K2's ``with_words=False`` mode);
+* :func:`fill_greedy_counts_banded_batch` — the 2-bit greedy code of
+  every cell, scores, and optionally counts (``nw_fill_codes``, K2's
+  ``pack_bits=2`` / ``with_counts`` modes).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel (``csrc/nw_fill.cu``) or raises.  Each wrapper counts
+its launches in ``.launches``.
+
+Inputs are int32 tops[B, A] / sides[B, Bs] encoded with the PAD_TOP /
+PAD_SIDE sentinels, and int32 lens1 / lens2[B].  Counts come back as
+int64 in ``[0, 2^32)`` (uint32 wraparound, the reference's
+``unsigned int solution_count``).  Codes are band-major, as the TPU
+kernel's words: int32[B, ceil(Bs/32), TW, 32] with
+``TW = 2 * ceil((A+32)/32)``.  Cell (j >= 1, i) belongs to band
+``(j-1) // 32`` at lane ``jj = (j-1) % 32`` and band step
+``t = i + jj``: bits ``2 * (t % 16)`` of ``codes[b, band, t // 16, jj]``,
+0 diag / 1 left / 2 up.  Fields of cells outside the table are 0; row 0
+is not stored (every step there is LEFT).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from nw_tpu_torch.ops.fill_scan import U32, diag_to_matrix_batch, fill_diag_batch
+from nw_tpu_torch.runtime import kernels
+
+CODES_PER_WORD = 16
+BAND_ROWS = 32  # one row per lane of a warp
+
+
+def code_shape(B: int, A: int, Bs: int) -> Tuple[int, int, int, int]:
+    """Shape of the code tensor of ``B`` pairs at buckets (A, Bs)."""
+    nbands = -(-Bs // BAND_ROWS)
+    steps = -(-(A + BAND_ROWS) // BAND_ROWS) * BAND_ROWS  # whole 32-step chunks
+    return (B, nbands, steps // CODES_PER_WORD, BAND_ROWS)
+
+
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+def _check(tops, sides, lens1, lens2, m, k, d):
+    """Validate what the kernels index with: a length beyond its bucket
+    would read outside the tensors."""
+    if tops.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"CPU or CUDA tensors expected, got {tops.device}")
+    if tops.dim() != 2 or sides.dim() != 2 or tops.shape[0] != sides.shape[0]:
+        raise ValueError("tops / sides must be [B, A] / [B, Bs]")
+    for t in (tops, sides, lens1, lens2):
+        if t.dtype != torch.int32:
+            raise ValueError(f"int32 tensors expected, got {t.dtype}")
+        if t.device != tops.device:
+            raise ValueError("all inputs must be on one device")
+    if lens1.shape != (tops.shape[0],) or lens2.shape != (tops.shape[0],):
+        raise ValueError("lens must be [B]")
+    if not all(INT32_MIN <= v <= INT32_MAX for v in (m, k, d)):
+        raise ValueError(f"scoring ({m}, {k}, {d}) must fit int32")
+    if tops.shape[0]:
+        lo, hi = torch.aminmax(torch.stack([lens1, lens2]), dim=1)
+        (lo1, lo2), (hi1, hi2) = lo.tolist(), hi.tolist()
+        if min(lo1, lo2) < 0 or hi1 > tops.shape[1] or hi2 > sides.shape[1]:
+            raise ValueError("lengths must lie in [0, bucket]")
+
+
+def _dims(tops, sides):
+    return tops.shape[0], tops.shape[1], sides.shape[1]
+
+
+def _contig(*ts):
+    return tuple(t.contiguous() for t in ts)
+
+
+def _wrap_counts(counts: torch.Tensor) -> torch.Tensor:
+    """int32 counts from a kernel -> int64 in [0, 2^32)."""
+    return counts.to(torch.int64) & U32
+
+
+# ---------------- K1: scores ----------------
+
+
+def fill_scores_banded_batch(tops, sides, lens1, lens2, m, k, d) -> torch.Tensor:
+    """int32[B] optimal scores, one per pair (true corner)."""
+    _check(tops, sides, lens1, lens2, m, k, d)
+    if tops.device.type == "cpu":
+        return fill_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
+        kernels.launch(
+            "nw_scores", dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
+            lens2.data_ptr(), B, A, Bs, m, k, d,
+            bnd.data_ptr(), scores.data_ptr(),
+        )
+        fill_scores_banded_batch.launches += 1
+    return scores
+
+
+fill_scores_banded_batch.launches = 0
+
+
+def fill_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
+    """Plain version of :func:`fill_scores_banded_batch`."""
+    return fill_diag_batch(
+        tops, sides, lens1, lens2, m, k, d, with_arrows=False
+    )["score"]
+
+
+# ---------------- K2: codes and/or counts ----------------
+
+
+def _fill_codes_kernel(tops, sides, lens1, lens2, m, k, d, emit_codes, with_counts):
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev) if with_counts else None
+    codes = (
+        torch.empty(code_shape(B, A, Bs), dtype=torch.int32, device=dev)
+        if emit_codes else None
+    )
+    if B:
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
+        cbnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev) if with_counts else None
+        kernels.launch(
+            "nw_fill_codes", dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
+            lens2.data_ptr(), B, A, Bs, m, k, d,
+            int(emit_codes), int(with_counts), bnd.data_ptr(),
+            cbnd.data_ptr() if with_counts else None,
+            codes.data_ptr() if emit_codes else None,
+            scores.data_ptr(),
+            counts.data_ptr() if with_counts else None,
+        )
+    return codes, scores, (_wrap_counts(counts) if with_counts else None)
+
+
+def fill_scores_counts_banded_batch(
+    tops, sides, lens1, lens2, m, k, d
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores int32[B], counts int64[B] in [0, 2^32)); nothing is
+    stored per cell."""
+    _check(tops, sides, lens1, lens2, m, k, d)
+    if tops.device.type == "cpu":
+        return fill_scores_counts_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
+    _, scores, counts = _fill_codes_kernel(
+        tops, sides, lens1, lens2, m, k, d, emit_codes=False, with_counts=True
+    )
+    if tops.shape[0]:
+        fill_scores_counts_banded_batch.launches += 1
+    return scores, counts
+
+
+fill_scores_counts_banded_batch.launches = 0
+
+
+def fill_scores_counts_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
+    """Plain version of :func:`fill_scores_counts_banded_batch`."""
+    out = fill_diag_batch(
+        tops, sides, lens1, lens2, m, k, d, with_arrows=False, with_counts=True
+    )
+    return out["score"], out["count"]
+
+
+def fill_greedy_counts_banded_batch(
+    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(codes int32[B, nbands, TW, 32], scores int32[B], counts int64[B]
+    or None): the greedy code of every cell of the bucket table."""
+    _check(tops, sides, lens1, lens2, m, k, d)
+    if tops.device.type == "cpu":
+        return fill_greedy_counts_banded_batch_plain(
+            tops, sides, lens1, lens2, m, k, d, with_counts
+        )
+    out = _fill_codes_kernel(
+        tops, sides, lens1, lens2, m, k, d, emit_codes=True, with_counts=with_counts
+    )
+    if tops.shape[0]:
+        fill_greedy_counts_banded_batch.launches += 1
+    return out
+
+
+fill_greedy_counts_banded_batch.launches = 0
+
+
+def greedy_codes_from_arrows(arrows: torch.Tensor) -> torch.Tensor:
+    """Diagonal-major tie masks uint8[B, K, N] -> packed greedy codes in
+    the kernel's band-major layout (diag > left > up)."""
+    B, K, N = arrows.shape
+    A, Bs = K - N, N - 1
+    rect = diag_to_matrix_batch(arrows)[:, 1:]  # rows 1..Bs, [B, Bs, A+1]
+    code = torch.where(
+        (rect & 1) != 0, 0, torch.where((rect & 2) != 0, 1, 2)
+    ).to(torch.uint8)
+    _, nbands, TW, _ = code_shape(B, A, Bs)
+    code = torch.nn.functional.pad(code, (0, 0, 0, nbands * BAND_ROWS - Bs))
+    code = code.view(B, nbands, BAND_ROWS, A + 1)
+    # lane jj's cell of column i sits at band step t = i + jj
+    by_step = torch.zeros(
+        (B, nbands, BAND_ROWS, TW * CODES_PER_WORD), dtype=torch.uint8,
+        device=arrows.device,
+    )
+    for jj in range(BAND_ROWS):
+        by_step[:, :, jj, jj : jj + A + 1] = code[:, :, jj]
+    shifts = 2 * torch.arange(CODES_PER_WORD, device=arrows.device)
+    words = (
+        by_step.view(B, nbands, BAND_ROWS, TW, CODES_PER_WORD).to(torch.int64)
+        << shifts
+    ).sum(-1)
+    # reinterpret the uint32 words as int32; lanes last
+    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    return words.transpose(2, 3).contiguous()
+
+
+def fill_greedy_counts_banded_batch_plain(
+    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False
+):
+    """Plain version of :func:`fill_greedy_counts_banded_batch`."""
+    out = fill_diag_batch(
+        tops, sides, lens1, lens2, m, k, d,
+        with_arrows=True, with_counts=with_counts,
+    )
+    codes = greedy_codes_from_arrows(out["arrows"])
+    return codes, out["score"], out.get("count")

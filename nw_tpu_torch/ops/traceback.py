@@ -1,0 +1,190 @@
+"""Greedy single-path traceback and op-string building.
+
+The reference's walk (needleman-wunsch.c:209-331) enumerates every
+optimal alignment; when one per pair is needed the walk is a
+deterministic backward scan from the true corner (len2, len1) that
+follows the highest-priority direction, diag > left > up — the order the
+reference DFS descends in (needleman-wunsch.c:305-324), so the path is
+exactly the *first* alignment the reference emits.
+
+* :func:`traceback_greedy_batch` walks diagonal-major tie masks (port
+  of ``nw_tpu/ops/traceback.py:38-85``), plain PyTorch.
+* :func:`walk_codes_batch` walks the band-major 2-bit greedy codes that
+  :func:`nw_tpu_torch.ops.fill_banded.fill_greedy_counts_banded_batch`
+  emits (the counterpart of ``traceback_greedy2``, ``traceback.py:88-122``):
+  the ``nw_walk`` kernel on a CUDA tensor, its plain version on a CPU
+  tensor.
+* :func:`ops_to_strings_batch` builds the aligned byte strings on the
+  host (numpy path of ``traceback.py:212-267``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from nw_tpu_torch.runtime import kernels
+
+OP_DIAG = 0
+OP_LEFT = 1
+OP_UP = 2
+OP_NONE = 3
+
+
+def traceback_greedy_batch(
+    arrows: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy backward walk over diagonal-major tie masks.
+
+    arrows: uint8[B, K, N] (cell (j, i) at ``arrows[b, i + j, j]``).
+    Returns ops int8[B, max_steps] in walk order (corner -> origin),
+    padded with OP_NONE, and n int32[B], the number of real ops.
+    """
+    B = arrows.shape[0]
+    dev = arrows.device
+    b_ar = torch.arange(B, device=dev)
+    i = lens1.to(device=dev, dtype=torch.int64).clone()
+    j = lens2.to(device=dev, dtype=torch.int64).clone()
+    n = torch.zeros(B, dtype=torch.int32, device=dev)
+    ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=dev)
+    for t in range(max_steps):
+        active = (i > 0) | (j > 0)
+        a = arrows[b_ar, i + j, j].to(torch.int64)
+        take_diag = (a & 1) != 0
+        take_left = ~take_diag & ((a & 2) != 0)
+        op = torch.where(take_diag, OP_DIAG, torch.where(take_left, OP_LEFT, OP_UP))
+        ops[:, t] = torch.where(active, op, OP_NONE).to(torch.int8)
+        i = i - (active & (op != OP_UP)).to(torch.int64)
+        j = j - (active & (op != OP_LEFT)).to(torch.int64)
+        n = n + active.to(torch.int32)
+    return ops, n
+
+
+def _check_walk_args(codes, lens1, lens2):
+    """Validate what the walk indexes with: a length beyond the code
+    table would read outside it."""
+    if codes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"CPU or CUDA tensors expected, got {codes.device}")
+    if codes.dim() != 4 or codes.dtype != torch.int32 or codes.shape[3] != 32:
+        raise ValueError("codes must be int32[B, nbands, TW, 32]")
+    for t in (lens1, lens2):
+        if t.shape != (codes.shape[0],) or t.dtype != torch.int32:
+            raise ValueError("lens must be int32[B]")
+        if t.device != codes.device:
+            raise ValueError("codes and lens must be on one device")
+    if codes.shape[0]:
+        _, nbands, TW, lanes = codes.shape
+        lo, hi = torch.aminmax(torch.stack([lens1, lens2]), dim=1)
+        (lo1, lo2), (hi1, hi2) = lo.tolist(), hi.tolist()
+        if min(lo1, lo2) < 0 or hi1 + lanes > 16 * TW or hi2 > lanes * nbands:
+            raise ValueError("lengths must lie inside the code table")
+
+
+def walk_codes_batch(
+    codes: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy backward walk over band-major 2-bit greedy codes.
+
+    codes: int32[B, nbands, TW, 32] in the layout of
+    :mod:`nw_tpu_torch.ops.fill_banded` (0 diag / 1 left / 2 up — the
+    code IS the op; row 0 is not stored and walks LEFT).  max_steps must
+    be >= every len1 + len2.  Returns ops int8[B, max_steps] (OP_NONE
+    padded) and n int32[B].
+
+    A CUDA tensor goes through the ``nw_walk`` kernel (one thread per
+    pair); a CPU tensor through :func:`walk_codes_batch_plain`.
+    """
+    _check_walk_args(codes, lens1, lens2)
+    if codes.device.type == "cpu":
+        return walk_codes_batch_plain(codes, lens1, lens2, max_steps)
+    B, nbands, TW, _ = codes.shape
+    ops = torch.full(
+        (B, max_steps), OP_NONE, dtype=torch.int8, device=codes.device
+    )
+    n = torch.empty(B, dtype=torch.int32, device=codes.device)
+    if B:
+        codes, lens1, lens2 = (t.contiguous() for t in (codes, lens1, lens2))
+        kernels.launch(
+            "nw_walk", codes.device,
+            codes.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
+            B, nbands, TW, max_steps, ops.data_ptr(), n.data_ptr(),
+        )
+        walk_codes_batch.launches += 1
+    return ops, n
+
+
+walk_codes_batch.launches = 0
+
+
+def walk_codes_batch_plain(
+    codes: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the ``nw_walk`` kernel (same outputs)."""
+    B = codes.shape[0]
+    dev = codes.device
+    b_ar = torch.arange(B, device=dev)
+    i = lens1.to(torch.int64).clone()
+    j = lens2.to(torch.int64).clone()
+    n = torch.zeros(B, dtype=torch.int32, device=dev)
+    ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=dev)
+    for t in range(max_steps):
+        active = (i > 0) | (j > 0)
+        jm = (j - 1).clamp(min=0)
+        step = i + (jm & 31)
+        if codes.shape[1]:
+            w = codes[b_ar, jm >> 5, step >> 4, jm & 31].to(torch.int64)
+            a = (w >> (2 * (step & 15))) & 3
+        else:
+            a = torch.zeros_like(i)
+        a = torch.where(j == 0, OP_LEFT, a)
+        ops[:, t] = torch.where(active, a, OP_NONE).to(torch.int8)
+        i = i - (active & (a != OP_UP)).to(torch.int64)
+        j = j - (active & (a != OP_LEFT)).to(torch.int64)
+        n = n + active.to(torch.int32)
+    return ops, n
+
+
+def ops_to_strings_batch(
+    ops: np.ndarray, ns: np.ndarray, pairs: Sequence[Tuple[bytes, bytes]],
+    gap: int = ord("-"),
+) -> List[Tuple[bytes, bytes]]:
+    """Host: aligned (X, Y) byte strings for a batch of walks.
+
+    ops: int8[B, S] walk op codes (corner -> origin); ns: int32[B];
+    pairs: the (s1, s2) byte strings.  The walk consumes characters from
+    the ends of the sequences; the reference prints origin -> corner
+    (needleman-wunsch.c:149), so each row is reversed.
+    """
+    ops = np.asarray(ops)
+    ns = np.asarray(ns)
+    B, S = ops.shape
+    if B == 0:
+        return []
+    l1 = np.array([len(a) for a, _ in pairs], np.int32)
+    l2 = np.array([len(b) for _, b in pairs], np.int32)
+    valid = np.arange(S, dtype=np.int32)[None, :] < ns[:, None]
+    take1 = (ops != OP_UP) & valid  # diag/left consume an s1 char
+    take2 = (ops != OP_LEFT) & valid  # diag/up consume an s2 char
+    # index of the consumed char: lengths minus running consumption
+    i_idx = l1[:, None] - np.cumsum(take1, axis=1, dtype=np.int32)
+    j_idx = l2[:, None] - np.cumsum(take2, axis=1, dtype=np.int32)
+    s1m = np.full((B, max(int(l1.max()), 1)), gap, np.uint8)
+    s2m = np.full((B, max(int(l2.max()), 1)), gap, np.uint8)
+    m1 = np.arange(s1m.shape[1], dtype=np.int32)[None, :] < l1[:, None]
+    m2 = np.arange(s2m.shape[1], dtype=np.int32)[None, :] < l2[:, None]
+    if l1.sum():
+        s1m[m1] = np.frombuffer(b"".join(a for a, _ in pairs), np.uint8)
+    if l2.sum():
+        s2m[m2] = np.frombuffer(b"".join(b for _, b in pairs), np.uint8)
+    rows = np.arange(B)[:, None]
+    X = np.where(take1, s1m[rows, np.clip(i_idx, 0, s1m.shape[1] - 1)], np.uint8(gap))
+    Y = np.where(take2, s2m[rows, np.clip(j_idx, 0, s2m.shape[1] - 1)], np.uint8(gap))
+    return [
+        (X[b, : int(ns[b])][::-1].tobytes(), Y[b, : int(ns[b])][::-1].tobytes())
+        for b in range(B)
+    ]
