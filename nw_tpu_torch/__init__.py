@@ -2,8 +2,9 @@
 and CUDA, for one NVIDIA H100.
 
 Module names mirror ``nw_tpu`` so that each counterpart is easy to find.
-The batched aligner (:class:`NWAligner`, ``align_batch``) runs its fills
-and walks through CUDA C++ kernels written for ``sm_90a``
+The aligner (:class:`NWAligner`: ``align``, ``summary_huge``,
+``align_batch``) and the byte-parity CLI (``python -m nw_tpu_torch``)
+run their fills and walks through CUDA C++ kernels written for ``sm_90a``
 (``csrc/``, built on first use by :mod:`nw_tpu_torch.runtime.kernels`);
 every kernel has a plain PyTorch version beside it, which is what runs
 when the caller passes ``device="cpu"``.  This package imports neither
@@ -11,8 +12,17 @@ JAX nor ``nw_tpu``.
 """
 
 from nw_tpu_torch.config import AlignConfig, ScoringParams
-from nw_tpu_torch.models.needleman_wunsch import BatchResult, NWAligner, align_batch
+from nw_tpu_torch.models.needleman_wunsch import (
+    AlignmentResult,
+    BatchResult,
+    NWAligner,
+    align,
+    align_batch,
+)
 
-__all__ = ["AlignConfig", "ScoringParams", "BatchResult", "NWAligner", "align_batch"]
+__all__ = [
+    "AlignConfig", "ScoringParams", "AlignmentResult", "BatchResult",
+    "NWAligner", "align", "align_batch",
+]
 
 __version__ = "0.1.0"

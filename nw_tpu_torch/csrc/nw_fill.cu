@@ -53,24 +53,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "nw_common.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using nw::kFull;
+using nw::wadd;
+using nw::wmul;
+using nw::wsub;
+
 constexpr int kCodeDiag = 0;
 constexpr int kCodeLeft = 1;
 constexpr int kCodeUp = 2;
-
-// two's-complement wrapping int32 arithmetic (signed overflow is
-// undefined in C++; the reference fill wraps)
-__device__ __forceinline__ int wadd(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
-__device__ __forceinline__ int wmul(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
-}
 
 template <bool EMIT_CODES, bool WITH_COUNTS>
 __global__ void __launch_bounds__(32) nw_fill_kernel(

@@ -1,0 +1,266 @@
+// Single-pair Needleman-Wunsch fills for Hopper (sm_90a): the warps of
+// one cooperative grid sweep ONE pair together.
+//
+// Replaces two TPU (Pallas) kernels:
+//   K8 nw_tpu/ops/fill_pallas_single.py:_make_score_count_kernel
+//      (score_count_fold)                                  -> nw_score_count
+//   K2 nw_tpu/ops/fill_pallas_banded.py:_make_banded_arrows_kernel
+//      in its pack_bits=8 tie-mask mode for one pair (build_arrows_call,
+//      fill_arrows_banded_single)                          -> nw_fill_masks
+//
+// Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163 on the
+// pair's exact (len2+1) x (len1+1) table, with row 0 (-c*d, LEFT, one
+// path) and column 0 (-j*d, UP, one path) written explicitly: the result
+// does not rest on the TPU kernel's NEG_INF decay
+// (fill_pallas_single.py:277-284) and holds for every scoring.  Scores
+// wrap as int32, counts as uint32.  The 0 x 0 pair gives score 0, count 1.
+//
+// Design.  The side string's rows are cut into bands of 32 rows, one row
+// per lane; a warp sweeps its band as nw_fill.cu does (the up neighbour
+// by __shfl_up_sync, the diagonal one the up value of the previous step,
+// lane 0 fed the row above the band 32 columns at a time).  G blocks of
+// W warps own the pair, P = G*W warps in all: global warp g = block*W +
+// warp takes bands g, g+P, g+2P, ..., so up to P bands are in flight as a
+// pipelined wavefront over the card, each one two 32-column chunks behind
+// the band above it (consecutive bands share a block, W at a time).  Band
+// b reads band b-1's last row (score and count) from a ring of P
+// boundary rows in global memory (slot (b-1)%P) and writes its own into
+// slot b%P, through L2 only (__ldcg / __stcg: another SM's L1 may hold a
+// stale line).  After every chunk each warp publishes the number of
+// chunks it has completed, over all its bands, in a global counter
+// (monotonic, so a reader never sees a later band's reset); the next
+// band's warp spins on it before it loads a chunk (gpu-scope fence after
+// the data and before the flag, and after the flag and before the data).
+// The launch is cooperative, so every block is co-resident and no spin
+// can wait on a block that never runs.  Reusing slot b%P is safe: band
+// b+P writes column c only after band b+P-1 has published past c, which
+// by the same rule needs band b+1 to have loaded column c.  With one warp
+// in all the ring is one row, read and written in place as nw_fill.cu
+// does.
+//
+// nw_fill_masks also stores each cell's 3-bit tie mask (bit0 diag, bit1
+// left, bit2 up; row 0 LEFT, column 0 UP, origin 0) into a rectangular
+// row-major uint8[len2+1, len1+1] and, when asked, its int32 score into
+// an int32 table of the same shape.  The 32 lanes of a warp hold 32
+// different rows, so a per-step store of a mask is 32 transactions,
+// which made the masks cost ~6x the fill on the H100 (PERF.md, section
+// 6).  So each lane writes
+// its mask into the warp's 32-row x 64-column byte ring in shared memory
+// (column c in slot c % 64; at any time the live columns span 63), and
+// after every 32-step chunk the warp stores the 32 columns that every
+// lane has finished, row by row: 32 lanes on 32 consecutive bytes, one
+// coalesced store a row.  Scores (only for -t tables) keep the per-lane
+// store.
+//
+// What bounds it on the H100: the serial chain of each step (one shuffle
+// and a few dependent integer ops, ~70-110 cycles for one warp alone,
+// PERF.md section 6); with W warps interleaving on an SM the step's
+// issued instructions (~40-50 a step for a warp, four schedulers) become
+// the SM's bound, and across SMs the wavefront's critical path (two
+// chunks a band, plus one band's sweep) bounds the pair.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "nw_common.cuh"
+
+namespace {
+
+using nw::kFull;
+using nw::wadd;
+using nw::wmul;
+using nw::wsub;
+
+constexpr int kMaxWarps = 32;
+constexpr unsigned kMaskDiag = 1u;
+constexpr unsigned kMaskLeft = 2u;
+constexpr unsigned kMaskUp = 4u;
+
+constexpr int kRingCols = 64;  // columns of a warp's mask ring
+constexpr int kTileBytes = 32 * kRingCols;
+
+template <bool EMIT_MASKS, bool EMIT_SCORES>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
+    const int* __restrict__ top, const int* __restrict__ side, int A, int Bs,
+    int m, int k, int d, int* ring, unsigned* cring, int* done,
+    unsigned char* __restrict__ masks, int* __restrict__ hs,
+    int* __restrict__ out_score, unsigned* __restrict__ out_count) {
+  extern __shared__ unsigned char tiles[];  // EMIT_MASKS: one ring a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned char* tile = tiles + warp * kTileBytes;
+  const int W = blockDim.x >> 5;
+  const int P = gridDim.x * W;  // warps in all
+  const int gwarp = blockIdx.x * W + warp;
+  const int M = A + 1;
+  const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
+  const int nbands = (Bs + 31) >> 5;
+  volatile int* vdone = done;  // chunks completed, per global warp (zeroed)
+
+  const int gthread = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int c = gthread; c < M; c += gridDim.x * blockDim.x) {  // row 0
+    if (EMIT_MASKS) masks[c] = c == 0 ? 0 : kMaskLeft;
+    if (EMIT_SCORES) hs[c] = wsub(0, wmul(c, d));
+  }
+  if (Bs == 0 && gthread == 0) {  // the corner is on row 0
+    *out_score = wsub(0, wmul(A, d));
+    *out_count = 1u;
+  }
+
+  const int negk = wsub(0, k);
+  const int prev_warp = (gwarp + P - 1) % P;
+  for (int band = gwarp, round = 0; band < nbands; band += P, ++round) {
+    const int j = band * 32 + 1 + lane;  // this lane's row
+    const bool row_ok = j <= Bs;
+    const int sch = row_ok ? side[j - 1] : -5;
+    const int col0 = wsub(0, wmul(j, d));  // H[j][0]
+    const int64_t rowoff = static_cast<int64_t>(j) * M;
+    const int64_t in_slot = static_cast<int64_t>((band + P - 1) % P) * M;
+    const int64_t out_slot = static_cast<int64_t>(band % P) * M;
+    // band-1's warp has completed this many chunks before band-1 began
+    const int pred_base = band > 0 ? ((band - 1) / P) * nchunks : 0;
+    int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
+    unsigned cnt = 0, cup_prev = 0;
+
+    for (int q = 0; q < nchunks; ++q) {
+      const int t0 = q << 5;
+      const int cx = t0 + lane;
+      int bval;
+      unsigned cbval;
+      if (band == 0) {  // the row above is row 0: -c*d, one path
+        bval = wsub(0, wmul(cx, d));
+        cbval = 1u;
+      } else {
+        // columns t0 .. t0+31 of band-1's last row are written once
+        // band-1 has completed chunk q+1 (lane 31 trails lane 0 by 31)
+        const int target = pred_base + min(q + 2, nchunks);
+        while (vdone[prev_warp] < target) {
+        }
+        __threadfence();
+        bval = cx < M ? __ldcg(ring + in_slot + cx) : 0;
+        cbval = cx < M ? __ldcg(cring + in_slot + cx) : 0u;
+      }
+      const int tval = (cx >= 1 && cx <= A) ? top[cx - 1] : -4;
+#pragma unroll 8
+      for (int s = 0; s < 32; ++s) {
+        const int c = t0 + s - lane;
+        int up = __shfl_up_sync(kFull, h, 1);
+        const int ch_in = __shfl_up_sync(kFull, ch, 1);
+        unsigned cup = __shfl_up_sync(kFull, cnt, 1);
+        const int b_up = __shfl_sync(kFull, bval, s);
+        const int b_ch = __shfl_sync(kFull, tval, s);
+        const unsigned cb_up = __shfl_sync(kFull, cbval, s);
+        up = lane == 0 ? b_up : up;
+        ch = lane == 0 ? b_ch : ch_in;
+        cup = lane == 0 ? cb_up : cup;
+
+        const int cand_d = wadd(up_prev, ch == sch ? m : negk);
+        const int cand_u = wsub(up, d);
+        const int cand_l = wsub(h, d);
+        int hn = max(max(cand_d, cand_u), cand_l);
+        const bool is_d = cand_d == hn, is_l = cand_l == hn, is_u = cand_u == hn;
+        unsigned cn = (is_d ? cup_prev : 0u) + (is_l ? cnt : 0u) + (is_u ? cup : 0u);
+        unsigned mask = (is_d ? kMaskDiag : 0u) | (is_l ? kMaskLeft : 0u) |
+                        (is_u ? kMaskUp : 0u);
+        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
+        hn = col_zero ? col0 : hn;
+        cn = col_zero ? 1u : cn;
+        mask = col_zero ? kMaskUp : mask;
+        const bool in_row = c >= 0 && c <= A;
+        if (EMIT_MASKS) tile[lane * kRingCols + (c & (kRingCols - 1))] = mask;
+        if (EMIT_SCORES && in_row && row_ok) hs[rowoff + c] = hn;
+        if (in_row && j == Bs && c == A) {  // the corner
+          *out_score = hn;
+          *out_count = cn;
+        }
+        if (lane == 31 && in_row) {  // this band's last row, for band+1
+          __stcg(ring + out_slot + c, hn);
+          __stcg(cring + out_slot + c, cn);
+        }
+        up_prev = up;
+        h = hn;
+        cup_prev = cup;
+        cnt = cn;
+      }
+      __syncwarp();  // the chunk's loads and stores precede the flag
+      if (lane == 31) {
+        __threadfence();
+        vdone[gwarp] = round * nchunks + q + 1;
+      }
+      if (EMIT_MASKS) {  // every lane has finished columns t0-31 .. t0
+        const int col = t0 - 31 + lane;
+        const bool col_ok = col >= 0 && col <= A;
+        const unsigned char* src = tile + (col & (kRingCols - 1));
+        unsigned char* dst = masks + static_cast<int64_t>(band * 32 + 1) * M + col;
+#pragma unroll 4
+        for (int r = 0; r < 32; ++r) {
+          const unsigned char v = src[r * kRingCols];
+          if (col_ok && band * 32 + 1 + r <= Bs) dst[static_cast<int64_t>(r) * M] = v;
+        }
+        __syncwarp();  // read before the next chunk overwrites the slots
+      }
+    }
+  }
+}
+
+template <bool EMIT_MASKS, bool EMIT_SCORES>
+int launch_single(const int* top, const int* side, int A, int Bs, int m,
+                  int k, int d, int blocks, int warps, int* ring,
+                  unsigned* cring, int* done, unsigned char* masks, int* hs,
+                  int* score, unsigned* count, cudaStream_t stream) {
+  if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int smem = EMIT_MASKS ? warps * kTileBytes : 0;  // up to 64 KB
+  auto kernel = nw_single_kernel<EMIT_MASKS, EMIT_SCORES>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // cooperative: all blocks co-resident (or the launch is refused), since
+  // a band spins on the band above it, which another block may run
+  void* args[] = {&top, &side, &A, &Bs, &m, &k, &d, &ring, &cring,
+                  &done, &masks, &hs, &score, &count};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(kernel), dim3(blocks), dim3(32 * warps), args,
+      static_cast<size_t>(smem), stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it; the caller gets this launch's error
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K8 port: one pair's corner score and uint32 solution count, O(A+B)
+// device memory.  top int32[A], side int32[Bs] (exact lengths); blocks x
+// warps warps; ring / cring are [min(blocks*warps, bands), A+1] scratch,
+// done int32[blocks*warps] zeroed; score / count one element each.
+extern "C" int nw_score_count(const int* top, const int* side, int A, int Bs,
+                              int m, int k, int d, int blocks, int warps,
+                              int* ring, void* cring, int* done, int* score,
+                              void* count, void* stream) {
+  return launch_single<false, false>(
+      top, side, A, Bs, m, k, d, blocks, warps, ring,
+      static_cast<unsigned*>(cring), done, nullptr, nullptr, score,
+      static_cast<unsigned*>(count), static_cast<cudaStream_t>(stream));
+}
+
+// K2 pack_bits=8 port for one pair: tie masks uint8[Bs+1, A+1], the
+// int32 scores of the same table when hs is not null, the corner score
+// and the fused uint32 count.
+extern "C" int nw_fill_masks(const int* top, const int* side, int A, int Bs,
+                             int m, int k, int d, int blocks, int warps,
+                             int* ring, void* cring, int* done, void* masks,
+                             int* hs, int* score, void* count, void* stream) {
+  auto cr = static_cast<unsigned*>(cring);
+  auto mk = static_cast<unsigned char*>(masks);
+  auto ct = static_cast<unsigned*>(count);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (hs)
+    return launch_single<true, true>(top, side, A, Bs, m, k, d, blocks, warps,
+                                     ring, cr, done, mk, hs, score, ct, s);
+  return launch_single<true, false>(top, side, A, Bs, m, k, d, blocks, warps,
+                                    ring, cr, done, mk, nullptr, score, ct, s);
+}

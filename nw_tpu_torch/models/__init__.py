@@ -1,6 +1,12 @@
 """Alignment models: :mod:`nw_tpu_torch.models.needleman_wunsch`, global
-alignment with linear gap penalties (the batched path)."""
+alignment with linear gap penalties (one pair and batches)."""
 
-from nw_tpu_torch.models.needleman_wunsch import BatchResult, NWAligner, align_batch
+from nw_tpu_torch.models.needleman_wunsch import (
+    AlignmentResult,
+    BatchResult,
+    NWAligner,
+    align,
+    align_batch,
+)
 
-__all__ = ["BatchResult", "NWAligner", "align_batch"]
+__all__ = ["AlignmentResult", "BatchResult", "NWAligner", "align", "align_batch"]

@@ -1,13 +1,20 @@
-"""Batched global alignment with linear gap penalties.
+"""Global alignment with linear gap penalties.
 
-Counterpart of ``nw_tpu/models/needleman_wunsch.py`` for the batched
-path (``NWAligner.align_batch``): one call aligns a batch of pairs padded
-to a length bucket and returns int32 scores, uint32 solution counts and
-the greedy first-emitted alignment of each pair.  The single-pair and
-huge-pair entry points (``align``, ``align_huge``, ``summary_huge``) are
-not ported yet.
+Counterpart of ``nw_tpu/models/needleman_wunsch.py``:
 
-Routes, by what the caller asks for:
+* ``NWAligner.align`` — one pair's whole table (tie masks, scores),
+  score and solution count, for enumeration and ``-t`` rendering
+  (``nw_fill_masks``);
+* ``NWAligner.summary_huge`` — one pair's score and solution count in
+  O(A+B) memory (``nw_score_count``, the K8 port);
+* ``NWAligner.align_batch`` — a batch of pairs padded to a length bucket:
+  int32 scores, uint32 solution counts and the greedy first-emitted
+  alignment of each pair.
+
+``align_huge`` and the strings half of ``align_batch``'s small batches of
+huge pairs need the huge-pair engines (K9-K14), not ported yet.
+
+``align_batch``'s routes, by what the caller asks for:
 
 * scores only -> :func:`nw_tpu_torch.ops.fill_auto.fill_scores_auto`
   (``nw_scores``);
@@ -17,20 +24,22 @@ Routes, by what the caller asks for:
   :func:`nw_tpu_torch.ops.banded_traceback.traceback_banded_dispatch`
   (``nw_fill_codes`` then ``nw_walk``).  Only this route stores a value
   per cell (2 bits), so only it is cut into sub-batches, sized so that
-  one sub-batch's codes fit :data:`CODE_BUDGET_BYTES`.
+  one sub-batch's codes fit :data:`CODE_BUDGET_BYTES`;
+* counts of fewer than ``BANDED_MIN_BATCH`` pairs with sides over
+  ``HUGE_PAIR_MIN_SIDE`` -> one pair at a time through ``summary_huge``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from nw_tpu_torch.config import AlignConfig, ScoringParams
 from nw_tpu_torch.ops import encode as enc
-from nw_tpu_torch.ops import traceback
+from nw_tpu_torch.ops import enumerate_walk, traceback
 from nw_tpu_torch.ops.banded_traceback import (
     traceback_banded_dispatch,
     traceback_banded_finalize,
@@ -40,7 +49,12 @@ from nw_tpu_torch.ops.fill_auto import (
     HUGE_PAIR_MIN_SIDE,
     fill_scores_auto,
 )
-from nw_tpu_torch.ops.fill_banded import code_shape, fill_scores_counts_banded_batch
+from nw_tpu_torch.ops.fill_banded import (
+    code_shape,
+    fill_arrows_banded_single,
+    fill_scores_counts_banded_batch,
+)
+from nw_tpu_torch.ops.fill_single import score_count_fold
 
 # device bytes one strings sub-batch may spend on its 2-bit codes: at
 # 10 kb buckets (26 MB a pair) 640 pairs, i.e. several warps per SM
@@ -55,6 +69,37 @@ def code_bytes_per_pair(L1: int, L2: int) -> int:
     """Device bytes of one pair's greedy codes at buckets (L1, L2)."""
     _, nbands, TW, lanes = code_shape(1, L1, L2)
     return nbands * TW * lanes * 4
+
+
+@dataclasses.dataclass
+class AlignmentResult:
+    """Result for a single pair (host numpy arrays).
+
+    The tables are rectangular, row j / column i, as ``nw_fill_masks``
+    writes them; ``nw_tpu``'s diagonal-major ``arrows_diag`` /
+    ``scores_diag`` fields have no counterpart here.
+    """
+
+    s1: bytes
+    s2: bytes
+    score: int
+    solution_count: int
+    arrows: Optional[np.ndarray] = None  # uint8[N, M] tie masks
+    score_matrix: Optional[np.ndarray] = None  # int32[N, M]
+
+    def alignments(
+        self, max_alignments: Optional[int] = None
+    ) -> Iterator[Tuple[bytes, bytes]]:
+        """All optimal alignments in reference DFS order (diag>left>up)."""
+        return enumerate_walk.iter_alignments(
+            self.arrows, self.s1, self.s2, max_alignments
+        )
+
+    def best_alignment(self) -> Tuple[bytes, bytes]:
+        """First optimal alignment (== the reference's first-emitted one)."""
+        for a in self.alignments(max_alignments=1):
+            return a
+        return b"", b""
 
 
 @dataclasses.dataclass
@@ -103,6 +148,47 @@ class NWAligner:
         self.config = config
         self.device = dev
 
+    def _encode_pair(self, s1: bytes, s2: bytes):
+        return enc.upload((enc.encode(s1), enc.encode(s2)), self.device)
+
+    def align(self, s1: str | bytes, s2: str | bytes) -> AlignmentResult:
+        """Align one pair, returning its tie masks and scores for
+        enumeration and table rendering, its score and its solution
+        count (``nw_tpu`` ``needleman_wunsch.py:137``)."""
+        s1b, s2b = _as_bytes(s1), _as_bytes(s2)
+        m, k, d = self.config.scoring.as_tuple()
+        masks, scores, score, count = fill_arrows_banded_single(
+            *self._encode_pair(s1b, s2b), m, k, d, with_scores=True
+        )
+        return AlignmentResult(
+            s1=s1b,
+            s2=s2b,
+            score=score,
+            solution_count=0 if not s1b and not s2b else count,  # 1x1: no DFS emission
+            arrows=masks.cpu().numpy(),
+            score_matrix=scores.cpu().numpy(),
+        )
+
+    def summary_huge(self, s1: str | bytes, s2: str | bytes) -> Tuple[int, int]:
+        """(optimal score, solution count mod 2^32) of one pair in a
+        single O(A+B)-memory pass — the reference ``-s`` summary
+        (computation.c:271-281) at scales where no table fits
+        (``nw_tpu`` ``needleman_wunsch.py:271``)."""
+        s1b, s2b = _as_bytes(s1), _as_bytes(s2)
+        m, k, d = self.config.scoring.as_tuple()
+        score, count = score_count_fold(*self._encode_pair(s1b, s2b), m, k, d)
+        return score, 0 if not s1b and not s2b else count
+
+    def _align_batch_huge_pairs(self, norm, status) -> BatchResult:
+        """Counts of a small batch of huge pairs, one pair at a time
+        through :meth:`summary_huge` (``nw_tpu``
+        ``needleman_wunsch.py:290-341``, its count-only branch)."""
+        scores = np.zeros(len(norm), np.int32)
+        counts = np.zeros(len(norm), np.uint32)
+        for i, (a, b) in enumerate(norm):
+            scores[i], counts[i] = self.summary_huge(a, b)
+        return BatchResult(scores=scores, counts=counts, status=status, _pairs=norm)
+
     def align_batch(
         self,
         pairs: Sequence[Tuple[str | bytes, str | bytes]],
@@ -149,11 +235,13 @@ class NWAligner:
             return BatchResult(scores=scores.cpu().numpy(), status=status, _pairs=norm)
 
         if L2 > HUGE_PAIR_MIN_SIDE and len(norm) < BANDED_MIN_BATCH:
-            raise NotImplementedError(
-                f"{len(norm)} pair(s) with sides over {HUGE_PAIR_MIN_SIDE} "
-                "need the huge-pair engines, not ported yet (ROADMAP queue 1 "
-                "item 6)"
-            )
+            if traceback_strings:
+                raise NotImplementedError(
+                    f"strings of {len(norm)} pair(s) with sides over "
+                    f"{HUGE_PAIR_MIN_SIDE} need the huge-pair engines, not "
+                    "ported yet (ROADMAP queue 1 item 6)"
+                )
+            return self._align_batch_huge_pairs(norm, status)
         if not traceback_strings:
             tops, sides, l1, l2 = enc.upload(enc.encode_batch(norm, L1, L2), self.device)
             scores, counts = fill_scores_counts_banded_batch(
@@ -205,6 +293,11 @@ def _pipelined_banded_walk(norm, m, k, d, chunk, count, L1, L2, device):
         ops_l.append(ops)
         n_l.append(n)
     return scores_l, counts_l, ops_l, n_l
+
+
+def align(s1, s2, m: int = 1, k: int = 1, d: int = 1, device: str = "cuda") -> AlignmentResult:
+    """One-shot single-pair alignment (reference CLI semantics)."""
+    return NWAligner(AlignConfig(scoring=ScoringParams(m, k, d)), device=device).align(s1, s2)
 
 
 def align_batch(

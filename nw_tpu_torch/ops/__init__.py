@@ -3,9 +3,13 @@
 * :mod:`nw_tpu_torch.ops.encode` — sequence encoding, padding, upload.
 * :mod:`nw_tpu_torch.ops.fill_scan` — plain anti-diagonal fill (the
   version every fill kernel is held against).
-* :mod:`nw_tpu_torch.ops.pathcount` — optimal-path counts from tie masks.
+* :mod:`nw_tpu_torch.ops.pathcount` — optimal-path counts, optimal-cell
+  marks and branch counts from tie masks.
+* :mod:`nw_tpu_torch.ops.enumerate_walk` — host enumeration of every
+  optimal alignment (native C++ walker, Python fallback).
 * :mod:`nw_tpu_torch.ops.traceback` — greedy walks and op strings.
 * :mod:`nw_tpu_torch.ops.fill_banded` — the K1 / K2 kernel wrappers.
+* :mod:`nw_tpu_torch.ops.fill_single` — the K8 kernel wrapper.
 * :mod:`nw_tpu_torch.ops.banded_traceback` — code fill + walk.
 * :mod:`nw_tpu_torch.ops.fill_auto` — score routing.
 """

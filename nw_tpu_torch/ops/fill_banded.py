@@ -1,6 +1,6 @@
-"""Banded batched fills: the ports of TPU kernels K1 and K2.
+"""Banded fills: the ports of TPU kernels K1 and K2.
 
-Counterpart of ``nw_tpu/ops/fill_pallas_banded.py``.  Three wrappers,
+Counterpart of ``nw_tpu/ops/fill_pallas_banded.py``.  Four wrappers,
 each with its plain PyTorch version in this module:
 
 * :func:`fill_scores_banded_batch` — int32 corner scores at any side
@@ -10,10 +10,15 @@ each with its plain PyTorch version in this module:
   K2's ``with_words=False`` mode);
 * :func:`fill_greedy_counts_banded_batch` — the 2-bit greedy code of
   every cell, scores, and optionally counts (``nw_fill_codes``, K2's
-  ``pack_bits=2`` / ``with_counts`` modes).
+  ``pack_bits=2`` / ``with_counts`` modes);
+* :func:`fill_arrows_banded_single` — one pair's rectangular 3-bit tie
+  masks, optionally its per-cell scores, its score and its fused count
+  (``nw_fill_masks`` in ``csrc/nw_single.cu``, K2's ``pack_bits=8`` mode
+  for one pair).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel (``csrc/nw_fill.cu``) or raises.  Each wrapper counts
+launches the kernel (``csrc/nw_fill.cu``, ``csrc/nw_single.cu``) or
+raises.  Each wrapper counts
 its launches in ``.launches``.
 
 Inputs are int32 tops[B, A] / sides[B, Bs] encoded with the PAD_TOP /
@@ -34,7 +39,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from nw_tpu_torch.ops.fill_scan import U32, diag_to_matrix_batch, fill_diag_batch
+from nw_tpu_torch.ops.fill_scan import (
+    U32,
+    diag_to_matrix,
+    diag_to_matrix_batch,
+    fill_diag,
+    fill_diag_batch,
+)
+from nw_tpu_torch.ops.fill_single import WARPS, check_pair, launch_shape, single_scratch
 from nw_tpu_torch.runtime import kernels
 
 CODES_PER_WORD = 16
@@ -237,3 +249,62 @@ def fill_greedy_counts_banded_batch_plain(
     )
     codes = greedy_codes_from_arrows(out["arrows"])
     return codes, out["score"], out.get("count")
+
+
+# ---------------- K2 pack_bits=8, one pair: tie masks ----------------
+
+
+def fill_arrows_banded_single(
+    top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int,
+    len1: Optional[int] = None, len2: Optional[int] = None,
+    with_scores: bool = False, warps: int = WARPS, blocks: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], int, int]:
+    """One pair's whole table: (masks uint8[len2+1, len1+1], scores
+    int32[len2+1, len1+1] or None, score, count mod 2^32).
+
+    Masks are rectangular and row-major, bit0 diag / bit1 left / bit2
+    up (row 0 LEFT, column 0 UP, the origin 0), not the TPU kernel's
+    packed band-major words.  top / side: int32[A] / int32[Bs]; len1 /
+    len2 default to A / Bs; ``warps`` / ``blocks`` as
+    :func:`nw_tpu_torch.ops.fill_single.score_count_fold`.
+    """
+    len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
+    if top.device.type == "cpu":
+        return fill_arrows_banded_single_plain(top, side, m, k, d, len1, len2, with_scores)
+    dev = top.device
+    top = top[:len1].contiguous()
+    side = side[:len2].contiguous()
+    masks = torch.empty((len2 + 1, len1 + 1), dtype=torch.uint8, device=dev)
+    scores = (
+        torch.empty((len2 + 1, len1 + 1), dtype=torch.int32, device=dev)
+        if with_scores else None
+    )
+    blocks, warps = launch_shape(len2, warps, blocks, dev)
+    ring, cring, done, score, count = single_scratch(len1, len2, blocks, warps, dev)
+    kernels.launch(
+        "nw_fill_masks", dev,
+        top.data_ptr(), side.data_ptr(), len1, len2, m, k, d, blocks, warps,
+        ring.data_ptr(), cring.data_ptr(), done.data_ptr(), masks.data_ptr(),
+        scores.data_ptr() if with_scores else None,
+        score.data_ptr(), count.data_ptr(),
+    )
+    fill_arrows_banded_single.launches += 1
+    return masks, scores, int(score.item()), int(count.item()) & U32
+
+
+fill_arrows_banded_single.launches = 0
+
+
+def fill_arrows_banded_single_plain(
+    top, side, m, k, d, len1=None, len2=None, with_scores: bool = False
+):
+    """Plain version of :func:`fill_arrows_banded_single`: the
+    anti-diagonal fill of the pair, turned into rectangles."""
+    len1 = top.shape[0] if len1 is None else len1
+    len2 = side.shape[0] if len2 is None else len2
+    out = fill_diag(
+        top, side, m, k, d, len1, len2, with_counts=True, with_scores=with_scores
+    )
+    masks = diag_to_matrix(out["arrows"], len1, len2)
+    scores = diag_to_matrix(out["scores"], len1, len2) if with_scores else None
+    return masks, scores, int(out["score"]), int(out["count"])

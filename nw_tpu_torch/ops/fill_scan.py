@@ -46,6 +46,7 @@ def fill_diag_batch(
     d: int,
     with_arrows: bool = True,
     with_counts: bool = False,
+    with_scores: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Fill a batch of DP tables along anti-diagonals.
 
@@ -57,10 +58,13 @@ def fill_diag_batch(
       m, k, d: match bonus, mismatch penalty, indel penalty.
       with_arrows: return the uint8[B, A+Bs+1, Bs+1] tie masks.
       with_counts: return the optimal-path counts at the true corner.
+      with_scores: return the int32[B, A+Bs+1, Bs+1] scores of every
+        cell (``NEG_INF`` outside the table), as ``fill_scan.py:48
+        fill_diag(..., with_scores=True)``.
 
     Returns:
       dict with ``score`` int32[B], and ``arrows`` / ``count`` (int64[B]
-      in [0, 2^32)) when asked.
+      in [0, 2^32)) / ``scores`` when asked.
     """
     B, A = tops.shape
     Bs = sides.shape[1]
@@ -94,6 +98,7 @@ def fill_diag_batch(
         cprev2 = torch.zeros((B, N), dtype=torch.int64, device=dev)
         ccaptured = torch.ones(B, dtype=torch.int64, device=dev)
     arrows_l = [torch.zeros((B, N), dtype=torch.uint8, device=dev)]
+    scores_l = [prev]
 
     for kk in range(1, K):
         i_idx = kk - j_idx
@@ -119,6 +124,8 @@ def fill_diag_batch(
         hit = kk == k_corner
         captured = torch.where(hit, score[b_ar, lens2.clamp(max=Bs)], captured)
 
+        if with_scores:
+            scores_l.append(score)
         if with_arrows:
             arrows_l.append(
                 b_diag.to(torch.uint8)
@@ -142,7 +149,36 @@ def fill_diag_batch(
         out["arrows"] = torch.stack(arrows_l, dim=1)
     if with_counts:
         out["count"] = ccaptured
+    if with_scores:
+        out["scores"] = torch.stack(scores_l, dim=1)
     return out
+
+
+def fill_diag(
+    top: torch.Tensor,
+    side: torch.Tensor,
+    m: int,
+    k: int,
+    d: int,
+    len1: int | None = None,
+    len2: int | None = None,
+    with_arrows: bool = True,
+    with_counts: bool = False,
+    with_scores: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """:func:`fill_diag_batch` on one pair (``fill_scan.py:48
+    fill_diag``): int32 top[A] / side[Bs], true lengths defaulting to
+    A / Bs; the same dict with the batch dimension dropped."""
+    len1 = top.shape[0] if len1 is None else len1
+    len2 = side.shape[0] if len2 is None else len2
+    dev = top.device
+    out = fill_diag_batch(
+        top[None], side[None],
+        torch.tensor([len1], device=dev), torch.tensor([len2], device=dev),
+        m, k, d, with_arrows=with_arrows, with_counts=with_counts,
+        with_scores=with_scores,
+    )
+    return {key: v[0] for key, v in out.items()}
 
 
 def diag_to_matrix_batch(diag: torch.Tensor) -> torch.Tensor:
@@ -155,3 +191,23 @@ def diag_to_matrix_batch(diag: torch.Tensor) -> torch.Tensor:
     dt = diag.transpose(1, 2).contiguous()
     M = K - N + 1
     return dt.as_strided((B, N, M), (N * K, K + 1, 1)).contiguous()
+
+
+def diag_to_matrix(diag: torch.Tensor, len1: int, len2: int) -> torch.Tensor:
+    """One pair's diagonal-major ``D[kk, j]`` -> its true rectangle
+    ``H[j, i] = D[i + j, j]``, (len2+1, len1+1) (``fill_scan.py:208``)."""
+    jj = torch.arange(len2 + 1, device=diag.device)[:, None]
+    ii = torch.arange(len1 + 1, device=diag.device)[None, :]
+    return diag[ii + jj, jj]
+
+
+def matrix_to_diag(rect: torch.Tensor) -> torch.Tensor:
+    """Rectangular ``H[j, i]`` (N, M) -> diagonal-major ``D[kk, j] =
+    H[j, kk - j]`` (M + N - 1, N); cells outside the table are 0."""
+    N, M = rect.shape
+    kk = torch.arange(M + N - 1, device=rect.device)[:, None]
+    jj = torch.arange(N, device=rect.device)[None, :]
+    ii = kk - jj
+    inside = (ii >= 0) & (ii < M)
+    vals = rect[jj.expand_as(ii), ii.clamp(0, M - 1)]
+    return torch.where(inside, vals, torch.zeros((), dtype=rect.dtype, device=rect.device))

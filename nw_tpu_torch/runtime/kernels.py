@@ -1,11 +1,12 @@
 """Build and bind the package's CUDA kernels.
 
-``nw_tpu_torch/csrc/*.cu`` are compiled by ``nvcc`` into one shared
-library with a plain C interface and loaded with ctypes: every pointer
-and the stream go as ``c_void_p``, sizes as ``c_int``.  The library is
-built on first use into ``nw_tpu_torch/_build/``, under a name keyed by a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+``nw_tpu_torch/csrc/*.cu`` are compiled by ``nvcc`` (one process per
+source, all started together) and linked into one shared library with a
+plain C interface, loaded with ctypes: every pointer and the stream go
+as ``c_void_p``, sizes as ``c_int``.  The library is built on first use
+into ``nw_tpu_torch/_build/``, under a name keyed by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is.
 
 Each C entry point enqueues its kernel on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0
@@ -30,7 +31,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 P = ctypes.c_void_p
@@ -40,6 +41,8 @@ SIGNATURES = {
     "nw_scores": [P, P, P, P, I, I, I, I, I, I, P, P, P],
     "nw_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nw_walk": [P, P, P, I, I, I, I, P, P, P],
+    "nw_score_count": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
+    "nw_fill_masks": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P, P, P],
 }
 
 
@@ -71,17 +74,31 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent build sees old or new
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmpdir:
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+            objs.append(obj)
+        failed = []
+        for cmd, proc in procs:  # wait for every compile before raising
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(tmpdir, so.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
+            )
+        os.replace(tmp, so)  # atomic: a concurrent build sees old or new
     return so
 
 

@@ -91,9 +91,16 @@ def test_empty_batch():
         assert r.scores.shape == (0,)
 
 
-def test_small_batch_of_huge_pairs_is_not_ported():
+def test_small_batch_of_huge_pairs_is_not_ported(monkeypatch):
+    """Strings of a small batch of huge pairs still need the huge-pair
+    engines; their counts go pair by pair through summary_huge."""
     ps = [(b"A" * 40000, b"C" * 40000)] * 2
     with pytest.raises(NotImplementedError, match="queue 1"):
         align_batch(ps, device="cpu", traceback_strings=True)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        align_batch(ps, device="cpu", count=True)
+    calls = []
+    monkeypatch.setattr(
+        NWAligner, "summary_huge", lambda self, a, b: calls.append((a, b)) or (-7, 2**32 - 1)
+    )
+    r = align_batch(ps, device="cpu", count=True)
+    assert calls == ps
+    assert r.scores.tolist() == [-7, -7] and r.counts.tolist() == [2**32 - 1] * 2

@@ -16,11 +16,21 @@ FORBIDDEN = re.compile(
 )
 
 
+NEW_MODULES = {
+    "nw_tpu_torch.cli", "nw_tpu_torch.__main__", "nw_tpu_torch.runtime.native",
+    "nw_tpu_torch.ops.fill_single", "nw_tpu_torch.ops.enumerate_walk",
+    "nw_tpu_torch.utils.cformat", "nw_tpu_torch.utils.textio",
+    "nw_tpu_torch.utils.alignout", "nw_tpu_torch.utils.render",
+}
+
+
 def test_import_does_not_load_jax():
     code = (
         "import pkgutil, sys, importlib, nw_tpu_torch\n"
-        "for m in pkgutil.walk_packages(nw_tpu_torch.__path__, 'nw_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(nw_tpu_torch.__path__, 'nw_tpu_torch.')]\n"
+        f"assert set(names) >= set({sorted(NEW_MODULES)}), names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'nw_tpu' or n.startswith('nw_tpu.'))\n"
         "print(bad)\n"
@@ -66,6 +76,12 @@ def test_wrappers_do_not_fall_back_off_cpu():
         traceback.walk_codes_batch(
             torch.zeros((2, 1, 6, 32), dtype=torch.int32, device="meta"), lens, lens, 16
         )
+    from nw_tpu_torch.ops import fill_single
+
+    one = torch.zeros(8, dtype=torch.int32, device="meta")
+    for fn in (fill_single.score_count_fold, fill_banded.fill_arrows_banded_single):
+        with pytest.raises(ValueError):
+            fn(one, one, 1, 1, 1)
 
 
 def test_kernel_build_is_keyed_by_sources():
@@ -73,5 +89,19 @@ def test_kernel_build_is_keyed_by_sources():
 
     path = kernels.library_path()
     assert path.parent == REPO / "nw_tpu_torch" / "_build"
-    assert {s.name for s in kernels._sources()} >= {"nw_fill.cu", "nw_walk.cu"}
+    assert {s.name for s in kernels._sources()} >= {
+        "nw_fill.cu", "nw_walk.cu", "nw_single.cu", "nw_common.cuh"
+    }
     assert os.path.basename(path).startswith("libnw_tpu_torch-")
+
+
+def test_native_runtime_builds_from_nw_tpu_sources():
+    """The port's native C++ runtime is nw_tpu/runtime/cc, compiled by
+    path into nw_tpu_torch/_build (g++ is on both hosts)."""
+    from nw_tpu_torch.runtime import native
+
+    assert {os.path.basename(s) for s in native._sources()} == {
+        "nwread.cc", "nwrender.cc", "nwstrings.cc", "nwwalk.cc"
+    }
+    assert native.load() is not None
+    assert any(p.name.startswith("libnwnative-") for p in (REPO / "nw_tpu_torch" / "_build").iterdir())
