@@ -26,7 +26,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    a 20 000 x 20 000 pair (above 2^28 cells) against its plain version
    and ``nw_fill_codes`` counts-only, and its time at 1 to 32 warps;
 7. the CLI (``python3 -m nw_tpu_torch``, the native runtime built from
-   nw_tpu/runtime/cc): goldens of tests/test_cli.py as subprocesses;
+   nw_tpu_torch/runtime/cc): goldens of tests/test_cli.py as subprocesses;
    then, in-process with every launch counter set to 0 until the last
    CLI call, the same cases and 8 mixed-length tie-dense pairs under
    ``-l -s`` (BASELINE config 4) on the card against
@@ -37,6 +37,34 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``nw_fill_codes`` counts-only; both single-pair kernels must have
    launched; ``nw_fill_masks`` against its plain version on the 10 kb
    pair; the CLI's cold start.
+
+8. huge pairs: (a) the single-pair modes ``nw_fill_codes_single`` (K14,
+   and K13 from a seed row), ``nw_score_single`` (K11, and K12 dumping
+   checkpoint rows) and ``nw_walk_window`` bit for bit against their
+   plain versions (24 random pairs of 0-700 bp, tie-dense pairs, the
+   edge pairs, every scoring, 1 to 8 warps and several blocks), the
+   codes also against ``nw_fill_codes`` at B = 1; then, with every launch
+   counter set to 0, (b) ``align_huge`` on both routes at 10 240 bp
+   against ``align(...).best_alignment()``, (c) a random 100 000 x
+   100 000 bp pair on both routes (identical strings that spell both
+   inputs and re-score to the reported, ``summary_huge``'s and
+   ``score_fold``'s score), (d) ``align_batch`` of 2 x 100 000 bp pairs
+   with strings and counts and scores only; every new kernel must have
+   launched; each mode against its plain version at the sizes (b) and
+   (c) run: on both 10 240 bp pairs at ``align_huge``'s block size
+   there (whole-pair codes, checkpoint rows, score, a middle block
+   re-filled from the kernel's checkpoint, the chained window walks),
+   the score at 20 000 bp, and at 100 000 bp one 1 280-row block
+   re-filled from the kernel's checkpoint and the 79 chained window
+   walks; (e) times: ``align_huge`` walls, the kernels apart, the
+   scores-only crossover of one warp a pair against ``score_fold``,
+   peak device memory.
+
+Each kernel's ``bound_ms`` is the larger of its int32 operations (per
+cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
+tie mask; 12 a walk step) over the card's SMs x 64 INT32 lanes x
+``clocks.max.sm``, and its bytes (inputs read once, outputs written
+once) over 3.35 TB/s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -62,6 +90,11 @@ L_LONG = 10240  # bench.py:231 bench_config3 / bench.py:127 banded scores
 L_SHORT = 150  # BASELINE config 2
 L_HUGE = 100_000  # BASELINE config 5's pair length
 L_CROSS = 20_000  # (L+1)^2 > 2^28: past nw_tpu's huge-route threshold
+CROSSOVER = (1024, 2048, 4096, 10240, L_HUGE)  # scores of 2, 8, 23 pairs: K1 vs K11 route
+# int32 operations a cell (or a walk step) of each kernel mode, for the bound
+OPS_SCORE, OPS_COUNT, OPS_CODE, OPS_WALK_STEP = 7, 8, 6, 12
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+INT32_LANES_PER_SM = 64
 # (args, stdin, stdout, stderr) of tests/test_cli.py, run as subprocesses
 GOLDENS = [
     (["1", "1", "1"], b"GT GT", b"GT\nGT\n\n", b""),
@@ -128,21 +161,26 @@ def max_abs_err(got, want) -> int:
     w = want.to(torch.int64).cpu()
     if g.shape != w.shape:
         fail(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-    if got.dtype == torch.int32 and got.dim() == 3:
+    if got.dtype == torch.int32 and got.dim() >= 3:
         g, w = g & 0xFFFFFFFF, w & 0xFFFFFFFF
     return int((g - w).abs().max()) if g.numel() else 0
+
+
+def cuda_once(fn):
+    """(``fn()``, the device ms of that one run by CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` runs after one warm-up,
     by CUDA events; ``reps`` 0 times the one run itself."""
     if reps == 0:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
+        return cuda_once(fn)[1]
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -153,6 +191,26 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class Bound:
+    """The least time the card could take for a kernel's work: the larger
+    of its int32 operations over every SM's INT32 lanes at the highest SM
+    clock and its bytes over the HBM rate."""
+
+    def __init__(self, sms: int, clock_hz: float):
+        self.ops_per_s = sms * INT32_LANES_PER_SM * clock_hz
+
+    def __call__(self, ops: float, nbytes: float) -> dict:
+        t_ops, t_bytes = ops / self.ops_per_s, nbytes / HBM_BYTES_PER_S
+        return {
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def rescore(pairs, aligned, m, k, d) -> np.ndarray:
@@ -352,7 +410,7 @@ def cli_phase(card, errs):
     from nw_tpu_torch.runtime import native
 
     if native.load() is None:
-        fail("the native runtime (nw_tpu/runtime/cc) did not build or load")
+        fail("the native runtime (nw_tpu_torch/runtime/cc) did not build or load")
     env = {k: v for k, v in os.environ.items() if k != "NW_TPU_PLATFORM"}
     for args, stdin, want_out, want_err in GOLDENS:
         res = subprocess.run(
@@ -490,6 +548,445 @@ def cli_phase(card, errs):
     return launches, walls, times
 
 
+# the single-pair modes of phase 8: record name -> (wrapper, counter attribute)
+HUGE_KERNELS = {
+    "nw_fill_codes_single": ("fill_codes_single", "launches"),  # K14
+    "nw_fill_codes_single/seeded": ("fill_codes_single", "seeded_launches"),  # K13
+    "nw_score_single": ("score_fold", "launches"),  # K11
+    "nw_score_single/ckpt": ("score_fold", "ckpt_launches"),  # K12
+    "nw_walk_window": ("walk_codes_window", "launches"),
+}
+
+
+def against_plain(name, kern, plain, errs):
+    """One kernel call's outputs against its plain version's on the same
+    inputs, max |diff| into ``errs[name]``; returns (kernel outputs,
+    the plain version's device ms)."""
+    got = kern()
+    want, ms = cuda_once(plain)
+    e = max(max_abs_err(g, w) for g, w in zip(got, want) if w is not None)
+    errs[name] = max(errs.get(name, 0), e)
+    return got, ms
+
+
+def walk_chain(walk, chain, len1, len2):
+    """(state, ops) of ``walk`` (``walk_codes_window`` or its plain
+    version) chained over ``chain``, (r0, codes) of every block, last
+    block first, as ``traceback_checkpointed`` walks them."""
+    from nw_tpu_torch.ops.traceback import OP_NONE
+
+    dev = chain[0][1].device
+    state = torch.tensor([len1, len2, 0], dtype=torch.int32, device=dev)
+    ops = torch.full((len1 + len2,), OP_NONE, dtype=torch.int8, device=dev)
+    for r0, codes in chain:
+        walk(codes, state, r0, ops)
+    return state, ops
+
+
+def modes_vs_plain_10k(pair, C, errs, plain):
+    """Phase 8: K14, K12, K11, K13 and the window walk against their
+    plain versions on one 10 240 bp pair at ``align_huge``'s block size C
+    there, m k d = 1 1 1 as in (b): the whole pair's codes and corner,
+    the score and the checkpoint rows, the middle block re-filled from
+    the kernel's checkpoint row, and the chained walks over every block
+    the kernel re-filled.  With ``plain`` a dict, each plain version's
+    ms and the kernel's there go into it."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import traceback as tb
+
+    t, s = (torch.from_numpy(enc.encode(x)).cuda() for x in pair)
+    L1, L2 = len(pair[0]), len(pair[1])
+    kw_ck = {"checkpoint_every": C}
+    runs = {
+        "nw_fill_codes_single": (fs.fill_codes_single, fs.fill_codes_single_plain, {}),
+        "nw_score_single/ckpt": (fs.score_fold, fs.score_fold_plain, kw_ck),
+    }
+    for name, (kern, plain_fn, kw) in runs.items():
+        got, ms = against_plain(
+            name, lambda: kern(t, s, 1, 1, 1, **kw), lambda: plain_fn(t, s, 1, 1, 1, **kw), errs
+        )
+        if plain is not None:
+            kern_ms = cuda_ms(lambda: kern(t, s, 1, 1, 1, **kw), 2)
+            plain[name] = (ms, f"{L1}x{L2}bp, m k d = 1 1 1", kern_ms)
+    score, ck = got
+    errs["nw_score_single"] = max(
+        errs["nw_score_single"], max_abs_err(fs.score_fold(t, s, 1, 1, 1)[0], score)
+    )
+    blocks = [(r0, min(L2, r0 + C)) for r0 in range(0, L2, C)]
+    r0, r1 = blocks[len(blocks) // 2]
+    kw = {"len2": r1, "r0": r0, "seed": ck[r0 // C]}
+    against_plain(
+        "nw_fill_codes_single/seeded", lambda: fs.fill_codes_single(t, s, 1, 1, 1, **kw),
+        lambda: fs.fill_codes_single_plain(t, s, 1, 1, 1, **kw), errs,
+    )
+    chain = [
+        (r0, fs.fill_codes_single(t, s, 1, 1, 1, len2=r1, r0=r0, seed=ck[r0 // C] if r0 else None)[0])
+        for r0, r1 in blocks[::-1]
+    ]
+    (st, _), _ = against_plain(
+        "nw_walk_window", lambda: walk_chain(tb.walk_codes_window, chain, L1, L2),
+        lambda: walk_chain(tb.walk_codes_window_plain, chain, L1, L2), errs,
+    )
+    if st[:2].tolist() != [0, 0]:
+        fail(f"the chained window walks at {L1}x{L2} bp stopped at {st.tolist()}")
+
+
+def huge_modes_vs_plain(dev, errs):
+    """Phase 8 (a): every single-pair mode bit for bit against its plain
+    version on the card, several launch shapes; the plain versions' body
+    (fill_diag) runs on every pair at once, each mode's output is cut
+    from it."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops.fill_scan import (
+        diag_to_matrix, fill_diag_batch, greedy_codes_from_arrows, matrix_to_diag,
+    )
+
+    def block_codes(masks, r0, r1):  # greedy codes of rows r0+1 .. r1
+        return greedy_codes_from_arrows(matrix_to_diag(masks[r0 : r1 + 1])[None])
+
+    def lens(x):
+        return torch.tensor([x], dtype=torch.int32, device=dev)
+
+    rng = np.random.default_rng(8)
+    pairs = (
+        rand_pairs(rng, 24, 0, 700) + rand_pairs(rng, 6, 100, 400, b"AC") + EDGE
+        + [(b"A" * 24, b"A" * 16)]
+    )
+    L1 = max(len(a) for a, _ in pairs)
+    L2 = max(len(b) for _, b in pairs)
+    tops, sides, l1, l2 = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    # (blocks, warps): warps 1, 3 and 8 with blocks for every band, one
+    # block of 8 warps, and 5 blocks of 2 warps (several bands a warp)
+    shapes = [(None, 1), (None, 3), (None, 8), (1, 8), (5, 2)]
+    for mkd in SCORINGS:
+        ref = fill_diag_batch(tops, sides, l1, l2, *mkd, with_scores=True)
+        e = dict.fromkeys(HUGE_KERNELS, 0)
+        e_batch = 0
+        for b, (s1, s2) in enumerate(pairs):
+            la, lb = len(s1), len(s2)
+            top, side = tops[b, :la], sides[b, :lb]
+            masks = diag_to_matrix(ref["arrows"][b], la, lb)
+            hs = diag_to_matrix(ref["scores"][b], la, lb)
+            score = int(ref["score"][b])
+            full = block_codes(masks, 0, lb)
+            blocks_of = {
+                C: [(r * C, min(lb, r * C + C)) for r in range(-(-lb // C))] for C in (32, 64)
+            }
+            want_blocks = {
+                (r0, r1): (block_codes(masks, r0, r1), int(hs[r1, la]))
+                for bl in blocks_of.values() for r0, r1 in bl
+            }
+            # the K2 port at B = 1 writes the same codes
+            batch = fb.fill_greedy_counts_banded_batch(top[None], side[None], lens(la), lens(lb), *mkd)
+            e_batch = max(e_batch, max_abs_err(batch[0], full), abs(int(batch[1][0]) - score))
+            ops_w, n_w = tb.walk_codes_batch(batch[0], lens(la), lens(lb), max(la + lb, 1))
+            for blocks, warps in shapes:
+                kw = {"warps": warps, "blocks": blocks}
+                codes, sc = fs.fill_codes_single(top, side, *mkd, **kw)
+                e["nw_fill_codes_single"] = max(
+                    e["nw_fill_codes_single"], max_abs_err(codes, full), abs(int(sc) - score)
+                )
+                sc, _ = fs.score_fold(top, side, *mkd, **kw)
+                e["nw_score_single"] = max(e["nw_score_single"], abs(int(sc) - score))
+                for C, bl in blocks_of.items():
+                    sc, ck = fs.score_fold(top, side, *mkd, checkpoint_every=C, **kw)
+                    e["nw_score_single/ckpt"] = max(
+                        e["nw_score_single/ckpt"], max_abs_err(ck, hs[0:lb:C]), abs(int(sc) - score)
+                    )
+                    # K13 block by block from the kernel's checkpoints, each
+                    # block walked by the kernel and by its plain version
+                    ops_k = torch.full((max(la + lb, 1),), tb.OP_NONE, dtype=torch.int8, device=dev)
+                    ops_p = ops_k.clone()
+                    st_k = torch.tensor([la, lb, 0], dtype=torch.int32, device=dev)
+                    st_p = st_k.clone()
+                    for r in range(len(bl) - 1, -1, -1):
+                        r0, r1 = bl[r]
+                        codes, sc = fs.fill_codes_single(
+                            top, side, *mkd, len2=r1, r0=r0, seed=ck[r] if r0 else None, **kw
+                        )
+                        want_c, want_s = want_blocks[(r0, r1)]
+                        name = "nw_fill_codes_single/seeded" if r0 else "nw_fill_codes_single"
+                        e[name] = max(e[name], max_abs_err(codes, want_c), abs(int(sc) - want_s))
+                        tb.walk_codes_window(codes, st_k, r0, ops_k)
+                        tb.walk_codes_window_plain(codes, st_p, r0, ops_p)
+                        e["nw_walk_window"] = max(e["nw_walk_window"], max_abs_err(st_k, st_p))
+                    e["nw_walk_window"] = max(e["nw_walk_window"], max_abs_err(ops_k, ops_p))
+                    if lb:  # the chained windows walk as nw_walk over the whole pair
+                        e["nw_walk_window"] = max(
+                            e["nw_walk_window"], max_abs_err(ops_k[: la + lb], ops_w[0, : la + lb]),
+                            abs(int(st_k[2]) - int(n_w[0])),
+                        )
+        # the plain versions themselves, on short pairs
+        for s1, s2 in EDGE + [(b"A" * 24, b"A" * 16), (b"ACCATTG" * 9, b"CATAG" * 14)]:
+            top, side = (torch.from_numpy(enc.encode(x)).to(dev) for x in (s1, s2))
+            got, want = fs.fill_codes_single(top, side, *mkd), fs.fill_codes_single_plain(top, side, *mkd)
+            e["nw_fill_codes_single"] = max(
+                e["nw_fill_codes_single"], max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])
+            )
+            got, want = fs.score_fold(top, side, *mkd), fs.score_fold_plain(top, side, *mkd)
+            e["nw_score_single"] = max(e["nw_score_single"], max_abs_err(got[0], want[0]))
+            got = fs.score_fold(top, side, *mkd, checkpoint_every=32)
+            want = fs.score_fold_plain(top, side, *mkd, checkpoint_every=32)
+            e["nw_score_single/ckpt"] = max(
+                e["nw_score_single/ckpt"], max_abs_err(got[1], want[1]), max_abs_err(got[0], want[0])
+            )
+            ck = want[1]
+            for r in range(1, ck.shape[0]):
+                kw = {"len2": min(len(s2), 32 * r + 32), "r0": 32 * r, "seed": ck[r]}
+                got = fs.fill_codes_single(top, side, *mkd, **kw)
+                want = fs.fill_codes_single_plain(top, side, *mkd, **kw)
+                e["nw_fill_codes_single/seeded"] = max(
+                    e["nw_fill_codes_single/seeded"], max_abs_err(got[0], want[0]),
+                    max_abs_err(got[1], want[1]),
+                )
+        torch.cuda.synchronize()
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0), v)
+        log(f"single-pair modes vs plain, {len(pairs)} pairs x {len(shapes)} launch shapes, "
+            f"m k d = {mkd}: {e}; codes vs nw_fill_codes at B = 1: {e_batch}")
+        if any(e.values()) or e_batch:
+            fail(f"a single-pair mode differs from its plain version or nw_fill_codes: {e} {e_batch}")
+
+
+def huge_phase(card, bound):
+    """Phase 8: huge pairs.  Returns each new kernel's record fields."""
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.ops import checkpoint_traceback as ckt
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_auto
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import traceback as tb
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    errs = {}
+    huge_modes_vs_plain(dev, errs)
+
+    wrappers = {"fill_codes_single": fs.fill_codes_single, "score_fold": fs.score_fold,
+                "walk_codes_window": tb.walk_codes_window}
+    rng = np.random.default_rng(9)
+    p10 = rand_pairs(rng, 1, L_LONG, L_LONG) + rand_pairs(rng, 1, L_LONG, L_LONG, b"AC")
+    big = rand_pairs(np.random.default_rng(L_HUGE), 1, L_HUGE, L_HUGE)[0]
+    big2 = [big, rand_pairs(np.random.default_rng(L_HUGE + 1), 1, L_HUGE, L_HUGE)[0]]
+    C_big = ckt.auto_block_diagonals(L_HUGE, L_HUGE)
+    a111 = NWAligner(AlignConfig(scoring=ScoringParams(1, 1, 1)), device="cuda")
+    a211 = NWAligner(AlignConfig(scoring=ScoringParams(2, 1, 1)), device="cuda")
+
+    # (b)-(d), the main path, every launch counter from 0
+    for name, attr in HUGE_KERNELS.values():
+        setattr(wrappers[name], attr, 0)
+    tb.walk_codes_batch.launches = fs.score_count_fold.launches = 0
+    r10 = {}
+    for i, p in enumerate(p10):
+        r10[i, "codes"] = a111.align_huge(*p)
+        os.environ["NW_TPU_HUGE_WALK_HBM"] = "0"
+        r10[i, "ckpt"] = a111.align_huge(*p)
+        del os.environ["NW_TPU_HUGE_WALK_HBM"]
+    walls = {"codes": [], "ckpt": []}
+    t0 = time.perf_counter()
+    r_codes = a211.align_huge(*big)
+    walls["codes"].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    r_ckpt = a211.align_huge(*big, block_diagonals=C_big)
+    walls["ckpt"].append(time.perf_counter() - t0)
+    rb = a211.align_batch(big2, traceback_strings=True, count=True)
+    k11_before = fs.score_fold.launches
+    rs = a211.align_batch(big2)
+    k11_route = fs.score_fold.launches - k11_before
+    torch.cuda.synchronize()
+    launches = {n: getattr(wrappers[w], a) for n, (w, a) in HUGE_KERNELS.items()}
+    launches["nw_walk"] = tb.walk_codes_batch.launches
+    launches["nw_score_count"] = fs.score_count_fold.launches
+    log(f"huge-pair path launches: {launches}; scores-only align_batch of 2 x {L_HUGE} bp: "
+        f"{k11_route} nw_score_single launches")
+    if not all(launches.values()) or k11_route != 2:
+        fail(f"a kernel of the huge-pair path never launched, or the K11 route was not taken: {launches}")
+
+    # (b) 10 240 bp against the mask kernel + native enumeration
+    for i, p in enumerate(p10):
+        want = a111.align(*p)
+        for route in ("codes", "ckpt"):
+            r = r10[i, route]
+            if (r.X, r.Y) != want.best_alignment() or r.score != want.score:
+                fail(f"align_huge {route} route at {L_LONG} bp != align().best_alignment()")
+    log(f"align_huge {L_LONG} bp, 2 pairs (ACGT, AC), m k d = 1 1 1: both routes equal "
+        "align().best_alignment() and its score")
+    # every mode against its plain version at the sizes (b) and (c) run:
+    # here each 10 240 bp pair at the block size align_huge picks there
+    plain = {}
+    t0 = time.perf_counter()
+    C10 = ckt.auto_block_diagonals(L_LONG, L_LONG)
+    for i, p in enumerate(p10):
+        modes_vs_plain_10k(p, C10, errs, plain if i == 0 else None)
+    log(f"single-pair modes vs plain on the 2 pairs of {L_LONG} bp (C = {C10} rows): "
+        f"{ {n: errs[n] for n in HUGE_KERNELS} } in {time.perf_counter() - t0:.1f} s")
+
+    # (c) 100 000 bp, both routes
+    sc8, ct8 = a211.summary_huge(*big)
+    top, side = (torch.from_numpy(enc.encode(x)).to(dev) for x in big)
+    sc11 = int(fs.score_fold(top, side, 2, 1, 1)[0])
+    re = int(rescore([big], [(r_codes.X, r_codes.Y)], 2, 1, 1)[0])
+    log(f"align_huge {L_HUGE} bp: codes route score {r_codes.score}, checkpointed (C = {C_big} rows) "
+        f"{r_ckpt.score}, re-scored {re}, summary_huge {sc8}, score_fold {sc11}; "
+        f"{len(r_codes.X)} columns")
+    if (r_codes.X, r_codes.Y) != (r_ckpt.X, r_ckpt.Y):
+        fail(f"align_huge at {L_HUGE} bp: the two routes' alignments differ")
+    if not r_codes.score == r_ckpt.score == re == sc8 == sc11:
+        fail(f"align_huge at {L_HUGE} bp: scores disagree")
+
+    # (d) 2 x 100 000 bp through align_batch
+    aligned = rb.alignment_strings()
+    want8 = [(sc8, ct8), a211.summary_huge(*big2[1])]
+    if aligned[0] != (r_codes.X, r_codes.Y):
+        fail("align_batch of 2 huge pairs: strings differ from align_huge's")
+    if not np.array_equal(rescore(big2, aligned, 2, 1, 1), rb.scores.astype(np.int64)):
+        fail("align_batch of 2 huge pairs: alignments do not re-score to the scores")
+    if [(int(s), int(c)) for s, c in zip(rb.scores, rb.counts)] != want8:
+        fail("align_batch of 2 huge pairs: (score, count) differ from summary_huge's")
+    if not np.array_equal(rs.scores, rb.scores):
+        fail("align_batch of 2 huge pairs: scores-only (K11 route) differ")
+    log(f"align_batch 2 x {L_HUGE} bp: strings equal align_huge's, (score, count) {want8} equal "
+        "summary_huge's, scores-only through nw_score_single equal")
+    del r10, rb, rs, aligned
+
+    # (e) times
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = a211.align_huge(*big)
+        walls["codes"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        r = a211.align_huge(*big, block_diagonals=C_big)
+        walls["ckpt"].append(time.perf_counter() - t0)
+    del r
+    for route, ws in walls.items():
+        log(f"align_huge {L_HUGE} bp {route} route: walls {[round(w, 4) for w in ws]} s (first cold); "
+            f"median warm {statistics.median(ws[1:]):.4f} s [{card}]")
+    cells = L_HUGE * L_HUGE
+    in_bytes = tensor_bytes(top, side)
+    rec = {}
+    ms14 = cuda_ms(lambda: fs.fill_codes_single(top, side, 2, 1, 1), 2)
+    codes, _ = fs.fill_codes_single(top, side, 2, 1, 1)
+    l1, l2 = (torch.tensor([L_HUGE], dtype=torch.int32, device=dev) for _ in range(2))
+    ms_walk = cuda_ms(lambda: tb.walk_codes_batch(codes, l1, l2, 2 * L_HUGE), 2)
+    steps = int(tb.walk_codes_batch(codes, l1, l2, 2 * L_HUGE)[1][0])
+    rec["nw_fill_codes_single"] = dict(
+        ms=ms14, **bound(cells * (OPS_SCORE + OPS_CODE), in_bytes + tensor_bytes(codes) + 4),
+        shape=f"1x{L_HUGE}bp codes + corner",
+    )
+    del codes
+    torch.cuda.empty_cache()
+    ms12 = cuda_ms(lambda: fs.score_fold(top, side, 2, 1, 1, checkpoint_every=C_big), 2)
+    _, ck = fs.score_fold(top, side, 2, 1, 1, checkpoint_every=C_big)
+    rec["nw_score_single/ckpt"] = dict(
+        ms=ms12, **bound(cells * OPS_SCORE, in_bytes + tensor_bytes(ck) + 4),
+        shape=f"1x{L_HUGE}bp score + {ck.shape[0]} checkpoint rows (C = {C_big})",
+    )
+    blocks = [(r * C_big, min(L_HUGE, r * C_big + C_big)) for r in range(ck.shape[0])][::-1]
+    block_codes = []
+
+    def refill_all():
+        block_codes.clear()
+        for r0, r1 in blocks:
+            block_codes.append(fs.fill_codes_single(
+                top, side, 2, 1, 1, len2=r1, r0=r0, seed=ck[r0 // C_big] if r0 else None
+            )[0])
+
+    ms13 = cuda_ms(refill_all, 0)
+    # one block's refill at 8 (the default), 4, 2 and 1 warps a block
+    r0, r1 = blocks[len(blocks) // 2]
+    sweep = {}
+    for w in (8, 4, 2, 1, 8):
+        sweep.setdefault(w, []).append(cuda_ms(lambda: fs.fill_codes_single(
+            top, side, 2, 1, 1, len2=r1, r0=r0, seed=ck[r0 // C_big], warps=w
+        ), 2))
+    log(f"one refill of rows {r0}..{r1} x {L_HUGE} bp by warps a block: {sweep} ms [{card}]")
+    # that block against its plain version, seeded from the kernel's row
+    kw = {"len2": r1, "r0": r0, "seed": ck[r0 // C_big]}
+    _, ms = against_plain(
+        "nw_fill_codes_single/seeded", lambda: fs.fill_codes_single(top, side, 2, 1, 1, **kw),
+        lambda: fs.fill_codes_single_plain(top, side, 2, 1, 1, **kw), errs,
+    )
+    plain["nw_fill_codes_single/seeded"] = (ms, f"one block of rows {r0}..{r1} x {L_HUGE}bp", min(sweep[8]))
+    chain = [(r0, codes) for (r0, _), codes in zip(blocks, block_codes)]
+    ms_ww = cuda_ms(lambda: walk_chain(tb.walk_codes_window, chain, L_HUGE, L_HUGE), 2)
+    (state, _), ms = against_plain(
+        "nw_walk_window", lambda: walk_chain(tb.walk_codes_window, chain, L_HUGE, L_HUGE),
+        lambda: walk_chain(tb.walk_codes_window_plain, chain, L_HUGE, L_HUGE), errs,
+    )
+    plain["nw_walk_window"] = (ms, f"the same {len(blocks)} windows", ms_ww)
+    if state.tolist() != [0, 0, steps]:
+        fail(f"the chained window walks at 100 kb end at {state.tolist()}, nw_walk after {steps} steps")
+    log(f"{L_HUGE} bp vs plain: block {r0}..{r1} re-filled from the kernel's checkpoint, max |diff| "
+        f"{errs['nw_fill_codes_single/seeded']} (plain {plain['nw_fill_codes_single/seeded'][0]:.1f} ms); "
+        f"{len(blocks)} chained window walks {errs['nw_walk_window']} (plain {ms:.1f} ms) [{card}]")
+    seeded_bytes = tensor_bytes(*block_codes) + tensor_bytes(ck)
+    del block_codes[:], chain
+    rec["nw_fill_codes_single/seeded"] = dict(
+        ms=ms13, **bound(cells * (OPS_SCORE + OPS_CODE), in_bytes + seeded_bytes),
+        shape=f"1x{L_HUGE}bp, all {len(blocks)} blocks of {C_big} rows re-filled (one launch each)",
+    )
+    rec["nw_walk_window"] = dict(
+        ms=ms_ww, **bound(steps * OPS_WALK_STEP, steps * 5),
+        shape=f"1x{L_HUGE}bp, {steps} steps in {len(blocks)} chained windows",
+    )
+    log(f"align_huge {L_HUGE} bp kernels: codes fill {ms14:.3f} ms, nw_walk {ms_walk:.3f} ms "
+        f"({steps} steps); checkpointed: dump {ms12:.3f} ms, {len(blocks)} refills {ms13:.3f} ms, "
+        f"{len(blocks)} window walks {ms_ww:.3f} ms [{card}]")
+    del ck
+    torch.cuda.empty_cache()
+
+    # K11 against K8 at 20 kb and 100 kb, in turns
+    k11_k8 = {}
+    for L in (L_CROSS, L_HUGE):
+        t, s = (x[:L] for x in (top, side))
+        for name in ("k8", "k11", "k11", "k8"):
+            fn = fs.score_count_fold if name == "k8" else fs.score_fold
+            k11_k8.setdefault((L, name), []).append(cuda_ms(lambda: fn(t, s, 2, 1, 1), 2))
+        log(f"score only {L}x{L}bp: nw_score_single {k11_k8[L, 'k11']} ms, nw_score_count "
+            f"{k11_k8[L, 'k8']} ms [{card}]")
+        if L == L_CROSS:  # K11 against its plain version, as phase 6 holds K8
+            _, ms = against_plain(
+                "nw_score_single", lambda: fs.score_fold(t, s, 2, 1, 1),
+                lambda: fs.score_fold_plain(t, s, 2, 1, 1), errs,
+            )
+            plain["nw_score_single"] = (ms, f"{L}x{L}bp", min(k11_k8[L, "k11"]))
+    rec["nw_score_single"] = dict(
+        ms=min(k11_k8[L_HUGE, "k11"]), **bound(cells * OPS_SCORE, in_bytes + 4),
+        shape=f"1x{L_HUGE}bp score",
+    )
+
+    # the K11 route against the K1 route (one warp a pair): scores of
+    # nb pairs of L bp, as fill_scores_auto would run them
+    for L in CROSSOVER:
+        for nb in ((2,) if L == L_HUGE else (2, 8, 23)):
+            ps = rand_pairs(np.random.default_rng(L + nb), nb, L, L)
+            tops, sides, l1s, l2s = enc.upload(enc.encode_batch(ps, L, L), dev)
+            reps = 0 if L == L_HUGE else 2
+            k1 = cuda_ms(lambda: fb.fill_scores_banded_batch(tops, sides, l1s, l2s, 2, 1, 1), reps)
+            k11 = cuda_ms(lambda: torch.stack([
+                fs.score_fold(tops[b], sides[b], 2, 1, 1, L, L)[0] for b in range(nb)
+            ]), 2)
+            rule = "K11" if fill_auto.takes_single_pair_route(nb, L, L) else "K1"
+            log(f"scores of {nb} x {L} bp: K1 route (nw_scores, one warp a pair) {k1:.3f} ms, "
+                f"K11 route (nw_score_single a pair) {k11:.3f} ms; fill_scores_auto takes {rule} [{card}]")
+
+    if any(errs.values()):
+        fail(f"a single-pair mode differs from its plain version at full size: {errs}")
+    for name in rec:
+        ms, where, k_ms = plain[name]
+        rec[name]["shape"] += f" (plain_ms at {where}, kernel there {k_ms:.3f} ms)"
+        rec[name].update(plain_ms=ms, launches=launches[name], max_abs_err=errs[name])
+    log(f"phase 8 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to run", file=sys.stderr)
@@ -508,6 +1005,14 @@ def main() -> None:
     ).stdout.strip()
     card = f"{smi.splitlines()[0]}"
     log(smi)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bound = Bound(sms, clock_mhz * 1e6)
+    log(f"bounds: {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {clock_mhz:.0f} MHz "
+        f"(clocks.max.sm), {HBM_BYTES_PER_S / 1e12} TB/s")
     log(
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"triton {'installed' if importlib.util.find_spec('triton') else 'absent'} "
@@ -689,6 +1194,19 @@ def main() -> None:
         lambda: fb.fill_greedy_counts_banded_batch(tops, sides, l1, l2, m, k, d, with_counts=True), 3
     )
     k_walk_ms = cuda_ms(lambda: tb.walk_codes_batch(k_codes, l1, l2, 2 * LB), 5)
+    bounds = {
+        "nw_scores": bound(
+            sum(len(a) * len(b) for a, b in c2) * OPS_SCORE,
+            tensor_bytes(tops2, sides2, l1s, l2s) + 4 * len(c2),
+        ),
+        "nw_fill_codes": bound(
+            len(sub) * L_LONG * L_LONG * (OPS_SCORE + OPS_COUNT + OPS_CODE),
+            tensor_bytes(tops, sides, l1, l2, k_codes, k_sc, k_ct),
+        ),
+        "nw_walk": bound(
+            int(k_n.sum()) * OPS_WALK_STEP, tensor_bytes(l1, l2, k_n) + 5 * int(k_n.sum())
+        ),
+    }
     log(f"nw_scores 10240x150bp: kernel {k_scores_ms:.3f} ms, plain {plain_scores_ms:.1f} ms [{card}]")
     log(f"nw_fill_codes codes+counts 4x10240bp: kernel {k_fill_ms:.3f} ms, plain {plain_fill_ms:.1f} ms [{card}]")
     log(f"nw_walk 4x10240bp: kernel {k_walk_ms:.3f} ms, plain {plain_walk_ms:.1f} ms [{card}]")
@@ -719,47 +1237,65 @@ def main() -> None:
     # 6. the single-pair kernels; 7. the CLI (its own launch counters)
     single = single_phase(card, errs)
     cli_launches, cli_walls, cli_times = cli_phase(card, errs)
+    # 8. huge pairs (their own launch counters)
+    huge = huge_phase(card, bound)
 
-    record = {
-        "kernels": [
-            {
-                "name": "nw_scores", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_fill.cu",
-                "replaces": "nw_tpu/ops/fill_pallas_banded.py:98",
-                "launches": launches["nw_scores"], "max_abs_err": errs["nw_scores"],
-                "ms": k_scores_ms, "plain_ms": plain_scores_ms,
-                "shape": f"{len(c2)}x{L_SHORT}bp scores",
-            },
-            {
-                "name": "nw_fill_codes", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_fill.cu",
-                "replaces": "nw_tpu/ops/fill_pallas_banded.py:342",
-                "launches": launches["nw_fill_codes"], "max_abs_err": errs["nw_fill_codes"],
-                "ms": k_fill_ms, "plain_ms": plain_fill_ms,
-                "shape": f"4x{L_LONG}bp codes+counts",
-            },
-            {
-                "name": "nw_walk", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_walk.cu",
-                "replaces": "nw_tpu/ops/banded_traceback.py:115",
-                "launches": launches["nw_walk"], "max_abs_err": errs["nw_walk"],
-                "ms": k_walk_ms, "plain_ms": plain_walk_ms,
-                "shape": f"4x{L_LONG}bp walk",
-            },
-            {
-                "name": "nw_fill_masks", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_single.cu",
-                "replaces": "nw_tpu/ops/fill_pallas_banded.py:342",
-                "launches": cli_launches["nw_fill_masks"], "max_abs_err": errs["nw_fill_masks"],
-                "ms": cli_times["fm_ms"], "plain_ms": cli_times["plain_fm_ms"],
-                "shape": f"1x{L_LONG}bp masks+count",
-            },
-            {
-                "name": "nw_score_count", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_single.cu",
-                "replaces": "nw_tpu/ops/fill_pallas_single.py:250",
-                "launches": cli_launches["nw_score_count"], "max_abs_err": errs["nw_score_count"],
-                "ms": cli_times["sc_ms"], "plain_ms": single["plain_sc_ms"],
-                "shape": f"1x{L_HUGE}bp score+count (plain_ms at {L_CROSS}x{L_CROSS}bp, "
-                         f"kernel there {single['sc_ms_cross']:.3f} ms)",
-            },
-        ]
+    single_src = "nw_tpu_torch/csrc/nw_single.cu"
+    kernels_line = [
+        {
+            "name": "nw_scores", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_fill.cu",
+            "replaces": "nw_tpu/ops/fill_pallas_banded.py:98",
+            "launches": launches["nw_scores"], "max_abs_err": errs["nw_scores"],
+            "ms": k_scores_ms, "plain_ms": plain_scores_ms, **bounds["nw_scores"],
+            "shape": f"{len(c2)}x{L_SHORT}bp scores",
+        },
+        {
+            "name": "nw_fill_codes", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_fill.cu",
+            "replaces": "nw_tpu/ops/fill_pallas_banded.py:342",
+            "launches": launches["nw_fill_codes"], "max_abs_err": errs["nw_fill_codes"],
+            "ms": k_fill_ms, "plain_ms": plain_fill_ms, **bounds["nw_fill_codes"],
+            "shape": f"4x{L_LONG}bp codes+counts",
+        },
+        {
+            "name": "nw_walk", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_walk.cu",
+            "replaces": "nw_tpu/ops/banded_traceback.py:115",
+            "launches": launches["nw_walk"], "max_abs_err": errs["nw_walk"],
+            "ms": k_walk_ms, "plain_ms": plain_walk_ms, **bounds["nw_walk"],
+            "shape": f"4x{L_LONG}bp walk",
+        },
+        {
+            "name": "nw_fill_masks", "route": "cuda", "source": single_src,
+            "replaces": "nw_tpu/ops/fill_pallas_banded.py:342",
+            "launches": cli_launches["nw_fill_masks"], "max_abs_err": errs["nw_fill_masks"],
+            "ms": cli_times["fm_ms"], "plain_ms": cli_times["plain_fm_ms"],
+            **bound(L_LONG * L_LONG * (OPS_SCORE + OPS_COUNT + OPS_CODE),
+                    (L_LONG + 1) ** 2 + 8 * L_LONG + 8),
+            "shape": f"1x{L_LONG}bp masks+count",
+        },
+        {
+            "name": "nw_score_count", "route": "cuda", "source": single_src,
+            "replaces": "nw_tpu/ops/fill_pallas_single.py:250",
+            "launches": cli_launches["nw_score_count"], "max_abs_err": errs["nw_score_count"],
+            "ms": cli_times["sc_ms"], "plain_ms": single["plain_sc_ms"],
+            **bound(L_HUGE * L_HUGE * (OPS_SCORE + OPS_COUNT), 8 * L_HUGE + 8),
+            "shape": f"1x{L_HUGE}bp score+count (plain_ms at {L_CROSS}x{L_CROSS}bp, "
+                     f"kernel there {single['sc_ms_cross']:.3f} ms)",
+        },
+    ]
+    replaces = {
+        "nw_fill_codes_single": "nw_tpu/parallel/huge_pair.py:246",
+        "nw_fill_codes_single/seeded": "nw_tpu/ops/checkpoint_traceback.py:153",
+        "nw_score_single": "nw_tpu/ops/fill_strips.py:62",
+        "nw_score_single/ckpt": "nw_tpu/ops/checkpoint_traceback.py:61",
+        "nw_walk_window": "nw_tpu/ops/checkpoint_traceback.py:353",
     }
+    for name, fields in huge.items():
+        src = "nw_tpu_torch/csrc/nw_walk.cu" if name == "nw_walk_window" else single_src
+        kernels_line.append({"name": name, "route": "cuda", "source": src,
+                             "replaces": replaces[name], **fields})
+    for kern in kernels_line:
+        kern["library_ms"] = None  # no one PyTorch call computes a DP fill or walk
+    record = {"kernels": kernels_line}
     log(json.dumps(record))
     log(json.dumps({
         "ok": True,

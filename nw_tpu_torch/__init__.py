@@ -3,7 +3,7 @@ and CUDA, for one NVIDIA H100.
 
 Module names mirror ``nw_tpu`` so that each counterpart is easy to find.
 The aligner (:class:`NWAligner`: ``align``, ``summary_huge``,
-``align_batch``) and the byte-parity CLI (``python -m nw_tpu_torch``)
+``align_huge``, ``align_batch``) and the byte-parity CLI (``python -m nw_tpu_torch``)
 run their fills and walks through CUDA C++ kernels written for ``sm_90a``
 (``csrc/``, built on first use by :mod:`nw_tpu_torch.runtime.kernels`);
 every kernel has a plain PyTorch version beside it, which is what runs
@@ -15,6 +15,7 @@ from nw_tpu_torch.config import AlignConfig, ScoringParams
 from nw_tpu_torch.models.needleman_wunsch import (
     AlignmentResult,
     BatchResult,
+    HugeAlignmentResult,
     NWAligner,
     align,
     align_batch,
@@ -22,7 +23,7 @@ from nw_tpu_torch.models.needleman_wunsch import (
 
 __all__ = [
     "AlignConfig", "ScoringParams", "AlignmentResult", "BatchResult",
-    "NWAligner", "align", "align_batch",
+    "HugeAlignmentResult", "NWAligner", "align", "align_batch",
 ]
 
 __version__ = "0.1.0"

@@ -1,17 +1,28 @@
 // Single-pair Needleman-Wunsch fills for Hopper (sm_90a): the warps of
 // one cooperative grid sweep ONE pair together.
 //
-// Replaces two TPU (Pallas) kernels:
-//   K8 nw_tpu/ops/fill_pallas_single.py:_make_score_count_kernel
-//      (score_count_fold)                                  -> nw_score_count
-//   K2 nw_tpu/ops/fill_pallas_banded.py:_make_banded_arrows_kernel
-//      in its pack_bits=8 tie-mask mode for one pair (build_arrows_call,
-//      fill_arrows_banded_single)                          -> nw_fill_masks
+// Replaces six TPU (Pallas) kernels, as modes of one template:
+//   K8  nw_tpu/ops/fill_pallas_single.py:250 _make_score_count_kernel
+//       (score_count_fold)                                 -> nw_score_count
+//   K2  nw_tpu/ops/fill_pallas_banded.py:342 _make_banded_arrows_kernel
+//       in its pack_bits=8 tie-mask mode for one pair (build_arrows_call,
+//       fill_arrows_banded_single)                         -> nw_fill_masks
+//   K14 nw_tpu/parallel/huge_pair.py:246 _make_fold_chunk_kernel_blocked
+//       (config-5 fill with 2-bit walk words and the corner capture)
+//                                                          -> nw_fill_codes_single
+//   K13 nw_tpu/ops/checkpoint_traceback.py:153 _make_refill_kernel
+//       (re-fill of one block from its checkpoint)         -> nw_fill_codes_single
+//                                                             with a seed row
+//   K11 nw_tpu/ops/fill_strips.py:62 _make_strips_kernel
+//       (strips_score: one huge pair's score)              -> nw_score_single
+//   K12 nw_tpu/ops/checkpoint_traceback.py:61 _make_ckpt_kernel
+//       (fill dumping its state every C diagonals)         -> nw_score_single
+//                                                             with ckpt
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163 on the
 // pair's exact (len2+1) x (len1+1) table, with row 0 (-c*d, LEFT, one
 // path) and column 0 (-j*d, UP, one path) written explicitly: the result
-// does not rest on the TPU kernel's NEG_INF decay
+// does not rest on the TPU kernels' NEG_INF decay
 // (fill_pallas_single.py:277-284) and holds for every scoring.  Scores
 // wrap as int32, counts as uint32.  The 0 x 0 pair gives score 0, count 1.
 //
@@ -52,12 +63,30 @@
 // coalesced store a row.  Scores (only for -t tables) keep the per-lane
 // store.
 //
+// nw_fill_codes_single stores each cell's 2-bit greedy code (0 diag,
+// 1 left, 2 up, by diag > left > up) in nw_fill.cu's band-major layout:
+// a lane packs 16 steps into a word and after the step with
+// (t & 15) == 15 the 32 lanes store their words together at
+// [band, t >> 4, lane], one coalesced 128-byte store per 16 steps, so the
+// tensor is bit-equal to nw_fill_codes's for the same pair, every word
+// written (cells outside the table 0).  Given a seed row (row r0 of the
+// pair, scores only) it fills rows r0+1 .. r0+Bs instead: band 0 reads
+// its row above from the seed, column 0 stays -j*d with the global j.
+// nw_score_single is the score pipeline without counts; given ckpt it
+// also writes row r*C (lane 31 of a band, every column) into ckpt[r],
+// row 0 included, through the ring's __stcg path.
+//
 // What bounds it on the H100: the serial chain of each step (one shuffle
 // and a few dependent integer ops, ~70-110 cycles for one warp alone,
 // PERF.md section 6); with W warps interleaving on an SM the step's
 // issued instructions (~40-50 a step for a warp, four schedulers) become
 // the SM's bound, and across SMs the wavefront's critical path (two
-// chunks a band, plus one band's sweep) bounds the pair.
+// chunks a band, plus one band's sweep) bounds the pair.  The codes mode
+// adds one coalesced 128-byte store a warp per 16 steps (2.5 GB for a
+// 100 000 bp pair, ~2 ms over the score-only mode on an H100 80GB HBM3 at
+// 700 W, PERF.md section 6); a checkpointed re-fill of a block of C rows
+// has only C/32 bands, so it runs on few warps and its band's sweep
+// (A+32 steps) is its critical path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -79,12 +108,25 @@ constexpr unsigned kMaskUp = 4u;
 constexpr int kRingCols = 64;  // columns of a warp's mask ring
 constexpr int kTileBytes = 32 * kRingCols;
 
-template <bool EMIT_MASKS, bool EMIT_SCORES>
+constexpr unsigned kCodeLeft = 1u;
+constexpr unsigned kCodeUp = 2u;
+
+// What a launch writes besides its ring (null where the mode has none).
+struct Outs {
+  unsigned char* masks;  // uint8[Bs+1, A+1]
+  int* hs;               // int32[Bs+1, A+1]
+  unsigned* codes;       // uint32[nbands, TW, 32]
+  int* ckpt;             // int32[ceil(Bs/every), A+1]
+  int every;             // rows between two checkpoint rows
+  int* score;
+  unsigned* count;
+};
+
+template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
     const int* __restrict__ top, const int* __restrict__ side, int A, int Bs,
-    int m, int k, int d, int* ring, unsigned* cring, int* done,
-    unsigned char* __restrict__ masks, int* __restrict__ hs,
-    int* __restrict__ out_score, unsigned* __restrict__ out_count) {
+    int r0, const int* __restrict__ seed, int m, int k, int d, int* ring,
+    unsigned* cring, int* done, Outs out) {
   extern __shared__ unsigned char tiles[];  // EMIT_MASKS: one ring a warp
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -94,41 +136,50 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
   const int gwarp = blockIdx.x * W + warp;
   const int M = A + 1;
   const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
+  const int TW = 2 * nchunks;              // code words of a band row
   const int nbands = (Bs + 31) >> 5;
   volatile int* vdone = done;  // chunks completed, per global warp (zeroed)
+  unsigned char* __restrict__ masks = out.masks;
+  int* __restrict__ hs = out.hs;
 
   const int gthread = blockIdx.x * blockDim.x + threadIdx.x;
   for (int c = gthread; c < M; c += gridDim.x * blockDim.x) {  // row 0
     if (EMIT_MASKS) masks[c] = c == 0 ? 0 : kMaskLeft;
     if (EMIT_SCORES) hs[c] = wsub(0, wmul(c, d));
+    if (out.ckpt && Bs > 0) __stcg(out.ckpt + c, wsub(0, wmul(c, d)));
   }
-  if (Bs == 0 && gthread == 0) {  // the corner is on row 0
-    *out_score = wsub(0, wmul(A, d));
-    *out_count = 1u;
+  if (Bs == 0 && gthread == 0) {  // the corner is on the row above
+    *out.score = seed ? seed[A] : wsub(0, wmul(A, d));
+    if (WITH_COUNTS) *out.count = 1u;
   }
 
   const int negk = wsub(0, k);
   const int prev_warp = (gwarp + P - 1) % P;
   for (int band = gwarp, round = 0; band < nbands; band += P, ++round) {
-    const int j = band * 32 + 1 + lane;  // this lane's row
+    const int j = band * 32 + 1 + lane;  // this lane's row in the launch
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : -5;
-    const int col0 = wsub(0, wmul(j, d));  // H[j][0]
+    const int col0 = wsub(0, wmul(r0 + j, d));  // H[r0+j][0]
     const int64_t rowoff = static_cast<int64_t>(j) * M;
     const int64_t in_slot = static_cast<int64_t>((band + P - 1) % P) * M;
     const int64_t out_slot = static_cast<int64_t>(band % P) * M;
     // band-1's warp has completed this many chunks before band-1 began
     const int pred_base = band > 0 ? ((band - 1) / P) * nchunks : 0;
+    unsigned* wbase = EMIT_CODES
+        ? out.codes + static_cast<int64_t>(band) * TW * 32 + lane : nullptr;
+    // rows r*C (C = out.every) below the last go to ckpt[r]
+    const bool dump = out.ckpt && lane == 31 && j < Bs && j % out.every == 0;
+    int* dump_row = dump ? out.ckpt + static_cast<int64_t>(j / out.every) * M : nullptr;
     int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
-    unsigned cnt = 0, cup_prev = 0;
+    unsigned cnt = 0, cup_prev = 0, pack = 0;
 
     for (int q = 0; q < nchunks; ++q) {
       const int t0 = q << 5;
       const int cx = t0 + lane;
       int bval;
-      unsigned cbval;
-      if (band == 0) {  // the row above is row 0: -c*d, one path
-        bval = wsub(0, wmul(cx, d));
+      unsigned cbval = 0u;
+      if (band == 0) {  // the row above is row 0 (-c*d, one path) or the seed
+        bval = seed ? (cx < M ? seed[cx] : 0) : wsub(0, wmul(cx, d));
         cbval = 1u;
       } else {
         // columns t0 .. t0+31 of band-1's last row are written once
@@ -138,7 +189,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
         }
         __threadfence();
         bval = cx < M ? __ldcg(ring + in_slot + cx) : 0;
-        cbval = cx < M ? __ldcg(cring + in_slot + cx) : 0u;
+        if (WITH_COUNTS) cbval = cx < M ? __ldcg(cring + in_slot + cx) : 0u;
       }
       const int tval = (cx >= 1 && cx <= A) ? top[cx - 1] : -4;
 #pragma unroll 8
@@ -146,41 +197,58 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
         const int c = t0 + s - lane;
         int up = __shfl_up_sync(kFull, h, 1);
         const int ch_in = __shfl_up_sync(kFull, ch, 1);
-        unsigned cup = __shfl_up_sync(kFull, cnt, 1);
         const int b_up = __shfl_sync(kFull, bval, s);
         const int b_ch = __shfl_sync(kFull, tval, s);
-        const unsigned cb_up = __shfl_sync(kFull, cbval, s);
+        unsigned cup = 0u;
+        if (WITH_COUNTS) {
+          cup = __shfl_up_sync(kFull, cnt, 1);
+          const unsigned cb_up = __shfl_sync(kFull, cbval, s);
+          cup = lane == 0 ? cb_up : cup;
+        }
         up = lane == 0 ? b_up : up;
         ch = lane == 0 ? b_ch : ch_in;
-        cup = lane == 0 ? cb_up : cup;
 
         const int cand_d = wadd(up_prev, ch == sch ? m : negk);
         const int cand_u = wsub(up, d);
         const int cand_l = wsub(h, d);
         int hn = max(max(cand_d, cand_u), cand_l);
         const bool is_d = cand_d == hn, is_l = cand_l == hn, is_u = cand_u == hn;
-        unsigned cn = (is_d ? cup_prev : 0u) + (is_l ? cnt : 0u) + (is_u ? cup : 0u);
+        unsigned cn = 0u;
+        if (WITH_COUNTS)
+          cn = (is_d ? cup_prev : 0u) + (is_l ? cnt : 0u) + (is_u ? cup : 0u);
         unsigned mask = (is_d ? kMaskDiag : 0u) | (is_l ? kMaskLeft : 0u) |
                         (is_u ? kMaskUp : 0u);
+        unsigned code = is_d ? 0u : (is_l ? kCodeLeft : kCodeUp);
         const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
         hn = col_zero ? col0 : hn;
         cn = col_zero ? 1u : cn;
         mask = col_zero ? kMaskUp : mask;
+        code = col_zero ? kCodeUp : code;
         const bool in_row = c >= 0 && c <= A;
         if (EMIT_MASKS) tile[lane * kRingCols + (c & (kRingCols - 1))] = mask;
         if (EMIT_SCORES && in_row && row_ok) hs[rowoff + c] = hn;
+        if (EMIT_CODES) {
+          pack |= (in_row && row_ok ? code : 0u) << (2 * (s & 15));
+          if ((s & 15) == 15) {  // every lane stores together
+            wbase[static_cast<int64_t>((t0 + s) >> 4) * 32] = pack;
+            pack = 0u;
+          }
+        }
         if (in_row && j == Bs && c == A) {  // the corner
-          *out_score = hn;
-          *out_count = cn;
+          *out.score = hn;
+          if (WITH_COUNTS) *out.count = cn;
         }
         if (lane == 31 && in_row) {  // this band's last row, for band+1
           __stcg(ring + out_slot + c, hn);
-          __stcg(cring + out_slot + c, cn);
+          if (WITH_COUNTS) __stcg(cring + out_slot + c, cn);
         }
+        if (dump && in_row) __stcg(dump_row + c, hn);
         up_prev = up;
         h = hn;
-        cup_prev = cup;
-        cnt = cn;
+        if (WITH_COUNTS) {
+          cup_prev = cup;
+          cnt = cn;
+        }
       }
       __syncwarp();  // the chunk's loads and stores precede the flag
       if (lane == 31) {
@@ -203,15 +271,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
   }
 }
 
-template <bool EMIT_MASKS, bool EMIT_SCORES>
-int launch_single(const int* top, const int* side, int A, int Bs, int m,
-                  int k, int d, int blocks, int warps, int* ring,
-                  unsigned* cring, int* done, unsigned char* masks, int* hs,
-                  int* score, unsigned* count, cudaStream_t stream) {
-  if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 0)
+template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES>
+int launch_single(const int* top, const int* side, int A, int Bs, int r0,
+                  const int* seed, int m, int k, int d, int blocks, int warps,
+                  int* ring, unsigned* cring, int* done, Outs out,
+                  cudaStream_t stream) {
+  if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 0 ||
+      r0 < 0 || (r0 > 0 && !seed) || (out.ckpt && (out.every < 32 || out.every % 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   int smem = EMIT_MASKS ? warps * kTileBytes : 0;  // up to 64 KB
-  auto kernel = nw_single_kernel<EMIT_MASKS, EMIT_SCORES>;
+  auto kernel = nw_single_kernel<WITH_COUNTS, EMIT_MASKS, EMIT_SCORES, EMIT_CODES>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -219,8 +288,8 @@ int launch_single(const int* top, const int* side, int A, int Bs, int m,
   }
   // cooperative: all blocks co-resident (or the launch is refused), since
   // a band spins on the band above it, which another block may run
-  void* args[] = {&top, &side, &A, &Bs, &m, &k, &d, &ring, &cring,
-                  &done, &masks, &hs, &score, &count};
+  void* args[] = {&top, &side, &A, &Bs, &r0, &seed, &m, &k, &d, &ring,
+                  &cring, &done, &out};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(kernel), dim3(blocks), dim3(32 * warps), args,
       static_cast<size_t>(smem), stream);
@@ -241,10 +310,11 @@ extern "C" int nw_score_count(const int* top, const int* side, int A, int Bs,
                               int m, int k, int d, int blocks, int warps,
                               int* ring, void* cring, int* done, int* score,
                               void* count, void* stream) {
-  return launch_single<false, false>(
-      top, side, A, Bs, m, k, d, blocks, warps, ring,
-      static_cast<unsigned*>(cring), done, nullptr, nullptr, score,
-      static_cast<unsigned*>(count), static_cast<cudaStream_t>(stream));
+  const Outs out{nullptr, nullptr, nullptr, nullptr, 0, score,
+                 static_cast<unsigned*>(count)};
+  return launch_single<true, false, false, false>(
+      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring,
+      static_cast<unsigned*>(cring), done, out, static_cast<cudaStream_t>(stream));
 }
 
 // K2 pack_bits=8 port for one pair: tie masks uint8[Bs+1, A+1], the
@@ -255,12 +325,44 @@ extern "C" int nw_fill_masks(const int* top, const int* side, int A, int Bs,
                              int* ring, void* cring, int* done, void* masks,
                              int* hs, int* score, void* count, void* stream) {
   auto cr = static_cast<unsigned*>(cring);
-  auto mk = static_cast<unsigned char*>(masks);
-  auto ct = static_cast<unsigned*>(count);
   auto s = static_cast<cudaStream_t>(stream);
+  const Outs out{static_cast<unsigned char*>(masks), hs, nullptr, nullptr, 0,
+                 score, static_cast<unsigned*>(count)};
   if (hs)
-    return launch_single<true, true>(top, side, A, Bs, m, k, d, blocks, warps,
-                                     ring, cr, done, mk, hs, score, ct, s);
-  return launch_single<true, false>(top, side, A, Bs, m, k, d, blocks, warps,
-                                    ring, cr, done, mk, nullptr, score, ct, s);
+    return launch_single<true, true, true, false>(
+        top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, cr, done, out, s);
+  return launch_single<true, true, false, false>(
+      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, cr, done, out, s);
+}
+
+// K14 port (seed null, r0 0): the 2-bit greedy codes of the whole pair,
+// uint32[ceil(Bs/32), 2*ceil((A+32)/32), 32], and its corner score.
+// K13 port (seed int32[A+1] = row r0 of the pair): the codes of rows
+// r0+1 .. r0+Bs (side = the pair's side from row r0+1 on, Bs rows), in
+// the same layout, and H[r0+Bs][A].  ring is [min(blocks*warps, bands),
+// A+1] scratch, done int32[blocks*warps] zeroed.
+extern "C" int nw_fill_codes_single(const int* top, const int* side, int A,
+                                    int Bs, int r0, const int* seed, int m,
+                                    int k, int d, int blocks, int warps,
+                                    int* ring, int* done, void* codes,
+                                    int* score, void* stream) {
+  const Outs out{nullptr, nullptr, static_cast<unsigned*>(codes), nullptr, 0,
+                 score, nullptr};
+  return launch_single<false, false, false, true>(
+      top, side, A, Bs, r0, seed, m, k, d, blocks, warps, ring, nullptr, done,
+      out, static_cast<cudaStream_t>(stream));
+}
+
+// K11 port (ckpt null): one pair's corner score, nothing stored per cell.
+// K12 port: also rows 0, C, 2C, ... below the last row into ckpt,
+// int32[ceil(Bs/C), A+1]; C = every, a multiple of 32.  ring / done as
+// nw_fill_codes_single.
+extern "C" int nw_score_single(const int* top, const int* side, int A, int Bs,
+                               int m, int k, int d, int blocks, int warps,
+                               int* ring, int* done, int* ckpt, int every,
+                               int* score, void* stream) {
+  const Outs out{nullptr, nullptr, nullptr, ckpt, every, score, nullptr};
+  return launch_single<false, false, false, false>(
+      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, nullptr, done,
+      out, static_cast<cudaStream_t>(stream));
 }

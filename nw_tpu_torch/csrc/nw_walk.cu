@@ -24,6 +24,16 @@
 // is ~20 000 serial L2/HBM round trips.  Pairs walk in parallel; nothing
 // in the design hides the per-step latency (prefetching the words around
 // the path is left for later).
+//
+// nw_walk_window is the same walk over ONE block of rows (j0, j0+rows]
+// of one pair, re-filled from a checkpoint row by nw_fill_codes_single:
+// the block walk of nw_tpu/ops/checkpoint_traceback.py:353-373 and the
+// relay walk of nw_tpu/parallel/huge_pair.py:871 (_make_relay_walk,
+// _make_arrow_at_pallasb), both jnp loops on the TPU.  One thread reads
+// (i, j, n) from device memory, walks until it reaches row j0 (or, when
+// j0 is 0, the origin, stepping LEFT along row 0), and writes (i, j, n)
+// back, so the blocks of a pair chain on one stream with no host sync.
+// Code row of cell row j: j - j0 - 1.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,6 +42,28 @@ namespace {
 
 constexpr int kOpLeft = 1;
 constexpr int kOpUp = 2;
+
+// Walk from (i, j) over codes of rows j0+1 .. (band-major, TW words a
+// band row), writing ops from out[n]; stops at row j0 when j0 > 0, else
+// at the origin, or after S ops.
+__device__ __forceinline__ void walk(const unsigned* __restrict__ base, int TW,
+                                     int j0, int S, int& i, int& j, int& n,
+                                     signed char* __restrict__ out) {
+  while ((j > j0 || (j0 == 0 && i > 0)) && n < S) {
+    int a = kOpLeft;  // row 0 is not stored: LEFT to the origin
+    if (j > 0) {
+      const int r = j - j0 - 1;
+      const int band = r >> 5;
+      const int jj = r & 31;
+      const int t = i + jj;
+      const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 4)) * 32 + jj];
+      a = (w >> (2 * (t & 15))) & 3u;
+    }
+    out[n++] = static_cast<signed char>(a);
+    i -= a != kOpUp;
+    j -= a != kOpLeft;
+  }
+}
 
 __global__ void nw_walk_kernel(const unsigned* __restrict__ codes,
                                const int* __restrict__ lens1,
@@ -42,25 +74,24 @@ __global__ void nw_walk_kernel(const unsigned* __restrict__ codes,
   const int bi = blockIdx.x * blockDim.x + threadIdx.x;
   if (bi >= B) return;
   const int64_t b = bi;
-  const unsigned* base = codes + b * nbands * TW * 32;
-  signed char* out = ops + b * S;
   int i = lens1[b];
   int j = lens2[b];
   int n = 0;
-  while ((i > 0 || j > 0) && n < S) {
-    int a = kOpLeft;  // row 0 is not stored: LEFT to the origin
-    if (j > 0) {
-      const int band = (j - 1) >> 5;
-      const int jj = (j - 1) & 31;
-      const int t = i + jj;
-      const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 4)) * 32 + jj];
-      a = (w >> (2 * (t & 15))) & 3u;
-    }
-    out[n++] = static_cast<signed char>(a);
-    i -= a != kOpUp;
-    j -= a != kOpLeft;
-  }
+  walk(codes + b * nbands * TW * 32, TW, 0, S, i, j, n, ops + b * S);
   ns[b] = n;
+}
+
+__global__ void nw_walk_window_kernel(const unsigned* __restrict__ codes,
+                                      int nbands, int TW, int j0,
+                                      int* __restrict__ state, int S,
+                                      signed char* __restrict__ ops) {
+  int i = state[0], j = state[1], n = state[2];
+  // a start outside the block's codes walks nowhere (n stays short)
+  if (j < j0 || j > j0 + 32 * nbands || i < 0 || i + 32 > 16 * TW || n < 0) return;
+  walk(codes, TW, j0, S, i, j, n, ops);
+  state[0] = i;
+  state[1] = j;
+  state[2] = n;
 }
 
 }  // namespace
@@ -76,5 +107,19 @@ extern "C" int nw_walk(const void* codes, const int* lens1, const int* lens2,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(codes), lens1, lens2, B, nbands, TW, S, ops,
       ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// codes: uint32[1, nbands, TW, 32] of rows j0+1 .. j0+32*nbands (from
+// nw_fill_codes_single); state: int32[3] = (i, j, n), read and written
+// back; ops: int8[S], written from ops[n].  A start with j outside
+// [j0, j0 + 32*nbands] or i + 32 > 16*TW leaves state as it was.
+extern "C" int nw_walk_window(const void* codes, int nbands, int TW, int j0,
+                              int* state, int S, signed char* ops,
+                              void* stream) {
+  if (nbands < 0 || TW < 0 || j0 < 0 || S < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  nw_walk_window_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(codes), nbands, TW, j0, state, S, ops);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,17 +7,21 @@ Counterpart of ``nw_tpu/models/needleman_wunsch.py``:
   (``nw_fill_masks``);
 * ``NWAligner.summary_huge`` — one pair's score and solution count in
   O(A+B) memory (``nw_score_count``, the K8 port);
+* ``NWAligner.align_huge`` — the exact first-emitted alignment of one
+  huge pair (100 kb and more), by one of two routes (:meth:`NWAligner._huge_ops`):
+  the whole pair's 2-bit codes (``nw_fill_codes_single``, the K14 port)
+  and one ``nw_walk`` when they fit ``NW_TPU_HUGE_WALK_HBM``, else the
+  checkpointed re-fill (:mod:`nw_tpu_torch.ops.checkpoint_traceback`:
+  K12, K13 and the windowed walk);
 * ``NWAligner.align_batch`` — a batch of pairs padded to a length bucket:
   int32 scores, uint32 solution counts and the greedy first-emitted
   alignment of each pair.
 
-``align_huge`` and the strings half of ``align_batch``'s small batches of
-huge pairs need the huge-pair engines (K9-K14), not ported yet.
-
 ``align_batch``'s routes, by what the caller asks for:
 
 * scores only -> :func:`nw_tpu_torch.ops.fill_auto.fill_scores_auto`
-  (``nw_scores``);
+  (``nw_scores``; a small batch of long pairs one pair at a time through
+  ``nw_score_single``, the K11 port);
 * counts only -> :func:`nw_tpu_torch.ops.fill_banded.fill_scores_counts_banded_batch`
   (``nw_fill_codes`` without codes);
 * strings, with or without counts -> sub-batches through
@@ -25,13 +29,15 @@ huge pairs need the huge-pair engines (K9-K14), not ported yet.
   (``nw_fill_codes`` then ``nw_walk``).  Only this route stores a value
   per cell (2 bits), so only it is cut into sub-batches, sized so that
   one sub-batch's codes fit :data:`CODE_BUDGET_BYTES`;
-* counts of fewer than ``BANDED_MIN_BATCH`` pairs with sides over
-  ``HUGE_PAIR_MIN_SIDE`` -> one pair at a time through ``summary_huge``.
+* counts or strings of fewer than ``BANDED_MIN_BATCH`` pairs with sides
+  over ``HUGE_PAIR_MIN_SIDE`` -> one pair at a time: counts through
+  ``summary_huge``, strings through ``align_huge``'s routes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,15 +60,36 @@ from nw_tpu_torch.ops.fill_banded import (
     fill_arrows_banded_single,
     fill_scores_counts_banded_batch,
 )
-from nw_tpu_torch.ops.fill_single import score_count_fold
+from nw_tpu_torch.ops.checkpoint_traceback import traceback_checkpointed
+from nw_tpu_torch.ops.fill_single import fill_codes_single, score_count_fold
 
 # device bytes one strings sub-batch may spend on its 2-bit codes: at
 # 10 kb buckets (26 MB a pair) 640 pairs, i.e. several warps per SM
 CODE_BUDGET_BYTES = 16 << 30
 
 
+# default of NW_TPU_HUGE_WALK_HBM, the device bytes align_huge may spend
+# on one pair's 2-bit codes (nw_tpu's default; a 100 000 bp pair needs
+# 2.5 GB)
+HUGE_WALK_BUDGET_BYTES = 8 << 30
+
+
 def _as_bytes(s: str | bytes) -> bytes:
     return s.encode() if isinstance(s, str) else bytes(s)
+
+
+def _rescore(X: bytes, Y: bytes, m: int, k: int, d: int) -> int:
+    """The score of an alignment in Python ints (no int32 wrap), as
+    ``nw_tpu``'s ``align_huge`` derives it (needleman_wunsch.py:196-204)."""
+    score = 0
+    for x, y in zip(X, Y):
+        if x == ord("-") or y == ord("-"):
+            score -= d
+        elif x == y:
+            score += m
+        else:
+            score -= k
+    return score
 
 
 def code_bytes_per_pair(L1: int, L2: int) -> int:
@@ -123,6 +150,18 @@ class BatchResult:
         return traceback.ops_to_strings_batch(self.ops, self.ops_len, self._pairs)
 
 
+@dataclasses.dataclass
+class HugeAlignmentResult:
+    """Result of :meth:`NWAligner.align_huge`: the first-emitted
+    alignment, with no per-cell table kept."""
+
+    s1: bytes
+    s2: bytes
+    score: int
+    X: bytes  # aligned top string (with '-' gaps)
+    Y: bytes  # aligned side string
+
+
 class NWAligner:
     """Needleman-Wunsch aligner configured once, applied to many inputs.
 
@@ -179,15 +218,79 @@ class NWAligner:
         score, count = score_count_fold(*self._encode_pair(s1b, s2b), m, k, d)
         return score, 0 if not s1b and not s2b else count
 
-    def _align_batch_huge_pairs(self, norm, status) -> BatchResult:
-        """Counts of a small batch of huge pairs, one pair at a time
-        through :meth:`summary_huge` (``nw_tpu``
-        ``needleman_wunsch.py:290-341``, its count-only branch)."""
-        scores = np.zeros(len(norm), np.int32)
-        counts = np.zeros(len(norm), np.uint32)
+    def align_huge(
+        self, s1: str | bytes, s2: str | bytes, block_diagonals: Optional[int] = None
+    ) -> HugeAlignmentResult:
+        """Exact first-emitted alignment of ONE huge pair (100 kb and
+        more), byte-identical to the reference DFS's first emission
+        (needleman-wunsch.c:305-324) and to ``nw_tpu``'s ``align_huge``.
+
+        Route (:meth:`_huge_ops`): when ``block_diagonals`` is None and
+        the pair's 2-bit codes (:func:`code_bytes_per_pair`) fit
+        ``NW_TPU_HUGE_WALK_HBM`` bytes (default
+        :data:`HUGE_WALK_BUDGET_BYTES`, 8 GiB; a 100 000 bp pair needs
+        2.5 GB), one fill of the whole pair's codes and one walk; the
+        score is the fill's corner.  Otherwise the checkpointed re-fill
+        (:func:`nw_tpu_torch.ops.checkpoint_traceback.traceback_checkpointed`),
+        O(A B / C + C A) memory; the score is derived from the alignment
+        in Python ints.  ``block_diagonals`` keeps ``nw_tpu``'s name: in
+        the port it is the rows each block re-fills, rounded up to a
+        multiple of 32.  It changes memory and time, never the output.
+        """
+        s1b, s2b = _as_bytes(s1), _as_bytes(s2)
+        ops, n, score = self._huge_ops(*self._encode_pair(s1b, s2b), block_diagonals)
+        X, Y = traceback.ops_to_strings(ops, n, s1b, s2b)
+        if score is None:
+            score = _rescore(X, Y, *self.config.scoring.as_tuple())
+        return HugeAlignmentResult(s1=s1b, s2=s2b, score=score, X=X, Y=Y)
+
+    def _huge_ops(self, top, side, block_diagonals=None):
+        """(ops int8[n] on the host, n, score or None) of ONE huge pair:
+        ``align_huge``'s route choice (``nw_tpu``
+        ``needleman_wunsch.py:207-244``).  The budget rule alone decides;
+        a failed allocation or launch raises."""
+        m, k, d = self.config.scoring.as_tuple()
+        len1, len2 = top.shape[0], side.shape[0]
+        budget = int(os.environ.get("NW_TPU_HUGE_WALK_HBM", HUGE_WALK_BUDGET_BYTES))
+        if block_diagonals is None and code_bytes_per_pair(len1, len2) <= budget:
+            codes, score = fill_codes_single(top, side, m, k, d)
+            lens = [torch.tensor([x], dtype=torch.int32, device=self.device) for x in (len1, len2)]
+            ops, n = traceback.walk_codes_batch(codes, *lens, max(len1 + len2, 1))
+            n = int(n[0])
+            return ops[0, :n].cpu().numpy(), n, int(score)
+        ops, n = traceback_checkpointed(top, side, m, k, d, block_diagonals=block_diagonals)
+        n = int(n)
+        return ops[:n].cpu().numpy(), n, None
+
+    def _align_batch_huge_pairs(self, norm, status, traceback_strings, count) -> BatchResult:
+        """A small batch of huge pairs, one pair at a time (``nw_tpu``
+        ``needleman_wunsch.py:290-341``): strings through
+        :meth:`_huge_ops`, counts through :meth:`summary_huge`; without
+        counts the scores come from the strings' route (the corner, or
+        the alignment re-scored, as ``align_huge``)."""
+        m, k, d = self.config.scoring.as_tuple()
+        nb = len(norm)
+        scores = np.zeros(nb, np.int32)
+        counts = np.zeros(nb, np.uint32) if count else None
+        S = max((len(a) + len(b) for a, b in norm), default=1)
+        ops_arr = np.full((nb, max(S, 1)), traceback.OP_NONE, np.int8) if traceback_strings else None
+        ns = np.zeros(nb, np.int32)
         for i, (a, b) in enumerate(norm):
-            scores[i], counts[i] = self.summary_huge(a, b)
-        return BatchResult(scores=scores, counts=counts, status=status, _pairs=norm)
+            score = None
+            if traceback_strings:
+                ops, ns[i], score = self._huge_ops(*self._encode_pair(a, b))
+                ops_arr[i, : ns[i]] = ops
+            if count:
+                scores[i], counts[i] = self.summary_huge(a, b)
+            elif score is not None:
+                scores[i] = score
+            else:  # wrapped to int32 as nw_tpu's int32 sum is
+                X, Y = traceback.ops_to_strings(ops_arr[i], int(ns[i]), a, b)
+                scores[i] = (_rescore(X, Y, m, k, d) + 2**31) % 2**32 - 2**31
+        result = BatchResult(scores=scores, counts=counts, status=status, _pairs=norm)
+        if traceback_strings:
+            result.ops, result.ops_len = ops_arr, ns
+        return result
 
     def align_batch(
         self,
@@ -235,13 +338,7 @@ class NWAligner:
             return BatchResult(scores=scores.cpu().numpy(), status=status, _pairs=norm)
 
         if L2 > HUGE_PAIR_MIN_SIDE and len(norm) < BANDED_MIN_BATCH:
-            if traceback_strings:
-                raise NotImplementedError(
-                    f"strings of {len(norm)} pair(s) with sides over "
-                    f"{HUGE_PAIR_MIN_SIDE} need the huge-pair engines, not "
-                    "ported yet (ROADMAP queue 1 item 6)"
-                )
-            return self._align_batch_huge_pairs(norm, status)
+            return self._align_batch_huge_pairs(norm, status, traceback_strings, count)
         if not traceback_strings:
             tops, sides, l1, l2 = enc.upload(enc.encode_batch(norm, L1, L2), self.device)
             scores, counts = fill_scores_counts_banded_batch(

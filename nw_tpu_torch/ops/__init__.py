@@ -9,7 +9,10 @@
   optimal alignment (native C++ walker, Python fallback).
 * :mod:`nw_tpu_torch.ops.traceback` — greedy walks and op strings.
 * :mod:`nw_tpu_torch.ops.fill_banded` — the K1 / K2 kernel wrappers.
-* :mod:`nw_tpu_torch.ops.fill_single` — the K8 kernel wrapper.
+* :mod:`nw_tpu_torch.ops.fill_single` — the single-pair kernel wrappers
+  (K8, K11-K14).
 * :mod:`nw_tpu_torch.ops.banded_traceback` — code fill + walk.
+* :mod:`nw_tpu_torch.ops.checkpoint_traceback` — one huge pair's walk
+  from checkpoint rows (K12, K13, windowed walk).
 * :mod:`nw_tpu_torch.ops.fill_auto` — score routing.
 """

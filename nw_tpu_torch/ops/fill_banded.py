@@ -41,24 +41,14 @@ import torch
 
 from nw_tpu_torch.ops.fill_scan import (
     U32,
+    code_shape,
     diag_to_matrix,
-    diag_to_matrix_batch,
     fill_diag,
     fill_diag_batch,
+    greedy_codes_from_arrows,
 )
 from nw_tpu_torch.ops.fill_single import WARPS, check_pair, launch_shape, single_scratch
 from nw_tpu_torch.runtime import kernels
-
-CODES_PER_WORD = 16
-BAND_ROWS = 32  # one row per lane of a warp
-
-
-def code_shape(B: int, A: int, Bs: int) -> Tuple[int, int, int, int]:
-    """Shape of the code tensor of ``B`` pairs at buckets (A, Bs)."""
-    nbands = -(-Bs // BAND_ROWS)
-    steps = -(-(A + BAND_ROWS) // BAND_ROWS) * BAND_ROWS  # whole 32-step chunks
-    return (B, nbands, steps // CODES_PER_WORD, BAND_ROWS)
-
 
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
@@ -208,35 +198,6 @@ def fill_greedy_counts_banded_batch(
 
 
 fill_greedy_counts_banded_batch.launches = 0
-
-
-def greedy_codes_from_arrows(arrows: torch.Tensor) -> torch.Tensor:
-    """Diagonal-major tie masks uint8[B, K, N] -> packed greedy codes in
-    the kernel's band-major layout (diag > left > up)."""
-    B, K, N = arrows.shape
-    A, Bs = K - N, N - 1
-    rect = diag_to_matrix_batch(arrows)[:, 1:]  # rows 1..Bs, [B, Bs, A+1]
-    code = torch.where(
-        (rect & 1) != 0, 0, torch.where((rect & 2) != 0, 1, 2)
-    ).to(torch.uint8)
-    _, nbands, TW, _ = code_shape(B, A, Bs)
-    code = torch.nn.functional.pad(code, (0, 0, 0, nbands * BAND_ROWS - Bs))
-    code = code.view(B, nbands, BAND_ROWS, A + 1)
-    # lane jj's cell of column i sits at band step t = i + jj
-    by_step = torch.zeros(
-        (B, nbands, BAND_ROWS, TW * CODES_PER_WORD), dtype=torch.uint8,
-        device=arrows.device,
-    )
-    for jj in range(BAND_ROWS):
-        by_step[:, :, jj, jj : jj + A + 1] = code[:, :, jj]
-    shifts = 2 * torch.arange(CODES_PER_WORD, device=arrows.device)
-    words = (
-        by_step.view(B, nbands, BAND_ROWS, TW, CODES_PER_WORD).to(torch.int64)
-        << shifts
-    ).sum(-1)
-    # reinterpret the uint32 words as int32; lanes last
-    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-    return words.transpose(2, 3).contiguous()
 
 
 def fill_greedy_counts_banded_batch_plain(

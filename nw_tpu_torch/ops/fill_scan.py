@@ -23,12 +23,14 @@ mod 2^32; they are returned as int64 in ``[0, 2^32)``.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 NEG_INF = -(2**30)
 U32 = 0xFFFFFFFF
+CODES_PER_WORD = 16
+BAND_ROWS = 32  # one row per lane of a warp
 
 
 def _shift_down(x: torch.Tensor, fill: int) -> torch.Tensor:
@@ -47,6 +49,8 @@ def fill_diag_batch(
     with_arrows: bool = True,
     with_counts: bool = False,
     with_scores: bool = False,
+    seed: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Fill a batch of DP tables along anti-diagonals.
 
@@ -61,6 +65,11 @@ def fill_diag_batch(
       with_scores: return the int32[B, A+Bs+1, Bs+1] scores of every
         cell (``NEG_INF`` outside the table), as ``fill_scan.py:48
         fill_diag(..., with_scores=True)``.
+      seed, row0: the plain row-block fill.  The side strings are rows
+        ``row0+1 ..`` of larger tables and ``seed`` int32[B, A+1] holds
+        their row ``row0``, which takes row 0's place (its arrows stay
+        LEFT, its counts 1); column 0 is ``-(row0+j)*d``.  Without a seed
+        ``row0`` must be 0.
 
     Returns:
       dict with ``score`` int32[B], and ``arrows`` / ``count`` (int64[B]
@@ -68,6 +77,8 @@ def fill_diag_batch(
     """
     B, A = tops.shape
     Bs = sides.shape[1]
+    if seed is None and row0:
+        raise ValueError("a fill from row row0 > 0 needs its seed row")
     N = Bs + 1
     K = A + Bs + 1
     dev = tops.device
@@ -77,6 +88,7 @@ def fill_diag_batch(
     lens1 = lens1.to(device=dev, dtype=torch.int64)
     lens2 = lens2.to(device=dev, dtype=torch.int64)
     k_corner = lens1 + lens2
+    j_corner = lens2.clamp(max=Bs)
     b_ar = torch.arange(B, device=dev)
 
     # row 0 gets a sentinel side character (it is never an interior row)
@@ -88,11 +100,16 @@ def fill_diag_batch(
 
     j_idx = torch.arange(N, device=dev)
     prev = torch.where(j_idx == 0, 0, NEG_INF).to(i32).expand(B, N)
+    if seed is not None:
+        seed = seed.to(device=dev, dtype=i32)
+        prev = torch.where(j_idx == 0, seed[:, :1], prev)
     prev2 = torch.full((B, N), NEG_INF, dtype=i32, device=dev)
     captured = torch.zeros(B, dtype=i32, device=dev)
     m_t = torch.tensor(m, dtype=i32, device=dev)
     negk_t = -torch.tensor(k, dtype=i32, device=dev)
     d_t = torch.tensor(d, dtype=i32, device=dev)
+    # column 0 of every diagonal, made once: no host copy inside the loop
+    edges = -((torch.arange(K, dtype=i32, device=dev) + row0) * d_t)
     if with_counts:
         cprev = (j_idx == 0).to(torch.int64).expand(B, N)
         cprev2 = torch.zeros((B, N), dtype=torch.int64, device=dev)
@@ -118,11 +135,13 @@ def fill_diag_batch(
         b_left = ((cand_left == score) & interior) | on_top_row
         b_up = ((cand_up == score) & interior) | on_left_col
 
-        edge = -(torch.tensor(kk, dtype=i32, device=dev) * d_t)
+        edge = edges[kk]
+        top_edge = edge if seed is None else seed[:, min(kk, A)][:, None]
         score = torch.where(interior, score, NEG_INF)
-        score = torch.where(on_top_row | on_left_col, edge, score)
+        score = torch.where(on_left_col, edge, score)
+        score = torch.where(on_top_row, top_edge, score)
         hit = kk == k_corner
-        captured = torch.where(hit, score[b_ar, lens2.clamp(max=Bs)], captured)
+        captured = torch.where(hit, score[b_ar, j_corner], captured)
 
         if with_scores:
             scores_l.append(score)
@@ -138,9 +157,7 @@ def fill_diag_batch(
                 + torch.where(b_left, cprev, 0)
                 + torch.where(b_up, _shift_down(cprev, 0), 0)
             ) & U32
-            ccaptured = torch.where(
-                hit, cnt[b_ar, lens2.clamp(max=Bs)], ccaptured
-            )
+            ccaptured = torch.where(hit, cnt[b_ar, j_corner], ccaptured)
             cprev, cprev2 = cnt, cprev
         prev, prev2 = score, prev
 
@@ -165,10 +182,13 @@ def fill_diag(
     with_arrows: bool = True,
     with_counts: bool = False,
     with_scores: bool = False,
+    seed: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """:func:`fill_diag_batch` on one pair (``fill_scan.py:48
     fill_diag``): int32 top[A] / side[Bs], true lengths defaulting to
-    A / Bs; the same dict with the batch dimension dropped."""
+    A / Bs, ``seed`` int32[A+1]; the same dict with the batch dimension
+    dropped."""
     len1 = top.shape[0] if len1 is None else len1
     len2 = side.shape[0] if len2 is None else len2
     dev = top.device
@@ -176,9 +196,29 @@ def fill_diag(
         top[None], side[None],
         torch.tensor([len1], device=dev), torch.tensor([len2], device=dev),
         m, k, d, with_arrows=with_arrows, with_counts=with_counts,
-        with_scores=with_scores,
+        with_scores=with_scores, seed=None if seed is None else seed[None],
+        row0=row0,
     )
     return {key: v[0] for key, v in out.items()}
+
+
+def fill_last_row(top, side, m, k, d, len1=None, len2=None, every=None) -> torch.Tensor:
+    """int32[A+1]: the scores of DP row ``len2`` for columns 0..A (valid
+    through ``len1``; ``fill_scan.py:238 fill_last_row``), read off the
+    anti-diagonal fill of ``side[:len2]``: ``H[j, i]`` sits on diagonal
+    ``j + i``.  With ``every`` = C, int32[ceil(len2/C) + 1, A+1]: the rows
+    0, C, 2C, ... below ``len2`` and row ``len2`` last, all from that one
+    fill: the plain version behind K12's checkpoint rows and its corner
+    (:func:`nw_tpu_torch.ops.fill_single.score_fold_plain`)."""
+    A = top.shape[0]
+    len2 = side.shape[0] if len2 is None else int(len2)
+    out = fill_diag(
+        top, side[:len2], m, k, d, len1, len2, with_arrows=False, with_scores=True
+    )
+    rows = [len2] if every is None else [*range(0, len2, every), len2]
+    rows = torch.tensor(rows, device=top.device)[:, None]
+    got = out["scores"][rows + torch.arange(A + 1, device=top.device), rows]
+    return got[0] if every is None else got
 
 
 def diag_to_matrix_batch(diag: torch.Tensor) -> torch.Tensor:
@@ -211,3 +251,41 @@ def matrix_to_diag(rect: torch.Tensor) -> torch.Tensor:
     inside = (ii >= 0) & (ii < M)
     vals = rect[jj.expand_as(ii), ii.clamp(0, M - 1)]
     return torch.where(inside, vals, torch.zeros((), dtype=rect.dtype, device=rect.device))
+
+
+def code_shape(B: int, A: int, Bs: int) -> Tuple[int, int, int, int]:
+    """Shape of the band-major 2-bit code tensor of ``B`` pairs at
+    buckets (A, Bs): int32[B, ceil(Bs/32), TW, 32], TW = 2*ceil((A+32)/32)
+    (the layout of :mod:`nw_tpu_torch.ops.fill_banded`)."""
+    nbands = -(-Bs // BAND_ROWS)
+    steps = -(-(A + BAND_ROWS) // BAND_ROWS) * BAND_ROWS  # whole 32-step chunks
+    return (B, nbands, steps // CODES_PER_WORD, BAND_ROWS)
+
+
+def greedy_codes_from_arrows(arrows: torch.Tensor) -> torch.Tensor:
+    """Diagonal-major tie masks uint8[B, K, N] -> packed greedy codes in
+    the kernels' band-major layout (diag > left > up)."""
+    B, K, N = arrows.shape
+    A, Bs = K - N, N - 1
+    rect = diag_to_matrix_batch(arrows)[:, 1:]  # rows 1..Bs, [B, Bs, A+1]
+    code = torch.where(
+        (rect & 1) != 0, 0, torch.where((rect & 2) != 0, 1, 2)
+    ).to(torch.uint8)
+    _, nbands, TW, _ = code_shape(B, A, Bs)
+    code = torch.nn.functional.pad(code, (0, 0, 0, nbands * BAND_ROWS - Bs))
+    code = code.view(B, nbands, BAND_ROWS, A + 1)
+    # lane jj's cell of column i sits at band step t = i + jj
+    by_step = torch.zeros(
+        (B, nbands, BAND_ROWS, TW * CODES_PER_WORD), dtype=torch.uint8,
+        device=arrows.device,
+    )
+    for jj in range(BAND_ROWS):
+        by_step[:, :, jj, jj : jj + A + 1] = code[:, :, jj]
+    shifts = 2 * torch.arange(CODES_PER_WORD, device=arrows.device)
+    words = (
+        by_step.view(B, nbands, BAND_ROWS, TW, CODES_PER_WORD).to(torch.int64)
+        << shifts
+    ).sum(-1)
+    # reinterpret the uint32 words as int32; lanes last
+    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    return words.transpose(2, 3).contiguous()

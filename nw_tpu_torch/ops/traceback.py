@@ -14,8 +14,14 @@ exactly the *first* alignment the reference emits.
   emits (the counterpart of ``traceback_greedy2``, ``traceback.py:88-122``):
   the ``nw_walk`` kernel on a CUDA tensor, its plain version on a CPU
   tensor.
+* :func:`walk_codes_window` walks one block of rows of one pair's codes
+  (re-filled from a checkpoint row) from a start kept in device memory
+  (the block walk of ``nw_tpu/ops/checkpoint_traceback.py:353-373``): the
+  ``nw_walk_window`` kernel on CUDA tensors, its plain version on CPU
+  tensors.
 * :func:`ops_to_strings_batch` builds the aligned byte strings on the
-  host (numpy path of ``traceback.py:212-267``).
+  host (numpy path of ``traceback.py:212-267``); :func:`ops_to_strings`
+  does one pair (``traceback.py:270``).
 """
 
 from __future__ import annotations
@@ -147,6 +153,88 @@ def walk_codes_batch_plain(
         j = j - (active & (a != OP_LEFT)).to(torch.int64)
         n = n + active.to(torch.int32)
     return ops, n
+
+
+def _check_window_args(codes, state, ops):
+    if codes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"CPU or CUDA tensors expected, got {codes.device}")
+    if codes.dim() != 4 or codes.dtype != torch.int32 or codes.shape[0] != 1 or codes.shape[3] != 32:
+        raise ValueError("codes must be int32[1, nbands, TW, 32]")
+    if state.shape != (3,) or state.dtype != torch.int32 or not state.is_contiguous():
+        raise ValueError("state must be a contiguous int32[3]: (i, j, n)")
+    if ops.dim() != 1 or ops.dtype != torch.int8 or not ops.is_contiguous():
+        raise ValueError("ops must be a contiguous int8[S]")
+    if state.device != codes.device or ops.device != codes.device:
+        raise ValueError("codes, state and ops must be on one device")
+
+
+def walk_codes_window(
+    codes: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor
+) -> None:
+    """Greedy backward walk over one block of rows of one pair, in place.
+
+    codes: int32[1, nbands, TW, 32], the codes of rows j0+1 .. of the pair
+    (:func:`nw_tpu_torch.ops.fill_single.fill_codes_single`, seeded from
+    row j0; code row j - j0 - 1).  state: int32[3] = (i, j, n), the start
+    cell and the number of ops written so far, read and written back.
+    ops: int8[S], written from ops[n].  The walk stops on reaching row j0
+    when j0 > 0; when j0 is 0 it steps LEFT along row 0 to the origin.
+    Because the start lives in device memory, the blocks of one pair
+    chain on one stream with no host sync.
+
+    A CUDA tensor goes through the ``nw_walk_window`` kernel (one
+    thread); a CPU tensor through :func:`walk_codes_window_plain`.
+    """
+    _check_window_args(codes, state, ops)
+    if j0 < 0:
+        raise ValueError(f"j0 must be >= 0, not {j0}")
+    if codes.device.type == "cpu":
+        return walk_codes_window_plain(codes, state, j0, ops)
+    codes = codes.contiguous()
+    _, nbands, TW, _ = codes.shape
+    kernels.launch(
+        "nw_walk_window", codes.device,
+        codes.data_ptr(), nbands, TW, j0, state.data_ptr(), ops.shape[0],
+        ops.data_ptr(),
+    )
+    walk_codes_window.launches += 1
+
+
+walk_codes_window.launches = 0
+
+
+def walk_codes_window_plain(
+    codes: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor
+) -> None:
+    """Plain version of :func:`walk_codes_window` (the same updates of
+    ``state`` and ``ops``), one step at a time on the host."""
+    _check_window_args(codes, state, ops)
+    _, nbands, TW, _ = codes.shape
+    words = codes[0].cpu().numpy().view(np.uint32)
+    i, j, n = state.tolist()
+    if j < j0 or j > j0 + 32 * nbands or i < 0 or i + 32 > 16 * TW or n < 0:
+        return  # outside the block: nowhere to walk, as the kernel
+    steps = []
+    S = ops.shape[0]
+    while (j > j0 or (j0 == 0 and i > 0)) and n + len(steps) < S:
+        a = OP_LEFT  # row 0 is not stored: LEFT to the origin
+        if j > 0:
+            r = j - j0 - 1
+            t = i + (r & 31)
+            a = (int(words[r >> 5, t >> 4, r & 31]) >> (2 * (t & 15))) & 3
+        steps.append(a)
+        i -= a != OP_UP
+        j -= a != OP_LEFT
+    if steps:
+        ops[n : n + len(steps)] = torch.tensor(steps, dtype=torch.int8)
+    state.copy_(torch.tensor([i, j, n + len(steps)], dtype=torch.int32))
+
+
+def ops_to_strings(ops, n: int, s1: bytes, s2: bytes, gap: int = ord("-")) -> Tuple[bytes, bytes]:
+    """Host: the aligned (X, Y) byte strings of one pair's walk, ops
+    int8[>= n] (corner -> origin; ``traceback.py:270 ops_to_strings``)."""
+    ops = np.asarray(ops)[:n]
+    return ops_to_strings_batch(ops[None], np.array([n], np.int32), [(s1, s2)], gap)[0]
 
 
 def ops_to_strings_batch(

@@ -43,6 +43,9 @@ SIGNATURES = {
     "nw_walk": [P, P, P, I, I, I, I, P, P, P],
     "nw_score_count": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nw_fill_masks": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P, P, P],
+    "nw_fill_codes_single": [P, P, I, I, I, P, I, I, I, I, I, P, P, P, P, P],
+    "nw_score_single": [P, P, I, I, I, I, I, I, I, P, P, P, I, P, P],
+    "nw_walk_window": [P, I, I, I, P, I, P, P],
 }
 
 

@@ -1,11 +1,11 @@
 """Build/load the native C++ runtime (ctypes, no pybind11 dependency).
 
-Port of ``nw_tpu/runtime/native.py``.  The C++ sources are the TPU
-package's own, compiled by path: every ``nw_tpu/runtime/cc/*.cc`` goes
-into one shared library built with g++ on first use (into
-``nw_tpu_torch/_build/``, keyed by a source hash, so edits trigger
-rebuilds); nothing of ``nw_tpu`` is imported.  :func:`load` returns a
-thin wrapper over:
+Port of ``nw_tpu/runtime/native.py``.  The C++ sources are the port's
+own copy of ``nw_tpu``'s, byte for byte, in ``nw_tpu_torch/runtime/cc/``:
+every ``*.cc`` there goes into one shared library built with g++ on
+first use (into ``nw_tpu_torch/_build/``, keyed by a source hash, so
+edits trigger rebuilds); nothing of ``nw_tpu`` is imported or built.
+:func:`load` returns a thin wrapper over:
 
 * ``nw_enumerate`` — the all-optimal-alignments DFS walker (cc/nwwalk.cc)
 * ``nw_render_table`` — the score-table renderer (cc/nwrender.cc)
@@ -31,7 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_DIR = os.path.join(os.path.dirname(_PKG), "nw_tpu", "runtime", "cc")
+_SRC_DIR = os.path.join(_PKG, "runtime", "cc")
 _BUILD = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()

@@ -92,15 +92,26 @@ def test_empty_batch():
 
 
 def test_small_batch_of_huge_pairs_is_not_ported(monkeypatch):
-    """Strings of a small batch of huge pairs still need the huge-pair
-    engines; their counts go pair by pair through summary_huge."""
-    ps = [(b"A" * 40000, b"C" * 40000)] * 2
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        align_batch(ps, device="cpu", traceback_strings=True)
+    """A small batch of pairs over HUGE_PAIR_MIN_SIDE (shrunk to 32 in
+    both packages) goes pair by pair through the huge-pair routes:
+    strings through align_huge's routes, counts through summary_huge;
+    everything equals nw_tpu's, which runs the same routes."""
+    import nw_tpu.ops.fill_auto as jfa
+    from nw_tpu_torch.models import needleman_wunsch as model
+
+    ps = _pairs(44, 3, 33, 70) + [(b"ACGT", b"A" * 40), (b"", b"C" * 35)]
+    monkeypatch.setattr(jfa, "HUGE_PAIR_MIN_SIDE", 32)
+    monkeypatch.setattr(model, "HUGE_PAIR_MIN_SIDE", 32)
+    for strings, count in [(True, False), (True, True)]:
+        want = nw_tpu.align_batch(ps, 2, 1, 1, traceback_strings=strings, count=count)
+        got = align_batch(ps, 2, 1, 1, device="cpu", traceback_strings=strings, count=count)
+        np.testing.assert_array_equal(got.scores, np.asarray(want.scores))
+        np.testing.assert_array_equal(got.ops_len, np.asarray(want.ops_len))
+        assert got.alignment_strings() == want.alignment_strings()
     calls = []
     monkeypatch.setattr(
         NWAligner, "summary_huge", lambda self, a, b: calls.append((a, b)) or (-7, 2**32 - 1)
     )
     r = align_batch(ps, device="cpu", count=True)
     assert calls == ps
-    assert r.scores.tolist() == [-7, -7] and r.counts.tolist() == [2**32 - 1] * 2
+    assert r.scores.tolist() == [-7] * len(ps) and r.counts.tolist() == [2**32 - 1] * len(ps)

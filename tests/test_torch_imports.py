@@ -1,5 +1,6 @@
 """Import hygiene of nw_tpu_torch: no JAX, no nw_tpu, no silent CPU path."""
 
+import ast
 import os
 import re
 import subprocess
@@ -21,6 +22,8 @@ NEW_MODULES = {
     "nw_tpu_torch.ops.fill_single", "nw_tpu_torch.ops.enumerate_walk",
     "nw_tpu_torch.utils.cformat", "nw_tpu_torch.utils.textio",
     "nw_tpu_torch.utils.alignout", "nw_tpu_torch.utils.render",
+    "nw_tpu_torch.ops.checkpoint_traceback", "nw_tpu_torch.ops.fill_auto",
+    "nw_tpu_torch.ops.traceback",
 }
 
 
@@ -79,9 +82,18 @@ def test_wrappers_do_not_fall_back_off_cpu():
     from nw_tpu_torch.ops import fill_single
 
     one = torch.zeros(8, dtype=torch.int32, device="meta")
-    for fn in (fill_single.score_count_fold, fill_banded.fill_arrows_banded_single):
+    for fn in (
+        fill_single.score_count_fold, fill_banded.fill_arrows_banded_single,
+        fill_single.score_fold, fill_single.fill_codes_single,
+    ):
         with pytest.raises(ValueError):
             fn(one, one, 1, 1, 1)
+    with pytest.raises(ValueError):
+        traceback.walk_codes_window(
+            torch.zeros((1, 1, 6, 32), dtype=torch.int32, device="meta"),
+            torch.zeros(3, dtype=torch.int32, device="meta"), 0,
+            torch.zeros(8, dtype=torch.int8, device="meta"),
+        )
 
 
 def test_kernel_build_is_keyed_by_sources():
@@ -96,12 +108,51 @@ def test_kernel_build_is_keyed_by_sources():
 
 
 def test_native_runtime_builds_from_nw_tpu_sources():
-    """The port's native C++ runtime is nw_tpu/runtime/cc, compiled by
-    path into nw_tpu_torch/_build (g++ is on both hosts)."""
+    """The port's native C++ runtime is its own byte-for-byte copy of
+    nw_tpu's sources, nw_tpu_torch/runtime/cc, compiled into
+    nw_tpu_torch/_build (g++ is on both hosts); nothing is built from
+    nw_tpu/."""
     from nw_tpu_torch.runtime import native
 
-    assert {os.path.basename(s) for s in native._sources()} == {
-        "nwread.cc", "nwrender.cc", "nwstrings.cc", "nwwalk.cc"
-    }
+    srcs = [Path(s).resolve() for s in native._sources()]
+    assert {s.parent for s in srcs} == {REPO / "nw_tpu_torch" / "runtime" / "cc"}
+    assert {s.name for s in srcs} == {"nwread.cc", "nwrender.cc", "nwstrings.cc", "nwwalk.cc"}
+    for s in srcs:
+        assert s.read_bytes() == (REPO / "nw_tpu" / "runtime" / "cc" / s.name).read_bytes(), s
     assert native.load() is not None
     assert any(p.name.startswith("libnwnative-") for p in (REPO / "nw_tpu_torch" / "_build").iterdir())
+
+
+def _code_strings(tree):
+    """String constants of a module that are not docstrings."""
+    docs = {
+        id(node.body[0].value)
+        for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)
+    }
+    return [
+        node.value for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs
+    ]
+
+
+def test_port_names_no_path_inside_nw_tpu():
+    """No code of the port reaches into nw_tpu/ by path: no string it
+    builds a path from names nw_tpu/ (docstrings and comments cite the
+    TPU kernels they replace by file:line, which is not a path the code
+    opens), and no C/C++/CUDA source includes a header from there."""
+    inside = re.compile(r"(^|[^\w])nw_tpu([/\\]|$)")
+    py = sorted((REPO / "nw_tpu_torch").rglob("*.py"))
+    native = sorted(
+        f for ext in ("*.cu", "*.cuh", "*.cc", "*.h") for f in (REPO / "nw_tpu_torch").rglob(ext)
+    )
+    assert len(py) > 10 and len(native) >= 8
+    for f in py:
+        for s in _code_strings(ast.parse(f.read_text())):
+            assert not inside.search(s), (f, s)
+    for f in native:
+        assert not re.search(r'#\s*include\s*[<"][^>"]*nw_tpu[/\\]', f.read_text()), f
+    assert inside.search("nw_tpu/runtime/cc") and not inside.search("nw_tpu_torch/runtime/cc")
+    assert inside.search("nw_tpu") and not inside.search("libnw_tpu_torch-")

@@ -205,3 +205,157 @@ def test_single_pair_kernels_across_blocks_at_10kb(cuda):
         assert fill_banded.fill_arrows_banded_single(
             top, side, 2, 1, 1, warps=warps, blocks=blocks
         )[2:] == want
+
+
+def _one(s, cuda=None):
+    t = torch.from_numpy(enc.encode(s))
+    return t if cuda is None else t.to(cuda)
+
+
+def _lens(x, cuda):
+    return torch.tensor([x], dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("blocks,warps", SHAPES)
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_codes_single_kernel_vs_plain_and_nw_fill_codes(cuda, mkd, blocks, warps):
+    """K14 port: bit-equal to its plain version and to nw_fill_codes at
+    B = 1, lengths not multiples of 16 or 32 included."""
+    for s1, s2 in _single_pairs(sum(mkd) + 5) + [(b"ACGTACGTACGTACG", b"A" * 33)]:
+        top, side = _pair_tensors(s1, s2)
+        got = fill_single.fill_codes_single(
+            top.to(cuda), side.to(cuda), *mkd, warps=warps, blocks=blocks
+        )
+        want = fill_single.fill_codes_single_plain(top, side, *mkd)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+        assert int(got[1]) == int(want[1]), (s1, s2)
+        batch = fill_banded.fill_greedy_counts_banded_batch(
+            top.to(cuda)[None], side.to(cuda)[None], _lens(len(s1), cuda),
+            _lens(len(s2), cuda), *mkd,
+        )
+        torch.testing.assert_close(got[0], batch[0], rtol=0, atol=0)
+        assert int(got[1]) == int(batch[1][0])
+
+
+@pytest.mark.parametrize("blocks,warps", SHAPES)
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_seeded_codes_and_checkpoint_kernels_vs_plain(cuda, mkd, blocks, warps):
+    """K12 port (checkpoint rows) and K13 port (codes of the rows below a
+    seed row) against their plain versions."""
+    for s1, s2 in _single_pairs(sum(mkd) + 6):
+        top, side = _pair_tensors(s1, s2)
+        for every in (32, 64):
+            got = fill_single.score_fold(
+                top.to(cuda), side.to(cuda), *mkd, checkpoint_every=every,
+                warps=warps, blocks=blocks,
+            )
+            want = fill_single.score_fold_plain(top, side, *mkd, checkpoint_every=every)
+            torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+            assert int(got[0]) == int(want[0]), (s1, s2)
+            for r in range(1, want[1].shape[0]):
+                r0, r1 = r * every, min(len(s2), (r + 1) * every)
+                seed = want[1][r]
+                g = fill_single.fill_codes_single(
+                    top.to(cuda), side.to(cuda), *mkd, len2=r1, r0=r0,
+                    seed=seed.to(cuda), warps=warps, blocks=blocks,
+                )
+                w = fill_single.fill_codes_single_plain(top, side, *mkd, len2=r1, r0=r0, seed=seed)
+                torch.testing.assert_close(g[0].cpu(), w[0], rtol=0, atol=0)
+                assert int(g[1]) == int(w[1])
+
+
+@pytest.mark.parametrize("blocks,warps", SHAPES)
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_score_single_kernel_vs_plain(cuda, mkd, blocks, warps):
+    """K11 port: the score alone."""
+    for s1, s2 in _single_pairs(sum(mkd) + 7):
+        top, side = _pair_tensors(s1, s2)
+        got = fill_single.score_fold(top.to(cuda), side.to(cuda), *mkd, warps=warps, blocks=blocks)
+        assert got[1] is None
+        assert int(got[0]) == int(fill_single.score_fold_plain(top, side, *mkd)[0]), (s1, s2)
+
+
+@pytest.mark.parametrize("C", [32, 64, 96])
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_window_walk_kernel_vs_plain(cuda, mkd, C):
+    """The windowed walk, chained over the blocks of one pair, against
+    its plain version; and the checkpointed traceback on the card against
+    the CPU and against nw_walk over the whole pair's codes."""
+    from nw_tpu_torch.ops import checkpoint_traceback as ckt
+
+    for s1, s2 in _single_pairs(sum(mkd) + 8):
+        top, side = _pair_tensors(s1, s2)
+        S = len(s1) + len(s2)
+        ops_k = torch.full((S,), traceback.OP_NONE, dtype=torch.int8, device=cuda)
+        ops_p = torch.full((S,), traceback.OP_NONE, dtype=torch.int8)
+        st_k = torch.tensor([len(s1), len(s2), 0], dtype=torch.int32, device=cuda)
+        st_p = st_k.cpu()
+        _, ckpt = fill_single.score_fold_plain(top, side, *mkd, checkpoint_every=C)
+        for b in range(ckpt.shape[0] - 1, -1, -1):
+            r0, r1 = b * C, min(len(s2), (b + 1) * C)
+            codes, _ = fill_single.fill_codes_single_plain(
+                top, side, *mkd, len2=r1, r0=r0, seed=ckpt[b] if r0 else None
+            )
+            traceback.walk_codes_window(codes.to(cuda), st_k, r0, ops_k)
+            traceback.walk_codes_window_plain(codes, st_p, r0, ops_p)
+            torch.testing.assert_close(st_k.cpu(), st_p, rtol=0, atol=0)
+        torch.testing.assert_close(ops_k.cpu(), ops_p, rtol=0, atol=0)
+        got = ckt.traceback_checkpointed(top.to(cuda), side.to(cuda), *mkd, block_diagonals=C)
+        want = ckt.traceback_checkpointed(top, side, *mkd, block_diagonals=C)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+        assert int(got[1]) == int(want[1])
+        codes, _ = fill_single.fill_codes_single(top.to(cuda), side.to(cuda), *mkd)
+        ops, n = traceback.walk_codes_batch(codes, _lens(len(s1), cuda), _lens(len(s2), cuda), max(S, 1))
+        assert int(n[0]) == int(want[1])
+        torch.testing.assert_close(ops[0, :S].cpu(), want[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_align_huge_and_small_huge_batches_cuda_vs_cpu(cuda, monkeypatch, mkd):
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.models import needleman_wunsch as model
+    from nw_tpu_torch.ops import fill_auto
+
+    cfg = AlignConfig(scoring=ScoringParams(*mkd))
+    on_card, on_cpu = NWAligner(cfg, device="cuda"), NWAligner(cfg, device="cpu")
+    pairs = _pairs(sum(mkd) + 9, 3, 0, 300) + EDGE
+    for s1, s2 in pairs:
+        want = on_cpu.align_huge(s1, s2)
+        for bd in (None, 32, 96):
+            assert on_card.align_huge(s1, s2, block_diagonals=bd) == want, (s1, s2, bd)
+    monkeypatch.setattr(model, "HUGE_PAIR_MIN_SIDE", 64)
+    monkeypatch.setattr(fill_auto, "SINGLE_PAIR_MIN_SIDE", 64)
+    monkeypatch.setattr(fill_auto, "SINGLE_PAIR_SIDE_PER_PAIR", 1)
+    for strings, count in [(False, False), (True, False), (True, True), (False, True)]:
+        got = on_card.align_batch(pairs, traceback_strings=strings, count=count)
+        want = on_cpu.align_batch(pairs, traceback_strings=strings, count=count)
+        np.testing.assert_array_equal(got.scores, want.scores)
+        if count:
+            np.testing.assert_array_equal(got.counts, want.counts)
+        if strings:
+            assert got.alignment_strings() == want.alignment_strings()
+
+
+def test_single_pair_code_kernels_across_blocks_at_4kb(cuda):
+    """Many blocks, several bands a warp: the K14 port against
+    nw_fill_codes, K11 / K12 against nw_score_count and each other, and
+    both routes of the traceback against each other, on a 4 000 x 3 000
+    pair."""
+    from nw_tpu_torch.ops import checkpoint_traceback as ckt
+
+    s1, s2 = _pairs(97, 1, 4000, 4001)[0][0], _pairs(96, 1, 3000, 3001)[0][0]
+    top, side = (t.to(cuda) for t in _pair_tensors(s1, s2))
+    want = fill_banded.fill_greedy_counts_banded_batch(
+        top[None], side[None], _lens(4000, cuda), _lens(3000, cuda), 2, 1, 1
+    )
+    sc, _ = fill_single.score_count_fold(top, side, 2, 1, 1)
+    ops_w, n_w = traceback.walk_codes_batch(want[0], _lens(4000, cuda), _lens(3000, cuda), 7000)
+    for blocks, warps in [(None, 8), (7, 3), (1, 32), (50, 1)]:
+        codes, score = fill_single.fill_codes_single(top, side, 2, 1, 1, warps=warps, blocks=blocks)
+        torch.testing.assert_close(codes, want[0], rtol=0, atol=0)
+        assert int(score) == int(want[1][0]) == sc
+        s, ck = fill_single.score_fold(top, side, 2, 1, 1, checkpoint_every=320, warps=warps, blocks=blocks)
+        assert int(s) == sc and int(fill_single.score_fold(top, side, 2, 1, 1)[0]) == sc
+        ops, n = ckt.traceback_checkpointed(top, side, 2, 1, 1, block_diagonals=320)
+        assert int(n) == int(n_w[0])
+        torch.testing.assert_close(ops, ops_w[0], rtol=0, atol=0)

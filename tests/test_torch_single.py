@@ -187,10 +187,12 @@ def test_align_and_summary_huge_vs_nw_tpu(mkd):
 
 def test_small_batch_of_huge_pairs_counts_via_summary(monkeypatch):
     """Counts of a small batch of long-side pairs go pair by pair through
-    summary_huge; strings there still raise."""
+    summary_huge; their strings through align_huge's routes, equal to the
+    normal batch route's."""
     pairs = _pairs(9, 3, 20, 40) + [(b"", b"ACGT" * 5)]
     aligner = NWAligner(device="cpu")
     want = aligner.align_batch(pairs, count=True)
+    want_strings = aligner.align_batch(pairs, traceback_strings=True).alignment_strings()
     monkeypatch.setattr(model, "HUGE_PAIR_MIN_SIDE", 16)
     calls = []
     real = NWAligner.summary_huge
@@ -202,5 +204,4 @@ def test_small_batch_of_huge_pairs_counts_via_summary(monkeypatch):
     np.testing.assert_array_equal(got.scores, want.scores)
     np.testing.assert_array_equal(got.counts, want.counts)
     assert got.counts.dtype == np.uint32
-    with pytest.raises(NotImplementedError):
-        aligner.align_batch(pairs, traceback_strings=True)
+    assert aligner.align_batch(pairs, traceback_strings=True).alignment_strings() == want_strings
