@@ -60,11 +60,29 @@ Phases, in order; any mismatch or exception exits non-zero:
    scores-only crossover of one warp a pair against ``score_fold``,
    peak device memory.
 
+9. Smith-Waterman: (a) ``sw_scores``, ``sw_fill_codes`` (codes, best,
+   argmax) and ``sw_walk`` bit for bit against their plain versions (40
+   random pairs of 0-60 bp and 48 of 0-700 bp, tie-dense pairs, the edge
+   pairs, equal bests in two bands, under (2,1,1), (1,1,1), (0,0,0),
+   (3,-1,2) and (1,1,-1)); then, with every launch counter set to 0, (b)
+   ``sw_align_batch`` of 128 x 3 072 bp (bench.py:414) and 4 096 x 150 bp
+   (bench.py:291), ``sw_score_batch`` of 10 240 x 150 bp (bench.py:517)
+   and 128 x 10 240 bp (bench.py:583), all at (2,1,1): every alignment
+   spells ``s1[i_end:i*]`` / ``s2[j_end:j*]`` and re-scores to its best,
+   every score equals ``sw_fill_codes``'s best, 4 pairs of each batch
+   equal the plain path on the card, every new kernel has launched; (c)
+   walls (median of 4 warm runs), pairs/s, GCUPS, each kernel's time
+   beside its plain version's and its bound.
+
+Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu`` and ``nw_walk.cu``:
+registers and spills of every instantiation.
+
 Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
-tie mask; 12 a walk step) over the card's SMs x 64 INT32 lanes x
-``clocks.max.sm``, and its bytes (inputs read once, outputs written
-once) over 3.35 TB/s.
+tie mask, 2 more for the local clamp and running best, 3 more for the
+local argmax and STOP; 12 a walk step) over the card's SMs x 64 INT32
+lanes x ``clocks.max.sm``, and its bytes (inputs read once, outputs
+written once) over 3.35 TB/s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -93,6 +111,14 @@ L_CROSS = 20_000  # (L+1)^2 > 2^28: past nw_tpu's huge-route threshold
 CROSSOVER = (1024, 2048, 4096, 10240, L_HUGE)  # scores of 2, 8, 23 pairs: K1 vs K11 route
 # int32 operations a cell (or a walk step) of each kernel mode, for the bound
 OPS_SCORE, OPS_COUNT, OPS_CODE, OPS_WALK_STEP = 7, 8, 6, 12
+OPS_LOCAL, OPS_ARGMAX = 2, 3  # Smith-Waterman: clamp + running best; kk select + STOP
+SW_SCORINGS = [*SCORINGS, (1, 1, -1)]
+L_SW_TB = 3072  # bench.py:414 bench_variant_tracebacks: 128 x 3 072 bp
+SW_EDGE = [
+    (b"", b""), (b"ACGT", b""), (b"", b"ACGT"), (b"AAAA", b"TTTT"), (b"A" * 40, b"A" * 70),
+    # equal bests in band 0 on diagonal 60 and in band 1 on diagonal 53
+    (b"T" * 10 + b"C" * 30 + b"A" * 10 + b"C" * 10, b"A" * 10 + b"G" * 23 + b"T" * 10 + b"G" * 2),
+]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT32_LANES_PER_SM = 64
 # (args, stdin, stdout, stderr) of tests/test_cli.py, run as subprocesses
@@ -987,6 +1013,259 @@ def huge_phase(card, bound):
     return rec
 
 
+def start_ptxas_report():
+    """Start ``nvcc -Xptxas -v`` on the batched fill and walk sources
+    (the kernels' own flags), one process each; returns the processes."""
+    from nw_tpu_torch.runtime import kernels
+
+    nvcc = kernels._nvcc()
+    return [
+        subprocess.Popen(
+            [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
+             str(kernels.CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src in ("nw_fill.cu", "nw_walk.cu")
+    ]
+
+
+def print_ptxas_report(procs) -> None:
+    """Registers and spills of every kernel instantiation, from the
+    processes of :func:`start_ptxas_report`."""
+    rows, name = [], None
+    for proc in procs:
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v failed:\n{err}")
+        for line in err.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif "spill stores" in line and name:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line and name:
+                rows.append((name, line.split("Used")[1].split(",")[0].strip(), spill))
+                name = None
+    filt = "/usr/local/cuda/bin/cu++filt"
+    names = [r[0] for r in rows]
+    if os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+    for (_, regs, spill), name in zip(rows, names):
+        if name.endswith(")"):  # drop the parameter list, keep the template arguments
+            depth = 0
+            for i in range(len(name) - 1, -1, -1):
+                depth += {")": 1, "(": -1}.get(name[i], 0)
+                if depth == 0:
+                    name = name[:i]
+                    break
+        log(f"ptxas: {name}: {regs}; {spill}")
+
+
+def sw_kernels_vs_plain(dev, errs):
+    """Phase 9 (a): the three Smith-Waterman kernels bit for bit against
+    their plain versions on the card, every scoring; the scores kernel's
+    best also against the codes kernel's."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    rng = np.random.default_rng(10)
+    pairs = (
+        rand_pairs(rng, 40, 0, 60) + rand_pairs(rng, 48, 0, 700)
+        + rand_pairs(rng, 8, 100, 400, b"AC") + SW_EDGE
+    )
+    L1 = max(len(a) for a, _ in pairs)
+    L2 = max(len(b) for _, b in pairs)
+    tops, sides, l1, l2 = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    for name in ("sw_scores", "sw_fill_codes", "sw_walk"):
+        errs.setdefault(name, 0)
+    for mkd in SW_SCORINGS:
+        scores = vb.sw_scores_banded_batch(tops, sides, l1, l2, *mkd)
+        e_s = max_abs_err(scores, vb.sw_scores_banded_batch_plain(tops, sides, l1, l2, *mkd))
+        got = vb.sw_fill_codes_banded_batch(tops, sides, l1, l2, *mkd)
+        want = vb.sw_fill_codes_banded_batch_plain(tops, sides, l1, l2, *mkd)
+        e_s = max(e_s, max_abs_err(scores, got[1]))
+        e_c = max(max_abs_err(g, w) for g, w in zip(got, want))
+        walk_k = tb.walk_sw_codes_batch(got[0], got[2], got[3])
+        walk_p = tb.walk_sw_codes_batch_plain(want[0], want[2], want[3])
+        e_w = max(max_abs_err(g, w) for g, w in zip(walk_k, walk_p))
+        torch.cuda.synchronize()
+        for name, e in (("sw_scores", e_s), ("sw_fill_codes", e_c), ("sw_walk", e_w)):
+            errs[name] = max(errs[name], e)
+        log(f"SW kernels vs plain, {len(pairs)} pairs {L1}x{L2}, m k d = {mkd}: "
+            f"sw_scores {e_s} sw_fill_codes {e_c} sw_walk {e_w}")
+    if any(errs.values()):
+        fail(f"a Smith-Waterman kernel differs from its plain version: {errs}")
+
+
+def check_local_alignments(pairs, got, best, j_star, i_star, m, k, d) -> None:
+    """Each (best, X, Y, (j_end, i_end)) of ``sw_align_batch``: its best
+    and end cell are ``sw_fill_codes``'s, X / Y spell ``s1[i_end:i*]`` /
+    ``s2[j_end:j*]`` with gaps added and re-score to the best."""
+    if [g[0] for g in got] != best.tolist():
+        fail("sw_align_batch: a best differs from sw_fill_codes's")
+    subs = [
+        (s1[g[3][1] : i], s2[g[3][0] : j])
+        for (s1, s2), g, j, i in zip(pairs, got, j_star.tolist(), i_star.tolist())
+    ]
+    if not np.array_equal(rescore(subs, [g[1:3] for g in got], m, k, d), best.astype(np.int64)):
+        fail("sw_align_batch: an alignment does not re-score to its best")
+
+
+def sw_phase(card, bound):
+    """Phase 9: Smith-Waterman.  Returns each new kernel's record fields."""
+    from nw_tpu_torch.models import smith_waterman as sw
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    errs = {}
+    sw_kernels_vs_plain(dev, errs)
+
+    rng = np.random.default_rng(11)
+    configs = {  # name: (entry point, pairs, source)
+        "align128x3072": (sw.sw_align_batch, rand_pairs(rng, 128, L_SW_TB, L_SW_TB), "bench.py:414"),
+        "align4096x150": (sw.sw_align_batch, rand_pairs(rng, 4096, L_SHORT, L_SHORT), "bench.py:291"),
+        "score10240x150": (sw.sw_score_batch, rand_pairs(rng, 10240, L_SHORT, L_SHORT), "bench.py:517"),
+        "score128x10240": (sw.sw_score_batch, rand_pairs(rng, 128, L_LONG, L_LONG), "bench.py:583"),
+    }
+    m, k, d = 2, 1, 1
+    wrappers = {
+        "sw_scores": vb.sw_scores_banded_batch,
+        "sw_fill_codes": vb.sw_fill_codes_banded_batch,
+        "sw_walk": tb.walk_sw_codes_batch,
+    }
+    # (b) the main path, every launch counter from 0
+    for w in wrappers.values():
+        w.launches = 0
+    results, walls = {}, {}
+    for name, (fn, pairs, _) in configs.items():
+        t0 = time.perf_counter()
+        results[name] = fn(pairs, m, k, d)
+        walls[name] = [time.perf_counter() - t0]
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    log(f"SW main path launches: {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the Smith-Waterman path never launched: {launches}")
+
+    # every output against sw_fill_codes on the same batch; 4 pairs of
+    # each against the plain path on the card
+    plain, kern4 = {}, {}
+    for name, (fn, pairs, src) in configs.items():
+        L = len(pairs[0][0])
+        batch = enc.upload(enc.encode_batch(pairs, L, L), dev)
+        best, j_star, i_star = (t.cpu().numpy() for t in vb.sw_fill_codes_banded_batch(*batch, m, k, d)[1:])
+        got = results[name]
+        four = [t[:4] for t in batch]
+        if fn is sw.sw_align_batch:
+            check_local_alignments(pairs, got, best, j_star, i_star, m, k, d)
+            codes, b4, js, is_ = vb.sw_fill_codes_banded_batch(*four, m, k, d)
+            kern4[name] = (cuda_ms(lambda: vb.sw_fill_codes_banded_batch(*four, m, k, d), 2),
+                           cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js, is_), 2))
+            p_fill, ms_fill = cuda_once(lambda: vb.sw_fill_codes_banded_batch_plain(*four, m, k, d))
+            p_walk, ms_walk = cuda_once(lambda: tb.walk_sw_codes_batch_plain(p_fill[0], p_fill[2], p_fill[3]))
+            plain[name] = (ms_fill, ms_walk)
+            trunc = [(s1[:i], s2[:j]) for (s1, s2), j, i in zip(pairs[:4], js.tolist(), is_.tolist())]
+            ops, n, i_end, j_end = (t.cpu().numpy() for t in p_walk)
+            strs = tb.ops_to_strings_batch(ops, n, trunc)
+            want4 = [(int(p_fill[1][b]), X, Y, (int(j_end[b]), int(i_end[b]))) for b, (X, Y) in enumerate(strs)]
+            e = max(max_abs_err(g, w) for g, w in zip((codes, b4, js, is_), p_fill))
+            errs["sw_fill_codes"] = max(errs["sw_fill_codes"], e)
+            errs["sw_walk"] = max(errs["sw_walk"], max(
+                max_abs_err(g, w) for g, w in zip(tb.walk_sw_codes_batch(codes, js, is_), p_walk)
+            ))
+            lens = [len(x) for _, x, _, _ in got]
+            log(f"SW {name} ({src}): {len(got)} alignments spell their substrings and re-score "
+                f"to sw_fill_codes's best (best {min(best)}-{max(best)}, {min(lens)}-{max(lens)} columns); "
+                f"4 pairs vs plain: {'equal' if got[:4] == want4 else 'DIFFER'}, kernels max |diff| {e}")
+            if got[:4] != want4:
+                fail(f"SW {name}: 4 pairs differ from the plain path on the card")
+        else:
+            if not np.array_equal(got, best):
+                fail(f"SW {name}: scores differ from sw_fill_codes's best")
+            sub = batch if L == L_SHORT else four
+            want, ms = cuda_once(lambda: vb.sw_scores_banded_batch_plain(*sub, m, k, d))
+            plain[name] = ms
+            e = int(np.abs(got[: len(want)].astype(np.int64) - want.cpu().numpy()).max())
+            errs["sw_scores"] = max(errs["sw_scores"], e)
+            log(f"SW {name} ({src}): {len(got)} scores equal sw_fill_codes's best "
+                f"({min(got)}-{max(got)}); {sub[0].shape[0]} vs plain: max |diff| {e} ({ms:.1f} ms)")
+            if e:
+                fail(f"SW {name}: scores differ from the plain path on the card")
+        del batch, four
+    torch.cuda.empty_cache()
+    if any(errs.values()):
+        fail(f"a Smith-Waterman kernel differs from its plain version at full size: {errs}")
+
+    # (c) times: 4 warm runs of each configuration, in turns
+    for _ in range(4):
+        for name, (fn, pairs, _) in configs.items():
+            t0 = time.perf_counter()
+            fn(pairs, m, k, d)
+            walls[name].append(time.perf_counter() - t0)
+    for name, (_, pairs, src) in configs.items():
+        med = statistics.median(walls[name][1:])
+        cells = sum(len(a) * len(b) for a, b in pairs)
+        log(f"e2e SW {name} ({src}): walls {[round(w, 4) for w in walls[name]]} s (first includes "
+            f"warm-up); median warm {med:.4f} s = {len(pairs) / med:.1f} pairs/s, "
+            f"{cells / med / 1e9:.2f} GCUPS [{card}]")
+
+    def batch_of(name):
+        pairs = configs[name][1]
+        L = len(pairs[0][0])
+        return pairs, enc.upload(enc.encode_batch(pairs, L, L), dev)
+
+    rec = {}
+    pairs, b150 = batch_of("score10240x150")
+    cells = sum(len(a) * len(b) for a, b in pairs)
+    rec["sw_scores"] = dict(
+        ms=cuda_ms(lambda: vb.sw_scores_banded_batch(*b150, m, k, d), 20),
+        plain_ms=plain["score10240x150"],
+        **bound(cells * (OPS_SCORE + OPS_LOCAL), tensor_bytes(*b150) + 4 * len(pairs)),
+    )
+    pairs, b10k = batch_of("score128x10240")
+    ms_10k = cuda_ms(lambda: vb.sw_scores_banded_batch(*b10k, m, k, d), 2)
+    rec["sw_scores"]["shape"] = (f"{len(configs['score10240x150'][1])}x{L_SHORT}bp scores "
+                                 f"(at 128x{L_LONG}bp: {ms_10k:.3f} ms)")
+    del b10k
+    pairs, b3k = batch_of("align128x3072")
+    cells = sum(len(a) * len(b) for a, b in pairs)
+    ms_fill = cuda_ms(lambda: vb.sw_fill_codes_banded_batch(*b3k, m, k, d), 3)
+    codes, best, js, is_ = vb.sw_fill_codes_banded_batch(*b3k, m, k, d)
+    ms_walk = cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js, is_), 5)
+    steps = int(tb.walk_sw_codes_batch(codes, js, is_)[1].sum())
+    k4_fill, k4_walk = kern4["align128x3072"]
+    p_fill, p_walk = plain["align128x3072"]
+    rec["sw_fill_codes"] = dict(
+        ms=ms_fill, plain_ms=p_fill,
+        **bound(cells * (OPS_SCORE + OPS_LOCAL + OPS_ARGMAX + OPS_CODE),
+                tensor_bytes(*b3k, codes, best, js, is_)),
+        shape=f"128x{L_SW_TB}bp codes+best+argmax (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_fill:.3f} ms)",
+    )
+    rec["sw_walk"] = dict(
+        ms=ms_walk, plain_ms=p_walk,
+        **bound(steps * OPS_WALK_STEP, tensor_bytes(js, is_) + 12 * len(pairs) + 5 * steps),
+        shape=f"128x{L_SW_TB}bp, {steps} steps (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_walk:.3f} ms)",
+    )
+    del codes
+    _, b4k = batch_of("align4096x150")
+    ms_fill150 = cuda_ms(lambda: vb.sw_fill_codes_banded_batch(*b4k, m, k, d), 10)
+    for name in rec:
+        rec[name].update(launches=launches[name], max_abs_err=errs[name])
+        log(f"{name}: {rec[name]['ms']:.3f} ms at {rec[name]['shape']}, bound {rec[name]['bound_ms']:.4f} ms "
+            f"({rec[name]['bound_by']}), plain {rec[name]['plain_ms']:.1f} ms [{card}]")
+    b10k = bound(128 * L_LONG * L_LONG * (OPS_SCORE + OPS_LOCAL), 128 * (2 * 4 * L_LONG + 12))
+    log(f"sw_fill_codes 4096x{L_SHORT}bp: {ms_fill150:.3f} ms; sw_scores 128x{L_LONG}bp: {ms_10k:.3f} ms, "
+        f"bound {b10k['bound_ms']:.3f} ms ({b10k['bound_by']}) [{card}]")
+    log(f"phase 9 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to run", file=sys.stderr)
@@ -1019,10 +1298,12 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}"
     )
 
-    # 2. build
+    # 2. build, and beside it ptxas -v of the batched fill and walk
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report()
     kernels.load()
     log(f"kernel build+load: {time.perf_counter() - t0:.1f} s ({kernels.library_path().name})")
+    print_ptxas_report(ptxas)
 
     # 3. each kernel bit for bit against its plain version
     rng = np.random.default_rng(0)
@@ -1237,8 +1518,9 @@ def main() -> None:
     # 6. the single-pair kernels; 7. the CLI (its own launch counters)
     single = single_phase(card, errs)
     cli_launches, cli_walls, cli_times = cli_phase(card, errs)
-    # 8. huge pairs (their own launch counters)
+    # 8. huge pairs; 9. Smith-Waterman (their own launch counters)
     huge = huge_phase(card, bound)
+    sw_rec = sw_phase(card, bound)
 
     single_src = "nw_tpu_torch/csrc/nw_single.cu"
     kernels_line = [
@@ -1293,6 +1575,17 @@ def main() -> None:
         src = "nw_tpu_torch/csrc/nw_walk.cu" if name == "nw_walk_window" else single_src
         kernels_line.append({"name": name, "route": "cuda", "source": src,
                              "replaces": replaces[name], **fields})
+    sw_replaces = {
+        "sw_scores": "nw_tpu/ops/variants_pallas.py:38 (K22), nw_tpu/ops/variants_rowsweep.py:85 (K15), "
+                     "nw_tpu/ops/variants_banded.py:60 (K18 scores)",
+        "sw_fill_codes": "nw_tpu/ops/variants_pallas.py:253 (K24), nw_tpu/ops/variants_banded.py:60 "
+                         "(K18 words + argmax)",
+        "sw_walk": "nw_tpu/models/smith_waterman.py:220, nw_tpu/ops/variants_banded.py:1300",
+    }
+    for name, fields in sw_rec.items():
+        src = "nw_tpu_torch/csrc/nw_walk.cu" if name == "sw_walk" else "nw_tpu_torch/csrc/nw_fill.cu"
+        kernels_line.append({"name": name, "route": "cuda", "source": src,
+                             "replaces": sw_replaces[name], **fields})
     for kern in kernels_line:
         kern["library_ms"] = None  # no one PyTorch call computes a DP fill or walk
     record = {"kernels": kernels_line}

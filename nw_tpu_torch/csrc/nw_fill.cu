@@ -1,11 +1,18 @@
-// Batched Needleman-Wunsch fill kernels for Hopper (sm_90a).
+// Batched Needleman-Wunsch and Smith-Waterman fill kernels for Hopper
+// (sm_90a).
 //
-// Replaces two TPU (Pallas) kernels:
+// Replaces these TPU (Pallas) kernels:
 //   K1 nw_tpu/ops/fill_pallas_banded.py:_make_banded_scores_kernel
 //      (build_scores_call, fill_scores_banded_batch)      -> nw_scores
 //   K2 nw_tpu/ops/fill_pallas_banded.py:_make_banded_arrows_kernel
 //      (build_arrows_call) in its pack_bits=2 greedy-code, with_counts
 //      and with_words=False modes                          -> nw_fill_codes
+//   K22 nw_tpu/ops/variants_pallas.py:_sw_kernel, K15
+//      nw_tpu/ops/variants_rowsweep.py:_make_sw_kernel and K18
+//      nw_tpu/ops/variants_banded.py:_make_banded_sw_kernel (scores)
+//                                                          -> sw_scores
+//   K24 nw_tpu/ops/variants_pallas.py:_sw_arrows_kernel and K18 with
+//      words and argmax                                    -> sw_fill_codes
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163, with
 // the boundaries written explicitly (row 0: -c*d, LEFT, one path;
@@ -49,6 +56,22 @@
 // needleman-wunsch.c:305-324).  Fields of cells outside the table are 0.
 // Row 0 is not stored: every step there is LEFT.  All offsets are
 // 64-bit: the codes of one 128 x 10 kb sub-batch pass 3 GB.
+//
+// The LOCAL mode (Smith-Waterman, nw_tpu/models/smith_waterman.py:25-97)
+// is the same sweep with three changes.  Row 0 and column 0 are 0,
+// written as the global mode writes its boundaries, so the result holds
+// for every scoring (K22 and K18 leave column 0 free and differ at
+// d < 0).  Every cell is clamped at 0 and gets code 3 (STOP) where it is
+// 0, as does column 0.  The best cell of the true rectangle is kept with
+// the scan's tie rule (first anti-diagonal kk = i + j, then lowest row):
+// a lane is one row and sweeps its columns in order, so it keeps its
+// row's first kk on a strictly greater score; at the end of a band a
+// warp reduction merges the lanes, and the band's winner merges into
+// the pair's, both by the key (higher score, smaller kk, smaller j) of
+// nw_tpu/ops/variants_banded.py:1230-1240.  A later band can hold an
+// equal score on an earlier diagonal, so the first band does not win
+// ties.  The argmax adds ~3 integer ops a step, once per band a
+// reduction.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,15 +88,26 @@ using nw::wsub;
 constexpr int kCodeDiag = 0;
 constexpr int kCodeLeft = 1;
 constexpr int kCodeUp = 2;
+constexpr int kCodeStop = 3;
 
-template <bool EMIT_CODES, bool WITH_COUNTS>
+// (score, kk, j) ranks above (tb, tk, tj): higher score, then the
+// earlier anti-diagonal, then the lower row
+__device__ __forceinline__ bool ranks_above(int sb, int sk, int sj, int tb,
+                                            int tk, int tj) {
+  return sb > tb || (sb == tb && (sk < tk || (sk == tk && sj < tj)));
+}
+
+template <bool EMIT_CODES, bool WITH_COUNTS, bool LOCAL>
 __global__ void __launch_bounds__(32) nw_fill_kernel(
     const int* __restrict__ tops, const int* __restrict__ sides,
     const int* __restrict__ lens1, const int* __restrict__ lens2,
     int A, int Bs, int m, int k, int d,
     int* __restrict__ bnd, unsigned* __restrict__ cbnd,
     unsigned* __restrict__ codes, int* __restrict__ scores,
-    unsigned* __restrict__ counts) {
+    unsigned* __restrict__ counts, int* __restrict__ jstar,
+    int* __restrict__ istar) {
+  static_assert(!(LOCAL && WITH_COUNTS), "a local fill has no counts");
+  constexpr bool ARGMAX = LOCAL && EMIT_CODES;
   const int lane = threadIdx.x;
   const int64_t b = blockIdx.x;
   const int M = A + 1;
@@ -86,28 +120,30 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
   const int l1 = lens1[b];
   const int l2 = lens2[b];
 
-  // row 0: H[0][c] = -c*d, LEFT, one path
+  // row 0: H[0][c] = -c*d, LEFT, one path; 0 in the local mode
   for (int c = lane; c < M; c += 32) {
-    brow[c] = wsub(0, wmul(c, d));
+    brow[c] = LOCAL ? 0 : wsub(0, wmul(c, d));
     if (WITH_COUNTS) crow[c] = 1u;
   }
-  if (l2 == 0 && lane == 0) {
+  if (!LOCAL && l2 == 0 && lane == 0) {
     scores[b] = wsub(0, wmul(l1, d));
     if (WITH_COUNTS) counts[b] = 1u;
   }
   __syncwarp();
 
+  int best = 0, best_k = 0, best_j = 0;  // local: the pair's best cell so far
   const int negk = wsub(0, k);
   for (int band = 0; band < nbands; ++band) {
     const int j = band * 32 + 1 + lane;  // this lane's row
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : -5;
-    const int col0 = wsub(0, wmul(j, d));  // H[j][0]
+    const int col0 = LOCAL ? 0 : wsub(0, wmul(j, d));  // H[j][0]
     unsigned* wbase = EMIT_CODES
         ? codes + ((b * nbands + band) * static_cast<int64_t>(2 * nchunks)) * 32 + lane
         : nullptr;
     int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
     unsigned cnt = 0, cup_prev = 0, pack = 0;
+    int lbest = 0, lk = 0;  // local: this row's best and its first kk
 
     for (int t0 = 0; t0 < 32 * nchunks; t0 += 32) {
       // the next 32 columns of the row above and of the top string;
@@ -136,20 +172,27 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         const int cand_u = wsub(up, d);
         const int cand_l = wsub(h, d);
         int hn = max(max(cand_d, cand_u), cand_l);
+        if (LOCAL) hn = max(hn, 0);
         unsigned code = cand_d == hn ? kCodeDiag : (cand_l == hn ? kCodeLeft : kCodeUp);
+        if (LOCAL) code = hn <= 0 ? kCodeStop : code;  // a local start
         unsigned cn = 0;
         if (WITH_COUNTS) {
           cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
                (cand_u == hn ? cup : 0u);
         }
-        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
+        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path (local: 0, STOP)
         hn = col_zero ? col0 : hn;
-        code = col_zero ? kCodeUp : code;
+        code = col_zero ? (LOCAL ? kCodeStop : kCodeUp) : code;
         cn = col_zero ? 1u : cn;
         const bool in_row = c >= 0 && c <= A;
-        if (in_row && j == l2 && c == l1) {  // the true corner
+        if (!LOCAL && in_row && j == l2 && c == l1) {  // the true corner
           scores[b] = hn;
           if (WITH_COUNTS) counts[b] = cn;
+        }
+        if (LOCAL) {  // the true rectangle only: padding never reaches the best
+          const bool upd = c >= 1 && c <= l1 && j <= l2 && hn > lbest;
+          lbest = upd ? hn : lbest;
+          if (ARGMAX) lk = upd ? c + j : lk;
         }
         // lane 31 writes its row over the boundary row, 31 columns
         // behind lane 0's reads of it: lane 31's value of column c
@@ -174,18 +217,47 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
       }
     }
     __syncwarp();  // the band's boundary row is complete before the next band reads it
+    if (LOCAL) {
+      // the band's best over its lanes (butterfly: every lane ends with
+      // it), then over the bands so far, by one key
+      int bj = j;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const int ob = __shfl_xor_sync(kFull, lbest, off);
+        const int ok = __shfl_xor_sync(kFull, lk, off);
+        const int oj = __shfl_xor_sync(kFull, bj, off);
+        if (ARGMAX ? ranks_above(ob, ok, oj, lbest, lk, bj) : ob > lbest) {
+          lbest = ob;
+          lk = ok;
+          bj = oj;
+        }
+      }
+      if (ARGMAX ? ranks_above(lbest, lk, bj, best, best_k, best_j) : lbest > best) {
+        best = lbest;
+        best_k = lk;
+        best_j = bj;
+      }
+    }
+  }
+  if (LOCAL && lane == 0) {
+    scores[b] = best;
+    if (ARGMAX) {  // no positive cell: the argmax is (0, 0)
+      jstar[b] = best > 0 ? best_j : 0;
+      istar[b] = best > 0 ? best_k - best_j : 0;
+    }
   }
 }
 
-template <bool EMIT_CODES, bool WITH_COUNTS>
+template <bool EMIT_CODES, bool WITH_COUNTS, bool LOCAL = false>
 int launch_fill(const int* tops, const int* sides, const int* lens1,
                 const int* lens2, int B, int A, int Bs, int m, int k, int d,
                 int* bnd, unsigned* cbnd, unsigned* codes, int* scores,
-                unsigned* counts, cudaStream_t stream) {
+                unsigned* counts, cudaStream_t stream, int* jstar = nullptr,
+                int* istar = nullptr) {
   if (B <= 0) return 0;
-  nw_fill_kernel<EMIT_CODES, WITH_COUNTS><<<B, 32, 0, stream>>>(
+  nw_fill_kernel<EMIT_CODES, WITH_COUNTS, LOCAL><<<B, 32, 0, stream>>>(
       tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores,
-      counts);
+      counts, jstar, istar);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,6 +296,31 @@ extern "C" int nw_fill_codes(const int* tops, const int* sides,
                                     d, bnd, cb, cw, scores, ct, s);
   return launch_fill<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
                                    d, bnd, cb, cw, scores, ct, s);
+}
+
+// K22 / K15 / K18 port: int32 best local scores (>= 0).  bnd is
+// int32[B, A+1] scratch.
+extern "C" int sw_scores(const int* tops, const int* sides, const int* lens1,
+                         const int* lens2, int B, int A, int Bs, int m, int k,
+                         int d, int* bnd, int* best, void* stream) {
+  return launch_fill<false, false, true>(tops, sides, lens1, lens2, B, A, Bs,
+                                         m, k, d, bnd, nullptr, nullptr, best,
+                                         nullptr,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// K24 / K18 words port: local 2-bit codes (0 diag, 1 left, 2 up,
+// 3 STOP) in nw_fill_codes's layout, best local scores and their cells
+// (j*, i*), int32[B] each.  bnd is int32[B, A+1] scratch.
+extern "C" int sw_fill_codes(const int* tops, const int* sides,
+                             const int* lens1, const int* lens2, int B, int A,
+                             int Bs, int m, int k, int d, int* bnd,
+                             void* codes, int* best, int* jstar, int* istar,
+                             void* stream) {
+  return launch_fill<true, false, true>(
+      tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd, nullptr,
+      static_cast<unsigned*>(codes), best, nullptr,
+      static_cast<cudaStream_t>(stream), jstar, istar);
 }
 
 extern "C" const char* nw_error_string(int err) {

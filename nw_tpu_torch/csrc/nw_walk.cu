@@ -34,6 +34,16 @@
 // j0 is 0, the origin, stepping LEFT along row 0), and writes (i, j, n)
 // back, so the blocks of a pair chain on one stream with no host sync.
 // Code row of cell row j: j - j0 - 1.
+//
+// sw_walk is the Smith-Waterman walk over the local codes of
+// nw_fill.cu's LOCAL mode (sw_fill_codes): the jnp loops
+// nw_tpu/models/smith_waterman.py:220 _sw_walk_packed (over K24's words)
+// and nw_tpu/ops/variants_banded.py:1300-1360 (_sw_walk_device, over
+// K18's).  One thread a pair starts at its best cell (j*, i*), follows
+// the codes with walk()'s lookup and stops on a STOP code (a cell of
+// score 0, a local start) or on row 0 or column 0, whose cells are 0 and
+// not stored: not nw_walk's rule, which steps LEFT along row 0.  It
+// writes its ops in walk order and the cell where it stopped.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,23 +52,26 @@ namespace {
 
 constexpr int kOpLeft = 1;
 constexpr int kOpUp = 2;
+constexpr int kCodeStop = 3;
 
-// Walk from (i, j) over codes of rows j0+1 .. (band-major, TW words a
-// band row), writing ops from out[n]; stops at row j0 when j0 > 0, else
-// at the origin, or after S ops.
+// The 2-bit code of code row r, column i (band-major, TW words a band row)
+__device__ __forceinline__ int code_at(const unsigned* __restrict__ base,
+                                       int TW, int r, int i) {
+  const int band = r >> 5;
+  const int jj = r & 31;
+  const int t = i + jj;
+  const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 4)) * 32 + jj];
+  return (w >> (2 * (t & 15))) & 3u;
+}
+
+// Walk from (i, j) over codes of rows j0+1 .. , writing ops from out[n];
+// stops at row j0 when j0 > 0, else at the origin, or after S ops.
 __device__ __forceinline__ void walk(const unsigned* __restrict__ base, int TW,
                                      int j0, int S, int& i, int& j, int& n,
                                      signed char* __restrict__ out) {
   while ((j > j0 || (j0 == 0 && i > 0)) && n < S) {
     int a = kOpLeft;  // row 0 is not stored: LEFT to the origin
-    if (j > 0) {
-      const int r = j - j0 - 1;
-      const int band = r >> 5;
-      const int jj = r & 31;
-      const int t = i + jj;
-      const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 4)) * 32 + jj];
-      a = (w >> (2 * (t & 15))) & 3u;
-    }
+    if (j > 0) a = code_at(base, TW, j - j0 - 1, i);
     out[n++] = static_cast<signed char>(a);
     i -= a != kOpUp;
     j -= a != kOpLeft;
@@ -94,6 +107,33 @@ __global__ void nw_walk_window_kernel(const unsigned* __restrict__ codes,
   state[2] = n;
 }
 
+__global__ void sw_walk_kernel(const unsigned* __restrict__ codes,
+                               const int* __restrict__ jstar,
+                               const int* __restrict__ istar, int B,
+                               int nbands, int TW, int S,
+                               signed char* __restrict__ ops,
+                               int* __restrict__ ns, int* __restrict__ iend,
+                               int* __restrict__ jend) {
+  const int bi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bi >= B) return;
+  const int64_t b = bi;
+  const unsigned* base = codes + b * nbands * TW * 32;
+  signed char* out = ops + b * S;
+  int i = istar[b];
+  int j = jstar[b];
+  int n = 0;
+  while (i > 0 && j > 0 && n < S) {
+    const int a = code_at(base, TW, j - 1, i);
+    if (a == kCodeStop) break;
+    out[n++] = static_cast<signed char>(a);
+    i -= a != kOpUp;
+    j -= a != kOpLeft;
+  }
+  ns[b] = n;
+  iend[b] = i;
+  jend[b] = j;
+}
+
 }  // namespace
 
 // codes: uint32[B, nbands, TW, 32] from nw_fill_codes; ops: int8[B, S]
@@ -107,6 +147,21 @@ extern "C" int nw_walk(const void* codes, const int* lens1, const int* lens2,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(codes), lens1, lens2, B, nbands, TW, S, ops,
       ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// codes: uint32[B, nbands, TW, 32] from sw_fill_codes; jstar / istar:
+// int32[B] start cells, inside the code table; ops: int8[B, S] prefilled
+// with OP_NONE; ns, iend, jend: int32[B] (ops written, stop cell).
+extern "C" int sw_walk(const void* codes, const int* jstar, const int* istar,
+                       int B, int nbands, int TW, int S, signed char* ops,
+                       int* ns, int* iend, int* jend, void* stream) {
+  if (B <= 0) return 0;
+  const int threads = 128;
+  sw_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(codes), jstar, istar, B, nbands, TW, S, ops,
+      ns, iend, jend);
   return static_cast<int>(cudaGetLastError());
 }
 

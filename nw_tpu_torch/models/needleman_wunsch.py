@@ -92,6 +92,20 @@ def _rescore(X: bytes, Y: bytes, m: int, k: int, d: int) -> int:
     return score
 
 
+def resolve_device(device: str | torch.device, who: str) -> torch.device:
+    """``device`` as a torch device: ``cuda`` (which must be present) or
+    ``cpu``; there is no fallback from one to the other."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device is available; pass device='cpu' "
+            "to run the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who} runs on 'cuda' or 'cpu', not {dev}")
+    return dev
+
+
 def code_bytes_per_pair(L1: int, L2: int) -> int:
     """Device bytes of one pair's greedy codes at buckets (L1, L2)."""
     _, nbands, TW, lanes = code_shape(1, L1, L2)
@@ -176,16 +190,8 @@ class NWAligner:
     ):
         if config is None:
             config = AlignConfig(scoring=ScoringParams(**scoring_kwargs))
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "NWAligner: no CUDA device is available; pass device='cpu' "
-                "to run the plain PyTorch path"
-            )
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"NWAligner runs on 'cuda' or 'cpu', not {dev}")
         self.config = config
-        self.device = dev
+        self.device = resolve_device(device, "NWAligner")
 
     def _encode_pair(self, s1: bytes, s2: bytes):
         return enc.upload((enc.encode(s1), enc.encode(s2)), self.device)

@@ -1,0 +1,157 @@
+"""Smith-Waterman local alignment with linear gap penalties.
+
+Counterpart of ``nw_tpu/models/smith_waterman.py``.  The local recurrence
+is the global one clamped at 0: row 0 and column 0 are 0, every cell is
+``max(diag + (m | -k), up - d, left - d, 0)`` in wrapping int32, the
+result is the best cell of the table, and the alignment is the greedy
+walk (diag > left > up) from that cell back to the first cell of score 0.
+
+* :func:`sw_fill_diag` and :func:`sw_traceback` — one pair in plain
+  PyTorch / on the host, the oracle the rest is held to
+  (``smith_waterman.py:25-138``);
+* :func:`sw_score_batch` — best local scores of a batch: one launch of
+  ``sw_scores`` (the port of K22, K15 and K18's score mode) at every batch
+  size and side length;
+* :func:`sw_align_batch` — one local alignment a pair: sub-batches whose
+  2-bit codes fit :data:`nw_tpu_torch.models.needleman_wunsch.CODE_BUDGET_BYTES`,
+  each one ``sw_fill_codes`` (K24 and K18's words mode: codes, best,
+  argmax), one ``sw_walk`` and the host strings;
+* :func:`sw_align` — :func:`sw_align_batch` of one pair.
+
+``device="cuda"`` (the default) launches the kernels and raises without a
+card; ``device="cpu"`` runs their plain versions.  There is no
+single-pair route: a small batch of very long pairs runs at one warp a
+pair, as ``nw_tpu`` has no single-pair SW engine either.
+
+Every output follows ``nw_tpu``'s scan (``sw_fill_diag``) at every
+scoring.  At d < 0 or k < 0 ``nw_tpu``'s K22, K18 and K24, and so its
+``sw_score_batch`` and ``sw_align_batch``, leave column 0 free and differ
+from its own scan; the port writes row 0 and column 0 as 0 and does not.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from nw_tpu_torch.models.needleman_wunsch import (
+    CODE_BUDGET_BYTES,
+    _as_bytes,
+    code_bytes_per_pair,
+    resolve_device,
+)
+from nw_tpu_torch.ops import encode as enc
+from nw_tpu_torch.ops.fill_scan import sw_fill_diag_batch
+from nw_tpu_torch.ops.traceback import ops_to_strings_batch, walk_sw_codes_batch
+from nw_tpu_torch.ops.variants_banded import (
+    sw_fill_codes_banded_batch,
+    sw_scores_banded_batch,
+)
+
+Pair = Tuple[str | bytes, str | bytes]
+
+
+def sw_fill_diag(top, side, m: int, k: int, d: int, with_arrows: bool = True) -> Dict[str, torch.Tensor]:
+    """Local-alignment fill of one pair along anti-diagonals.
+
+    top / side: encoded int32[A] / int32[Bs] (any array torch takes).
+    Returns ``score`` (int32, the best local score, >= 0), ``argmax``
+    (int32[2]: the (j, i) cell of the best, first hit in diagonal order,
+    lowest row within a diagonal; (0, 0) when the best is 0) and, with
+    ``with_arrows``, ``arrows`` uint8[A+Bs+1, Bs+1] diagonal-major tie
+    masks, none where a cell is 0 (``smith_waterman.py:25 sw_fill_diag``).
+    """
+    top = torch.as_tensor(top, dtype=torch.int32)
+    side = torch.as_tensor(side, dtype=torch.int32, device=top.device)
+    lens = [torch.tensor([x], dtype=torch.int32, device=top.device) for x in (top.shape[0], side.shape[0])]
+    out = sw_fill_diag_batch(top[None], side[None], *lens, m, k, d, with_arrows=with_arrows)
+    return {key: v[0] for key, v in out.items()}
+
+
+def sw_traceback(arrows_diag, argmax, top: bytes, side: bytes) -> Tuple[bytes, bytes, Tuple[int, int]]:
+    """Host traceback of one local alignment: greedy diag > left > up from
+    the argmax cell (j, i) until a cell with no arrows (score 0).
+
+    Returns (X, Y, (j_start, i_start)): the aligned substrings and the
+    cell where the local alignment begins (``smith_waterman.py:110``).
+    """
+    arrows = np.asarray(arrows_diag)
+    j, i = (int(x) for x in np.asarray(argmax))
+    X, Y = bytearray(), bytearray()
+    while True:
+        a = int(arrows[i + j, j])
+        if a & 1:
+            i, j = i - 1, j - 1
+            X.append(top[i])
+            Y.append(side[j])
+        elif a & 2:
+            i -= 1
+            X.append(top[i])
+            Y.append(ord("-"))
+        elif a & 4:
+            j -= 1
+            X.append(ord("-"))
+            Y.append(side[j])
+        else:
+            break
+    return bytes(X[::-1]), bytes(Y[::-1]), (j, i)
+
+
+def sw_score_batch(pairs: Sequence[Pair], m: int = 2, k: int = 1, d: int = 1,
+                   device: str | torch.device = "cuda") -> np.ndarray:
+    """Best local-alignment score of each pair, int32[B] (>= 0): one
+    ``sw_scores`` launch over the batch padded to its longest strings
+    (``smith_waterman.py:152 sw_score_batch``)."""
+    dev = resolve_device(device, "sw_score_batch")
+    norm = [(_as_bytes(a), _as_bytes(b)) for a, b in pairs]
+    if not norm:
+        return np.zeros(0, np.int32)
+    tops, sides, l1, l2 = enc.upload(enc.encode_batch(norm), dev)
+    return sw_scores_banded_batch(tops, sides, l1, l2, m, k, d).cpu().numpy()
+
+
+def sw_align_batch(pairs: Sequence[Pair], m: int = 2, k: int = 1, d: int = 1,
+                   device: str | torch.device = "cuda") -> List[Tuple[int, bytes, bytes, Tuple[int, int]]]:
+    """One local alignment a pair: ``(best, X, Y, (j_end, i_end))``, equal
+    to :func:`sw_align` (the scan's tie rules) and to ``nw_tpu``'s
+    ``sw_align_batch`` (``smith_waterman.py:269``).
+
+    The batch is padded to its longest strings and cut into sub-batches
+    whose 2-bit codes fit ``CODE_BUDGET_BYTES``; each runs one
+    ``sw_fill_codes`` and one ``sw_walk``, then the strings of
+    ``(s1[:i*], s2[:j*])`` are built on the host.
+    """
+    dev = resolve_device(device, "sw_align_batch")
+    norm = [(_as_bytes(a), _as_bytes(b)) for a, b in pairs]
+    if not norm:
+        return []
+    L1 = max(len(a) for a, _ in norm)
+    L2 = max(len(b) for _, b in norm)
+    chunk = max(1, CODE_BUDGET_BYTES // max(code_bytes_per_pair(L1, L2), 1))  # no rows: no codes
+    out = []
+    for lo in range(0, len(norm), chunk):
+        sub = norm[lo : lo + chunk]
+        tops, sides, l1, l2 = enc.upload(enc.encode_batch(sub, L1, L2), dev)
+        codes, best, j_star, i_star = sw_fill_codes_banded_batch(tops, sides, l1, l2, m, k, d)
+        ops, n, i_end, j_end = walk_sw_codes_batch(codes, j_star, i_star)
+        del codes
+        best, j_star, i_star, n, i_end, j_end = (
+            t.cpu().numpy() for t in (best, j_star, i_star, n, i_end, j_end)
+        )
+        trunc = [(s1[: i_star[b]], s2[: j_star[b]]) for b, (s1, s2) in enumerate(sub)]
+        strs = ops_to_strings_batch(ops.cpu().numpy(), n, trunc)
+        out.extend(
+            (int(best[b]), X, Y, (int(j_end[b]), int(i_end[b])))
+            for b, (X, Y) in enumerate(strs)
+        )
+    return out
+
+
+def sw_align(s1: str | bytes, s2: str | bytes, m: int = 2, k: int = 1, d: int = 1,
+             device: str | torch.device = "cuda") -> Tuple[int, bytes, bytes, Tuple[int, int]]:
+    """One local alignment: (score, X, Y, start cell (j, i)), as
+    ``smith_waterman.py:141 sw_align``; :func:`sw_align_batch` of one pair,
+    so on the card the kernels run."""
+    return sw_align_batch([(s1, s2)], m, k, d, device)[0]

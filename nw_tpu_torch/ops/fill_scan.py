@@ -19,6 +19,10 @@ Semantics, bit for bit those of ``fill_scan.py:24-28, 118-163``:
 Scores are int32 and wrap as int32 does.  Solution counts (the number of
 optimal paths, ``pathcount.py``) ride the same sweep when asked and wrap
 mod 2^32; they are returned as int64 in ``[0, 2^32)``.
+
+:func:`sw_fill_diag_batch` is the same sweep with Smith-Waterman's local
+recurrence (``nw_tpu/models/smith_waterman.py:25-97``): the plain version
+of the local fill kernels.
 """
 
 from __future__ import annotations
@@ -171,6 +175,92 @@ def fill_diag_batch(
     return out
 
 
+def sw_fill_diag_batch(
+    tops: torch.Tensor,
+    sides: torch.Tensor,
+    lens1: torch.Tensor,
+    lens2: torch.Tensor,
+    m: int,
+    k: int,
+    d: int,
+    with_arrows: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Smith-Waterman (local) fill of a padded batch along anti-diagonals.
+
+    The local recurrence of ``nw_tpu/models/smith_waterman.py:25-97
+    sw_fill_diag`` over the bucket tables: row 0 and column 0 are 0,
+    interior cells ``max(diag + (m | -k), up - d, left - d, 0)`` in
+    wrapping int32, and tie masks (bit0 diag, bit1 left, bit2 up) only
+    where the cell is > 0 (a local start has none).  The best score and
+    its cell are taken over each pair's true rectangle (1 <= i <= len1,
+    1 <= j <= len2) with the scan's tie rule: the first anti-diagonal that
+    reaches the best, then the lowest row on it; (0, 0) when the best is 0.
+
+    Returns a dict with ``score`` int32[B] (>= 0), ``argmax`` int32[B, 2]
+    as (j, i), and ``arrows`` uint8[B, A+Bs+1, Bs+1] when asked.
+    """
+    B, A = tops.shape
+    Bs = sides.shape[1]
+    N = Bs + 1
+    K = A + Bs + 1
+    dev = tops.device
+    i32 = torch.int32
+    tops = tops.to(i32)
+    sides = sides.to(i32)
+    lens1 = lens1.to(device=dev, dtype=torch.int64)[:, None]
+    lens2 = lens2.to(device=dev, dtype=torch.int64)[:, None]
+
+    side_sh = torch.cat([torch.full((B, 1), -3, dtype=i32, device=dev), sides], 1)
+    pad = torch.full((B, N), -4, dtype=i32, device=dev)
+    top_ext = torch.cat([pad, tops.flip(1), pad], 1)
+    j_idx = torch.arange(N, device=dev)
+    rows_ok = (j_idx >= 1) & (j_idx <= lens2)  # [B, N]
+
+    prev = torch.zeros((B, N), dtype=i32, device=dev)
+    prev2 = torch.zeros((B, N), dtype=i32, device=dev)
+    best = torch.zeros(B, dtype=i32, device=dev)
+    arg = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+    m_t = torch.tensor(m, dtype=i32, device=dev)
+    negk_t = -torch.tensor(k, dtype=i32, device=dev)
+    d_t = torch.tensor(d, dtype=i32, device=dev)
+    arrows_l = [torch.zeros((B, N), dtype=torch.uint8, device=dev)]
+
+    for kk in range(1, K):
+        i_idx = kk - j_idx
+        interior = (i_idx >= 1) & (i_idx <= A) & (j_idx >= 1)
+        ch_top = top_ext[:, N + A - kk : N + A - kk + N]
+        sub = torch.where(ch_top == side_sh, m_t, negk_t)
+        cand_diag = _shift_down(prev2, NEG_INF) + sub
+        cand_up = _shift_down(prev, NEG_INF) - d_t
+        cand_left = prev - d_t
+        score = torch.maximum(torch.maximum(cand_diag, cand_up), cand_left).clamp(min=0)
+        live = interior & (score > 0)
+        score = torch.where(interior, score, 0)
+        if with_arrows:
+            arrows_l.append(
+                ((cand_diag == score) & live).to(torch.uint8)
+                | (((cand_left == score) & live).to(torch.uint8) << 1)
+                | (((cand_up == score) & live).to(torch.uint8) << 2)
+            )
+        # running best: a strictly greater diagonal maximum wins, so the
+        # first diagonal keeps ties; argmax takes the lowest row on it
+        in_rect = rows_ok & (i_idx >= 1) & (i_idx <= lens1)
+        sc = torch.where(in_rect, score, 0)
+        diag_best = sc.amax(dim=1)
+        diag_row = sc.argmax(dim=1)  # the first maximal index
+        take = diag_best > best
+        best = torch.where(take, diag_best, best)
+        arg = torch.where(
+            take[:, None], torch.stack([diag_row, kk - diag_row], 1), arg
+        )
+        prev, prev2 = score, prev
+
+    out = {"score": best, "argmax": arg.to(i32)}
+    if with_arrows:
+        out["arrows"] = torch.stack(arrows_l, dim=1)
+    return out
+
+
 def fill_diag(
     top: torch.Tensor,
     side: torch.Tensor,
@@ -262,15 +352,19 @@ def code_shape(B: int, A: int, Bs: int) -> Tuple[int, int, int, int]:
     return (B, nbands, steps // CODES_PER_WORD, BAND_ROWS)
 
 
-def greedy_codes_from_arrows(arrows: torch.Tensor) -> torch.Tensor:
+def greedy_codes_from_arrows(arrows: torch.Tensor, local: bool = False) -> torch.Tensor:
     """Diagonal-major tie masks uint8[B, K, N] -> packed greedy codes in
-    the kernels' band-major layout (diag > left > up)."""
+    the kernels' band-major layout (diag > left > up).  With ``local``
+    (Smith-Waterman masks) a cell without arrows, a local start and
+    every cell of column 0, gets STOP (3)."""
     B, K, N = arrows.shape
     A, Bs = K - N, N - 1
     rect = diag_to_matrix_batch(arrows)[:, 1:]  # rows 1..Bs, [B, Bs, A+1]
     code = torch.where(
         (rect & 1) != 0, 0, torch.where((rect & 2) != 0, 1, 2)
     ).to(torch.uint8)
+    if local:
+        code = torch.where(rect == 0, 3, code).to(torch.uint8)
     _, nbands, TW, _ = code_shape(B, A, Bs)
     code = torch.nn.functional.pad(code, (0, 0, 0, nbands * BAND_ROWS - Bs))
     code = code.view(B, nbands, BAND_ROWS, A + 1)

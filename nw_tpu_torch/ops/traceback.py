@@ -19,6 +19,12 @@ exactly the *first* alignment the reference emits.
   (the block walk of ``nw_tpu/ops/checkpoint_traceback.py:353-373``): the
   ``nw_walk_window`` kernel on CUDA tensors, its plain version on CPU
   tensors.
+* :func:`walk_sw_codes_batch` walks the local (Smith-Waterman) codes of
+  :func:`nw_tpu_torch.ops.variants_banded.sw_fill_codes_banded_batch`
+  from each pair's best cell to its first STOP (the counterpart of
+  ``nw_tpu/models/smith_waterman.py:220 _sw_walk_packed`` and the walk of
+  ``nw_tpu/ops/variants_banded.py:1177 _sw_walk_device``): the
+  ``sw_walk`` kernel on a CUDA tensor, its plain version on a CPU tensor.
 * :func:`ops_to_strings_batch` builds the aligned byte strings on the
   host (numpy path of ``traceback.py:212-267``); :func:`ops_to_strings`
   does one pair (``traceback.py:270``).
@@ -228,6 +234,83 @@ def walk_codes_window_plain(
     if steps:
         ops[n : n + len(steps)] = torch.tensor(steps, dtype=torch.int8)
     state.copy_(torch.tensor([i, j, n + len(steps)], dtype=torch.int32))
+
+
+def _sw_max_steps(codes: torch.Tensor) -> int:
+    """Ops room of a local walk: i* + j* over any start inside the table."""
+    _, nbands, TW, lanes = codes.shape
+    return max(16 * TW - lanes + lanes * nbands, 1)
+
+
+def walk_sw_codes_batch(
+    codes: torch.Tensor, j_star: torch.Tensor, i_star: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy local (Smith-Waterman) walk over band-major 2-bit codes.
+
+    codes: int32[B, nbands, TW, 32] from
+    :func:`nw_tpu_torch.ops.variants_banded.sw_fill_codes_banded_batch`
+    (0 diag / 1 left / 2 up / 3 STOP); j_star / i_star: int32[B], the
+    best cells.  Each walk starts at (j*, i*) and stops on a STOP cell,
+    on row 0 or on column 0 (cells of score 0, not stored), not at the
+    origin as :func:`walk_codes_batch` does.  Returns ops int8[B, S] in
+    walk order (OP_NONE padded; S bounds i* + j* for any start in the
+    table), n int32[B], and the stop cell i_end, j_end int32[B].
+
+    A CUDA tensor goes through the ``sw_walk`` kernel (one thread per
+    pair); a CPU tensor through :func:`walk_sw_codes_batch_plain`.
+    """
+    _check_walk_args(codes, i_star, j_star)  # a start is checked as a corner is
+    if codes.device.type == "cpu":
+        return walk_sw_codes_batch_plain(codes, j_star, i_star)
+    B, nbands, TW, _ = codes.shape
+    S = _sw_max_steps(codes)
+    dev = codes.device
+    ops = torch.full((B, S), OP_NONE, dtype=torch.int8, device=dev)
+    n, i_end, j_end = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
+    if B:
+        codes, j_star, i_star = (t.contiguous() for t in (codes, j_star, i_star))
+        kernels.launch(
+            "sw_walk", dev,
+            codes.data_ptr(), j_star.data_ptr(), i_star.data_ptr(),
+            B, nbands, TW, S, ops.data_ptr(), n.data_ptr(),
+            i_end.data_ptr(), j_end.data_ptr(),
+        )
+        walk_sw_codes_batch.launches += 1
+    return ops, n, i_end, j_end
+
+
+walk_sw_codes_batch.launches = 0
+
+
+def walk_sw_codes_batch_plain(
+    codes: torch.Tensor, j_star: torch.Tensor, i_star: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the ``sw_walk`` kernel (same outputs)."""
+    B = codes.shape[0]
+    S = _sw_max_steps(codes)
+    dev = codes.device
+    b_ar = torch.arange(B, device=dev)
+    i = i_star.to(torch.int64).clone()
+    j = j_star.to(torch.int64).clone()
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    n = torch.zeros(B, dtype=torch.int32, device=dev)
+    ops = torch.full((B, S), OP_NONE, dtype=torch.int8, device=dev)
+    for t in range(S):
+        if t % 256 == 0 and not bool(live.any()):  # every walk has stopped
+            break
+        jm = (j - 1).clamp(min=0)
+        step = i + (jm & 31)
+        if codes.shape[1]:
+            w = codes[b_ar, jm >> 5, step >> 4, jm & 31].to(torch.int64)
+            a = (w >> (2 * (step & 15))) & 3
+        else:
+            a = torch.full_like(i, 3)
+        live = live & (i > 0) & (j > 0) & (a != 3)
+        ops[:, t] = torch.where(live, a, OP_NONE).to(torch.int8)
+        i = i - (live & (a != OP_UP)).to(torch.int64)
+        j = j - (live & (a != OP_LEFT)).to(torch.int64)
+        n = n + live.to(torch.int32)
+    return ops, n, i.to(torch.int32), j.to(torch.int32)
 
 
 def ops_to_strings(ops, n: int, s1: bytes, s2: bytes, gap: int = ord("-")) -> Tuple[bytes, bytes]:

@@ -46,6 +46,9 @@ SIGNATURES = {
     "nw_fill_codes_single": [P, P, I, I, I, P, I, I, I, I, I, P, P, P, P, P],
     "nw_score_single": [P, P, I, I, I, I, I, I, I, P, P, P, I, P, P],
     "nw_walk_window": [P, I, I, I, P, I, P, P],
+    "sw_scores": [P, P, P, P, I, I, I, I, I, I, P, P, P],
+    "sw_fill_codes": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P],
+    "sw_walk": [P, P, P, I, I, I, I, P, P, P, P, P],
 }
 
 

@@ -23,7 +23,8 @@ NEW_MODULES = {
     "nw_tpu_torch.utils.cformat", "nw_tpu_torch.utils.textio",
     "nw_tpu_torch.utils.alignout", "nw_tpu_torch.utils.render",
     "nw_tpu_torch.ops.checkpoint_traceback", "nw_tpu_torch.ops.fill_auto",
-    "nw_tpu_torch.ops.traceback",
+    "nw_tpu_torch.ops.traceback", "nw_tpu_torch.models.smith_waterman",
+    "nw_tpu_torch.ops.variants_banded",
 }
 
 
@@ -64,7 +65,7 @@ def test_default_device_without_card_raises(monkeypatch):
 
 def test_wrappers_do_not_fall_back_off_cpu():
     """A tensor on neither the CPU nor a card is refused, not computed."""
-    from nw_tpu_torch.ops import fill_banded, traceback
+    from nw_tpu_torch.ops import fill_banded, traceback, variants_banded
 
     t = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     lens = torch.zeros(2, dtype=torch.int32, device="meta")
@@ -72,13 +73,16 @@ def test_wrappers_do_not_fall_back_off_cpu():
         fill_banded.fill_scores_banded_batch,
         fill_banded.fill_scores_counts_banded_batch,
         fill_banded.fill_greedy_counts_banded_batch,
+        variants_banded.sw_scores_banded_batch,
+        variants_banded.sw_fill_codes_banded_batch,
     ):
         with pytest.raises(ValueError):
             fn(t, t, lens, lens, 1, 1, 1)
+    meta_codes = torch.zeros((2, 1, 6, 32), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        traceback.walk_codes_batch(
-            torch.zeros((2, 1, 6, 32), dtype=torch.int32, device="meta"), lens, lens, 16
-        )
+        traceback.walk_codes_batch(meta_codes, lens, lens, 16)
+    with pytest.raises(ValueError):
+        traceback.walk_sw_codes_batch(meta_codes, lens, lens)
     from nw_tpu_torch.ops import fill_single
 
     one = torch.zeros(8, dtype=torch.int32, device="meta")

@@ -13,7 +13,8 @@ import torch
 
 from nw_tpu_torch import align_batch, cli
 from nw_tpu_torch.ops import encode as enc
-from nw_tpu_torch.ops import fill_banded, fill_single, traceback
+from nw_tpu_torch.models import smith_waterman as sw
+from nw_tpu_torch.ops import fill_banded, fill_single, traceback, variants_banded
 
 pytestmark = pytest.mark.cuda
 
@@ -359,3 +360,47 @@ def test_single_pair_code_kernels_across_blocks_at_4kb(cuda):
         ops, n = ckt.traceback_checkpointed(top, side, 2, 1, 1, block_diagonals=320)
         assert int(n) == int(n_w[0])
         torch.testing.assert_close(ops, ops_w[0], rtol=0, atol=0)
+
+
+SW_SCORINGS = SCORINGS + [(1, 1, -1)]
+
+
+def _sw_inputs(seed, device):
+    # the multi-band, tie-dense and edge pairs of _inputs, plus equal
+    # bests in two bands (the later one on the earlier diagonal)
+    ps = _pairs(seed, 12, 0, 140) + _pairs(seed + 1, 6, 20, 70, "AC") + EDGE + [
+        (b"A" * 40, b"A" * 70),
+        (b"T" * 10 + b"C" * 30 + b"A" * 10 + b"C" * 10, b"A" * 10 + b"G" * 23 + b"T" * 10 + b"G" * 2),
+    ]
+    arrays = enc.encode_batch(ps, 160, 144)
+    return enc.upload(arrays, "cpu"), enc.upload(arrays, device)
+
+
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_sw_scores_kernel_vs_plain(cuda, mkd):
+    cpu, dev = _sw_inputs(sum(mkd) + 11, cuda)
+    got = variants_banded.sw_scores_banded_batch(*dev, *mkd)
+    want = variants_banded.sw_scores_banded_batch_plain(*cpu, *mkd)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_sw_codes_and_walk_kernels_vs_plain(cuda, mkd):
+    cpu, dev = _sw_inputs(sum(mkd) + 12, cuda)
+    got = variants_banded.sw_fill_codes_banded_batch(*dev, *mkd)
+    want = variants_banded.sw_fill_codes_banded_batch_plain(*cpu, *mkd)
+    for g, w in zip(got, want):  # codes, best, j*, i*
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    g_walk = traceback.walk_sw_codes_batch(got[0], got[2], got[3])
+    w_walk = traceback.walk_sw_codes_batch_plain(want[0], want[2], want[3])
+    for g, w in zip(g_walk, w_walk):  # ops, n, i_end, j_end
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_sw_batch_cuda_vs_cpu(cuda, mkd):
+    ps = _pairs(sum(mkd) + 13, 30, 0, 300) + EDGE
+    assert sw.sw_align_batch(ps, *mkd, device="cuda") == sw.sw_align_batch(ps, *mkd, device="cpu")
+    np.testing.assert_array_equal(
+        sw.sw_score_batch(ps, *mkd, device="cuda"), sw.sw_score_batch(ps, *mkd, device="cpu")
+    )
