@@ -74,15 +74,37 @@ Phases, in order; any mismatch or exception exits non-zero:
    walls (median of 4 warm runs), pairs/s, GCUPS, each kernel's time
    beside its plain version's and its bound.
 
-Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu`` and ``nw_walk.cu``:
-registers and spills of every instantiation.
+10. Overlap and Gotoh scores: (a) ``overlap_scores``, ``overlap_fill_codes``
+   (codes, best, end cell) with ``sw_walk`` on its codes, and
+   ``gotoh_scores`` bit for bit against their plain versions (phase 9's
+   pairs and a pair whose best lies on the last column in band 0 and on
+   the last row in band 2; overlap under phase 9's five scorings, Gotoh
+   under (2,1,3,1), (1,1,1,1), (0,0,0,0), (3,-1,2,1), (2,1,1,3),
+   (1,1,-1,-1) and (1,1,2^28,2^28)); then, with every launch counter set
+   to 0, (b) ``overlap_align_batch`` of 128 x 3 072 bp and 4 096 x 150 bp,
+   ``overlap_score_batch`` of 10 240 x 150 bp and 128 x 10 240 bp, at
+   (2,1,1), and ``affine_score_pairs`` of 10 240 x 150 bp and 128 x
+   10 240 bp at (2,1,3,1): every alignment spells ``s1[i_start:i_end]`` /
+   ``s2[j_start:j_end]``, starts on row 0 or column 0, ends on the last
+   row or column and re-scores to its best, its best and end cell are
+   ``overlap_fill_codes``'s, every overlap score equals its best, the
+   150 bp scores all and 4 pairs of every other batch equal the plain
+   path on the card, every new kernel and ``sw_walk`` has launched; and
+   ``affine_score_pairs(..., 2, 1, 1, 1)`` of the 10 kb pairs equals
+   ``align_batch``'s scores at (2,1,1) (open == extend, k < 2 open: the
+   linear score); (c) walls (median of 4 warm runs), pairs/s, GCUPS, each
+   kernel's time beside its plain version's and its bound.
+
+Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu`` and
+``nw_affine.cu``: registers and spills of every instantiation.
 
 Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
 tie mask, 2 more for the local clamp and running best, 3 more for the
-local argmax and STOP; 12 a walk step) over the card's SMs x 64 INT32
-lanes x ``clocks.max.sm``, and its bytes (inputs read once, outputs
-written once) over 3.35 TB/s.
+local argmax and STOP, 4 more for overlap's end window and running best,
+2 more for its argmax; 11 for a Gotoh score; 12 a walk step) over the
+card's SMs x 64 INT32 lanes x ``clocks.max.sm``, and its bytes (inputs
+read once, outputs written once) over 3.35 TB/s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -112,6 +134,17 @@ CROSSOVER = (1024, 2048, 4096, 10240, L_HUGE)  # scores of 2, 8, 23 pairs: K1 vs
 # int32 operations a cell (or a walk step) of each kernel mode, for the bound
 OPS_SCORE, OPS_COUNT, OPS_CODE, OPS_WALK_STEP = 7, 8, 6, 12
 OPS_LOCAL, OPS_ARGMAX = 2, 3  # Smith-Waterman: clamp + running best; kk select + STOP
+# overlap: the end window's two compares, the score compare and the
+# running best's select; the kk add and its select (no per-cell STOP)
+OPS_OVERLAP, OPS_OVERLAP_ARGMAX = 4, 2
+# Gotoh: the substitution's compare and select, M's add, two subtracts
+# and a max each for IX and IY, two maxes for best
+OPS_GOTOH = 11
+GOTOH_SCORINGS = [(2, 1, 3, 1), (1, 1, 1, 1), (0, 0, 0, 0), (3, -1, 2, 1), (2, 1, 1, 3),
+                  (1, 1, -1, -1), (1, 1, 2**28, 2**28)]
+# overlap's best 40 (2 1 1) on the last column in band 0, (j, i) = (20, 80),
+# and on the last row in band 2, (70, 20): the later band's earlier diagonal wins
+OVERLAP_TWO_BANDS = (b"C" * 20 + b"G" * 40 + b"A" * 20, b"A" * 20 + b"T" * 30 + b"C" * 20)
 SW_SCORINGS = [*SCORINGS, (1, 1, -1)]
 L_SW_TB = 3072  # bench.py:414 bench_variant_tracebacks: 128 x 3 072 bp
 SW_EDGE = [
@@ -1014,7 +1047,7 @@ def huge_phase(card, bound):
 
 
 def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on the batched fill and walk sources
+    """Start ``nvcc -Xptxas -v`` on the batched fill, walk and Gotoh sources
     (the kernels' own flags), one process each; returns the processes."""
     from nw_tpu_torch.runtime import kernels
 
@@ -1025,7 +1058,7 @@ def start_ptxas_report():
              str(kernels.CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-        for src in ("nw_fill.cu", "nw_walk.cu")
+        for src in ("nw_fill.cu", "nw_walk.cu", "nw_affine.cu")
     ]
 
 
@@ -1061,13 +1094,34 @@ def print_ptxas_report(procs) -> None:
         log(f"ptxas: {name}: {regs}; {spill}")
 
 
+def free_fill_vs_plain(vb_name, batch, mkd):
+    """One scoring of a free-boundary fill (``sw`` or ``overlap``): its
+    scores and codes kernels and ``sw_walk`` on its codes against their
+    plain versions, the scores also against the codes kernel's best.
+    Returns the three max |diff| and the codes kernel's outputs."""
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    scores_fn = getattr(vb, f"{vb_name}_scores_banded_batch")
+    codes_fn = getattr(vb, f"{vb_name}_fill_codes_banded_batch")
+    scores = scores_fn(*batch, *mkd)
+    e_s = max_abs_err(scores, getattr(vb, f"{vb_name}_scores_banded_batch_plain")(*batch, *mkd))
+    got = codes_fn(*batch, *mkd)
+    want = getattr(vb, f"{vb_name}_fill_codes_banded_batch_plain")(*batch, *mkd)
+    e_s = max(e_s, max_abs_err(scores, got[1]))
+    e_c = max(max_abs_err(g, w) for g, w in zip(got, want))
+    walk_k = tb.walk_sw_codes_batch(got[0], got[2], got[3])
+    walk_p = tb.walk_sw_codes_batch_plain(want[0], want[2], want[3])
+    e_w = max(max_abs_err(g, w) for g, w in zip(walk_k, walk_p))
+    torch.cuda.synchronize()
+    return e_s, e_c, e_w, got
+
+
 def sw_kernels_vs_plain(dev, errs):
     """Phase 9 (a): the three Smith-Waterman kernels bit for bit against
     their plain versions on the card, every scoring; the scores kernel's
     best also against the codes kernel's."""
     from nw_tpu_torch.ops import encode as enc
-    from nw_tpu_torch.ops import traceback as tb
-    from nw_tpu_torch.ops import variants_banded as vb
 
     rng = np.random.default_rng(10)
     pairs = (
@@ -1076,20 +1130,11 @@ def sw_kernels_vs_plain(dev, errs):
     )
     L1 = max(len(a) for a, _ in pairs)
     L2 = max(len(b) for _, b in pairs)
-    tops, sides, l1, l2 = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    batch = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
     for name in ("sw_scores", "sw_fill_codes", "sw_walk"):
         errs.setdefault(name, 0)
     for mkd in SW_SCORINGS:
-        scores = vb.sw_scores_banded_batch(tops, sides, l1, l2, *mkd)
-        e_s = max_abs_err(scores, vb.sw_scores_banded_batch_plain(tops, sides, l1, l2, *mkd))
-        got = vb.sw_fill_codes_banded_batch(tops, sides, l1, l2, *mkd)
-        want = vb.sw_fill_codes_banded_batch_plain(tops, sides, l1, l2, *mkd)
-        e_s = max(e_s, max_abs_err(scores, got[1]))
-        e_c = max(max_abs_err(g, w) for g, w in zip(got, want))
-        walk_k = tb.walk_sw_codes_batch(got[0], got[2], got[3])
-        walk_p = tb.walk_sw_codes_batch_plain(want[0], want[2], want[3])
-        e_w = max(max_abs_err(g, w) for g, w in zip(walk_k, walk_p))
-        torch.cuda.synchronize()
+        e_s, e_c, e_w, _ = free_fill_vs_plain("sw", batch, mkd)
         for name, e in (("sw_scores", e_s), ("sw_fill_codes", e_c), ("sw_walk", e_w)):
             errs[name] = max(errs[name], e)
         log(f"SW kernels vs plain, {len(pairs)} pairs {L1}x{L2}, m k d = {mkd}: "
@@ -1266,7 +1311,249 @@ def sw_phase(card, bound):
     return rec
 
 
+def variant_kernels_vs_plain(dev, errs):
+    """Phase 10 (a): the overlap and Gotoh kernels (and ``sw_walk`` on
+    overlap codes) bit for bit against their plain versions on the card,
+    every scoring; the overlap scores kernel's best also against the
+    codes kernel's."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    rng = np.random.default_rng(12)
+    pairs = (
+        rand_pairs(rng, 40, 0, 60) + rand_pairs(rng, 48, 0, 700)
+        + rand_pairs(rng, 8, 100, 400, b"AC") + SW_EDGE + [OVERLAP_TWO_BANDS]
+    )
+    L1 = max(len(a) for a, _ in pairs)
+    L2 = max(len(b) for _, b in pairs)
+    batch = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    for name in ("overlap_scores", "overlap_fill_codes", "sw_walk", "gotoh_scores"):
+        errs.setdefault(name, 0)
+    for mkd in SW_SCORINGS:
+        e_s, e_c, e_w, got = free_fill_vs_plain("overlap", batch, mkd)
+        for name, e in (("overlap_scores", e_s), ("overlap_fill_codes", e_c), ("sw_walk", e_w)):
+            errs[name] = max(errs[name], e)
+        log(f"overlap kernels vs plain, {len(pairs)} pairs {L1}x{L2}, m k d = {mkd}: "
+            f"overlap_scores {e_s} overlap_fill_codes {e_c} sw_walk {e_w}")
+        if mkd == (2, 1, 1):  # the two-band pair's end cell, by the scan's tie rule
+            cell = (int(got[1][-1]), int(got[2][-1]), int(got[3][-1]))
+            log(f"overlap two-band pair: (best, j*, i*) = {cell}")
+            if cell != (40, 70, 20):
+                fail(f"overlap_fill_codes: the two-band pair gives {cell}, not (40, 70, 20)")
+    for sc in GOTOH_SCORINGS:
+        e = max_abs_err(vb.affine_scores_banded_batch(*batch, *sc), vb.affine_scores_banded_batch_plain(*batch, *sc))
+        errs["gotoh_scores"] = max(errs["gotoh_scores"], e)
+        log(f"gotoh_scores vs plain, {len(pairs)} pairs {L1}x{L2}, m k open extend = {sc}: {e}")
+    if any(errs.values()):
+        fail(f"an overlap or Gotoh kernel differs from its plain version: {errs}")
+
+
+def check_overlap_alignments(pairs, got, best, j_star, i_star, m, k, d) -> None:
+    """Each (best, X, Y, (j_start, i_start), (j_end, i_end)) of
+    ``overlap_align_batch``: its best and end cell are
+    ``overlap_fill_codes``'s, it starts on row 0 or column 0 and ends on
+    the last row or column, and X / Y spell ``s1[i_start:i_end]`` /
+    ``s2[j_start:j_end]`` with gaps added and re-score to the best."""
+    if [g[0] for g in got] != best.tolist():
+        fail("overlap_align_batch: a best differs from overlap_fill_codes's")
+    if [g[4] for g in got] != list(zip(j_star.tolist(), i_star.tolist())):
+        fail("overlap_align_batch: an end cell differs from overlap_fill_codes's")
+    for (s1, s2), g in zip(pairs, got):
+        (js, is_), (je, ie) = g[3], g[4]
+        if not (js == 0 or is_ == 0) or not (je == len(s2) or ie == len(s1)):
+            fail(f"overlap_align_batch: start {g[3]} or end {g[4]} off its boundary")
+    subs = [(s1[g[3][1] : g[4][1]], s2[g[3][0] : g[4][0]]) for (s1, s2), g in zip(pairs, got)]
+    if not np.array_equal(rescore(subs, [g[1:3] for g in got], m, k, d), best.astype(np.int64)):
+        fail("overlap_align_batch: an alignment does not re-score to its best")
+
+
+def variants_phase(card, bound):
+    """Phase 10: overlap and Gotoh scores.  Returns each new kernel's
+    record fields, and ``sw_walk``'s launches and time on this path."""
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.models import affine as af
+    from nw_tpu_torch.models import overlap as ov
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    errs = {}
+    variant_kernels_vs_plain(dev, errs)
+
+    rng = np.random.default_rng(13)
+    mkd, gotoh = (2, 1, 1), (2, 1, 3, 1)
+    long_pairs = rand_pairs(rng, 128, L_LONG, L_LONG)
+    short_pairs = rand_pairs(rng, 10240, L_SHORT, L_SHORT)
+    configs = {  # name: (entry point, pairs, scoring, source)
+        "overlap_align128x3072": (ov.overlap_align_batch, rand_pairs(rng, 128, L_SW_TB, L_SW_TB), mkd,
+                                  "bench.py:414"),
+        "overlap_align4096x150": (ov.overlap_align_batch, rand_pairs(rng, 4096, L_SHORT, L_SHORT), mkd,
+                                  "bench.py:291"),
+        "overlap_score10240x150": (ov.overlap_score_batch, short_pairs, mkd, "bench.py:517"),
+        "overlap_score128x10240": (ov.overlap_score_batch, long_pairs, mkd, "bench.py:583"),
+        "gotoh_score10240x150": (af.affine_score_pairs, short_pairs, gotoh, "bench.py:517"),
+        "gotoh_score128x10240": (af.affine_score_pairs, long_pairs, gotoh, "bench.py:583"),
+    }
+    wrappers = {
+        "overlap_scores": vb.overlap_scores_banded_batch,
+        "overlap_fill_codes": vb.overlap_fill_codes_banded_batch,
+        "sw_walk": tb.walk_sw_codes_batch,
+        "gotoh_scores": vb.affine_scores_banded_batch,
+    }
+    # (b) the main path, every launch counter from 0
+    for w in wrappers.values():
+        w.launches = 0
+    results, walls = {}, {}
+    for name, (fn, pairs, sc, _) in configs.items():
+        t0 = time.perf_counter()
+        results[name] = fn(pairs, *sc)
+        walls[name] = [time.perf_counter() - t0]
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    log(f"overlap / Gotoh main path launches: {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the overlap / Gotoh path never launched: {launches}")
+
+    # every output against the kernels on the same batch; the 150 bp
+    # scores all, 4 pairs of every other batch against the plain path
+    plain, kern4 = {}, {}
+    for name, (fn, pairs, sc, src) in configs.items():
+        L = len(pairs[0][0])
+        batch = enc.upload(enc.encode_batch(pairs, L, L), dev)
+        four = [t[:4] for t in batch]
+        got = results[name]
+        if fn is ov.overlap_align_batch:
+            best, j_star, i_star = (t.cpu().numpy() for t in vb.overlap_fill_codes_banded_batch(*batch, *sc)[1:])
+            check_overlap_alignments(pairs, got, best, j_star, i_star, *sc)
+            codes, b4, js, is_ = vb.overlap_fill_codes_banded_batch(*four, *sc)
+            kern4[name] = (cuda_ms(lambda: vb.overlap_fill_codes_banded_batch(*four, *sc), 2),
+                           cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js, is_), 2))
+            p_fill, ms_fill = cuda_once(lambda: vb.overlap_fill_codes_banded_batch_plain(*four, *sc))
+            p_walk, ms_walk = cuda_once(lambda: tb.walk_sw_codes_batch_plain(p_fill[0], p_fill[2], p_fill[3]))
+            plain[name] = (ms_fill, ms_walk)
+            trunc = [(s1[:i], s2[:j]) for (s1, s2), j, i in zip(pairs[:4], js.tolist(), is_.tolist())]
+            ops, n, i_st, j_st = (t.cpu().numpy() for t in p_walk)
+            strs = tb.ops_to_strings_batch(ops, n, trunc)
+            want4 = [
+                (int(p_fill[1][b]), X, Y, (int(j_st[b]), int(i_st[b])), (int(js[b]), int(is_[b])))
+                for b, (X, Y) in enumerate(strs)
+            ]
+            e = max(max_abs_err(g, w) for g, w in zip((codes, b4, js, is_), p_fill))
+            errs["overlap_fill_codes"] = max(errs["overlap_fill_codes"], e)
+            errs["sw_walk"] = max(errs["sw_walk"], max(
+                max_abs_err(g, w) for g, w in zip(tb.walk_sw_codes_batch(codes, js, is_), p_walk)
+            ))
+            lens = [len(x) for _, x, _, _, _ in got]
+            log(f"{name} ({src}): {len(got)} alignments spell their substrings, lie on their boundaries "
+                f"and re-score to overlap_fill_codes's best (best {min(best)}-{max(best)}, "
+                f"{min(lens)}-{max(lens)} columns); 4 pairs vs plain: "
+                f"{'equal' if got[:4] == want4 else 'DIFFER'}, kernels max |diff| {e}")
+            if got[:4] != want4:
+                fail(f"{name}: 4 pairs differ from the plain path on the card")
+        else:
+            if fn is ov.overlap_score_batch:
+                best = vb.overlap_fill_codes_banded_batch(*batch, *sc)[1].cpu().numpy()
+                if not np.array_equal(got, best):
+                    fail(f"{name}: scores differ from overlap_fill_codes's best")
+                plain_fn, kname = vb.overlap_scores_banded_batch_plain, "overlap_scores"
+            else:
+                plain_fn, kname = vb.affine_scores_banded_batch_plain, "gotoh_scores"
+            sub = batch if L == L_SHORT else four
+            want, ms = cuda_once(lambda: plain_fn(*sub, *sc))
+            plain[name] = ms
+            e = int(np.abs(got[: len(want)].astype(np.int64) - want.cpu().numpy()).max())
+            errs[kname] = max(errs[kname], e)
+            log(f"{name} ({src}): {len(got)} scores ({min(got)}-{max(got)}); {sub[0].shape[0]} vs plain: "
+                f"max |diff| {e} ({ms:.1f} ms)")
+            if e:
+                fail(f"{name}: scores differ from the plain path on the card")
+        del batch, four
+    torch.cuda.empty_cache()
+    if any(errs.values()):
+        fail(f"an overlap or Gotoh kernel differs from its plain version at full size: {errs}")
+    # open == extend with k < 2 open: the Gotoh score is the linear one,
+    # held against the Needleman-Wunsch kernels (an independent check)
+    lin = af.affine_score_pairs(long_pairs, *mkd, mkd[2])
+    nw_scores = NWAligner(AlignConfig(scoring=ScoringParams(*mkd)), device="cuda").align_batch(long_pairs).scores
+    log(f"affine_score_pairs 128x{L_LONG}bp at 2 1 1 1 vs align_batch at 2 1 1: "
+        f"{'equal' if np.array_equal(lin, nw_scores) else 'DIFFER'} ({min(lin)}-{max(lin)})")
+    if not np.array_equal(lin, nw_scores):
+        fail("affine_score_pairs with open == extend differs from the linear-gap scores")
+
+    # (c) times: 4 warm runs of each configuration, in turns
+    for _ in range(4):
+        for name, (fn, pairs, sc, _) in configs.items():
+            t0 = time.perf_counter()
+            fn(pairs, *sc)
+            walls[name].append(time.perf_counter() - t0)
+    for name, (_, pairs, _, src) in configs.items():
+        med = statistics.median(walls[name][1:])
+        cells = sum(len(a) * len(b) for a, b in pairs)
+        log(f"e2e {name} ({src}): walls {[round(w, 4) for w in walls[name]]} s (first includes "
+            f"warm-up); median warm {med:.4f} s = {len(pairs) / med:.1f} pairs/s, "
+            f"{cells / med / 1e9:.2f} GCUPS [{card}]")
+
+    def batch_of(pairs):
+        L = len(pairs[0][0])
+        return enc.upload(enc.encode_batch(pairs, L, L), dev)
+
+    rec = {}
+    b150, b10k = batch_of(short_pairs), batch_of(long_pairs)
+    cells150 = len(short_pairs) * L_SHORT * L_SHORT
+    io150 = tensor_bytes(*b150) + 4 * len(short_pairs)
+    for kname, fn, sc, ops in (
+        ("overlap_scores", vb.overlap_scores_banded_batch, mkd, OPS_SCORE + OPS_OVERLAP),
+        ("gotoh_scores", vb.affine_scores_banded_batch, gotoh, OPS_GOTOH),
+    ):
+        ms_10k = cuda_ms(lambda: fn(*b10k, *sc), 2)
+        b_10k = bound(128 * L_LONG * L_LONG * ops, tensor_bytes(*b10k) + 4 * 128)
+        cfg = "overlap_score" if kname == "overlap_scores" else "gotoh_score"
+        rec[kname] = dict(
+            ms=cuda_ms(lambda: fn(*b150, *sc), 20), plain_ms=plain[f"{cfg}10240x150"],
+            **bound(cells150 * ops, io150),
+            shape=(f"{len(short_pairs)}x{L_SHORT}bp scores (at 128x{L_LONG}bp: {ms_10k:.3f} ms, "
+                   f"bound {b_10k['bound_ms']:.3f} ms {b_10k['bound_by']}, plain {plain[f'{cfg}128x10240']:.1f} ms "
+                   f"at 4 pairs)"),
+        )
+    del b10k
+    pairs3k = configs["overlap_align128x3072"][1]
+    b3k = batch_of(pairs3k)
+    cells = len(pairs3k) * L_SW_TB * L_SW_TB
+    ms_fill = cuda_ms(lambda: vb.overlap_fill_codes_banded_batch(*b3k, *mkd), 3)
+    codes, best, js, is_ = vb.overlap_fill_codes_banded_batch(*b3k, *mkd)
+    ms_walk = cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js, is_), 5)
+    steps = int(tb.walk_sw_codes_batch(codes, js, is_)[1].sum())
+    k4_fill, k4_walk = kern4["overlap_align128x3072"]
+    p_fill, p_walk = plain["overlap_align128x3072"]
+    rec["overlap_fill_codes"] = dict(
+        ms=ms_fill, plain_ms=p_fill,
+        **bound(cells * (OPS_SCORE + OPS_OVERLAP + OPS_OVERLAP_ARGMAX + OPS_CODE),
+                tensor_bytes(*b3k, codes, best, js, is_)),
+        shape=f"128x{L_SW_TB}bp codes+best+argmax (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_fill:.3f} ms)",
+    )
+    walk_bound = bound(steps * OPS_WALK_STEP, tensor_bytes(js, is_) + 12 * len(pairs3k) + 5 * steps)
+    del codes
+    b4k = batch_of(configs["overlap_align4096x150"][1])
+    ms_fill150 = cuda_ms(lambda: vb.overlap_fill_codes_banded_batch(*b4k, *mkd), 10)
+    for name in rec:
+        rec[name].update(launches=launches[name], max_abs_err=errs[name])
+        log(f"{name}: {rec[name]['ms']:.3f} ms at {rec[name]['shape']}, bound {rec[name]['bound_ms']:.4f} ms "
+            f"({rec[name]['bound_by']}), plain {rec[name]['plain_ms']:.1f} ms [{card}]")
+    log(f"sw_walk on overlap codes 128x{L_SW_TB}bp: {ms_walk:.3f} ms, {steps} steps, bound "
+        f"{walk_bound['bound_ms']:.4f} ms ({walk_bound['bound_by']}), plain {p_walk:.1f} ms at 4 pairs "
+        f"(kernel there {k4_walk:.3f} ms) [{card}]")
+    log(f"overlap_fill_codes 4096x{L_SHORT}bp: {ms_fill150:.3f} ms [{card}]")
+    log(f"phase 10 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+    walk = dict(launches=launches["sw_walk"], max_abs_err=errs["sw_walk"], ms=ms_walk)
+    return rec, walk
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to run", file=sys.stderr)
         sys.exit(2)
@@ -1521,6 +1808,11 @@ def main() -> None:
     # 8. huge pairs; 9. Smith-Waterman (their own launch counters)
     huge = huge_phase(card, bound)
     sw_rec = sw_phase(card, bound)
+    # 10. overlap and Gotoh scores (their own launch counters)
+    var_rec, overlap_walk = variants_phase(card, bound)
+    sw_rec["sw_walk"]["launches"] += overlap_walk["launches"]
+    sw_rec["sw_walk"]["max_abs_err"] = max(sw_rec["sw_walk"]["max_abs_err"], overlap_walk["max_abs_err"])
+    sw_rec["sw_walk"]["shape"] += f"; overlap walks 128x{L_SW_TB}bp {overlap_walk['ms']:.3f} ms"
 
     single_src = "nw_tpu_torch/csrc/nw_single.cu"
     kernels_line = [
@@ -1580,15 +1872,28 @@ def main() -> None:
                      "nw_tpu/ops/variants_banded.py:60 (K18 scores)",
         "sw_fill_codes": "nw_tpu/ops/variants_pallas.py:253 (K24), nw_tpu/ops/variants_banded.py:60 "
                          "(K18 words + argmax)",
-        "sw_walk": "nw_tpu/models/smith_waterman.py:220, nw_tpu/ops/variants_banded.py:1300",
+        "sw_walk": "nw_tpu/models/smith_waterman.py:220, nw_tpu/ops/variants_banded.py:1300, "
+                   "nw_tpu/models/overlap.py:178, nw_tpu/ops/variants_banded.py:752",
     }
     for name, fields in sw_rec.items():
         src = "nw_tpu_torch/csrc/nw_walk.cu" if name == "sw_walk" else "nw_tpu_torch/csrc/nw_fill.cu"
         kernels_line.append({"name": name, "route": "cuda", "source": src,
                              "replaces": sw_replaces[name], **fields})
+    var_replaces = {
+        "overlap_scores": "nw_tpu/ops/variants_rowsweep.py:183 (K16), nw_tpu/ops/variants_banded.py:423 "
+                          "(K19 scores)",
+        "overlap_fill_codes": "nw_tpu/ops/variants_banded.py:423 (K19 words + argmax)",
+        "gotoh_scores": "nw_tpu/ops/variants_rowsweep.py:291 (K17), nw_tpu/ops/variants_pallas.py:131 (K23), "
+                        "nw_tpu/ops/variants_banded.py:980 (K20)",
+    }
+    for name, fields in var_rec.items():
+        src = "nw_tpu_torch/csrc/nw_affine.cu" if name == "gotoh_scores" else "nw_tpu_torch/csrc/nw_fill.cu"
+        kernels_line.append({"name": name, "route": "cuda", "source": src,
+                             "replaces": var_replaces[name], **fields})
     for kern in kernels_line:
         kern["library_ms"] = None  # no one PyTorch call computes a DP fill or walk
     record = {"kernels": kernels_line}
+    log(f"chip_smoke seconds {time.perf_counter() - t_start:.1f}, the kernels' build included [{card}]")
     log(json.dumps(record))
     log(json.dumps({
         "ok": True,

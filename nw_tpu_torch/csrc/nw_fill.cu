@@ -1,5 +1,5 @@
-// Batched Needleman-Wunsch and Smith-Waterman fill kernels for Hopper
-// (sm_90a).
+// Batched Needleman-Wunsch, Smith-Waterman and overlap fill kernels for
+// Hopper (sm_90a).
 //
 // Replaces these TPU (Pallas) kernels:
 //   K1 nw_tpu/ops/fill_pallas_banded.py:_make_banded_scores_kernel
@@ -13,6 +13,10 @@
 //                                                          -> sw_scores
 //   K24 nw_tpu/ops/variants_pallas.py:_sw_arrows_kernel and K18 with
 //      words and argmax                                    -> sw_fill_codes
+//   K16 nw_tpu/ops/variants_rowsweep.py:_make_overlap_kernel and K19
+//      nw_tpu/ops/variants_banded.py:_make_banded_overlap_kernel
+//      (scores)                                            -> overlap_scores
+//   K19 with words and argmax                              -> overlap_fill_codes
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163, with
 // the boundaries written explicitly (row 0: -c*d, LEFT, one path;
@@ -72,6 +76,18 @@
 // equal score on an earlier diagonal, so the first band does not win
 // ties.  The argmax adds ~3 integer ops a step, once per band a
 // reduction.
+//
+// The OVERLAP mode (end-gap-free, nw_tpu/models/overlap.py:49-153) pins
+// row 0 and column 0 to 0 as LOCAL does, but does not clamp: interior
+// cells are the global recurrence in wrapping int32 and get the global
+// codes, never STOP; column 0 gets STOP, so sw_walk (nw_walk.cu) walks
+// both modes' codes.  The best is kept over the end boundary only, the
+// interior cells of the true rectangle on row len2 or column len1: the
+// lane of row len2 considers its columns 1..len1, a lane above it only
+// column len1, by the same key and reductions as LOCAL, from a best of
+// 0.  When no cell beats 0 the argmax is the zero-cost corner (j, i) =
+// (0, len1), or (len2, 0) when len1 is 0 (overlap.py:91-97).  The end
+// window is two compares a step on a lane's loop-invariant column range.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,6 +106,11 @@ constexpr int kCodeLeft = 1;
 constexpr int kCodeUp = 2;
 constexpr int kCodeStop = 3;
 
+// the recurrence a fill runs
+constexpr int kGlobal = 0;   // Needleman-Wunsch
+constexpr int kLocal = 1;    // Smith-Waterman
+constexpr int kOverlap = 2;  // overlap: free end gaps
+
 // (score, kk, j) ranks above (tb, tk, tj): higher score, then the
 // earlier anti-diagonal, then the lower row
 __device__ __forceinline__ bool ranks_above(int sb, int sk, int sj, int tb,
@@ -97,7 +118,7 @@ __device__ __forceinline__ bool ranks_above(int sb, int sk, int sj, int tb,
   return sb > tb || (sb == tb && (sk < tk || (sk == tk && sj < tj)));
 }
 
-template <bool EMIT_CODES, bool WITH_COUNTS, bool LOCAL>
+template <bool EMIT_CODES, bool WITH_COUNTS, int MODE>
 __global__ void __launch_bounds__(32) nw_fill_kernel(
     const int* __restrict__ tops, const int* __restrict__ sides,
     const int* __restrict__ lens1, const int* __restrict__ lens2,
@@ -106,8 +127,11 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
     unsigned* __restrict__ codes, int* __restrict__ scores,
     unsigned* __restrict__ counts, int* __restrict__ jstar,
     int* __restrict__ istar) {
-  static_assert(!(LOCAL && WITH_COUNTS), "a local fill has no counts");
-  constexpr bool ARGMAX = LOCAL && EMIT_CODES;
+  constexpr bool LOCAL = MODE == kLocal;
+  constexpr bool OVERLAP = MODE == kOverlap;
+  constexpr bool FREE = MODE != kGlobal;  // row 0 and column 0 are 0; a best cell is kept
+  static_assert(!(FREE && WITH_COUNTS), "a local or overlap fill has no counts");
+  constexpr bool ARGMAX = FREE && EMIT_CODES;
   const int lane = threadIdx.x;
   const int64_t b = blockIdx.x;
   const int M = A + 1;
@@ -120,30 +144,34 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
   const int l1 = lens1[b];
   const int l2 = lens2[b];
 
-  // row 0: H[0][c] = -c*d, LEFT, one path; 0 in the local mode
+  // row 0: H[0][c] = -c*d, LEFT, one path; 0 in the local and overlap modes
   for (int c = lane; c < M; c += 32) {
-    brow[c] = LOCAL ? 0 : wsub(0, wmul(c, d));
+    brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
     if (WITH_COUNTS) crow[c] = 1u;
   }
-  if (!LOCAL && l2 == 0 && lane == 0) {
+  if (!FREE && l2 == 0 && lane == 0) {
     scores[b] = wsub(0, wmul(l1, d));
     if (WITH_COUNTS) counts[b] = 1u;
   }
   __syncwarp();
 
-  int best = 0, best_k = 0, best_j = 0;  // local: the pair's best cell so far
+  int best = 0, best_k = 0, best_j = 0;  // local, overlap: the pair's best cell so far
   const int negk = wsub(0, k);
   for (int band = 0; band < nbands; ++band) {
     const int j = band * 32 + 1 + lane;  // this lane's row
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : -5;
-    const int col0 = LOCAL ? 0 : wsub(0, wmul(j, d));  // H[j][0]
+    const int col0 = FREE ? 0 : wsub(0, wmul(j, d));  // H[j][0]
+    // overlap: this lane's end-boundary columns, all of row len2, else
+    // column len1 of the rows above it (none below len2)
+    const int end_lo = j == l2 ? 1 : max(l1, 1);
+    const int end_hi = j <= l2 ? l1 : -1;
     unsigned* wbase = EMIT_CODES
         ? codes + ((b * nbands + band) * static_cast<int64_t>(2 * nchunks)) * 32 + lane
         : nullptr;
     int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
     unsigned cnt = 0, cup_prev = 0, pack = 0;
-    int lbest = 0, lk = 0;  // local: this row's best and its first kk
+    int lbest = 0, lk = 0;  // local, overlap: this row's best and its first kk
 
     for (int t0 = 0; t0 < 32 * nchunks; t0 += 32) {
       // the next 32 columns of the row above and of the top string;
@@ -180,17 +208,22 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
           cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
                (cand_u == hn ? cup : 0u);
         }
-        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path (local: 0, STOP)
+        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path (local, overlap: 0, STOP)
         hn = col_zero ? col0 : hn;
-        code = col_zero ? (LOCAL ? kCodeStop : kCodeUp) : code;
+        code = col_zero ? (FREE ? kCodeStop : kCodeUp) : code;
         cn = col_zero ? 1u : cn;
         const bool in_row = c >= 0 && c <= A;
-        if (!LOCAL && in_row && j == l2 && c == l1) {  // the true corner
+        if (!FREE && in_row && j == l2 && c == l1) {  // the true corner
           scores[b] = hn;
           if (WITH_COUNTS) counts[b] = cn;
         }
         if (LOCAL) {  // the true rectangle only: padding never reaches the best
           const bool upd = c >= 1 && c <= l1 && j <= l2 && hn > lbest;
+          lbest = upd ? hn : lbest;
+          if (ARGMAX) lk = upd ? c + j : lk;
+        }
+        if (OVERLAP) {  // the end boundary of the true rectangle only
+          const bool upd = c >= end_lo && c <= end_hi && hn > lbest;
           lbest = upd ? hn : lbest;
           if (ARGMAX) lk = upd ? c + j : lk;
         }
@@ -217,7 +250,7 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
       }
     }
     __syncwarp();  // the band's boundary row is complete before the next band reads it
-    if (LOCAL) {
+    if (FREE) {
       // the band's best over its lanes (butterfly: every lane ends with
       // it), then over the bands so far, by one key
       int bj = j;
@@ -246,16 +279,23 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
       istar[b] = best > 0 ? best_k - best_j : 0;
     }
   }
+  if (OVERLAP && lane == 0) {
+    scores[b] = best;
+    if (ARGMAX) {  // no positive cell: the zero-cost corner
+      jstar[b] = best > 0 ? best_j : (l1 == 0 ? l2 : 0);
+      istar[b] = best > 0 ? best_k - best_j : l1;
+    }
+  }
 }
 
-template <bool EMIT_CODES, bool WITH_COUNTS, bool LOCAL = false>
+template <bool EMIT_CODES, bool WITH_COUNTS, int MODE = kGlobal>
 int launch_fill(const int* tops, const int* sides, const int* lens1,
                 const int* lens2, int B, int A, int Bs, int m, int k, int d,
                 int* bnd, unsigned* cbnd, unsigned* codes, int* scores,
                 unsigned* counts, cudaStream_t stream, int* jstar = nullptr,
                 int* istar = nullptr) {
   if (B <= 0) return 0;
-  nw_fill_kernel<EMIT_CODES, WITH_COUNTS, LOCAL><<<B, 32, 0, stream>>>(
+  nw_fill_kernel<EMIT_CODES, WITH_COUNTS, MODE><<<B, 32, 0, stream>>>(
       tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores,
       counts, jstar, istar);
   return static_cast<int>(cudaGetLastError());
@@ -303,10 +343,10 @@ extern "C" int nw_fill_codes(const int* tops, const int* sides,
 extern "C" int sw_scores(const int* tops, const int* sides, const int* lens1,
                          const int* lens2, int B, int A, int Bs, int m, int k,
                          int d, int* bnd, int* best, void* stream) {
-  return launch_fill<false, false, true>(tops, sides, lens1, lens2, B, A, Bs,
-                                         m, k, d, bnd, nullptr, nullptr, best,
-                                         nullptr,
-                                         static_cast<cudaStream_t>(stream));
+  return launch_fill<false, false, kLocal>(tops, sides, lens1, lens2, B, A,
+                                           Bs, m, k, d, bnd, nullptr, nullptr,
+                                           best, nullptr,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // K24 / K18 words port: local 2-bit codes (0 diag, 1 left, 2 up,
@@ -317,7 +357,33 @@ extern "C" int sw_fill_codes(const int* tops, const int* sides,
                              int Bs, int m, int k, int d, int* bnd,
                              void* codes, int* best, int* jstar, int* istar,
                              void* stream) {
-  return launch_fill<true, false, true>(
+  return launch_fill<true, false, kLocal>(
+      tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd, nullptr,
+      static_cast<unsigned*>(codes), best, nullptr,
+      static_cast<cudaStream_t>(stream), jstar, istar);
+}
+
+// K16 / K19 port: int32 best overlap scores (>= 0).  bnd is int32[B, A+1]
+// scratch.
+extern "C" int overlap_scores(const int* tops, const int* sides,
+                              const int* lens1, const int* lens2, int B, int A,
+                              int Bs, int m, int k, int d, int* bnd, int* best,
+                              void* stream) {
+  return launch_fill<false, false, kOverlap>(tops, sides, lens1, lens2, B, A,
+                                             Bs, m, k, d, bnd, nullptr,
+                                             nullptr, best, nullptr,
+                                             static_cast<cudaStream_t>(stream));
+}
+
+// K19 words + argmax port: overlap 2-bit codes (0 diag, 1 left, 2 up,
+// 3 STOP on column 0) in nw_fill_codes's layout, best overlap scores and
+// their end cells (j*, i*), int32[B] each.  bnd is int32[B, A+1] scratch.
+extern "C" int overlap_fill_codes(const int* tops, const int* sides,
+                                  const int* lens1, const int* lens2, int B,
+                                  int A, int Bs, int m, int k, int d, int* bnd,
+                                  void* codes, int* best, int* jstar,
+                                  int* istar, void* stream) {
+  return launch_fill<true, false, kOverlap>(
       tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd, nullptr,
       static_cast<unsigned*>(codes), best, nullptr,
       static_cast<cudaStream_t>(stream), jstar, istar);

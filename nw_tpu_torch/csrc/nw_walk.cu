@@ -43,7 +43,11 @@
 // the codes with walk()'s lookup and stops on a STOP code (a cell of
 // score 0, a local start) or on row 0 or column 0, whose cells are 0 and
 // not stored: not nw_walk's rule, which steps LEFT along row 0.  It
-// writes its ops in walk order and the cell where it stopped.
+// writes its ops in walk order and the cell where it stopped.  It walks
+// the overlap codes of nw_fill.cu's OVERLAP mode (overlap_fill_codes)
+// unchanged, from the end cell to row 0 or column 0 (whose cells are
+// STOP): the jnp loops nw_tpu/models/overlap.py:178 _overlap_walk_diag
+// and nw_tpu/ops/variants_banded.py:752 _overlap_walk_device.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -124,6 +124,21 @@ def sw_align_batch(pairs: Sequence[Pair], m: int = 2, k: int = 1, d: int = 1,
     ``(s1[:i*], s2[:j*])`` are built on the host.
     """
     dev = resolve_device(device, "sw_align_batch")
+    return [row[:4] for row in walk_align_batch(sw_fill_codes_banded_batch, pairs, m, k, d, dev)]
+
+
+def walk_align_batch(fill_codes, pairs: Sequence[Pair], m: int, k: int, d: int,
+                     dev: torch.device) -> List[Tuple[int, bytes, bytes, Tuple[int, int], Tuple[int, int]]]:
+    """The alignments of a free-boundary fill (local or overlap):
+    ``(best, X, Y, (j, i) where the walk stopped, (j*, i*))`` a pair.
+
+    ``fill_codes`` is a codes wrapper of
+    :mod:`nw_tpu_torch.ops.variants_banded` (codes with STOP, best, j*,
+    i*).  The batch is padded to its longest strings and cut into
+    sub-batches whose 2-bit codes fit ``CODE_BUDGET_BYTES``; each runs
+    one fill and one ``sw_walk`` from (j*, i*), then the strings of
+    ``(s1[:i*], s2[:j*])`` are built on the host.
+    """
     norm = [(_as_bytes(a), _as_bytes(b)) for a, b in pairs]
     if not norm:
         return []
@@ -134,7 +149,7 @@ def sw_align_batch(pairs: Sequence[Pair], m: int = 2, k: int = 1, d: int = 1,
     for lo in range(0, len(norm), chunk):
         sub = norm[lo : lo + chunk]
         tops, sides, l1, l2 = enc.upload(enc.encode_batch(sub, L1, L2), dev)
-        codes, best, j_star, i_star = sw_fill_codes_banded_batch(tops, sides, l1, l2, m, k, d)
+        codes, best, j_star, i_star = fill_codes(tops, sides, l1, l2, m, k, d)
         ops, n, i_end, j_end = walk_sw_codes_batch(codes, j_star, i_star)
         del codes
         best, j_star, i_star, n, i_end, j_end = (
@@ -143,7 +158,7 @@ def sw_align_batch(pairs: Sequence[Pair], m: int = 2, k: int = 1, d: int = 1,
         trunc = [(s1[: i_star[b]], s2[: j_star[b]]) for b, (s1, s2) in enumerate(sub)]
         strs = ops_to_strings_batch(ops.cpu().numpy(), n, trunc)
         out.extend(
-            (int(best[b]), X, Y, (int(j_end[b]), int(i_end[b])))
+            (int(best[b]), X, Y, (int(j_end[b]), int(i_end[b])), (int(j_star[b]), int(i_star[b])))
             for b, (X, Y) in enumerate(strs)
         )
     return out

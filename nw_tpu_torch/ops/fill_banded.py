@@ -53,9 +53,10 @@ from nw_tpu_torch.runtime import kernels
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
-def _check(tops, sides, lens1, lens2, m, k, d):
+def _check(tops, sides, lens1, lens2, *scoring):
     """Validate what the kernels index with: a length beyond its bucket
-    would read outside the tensors."""
+    would read outside the tensors.  ``scoring`` is (m, k, d), or Gotoh's
+    (m, k, open, extend)."""
     if tops.device.type not in ("cpu", "cuda"):
         raise ValueError(f"CPU or CUDA tensors expected, got {tops.device}")
     if tops.dim() != 2 or sides.dim() != 2 or tops.shape[0] != sides.shape[0]:
@@ -67,8 +68,8 @@ def _check(tops, sides, lens1, lens2, m, k, d):
             raise ValueError("all inputs must be on one device")
     if lens1.shape != (tops.shape[0],) or lens2.shape != (tops.shape[0],):
         raise ValueError("lens must be [B]")
-    if not all(INT32_MIN <= v <= INT32_MAX for v in (m, k, d)):
-        raise ValueError(f"scoring ({m}, {k}, {d}) must fit int32")
+    if not all(INT32_MIN <= v <= INT32_MAX for v in scoring):
+        raise ValueError(f"scoring {scoring} must fit int32")
     if tops.shape[0]:
         lo, hi = torch.aminmax(torch.stack([lens1, lens2]), dim=1)
         (lo1, lo2), (hi1, hi2) = lo.tolist(), hi.tolist()

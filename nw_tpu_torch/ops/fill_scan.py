@@ -22,7 +22,11 @@ mod 2^32; they are returned as int64 in ``[0, 2^32)``.
 
 :func:`sw_fill_diag_batch` is the same sweep with Smith-Waterman's local
 recurrence (``nw_tpu/models/smith_waterman.py:25-97``): the plain version
-of the local fill kernels.
+of the local fill kernels.  :func:`overlap_fill_diag_batch` is the same
+with overlap's free end gaps (``nw_tpu/models/overlap.py:49-153``), and
+:func:`affine_fill_diag_batch` carries Gotoh's three states
+(``nw_tpu/models/affine.py:28-100``): the plain versions of the overlap
+and Gotoh kernels.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 NEG_INF = -(2**30)
+NEG_GOTOH = NEG_INF // 2  # a Gotoh state that does not exist: NEG - open cannot wrap
 U32 = 0xFFFFFFFF
 CODES_PER_WORD = 16
 BAND_ROWS = 32  # one row per lane of a warp
@@ -199,6 +204,43 @@ def sw_fill_diag_batch(
     Returns a dict with ``score`` int32[B] (>= 0), ``argmax`` int32[B, 2]
     as (j, i), and ``arrows`` uint8[B, A+Bs+1, Bs+1] when asked.
     """
+    return _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local=True)
+
+
+def overlap_fill_diag_batch(
+    tops: torch.Tensor,
+    sides: torch.Tensor,
+    lens1: torch.Tensor,
+    lens2: torch.Tensor,
+    m: int,
+    k: int,
+    d: int,
+    with_arrows: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Overlap (semi-global, end-gap-free) fill of a padded batch along
+    anti-diagonals.
+
+    The recurrence of ``nw_tpu/models/overlap.py:49-153
+    overlap_fill_diag`` over the bucket tables: row 0 and column 0 are 0
+    and carry no arrows, interior cells ``max(diag + (m | -k), up - d,
+    left - d)`` in wrapping int32 (no clamp) with every tie in their
+    masks.  The best is taken over each pair's end boundary (interior
+    cells of its true rectangle on row len2 or column len1), seeded by
+    the zero-cost corner (j, i) = (0, len1), or (len2, 0) when len1 is 0:
+    a cell replaces it only with a strictly greater score, the first
+    anti-diagonal then the lowest row.
+
+    Returns a dict with ``score`` int32[B] (>= 0), ``argmax`` int32[B, 2]
+    as (j, i), and ``arrows`` uint8[B, A+Bs+1, Bs+1] when asked.
+    """
+    return _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local=False)
+
+
+def _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local):
+    """The sweep of :func:`sw_fill_diag_batch` (``local``) and
+    :func:`overlap_fill_diag_batch`: both pin row 0 and column 0 to 0 and
+    keep a best cell; local alignment also clamps at 0 and reads the
+    whole rectangle, overlap only its end boundary."""
     B, A = tops.shape
     Bs = sides.shape[1]
     N = Bs + 1
@@ -219,7 +261,12 @@ def sw_fill_diag_batch(
     prev = torch.zeros((B, N), dtype=i32, device=dev)
     prev2 = torch.zeros((B, N), dtype=i32, device=dev)
     best = torch.zeros(B, dtype=i32, device=dev)
-    arg = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+    if local:  # no positive cell: (0, 0)
+        arg = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+    else:  # the zero-cost corner (0, len1), or (len2, 0) when len1 is 0
+        arg = torch.where(
+            lens1 == 0, torch.cat([lens2, lens1], 1), torch.cat([torch.zeros_like(lens1), lens1], 1)
+        )
     m_t = torch.tensor(m, dtype=i32, device=dev)
     negk_t = -torch.tensor(k, dtype=i32, device=dev)
     d_t = torch.tensor(d, dtype=i32, device=dev)
@@ -233,8 +280,12 @@ def sw_fill_diag_batch(
         cand_diag = _shift_down(prev2, NEG_INF) + sub
         cand_up = _shift_down(prev, NEG_INF) - d_t
         cand_left = prev - d_t
-        score = torch.maximum(torch.maximum(cand_diag, cand_up), cand_left).clamp(min=0)
-        live = interior & (score > 0)
+        score = torch.maximum(torch.maximum(cand_diag, cand_up), cand_left)
+        if local:
+            score = score.clamp(min=0)
+            live = interior & (score > 0)
+        else:
+            live = interior
         score = torch.where(interior, score, 0)
         if with_arrows:
             arrows_l.append(
@@ -243,9 +294,12 @@ def sw_fill_diag_batch(
                 | (((cand_up == score) & live).to(torch.uint8) << 2)
             )
         # running best: a strictly greater diagonal maximum wins, so the
-        # first diagonal keeps ties; argmax takes the lowest row on it
-        in_rect = rows_ok & (i_idx >= 1) & (i_idx <= lens1)
-        sc = torch.where(in_rect, score, 0)
+        # first diagonal keeps ties; argmax takes the lowest row on it.
+        # Cells outside the candidates count as 0, which never wins.
+        cand = rows_ok & (i_idx >= 1) & (i_idx <= lens1)
+        if not local:
+            cand = cand & ((i_idx == lens1) | (j_idx == lens2))
+        sc = torch.where(cand, score, 0)
         diag_best = sc.amax(dim=1)
         diag_row = sc.argmax(dim=1)  # the first maximal index
         take = diag_best > best
@@ -259,6 +313,93 @@ def sw_fill_diag_batch(
     if with_arrows:
         out["arrows"] = torch.stack(arrows_l, dim=1)
     return out
+
+
+def affine_fill_diag_batch(
+    tops: torch.Tensor,
+    sides: torch.Tensor,
+    lens1: torch.Tensor,
+    lens2: torch.Tensor,
+    m: int,
+    k: int,
+    open_: int,
+    extend: int,
+) -> Dict[str, torch.Tensor]:
+    """Gotoh affine-gap global scores of a padded batch along
+    anti-diagonals: ``nw_tpu/models/affine.py:28-100 affine_score`` over
+    the bucket tables, read at each pair's true corner (len2, len1).
+
+    Three states a cell, (j = side row, i = top column), in wrapping
+    int32::
+
+        M[j,i]  = best[j-1,i-1] + (m | -k)
+        IX[j,i] = max(M[j,i-1] - open, IX[j,i-1] - extend)
+        IY[j,i] = max(M[j-1,i] - open, IY[j-1,i] - extend)
+        best    = max(M, IX, IY)
+
+    A state that does not exist is ``NEG_GOTOH`` (NEG_INF // 2): M on row
+    0 and column 0 but M(0,0) = 0, IX on column 0, IY on row 0.  The
+    boundary gaps are IX(0,i) = -(open + (i-1)*extend) and IY(j,0) =
+    -(open + (j-1)*extend), and a boundary cell's best is the max of its
+    three states, as the scan has it.  The empty pair scores 0.
+
+    Returns a dict with ``score`` int32[B].
+    """
+    B, A = tops.shape
+    Bs = sides.shape[1]
+    N = Bs + 1
+    K = A + Bs + 1
+    dev = tops.device
+    i32 = torch.int32
+    tops = tops.to(i32)
+    sides = sides.to(i32)
+    lens1 = lens1.to(device=dev, dtype=torch.int64)
+    lens2 = lens2.to(device=dev, dtype=torch.int64)
+    k_corner = lens1 + lens2
+    j_corner = lens2.clamp(max=Bs)
+    b_ar = torch.arange(B, device=dev)
+
+    side_sh = torch.cat([torch.full((B, 1), -3, dtype=i32, device=dev), sides], 1)
+    pad = torch.full((B, N), -4, dtype=i32, device=dev)
+    top_ext = torch.cat([pad, tops.flip(1), pad], 1)
+    j_idx = torch.arange(N, device=dev)
+
+    neg = torch.full((B, N), NEG_GOTOH, dtype=i32, device=dev)
+    Mp, IXp, IYp = torch.where(j_idx == 0, 0, NEG_GOTOH).to(i32).expand(B, N), neg, neg
+    Mp2, IXp2, IYp2 = neg, neg, neg
+    captured = torch.zeros(B, dtype=i32, device=dev)
+    m_t = torch.tensor(m, dtype=i32, device=dev)
+    negk_t = -torch.tensor(k, dtype=i32, device=dev)
+    op_t = torch.tensor(open_, dtype=i32, device=dev)
+    ex_t = torch.tensor(extend, dtype=i32, device=dev)
+    # gap[L] = -(open + (L-1)*extend) in wrapping int32, made once
+    gaps = -(open_ + (torch.arange(K, dtype=torch.int64) - 1) * extend)
+    gaps = (((gaps + 2**31) & U32) - 2**31).to(device=dev, dtype=i32)
+
+    for kk in range(1, K):
+        i_idx = kk - j_idx
+        valid = (i_idx >= 0) & (i_idx <= A)
+        interior = valid & (j_idx >= 1) & (i_idx >= 1)
+        ch_top = top_ext[:, N + A - kk : N + A - kk + N]
+        sub = torch.where(ch_top == side_sh, m_t, negk_t)
+
+        best_p2 = torch.maximum(torch.maximum(Mp2, IXp2), IYp2)
+        M = _shift_down(best_p2, NEG_GOTOH) + sub
+        IX = torch.maximum(Mp - op_t, IXp - ex_t)  # from (j, i-1)
+        IY = torch.maximum(  # from (j-1, i)
+            _shift_down(Mp, NEG_GOTOH) - op_t, _shift_down(IYp, NEG_GOTOH) - ex_t
+        )
+        M = torch.where(interior, M, NEG_GOTOH)
+        IX = torch.where(interior, IX, NEG_GOTOH)
+        IY = torch.where(interior, IY, NEG_GOTOH)
+        IX = torch.where(valid & (j_idx == 0), gaps[kk], IX)  # row 0
+        IY = torch.where(valid & (i_idx == 0), gaps[kk], IY)  # column 0
+        best = torch.maximum(torch.maximum(M, IX), IY)
+        captured = torch.where(kk == k_corner, best[b_ar, j_corner], captured)
+        Mp2, IXp2, IYp2 = Mp, IXp, IYp
+        Mp, IXp, IYp = M, IX, IY
+
+    return {"score": captured}
 
 
 def fill_diag(

@@ -25,6 +25,11 @@ exactly the *first* alignment the reference emits.
   ``nw_tpu/models/smith_waterman.py:220 _sw_walk_packed`` and the walk of
   ``nw_tpu/ops/variants_banded.py:1177 _sw_walk_device``): the
   ``sw_walk`` kernel on a CUDA tensor, its plain version on a CPU tensor.
+  It walks the overlap codes of
+  :func:`nw_tpu_torch.ops.variants_banded.overlap_fill_codes_banded_batch`
+  unchanged, from the end cell to row 0 or column 0 (for
+  ``nw_tpu/models/overlap.py:178 _overlap_walk_diag`` and
+  ``nw_tpu/ops/variants_banded.py:752 _overlap_walk_device``).
 * :func:`ops_to_strings_batch` builds the aligned byte strings on the
   host (numpy path of ``traceback.py:212-267``); :func:`ops_to_strings`
   does one pair (``traceback.py:270``).
@@ -249,8 +254,10 @@ def walk_sw_codes_batch(
 
     codes: int32[B, nbands, TW, 32] from
     :func:`nw_tpu_torch.ops.variants_banded.sw_fill_codes_banded_batch`
-    (0 diag / 1 left / 2 up / 3 STOP); j_star / i_star: int32[B], the
-    best cells.  Each walk starts at (j*, i*) and stops on a STOP cell,
+    (0 diag / 1 left / 2 up / 3 STOP), or the overlap codes of
+    ``overlap_fill_codes_banded_batch`` (STOP on column 0 only); j_star /
+    i_star: int32[B], the best cells.  Each walk starts at (j*, i*) and
+    stops on a STOP cell,
     on row 0 or on column 0 (cells of score 0, not stored), not at the
     origin as :func:`walk_codes_batch` does.  Returns ops int8[B, S] in
     walk order (OP_NONE padded; S bounds i* + j* for any start in the

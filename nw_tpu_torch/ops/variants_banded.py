@@ -1,9 +1,9 @@
-"""Smith-Waterman banded fills: the ports of TPU kernels K15, K18, K22
-and K24.
+"""Variant-model banded fills: the ports of TPU kernels K15-K20 and
+K22-K24 (Smith-Waterman, overlap and Gotoh scores).
 
-Counterpart of ``nw_tpu/ops/variants_banded.py`` (K18, the module that
-serves every side length).  Two wrappers, each with its plain PyTorch
-version in this module:
+Counterpart of ``nw_tpu/ops/variants_banded.py`` (K18, K19 and K20, the
+kernels that serve every side length).  Five wrappers, each with its
+plain PyTorch version in this module:
 
 * :func:`sw_scores_banded_batch` — int32 best local scores at any batch
   size and side length (``sw_scores``).  It stands in for K22
@@ -17,18 +17,39 @@ version in this module:
   (``nw_tpu/ops/variants_pallas.py:253 _sw_arrows_kernel``, 3-bit tie
   masks + argmax, sides <= 2 048) and K18's words + argmax mode (sides
   > 2 048); the greedy local walk reads nothing but the 2-bit code.
+* :func:`overlap_scores_banded_batch` — int32 best overlap scores
+  (``overlap_scores``), for K16
+  (``nw_tpu/ops/variants_rowsweep.py:183 _make_overlap_kernel``, sides
+  <= 512) and K19's score mode
+  (``nw_tpu/ops/variants_banded.py:423 _make_banded_overlap_kernel``,
+  ``overlap_scores_banded_batch`` at ``:702``).
+* :func:`overlap_fill_codes_banded_batch` — overlap 2-bit codes, best
+  scores and their end cells (``overlap_fill_codes``), for K19's words +
+  argmax mode (``overlap_traceback_banded_batch``, ``:939``).
+* :func:`affine_scores_banded_batch` — int32 Gotoh global scores
+  (``gotoh_scores``), for K17
+  (``nw_tpu/ops/variants_rowsweep.py:291 _make_affine_kernel``, sides
+  <= 512), K23 (``nw_tpu/ops/variants_pallas.py:131 _affine_kernel``,
+  sides <= 3 072) and K20
+  (``nw_tpu/ops/variants_banded.py:980 _make_banded_affine_kernel``, any
+  side).
 
-Both are the ``LOCAL`` mode of the batched fill kernel
-(``csrc/nw_fill.cu``), one warp a pair.  A wrapper given CPU tensors
-runs the plain version; given CUDA tensors it launches the kernel or
-raises.  Each counts its launches in ``.launches``.
+The first four are the ``LOCAL`` and ``OVERLAP`` modes of the batched
+fill kernel (``csrc/nw_fill.cu``), the fifth is ``csrc/nw_affine.cu``:
+one warp a pair, at every batch size and side length.  A wrapper given
+CPU tensors runs the plain version; given CUDA tensors it launches the
+kernel or raises.  Each counts its launches in ``.launches``.
 
 Inputs are those of :mod:`nw_tpu_torch.ops.fill_banded`.  Codes have
 ``nw_fill_codes``'s band-major layout with 0 diag / 1 left / 2 up /
-3 STOP; STOP marks a cell of score 0 (a local start) and every cell of
-column 0.  The argmax is ``nw_tpu``'s scan tie rule: the first
-anti-diagonal that reaches the best, then the lowest row; (0, 0) when
-the best is 0.
+3 STOP.  Local codes get STOP on a cell of score 0 (a local start) and on
+every cell of column 0; overlap codes only on column 0 (its free start
+boundary; row 0 is not stored), so one walk (``sw_walk``) reads both.
+The argmax follows ``nw_tpu``'s scan tie rule, the first anti-diagonal
+that reaches the best, then the lowest row: over the whole rectangle,
+(0, 0) when the best is 0, for local alignment; over the end boundary
+(row len2 or column len1), seeded by the zero-cost corner (0, len1), or
+(len2, 0) when len1 is 0, for overlap.
 """
 
 from __future__ import annotations
@@ -38,8 +59,63 @@ from typing import Tuple
 import torch
 
 from nw_tpu_torch.ops.fill_banded import _check, _contig, _dims
-from nw_tpu_torch.ops.fill_scan import code_shape, greedy_codes_from_arrows, sw_fill_diag_batch
+from nw_tpu_torch.ops.fill_scan import (
+    affine_fill_diag_batch,
+    code_shape,
+    greedy_codes_from_arrows,
+    overlap_fill_diag_batch,
+    sw_fill_diag_batch,
+)
 from nw_tpu_torch.runtime import kernels
+
+
+def _launch_scores(wrapper, name, tops, sides, lens1, lens2, scoring, scratch_rows=1):
+    """Launch C entry point ``name`` for ``wrapper`` (whose count it
+    raises): one int32 score a pair, with ``scratch_rows`` int32 boundary
+    rows of A+1 columns a pair."""
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        bnd = torch.empty((B, scratch_rows, A + 1), dtype=torch.int32, device=dev)
+        kernels.launch(
+            name, dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
+            lens2.data_ptr(), B, A, Bs, *scoring,
+            bnd.data_ptr(), scores.data_ptr(),
+        )
+        wrapper.launches += 1
+    return scores
+
+
+def _launch_codes(wrapper, name, tops, sides, lens1, lens2, m, k, d):
+    """Launch C entry point ``name`` for ``wrapper`` (whose count it
+    raises): codes, best and its cell (j*, i*)."""
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    codes = torch.empty(code_shape(B, A, Bs), dtype=torch.int32, device=dev)
+    best, j_star, i_star = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
+    if B:
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
+        kernels.launch(
+            name, dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
+            lens2.data_ptr(), B, A, Bs, m, k, d, bnd.data_ptr(),
+            codes.data_ptr(), best.data_ptr(), j_star.data_ptr(), i_star.data_ptr(),
+        )
+        wrapper.launches += 1
+    return codes, best, j_star, i_star
+
+
+def _codes_plain(fill, tops, sides, lens1, lens2, m, k, d):
+    """A free-boundary fill's tie masks turned into codes, STOP where a
+    cell has none, with its best and argmax."""
+    out = fill(tops, sides, lens1, lens2, m, k, d, with_arrows=True)
+    codes = greedy_codes_from_arrows(out["arrows"], local=True)
+    j_star, i_star = out["argmax"].T.contiguous()
+    return codes, out["score"], j_star, i_star
 
 
 def sw_scores_banded_batch(tops, sides, lens1, lens2, m, k, d) -> torch.Tensor:
@@ -47,20 +123,7 @@ def sw_scores_banded_batch(tops, sides, lens1, lens2, m, k, d) -> torch.Tensor:
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return sw_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
-    B, A, Bs = _dims(tops, sides)
-    dev = tops.device
-    best = torch.empty(B, dtype=torch.int32, device=dev)
-    if B:
-        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
-        bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
-        kernels.launch(
-            "sw_scores", dev,
-            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
-            lens2.data_ptr(), B, A, Bs, m, k, d,
-            bnd.data_ptr(), best.data_ptr(),
-        )
-        sw_scores_banded_batch.launches += 1
-    return best
+    return _launch_scores(sw_scores_banded_batch, "sw_scores", tops, sides, lens1, lens2, (m, k, d))
 
 
 sw_scores_banded_batch.launches = 0
@@ -82,21 +145,7 @@ def sw_fill_codes_banded_batch(
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return sw_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
-    B, A, Bs = _dims(tops, sides)
-    dev = tops.device
-    codes = torch.empty(code_shape(B, A, Bs), dtype=torch.int32, device=dev)
-    best, j_star, i_star = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
-    if B:
-        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
-        bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
-        kernels.launch(
-            "sw_fill_codes", dev,
-            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
-            lens2.data_ptr(), B, A, Bs, m, k, d, bnd.data_ptr(),
-            codes.data_ptr(), best.data_ptr(), j_star.data_ptr(), i_star.data_ptr(),
-        )
-        sw_fill_codes_banded_batch.launches += 1
-    return codes, best, j_star, i_star
+    return _launch_codes(sw_fill_codes_banded_batch, "sw_fill_codes", tops, sides, lens1, lens2, m, k, d)
 
 
 sw_fill_codes_banded_batch.launches = 0
@@ -106,7 +155,69 @@ def sw_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
     """Plain version of :func:`sw_fill_codes_banded_batch`: the local
     anti-diagonal fill's tie masks turned into codes, STOP where a cell
     has none."""
-    out = sw_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows=True)
-    codes = greedy_codes_from_arrows(out["arrows"], local=True)
-    j_star, i_star = out["argmax"].T.contiguous()
-    return codes, out["score"], j_star, i_star
+    return _codes_plain(sw_fill_diag_batch, tops, sides, lens1, lens2, m, k, d)
+
+
+def overlap_scores_banded_batch(tops, sides, lens1, lens2, m, k, d) -> torch.Tensor:
+    """int32[B] best overlap (end-gap-free) scores (>= 0), one per pair."""
+    _check(tops, sides, lens1, lens2, m, k, d)
+    if tops.device.type == "cpu":
+        return overlap_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
+    return _launch_scores(
+        overlap_scores_banded_batch, "overlap_scores", tops, sides, lens1, lens2, (m, k, d)
+    )
+
+
+overlap_scores_banded_batch.launches = 0
+
+
+def overlap_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
+    """Plain version of :func:`overlap_scores_banded_batch`."""
+    return overlap_fill_diag_batch(
+        tops, sides, lens1, lens2, m, k, d, with_arrows=False
+    )["score"]
+
+
+def overlap_fill_codes_banded_batch(
+    tops, sides, lens1, lens2, m, k, d
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(codes int32[B, nbands, TW, 32], best int32[B], j* int32[B],
+    i* int32[B]): the overlap code of every cell of the bucket table
+    (STOP on column 0), the best overlap score and its end cell."""
+    _check(tops, sides, lens1, lens2, m, k, d)
+    if tops.device.type == "cpu":
+        return overlap_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
+    return _launch_codes(
+        overlap_fill_codes_banded_batch, "overlap_fill_codes", tops, sides, lens1, lens2, m, k, d
+    )
+
+
+overlap_fill_codes_banded_batch.launches = 0
+
+
+def overlap_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
+    """Plain version of :func:`overlap_fill_codes_banded_batch`: the
+    overlap fill's tie masks turned into codes, STOP on column 0 (whose
+    cells have none)."""
+    return _codes_plain(overlap_fill_diag_batch, tops, sides, lens1, lens2, m, k, d)
+
+
+def affine_scores_banded_batch(tops, sides, lens1, lens2, m, k, open_, extend) -> torch.Tensor:
+    """int32[B] Gotoh affine-gap global scores, one per pair (true
+    corner; 0 for the empty pair)."""
+    _check(tops, sides, lens1, lens2, m, k, open_, extend)
+    if tops.device.type == "cpu":
+        return affine_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, open_, extend)
+    # three boundary rows a pair: best, M and IY of a band's last row
+    return _launch_scores(
+        affine_scores_banded_batch, "gotoh_scores", tops, sides, lens1, lens2,
+        (m, k, open_, extend), scratch_rows=3,
+    )
+
+
+affine_scores_banded_batch.launches = 0
+
+
+def affine_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, open_, extend):
+    """Plain version of :func:`affine_scores_banded_batch`."""
+    return affine_fill_diag_batch(tops, sides, lens1, lens2, m, k, open_, extend)["score"]

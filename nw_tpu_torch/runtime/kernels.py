@@ -49,6 +49,9 @@ SIGNATURES = {
     "sw_scores": [P, P, P, P, I, I, I, I, I, I, P, P, P],
     "sw_fill_codes": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P],
     "sw_walk": [P, P, P, I, I, I, I, P, P, P, P, P],
+    "overlap_scores": [P, P, P, P, I, I, I, I, I, I, P, P, P],
+    "overlap_fill_codes": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P],
+    "gotoh_scores": [P, P, P, P, I, I, I, I, I, I, I, P, P, P],
 }
 
 

@@ -1,0 +1,78 @@
+"""Compare the machine code (SASS) of the kernels of two versions of one
+CUDA source of nw_tpu_torch, to show that a change left some
+instantiations as they were.
+
+    python3 scripts/sass_compare.py OLD.cu NEW.cu
+
+Each source is compiled with the package's own nvcc flags
+(``nw_tpu_torch/runtime/kernels.py``), from its own directory (for its
+includes), and disassembled with ``cuobjdump -sass``.  Kernels are
+matched by mangled name, with a template argument written as a bool or
+as an int of the same value counted as one (``nw_fill_kernel<true,
+false, false>`` is ``nw_fill_kernel<1, 0, 0>``) and the file's hash in
+the anonymous namespace's name left out.  For every kernel of OLD the
+script prints IDENTICAL or DIFFERENT (the instruction streams, addresses
+and encodings left out) and lists the kernels that only NEW has.  Exit
+status 1 when a kernel of OLD is missing from NEW or differs.  Needs the
+CUDA toolkit (``nvcc``, ``cuobjdump``).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from nw_tpu_torch.runtime import kernels  # noqa: E402
+
+# one template argument of a mangled name: L b|i <value> E
+TEMPLATE_ARG = re.compile(r"L[bi](\d+)E")
+# the anonymous namespace's name carries a hash of the file
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+
+
+def sass(src: Path, tmpdir: str) -> dict:
+    """{kernel key: [instruction, ...]} of one source."""
+    obj = os.path.join(tmpdir, f"{src.stem}-{abs(hash(str(src)))}.o")
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                   check=True, cwd=src.parent)
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    listing = subprocess.run([cuobjdump, "-sass", obj], check=True, capture_output=True, text=True).stdout
+    out, name = {}, None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = ANON.sub("_GLOBAL__N_", TEMPLATE_ARG.sub(lambda a: f"L{a.group(1)}E", m.group(1)))
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and name:
+            out[name].append(re.sub(r"\s+", " ", m.group(1)).strip())
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) != 3:
+        print(__doc__)
+        return 2
+    old, new = (Path(p).resolve() for p in argv[1:])
+    with tempfile.TemporaryDirectory() as tmpdir:
+        a, b = sass(old, tmpdir), sass(new, tmpdir)
+    same = True
+    for name, code in sorted(a.items()):
+        verdict = "MISSING" if name not in b else ("IDENTICAL" if b[name] == code else "DIFFERENT")
+        same &= verdict == "IDENTICAL"
+        print(f"{verdict} {name}")
+    for name in sorted(set(b) - set(a)):
+        print(f"NEW ONLY {name}")
+    print("SASS_SAME" if same else "SASS_DIFFERS")
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -24,7 +24,8 @@ NEW_MODULES = {
     "nw_tpu_torch.utils.alignout", "nw_tpu_torch.utils.render",
     "nw_tpu_torch.ops.checkpoint_traceback", "nw_tpu_torch.ops.fill_auto",
     "nw_tpu_torch.ops.traceback", "nw_tpu_torch.models.smith_waterman",
-    "nw_tpu_torch.ops.variants_banded",
+    "nw_tpu_torch.ops.variants_banded", "nw_tpu_torch.models.overlap",
+    "nw_tpu_torch.models.affine",
 }
 
 
@@ -75,9 +76,13 @@ def test_wrappers_do_not_fall_back_off_cpu():
         fill_banded.fill_greedy_counts_banded_batch,
         variants_banded.sw_scores_banded_batch,
         variants_banded.sw_fill_codes_banded_batch,
+        variants_banded.overlap_scores_banded_batch,
+        variants_banded.overlap_fill_codes_banded_batch,
     ):
         with pytest.raises(ValueError):
             fn(t, t, lens, lens, 1, 1, 1)
+    with pytest.raises(ValueError):
+        variants_banded.affine_scores_banded_batch(t, t, lens, lens, 1, 1, 1, 1)
     meta_codes = torch.zeros((2, 1, 6, 32), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         traceback.walk_codes_batch(meta_codes, lens, lens, 16)
@@ -106,7 +111,7 @@ def test_kernel_build_is_keyed_by_sources():
     path = kernels.library_path()
     assert path.parent == REPO / "nw_tpu_torch" / "_build"
     assert {s.name for s in kernels._sources()} >= {
-        "nw_fill.cu", "nw_walk.cu", "nw_single.cu", "nw_common.cuh"
+        "nw_fill.cu", "nw_walk.cu", "nw_single.cu", "nw_affine.cu", "nw_common.cuh"
     }
     assert os.path.basename(path).startswith("libnw_tpu_torch-")
 

@@ -13,6 +13,8 @@ import torch
 
 from nw_tpu_torch import align_batch, cli
 from nw_tpu_torch.ops import encode as enc
+from nw_tpu_torch.models import affine as af
+from nw_tpu_torch.models import overlap as ov
 from nw_tpu_torch.models import smith_waterman as sw
 from nw_tpu_torch.ops import fill_banded, fill_single, traceback, variants_banded
 
@@ -403,4 +405,57 @@ def test_sw_batch_cuda_vs_cpu(cuda, mkd):
     assert sw.sw_align_batch(ps, *mkd, device="cuda") == sw.sw_align_batch(ps, *mkd, device="cpu")
     np.testing.assert_array_equal(
         sw.sw_score_batch(ps, *mkd, device="cuda"), sw.sw_score_batch(ps, *mkd, device="cpu")
+    )
+
+
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_overlap_scores_kernel_vs_plain(cuda, mkd):
+    cpu, dev = _sw_inputs(sum(mkd) + 14, cuda)
+    got = variants_banded.overlap_scores_banded_batch(*dev, *mkd)
+    want = variants_banded.overlap_scores_banded_batch_plain(*cpu, *mkd)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+# the best on the last column in band 0 and on the last row in band 2
+OVERLAP_TWO_BANDS = (b"C" * 20 + b"G" * 40 + b"A" * 20, b"A" * 20 + b"T" * 30 + b"C" * 20)
+
+
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_overlap_codes_and_walk_kernels_vs_plain(cuda, mkd):
+    cpu, dev = _sw_inputs(sum(mkd) + 15, cuda)
+    extra = enc.upload(enc.encode_batch([OVERLAP_TWO_BANDS, (b"AAAA", b"TTTT")], 160, 144), "cpu")
+    cpu = [torch.cat([x, y]) for x, y in zip(cpu, extra)]
+    dev = [x.to(cuda) for x in cpu]
+    got = variants_banded.overlap_fill_codes_banded_batch(*dev, *mkd)
+    want = variants_banded.overlap_fill_codes_banded_batch_plain(*cpu, *mkd)
+    for g, w in zip(got, want):  # codes, best, j*, i*
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    g_walk = traceback.walk_sw_codes_batch(got[0], got[2], got[3])
+    w_walk = traceback.walk_sw_codes_batch_plain(want[0], want[2], want[3])
+    for g, w in zip(g_walk, w_walk):  # ops, n, i_end, j_end
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+GOTOH_SCORINGS = [(2, 1, 3, 1), (1, 1, 1, 1), (0, 0, 0, 0), (3, -1, 2, 1), (2, 1, 1, 3),
+                  (1, 1, -1, -1), (1, 1, 2**28, 2**28)]
+
+
+@pytest.mark.parametrize("sc", GOTOH_SCORINGS)
+def test_gotoh_scores_kernel_vs_plain(cuda, sc):
+    cpu, dev = _sw_inputs(sum(sc) % 97 + 16, cuda)
+    got = variants_banded.affine_scores_banded_batch(*dev, *sc)
+    want = variants_banded.affine_scores_banded_batch_plain(*cpu, *sc)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_overlap_and_affine_batch_cuda_vs_cpu(cuda, mkd):
+    ps = _pairs(sum(mkd) + 17, 30, 0, 300) + EDGE + [OVERLAP_TWO_BANDS]
+    assert ov.overlap_align_batch(ps, *mkd, device="cuda") == ov.overlap_align_batch(ps, *mkd, device="cpu")
+    np.testing.assert_array_equal(
+        ov.overlap_score_batch(ps, *mkd, device="cuda"), ov.overlap_score_batch(ps, *mkd, device="cpu")
+    )
+    sc = (*mkd, mkd[2] + 1)  # open > extend
+    np.testing.assert_array_equal(
+        af.affine_score_pairs(ps, *sc, device="cuda"), af.affine_score_pairs(ps, *sc, device="cpu")
     )
