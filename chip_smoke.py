@@ -1,5 +1,5 @@
-"""Smoke run of nw_tpu_torch on one NVIDIA card: the batched aligner
-and the byte-parity CLI.
+"""Smoke run of nw_tpu_torch on one NVIDIA card: the batched aligner,
+the byte-parity CLI, the variant models and the batch CLI.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,9 @@ Phases, in order; any mismatch or exception exits non-zero:
 2. build the CUDA kernels from nw_tpu_torch/csrc (seconds printed);
 3. every kernel bit for bit against its plain PyTorch version on the card:
    64 random pairs of 0-700 bp, tie-dense two-letter pairs and the edge
-   pairs, under the scorings (2,1,1), (1,1,1), (0,0,0) and (3,-1,2);
+   pairs, under the scorings (2,1,1), (1,1,1), (0,0,0), (3,-1,2) and,
+   where the int32 arithmetic wraps, (1,1,2^30), (1,2^30,1) and
+   (2^31-1,-2^31,2^30) (``SCORINGS``; phases 6, 8, 9 and 10 use them too);
 4. the main path, ``NWAligner(...).align_batch``, with every launch
    counter set to 0 first: config 3 (256 random 10240 bp pairs, strings
    and counts; each alignment re-scored on the host, 4 pairs against the
@@ -51,14 +53,14 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``score_fold``'s score), (d) ``align_batch`` of 2 x 100 000 bp pairs
    with strings and counts and scores only; every new kernel must have
    launched; each mode against its plain version at the sizes (b) and
-   (c) run: on both 10 240 bp pairs at ``align_huge``'s block size
-   there (whole-pair codes, checkpoint rows, score, a middle block
+   (c) run: on both 10 240 bp pairs (ACGT, and the tie-dense AC) at
+   ``align_huge``'s block size there (whole-pair codes, checkpoint rows, score, a middle block
    re-filled from the kernel's checkpoint, the chained window walks),
-   the score at 20 000 bp, and at 100 000 bp one 1 280-row block
-   re-filled from the kernel's checkpoint and the 79 chained window
-   walks; (e) times: ``align_huge`` walls, the kernels apart, the
-   scores-only crossover of one warp a pair against ``score_fold``,
-   peak device memory.
+   the score at 20 000 bp, a 1 280-row block (the 100 000 bp path's
+   height) of the pair's 20 000 bp prefixes re-filled from the kernel's
+   checkpoint, and at 100 000 bp the 79 chained window walks; (e) times:
+   ``align_huge`` walls, the kernels apart, the scores-only crossover of
+   one warp a pair against ``score_fold``, peak device memory.
 
 9. Smith-Waterman: (a) ``sw_scores``, ``sw_fill_codes`` (codes, best,
    argmax) and ``sw_walk`` bit for bit against their plain versions (40
@@ -95,6 +97,26 @@ Phases, in order; any mismatch or exception exits non-zero:
    linear score); (c) walls (median of 4 warm runs), pairs/s, GCUPS, each
    kernel's time beside its plain version's and its bound.
 
+11. Gotoh tracebacks and the batch CLI: (a) ``gotoh_fill_codes`` (4-bit
+   codes, scores, corner states; the scores also against
+   ``gotoh_scores``) and ``gotoh_walk`` bit for bit against their plain
+   versions (phase 9's pairs and the edge pairs, under phase 10's seven
+   Gotoh scorings, (3,1,4,0) and (1,1,1,2^29)); then, with every launch
+   counter set to 0, (b) ``affine_align_batch`` of 128 x 3 072 bp
+   (bench.py:414) and 4 096 x 150 bp (bench.py:291) at (2,1,3,1): every
+   alignment spells both inputs and re-scores on the host (affine gap
+   costs in Python ints) to its score, every score equals
+   ``affine_score_pairs``'s, 4 pairs of each batch equal the plain path on
+   the card, both kernels have launched; ``nw-tpu-torch-batch``
+   (``batch_cli.main``) on a 30-pair file in all four modes, with
+   ``--counts`` / ``--alignments``, plain and resumed through
+   ``--checkpoint-dir``, byte-equal to ``NW_TPU_PLATFORM=cpu``, and
+   ``python3 -m nw_tpu_torch.batch_cli`` once; (c) walls (median of 4
+   warm runs), pairs/s, GCUPS, each kernel's time beside its plain
+   version's and its bound, the walk's ns a step, and the host
+   ``ops_to_strings_batch``, native against numpy, at config 3 and at
+   4 096 x 150 bp.
+
 Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu`` and
 ``nw_affine.cu``: registers and spills of every instantiation.
 
@@ -102,9 +124,11 @@ Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
 tie mask, 2 more for the local clamp and running best, 3 more for the
 local argmax and STOP, 4 more for overlap's end window and running best,
-2 more for its argmax; 11 for a Gotoh score; 12 a walk step) over the
-card's SMs x 64 INT32 lanes x ``clocks.max.sm``, and its bytes (inputs
-read once, outputs written once) over 3.35 TB/s.
+2 more for its argmax; 11 for a Gotoh score, 12 more for its 4-bit code
+(``OPS_GOTOH_CODE``); 12 a walk step) over the card's SMs x 64 INT32
+lanes x ``clocks.max.sm``, and its bytes (inputs read once, outputs
+written once) over 3.35 TB/s.  The last lines before the record give
+the script's total seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -124,7 +148,9 @@ import time
 import numpy as np
 import torch
 
-SCORINGS = [(2, 1, 1), (1, 1, 1), (0, 0, 0), (3, -1, 2)]
+# ordinary scorings, and scorings whose arithmetic wraps int32
+SCORINGS = [(2, 1, 1), (1, 1, 1), (0, 0, 0), (3, -1, 2), (1, 1, 2**30), (1, 2**30, 1),
+            (2**31 - 1, -(2**31), 2**30)]
 EDGE = [(b"", b""), (b"ACGT", b""), (b"", b"ACG"), (b"A", b"A"), (b"GCATGCU", b"GATTACA")]
 L_LONG = 10240  # bench.py:231 bench_config3 / bench.py:127 banded scores
 L_SHORT = 150  # BASELINE config 2
@@ -140,8 +166,15 @@ OPS_OVERLAP, OPS_OVERLAP_ARGMAX = 4, 2
 # Gotoh: the substitution's compare and select, M's add, two subtracts
 # and a max each for IX and IY, two maxes for best
 OPS_GOTOH = 11
+# Gotoh's codes: the argmax state's two compares and two selects, the
+# extend bits' two compares, the code's two shifts and two ors, the
+# pack's shift and or (the padded sweep's guards are not the function's)
+OPS_GOTOH_CODE = 12
 GOTOH_SCORINGS = [(2, 1, 3, 1), (1, 1, 1, 1), (0, 0, 0, 0), (3, -1, 2, 1), (2, 1, 1, 3),
                   (1, 1, -1, -1), (1, 1, 2**28, 2**28)]
+# phase 11: the alignments' scorings (tests/test_variants_pallas.py:103 adds
+# 3 1 4 0) and a second one near the sentinel
+GOTOH_ALIGN_SCORINGS = [*GOTOH_SCORINGS, (3, 1, 4, 0), (1, 1, 1, 2**29)]
 # overlap's best 40 (2 1 1) on the last column in band 0, (j, i) = (20, 80),
 # and on the last row in band 2, (70, 20): the later band's earlier diagonal wins
 OVERLAP_TWO_BANDS = (b"C" * 20 + b"G" * 40 + b"A" * 20, b"A" * 20 + b"T" * 30 + b"C" * 20)
@@ -211,6 +244,16 @@ def rand_pairs(rng, n, lo, hi, alphabet=b"ACGT"):
         )
         for _ in range(n)
     ]
+
+
+def variant_pairs(seed, extra=()):
+    """Phases 9-11's check pairs: 40 random of 0-60 bp, 48 of 0-700 bp, 8
+    tie-dense two-letter pairs of 100-400 bp, the edge pairs."""
+    rng = np.random.default_rng(seed)
+    return (
+        rand_pairs(rng, 40, 0, 60) + rand_pairs(rng, 48, 0, 700)
+        + rand_pairs(rng, 8, 100, 400, b"AC") + SW_EDGE + list(extra)
+    )
 
 
 def max_abs_err(got, want) -> int:
@@ -644,7 +687,7 @@ def walk_chain(walk, chain, len1, len2):
 
 def modes_vs_plain_10k(pair, C, errs, plain):
     """Phase 8: K14, K12, K11, K13 and the window walk against their
-    plain versions on one 10 240 bp pair at ``align_huge``'s block size C
+    plain versions on a 10 240 bp pair at ``align_huge``'s block size C
     there, m k d = 1 1 1 as in (b): the whole pair's codes and corner,
     the score and the checkpoint rows, the middle block re-filled from
     the kernel's checkpoint row, and the chained walks over every block
@@ -883,7 +926,7 @@ def huge_phase(card, bound):
     C10 = ckt.auto_block_diagonals(L_LONG, L_LONG)
     for i, p in enumerate(p10):
         modes_vs_plain_10k(p, C10, errs, plain if i == 0 else None)
-    log(f"single-pair modes vs plain on the 2 pairs of {L_LONG} bp (C = {C10} rows): "
+    log(f"single-pair modes vs plain on both {L_LONG} bp pairs (ACGT, AC; C = {C10} rows): "
         f"{ {n: errs[n] for n in HUGE_KERNELS} } in {time.perf_counter() - t0:.1f} s")
 
     # (c) 100 000 bp, both routes
@@ -965,13 +1008,23 @@ def huge_phase(card, bound):
             top, side, 2, 1, 1, len2=r1, r0=r0, seed=ck[r0 // C_big], warps=w
         ), 2))
     log(f"one refill of rows {r0}..{r1} x {L_HUGE} bp by warps a block: {sweep} ms [{card}]")
-    # that block against its plain version, seeded from the kernel's row
-    kw = {"len2": r1, "r0": r0, "seed": ck[r0 // C_big]}
+    # a block of the path's height (C_big rows) against its plain version,
+    # seeded from the kernel's row, on the 20 000 bp prefixes of the pair:
+    # the plain fill takes ~0.5 ms a diagonal on an H100, so a block across
+    # 100 000 columns takes over 50 s
+    t20, s20 = top[:L_CROSS], side[:L_CROSS]
+    _, ck20 = fs.score_fold(t20, s20, 2, 1, 1, checkpoint_every=C_big)
+    b20 = ck20.shape[0] // 2
+    kw = {"len2": min(L_CROSS, (b20 + 1) * C_big), "r0": b20 * C_big, "seed": ck20[b20]}
     _, ms = against_plain(
-        "nw_fill_codes_single/seeded", lambda: fs.fill_codes_single(top, side, 2, 1, 1, **kw),
-        lambda: fs.fill_codes_single_plain(top, side, 2, 1, 1, **kw), errs,
+        "nw_fill_codes_single/seeded", lambda: fs.fill_codes_single(t20, s20, 2, 1, 1, **kw),
+        lambda: fs.fill_codes_single_plain(t20, s20, 2, 1, 1, **kw), errs,
     )
-    plain["nw_fill_codes_single/seeded"] = (ms, f"one block of rows {r0}..{r1} x {L_HUGE}bp", min(sweep[8]))
+    ms20 = cuda_ms(lambda: fs.fill_codes_single(t20, s20, 2, 1, 1, **kw), 2)
+    plain["nw_fill_codes_single/seeded"] = (
+        ms, f"one block of rows {kw['r0']}..{kw['len2']} x {L_CROSS}bp", ms20
+    )
+    del ck20
     chain = [(r0, codes) for (r0, _), codes in zip(blocks, block_codes)]
     ms_ww = cuda_ms(lambda: walk_chain(tb.walk_codes_window, chain, L_HUGE, L_HUGE), 2)
     (state, _), ms = against_plain(
@@ -981,9 +1034,10 @@ def huge_phase(card, bound):
     plain["nw_walk_window"] = (ms, f"the same {len(blocks)} windows", ms_ww)
     if state.tolist() != [0, 0, steps]:
         fail(f"the chained window walks at 100 kb end at {state.tolist()}, nw_walk after {steps} steps")
-    log(f"{L_HUGE} bp vs plain: block {r0}..{r1} re-filled from the kernel's checkpoint, max |diff| "
-        f"{errs['nw_fill_codes_single/seeded']} (plain {plain['nw_fill_codes_single/seeded'][0]:.1f} ms); "
-        f"{len(blocks)} chained window walks {errs['nw_walk_window']} (plain {ms:.1f} ms) [{card}]")
+    log(f"vs plain: {plain['nw_fill_codes_single/seeded'][1]} re-filled from the kernel's checkpoint, "
+        f"max |diff| {errs['nw_fill_codes_single/seeded']} (plain {plain['nw_fill_codes_single/seeded'][0]:.1f} "
+        f"ms); {L_HUGE} bp: {len(blocks)} chained window walks {errs['nw_walk_window']} (plain {ms:.1f} ms) "
+        f"[{card}]")
     seeded_bytes = tensor_bytes(*block_codes) + tensor_bytes(ck)
     del block_codes[:], chain
     rec["nw_fill_codes_single/seeded"] = dict(
@@ -1123,11 +1177,7 @@ def sw_kernels_vs_plain(dev, errs):
     best also against the codes kernel's."""
     from nw_tpu_torch.ops import encode as enc
 
-    rng = np.random.default_rng(10)
-    pairs = (
-        rand_pairs(rng, 40, 0, 60) + rand_pairs(rng, 48, 0, 700)
-        + rand_pairs(rng, 8, 100, 400, b"AC") + SW_EDGE
-    )
+    pairs = variant_pairs(10)
     L1 = max(len(a) for a, _ in pairs)
     L2 = max(len(b) for _, b in pairs)
     batch = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
@@ -1319,11 +1369,7 @@ def variant_kernels_vs_plain(dev, errs):
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import variants_banded as vb
 
-    rng = np.random.default_rng(12)
-    pairs = (
-        rand_pairs(rng, 40, 0, 60) + rand_pairs(rng, 48, 0, 700)
-        + rand_pairs(rng, 8, 100, 400, b"AC") + SW_EDGE + [OVERLAP_TWO_BANDS]
-    )
+    pairs = variant_pairs(12, [OVERLAP_TWO_BANDS])
     L1 = max(len(a) for a, _ in pairs)
     L2 = max(len(b) for _, b in pairs)
     batch = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
@@ -1550,6 +1596,253 @@ def variants_phase(card, bound):
         f"phase seconds {time.perf_counter() - t_phase:.1f} [{card}]")
     walk = dict(launches=launches["sw_walk"], max_abs_err=errs["sw_walk"], ms=ms_walk)
     return rec, walk
+
+
+def gotoh_kernels_vs_plain(dev, errs):
+    """Phase 11 (a): ``gotoh_fill_codes`` (codes, scores, corner states)
+    and ``gotoh_walk`` bit for bit against their plain versions on the
+    card, every scoring; the scores also against ``gotoh_scores``."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    pairs = variant_pairs(10, EDGE)
+    L1 = max(len(a) for a, _ in pairs)
+    L2 = max(len(b) for _, b in pairs)
+    batch = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    _, _, l1, l2 = batch
+    errs.setdefault("gotoh_fill_codes", 0)
+    errs.setdefault("gotoh_walk", 0)
+    for sc in GOTOH_ALIGN_SCORINGS:
+        got = vb.affine_fill_codes_banded_batch(*batch, *sc)
+        want = vb.affine_fill_codes_banded_batch_plain(*batch, *sc)
+        e_f = max([max_abs_err(g, w) for g, w in zip(got, want)]
+                  + [max_abs_err(got[1], vb.affine_scores_banded_batch(*batch, *sc))])
+        walk_k = tb.walk_gotoh_codes_batch(got[0], l1, l2, got[2], L1 + L2)
+        walk_p = tb.walk_gotoh_codes_batch_plain(want[0], l1, l2, want[2], L1 + L2)
+        e_w = max(max_abs_err(g, w) for g, w in zip(walk_k, walk_p))
+        torch.cuda.synchronize()
+        errs["gotoh_fill_codes"] = max(errs["gotoh_fill_codes"], e_f)
+        errs["gotoh_walk"] = max(errs["gotoh_walk"], e_w)
+        log(f"Gotoh codes and walk vs plain, {len(pairs)} pairs {L1}x{L2}, m k open extend = {sc}: "
+            f"gotoh_fill_codes {e_f} gotoh_walk {e_w}")
+    if any(errs.values()):
+        fail(f"a Gotoh traceback kernel differs from its plain version: {errs}")
+
+
+def affine_rescore(pairs, aligned, m, k, op, ex) -> np.ndarray:
+    """Host re-score of Gotoh alignments in Python ints: a gap run of
+    length L costs op + (L-1)*ex; also checks that each aligned string is
+    its input with gaps added."""
+    out = np.zeros(len(pairs), np.int64)
+    rescore(pairs, aligned, 0, 0, 0)  # spelling checks only
+    for b, (X, Y) in enumerate(aligned):
+        x = np.frombuffer(X, np.uint8)
+        y = np.frombuffer(Y, np.uint8)
+        gx, gy = x == ord("-"), y == ord("-")
+        match = ~gx & ~gy & (x == y)
+        score = m * int(match.sum()) - k * int((~gx & ~gy & ~match).sum())
+        for g in (gx, gy):
+            runs = int((g & ~np.concatenate([[False], g[:-1]])).sum())
+            score -= runs * op + (int(g.sum()) - runs) * ex
+        out[b] = score
+    return out
+
+
+def gotoh_phase(card, bound, c3_strings):
+    """Phase 11: Gotoh tracebacks and the batch CLI.  ``c3_strings`` is
+    config 3's (ops, ops_len, pairs), for the host strings' times.
+    Returns each new kernel's record fields."""
+    import tempfile
+
+    from nw_tpu_torch import batch_cli
+    from nw_tpu_torch.models import affine as af
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+    from nw_tpu_torch.runtime import kernels, native
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    if native.load() is None:
+        fail("the native runtime (nw_tpu_torch/runtime/cc) did not build or load")
+    errs = {}
+    gotoh_kernels_vs_plain(dev, errs)
+
+    rng = np.random.default_rng(14)
+    sc = (2, 1, 3, 1)
+    configs = {  # name: (pairs, source)
+        "gotoh_align128x3072": (rand_pairs(rng, 128, L_SW_TB, L_SW_TB), "bench.py:414"),
+        "gotoh_align4096x150": (rand_pairs(rng, 4096, L_SHORT, L_SHORT), "bench.py:291"),
+    }
+    wrappers = {"gotoh_fill_codes": vb.affine_fill_codes_banded_batch, "gotoh_walk": tb.walk_gotoh_codes_batch}
+    # (b) the main path, every launch counter from 0
+    for w in wrappers.values():
+        w.launches = 0
+    results, walls = {}, {}
+    for name, (pairs, _) in configs.items():
+        t0 = time.perf_counter()
+        results[name] = af.affine_align_batch(pairs, *sc)
+        walls[name] = [time.perf_counter() - t0]
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    log(f"Gotoh traceback main path launches: {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the Gotoh traceback path never launched: {launches}")
+
+    # every alignment spells its inputs and re-scores to its score, every
+    # score is gotoh_scores's; 4 pairs of each against the plain path
+    plain, kern4 = {}, {}
+    for name, (pairs, src) in configs.items():
+        got = results[name]
+        scores = np.array([g[0] for g in got], np.int64)
+        if not np.array_equal(scores, af.affine_score_pairs(pairs, *sc).astype(np.int64)):
+            fail(f"{name}: a score differs from affine_score_pairs (gotoh_scores)")
+        if not np.array_equal(affine_rescore(pairs, [g[1:] for g in got], *sc), scores):
+            fail(f"{name}: an alignment does not re-score to its score")
+        L = len(pairs[0][0])
+        four = enc.upload(enc.encode_batch(pairs[:4], L, L), dev)
+        _, _, l1, l2 = four
+        codes, sc4, st4 = vb.affine_fill_codes_banded_batch(*four, *sc)
+        kern4[name] = (cuda_ms(lambda: vb.affine_fill_codes_banded_batch(*four, *sc), 2),
+                       cuda_ms(lambda: tb.walk_gotoh_codes_batch(codes, l1, l2, st4, 2 * L), 2))
+        p_fill, ms_fill = cuda_once(lambda: vb.affine_fill_codes_banded_batch_plain(*four, *sc))
+        p_walk, ms_walk = cuda_once(lambda: tb.walk_gotoh_codes_batch_plain(p_fill[0], l1, l2, p_fill[2], 2 * L))
+        plain[name] = (ms_fill, ms_walk)
+        strs = tb.ops_to_strings_batch(*(t.cpu().numpy() for t in p_walk), pairs[:4])
+        want4 = [(int(p_fill[1][b]), X, Y) for b, (X, Y) in enumerate(strs)]
+        e_f = max(max_abs_err(g, w) for g, w in zip((codes, sc4, st4), p_fill))
+        e_w = max(max_abs_err(g, w) for g, w in zip(tb.walk_gotoh_codes_batch(codes, l1, l2, st4, 2 * L), p_walk))
+        errs["gotoh_fill_codes"] = max(errs["gotoh_fill_codes"], e_f)
+        errs["gotoh_walk"] = max(errs["gotoh_walk"], e_w)
+        lens = [len(g[1]) for g in got]
+        log(f"{name} ({src}): {len(got)} alignments spell their inputs, re-score to their scores "
+            f"({min(scores)}-{max(scores)}, {min(lens)}-{max(lens)} columns) and equal gotoh_scores's; "
+            f"4 pairs vs plain: {'equal' if got[:4] == want4 else 'DIFFER'}, kernels max |diff| {e_f} {e_w} "
+            f"(plain fill {ms_fill:.1f} ms, walk {ms_walk:.1f} ms)")
+        if got[:4] != want4:
+            fail(f"{name}: 4 pairs differ from the plain path on the card")
+        del four, codes, p_fill, p_walk
+    torch.cuda.empty_cache()
+    if any(errs.values()):
+        fail(f"a Gotoh traceback kernel differs from its plain version at full size: {errs}")
+
+    # the batch CLI in all four modes, on the card against NW_TPU_PLATFORM=cpu
+    cli_pairs = rand_pairs(np.random.default_rng(15), 24, 1, 300) + rand_pairs(
+        np.random.default_rng(16), 6, 20, 120, b"AC"
+    )
+    cases = [
+        ["--mode", "nw", "--counts", "--alignments", "-m", "2", "-k", "1", "-d", "1", "--chunk", "8"],
+        ["--mode", "sw", "--alignments", "-m", "2", "-k", "1", "-d", "1", "--sort-by-length"],
+        ["--mode", "overlap", "--alignments", "-m", "2", "-k", "1", "-d", "1"],
+        ["--mode", "affine", "--alignments", "-m", "2", "-k", "1", "--open", "3", "--extend", "1",
+         "--chunk", "8"],
+        ["--mode", "affine", "-m", "2", "-k", "1", "--open", "3", "--extend", "1"],
+    ]
+    saved = os.environ.pop("NW_TPU_PLATFORM", None)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD) as tmp:
+        src = os.path.join(tmp, "pairs.txt")
+        with open(src, "wb") as f:
+            f.write(b"".join(a + b" " + b + b"\n" for a, b in cli_pairs))
+
+        def run(args, out, platform=None):
+            if platform:
+                os.environ["NW_TPU_PLATFORM"] = platform
+            try:
+                rc = batch_cli.main(["--pairs", src, "--out", os.path.join(tmp, out), *args])
+            finally:
+                os.environ.pop("NW_TPU_PLATFORM", None)
+            with open(os.path.join(tmp, out), "rb") as f:
+                return rc, f.read()
+
+        for i, args in enumerate(cases):
+            got, want = run(args, f"card{i}.tsv"), run(args, f"cpu{i}.tsv", "cpu")
+            ck = ["--checkpoint-dir", os.path.join(tmp, f"ck{i}")]
+            first, resumed = run([*args, *ck], f"ck{i}a.tsv"), run([*args, *ck], f"ck{i}b.tsv")
+            if got != want or got[0] != 0 or first != got or resumed != got:
+                fail(f"nw-tpu-torch-batch {args}: the card, the CPU and the resumed run differ")
+        res = subprocess.run(
+            [sys.executable, "-m", "nw_tpu_torch.batch_cli", "--pairs", src, *cases[3]],
+            capture_output=True, timeout=300,
+        )
+        if res.returncode != 0 or res.stdout != run(cases[3], "cpu3.tsv", "cpu")[1]:
+            fail(f"python3 -m nw_tpu_torch.batch_cli on the card: rc {res.returncode} {res.stderr[-2000:]!r}")
+    if saved is not None:
+        os.environ["NW_TPU_PLATFORM"] = saved
+    log(f"nw-tpu-torch-batch, {len(cli_pairs)} pairs of 1-300 bp, {len(cases)} runs in all four modes "
+        "(--counts, --alignments, --chunk, --sort-by-length): the card equals NW_TPU_PLATFORM=cpu byte "
+        "for byte, resumed through --checkpoint-dir too; python3 -m nw_tpu_torch.batch_cli as well")
+
+    # (c) times: 4 warm runs of each configuration, in turns
+    for _ in range(4):
+        for name, (pairs, _) in configs.items():
+            t0 = time.perf_counter()
+            af.affine_align_batch(pairs, *sc)
+            walls[name].append(time.perf_counter() - t0)
+    for name, (pairs, src) in configs.items():
+        med = statistics.median(walls[name][1:])
+        cells = sum(len(a) * len(b) for a, b in pairs)
+        log(f"e2e {name} ({src}): walls {[round(w, 4) for w in walls[name]]} s (first includes "
+            f"warm-up); median warm {med:.4f} s = {len(pairs) / med:.1f} pairs/s, "
+            f"{cells / med / 1e9:.2f} GCUPS [{card}]")
+
+    rec = {}
+    pairs3k = configs["gotoh_align128x3072"][0]
+    b3k = enc.upload(enc.encode_batch(pairs3k, L_SW_TB, L_SW_TB), dev)
+    _, _, l1, l2 = b3k
+    cells = len(pairs3k) * L_SW_TB * L_SW_TB
+    ms_fill = cuda_ms(lambda: vb.affine_fill_codes_banded_batch(*b3k, *sc), 3)
+    codes, scores, states = vb.affine_fill_codes_banded_batch(*b3k, *sc)
+    S = 2 * L_SW_TB
+    ms_walk = cuda_ms(lambda: tb.walk_gotoh_codes_batch(codes, l1, l2, states, S), 5)
+    ops, n = tb.walk_gotoh_codes_batch(codes, l1, l2, states, S)
+    steps = int(n.sum())
+    k4_fill, k4_walk = kern4["gotoh_align128x3072"]
+    p_fill, p_walk = plain["gotoh_align128x3072"]
+    rec["gotoh_fill_codes"] = dict(
+        ms=ms_fill, plain_ms=p_fill,
+        **bound(cells * (OPS_GOTOH + OPS_GOTOH_CODE), tensor_bytes(*b3k, codes, scores, states)),
+        shape=f"128x{L_SW_TB}bp codes+scores+states (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_fill:.3f} ms)",
+    )
+    rec["gotoh_walk"] = dict(
+        ms=ms_walk, plain_ms=p_walk,
+        **bound(steps * OPS_WALK_STEP, tensor_bytes(l1, l2, states, n) + 5 * steps),
+        shape=f"128x{L_SW_TB}bp, {steps} steps (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_walk:.3f} ms)",
+    )
+    ns_step = ms_walk * 1e6 / (steps / len(pairs3k))
+    log(f"gotoh_walk 128x{L_SW_TB}bp: {steps} steps, {ns_step:.1f} ns a step of one walk; codes "
+        f"{tensor_bytes(codes) / 1e9:.3f} GB [{card}]")
+    del codes, ops
+    pairs150 = configs["gotoh_align4096x150"][0]
+    b150 = enc.upload(enc.encode_batch(pairs150, L_SHORT, L_SHORT), dev)
+    ms_fill150 = cuda_ms(lambda: vb.affine_fill_codes_banded_batch(*b150, *sc), 10)
+    codes150, _, st150 = vb.affine_fill_codes_banded_batch(*b150, *sc)
+    ops150, n150 = (t.cpu().numpy() for t in tb.walk_gotoh_codes_batch(codes150, b150[2], b150[3], st150, 2 * L_SHORT))
+    log(f"gotoh_fill_codes 4096x{L_SHORT}bp: {ms_fill150:.3f} ms, bound "
+        f"{bound(len(pairs150) * L_SHORT * L_SHORT * (OPS_GOTOH + OPS_GOTOH_CODE), tensor_bytes(*b150, codes150))['bound_ms']:.4f} ms [{card}]")
+    del codes150
+    for name in rec:
+        rec[name].update(launches=launches[name], max_abs_err=errs[name])
+        log(f"{name}: {rec[name]['ms']:.3f} ms at {rec[name]['shape']}, bound {rec[name]['bound_ms']:.4f} ms "
+            f"({rec[name]['bound_by']}), plain {rec[name]['plain_ms']:.1f} ms [{card}]")
+
+    # host strings: the native builder against the numpy path
+    for name, (o, ns, ps) in (("config3 256x10240bp", c3_strings), (f"gotoh 4096x{L_SHORT}bp", (ops150, n150, pairs150))):
+        t = {}
+        for route, fn in (("native", tb.ops_to_strings_batch), ("numpy", tb.ops_to_strings_batch_plain),
+                          ("native", tb.ops_to_strings_batch), ("numpy", tb.ops_to_strings_batch_plain)):
+            t0 = time.perf_counter()
+            out = fn(o, ns, ps)
+            t.setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
+            t.setdefault(f"{route}_out", out)
+        if t["native_out"] != t["numpy_out"]:
+            fail(f"ops_to_strings_batch {name}: the native builder differs from numpy")
+        log(f"host ops_to_strings_batch {name}: native {[round(x, 2) for x in t['native']]} ms, numpy "
+            f"{[round(x, 2) for x in t['numpy']]} ms, equal strings [{card}]")
+    log(f"phase 11 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+    return rec
 
 
 def main() -> None:
@@ -1799,6 +2092,7 @@ def main() -> None:
     for name, ms in full.items():
         log(f"kernel {name}: {ms:.3f} ms [{card}]")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    c3_strings = (r3.ops, r3.ops_len, c3)  # phase 11 times the host strings on them
     del codes3, tops3, sides3
     torch.cuda.empty_cache()
 
@@ -1808,8 +2102,10 @@ def main() -> None:
     # 8. huge pairs; 9. Smith-Waterman (their own launch counters)
     huge = huge_phase(card, bound)
     sw_rec = sw_phase(card, bound)
-    # 10. overlap and Gotoh scores (their own launch counters)
+    # 10. overlap and Gotoh scores; 11. Gotoh tracebacks and the batch
+    # CLI (their own launch counters)
     var_rec, overlap_walk = variants_phase(card, bound)
+    gotoh_rec = gotoh_phase(card, bound, c3_strings)
     sw_rec["sw_walk"]["launches"] += overlap_walk["launches"]
     sw_rec["sw_walk"]["max_abs_err"] = max(sw_rec["sw_walk"]["max_abs_err"], overlap_walk["max_abs_err"])
     sw_rec["sw_walk"]["shape"] += f"; overlap walks 128x{L_SW_TB}bp {overlap_walk['ms']:.3f} ms"
@@ -1890,6 +2186,14 @@ def main() -> None:
         src = "nw_tpu_torch/csrc/nw_affine.cu" if name == "gotoh_scores" else "nw_tpu_torch/csrc/nw_fill.cu"
         kernels_line.append({"name": name, "route": "cuda", "source": src,
                              "replaces": var_replaces[name], **fields})
+    gotoh_replaces = {
+        "gotoh_fill_codes": "nw_tpu/ops/variants_banded.py:1413 (K21), nw_tpu/ops/variants_pallas.py:429 (K25)",
+        "gotoh_walk": "nw_tpu/models/affine.py:340, nw_tpu/ops/variants_banded.py:1803",
+    }
+    for name, fields in gotoh_rec.items():
+        src = "nw_tpu_torch/csrc/nw_walk.cu" if name == "gotoh_walk" else "nw_tpu_torch/csrc/nw_affine.cu"
+        kernels_line.append({"name": name, "route": "cuda", "source": src,
+                             "replaces": gotoh_replaces[name], **fields})
     for kern in kernels_line:
         kern["library_ms"] = None  # no one PyTorch call computes a DP fill or walk
     record = {"kernels": kernels_line}

@@ -3,10 +3,12 @@ and CUDA, for one NVIDIA H100.
 
 Module names mirror ``nw_tpu`` so that each counterpart is easy to find.
 The aligner (:class:`NWAligner`: ``align``, ``summary_huge``,
-``align_huge``, ``align_batch``), Smith-Waterman local alignment
-(:mod:`nw_tpu_torch.models.smith_waterman`: ``sw_score_batch``,
-``sw_align_batch``, ``sw_align``) and the byte-parity CLI
-(``python -m nw_tpu_torch``) run their fills and walks through CUDA C++ kernels written for ``sm_90a``
+``align_huge``, ``align_batch``), the variant models
+(:mod:`nw_tpu_torch.models`: Smith-Waterman, overlap and Gotoh
+affine-gap scores and alignments), the byte-parity CLI
+(``python -m nw_tpu_torch``) and the batch CLI
+(``python -m nw_tpu_torch.batch_cli``, all four models) run their fills
+and walks through CUDA C++ kernels written for ``sm_90a``
 (``csrc/``, built on first use by :mod:`nw_tpu_torch.runtime.kernels`);
 every kernel has a plain PyTorch version beside it, which is what runs
 when the caller passes ``device="cpu"``.  This package imports neither

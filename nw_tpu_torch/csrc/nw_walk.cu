@@ -48,12 +48,28 @@
 // unchanged, from the end cell to row 0 or column 0 (whose cells are
 // STOP): the jnp loops nw_tpu/models/overlap.py:178 _overlap_walk_diag
 // and nw_tpu/ops/variants_banded.py:752 _overlap_walk_device.
+//
+// gotoh_walk is Gotoh's three-state walk over the 4-bit codes of
+// nw_affine.cu's CODES mode (gotoh_fill_codes): the jnp loops
+// nw_tpu/models/affine.py:340 _affine_walk_packed (over K25's words) and
+// nw_tpu/ops/variants_banded.py:1803-1873 (the group walk of
+// _affine_walk_device, over K21's).  One thread a pair starts at the
+// true corner in the corner's state.  In state M it emits DIAG and
+// moves to the state in bits 0-1 of its cell; in IX it emits LEFT and
+// stays in IX when bit 2 is set, else moves to M; in IY it emits UP and
+// stays in IY when bit 3 is set, else M.  On row 0 it steps LEFT to the
+// origin and on column 0 UP, whatever its state: it never reads a cell
+// outside the rectangle (nw_tpu's walks read side[j-1] at j = 0 when
+// the states near the sentinel send them there).  Each step reads one
+// 4-bit code, so the walk is bound by the same chain of dependent loads
+// as the others, over twice the bytes of 2-bit codes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kOpDiag = 0;
 constexpr int kOpLeft = 1;
 constexpr int kOpUp = 2;
 constexpr int kCodeStop = 3;
@@ -138,6 +154,55 @@ __global__ void sw_walk_kernel(const unsigned* __restrict__ codes,
   jend[b] = j;
 }
 
+// The 4-bit Gotoh code of code row r, column i (band-major, TW words a band row)
+__device__ __forceinline__ int code4_at(const unsigned* __restrict__ base,
+                                        int TW, int r, int i) {
+  const int band = r >> 5;
+  const int jj = r & 31;
+  const int t = i + jj;
+  const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 3)) * 32 + jj];
+  return (w >> (4 * (t & 7))) & 15u;
+}
+
+__global__ void gotoh_walk_kernel(const unsigned* __restrict__ codes,
+                                  const int* __restrict__ lens1,
+                                  const int* __restrict__ lens2,
+                                  const int* __restrict__ states, int B,
+                                  int nbands, int TW, int S,
+                                  signed char* __restrict__ ops,
+                                  int* __restrict__ ns) {
+  const int bi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bi >= B) return;
+  const int64_t b = bi;
+  const unsigned* base = codes + b * nbands * TW * 32;
+  signed char* out = ops + b * S;
+  int i = lens1[b];
+  int j = lens2[b];
+  int st = states[b];
+  int n = 0;
+  while ((i > 0 || j > 0) && n < S) {
+    int a = kOpLeft;  // row 0: LEFT to the origin
+    if (j > 0 && i == 0) {
+      a = kOpUp;  // column 0: UP to the origin
+    } else if (j > 0) {
+      const int c = code4_at(base, TW, j - 1, i);
+      if (st == 0) {  // M: the diagonal, into the state of bits 0-1
+        a = kOpDiag;
+        st = c & 3;
+      } else if (st == 1) {  // IX: LEFT, extending on bit 2
+        st = (c >> 2) & 1;
+      } else {  // IY: UP, extending on bit 3
+        a = kOpUp;
+        st = (c >> 3) & 1 ? 2 : 0;
+      }
+    }
+    out[n++] = static_cast<signed char>(a);
+    i -= a != kOpUp;
+    j -= a != kOpLeft;
+  }
+  ns[b] = n;
+}
+
 }  // namespace
 
 // codes: uint32[B, nbands, TW, 32] from nw_fill_codes; ops: int8[B, S]
@@ -180,5 +245,21 @@ extern "C" int nw_walk_window(const void* codes, int nbands, int TW, int j0,
     return static_cast<int>(cudaErrorInvalidValue);
   nw_walk_window_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(codes), nbands, TW, j0, state, S, ops);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// codes: uint32[B, nbands, TW, 32] of 4-bit codes from gotoh_fill_codes;
+// states: int32[B] corner states; ops: int8[B, S] prefilled with
+// OP_NONE; ns: int32[B].  S must be >= every len1 + len2.
+extern "C" int gotoh_walk(const void* codes, const int* lens1,
+                          const int* lens2, const int* states, int B,
+                          int nbands, int TW, int S, signed char* ops,
+                          int* ns, void* stream) {
+  if (B <= 0) return 0;
+  const int threads = 128;
+  gotoh_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(codes), lens1, lens2, states, B, nbands,
+      TW, S, ops, ns);
   return static_cast<int>(cudaGetLastError());
 }

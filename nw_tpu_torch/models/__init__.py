@@ -30,8 +30,9 @@ from nw_tpu_torch.models.smith_waterman import (
 )
 
 __all__ = [
-    "AlignmentResult", "BatchResult", "HugeAlignmentResult", "NWAligner", "affine_score",
-    "affine_score_batch", "affine_score_pairs", "align", "align_batch", "overlap_align",
+    "AlignmentResult", "BatchResult", "HugeAlignmentResult", "NWAligner", "affine_align",
+    "affine_align_batch", "affine_fill_arrows", "affine_score", "affine_score_batch",
+    "affine_score_pairs", "affine_traceback", "align", "align_batch", "overlap_align",
     "overlap_align_batch", "overlap_fill_diag", "overlap_score_batch", "overlap_traceback",
     "sw_align", "sw_align_batch", "sw_fill_diag", "sw_score_batch", "sw_traceback",
 ]

@@ -106,9 +106,10 @@ def resolve_device(device: str | torch.device, who: str) -> torch.device:
     return dev
 
 
-def code_bytes_per_pair(L1: int, L2: int) -> int:
-    """Device bytes of one pair's greedy codes at buckets (L1, L2)."""
-    _, nbands, TW, lanes = code_shape(1, L1, L2)
+def code_bytes_per_pair(L1: int, L2: int, bits: int = 2) -> int:
+    """Device bytes of one pair's codes at buckets (L1, L2): 2-bit greedy
+    codes, or ``bits=4`` Gotoh codes."""
+    _, nbands, TW, lanes = code_shape(1, L1, L2, bits)
     return nbands * TW * lanes * 4
 
 

@@ -11,8 +11,8 @@
 * :mod:`nw_tpu_torch.ops.fill_banded` — the K1 / K2 kernel wrappers.
 * :mod:`nw_tpu_torch.ops.fill_single` — the single-pair kernel wrappers
   (K8, K11-K14).
-* :mod:`nw_tpu_torch.ops.variants_banded` — the Smith-Waterman kernel
-  wrappers (K15, K18, K22, K24).
+* :mod:`nw_tpu_torch.ops.variants_banded` — the Smith-Waterman, overlap
+  and Gotoh kernel wrappers (K15-K25).
 * :mod:`nw_tpu_torch.ops.banded_traceback` — code fill + walk.
 * :mod:`nw_tpu_torch.ops.checkpoint_traceback` — one huge pair's walk
   from checkpoint rows (K12, K13, windowed walk).

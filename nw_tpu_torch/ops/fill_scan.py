@@ -38,7 +38,6 @@ import torch
 NEG_INF = -(2**30)
 NEG_GOTOH = NEG_INF // 2  # a Gotoh state that does not exist: NEG - open cannot wrap
 U32 = 0xFFFFFFFF
-CODES_PER_WORD = 16
 BAND_ROWS = 32  # one row per lane of a warp
 
 
@@ -324,10 +323,13 @@ def affine_fill_diag_batch(
     k: int,
     open_: int,
     extend: int,
+    with_arrows: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Gotoh affine-gap global scores of a padded batch along
     anti-diagonals: ``nw_tpu/models/affine.py:28-100 affine_score`` over
-    the bucket tables, read at each pair's true corner (len2, len1).
+    the bucket tables, read at each pair's true corner (len2, len1); with
+    ``with_arrows``, also the walk's state bits of every cell
+    (``affine.py:109 affine_fill_arrows``).
 
     Three states a cell, (j = side row, i = top column), in wrapping
     int32::
@@ -343,7 +345,16 @@ def affine_fill_diag_batch(
     -(open + (j-1)*extend), and a boundary cell's best is the max of its
     three states, as the scan has it.  The empty pair scores 0.
 
-    Returns a dict with ``score`` int32[B].
+    The state bits of an interior cell (1 <= i <= A, 1 <= j <= Bs; 0
+    elsewhere) are bits 0-1: the argmax state of cell (j-1, i-1), M's
+    predecessor (0 M, 1 IX, 2 IY; ties M > IX > IY); bit 2: IX extends
+    (``IX - extend > M - open`` at (j, i-1); a tie opens); bit 3: IY
+    extends, the same at (j-1, i).  The corner state is the argmax state
+    of the corner cell, 0 for the empty pair: where the walk starts.
+
+    Returns a dict with ``score`` int32[B] and, with ``with_arrows``,
+    ``arrows`` uint8[B, A+Bs+1, Bs+1] (diagonal-major) and ``state``
+    int32[B].
     """
     B, A = tops.shape
     Bs = sides.shape[1]
@@ -368,6 +379,7 @@ def affine_fill_diag_batch(
     Mp, IXp, IYp = torch.where(j_idx == 0, 0, NEG_GOTOH).to(i32).expand(B, N), neg, neg
     Mp2, IXp2, IYp2 = neg, neg, neg
     captured = torch.zeros(B, dtype=i32, device=dev)
+    cstate = torch.zeros(B, dtype=i32, device=dev)
     m_t = torch.tensor(m, dtype=i32, device=dev)
     negk_t = -torch.tensor(k, dtype=i32, device=dev)
     op_t = torch.tensor(open_, dtype=i32, device=dev)
@@ -375,6 +387,7 @@ def affine_fill_diag_batch(
     # gap[L] = -(open + (L-1)*extend) in wrapping int32, made once
     gaps = -(open_ + (torch.arange(K, dtype=torch.int64) - 1) * extend)
     gaps = (((gaps + 2**31) & U32) - 2**31).to(device=dev, dtype=i32)
+    arrows_l = [torch.zeros((B, N), dtype=torch.uint8, device=dev)]
 
     for kk in range(1, K):
         i_idx = kk - j_idx
@@ -385,21 +398,39 @@ def affine_fill_diag_batch(
 
         best_p2 = torch.maximum(torch.maximum(Mp2, IXp2), IYp2)
         M = _shift_down(best_p2, NEG_GOTOH) + sub
-        IX = torch.maximum(Mp - op_t, IXp - ex_t)  # from (j, i-1)
-        IY = torch.maximum(  # from (j-1, i)
-            _shift_down(Mp, NEG_GOTOH) - op_t, _shift_down(IYp, NEG_GOTOH) - ex_t
-        )
+        open_x, ext_x = Mp - op_t, IXp - ex_t  # from (j, i-1)
+        IX = torch.maximum(open_x, ext_x)
+        open_y = _shift_down(Mp, NEG_GOTOH) - op_t  # from (j-1, i)
+        ext_y = _shift_down(IYp, NEG_GOTOH) - ex_t
+        IY = torch.maximum(open_y, ext_y)
+        if with_arrows:
+            mpred = _shift_down(_argmax_state(Mp2, IXp2, IYp2, best_p2), 0)
+            bits = mpred | ((ext_x > open_x).to(i32) << 2) | ((ext_y > open_y).to(i32) << 3)
+            arrows_l.append(torch.where(interior, bits, 0).to(torch.uint8))
         M = torch.where(interior, M, NEG_GOTOH)
         IX = torch.where(interior, IX, NEG_GOTOH)
         IY = torch.where(interior, IY, NEG_GOTOH)
         IX = torch.where(valid & (j_idx == 0), gaps[kk], IX)  # row 0
         IY = torch.where(valid & (i_idx == 0), gaps[kk], IY)  # column 0
         best = torch.maximum(torch.maximum(M, IX), IY)
-        captured = torch.where(kk == k_corner, best[b_ar, j_corner], captured)
+        hit = kk == k_corner
+        captured = torch.where(hit, best[b_ar, j_corner], captured)
+        if with_arrows:
+            cstate = torch.where(hit, _argmax_state(M, IX, IY, best)[b_ar, j_corner], cstate)
         Mp2, IXp2, IYp2 = Mp, IXp, IYp
         Mp, IXp, IYp = M, IX, IY
 
-    return {"score": captured}
+    out = {"score": captured}
+    if with_arrows:
+        out["arrows"] = torch.stack(arrows_l, dim=1)
+        out["state"] = cstate
+    return out
+
+
+def _argmax_state(M, IX, IY, best):
+    """The Gotoh state that holds ``best``: 0 M, 1 IX, 2 IY, ties M > IX >
+    IY (``affine.py:191``)."""
+    return torch.where(M >= best, 0, torch.where(IX >= IY, 1, 2)).to(torch.int32)
 
 
 def fill_diag(
@@ -484,13 +515,15 @@ def matrix_to_diag(rect: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, vals, torch.zeros((), dtype=rect.dtype, device=rect.device))
 
 
-def code_shape(B: int, A: int, Bs: int) -> Tuple[int, int, int, int]:
-    """Shape of the band-major 2-bit code tensor of ``B`` pairs at
-    buckets (A, Bs): int32[B, ceil(Bs/32), TW, 32], TW = 2*ceil((A+32)/32)
-    (the layout of :mod:`nw_tpu_torch.ops.fill_banded`)."""
+def code_shape(B: int, A: int, Bs: int, bits: int = 2) -> Tuple[int, int, int, int]:
+    """Shape of the band-major code tensor of ``B`` pairs at buckets (A,
+    Bs), ``bits`` a code: int32[B, ceil(Bs/32), TW, 32], TW =
+    ceil((A+32)/32) * bits (the layout of
+    :mod:`nw_tpu_torch.ops.fill_banded`; 2-bit greedy codes, 16 a word,
+    or 4-bit Gotoh codes, 8 a word)."""
     nbands = -(-Bs // BAND_ROWS)
     steps = -(-(A + BAND_ROWS) // BAND_ROWS) * BAND_ROWS  # whole 32-step chunks
-    return (B, nbands, steps // CODES_PER_WORD, BAND_ROWS)
+    return (B, nbands, steps * bits // 32, BAND_ROWS)
 
 
 def greedy_codes_from_arrows(arrows: torch.Tensor, local: bool = False) -> torch.Tensor:
@@ -498,28 +531,41 @@ def greedy_codes_from_arrows(arrows: torch.Tensor, local: bool = False) -> torch
     the kernels' band-major layout (diag > left > up).  With ``local``
     (Smith-Waterman masks) a cell without arrows, a local start and
     every cell of column 0, gets STOP (3)."""
-    B, K, N = arrows.shape
-    A, Bs = K - N, N - 1
     rect = diag_to_matrix_batch(arrows)[:, 1:]  # rows 1..Bs, [B, Bs, A+1]
     code = torch.where(
         (rect & 1) != 0, 0, torch.where((rect & 2) != 0, 1, 2)
     ).to(torch.uint8)
     if local:
         code = torch.where(rect == 0, 3, code).to(torch.uint8)
-    _, nbands, TW, _ = code_shape(B, A, Bs)
+    return pack_band_major(code, 2)
+
+
+def gotoh_codes_from_arrows(arrows: torch.Tensor) -> torch.Tensor:
+    """Diagonal-major Gotoh state bits uint8[B, K, N]
+    (:func:`affine_fill_diag_batch` with ``with_arrows``) -> 4-bit codes
+    in the kernels' band-major layout, 8 a word: the bits as they are."""
+    return pack_band_major(diag_to_matrix_batch(arrows)[:, 1:], 4)
+
+
+def pack_band_major(code: torch.Tensor, bits: int) -> torch.Tensor:
+    """uint8 codes of rows 1..Bs, [B, Bs, A+1], each below ``2**bits`` ->
+    int32 words in the kernels' band-major layout (:func:`code_shape`):
+    cell (j, i) of band (j-1)//32, lane jj = (j-1)%32, sits at band step
+    t = i + jj, bits ``bits*(t % (32/bits))`` of word t // (32/bits)."""
+    B, Bs, M = code.shape
+    A = M - 1
+    per_word = 32 // bits
+    _, nbands, TW, _ = code_shape(B, A, Bs, bits)
     code = torch.nn.functional.pad(code, (0, 0, 0, nbands * BAND_ROWS - Bs))
     code = code.view(B, nbands, BAND_ROWS, A + 1)
-    # lane jj's cell of column i sits at band step t = i + jj
     by_step = torch.zeros(
-        (B, nbands, BAND_ROWS, TW * CODES_PER_WORD), dtype=torch.uint8,
-        device=arrows.device,
+        (B, nbands, BAND_ROWS, TW * per_word), dtype=torch.uint8, device=code.device,
     )
     for jj in range(BAND_ROWS):
         by_step[:, :, jj, jj : jj + A + 1] = code[:, :, jj]
-    shifts = 2 * torch.arange(CODES_PER_WORD, device=arrows.device)
+    shifts = bits * torch.arange(per_word, device=code.device)
     words = (
-        by_step.view(B, nbands, BAND_ROWS, TW, CODES_PER_WORD).to(torch.int64)
-        << shifts
+        by_step.view(B, nbands, BAND_ROWS, TW, per_word).to(torch.int64) << shifts
     ).sum(-1)
     # reinterpret the uint32 words as int32; lanes last
     words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)

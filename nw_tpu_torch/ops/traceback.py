@@ -30,9 +30,19 @@ exactly the *first* alignment the reference emits.
   unchanged, from the end cell to row 0 or column 0 (for
   ``nw_tpu/models/overlap.py:178 _overlap_walk_diag`` and
   ``nw_tpu/ops/variants_banded.py:752 _overlap_walk_device``).
+* :func:`walk_gotoh_codes_batch` walks the 4-bit Gotoh codes of
+  :func:`nw_tpu_torch.ops.variants_banded.affine_fill_codes_banded_batch`
+  with the three-state machine, from each true corner in its corner
+  state to the origin (the counterpart of
+  ``nw_tpu/models/affine.py:340 _affine_walk_packed`` and the group walk
+  of ``nw_tpu/ops/variants_banded.py:1698 _affine_walk_device``): the
+  ``gotoh_walk`` kernel on a CUDA tensor, its plain version on a CPU
+  tensor.
 * :func:`ops_to_strings_batch` builds the aligned byte strings on the
-  host (numpy path of ``traceback.py:212-267``); :func:`ops_to_strings`
-  does one pair (``traceback.py:270``).
+  host through the native one-pass builder (``runtime/cc/nwstrings.cc``)
+  when the native runtime loads, as ``traceback.py:212-228`` does, else
+  through :func:`ops_to_strings_batch_plain`, the numpy path;
+  :func:`ops_to_strings` does one pair (``traceback.py:270``).
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from nw_tpu_torch.runtime import kernels
+from nw_tpu_torch.runtime import kernels, native
 
 OP_DIAG = 0
 OP_LEFT = 1
@@ -80,9 +90,9 @@ def traceback_greedy_batch(
     return ops, n
 
 
-def _check_walk_args(codes, lens1, lens2):
+def _check_walk_args(codes, lens1, lens2, per_word=16):
     """Validate what the walk indexes with: a length beyond the code
-    table would read outside it."""
+    table (``per_word`` codes a word) would read outside it."""
     if codes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"CPU or CUDA tensors expected, got {codes.device}")
     if codes.dim() != 4 or codes.dtype != torch.int32 or codes.shape[3] != 32:
@@ -96,7 +106,7 @@ def _check_walk_args(codes, lens1, lens2):
         _, nbands, TW, lanes = codes.shape
         lo, hi = torch.aminmax(torch.stack([lens1, lens2]), dim=1)
         (lo1, lo2), (hi1, hi2) = lo.tolist(), hi.tolist()
-        if min(lo1, lo2) < 0 or hi1 + lanes > 16 * TW or hi2 > lanes * nbands:
+        if min(lo1, lo2) < 0 or hi1 + lanes > per_word * TW or hi2 > lanes * nbands:
             raise ValueError("lengths must lie inside the code table")
 
 
@@ -320,6 +330,86 @@ def walk_sw_codes_batch_plain(
     return ops, n, i.to(torch.int32), j.to(torch.int32)
 
 
+def walk_gotoh_codes_batch(
+    codes: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    states: torch.Tensor, max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gotoh's three-state walk over band-major 4-bit codes.
+
+    codes: int32[B, nbands, TW, 32] from
+    :func:`nw_tpu_torch.ops.variants_banded.affine_fill_codes_banded_batch`
+    (8 a word); states: int32[B], the corner states (0 M, 1 IX, 2 IY).
+    From (len2, len1) in its state a walk emits DIAG in M and moves to
+    the state of bits 0-1, LEFT in IX and stays on bit 2, UP in IY and
+    stays on bit 3 (else back to M); on row 0 it steps LEFT and on
+    column 0 UP to the origin, in any state.  max_steps must be >= every
+    len1 + len2.  Returns ops int8[B, max_steps] in walk order (OP_NONE
+    padded) and n int32[B].
+
+    A CUDA tensor goes through the ``gotoh_walk`` kernel (one thread per
+    pair); a CPU tensor through :func:`walk_gotoh_codes_batch_plain`.
+    """
+    _check_walk_args(codes, lens1, lens2, per_word=8)
+    if states.shape != lens1.shape or states.dtype != torch.int32 or states.device != codes.device:
+        raise ValueError("states must be int32[B] on the codes' device")
+    if codes.device.type == "cpu":
+        return walk_gotoh_codes_batch_plain(codes, lens1, lens2, states, max_steps)
+    B, nbands, TW, _ = codes.shape
+    ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=codes.device)
+    n = torch.empty(B, dtype=torch.int32, device=codes.device)
+    if B:
+        codes, lens1, lens2, states = (t.contiguous() for t in (codes, lens1, lens2, states))
+        kernels.launch(
+            "gotoh_walk", codes.device,
+            codes.data_ptr(), lens1.data_ptr(), lens2.data_ptr(), states.data_ptr(),
+            B, nbands, TW, max_steps, ops.data_ptr(), n.data_ptr(),
+        )
+        walk_gotoh_codes_batch.launches += 1
+    return ops, n
+
+
+walk_gotoh_codes_batch.launches = 0
+
+
+def walk_gotoh_codes_batch_plain(
+    codes: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    states: torch.Tensor, max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the ``gotoh_walk`` kernel (same outputs)."""
+    B = codes.shape[0]
+    dev = codes.device
+    b_ar = torch.arange(B, device=dev)
+    i = lens1.to(torch.int64).clone()
+    j = lens2.to(torch.int64).clone()
+    st = states.to(torch.int64).clone()
+    n = torch.zeros(B, dtype=torch.int32, device=dev)
+    ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=dev)
+    for t in range(max_steps):
+        active = (i > 0) | (j > 0)
+        if t % 256 == 0 and not bool(active.any()):  # every walk has ended
+            break
+        jm = (j - 1).clamp(min=0)
+        step = i + (jm & 31)
+        if codes.shape[1]:
+            w = codes[b_ar, jm >> 5, step >> 3, jm & 31].to(torch.int64)
+            c = (w >> (4 * (step & 7))) & 15
+        else:
+            c = torch.zeros_like(i)
+        a = torch.where(st == 0, OP_DIAG, torch.where(st == 1, OP_LEFT, OP_UP))
+        nxt = torch.where(
+            st == 0, c & 3,
+            torch.where(st == 1, (c >> 2) & 1, torch.where(((c >> 3) & 1) != 0, 2, 0)),
+        )
+        edge = (j == 0) | (i == 0)  # row 0: LEFT, column 0: UP, in any state
+        a = torch.where(j == 0, OP_LEFT, torch.where(i == 0, OP_UP, a))
+        st = torch.where(active & ~edge, nxt, st)
+        ops[:, t] = torch.where(active, a, OP_NONE).to(torch.int8)
+        i = i - (active & (a != OP_UP)).to(torch.int64)
+        j = j - (active & (a != OP_LEFT)).to(torch.int64)
+        n = n + active.to(torch.int32)
+    return ops, n
+
+
 def ops_to_strings(ops, n: int, s1: bytes, s2: bytes, gap: int = ord("-")) -> Tuple[bytes, bytes]:
     """Host: the aligned (X, Y) byte strings of one pair's walk, ops
     int8[>= n] (corner -> origin; ``traceback.py:270 ops_to_strings``)."""
@@ -336,8 +426,22 @@ def ops_to_strings_batch(
     ops: int8[B, S] walk op codes (corner -> origin); ns: int32[B];
     pairs: the (s1, s2) byte strings.  The walk consumes characters from
     the ends of the sequences; the reference prints origin -> corner
-    (needleman-wunsch.c:149), so each row is reversed.
+    (needleman-wunsch.c:149), so each row is reversed.  One pass of the
+    native builder when the native runtime loads (``traceback.py:224-228``),
+    else :func:`ops_to_strings_batch_plain`; both give the same bytes.
     """
+    rt = native.load()
+    if rt is not None:
+        return rt.ops_to_strings_batch(ops, ns, pairs, gap)
+    return ops_to_strings_batch_plain(ops, ns, pairs, gap)
+
+
+def ops_to_strings_batch_plain(
+    ops: np.ndarray, ns: np.ndarray, pairs: Sequence[Tuple[bytes, bytes]],
+    gap: int = ord("-"),
+) -> List[Tuple[bytes, bytes]]:
+    """The numpy path of :func:`ops_to_strings_batch` (a few vectorized
+    passes over the ops matrix)."""
     ops = np.asarray(ops)
     ns = np.asarray(ns)
     B, S = ops.shape

@@ -33,12 +33,19 @@ plain PyTorch version in this module:
   sides <= 3 072) and K20
   (``nw_tpu/ops/variants_banded.py:980 _make_banded_affine_kernel``, any
   side).
+* :func:`affine_fill_codes_banded_batch` — Gotoh 4-bit walk codes, the
+  corner scores and the corner states (``gotoh_fill_codes``), for K21
+  (``nw_tpu/ops/variants_banded.py:1413 _make_banded_affine_full_kernel``,
+  4-bit codes, any side) and K25
+  (``nw_tpu/ops/variants_pallas.py:429 _affine_arrows_kernel``, 8-bit
+  codes, sides <= 1 024).
 
 The first four are the ``LOCAL`` and ``OVERLAP`` modes of the batched
-fill kernel (``csrc/nw_fill.cu``), the fifth is ``csrc/nw_affine.cu``:
-one warp a pair, at every batch size and side length.  A wrapper given
-CPU tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises.  Each counts its launches in ``.launches``.
+fill kernel (``csrc/nw_fill.cu``), the last two the score and ``CODES``
+modes of ``csrc/nw_affine.cu``: one warp a pair, at every batch size and
+side length.  A wrapper given CPU tensors runs the plain version; given
+CUDA tensors it launches the kernel or raises.  Each counts its launches
+in ``.launches``.
 
 Inputs are those of :mod:`nw_tpu_torch.ops.fill_banded`.  Codes have
 ``nw_fill_codes``'s band-major layout with 0 diag / 1 left / 2 up /
@@ -49,7 +56,10 @@ The argmax follows ``nw_tpu``'s scan tie rule, the first anti-diagonal
 that reaches the best, then the lowest row: over the whole rectangle,
 (0, 0) when the best is 0, for local alignment; over the end boundary
 (row len2 or column len1), seeded by the zero-cost corner (0, len1), or
-(len2, 0) when len1 is 0, for overlap.
+(len2, 0) when len1 is 0, for overlap.  Gotoh codes have the same layout
+at 4 bits a cell, 8 a word (``code_shape(..., bits=4)``): the state bits
+of :func:`nw_tpu_torch.ops.fill_scan.affine_fill_diag_batch` on interior
+cells, 0 on column 0.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from nw_tpu_torch.ops.fill_banded import _check, _contig, _dims
 from nw_tpu_torch.ops.fill_scan import (
     affine_fill_diag_batch,
     code_shape,
+    gotoh_codes_from_arrows,
     greedy_codes_from_arrows,
     overlap_fill_diag_batch,
     sw_fill_diag_batch,
@@ -221,3 +232,42 @@ affine_scores_banded_batch.launches = 0
 def affine_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, open_, extend):
     """Plain version of :func:`affine_scores_banded_batch`."""
     return affine_fill_diag_batch(tops, sides, lens1, lens2, m, k, open_, extend)["score"]
+
+
+def affine_fill_codes_banded_batch(
+    tops, sides, lens1, lens2, m, k, open_, extend
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(codes int32[B, nbands, TW, 32], scores int32[B], states int32[B]):
+    the 4-bit Gotoh code of every cell of the bucket table (bits 0-1 M's
+    predecessor state, bit 2 IX extends, bit 3 IY extends), the Gotoh
+    global score and the argmax state (0 M, 1 IX, 2 IY) at each true
+    corner, where the walk starts."""
+    _check(tops, sides, lens1, lens2, m, k, open_, extend)
+    if tops.device.type == "cpu":
+        return affine_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, open_, extend)
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    codes = torch.empty(code_shape(B, A, Bs, bits=4), dtype=torch.int32, device=dev)
+    scores, states = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(2))
+    if B:
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        # four boundary rows a pair: best, M, IY and the argmax state
+        bnd = torch.empty((B, 4, A + 1), dtype=torch.int32, device=dev)
+        kernels.launch(
+            "gotoh_fill_codes", dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
+            B, A, Bs, m, k, open_, extend, bnd.data_ptr(), codes.data_ptr(),
+            scores.data_ptr(), states.data_ptr(),
+        )
+        affine_fill_codes_banded_batch.launches += 1
+    return codes, scores, states
+
+
+affine_fill_codes_banded_batch.launches = 0
+
+
+def affine_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, open_, extend):
+    """Plain version of :func:`affine_fill_codes_banded_batch`: the Gotoh
+    anti-diagonal fill's state bits packed into the kernel's layout."""
+    out = affine_fill_diag_batch(tops, sides, lens1, lens2, m, k, open_, extend, with_arrows=True)
+    return gotoh_codes_from_arrows(out["arrows"]), out["score"], out["state"]

@@ -12,7 +12,8 @@ as an int of the same value counted as one (``nw_fill_kernel<true,
 false, false>`` is ``nw_fill_kernel<1, 0, 0>``) and the file's hash in
 the anonymous namespace's name left out.  For every kernel of OLD the
 script prints IDENTICAL or DIFFERENT (the instruction streams, addresses
-and encodings left out) and lists the kernels that only NEW has.  Exit
+and encodings left out) and lists the kernels that only NEW has, each
+with its count of SASS instructions.  Exit
 status 1 when a kernel of OLD is missing from NEW or differs.  Needs the
 CUDA toolkit (``nvcc``, ``cuobjdump``).
 """
@@ -67,9 +68,9 @@ def main(argv) -> int:
     for name, code in sorted(a.items()):
         verdict = "MISSING" if name not in b else ("IDENTICAL" if b[name] == code else "DIFFERENT")
         same &= verdict == "IDENTICAL"
-        print(f"{verdict} {name}")
+        print(f"{verdict} {name} ({len(code)} -> {len(b.get(name, []))} instructions)")
     for name in sorted(set(b) - set(a)):
-        print(f"NEW ONLY {name}")
+        print(f"NEW ONLY {name} ({len(b[name])} instructions)")
     print("SASS_SAME" if same else "SASS_DIFFERS")
     return 0 if same else 1
 

@@ -25,7 +25,7 @@ NEW_MODULES = {
     "nw_tpu_torch.ops.checkpoint_traceback", "nw_tpu_torch.ops.fill_auto",
     "nw_tpu_torch.ops.traceback", "nw_tpu_torch.models.smith_waterman",
     "nw_tpu_torch.ops.variants_banded", "nw_tpu_torch.models.overlap",
-    "nw_tpu_torch.models.affine",
+    "nw_tpu_torch.models.affine", "nw_tpu_torch.batch_cli", "nw_tpu_torch.runtime.checkpoint",
 }
 
 
@@ -81,13 +81,16 @@ def test_wrappers_do_not_fall_back_off_cpu():
     ):
         with pytest.raises(ValueError):
             fn(t, t, lens, lens, 1, 1, 1)
-    with pytest.raises(ValueError):
-        variants_banded.affine_scores_banded_batch(t, t, lens, lens, 1, 1, 1, 1)
+    for fn in (variants_banded.affine_scores_banded_batch, variants_banded.affine_fill_codes_banded_batch):
+        with pytest.raises(ValueError):
+            fn(t, t, lens, lens, 1, 1, 1, 1)
     meta_codes = torch.zeros((2, 1, 6, 32), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         traceback.walk_codes_batch(meta_codes, lens, lens, 16)
     with pytest.raises(ValueError):
         traceback.walk_sw_codes_batch(meta_codes, lens, lens)
+    with pytest.raises(ValueError):
+        traceback.walk_gotoh_codes_batch(meta_codes, lens, lens, lens, 16)
     from nw_tpu_torch.ops import fill_single
 
     one = torch.zeros(8, dtype=torch.int32, device="meta")

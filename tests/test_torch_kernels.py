@@ -20,7 +20,9 @@ from nw_tpu_torch.ops import fill_banded, fill_single, traceback, variants_bande
 
 pytestmark = pytest.mark.cuda
 
-SCORINGS = [(2, 1, 1), (1, 1, 1), (0, 0, 0), (3, -1, 2)]
+# ordinary scorings, and scorings whose arithmetic wraps int32
+SCORINGS = [(2, 1, 1), (1, 1, 1), (0, 0, 0), (3, -1, 2), (1, 1, 2**30), (1, 2**30, 1),
+            (2**31 - 1, -(2**31), 2**30)]
 EDGE = [(b"", b""), (b"ACGT", b""), (b"", b"ACG"), (b"A", b"A"), (b"GCATGCU", b"GATTACA")]
 
 
@@ -323,9 +325,13 @@ def test_align_huge_and_small_huge_batches_cuda_vs_cpu(cuda, monkeypatch, mkd):
     on_card, on_cpu = NWAligner(cfg, device="cuda"), NWAligner(cfg, device="cpu")
     pairs = _pairs(sum(mkd) + 9, 3, 0, 300) + EDGE
     for s1, s2 in pairs:
-        want = on_cpu.align_huge(s1, s2)
+        strings = on_cpu.align_huge(s1, s2)
         for bd in (None, 32, 96):
+            want = on_cpu.align_huge(s1, s2, block_diagonals=bd)
             assert on_card.align_huge(s1, s2, block_diagonals=bd) == want, (s1, s2, bd)
+            # the routes share the alignment; where int32 wraps their scores
+            # differ (the checkpointed route re-scores in Python ints)
+            assert (want.X, want.Y) == (strings.X, strings.Y), (s1, s2, bd)
     monkeypatch.setattr(model, "HUGE_PAIR_MIN_SIDE", 64)
     monkeypatch.setattr(fill_auto, "SINGLE_PAIR_MIN_SIDE", 64)
     monkeypatch.setattr(fill_auto, "SINGLE_PAIR_SIDE_PER_PAIR", 1)
@@ -446,6 +452,31 @@ def test_gotoh_scores_kernel_vs_plain(cuda, sc):
     got = variants_banded.affine_scores_banded_batch(*dev, *sc)
     want = variants_banded.affine_scores_banded_batch_plain(*cpu, *sc)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+# the alignments' seven scorings (tests/test_torch_affine.py), near the sentinel too
+GOTOH_ALIGN_SCORINGS = GOTOH_SCORINGS + [(3, 1, 4, 0), (1, 1, 1, 2**29)]
+
+
+@pytest.mark.parametrize("sc", GOTOH_ALIGN_SCORINGS)
+def test_gotoh_codes_and_walk_kernels_vs_plain(cuda, sc):
+    cpu, dev = _sw_inputs(sum(sc) % 89 + 18, cuda)
+    got = variants_banded.affine_fill_codes_banded_batch(*dev, *sc)
+    want = variants_banded.affine_fill_codes_banded_batch_plain(*cpu, *sc)
+    for g, w in zip(got, want):  # codes, scores, states
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    torch.testing.assert_close(got[1], variants_banded.affine_scores_banded_batch(*dev, *sc), rtol=0, atol=0)
+    S = 160 + 144
+    g_ops, g_n = traceback.walk_gotoh_codes_batch(got[0], dev[2], dev[3], got[2], S)
+    w_ops, w_n = traceback.walk_gotoh_codes_batch_plain(want[0], cpu[2], cpu[3], want[2], S)
+    torch.testing.assert_close(g_ops.cpu(), w_ops, rtol=0, atol=0)
+    torch.testing.assert_close(g_n.cpu(), w_n, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sc", GOTOH_ALIGN_SCORINGS)
+def test_affine_align_batch_cuda_vs_cpu(cuda, sc):
+    ps = _pairs(sum(sc) % 83 + 19, 30, 0, 300) + EDGE
+    assert af.affine_align_batch(ps, *sc, device="cuda") == af.affine_align_batch(ps, *sc, device="cpu")
 
 
 @pytest.mark.parametrize("mkd", SW_SCORINGS)
