@@ -1,5 +1,6 @@
 """Smoke run of nw_tpu_torch on one NVIDIA card: the batched aligner,
-the byte-parity CLI, the variant models and the batch CLI.
+the byte-parity CLI, the variant models, the batch CLI and the sharded
+runs.
 
     python3 chip_smoke.py
 
@@ -117,8 +118,40 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``ops_to_strings_batch``, native against numpy, at config 3 and at
    4 096 x 150 bp.
 
-Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu`` and
-``nw_affine.cu``: registers and spills of every instantiation.
+12. Sharded runs (``nw_tpu_torch.parallel``), with ranks as child
+   processes (``RankGroup``: 1 rank on NCCL, 2 and 4 ranks on gloo
+   sharing the card), started while (a) runs: (a) ``nw_fill_tile`` in its
+   codes, scores and masks modes (K14's mesh half, K28) chained in one
+   process over 4 row blocks x 5 chunks of a 3 000 bp pair, under every
+   scoring against the whole pair's ``nw_fill_codes_single`` codes and
+   corner and ``nw_fill_masks`` masks, and at (2,1,1) tile by tile
+   against the plain tile (on the host CPU); 7 pairs of 1-160 bp and the
+   edge pairs in 4 blocks x chunks of 45 columns against the plain tile
+   under every scoring; ``nw_walk_window``'s masks mode relayed over
+   each pair's blocks against its plain version and ``nw_walk``; then,
+   with every rank's launch counters set to 0, (b)
+   ``huge_pair_align_sharded`` (twice: cold, as a rank's first launch of
+   a kernel loads it, and warm) and ``huge_pair_score_sharded`` on phase
+   8's 100 000 x 100 000 pair at (2,1,1) on 1 rank (NCCL) and 2 ranks
+   (gloo, one card), equal to ``align_huge``'s codes route byte for
+   byte, and ``engine="pallas"`` on its 20 000 bp prefixes on 4 ranks,
+   equal to ``align_huge`` there; (c) ``align_batch_sharded`` of
+   10 240 x 150 bp with and without counts on 1 and 2 ranks, equal to
+   ``align_batch`` with exact statistics; every kernel of the path must
+   have launched in some rank; the walls, each rank's fill (of which
+   staging and posting halos, and waiting for them), walk and stitch
+   seconds and peak device memory; (d) each tile mode on one tile of the
+   path's shape (rank 0's first, as ``tile_chunk`` cuts it, with row 0
+   and column 0 as its edges: codes and scores at 2 ranks and 100 000 bp,
+   masks at 4 ranks and 20 000 bp) against the plain tile on the same
+   inputs on the card (both edges, the corner and the table), the mask
+   walk's 20 000 bp relay against the plain relay (ops and final state),
+   each timed; the 1-rank path's one tile (the whole 100 000 bp pair)
+   against ``nw_fill_codes_single`` (codes and corner), both timed.
+
+Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu``,
+``nw_affine.cu`` and ``nw_single.cu``: registers and spills of every
+instantiation.
 
 Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
@@ -1101,8 +1134,9 @@ def huge_phase(card, bound):
 
 
 def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on the batched fill, walk and Gotoh sources
-    (the kernels' own flags), one process each; returns the processes."""
+    """Start ``nvcc -Xptxas -v`` on the batched fill, walk, Gotoh and
+    single-pair sources (the kernels' own flags), one process each;
+    returns the processes."""
     from nw_tpu_torch.runtime import kernels
 
     nvcc = kernels._nvcc()
@@ -1112,7 +1146,7 @@ def start_ptxas_report():
              str(kernels.CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-        for src in ("nw_fill.cu", "nw_walk.cu", "nw_affine.cu")
+        for src in ("nw_fill.cu", "nw_walk.cu", "nw_affine.cu", "nw_single.cu")
     ]
 
 
@@ -1845,6 +1879,347 @@ def gotoh_phase(card, bound, c3_strings):
     return rec
 
 
+# phase 12: every launch counter of the sharded path, read in each rank
+# (module, wrapper, attribute) -> record name
+SHARDED_COUNTERS = {
+    ("nw_tpu_torch.ops.fill_single", "fill_tile", "launches"): "nw_fill_tile",
+    ("nw_tpu_torch.ops.fill_single", "fill_tile", "score_launches"): "nw_fill_tile/scores",
+    ("nw_tpu_torch.ops.fill_single", "fill_tile", "mask_launches"): "nw_fill_tile/masks",
+    ("nw_tpu_torch.ops.traceback", "walk_masks_window", "launches"): "nw_walk_window/masks",
+    ("nw_tpu_torch.ops.traceback", "walk_codes_window", "launches"): "nw_walk_window (relay)",
+    ("nw_tpu_torch.ops.fill_banded", "fill_scores_banded_batch", "launches"): "nw_scores (ranks)",
+    ("nw_tpu_torch.ops.fill_banded", "fill_scores_counts_banded_batch", "launches"):
+        "nw_fill_codes (ranks)",
+}
+TILE_MODES = {"codes": "nw_fill_tile", "scores": "nw_fill_tile/scores", "masks": "nw_fill_tile/masks"}
+L_TILE = 3000  # phase 12 (a): the pair whose 4 row blocks x 5 chunks are checked
+L_PALLAS = 20_000  # phase 12 (b): the masks engine's pair, 4 ranks
+
+
+def tile_table(mode, A, H):
+    """A zeroed table of H rows for the tile ``mode``: 2-bit codes, tie
+    masks or (scores) none."""
+    from nw_tpu_torch.ops.fill_scan import code_shape
+
+    if mode == "codes":
+        return torch.zeros(code_shape(1, A, H), dtype=torch.int32, device="cuda")
+    if mode == "masks":
+        return torch.zeros((H, A + 1), dtype=torch.uint8, device="cuda")
+    return None
+
+
+def first_tile(tile, top, side, mkd, C, halo, left, mode, table):
+    """``tile`` (``fill_tile`` or ``fill_tile_plain``) on columns 1 .. C
+    of ``side``'s rows into ``table``: (right, bottom, corner)."""
+    codes, masks = (table, None) if mode == "codes" else (None, table)
+    return tile(top, side, *mkd, 0, C, halo, left, codes, masks)
+
+
+def decode_codes(codes, A, rows):
+    """Band-major 2-bit codes -> their cells, int64[rows, A+1]."""
+    r = torch.arange(rows, device=codes.device)[:, None]
+    t = torch.arange(A + 1, device=codes.device)[None, :] + (r & 31)
+    w = codes[0][r >> 5, t >> 4, r & 31].to(torch.int64) & 0xFFFFFFFF
+    return (w >> (2 * (t & 15))) & 3
+
+
+def tiles_vs_plain(pair, mkd, H, C, errs, plain_tiles=True):
+    """Phase 12 (a): the tiles of ``pair`` chained over blocks of H rows
+    and chunks of C columns in one process, in all three modes: the
+    stitched codes against ``nw_fill_codes_single``'s, the masks against
+    ``nw_fill_masks``'s, the scores mode's last row against the codes
+    mode's; with ``plain_tiles`` every table, edge and corner against the
+    plain tile's (on the host CPU); the masks relayed by the walk's masks
+    mode against its plain version and ``nw_walk``.  Returns {record
+    name: (plain ms, kernel ms)} of the chains."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.parallel import huge_pair as hp
+
+    top, side = (torch.from_numpy(enc.encode(x)) for x in pair)
+    tc, sc = top.cuda(), side.cuda()
+    A, B = len(pair[0]), len(pair[1])
+    whole, score = fs.fill_codes_single(tc, sc, *mkd)
+    masks = fb.fill_arrows_banded_single(tc, sc, *mkd)[0]
+    got = {}
+    for mode, name in TILE_MODES.items():
+        got[mode] = hp.chain_tiles(tc, sc, *mkd, H, C, mode)
+        tables, last, corner = got[mode]
+        e = abs(corner - int(score)) + max_abs_err(last, got["codes"][1])
+        if mode == "codes":
+            if H % 32 == 0:
+                e = max(e, max_abs_err(torch.cat(tables, 1), whole))
+            cells = torch.cat([decode_codes(t, A, min(H, B - p * H)) for p, t in enumerate(tables)])
+            e = max(e, max_abs_err(cells, decode_codes(whole, A, B)))
+        if mode == "masks":
+            e = max(e, max_abs_err(torch.cat(tables), masks[1:]))
+        if plain_tiles:
+            want = hp.chain_tiles(top, side, *mkd, H, C, mode, tile=fs.fill_tile_plain)
+            e = max([e, abs(corner - want[2]), max_abs_err(last, want[1])]
+                    + [max_abs_err(g, w) for g, w in zip(tables, want[0]) if w is not None])
+        errs[name] = max(errs[name], e)
+    # the masks relayed from the corner's block down to row 0
+    S = max(A + B, 1)
+    ops = {}
+    for walk, where in ((tb.walk_masks_window, "cuda"), (tb.walk_masks_window_plain, "cpu")):
+        state = torch.tensor([A, B, 0], dtype=torch.int32, device=where)
+        ops[where] = torch.full((S,), tb.OP_NONE, dtype=torch.int8, device=where)
+        for p in range(len(got["masks"][0]) - 1, -1, -1):
+            walk(got["masks"][0][p].to(where), state, p * H, ops[where])
+        ops[where + " end"] = state.tolist()
+    l1, l2 = (torch.tensor([x], dtype=torch.int32, device="cuda") for x in (A, B))
+    want_ops, n = tb.walk_codes_batch(whole, l1, l2, S)
+    e = max(max_abs_err(ops["cuda"], ops["cpu"]), max_abs_err(ops["cuda"], want_ops[0]),
+            int(ops["cuda end"] != ops["cpu end"] or ops["cpu end"] != [0, 0, int(n[0])]))
+    errs["nw_walk_window/masks"] = max(errs["nw_walk_window/masks"], e)
+
+
+def sharded_phase(card, bound):
+    """Phase 12: sharded runs.  Returns the new kernels' record fields."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nw_tpu_torch.parallel.workers import RankGroup
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    errs = {name: 0 for name in (*TILE_MODES.values(), "nw_walk_window/masks")}
+    # the ranks start while (a) runs: 1 on NCCL, 2 and 4 on gloo sharing the card
+    starts = {}
+
+    def start(key, world, backend):
+        t0 = time.perf_counter()
+        group = RankGroup(world, backend, "cuda", timeout=300)
+        starts[key] = time.perf_counter() - t0
+        return group
+
+    pool = ThreadPoolExecutor(3)
+    pending = {key: pool.submit(start, key, w, b)
+               for key, w, b in (("1 nccl", 1, "nccl"), ("2 gloo", 2, "gloo"), ("4 gloo", 4, "gloo"))}
+
+    # (a) the tiles and the mask walk against their plain versions
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    p3k = rand_pairs(rng, 1, L_TILE, L_TILE)[0]
+    small = rand_pairs(rng, 3, 1, 160) + rand_pairs(rng, 1, 100, 160, b"AC") + [p for p in EDGE if p[1]]
+    H3k = 768  # 4 row blocks, a multiple of 32: the stitched codes are nw_fill_codes_single's
+    for mkd in SCORINGS:
+        tiles_vs_plain(p3k, mkd, H3k, 700, errs, plain_tiles=mkd == (2, 1, 1))
+        for pair in small:
+            tiles_vs_plain(pair, mkd, -(-len(pair[1]) // 4), 45, errs)
+    log(f"phase 12 (a) tiles vs plain: a {L_TILE} bp pair in 4 blocks of {H3k} rows x chunks of 700 "
+        f"columns (every mode vs nw_fill_codes_single / nw_fill_masks under every scoring, vs the plain "
+        f"tile at 2 1 1) and {len(small)} pairs of 1-160 bp in 4 blocks x chunks of 45 (vs the plain tile "
+        f"under every scoring): max |diff| {errs} in {time.perf_counter() - t0:.1f} s")
+    if any(errs.values()):
+        fail(f"a tile mode or the mask walk differs from its plain version: {errs}")
+
+    # (b) the path at full width, (c) the data-parallel batch
+    groups = {}
+    try:
+        for key, f in pending.items():
+            groups[key] = f.result()
+        pool.shutdown()
+        return sharded_path(card, bound, groups, starts, errs, t_phase)
+    finally:
+        for g in groups.values():
+            g.close(kill=True)
+
+
+def path_tiles_vs_plain(card, bound, big, launches, errs):
+    """Phase 12 (d): the kernels at the path's shapes against their plain
+    versions on the same inputs, timed.  Returns their record fields."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.parallel import huge_pair as hp
+
+    dev = torch.device("cuda")
+    # each tile mode on its rank 0's first tile of the path (real edges: row 0, column 0)
+    rec = {}
+    t_all, s_all = (torch.from_numpy(enc.encode(x)).to(dev) for x in big)
+    mkd = (2, 1, 1)
+    plain_runs = {}  # (ranks, L) -> (plain ms, its outputs): the codes mode's edges are the scores mode's
+    for name, mode, world, L in (("nw_fill_tile", "codes", 2, L_HUGE),
+                                 ("nw_fill_tile/scores", "scores", 2, L_HUGE),
+                                 ("nw_fill_tile/masks", "masks", 4, L_PALLAS)):
+        top, side = t_all[:L], s_all[:L]
+        H, nch, _ = hp.tile_geometry(L, L, world, hp.tile_chunk(L, L, world))
+        C = min(hp.tile_chunk(L, L, world), L)
+        halo = torch.arange(0, -(C + 1), -1, dtype=torch.int32, device=dev)
+        left = torch.arange(-1, -(H + 1), -1, dtype=torch.int32, device=dev)
+        table = tile_table(mode, L, H)
+        ms = cuda_ms(lambda: first_tile(fs.fill_tile, top, side[:H], mkd, C, halo, left, mode, table), 2)
+        table = tile_table(mode, L, H)
+        got = first_tile(fs.fill_tile, top, side[:H], mkd, C, halo, left, mode, table)
+        if (world, L) not in plain_runs:
+            want_table = tile_table(mode, L, H)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = first_tile(fs.fill_tile_plain, top, side[:H], mkd, C, halo, left, mode, want_table)
+            torch.cuda.synchronize()
+            plain_runs[world, L] = ((time.perf_counter() - t0) * 1e3, want, want_table)
+        p_ms, want, want_table = plain_runs[world, L]
+        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        if table is not None:
+            e = max(e, 0 if torch.equal(table, want_table) else max_abs_err(table, want_table))
+        errs[name] = max(errs[name], e)
+        cells = H * C
+        ops_cell = OPS_SCORE + (OPS_CODE if mode != "scores" else 0)
+        out_bytes = {"codes": cells // 4, "scores": 0, "masks": cells}[mode]
+        in_bytes = 4 * (C + H + C + 1 + H)  # top chunk, side rows, halo, left
+        rec[name] = dict(
+            ms=ms, **bound(cells * ops_cell, in_bytes + out_bytes + 4 * (H + C + 1)),
+            plain_ms=p_ms, launches=launches[name], max_abs_err=errs[name],
+            shape=f"one tile of {H} rows x {C} columns (rank 0's first of {nch} at {world} ranks, "
+                  f"{L} bp); plain_ms: fill_tile_plain on the card on the same inputs"
+                  + (", in codes mode (its edges are this mode's)" if mode == "scores" else ""),
+        )
+        del table, got
+    del plain_runs, want, want_table
+    torch.cuda.empty_cache()
+    # the 1-rank path's one tile (the whole pair) against nw_fill_codes_single, which it generalises
+    row0 = torch.arange(0, -(L_HUGE + 1), -1, dtype=torch.int32, device=dev)
+    table = tile_table("codes", L_HUGE, L_HUGE)
+    ms_whole = cuda_ms(lambda: first_tile(fs.fill_tile, t_all, s_all, mkd, L_HUGE, row0, row0[1:].clone(),
+                                         "codes", table), 2)
+    whole, score = fs.fill_codes_single(t_all, s_all, *mkd)
+    ms_single = cuda_ms(lambda: fs.fill_codes_single(t_all, s_all, *mkd), 2)
+    corner = first_tile(fs.fill_tile, t_all, s_all, mkd, L_HUGE, row0, row0[1:].clone(), "codes", table)[2]
+    if not torch.equal(table, whole) or int(corner) != int(score):
+        fail("the 1-rank tile's codes or corner differ from nw_fill_codes_single's")
+    log(f"1-rank tile (the whole {L_HUGE} bp pair, codes) {ms_whole:.3f} ms against nw_fill_codes_single "
+        f"{ms_single:.3f} ms: codes and corner equal [{card}]")
+    del table, whole
+    torch.cuda.empty_cache()
+    # the mask walk relayed over the 20 kb pair's 4 blocks of K28 masks, against its plain relay
+    H = -(-L_PALLAS // 4)
+    tables, _, _ = hp.chain_tiles(t_all[:L_PALLAS], s_all[:L_PALLAS], *mkd, H,
+                                  hp.tile_chunk(L_PALLAS, L_PALLAS, 4), "masks")
+
+    def relay(walk, where):
+        state = torch.tensor([L_PALLAS, L_PALLAS, 0], dtype=torch.int32, device=where)
+        ops = torch.full((2 * L_PALLAS,), tb.OP_NONE, dtype=torch.int8, device=where)
+        for p in range(len(tables) - 1, -1, -1):
+            walk(tables[p] if where == "cuda" else tables[p].cpu(), state, p * H, ops)
+        return state, ops
+
+    ms_walk = cuda_ms(lambda: relay(tb.walk_masks_window, "cuda"), 2)
+    k_state, k_ops = relay(tb.walk_masks_window, "cuda")
+    steps = int(k_state[2])
+    t0 = time.perf_counter()
+    p_state, p_ops = relay(tb.walk_masks_window_plain, "cpu")
+    plain_walk = (time.perf_counter() - t0) * 1e3
+    errs["nw_walk_window/masks"] = max(errs["nw_walk_window/masks"], max_abs_err(k_ops, p_ops),
+                                       max_abs_err(k_state, p_state))
+    rec["nw_walk_window/masks"] = dict(
+        ms=ms_walk, **bound(steps * OPS_WALK_STEP, steps * 2),
+        plain_ms=plain_walk, launches=launches["nw_walk_window/masks"],
+        max_abs_err=errs["nw_walk_window/masks"],
+        shape=f"{L_PALLAS}bp, {steps} steps relayed over 4 blocks of {H} rows of tie masks "
+              f"(plain_ms: the plain relay on the host CPU, ops and state compared)",
+    )
+    del tables
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_path(card, bound, groups, starts, errs, t_phase):
+    """Phase 12 (b), (c) on the started rank groups, then (d) the kernels
+    at the path's tile shapes against their plain versions, and their
+    times."""
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.parallel import data_parallel as dpar
+    from nw_tpu_torch.parallel import huge_pair as hp
+    from nw_tpu_torch.parallel.workers import MESH, PerRank, launch_counts
+
+    log(f"rank groups started (s, concurrently with (a)): { {k: round(v, 1) for k, v in starts.items()} }")
+    a211 = NWAligner(AlignConfig(scoring=ScoringParams(2, 1, 1)), device="cuda")
+    big = rand_pairs(np.random.default_rng(L_HUGE), 1, L_HUGE, L_HUGE)[0]  # phase 8's pair
+    ref = a211.align_huge(*big)
+    p20 = (big[0][:L_PALLAS], big[1][:L_PALLAS])
+    ref20 = a211.align_huge(*p20)
+    rng = np.random.default_rng(L_SHORT)
+    c2 = rand_pairs(rng, 10240, L_SHORT, L_SHORT)
+    refs_dp = {wc: a211.align_batch(c2, count=wc) for wc in (False, True)}
+    tops, sides, l1, l2 = enc.encode_batch(c2, L_SHORT, L_SHORT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counters = list(SHARDED_COUNTERS)
+    for g in groups.values():  # every rank's counters to 0 just before the path
+        g.run(launch_counts, counters, reset=True)
+    runs = {}  # each run twice: a rank's first launch of a kernel loads it
+    for key, pair, want, engine in (("1 nccl", big, ref, None), ("2 gloo", big, ref, None),
+                                    ("4 gloo, engine pallas", p20, ref20, "pallas")):
+        group = groups[key.split(",")[0]]
+        for rep in ("cold", "warm"):
+            t0 = time.perf_counter()
+            res = group.run_timed(hp.huge_pair_align_sharded, enc.encode(pair[0]), enc.encode(pair[1]),
+                                  2, 1, 1, MESH, engine=engine, timeout=600)
+            runs[f"{key} ({rep})"] = (time.perf_counter() - t0, res)
+            for r, _, _ in res:
+                if tb.ops_to_strings(r.ops, r.n, *pair) != (want.X, want.Y) or r.score != want.score:
+                    fail(f"huge_pair_align_sharded on {key} ({len(pair[0])} bp) differs from align_huge")
+        scores = group.run(hp.huge_pair_score_sharded, enc.encode(pair[0]), enc.encode(pair[1]),
+                           2, 1, 1, MESH, engine=engine, timeout=600)
+        if scores != [want.score] * len(res):
+            fail(f"huge_pair_score_sharded on {key}: {scores} != {want.score}")
+    dp_walls = {}
+    for key in ("1 nccl", "2 gloo"):
+        n = groups[key].world_size
+        shards = [PerRank(np.split(x, n)) for x in (tops, sides, l1, l2)]
+        for wc, want in refs_dp.items():
+            t0 = time.perf_counter()
+            out = groups[key].run(dpar.align_batch_sharded, *shards, m=2, k=1, d=1, mesh=MESH,
+                                  axis="seq", with_counts=wc, timeout=600)
+            dp_walls[key, wc] = time.perf_counter() - t0
+            cells = int((l1.astype(np.int64) * l2).sum())
+            for scores, stats in out:
+                exact = {"pairs": len(c2), "score_sum": int(want.scores.astype(np.int64).sum()),
+                         "score_min": int(want.scores.min()), "score_max": int(want.scores.max()),
+                         "cells": cells}
+                if wc:
+                    exact["solutions"] = int(want.counts.astype(np.int64).sum()) % 2**32
+                if not np.array_equal(scores.numpy(), want.scores) or \
+                        {k: int(v) for k, v in stats.items()} != exact:
+                    fail(f"align_batch_sharded on {key} (counts {wc}) differs from align_batch")
+    launches = {name: 0 for name in SHARDED_COUNTERS.values()}
+    for g in groups.values():
+        for got in g.run(launch_counts, counters):
+            for c, v in zip(counters, got):
+                launches[SHARDED_COUNTERS[c]] += v
+    log(f"sharded path launches (all ranks): {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the sharded path never launched: {launches}")
+    log(f"huge_pair_align_sharded {L_HUGE} bp (2 1 1), score {ref.score}: ops equal align_huge's "
+        f"codes route on 1 rank (NCCL) and 2 ranks (gloo, one card); engine='pallas' at {L_PALLAS} bp "
+        f"on 4 ranks equals align_huge there; huge_pair_score_sharded equal")
+    for key, (wall, res) in runs.items():
+        log(f"sharded {key}: wall {wall:.3f} s; per rank " + "; ".join(
+            f"rank {p}: {sec:.3f} s, fill {r.timings['fill']:.3f} (halo staging {r.timings['halo']:.4f}, "
+            f"waiting for halos {r.timings['halo_wait']:.4f}), "
+            f"walk {r.timings['walk']:.4f}, stitch {r.timings['stitch']:.4f} s, peak "
+            f"{peak / 2**30:.2f} GiB" for p, (r, sec, peak) in enumerate(res)) + f" [{card}]")
+    log(f"align_batch_sharded {len(c2)}x{L_SHORT}bp walls (s): "
+        f"{ {f'{k} counts={wc}': round(v, 4) for (k, wc), v in dp_walls.items()} }; equal align_batch, "
+        f"exact statistics [{card}]")
+    for g in groups.values():
+        g.close()
+
+    rec = path_tiles_vs_plain(card, bound, big, launches, errs)
+    for name, fields in rec.items():
+        log(f"kernel {name}: {fields['ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms "
+            f"({fields['bound_by']}), plain {fields['plain_ms']:.1f} ms, {fields['shape']} [{card}]")
+    log(f"phase 12 (d) max |diff| against the plain versions at the path's shapes: {errs}")
+    if any(errs.values()):
+        fail(f"a tile mode or the mask walk differs from its plain version at the path's shapes: {errs}")
+    log(f"phase 12 seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+    return rec
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2106,6 +2481,8 @@ def main() -> None:
     # CLI (their own launch counters)
     var_rec, overlap_walk = variants_phase(card, bound)
     gotoh_rec = gotoh_phase(card, bound, c3_strings)
+    # 12. sharded runs (their own ranks and launch counters)
+    sharded_rec = sharded_phase(card, bound)
     sw_rec["sw_walk"]["launches"] += overlap_walk["launches"]
     sw_rec["sw_walk"]["max_abs_err"] = max(sw_rec["sw_walk"]["max_abs_err"], overlap_walk["max_abs_err"])
     sw_rec["sw_walk"]["shape"] += f"; overlap walks 128x{L_SW_TB}bp {overlap_walk['ms']:.3f} ms"
@@ -2194,6 +2571,16 @@ def main() -> None:
         src = "nw_tpu_torch/csrc/nw_walk.cu" if name == "gotoh_walk" else "nw_tpu_torch/csrc/nw_affine.cu"
         kernels_line.append({"name": name, "route": "cuda", "source": src,
                              "replaces": gotoh_replaces[name], **fields})
+    sharded_replaces = {
+        "nw_fill_tile": "nw_tpu/parallel/huge_pair.py:246 (K14's mesh half)",
+        "nw_fill_tile/scores": "nw_tpu/parallel/huge_pair.py:246 (K14's mesh half, scores)",
+        "nw_fill_tile/masks": "nw_tpu/parallel/huge_pair.py:70 (K28)",
+        "nw_walk_window/masks": "nw_tpu/parallel/huge_pair.py:871 (_make_relay_walk over K28's masks, :944)",
+    }
+    for name, fields in sharded_rec.items():
+        src = "nw_tpu_torch/csrc/nw_walk.cu" if name.startswith("nw_walk") else single_src
+        kernels_line.append({"name": name, "route": "cuda", "source": src,
+                             "replaces": sharded_replaces[name], **fields})
     for kern in kernels_line:
         kern["library_ms"] = None  # no one PyTorch call computes a DP fill or walk
     record = {"kernels": kernels_line}

@@ -10,6 +10,11 @@
 //   K14 nw_tpu/parallel/huge_pair.py:246 _make_fold_chunk_kernel_blocked
 //       (config-5 fill with 2-bit walk words and the corner capture)
 //                                                          -> nw_fill_codes_single
+//       and its mesh half (one device's chunk: halo in, last-row edge
+//       out, the corner; scores or 2-bit codes)              -> nw_fill_tile
+//   K28 nw_tpu/parallel/huge_pair.py:70 _make_fold_chunk_kernel (the same
+//       chunk with 8-bit packed tie masks)                 -> nw_fill_tile
+//                                                             masks mode
 //   K13 nw_tpu/ops/checkpoint_traceback.py:153 _make_refill_kernel
 //       (re-fill of one block from its checkpoint)         -> nw_fill_codes_single
 //                                                             with a seed row
@@ -76,6 +81,22 @@
 // also writes row r*C (lane 31 of a band, every column) into ckpt[r],
 // row 0 included, through the ring's __stcg path.
 //
+// nw_fill_tile (TILE) fills one tile of a pair whose rows are sharded
+// over ranks (nw_tpu_torch/parallel/huge_pair.py): rows r0+1 .. r0+Bs and
+// columns c0+1 .. c0+C.  It is the same pipeline with the tile as its
+// table: band 0 reads the top halo (row r0 at columns c0 .. c0+C, the
+// corner first) as its seed, column 0 of the tile is the left edge input
+// (column c0 at rows r0+1 .. r0+Bs) instead of -j*d, and it writes the
+// right edge (column c0+C) and the bottom edge (row r0+Bs at columns
+// c0+1 .. c0+C) for the next tile and the next rank, and its bottom-right
+// cell as the score.  Its codes go into the rank's code table of the full
+// width (the layout above, global step c0 + c + lane): a tile boundary
+// cuts words, so a tile ORs its bits into the (zeroed) table's words
+// that it shares with the tile on its left or right (the tiles of a rank
+// run in order on one stream) and stores the others whole.  Its masks go into a
+// row-major uint8[Bs, width+1] table of the rank's rows.  The tile with
+// c0 = 0 also stores column 0 (UP); no tile stores row r0.
+//
 // What bounds it on the H100: the serial chain of each step (one shuffle
 // and a few dependent integer ops, ~70-110 cycles for one warp alone,
 // PERF.md section 6); with W warps interleaving on an SM the step's
@@ -111,6 +132,15 @@ constexpr int kTileBytes = 32 * kRingCols;
 constexpr unsigned kCodeLeft = 1u;
 constexpr unsigned kCodeUp = 2u;
 
+// The edges of a TILE launch (unused otherwise).
+struct Tile {
+  const int* left;  // int32[Bs]: column c0 at rows r0+1 .. r0+Bs
+  int* right;       // int32[Bs]: column c0+C
+  int* bottom;      // int32[C]: row r0+Bs at columns c0+1 .. c0+C
+  int c0;           // first column of the tile's left edge
+  int width;        // A of the whole pair: the code / mask tables' width
+};
+
 // What a launch writes besides its ring (null where the mode has none).
 struct Outs {
   unsigned char* masks;  // uint8[Bs+1, A+1]
@@ -122,33 +152,40 @@ struct Outs {
   unsigned* count;
 };
 
-template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES>
+template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES,
+          bool TILE = false>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
     const int* __restrict__ top, const int* __restrict__ side, int A, int Bs,
     int r0, const int* __restrict__ seed, int m, int k, int d, int* ring,
-    unsigned* cring, int* done, Outs out) {
-  extern __shared__ unsigned char tiles[];  // EMIT_MASKS: one ring a warp
+    unsigned* cring, int* done, Outs out, Tile tile) {
+  static_assert(!TILE || (!WITH_COUNTS && !EMIT_SCORES), "a tile has no counts");
+  // with TILE, A and top are the tile's (C columns from top + c0), seed
+  // is the top halo; c0 and the tables' width come from tile
+  extern __shared__ unsigned char rings[];  // EMIT_MASKS: one ring a warp
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  unsigned char* tile = tiles + warp * kTileBytes;
+  unsigned char* mring = rings + warp * kTileBytes;
   const int W = blockDim.x >> 5;
   const int P = gridDim.x * W;  // warps in all
   const int gwarp = blockIdx.x * W + warp;
   const int M = A + 1;
   const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
-  const int TW = 2 * nchunks;              // code words of a band row
+  const int c0 = TILE ? tile.c0 : 0;
+  const int Mw = TILE ? tile.width + 1 : M;  // the tables' row of columns
+  const int TW = 2 * ((Mw + 31 + 31) >> 5);  // code words of a band row
+  const int cmin = c0 > 0 ? 1 : 0;  // a tile's column 0 is the last tile's
   const int nbands = (Bs + 31) >> 5;
   volatile int* vdone = done;  // chunks completed, per global warp (zeroed)
   unsigned char* __restrict__ masks = out.masks;
   int* __restrict__ hs = out.hs;
 
   const int gthread = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int c = gthread; c < M; c += gridDim.x * blockDim.x) {  // row 0
+  for (int c = gthread; !TILE && c < M; c += gridDim.x * blockDim.x) {  // row 0
     if (EMIT_MASKS) masks[c] = c == 0 ? 0 : kMaskLeft;
     if (EMIT_SCORES) hs[c] = wsub(0, wmul(c, d));
     if (out.ckpt && Bs > 0) __stcg(out.ckpt + c, wsub(0, wmul(c, d)));
   }
-  if (Bs == 0 && gthread == 0) {  // the corner is on the row above
+  if (!TILE && Bs == 0 && gthread == 0) {  // the corner is on the row above
     *out.score = seed ? seed[A] : wsub(0, wmul(A, d));
     if (WITH_COUNTS) *out.count = 1u;
   }
@@ -159,7 +196,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
     const int j = band * 32 + 1 + lane;  // this lane's row in the launch
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : -5;
-    const int col0 = wsub(0, wmul(r0 + j, d));  // H[r0+j][0]
+    // H[r0+j][0], or a tile's left edge
+    const int col0 = TILE ? (row_ok ? tile.left[j - 1] : 0) : wsub(0, wmul(r0 + j, d));
     const int64_t rowoff = static_cast<int64_t>(j) * M;
     const int64_t in_slot = static_cast<int64_t>((band + P - 1) % P) * M;
     const int64_t out_slot = static_cast<int64_t>(band % P) * M;
@@ -225,15 +263,32 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
         mask = col_zero ? kMaskUp : mask;
         code = col_zero ? kCodeUp : code;
         const bool in_row = c >= 0 && c <= A;
-        if (EMIT_MASKS) tile[lane * kRingCols + (c & (kRingCols - 1))] = mask;
+        const bool kept = c >= cmin && c <= A && row_ok;  // stored here
+        if (EMIT_MASKS) mring[lane * kRingCols + (c & (kRingCols - 1))] = mask;
         if (EMIT_SCORES && in_row && row_ok) hs[rowoff + c] = hn;
         if (EMIT_CODES) {
-          pack |= (in_row && row_ok ? code : 0u) << (2 * (s & 15));
-          if ((s & 15) == 15) {  // every lane stores together
-            wbase[static_cast<int64_t>((t0 + s) >> 4) * 32] = pack;
+          const int g = c0 + t0 + s;  // step in the table's words
+          pack |= (kept ? code : 0u) << (2 * (g & 15));
+          if ((g & 15) == 15) {  // every lane stores together
+            // the word holds columns g-15-lane .. g-lane: a tile's own
+            // unless it reaches into the tile on the left or the right,
+            // whose bits it then joins (a load in the chain: boundary
+            // words only)
+            // (a tile's sweep runs up to 31 steps past the table's last
+            // word: those words, all zero, are not stored)
+            const bool own = !TILE || ((c0 == 0 || g - 15 - lane > c0) &&
+                                       (g - lane <= c0 + A || c0 + A == tile.width) &&
+                                       (g >> 4) < TW);
+            if (own) {
+              wbase[static_cast<int64_t>(g >> 4) * 32] = pack;
+            } else if (pack) {
+              wbase[static_cast<int64_t>(g >> 4) * 32] |= pack;
+            }
             pack = 0u;
           }
         }
+        if (TILE && row_ok && c == A) tile.right[j - 1] = hn;
+        if (TILE && j == Bs && c >= 1 && c <= A) tile.bottom[c - 1] = hn;
         if (in_row && j == Bs && c == A) {  // the corner
           *out.score = hn;
           if (WITH_COUNTS) *out.count = cn;
@@ -257,30 +312,39 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
       }
       if (EMIT_MASKS) {  // every lane has finished columns t0-31 .. t0
         const int col = t0 - 31 + lane;
-        const bool col_ok = col >= 0 && col <= A;
-        const unsigned char* src = tile + (col & (kRingCols - 1));
-        unsigned char* dst = masks + static_cast<int64_t>(band * 32 + 1) * M + col;
+        const bool col_ok = col >= cmin && col <= A;
+        const unsigned char* src = mring + (col & (kRingCols - 1));
+        // a tile's table holds no row r0: its row of j is j - 1
+        unsigned char* dst =
+            masks + static_cast<int64_t>(band * 32 + (TILE ? 0 : 1)) * Mw + c0 + col;
 #pragma unroll 4
         for (int r = 0; r < 32; ++r) {
           const unsigned char v = src[r * kRingCols];
-          if (col_ok && band * 32 + 1 + r <= Bs) dst[static_cast<int64_t>(r) * M] = v;
+          if (col_ok && band * 32 + 1 + r <= Bs) dst[static_cast<int64_t>(r) * Mw] = v;
         }
         __syncwarp();  // read before the next chunk overwrites the slots
       }
     }
+    if (TILE && EMIT_CODES && pack) {  // the band's last word, when c0 % 16 > 0
+      wbase[static_cast<int64_t>((c0 + nchunks * 32 - 1) >> 4) * 32] |= pack;
+    }
   }
 }
 
-template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES>
+template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES,
+          bool TILE = false>
 int launch_single(const int* top, const int* side, int A, int Bs, int r0,
                   const int* seed, int m, int k, int d, int blocks, int warps,
                   int* ring, unsigned* cring, int* done, Outs out,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, Tile tile = Tile{}) {
   if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 0 ||
       r0 < 0 || (r0 > 0 && !seed) || (out.ckpt && (out.every < 32 || out.every % 32)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (TILE && (Bs < 1 || !seed || !tile.left || !tile.right || (A > 0 && !tile.bottom) ||
+               tile.c0 < 0 || tile.c0 + A > tile.width))
+    return static_cast<int>(cudaErrorInvalidValue);
   int smem = EMIT_MASKS ? warps * kTileBytes : 0;  // up to 64 KB
-  auto kernel = nw_single_kernel<WITH_COUNTS, EMIT_MASKS, EMIT_SCORES, EMIT_CODES>;
+  auto kernel = nw_single_kernel<WITH_COUNTS, EMIT_MASKS, EMIT_SCORES, EMIT_CODES, TILE>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -289,7 +353,7 @@ int launch_single(const int* top, const int* side, int A, int Bs, int r0,
   // cooperative: all blocks co-resident (or the launch is refused), since
   // a band spins on the band above it, which another block may run
   void* args[] = {&top, &side, &A, &Bs, &r0, &seed, &m, &k, &d, &ring,
-                  &cring, &done, &out};
+                  &cring, &done, &out, &tile};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(kernel), dim3(blocks), dim3(32 * warps), args,
       static_cast<size_t>(smem), stream);
@@ -365,4 +429,37 @@ extern "C" int nw_score_single(const int* top, const int* side, int A, int Bs,
   return launch_single<false, false, false, false>(
       top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, nullptr, done,
       out, static_cast<cudaStream_t>(stream));
+}
+
+// K14's mesh half (codes non-null: 2-bit codes; masks and codes null:
+// scores only) and K28 (masks non-null: 3-bit tie masks) on one tile of a
+// pair whose rows are sharded: rows r0+1 .. r0+H (side = the pair's side
+// from row r0+1 on, H >= 1 rows) and columns c0+1 .. c0+C of a pair of
+// width A (top = the whole top string).  halo int32[C+1] is row r0 at
+// columns c0 .. c0+C, left int32[H] column c0 at rows r0+1 .. r0+H; right
+// int32[H] and bottom int32[C] receive column c0+C and row r0+H, score the
+// cell (r0+H, c0+C).  codes uint32[ceil(H/32), 2*ceil((A+32)/32), 32]
+// (zeroed before the rank's first tile: tiles OR their bits in) or masks
+// uint8[H, A+1] hold the rank's rows; the tile with c0 = 0 also writes
+// column 0.  ring is [min(blocks*warps, bands), C+1] scratch, done
+// int32[blocks*warps] zeroed.
+extern "C" int nw_fill_tile(const int* top, const int* side, int A, int C,
+                            int H, int c0, const int* halo, const int* left,
+                            int m, int k, int d, int blocks, int warps,
+                            int* ring, int* done, void* codes, void* masks,
+                            int* right, int* bottom, int* score, void* stream) {
+  if (codes && masks) return static_cast<int>(cudaErrorInvalidValue);
+  const Outs out{static_cast<unsigned char*>(masks), nullptr,
+                 static_cast<unsigned*>(codes), nullptr, 0, score, nullptr};
+  const Tile tile{left, right, bottom, c0, A};
+  auto s = static_cast<cudaStream_t>(stream);
+  const int* tp = top + c0;
+  if (codes)
+    return launch_single<false, false, false, true, true>(
+        tp, side, C, H, 0, halo, m, k, d, blocks, warps, ring, nullptr, done, out, s, tile);
+  if (masks)
+    return launch_single<false, true, false, false, true>(
+        tp, side, C, H, 0, halo, m, k, d, blocks, warps, ring, nullptr, done, out, s, tile);
+  return launch_single<false, false, false, false, true>(
+      tp, side, C, H, 0, halo, m, k, d, blocks, warps, ring, nullptr, done, out, s, tile);
 }

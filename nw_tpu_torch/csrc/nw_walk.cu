@@ -33,7 +33,12 @@
 // (i, j, n) from device memory, walks until it reaches row j0 (or, when
 // j0 is 0, the origin, stepping LEFT along row 0), and writes (i, j, n)
 // back, so the blocks of a pair chain on one stream with no host sync.
-// Code row of cell row j: j - j0 - 1.
+// Code row of cell row j: j - j0 - 1.  Its masks mode walks the 3-bit tie
+// masks (bit0 diag, bit1 left, bit2 up) of a rank's rows of a sharded pair
+// instead, uint8[rows, A+1] row-major from nw_fill_tile's masks mode
+// (K28): the first set bit in diag > left > up order, UP where none is
+// set, as the relay walk over K28's words does
+// (nw_tpu/parallel/huge_pair.py:894-903, _make_arrow_at_pallas).
 //
 // sw_walk is the Smith-Waterman walk over the local codes of
 // nw_fill.cu's LOCAL mode (sw_fill_codes): the jnp loops
@@ -84,14 +89,30 @@ __device__ __forceinline__ int code_at(const unsigned* __restrict__ base,
   return (w >> (2 * (t & 15))) & 3u;
 }
 
-// Walk from (i, j) over codes of rows j0+1 .. , writing ops from out[n];
+// The op of a 3-bit tie mask: its first set bit, diag > left > up
+__device__ __forceinline__ int mask_op(unsigned v) {
+  return (v & 1u) ? kOpDiag : ((v & 2u) ? kOpLeft : kOpUp);
+}
+
+// The op of row r (of the stored rows), column i: a 2-bit code (stride =
+// TW) or, with MASKS, a tie mask of a row-major table (stride = A+1)
+template <bool MASKS>
+__device__ __forceinline__ int op_at(const void* __restrict__ base, int stride,
+                                     int r, int i) {
+  if (MASKS)
+    return mask_op(static_cast<const unsigned char*>(base)[static_cast<int64_t>(r) * stride + i]);
+  return code_at(static_cast<const unsigned*>(base), stride, r, i);
+}
+
+// Walk from (i, j) over the ops of rows j0+1 .. , writing ops from out[n];
 // stops at row j0 when j0 > 0, else at the origin, or after S ops.
-__device__ __forceinline__ void walk(const unsigned* __restrict__ base, int TW,
+template <bool MASKS = false>
+__device__ __forceinline__ void walk(const void* __restrict__ base, int stride,
                                      int j0, int S, int& i, int& j, int& n,
                                      signed char* __restrict__ out) {
   while ((j > j0 || (j0 == 0 && i > 0)) && n < S) {
     int a = kOpLeft;  // row 0 is not stored: LEFT to the origin
-    if (j > 0) a = code_at(base, TW, j - j0 - 1, i);
+    if (j > 0) a = op_at<MASKS>(base, stride, j - j0 - 1, i);
     out[n++] = static_cast<signed char>(a);
     i -= a != kOpUp;
     j -= a != kOpLeft;
@@ -114,14 +135,19 @@ __global__ void nw_walk_kernel(const unsigned* __restrict__ codes,
   ns[b] = n;
 }
 
-__global__ void nw_walk_window_kernel(const unsigned* __restrict__ codes,
+// codes mode: nbands bands of 2-bit codes, TW words a band row; MASKS:
+// `nbands` rows of `TW` = A+1 masks
+template <bool MASKS>
+__global__ void nw_walk_window_kernel(const void* __restrict__ codes,
                                       int nbands, int TW, int j0,
                                       int* __restrict__ state, int S,
                                       signed char* __restrict__ ops) {
   int i = state[0], j = state[1], n = state[2];
   // a start outside the block's codes walks nowhere (n stays short)
-  if (j < j0 || j > j0 + 32 * nbands || i < 0 || i + 32 > 16 * TW || n < 0) return;
-  walk(codes, TW, j0, S, i, j, n, ops);
+  const int rows = MASKS ? nbands : 32 * nbands;
+  const int cols = MASKS ? TW : 16 * TW - 31;
+  if (j < j0 || j > j0 + rows || i < 0 || i >= cols || n < 0) return;
+  walk<MASKS>(codes, TW, j0, S, i, j, n, ops);
   state[0] = i;
   state[1] = j;
   state[2] = n;
@@ -235,16 +261,22 @@ extern "C" int sw_walk(const void* codes, const int* jstar, const int* istar,
 }
 
 // codes: uint32[1, nbands, TW, 32] of rows j0+1 .. j0+32*nbands (from
-// nw_fill_codes_single); state: int32[3] = (i, j, n), read and written
-// back; ops: int8[S], written from ops[n].  A start with j outside
-// [j0, j0 + 32*nbands] or i + 32 > 16*TW leaves state as it was.
+// nw_fill_codes_single or nw_fill_tile); state: int32[3] = (i, j, n), read
+// and written back; ops: int8[S], written from ops[n].  A start with j
+// outside [j0, j0 + 32*nbands] or i + 32 > 16*TW leaves state as it was.
+// masks != 0: codes is uint8[nbands, TW] instead, the tie masks of rows
+// j0+1 .. j0+nbands with TW = A+1 columns (nw_fill_tile's masks mode), and
+// a start outside [j0, j0 + nbands] x [0, TW) leaves state as it was.
 extern "C" int nw_walk_window(const void* codes, int nbands, int TW, int j0,
-                              int* state, int S, signed char* ops,
+                              int* state, int S, signed char* ops, int masks,
                               void* stream) {
   if (nbands < 0 || TW < 0 || j0 < 0 || S < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  nw_walk_window_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(codes), nbands, TW, j0, state, S, ops);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (masks)
+    nw_walk_window_kernel<true><<<1, 1, 0, s>>>(codes, nbands, TW, j0, state, S, ops);
+  else
+    nw_walk_window_kernel<false><<<1, 1, 0, s>>>(codes, nbands, TW, j0, state, S, ops);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,8 @@ Counterpart of ``nw_tpu/models/needleman_wunsch.py``:
   and one ``nw_walk`` when they fit ``NW_TPU_HUGE_WALK_HBM``, else the
   checkpointed re-fill (:mod:`nw_tpu_torch.ops.checkpoint_traceback`:
   K12, K13 and the windowed walk);
+* ``NWAligner.align_huge_sharded`` — the same for a pair whose rows are
+  sharded over the ranks of a mesh (:mod:`nw_tpu_torch.parallel.huge_pair`);
 * ``NWAligner.align_batch`` — a batch of pairs padded to a length bucket:
   int32 scores, uint32 solution counts and the greedy first-emitted
   alignment of each pair.
@@ -250,6 +252,28 @@ class NWAligner:
         if score is None:
             score = _rescore(X, Y, *self.config.scoring.as_tuple())
         return HugeAlignmentResult(s1=s1b, s2=s2b, score=score, X=X, Y=Y)
+
+    def align_huge_sharded(
+        self, s1: str | bytes, s2: str | bytes, mesh, axis: str = "seq",
+        chunk: Optional[int] = None,
+    ) -> HugeAlignmentResult:
+        """Exact first-emitted alignment of ONE pair too large for one
+        device (``nw_tpu`` ``needleman_wunsch.py:246``): its rows tiled
+        over ``mesh``'s ``axis`` (BASELINE config 5; the tile wavefront,
+        the chunked halo and the relay walk of
+        :mod:`nw_tpu_torch.parallel.huge_pair`).  Collective: every rank
+        calls it with the same pair and gets the same result, equal to
+        :meth:`align_huge`'s codes route.  ``chunk``: columns a tile."""
+        from nw_tpu_torch.parallel.huge_pair import huge_pair_align_sharded
+
+        s1b, s2b = _as_bytes(s1), _as_bytes(s2)
+        m, k, d = self.config.scoring.as_tuple()
+        r = huge_pair_align_sharded(
+            enc.encode(s1b), enc.encode(s2b), m, k, d, mesh, axis=axis, chunk=chunk,
+            device=self.device,
+        )
+        X, Y = traceback.ops_to_strings(r.ops, r.n, s1b, s2b)
+        return HugeAlignmentResult(s1=s1b, s2=s2b, score=r.score, X=X, Y=Y)
 
     def _huge_ops(self, top, side, block_diagonals=None):
         """(ops int8[n] on the host, n, score or None) of ONE huge pair:

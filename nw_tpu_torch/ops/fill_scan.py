@@ -59,6 +59,8 @@ def fill_diag_batch(
     with_scores: bool = False,
     seed: Optional[torch.Tensor] = None,
     row0: int = 0,
+    left: Optional[torch.Tensor] = None,
+    with_edges: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Fill a batch of DP tables along anti-diagonals.
 
@@ -78,10 +80,16 @@ def fill_diag_batch(
         their row ``row0``, which takes row 0's place (its arrows stay
         LEFT, its counts 1); column 0 is ``-(row0+j)*d``.  Without a seed
         ``row0`` must be 0.
+      left: int32[B, Bs], column 0's scores at rows 1 .. Bs in place of
+        ``-(row0+j)*d`` (a tile of a larger table: with ``seed`` as its
+        top halo, the plain version of ``nw_fill_tile``).
+      with_edges: return ``right`` int32[B, Bs] (column A at rows 1 ..
+        Bs) and ``bottom`` int32[B, A] (row Bs at columns 1 .. A), the
+        bucket's last column and row, without keeping every cell.
 
     Returns:
       dict with ``score`` int32[B], and ``arrows`` / ``count`` (int64[B]
-      in [0, 2^32)) / ``scores`` when asked.
+      in [0, 2^32)) / ``scores`` / ``right`` and ``bottom`` when asked.
     """
     B, A = tops.shape
     Bs = sides.shape[1]
@@ -118,12 +126,15 @@ def fill_diag_batch(
     d_t = torch.tensor(d, dtype=i32, device=dev)
     # column 0 of every diagonal, made once: no host copy inside the loop
     edges = -((torch.arange(K, dtype=i32, device=dev) + row0) * d_t)
+    if left is not None:
+        left = left.to(device=dev, dtype=i32)
     if with_counts:
         cprev = (j_idx == 0).to(torch.int64).expand(B, N)
         cprev2 = torch.zeros((B, N), dtype=torch.int64, device=dev)
         ccaptured = torch.ones(B, dtype=torch.int64, device=dev)
     arrows_l = [torch.zeros((B, N), dtype=torch.uint8, device=dev)]
     scores_l = [prev]
+    right_l, bottom_l = [], []  # cell (Bs, kk - Bs) and (kk - A, A) of diagonal kk
 
     for kk in range(1, K):
         i_idx = kk - j_idx
@@ -143,7 +154,7 @@ def fill_diag_batch(
         b_left = ((cand_left == score) & interior) | on_top_row
         b_up = ((cand_up == score) & interior) | on_left_col
 
-        edge = edges[kk]
+        edge = edges[kk] if left is None or not Bs else left[:, min(kk, Bs) - 1 : min(kk, Bs)]
         top_edge = edge if seed is None else seed[:, min(kk, A)][:, None]
         score = torch.where(interior, score, NEG_INF)
         score = torch.where(on_left_col, edge, score)
@@ -153,6 +164,11 @@ def fill_diag_batch(
 
         if with_scores:
             scores_l.append(score)
+        if with_edges:
+            if kk > Bs:
+                bottom_l.append(score[:, Bs].clone())
+            if kk > A:
+                right_l.append(score[:, kk - A].clone())
         if with_arrows:
             arrows_l.append(
                 b_diag.to(torch.uint8)
@@ -176,6 +192,10 @@ def fill_diag_batch(
         out["count"] = ccaptured
     if with_scores:
         out["scores"] = torch.stack(scores_l, dim=1)
+    if with_edges:
+        empty = torch.empty((B, 0), dtype=i32, device=dev)
+        out["right"] = torch.stack(right_l, dim=1) if right_l else empty
+        out["bottom"] = torch.stack(bottom_l, dim=1) if bottom_l else empty
     return out
 
 
@@ -446,11 +466,13 @@ def fill_diag(
     with_scores: bool = False,
     seed: Optional[torch.Tensor] = None,
     row0: int = 0,
+    left: Optional[torch.Tensor] = None,
+    with_edges: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """:func:`fill_diag_batch` on one pair (``fill_scan.py:48
     fill_diag``): int32 top[A] / side[Bs], true lengths defaulting to
-    A / Bs, ``seed`` int32[A+1]; the same dict with the batch dimension
-    dropped."""
+    A / Bs, ``seed`` int32[A+1], ``left`` int32[Bs]; the same dict with
+    the batch dimension dropped."""
     len1 = top.shape[0] if len1 is None else len1
     len2 = side.shape[0] if len2 is None else len2
     dev = top.device
@@ -459,7 +481,7 @@ def fill_diag(
         torch.tensor([len1], device=dev), torch.tensor([len2], device=dev),
         m, k, d, with_arrows=with_arrows, with_counts=with_counts,
         with_scores=with_scores, seed=None if seed is None else seed[None],
-        row0=row0,
+        row0=row0, left=None if left is None else left[None], with_edges=with_edges,
     )
     return {key: v[0] for key, v in out.items()}
 

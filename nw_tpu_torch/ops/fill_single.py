@@ -17,10 +17,16 @@ versions on CPU tensors:
   and its corner score (``nw_fill_codes_single``; K14,
   ``nw_tpu/parallel/huge_pair.py:246 _make_fold_chunk_kernel_blocked``),
   or of the rows below a seed row (K13,
-  ``nw_tpu/ops/checkpoint_traceback.py:153 _make_refill_kernel``).
+  ``nw_tpu/ops/checkpoint_traceback.py:153 _make_refill_kernel``);
+* :func:`fill_tile` — one tile of a pair whose rows are sharded over
+  ranks, from its top halo and left edge to its right and bottom edges,
+  with the rank's scores only or 2-bit codes (``nw_fill_tile``; K14's mesh
+  half, ``nw_tpu/parallel/huge_pair.py:246``) or 3-bit tie masks (K28,
+  ``nw_tpu/parallel/huge_pair.py:70 _make_fold_chunk_kernel``).
 
-Each wrapper counts its launches: ``.launches``, and for the second mode
-of a wrapper ``score_fold.ckpt_launches`` / ``fill_codes_single.seeded_launches``.
+Each wrapper counts its launches: ``.launches``, and for the other modes
+of a wrapper ``score_fold.ckpt_launches`` / ``fill_codes_single.seeded_launches``
+/ ``fill_tile.score_launches`` and ``fill_tile.mask_launches``.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from typing import Optional, Tuple
 import torch
 
 from nw_tpu_torch.ops.fill_scan import (
-    U32, code_shape, fill_diag, fill_last_row, greedy_codes_from_arrows,
+    U32, code_shape, diag_to_matrix_batch, fill_diag, fill_last_row, greedy_codes_from_arrows,
+    pack_band_major,
 )
 from nw_tpu_torch.runtime import kernels
 
@@ -272,3 +279,127 @@ def fill_codes_single_plain(top, side, m, k, d, len1=None, len2=None, r0=0, seed
         seed=None if seed is None else seed[: len1 + 1], row0=r0,
     )
     return greedy_codes_from_arrows(out["arrows"][None]), out["score"]
+
+
+# ---------------- K14's mesh half / K28: one tile of a sharded pair ----------------
+
+
+def _check_tile(top, side, m, k, d, c0, C, halo, left, codes, masks, warps, blocks) -> None:
+    A, H = top.shape[0], side.shape[0]
+    check_pair(top, side, m, k, d, None, None, warps, blocks)
+    if H < 1 or not (0 <= c0 and C >= 0 and c0 + C <= A):
+        raise ValueError(f"a tile needs rows and columns ({c0}, {c0 + C}] inside [0, {A}]")
+    for name, t, n in (("halo", halo, C + 1), ("left", left, H)):
+        if t.shape != (n,) or t.dtype != torch.int32 or t.device != top.device:
+            raise ValueError(f"{name} must be int32[{n}] on the pair's device")
+    if codes is not None and masks is not None:
+        raise ValueError("a tile emits codes or masks, not both")
+    if codes is not None and (
+        tuple(codes.shape) != code_shape(1, A, H) or codes.dtype != torch.int32
+        or codes.device != top.device or not codes.is_contiguous()
+    ):
+        raise ValueError(f"codes must be contiguous int32{list(code_shape(1, A, H))} on the pair's device")
+    if masks is not None and (
+        tuple(masks.shape) != (H, A + 1) or masks.dtype != torch.uint8
+        or masks.device != top.device or not masks.is_contiguous()
+    ):
+        raise ValueError(f"masks must be contiguous uint8[{H}, {A + 1}] on the pair's device")
+
+
+def fill_tile(
+    top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int, c0: int, C: int,
+    halo: torch.Tensor, left: torch.Tensor,
+    codes: Optional[torch.Tensor] = None, masks: Optional[torch.Tensor] = None,
+    warps: int = WARPS, blocks: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fill rows r0+1 .. r0+H, columns c0+1 .. c0+C of one pair:
+    (right, bottom, score).
+
+    top: int32[A], the pair's whole top string; side: int32[H], its rows
+    r0+1 .. r0+H; halo: int32[C+1], row r0 at columns c0 .. c0+C (the
+    corner first); left: int32[H], column c0 at rows r0+1 .. r0+H.
+    Returns right int32[H] (column c0+C), bottom int32[C] (row r0+H at
+    columns c0+1 .. c0+C) and the score of cell (r0+H, c0+C), a 0-d
+    tensor.  With ``codes`` (int32[1, ceil(H/32), TW, 32] of
+    :func:`~nw_tpu_torch.ops.fill_scan.code_shape` at (A, H), zeroed
+    before the rank's first tile) the tile ORs its cells' 2-bit greedy
+    codes in, code row j - r0 - 1 at the pair's column; with ``masks``
+    (uint8[H, A+1]) it writes their tie masks.  The tile with c0 = 0
+    also stores column 0 (UP); row r0 is the halo, not the tile's.
+
+    K14's mesh half (scores, codes; ``nw_tpu/parallel/huge_pair.py:246``)
+    and K28 (masks; ``:70``) as the ``nw_fill_tile`` kernel on CUDA
+    tensors, :func:`fill_tile_plain` on CPU tensors.
+    """
+    _check_tile(top, side, m, k, d, c0, C, halo, left, codes, masks, warps, blocks)
+    if top.device.type == "cpu":
+        return fill_tile_plain(top, side, m, k, d, c0, C, halo, left, codes, masks)
+    dev = top.device
+    H = side.shape[0]
+    top, side, halo, left = (t.contiguous() for t in (top, side, halo, left))
+    blocks, warps = launch_shape(H, warps, blocks, dev)
+    ring, _, done, score, _ = single_scratch(C, H, blocks, warps, dev, with_counts=False)
+    right = torch.empty(H, dtype=torch.int32, device=dev)
+    bottom = torch.empty(max(C, 1), dtype=torch.int32, device=dev)
+    kernels.launch(
+        "nw_fill_tile", dev,
+        top.data_ptr(), side.data_ptr(), top.shape[0], C, H, c0, halo.data_ptr(),
+        left.data_ptr(), m, k, d, blocks, warps, ring.data_ptr(), done.data_ptr(),
+        None if codes is None else codes.data_ptr(),
+        None if masks is None else masks.data_ptr(),
+        right.data_ptr(), bottom.data_ptr(), score.data_ptr(),
+    )
+    if codes is not None:
+        fill_tile.launches += 1
+    elif masks is not None:
+        fill_tile.mask_launches += 1
+    else:
+        fill_tile.score_launches += 1
+    return right, bottom[:C], score[0]
+
+
+fill_tile.launches = 0
+fill_tile.score_launches = 0
+fill_tile.mask_launches = 0
+
+
+def fill_tile_plain(top, side, m, k, d, c0, C, halo, left, codes=None, masks=None):
+    """Plain version of :func:`fill_tile`: the anti-diagonal fill of the
+    tile as a table of its own (``fill_diag`` with the halo as its row 0
+    and the left edge as its column 0, keeping its edges and tie masks,
+    not its scores), the masks and greedy codes written into the rank's
+    tables, the codes packed a window of columns at a time."""
+    H = side.shape[0]
+    emit = codes is not None or masks is not None
+    out = fill_diag(
+        top[c0 : c0 + C], side, m, k, d, seed=halo, left=left,
+        with_arrows=emit, with_edges=True,
+    )
+    if emit:
+        cmin = 1 if c0 > 0 else 0  # column c0 is the last tile's
+        arr = diag_to_matrix_batch(out.pop("arrows")[None])[0, 1:, cmin:]
+        if masks is not None:
+            masks[:, c0 + cmin : c0 + C + 1] = arr
+        else:
+            _or_codes(codes, arr, c0 + cmin)
+    return out["right"], out["bottom"], out["score"]
+
+
+CODE_WINDOW = 8192  # columns packed at once (a multiple of 16): bounds the packing's int64 words
+
+
+def _or_codes(codes, arr, first):
+    """OR the greedy codes of tie masks ``arr`` (uint8[H, n], columns
+    ``first`` ..) into the band-major ``codes``, a window of columns at a
+    time: a window from column w0 (a multiple of 16) packs into the
+    table's words from w0/16 on."""
+    H, n = arr.shape
+    for w0 in range(first // 16 * 16, first + n, CODE_WINDOW):
+        lo, hi = max(w0, first), min(w0 + CODE_WINDOW, first + n)
+        a = arr[:, lo - first : hi - first]
+        code = torch.zeros((1, H, hi - w0), dtype=torch.uint8, device=arr.device)
+        code[0, :, lo - w0 :] = (2 - ((a >> 1) & 1)) * (1 - (a & 1))  # DIAG 0, LEFT 1, UP 2
+        words = pack_band_major(code, 2)
+        w = w0 // 16
+        cnt = min(words.shape[2], codes.shape[2] - w)
+        codes[:, :, w : w + cnt] |= words[:, :, :cnt]

@@ -18,7 +18,11 @@ exactly the *first* alignment the reference emits.
   (re-filled from a checkpoint row) from a start kept in device memory
   (the block walk of ``nw_tpu/ops/checkpoint_traceback.py:353-373``): the
   ``nw_walk_window`` kernel on CUDA tensors, its plain version on CPU
-  tensors.
+  tensors.  It walks the codes of one rank's rows of a sharded pair too
+  (:mod:`nw_tpu_torch.parallel.huge_pair`, the relay walk of
+  ``nw_tpu/parallel/huge_pair.py:871``), and :func:`walk_masks_window`
+  walks that rank's 3-bit tie masks instead (``nw_walk_window``'s masks
+  mode; ``_make_arrow_at_pallas``, ``huge_pair.py:944``).
 * :func:`walk_sw_codes_batch` walks the local (Smith-Waterman) codes of
   :func:`nw_tpu_torch.ops.variants_banded.sw_fill_codes_banded_batch`
   from each pair's best cell to its first STOP (the counterpart of
@@ -176,10 +180,14 @@ def walk_codes_batch_plain(
     return ops, n
 
 
-def _check_window_args(codes, state, ops):
+def _check_window_args(codes, state, ops, masks=False):
     if codes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"CPU or CUDA tensors expected, got {codes.device}")
-    if codes.dim() != 4 or codes.dtype != torch.int32 or codes.shape[0] != 1 or codes.shape[3] != 32:
+    if masks and (codes.dim() != 2 or codes.dtype != torch.uint8 or not codes.is_contiguous()):
+        raise ValueError("masks must be a contiguous uint8[rows, A+1]")
+    if not masks and (
+        codes.dim() != 4 or codes.dtype != torch.int32 or codes.shape[0] != 1 or codes.shape[3] != 32
+    ):
         raise ValueError("codes must be int32[1, nbands, TW, 32]")
     if state.shape != (3,) or state.dtype != torch.int32 or not state.is_contiguous():
         raise ValueError("state must be a contiguous int32[3]: (i, j, n)")
@@ -216,7 +224,7 @@ def walk_codes_window(
     kernels.launch(
         "nw_walk_window", codes.device,
         codes.data_ptr(), nbands, TW, j0, state.data_ptr(), ops.shape[0],
-        ops.data_ptr(),
+        ops.data_ptr(), 0,
     )
     walk_codes_window.launches += 1
 
@@ -232,23 +240,76 @@ def walk_codes_window_plain(
     _check_window_args(codes, state, ops)
     _, nbands, TW, _ = codes.shape
     words = codes[0].cpu().numpy().view(np.uint32)
+
+    def op_at(r, i):
+        t = i + (r & 31)
+        return (int(words[r >> 5, t >> 4, r & 31]) >> (2 * (t & 15))) & 3
+
+    _walk_window_plain(op_at, 32 * nbands, 16 * TW - 31, state, j0, ops)
+
+
+def _walk_window_plain(op_at, rows: int, width: int, state, j0: int, ops) -> None:
+    """The window walk on the host: ``op_at(r, i)`` is the op of stored
+    row r (cell row j0 + r + 1), column i; a start outside ``rows`` rows
+    above j0 or ``width`` columns walks nowhere, as the kernel."""
     i, j, n = state.tolist()
-    if j < j0 or j > j0 + 32 * nbands or i < 0 or i + 32 > 16 * TW or n < 0:
-        return  # outside the block: nowhere to walk, as the kernel
+    if j < j0 or j > j0 + rows or i < 0 or i >= width or n < 0:
+        return
     steps = []
     S = ops.shape[0]
     while (j > j0 or (j0 == 0 and i > 0)) and n + len(steps) < S:
-        a = OP_LEFT  # row 0 is not stored: LEFT to the origin
-        if j > 0:
-            r = j - j0 - 1
-            t = i + (r & 31)
-            a = (int(words[r >> 5, t >> 4, r & 31]) >> (2 * (t & 15))) & 3
+        a = op_at(j - j0 - 1, i) if j > 0 else OP_LEFT  # row 0 is not stored
         steps.append(a)
         i -= a != OP_UP
         j -= a != OP_LEFT
     if steps:
         ops[n : n + len(steps)] = torch.tensor(steps, dtype=torch.int8)
     state.copy_(torch.tensor([i, j, n + len(steps)], dtype=torch.int32))
+
+
+def walk_masks_window(
+    masks: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor
+) -> None:
+    """:func:`walk_codes_window` over 3-bit tie masks: the rows j0+1 ..
+    j0+rows of one pair as uint8[rows, A+1] (bit0 diag, bit1 left, bit2
+    up; row j at j - j0 - 1), as
+    :func:`nw_tpu_torch.ops.fill_single.fill_tile` writes them in its
+    masks mode.  Each step takes the first set bit in diag > left > up
+    order, UP where none is set (``nw_tpu/parallel/huge_pair.py:894-903``);
+    the same stops and ``state`` / ``ops`` updates.
+
+    A CUDA tensor goes through ``nw_walk_window``'s masks mode (one
+    thread); a CPU tensor through :func:`walk_masks_window_plain`.
+    """
+    _check_window_args(masks, state, ops, masks=True)
+    if j0 < 0:
+        raise ValueError(f"j0 must be >= 0, not {j0}")
+    if masks.device.type == "cpu":
+        return walk_masks_window_plain(masks, state, j0, ops)
+    rows, M = masks.shape
+    kernels.launch(
+        "nw_walk_window", masks.device,
+        masks.data_ptr(), rows, M, j0, state.data_ptr(), ops.shape[0], ops.data_ptr(), 1,
+    )
+    walk_masks_window.launches += 1
+
+
+walk_masks_window.launches = 0
+
+
+def walk_masks_window_plain(
+    masks: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor
+) -> None:
+    """Plain version of :func:`walk_masks_window` (the same updates of
+    ``state`` and ``ops``), one step at a time on the host."""
+    _check_window_args(masks, state, ops, masks=True)
+    cells = masks.cpu().numpy()
+
+    def op_at(r, i):
+        v = int(cells[r, i])
+        return OP_DIAG if v & 1 else (OP_LEFT if v & 2 else OP_UP)
+
+    _walk_window_plain(op_at, *cells.shape, state, j0, ops)
 
 
 def _sw_max_steps(codes: torch.Tensor) -> int:

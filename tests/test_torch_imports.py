@@ -26,7 +26,35 @@ NEW_MODULES = {
     "nw_tpu_torch.ops.traceback", "nw_tpu_torch.models.smith_waterman",
     "nw_tpu_torch.ops.variants_banded", "nw_tpu_torch.models.overlap",
     "nw_tpu_torch.models.affine", "nw_tpu_torch.batch_cli", "nw_tpu_torch.runtime.checkpoint",
+    "nw_tpu_torch.parallel", "nw_tpu_torch.parallel.mesh", "nw_tpu_torch.parallel.distributed",
+    "nw_tpu_torch.parallel.data_parallel", "nw_tpu_torch.parallel.huge_pair",
+    "nw_tpu_torch.parallel.workers",
 }
+
+
+def test_parallel_imports_with_jax_and_nw_tpu_blocked():
+    """nw_tpu_torch.parallel and its submodules import, and a gloo rank
+    group of two runs a sharded huge pair, while any import of jax or
+    nw_tpu raises."""
+    code = (
+        "import sys, importlib.abc\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'nw_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import nw_tpu_torch.parallel as par\n"
+        "from nw_tpu_torch.parallel import mesh, distributed, data_parallel, huge_pair, workers\n"
+        "from nw_tpu_torch.ops.encode import encode\n"
+        "with workers.RankGroup(2, 'gloo', 'cpu') as g:\n"
+        "    r = g.run(par.huge_pair_align_sharded, encode(b'GATTACA'), encode(b'GCAT'), 2, 1, 1,\n"
+        "              workers.MESH, device='cpu')\n"
+        "assert [x.score for x in r] == [1, 1], r\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_import_does_not_load_jax():
@@ -106,6 +134,14 @@ def test_wrappers_do_not_fall_back_off_cpu():
             torch.zeros(3, dtype=torch.int32, device="meta"), 0,
             torch.zeros(8, dtype=torch.int8, device="meta"),
         )
+    with pytest.raises(ValueError):
+        traceback.walk_masks_window(
+            torch.zeros((1, 6), dtype=torch.uint8, device="meta"),
+            torch.zeros(3, dtype=torch.int32, device="meta"), 0,
+            torch.zeros(8, dtype=torch.int8, device="meta"),
+        )
+    with pytest.raises(ValueError):
+        fill_single.fill_tile(one, one, 1, 1, 1, 0, 4, one[:5], one)
 
 
 def test_kernel_build_is_keyed_by_sources():

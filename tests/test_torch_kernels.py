@@ -490,3 +490,85 @@ def test_overlap_and_affine_batch_cuda_vs_cpu(cuda, mkd):
     np.testing.assert_array_equal(
         af.affine_score_pairs(ps, *sc, device="cuda"), af.affine_score_pairs(ps, *sc, device="cpu")
     )
+
+
+# (rows a block, columns a chunk) of the chained tiles: chunks that cut
+# code words (not multiples of 16 or 32), bands split across blocks
+TILE_GRIDS = [(40, 13), (33, 16), (64, 50), (7, 200)]
+
+
+def _decode_codes(codes, A, rows):
+    """Band-major 2-bit codes -> their cells, int64[rows, A+1]."""
+    r = torch.arange(rows, device=codes.device)[:, None]
+    t = torch.arange(A + 1, device=codes.device)[None, :] + (r & 31)
+    w = codes[0][r >> 5, t >> 4, r & 31].to(torch.int64) & 0xFFFFFFFF
+    return (w >> (2 * (t & 15))) & 3
+
+
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_tile_kernel_vs_plain(cuda, mkd):
+    """nw_fill_tile (K14's mesh half, K28) in all three modes, chained
+    over grids of row blocks and column chunks at several launch shapes:
+    the stitched codes equal nw_fill_codes_single's, the stitched masks
+    nw_fill_masks's, the last row and corner the plain fill's; on one
+    grid, every table and edge equals the plain tile's."""
+    from nw_tpu_torch.ops.fill_scan import fill_last_row
+    from nw_tpu_torch.parallel.huge_pair import chain_tiles
+
+    for n_pair, (s1, s2) in enumerate(_single_pairs(sum(mkd) + 9)):
+        top, side = _pair_tensors(s1, s2)
+        A, B = len(s1), len(s2)
+        if not B:
+            continue
+        tc, sc = top.to(cuda), side.to(cuda)
+        whole, score = fill_single.fill_codes_single(tc, sc, *mkd)
+        masks = fill_banded.fill_arrows_banded_single(tc, sc, *mkd)[0]
+        last = fill_last_row(top, side, *mkd)
+        for H, C in TILE_GRIDS:
+            for blocks, warps in [(1, 1), (2, 2), (None, 8)]:
+                for mode in ("scores", "codes", "masks"):
+                    got = chain_tiles(tc, sc, *mkd, H, C, mode, warps=warps, blocks=blocks)
+                    assert got[2] == int(score), (s1, s2, H, C, mode)
+                    torch.testing.assert_close(got[1].cpu(), last, rtol=0, atol=0)
+                    if mode == "codes":
+                        cells = torch.cat([_decode_codes(t, A, min(H, B - b * H))
+                                           for b, t in enumerate(got[0])])
+                        torch.testing.assert_close(cells, _decode_codes(whole, A, B), rtol=0, atol=0)
+                    if mode == "masks":
+                        torch.testing.assert_close(torch.cat(got[0]), masks[1:], rtol=0, atol=0)
+            if (H, C) == TILE_GRIDS[0] and n_pair < 6:
+                for mode in ("scores", "codes", "masks"):
+                    got = chain_tiles(tc, sc, *mkd, H, C, mode)
+                    want = chain_tiles(top, side, *mkd, H, C, mode)
+                    for g, w in zip(got[0], want[0]):
+                        if w is not None:
+                            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_mask_walk_kernel_vs_plain(cuda, mkd):
+    """nw_walk_window's masks mode, relayed over the row blocks of one
+    pair's K28 tiles, against its plain version and nw_walk."""
+    from nw_tpu_torch.parallel.huge_pair import chain_tiles
+
+    for s1, s2 in _single_pairs(sum(mkd) + 10):
+        top, side = _pair_tensors(s1, s2)
+        if not len(s2):
+            continue
+        S = len(s1) + len(s2)
+        tc, sc = top.to(cuda), side.to(cuda)
+        codes, _ = fill_single.fill_codes_single(tc, sc, *mkd)
+        ops, n = traceback.walk_codes_batch(codes, _lens(len(s1), cuda), _lens(len(s2), cuda), max(S, 1))
+        for H in (1, 17, 64):
+            masks, _, _ = chain_tiles(tc, sc, *mkd, H, 29, "masks")
+            ops_k = torch.full((S,), traceback.OP_NONE, dtype=torch.int8, device=cuda)
+            ops_p = torch.full((S,), traceback.OP_NONE, dtype=torch.int8)
+            st_k = torch.tensor([len(s1), len(s2), 0], dtype=torch.int32, device=cuda)
+            st_p = st_k.cpu().clone()
+            for b in range(len(masks) - 1, -1, -1):
+                traceback.walk_masks_window(masks[b], st_k, b * H, ops_k)
+                traceback.walk_masks_window_plain(masks[b].cpu(), st_p, b * H, ops_p)
+                torch.testing.assert_close(st_k.cpu(), st_p, rtol=0, atol=0)
+            assert st_p.tolist() == [0, 0, int(n[0])]
+            torch.testing.assert_close(ops_k.cpu(), ops_p, rtol=0, atol=0)
+            torch.testing.assert_close(ops_k.cpu(), ops[0, :S].cpu(), rtol=0, atol=0)
