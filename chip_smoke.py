@@ -1,6 +1,6 @@
 """Smoke run of nw_tpu_torch on one NVIDIA card: the batched aligner,
-the byte-parity CLI, the variant models, the batch CLI and the sharded
-runs.
+the byte-parity CLI, the variant models, the batch CLI, the sharded
+runs, the tie-mask routes and Hirschberg.
 
     python3 chip_smoke.py
 
@@ -149,9 +149,32 @@ Phases, in order; any mismatch or exception exits non-zero:
    each timed; the 1-rank path's one tile (the whole 100 000 bp pair)
    against ``nw_fill_codes_single`` (codes and corner), both timed.
 
+13. The tie-mask routes and Hirschberg: (a) ``nw_fill_masks_batch`` (K2's
+   batched tie masks, with and without counts), ``nw_count_masks`` (K6),
+   ``nw_walk_masks``, ``nw_fill_masks`` a pair at a time
+   (``fill_arrows_fold_batch``, K10) and ``nw_last_row`` (K9, rows 0,
+   len2/3 and len2) bit for bit against their plain versions under every
+   scoring (30 random and tie-dense pairs of 0-700 bp, the edge pairs,
+   all-'A' 24 x 16); then, with every launch counter set to 0,
+   (b) ``fill_arrows_auto`` + count + walk + host strings at 10 240 x
+   150 bp and 128 x 2 048 bp and (c) at 4 x 10 240 bp (the pair-at-a-time
+   route): every alignment re-scores to its score, scores and counts
+   equal ``nw_fill_codes``'s, every pair (one 10 240 bp pair) against the
+   plain path on the card; (d) ``align_batch`` with strings and counts of
+   4 x 10 240 bp, 16 x 4 096 bp and more small batches of long pairs on
+   the mask route and the codes route, outputs equal, both timed (median
+   of 3 warm runs, in turns); (e) ``hirschberg_align`` of phase 8's
+   100 000 bp pair (spells both inputs, re-scores to ``summary_huge``'s
+   score; wall, host leaves' share) and of a 10 240 bp pair, on the card
+   against ``device="cpu"`` (run in a process of its own meanwhile) byte
+   for byte, and ``nw_last_row`` against ``fill_last_row`` on the card at
+   the top-level split of the 10 240 and 20 000 bp pairs; every new
+   kernel must have launched; each kernel's time beside its plain
+   version's and its bound.
+
 Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu``,
-``nw_affine.cu`` and ``nw_single.cu``: registers and spills of every
-instantiation.
+``nw_affine.cu``, ``nw_single.cu`` and ``nw_count.cu``: registers and
+spills of every instantiation.
 
 Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
@@ -1146,7 +1169,7 @@ def start_ptxas_report():
              str(kernels.CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-        for src in ("nw_fill.cu", "nw_walk.cu", "nw_affine.cu", "nw_single.cu")
+        for src in ("nw_fill.cu", "nw_walk.cu", "nw_affine.cu", "nw_single.cu", "nw_count.cu")
     ]
 
 
@@ -2220,6 +2243,359 @@ def sharded_path(card, bound, groups, starts, errs, t_phase):
     return rec
 
 
+# ---------------- phase 13: the tie-mask routes and Hirschberg ----------------
+
+L_ARROWS = 2048  # fill_arrows_auto's batched-masks limit (LANES_ARROWS_MAX_SIDE): 128 pairs of it
+L_ROUTE = 4096  # align_batch's mask route against its codes route: 16 x 4 096 bp
+# (pairs, bp) of the route comparison: the two the rule is held to first
+ROUTE_SHAPES = [(4, L_LONG), (16, L_ROUTE), (4, L_ROUTE), (8, L_ROUTE), (8, L_LONG), (16, L_LONG),
+                (23, L_LONG)]
+MASK_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel
+    "nw_fill_masks_batch": ("fill_banded", "fill_masks_banded_batch"),
+    "nw_count_masks": ("pathcount", "count_masks_batch"),
+    "nw_walk_masks": ("traceback", "walk_masks_batch"),
+    "nw_fill_masks/fold": ("fill_single", "fill_arrows_fold_batch"),
+    "nw_last_row": ("fill_single", "last_row"),
+}
+# the 10 240 bp Hirschberg pair on the host CPU, in a process of its own
+# that runs while the phase's card work does
+HIRSCHBERG_CPU = (
+    "import sys, torch\n"
+    "torch.set_num_threads(1)\n"
+    "from nw_tpu_torch.ops.hirschberg import hirschberg_align\n"
+    "s1, s2 = (x.encode() for x in sys.argv[1:])\n"
+    "X, Y = hirschberg_align(s1, s2, 2, 1, 1, device='cpu')\n"
+    "sys.stdout.buffer.write(X + b' ' + Y)\n"
+)
+
+
+def mask_wrappers():
+    import importlib
+
+    return {name: getattr(importlib.import_module(f"nw_tpu_torch.ops.{mod}"), fn)
+            for name, (mod, fn) in MASK_KERNELS.items()}
+
+
+def mask_kernels_vs_plain(dev, errs):
+    """Phase 13 (a): every new kernel against its plain version under
+    every scoring, on random 0-700 bp pairs, tie-dense pairs, the edge
+    pairs and all-'A' 24 x 16; the plain versions' body (the
+    anti-diagonal fill with scores and counts) runs on every pair at
+    once, the plain wrappers themselves on the short pairs."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import pathcount as pc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops.fill_scan import diag_to_matrix_batch, fill_diag_batch, zero_outside
+
+    rng = np.random.default_rng(130)
+    pairs = (rand_pairs(rng, 24, 0, 700) + rand_pairs(rng, 6, 100, 400, b"AC") + EDGE
+             + [(b"A" * 24, b"A" * 16)])
+    short = EDGE + [(b"A" * 24, b"A" * 16), (b"ACCATTG", b"CATAG")] + rand_pairs(rng, 2, 30, 90)
+    batches = [enc.upload(enc.encode_batch(ps, max(len(a) for a, _ in ps), max(len(b) for _, b in ps)), dev)
+               for ps in (pairs, short)]
+    (tops, sides, l1, l2), st = batches
+    S = tops.shape[1] + sides.shape[1]
+    for mkd in SCORINGS:
+        e = {name: 0 for name in MASK_KERNELS}
+        ref = fill_diag_batch(tops, sides, l1, l2, *mkd, with_counts=True, with_scores=True)
+        want = zero_outside(diag_to_matrix_batch(ref["arrows"]), l1, l2)
+        for wc in (False, True):
+            got = fb.fill_masks_banded_batch(tops, sides, l1, l2, *mkd, with_counts=wc)
+            e["nw_fill_masks_batch"] = max([e["nw_fill_masks_batch"], max_abs_err(got[0], want),
+                                            max_abs_err(got[1], ref["score"])]
+                                           + ([max_abs_err(got[2], ref["count"])] if wc else []))
+        fold = fs.fill_arrows_fold_batch(tops, sides, l1, l2, *mkd)
+        e["nw_fill_masks/fold"] = max(max_abs_err(g, w) for g, w in zip(fold, (want, ref["score"], ref["count"])))
+        e["nw_count_masks"] = max_abs_err(pc.count_masks_batch(got[0], l1, l2),
+                                          pc.count_masks_batch_plain(want, l1, l2))
+        e["nw_walk_masks"] = max(max_abs_err(g, w) for g, w in zip(
+            tb.walk_masks_batch(got[0], l1, l2, S), tb.walk_masks_batch_plain(want, l1, l2, S)))
+        for b, (n1, n2) in enumerate(zip(l1.tolist(), l2.tolist())):
+            for j in sorted({0, n2 // 3, n2}):
+                row = fs.last_row(tops[b], sides[b], *mkd, len1=n1, len2=j)
+                idx = torch.arange(n1 + 1, device=dev)
+                e["nw_last_row"] = max(e["nw_last_row"], max_abs_err(row, ref["scores"][b, j + idx, j]))
+        # the plain wrappers themselves, on the short pairs
+        for g, w in zip(fb.fill_masks_banded_batch(*st, *mkd, with_counts=True),
+                        fb.fill_masks_banded_batch_plain(*st, *mkd, with_counts=True)):
+            e["nw_fill_masks_batch"] = max(e["nw_fill_masks_batch"], max_abs_err(g, w))
+        for g, w in zip(fs.fill_arrows_fold_batch(*st, *mkd),
+                        fs.fill_arrows_fold_batch_plain(*st, *mkd)):
+            e["nw_fill_masks/fold"] = max(e["nw_fill_masks/fold"], max_abs_err(g, w))
+        for b, (n1, n2) in enumerate(zip(st[2].tolist(), st[3].tolist())):
+            e["nw_last_row"] = max(e["nw_last_row"], max_abs_err(
+                fs.last_row(st[0][b], st[1][b], *mkd, n1, n2), fs.last_row_plain(st[0][b], st[1][b], *mkd, n1, n2)))
+        for name, v in e.items():
+            errs[name] = max(errs[name], v)
+        log(f"phase 13 (a) kernels vs plain, {len(pairs)} pairs + {len(short)} short, m k d = {mkd}: {e}")
+        del ref, want
+    if any(errs.values()):
+        fail(f"a mask-route kernel differs from its plain version: {errs}")
+
+
+class forced_route:
+    """``NWAligner.align_batch`` with the small-long-batch rule forced to
+    one route (True: the mask route, False: the codes route)."""
+
+    def __init__(self, masks: bool):
+        self.masks = masks
+
+    def __enter__(self):
+        from nw_tpu_torch.models import needleman_wunsch as nwm
+
+        self.saved = nwm.takes_mask_route
+        nwm.takes_mask_route = lambda *_: self.masks
+
+    def __exit__(self, *exc):
+        from nw_tpu_torch.models import needleman_wunsch as nwm
+
+        nwm.takes_mask_route = self.saved
+
+
+def masks_path(card, a211, route_pairs, big, p10, timers):
+    """Phase 13 (b)-(e) with every new kernel's launch counter from 0:
+    fill_arrows_auto, count and walk at 10 240 x 150 bp, 128 x 2 048 bp
+    and 4 x 10 240 bp; align_batch of small batches of long pairs on both
+    routes; hirschberg_align at 100 000 and 10 240 bp.  Returns the
+    outputs, walls and launches."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_auto
+    from nw_tpu_torch.ops import hirschberg as hb
+    from nw_tpu_torch.ops import pathcount as pc
+    from nw_tpu_torch.ops import traceback as tb
+
+    dev = torch.device("cuda")
+    wrappers = mask_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    rng = np.random.default_rng(131)
+    out = {}
+    for key, nb, L in (("b", 10240, L_SHORT), ("b", 128, L_ARROWS), ("c", 4, L_LONG)):
+        ps = rand_pairs(rng, nb, L, L)
+        T = enc.upload(enc.encode_batch(ps, L, L), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, axis, scores = fill_auto.fill_arrows_auto(*T, 2, 1, 1)
+        counts = pc.count_masks_batch(masks, T[2], T[3])
+        ops, n = tb.walk_masks_batch(masks, T[2], T[3], 2 * L)
+        aligned = tb.ops_to_strings_batch(ops.cpu().numpy(), n.cpu().numpy(), ps)
+        wall = time.perf_counter() - t0
+        if axis != 0 or masks.shape != (len(ps), L + 1, L + 1):
+            fail(f"fill_arrows_auto {nb}x{L}bp: masks {tuple(masks.shape)}, batch axis {axis}")
+        out[nb, L] = dict(key=key, pairs=ps, T=T, masks=masks, scores=scores, counts=counts,
+                          ops=ops, n=n, aligned=aligned, wall=wall)
+    routes = {}
+    for nb, L in ROUTE_SHAPES:
+        ps = route_pairs[nb, L]
+        for masks_route in (True, False, False, True, True, False, False, True):
+            with forced_route(masks_route):
+                t0 = time.perf_counter()
+                r = a211.align_batch(ps, traceback_strings=True, count=True)
+                routes.setdefault((nb, L, masks_route), []).append((time.perf_counter() - t0, r))
+    # Hirschberg: the host leaves, host rows and card rows timed apart
+    saved = {name: getattr(hb, name) for name in timers}
+
+    def timed(name):
+        fn = saved[name]
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                timers[name] += time.perf_counter() - t0
+        return run
+
+    for name in timers:
+        setattr(hb, name, timed(name))
+    try:
+        t0 = time.perf_counter()
+        big_xy = hb.hirschberg_align(*big, 2, 1, 1, device="cuda")
+        hb_wall = time.perf_counter() - t0
+        hb_split = dict(timers)
+        t0 = time.perf_counter()
+        p10_xy = hb.hirschberg_align(*p10, 2, 1, 1, device="cuda")
+        hb10_wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(hb, name, fn)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"phase 13 path launches: {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the mask routes or Hirschberg never launched: {launches}")
+    return out, routes, (big_xy, hb_wall, hb_split, p10_xy, hb10_wall), launches
+
+
+def masks_phase(card, bound):
+    """Phase 13: the tie-mask routes and Hirschberg.  Returns the new
+    kernels' record fields."""
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.models import needleman_wunsch as nwm
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_auto
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import hirschberg as hb
+    from nw_tpu_torch.ops import pathcount as pc
+    from nw_tpu_torch.ops import traceback as tb
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    a211 = NWAligner(AlignConfig(scoring=ScoringParams(2, 1, 1)), device="cuda")
+    big = rand_pairs(np.random.default_rng(L_HUGE), 1, L_HUGE, L_HUGE)[0]  # phase 8's pair
+    p10 = rand_pairs(np.random.default_rng(132), 1, L_LONG, L_LONG)[0]
+    cpu_proc = subprocess.Popen([sys.executable, "-c", HIRSCHBERG_CPU, *(s.decode() for s in p10)],
+                                stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    t_cpu = time.perf_counter()
+    try:
+        errs = {name: 0 for name in MASK_KERNELS}
+        t0 = time.perf_counter()
+        mask_kernels_vs_plain(dev, errs)
+        log(f"phase 13 (a) seconds {time.perf_counter() - t0:.1f}")
+        route_pairs = {(nb, L): rand_pairs(np.random.default_rng(nb * L), nb, L, L) for nb, L in ROUTE_SHAPES}
+        timers = {"_small_align": 0.0, "_host_last_row": 0.0, "_device_last_row": 0.0}
+        out, routes, hbr, launches = masks_path(card, a211, route_pairs, big, p10, timers)
+        big_xy, hb_wall, hb_split, p10_xy, hb10_wall = hbr
+        rec = {}
+
+        # (b), (c): fill_arrows_auto, count and walk
+        for (nb, L), o in out.items():
+            T, ps = o["T"], o["pairs"]
+            if not np.array_equal(rescore(ps, o["aligned"], 2, 1, 1), o["scores"].cpu().numpy().astype(np.int64)):
+                fail(f"fill_arrows_auto {nb}x{L}bp: an alignment does not re-score to its score")
+            ref = fb.fill_scores_counts_banded_batch(*T, 2, 1, 1)  # nw_fill_codes's fused counts
+            if max_abs_err(o["scores"], ref[0]) or max_abs_err(o["counts"], ref[1]):
+                fail(f"fill_arrows_auto {nb}x{L}bp: scores or counts differ from nw_fill_codes's")
+            sub = slice(None) if o["key"] == "b" else slice(0, 1)  # all pairs; one 10 240 bp pair
+            Ts = [t[sub] for t in T]
+            plain_fill, kw = ((fb.fill_masks_banded_batch_plain, {"with_counts": True}) if o["key"] == "b"
+                              else (fs.fill_arrows_fold_batch_plain, {}))
+            (pm, psc, pct), o["plain_fill_ms"] = cuda_once(lambda: plain_fill(*Ts, 2, 1, 1, **kw))
+            pcnt, o["plain_count_ms"] = cuda_once(lambda: pc.count_masks_batch_plain(pm, *Ts[2:]))
+            (pops, pn), o["plain_walk_ms"] = cuda_once(lambda: tb.walk_masks_batch_plain(pm, *Ts[2:], 2 * L))
+            e_fill = max(max_abs_err(o["masks"][sub], pm), max_abs_err(o["scores"][sub], psc),
+                         max_abs_err(o["counts"][sub], pct))
+            e_count = max_abs_err(o["counts"][sub], pcnt)
+            e_walk = max(max_abs_err(o["ops"][sub], pops), max_abs_err(o["n"][sub], pn))
+            fill_name = "nw_fill_masks_batch" if o["key"] == "b" else "nw_fill_masks/fold"
+            errs[fill_name] = max(errs[fill_name], e_fill)
+            errs["nw_count_masks"] = max(errs["nw_count_masks"], e_count)
+            errs["nw_walk_masks"] = max(errs["nw_walk_masks"], e_walk)
+            log(f"phase 13 ({o['key']}) fill_arrows_auto {nb}x{L}bp (2 1 1), count, walk, host strings: "
+                f"wall {o['wall']:.4f} s; every alignment re-scores to its score, scores and counts equal "
+                f"nw_fill_codes's; {'all' if o['key'] == 'b' else 'one'} pair(s) vs plain on the card: fill "
+                f"{e_fill} ({o['plain_fill_ms']:.1f} ms), count {e_count} ({o['plain_count_ms']:.1f} ms), "
+                f"walk {e_walk} ({o['plain_walk_ms']:.1f} ms) [{card}]")
+            del pm, pcnt, pops
+        if any(errs.values()):
+            fail(f"a mask-route kernel differs from its plain version at the path's shapes: {errs}")
+
+        # (d): align_batch's small-long-batch route against its codes route
+        for nb, L in ROUTE_SHAPES:
+            runs = {flag: routes[nb, L, flag] for flag in (True, False)}
+            rm, rc = runs[True][0][1], runs[False][0][1]
+            for r in (rm, rc):
+                if r.ops.shape != (nb, 2 * a211.config.bucket_for(L)):
+                    fail(f"align_batch {nb}x{L}bp: ops {r.ops.shape}")
+            if not all(np.array_equal(getattr(rm, f), getattr(rc, f)) for f in ("scores", "counts", "ops", "ops_len")):
+                fail(f"align_batch {nb}x{L}bp: the mask route's outputs differ from the codes route's")
+            med = {flag: statistics.median(w for w, _ in rs[1:]) for flag, rs in runs.items()}
+            rule = "masks" if fill_auto.takes_mask_route(nb, L, L) else "codes"
+            log(f"phase 13 (d) align_batch {nb}x{L}bp strings+counts (2 1 1): mask route {med[True] * 1e3:.2f} ms, "
+                f"codes route {med[False] * 1e3:.2f} ms (median of 3 warm; cold {runs[True][0][0] * 1e3:.1f} / "
+                f"{runs[False][0][0] * 1e3:.1f} ms); outputs equal; the rule takes {rule} [{card}]")
+
+        # (e): Hirschberg
+        X, Y = big_xy
+        score = nwm._rescore(X, Y, 2, 1, 1)
+        want = a211.summary_huge(*big)[0]
+        rescore([big], [big_xy], 2, 1, 1)  # spells both inputs, no gap column
+        if score != want:
+            fail(f"hirschberg_align {L_HUGE} bp re-scores to {score}, summary_huge says {want}")
+        log(f"phase 13 (e) hirschberg_align {L_HUGE} bp (2 1 1): spells both inputs, re-scores to "
+            f"summary_huge's {want}; wall {hb_wall:.2f} s, of which host leaves (_small_align) "
+            f"{hb_split['_small_align']:.2f} s ({100 * hb_split['_small_align'] / hb_wall:.1f}%), host rows "
+            f"{hb_split['_host_last_row']:.2f} s, card rows (nw_last_row) {hb_split['_device_last_row']:.2f} s "
+            f"[{card}]")
+        stdout, stderr = cpu_proc.communicate(timeout=max(60.0, 900 - (time.perf_counter() - t_cpu)))
+        if cpu_proc.returncode != 0:
+            fail(f"hirschberg_align(device='cpu') failed:\n{stderr.decode()[-2000:]}")
+        if tuple(stdout.split(b" ")) != p10_xy:
+            fail(f"hirschberg_align {L_LONG} bp: the card's bytes differ from device='cpu'")
+        log(f"phase 13 (e) hirschberg_align {L_LONG} bp: card ({hb10_wall:.2f} s) equals device='cpu' "
+            f"(its own process, {time.perf_counter() - t_cpu:.1f} s after its start) byte for byte [{card}]")
+        k9 = {}
+        for L, pair in ((L_LONG, p10), (L_CROSS, (big[0][:L_CROSS], big[1][:L_CROSS]))):
+            top, side = (torch.from_numpy(np.frombuffer(s, np.uint8).astype(np.int32)).to(dev) for s in pair)
+            h = L // 2  # the top-level split's forward row
+            got = fs.last_row(top, side[:h], 2, 1, 1)
+            plain, plain_ms = cuda_once(lambda: fs.last_row_plain(top, side[:h], 2, 1, 1))
+            errs["nw_last_row"] = max(errs["nw_last_row"], max_abs_err(got, plain))
+            k9[L] = (cuda_ms(lambda: fs.last_row(top, side[:h], 2, 1, 1), 3), plain_ms, top, side[:h])
+            log(f"phase 13 (e) nw_last_row at the top-level split of {L} bp ({L}x{h}): max |diff| vs "
+                f"fill_last_row {errs['nw_last_row']}; kernel {k9[L][0]:.3f} ms, plain {plain_ms:.1f} ms [{card}]")
+        if errs["nw_last_row"]:
+            fail(f"nw_last_row differs from fill_last_row at the path's splits: {errs}")
+
+        # times at the path's shapes, and the record
+        o = out[128, L_ARROWS]
+        T, masks = o["T"], o["masks"]
+        cells = int((T[2].to(torch.int64) * T[3]).sum())
+        fill_ms = cuda_ms(lambda: fb.fill_masks_banded_batch(*T, 2, 1, 1), 3)
+        fill_c_ms = cuda_ms(lambda: fb.fill_masks_banded_batch(*T, 2, 1, 1, with_counts=True), 3)
+        count_ms = cuda_ms(lambda: pc.count_masks_batch(masks, *T[2:]), 3)
+        walk_ms = cuda_ms(lambda: tb.walk_masks_batch(masks, *T[2:], 2 * L_ARROWS), 3)
+        steps = int(o["n"].sum())
+        rec["nw_fill_masks_batch"] = dict(
+            ms=fill_ms, plain_ms=o["plain_fill_ms"],
+            **bound(cells * (OPS_SCORE + OPS_CODE), tensor_bytes(*T, masks, o["scores"])),
+            shape=f"128x{L_ARROWS}bp masks (with counts {fill_c_ms:.3f} ms; plain_ms with counts)")
+        rec["nw_count_masks"] = dict(
+            ms=count_ms, plain_ms=o["plain_count_ms"],
+            **bound(cells * OPS_COUNT, tensor_bytes(masks, *T[2:]) + 4 * len(o["pairs"])),
+            shape=f"128x{L_ARROWS}bp masks")
+        rec["nw_walk_masks"] = dict(
+            ms=walk_ms, plain_ms=o["plain_walk_ms"],
+            **bound(steps * OPS_WALK_STEP, tensor_bytes(*T[2:], o["n"]) + 2 * steps),
+            shape=f"128x{L_ARROWS}bp, {steps} steps")
+        for nb, L in ((10240, L_SHORT), (4, L_LONG)):
+            ob = out[nb, L]
+            log(f"phase 13 kernels at {nb}x{L}bp: nw_fill_masks_batch "
+                f"{cuda_ms(lambda: fb.fill_masks_banded_batch(*ob['T'], 2, 1, 1), 3):.3f} ms, nw_count_masks "
+                f"{cuda_ms(lambda: pc.count_masks_batch(ob['masks'], *ob['T'][2:]), 2):.3f} ms, nw_walk_masks "
+                f"{cuda_ms(lambda: tb.walk_masks_batch(ob['masks'], *ob['T'][2:], 2 * L), 2):.3f} ms [{card}]")
+        oc = out[4, L_LONG]
+        fold_ms = cuda_ms(lambda: fs.fill_arrows_fold_batch(*oc["T"], 2, 1, 1), 2)
+        one_ms = cuda_ms(lambda: fs.fill_arrows_fold_batch(*(t[:1] for t in oc["T"]), 2, 1, 1), 3)
+        rec["nw_fill_masks/fold"] = dict(
+            ms=fold_ms, plain_ms=oc["plain_fill_ms"],
+            **bound(4 * L_LONG * L_LONG * (OPS_SCORE + OPS_COUNT + OPS_CODE),
+                    tensor_bytes(*oc["T"], oc["masks"], oc["scores"], oc["counts"])),
+            shape=f"4x{L_LONG}bp masks+counts, a pair at a time (plain_ms at 1x{L_LONG}bp, "
+                  f"kernel there {one_ms:.3f} ms)")
+        k9_ms, k9_plain, top, side = k9[L_LONG]
+        rec["nw_last_row"] = dict(
+            ms=k9_ms, plain_ms=k9_plain,
+            **bound(top.shape[0] * side.shape[0] * OPS_SCORE, tensor_bytes(top, side) + 4 * (top.shape[0] + 1)),
+            shape=f"1x{L_LONG}bp, the top-level split's row ({L_LONG}x{side.shape[0]}); at {L_CROSS}bp "
+                  f"{k9[L_CROSS][0]:.3f} ms, plain {k9[L_CROSS][1]:.1f} ms")
+        for name, fields in rec.items():
+            fields.update(launches=launches[name], max_abs_err=errs[name])
+            log(f"kernel {name}: {fields['ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms "
+                f"({fields['bound_by']}), plain {fields['plain_ms']:.1f} ms, {fields['shape']} [{card}]")
+        log(f"phase 13 seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+        return rec
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2483,6 +2859,8 @@ def main() -> None:
     gotoh_rec = gotoh_phase(card, bound, c3_strings)
     # 12. sharded runs (their own ranks and launch counters)
     sharded_rec = sharded_phase(card, bound)
+    # 13. the tie-mask routes and Hirschberg (their own launch counters)
+    masks_rec = masks_phase(card, bound)
     sw_rec["sw_walk"]["launches"] += overlap_walk["launches"]
     sw_rec["sw_walk"]["max_abs_err"] = max(sw_rec["sw_walk"]["max_abs_err"], overlap_walk["max_abs_err"])
     sw_rec["sw_walk"]["shape"] += f"; overlap walks 128x{L_SW_TB}bp {overlap_walk['ms']:.3f} ms"
@@ -2581,6 +2959,19 @@ def main() -> None:
         src = "nw_tpu_torch/csrc/nw_walk.cu" if name.startswith("nw_walk") else single_src
         kernels_line.append({"name": name, "route": "cuda", "source": src,
                              "replaces": sharded_replaces[name], **fields})
+    masks_replaces = {
+        "nw_fill_masks_batch": "nw_tpu/ops/fill_pallas_banded.py:342 (K2's batched pack_bits=8 mode, "
+                               "launched :969)",
+        "nw_count_masks": "nw_tpu/ops/fill_pallas.py:703 (K6, launched :784)",
+        "nw_walk_masks": "nw_tpu/ops/traceback.py:38 (traceback_greedy, vmapped :197-207)",
+        "nw_fill_masks/fold": "nw_tpu/ops/fill_pallas_single.py:422 (K10, launched :561)",
+        "nw_last_row": "nw_tpu/ops/fill_pallas_single.py:83 (K9, launched :198)",
+    }
+    masks_src = {"nw_fill_masks_batch": "nw_tpu_torch/csrc/nw_fill.cu", "nw_count_masks": "nw_tpu_torch/csrc/nw_count.cu",
+                 "nw_walk_masks": "nw_tpu_torch/csrc/nw_walk.cu"}
+    for name, fields in masks_rec.items():
+        kernels_line.append({"name": name, "route": "cuda", "source": masks_src.get(name, single_src),
+                             "replaces": masks_replaces[name], **fields})
     for kern in kernels_line:
         kern["library_ms"] = None  # no one PyTorch call computes a DP fill or walk
     record = {"kernels": kernels_line}

@@ -6,8 +6,11 @@ The aligner (:class:`NWAligner`: ``align``, ``summary_huge``,
 ``align_huge``, ``align_batch``), the variant models
 (:mod:`nw_tpu_torch.models`: Smith-Waterman, overlap and Gotoh
 affine-gap scores and alignments), the byte-parity CLI
-(``python -m nw_tpu_torch``) and the batch CLI
-(``python -m nw_tpu_torch.batch_cli``, all four models) run their fills
+(``python -m nw_tpu_torch``), the batch CLI
+(``python -m nw_tpu_torch.batch_cli``, all four models), the tie-mask
+routes (:func:`nw_tpu_torch.ops.fill_auto.fill_arrows_auto`) and
+Hirschberg's aligner (:func:`nw_tpu_torch.ops.hirschberg.hirschberg_align`)
+run their fills
 and walks through CUDA C++ kernels written for ``sm_90a``
 (``csrc/``, built on first use by :mod:`nw_tpu_torch.runtime.kernels`);
 every kernel has a plain PyTorch version beside it, which is what runs

@@ -17,6 +17,9 @@
 //      nw_tpu/ops/variants_banded.py:_make_banded_overlap_kernel
 //      (scores)                                            -> overlap_scores
 //   K19 with words and argmax                              -> overlap_fill_codes
+//   K2 in its batched pack_bits=8 tie-mask mode, with and without
+//      with_counts (fill_arrows_banded_batch / fill_arrows_banded_single,
+//      launched at fill_pallas_banded.py:969)              -> nw_fill_masks_batch
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163, with
 // the boundaries written explicitly (row 0: -c*d, LEFT, one path;
@@ -88,6 +91,22 @@
 // 0.  When no cell beats 0 the argmax is the zero-cost corner (j, i) =
 // (0, len1), or (len2, 0) when len1 is 0 (overlap.py:91-97).  The end
 // window is two compares a step on a lane's loop-invariant column range.
+//
+// The MASKS mode is the global sweep storing each cell's 3-bit tie mask
+// (bit0 diag, bit1 left, bit2 up; the ARROW_* bits) instead of a code,
+// one byte a cell, row-major: uint8[B, Bs+1, A+1], a pair's rows one
+// after another.  Row 0 is LEFT, column 0 UP, the origin 0, and every
+// cell outside the pair's true (len2+1) x (len1+1) table is 0, all
+// written explicitly (nothing is zeroed first).  The 32 lanes hold 32
+// rows, so a per-step byte store would be 32 transactions; instead each
+// lane writes its mask into the warp's 32-row x 64-column byte ring in
+// shared memory (column c in slot c % 64, at most 63 columns live), and
+// after every 32-step chunk the warp stores the 32 columns that all its
+// lanes have finished, row by row: 32 lanes on 32 consecutive bytes, one
+// coalesced store a row, as nw_single.cu's masks mode does.  The masks
+// are 1 byte a cell against the codes' 2 bits (4x the stores), so at
+// 128 x 2 kb pairs the stores (537 MB) stay well below the sweep's own
+// latency bound.  Counts ride the sweep as in the global mode.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -105,11 +124,17 @@ constexpr int kCodeDiag = 0;
 constexpr int kCodeLeft = 1;
 constexpr int kCodeUp = 2;
 constexpr int kCodeStop = 3;
+constexpr unsigned kMaskDiag = 1u;
+constexpr unsigned kMaskLeft = 2u;
+constexpr unsigned kMaskUp = 4u;
+constexpr int kRingCols = 64;  // columns of the MASKS mode's byte ring
+constexpr int kRingBytes = 32 * kRingCols;
 
 // the recurrence a fill runs
 constexpr int kGlobal = 0;   // Needleman-Wunsch
 constexpr int kLocal = 1;    // Smith-Waterman
 constexpr int kOverlap = 2;  // overlap: free end gaps
+constexpr int kMasks = 3;    // Needleman-Wunsch storing tie masks
 
 // (score, kk, j) ranks above (tb, tk, tj): higher score, then the
 // earlier anti-diagonal, then the lower row
@@ -129,8 +154,12 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
     int* __restrict__ istar) {
   constexpr bool LOCAL = MODE == kLocal;
   constexpr bool OVERLAP = MODE == kOverlap;
-  constexpr bool FREE = MODE != kGlobal;  // row 0 and column 0 are 0; a best cell is kept
+  constexpr bool MASKS = MODE == kMasks;
+  constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
   static_assert(!(FREE && WITH_COUNTS), "a local or overlap fill has no counts");
+  static_assert(!(MASKS && EMIT_CODES), "a masks fill stores masks, not codes");
+  // MASKS: the warp's byte ring (dynamic shared memory, kRingBytes)
+  extern __shared__ unsigned char mring[];
   constexpr bool ARGMAX = FREE && EMIT_CODES;
   const int lane = threadIdx.x;
   const int64_t b = blockIdx.x;
@@ -143,11 +172,16 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
   unsigned* crow = WITH_COUNTS ? cbnd + b * M : nullptr;
   const int l1 = lens1[b];
   const int l2 = lens2[b];
+  // MASKS: this pair's table, uint8[Bs+1, A+1] (codes holds the batch's)
+  unsigned char* pm = MASKS
+      ? reinterpret_cast<unsigned char*>(codes) + b * (Bs + 1) * static_cast<int64_t>(M)
+      : nullptr;
 
   // row 0: H[0][c] = -c*d, LEFT, one path; 0 in the local and overlap modes
   for (int c = lane; c < M; c += 32) {
     brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
     if (WITH_COUNTS) crow[c] = 1u;
+    if (MASKS) pm[c] = c >= 1 && c <= l1 ? kMaskLeft : 0u;
   }
   if (!FREE && l2 == 0 && lane == 0) {
     scores[b] = wsub(0, wmul(l1, d));
@@ -203,6 +237,11 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         if (LOCAL) hn = max(hn, 0);
         unsigned code = cand_d == hn ? kCodeDiag : (cand_l == hn ? kCodeLeft : kCodeUp);
         if (LOCAL) code = hn <= 0 ? kCodeStop : code;  // a local start
+        unsigned mask = 0u;
+        if (MASKS) {
+          mask = (cand_d == hn ? kMaskDiag : 0u) | (cand_l == hn ? kMaskLeft : 0u) |
+                 (cand_u == hn ? kMaskUp : 0u);
+        }
         unsigned cn = 0;
         if (WITH_COUNTS) {
           cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
@@ -212,6 +251,10 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         hn = col_zero ? col0 : hn;
         code = col_zero ? (FREE ? kCodeStop : kCodeUp) : code;
         cn = col_zero ? 1u : cn;
+        if (MASKS) {  // 0 outside the true table; a slot of c < 0 is written again before it is stored
+          mask = col_zero ? kMaskUp : mask;
+          mring[lane * kRingCols + (c & (kRingCols - 1))] = j <= l2 && c <= l1 ? mask : 0u;
+        }
         const bool in_row = c >= 0 && c <= A;
         if (!FREE && in_row && j == l2 && c == l1) {  // the true corner
           scores[b] = hn;
@@ -247,6 +290,17 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
           cup_prev = cup;
           cnt = cn;
         }
+      }
+      if (MASKS) {  // every lane has finished columns t0-31 .. t0: store them, row by row
+        __syncwarp();
+        const int col = t0 - 31 + lane;
+        if (col >= 0 && col <= A) {
+          const unsigned char* src = mring + (col & (kRingCols - 1));
+          unsigned char* dst = pm + static_cast<int64_t>(band * 32 + 1) * M + col;
+          const int rows = min(32, Bs - band * 32);
+          for (int r = 0; r < rows; ++r) dst[static_cast<int64_t>(r) * M] = src[r * kRingCols];
+        }
+        __syncwarp();  // read before the next chunk overwrites the slots
       }
     }
     __syncwarp();  // the band's boundary row is complete before the next band reads it
@@ -295,7 +349,7 @@ int launch_fill(const int* tops, const int* sides, const int* lens1,
                 unsigned* counts, cudaStream_t stream, int* jstar = nullptr,
                 int* istar = nullptr) {
   if (B <= 0) return 0;
-  nw_fill_kernel<EMIT_CODES, WITH_COUNTS, MODE><<<B, 32, 0, stream>>>(
+  nw_fill_kernel<EMIT_CODES, WITH_COUNTS, MODE><<<B, 32, MODE == kMasks ? kRingBytes : 0, stream>>>(
       tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores,
       counts, jstar, istar);
   return static_cast<int>(cudaGetLastError());
@@ -387,6 +441,27 @@ extern "C" int overlap_fill_codes(const int* tops, const int* sides,
       tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd, nullptr,
       static_cast<unsigned*>(codes), best, nullptr,
       static_cast<cudaStream_t>(stream), jstar, istar);
+}
+
+// K2 pack_bits=8 port for a batch: tie masks uint8[B, Bs+1, A+1]
+// (row-major, a pair's table after another; 0 outside each true table),
+// scores int32[B] and, with with_counts, uint32 counts[B].  bnd / cbnd
+// are [B, A+1] scratch (cbnd only with counts).
+extern "C" int nw_fill_masks_batch(const int* tops, const int* sides,
+                                   const int* lens1, const int* lens2, int B,
+                                   int A, int Bs, int m, int k, int d,
+                                   int with_counts, int* bnd, void* cbnd,
+                                   void* masks, int* scores, void* counts,
+                                   void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto mk = static_cast<unsigned*>(masks);  // the kernel reads it as bytes
+  if (with_counts)
+    return launch_fill<false, true, kMasks>(
+        tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd,
+        static_cast<unsigned*>(cbnd), mk, scores, static_cast<unsigned*>(counts), s);
+  return launch_fill<false, false, kMasks>(tops, sides, lens1, lens2, B, A, Bs,
+                                           m, k, d, bnd, nullptr, mk, scores,
+                                           nullptr, s);
 }
 
 extern "C" const char* nw_error_string(int err) {

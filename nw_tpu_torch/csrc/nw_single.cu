@@ -23,6 +23,13 @@
 //   K12 nw_tpu/ops/checkpoint_traceback.py:61 _make_ckpt_kernel
 //       (fill dumping its state every C diagonals)         -> nw_score_single
 //                                                             with ckpt
+//   K9  nw_tpu/ops/fill_pallas_single.py:83 _make_kernel
+//       (last_row_pallas: one pair's row H[len2, 0..A], for
+//       Hirschberg)                                        -> nw_last_row
+//   K10 nw_tpu/ops/fill_pallas_single.py:422 _make_arrows_kernel
+//       (fill_arrows_fold_batch: the tie masks of a batch of long pairs,
+//       one pair at a time)                                -> nw_fill_masks,
+//                                                             a pair at a time
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163 on the
 // pair's exact (len2+1) x (len1+1) table, with row 0 (-c*d, LEFT, one
@@ -57,7 +64,9 @@
 // nw_fill_masks also stores each cell's 3-bit tie mask (bit0 diag, bit1
 // left, bit2 up; row 0 LEFT, column 0 UP, origin 0) into a rectangular
 // row-major uint8[len2+1, len1+1] and, when asked, its int32 score into
-// an int32 table of the same shape.  The 32 lanes of a warp hold 32
+// an int32 table of the same shape.  The masks' rows may be wider than the
+// pair (a row stride ldm >= len1+1): K10's port writes each pair of a
+// batch into its slice of one uint8[B, Bs+1, A+1] table.  The 32 lanes of a warp hold 32
 // different rows, so a per-step store of a mask is 32 transactions,
 // which made the masks cost ~6x the fill on the H100 (PERF.md, section
 // 6).  So each lane writes
@@ -79,7 +88,11 @@
 // its row above from the seed, column 0 stays -j*d with the global j.
 // nw_score_single is the score pipeline without counts; given ckpt it
 // also writes row r*C (lane 31 of a band, every column) into ckpt[r],
-// row 0 included, through the ring's __stcg path.
+// row 0 included, through the ring's __stcg path.  nw_last_row (its
+// LAST_ROW mode, K9) writes row Bs, whatever Bs, into an int32[A+1] row:
+// the lane of row Bs stores each of its cells (row 0's -c*d when Bs is
+// 0), column 0 explicit as everywhere, so the row follows fill_scan at
+// every scoring (K9 rests on the NEG_INF decay).
 //
 // nw_fill_tile (TILE) fills one tile of a pair whose rows are sharded
 // over ranks (nw_tpu_torch/parallel/huge_pair.py): rows r0+1 .. r0+Bs and
@@ -150,6 +163,8 @@ struct Outs {
   int every;             // rows between two checkpoint rows
   int* score;
   unsigned* count;
+  int* last;             // int32[A+1]: row Bs (LAST_ROW)
+  int ldm;               // the masks' row stride (0: A+1)
 };
 
 template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES,
@@ -172,6 +187,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
   const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
   const int c0 = TILE ? tile.c0 : 0;
   const int Mw = TILE ? tile.width + 1 : M;  // the tables' row of columns
+  const int ldm = TILE ? Mw : (out.ldm ? out.ldm : M);  // the masks' row stride
   const int TW = 2 * ((Mw + 31 + 31) >> 5);  // code words of a band row
   const int cmin = c0 > 0 ? 1 : 0;  // a tile's column 0 is the last tile's
   const int nbands = (Bs + 31) >> 5;
@@ -184,6 +200,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
     if (EMIT_MASKS) masks[c] = c == 0 ? 0 : kMaskLeft;
     if (EMIT_SCORES) hs[c] = wsub(0, wmul(c, d));
     if (out.ckpt && Bs > 0) __stcg(out.ckpt + c, wsub(0, wmul(c, d)));
+    if (out.last && Bs == 0) out.last[c] = wsub(0, wmul(c, d));
   }
   if (!TILE && Bs == 0 && gthread == 0) {  // the corner is on the row above
     *out.score = seed ? seed[A] : wsub(0, wmul(A, d));
@@ -208,6 +225,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
     // rows r*C (C = out.every) below the last go to ckpt[r]
     const bool dump = out.ckpt && lane == 31 && j < Bs && j % out.every == 0;
     int* dump_row = dump ? out.ckpt + static_cast<int64_t>(j / out.every) * M : nullptr;
+    int* const last = !TILE && out.last && j == Bs ? out.last : nullptr;  // row Bs's lane
     int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
     unsigned cnt = 0, cup_prev = 0, pack = 0;
 
@@ -298,6 +316,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
           if (WITH_COUNTS) __stcg(cring + out_slot + c, cn);
         }
         if (dump && in_row) __stcg(dump_row + c, hn);
+        if (last && in_row) last[c] = hn;
         up_prev = up;
         h = hn;
         if (WITH_COUNTS) {
@@ -316,11 +335,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
         const unsigned char* src = mring + (col & (kRingCols - 1));
         // a tile's table holds no row r0: its row of j is j - 1
         unsigned char* dst =
-            masks + static_cast<int64_t>(band * 32 + (TILE ? 0 : 1)) * Mw + c0 + col;
+            masks + static_cast<int64_t>(band * 32 + (TILE ? 0 : 1)) * ldm + c0 + col;
 #pragma unroll 4
         for (int r = 0; r < 32; ++r) {
           const unsigned char v = src[r * kRingCols];
-          if (col_ok && band * 32 + 1 + r <= Bs) dst[static_cast<int64_t>(r) * Mw] = v;
+          if (col_ok && band * 32 + 1 + r <= Bs) dst[static_cast<int64_t>(r) * ldm] = v;
         }
         __syncwarp();  // read before the next chunk overwrites the slots
       }
@@ -381,17 +400,20 @@ extern "C" int nw_score_count(const int* top, const int* side, int A, int Bs,
       static_cast<unsigned*>(cring), done, out, static_cast<cudaStream_t>(stream));
 }
 
-// K2 pack_bits=8 port for one pair: tie masks uint8[Bs+1, A+1], the
-// int32 scores of the same table when hs is not null, the corner score
-// and the fused uint32 count.
+// K2 pack_bits=8 port for one pair (and K10's, a pair at a time): tie
+// masks uint8[Bs+1, A+1] in rows of ldm >= A+1 bytes, the int32 scores of
+// the table (rows of A+1) when hs is not null, the corner score and the
+// fused uint32 count.
 extern "C" int nw_fill_masks(const int* top, const int* side, int A, int Bs,
                              int m, int k, int d, int blocks, int warps,
                              int* ring, void* cring, int* done, void* masks,
-                             int* hs, int* score, void* count, void* stream) {
+                             int ldm, int* hs, int* score, void* count,
+                             void* stream) {
+  if (ldm < A + 1) return static_cast<int>(cudaErrorInvalidValue);
   auto cr = static_cast<unsigned*>(cring);
   auto s = static_cast<cudaStream_t>(stream);
   const Outs out{static_cast<unsigned char*>(masks), hs, nullptr, nullptr, 0,
-                 score, static_cast<unsigned*>(count)};
+                 score, static_cast<unsigned*>(count), nullptr, ldm};
   if (hs)
     return launch_single<true, true, true, false>(
         top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, cr, done, out, s);
@@ -426,6 +448,18 @@ extern "C" int nw_score_single(const int* top, const int* side, int A, int Bs,
                                int* ring, int* done, int* ckpt, int every,
                                int* score, void* stream) {
   const Outs out{nullptr, nullptr, nullptr, ckpt, every, score, nullptr};
+  return launch_single<false, false, false, false>(
+      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, nullptr, done,
+      out, static_cast<cudaStream_t>(stream));
+}
+
+// K9 port: one pair's row Bs, H[Bs][0..A], into last int32[A+1], and its
+// corner score; ring / done as nw_score_single.
+extern "C" int nw_last_row(const int* top, const int* side, int A, int Bs,
+                           int m, int k, int d, int blocks, int warps,
+                           int* ring, int* done, int* last, int* score,
+                           void* stream) {
+  const Outs out{nullptr, nullptr, nullptr, nullptr, 0, score, nullptr, last, 0};
   return launch_single<false, false, false, false>(
       top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, nullptr, done,
       out, static_cast<cudaStream_t>(stream));

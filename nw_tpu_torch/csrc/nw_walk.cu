@@ -25,6 +25,15 @@
 // in the design hides the per-step latency (prefetching the words around
 // the path is left for later).
 //
+// nw_walk_masks is the same walk over the rectangular 3-bit tie masks of
+// a batch, uint8[B, Bs+1, A+1] (nw_fill.cu's MASKS mode, or
+// nw_fill_masks a pair at a time): the jnp walk of
+// nw_tpu/ops/traceback.py:38 traceback_greedy, vmapped at :197-207 over
+// the masks of K2's pack_bits=8 mode and of K10.  Each step takes the
+// first set bit in diag > left > up order, UP where none is set; row 0
+// steps LEFT, as nw_walk.  One thread a pair, bound by the same chain of
+// dependent loads (a byte a cell: a diagonal step moves to another row).
+//
 // nw_walk_window is the same walk over ONE block of rows (j0, j0+rows]
 // of one pair, re-filled from a checkpoint row by nw_fill_codes_single:
 // the block walk of nw_tpu/ops/checkpoint_traceback.py:353-373 and the
@@ -119,7 +128,10 @@ __device__ __forceinline__ void walk(const void* __restrict__ base, int stride,
   }
 }
 
-__global__ void nw_walk_kernel(const unsigned* __restrict__ codes,
+// codes mode: a pair's nbands bands of 2-bit codes, TW words a band row;
+// MASKS: a pair's nbands = Bs+1 rows of TW = A+1 tie masks
+template <bool MASKS>
+__global__ void nw_walk_kernel(const void* __restrict__ codes,
                                const int* __restrict__ lens1,
                                const int* __restrict__ lens2, int B,
                                int nbands, int TW, int S,
@@ -131,7 +143,12 @@ __global__ void nw_walk_kernel(const unsigned* __restrict__ codes,
   int i = lens1[b];
   int j = lens2[b];
   int n = 0;
-  walk(codes + b * nbands * TW * 32, TW, 0, S, i, j, n, ops + b * S);
+  // the stored rows start at row 1: a mask table's row 0 is skipped
+  const void* base = MASKS
+      ? static_cast<const void*>(static_cast<const unsigned char*>(codes) +
+                                 (b * nbands + 1) * static_cast<int64_t>(TW))
+      : static_cast<const void*>(static_cast<const unsigned*>(codes) + b * nbands * TW * 32);
+  walk<MASKS>(base, TW, 0, S, i, j, n, ops + b * S);
   ns[b] = n;
 }
 
@@ -238,10 +255,24 @@ extern "C" int nw_walk(const void* codes, const int* lens1, const int* lens2,
                        int* ns, void* stream) {
   if (B <= 0) return 0;
   const int threads = 128;
-  nw_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(codes), lens1, lens2, B, nbands, TW, S, ops,
-      ns);
+  nw_walk_kernel<false><<<(B + threads - 1) / threads, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      codes, lens1, lens2, B, nbands, TW, S, ops, ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// masks: uint8[B, Bs+1, A+1] tie masks (row-major, a pair's table after
+// another); ops: int8[B, S] prefilled with OP_NONE; ns: int32[B].  S must
+// be >= every len1 + len2.
+extern "C" int nw_walk_masks(const void* masks, const int* lens1,
+                             const int* lens2, int B, int A, int Bs, int S,
+                             signed char* ops, int* ns, void* stream) {
+  if (B <= 0) return 0;
+  if (A < 0 || Bs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 128;
+  nw_walk_kernel<true><<<(B + threads - 1) / threads, threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      masks, lens1, lens2, B, Bs + 1, A + 1, S, ops, ns);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,7 +33,15 @@ Counterpart of ``nw_tpu/models/needleman_wunsch.py``:
   one sub-batch's codes fit :data:`CODE_BUDGET_BYTES`;
 * counts or strings of fewer than ``BANDED_MIN_BATCH`` pairs with sides
   over ``HUGE_PAIR_MIN_SIDE`` -> one pair at a time: counts through
-  ``summary_huge``, strings through ``align_huge``'s routes.
+  ``summary_huge``, strings through ``align_huge``'s routes;
+* counts or strings of a small batch of long pairs
+  (:func:`nw_tpu_torch.ops.fill_auto.takes_mask_route`) -> tie masks a
+  pair at a time with the fused count
+  (:func:`nw_tpu_torch.ops.fill_single.fill_arrows_fold_batch`, K10's
+  port), then one walk of the sub-batch over them
+  (:func:`nw_tpu_torch.ops.traceback.walk_masks_batch`), as ``nw_tpu``
+  routes that shape (``needleman_wunsch.py:636-647``); sub-batches keep
+  the masks inside :data:`CODE_BUDGET_BYTES`.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from nw_tpu_torch.ops.fill_auto import (
     BANDED_MIN_BATCH,
     HUGE_PAIR_MIN_SIDE,
     fill_scores_auto,
+    takes_mask_route,
 )
 from nw_tpu_torch.ops.fill_banded import (
     code_shape,
@@ -63,10 +72,11 @@ from nw_tpu_torch.ops.fill_banded import (
     fill_scores_counts_banded_batch,
 )
 from nw_tpu_torch.ops.checkpoint_traceback import traceback_checkpointed
-from nw_tpu_torch.ops.fill_single import fill_codes_single, score_count_fold
+from nw_tpu_torch.ops.fill_single import fill_arrows_fold_batch, fill_codes_single, score_count_fold
 
 # device bytes one strings sub-batch may spend on its 2-bit codes: at
-# 10 kb buckets (26 MB a pair) 640 pairs, i.e. several warps per SM
+# 10 kb buckets (26 MB a pair) 640 pairs, i.e. several warps per SM; the
+# mask route's sub-batches spend it on tie masks (a byte a cell)
 CODE_BUDGET_BYTES = 16 << 30
 
 
@@ -323,6 +333,32 @@ class NWAligner:
             result.ops, result.ops_len = ops_arr, ns
         return result
 
+    def _align_batch_masks(self, norm, status, traceback_strings, count, L1, L2) -> BatchResult:
+        """A small batch of long pairs on the mask route: sub-batches whose
+        tie masks fit :data:`CODE_BUDGET_BYTES`, each filled a pair at a
+        time (``nw_fill_masks``, scores and fused counts) and walked at
+        once (``nw_walk_masks``); the same outputs as the codes route."""
+        m, k, d = self.config.scoring.as_tuple()
+        chunk = max(1, CODE_BUDGET_BYTES // ((L1 + 1) * (L2 + 1)))
+        scores_l, counts_l, ops_l, n_l = [], [], [], []
+        for lo in range(0, len(norm), chunk):
+            tops, sides, l1, l2 = enc.upload(enc.encode_batch(norm[lo : lo + chunk], L1, L2), self.device)
+            masks, sc, ct = fill_arrows_fold_batch(tops, sides, l1, l2, m, k, d)
+            scores_l.append(sc.cpu().numpy())
+            if count:
+                counts_l.append(ct.cpu().numpy().astype(np.uint32))
+            if traceback_strings:
+                ops, n = traceback.walk_masks_batch(masks, l1, l2, max(L1 + L2, 1))
+                ops_l.append(ops.cpu().numpy())
+                n_l.append(n.cpu().numpy())
+            del masks
+        result = BatchResult(scores=np.concatenate(scores_l), status=status, _pairs=norm)
+        if count:
+            result.counts = np.concatenate(counts_l)
+        if traceback_strings:
+            result.ops, result.ops_len = np.concatenate(ops_l), np.concatenate(n_l)
+        return result
+
     def align_batch(
         self,
         pairs: Sequence[Tuple[str | bytes, str | bytes]],
@@ -370,6 +406,8 @@ class NWAligner:
 
         if L2 > HUGE_PAIR_MIN_SIDE and len(norm) < BANDED_MIN_BATCH:
             return self._align_batch_huge_pairs(norm, status, traceback_strings, count)
+        if takes_mask_route(len(norm), L1, L2):
+            return self._align_batch_masks(norm, status, traceback_strings, count, L1, L2)
         if not traceback_strings:
             tops, sides, l1, l2 = enc.upload(enc.encode_batch(norm, L1, L2), self.device)
             scores, counts = fill_scores_counts_banded_batch(

@@ -12,14 +12,20 @@ as ``nw_tpu`` sends them to K11 / K8 (``fill_auto.py:233-276``).
 The same two batch constants send a small batch of pairs over
 ``HUGE_PAIR_MIN_SIDE`` through ``NWAligner``'s huge-pair routes when it
 asks for counts or strings.
+
+:func:`fill_arrows_auto` is the counterpart of ``nw_tpu``'s
+``fill_arrows_auto`` (``fill_auto.py:283``): a batch's tie masks through
+the batched ``MASKS`` fill (K2's ``pack_bits=8`` mode, one warp a pair)
+for sides up to ``LANES_ARROWS_MAX_SIDE``, else a pair at a time through
+``nw_fill_masks`` (K10's port, every SM on one pair).
 """
 
 from __future__ import annotations
 
 import torch
 
-from nw_tpu_torch.ops.fill_banded import fill_scores_banded_batch
-from nw_tpu_torch.ops.fill_single import score_fold
+from nw_tpu_torch.ops.fill_banded import fill_masks_banded_batch, fill_scores_banded_batch
+from nw_tpu_torch.ops.fill_single import fill_arrows_fold_batch, score_fold
 
 # a batch smaller than this, of pairs longer than HUGE_PAIR_MIN_SIDE,
 # goes pair by pair through the huge-pair routes (nw_tpu
@@ -34,6 +40,19 @@ HUGE_PAIR_MIN_SIDE = 32768
 # the batch; it was timed from 1 024 bp up.
 SINGLE_PAIR_MIN_SIDE = 1024
 SINGLE_PAIR_SIDE_PER_PAIR = 256
+# sides up to this go through the batched mask fill in fill_arrows_auto,
+# longer ones a pair at a time (nw_tpu fill_auto.py:294-309)
+LANES_ARROWS_MAX_SIDE = 2048
+# align_batch's mask route (tie masks a pair at a time, every SM on it,
+# then one walk) against its codes route (one warp a pair), strings and
+# counts, timed by chip_smoke.py phase 13 on an H100 80GB HBM3 at 700 W
+# (PERF.md, section 6): the mask route costs ~0.57 us a bp of side a pair
+# (2.3-2.8 ms at 4 096 bp, 5.7-7.1 ms at 10 240 bp), the codes route
+# ~1.4 ns x L^2 for the whole batch (24-25 ms at 4 096 bp, 146-153 ms
+# at 10 240 bp), so the mask route wins while nb <= ~L / 415: it won at
+# 4 and 8 x 4 096 bp and at 4 to 23 x 10 240 bp, and lost at 16 x 4 096 bp
+# (37.3 against 25.1 ms)
+MASK_SIDE_PER_PAIR = 420
 
 
 def takes_single_pair_route(nb: int, L1: int, L2: int) -> bool:
@@ -42,6 +61,22 @@ def takes_single_pair_route(nb: int, L1: int, L2: int) -> bool:
     L = min(L1, L2)
     return 0 < nb < BANDED_MIN_BATCH and L >= max(
         SINGLE_PAIR_MIN_SIDE, SINGLE_PAIR_SIDE_PER_PAIR * nb
+    )
+
+
+def takes_mask_route(nb: int, L1: int, L2: int) -> bool:
+    """Whether ``NWAligner.align_batch`` sends the counts or strings of
+    ``nb`` pairs at buckets (L1, L2) through the mask route (tie masks a
+    pair at a time, then one walk), as ``nw_tpu`` sends a small batch
+    whose longer side passes ``LANES_ARROWS_MAX_SIDE``
+    (``needleman_wunsch.py:636-647``), rather than through the codes
+    route (one warp a pair): only where the pairs are long enough for
+    their number (``MASK_SIDE_PER_PAIR``) for the mask route to be the
+    faster."""
+    return (
+        0 < nb < BANDED_MIN_BATCH
+        and LANES_ARROWS_MAX_SIDE < max(L1, L2) <= HUGE_PAIR_MIN_SIDE
+        and min(L1, L2) >= MASK_SIDE_PER_PAIR * nb
     )
 
 
@@ -55,3 +90,19 @@ def fill_scores_auto(tops, sides, lens1, lens2, m, k, d) -> torch.Tensor:
             for b in range(nb)
         ])
     return fill_scores_banded_batch(tops, sides, lens1, lens2, m, k, d)
+
+
+def fill_arrows_auto(tops, sides, lens1, lens2, m, k, d):
+    """(masks uint8[B, Bs+1, A+1], batch_axis, scores int32[B]): the
+    rectangular tie masks of a batch (0 outside each true table) and its
+    scores, through the fill for this batch shape.  ``batch_axis`` is
+    always 0; it keeps ``nw_tpu``'s signature, whose layouts put the
+    batch on axis 0 or 2.  Sides up to ``LANES_ARROWS_MAX_SIDE`` go
+    through :func:`nw_tpu_torch.ops.fill_banded.fill_masks_banded_batch`,
+    longer ones through :func:`nw_tpu_torch.ops.fill_single.fill_arrows_fold_batch`;
+    CPU tensors take their plain versions.  Count the masks with
+    :func:`nw_tpu_torch.ops.pathcount.count_masks_batch`, walk them with
+    :func:`nw_tpu_torch.ops.traceback.walk_masks_batch`."""
+    fill = fill_masks_banded_batch if sides.shape[1] <= LANES_ARROWS_MAX_SIDE else fill_arrows_fold_batch
+    masks, scores, _ = fill(tops, sides, lens1, lens2, m, k, d)
+    return masks, 0, scores

@@ -11,10 +11,15 @@ each with its plain PyTorch version in this module:
 * :func:`fill_greedy_counts_banded_batch` — the 2-bit greedy code of
   every cell, scores, and optionally counts (``nw_fill_codes``, K2's
   ``pack_bits=2`` / ``with_counts`` modes);
+* :func:`fill_masks_banded_batch` — the rectangular 3-bit tie masks of
+  a batch, scores and optionally counts (``nw_fill_masks_batch``, the
+  ``MASKS`` mode of ``csrc/nw_fill.cu``; K2's batched ``pack_bits=8``
+  mode);
 * :func:`fill_arrows_banded_single` — one pair's rectangular 3-bit tie
   masks, optionally its per-cell scores, its score and its fused count
   (``nw_fill_masks`` in ``csrc/nw_single.cu``, K2's ``pack_bits=8`` mode
-  for one pair).
+  for one pair; its plain version lives in
+  :mod:`nw_tpu_torch.ops.fill_single`, whose K10 port uses it too).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (``csrc/nw_fill.cu``, ``csrc/nw_single.cu``) or
@@ -30,7 +35,11 @@ kernel's words: int32[B, ceil(Bs/32), TW, 32] with
 ``(j-1) // 32`` at lane ``jj = (j-1) % 32`` and band step
 ``t = i + jj``: bits ``2 * (t % 16)`` of ``codes[b, band, t // 16, jj]``,
 0 diag / 1 left / 2 up.  Fields of cells outside the table are 0; row 0
-is not stored (every step there is LEFT).
+is not stored (every step there is LEFT).  Tie masks are rectangular
+and row-major, uint8[B, Bs+1, A+1] (bits of
+:mod:`nw_tpu_torch.ops.arrows`; row 0 LEFT, column 0 UP, the origin 0,
+0 outside each pair's true table), not the TPU kernel's packed
+band-major words.
 """
 
 from __future__ import annotations
@@ -42,39 +51,16 @@ import torch
 from nw_tpu_torch.ops.fill_scan import (
     U32,
     code_shape,
-    diag_to_matrix,
-    fill_diag,
+    diag_to_matrix_batch,
     fill_diag_batch,
     greedy_codes_from_arrows,
+    zero_outside,
 )
-from nw_tpu_torch.ops.fill_single import WARPS, check_pair, launch_shape, single_scratch
+from nw_tpu_torch.ops.fill_single import (
+    WARPS, check_batch as _check, check_pair, fill_arrows_banded_single_plain, launch_shape,
+    single_scratch,
+)
 from nw_tpu_torch.runtime import kernels
-
-INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
-
-
-def _check(tops, sides, lens1, lens2, *scoring):
-    """Validate what the kernels index with: a length beyond its bucket
-    would read outside the tensors.  ``scoring`` is (m, k, d), or Gotoh's
-    (m, k, open, extend)."""
-    if tops.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"CPU or CUDA tensors expected, got {tops.device}")
-    if tops.dim() != 2 or sides.dim() != 2 or tops.shape[0] != sides.shape[0]:
-        raise ValueError("tops / sides must be [B, A] / [B, Bs]")
-    for t in (tops, sides, lens1, lens2):
-        if t.dtype != torch.int32:
-            raise ValueError(f"int32 tensors expected, got {t.dtype}")
-        if t.device != tops.device:
-            raise ValueError("all inputs must be on one device")
-    if lens1.shape != (tops.shape[0],) or lens2.shape != (tops.shape[0],):
-        raise ValueError("lens must be [B]")
-    if not all(INT32_MIN <= v <= INT32_MAX for v in scoring):
-        raise ValueError(f"scoring {scoring} must fit int32")
-    if tops.shape[0]:
-        lo, hi = torch.aminmax(torch.stack([lens1, lens2]), dim=1)
-        (lo1, lo2), (hi1, hi2) = lo.tolist(), hi.tolist()
-        if min(lo1, lo2) < 0 or hi1 > tops.shape[1] or hi2 > sides.shape[1]:
-            raise ValueError("lengths must lie in [0, bucket]")
 
 
 def _dims(tops, sides):
@@ -213,6 +199,62 @@ def fill_greedy_counts_banded_batch_plain(
     return codes, out["score"], out.get("count")
 
 
+# ---------------- K2 pack_bits=8, a batch: tie masks ----------------
+
+
+def fill_masks_banded_batch(
+    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(masks uint8[B, Bs+1, A+1], scores int32[B], counts int64[B] or
+    None): the 3-bit tie masks of every cell of a batch, row-major, 0
+    outside each pair's true table, and the fused counts when asked.
+
+    The port of K2's batched ``pack_bits=8`` mode: ``nw_tpu``'s
+    ``fill_arrows_banded_batch`` (``ops/fill_pallas_banded.py:655``) and
+    ``fill_arrows_banded_single`` (``:810``, one band over the whole
+    table; not this module's one-pair :func:`fill_arrows_banded_single`),
+    with ``with_counts``.  ``nw_fill_masks_batch`` (one warp a pair) on
+    CUDA tensors, :func:`fill_masks_banded_batch_plain` on CPU tensors.
+    """
+    _check(tops, sides, lens1, lens2, m, k, d)
+    if tops.device.type == "cpu":
+        return fill_masks_banded_batch_plain(tops, sides, lens1, lens2, m, k, d, with_counts)
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    masks = torch.empty((B, Bs + 1, A + 1), dtype=torch.uint8, device=dev)
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev) if with_counts else None
+    if B:
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
+        cbnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev) if with_counts else None
+        kernels.launch(
+            "nw_fill_masks_batch", dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
+            B, A, Bs, m, k, d, int(with_counts), bnd.data_ptr(),
+            cbnd.data_ptr() if with_counts else None, masks.data_ptr(), scores.data_ptr(),
+            counts.data_ptr() if with_counts else None,
+        )
+        fill_masks_banded_batch.launches += 1
+    return masks, scores, (_wrap_counts(counts) if with_counts else None)
+
+
+fill_masks_banded_batch.launches = 0
+
+
+def fill_masks_banded_batch_plain(
+    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False
+):
+    """Plain version of :func:`fill_masks_banded_batch`: the
+    anti-diagonal fill's tie masks turned into rectangles, zeroed outside
+    each true table."""
+    out = fill_diag_batch(
+        tops, sides, lens1, lens2, m, k, d, with_arrows=True, with_counts=with_counts
+    )
+    masks = zero_outside(diag_to_matrix_batch(out["arrows"]), lens1, lens2)
+    return masks, out["score"], out.get("count")
+
+
 # ---------------- K2 pack_bits=8, one pair: tie masks ----------------
 
 
@@ -246,7 +288,7 @@ def fill_arrows_banded_single(
     kernels.launch(
         "nw_fill_masks", dev,
         top.data_ptr(), side.data_ptr(), len1, len2, m, k, d, blocks, warps,
-        ring.data_ptr(), cring.data_ptr(), done.data_ptr(), masks.data_ptr(),
+        ring.data_ptr(), cring.data_ptr(), done.data_ptr(), masks.data_ptr(), len1 + 1,
         scores.data_ptr() if with_scores else None,
         score.data_ptr(), count.data_ptr(),
     )
@@ -255,18 +297,3 @@ def fill_arrows_banded_single(
 
 
 fill_arrows_banded_single.launches = 0
-
-
-def fill_arrows_banded_single_plain(
-    top, side, m, k, d, len1=None, len2=None, with_scores: bool = False
-):
-    """Plain version of :func:`fill_arrows_banded_single`: the
-    anti-diagonal fill of the pair, turned into rectangles."""
-    len1 = top.shape[0] if len1 is None else len1
-    len2 = side.shape[0] if len2 is None else len2
-    out = fill_diag(
-        top, side, m, k, d, len1, len2, with_counts=True, with_scores=with_scores
-    )
-    masks = diag_to_matrix(out["arrows"], len1, len2)
-    scores = diag_to_matrix(out["scores"], len1, len2) if with_scores else None
-    return masks, scores, int(out["score"]), int(out["count"])

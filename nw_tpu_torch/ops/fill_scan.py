@@ -528,13 +528,31 @@ def diag_to_matrix(diag: torch.Tensor, len1: int, len2: int) -> torch.Tensor:
 def matrix_to_diag(rect: torch.Tensor) -> torch.Tensor:
     """Rectangular ``H[j, i]`` (N, M) -> diagonal-major ``D[kk, j] =
     H[j, kk - j]`` (M + N - 1, N); cells outside the table are 0."""
-    N, M = rect.shape
+    return matrix_to_diag_batch(rect[None])[0]
+
+
+def matrix_to_diag_batch(rect: torch.Tensor) -> torch.Tensor:
+    """:func:`matrix_to_diag` on a batch: rectangular ``H[b, j, i]``
+    (B, N, M) -> diagonal-major ``D[b, kk, j] = H[b, j, kk - j]``
+    (B, M + N - 1, N); cells outside the table are 0."""
+    B, N, M = rect.shape
     kk = torch.arange(M + N - 1, device=rect.device)[:, None]
     jj = torch.arange(N, device=rect.device)[None, :]
     ii = kk - jj
     inside = (ii >= 0) & (ii < M)
-    vals = rect[jj.expand_as(ii), ii.clamp(0, M - 1)]
+    vals = rect[:, jj.expand_as(ii), ii.clamp(0, M - 1)]
     return torch.where(inside, vals, torch.zeros((), dtype=rect.dtype, device=rect.device))
+
+
+def zero_outside(rect: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor) -> torch.Tensor:
+    """Rectangular tables ``rect[b, j, i]`` (B, N, M) with every cell
+    outside pair b's true (lens2[b]+1) x (lens1[b]+1) table set to 0."""
+    B, N, M = rect.shape
+    rows = torch.arange(N, device=rect.device)[None, :, None]
+    cols = torch.arange(M, device=rect.device)[None, None, :]
+    l1 = lens1.to(device=rect.device, dtype=torch.int64)[:, None, None]
+    l2 = lens2.to(device=rect.device, dtype=torch.int64)[:, None, None]
+    return torch.where((rows <= l2) & (cols <= l1), rect, torch.zeros((), dtype=rect.dtype, device=rect.device))
 
 
 def code_shape(B: int, A: int, Bs: int, bits: int = 2) -> Tuple[int, int, int, int]:

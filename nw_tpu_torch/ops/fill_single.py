@@ -18,6 +18,15 @@ versions on CPU tensors:
   ``nw_tpu/parallel/huge_pair.py:246 _make_fold_chunk_kernel_blocked``),
   or of the rows below a seed row (K13,
   ``nw_tpu/ops/checkpoint_traceback.py:153 _make_refill_kernel``);
+* :func:`last_row` — one pair's DP row ``H[len2, 0..len1]``
+  (``nw_last_row``, the ``LAST_ROW`` mode of ``nw_score_single``; K9,
+  ``nw_tpu/ops/fill_pallas_single.py:83``, ``last_row_pallas`` at
+  ``:169``), for :mod:`nw_tpu_torch.ops.hirschberg`;
+* :func:`fill_arrows_fold_batch` — the rectangular tie masks, scores
+  and fused counts of a batch of long pairs, one pair at a time with
+  every SM on it (``nw_fill_masks``; K10,
+  ``nw_tpu/ops/fill_pallas_single.py:422``, ``fill_arrows_fold_batch`` at
+  ``:530``);
 * :func:`fill_tile` — one tile of a pair whose rows are sharded over
   ranks, from its top halo and left edge to its right and bottom edges,
   with the rank's scores only or 2-bit codes (``nw_fill_tile``; K14's mesh
@@ -36,8 +45,8 @@ from typing import Optional, Tuple
 import torch
 
 from nw_tpu_torch.ops.fill_scan import (
-    U32, code_shape, diag_to_matrix_batch, fill_diag, fill_last_row, greedy_codes_from_arrows,
-    pack_band_major,
+    U32, code_shape, diag_to_matrix, diag_to_matrix_batch, fill_diag, fill_last_row,
+    greedy_codes_from_arrows, pack_band_major,
 )
 from nw_tpu_torch.runtime import kernels
 
@@ -69,6 +78,30 @@ def check_pair(top, side, m, k, d, len1, len2, warps, blocks) -> Tuple[int, int]
     if (len2 // 32 + 1) * (len1 // 32 + 3) >= 2**31:
         raise ValueError(f"a {len1} x {len2} table is too large")
     return len1, len2
+
+
+def check_batch(tops, sides, lens1, lens2, *scoring):
+    """Validate what the kernels index with: a length beyond its bucket
+    would read outside the tensors.  ``scoring`` is (m, k, d), or Gotoh's
+    (m, k, open, extend)."""
+    if tops.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"CPU or CUDA tensors expected, got {tops.device}")
+    if tops.dim() != 2 or sides.dim() != 2 or tops.shape[0] != sides.shape[0]:
+        raise ValueError("tops / sides must be [B, A] / [B, Bs]")
+    for t in (tops, sides, lens1, lens2):
+        if t.dtype != torch.int32:
+            raise ValueError(f"int32 tensors expected, got {t.dtype}")
+        if t.device != tops.device:
+            raise ValueError("all inputs must be on one device")
+    if lens1.shape != (tops.shape[0],) or lens2.shape != (tops.shape[0],):
+        raise ValueError("lens must be [B]")
+    if not all(INT32_MIN <= v <= INT32_MAX for v in scoring):
+        raise ValueError(f"scoring {scoring} must fit int32")
+    if tops.shape[0]:
+        lo, hi = torch.aminmax(torch.stack([lens1, lens2]), dim=1)
+        (lo1, lo2), (hi1, hi2) = lo.tolist(), hi.tolist()
+        if min(lo1, lo2) < 0 or hi1 > tops.shape[1] or hi2 > sides.shape[1]:
+            raise ValueError("lengths must lie in [0, bucket]")
 
 
 def launch_shape(len2: int, warps: int, blocks: Optional[int], device) -> Tuple[int, int]:
@@ -205,6 +238,130 @@ def score_fold_plain(top, side, m, k, d, len1=None, len2=None, checkpoint_every=
         return fill_diag(top[:len1], side[:len2], m, k, d, with_arrows=False)["score"], None
     rows = fill_last_row(top[:len1], side[:len2], m, k, d, every=checkpoint_every)
     return rows[-1, len1], rows[:-1]
+
+
+# ---------------- K9: one pair's last row ----------------
+
+
+def last_row(
+    top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int,
+    len1: Optional[int] = None, len2: Optional[int] = None,
+    warps: int = WARPS, blocks: Optional[int] = None,
+) -> torch.Tensor:
+    """int32[len1+1]: row ``len2`` of one pair's table, ``H[len2, 0..len1]``,
+    in O(len1 + len2) device memory, for Hirschberg's split.
+
+    The K9 port (``nw_tpu/ops/fill_pallas_single.py:83 _make_kernel``,
+    ``last_row_pallas`` at ``:169``): ``nw_last_row``, the ``LAST_ROW``
+    mode of the single-pair pipeline, on CUDA tensors; :func:`last_row_plain`
+    on CPU tensors.  Row 0 and column 0 are written explicitly, so the
+    row is ``fill_scan``'s at every scoring (K9's rests on its NEG_INF
+    decay).  Arguments as :func:`score_count_fold`.
+    """
+    len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
+    if top.device.type == "cpu":
+        return last_row_plain(top, side, m, k, d, len1, len2)
+    dev = top.device
+    top = top[:len1].contiguous()
+    side = side[:len2].contiguous()
+    blocks, warps = launch_shape(len2, warps, blocks, dev)
+    ring, _, done, score, _ = single_scratch(len1, len2, blocks, warps, dev, with_counts=False)
+    row = torch.empty(len1 + 1, dtype=torch.int32, device=dev)
+    kernels.launch(
+        "nw_last_row", dev,
+        top.data_ptr(), side.data_ptr(), len1, len2, m, k, d, blocks, warps,
+        ring.data_ptr(), done.data_ptr(), row.data_ptr(), score.data_ptr(),
+    )
+    last_row.launches += 1
+    return row
+
+
+last_row.launches = 0
+
+
+def last_row_plain(top, side, m, k, d, len1=None, len2=None) -> torch.Tensor:
+    """Plain version of :func:`last_row`:
+    :func:`~nw_tpu_torch.ops.fill_scan.fill_last_row`."""
+    len1 = top.shape[0] if len1 is None else len1
+    return fill_last_row(top[:len1], side, m, k, d, len1, len2)
+
+
+# ---------------- K10: tie masks of a batch of long pairs ----------------
+
+
+def fill_arrows_fold_batch(
+    tops, sides, lens1, lens2, m, k, d, warps: int = WARPS, blocks: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(masks uint8[B, Bs+1, A+1], scores int32[B], counts int64[B] in
+    [0, 2^32)): the rectangular tie masks of a batch, in the
+    layout of :func:`nw_tpu_torch.ops.fill_banded.fill_masks_banded_batch`
+    (0 outside each true table), one pair at a time.
+
+    The K10 port (``nw_tpu/ops/fill_pallas_single.py:422
+    _make_arrows_kernel``, ``fill_arrows_fold_batch`` at ``:530``): each
+    pair's table goes through ``nw_fill_masks`` (every SM on the pair, the
+    fused count with it) straight into its slice of the batch's table, on
+    CUDA tensors; :func:`fill_arrows_fold_batch_plain` on CPU tensors.
+    ``warps`` / ``blocks`` as :func:`score_count_fold`.
+    """
+    check_batch(tops, sides, lens1, lens2, m, k, d)
+    if tops.device.type == "cpu":
+        return fill_arrows_fold_batch_plain(tops, sides, lens1, lens2, m, k, d)
+    B, A = tops.shape
+    Bs = sides.shape[1]
+    dev = tops.device
+    masks = torch.zeros((B, Bs + 1, A + 1), dtype=torch.uint8, device=dev)
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    for b, (l1, l2) in enumerate(zip(lens1.tolist(), lens2.tolist())):
+        check_pair(tops[b], sides[b], m, k, d, l1, l2, warps, blocks)
+        top = tops[b, :l1].contiguous()
+        side = sides[b, :l2].contiguous()
+        nb, nw = launch_shape(l2, warps, blocks, dev)
+        ring, cring, done, _, _ = single_scratch(l1, l2, nb, nw, dev)
+        kernels.launch(
+            "nw_fill_masks", dev,
+            top.data_ptr(), side.data_ptr(), l1, l2, m, k, d, nb, nw,
+            ring.data_ptr(), cring.data_ptr(), done.data_ptr(), masks[b].data_ptr(), A + 1,
+            None, scores[b:].data_ptr(), counts[b:].data_ptr(),
+        )
+        fill_arrows_fold_batch.launches += 1
+    return masks, scores, counts.to(torch.int64) & U32
+
+
+fill_arrows_fold_batch.launches = 0
+
+
+def fill_arrows_fold_batch_plain(tops, sides, lens1, lens2, m, k, d):
+    """Plain version of :func:`fill_arrows_fold_batch`: each pair through
+    :func:`fill_arrows_banded_single_plain` into its slice."""
+    B, A = tops.shape
+    Bs = sides.shape[1]
+    masks = torch.zeros((B, Bs + 1, A + 1), dtype=torch.uint8, device=tops.device)
+    scores, counts = [], []
+    for b, (l1, l2) in enumerate(zip(lens1.tolist(), lens2.tolist())):
+        mk, _, score, count = fill_arrows_banded_single_plain(tops[b, :l1], sides[b, :l2], m, k, d)
+        masks[b, : l2 + 1, : l1 + 1] = mk
+        scores.append(score)
+        counts.append(count)
+    scores = torch.tensor(scores, dtype=torch.int32, device=tops.device)
+    return masks, scores, torch.tensor(counts, dtype=torch.int64, device=tops.device)
+
+
+def fill_arrows_banded_single_plain(
+    top, side, m, k, d, len1=None, len2=None, with_scores: bool = False
+):
+    """Plain version of :func:`nw_tpu_torch.ops.fill_banded.fill_arrows_banded_single`
+    (one pair's ``nw_fill_masks``): the anti-diagonal fill of the pair,
+    turned into rectangles."""
+    len1 = top.shape[0] if len1 is None else len1
+    len2 = side.shape[0] if len2 is None else len2
+    out = fill_diag(
+        top, side, m, k, d, len1, len2, with_counts=True, with_scores=with_scores
+    )
+    masks = diag_to_matrix(out["arrows"], len1, len2)
+    scores = diag_to_matrix(out["scores"], len1, len2) if with_scores else None
+    return masks, scores, int(out["score"]), int(out["count"])
 
 
 # ---------------- K14 / K13: greedy codes, whole or from a seed ----------------

@@ -19,13 +19,23 @@ uint8[len2+1, len1+1] (as ``nw_fill_masks`` writes them); the TPU
 package's take diagonal-major tables and the true lengths.  These are
 ``jnp`` in ``nw_tpu``, not Pallas, so PyTorch ops on the device are
 their port.
+
+:func:`count_masks_batch` counts a batch's rectangular masks
+uint8[B, Bs+1, A+1] (``fill_masks_banded_batch``, ``fill_arrows_fold_batch``):
+the ``nw_count_masks`` kernel (``csrc/nw_count.cu``) on a CUDA tensor,
+the port of K6 (``nw_tpu/ops/fill_pallas.py:703 _count_kernel``,
+``count_packed_pallas_batch`` at ``:757``) and of ``count_paths`` over
+K10's masks; :func:`count_masks_batch_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nw_tpu_torch.ops.fill_scan import U32, _shift_down, diag_to_matrix, matrix_to_diag
+from nw_tpu_torch.ops.fill_scan import (
+    U32, _shift_down, diag_to_matrix, matrix_to_diag, matrix_to_diag_batch,
+)
+from nw_tpu_torch.runtime import kernels
 
 
 def count_paths_batch(
@@ -57,6 +67,62 @@ def count_paths_batch(
         out = torch.where(kk == k_corner, cnt[b_ar, lens2.clamp(max=N - 1)], out)
         prev, prev2 = cnt, prev
     return out
+
+
+def check_masks(masks, lens1, lens2):
+    """Validate a batch of rectangular masks and the true lengths the
+    kernels index them with."""
+    if masks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"CPU or CUDA tensors expected, got {masks.device}")
+    if masks.dim() != 3 or masks.dtype != torch.uint8:
+        raise ValueError("masks must be uint8[B, Bs+1, A+1]")
+    for t in (lens1, lens2):
+        if t.shape != (masks.shape[0],) or t.dtype != torch.int32 or t.device != masks.device:
+            raise ValueError("lens must be int32[B] on the masks' device")
+    if masks.shape[0]:
+        lo, hi = torch.aminmax(torch.stack([lens1, lens2]), dim=1)
+        (lo1, lo2), (hi1, hi2) = lo.tolist(), hi.tolist()
+        if min(lo1, lo2) < 0 or hi1 >= masks.shape[2] or hi2 >= masks.shape[1]:
+            raise ValueError("lengths must lie inside the mask tables")
+
+
+def count_masks_batch(
+    masks: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor
+) -> torch.Tensor:
+    """Optimal-alignment counts, int64[B] in ``[0, 2^32)``, read at each
+    pair's true corner (lens2[b], lens1[b]) of rectangular tie masks
+    uint8[B, Bs+1, A+1].  Row 0 and column 0 count one path each, as
+    every fill of the package writes them (LEFT, UP).
+
+    A CUDA tensor goes through the ``nw_count_masks`` kernel (one warp a
+    pair); a CPU tensor through :func:`count_masks_batch_plain`.
+    """
+    check_masks(masks, lens1, lens2)
+    if masks.device.type == "cpu":
+        return count_masks_batch_plain(masks, lens1, lens2)
+    B, N, M = masks.shape
+    counts = torch.empty(B, dtype=torch.int32, device=masks.device)
+    if B:
+        masks, lens1, lens2 = (t.contiguous() for t in (masks, lens1, lens2))
+        cbnd = torch.empty((B, M), dtype=torch.int32, device=masks.device)
+        kernels.launch(
+            "nw_count_masks", masks.device,
+            masks.data_ptr(), lens1.data_ptr(), lens2.data_ptr(), B, M - 1, N - 1,
+            cbnd.data_ptr(), counts.data_ptr(),
+        )
+        count_masks_batch.launches += 1
+    return counts.to(torch.int64) & U32
+
+
+count_masks_batch.launches = 0
+
+
+def count_masks_batch_plain(
+    masks: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of :func:`count_masks_batch`:
+    :func:`count_paths_batch` over the masks made diagonal-major."""
+    return count_paths_batch(matrix_to_diag_batch(masks), lens1, lens2)
 
 
 def count_paths(masks: torch.Tensor) -> int:

@@ -9,6 +9,13 @@ exactly the *first* alignment the reference emits.
 
 * :func:`traceback_greedy_batch` walks diagonal-major tie masks (port
   of ``nw_tpu/ops/traceback.py:38-85``), plain PyTorch.
+* :func:`walk_masks_batch` walks rectangular tie masks uint8[B, Bs+1, A+1]
+  (:func:`nw_tpu_torch.ops.fill_banded.fill_masks_banded_batch`,
+  :func:`nw_tpu_torch.ops.fill_single.fill_arrows_fold_batch`): the
+  ``nw_walk_masks`` kernel on a CUDA tensor (the counterpart of
+  ``traceback_greedy`` vmapped over K2's and K10's masks,
+  ``traceback.py:197-207``), :func:`traceback_greedy_batch` on a CPU
+  tensor.
 * :func:`walk_codes_batch` walks the band-major 2-bit greedy codes that
   :func:`nw_tpu_torch.ops.fill_banded.fill_greedy_counts_banded_batch`
   emits (the counterpart of ``traceback_greedy2``, ``traceback.py:88-122``):
@@ -56,6 +63,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from nw_tpu_torch.ops.fill_scan import matrix_to_diag_batch
+from nw_tpu_torch.ops.pathcount import check_masks
 from nw_tpu_torch.runtime import kernels, native
 
 OP_DIAG = 0
@@ -83,6 +92,8 @@ def traceback_greedy_batch(
     ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=dev)
     for t in range(max_steps):
         active = (i > 0) | (j > 0)
+        if t % 256 == 0 and not bool(active.any()):  # every walk has ended
+            break
         a = arrows[b_ar, i + j, j].to(torch.int64)
         take_diag = (a & 1) != 0
         take_left = ~take_diag & ((a & 2) != 0)
@@ -92,6 +103,51 @@ def traceback_greedy_batch(
         j = j - (active & (op != OP_LEFT)).to(torch.int64)
         n = n + active.to(torch.int32)
     return ops, n
+
+
+def walk_masks_batch(
+    masks: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy backward walk over rectangular tie masks.
+
+    masks: uint8[B, Bs+1, A+1] (bit0 diag, bit1 left, bit2 up); each
+    walk starts at its true corner (lens2[b], lens1[b]) and takes the
+    first set bit in diag > left > up order, UP where none is set, LEFT
+    along row 0.  max_steps must be >= every len1 + len2.  Returns ops
+    int8[B, max_steps] (OP_NONE padded) and n int32[B], as
+    :func:`traceback_greedy_batch`.
+
+    A CUDA tensor goes through the ``nw_walk_masks`` kernel (one thread
+    a pair); a CPU tensor through :func:`walk_masks_batch_plain`.
+    """
+    check_masks(masks, lens1, lens2)
+    if masks.device.type == "cpu":
+        return walk_masks_batch_plain(masks, lens1, lens2, max_steps)
+    B, N, M = masks.shape
+    ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=masks.device)
+    n = torch.empty(B, dtype=torch.int32, device=masks.device)
+    if B:
+        masks, lens1, lens2 = (t.contiguous() for t in (masks, lens1, lens2))
+        kernels.launch(
+            "nw_walk_masks", masks.device,
+            masks.data_ptr(), lens1.data_ptr(), lens2.data_ptr(), B, M - 1, N - 1,
+            max_steps, ops.data_ptr(), n.data_ptr(),
+        )
+        walk_masks_batch.launches += 1
+    return ops, n
+
+
+walk_masks_batch.launches = 0
+
+
+def walk_masks_batch_plain(
+    masks: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`walk_masks_batch`:
+    :func:`traceback_greedy_batch` over the masks made diagonal-major."""
+    return traceback_greedy_batch(matrix_to_diag_batch(masks), lens1, lens2, max_steps)
 
 
 def _check_walk_args(codes, lens1, lens2, per_word=16):

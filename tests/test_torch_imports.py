@@ -28,7 +28,7 @@ NEW_MODULES = {
     "nw_tpu_torch.models.affine", "nw_tpu_torch.batch_cli", "nw_tpu_torch.runtime.checkpoint",
     "nw_tpu_torch.parallel", "nw_tpu_torch.parallel.mesh", "nw_tpu_torch.parallel.distributed",
     "nw_tpu_torch.parallel.data_parallel", "nw_tpu_torch.parallel.huge_pair",
-    "nw_tpu_torch.parallel.workers",
+    "nw_tpu_torch.parallel.workers", "nw_tpu_torch.ops.arrows", "nw_tpu_torch.ops.hirschberg",
 }
 
 
@@ -94,7 +94,7 @@ def test_default_device_without_card_raises(monkeypatch):
 
 def test_wrappers_do_not_fall_back_off_cpu():
     """A tensor on neither the CPU nor a card is refused, not computed."""
-    from nw_tpu_torch.ops import fill_banded, traceback, variants_banded
+    from nw_tpu_torch.ops import fill_banded, fill_single, pathcount, traceback, variants_banded
 
     t = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     lens = torch.zeros(2, dtype=torch.int32, device="meta")
@@ -106,6 +106,8 @@ def test_wrappers_do_not_fall_back_off_cpu():
         variants_banded.sw_fill_codes_banded_batch,
         variants_banded.overlap_scores_banded_batch,
         variants_banded.overlap_fill_codes_banded_batch,
+        fill_banded.fill_masks_banded_batch,
+        fill_single.fill_arrows_fold_batch,
     ):
         with pytest.raises(ValueError):
             fn(t, t, lens, lens, 1, 1, 1)
@@ -119,12 +121,16 @@ def test_wrappers_do_not_fall_back_off_cpu():
         traceback.walk_sw_codes_batch(meta_codes, lens, lens)
     with pytest.raises(ValueError):
         traceback.walk_gotoh_codes_batch(meta_codes, lens, lens, lens, 16)
-    from nw_tpu_torch.ops import fill_single
+    meta_masks = torch.zeros((2, 3, 9), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        traceback.walk_masks_batch(meta_masks, lens, lens, 16)
+    with pytest.raises(ValueError):
+        pathcount.count_masks_batch(meta_masks, lens, lens)
 
     one = torch.zeros(8, dtype=torch.int32, device="meta")
     for fn in (
         fill_single.score_count_fold, fill_banded.fill_arrows_banded_single,
-        fill_single.score_fold, fill_single.fill_codes_single,
+        fill_single.score_fold, fill_single.fill_codes_single, fill_single.last_row,
     ):
         with pytest.raises(ValueError):
             fn(one, one, 1, 1, 1)
@@ -150,7 +156,7 @@ def test_kernel_build_is_keyed_by_sources():
     path = kernels.library_path()
     assert path.parent == REPO / "nw_tpu_torch" / "_build"
     assert {s.name for s in kernels._sources()} >= {
-        "nw_fill.cu", "nw_walk.cu", "nw_single.cu", "nw_affine.cu", "nw_common.cuh"
+        "nw_fill.cu", "nw_walk.cu", "nw_single.cu", "nw_affine.cu", "nw_count.cu", "nw_common.cuh"
     }
     assert os.path.basename(path).startswith("libnw_tpu_torch-")
 

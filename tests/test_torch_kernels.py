@@ -572,3 +572,94 @@ def test_mask_walk_kernel_vs_plain(cuda, mkd):
             assert st_p.tolist() == [0, 0, int(n[0])]
             torch.testing.assert_close(ops_k.cpu(), ops_p, rtol=0, atol=0)
             torch.testing.assert_close(ops_k.cpu(), ops[0, :S].cpu(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_batched_masks_count_and_walk_kernels_vs_plain(cuda, mkd, with_counts):
+    """nw_fill_masks_batch (K2's batched pack_bits=8 mode), nw_count_masks
+    (K6) and nw_walk_masks against their plain versions."""
+    from nw_tpu_torch.ops import pathcount
+
+    cpu, dev = _inputs(sum(mkd) + 20, cuda)
+    got = fill_banded.fill_masks_banded_batch(*dev, *mkd, with_counts=with_counts)
+    want = fill_banded.fill_masks_banded_batch_plain(*cpu, *mkd, with_counts=with_counts)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    torch.testing.assert_close(
+        pathcount.count_masks_batch(got[0], *dev[2:]).cpu(),
+        pathcount.count_masks_batch_plain(want[0], *cpu[2:]), rtol=0, atol=0,
+    )
+    S = cpu[0].shape[1] + cpu[1].shape[1]
+    for g, w in zip(traceback.walk_masks_batch(got[0], *dev[2:], S),
+                    traceback.walk_masks_batch_plain(want[0], *cpu[2:], S)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_fold_masks_kernel_vs_plain(cuda, mkd):
+    """K10's port (nw_fill_masks a pair at a time into the batch's
+    table) against its plain version and the batched masks."""
+    cpu, dev = _inputs(sum(mkd) + 21, cuda)
+    want = fill_single.fill_arrows_fold_batch_plain(*cpu, *mkd)
+    batched = fill_banded.fill_masks_banded_batch(*dev, *mkd, with_counts=True)
+    for blocks, warps in [(1, 1), (3, 1), (None, 8)]:
+        got = fill_single.fill_arrows_fold_batch(*dev, *mkd, warps=warps, blocks=blocks)
+        for g, w, b in zip(got, want, batched):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+            torch.testing.assert_close(g, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_last_row_kernel_vs_plain(cuda, mkd):
+    """nw_last_row (K9's port) at every row count, multiples of 32 or
+    not, 0 included, against the plain fill's rows."""
+    from nw_tpu_torch.ops.fill_scan import diag_to_matrix, fill_diag
+
+    for s1, s2 in _single_pairs(sum(mkd) + 22):
+        top, side = _pair_tensors(s1, s2)
+        H = diag_to_matrix(fill_diag(top, side, *mkd, with_arrows=False, with_scores=True)["scores"],
+                           len(s1), len(s2))
+        for len2 in sorted({0, len(s2) // 3, len(s2)}):
+            for blocks, warps in [(1, 1), (2, 2), (None, 8)]:
+                got = fill_single.last_row(top.to(cuda), side.to(cuda), *mkd, len2=len2,
+                                           warps=warps, blocks=blocks)
+                torch.testing.assert_close(got.cpu(), H[len2], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkd", [(2, 1, 1), (1, 1, 2**30)])
+def test_hirschberg_cuda_vs_cpu(cuda, mkd):
+    from nw_tpu_torch.ops.hirschberg import hirschberg_align
+
+    for s1, s2 in _pairs(sum(mkd) + 23, 2, 300, 900) + _pairs(24, 1, 200, 400, "AC"):
+        try:
+            want = hirschberg_align(s1, s2, *mkd, device="cpu")
+        except OverflowError:  # nw_tpu's int32 host rows at large scorings
+            with pytest.raises(OverflowError):
+                hirschberg_align(s1, s2, *mkd, device="cuda")
+            continue
+        assert hirschberg_align(s1, s2, *mkd, device="cuda") == want
+
+
+@pytest.mark.parametrize("strings,count", [(False, True), (True, True)])
+def test_align_batch_mask_route_cuda_vs_cpu(cuda, strings, count):
+    """Six pairs padded to one 2 560 bp bucket (long enough for six
+    pairs: the mask route's rule takes them): the mask route on the card
+    against the CPU."""
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+
+    ps = _pairs(25, 3, 0, 600) + _pairs(26, 1, 100, 300, "AC") + EDGE[1:3]
+    cfg = AlignConfig(scoring=ScoringParams(2, 1, 1), bucket_sizes=(2560,))
+    launches = fill_single.fill_arrows_fold_batch.launches
+    got = NWAligner(cfg, device="cuda").align_batch(ps, traceback_strings=strings, count=count)
+    assert fill_single.fill_arrows_fold_batch.launches == launches + len(ps)
+    want = NWAligner(cfg, device="cpu").align_batch(ps, traceback_strings=strings, count=count)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    if count:
+        np.testing.assert_array_equal(got.counts, want.counts)
+    if strings:
+        np.testing.assert_array_equal(got.ops, want.ops)
+        np.testing.assert_array_equal(got.ops_len, want.ops_len)
