@@ -1,6 +1,7 @@
 """Smoke run of nw_tpu_torch on one NVIDIA card: the batched aligner,
 the byte-parity CLI, the variant models, the batch CLI, the sharded
-runs, the tie-mask routes and Hirschberg.
+runs, the tie-mask routes, Hirschberg, the runs walk engine and the
+flat-fill API.
 
     python3 chip_smoke.py
 
@@ -172,16 +173,42 @@ Phases, in order; any mismatch or exception exits non-zero:
    kernel must have launched; each kernel's time beside its plain
    version's and its bound.
 
+14. The runs walk engine and the flat-fill API: (a) ``nw_fill_runs_batch``
+   (the ``RUNS`` mode of ``nw_fill_kernel``, K2's ``with_runs``, with and
+   without counts) and ``nw_walk_runs`` bit for bit against their plain
+   versions under every scoring, on phase 3's pairs and identical 700 bp
+   pairs (diagonal runs past the 63 cap and across bands), the run walk's
+   ops also against ``nw_walk``'s; then, with every launch counter set to
+   0, (b) ``align_batch`` of config 3 (256 x 10 240 bp, strings and
+   counts, two sub-batches of run bytes) and of 128 x 3 072 bp under
+   ``NW_TPU_WALK_ENGINE=runs``: scores, counts, ops and strings equal the
+   codes engine's byte for byte, every alignment re-scores to its score,
+   both runs kernels launched and no codes kernel; (d) config 3's wall on
+   both engines (median of 3 warm runs, in turns), the runs fill at
+   config 3 (two launches) beside ``nw_fill_codes`` (one launch, and both
+   at 128 x 10 240 bp in turns), the run walk beside ``nw_walk`` with its
+   dependent loads a pair against ``nw_walk``'s steps, both kernels
+   against their plain versions on the first config-3 pair; (c) with the
+   serving wrappers' counters from 0, ``ops/fill_flat.py`` at K26's shape
+   (10 240 x 150 bp scores and counts), K27's (masks with and without
+   counts, and K6's count over them, at 1 024 x 256 bp and 128 x 2 048 bp)
+   and K7's (1 024 x 256 bp scores) against its plain versions and the
+   serving kernels' wrappers on the same inputs, and K5's shape (4 096 x
+   150 bp strings through ``align_batch``, ``nw_fill_codes`` + ``nw_walk``
+   against plain); each shape's kernel time, bound and plain time.
+
 Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu``,
 ``nw_affine.cu``, ``nw_single.cu`` and ``nw_count.cu``: registers and
-spills of every instantiation.
+spills of every instantiation, the ``RUNS`` mode's (template mode 4)
+among them.
 
 Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
 tie mask, 2 more for the local clamp and running best, 3 more for the
 local argmax and STOP, 4 more for overlap's end window and running best,
 2 more for its argmax; 11 for a Gotoh score, 12 more for its 4-bit code
-(``OPS_GOTOH_CODE``); 12 a walk step) over the card's SMs x 64 INT32
+(``OPS_GOTOH_CODE``); 9 more than a code for a run byte (``OPS_RUN``);
+12 a walk step, or a run walk's load) over the card's SMs x 64 INT32
 lanes x ``clocks.max.sm``, and its bytes (inputs read once, outputs
 written once) over 3.35 TB/s.  The last lines before the record give
 the script's total seconds.
@@ -215,6 +242,13 @@ L_CROSS = 20_000  # (L+1)^2 > 2^28: past nw_tpu's huge-route threshold
 CROSSOVER = (1024, 2048, 4096, 10240, L_HUGE)  # scores of 2, 8, 23 pairs: K1 vs K11 route
 # int32 operations a cell (or a walk step) of each kernel mode, for the bound
 OPS_SCORE, OPS_COUNT, OPS_CODE, OPS_WALK_STEP = 7, 8, 6, 12
+# the run byte, beyond the code, as the function needs it (the kernel
+# computes both predecessors' bytes and picks one, 12 ops, to keep them off
+# the score's chain): the predecessor's byte picked by the diag compare
+# (select), its code bits matched to the code (and, compare), one cell more
+# under the 63 cap (compare, add, select), a run of one where they differ
+# (or, select), up's byte where the code is up (select)
+OPS_RUN = 9
 OPS_LOCAL, OPS_ARGMAX = 2, 3  # Smith-Waterman: clamp + running best; kk select + STOP
 # overlap: the end window's two compares, the score compare and the
 # running best's select; the kk add and its select (no per-cell STOP)
@@ -2596,6 +2630,399 @@ def masks_phase(card, bound):
             cpu_proc.wait()
 
 
+# ---------------- phase 14: the runs walk engine and the flat-fill API ----------------
+
+L_FLAT = 256  # K7's and K27's flat batch: 1 024 x 256 bp
+L_RUNS_TB = 3072  # the runs engine's second shape: 128 x 3 072 bp
+RUNS_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel
+    "nw_fill_runs_batch": ("fill_banded", "fill_runs_banded_batch"),
+    "nw_walk_runs": ("traceback", "walk_runs_batch"),
+}
+# the flat-fill API (nw_tpu/ops/fill_pallas.py's public functions): function
+# -> (module, serving wrapper) whose .launches count its kernel
+FLAT_FUNCTIONS = {
+    "fill_scores_flat_batch": ("fill_banded", "fill_scores_banded_batch"),
+    "fill_scores_counts_flat_batch": ("fill_banded", "fill_scores_counts_banded_batch"),
+    "fill_arrows_flat_batch": ("fill_banded", "fill_masks_banded_batch"),
+    "count_flat_batch": ("pathcount", "count_masks_batch"),
+}
+
+
+def wrappers_of(table):
+    import importlib
+
+    return {name: getattr(importlib.import_module(f"nw_tpu_torch.ops.{mod}"), fn)
+            for name, (mod, fn) in table.items()}
+
+
+class walk_engine:
+    """``NW_TPU_WALK_ENGINE`` set to ``engine`` inside the block."""
+
+    def __init__(self, engine: str):
+        self.engine = engine
+
+    def __enter__(self):
+        self.saved = os.environ.get("NW_TPU_WALK_ENGINE")
+        os.environ["NW_TPU_WALK_ENGINE"] = self.engine
+
+    def __exit__(self, *exc):
+        os.environ.pop("NW_TPU_WALK_ENGINE")
+        if self.saved is not None:
+            os.environ["NW_TPU_WALK_ENGINE"] = self.saved
+
+
+def runs_kernels_vs_plain(dev, small, errs):
+    """Phase 14 (a): nw_fill_runs_batch (with and without counts) and
+    nw_walk_runs against their plain versions under every scoring, on
+    phase 3's pairs and identical 700 bp pairs (diagonal runs past the 63
+    cap and across 22 bands); the run walk's ops also against nw_walk's
+    over nw_fill_codes's codes."""
+    from nw_tpu_torch import AlignConfig
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+
+    rng = np.random.default_rng(140)
+    same = [(s, s) for s, _ in rand_pairs(rng, 3, 700, 700)] + [(s, s) for s, _ in rand_pairs(rng, 1, 700, 700, b"AC")]
+    pairs = small + same + [(same[0][0], same[0][0][:450]), (same[1][0][:500], same[1][0])]
+    cfg = AlignConfig()
+    L1 = cfg.bucket_for(max(len(a) for a, _ in pairs))
+    L2 = cfg.bucket_for(max(len(b) for _, b in pairs))
+    T = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    S = L1 + L2
+    for mkd in SCORINGS:
+        want = fb.fill_runs_banded_batch_plain(*T, *mkd, with_counts=True)
+        e_fill = 0
+        for wc in (False, True):
+            got = fb.fill_runs_banded_batch(*T, *mkd, with_counts=wc)
+            e_fill = max([e_fill] + [max_abs_err(g, w) for g, w in zip(got[: 2 + wc], want)])
+        ops, n = tb.walk_runs_batch(got[0], *T[2:], S)
+        e_walk = max(max_abs_err(g, w) for g, w in zip((ops, n), tb.walk_runs_batch_plain(want[0], *T[2:], S)))
+        codes = fb.fill_greedy_counts_banded_batch(*T, *mkd)[0]
+        e_codes = max(max_abs_err(g, w) for g, w in zip((ops, n), tb.walk_codes_batch(codes, *T[2:], S)))
+        errs["nw_fill_runs_batch"] = max(errs["nw_fill_runs_batch"], e_fill)
+        errs["nw_walk_runs"] = max(errs["nw_walk_runs"], e_walk, e_codes)
+        log(f"phase 14 (a) runs kernels vs plain, {len(pairs)} pairs {L1}x{L2} bucket, m k d = {mkd}: "
+            f"fill {e_fill}, walk {e_walk}, walk vs nw_walk's ops {e_codes}")
+        del want, got, codes
+    if any(errs.values()):
+        fail(f"a runs kernel differs from its plain version: {errs}")
+
+
+def runs_path(card, aligner, c3, r3, aligned3, pairs3k):
+    """Phase 14 (b) with the runs kernels' and the codes kernels' launch
+    counters from 0: align_batch of config 3 and of 128 x 3 072 bp on the
+    runs engine, held to the codes engine byte for byte.  Returns the
+    launches and the 3 kb outputs of both engines."""
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+
+    wrappers = wrappers_of(RUNS_KERNELS)
+    codes_wrappers = (fb.fill_greedy_counts_banded_batch, tb.walk_codes_batch)
+    for w in (*wrappers.values(), *codes_wrappers):
+        w.launches = 0
+    with walk_engine("runs"):
+        t0 = time.perf_counter()
+        rr = aligner.align_batch(c3, traceback_strings=True, count=True)
+        aligned = rr.alignment_strings()
+        wall = time.perf_counter() - t0
+        r3k = aligner.align_batch(pairs3k, traceback_strings=True, count=True)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    codes_launches = sum(w.launches for w in codes_wrappers)
+    log(f"phase 14 (b) path launches: {launches}; the codes kernels {codes_launches}")
+    if not all(launches.values()) or codes_launches:
+        fail(f"the runs engine did not run on its own kernels: {launches}, codes kernels {codes_launches}")
+    for f in ("scores", "counts", "ops", "ops_len"):
+        if not np.array_equal(getattr(rr, f), getattr(r3, f)):
+            fail(f"config 3 on the runs engine: {f} differ from the codes engine's")
+    if aligned != aligned3:
+        fail("config 3 on the runs engine: strings differ from the codes engine's")
+    if not np.array_equal(rescore(c3, aligned, 2, 1, 1), rr.scores.astype(np.int64)):
+        fail("config 3 on the runs engine: an alignment does not re-score to its score")
+    with walk_engine("auto"):
+        c3k = aligner.align_batch(pairs3k, traceback_strings=True, count=True)
+    for f in ("scores", "counts", "ops", "ops_len"):
+        if not np.array_equal(getattr(r3k, f), getattr(c3k, f)):
+            fail(f"128x{L_RUNS_TB}bp on the runs engine: {f} differ from the codes engine's")
+    al3k = r3k.alignment_strings()
+    if al3k != c3k.alignment_strings() or not np.array_equal(
+            rescore(pairs3k, al3k, 2, 1, 1), r3k.scores.astype(np.int64)):
+        fail(f"128x{L_RUNS_TB}bp on the runs engine: strings differ or do not re-score")
+    log(f"phase 14 (b) align_batch config 3 ({len(c3)}x{L_LONG}bp, strings+counts) and {len(pairs3k)}x{L_RUNS_TB}bp on "
+        f"NW_TPU_WALK_ENGINE=runs: scores, counts, ops and strings equal the codes engine's byte for byte, "
+        f"every alignment re-scores to its score; config 3 cold wall {wall:.4f} s [{card}]")
+    return launches
+
+
+def flat_path(card, bound, c2):
+    """Phase 14 (c) with the serving wrappers' launch counters from 0: K26's
+    function at 10 240 x 150 bp, K27's (masks with and without counts) and
+    K6's at 1 024 x 256 bp and 128 x 2 048 bp, K7's at 1 024 x 256 bp, all
+    driven through ops/fill_flat.py before the counts are read; then each
+    against its plain version and the serving kernel's wrapper on the same
+    inputs; then K5's shape, 4 096 x 150 bp strings through align_batch.
+    Returns the record fields."""
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import fill_flat as ff
+    from nw_tpu_torch.ops import pathcount as pc
+    from nw_tpu_torch.ops import traceback as tb
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(141)
+    serving = wrappers_of(FLAT_FUNCTIONS)
+    T2 = enc.upload(enc.encode_batch(c2, L_SHORT, L_SHORT), dev)
+    shapes = [(nb, L, enc.upload(enc.encode_batch(rand_pairs(rng, nb, L, L), L, L), dev))
+              for nb, L in ((1024, L_FLAT), (128, L_ARROWS))]
+    T7 = shapes[0][2]
+    for w in serving.values():
+        w.launches = 0
+    got = ff.fill_scores_counts_flat_batch(*T2, 2, 1, 1)
+    masks_out = {}
+    for nb, L, T in shapes:
+        m0, s0 = ff.fill_arrows_flat_batch(*T, 2, 1, 1)
+        masks, sc, ct = ff.fill_arrows_flat_batch(*T, 2, 1, 1, with_counts=True)
+        masks_out[nb, L] = dict(T=T, m0=m0, s0=s0, masks=masks, sc=sc, ct=ct,
+                                counts=ff.count_flat_batch(masks, *T[2:]))
+    s7 = ff.fill_scores_flat_batch(*T7, 2, 1, 1)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in serving.items()}
+
+    (p_sc, p_ct), k26_plain_ms = cuda_once(lambda: ff.fill_scores_counts_flat_batch_plain(*T2, 2, 1, 1))
+    e26 = max(max_abs_err(got[0], p_sc), max_abs_err(got[1], p_ct))
+    e26 = max([e26] + [max_abs_err(g, w) for g, w in zip(got, fb.fill_scores_counts_banded_batch(*T2, 2, 1, 1))])
+    for (nb, L), o in masks_out.items():
+        T = o["T"]
+        (pm, psc, pct), plain_ms = cuda_once(lambda: ff.fill_arrows_flat_batch_plain(*T, 2, 1, 1, with_counts=True))
+        pcnt, count_plain_ms = cuda_once(lambda: ff.count_flat_batch_plain(pm, *T[2:]))
+        e27 = max(max_abs_err(o["masks"], pm), max_abs_err(o["sc"], psc), max_abs_err(o["ct"], pct),
+                  max_abs_err(o["m0"], pm), max_abs_err(o["s0"], psc))
+        e27 = max([e27] + [max_abs_err(g, w) for g, w in zip((o["masks"], o["sc"], o["ct"]),
+                                                           fb.fill_masks_banded_batch(*T, 2, 1, 1, with_counts=True))])
+        e6 = max(max_abs_err(o["counts"], pcnt), max_abs_err(o["counts"], o["ct"]),
+                 max_abs_err(o["counts"], pc.count_masks_batch(o["masks"], *T[2:])))
+        o.update(e27=e27, e6=e6, plain_ms=plain_ms, count_plain_ms=count_plain_ms)
+        log(f"phase 14 (c) fill_arrows_flat_batch + count_flat_batch {nb}x{L}bp (2 1 1): max |diff| vs plain "
+            f"and nw_fill_masks_batch / nw_count_masks: masks {e27}, counts {e6}; plain {plain_ms:.1f} ms "
+            f"(masks+counts), {count_plain_ms:.1f} ms (count) [{card}]")
+        del pm, pcnt
+    p7, k7_plain_ms = cuda_once(lambda: ff.fill_scores_flat_batch_plain(*T7, 2, 1, 1))
+    e7 = max(max_abs_err(s7, p7), max_abs_err(s7, fb.fill_scores_banded_batch(*T7, 2, 1, 1)),
+             max_abs_err(s7, masks_out[1024, L_FLAT]["sc"]))
+    log(f"phase 14 (c) flat API launches (the serving wrappers' counters): {launches}; max |diff| K26 {e26}, "
+        f"K7 {e7} [{card}]")
+    if not all(launches.values()):
+        fail(f"a function of the flat-fill API never launched its kernel: {launches}")
+    e_flat = max([e26, e7] + [o["e27"] for o in masks_out.values()] + [o["e6"] for o in masks_out.values()])
+    if e_flat:
+        fail(f"the flat-fill API differs from its plain versions or its serving kernels: {e_flat}")
+
+    # K5's shape: 4 096 x 150 bp strings through align_batch on the codes engine
+    p5 = rand_pairs(rng, 4096, L_SHORT, L_SHORT)
+    a211 = NWAligner(AlignConfig(scoring=ScoringParams(2, 1, 1)), device="cuda")
+    fill5, walk5 = fb.fill_greedy_counts_banded_batch, tb.walk_codes_batch
+    fill5.launches = walk5.launches = 0
+    with walk_engine("auto"):
+        r5 = a211.align_batch(p5, traceback_strings=True)
+    k5_launches = (fill5.launches, walk5.launches)
+    if not np.array_equal(rescore(p5, r5.alignment_strings(), 2, 1, 1), r5.scores.astype(np.int64)):
+        fail(f"4096x{L_SHORT}bp strings: an alignment does not re-score to its score")
+    L5 = a211.config.bucket_for(L_SHORT)  # align_batch's bucket
+    T5 = enc.upload(enc.encode_batch(p5, L5, L5), dev)
+    codes5, sc5, _ = fb.fill_greedy_counts_banded_batch(*T5, 2, 1, 1)
+    ops5, n5 = tb.walk_codes_batch(codes5, *T5[2:], 2 * L5)
+    (pcodes5, psc5, _), k5_plain_ms = cuda_once(lambda: fb.fill_greedy_counts_banded_batch_plain(*T5, 2, 1, 1))
+    (pops5, pn5), k5_walk_plain_ms = cuda_once(lambda: tb.walk_codes_batch_plain(pcodes5, *T5[2:], 2 * L5))
+    e5 = max(max_abs_err(codes5, pcodes5), max_abs_err(sc5, psc5), max_abs_err(ops5, pops5), max_abs_err(n5, pn5),
+             int(np.abs(r5.ops.astype(np.int64) - ops5.cpu().numpy()).max()))
+    if e5:
+        fail(f"4096x{L_SHORT}bp: nw_fill_codes / nw_walk differ from plain or from align_batch: {e5}")
+
+    # times and record fields
+    rec = {}
+    cells2 = len(c2) * L_SHORT * L_SHORT
+    rec["nw_fill_codes/flat"] = dict(
+        ms=cuda_ms(lambda: ff.fill_scores_counts_flat_batch(*T2, 2, 1, 1), 10), plain_ms=k26_plain_ms,
+        launches=launches["fill_scores_counts_flat_batch"], max_abs_err=e26,
+        **bound(cells2 * (OPS_SCORE + OPS_COUNT), tensor_bytes(*T2) + 8 * len(c2)),
+        shape=f"{len(c2)}x{L_SHORT}bp scores+counts (K26's function; K4's shape)")
+    o = masks_out[1024, L_FLAT]
+    cells7 = 1024 * L_FLAT * L_FLAT
+    rec["nw_fill_masks_batch/flat"] = dict(
+        ms=cuda_ms(lambda: ff.fill_arrows_flat_batch(*o["T"], 2, 1, 1, with_counts=True), 5), plain_ms=o["plain_ms"],
+        launches=launches["fill_arrows_flat_batch"], max_abs_err=max(x["e27"] for x in masks_out.values()),
+        **bound(cells7 * (OPS_SCORE + OPS_COUNT + OPS_CODE), tensor_bytes(*o["T"], o["masks"], o["sc"], o["ct"])),
+        shape=f"1024x{L_FLAT}bp masks+counts (K27's function; masks only "
+              f"{cuda_ms(lambda: ff.fill_arrows_flat_batch(*o['T'], 2, 1, 1), 5):.3f} ms; at 128x{L_ARROWS}bp "
+              f"masks+counts {cuda_ms(lambda: ff.fill_arrows_flat_batch(*masks_out[128, L_ARROWS]['T'], 2, 1, 1, with_counts=True), 2):.3f} ms)")
+    rec["nw_count_masks/flat"] = dict(
+        ms=cuda_ms(lambda: ff.count_flat_batch(o["masks"], *o["T"][2:]), 5), plain_ms=o["count_plain_ms"],
+        launches=launches["count_flat_batch"], max_abs_err=max(x["e6"] for x in masks_out.values()),
+        **bound(cells7 * OPS_COUNT, tensor_bytes(o["masks"], *o["T"][2:]) + 4 * 1024),
+        shape=f"1024x{L_FLAT}bp masks (K6 over K27's function)")
+    rec["nw_scores/flat"] = dict(
+        ms=cuda_ms(lambda: ff.fill_scores_flat_batch(*T7, 2, 1, 1), 10), plain_ms=k7_plain_ms,
+        launches=launches["fill_scores_flat_batch"], max_abs_err=e7,
+        **bound(cells7 * OPS_SCORE, tensor_bytes(*T7) + 4 * 1024),
+        shape=f"1024x{L_FLAT}bp scores (K7's function and shape)")
+    cells5 = len(p5) * L_SHORT * L_SHORT
+    steps5 = int(n5.sum())
+    rec["nw_fill_codes/K5"] = dict(
+        ms=cuda_ms(lambda: fb.fill_greedy_counts_banded_batch(*T5, 2, 1, 1), 10), plain_ms=k5_plain_ms,
+        launches=k5_launches[0], max_abs_err=e5,
+        **bound(cells5 * (OPS_SCORE + OPS_CODE), tensor_bytes(*T5, codes5, sc5)),
+        shape=f"{len(p5)}x{L_SHORT}bp codes (K5's shape, align_batch strings)")
+    rec["nw_walk/K5"] = dict(
+        ms=cuda_ms(lambda: tb.walk_codes_batch(codes5, *T5[2:], 2 * L5), 10), plain_ms=k5_walk_plain_ms,
+        launches=k5_launches[1], max_abs_err=e5,
+        **bound(steps5 * OPS_WALK_STEP, tensor_bytes(*T5[2:], n5) + 5 * steps5),
+        shape=f"{len(p5)}x{L_SHORT}bp, {steps5} steps (K5's shape)")
+    for name, fields in rec.items():
+        log(f"kernel {name}: {fields['ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms ({fields['bound_by']}), "
+            f"plain {fields['plain_ms']:.1f} ms, {fields['launches']} launches, {fields['shape']} [{card}]")
+    return rec
+
+
+def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
+    """Phase 14: the runs walk engine (K2's with_runs mode and the
+    run-skip walk) and the flat-fill API (K7, K26, K27, K6).  Returns the
+    record fields of the new kernels and of the flat API's shapes."""
+    from nw_tpu_torch.models import needleman_wunsch as nwm
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    errs = {name: 0 for name in RUNS_KERNELS}
+    t0 = time.perf_counter()
+    runs_kernels_vs_plain(dev, small, errs)
+    log(f"phase 14 (a) seconds {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    pairs3k = rand_pairs(np.random.default_rng(L_RUNS_TB), 128, L_RUNS_TB, L_RUNS_TB)
+    launches = runs_path(card, aligner, c3, r3, aligned3, pairs3k)
+
+    # (d) config 3's wall on both engines, in turns
+    walls = {"auto": [], "runs": []}
+    for turn in range(3):
+        for engine in (("auto", "runs") if turn % 2 == 0 else ("runs", "auto")):
+            with walk_engine(engine):
+                t0 = time.perf_counter()
+                aligner.align_batch(c3, traceback_strings=True, count=True).alignment_strings()
+                walls[engine].append(time.perf_counter() - t0)
+    med = {e: statistics.median(ws) for e, ws in walls.items()}
+    nb = len(c3)
+    log(f"phase 14 (d) config 3 ({nb}x{L_LONG}bp, strings+counts) walls: codes engine {[round(w, 4) for w in walls['auto']]} "
+        f"s, median {med['auto']:.4f} s = {nb / med['auto']:.1f} pairs/s; runs engine "
+        f"{[round(w, 4) for w in walls['runs']]} s, median {med['runs']:.4f} s = {nb / med['runs']:.1f} pairs/s; "
+        f"runs / codes {med['runs'] / med['auto']:.3f} (3 warm runs each, in turns) [{card}]")
+
+    # (d) the kernels at config 3: the runs engine's two sub-batches beside the codes engine's one launch
+    LB = L_LONG
+    T3 = enc.upload(enc.encode_batch(c3, LB, LB), dev)
+    sub = nwm.strings_sub_batch(LB, LB, "runs")
+    parts = [tuple(t[lo : lo + sub] for t in T3) for lo in range(0, len(c3), sub)]
+    fill_ms = [cuda_ms(lambda: fb.fill_runs_banded_batch(*p, 2, 1, 1, with_counts=True), 1) for p in parts]
+    codes_fill_ms = cuda_ms(lambda: fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1, with_counts=True), 1)
+    codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
+    walk_codes_ms = cuda_ms(lambda: tb.walk_codes_batch(codes3, *T3[2:], 2 * LB), 3)
+    steps = int(tb.walk_codes_batch(codes3, *T3[2:], 2 * LB)[1].to(torch.int64).sum())
+    del codes3
+    torch.cuda.empty_cache()
+    walk_ms, loads, runs_parts = [], [], []
+    for p in parts:
+        runs, sc, ct = fb.fill_runs_banded_batch(*p, 2, 1, 1, with_counts=True)
+        walk_ms.append(cuda_ms(lambda: tb.walk_runs_batch(runs, *p[2:], 2 * LB), 3))
+        loads.append(tb.walk_runs_loads(runs, *p[2:], 2 * LB)[2])
+        runs_parts.append(tensor_bytes(runs, sc, ct))
+        del runs, sc, ct
+        torch.cuda.empty_cache()
+    loads = torch.cat(loads)
+    n_loads = int(loads.sum())
+    # 128 x 10 kb: one launch of each fill on the same inputs, in turns
+    h = tuple(t[:128] for t in T3)
+    fills = {
+        "runs": lambda: fb.fill_runs_banded_batch(*h, 2, 1, 1, with_counts=True),
+        "codes": lambda: fb.fill_greedy_counts_banded_batch(*h, 2, 1, 1, with_counts=True),
+        "masks": lambda: fb.fill_masks_banded_batch(*h, 2, 1, 1, with_counts=True),
+        "runs, no counts": lambda: fb.fill_runs_banded_batch(*h, 2, 1, 1),
+    }
+    same = {kind: [] for kind in fills}
+    for turn in range(2):
+        for kind in (list(fills) if turn == 0 else list(fills)[::-1]):
+            same[kind].append(cuda_ms(fills[kind], 0))
+    log(f"phase 14 (d) fills at 128x{LB}bp with counts, one launch each, in turns: "
+        f"{ {k: [round(x, 3) for x in v] for k, v in same.items()} } ms [{card}]")
+    # the plain versions on the first config-3 pair, against the kernels there
+    one = tuple(t[:1] for t in T3)
+    (p_runs, p_sc, p_ct), plain_fill_ms = cuda_once(lambda: fb.fill_runs_banded_batch_plain(*one, 2, 1, 1, with_counts=True))
+    (p_ops, p_n), plain_walk_ms = cuda_once(lambda: tb.walk_runs_batch_plain(p_runs, *one[2:], 2 * LB))
+    k_runs = fb.fill_runs_banded_batch(*one, 2, 1, 1, with_counts=True)
+    e_fill = max(max_abs_err(g, w) for g, w in zip(k_runs, (p_runs, p_sc, p_ct)))
+    e_walk = max(max_abs_err(g, w) for g, w in zip(tb.walk_runs_batch(k_runs[0], *one[2:], 2 * LB), (p_ops, p_n)))
+    del p_runs, k_runs
+    errs["nw_fill_runs_batch"] = max(errs["nw_fill_runs_batch"], e_fill)
+    errs["nw_walk_runs"] = max(errs["nw_walk_runs"], e_walk)
+    log(f"phase 14 (d) the first config-3 pair (1x{LB}bp) vs plain on the card: fill {e_fill} "
+        f"({plain_fill_ms:.1f} ms), walk {e_walk} ({plain_walk_ms:.1f} ms) [{card}]")
+    if e_fill or e_walk:
+        fail(f"a runs kernel differs from its plain version at the path's width: {errs}")
+    cells3 = nb * LB * LB
+    rec = {
+        "nw_fill_runs_batch": dict(
+            ms=sum(fill_ms), plain_ms=plain_fill_ms,
+            **bound(cells3 * (OPS_SCORE + OPS_COUNT + OPS_CODE + OPS_RUN), tensor_bytes(*T3) + sum(runs_parts)),
+            shape=f"{nb}x{LB}bp run bytes+counts in {len(parts)} launches of {sub} and {nb - sub} pairs "
+                  f"({' + '.join(f'{x:.3f}' for x in fill_ms)} ms; nw_fill_codes codes+counts at {nb}x{LB}bp "
+                  f"{codes_fill_ms:.3f} ms in one; at 128x{LB}bp, in turns, runs {[round(x, 3) for x in same['runs']]} "
+                  f"ms, codes {[round(x, 3) for x in same['codes']]} ms, masks {[round(x, 3) for x in same['masks']]} "
+                  f"ms; plain_ms at 1x{LB}bp)"),
+        "nw_walk_runs": dict(
+            ms=sum(walk_ms), plain_ms=plain_walk_ms,
+            **bound(n_loads * OPS_WALK_STEP, tensor_bytes(*T3[2:]) + 4 * nb + n_loads + steps),
+            shape=f"{nb}x{LB}bp in {len(parts)} launches ({' + '.join(f'{x:.3f}' for x in walk_ms)} ms), "
+                  f"{n_loads} loads for {steps} steps ({n_loads / nb:.1f} a pair, max {int(loads.max())}, "
+                  f"against nw_walk's {steps / nb:.1f} steps a pair; nw_walk {walk_codes_ms:.3f} ms at {nb}x{LB}bp; "
+                  f"plain_ms at 1x{LB}bp)"),
+    }
+    for name, fields in rec.items():
+        fields.update(launches=launches[name], max_abs_err=errs[name])
+        log(f"kernel {name}: {fields['ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms ({fields['bound_by']}), "
+            f"plain {fields['plain_ms']:.1f} ms, {fields['shape']} [{card}]")
+    del T3, parts, h, one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec.update(flat_path(card, bound, c2))
+    log(f"phase 14 (c) seconds {time.perf_counter() - t0:.1f}")
+    log(f"phase 14 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+    return rec
+
+
+def check_pairs():
+    """Phase 3's pairs (seed 0): 64 random of 0-700 bp, 8 tie-dense of
+    100-400 bp, and ``EDGE``."""
+    rng = np.random.default_rng(0)
+    return rand_pairs(rng, 64, 0, 700) + rand_pairs(rng, 8, 100, 400, b"AC") + EDGE
+
+
+def config_pairs():
+    """The main path's configs (seed 4): config 3's 256 random 10 240 bp
+    pairs and config 2's 10 240 random 150 bp pairs."""
+    rng = np.random.default_rng(4)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+
+    def pairs(n, length):
+        return [(letters[rng.integers(0, 4, length)].tobytes(), letters[rng.integers(0, 4, length)].tobytes())
+                for _ in range(n)]
+
+    c3 = pairs(256, L_LONG)
+    return c3, pairs(10240, L_SHORT)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2637,9 +3064,8 @@ def main() -> None:
     print_ptxas_report(ptxas)
 
     # 3. each kernel bit for bit against its plain version
-    rng = np.random.default_rng(0)
     cfg = AlignConfig()
-    small = rand_pairs(rng, 64, 0, 700) + rand_pairs(rng, 8, 100, 400, b"AC") + EDGE
+    small = check_pairs()
     L1 = cfg.bucket_for(max(len(a) for a, _ in small))
     L2 = cfg.bucket_for(max(len(b) for _, b in small))
     tops, sides, l1, l2 = enc.upload(enc.encode_batch(small, L1, L2), dev)
@@ -2673,16 +3099,7 @@ def main() -> None:
         fail(f"kernel differs from its plain version: {errs}")
 
     # 4. the main path; counters from 0
-    rng = np.random.default_rng(4)
-    letters = np.frombuffer(b"ACGT", np.uint8)
-    c3 = [
-        (letters[rng.integers(0, 4, L_LONG)].tobytes(), letters[rng.integers(0, 4, L_LONG)].tobytes())
-        for _ in range(256)
-    ]
-    c2 = [
-        (letters[rng.integers(0, 4, L_SHORT)].tobytes(), letters[rng.integers(0, 4, L_SHORT)].tobytes())
-        for _ in range(10240)
-    ]
+    c3, c2 = config_pairs()
     c128 = c3[:128]
     LB = cfg.bucket_for(L_LONG)  # 10240 is a bucket of its own
     m, k, d = 2, 1, 1
@@ -2861,6 +3278,8 @@ def main() -> None:
     sharded_rec = sharded_phase(card, bound)
     # 13. the tie-mask routes and Hirschberg (their own launch counters)
     masks_rec = masks_phase(card, bound)
+    # 14. the runs walk engine and the flat-fill API (their own launch counters)
+    runs_rec = runs_phase(card, bound, aligner, small, c3, r3, aligned, c2)
     sw_rec["sw_walk"]["launches"] += overlap_walk["launches"]
     sw_rec["sw_walk"]["max_abs_err"] = max(sw_rec["sw_walk"]["max_abs_err"], overlap_walk["max_abs_err"])
     sw_rec["sw_walk"]["shape"] += f"; overlap walks 128x{L_SW_TB}bp {overlap_walk['ms']:.3f} ms"
@@ -2972,6 +3391,23 @@ def main() -> None:
     for name, fields in masks_rec.items():
         kernels_line.append({"name": name, "route": "cuda", "source": masks_src.get(name, single_src),
                              "replaces": masks_replaces[name], **fields})
+    runs_replaces = {
+        "nw_fill_runs_batch": "nw_tpu/ops/fill_pallas_banded.py:342 (K2's with_runs mode, launched :969)",
+        "nw_walk_runs": "nw_tpu/ops/banded_traceback.py:187 (_make_runs_walk_loop)",
+        "nw_fill_codes/flat": "nw_tpu/ops/fill_pallas.py:268 (K26, launched :363; K4's shape, "
+                              "nw_tpu/ops/fill_rowsweep.py:154)",
+        "nw_fill_masks_batch/flat": "nw_tpu/ops/fill_pallas.py:432/456 (K27, launched :648)",
+        "nw_count_masks/flat": "nw_tpu/ops/fill_pallas.py:703 (K6 over K27's words, launched :784)",
+        "nw_scores/flat": "nw_tpu/ops/fill_pallas.py:103 (K7, launched :230)",
+        "nw_fill_codes/K5": "nw_tpu/ops/arrows_rowsweep.py:63 (K5's shape, launched :250)",
+        "nw_walk/K5": "nw_tpu/ops/traceback.py:141 (traceback_greedy2_rowmajor over K5's codes, at K5's shape)",
+    }
+    runs_src = {"nw_walk_runs": "nw_tpu_torch/csrc/nw_walk.cu", "nw_walk/K5": "nw_tpu_torch/csrc/nw_walk.cu",
+                "nw_count_masks/flat": "nw_tpu_torch/csrc/nw_count.cu"}
+    for name, fields in runs_rec.items():
+        kernels_line.append({"name": name, "route": "cuda",
+                             "source": runs_src.get(name, "nw_tpu_torch/csrc/nw_fill.cu"),
+                             "replaces": runs_replaces[name], **fields})
     for kern in kernels_line:
         kern["library_ms"] = None  # no one PyTorch call computes a DP fill or walk
     record = {"kernels": kernels_line}

@@ -20,6 +20,9 @@
 //   K2 in its batched pack_bits=8 tie-mask mode, with and without
 //      with_counts (fill_arrows_banded_batch / fill_arrows_banded_single,
 //      launched at fill_pallas_banded.py:969)              -> nw_fill_masks_batch
+//   K2 in its with_runs mode (run bytes for the run-skip walk,
+//      banded_traceback.py:_banded_walk_runs_device), here with
+//      optional fused counts                               -> nw_fill_runs_batch
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163, with
 // the boundaries written explicitly (row 0: -c*d, LEFT, one path;
@@ -107,6 +110,30 @@
 // are 1 byte a cell against the codes' 2 bits (4x the stores), so at
 // 128 x 2 kb pairs the stores (537 MB) stay well below the sweep's own
 // latency bound.  Counts ride the sweep as in the global mode.
+//
+// The RUNS mode is the MASKS mode storing, instead of a tie mask, the
+// byte min(run, 63) << 2 | code: the greedy code (0 diag, 1 left, 2 up,
+// the global mode's choice) and the length of the maximal same-code run
+// ending at the cell, for the run-skip walk (nw_walk.cu, nw_walk_runs),
+// which consumes a whole run a load.  A diag run chains through the
+// diagonal predecessor, a left run through the left one; up cells store
+// run 0.  The left predecessor's byte is the lane's own byte of the
+// previous step; the diagonal predecessor's is lane jj-1's byte of two
+// steps back, moved by one more __shfl_up_sync beside the scores' (lane
+// 0 takes 0: diag runs restart at each band's first row, as K2's
+// restart at its band's row 0; a capped or band-split run only shortens
+// a jump).  The byte is computed on the bytes themselves: a predecessor
+// of the same code gives its byte plus 4 (one more cell, capped), any
+// other a run of one, and the score's two compares pick diag, left or
+// up, so the run adds 3 dependent ops after the score.  Written as the
+// run's min, add and selects on separate fields instead, the step took
+// 1.6x as long (chip_smoke.py phase 14, PERF.md).  Row 0 stores
+// min(c, 63) << 2 | LEFT, column 0 UP (run 0), the origin and every cell
+// outside the true table 0, all explicitly, through the same ring and
+// stores as the masks; counts ride along as in the MASKS mode (K2's
+// with_runs has none).  Like the other byte mode it is bound by the
+// step's latency, one warp a pair; the bytes it stores are the masks'
+// (a byte a cell).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -135,6 +162,8 @@ constexpr int kGlobal = 0;   // Needleman-Wunsch
 constexpr int kLocal = 1;    // Smith-Waterman
 constexpr int kOverlap = 2;  // overlap: free end gaps
 constexpr int kMasks = 3;    // Needleman-Wunsch storing tie masks
+constexpr int kRuns = 4;     // Needleman-Wunsch storing run bytes
+constexpr unsigned kRunCap = 63;  // the longest run a byte holds
 
 // (score, kk, j) ranks above (tb, tk, tj): higher score, then the
 // earlier anti-diagonal, then the lower row
@@ -155,10 +184,12 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
   constexpr bool LOCAL = MODE == kLocal;
   constexpr bool OVERLAP = MODE == kOverlap;
   constexpr bool MASKS = MODE == kMasks;
+  constexpr bool RUNS = MODE == kRuns;
+  constexpr bool BYTES = MASKS || RUNS;  // a byte a cell, row-major, through the ring
   constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
   static_assert(!(FREE && WITH_COUNTS), "a local or overlap fill has no counts");
-  static_assert(!(MASKS && EMIT_CODES), "a masks fill stores masks, not codes");
-  // MASKS: the warp's byte ring (dynamic shared memory, kRingBytes)
+  static_assert(!(BYTES && EMIT_CODES), "a masks or runs fill stores bytes, not codes");
+  // MASKS, RUNS: the warp's byte ring (dynamic shared memory, kRingBytes)
   extern __shared__ unsigned char mring[];
   constexpr bool ARGMAX = FREE && EMIT_CODES;
   const int lane = threadIdx.x;
@@ -172,8 +203,8 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
   unsigned* crow = WITH_COUNTS ? cbnd + b * M : nullptr;
   const int l1 = lens1[b];
   const int l2 = lens2[b];
-  // MASKS: this pair's table, uint8[Bs+1, A+1] (codes holds the batch's)
-  unsigned char* pm = MASKS
+  // MASKS, RUNS: this pair's table, uint8[Bs+1, A+1] (codes holds the batch's)
+  unsigned char* pm = BYTES
       ? reinterpret_cast<unsigned char*>(codes) + b * (Bs + 1) * static_cast<int64_t>(M)
       : nullptr;
 
@@ -182,6 +213,7 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
     brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
     if (WITH_COUNTS) crow[c] = 1u;
     if (MASKS) pm[c] = c >= 1 && c <= l1 ? kMaskLeft : 0u;
+    if (RUNS) pm[c] = c >= 1 && c <= l1 ? min(static_cast<unsigned>(c), kRunCap) << 2 | kCodeLeft : 0u;
   }
   if (!FREE && l2 == 0 && lane == 0) {
     scores[b] = wsub(0, wmul(l1, d));
@@ -205,6 +237,7 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         : nullptr;
     int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
     unsigned cnt = 0, cup_prev = 0, pack = 0;
+    unsigned v = 0, v2 = 0;  // runs: own byte of the last step and of the one before
     int lbest = 0, lk = 0;  // local, overlap: this row's best and its first kk
 
     for (int t0 = 0; t0 < 32 * nchunks; t0 += 32) {
@@ -229,6 +262,11 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         }
         up = lane == 0 ? b_up : up;
         ch = lane == 0 ? b_ch : ch_in;
+        unsigned vdiag = 0;
+        if (RUNS) {  // lane jj-1's byte two steps back: (j-1, c-1); lane 0 restarts the chain
+          vdiag = __shfl_up_sync(kFull, v2, 1);
+          vdiag = lane == 0 ? 0u : vdiag;
+        }
 
         const int cand_d = wadd(up_prev, ch == sch ? m : negk);
         const int cand_u = wsub(up, d);
@@ -254,6 +292,18 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         if (MASKS) {  // 0 outside the true table; a slot of c < 0 is written again before it is stored
           mask = col_zero ? kMaskUp : mask;
           mring[lane * kRingCols + (c & (kRingCols - 1))] = j <= l2 && c <= l1 ? mask : 0u;
+        }
+        unsigned vn = 0u;
+        if (RUNS) {  // the code and its run (column 0: UP, run 0), stored as the masks are
+          // a predecessor of the same code extends its run by one (a byte
+          // plus 4, capped), any other starts one; the score picks the code
+          const unsigned dbyte = (vdiag & 3u) == kCodeDiag ? min(vdiag + 4u, kRunCap << 2 | kCodeDiag)
+                                                           : 1u << 2 | kCodeDiag;
+          const unsigned lbyte = (v & 3u) == kCodeLeft ? min(v + 4u, kRunCap << 2 | kCodeLeft)
+                                                       : 1u << 2 | kCodeLeft;
+          vn = cand_d == hn ? dbyte : (cand_l == hn ? lbyte : kCodeUp);
+          vn = col_zero ? kCodeUp : vn;
+          mring[lane * kRingCols + (c & (kRingCols - 1))] = j <= l2 && c <= l1 ? vn : 0u;
         }
         const bool in_row = c >= 0 && c <= A;
         if (!FREE && in_row && j == l2 && c == l1) {  // the true corner
@@ -286,12 +336,16 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         }
         up_prev = up;
         h = hn;
+        if (RUNS) {
+          v2 = v;
+          v = vn;
+        }
         if (WITH_COUNTS) {
           cup_prev = cup;
           cnt = cn;
         }
       }
-      if (MASKS) {  // every lane has finished columns t0-31 .. t0: store them, row by row
+      if (BYTES) {  // every lane has finished columns t0-31 .. t0: store them, row by row
         __syncwarp();
         const int col = t0 - 31 + lane;
         if (col >= 0 && col <= A) {
@@ -349,7 +403,8 @@ int launch_fill(const int* tops, const int* sides, const int* lens1,
                 unsigned* counts, cudaStream_t stream, int* jstar = nullptr,
                 int* istar = nullptr) {
   if (B <= 0) return 0;
-  nw_fill_kernel<EMIT_CODES, WITH_COUNTS, MODE><<<B, 32, MODE == kMasks ? kRingBytes : 0, stream>>>(
+  constexpr int ring = MODE == kMasks || MODE == kRuns ? kRingBytes : 0;
+  nw_fill_kernel<EMIT_CODES, WITH_COUNTS, MODE><<<B, 32, ring, stream>>>(
       tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores,
       counts, jstar, istar);
   return static_cast<int>(cudaGetLastError());
@@ -462,6 +517,28 @@ extern "C" int nw_fill_masks_batch(const int* tops, const int* sides,
   return launch_fill<false, false, kMasks>(tops, sides, lens1, lens2, B, A, Bs,
                                            m, k, d, bnd, nullptr, mk, scores,
                                            nullptr, s);
+}
+
+// K2 with_runs port for a batch: run bytes min(run, 63) << 2 | code,
+// uint8[B, Bs+1, A+1] (row-major, a pair's table after another; 0
+// outside each true table), scores int32[B] and, with with_counts,
+// uint32 counts[B].  bnd / cbnd are [B, A+1] scratch (cbnd only with
+// counts).
+extern "C" int nw_fill_runs_batch(const int* tops, const int* sides,
+                                  const int* lens1, const int* lens2, int B,
+                                  int A, int Bs, int m, int k, int d,
+                                  int with_counts, int* bnd, void* cbnd,
+                                  void* runs, int* scores, void* counts,
+                                  void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto rb = static_cast<unsigned*>(runs);  // the kernel reads it as bytes
+  if (with_counts)
+    return launch_fill<false, true, kRuns>(
+        tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd,
+        static_cast<unsigned*>(cbnd), rb, scores, static_cast<unsigned*>(counts), s);
+  return launch_fill<false, false, kRuns>(tops, sides, lens1, lens2, B, A, Bs,
+                                          m, k, d, bnd, nullptr, rb, scores,
+                                          nullptr, s);
 }
 
 extern "C" const char* nw_error_string(int err) {

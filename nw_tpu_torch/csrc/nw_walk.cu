@@ -34,6 +34,20 @@
 // steps LEFT, as nw_walk.  One thread a pair, bound by the same chain of
 // dependent loads (a byte a cell: a diagonal step moves to another row).
 //
+// nw_walk_runs is nw_walk_masks's kernel in its third mode: the run-skip
+// walk over the run bytes min(run, 63) << 2 | code of nw_fill.cu's RUNS
+// mode (nw_fill_runs_batch), the counterpart of
+// nw_tpu/ops/banded_traceback.py:187 _make_runs_walk_loop.  Each
+// dependent load consumes a whole run: diag K moves to (j-K, i-K), left
+// K to (j, i-K), up to (j-1, i); row 0 steps LEFT and column 0 UP to the
+// origin with no load.  The thread writes the expanded op string
+// straight into its row of ops, so the walk needs no record buffer: the
+// TPU engine's record cap (_runs_record_cap, RunsRecordOverflow and its
+// fallback to the per-cell engine) was a limit of its traced loop and
+// has no counterpart.  Bound by the chain of dependent loads, one a run
+// instead of one a step, each to another row of the table on a diagonal
+// run; the op stores are the same as nw_walk's.
+//
 // nw_walk_window is the same walk over ONE block of rows (j0, j0+rows]
 // of one pair, re-filled from a checkpoint row by nw_fill_codes_single:
 // the block walk of nw_tpu/ops/checkpoint_traceback.py:353-373 and the
@@ -88,6 +102,11 @@ constexpr int kOpLeft = 1;
 constexpr int kOpUp = 2;
 constexpr int kCodeStop = 3;
 
+// what nw_walk_kernel walks
+constexpr int kWalkCodes = 0;  // band-major 2-bit codes (nw_fill_codes)
+constexpr int kWalkMasks = 1;  // row-major 3-bit tie masks
+constexpr int kWalkRuns = 2;   // row-major run bytes (nw_fill_runs_batch)
+
 // The 2-bit code of code row r, column i (band-major, TW words a band row)
 __device__ __forceinline__ int code_at(const unsigned* __restrict__ base,
                                        int TW, int r, int i) {
@@ -128,27 +147,58 @@ __device__ __forceinline__ void walk(const void* __restrict__ base, int stride,
   }
 }
 
-// codes mode: a pair's nbands bands of 2-bit codes, TW words a band row;
-// MASKS: a pair's nbands = Bs+1 rows of TW = A+1 tie masks
-template <bool MASKS>
+// The run-skip walk from (i, j) to the origin over run bytes of rows
+// 1 .. (row r at base + r * stride), writing ops from out[n]; stops after
+// S ops.  A run's cells all carry its code, so a jump never leaves the
+// table: a diag run stops above row 1 (bands restart it) and column 1, a
+// left run at column 1 (column 0 is UP).
+__device__ __forceinline__ void walk_runs(const unsigned char* __restrict__ base,
+                                          int stride, int S, int& i, int& j,
+                                          int& n, signed char* __restrict__ out) {
+  while ((i > 0 || j > 0) && n < S) {
+    int a = kOpLeft, K = i;  // row 0: LEFT to the origin
+    if (j > 0 && i == 0) {
+      a = kOpUp;  // column 0: UP to the origin
+      K = j;
+    } else if (j > 0) {
+      const unsigned v = base[static_cast<int64_t>(j - 1) * stride + i];
+      a = v & 3u;
+      K = a == kOpUp ? 1 : max(static_cast<int>(v >> 2), 1);
+    }
+    K = min(K, S - n);
+    for (int q = 0; q < K; ++q) out[n + q] = static_cast<signed char>(a);
+    n += K;
+    i -= a != kOpUp ? K : 0;
+    j -= a != kOpLeft ? K : 0;
+  }
+}
+
+// kWalkCodes: a pair's nbands bands of 2-bit codes, TW words a band row;
+// kWalkMasks / kWalkRuns: a pair's nbands = Bs+1 rows of TW = A+1 tie
+// masks / run bytes
+template <int LAYOUT>
 __global__ void nw_walk_kernel(const void* __restrict__ codes,
                                const int* __restrict__ lens1,
                                const int* __restrict__ lens2, int B,
                                int nbands, int TW, int S,
                                signed char* __restrict__ ops,
                                int* __restrict__ ns) {
+  constexpr bool BYTES = LAYOUT != kWalkCodes;
   const int bi = blockIdx.x * blockDim.x + threadIdx.x;
   if (bi >= B) return;
   const int64_t b = bi;
   int i = lens1[b];
   int j = lens2[b];
   int n = 0;
-  // the stored rows start at row 1: a mask table's row 0 is skipped
-  const void* base = MASKS
+  // the stored rows start at row 1: a byte table's row 0 is skipped
+  const void* base = BYTES
       ? static_cast<const void*>(static_cast<const unsigned char*>(codes) +
                                  (b * nbands + 1) * static_cast<int64_t>(TW))
       : static_cast<const void*>(static_cast<const unsigned*>(codes) + b * nbands * TW * 32);
-  walk<MASKS>(base, TW, 0, S, i, j, n, ops + b * S);
+  if (LAYOUT == kWalkRuns)
+    walk_runs(static_cast<const unsigned char*>(base), TW, S, i, j, n, ops + b * S);
+  else
+    walk<LAYOUT == kWalkMasks>(base, TW, 0, S, i, j, n, ops + b * S);
   ns[b] = n;
 }
 
@@ -255,8 +305,8 @@ extern "C" int nw_walk(const void* codes, const int* lens1, const int* lens2,
                        int* ns, void* stream) {
   if (B <= 0) return 0;
   const int threads = 128;
-  nw_walk_kernel<false><<<(B + threads - 1) / threads, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  nw_walk_kernel<kWalkCodes><<<(B + threads - 1) / threads, threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       codes, lens1, lens2, B, nbands, TW, S, ops, ns);
   return static_cast<int>(cudaGetLastError());
 }
@@ -270,9 +320,24 @@ extern "C" int nw_walk_masks(const void* masks, const int* lens1,
   if (B <= 0) return 0;
   if (A < 0 || Bs < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 128;
-  nw_walk_kernel<true><<<(B + threads - 1) / threads, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  nw_walk_kernel<kWalkMasks><<<(B + threads - 1) / threads, threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       masks, lens1, lens2, B, Bs + 1, A + 1, S, ops, ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// runs: uint8[B, Bs+1, A+1] run bytes from nw_fill_runs_batch (row-major,
+// a pair's table after another); ops: int8[B, S] prefilled with OP_NONE;
+// ns: int32[B].  S must be >= every len1 + len2.
+extern "C" int nw_walk_runs(const void* runs, const int* lens1,
+                            const int* lens2, int B, int A, int Bs, int S,
+                            signed char* ops, int* ns, void* stream) {
+  if (B <= 0) return 0;
+  if (A < 0 || Bs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 128;
+  nw_walk_kernel<kWalkRuns><<<(B + threads - 1) / threads, threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      runs, lens1, lens2, B, Bs + 1, A + 1, S, ops, ns);
   return static_cast<int>(cudaGetLastError());
 }
 

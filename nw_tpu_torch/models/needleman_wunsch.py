@@ -28,9 +28,12 @@ Counterpart of ``nw_tpu/models/needleman_wunsch.py``:
   (``nw_fill_codes`` without codes);
 * strings, with or without counts -> sub-batches through
   :func:`nw_tpu_torch.ops.banded_traceback.traceback_banded_dispatch`
-  (``nw_fill_codes`` then ``nw_walk``).  Only this route stores a value
-  per cell (2 bits), so only it is cut into sub-batches, sized so that
-  one sub-batch's codes fit :data:`CODE_BUDGET_BYTES`;
+  on the walk engine ``NW_TPU_WALK_ENGINE`` names: ``nw_fill_codes``
+  then ``nw_walk`` (``auto``, ``onepass``), or ``nw_fill_runs_batch``
+  then ``nw_walk_runs`` (``runs``).  This route stores a value per cell
+  (2 bits of code, or a run byte), so it is cut into sub-batches, sized
+  by :func:`strings_sub_batch` so that one sub-batch's table fits
+  :data:`CODE_BUDGET_BYTES`; every engine gives the same outputs;
 * counts or strings of fewer than ``BANDED_MIN_BATCH`` pairs with sides
   over ``HUGE_PAIR_MIN_SIDE`` -> one pair at a time: counts through
   ``summary_huge``, strings through ``align_huge``'s routes;
@@ -57,6 +60,8 @@ from nw_tpu_torch.config import AlignConfig, ScoringParams
 from nw_tpu_torch.ops import encode as enc
 from nw_tpu_torch.ops import enumerate_walk, traceback
 from nw_tpu_torch.ops.banded_traceback import (
+    ENGINE_CELL_BITS,
+    resolve_walk_engine,
     traceback_banded_dispatch,
     traceback_banded_finalize,
 )
@@ -74,9 +79,10 @@ from nw_tpu_torch.ops.fill_banded import (
 from nw_tpu_torch.ops.checkpoint_traceback import traceback_checkpointed
 from nw_tpu_torch.ops.fill_single import fill_arrows_fold_batch, fill_codes_single, score_count_fold
 
-# device bytes one strings sub-batch may spend on its 2-bit codes: at
-# 10 kb buckets (26 MB a pair) 640 pairs, i.e. several warps per SM; the
-# mask route's sub-batches spend it on tie masks (a byte a cell)
+# device bytes one strings sub-batch may spend on its per-cell table: at
+# 10 kb buckets 653 pairs of 2-bit codes (26 MB a pair), i.e. several
+# warps per SM, or 163 pairs of run bytes (105 MB a pair); the mask
+# route's sub-batches spend it on tie masks (a byte a cell)
 CODE_BUDGET_BYTES = 16 << 30
 
 
@@ -119,10 +125,21 @@ def resolve_device(device: str | torch.device, who: str) -> torch.device:
 
 
 def code_bytes_per_pair(L1: int, L2: int, bits: int = 2) -> int:
-    """Device bytes of one pair's codes at buckets (L1, L2): 2-bit greedy
-    codes, or ``bits=4`` Gotoh codes."""
+    """Device bytes of one pair's per-cell table at buckets (L1, L2):
+    2-bit greedy codes, ``bits=4`` Gotoh codes, or ``bits=8`` run bytes
+    (uint8[L2+1, L1+1])."""
+    if bits == 8:
+        return (L1 + 1) * (L2 + 1)
     _, nbands, TW, lanes = code_shape(1, L1, L2, bits)
     return nbands * TW * lanes * 4
+
+
+def strings_sub_batch(L1: int, L2: int, engine: str) -> int:
+    """Pairs a strings sub-batch takes at buckets (L1, L2) on the walk
+    engine ``engine``: as many as fit :data:`CODE_BUDGET_BYTES` at the
+    bits a cell the engine stores (2 for codes, 8 for run bytes)."""
+    bits = ENGINE_CELL_BITS[engine]
+    return max(1, CODE_BUDGET_BYTES // code_bytes_per_pair(L1, L2, bits))
 
 
 @dataclasses.dataclass
@@ -374,8 +391,8 @@ class NWAligner:
         With ``on_error="mask"``, pairs longer than ``max_length`` are
         replaced by empty pairs and flagged in ``result.status`` instead
         of failing the whole batch.  ``sub_batch`` caps the pairs per
-        strings sub-batch (default: as many as fit
-        :data:`CODE_BUDGET_BYTES`).
+        strings sub-batch (default: :func:`strings_sub_batch` on the walk
+        engine ``NW_TPU_WALK_ENGINE`` names).
         """
         if on_error not in ("raise", "mask"):
             raise ValueError(f"on_error must be 'raise' or 'mask', not {on_error!r}")
@@ -419,10 +436,11 @@ class NWAligner:
                 status=status, _pairs=norm,
             )
 
+        engine = resolve_walk_engine()
         if sub_batch is None:
-            sub_batch = max(1, CODE_BUDGET_BYTES // code_bytes_per_pair(L1, L2))
+            sub_batch = strings_sub_batch(L1, L2, engine)
         scores_l, counts_l, ops_l, n_l = _pipelined_banded_walk(
-            norm, m, k, d, sub_batch, count, L1, L2, self.device
+            norm, m, k, d, sub_batch, count, L1, L2, self.device, engine
         )
         result = BatchResult(
             scores=np.concatenate(scores_l),
@@ -436,8 +454,9 @@ class NWAligner:
         return result
 
 
-def _pipelined_banded_walk(norm, m, k, d, chunk, count, L1, L2, device):
-    """Banded tracebacks over sub-batches of ``chunk`` pairs.
+def _pipelined_banded_walk(norm, m, k, d, chunk, count, L1, L2, device, engine):
+    """Banded tracebacks over sub-batches of ``chunk`` pairs on the walk
+    engine ``engine``.
 
     Every sub-batch is padded to the whole batch's buckets (L1, L2), so
     their op arrays share one width and concatenate.  Sub-batches run in
@@ -448,7 +467,7 @@ def _pipelined_banded_walk(norm, m, k, d, chunk, count, L1, L2, device):
         sub = norm[lo : lo + chunk]
         tops, sides, l1, l2 = enc.upload(enc.encode_batch(sub, L1, L2), device)
         outs = traceback_banded_finalize(
-            traceback_banded_dispatch(tops, sides, l1, l2, m, k, d, with_counts=count)
+            traceback_banded_dispatch(tops, sides, l1, l2, m, k, d, with_counts=count, engine=engine)
         )
         if count:
             sc, ct, ops, n = outs

@@ -15,6 +15,10 @@ each with its plain PyTorch version in this module:
   a batch, scores and optionally counts (``nw_fill_masks_batch``, the
   ``MASKS`` mode of ``csrc/nw_fill.cu``; K2's batched ``pack_bits=8``
   mode);
+* :func:`fill_runs_banded_batch` — the rectangular run bytes of a batch
+  (greedy code and same-code run length a cell, for the run-skip walk),
+  scores and optionally counts (``nw_fill_runs_batch``, the ``RUNS``
+  mode of ``csrc/nw_fill.cu``; K2's ``with_runs`` mode);
 * :func:`fill_arrows_banded_single` — one pair's rectangular 3-bit tie
   masks, optionally its per-cell scores, its score and its fused count
   (``nw_fill_masks`` in ``csrc/nw_single.cu``, K2's ``pack_bits=8`` mode
@@ -39,7 +43,8 @@ is not stored (every step there is LEFT).  Tie masks are rectangular
 and row-major, uint8[B, Bs+1, A+1] (bits of
 :mod:`nw_tpu_torch.ops.arrows`; row 0 LEFT, column 0 UP, the origin 0,
 0 outside each pair's true table), not the TPU kernel's packed
-band-major words.
+band-major words.  Run bytes share that layout (uint8[B, Bs+1, A+1]);
+:func:`fill_runs_banded_batch_plain` states what each byte holds.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from typing import Optional, Tuple
 import torch
 
 from nw_tpu_torch.ops.fill_scan import (
+    BAND_ROWS,
     U32,
     code_shape,
     diag_to_matrix_batch,
@@ -113,7 +119,8 @@ def fill_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
 # ---------------- K2: codes and/or counts ----------------
 
 
-def _fill_codes_kernel(tops, sides, lens1, lens2, m, k, d, emit_codes, with_counts):
+def _fill_codes_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, emit_codes, with_counts):
+    """Launch ``nw_fill_codes`` for ``wrapper`` (whose count it raises)."""
     B, A, Bs = _dims(tops, sides)
     dev = tops.device
     scores = torch.empty(B, dtype=torch.int32, device=dev)
@@ -136,6 +143,7 @@ def _fill_codes_kernel(tops, sides, lens1, lens2, m, k, d, emit_codes, with_coun
             scores.data_ptr(),
             counts.data_ptr() if with_counts else None,
         )
+        wrapper.launches += 1
     return codes, scores, (_wrap_counts(counts) if with_counts else None)
 
 
@@ -148,10 +156,9 @@ def fill_scores_counts_banded_batch(
     if tops.device.type == "cpu":
         return fill_scores_counts_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
     _, scores, counts = _fill_codes_kernel(
-        tops, sides, lens1, lens2, m, k, d, emit_codes=False, with_counts=True
+        fill_scores_counts_banded_batch, tops, sides, lens1, lens2, m, k, d,
+        emit_codes=False, with_counts=True,
     )
-    if tops.shape[0]:
-        fill_scores_counts_banded_batch.launches += 1
     return scores, counts
 
 
@@ -176,12 +183,10 @@ def fill_greedy_counts_banded_batch(
         return fill_greedy_counts_banded_batch_plain(
             tops, sides, lens1, lens2, m, k, d, with_counts
         )
-    out = _fill_codes_kernel(
-        tops, sides, lens1, lens2, m, k, d, emit_codes=True, with_counts=with_counts
+    return _fill_codes_kernel(
+        fill_greedy_counts_banded_batch, tops, sides, lens1, lens2, m, k, d,
+        emit_codes=True, with_counts=with_counts,
     )
-    if tops.shape[0]:
-        fill_greedy_counts_banded_batch.launches += 1
-    return out
 
 
 fill_greedy_counts_banded_batch.launches = 0
@@ -199,7 +204,31 @@ def fill_greedy_counts_banded_batch_plain(
     return codes, out["score"], out.get("count")
 
 
-# ---------------- K2 pack_bits=8, a batch: tie masks ----------------
+# ---------------- K2 pack_bits=8 and with_runs, a batch: a byte a cell ----------------
+
+
+def _fill_bytes_kernel(wrapper, entry, tops, sides, lens1, lens2, m, k, d, with_counts):
+    """Launch ``entry`` (``nw_fill_masks_batch`` or ``nw_fill_runs_batch``)
+    for ``wrapper`` (whose count it raises): (table uint8[B, Bs+1, A+1],
+    scores int32[B], counts int64[B] or None)."""
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    table = torch.empty((B, Bs + 1, A + 1), dtype=torch.uint8, device=dev)
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev) if with_counts else None
+    if B:
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
+        cbnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev) if with_counts else None
+        kernels.launch(
+            entry, dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
+            B, A, Bs, m, k, d, int(with_counts), bnd.data_ptr(),
+            cbnd.data_ptr() if with_counts else None, table.data_ptr(), scores.data_ptr(),
+            counts.data_ptr() if with_counts else None,
+        )
+        wrapper.launches += 1
+    return table, scores, (_wrap_counts(counts) if with_counts else None)
 
 
 def fill_masks_banded_batch(
@@ -219,24 +248,9 @@ def fill_masks_banded_batch(
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return fill_masks_banded_batch_plain(tops, sides, lens1, lens2, m, k, d, with_counts)
-    B, A, Bs = _dims(tops, sides)
-    dev = tops.device
-    masks = torch.empty((B, Bs + 1, A + 1), dtype=torch.uint8, device=dev)
-    scores = torch.empty(B, dtype=torch.int32, device=dev)
-    counts = torch.empty(B, dtype=torch.int32, device=dev) if with_counts else None
-    if B:
-        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
-        bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
-        cbnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev) if with_counts else None
-        kernels.launch(
-            "nw_fill_masks_batch", dev,
-            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
-            B, A, Bs, m, k, d, int(with_counts), bnd.data_ptr(),
-            cbnd.data_ptr() if with_counts else None, masks.data_ptr(), scores.data_ptr(),
-            counts.data_ptr() if with_counts else None,
-        )
-        fill_masks_banded_batch.launches += 1
-    return masks, scores, (_wrap_counts(counts) if with_counts else None)
+    return _fill_bytes_kernel(
+        fill_masks_banded_batch, "nw_fill_masks_batch", tops, sides, lens1, lens2, m, k, d, with_counts
+    )
 
 
 fill_masks_banded_batch.launches = 0
@@ -253,6 +267,72 @@ def fill_masks_banded_batch_plain(
     )
     masks = zero_outside(diag_to_matrix_batch(out["arrows"]), lens1, lens2)
     return masks, out["score"], out.get("count")
+
+
+def fill_runs_banded_batch(
+    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(runs uint8[B, Bs+1, A+1], scores int32[B], counts int64[B] or
+    None): the run byte of every cell of a batch, row-major, 0 outside
+    each pair's true table, and the fused counts when asked.
+
+    The port of K2's ``with_runs`` mode (``nw_tpu``'s
+    ``_make_banded_arrows_kernel``, ``ops/fill_pallas_banded.py:342``,
+    launched through ``build_arrows_call`` at ``:969`` by the ``runs``
+    walk engine), which has no counts; here they ride along.
+    ``nw_fill_runs_batch`` (one warp a pair) on CUDA tensors,
+    :func:`fill_runs_banded_batch_plain` on CPU tensors.
+    """
+    _check(tops, sides, lens1, lens2, m, k, d)
+    if tops.device.type == "cpu":
+        return fill_runs_banded_batch_plain(tops, sides, lens1, lens2, m, k, d, with_counts)
+    return _fill_bytes_kernel(
+        fill_runs_banded_batch, "nw_fill_runs_batch", tops, sides, lens1, lens2, m, k, d, with_counts
+    )
+
+
+fill_runs_banded_batch.launches = 0
+
+RUN_CAP = 63  # the longest run a byte holds
+
+
+def run_bytes(masks: torch.Tensor) -> torch.Tensor:
+    """Rectangular tie masks uint8[B, N, M] (row 0 LEFT, column 0 UP, the
+    origin 0, 0 outside each table, as the fills write them) -> the run
+    bytes of :func:`fill_runs_banded_batch_plain`."""
+    B, N, M = masks.shape
+    a = masks.to(torch.int64)
+    code = torch.where((a & 1) != 0, 0, torch.where((a & 2) != 0, 1, 2))
+    live = a != 0  # the table but its origin
+    idx = torch.arange(M, device=masks.device).expand(B, N, M)
+    # a left run: back to the last cell of its row that is not LEFT
+    lrun = idx - torch.cummax(torch.where(live & (code == 1), 0, idx), dim=2).values
+    diag = live & (code == 0)
+    drun = torch.zeros_like(a)
+    for j in range(1, N):  # a diag run restarts at each band's first row
+        above = 0 if j % BAND_ROWS == 1 else drun[:, j - 1, :-1]
+        drun[:, j, 1:] = torch.where(diag[:, j, 1:], above + 1, 0)
+    run = torch.where(code == 0, drun, torch.where(code == 1, lrun, 0)).clamp(max=RUN_CAP)
+    return torch.where(live, run << 2 | code, 0).to(torch.uint8)
+
+
+def fill_runs_banded_batch_plain(
+    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False
+):
+    """Plain version of :func:`fill_runs_banded_batch`.
+
+    Cell (j, i) of a pair's true table holds ``min(run, 63) << 2 | code``.
+    ``code`` is the greedy choice, 0 diag / 1 left / 2 up (diag > left >
+    up, the first set bit of the cell's tie mask).  ``run`` is the length
+    of the maximal run of cells of that code ending at the cell: a diag
+    run chains through (j-1, i-1) while that cell is DIAG and row j is not
+    the first row of a 32-row band (j % 32 != 1), a left run through
+    (j, i-1) while that cell is LEFT; an up cell stores run 0.  Row 0
+    holds ``min(i, 63) << 2 | LEFT`` (a left run from the origin), column
+    0 holds UP (run 0), the origin and every cell outside the table 0.
+    """
+    masks, scores, counts = fill_masks_banded_batch_plain(tops, sides, lens1, lens2, m, k, d, with_counts)
+    return run_bytes(masks), scores, counts
 
 
 # ---------------- K2 pack_bits=8, one pair: tie masks ----------------

@@ -16,6 +16,13 @@ exactly the *first* alignment the reference emits.
   ``traceback_greedy`` vmapped over K2's and K10's masks,
   ``traceback.py:197-207``), :func:`traceback_greedy_batch` on a CPU
   tensor.
+* :func:`walk_runs_batch` walks rectangular run bytes uint8[B, Bs+1, A+1]
+  (:func:`nw_tpu_torch.ops.fill_banded.fill_runs_banded_batch`) a whole
+  same-code run a load: the ``nw_walk_runs`` kernel on a CUDA tensor
+  (the counterpart of ``nw_tpu/ops/banded_traceback.py:187
+  _make_runs_walk_loop``, the ``runs`` walk engine), its plain version
+  on a CPU tensor.  Both write the expanded ops, so no run record, record
+  cap or fallback engine exists here.
 * :func:`walk_codes_batch` walks the band-major 2-bit greedy codes that
   :func:`nw_tpu_torch.ops.fill_banded.fill_greedy_counts_banded_batch`
   emits (the counterpart of ``traceback_greedy2``, ``traceback.py:88-122``):
@@ -148,6 +155,95 @@ def walk_masks_batch_plain(
     """Plain version of :func:`walk_masks_batch`:
     :func:`traceback_greedy_batch` over the masks made diagonal-major."""
     return traceback_greedy_batch(matrix_to_diag_batch(masks), lens1, lens2, max_steps)
+
+
+def walk_runs_batch(
+    runs: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run-skip greedy walk over rectangular run bytes.
+
+    runs: uint8[B, Bs+1, A+1], ``min(run, 63) << 2 | code`` a cell
+    (:func:`nw_tpu_torch.ops.fill_banded.fill_runs_banded_batch`).  Each
+    walk starts at its true corner (lens2[b], lens1[b]); a load consumes
+    a whole run: diag K moves to (j-K, i-K), left K to (j, i-K), up to
+    (j-1, i).  Row 0 steps LEFT and column 0 UP to the origin.
+    max_steps must be >= every len1 + len2.  Returns ops int8[B,
+    max_steps] (OP_NONE padded) and n int32[B], the same as
+    :func:`walk_codes_batch` over the same cells' codes.
+
+    A CUDA tensor goes through the ``nw_walk_runs`` kernel (one thread a
+    pair); a CPU tensor through :func:`walk_runs_batch_plain`.
+    """
+    check_masks(runs, lens1, lens2)
+    if runs.device.type == "cpu":
+        return walk_runs_batch_plain(runs, lens1, lens2, max_steps)
+    B, N, M = runs.shape
+    ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=runs.device)
+    n = torch.empty(B, dtype=torch.int32, device=runs.device)
+    if B:
+        runs, lens1, lens2 = (t.contiguous() for t in (runs, lens1, lens2))
+        kernels.launch(
+            "nw_walk_runs", runs.device,
+            runs.data_ptr(), lens1.data_ptr(), lens2.data_ptr(), B, M - 1, N - 1,
+            max_steps, ops.data_ptr(), n.data_ptr(),
+        )
+        walk_runs_batch.launches += 1
+    return ops, n
+
+
+walk_runs_batch.launches = 0
+
+
+def walk_runs_batch_plain(
+    runs: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`walk_runs_batch` (same outputs)."""
+    ops, n, _ = walk_runs_loads(runs, lens1, lens2, max_steps)
+    return ops, n
+
+
+def walk_runs_loads(
+    runs: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`walk_runs_batch_plain`'s (ops, n) and loads int64[B], the run
+    bytes each walk read (its runs off row 0 and column 0), in plain
+    PyTorch on the tensors' device: one iteration a run, every pair at
+    once, then the runs expanded into ops."""
+    B, N, M = runs.shape
+    dev = runs.device
+    b_ar = torch.arange(B, device=dev)
+    i = lens1.to(torch.int64).clone()
+    j = lens2.to(torch.int64).clone()
+    loads = torch.zeros(B, dtype=torch.int64, device=dev)
+    recs_a, recs_k = [], []
+    for t in range(max_steps + 1):  # a run is at least one step
+        active = (i > 0) | (j > 0)
+        if t % 64 == 0 and not bool(active.any()):
+            break
+        v = runs[b_ar, j.clamp(max=N - 1), i.clamp(max=M - 1)].to(torch.int64)
+        a = v & 3
+        K = torch.where(a == OP_UP, 1, (v >> 2).clamp(min=1))
+        row0, col0 = j == 0, (j > 0) & (i == 0)
+        a = torch.where(row0, OP_LEFT, torch.where(col0, OP_UP, a))
+        K = torch.where(active, torch.where(row0, i, torch.where(col0, j, K)), 0)
+        loads += (active & ~row0 & ~col0).to(torch.int64)
+        recs_a.append(a)
+        recs_k.append(K)
+        i = i - torch.where(a != OP_UP, K, 0)
+        j = j - torch.where(a != OP_LEFT, K, 0)
+    ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=dev)
+    if not recs_k:
+        return ops, torch.zeros(B, dtype=torch.int32, device=dev), loads
+    ends = torch.cumsum(torch.stack(recs_k, dim=1), dim=1)  # [B, R]
+    n = ends[:, -1].clamp(max=max_steps)
+    pos = torch.arange(max_steps, device=dev).expand(B, max_steps).contiguous()
+    rec = torch.searchsorted(ends, pos, right=True).clamp(max=ends.shape[1] - 1)
+    a_all = torch.gather(torch.stack(recs_a, dim=1), 1, rec)
+    ops = torch.where(pos < n[:, None], a_all, OP_NONE).to(torch.int8)
+    return ops, n.to(torch.int32), loads
 
 
 def _check_walk_args(codes, lens1, lens2, per_word=16):

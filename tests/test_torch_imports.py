@@ -29,6 +29,7 @@ NEW_MODULES = {
     "nw_tpu_torch.parallel", "nw_tpu_torch.parallel.mesh", "nw_tpu_torch.parallel.distributed",
     "nw_tpu_torch.parallel.data_parallel", "nw_tpu_torch.parallel.huge_pair",
     "nw_tpu_torch.parallel.workers", "nw_tpu_torch.ops.arrows", "nw_tpu_torch.ops.hirschberg",
+    "nw_tpu_torch.ops.fill_flat",
 }
 
 
@@ -94,7 +95,7 @@ def test_default_device_without_card_raises(monkeypatch):
 
 def test_wrappers_do_not_fall_back_off_cpu():
     """A tensor on neither the CPU nor a card is refused, not computed."""
-    from nw_tpu_torch.ops import fill_banded, fill_single, pathcount, traceback, variants_banded
+    from nw_tpu_torch.ops import fill_banded, fill_flat, fill_single, pathcount, traceback, variants_banded
 
     t = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     lens = torch.zeros(2, dtype=torch.int32, device="meta")
@@ -108,6 +109,10 @@ def test_wrappers_do_not_fall_back_off_cpu():
         variants_banded.overlap_fill_codes_banded_batch,
         fill_banded.fill_masks_banded_batch,
         fill_single.fill_arrows_fold_batch,
+        fill_banded.fill_runs_banded_batch,
+        fill_flat.fill_scores_flat_batch,
+        fill_flat.fill_scores_counts_flat_batch,
+        fill_flat.fill_arrows_flat_batch,
     ):
         with pytest.raises(ValueError):
             fn(t, t, lens, lens, 1, 1, 1)
@@ -126,6 +131,10 @@ def test_wrappers_do_not_fall_back_off_cpu():
         traceback.walk_masks_batch(meta_masks, lens, lens, 16)
     with pytest.raises(ValueError):
         pathcount.count_masks_batch(meta_masks, lens, lens)
+    with pytest.raises(ValueError):
+        traceback.walk_runs_batch(meta_masks, lens, lens, 16)
+    with pytest.raises(ValueError):
+        fill_flat.count_flat_batch(meta_masks, lens, lens)
 
     one = torch.zeros(8, dtype=torch.int32, device="meta")
     for fn in (

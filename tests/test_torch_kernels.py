@@ -663,3 +663,77 @@ def test_align_batch_mask_route_cuda_vs_cpu(cuda, strings, count):
     if strings:
         np.testing.assert_array_equal(got.ops, want.ops)
         np.testing.assert_array_equal(got.ops_len, want.ops_len)
+
+
+def _run_inputs(seed, device):
+    # _inputs' pairs plus pure-diagonal runs past the 63 cap and 32-row bands
+    base = _pairs(seed + 50, 1, 150, 151)[0][0]
+    ps = (_pairs(seed, 12, 0, 140) + _pairs(seed + 1, 6, 20, 70, "AC") + EDGE
+          + [(base, base), (base[:64], base[:64]), (base, base[:100]), (base[:90], base)])
+    arrays = enc.encode_batch(ps, 160, 160)
+    return enc.upload(arrays, "cpu"), enc.upload(arrays, device)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_runs_fill_and_walk_kernels_vs_plain(cuda, mkd, with_counts):
+    """nw_fill_runs_batch (K2's with_runs mode) and nw_walk_runs against
+    their plain versions; the run walk's ops also against nw_walk's over
+    the same pairs' codes."""
+    cpu, dev = _run_inputs(sum(mkd) + 30, cuda)
+    got = fill_banded.fill_runs_banded_batch(*dev, *mkd, with_counts=with_counts)
+    want = fill_banded.fill_runs_banded_batch_plain(*cpu, *mkd, with_counts=with_counts)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    S = 320
+    ops, n = traceback.walk_runs_batch(got[0], *dev[2:], S)
+    for g, w in zip((ops, n), traceback.walk_runs_batch_plain(want[0], *cpu[2:], S)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    codes = fill_banded.fill_greedy_counts_banded_batch(*dev, *mkd)[0]
+    for g, w in zip((ops, n), traceback.walk_codes_batch(codes, *dev[2:], S)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("strings,count", [(True, True), (True, False)])
+def test_align_batch_runs_engine_cuda_vs_codes(cuda, monkeypatch, strings, count):
+    """align_batch under NW_TPU_WALK_ENGINE=runs on the card: the runs
+    kernels launch, and the outputs equal the codes engine's and the CPU's."""
+    ps = _pairs(31, 30, 0, 300) + EDGE
+    want = align_batch(ps, 2, 1, 1, device="cuda", traceback_strings=strings, count=count)
+    monkeypatch.setenv("NW_TPU_WALK_ENGINE", "runs")
+    fills, walks = fill_banded.fill_runs_banded_batch.launches, traceback.walk_runs_batch.launches
+    got = align_batch(ps, 2, 1, 1, device="cuda", traceback_strings=strings, count=count)
+    assert fill_banded.fill_runs_banded_batch.launches == fills + 1
+    assert traceback.walk_runs_batch.launches == walks + 1
+    cpu = align_batch(ps, 2, 1, 1, device="cpu", traceback_strings=strings, count=count)
+    for r in (want, cpu):
+        np.testing.assert_array_equal(got.scores, r.scores)
+        np.testing.assert_array_equal(got.ops, r.ops)
+        np.testing.assert_array_equal(got.ops_len, r.ops_len)
+        if count:
+            np.testing.assert_array_equal(got.counts, r.counts)
+
+
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_flat_api_kernels_vs_plain(cuda, mkd):
+    """ops/fill_flat.py on the card (K7, K26, K27 and K6's functions on
+    nw_scores, nw_fill_codes, nw_fill_masks_batch and nw_count_masks)
+    against its plain versions."""
+    from nw_tpu_torch.ops import fill_flat as ff
+
+    cpu, dev = _inputs(sum(mkd) + 32, cuda)
+    torch.testing.assert_close(ff.fill_scores_flat_batch(*dev, *mkd).cpu(),
+                               ff.fill_scores_flat_batch_plain(*cpu, *mkd), rtol=0, atol=0)
+    for g, w in zip(ff.fill_scores_counts_flat_batch(*dev, *mkd), ff.fill_scores_counts_flat_batch_plain(*cpu, *mkd)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    for wc in (False, True):
+        got = ff.fill_arrows_flat_batch(*dev, *mkd, with_counts=wc)
+        want = ff.fill_arrows_flat_batch_plain(*cpu, *mkd, with_counts=wc)
+        assert len(got) == len(want) == 2 + wc
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    torch.testing.assert_close(ff.count_flat_batch(got[0], *dev[2:]).cpu(),
+                               ff.count_flat_batch_plain(want[0], *cpu[2:]), rtol=0, atol=0)
