@@ -14,6 +14,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    pairs, under the scorings (2,1,1), (1,1,1), (0,0,0), (3,-1,2) and,
    where the int32 arithmetic wraps, (1,1,2^30), (1,2^30,1) and
    (2^31-1,-2^31,2^30) (``SCORINGS``; phases 6, 8, 9 and 10 use them too);
+   ``nw_scores`` and ``nw_fill_codes`` (counts, codes, codes + counts) at
+   every W of ``PIPE_WARPS`` warps a pair and at the rule's W;
 4. the main path, ``NWAligner(...).align_batch``, with every launch
    counter set to 0 first: config 3 (256 random 10240 bp pairs, strings
    and counts; each alignment re-scored on the host, 4 pairs against the
@@ -22,7 +24,12 @@ Phases, in order; any mismatch or exception exits non-zero:
    kernel must have launched;
 5. wall times (median of 4 warm runs), pairs/s and GCUPS of the
    configs, and each kernel's time beside its plain version's, with the
-   card's name and power limit;
+   card's name and power limit; the pipeline's shared memory, its time
+   at W = 1 against the rule's W in turns (1, rule, rule, 1) at config
+   3's fill, 128 x 10 240 bp scores, 4 x 10 240 bp codes + counts,
+   config 2's scores and scores + counts, K5's and K7's shapes (outputs
+   equal at both W), and the sweep of W (``SWEEP_WARPS``) at config 3
+   and 128 x 10 240 bp;
 6. the single-pair kernels (``nw_score_count``, ``nw_fill_masks``) bit
    for bit against their plain versions, one pair at a time: 24 random
    pairs of 0-700 bp, tie-dense pairs, the edge pairs and all-'A'
@@ -62,7 +69,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    height) of the pair's 20 000 bp prefixes re-filled from the kernel's
    checkpoint, and at 100 000 bp the 79 chained window walks; (e) times:
    ``align_huge`` walls, the kernels apart, the scores-only crossover of
-   one warp a pair against ``score_fold``, peak device memory.
+   ``nw_scores`` (a block a pair) against ``score_fold``, peak device memory.
 
 9. Smith-Waterman: (a) ``sw_scores``, ``sw_fill_codes`` (codes, best,
    argmax) and ``sw_walk`` bit for bit against their plain versions (40
@@ -198,9 +205,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    against plain); each shape's kernel time, bound and plain time.
 
 Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu``,
-``nw_affine.cu``, ``nw_single.cu`` and ``nw_count.cu``: registers and
-spills of every instantiation, the ``RUNS`` mode's (template mode 4)
-among them.
+``nw_affine.cu``, ``nw_single.cu`` and ``nw_count.cu``: registers, static
+shared memory and spills of every instantiation, the ``RUNS`` mode's
+(template mode 4) and the pipeline's (``nw_fill_pipe_kernel``) among
+them; the pipeline's dynamic shared memory is printed in phase 5.
 
 Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
@@ -683,7 +691,7 @@ def cli_phase(card, errs):
         t0 = time.perf_counter()
         sc, ct = fb.fill_scores_counts_banded_batch(tops, sides, l1, l2, 2, 1, 1)
         refs[L] = (int(sc[0]), int(ct[0]))
-        walls[f"nw_fill_codes_1warp_{L}"] = time.perf_counter() - t0
+        walls[f"nw_fill_codes_counts_{L}"] = time.perf_counter() - t0
     for name, (L, (rc, out, err)) in big_runs.items():
         lines = [x for x in err.split(b"\n") if x and b": debug: " not in x]
         got = (int(lines[1].split()[-1]), signed_count(lines[0])) if rc == 0 else None
@@ -1164,7 +1172,7 @@ def huge_phase(card, bound):
         shape=f"1x{L_HUGE}bp score",
     )
 
-    # the K11 route against the K1 route (one warp a pair): scores of
+    # the K11 route against the K1 route (a block a pair): scores of
     # nb pairs of L bp, as fill_scores_auto would run them
     for L in CROSSOVER:
         for nb in ((2,) if L == L_HUGE else (2, 8, 23)):
@@ -1176,7 +1184,7 @@ def huge_phase(card, bound):
                 fs.score_fold(tops[b], sides[b], 2, 1, 1, L, L)[0] for b in range(nb)
             ]), 2)
             rule = "K11" if fill_auto.takes_single_pair_route(nb, L, L) else "K1"
-            log(f"scores of {nb} x {L} bp: K1 route (nw_scores, one warp a pair) {k1:.3f} ms, "
+            log(f"scores of {nb} x {L} bp: K1 route (nw_scores, a block a pair) {k1:.3f} ms, "
                 f"K11 route (nw_score_single a pair) {k11:.3f} ms; fill_scores_auto takes {rule} [{card}]")
 
     if any(errs.values()):
@@ -1221,7 +1229,7 @@ def print_ptxas_report(procs) -> None:
             elif "spill stores" in line and name:
                 spill = line.strip()
             elif "Used" in line and "registers" in line and name:
-                rows.append((name, line.split("Used")[1].split(",")[0].strip(), spill))
+                rows.append((name, line.split("Used")[1].strip(), spill))
                 name = None
     filt = "/usr/local/cuda/bin/cu++filt"
     names = [r[0] for r in rows]
@@ -2281,9 +2289,10 @@ def sharded_path(card, bound, groups, starts, errs, t_phase):
 
 L_ARROWS = 2048  # fill_arrows_auto's batched-masks limit (LANES_ARROWS_MAX_SIDE): 128 pairs of it
 L_ROUTE = 4096  # align_batch's mask route against its codes route: 16 x 4 096 bp
-# (pairs, bp) of the route comparison: the two the rule is held to first
-ROUTE_SHAPES = [(4, L_LONG), (16, L_ROUTE), (4, L_ROUTE), (8, L_ROUTE), (8, L_LONG), (16, L_LONG),
-                (23, L_LONG)]
+# (pairs, bp) of the route comparison: the two the rule is held to first,
+# then both sides of its crossover
+ROUTE_SHAPES = [(4, L_LONG), (16, L_ROUTE), (1, L_ROUTE), (2, L_ROUTE), (4, L_ROUTE), (8, L_ROUTE),
+                (2, L_LONG), (3, L_LONG), (8, L_LONG), (16, L_LONG), (23, L_LONG)]
 MASK_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel
     "nw_fill_masks_batch": ("fill_banded", "fill_masks_banded_batch"),
     "nw_count_masks": ("pathcount", "count_masks_batch"),
@@ -3002,6 +3011,128 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
     return rec
 
 
+# nw_scores and nw_fill_codes at a forced W (warps a pair): phase 3 holds
+# each W against plain, phase 5 times W = 1 against the rule's in turns
+# and sweeps W at config 3 and 128 x 10 240 bp
+PIPE_WARPS = (1, 2, 3, 4, 8, 16, 32)
+SWEEP_WARPS = (1, 2, 4, 8, 16, 32)
+PIPE_MODES = ("scores", "counts", "codes", "codes+counts")
+
+
+def pipe_fill(mode, T, mkd, warps=None):
+    """``nw_scores`` (mode "scores") or ``nw_fill_codes`` counts-only,
+    codes or codes + counts on T = (tops, sides, lens1, lens2) at
+    ``warps`` warps a pair (None: ``fill_warps``'s); the outputs the mode
+    has."""
+    from nw_tpu_torch.ops import fill_banded as fb
+
+    if mode == "scores":
+        return (fb._fill_scores_kernel(fb.fill_scores_banded_batch, *T, *mkd, warps=warps),)
+    wrapper = fb.fill_scores_counts_banded_batch if mode == "counts" else fb.fill_greedy_counts_banded_batch
+    out = fb._fill_codes_kernel(wrapper, *T, *mkd, emit_codes=mode != "counts",
+                                with_counts=mode != "codes", warps=warps)
+    return tuple(x for x in out if x is not None)
+
+
+def pipe_plain(mode, T, mkd):
+    """The plain version of :func:`pipe_fill`."""
+    from nw_tpu_torch.ops import fill_banded as fb
+
+    if mode == "scores":
+        return (fb.fill_scores_banded_batch_plain(*T, *mkd),)
+    if mode == "counts":
+        return fb.fill_scores_counts_banded_batch_plain(*T, *mkd)
+    out = fb.fill_greedy_counts_banded_batch_plain(*T, *mkd, with_counts=mode == "codes+counts")
+    return tuple(x for x in out if x is not None)
+
+
+def pipe_vs_plain(T, mkd, errs):
+    """Phase 3: ``nw_scores`` and ``nw_fill_codes``' three modes at every
+    W of ``PIPE_WARPS`` and at the rule's W bit for bit against their
+    plain versions under one scoring; raises the records' max |diff| and
+    returns the plain outputs by mode."""
+    e, plain = {}, {}
+    for mode in PIPE_MODES:
+        want = plain[mode] = pipe_plain(mode, T, mkd)
+        for W in (*PIPE_WARPS, None):
+            got = pipe_fill(mode, T, mkd, W)
+            e[mode, W or "rule"] = max(max_abs_err(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    for (mode, _), v in e.items():
+        name = "nw_scores" if mode == "scores" else "nw_fill_codes"
+        errs[name] = max(errs[name], v)
+    bad = {f"{mode} W={W}": v for (mode, W), v in e.items() if v}
+    log(f"pipeline vs plain, {T[0].shape[0]} pairs {T[0].shape[1]}x{T[1].shape[1]} bucket, "
+        f"{len(PIPE_MODES)} modes at W in {PIPE_WARPS} and the rule's {pipe_rule('scores', T)}, "
+        f"m k d = {mkd}: max |diff| {max(e.values())}" + (f", differs at {bad}" if bad else ""))
+    return plain
+
+
+def pipe_rule(mode, T):
+    """``fill_warps``'s W for ``mode`` on T on this card."""
+    from nw_tpu_torch.ops import fill_banded as fb
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return fb.fill_warps(T[0].shape[0], T[0].shape[1], T[1].shape[1], mode in ("counts", "codes+counts"), sms)
+
+
+def k7_inputs(dev):
+    """K7's shape: 1 024 random pairs of 256 bp (seed 141)."""
+    from nw_tpu_torch.ops import encode as enc
+
+    return enc.upload(enc.encode_batch(rand_pairs(np.random.default_rng(141), 1024, L_FLAT, L_FLAT),
+                                       L_FLAT, L_FLAT), dev)
+
+
+def pipe_shapes(T3, T2, T7):
+    """(label, mode, T, reps) of every shape phase 5 times the pipeline
+    at: config 3's fill, 128 x 10 240 bp scores, 4 x 10 240 bp codes +
+    counts (from config 3's inputs T3), config 2's scores and scores +
+    counts, K5's codes (T2), K7's scores (T7)."""
+    return [
+        (f"config 3 codes+counts 256x{L_LONG}bp", "codes+counts", T3, 1),
+        (f"scores 128x{L_LONG}bp", "scores", tuple(t[:128] for t in T3), 2),
+        (f"codes+counts 4x{L_LONG}bp", "codes+counts", tuple(t[:4] for t in T3), 2),
+        (f"scores {T2[0].shape[0]}x{L_SHORT}bp (config 2, K1, K3)", "scores", T2, 20),
+        (f"scores+counts {T2[0].shape[0]}x{L_SHORT}bp (K4, K26)", "counts", T2, 20),
+        (f"codes 4096x{L_SHORT}bp (K5)", "codes", tuple(t[:4096] for t in T2), 20),
+        (f"scores 1024x{L_FLAT}bp (K7)", "scores", T7, 20),
+    ]
+
+
+def pipe_turns(card, shapes):
+    """Phase 5: each (label, mode, T, reps) of ``shapes`` at W = 1 and at
+    the rule's W, timed in turns (1, rule, rule, 1), after checking that
+    both give the same outputs on the card (scoring 2 1 1).  Returns
+    {label: (rule's W, [ms at W = 1], [ms at the rule's W])}."""
+    out = {}
+    for label, mode, T, reps in shapes:
+        rule = pipe_rule(mode, T)
+        a = pipe_fill(mode, T, (2, 1, 1), 1)
+        b = pipe_fill(mode, T, (2, 1, 1), rule)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"{label}: the outputs at W = {rule} differ from W = 1")
+        del a, b
+        times = {"one": [], "rule": []}
+        for key, W in (("one", 1), ("rule", rule), ("rule", rule), ("one", 1)):
+            times[key].append(cuda_ms(lambda: pipe_fill(mode, T, (2, 1, 1), W), reps))
+        out[label] = (rule, times["one"], times["rule"])
+        log(f"turns {label}: W = 1 {[round(x, 3) for x in times['one']]} ms, W = {rule} (the rule's) "
+            f"{[round(x, 3) for x in times['rule']]} ms (outputs equal) [{card}]")
+    return out
+
+
+def pipe_sweep(card, T3):
+    """Phase 5: config 3's codes + counts fill and 128 x 10 240 bp scores
+    at every W of ``SWEEP_WARPS`` (one warm-up, one timed run each)."""
+    T128 = tuple(t[:128] for t in T3)
+    for label, mode, T in (("config 3 codes+counts 256x10240bp", "codes+counts", T3),
+                           ("scores 128x10240bp", "scores", T128)):
+        ms = {W: cuda_ms(lambda: pipe_fill(mode, T, (2, 1, 1), W), 1) for W in SWEEP_WARPS}
+        log(f"sweep {label} (the rule's W {pipe_rule(mode, T)}): "
+            + ", ".join(f"W={W} {x:.3f} ms" for W, x in ms.items()) + f" [{card}]")
+
+
 def check_pairs():
     """Phase 3's pairs (seed 0): 64 random of 0-700 bp, 8 tie-dense of
     100-400 bp, and ``EDGE``."""
@@ -3071,23 +3202,8 @@ def main() -> None:
     tops, sides, l1, l2 = enc.upload(enc.encode_batch(small, L1, L2), dev)
     errs = {"nw_scores": 0, "nw_fill_codes": 0, "nw_walk": 0}
     for mkd in SCORINGS:
-        e = max_abs_err(
-            fb.fill_scores_banded_batch(tops, sides, l1, l2, *mkd),
-            fb.fill_scores_banded_batch_plain(tops, sides, l1, l2, *mkd),
-        )
-        errs["nw_scores"] = max(errs["nw_scores"], e)
-        got = fb.fill_scores_counts_banded_batch(tops, sides, l1, l2, *mkd)
-        want = fb.fill_scores_counts_banded_batch_plain(tops, sides, l1, l2, *mkd)
-        e = max(max_abs_err(g, w) for g, w in zip(got, want))
-        for with_counts in (False, True):
-            got = fb.fill_greedy_counts_banded_batch(
-                tops, sides, l1, l2, *mkd, with_counts=with_counts
-            )
-            want = fb.fill_greedy_counts_banded_batch_plain(
-                tops, sides, l1, l2, *mkd, with_counts=with_counts
-            )
-            e = max([e] + [max_abs_err(g, w) for g, w in zip(got, want) if w is not None])
-        errs["nw_fill_codes"] = max(errs["nw_fill_codes"], e)
+        want = pipe_vs_plain((tops, sides, l1, l2), mkd, errs)["codes+counts"]
+        got = fb.fill_greedy_counts_banded_batch(tops, sides, l1, l2, *mkd, with_counts=True)
         ops_k = tb.walk_codes_batch(got[0], l1, l2, L1 + L2)
         ops_p = tb.walk_codes_batch_plain(want[0], l1, l2, L1 + L2)
         errs["nw_walk"] = max(
@@ -3255,10 +3371,30 @@ def main() -> None:
             lambda: fb.fill_greedy_counts_banded_batch(tops3, sides3, l13, l23, m, k, d, with_counts=True), 2
         ),
     }
+    T3, T2 = (tops3, sides3, l13, l23), (tops2, sides2, l1s, l2s)
+    T7 = k7_inputs(dev)
+    for mode, T in (("codes+counts", T3), ("scores", T3[:128]), ("counts", (tops3[:1], sides3[:1], l13[:1], l23[:1]))):
+        log(f"pipeline shared memory, {mode} {T[0].shape[0]}x{T[0].shape[1]}bp at W = {pipe_rule(mode, T)}: "
+            f"{fb.fill_smem(pipe_rule(mode, T), T[0].shape[1], mode != 'scores')} bytes")
+    shapes = pipe_shapes(T3, T2, T7)
+    turns = pipe_turns(card, shapes)
+    turn_c, turn_s = turns[shapes[2][0]], turns[shapes[3][0]]  # the records' shapes
+    pipe_sweep(card, T3)
     codes3, _, _ = fb.fill_greedy_counts_banded_batch(tops3, sides3, l13, l23, m, k, d)
     full["nw_walk 256x10240bp"] = cuda_ms(lambda: tb.walk_codes_batch(codes3, l13, l23, 2 * LB), 3)
+    cells3 = 256 * L_LONG * L_LONG
+    full_bounds = {  # bytes: inputs, plus codes (2 bits a cell), scores and counts out
+        "nw_scores 128x10240bp": bound(cells3 // 2 * OPS_SCORE, tensor_bytes(*T3) // 2 + 4 * 128),
+        "nw_fill_codes counts only 256x10240bp": bound(cells3 * (OPS_SCORE + OPS_COUNT),
+                                                       tensor_bytes(*T3) + 8 * 256),
+        "nw_fill_codes codes+counts 256x10240bp": bound(cells3 * (OPS_SCORE + OPS_COUNT + OPS_CODE),
+                                                        tensor_bytes(*T3) + cells3 // 4 + 8 * 256),
+        "nw_walk 256x10240bp": None,
+    }
     for name, ms in full.items():
-        log(f"kernel {name}: {ms:.3f} ms [{card}]")
+        b = full_bounds[name]
+        log(f"kernel {name}: {ms:.3f} ms" + (f", bound {b['bound_ms']:.3f} ms ({b['bound_by']})" if b else "")
+            + f" [{card}]")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     c3_strings = (r3.ops, r3.ops_len, c3)  # phase 11 times the host strings on them
     del codes3, tops3, sides3
@@ -3291,14 +3427,18 @@ def main() -> None:
             "replaces": "nw_tpu/ops/fill_pallas_banded.py:98",
             "launches": launches["nw_scores"], "max_abs_err": errs["nw_scores"],
             "ms": k_scores_ms, "plain_ms": plain_scores_ms, **bounds["nw_scores"],
-            "shape": f"{len(c2)}x{L_SHORT}bp scores",
+            "shape": f"{len(c2)}x{L_SHORT}bp scores, {turn_s[0]} warp(s) a pair; 128x{L_LONG}bp "
+                     f"{full['nw_scores 128x10240bp']:.3f} ms at the rule's W",
+            "warps": turn_s[0], "one_warp_ms": statistics.median(turn_s[1]),
         },
         {
             "name": "nw_fill_codes", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_fill.cu",
             "replaces": "nw_tpu/ops/fill_pallas_banded.py:342",
             "launches": launches["nw_fill_codes"], "max_abs_err": errs["nw_fill_codes"],
             "ms": k_fill_ms, "plain_ms": plain_fill_ms, **bounds["nw_fill_codes"],
-            "shape": f"4x{L_LONG}bp codes+counts",
+            "shape": f"4x{L_LONG}bp codes+counts, {turn_c[0]} warps a pair; config 3 "
+                     f"{full['nw_fill_codes codes+counts 256x10240bp']:.3f} ms at the rule's W",
+            "warps": turn_c[0], "one_warp_ms": statistics.median(turn_c[1]),
         },
         {
             "name": "nw_walk", "route": "cuda", "source": "nw_tpu_torch/csrc/nw_walk.cu",

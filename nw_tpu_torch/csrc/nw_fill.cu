@@ -30,32 +30,87 @@
 // NEG_INF decay and holds for every scoring.  Score arithmetic wraps as
 // int32, counts wrap mod 2^32.
 //
-// Design.  One warp per pair.  The side string's rows are cut into
+// Two kernels.  nw_fill_pipe_kernel (nw_scores, nw_fill_codes) runs W
+// warps on each pair; nw_fill_kernel (the LOCAL, OVERLAP, MASKS and RUNS
+// modes below) runs one warp a pair.
+//
+// The band sweep, common to both.  The side string's rows are cut into
 // bands of 32 rows, one row per lane; at step t lane jj computes cell
 // (row j0+jj, column c = t-jj), so a band is a 32-wide wavefront that
-// sweeps the whole top string in A+32 steps.  The up neighbour arrives
-// from lane jj-1 by __shfl_up_sync; the diagonal neighbour is the up
-// value of the previous step; the left neighbour is the lane's own
-// previous value.  Lane 0 reads the row above the band from a per-pair
-// int32 boundary row in device memory (plus a count row), which the
-// band overwrites in place with its last row for the next band: the
-// TPU kernel's band handoff (fill_pallas_banded.py:32-51) mapped onto a
-// warp.  The boundary row and the top string are loaded 32 columns at a
-// time, one coalesced load per lane, and handed to lane 0 by shuffle;
-// codes are stored 16 steps at a time by all lanes together, one
-// coalesced 128-byte store.  The only per-step stores are predicated
-// (lane 31's boundary value, the corner): no step branches, so the warp
-// never diverges.
+// sweeps the whole top string in A+32 steps, 32 steps a chunk.  The up
+// neighbour arrives from lane jj-1 by __shfl_up_sync; the diagonal
+// neighbour is the up value of the previous step; the left neighbour is
+// the lane's own previous value.  Lane 0 takes the row above the band
+// from the band before it, and lane 31 hands its row, the band's last,
+// to the band after: the TPU kernel's band handoff
+// (fill_pallas_banded.py:32-51) mapped onto warps.  Codes are stored 16
+// steps at a time by all lanes together, one coalesced 128-byte store.
+// The only per-step stores are predicated (lane 31's row, the corner):
+// no step branches, so a warp never diverges.
+//
+// The pipeline (nw_fill_pipe_kernel).  A block of W warps (1 <= W <= 32,
+// the rule nw_tpu_torch/ops/fill_banded.py:fill_warps) owns one pair.
+// Band b runs on warp b % W, so up to W bands of a pair are in flight,
+// each at least two chunks behind the band above it.  Dynamic shared
+// memory (pipe_smem) holds:
+//  - done[w], the chunks warp w has completed, counted over its bands;
+//  - a ring of kSlots 32-column chunk slots a warp, a cell a column (the
+//    score, with counts an int2 of score and count): the columns of a
+//    band's chunk g, counting the chunks of all the warp's bands, go to
+//    slot g % kSlots, written by lane 31 and read by the next warp's
+//    lane 0, one shared access a step (no broadcast shuffles).  Counting
+//    over all bands, not within one, makes a slot's reuse wait for its
+//    last reader also where a band's chunks are no multiple of kSlots;
+//  - warp 0's row above for its current chunk (see the wrap-around);
+//  - the pair's top string, staged once as int16 (column c at c+31, -4
+//    outside 1..A), which every lane reads at its own column each step
+//    (no shuffle chain for the top character).  Characters are byte
+//    values or the encoder's negative pads (nw_tpu_torch/ops/encode.py),
+//    so int16 keeps them and -4 never equals one; a top of 10 240 bp
+//    takes 20 KB, of 100 000 bp 200 KB.  A top past ~115 000 columns,
+//    too long for a block's shared memory, is staged the same way in the
+//    pair's int16 row of a device-memory scratch (TOP_SMEM false) and
+//    read through L1.
+// Consecutive warps w -> w+1 of one round (bands b, b+1) hand off through
+// w's ring: before chunk g (counted over the warp's bands) warp w+1
+// waits for done[w] >= g+2 (capped at the band's end: lane 31 trails
+// lane 0 by 31 columns), and warp w waits for done[w+1] >= g-kSlots+1 (the
+// slots it is about to overwrite have been read).  The wrap-around, band
+// b on warp W-1 to band b+1 on warp 0, needs a whole row: warp 0 is
+// still on band b+1-W when warp W-1 starts band b.  So warp W-1 copies
+// each finished chunk of its ring into the per-pair boundary row in
+// device memory (bnd / cbnd, int32[A+1], row 0 at the start), and warp
+// 0, after done[W-1] says the chunk is there, stages 32 columns of it in
+// shared memory, one coalesced load.  Data and counter are ordered by a
+// block-scope fence on both sides.  No launch waits on another block.
+// It cannot deadlock: warp W-1 never waits for a reader (bnd is a whole
+// row), so a chain of "ring full" waits w -> w+1 -> ... ends at W-1; a
+// warp that waits on an empty ring cannot have a producer that waits on
+// the same ring full (kSlots >= 2; kSlots = 4 lets the two run 2-3
+// chunks apart at once); and warp 0 waits on warp W-1's band of the
+// round before, which does not wait on warp 0's current band.  Reusing
+// bnd is safe: band b+W-1 writes column c only after band b has staged
+// it, through the chain of ring waits between them.  With W = 1, warp 0
+// reads bnd a chunk ahead of rewriting it in place.
 //
 // What bounds it on the H100: the serial dependence of each cell on the
 // lane above.  Every step waits for one shuffle and a short chain of
-// integer ops (sub, max, max, select), so a single warp is bound by
-// latency and by its own instruction slots; throughput comes from many
-// pairs in flight (one warp each, several warps per SM interleaving).
-// Batches of fewer than a few hundred pairs leave SMs idle.  The only
-// large memory traffic is the code store (2 bits per cell, written
-// once: 26 MB for one 10240 x 10240 pair); boundary rows are 8 bytes
-// per column per band and stay in L2.
+// integer ops (sub, max, select), ~86 cycles a step for one warp alone
+// (PERF.md, section 6), so one warp a pair with ~2 warps an SM (256
+// pairs) was latency-bound.  With W warps a pair, 16-32 warps an SM
+// interleave, and the SM's issue slots and its shared-memory pipe
+// (shuffles, shared loads and stores) bound it.  So the step is short:
+// the ring, the staged top and a 64-bit (score, count) cell take the
+// broadcast shuffles and lane 31's device-memory store off it (two
+// shuffles with counts instead of six), and a chunk whose every column
+// lies in 1..A and that holds no corner (all but a few chunks of a band)
+// runs a step with no test of column 0, of the row's end or of the
+// corner: 24 SASS instructions with codes and counts against 40 in a
+// tested chunk, five of them in the shared-memory pipe.  With counts or
+// codes the three-way max is one DPX instruction (__vimax3_s32).  The
+// only large memory traffic is the code store (2 bits per cell, written
+// once: 26 MB for one 10240 x 10240 pair).  W = 1 keeps a warp a pair
+// for batches that fill the card.
 //
 // Code layout, band-major as on the TPU (fill_pallas_banded.py:356-362):
 // codes is uint32[B, nbands, TW, 32] with nbands = ceil(Bs/32) and
@@ -67,9 +122,16 @@
 // Row 0 is not stored: every step there is LEFT.  All offsets are
 // 64-bit: the codes of one 128 x 10 kb sub-batch pass 3 GB.
 //
+// The one-warp kernel (nw_fill_kernel) sweeps its pair's bands in order on
+// one warp.  Lane 0 reads the row above the band from the per-pair
+// boundary row in device memory (plus a count row), which lane 31
+// overwrites in place with the band's last row, 31 columns behind; the
+// boundary row and the top string are loaded 32 columns at a time, one
+// coalesced load per lane, and handed to lane 0 by shuffle.
+//
 // The LOCAL mode (Smith-Waterman, nw_tpu/models/smith_waterman.py:25-97)
-// is the same sweep with three changes.  Row 0 and column 0 are 0,
-// written as the global mode writes its boundaries, so the result holds
+// is the global sweep with three changes.  Row 0 and column 0 are 0,
+// written as the global recurrence writes its boundaries, so the result holds
 // for every scoring (K22 and K18 leave column 0 free and differ at
 // d < 0).  Every cell is clamped at 0 and gets code 3 (STOP) where it is
 // 0, as does column 0.  The best cell of the true rectangle is kept with
@@ -157,8 +219,7 @@ constexpr unsigned kMaskUp = 4u;
 constexpr int kRingCols = 64;  // columns of the MASKS mode's byte ring
 constexpr int kRingBytes = 32 * kRingCols;
 
-// the recurrence a fill runs
-constexpr int kGlobal = 0;   // Needleman-Wunsch
+// the recurrence a one-warp fill runs (the pipeline runs Needleman-Wunsch)
 constexpr int kLocal = 1;    // Smith-Waterman
 constexpr int kOverlap = 2;  // overlap: free end gaps
 constexpr int kMasks = 3;    // Needleman-Wunsch storing tie masks
@@ -396,7 +457,7 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
   }
 }
 
-template <bool EMIT_CODES, bool WITH_COUNTS, int MODE = kGlobal>
+template <bool EMIT_CODES, bool WITH_COUNTS, int MODE>
 int launch_fill(const int* tops, const int* sides, const int* lens1,
                 const int* lens2, int B, int A, int Bs, int m, int k, int d,
                 int* bnd, unsigned* cbnd, unsigned* codes, int* scores,
@@ -410,41 +471,300 @@ int launch_fill(const int* tops, const int* sides, const int* lens1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------- the pipeline: W warps a pair (nw_scores, nw_fill_codes) ----------------
+
+constexpr int kMaxWarps = 32;  // warps a block of the pipeline
+constexpr int kSlots = 4;      // 32-column chunk slots of a warp's ring
+constexpr int kRing = 32 * kSlots;
+constexpr int kTopPad = -4;    // the staged top outside columns 1..A
+constexpr int kSidePad = -5;   // a side row past Bs
+
+// A column of a handoff row: its score, and with counts its count
+// (bits of a uint32) beside it, one 64-bit shared access.
+template <bool WITH_COUNTS> struct Cell { using type = int; };
+template <> struct Cell<true> { using type = int2; };
+
+template <bool B> struct Flag { static constexpr bool value = B; };
+
+// The staged top string's columns: 32*nchunks + 32.
+__host__ __device__ inline int pipe_top_cols(int A) {
+  return 32 * ((A + 1 + 31 + 31) >> 5) + 32;
+}
+
+// Dynamic shared memory of a pipeline block, in bytes: the W rings and
+// warp 0's staged row above (a Cell a column), done[W], and (TOP_SMEM)
+// the int16 top string.
+// (nw_tpu_torch/ops/fill_banded.py:fill_smem computes the same.)
+__host__ __device__ inline int pipe_smem(int warps, int A, bool with_counts, bool top_smem) {
+  const int words = warps + (warps * kRing + 32) * (with_counts ? 2 : 1);
+  return 4 * words + (top_smem ? 2 * pipe_top_cols(A) : 0);
+}
+
+// TOP_SMEM: the top string is staged in shared memory; else in the
+// pair's row of top16 (int16[B, pipe_top_cols(A)]) in device memory, for
+// a top too long for a block's shared memory, read through L1.
+template <bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2,
+    int A, int Bs, int m, int k, int d, int* bnd, unsigned* cbnd,
+    unsigned* __restrict__ codes, int* __restrict__ scores,
+    unsigned* __restrict__ counts, short* top16) {
+  using C = typename Cell<WITH_COUNTS>::type;
+  extern __shared__ __align__(16) int pipe_sh[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int64_t b = blockIdx.x;
+  const int M = A + 1;
+  const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
+  const int nbands = (Bs + 31) >> 5;
+  C* const rings = reinterpret_cast<C*>(pipe_sh);
+  C* const stage = rings + W * kRing;
+  volatile int* done = reinterpret_cast<int*>(stage + 32);
+  short* const top_s = TOP_SMEM ? reinterpret_cast<short*>(const_cast<int*>(done) + W)
+                                : top16 + b * pipe_top_cols(A);
+  const int* top = tops + b * A;
+  const int* side = sides + b * Bs;
+  int* brow = bnd + b * M;
+  unsigned* crow = WITH_COUNTS ? cbnd + b * M : nullptr;
+  const int l1 = lens1[b];
+  const int l2 = lens2[b];
+
+  // the top string, row 0 (-c*d, one path) into the boundary row, counters
+  for (int x = threadIdx.x; x < pipe_top_cols(A); x += blockDim.x) {
+    const int c = x - 31;
+    top_s[x] = static_cast<short>(c >= 1 && c <= A ? top[c - 1] : kTopPad);
+  }
+  for (int c = threadIdx.x; c < M; c += blockDim.x) {
+    brow[c] = wsub(0, wmul(c, d));
+    if (WITH_COUNTS) crow[c] = 1u;
+  }
+  if (threadIdx.x < W) done[threadIdx.x] = 0;
+  if (l2 == 0 && threadIdx.x == 0) {
+    scores[b] = wsub(0, wmul(l1, d));
+    if (WITH_COUNTS) counts[b] = 1u;
+  }
+  __syncthreads();
+
+  const int negk = wsub(0, k);
+  const bool last_warp = warp == W - 1;
+  C* const out_ring = rings + warp * kRing;
+  // the row above: the previous warp's ring, or (warp 0) the staged chunk
+  const C* const in_ring = warp > 0 ? rings + (warp - 1) * kRing : stage;
+  const int in_warp = warp > 0 ? warp - 1 : W - 1;
+  const short* const top_lane = top_s + 31 - lane;  // column t - lane at [t]
+  for (int band = warp, round = 0; band < nbands; band += W, ++round) {
+    const int j = band * 32 + 1 + lane;  // this lane's row
+    const bool row_ok = j <= Bs;
+    const int sch = row_ok ? side[j - 1] : kSidePad;
+    const int col0 = wsub(0, wmul(j, d));  // H[j][0]
+    const bool feeds = band + 1 < nbands;  // a band below reads this one's last row
+    const bool to_ring = feeds && !last_warp;  // ... from this warp's ring
+    // warp 0 reads warp W-1's band of the round before (none in round 0:
+    // the boundary row holds row 0)
+    const int in_base = (warp > 0 ? round : round - 1) * nchunks;
+    // the chunk of the true corner's step, in the band that holds row len2
+    const int jj_c = l2 - 1 - band * 32;
+    const int corner_q = jj_c >= 0 && jj_c < 32 ? (l1 + jj_c) >> 5 : -1;
+    unsigned* wbase = EMIT_CODES
+        ? codes + ((b * nbands + band) * static_cast<int64_t>(2 * nchunks)) * 32 + lane
+        : nullptr;
+    int h = 0, up_prev = 0;  // own last value, last up
+    unsigned cnt = 0, cup_prev = 0, pack = 0;
+
+    for (int q = 0; q < nchunks; ++q) {
+      const int g = round * nchunks + q;  // chunks of this warp before this one
+      const int t0 = q << 5;
+      // the row above's columns t0 .. t0+31 are in (the band above has
+      // completed chunk q+1), and this chunk's slots have been read
+      const int need_in = in_base + min(q + 2, nchunks);
+      const int need_out = g - kSlots + 1;
+      while (done[in_warp] < need_in || (to_ring && done[warp + 1] < need_out)) {
+      }
+      __threadfence_block();
+      const C* above = in_ring + (g & (kSlots - 1)) * 32;
+      if (warp == 0) {  // stage the chunk of the boundary row
+        const int cx = t0 + lane;
+        const int v = cx < M ? brow[cx] : 0;
+        if constexpr (WITH_COUNTS) {
+          stage[lane] = make_int2(v, static_cast<int>(cx < M ? crow[cx] : 0u));
+        } else {
+          stage[lane] = v;
+        }
+        above = stage;
+        __syncwarp();
+      }
+      // lane 31 writes columns t0-31 .. t0-1 (steps 0..30, none in chunk 0)
+      // into slot g-1 at 1..31 and column t0 (step 31) into slot g at 0
+      C* const out_lo = out_ring + ((g - 1) & (kSlots - 1)) * 32 + 1;
+      C* const out_hi = out_ring + (g & (kSlots - 1)) * 32;
+      const bool pub_hi = lane == 31 && feeds;
+      const bool pub_lo = pub_hi && q > 0;
+      const short* const tq = top_lane + t0;
+
+      // one chunk of 32 steps; FAST: every lane's column lies in 1..A and
+      // the corner is not in it, so column 0, the columns past A and the
+      // corner need no test
+      auto sweep = [&](auto fast) {
+        constexpr bool FAST = decltype(fast)::value;
+#pragma unroll
+        for (int s = 0; s < 32; ++s) {
+          int up = __shfl_up_sync(kFull, h, 1);
+          [[maybe_unused]] unsigned cup = 0;
+          if constexpr (WITH_COUNTS) {
+            cup = __shfl_up_sync(kFull, cnt, 1);
+            const int2 a = above[s];
+            up = lane == 0 ? a.x : up;
+            cup = lane == 0 ? static_cast<unsigned>(a.y) : cup;
+          } else {
+            const int a = above[s];
+            up = lane == 0 ? a : up;
+          }
+          const int ch = tq[s];
+
+          const int cand_d = wadd(up_prev, ch == sch ? m : negk);
+          const int cand_u = wsub(up, d);
+          const int cand_l = wsub(h, d);
+          // where the candidates are compared again, one DPX three-way max
+          // (exact: the wrapping is in the candidates); for the score
+          // alone nvcc fuses each subtract into its max (VIADDMNMX)
+          int hn = EMIT_CODES || WITH_COUNTS ? __vimax3_s32(cand_d, cand_u, cand_l)
+                                             : max(max(cand_d, cand_u), cand_l);
+          unsigned code = cand_d == hn ? kCodeDiag : (cand_l == hn ? kCodeLeft : kCodeUp);
+          unsigned cn = 0;
+          if constexpr (WITH_COUNTS) {
+            cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
+                 (cand_u == hn ? cup : 0u);
+          }
+          bool in_row = true;
+          if constexpr (!FAST) {
+            const int c = t0 + s - lane;
+            const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
+            hn = col_zero ? col0 : hn;
+            code = col_zero ? kCodeUp : code;
+            cn = col_zero ? 1u : cn;
+            in_row = c >= 0 && c <= A;
+            if (in_row && j == l2 && c == l1) {  // the true corner
+              scores[b] = hn;
+              if (WITH_COUNTS) counts[b] = cn;
+            }
+          }
+          if (s < 31 ? pub_lo : pub_hi) {  // this band's last row, for the band below
+            C v;
+            if constexpr (WITH_COUNTS) {
+              v = make_int2(hn, static_cast<int>(cn));
+            } else {
+              v = hn;
+            }
+            (s < 31 ? out_lo[s] : out_hi[0]) = v;
+          }
+          if constexpr (EMIT_CODES) {
+            // rows past Bs store 0: per cell in a tested chunk, per word here
+            pack |= (FAST || (in_row && row_ok) ? code : 0u) << (2 * (s & 15));
+            if ((s & 15) == 15) {  // static: every lane stores together
+              wbase[static_cast<int64_t>((t0 + s) >> 4) * 32] = FAST && !row_ok ? 0u : pack;
+              pack = 0;
+            }
+          }
+          up_prev = up;
+          h = hn;
+          if constexpr (WITH_COUNTS) {
+            cup_prev = cup;
+            cnt = cn;
+          }
+        }
+      };
+      if (q > 0 && t0 + 31 <= A && q != corner_q) {
+        sweep(Flag<true>{});
+      } else {
+        sweep(Flag<false>{});
+      }
+
+      __syncwarp();  // the chunk's ring writes are in
+      if (last_warp && feeds) {  // columns t0-31 .. t0 into the boundary row
+        const int col = t0 - 31 + lane;
+        if (col >= 0 && col < M) {
+          const C v = lane < 31 ? out_lo[lane] : out_hi[0];
+          if constexpr (WITH_COUNTS) {
+            brow[col] = v.x;
+            crow[col] = static_cast<unsigned>(v.y);
+          } else {
+            brow[col] = v;
+          }
+        }
+      }
+      __threadfence_block();  // the chunk's reads and writes precede its count
+      __syncwarp();
+      if (lane == 0) done[warp] = g + 1;
+    }
+  }
+}
+
+// top16 null: the top in shared memory; else int16[B, pipe_top_cols(A)].
+template <bool EMIT_CODES, bool WITH_COUNTS>
+int launch_pipe(const int* tops, const int* sides, const int* lens1,
+                const int* lens2, int B, int A, int Bs, int m, int k, int d,
+                int warps, short* top16, int* bnd, unsigned* cbnd,
+                unsigned* codes, int* scores, unsigned* counts,
+                cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (warps < 1 || warps > kMaxWarps || A < 0 || Bs < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = pipe_smem(warps, A, WITH_COUNTS, !top16);
+  auto kernel = top16 ? nw_fill_pipe_kernel<EMIT_CODES, WITH_COUNTS, false>
+                      : nw_fill_pipe_kernel<EMIT_CODES, WITH_COUNTS, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k,
+                                          d, bnd, cbnd, codes, scores, counts, top16);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// K1 port: int32 corner scores.  bnd is int32[B, A+1] scratch.
+// K1 port: int32 corner scores, W = warps a pair.  bnd is int32[B, A+1]
+// scratch; top16 null, or int16[B, 32*ceil((A+32)/32) + 32] scratch for a
+// top that does not fit a block's shared memory.
 extern "C" int nw_scores(const int* tops, const int* sides, const int* lens1,
                          const int* lens2, int B, int A, int Bs, int m, int k,
-                         int d, int* bnd, int* scores, void* stream) {
-  return launch_fill<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                   d, bnd, nullptr, nullptr, scores, nullptr,
+                         int d, int warps, void* top16, int* bnd, int* scores,
+                         void* stream) {
+  return launch_pipe<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                   d, warps, static_cast<short*>(top16), bnd,
+                                   nullptr, nullptr, scores, nullptr,
                                    static_cast<cudaStream_t>(stream));
 }
 
 // K2 port: scores, plus greedy codes (emit_codes) and/or uint32 counts
-// (with_counts).  bnd / cbnd are [B, A+1] scratch; codes is
-// uint32[B, ceil(Bs/32), 2*ceil((A+32)/32), 32] when emit_codes.
+// (with_counts), W = warps a pair.  bnd / cbnd are [B, A+1] scratch,
+// top16 as nw_scores's; codes is uint32[B, ceil(Bs/32), 2*ceil((A+32)/32),
+// 32] when emit_codes.
 extern "C" int nw_fill_codes(const int* tops, const int* sides,
                              const int* lens1, const int* lens2, int B, int A,
                              int Bs, int m, int k, int d, int emit_codes,
-                             int with_counts, int* bnd, void* cbnd,
-                             void* codes, int* scores, void* counts,
+                             int with_counts, int warps, void* top16, int* bnd,
+                             void* cbnd, void* codes, int* scores, void* counts,
                              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  auto t16 = static_cast<short*>(top16);
   auto cb = static_cast<unsigned*>(cbnd);
   auto cw = static_cast<unsigned*>(codes);
   auto ct = static_cast<unsigned*>(counts);
   if (emit_codes && with_counts)
-    return launch_fill<true, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                   d, bnd, cb, cw, scores, ct, s);
+    return launch_pipe<true, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                   d, warps, t16, bnd, cb, cw, scores, ct, s);
   if (emit_codes)
-    return launch_fill<true, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                    d, bnd, cb, cw, scores, ct, s);
+    return launch_pipe<true, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                    d, warps, t16, bnd, cb, cw, scores, ct, s);
   if (with_counts)
-    return launch_fill<false, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                    d, bnd, cb, cw, scores, ct, s);
-  return launch_fill<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                   d, bnd, cb, cw, scores, ct, s);
+    return launch_pipe<false, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                    d, warps, t16, bnd, cb, cw, scores, ct, s);
+  return launch_pipe<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                   d, warps, t16, bnd, cb, cw, scores, ct, s);
 }
 
 // K22 / K15 / K18 port: int32 best local scores (>= 0).  bnd is

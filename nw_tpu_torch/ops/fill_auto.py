@@ -2,7 +2,7 @@
 
 Counterpart of ``nw_tpu/ops/fill_auto.py``.  The TPU routes by its own
 geometry (flat, row-sweep, banded and fold kernels, K3-K8, K11); on the
-H100 a batch of scores goes through the K1 port (one warp a pair), except
+H100 a batch of scores goes through the K1 port (a block a pair), except
 a batch of fewer than ``BANDED_MIN_BATCH`` pairs whose buckets are long
 enough for their number (:func:`takes_single_pair_route`): its pairs go
 one at a time through the K11 port
@@ -32,27 +32,32 @@ from nw_tpu_torch.ops.fill_single import fill_arrows_fold_batch, score_fold
 # models/needleman_wunsch.py:498-509)
 BANDED_MIN_BATCH = 24
 HUGE_PAIR_MIN_SIDE = 32768
-# The K1 port runs a batch's pairs side by side, one warp each, in a time
-# ~L^2 whatever their number; the K11 port runs them one after another,
-# each on every SM, in ~L a pair.  Timed by chip_smoke.py on an H100
-# 80GB HBM3 at 700 W (PERF.md, section 6: 2, 8 and 23 pairs of 1 024 to
-# 100 000 bp), K11's route wins once L passes ~256 bp for each pair of
-# the batch; it was timed from 1 024 bp up.
+# The K1 port runs a batch's pairs side by side, a block of W warps each,
+# in a time ~L^2 whatever their number up to one pair an SM; the K11
+# port runs them one after another, each on every SM, in ~L a pair.
+# Timed by chip_smoke.py phase 8 on an H100 80GB HBM3 at 700 W (PERF.md,
+# section 6: 2, 8 and 23 pairs of 1 024 to 10 240 bp, 2 of 100 000 bp),
+# K1 took 0.24-0.29, 0.48-0.51, 1.43-1.51, 8.2-8.3 and 765 ms at 1, 2, 4,
+# 10 and 100 kb, K11 0.32, 0.63, 1.24, 3.06 and 42.9 ms a pair: K11's
+# route wins once L passes ~5 000 bp for each pair of the batch (2 pairs
+# of 10 kb, not 8; at 100 kb the times cross at ~17 pairs, the rule at
+# 20).  It was timed from 1 024 bp up.
 SINGLE_PAIR_MIN_SIDE = 1024
-SINGLE_PAIR_SIDE_PER_PAIR = 256
+SINGLE_PAIR_SIDE_PER_PAIR = 5000
 # sides up to this go through the batched mask fill in fill_arrows_auto,
 # longer ones a pair at a time (nw_tpu fill_auto.py:294-309)
 LANES_ARROWS_MAX_SIDE = 2048
 # align_batch's mask route (tie masks a pair at a time, every SM on it,
-# then one walk) against its codes route (one warp a pair), strings and
+# then one walk) against its codes route (a block a pair), strings and
 # counts, timed by chip_smoke.py phase 13 on an H100 80GB HBM3 at 700 W
-# (PERF.md, section 6): the mask route costs ~0.57 us a bp of side a pair
-# (2.3-2.8 ms at 4 096 bp, 5.7-7.1 ms at 10 240 bp), the codes route
-# ~1.4 ns x L^2 for the whole batch (24-25 ms at 4 096 bp, 146-153 ms
-# at 10 240 bp), so the mask route wins while nb <= ~L / 415: it won at
-# 4 and 8 x 4 096 bp and at 4 to 23 x 10 240 bp, and lost at 16 x 4 096 bp
-# (37.3 against 25.1 ms)
-MASK_SIDE_PER_PAIR = 420
+# (PERF.md, section 6): the mask route costs ~0.68 us a bp of side a
+# pair (27.7 ms for 4 x 10 240 bp), the codes route 20.3-26.3 ms at
+# 10 240 bp for 2 to 23 pairs and 4.3-5.9 ms at 4 096 bp for 1 to 16.
+# The mask route won at 1 x 4 096 bp (4.06 against 4.34 ms) and 2 x
+# 10 240 bp (17.0 against 20.3), the codes route at 2 x 4 096 bp and 3 x
+# 10 240 bp (20.7 against 22.6) and every larger batch timed: the costs
+# cross at nb ~ L / 4 000
+MASK_SIDE_PER_PAIR = 4000
 
 
 def takes_single_pair_route(nb: int, L1: int, L2: int) -> bool:
@@ -70,7 +75,7 @@ def takes_mask_route(nb: int, L1: int, L2: int) -> bool:
     pair at a time, then one walk), as ``nw_tpu`` sends a small batch
     whose longer side passes ``LANES_ARROWS_MAX_SIDE``
     (``needleman_wunsch.py:636-647``), rather than through the codes
-    route (one warp a pair): only where the pairs are long enough for
+    route (a block a pair): only where the pairs are long enough for
     their number (``MASK_SIDE_PER_PAIR``) for the mask route to be the
     faster."""
     return (

@@ -30,6 +30,15 @@ launches the kernel (``csrc/nw_fill.cu``, ``csrc/nw_single.cu``) or
 raises.  Each wrapper counts
 its launches in ``.launches``.
 
+``nw_scores`` and ``nw_fill_codes`` run W warps on each pair, a pipeline
+of 32-row bands in one block (``csrc/nw_fill.cu``'s header):
+:func:`fill_warps` picks W from the batch and its buckets, and
+:func:`fill_smem` gives a block's shared memory.  The block stages the
+pair's top string as int16, so top characters are the encoder's (byte
+values and negative pads): in shared memory, or, for a bucket too long
+for it (:func:`top_in_smem`, about 115 000 columns), in an int16 scratch
+row in device memory.
+
 Inputs are int32 tops[B, A] / sides[B, Bs] encoded with the PAD_TOP /
 PAD_SIDE sentinels, and int32 lens1 / lens2[B].  Counts come back as
 int64 in ``[0, 2^32)`` (uint32 wraparound, the reference's
@@ -49,6 +58,7 @@ band-major words.  Run bytes share that layout (uint8[B, Bs+1, A+1]);
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -82,6 +92,82 @@ def _wrap_counts(counts: torch.Tensor) -> torch.Tensor:
     return counts.to(torch.int64) & U32
 
 
+# ---------------- the pipeline's shape: W warps a pair ----------------
+
+# nw_scores and nw_fill_codes run a block of W warps on each pair (the
+# pipeline of csrc/nw_fill.cu); these mirror its limits
+MAX_WARPS = 32  # a block of 1 024 threads
+SLOTS = 4  # the kernel's kSlots: 32-column chunk slots of a warp's ring
+SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on an H100
+# the warps an SM should hold: the sweep of W (scripts/fill_shapes.py
+# --sweep, chip_smoke.py phase 5; PERF.md section 6) on an H100 80GB
+# HBM3 at 700 W gave config 3's fill (256 x 10 240 bp, two pairs an SM)
+# 43.0 / 38.5 / 36.7 ms at W = 8 / 16 / 32 and 128 x 10 240 bp scores
+# (one pair an SM) 14.6 / 8.7 / 8.0 ms at W = 8 / 16 / 32
+WARPS_PER_SM = 32
+
+
+def top_cols(A: int) -> int:
+    """Columns of a staged top string (the kernel's ``pipe_top_cols``)."""
+    return 32 * ((A + 1 + 62) // 32) + 32
+
+
+def fill_smem(warps: int, A: int, with_counts: bool, staged: bool = True) -> int:
+    """Bytes of dynamic shared memory of one pipeline block (the kernel's
+    ``pipe_smem``): the warps' chunk counters, rings (and count rings),
+    warp 0's staged row above, and, when ``staged``, the top string as
+    int16."""
+    words = warps + (warps * 32 * SLOTS + 32) * (2 if with_counts else 1)
+    return 4 * words + (2 * top_cols(A) if staged else 0)
+
+
+def top_in_smem(A: int, with_counts: bool) -> bool:
+    """Whether a block stages an A-column top in shared memory (it fits
+    beside one warp's ring), else in device memory."""
+    return fill_smem(1, A, with_counts) <= SMEM_LIMIT
+
+
+def fill_warps(B: int, A: int, Bs: int, with_counts: bool, sms: int) -> int:
+    """W, the warps a pair of a batch of ``B`` pairs at buckets (A, Bs):
+    one where the batch alone gives every one of the ``sms`` SMs
+    ``WARPS_PER_SM`` warps, else enough to give each about that many,
+    never more than the pair's 32-row bands, ``MAX_WARPS`` or what the
+    shared memory holds."""
+    nbands = -(-Bs // 32)
+    per_sm = max(1, -(-B // sms))  # pairs an SM takes
+    warps = max(1, min(MAX_WARPS, nbands, -(-WARPS_PER_SM // per_sm)))
+    staged = top_in_smem(A, with_counts)
+    while warps > 1 and fill_smem(warps, A, with_counts, staged) > SMEM_LIMIT:
+        warps -= 1
+    return warps
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _pipe_warps(B, A, Bs, with_counts, device, warps):
+    """The rule's W, or ``warps`` checked against the kernel's limits."""
+    if warps is None:
+        warps = fill_warps(B, A, Bs, with_counts, _sms(device))
+    if not 1 <= warps <= MAX_WARPS:
+        raise ValueError(f"warps must lie in [1, {MAX_WARPS}], not {warps}")
+    if fill_smem(warps, A, with_counts, top_in_smem(A, with_counts)) > SMEM_LIMIT:
+        raise ValueError(
+            f"a {A}-column top string does not fit a block's shared memory at {warps} warps"
+        )
+    return warps
+
+
+def _top_scratch(B, A, with_counts, device):
+    """The int16 rows a pipeline launch stages its tops in, when they do
+    not fit shared memory (else None: the kernel's argument is null)."""
+    if top_in_smem(A, with_counts):
+        return None
+    return torch.empty((B, top_cols(A)), dtype=torch.int16, device=device)
+
+
 # ---------------- K1: scores ----------------
 
 
@@ -90,23 +176,32 @@ def fill_scores_banded_batch(tops, sides, lens1, lens2, m, k, d) -> torch.Tensor
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return fill_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
+    return _fill_scores_kernel(fill_scores_banded_batch, tops, sides, lens1, lens2, m, k, d)
+
+
+fill_scores_banded_batch.launches = 0
+
+
+def _fill_scores_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, warps=None):
+    """Launch ``nw_scores`` for ``wrapper`` (whose count it raises) at
+    ``warps`` warps a pair (default: :func:`fill_warps`)."""
     B, A, Bs = _dims(tops, sides)
     dev = tops.device
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
+        warps = _pipe_warps(B, A, Bs, False, dev, warps)
         tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        top16 = _top_scratch(B, A, False, dev)
         bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
         kernels.launch(
             "nw_scores", dev,
             tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
-            lens2.data_ptr(), B, A, Bs, m, k, d,
+            lens2.data_ptr(), B, A, Bs, m, k, d, warps,
+            None if top16 is None else top16.data_ptr(),
             bnd.data_ptr(), scores.data_ptr(),
         )
-        fill_scores_banded_batch.launches += 1
+        wrapper.launches += 1
     return scores
-
-
-fill_scores_banded_batch.launches = 0
 
 
 def fill_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
@@ -119,8 +214,10 @@ def fill_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
 # ---------------- K2: codes and/or counts ----------------
 
 
-def _fill_codes_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, emit_codes, with_counts):
-    """Launch ``nw_fill_codes`` for ``wrapper`` (whose count it raises)."""
+def _fill_codes_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, emit_codes, with_counts,
+                      warps=None):
+    """Launch ``nw_fill_codes`` for ``wrapper`` (whose count it raises) at
+    ``warps`` warps a pair (default: :func:`fill_warps`)."""
     B, A, Bs = _dims(tops, sides)
     dev = tops.device
     scores = torch.empty(B, dtype=torch.int32, device=dev)
@@ -130,14 +227,17 @@ def _fill_codes_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, emit_codes, 
         if emit_codes else None
     )
     if B:
+        warps = _pipe_warps(B, A, Bs, with_counts, dev, warps)
         tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        top16 = _top_scratch(B, A, with_counts, dev)
         bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
         cbnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev) if with_counts else None
         kernels.launch(
             "nw_fill_codes", dev,
             tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
             lens2.data_ptr(), B, A, Bs, m, k, d,
-            int(emit_codes), int(with_counts), bnd.data_ptr(),
+            int(emit_codes), int(with_counts), warps,
+            None if top16 is None else top16.data_ptr(), bnd.data_ptr(),
             cbnd.data_ptr() if with_counts else None,
             codes.data_ptr() if emit_codes else None,
             scores.data_ptr(),

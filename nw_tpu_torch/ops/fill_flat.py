@@ -14,10 +14,11 @@ On the TPU these are the flat batch-in-lanes kernels, which keep a
 * K6 ``_count_kernel`` over K27's words (``:703``, launched ``:784`` by
   ``count_packed_pallas_batch``) -> :func:`count_flat_batch`.
 
-On the H100 the batched kernels of ``csrc/nw_fill.cu`` (one warp a pair,
-32-row bands, any side length) and ``csrc/nw_count.cu`` compute the same
-functions, so each TPU kernel here is served by a hand-written kernel of
-the port that stands in for several (ROADMAP's rule):
+On the H100 the batched kernels of ``csrc/nw_fill.cu`` (32-row bands, a
+block of W warps or one warp a pair, any side length) and
+``csrc/nw_count.cu`` compute the same functions, so each TPU kernel here
+is served by a hand-written kernel of the port that stands in for several
+(ROADMAP's rule):
 
 * K7 by ``nw_scores`` (:func:`nw_tpu_torch.ops.fill_banded.fill_scores_banded_batch`);
 * K26 by ``nw_fill_codes`` with counts and no codes

@@ -38,8 +38,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 # argument types of each C entry point (csrc/*.cu), stream last
 SIGNATURES = {
-    "nw_scores": [P, P, P, P, I, I, I, I, I, I, P, P, P],
-    "nw_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P],
+    "nw_scores": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],
+    "nw_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
     "nw_walk": [P, P, P, I, I, I, I, P, P, P],
     "nw_score_count": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nw_fill_masks": [P, P, I, I, I, I, I, I, I, P, P, P, P, I, P, P, P, P],

@@ -370,14 +370,14 @@ def test_scores_of_a_small_batch_of_long_pairs_take_k11(monkeypatch):
 @pytest.mark.parametrize(
     "nb,L1,L2,single",
     [
-        (1, 1024, 1024, True),  # the shortest side timed
-        (1, 512, 100_000, False),  # the shorter bucket decides
-        (2, 1024, 2048, True),
-        (4, 1024, 1024, True),
-        (8, 1024, 4096, False),  # 8 pairs need 2 048 bp
-        (8, 2048, 2048, True),
-        (23, 4096, 4096, False),  # K1 was faster on the card here
-        (23, 10240, 10240, True),  # and K11 here
+        (1, 5000, 5000, True),  # one pair needs 5 000 bp
+        (1, 4096, 100_000, False),  # the shorter bucket decides
+        (2, 10240, 10240, True),  # K11 was faster on the card here
+        (8, 10240, 10240, False),  # and K1 here
+        (4, 1024, 1024, False),  # short sides: K1
+        (8, 2048, 2048, False),
+        (23, 4096, 4096, False),
+        (20, 100_000, 100_000, True),  # 20 pairs of 100 kb: 5 000 bp a pair
         (24, 100_000, 100_000, False),  # BANDED_MIN_BATCH pairs: K1
         (0, 4096, 4096, False),
     ],

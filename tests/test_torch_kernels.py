@@ -88,6 +88,96 @@ def test_codes_and_walk_kernels_vs_plain(cuda, mkd, with_counts):
     torch.testing.assert_close(g_n.cpu(), w_n, rtol=0, atol=0)
 
 
+# the W-warp pipeline (nw_scores, nw_fill_codes) at forced warps a pair,
+# on buckets of 5 and 35 bands: no multiple of 2, 3, 8 or 32, and 35
+# bands take two rounds of 32 warps
+PIPE_WARPS = [1, 2, 3, 8, 32]
+
+
+def _pipe_batches(seed, device):
+    long = _pairs(seed + 2, 6, 0, 300) + _pairs(seed + 3, 3, 900, 1100, "AC") + EDGE
+    out = []
+    for ps, A, Bs in ((_pairs(seed, 12, 0, 140) + _pairs(seed + 1, 6, 20, 70, "AC") + EDGE, 160, 144),
+                      (long, 1100, 1100)):
+        arrays = enc.encode_batch(ps, A, Bs)
+        out.append((enc.upload(arrays, "cpu"), enc.upload(arrays, device)))
+    return out
+
+
+def _pipe_fill(mode, T, mkd, warps):
+    if mode == "scores":
+        return (fill_banded._fill_scores_kernel(fill_banded.fill_scores_banded_batch, *T, *mkd, warps=warps),)
+    wrapper = (fill_banded.fill_scores_counts_banded_batch if mode == "counts"
+               else fill_banded.fill_greedy_counts_banded_batch)
+    out = fill_banded._fill_codes_kernel(wrapper, *T, *mkd, emit_codes=mode != "counts",
+                                         with_counts=mode != "codes", warps=warps)
+    return tuple(x for x in out if x is not None)
+
+
+def _pipe_plain(mode, T, mkd):
+    if mode == "scores":
+        return (fill_banded.fill_scores_banded_batch_plain(*T, *mkd),)
+    if mode == "counts":
+        return fill_banded.fill_scores_counts_banded_batch_plain(*T, *mkd)
+    out = fill_banded.fill_greedy_counts_banded_batch_plain(*T, *mkd, with_counts=mode == "codes+counts")
+    return tuple(x for x in out if x is not None)
+
+
+@pytest.mark.parametrize("mode", ["scores", "counts", "codes", "codes+counts"])
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_pipeline_at_forced_warps_vs_plain(cuda, mkd, mode):
+    """nw_scores and nw_fill_codes in its three modes, W = 1, 2, 3, 8, 32
+    warps a pair, bit for bit against the plain versions."""
+    for cpu, dev in _pipe_batches(sum(mkd) + 5, cuda):
+        want = _pipe_plain(mode, cpu, mkd)
+        for warps in PIPE_WARPS:
+            got = _pipe_fill(mode, dev, mkd, warps)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0, msg=f"W = {warps}")
+
+
+def test_pipeline_with_the_top_in_device_memory(cuda):
+    """A top past a block's shared memory (117 000 columns; ~115 000 fit)
+    is staged in device memory: scores, counts and codes at W = 1, 3, 32
+    against the single-pair kernels, whose codes share nw_fill_codes's
+    layout (the first pair fills both buckets), under 2 1 1 and a
+    wrapping scoring."""
+    rng = np.random.default_rng(31)
+    A, Bs = 117_000, 1_600  # 50 bands
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    ps = [(letters[rng.integers(0, 4, a)].tobytes(), letters[rng.integers(0, 4, s)].tobytes())
+          for a, s in ((A, Bs), (A - 7, Bs - 40), (A - 30_000, 33))]
+    dev = enc.upload(enc.encode_batch(ps, A, Bs), cuda)
+    assert not fill_banded.top_in_smem(A, False) and not fill_banded.top_in_smem(A, True)
+    pairs = [tuple(torch.from_numpy(enc.encode(x)).to(cuda) for x in p) for p in ps]
+    for mkd in [(2, 1, 1), (1, 1, 2**30)]:
+        want = [fill_single.score_count_fold(t, s, *mkd) for t, s in pairs]
+        want_codes = fill_single.fill_codes_single(*pairs[0], *mkd)[0]
+        for warps in (1, 3, 32):
+            scores = _pipe_fill("scores", dev, mkd, warps)[0].cpu().tolist()
+            sc, ct = (x.cpu().tolist() for x in _pipe_fill("counts", dev, mkd, warps))
+            codes, sc2, ct2 = _pipe_fill("codes+counts", dev, mkd, warps)
+            assert scores == sc == sc2.cpu().tolist() == [w[0] for w in want], (mkd, warps)
+            assert ct == ct2.cpu().tolist() == [w[1] for w in want], (mkd, warps)
+            assert torch.equal(codes[0], want_codes[0]), (mkd, warps)
+
+
+def test_align_batch_long_pairs_at_the_rules_warps(cuda):
+    """A few long pairs take many warps a pair (the rule gives 32 here):
+    scores, counts and alignments on the card equal device='cpu'."""
+    ps = _pairs(11, 3, 900, 1100) + _pairs(12, 1, 1000, 1001, "AC") + EDGE
+    nbands = -(-max(len(b) for _, b in ps) // 32)
+    assert fill_banded.fill_warps(len(ps), 1100, 1100, True,
+                                  torch.cuda.get_device_properties(cuda).multi_processor_count) == min(32, nbands)
+    got = align_batch(ps, 2, 1, 1, device="cuda", traceback_strings=True, count=True)
+    want = align_batch(ps, 2, 1, 1, device="cpu", traceback_strings=True, count=True)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    np.testing.assert_array_equal(got.ops, want.ops)
+    np.testing.assert_array_equal(got.ops_len, want.ops_len)
+
+
 @pytest.mark.parametrize("strings,count", [(False, False), (False, True), (True, False), (True, True)])
 def test_align_batch_cuda_vs_cpu(cuda, strings, count):
     ps = _pairs(7, 30, 0, 300) + EDGE
@@ -645,11 +735,14 @@ def test_hirschberg_cuda_vs_cpu(cuda, mkd):
 
 
 @pytest.mark.parametrize("strings,count", [(False, True), (True, True)])
-def test_align_batch_mask_route_cuda_vs_cpu(cuda, strings, count):
+def test_align_batch_mask_route_cuda_vs_cpu(cuda, monkeypatch, strings, count):
     """Six pairs padded to one 2 560 bp bucket (long enough for six
-    pairs: the mask route's rule takes them): the mask route on the card
-    against the CPU."""
+    pairs at 420 bp a pair: the mask route's rule takes them): the mask
+    route on the card against the CPU."""
     from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.ops import fill_auto
+
+    monkeypatch.setattr(fill_auto, "MASK_SIDE_PER_PAIR", 420)
 
     ps = _pairs(25, 3, 0, 600) + _pairs(26, 1, 100, 300, "AC") + EDGE[1:3]
     cfg = AlignConfig(scoring=ScoringParams(2, 1, 1), bucket_sizes=(2560,))

@@ -163,20 +163,22 @@ def test_count_masks_match_k6(mkd):
 
 def test_mask_route_is_taken_for_small_batches_of_long_pairs():
     take = fill_auto.takes_mask_route
-    assert take(4, 10240, 10240) and take(23, 10240, 10240) and take(9, 4096, 4096)
-    assert take(1, 32768, 32768) and take(2, 2176, 896)
-    assert not take(16, 4096, 4096)  # too many pairs for their length: the codes route
+    assert take(2, 10240, 10240) and take(1, 4096, 4096) and take(8, 32768, 32768)
+    assert take(1, 32768, 32768) and take(1, 4096, 4000) and take(2, 10240, 8000)
+    assert not take(3, 10240, 10240)  # too many pairs for their length: the codes route
+    assert not take(2, 4096, 4096) and not take(16, 4096, 4096)
     assert not take(24, 10240, 10240)  # a batch that fills the card: the codes route
-    assert not take(4, 2048, 2048)  # short sides: the codes route, a quarter of the bytes
+    assert not take(1, 2048, 2048)  # short sides: the codes route, a quarter of the bytes
     assert not take(2, 2176, 128) and not take(4, 40960, 2048) and not take(0, 4096, 4096)
 
 
 @pytest.mark.parametrize("strings,count,mkd", [(True, True, (1, 1, 2**30)), (False, True, (3, -1, 2))])
 def test_align_batch_mask_route_matches_nw_tpu(monkeypatch, strings, count, mkd):
-    """Random, tie-dense and empty pairs padded to one 2 176 bp bucket
-    (long enough for five pairs), through the mask route; the plain
-    fills run on the true lengths."""
+    """Random, tie-dense and empty pairs padded to one 2 176 bp bucket,
+    through the mask route (its rule at 420 bp a pair, so that five pairs
+    take it); the plain fills run on the true lengths."""
     pairs = _pairs(8, 3, 0, 60) + _pairs(9, 1, 20, 40, "AC") + [(b"", b"ACG")]
+    monkeypatch.setattr(fill_auto, "MASK_SIDE_PER_PAIR", 420)
     calls = []
     fold = model.fill_arrows_fold_batch
     monkeypatch.setattr(model, "fill_arrows_fold_batch", lambda *a, **kw: calls.append(1) or fold(*a, **kw))
