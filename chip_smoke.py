@@ -50,26 +50,37 @@ Phases, in order; any mismatch or exception exits non-zero:
    pair; the CLI's cold start.
 
 8. huge pairs: (a) the single-pair modes ``nw_fill_codes_single`` (K14,
-   and K13 from a seed row), ``nw_score_single`` (K11, and K12 dumping
-   checkpoint rows) and ``nw_walk_window`` bit for bit against their
-   plain versions (24 random pairs of 0-700 bp, tie-dense pairs, the
-   edge pairs, every scoring, 1 to 8 warps and several blocks), the
-   codes also against ``nw_fill_codes`` at B = 1; then, with every launch
-   counter set to 0, (b) ``align_huge`` on both routes at 10 240 bp
+   and K13 from a seed row, a block a launch), ``nw_refill_blocks`` (K13,
+   every block of a pair in one launch, and from the second block on),
+   ``nw_score_single`` (K11, and K12 dumping checkpoint rows) and
+   ``nw_walk_window`` bit for bit against their plain versions (24 random
+   pairs of 0-700 bp, tie-dense pairs, the edge pairs, every scoring, 1
+   to 8 warps and several blocks), the codes also against
+   ``nw_fill_codes`` at B = 1; ``nw_refill_blocks`` over every block of a
+   4 096 bp pair (C = 128) at its default launch and at 2 blocks of 3
+   warps against its plain version under every scoring; then, with every
+   launch counter set to 0, (b) ``align_huge`` on both routes at 10 240 bp
    against ``align(...).best_alignment()``, (c) a random 100 000 x
    100 000 bp pair on both routes (identical strings that spell both
    inputs and re-score to the reported, ``summary_huge``'s and
    ``score_fold``'s score), (d) ``align_batch`` of 2 x 100 000 bp pairs
    with strings and counts and scores only; every new kernel must have
-   launched; each mode against its plain version at the sizes (b) and
-   (c) run: on both 10 240 bp pairs (ACGT, and the tie-dense AC) at
-   ``align_huge``'s block size there (whole-pair codes, checkpoint rows, score, a middle block
-   re-filled from the kernel's checkpoint, the chained window walks),
-   the score at 20 000 bp, a 1 280-row block (the 100 000 bp path's
-   height) of the pair's 20 000 bp prefixes re-filled from the kernel's
-   checkpoint, and at 100 000 bp the 79 chained window walks; (e) times:
-   ``align_huge`` walls, the kernels apart, the scores-only crossover of
-   ``nw_scores`` (a block a pair) against ``score_fold``, peak device memory.
+   launched; (c') a 200 000 bp pair on ``align_huge``'s default route
+   (checkpointed: its codes pass the 8 GiB budget) equal to the codes
+   route under a raised budget, both walls; each mode against its plain
+   version at the sizes (b) and (c) run: on both 10 240 bp pairs (ACGT,
+   and the tie-dense AC) at ``align_huge``'s block size there (whole-pair
+   codes, checkpoint rows, score, a middle block re-filled from the
+   kernel's checkpoint, every block in one launch, the chained window
+   walks), the score at 20 000 bp, a 1 280-row block (the 100 000 bp
+   path's height) of the pair's 20 000 bp prefixes re-filled from the
+   kernel's checkpoint, and at 100 000 bp every block of the one-launch
+   group against the one-block launches and the 79 chained window walks
+   over it (ending at the origin after ``nw_walk``'s steps); (e) times:
+   ``align_huge`` walls, the kernels apart, the 79 refills one block a
+   launch against all in one launch in turns and the sweep of blocks a
+   launch (``REFILL_GROUPS``), the scores-only crossover of ``nw_scores``
+   (a block a pair) against ``score_fold``, peak device memory.
 
 9. Smith-Waterman: (a) ``sw_scores``, ``sw_fill_codes`` (codes, best,
    argmax) and ``sw_walk`` bit for bit against their plain versions (40
@@ -158,8 +169,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    against ``nw_fill_codes_single`` (codes and corner), both timed.
 
 13. The tie-mask routes and Hirschberg: (a) ``nw_fill_masks_batch`` (K2's
-   batched tie masks, with and without counts), ``nw_count_masks`` (K6),
-   ``nw_walk_masks``, ``nw_fill_masks`` a pair at a time
+   batched tie masks, with and without counts), ``nw_count_masks`` (K6,
+   at the rule's W and at every W of ``COUNT_WARPS``), ``nw_walk_masks``, ``nw_fill_masks`` a pair at a time
    (``fill_arrows_fold_batch``, K10) and ``nw_last_row`` (K9, rows 0,
    len2/3 and len2) bit for bit against their plain versions under every
    scoring (30 random and tie-dense pairs of 0-700 bp, the edge pairs,
@@ -177,8 +188,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    against ``device="cpu"`` (run in a process of its own meanwhile) byte
    for byte, and ``nw_last_row`` against ``fill_last_row`` on the card at
    the top-level split of the 10 240 and 20 000 bp pairs; every new
-   kernel must have launched; each kernel's time beside its plain
-   version's and its bound.
+   kernel must have launched; ``nw_count_masks`` at one warp a pair
+   against the rule's W in turns (1, W, W, 1) at 4 x 10 240 bp, 128 x
+   2 048 bp and 1 024 x 256 bp, and the sweep of W (``COUNT_SWEEP``);
+   each kernel's time beside its plain version's and its bound.
 
 14. The runs walk engine and the flat-fill API: (a) ``nw_fill_runs_batch``
    (the ``RUNS`` mode of ``nw_fill_kernel``, K2's ``with_runs``, with and
@@ -751,11 +764,15 @@ def cli_phase(card, errs):
 # the single-pair modes of phase 8: record name -> (wrapper, counter attribute)
 HUGE_KERNELS = {
     "nw_fill_codes_single": ("fill_codes_single", "launches"),  # K14
-    "nw_fill_codes_single/seeded": ("fill_codes_single", "seeded_launches"),  # K13
+    "nw_refill_blocks": ("fill_codes_blocks", "launches"),  # K13, G blocks a launch
     "nw_score_single": ("score_fold", "launches"),  # K11
     "nw_score_single/ckpt": ("score_fold", "ckpt_launches"),  # K12
     "nw_walk_window": ("walk_codes_window", "launches"),
 }
+SEEDED = "nw_fill_codes_single/seeded"  # K13 a block a launch: the grouped re-fill's yardstick
+L_REFILL, C_REFILL = 4096, 128  # phase 8: the grouped re-fill of every block vs plain
+L_HUGE2 = 200_000  # phase 8: a pair whose codes pass align_huge's 8 GiB budget
+REFILL_GROUPS = (1, 4, 16, 40)  # phase 8's sweep of G at 100 kb (and all blocks)
 
 
 def against_plain(name, kern, plain, errs):
@@ -817,13 +834,16 @@ def modes_vs_plain_10k(pair, C, errs, plain):
     r0, r1 = blocks[len(blocks) // 2]
     kw = {"len2": r1, "r0": r0, "seed": ck[r0 // C]}
     against_plain(
-        "nw_fill_codes_single/seeded", lambda: fs.fill_codes_single(t, s, 1, 1, 1, **kw),
+        SEEDED, lambda: fs.fill_codes_single(t, s, 1, 1, 1, **kw),
         lambda: fs.fill_codes_single_plain(t, s, 1, 1, 1, **kw), errs,
     )
-    chain = [
-        (r0, fs.fill_codes_single(t, s, 1, 1, 1, len2=r1, r0=r0, seed=ck[r0 // C] if r0 else None)[0])
-        for r0, r1 in blocks[::-1]
-    ]
+    # every block in one launch, as traceback_checkpointed re-fills them
+    kw = {"len1": L1, "len2": L2, "r0": 0, "C": C, "seeds": ck}
+    (codes, _), _ = against_plain(
+        "nw_refill_blocks", lambda: fs.fill_codes_blocks(t, s, 1, 1, 1, **kw),
+        lambda: fs.fill_codes_blocks_plain(t, s, 1, 1, 1, **kw), errs,
+    )
+    chain = [(r0, codes[:, r0 // 32 : -(-r1 // 32)]) for r0, r1 in blocks[::-1]]
     (st, _), _ = against_plain(
         "nw_walk_window", lambda: walk_chain(tb.walk_codes_window, chain, L1, L2),
         lambda: walk_chain(tb.walk_codes_window_plain, chain, L1, L2), errs,
@@ -864,7 +884,7 @@ def huge_modes_vs_plain(dev, errs):
     shapes = [(None, 1), (None, 3), (None, 8), (1, 8), (5, 2)]
     for mkd in SCORINGS:
         ref = fill_diag_batch(tops, sides, l1, l2, *mkd, with_scores=True)
-        e = dict.fromkeys(HUGE_KERNELS, 0)
+        e = dict.fromkeys([*HUGE_KERNELS, SEEDED], 0)
         e_batch = 0
         for b, (s1, s2) in enumerate(pairs):
             la, lb = len(s1), len(s2)
@@ -909,11 +929,23 @@ def huge_modes_vs_plain(dev, errs):
                             top, side, *mkd, len2=r1, r0=r0, seed=ck[r] if r0 else None, **kw
                         )
                         want_c, want_s = want_blocks[(r0, r1)]
-                        name = "nw_fill_codes_single/seeded" if r0 else "nw_fill_codes_single"
+                        name = SEEDED if r0 else "nw_fill_codes_single"
                         e[name] = max(e[name], max_abs_err(codes, want_c), abs(int(sc) - want_s))
                         tb.walk_codes_window(codes, st_k, r0, ops_k)
                         tb.walk_codes_window_plain(codes, st_p, r0, ops_p)
                         e["nw_walk_window"] = max(e["nw_walk_window"], max_abs_err(st_k, st_p))
+                    # K13 grouped: every block in one launch, and from the second on
+                    for lo in range(min(2, len(bl))):
+                        codes, corners = fs.fill_codes_blocks(
+                            top, side, *mkd, la, lb, lo * C, C, ck[lo:], **kw
+                        )
+                        for g, (r0, r1) in enumerate(bl[lo:]):
+                            want_c, want_s = want_blocks[(r0, r1)]
+                            first = (r0 - lo * C) // 32
+                            e["nw_refill_blocks"] = max(
+                                e["nw_refill_blocks"], abs(int(corners[g]) - want_s),
+                                max_abs_err(codes[:, first : first + want_c.shape[1]], want_c),
+                            )
                     e["nw_walk_window"] = max(e["nw_walk_window"], max_abs_err(ops_k, ops_p))
                     if lb:  # the chained windows walk as nw_walk over the whole pair
                         e["nw_walk_window"] = max(
@@ -939,9 +971,13 @@ def huge_modes_vs_plain(dev, errs):
                 kw = {"len2": min(len(s2), 32 * r + 32), "r0": 32 * r, "seed": ck[r]}
                 got = fs.fill_codes_single(top, side, *mkd, **kw)
                 want = fs.fill_codes_single_plain(top, side, *mkd, **kw)
-                e["nw_fill_codes_single/seeded"] = max(
-                    e["nw_fill_codes_single/seeded"], max_abs_err(got[0], want[0]),
-                    max_abs_err(got[1], want[1]),
+                e[SEEDED] = max(e[SEEDED], max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+            if s2:
+                kw = {"len1": len(s1), "len2": len(s2), "r0": 0, "C": 32, "seeds": ck}
+                got = fs.fill_codes_blocks(top, side, *mkd, **kw)
+                want = fs.fill_codes_blocks_plain(top, side, *mkd, **kw)
+                e["nw_refill_blocks"] = max(
+                    e["nw_refill_blocks"], max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])
                 )
         torch.cuda.synchronize()
         for name, v in e.items():
@@ -950,6 +986,39 @@ def huge_modes_vs_plain(dev, errs):
             f"m k d = {mkd}: {e}; codes vs nw_fill_codes at B = 1: {e_batch}")
         if any(e.values()) or e_batch:
             fail(f"a single-pair mode differs from its plain version or nw_fill_codes: {e} {e_batch}")
+
+
+def grouped_refill_vs_plain(dev, errs, plain):
+    """Phase 8 (a): the grouped re-fill of every block of a 4 096 bp pair
+    (C = 128 rows: 32 blocks of 4 bands) from the kernel's checkpoint
+    rows, at its default launch (a warp a band) and at 2 blocks of 3
+    warps (fewer warps than bands, 3 ring slots for a block's 4 bands),
+    against its plain version on the same inputs on the card, under
+    every scoring; the plain version's ms at (2,1,1) and the kernel's
+    there go into ``plain``."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_single as fs
+
+    pair = rand_pairs(np.random.default_rng(L_REFILL), 1, L_REFILL, L_REFILL)[0]
+    t, s = (torch.from_numpy(enc.encode(x)).to(dev) for x in pair)
+    for mkd in SCORINGS:
+        _, ck = fs.score_fold(t, s, *mkd, checkpoint_every=C_REFILL)
+        kw = {"len1": L_REFILL, "len2": L_REFILL, "r0": 0, "C": C_REFILL, "seeds": ck}
+        want, ms = cuda_once(lambda: fs.fill_codes_blocks_plain(t, s, *mkd, **kw))
+        e = 0
+        for shape in ({}, {"blocks": 2, "warps": 3}):
+            got = fs.fill_codes_blocks(t, s, *mkd, **kw, **shape)
+            e = max(e, max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        errs["nw_refill_blocks"] = max(errs.get("nw_refill_blocks", 0), e)
+        if mkd == (2, 1, 1):
+            kern_ms = cuda_ms(lambda: fs.fill_codes_blocks(t, s, *mkd, **kw), 2)
+            plain["nw_refill_blocks"] = (
+                ms, f"{L_REFILL}x{L_REFILL}bp, all {ck.shape[0]} blocks of {C_REFILL} rows", kern_ms
+            )
+    log(f"phase 8 (a) nw_refill_blocks vs plain, every block of a {L_REFILL} bp pair (C = {C_REFILL}), "
+        f"2 launch shapes x {len(SCORINGS)} scorings: max |diff| {errs['nw_refill_blocks']}")
+    if errs["nw_refill_blocks"]:
+        fail(f"the grouped re-fill differs from its plain version: {errs['nw_refill_blocks']}")
 
 
 def huge_phase(card, bound):
@@ -966,10 +1035,12 @@ def huge_phase(card, bound):
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     errs = {}
+    plain = {}
     huge_modes_vs_plain(dev, errs)
+    grouped_refill_vs_plain(dev, errs, plain)
 
-    wrappers = {"fill_codes_single": fs.fill_codes_single, "score_fold": fs.score_fold,
-                "walk_codes_window": tb.walk_codes_window}
+    wrappers = {"fill_codes_single": fs.fill_codes_single, "fill_codes_blocks": fs.fill_codes_blocks,
+                "score_fold": fs.score_fold, "walk_codes_window": tb.walk_codes_window}
     rng = np.random.default_rng(9)
     p10 = rand_pairs(rng, 1, L_LONG, L_LONG) + rand_pairs(rng, 1, L_LONG, L_LONG, b"AC")
     big = rand_pairs(np.random.default_rng(L_HUGE), 1, L_HUGE, L_HUGE)[0]
@@ -1019,13 +1090,12 @@ def huge_phase(card, bound):
         "align().best_alignment() and its score")
     # every mode against its plain version at the sizes (b) and (c) run:
     # here each 10 240 bp pair at the block size align_huge picks there
-    plain = {}
     t0 = time.perf_counter()
     C10 = ckt.auto_block_diagonals(L_LONG, L_LONG)
     for i, p in enumerate(p10):
         modes_vs_plain_10k(p, C10, errs, plain if i == 0 else None)
     log(f"single-pair modes vs plain on both {L_LONG} bp pairs (ACGT, AC; C = {C10} rows): "
-        f"{ {n: errs[n] for n in HUGE_KERNELS} } in {time.perf_counter() - t0:.1f} s")
+        f"{ {n: errs[n] for n in [*HUGE_KERNELS, SEEDED]} } in {time.perf_counter() - t0:.1f} s")
 
     # (c) 100 000 bp, both routes
     sc8, ct8 = a211.summary_huge(*big)
@@ -1054,6 +1124,36 @@ def huge_phase(card, bound):
     log(f"align_batch 2 x {L_HUGE} bp: strings equal align_huge's, (score, count) {want8} equal "
         "summary_huge's, scores-only through nw_score_single equal")
     del r10, rb, rs, aligned
+
+    # (c') 200 000 bp: align_huge's default route (its 10 GB of codes pass
+    # the 8 GiB budget: checkpointed, two groups) against the codes route
+    # under a raised budget
+    pair2 = rand_pairs(np.random.default_rng(L_HUGE2), 1, L_HUGE2, L_HUGE2)[0]
+    C2 = ckt.auto_block_diagonals(L_HUGE2, L_HUGE2)
+    G2 = ckt.refill_group(L_HUGE2, L_HUGE2, C2, dev)
+    before = fs.fill_codes_blocks.launches
+    t0 = time.perf_counter()
+    r_def = a211.align_huge(*pair2)
+    wall_def = time.perf_counter() - t0
+    refills2 = fs.fill_codes_blocks.launches - before
+    groups2 = -(-(-(-L_HUGE2 // C2)) // G2)  # ceil(blocks / G)
+    os.environ["NW_TPU_HUGE_WALK_HBM"] = str(12 << 30)
+    try:
+        t0 = time.perf_counter()
+        r_big = a211.align_huge(*pair2)
+        wall_big = time.perf_counter() - t0
+    finally:
+        del os.environ["NW_TPU_HUGE_WALK_HBM"]
+    torch.cuda.empty_cache()
+    log(f"align_huge {L_HUGE2} bp (2 1 1): default route checkpointed (C = {C2} rows, G = {G2}, "
+        f"{refills2} nw_refill_blocks launches) {wall_def:.4f} s, codes route under a 12 GiB budget "
+        f"{wall_big:.4f} s (cold); scores {r_def.score} / {r_big.score} [{card}]")
+    if refills2 != groups2 or (r_def.X, r_def.Y) != (r_big.X, r_big.Y):
+        fail(f"align_huge at {L_HUGE2} bp: the default route's strings differ from the codes route's, "
+             f"or it did not take the checkpointed route ({refills2} group launches)")
+    if r_def.score != r_big.score or r_def.score != int(rescore([pair2], [(r_big.X, r_big.Y)], 2, 1, 1)[0]):
+        fail(f"align_huge at {L_HUGE2} bp: the routes' scores differ")
+    del r_def, r_big
 
     # (e) times
     for _ in range(3):
@@ -1090,14 +1190,41 @@ def huge_phase(card, bound):
     blocks = [(r * C_big, min(L_HUGE, r * C_big + C_big)) for r in range(ck.shape[0])][::-1]
     block_codes = []
 
-    def refill_all():
+    def refill_each():  # one block a launch (nw_fill_codes_single from a seed)
         block_codes.clear()
         for r0, r1 in blocks:
             block_codes.append(fs.fill_codes_single(
                 top, side, 2, 1, 1, len2=r1, r0=r0, seed=ck[r0 // C_big] if r0 else None
             )[0])
 
-    ms13 = cuda_ms(refill_all, 0)
+    def refill_groups(G):  # G blocks a launch, the last group first, as the route runs them
+        for hi in range(len(blocks), 0, -G):
+            lo = max(0, hi - G)
+            out = fs.fill_codes_blocks(top, side, 2, 1, 1, L_HUGE, min(L_HUGE, hi * C_big), lo * C_big,
+                                       C_big, ck[lo:hi])
+        return out
+
+    G_big = ckt.refill_group(L_HUGE, L_HUGE, C_big, dev)
+    refill_each()
+    group_codes, corners = fs.fill_codes_blocks(top, side, 2, 1, 1, L_HUGE, L_HUGE, 0, C_big, ck)
+    torch.cuda.synchronize()
+    e_blocks = 0
+    for (r0, r1), codes in zip(blocks, block_codes):
+        e_blocks = max(e_blocks, max_abs_err(group_codes[:, r0 // 32 : r0 // 32 + codes.shape[1]], codes))
+    e_blocks = max(e_blocks, max_abs_err(corners, torch.stack(
+        [ck[r + 1, L_HUGE] for r in range(len(blocks) - 1)] + [fs.score_fold(top, side, 2, 1, 1)[0]])))
+    errs["nw_refill_blocks"] = max(errs["nw_refill_blocks"], e_blocks)
+    log(f"{len(blocks)} blocks of {C_big} rows x {L_HUGE} bp in one nw_refill_blocks launch "
+        f"vs one launch a block: max |diff| {e_blocks} (codes, and corners vs the checkpoint rows)")
+    turns = {}
+    for name in ("each", "group", "group", "each"):
+        fn = refill_each if name == "each" else (lambda: refill_groups(G_big))
+        turns.setdefault(name, []).append(cuda_ms(fn, 1))
+    ms13, ms13_old = min(turns["group"]), min(turns["each"])
+    log(f"{len(blocks)} refills at {L_HUGE} bp in turns: one block a launch {turns['each']} ms, "
+        f"{G_big} blocks a launch {turns['group']} ms [{card}]")
+    sweep_g = {G: cuda_ms(lambda: refill_groups(G), 1) for G in (*REFILL_GROUPS, G_big)}
+    log(f"{len(blocks)} refills at {L_HUGE} bp by blocks a launch G: {sweep_g} ms [{card}]")
     # one block's refill at 8 (the default), 4, 2 and 1 warps a block
     r0, r1 = blocks[len(blocks) // 2]
     sweep = {}
@@ -1115,15 +1242,16 @@ def huge_phase(card, bound):
     b20 = ck20.shape[0] // 2
     kw = {"len2": min(L_CROSS, (b20 + 1) * C_big), "r0": b20 * C_big, "seed": ck20[b20]}
     _, ms = against_plain(
-        "nw_fill_codes_single/seeded", lambda: fs.fill_codes_single(t20, s20, 2, 1, 1, **kw),
+        SEEDED, lambda: fs.fill_codes_single(t20, s20, 2, 1, 1, **kw),
         lambda: fs.fill_codes_single_plain(t20, s20, 2, 1, 1, **kw), errs,
     )
     ms20 = cuda_ms(lambda: fs.fill_codes_single(t20, s20, 2, 1, 1, **kw), 2)
-    plain["nw_fill_codes_single/seeded"] = (
-        ms, f"one block of rows {kw['r0']}..{kw['len2']} x {L_CROSS}bp", ms20
-    )
+    plain[SEEDED] = (ms, f"one block of rows {kw['r0']}..{kw['len2']} x {L_CROSS}bp", ms20)
     del ck20
-    chain = [(r0, codes) for (r0, _), codes in zip(blocks, block_codes)]
+    seeded_bytes = tensor_bytes(*block_codes) + tensor_bytes(ck)
+    del block_codes[:]
+    # the route's walk: each block's slice of the one-launch codes
+    chain = [(r0, group_codes[:, r0 // 32 : -(-r1 // 32)]) for r0, r1 in blocks]
     ms_ww = cuda_ms(lambda: walk_chain(tb.walk_codes_window, chain, L_HUGE, L_HUGE), 2)
     (state, _), ms = against_plain(
         "nw_walk_window", lambda: walk_chain(tb.walk_codes_window, chain, L_HUGE, L_HUGE),
@@ -1132,23 +1260,25 @@ def huge_phase(card, bound):
     plain["nw_walk_window"] = (ms, f"the same {len(blocks)} windows", ms_ww)
     if state.tolist() != [0, 0, steps]:
         fail(f"the chained window walks at 100 kb end at {state.tolist()}, nw_walk after {steps} steps")
-    log(f"vs plain: {plain['nw_fill_codes_single/seeded'][1]} re-filled from the kernel's checkpoint, "
-        f"max |diff| {errs['nw_fill_codes_single/seeded']} (plain {plain['nw_fill_codes_single/seeded'][0]:.1f} "
-        f"ms); {L_HUGE} bp: {len(blocks)} chained window walks {errs['nw_walk_window']} (plain {ms:.1f} ms) "
-        f"[{card}]")
-    seeded_bytes = tensor_bytes(*block_codes) + tensor_bytes(ck)
-    del block_codes[:], chain
-    rec["nw_fill_codes_single/seeded"] = dict(
+    log(f"vs plain: {plain[SEEDED][1]} re-filled from the kernel's checkpoint (one block a launch), "
+        f"max |diff| {errs[SEEDED]} (plain {plain[SEEDED][0]:.1f} ms, kernel {ms20:.3f} ms); {L_HUGE} bp: "
+        f"{len(blocks)} chained window walks over the one-launch codes {errs['nw_walk_window']} "
+        f"(plain {ms:.1f} ms) [{card}]")
+    del chain, group_codes
+    rec["nw_refill_blocks"] = dict(
         ms=ms13, **bound(cells * (OPS_SCORE + OPS_CODE), in_bytes + seeded_bytes),
-        shape=f"1x{L_HUGE}bp, all {len(blocks)} blocks of {C_big} rows re-filled (one launch each)",
+        shape=f"1x{L_HUGE}bp, all {len(blocks)} blocks of {C_big} rows re-filled in "
+              f"{-(-len(blocks) // G_big)} launch(es); one block a launch {ms13_old:.3f} ms in turns",
+        group=G_big, one_block_ms=ms13_old,
     )
     rec["nw_walk_window"] = dict(
         ms=ms_ww, **bound(steps * OPS_WALK_STEP, steps * 5),
         shape=f"1x{L_HUGE}bp, {steps} steps in {len(blocks)} chained windows",
     )
     log(f"align_huge {L_HUGE} bp kernels: codes fill {ms14:.3f} ms, nw_walk {ms_walk:.3f} ms "
-        f"({steps} steps); checkpointed: dump {ms12:.3f} ms, {len(blocks)} refills {ms13:.3f} ms, "
-        f"{len(blocks)} window walks {ms_ww:.3f} ms [{card}]")
+        f"({steps} steps); checkpointed: dump {ms12:.3f} ms, {len(blocks)} refills {ms13:.3f} ms "
+        f"(G = {G_big}; one block a launch {ms13_old:.3f} ms), {len(blocks)} window walks {ms_ww:.3f} ms "
+        f"[{card}]")
     del ck
     torch.cuda.empty_cache()
 
@@ -2293,6 +2423,8 @@ L_ROUTE = 4096  # align_batch's mask route against its codes route: 16 x 4 096 b
 # then both sides of its crossover
 ROUTE_SHAPES = [(4, L_LONG), (16, L_ROUTE), (1, L_ROUTE), (2, L_ROUTE), (4, L_ROUTE), (8, L_ROUTE),
                 (2, L_LONG), (3, L_LONG), (8, L_LONG), (16, L_LONG), (23, L_LONG)]
+COUNT_WARPS = (1, 2, 3, 4, 8, 16, 32)  # phase 13 (a): nw_count_masks at each forced W
+COUNT_SWEEP = (1, 2, 4, 8, 16, 32)  # phase 13: the sweep of W at the timed shapes
 MASK_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel
     "nw_fill_masks_batch": ("fill_banded", "fill_masks_banded_batch"),
     "nw_count_masks": ("pathcount", "count_masks_batch"),
@@ -2351,8 +2483,9 @@ def mask_kernels_vs_plain(dev, errs):
                                            + ([max_abs_err(got[2], ref["count"])] if wc else []))
         fold = fs.fill_arrows_fold_batch(tops, sides, l1, l2, *mkd)
         e["nw_fill_masks/fold"] = max(max_abs_err(g, w) for g, w in zip(fold, (want, ref["score"], ref["count"])))
-        e["nw_count_masks"] = max_abs_err(pc.count_masks_batch(got[0], l1, l2),
-                                          pc.count_masks_batch_plain(want, l1, l2))
+        want_count = pc.count_masks_batch_plain(want, l1, l2)
+        e["nw_count_masks"] = max(max_abs_err(pc.count_masks_batch(got[0], l1, l2, warps=w), want_count)
+                                  for w in (None, *COUNT_WARPS))
         e["nw_walk_masks"] = max(max_abs_err(g, w) for g, w in zip(
             tb.walk_masks_batch(got[0], l1, l2, S), tb.walk_masks_batch_plain(want, l1, l2, S)))
         for b, (n1, n2) in enumerate(zip(l1.tolist(), l2.tolist())):
@@ -2372,7 +2505,8 @@ def mask_kernels_vs_plain(dev, errs):
                 fs.last_row(st[0][b], st[1][b], *mkd, n1, n2), fs.last_row_plain(st[0][b], st[1][b], *mkd, n1, n2)))
         for name, v in e.items():
             errs[name] = max(errs[name], v)
-        log(f"phase 13 (a) kernels vs plain, {len(pairs)} pairs + {len(short)} short, m k d = {mkd}: {e}")
+        log(f"phase 13 (a) kernels vs plain, {len(pairs)} pairs + {len(short)} short, m k d = {mkd} "
+            f"(nw_count_masks at the rule's W and W = {COUNT_WARPS}): {e}")
         del ref, want
     if any(errs.values()):
         fail(f"a mask-route kernel differs from its plain version: {errs}")
@@ -2585,6 +2719,27 @@ def masks_phase(card, bound):
         if errs["nw_last_row"]:
             fail(f"nw_last_row differs from fill_last_row at the path's splits: {errs}")
 
+        # nw_count_masks: one warp a pair against the rule's W in turns, and the sweep of W
+        flat = rand_pairs(np.random.default_rng(133), 1024, L_FLAT, L_FLAT)
+        Tf = enc.upload(enc.encode_batch(flat, L_FLAT, L_FLAT), dev)
+        count_shapes = [(f"{nb}x{L}bp", out[nb, L]["masks"], out[nb, L]["T"])
+                        for nb, L in ((4, L_LONG), (128, L_ARROWS))]
+        count_shapes.append((f"1024x{L_FLAT}bp", fb.fill_masks_banded_batch(*Tf, 2, 1, 1)[0], Tf))
+        count_turns = {}
+        for label, masks, T in count_shapes:
+            B, N, _ = masks.shape
+            W = pc.count_warps(B, N - 1, torch.cuda.get_device_properties(dev).multi_processor_count)
+            turns = {}
+            for w in (1, W, W, 1):
+                turns.setdefault(w, []).append(cuda_ms(lambda: pc.count_masks_batch(masks, *T[2:], warps=w), 2))
+            sweep = {w: cuda_ms(lambda: pc.count_masks_batch(masks, *T[2:], warps=w), 2) for w in COUNT_SWEEP}
+            cells = int((T[2].to(torch.int64) * T[3]).sum())
+            bnd = bound(cells * OPS_COUNT, tensor_bytes(masks, *T[2:]) + 4 * B)
+            count_turns[label] = (W, turns)
+            log(f"phase 13 nw_count_masks {label} in turns: one warp a pair {turns[1]} ms, the rule's "
+                f"W = {W} {turns[W]} ms; sweep of W {sweep} ms; bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}) [{card}]")
+
         # times at the path's shapes, and the record
         o = out[128, L_ARROWS]
         T, masks = o["T"], o["masks"]
@@ -2598,10 +2753,14 @@ def masks_phase(card, bound):
             ms=fill_ms, plain_ms=o["plain_fill_ms"],
             **bound(cells * (OPS_SCORE + OPS_CODE), tensor_bytes(*T, masks, o["scores"])),
             shape=f"128x{L_ARROWS}bp masks (with counts {fill_c_ms:.3f} ms; plain_ms with counts)")
+        W, turns = count_turns[f"128x{L_ARROWS}bp"]
+        W4, turns4 = count_turns[f"4x{L_LONG}bp"]
         rec["nw_count_masks"] = dict(
             ms=count_ms, plain_ms=o["plain_count_ms"],
             **bound(cells * OPS_COUNT, tensor_bytes(masks, *T[2:]) + 4 * len(o["pairs"])),
-            shape=f"128x{L_ARROWS}bp masks")
+            shape=f"128x{L_ARROWS}bp masks, {W} warps a pair; 4x{L_LONG}bp {min(turns4[W4]):.3f} ms at "
+                  f"W = {W4} (one warp a pair {min(turns4[1]):.3f} ms in turns)",
+            warps=W, one_warp_ms=min(turns[1]))
         rec["nw_walk_masks"] = dict(
             ms=walk_ms, plain_ms=o["plain_walk_ms"],
             **bound(steps * OPS_WALK_STEP, tensor_bytes(*T[2:], o["n"]) + 2 * steps),
@@ -3468,7 +3627,7 @@ def main() -> None:
     ]
     replaces = {
         "nw_fill_codes_single": "nw_tpu/parallel/huge_pair.py:246",
-        "nw_fill_codes_single/seeded": "nw_tpu/ops/checkpoint_traceback.py:153",
+        "nw_refill_blocks": "nw_tpu/ops/checkpoint_traceback.py:153 (K13, launched :241)",
         "nw_score_single": "nw_tpu/ops/fill_strips.py:62",
         "nw_score_single/ckpt": "nw_tpu/ops/checkpoint_traceback.py:61",
         "nw_walk_window": "nw_tpu/ops/checkpoint_traceback.py:353",

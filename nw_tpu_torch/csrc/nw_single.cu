@@ -16,8 +16,9 @@
 //       chunk with 8-bit packed tie masks)                 -> nw_fill_tile
 //                                                             masks mode
 //   K13 nw_tpu/ops/checkpoint_traceback.py:153 _make_refill_kernel
-//       (re-fill of one block from its checkpoint)         -> nw_fill_codes_single
-//                                                             with a seed row
+//       (re-fill of one block from its checkpoint)         -> nw_refill_blocks
+//                                                             (G blocks a launch;
+//       one block a launch: nw_fill_codes_single with a seed row)
 //   K11 nw_tpu/ops/fill_strips.py:62 _make_strips_kernel
 //       (strips_score: one huge pair's score)              -> nw_score_single
 //   K12 nw_tpu/ops/checkpoint_traceback.py:61 _make_ckpt_kernel
@@ -110,6 +111,27 @@
 // row-major uint8[Bs, width+1] table of the rank's rows.  The tile with
 // c0 = 0 also stores column 0 (UP); no tile stores row r0.
 //
+// The grouped re-fill (nw_refill_blocks: the codes mode's step in a
+// kernel of its own, nw_refill_kernel, so that the template's other
+// instantiations keep their machine code).  A checkpointed traceback
+// re-fills every block of C rows from its checkpoint row; one block is
+// only C/32 bands, too few for the card, and given their seed rows the
+// blocks are independent.  So one cooperative launch re-fills G consecutive blocks:
+// bands are numbered over the group (band b is block b / (C/32)), and P
+// warps take bands b, b+P, ... as above.  A band that starts a block
+// reads its row above from that block's seed and waits on no band; the
+// others read band b-1's last row from the ring, column 0 is -(r0+j)*d
+// with the group's r0, and each block's last row stores its corner.
+// The ring: block g owns slots g*S .. g*S+S-1, S = min(P, C/32), and
+// band b of it (its l-th) writes slot g*S + l%S.  The argument above
+// for reusing a slot needs an unbroken chain of waits from band b+1 to
+// band b+P-1, and a block start breaks it (band b+P could overwrite a
+// slot shared across a block start before band b+1 read it); within one
+// block no band starts a block, so reuse there is safe by that argument,
+// and with S = C/32 (P >= C/32) no slot is reused at all.  The ring
+// holds G*S rows, at most a row a band: half the bytes of the group's
+// codes.
+//
 // What bounds it on the H100: the serial chain of each step (one shuffle
 // and a few dependent integer ops, ~70-110 cycles for one warp alone,
 // PERF.md section 6); with W warps interleaving on an SM the step's
@@ -118,9 +140,11 @@
 // chunks a band, plus one band's sweep) bounds the pair.  The codes mode
 // adds one coalesced 128-byte store a warp per 16 steps (2.5 GB for a
 // 100 000 bp pair, ~2 ms over the score-only mode on an H100 80GB HBM3 at
-// 700 W, PERF.md section 6); a checkpointed re-fill of a block of C rows
-// has only C/32 bands, so it runs on few warps and its band's sweep
-// (A+32 steps) is its critical path.
+// 700 W, PERF.md section 6); a re-fill of one block of C rows has only
+// C/32 bands, so it runs on few warps and its band's sweep (A+32 steps)
+// is its critical path.  The grouped re-fill puts every band of G blocks
+// in flight at once (up to 32 warps an SM), so its G blocks take about
+// one band's sweep with the SMs' issue slots shared by ~24 warps each.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -383,6 +407,104 @@ int launch_single(const int* top, const int* side, int A, int Bs, int r0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------- K13, grouped: G blocks of one pair in one launch ----------------
+
+// The grouped re-fill (header comment): rows r0+1 .. r0+Bs of a pair in
+// blocks of C rows (C a multiple of 32; the last block may be short),
+// block g from its seed row seeds[g] (row r0 + g*C), its codes into its
+// bands of one band-major table and H[r0 + min(Bs, (g+1)*C)][A] into
+// corners[g].  ring is [G * min(P, C/32), A+1] scratch, done int32[P]
+// zeroed.
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_refill_kernel(
+    const int* __restrict__ top, const int* __restrict__ side, int A, int Bs,
+    int C, int r0, const int* __restrict__ seeds, int m, int k, int d,
+    int* ring, int* done, unsigned* __restrict__ codes, int* __restrict__ corners) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int P = gridDim.x * W;  // warps in all
+  const int gwarp = blockIdx.x * W + warp;
+  const int M = A + 1;
+  const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
+  const int TW = 2 * nchunks;              // code words of a band row
+  const int nbc = C >> 5;                  // bands of a whole block
+  const int S = min(P, nbc);               // ring slots of a block
+  const int nbands = (Bs + 31) >> 5;       // bands of the group
+  volatile int* vdone = done;  // chunks completed, per global warp (zeroed)
+  const int negk = wsub(0, k);
+  const int prev_warp = (gwarp + P - 1) % P;
+  for (int band = gwarp, round = 0; band < nbands; band += P, ++round) {
+    const int g = band / nbc;         // the block
+    const int lb = band - g * nbc;    // the band within its block
+    const int j = band * 32 + 1 + lane;  // this lane's row in the group
+    const bool row_ok = j <= Bs;
+    const int sch = row_ok ? side[j - 1] : -5;
+    const int col0 = wsub(0, wmul(r0 + j, d));  // H[r0+j][0]
+    const int corner_row = min(Bs, (g + 1) * C);  // the block's last row
+    const bool feeds = lb + 1 < nbc && band + 1 < nbands;  // a band of this block below
+    const int* const seed = seeds + static_cast<int64_t>(g) * M;
+    const int64_t in_slot = static_cast<int64_t>(g * S + (lb + S - 1) % S) * M;
+    const int64_t out_slot = static_cast<int64_t>(g * S + lb % S) * M;
+    // band-1's warp has completed this many chunks before band-1 began
+    const int pred_base = lb > 0 ? ((band - 1) / P) * nchunks : 0;
+    unsigned* const wbase = codes + static_cast<int64_t>(band) * TW * 32 + lane;
+    int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
+    unsigned pack = 0;
+
+    for (int q = 0; q < nchunks; ++q) {
+      const int t0 = q << 5;
+      const int cx = t0 + lane;
+      int bval;
+      if (lb == 0) {  // a block's first band: the row above is its seed
+        bval = cx < M ? seed[cx] : 0;
+      } else {
+        // columns t0 .. t0+31 of band-1's last row are written once
+        // band-1 has completed chunk q+1 (lane 31 trails lane 0 by 31)
+        const int target = pred_base + min(q + 2, nchunks);
+        while (vdone[prev_warp] < target) {
+        }
+        __threadfence();
+        bval = cx < M ? __ldcg(ring + in_slot + cx) : 0;
+      }
+      const int tval = (cx >= 1 && cx <= A) ? top[cx - 1] : -4;
+#pragma unroll 8
+      for (int s = 0; s < 32; ++s) {
+        const int c = t0 + s - lane;
+        int up = __shfl_up_sync(kFull, h, 1);
+        const int ch_in = __shfl_up_sync(kFull, ch, 1);
+        const int b_up = __shfl_sync(kFull, bval, s);
+        const int b_ch = __shfl_sync(kFull, tval, s);
+        up = lane == 0 ? b_up : up;
+        ch = lane == 0 ? b_ch : ch_in;
+
+        const int cand_d = wadd(up_prev, ch == sch ? m : negk);
+        const int cand_u = wsub(up, d);
+        const int cand_l = wsub(h, d);
+        int hn = max(max(cand_d, cand_u), cand_l);
+        unsigned code = cand_d == hn ? 0u : (cand_l == hn ? kCodeLeft : kCodeUp);
+        const bool col_zero = c == 0;  // column 0: -j*d, UP
+        hn = col_zero ? col0 : hn;
+        code = col_zero ? kCodeUp : code;
+        const bool in_row = c >= 0 && c <= A;
+        pack |= (in_row && row_ok ? code : 0u) << (2 * (s & 15));
+        if ((s & 15) == 15) {  // every lane stores together
+          wbase[static_cast<int64_t>((t0 + s) >> 4) * 32] = pack;
+          pack = 0u;
+        }
+        if (in_row && j == corner_row && c == A) corners[g] = hn;
+        if (lane == 31 && in_row && feeds) __stcg(ring + out_slot + c, hn);
+        up_prev = up;
+        h = hn;
+      }
+      __syncwarp();  // the chunk's loads and stores precede the flag
+      if (lane == 31) {
+        __threadfence();
+        vdone[gwarp] = round * nchunks + q + 1;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // K8 port: one pair's corner score and uint32 solution count, O(A+B)
@@ -423,7 +545,8 @@ extern "C" int nw_fill_masks(const int* top, const int* side, int A, int Bs,
 
 // K14 port (seed null, r0 0): the 2-bit greedy codes of the whole pair,
 // uint32[ceil(Bs/32), 2*ceil((A+32)/32), 32], and its corner score.
-// K13 port (seed int32[A+1] = row r0 of the pair): the codes of rows
+// K13 port a block a launch (seed int32[A+1] = row r0 of the pair; the
+// checkpointed traceback runs nw_refill_blocks): the codes of rows
 // r0+1 .. r0+Bs (side = the pair's side from row r0+1 on, Bs rows), in
 // the same layout, and H[r0+Bs][A].  ring is [min(blocks*warps, bands),
 // A+1] scratch, done int32[blocks*warps] zeroed.
@@ -496,4 +619,36 @@ extern "C" int nw_fill_tile(const int* top, const int* side, int A, int C,
         tp, side, C, H, 0, halo, m, k, d, blocks, warps, ring, nullptr, done, out, s, tile);
   return launch_single<false, false, false, false, true>(
       tp, side, C, H, 0, halo, m, k, d, blocks, warps, ring, nullptr, done, out, s, tile);
+}
+
+// K13 port, grouped: rows r0+1 .. r0+Bs of a pair (side = the pair's side
+// from row r0+1 on, Bs >= 1 rows) in blocks of C rows (C a multiple of
+// 32; only the last block short), block g re-filled from seeds[g], the
+// pair's row r0 + g*C (int32[G, A+1], G = ceil(Bs/C)), all in one
+// cooperative launch of blocks x warps warps.  codes uint32[ceil(Bs/32),
+// 2*ceil((A+32)/32), 32]: block g's bands are bands g*C/32 on, each as
+// nw_fill_codes_single writes it; corners int32[G] the blocks' last
+// cells H[r0 + min(Bs, (g+1)*C)][A].  ring is [G * min(blocks*warps,
+// C/32), A+1] scratch, done int32[blocks*warps] zeroed.
+extern "C" int nw_refill_blocks(const int* top, const int* side, int A, int Bs,
+                                int C, int r0, const int* seeds, int m, int k,
+                                int d, int blocks, int warps, int* ring,
+                                int* done, void* codes, int* corners,
+                                void* stream) {
+  if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 1 || C < 32 ||
+      C % 32 || r0 < 0 || !seeds)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto cw = static_cast<unsigned*>(codes);
+  // cooperative: all blocks co-resident (or the launch is refused), since
+  // a band spins on the band above it, which another block may run
+  void* args[] = {&top, &side, &A, &Bs, &C, &r0, &seeds, &m, &k, &d,
+                  &ring, &done, &cw, &corners};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(nw_refill_kernel), dim3(blocks), dim3(32 * warps), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it; the caller gets this launch's error
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

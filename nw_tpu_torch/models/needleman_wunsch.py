@@ -50,7 +50,6 @@ Counterpart of ``nw_tpu/models/needleman_wunsch.py``:
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,7 +75,7 @@ from nw_tpu_torch.ops.fill_banded import (
     fill_arrows_banded_single,
     fill_scores_counts_banded_batch,
 )
-from nw_tpu_torch.ops.checkpoint_traceback import traceback_checkpointed
+from nw_tpu_torch.ops.checkpoint_traceback import huge_walk_budget, traceback_checkpointed
 from nw_tpu_torch.ops.fill_single import fill_arrows_fold_batch, fill_codes_single, score_count_fold
 
 # device bytes one strings sub-batch may spend on its per-cell table: at
@@ -84,12 +83,6 @@ from nw_tpu_torch.ops.fill_single import fill_arrows_fold_batch, fill_codes_sing
 # warps per SM, or 163 pairs of run bytes (105 MB a pair); the mask
 # route's sub-batches spend it on tie masks (a byte a cell)
 CODE_BUDGET_BYTES = 16 << 30
-
-
-# default of NW_TPU_HUGE_WALK_HBM, the device bytes align_huge may spend
-# on one pair's 2-bit codes (nw_tpu's default; a 100 000 bp pair needs
-# 2.5 GB)
-HUGE_WALK_BUDGET_BYTES = 8 << 30
 
 
 def _as_bytes(s: str | bytes) -> bytes:
@@ -263,10 +256,10 @@ class NWAligner:
 
         Route (:meth:`_huge_ops`): when ``block_diagonals`` is None and
         the pair's 2-bit codes (:func:`code_bytes_per_pair`) fit
-        ``NW_TPU_HUGE_WALK_HBM`` bytes (default
-        :data:`HUGE_WALK_BUDGET_BYTES`, 8 GiB; a 100 000 bp pair needs
-        2.5 GB), one fill of the whole pair's codes and one walk; the
-        score is the fill's corner.  Otherwise the checkpointed re-fill
+        ``NW_TPU_HUGE_WALK_HBM`` bytes (:func:`huge_walk_budget`, default
+        8 GiB; a 100 000 bp pair needs 2.5 GB), one fill of the whole
+        pair's codes and one walk; the score is the fill's corner.
+        Otherwise the checkpointed re-fill
         (:func:`nw_tpu_torch.ops.checkpoint_traceback.traceback_checkpointed`),
         O(A B / C + C A) memory; the score is derived from the alignment
         in Python ints.  ``block_diagonals`` keeps ``nw_tpu``'s name: in
@@ -309,8 +302,7 @@ class NWAligner:
         a failed allocation or launch raises."""
         m, k, d = self.config.scoring.as_tuple()
         len1, len2 = top.shape[0], side.shape[0]
-        budget = int(os.environ.get("NW_TPU_HUGE_WALK_HBM", HUGE_WALK_BUDGET_BYTES))
-        if block_diagonals is None and code_bytes_per_pair(len1, len2) <= budget:
+        if block_diagonals is None and code_bytes_per_pair(len1, len2) <= huge_walk_budget():
             codes, score = fill_codes_single(top, side, m, k, d)
             lens = [torch.tensor([x], dtype=torch.int32, device=self.device) for x in (len1, len2)]
             ops, n = traceback.walk_codes_batch(codes, *lens, max(len1 + len2, 1))
@@ -323,9 +315,11 @@ class NWAligner:
     def _align_batch_huge_pairs(self, norm, status, traceback_strings, count) -> BatchResult:
         """A small batch of huge pairs, one pair at a time (``nw_tpu``
         ``needleman_wunsch.py:290-341``): strings through
-        :meth:`_huge_ops`, counts through :meth:`summary_huge`; without
-        counts the scores come from the strings' route (the corner, or
-        the alignment re-scored, as ``align_huge``)."""
+        :meth:`_huge_ops`, counts through :meth:`summary_huge`.  The
+        strings' route gives a score too (the corner, or the alignment
+        re-scored and wrapped to int32, as ``nw_tpu``'s int32 sum is):
+        it is the score without counts, and with counts it must equal
+        the summary's, else RuntimeError."""
         m, k, d = self.config.scoring.as_tuple()
         nb = len(norm)
         scores = np.zeros(nb, np.int32)
@@ -334,17 +328,20 @@ class NWAligner:
         ops_arr = np.full((nb, max(S, 1)), traceback.OP_NONE, np.int8) if traceback_strings else None
         ns = np.zeros(nb, np.int32)
         for i, (a, b) in enumerate(norm):
-            score = None
             if traceback_strings:
-                ops, ns[i], score = self._huge_ops(*self._encode_pair(a, b))
+                ops, ns[i], walked = self._huge_ops(*self._encode_pair(a, b))
                 ops_arr[i, : ns[i]] = ops
+                if walked is None:
+                    X, Y = traceback.ops_to_strings(ops_arr[i], int(ns[i]), a, b)
+                    walked = (_rescore(X, Y, m, k, d) + 2**31) % 2**32 - 2**31
+                scores[i] = walked
             if count:
                 scores[i], counts[i] = self.summary_huge(a, b)
-            elif score is not None:
-                scores[i] = score
-            else:  # wrapped to int32 as nw_tpu's int32 sum is
-                X, Y = traceback.ops_to_strings(ops_arr[i], int(ns[i]), a, b)
-                scores[i] = (_rescore(X, Y, m, k, d) + 2**31) % 2**32 - 2**31
+                if traceback_strings and walked != scores[i]:
+                    raise RuntimeError(
+                        f"pair {i}: the walk's score {walked} differs from the "
+                        f"summary's {scores[i]}"
+                    )
         result = BatchResult(scores=scores, counts=counts, status=status, _pairs=norm)
         if traceback_strings:
             result.ops, result.ops_len = ops_arr, ns

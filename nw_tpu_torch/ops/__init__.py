@@ -17,7 +17,8 @@
 * :mod:`nw_tpu_torch.ops.fill_flat` — the flat-fill API of
   ``nw_tpu/ops/fill_pallas.py`` (K7, K26, K27, K6) on the batched kernels.
 * :mod:`nw_tpu_torch.ops.fill_single` — the single-pair kernel wrappers
-  (K8, K9's ``last_row``, K10's ``fill_arrows_fold_batch``, K11-K14).
+  (K8, K9's ``last_row``, K10's ``fill_arrows_fold_batch``, K11-K14;
+  K13 as ``fill_codes_blocks``, G blocks a launch).
 * :mod:`nw_tpu_torch.ops.variants_banded` — the Smith-Waterman, overlap
   and Gotoh kernel wrappers (K15-K25).
 * :mod:`nw_tpu_torch.ops.banded_traceback` — fill + walk of a batch,

@@ -10,17 +10,18 @@ of a pair whose 2-bit codes do not fit the device, in
    ``checkpoint_every=C``; ``nw_score_single``, the K12 port).  The TPU
    kernel keeps its anti-diagonal state every C diagonals; here a block is
    C rows, so a checkpoint is one row.
-2. **Backward block pass**: from the last block to the first, each block
-   of rows (r0, r0 + C] is re-filled from its checkpoint row r0
-   (:func:`~nw_tpu_torch.ops.fill_single.fill_codes_single` with a seed;
-   ``nw_fill_codes_single``, the K13 port) and walked from where the walk
-   of the block below stopped until it reaches row r0
-   (:func:`~nw_tpu_torch.ops.traceback.walk_codes_window`;
+2. **Backward block pass**: from the last block to the first, groups of
+   G blocks of rows (r0, r0 + C] are re-filled from their checkpoint rows
+   in one launch (:func:`~nw_tpu_torch.ops.fill_single.fill_codes_blocks`;
+   ``nw_refill_blocks``, the K13 port), and each block of the group, last
+   first, is walked from where the walk of the block below stopped until
+   it reaches row r0 (:func:`~nw_tpu_torch.ops.traceback.walk_codes_window`;
    ``nw_walk_window``).  The walk's position lives in device memory, so
    the whole pass is enqueued on one stream with no host sync.
 
 The fill work is twice one fill; the codes live at any moment are one
-block's, ``C * (A + 32) / 4`` bytes.  The ops are those of
+group's, G blocks of ``C * (A + 32) / 4`` bytes, with G from
+:func:`refill_group`.  The ops are those of
 :func:`nw_tpu_torch.ops.traceback.walk_codes_batch` on the whole pair's
 codes (corner -> origin).
 """
@@ -28,14 +29,45 @@ codes (corner -> origin).
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
 
-from nw_tpu_torch.ops.fill_single import fill_codes_single, score_fold
+from nw_tpu_torch.ops.fill_scan import code_shape
+from nw_tpu_torch.ops.fill_single import fill_codes_blocks, resident_warps, score_fold
 from nw_tpu_torch.ops.traceback import OP_LEFT, OP_NONE, walk_codes_window
 
 BLOCK_QUANTUM = 32  # a block is whole 32-row bands
+# default of NW_TPU_HUGE_WALK_HBM, the device bytes a huge pair's walk
+# may spend on 2-bit codes (nw_tpu's default; a 100 000 bp pair needs
+# 2.5 GB)
+HUGE_WALK_BUDGET_BYTES = 8 << 30
+
+
+def huge_walk_budget() -> int:
+    """Device bytes a huge pair's walk may spend on its codes:
+    ``NW_TPU_HUGE_WALK_HBM``, default :data:`HUGE_WALK_BUDGET_BYTES`."""
+    return int(os.environ.get("NW_TPU_HUGE_WALK_HBM", HUGE_WALK_BUDGET_BYTES))
+
+
+def refill_bytes(A: int, C: int) -> int:
+    """Device bytes one block of C rows takes in a grouped re-fill: its
+    2-bit codes and, at most, a ring row a band."""
+    _, nbands, TW, lanes = code_shape(1, A, C)
+    return nbands * (TW * lanes * 4 + 4 * (A + 1))
+
+
+def refill_group(A: int, B: int, C: int, device) -> int:
+    """G, the blocks of C rows of an A x B pair that one launch re-fills:
+    the most whose codes and rings fit :func:`huge_walk_budget` and, on a
+    card, whose bands all fit the warps one cooperative launch holds at
+    once; at least one block, at most all ``ceil(B / C)``."""
+    blocks = max(1, -(-B // C))
+    G = min(blocks, huge_walk_budget() // refill_bytes(A, C))
+    if torch.device(device).type == "cuda":
+        G = min(G, resident_warps(device) // (C // 32))
+    return max(1, G)
 
 
 def _round_up(x: int, q: int) -> int:
@@ -75,14 +107,16 @@ def traceback_checkpointed(
         return ops, torch.tensor(len1, dtype=torch.int32, device=dev)
     C = _round_up(block_diagonals or auto_block_diagonals(len1, len2), BLOCK_QUANTUM)
     _, ckpt = score_fold(top, side, m, k, d, len1, len2, checkpoint_every=C)
+    G = refill_group(len1, len2, C, dev)
     state = torch.tensor([len1, len2, 0], dtype=torch.int32, device=dev)
-    for b in range(ckpt.shape[0] - 1, -1, -1):
-        r0 = b * C
-        r1 = min(len2, r0 + C)
-        codes, _ = fill_codes_single(
-            top, side, m, k, d, len1, r1, r0=r0, seed=ckpt[b] if r0 else None
-        )
-        walk_codes_window(codes, state, r0, ops)
+    nbc = C // BLOCK_QUANTUM  # bands of a block
+    for hi in range(ckpt.shape[0], 0, -G):
+        lo = max(0, hi - G)
+        r1 = min(len2, hi * C)
+        codes, _ = fill_codes_blocks(top, side, m, k, d, len1, r1, lo * C, C, ckpt[lo:hi])
+        for b in range(hi - 1, lo - 1, -1):
+            first = (b - lo) * nbc
+            walk_codes_window(codes[:, first : first + nbc], state, b * C, ops)
     i, j, n = state.tolist()
     if (i, j) != (0, 0):
         raise RuntimeError(

@@ -17,7 +17,11 @@ versions on CPU tensors:
   and its corner score (``nw_fill_codes_single``; K14,
   ``nw_tpu/parallel/huge_pair.py:246 _make_fold_chunk_kernel_blocked``),
   or of the rows below a seed row (K13,
-  ``nw_tpu/ops/checkpoint_traceback.py:153 _make_refill_kernel``);
+  ``nw_tpu/ops/checkpoint_traceback.py:153 _make_refill_kernel``, one
+  block a launch);
+* :func:`fill_codes_blocks` — K13's port as the checkpointed traceback
+  runs it: G consecutive blocks of rows re-filled from their seed rows
+  in one launch (``nw_refill_blocks``);
 * :func:`last_row` — one pair's DP row ``H[len2, 0..len1]``
   (``nw_last_row``, the ``LAST_ROW`` mode of ``nw_score_single``; K9,
   ``nw_tpu/ops/fill_pallas_single.py:83``, ``last_row_pallas`` at
@@ -44,13 +48,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from nw_tpu_torch.ops.encode import PAD_SIDE
 from nw_tpu_torch.ops.fill_scan import (
-    U32, code_shape, diag_to_matrix, diag_to_matrix_batch, fill_diag, fill_last_row,
+    U32, code_shape, diag_to_matrix, diag_to_matrix_batch, fill_diag, fill_diag_batch, fill_last_row,
     greedy_codes_from_arrows, pack_band_major,
 )
 from nw_tpu_torch.runtime import kernels
 
 WARPS = 8  # warps a block (1..32): past ~8 an SM is issue-bound
+# warps an SM holds at once: the kernels' launch bounds cap a thread at 64
+# registers, so 32 warps fill an SM's 65 536 (a cooperative launch of more
+# is refused)
+RESIDENT_WARPS_PER_SM = 32
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
@@ -382,11 +391,13 @@ def fill_codes_single(
     :mod:`nw_tpu_torch.ops.fill_banded`, bit-equal to ``nw_fill_codes``'s
     for the pair at buckets (len1, len2), and its corner score.  With
     ``seed`` int32[>= len1+1], the scores of row ``r0`` of the pair, it
-    is the K13 port (``nw_tpu/ops/checkpoint_traceback.py:153``): the
-    codes of rows r0+1 .. len2 in the same layout (code row j - r0 - 1),
-    as if ``side[r0:len2]`` were the whole side string and the seed its
-    row 0; column 0 stays ``-j*d`` with the pair's row j.  Other
-    arguments as :func:`score_count_fold`.
+    is the K13 port (``nw_tpu/ops/checkpoint_traceback.py:153``) a block
+    a launch: the codes of rows r0+1 .. len2 in the same layout (code
+    row j - r0 - 1), as if ``side[r0:len2]`` were the whole side string
+    and the seed its row 0; column 0 stays ``-j*d`` with the pair's row
+    j.  (The checkpointed traceback re-fills its blocks G at a time,
+    :func:`fill_codes_blocks`.)  Other arguments as
+    :func:`score_count_fold`.
     """
     len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
     if not 0 <= r0 <= len2:
@@ -436,6 +447,115 @@ def fill_codes_single_plain(top, side, m, k, d, len1=None, len2=None, r0=0, seed
         seed=None if seed is None else seed[: len1 + 1], row0=r0,
     )
     return greedy_codes_from_arrows(out["arrows"][None]), out["score"]
+
+
+# ---------------- K13, grouped: many blocks of one pair in one launch ----------------
+
+
+def resident_warps(device) -> int:
+    """Warps a cooperative single-pair launch can hold on ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * RESIDENT_WARPS_PER_SM
+
+
+def fill_codes_blocks(
+    top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int,
+    len1: int, len2: int, r0: int, C: int, seeds: torch.Tensor,
+    warps: int = WARPS, blocks: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(codes, corners): rows r0+1 .. len2 of one pair re-filled in G =
+    ceil((len2 - r0) / C) blocks of C rows, block g from its seed row
+    ``seeds[g]``, the pair's row r0 + g*C.
+
+    codes is int32[1, ceil((len2-r0)/32), TW, 32] in the band-major
+    layout of :func:`fill_codes_single`: block g's bands start at band
+    g*C/32, and its slice is what :func:`fill_codes_single` writes for
+    rows r0+g*C+1 .. min(len2, r0+(g+1)*C) from the same seed.  corners
+    int32[G] holds each block's last cell, H[min(len2, r0+(g+1)*C)][len1].
+    C is a multiple of 32; seeds int32[G, >= len1+1] (row 0 where r0 is
+    0: ``score_fold``'s checkpoint rows ckpt[r0/C : ...] as they are).
+
+    The K13 port (``nw_tpu/ops/checkpoint_traceback.py:153``) as
+    ``traceback_checkpointed`` runs it: every band of the G blocks in one
+    cooperative launch of ``nw_refill_blocks`` (``blocks`` x ``warps``
+    warps; by default as many blocks as the bands fill, no more than
+    the card holds at once) on CUDA tensors;
+    :func:`fill_codes_blocks_plain` on CPU tensors.
+    """
+    len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
+    if C < 32 or C % 32:
+        raise ValueError(f"C must be a positive multiple of 32, not {C}")
+    if not 0 <= r0 < len2:
+        raise ValueError(f"r0 must lie in [0, len2), not {r0}")
+    G = -(-(len2 - r0) // C)
+    if (
+        seeds.dim() != 2 or seeds.shape[0] != G or seeds.shape[1] < len1 + 1
+        or seeds.dtype != torch.int32 or seeds.device != top.device
+    ):
+        raise ValueError(f"seeds must be int32[{G}, >= {len1 + 1}] on the pair's device")
+    if top.device.type == "cpu":
+        return fill_codes_blocks_plain(top, side, m, k, d, len1, len2, r0, C, seeds)
+    dev = top.device
+    top = top[:len1].contiguous()
+    side = side[r0:len2].contiguous()
+    seeds = seeds[:, : len1 + 1].contiguous()
+    rows = len2 - r0
+    nbands = -(-rows // 32)
+    if blocks is None:
+        blocks = max(1, min(-(-nbands // warps), resident_warps(dev) // warps))
+    P = blocks * warps
+    ring = torch.empty((G * min(P, C // 32), len1 + 1), dtype=torch.int32, device=dev)
+    done = torch.zeros(P, dtype=torch.int32, device=dev)
+    codes = torch.empty(code_shape(1, len1, rows), dtype=torch.int32, device=dev)
+    corners = torch.empty(G, dtype=torch.int32, device=dev)
+    kernels.launch(
+        "nw_refill_blocks", dev,
+        top.data_ptr(), side.data_ptr(), len1, rows, C, r0, seeds.data_ptr(), m, k, d,
+        blocks, warps, ring.data_ptr(), done.data_ptr(), codes.data_ptr(), corners.data_ptr(),
+    )
+    fill_codes_blocks.launches += 1
+    return codes, corners
+
+
+fill_codes_blocks.launches = 0
+
+
+PLAIN_BLOCK_BYTES = 1 << 30  # tie masks the plain grouped re-fill holds at once
+
+
+def fill_codes_blocks_plain(top, side, m, k, d, len1, len2, r0, C, seeds):
+    """Plain version of :func:`fill_codes_blocks`: the blocks filled side
+    by side as a batch of tables of their own (``fill_diag_batch``, each
+    with its seed row as row 0 and its column 0, ``-j*d`` with the
+    pair's row j, as its left edge; as many at once as
+    :data:`PLAIN_BLOCK_BYTES` of tie masks hold), the masks turned into
+    greedy codes, rows past a short last block's end 0, the blocks'
+    bands one after another."""
+    dev = top.device
+    starts = list(range(r0, len2, C))
+    at_once = max(1, PLAIN_BLOCK_BYTES // ((len1 + C + 1) * (C + 1)))
+    j = torch.arange(1, C + 1, dtype=torch.int64, device=dev)
+    codes, corners = [], []
+    for lo in range(0, len(starts), at_once):
+        part = starts[lo : lo + at_once]
+        G = len(part)
+        rows = [min(C, len2 - b0) for b0 in part]
+        sides = torch.full((G, C), PAD_SIDE, dtype=torch.int32, device=dev)
+        for g, (b0, n) in enumerate(zip(part, rows)):
+            sides[g, :n] = side[b0 : b0 + n]
+        left = -(torch.tensor(part, dtype=torch.int64, device=dev)[:, None] + j) * d
+        left = ((left + 2**31) % 2**32 - 2**31).to(torch.int32)  # wrapped as int32
+        rows_t = torch.tensor(rows, dtype=torch.int32, device=dev)
+        out = fill_diag_batch(
+            top[:len1].expand(G, len1), sides, torch.full_like(rows_t, len1), rows_t, m, k, d,
+            seed=seeds[lo : lo + G, : len1 + 1], left=left,
+        )
+        rect = diag_to_matrix_batch(out["arrows"])[:, 1:]  # rows 1..C of each block
+        code = torch.where((rect & 1) != 0, 0, torch.where((rect & 2) != 0, 1, 2)).to(torch.uint8)
+        code[torch.arange(C, device=dev)[None, :] >= rows_t[:, None].to(torch.int64)] = 0
+        codes.append(pack_band_major(code, 2).flatten(0, 1))
+        corners.append(out["score"])
+    nbands = -(-(len2 - r0) // 32)
+    return torch.cat(codes)[None, :nbands], torch.cat(corners).to(torch.int32)
 
 
 # ---------------- K14's mesh half / K28: one tile of a sharded pair ----------------

@@ -22,20 +22,26 @@ their port.
 
 :func:`count_masks_batch` counts a batch's rectangular masks
 uint8[B, Bs+1, A+1] (``fill_masks_banded_batch``, ``fill_arrows_fold_batch``):
-the ``nw_count_masks`` kernel (``csrc/nw_count.cu``) on a CUDA tensor,
-the port of K6 (``nw_tpu/ops/fill_pallas.py:703 _count_kernel``,
+the ``nw_count_masks`` kernel (``csrc/nw_count.cu``, W warps a pair,
+W from :func:`count_warps`) on a CUDA tensor, the port of K6
+(``nw_tpu/ops/fill_pallas.py:703 _count_kernel``,
 ``count_packed_pallas_batch`` at ``:757``) and of ``count_paths`` over
 K10's masks; :func:`count_masks_batch_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from nw_tpu_torch.ops.fill_banded import MAX_WARPS, SLOTS, SMEM_LIMIT, WARPS_PER_SM, _sms
 from nw_tpu_torch.ops.fill_scan import (
     U32, _shift_down, diag_to_matrix, matrix_to_diag, matrix_to_diag_batch,
 )
 from nw_tpu_torch.runtime import kernels
+
+MASK_RING_BYTES = 32 * 64  # a warp's 32-row x 64-column byte ring
 
 
 def count_paths_batch(
@@ -86,28 +92,55 @@ def check_masks(masks, lens1, lens2):
             raise ValueError("lengths must lie inside the mask tables")
 
 
+def count_smem(warps: int) -> int:
+    """Bytes of dynamic shared memory of one ``nw_count_masks`` block
+    (the kernel's ``count_smem``): the warps' byte rings, count rings
+    and chunk counters, and warp 0's staged row above."""
+    return warps * MASK_RING_BYTES + 4 * (warps * 32 * SLOTS + 32 + warps)
+
+
+def count_warps(B: int, Bs: int, sms: int) -> int:
+    """W, the warps a pair of a batch of ``B`` mask tables of ``Bs`` rows
+    below row 0: about ``WARPS_PER_SM`` warps on each of the ``sms`` SMs
+    from the whole batch, never more than the pair's 32-row bands,
+    ``MAX_WARPS`` or what the shared memory holds (the rule of
+    :func:`nw_tpu_torch.ops.fill_banded.fill_warps`)."""
+    nbands = -(-Bs // 32)
+    per_sm = max(1, -(-B // sms))  # pairs an SM takes
+    warps = max(1, min(MAX_WARPS, nbands, -(-WARPS_PER_SM // per_sm)))
+    while warps > 1 and count_smem(warps) > SMEM_LIMIT:
+        warps -= 1
+    return warps
+
+
 def count_masks_batch(
-    masks: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor
+    masks: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
+    warps: Optional[int] = None,
 ) -> torch.Tensor:
     """Optimal-alignment counts, int64[B] in ``[0, 2^32)``, read at each
     pair's true corner (lens2[b], lens1[b]) of rectangular tie masks
     uint8[B, Bs+1, A+1].  Row 0 and column 0 count one path each, as
     every fill of the package writes them (LEFT, UP).
 
-    A CUDA tensor goes through the ``nw_count_masks`` kernel (one warp a
-    pair); a CPU tensor through :func:`count_masks_batch_plain`.
+    A CUDA tensor goes through the ``nw_count_masks`` kernel, ``warps``
+    warps a pair (default :func:`count_warps`); a CPU tensor through
+    :func:`count_masks_batch_plain`.
     """
     check_masks(masks, lens1, lens2)
+    if warps is not None and not 1 <= warps <= MAX_WARPS:
+        raise ValueError(f"warps must lie in [1, {MAX_WARPS}], not {warps}")
     if masks.device.type == "cpu":
         return count_masks_batch_plain(masks, lens1, lens2)
     B, N, M = masks.shape
     counts = torch.empty(B, dtype=torch.int32, device=masks.device)
     if B:
+        if warps is None:
+            warps = count_warps(B, N - 1, _sms(masks.device))
         masks, lens1, lens2 = (t.contiguous() for t in (masks, lens1, lens2))
         cbnd = torch.empty((B, M), dtype=torch.int32, device=masks.device)
         kernels.launch(
             "nw_count_masks", masks.device,
-            masks.data_ptr(), lens1.data_ptr(), lens2.data_ptr(), B, M - 1, N - 1,
+            masks.data_ptr(), lens1.data_ptr(), lens2.data_ptr(), B, M - 1, N - 1, warps,
             cbnd.data_ptr(), counts.data_ptr(),
         )
         count_masks_batch.launches += 1

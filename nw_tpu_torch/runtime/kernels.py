@@ -44,12 +44,13 @@ SIGNATURES = {
     "nw_score_count": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nw_fill_masks": [P, P, I, I, I, I, I, I, I, P, P, P, P, I, P, P, P, P],
     "nw_fill_masks_batch": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
-    "nw_count_masks": [P, P, P, I, I, I, P, P, P],
+    "nw_count_masks": [P, P, P, I, I, I, I, P, P, P],
     "nw_walk_masks": [P, P, P, I, I, I, I, P, P, P],
     "nw_fill_runs_batch": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nw_walk_runs": [P, P, P, I, I, I, I, P, P, P],
     "nw_last_row": [P, P, I, I, I, I, I, I, I, P, P, P, P, P],
     "nw_fill_codes_single": [P, P, I, I, I, P, I, I, I, I, I, P, P, P, P, P],
+    "nw_refill_blocks": [P, P, I, I, I, I, P, I, I, I, I, I, P, P, P, P, P],
     "nw_score_single": [P, P, I, I, I, I, I, I, I, P, P, P, I, P, P],
     "nw_walk_window": [P, I, I, I, P, I, P, I, P],
     "nw_fill_tile": [P, P, I, I, I, I, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P],

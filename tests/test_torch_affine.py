@@ -326,6 +326,37 @@ def test_affine_align_spells_inputs_at_large_gaps(sc):
     assert _spells(pair, *got[1:])
 
 
+@pytest.mark.parametrize(
+    "sc,pair,want",
+    [
+        ((1, 2**30, 3, 1), (b"A", b"T"), (-536870913, b"-A", b"T-")),
+        ((1, 2**30, 3, 1), (b"AC", b"GT"), (-536870914, b"--AC", b"GT--")),
+        ((1, 2**29, 3, 1), (b"AC", b"GT"), (-536870914, b"--AC", b"GT--")),
+    ],
+)
+def test_affine_follows_scan_at_large_mismatch(sc, pair, want):
+    """Once the mismatch penalty k reaches 2^29 (NEG_INF // 2) the scan's
+    Gotoh scores are sentinel values: the port's scores and alignments
+    follow the scan (``affine_score``) and spell both inputs.  nw_tpu
+    leaves it: K23's score and K25's walk give -2^29, K25's strings at
+    k = 2^30 on AC/GT hold bytes from outside the pair, and its scan walk
+    (``affine_traceback``) raises IndexError."""
+    assert _scan(*pair, sc) == want[0]
+    assert af.affine_score_pairs([pair], *sc, device="cpu").tolist() == [want[0]]
+    assert af.affine_align(*pair, *sc, device="cpu") == want
+    assert af.affine_align_batch([pair], *sc, device="cpu") == [want]
+    assert _spells(pair, *want[1:])
+    assert np.asarray(ref.affine_score_pairs([pair], *sc)).tolist() == [-536870912]
+    k25 = ref.affine_align_batch([pair], *sc)[0]  # K25 in interpret mode on the CPU
+    assert k25[0] == -536870912
+    if pair == (b"A", b"T") or sc[1] == 2**29:
+        assert k25[1:] == pair
+    else:
+        assert not _spells(pair, *k25[1:])
+    with pytest.raises(IndexError):
+        ref.affine_align(*pair, *sc)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_ops_to_strings_native_matches_numpy(seed):
     """The native one-pass builder (taken whenever the runtime loads)

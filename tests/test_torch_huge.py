@@ -10,6 +10,8 @@ Pallas kernels in interpret mode as ``nw_tpu``'s own tests run them.
 Every output is an integer or a byte string: tolerance 0.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -154,23 +156,38 @@ def test_checkpoint_rows_and_refilled_blocks_vs_nw_tpu(mkd, every):
         assert int(corner) == int(row[70])
 
 
+@functools.lru_cache(maxsize=None)
+def _j_checkpointed(s1, s2, mkd, C):
+    """nw_tpu's checkpointed traceback (interpret mode) of one pair padded
+    to 96 x 96, true lengths passed, so that JAX compiles once per block
+    size: (ops, n) as numpy."""
+    top = jnp.asarray(pad_to(jencode(s1), 96, -1))
+    side = jnp.asarray(pad_to(jencode(s2), 96, -2))
+    ops, n = j_traceback_checkpointed(
+        top, side, *mkd, len(s1), len(s2), block_diagonals=C, interpret=True
+    )
+    return np.asarray(ops), int(n)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, None])
 @pytest.mark.parametrize("mkd", [(2, 1, 1), (1, 1, 1), (0, 0, 0), (-1, 2, -2), (3, -1, 2)])
-def test_traceback_checkpointed_vs_nw_tpu(mkd):
+def test_traceback_checkpointed_vs_nw_tpu(monkeypatch, mkd, group):
     """The port's checkpointed traceback against nw_tpu's (interpret
-    mode), block sizes 32 to 128 rows (diagonals in nw_tpu), the pairs
-    padded to 96 x 96 with true lengths passed so that JAX compiles once
-    per block size (tests/test_checkpoint_traceback.py's cases)."""
+    mode), block sizes 32 to 128 rows (diagonals in nw_tpu;
+    tests/test_checkpoint_traceback.py's cases), the blocks re-filled
+    ``group`` at a time (NW_TPU_HUGE_WALK_HBM holding that many blocks'
+    codes and rings; None: the default budget, every block at once)."""
     pairs = _pairs(17 + sum(mkd), 4, 1, 90)
     for b, (s1, s2) in enumerate(pairs):
         for C in (32, 64, 96, 128)[b % 2 :: 2]:
-            top = jnp.asarray(pad_to(jencode(s1), 96, -1))
-            side = jnp.asarray(pad_to(jencode(s2), 96, -2))
-            want_ops, want_n = j_traceback_checkpointed(
-                top, side, *mkd, len(s1), len(s2), block_diagonals=C, interpret=True
-            )
+            if group is not None:
+                monkeypatch.setenv("NW_TPU_HUGE_WALK_HBM", str(group * ckt.refill_bytes(len(s1), C)))
+            blocks = -(-len(s2) // C)
+            assert ckt.refill_group(len(s1), len(s2), C, "cpu") == min(group or blocks, blocks)
+            want_ops, want_n = _j_checkpointed(s1, s2, mkd, C)
             ops, n = ckt.traceback_checkpointed(_t(s1), _t(s2), *mkd, block_diagonals=C)
-            assert int(n) == int(want_n), (s1, s2, C)
-            np.testing.assert_array_equal(ops[: int(n)].numpy(), np.asarray(want_ops)[: int(n)])
+            assert int(n) == want_n, (s1, s2, C)
+            np.testing.assert_array_equal(ops[: int(n)].numpy(), want_ops[: int(n)])
 
 
 @pytest.mark.parametrize("s1,s2", [(b"A", b"A"), (b"ACGT", b""), (b"", b"ACGT")])
@@ -194,13 +211,68 @@ def test_traceback_checkpointed_raises_off_the_origin(monkeypatch, fault):
     if fault == "no_walk":
         monkeypatch.setattr(ckt, "walk_codes_window", lambda *a: None)
     else:
-        real = ckt.fill_codes_single
+        real = ckt.fill_codes_blocks
         monkeypatch.setattr(
-            ckt, "fill_codes_single",
+            ckt, "fill_codes_blocks",
             lambda top, side, m, k, d, len1, *a, **kw: real(top, side, m, k, d, len1 - 40, *a, **kw),
         )
     with pytest.raises(RuntimeError, match="origin"):
         ckt.traceback_checkpointed(_t(s1), _t(s2), 2, 1, 1, block_diagonals=32)
+
+
+@pytest.mark.parametrize("C", [32, 64, 96])
+@pytest.mark.parametrize("mkd", [(2, 1, 1), (0, 0, 0), (3, -1, 2)])
+def test_refilled_groups_vs_single_blocks_and_nw_tpu(mkd, C):
+    """K13's grouped plain version: a group of blocks re-filled from their
+    checkpoint rows (the whole pair, and groups from a later block on)
+    holds, band for band, each block's one-block re-fill and the full
+    fill's greedy codes from nw_tpu's fill_diag; its corners are the
+    blocks' last cells.  230 rows: the last block is short."""
+    rng = np.random.default_rng(C + sum(mkd) + 3)
+    s1, s2 = _rand(rng, 70), _rand(rng, 230)
+    _, ckpt = fill_single.score_fold(_t(s1), _t(s2), *mkd, checkpoint_every=C)
+    full = _greedy_words(s1, s2, mkd)
+    top, side = jnp.asarray(jencode(s1)), jnp.asarray(jencode(s2))
+    nblk = ckpt.shape[0]
+    for lo in (0, 1, nblk - 1):
+        codes, corners = fill_single.fill_codes_blocks(
+            _t(s1), _t(s2), *mkd, 70, 230, lo * C, C, ckpt[lo:]
+        )
+        assert corners.shape == (nblk - lo,)
+        np.testing.assert_array_equal(_words(codes), full[lo * C // 32 :])
+        for g in range(nblk - lo):
+            r0, r1 = (lo + g) * C, min(230, (lo + g + 1) * C)
+            one, corner = fill_single.fill_codes_single_plain(
+                _t(s1), _t(s2), *mkd, 70, r1, r0, ckpt[lo + g] if r0 else None
+            )
+            first = g * C // 32
+            assert torch.equal(codes[:, first : first + one.shape[1]], one)
+            assert int(corners[g]) == int(corner) == int(np.asarray(j_fill_last_row(top, side, *mkd, 70, r1))[70])
+
+
+def test_refill_group_limits(monkeypatch):
+    """G: as many blocks as the budget holds (codes and a ring row a
+    band), at least one, at most all; on a card no more than the bands
+    one cooperative launch holds.  At 100 kb with 1 280-row blocks all 79
+    fit one launch on 132 SMs; at 200 kb (the default route's
+    ~4 sqrt(B) = 1 792-row blocks) the 8 GiB budget cuts 112 blocks into
+    two groups."""
+    per = ckt.refill_bytes(1000, 64)
+    assert per == 2 * (66 * 32 * 4 + 4 * 1001)  # 2 bands of 66 words a lane, 2 ring rows
+    for budget, want in ((0, 1), (per - 1, 1), (per, 1), (3 * per, 3), (100 * per, 16)):
+        monkeypatch.setenv("NW_TPU_HUGE_WALK_HBM", str(budget))
+        assert ckt.refill_group(1000, 1000, 64, "cpu") == want
+    monkeypatch.delenv("NW_TPU_HUGE_WALK_HBM")
+    monkeypatch.setattr(ckt, "resident_warps", lambda device: 132 * 32)
+    assert ckt.refill_group(100_000, 100_000, 1280, "cpu") == 79
+    assert ckt.refill_group(100_000, 100_000, 1280, "cuda") == 79
+    C200 = ckt.auto_block_diagonals(200_000, 200_000)
+    assert C200 == 1792 and model.code_bytes_per_pair(200_000, 200_000) > ckt.HUGE_WALK_BUDGET_BYTES
+    G = ckt.refill_group(200_000, 200_000, C200, "cuda")
+    assert G == (8 << 30) // ckt.refill_bytes(200_000, C200) == 63 and -(-112 // G) == 2
+    assert ckt.refill_group(1000, 10**6, 1024 * 32, "cpu") == 31  # every block
+    assert ckt.refill_group(1000, 10**6, 1024 * 32, "cuda") == 4  # 1 024 bands a block
+    assert ckt.refill_group(1000, 10**6, 5000 * 32, "cuda") == 1  # more bands than warps
 
 
 def test_traceback_checkpointed_empty_pair_and_blocks():
@@ -315,6 +387,26 @@ def test_align_huge_follows_fill_scan_at_large_scorings(monkeypatch):
     got = ours.align_huge(s1, s2, block_diagonals=32)
     assert (got.X, got.Y, got.score) == (X, Y, model._rescore(X, Y, *mkd))
     assert got.score < -(2**31)
+
+
+@pytest.mark.parametrize("budget", [None, "0"])
+def test_small_batch_of_huge_pairs_checks_the_walk_against_the_summary(monkeypatch, budget):
+    """With strings and counts each huge pair's walk gives a score (the
+    corner on the codes route, the re-scored alignment on the
+    checkpointed one) and the summary another: a mismatch raises."""
+    if budget is not None:
+        monkeypatch.setenv("NW_TPU_HUGE_WALK_HBM", budget)
+    monkeypatch.setattr(model, "HUGE_PAIR_MIN_SIDE", 32)
+    pairs = _slice_pairs(4)[:2]
+    ours, _ = _aligners((2, 1, 1))
+    got = ours.align_batch(pairs, traceback_strings=True, count=True)
+    np.testing.assert_array_equal(got.scores, [ours.align_huge(*p).score for p in pairs])
+    real = NWAligner.summary_huge
+    monkeypatch.setattr(
+        NWAligner, "summary_huge", lambda self, a, b: (lambda s, c: (s + 1, c))(*real(self, a, b))
+    )
+    with pytest.raises(RuntimeError, match="summary"):
+        ours.align_batch(pairs, traceback_strings=True, count=True)
 
 
 @pytest.mark.parametrize("strings,count", [(True, True), (True, False), (False, False)])

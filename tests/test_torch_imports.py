@@ -157,6 +157,8 @@ def test_wrappers_do_not_fall_back_off_cpu():
         )
     with pytest.raises(ValueError):
         fill_single.fill_tile(one, one, 1, 1, 1, 0, 4, one[:5], one)
+    with pytest.raises(ValueError):
+        fill_single.fill_codes_blocks(one, one, 1, 1, 1, 8, 8, 0, 32, one[None, :])
 
 
 def test_kernel_build_is_keyed_by_sources():

@@ -359,6 +359,69 @@ def test_seeded_codes_and_checkpoint_kernels_vs_plain(cuda, mkd, blocks, warps):
                 assert int(g[1]) == int(w[1])
 
 
+# (blocks, warps) of the grouped re-fill: fewer warps than the group's
+# bands (P = 1, 3, 4, 3), blocks of 4 bands sharing 3 ring slots at P = 3;
+# the default, a warp a band
+REFILL_SHAPES = [(1, 1), (1, 3), (2, 2), (3, 1), (None, 8)]
+
+
+@pytest.mark.parametrize("blocks,warps", REFILL_SHAPES)
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_grouped_refill_kernel_vs_plain(cuda, mkd, blocks, warps):
+    """K13's grouped port (nw_refill_blocks): groups of blocks from the
+    first block and from the second on, short last blocks included,
+    against the plain version and, block by block, against the one-block
+    launches of nw_fill_codes_single."""
+    for s1, s2 in _single_pairs(sum(mkd) + 10) + [(b"ACGTT" * 60, b"GATTACA" * 50)]:
+        if not s2:
+            continue
+        top, side = _pair_tensors(s1, s2)
+        tc, sc = top.to(cuda), side.to(cuda)
+        la, lb = len(s1), len(s2)
+        for C in (32, 64, 128):
+            _, ck = fill_single.score_fold_plain(top, side, *mkd, checkpoint_every=C)
+            for lo in range(min(2, ck.shape[0])):
+                got = fill_single.fill_codes_blocks(
+                    tc, sc, *mkd, la, lb, lo * C, C, ck[lo:].to(cuda), warps=warps, blocks=blocks
+                )
+                want = fill_single.fill_codes_blocks_plain(top, side, *mkd, la, lb, lo * C, C, ck[lo:])
+                torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+                torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+                for g in range(ck.shape[0] - lo):
+                    r0 = (lo + g) * C
+                    one, corner = fill_single.fill_codes_single(
+                        tc, sc, *mkd, len2=min(lb, r0 + C), r0=r0,
+                        seed=ck[lo + g].to(cuda) if r0 else None,
+                    )
+                    first = g * C // 32
+                    torch.testing.assert_close(got[0][:, first : first + one.shape[1]], one, rtol=0, atol=0)
+                    assert int(got[1][g]) == int(corner)
+
+
+def _count_inputs(seed, device):
+    # _inputs' pairs (5 bands) and long pairs (up to 35 bands: W = 32
+    # wraps around), both shorter than their buckets, so that the corners
+    # lie inside the tables
+    long = _pairs(seed + 2, 3, 900, 1100) + _pairs(seed + 3, 1, 1000, 1100, "AC")
+    arrays = enc.encode_batch(long, 1100, 1120)
+    return [_inputs(seed, device), (enc.upload(arrays, "cpu"), enc.upload(arrays, device))]
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3, 4, 8, 16, 32, None])
+def test_count_masks_at_forced_warps_vs_plain(cuda, warps):
+    """K6's port (nw_count_masks) at W warps a pair (None: the rule's)
+    against its plain version under every scoring, over the batched
+    masks kernel's tables."""
+    from nw_tpu_torch.ops import pathcount
+
+    for cpu, dev in _count_inputs(60, cuda):
+        for mkd in SCORINGS:
+            masks = fill_banded.fill_masks_banded_batch(*dev, *mkd)[0]
+            got = pathcount.count_masks_batch(masks, *dev[2:], warps=warps)
+            want = pathcount.count_masks_batch_plain(masks.cpu(), *cpu[2:])
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("blocks,warps", SHAPES)
 @pytest.mark.parametrize("mkd", SCORINGS)
 def test_score_single_kernel_vs_plain(cuda, mkd, blocks, warps):

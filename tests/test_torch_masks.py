@@ -161,6 +161,56 @@ def test_count_masks_match_k6(mkd):
     np.testing.assert_array_equal(fused.numpy(), got.numpy())
 
 
+@pytest.mark.parametrize("mkd", [(2, 1, 1), (1, 1, 1), (0, 0, 0)])
+def test_count_masks_match_k6_across_bands(mkd):
+    """K6 (interpret mode) against the port's count over masks of four
+    32-row bands, the shapes the W-warp count hands rows between warps
+    at: pairs shorter than the bucket (their corners inside the table),
+    tie-dense pairs and one filling it."""
+    pairs = _pairs(16, 5, 1, 100) + _pairs(17, 2, 60, 100, "AC")
+    pairs = [(a[:70], b) for a, b in pairs] + [(b"AC" * 35, b"CA" * 50)]
+    tops, sides, l1, l2 = jencode_batch(pairs, 70, 100)
+    words, _ = fill_arrows_pallas_batch(tops, sides, l1, l2, *mkd, interpret=True, packed=True)
+    want = count_packed_pallas_batch(words, l1, l2, interpret=True)
+    T = enc.upload(enc.encode_batch(pairs, 70, 100), "cpu")
+    masks, _, fused = fill_banded.fill_masks_banded_batch(*T, *mkd, with_counts=True)
+    assert masks.shape == (len(pairs), 101, 71)
+    got = pathcount.count_masks_batch(masks, T[2], T[3])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+    np.testing.assert_array_equal(fused.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize(
+    "B,Bs,want",
+    [
+        (4, 10240, 32),  # a few long pairs: 32 warps each
+        (128, 2048, 32),  # a pair an SM
+        (264, 2048, 16),  # two pairs an SM
+        (1024, 256, 4),  # K27's flat shape: 8 pairs an SM, 8 bands each
+        (10240, 150, 1),  # config 2's shape: one warp a pair
+        (4, 40, 2),  # no more warps than bands
+        (3, 0, 1),  # no rows below row 0
+    ],
+)
+def test_count_warps_rule(B, Bs, want):
+    """The count's W on 132 SMs: ~32 warps an SM from the whole batch,
+    never more than a pair's bands."""
+    assert pathcount.count_warps(B, Bs, 132) == want
+
+
+def test_count_warps_limits(monkeypatch):
+    """W stops where shared memory does (32 warps take 82 176 bytes, so
+    on an H100 it never binds); a forced W outside 1..32 raises."""
+    assert pathcount.count_smem(32) == 32 * 2048 + 4 * (32 * 128 + 32 + 32) == 82176
+    monkeypatch.setattr(pathcount, "SMEM_LIMIT", pathcount.count_smem(5))
+    assert pathcount.count_warps(4, 10240, 132) == 5
+    masks = torch.zeros((1, 2, 2), dtype=torch.uint8)
+    lens = torch.ones(1, dtype=torch.int32)
+    for warps in (0, 33):
+        with pytest.raises(ValueError, match="warps"):
+            pathcount.count_masks_batch(masks, lens, lens, warps=warps)
+
+
 def test_mask_route_is_taken_for_small_batches_of_long_pairs():
     take = fill_auto.takes_mask_route
     assert take(2, 10240, 10240) and take(1, 4096, 4096) and take(8, 32768, 32768)
