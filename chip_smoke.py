@@ -82,11 +82,12 @@ Phases, in order; any mismatch or exception exits non-zero:
    launch (``REFILL_GROUPS``), the scores-only crossover of ``nw_scores``
    (a block a pair) against ``score_fold``, peak device memory.
 
-9. Smith-Waterman: (a) ``sw_scores``, ``sw_fill_codes`` (codes, best,
-   argmax) and ``sw_walk`` bit for bit against their plain versions (40
-   random pairs of 0-60 bp and 48 of 0-700 bp, tie-dense pairs, the edge
-   pairs, equal bests in two bands, under (2,1,1), (1,1,1), (0,0,0),
-   (3,-1,2) and (1,1,-1)); then, with every launch counter set to 0, (b)
+9. Smith-Waterman: (a) ``sw_scores`` (at the rule's W and every W of
+   ``PIPE_WARPS``), ``sw_fill_codes`` (codes, best, argmax) and
+   ``sw_walk`` bit for bit against their plain versions (40 random pairs
+   of 0-60 bp and 48 of 0-700 bp, tie-dense pairs, the edge pairs, equal
+   bests in two bands, under ``SW_SCORINGS``: ``SCORINGS`` and
+   (1,1,-1)); then, with every launch counter set to 0, (b)
    ``sw_align_batch`` of 128 x 3 072 bp (bench.py:414) and 4 096 x 150 bp
    (bench.py:291), ``sw_score_batch`` of 10 240 x 150 bp (bench.py:517)
    and 128 x 10 240 bp (bench.py:583), all at (2,1,1): every alignment
@@ -94,13 +95,17 @@ Phases, in order; any mismatch or exception exits non-zero:
    every score equals ``sw_fill_codes``'s best, 4 pairs of each batch
    equal the plain path on the card, every new kernel has launched; (c)
    walls (median of 4 warm runs), pairs/s, GCUPS, each kernel's time
-   beside its plain version's and its bound.
+   beside its plain version's and its bound, ``sw_scores`` at W = 1
+   against the rule's W in turns (1, rule, rule, 1) at 128 x 10 240 bp
+   and 10 240 x 150 bp (scores equal at both W) and the sweep of W
+   (``SWEEP_WARPS``) at 128 x 10 240 bp.
 
-10. Overlap and Gotoh scores: (a) ``overlap_scores``, ``overlap_fill_codes``
-   (codes, best, end cell) with ``sw_walk`` on its codes, and
-   ``gotoh_scores`` bit for bit against their plain versions (phase 9's
-   pairs and a pair whose best lies on the last column in band 0 and on
-   the last row in band 2; overlap under phase 9's five scorings, Gotoh
+10. Overlap and Gotoh scores: (a) ``overlap_scores`` (at the rule's W and
+   every W of ``PIPE_WARPS``), ``overlap_fill_codes`` (codes, best, end
+   cell) with ``sw_walk`` on its codes, and ``gotoh_scores`` bit for bit
+   against their plain versions (phase 9's pairs and a pair whose best
+   lies on the last column in band 0 and on the last row in band 2;
+   overlap under phase 9's scorings, Gotoh
    under (2,1,3,1), (1,1,1,1), (0,0,0,0), (3,-1,2,1), (2,1,1,3),
    (1,1,-1,-1) and (1,1,2^28,2^28)); then, with every launch counter set
    to 0, (b) ``overlap_align_batch`` of 128 x 3 072 bp and 4 096 x 150 bp,
@@ -115,7 +120,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``affine_score_pairs(..., 2, 1, 1, 1)`` of the 10 kb pairs equals
    ``align_batch``'s scores at (2,1,1) (open == extend, k < 2 open: the
    linear score); (c) walls (median of 4 warm runs), pairs/s, GCUPS, each
-   kernel's time beside its plain version's and its bound.
+   kernel's time beside its plain version's and its bound, and
+   ``overlap_scores``' turns and sweep of W as phase 9's.
 
 11. Gotoh tracebacks and the batch CLI: (a) ``gotoh_fill_codes`` (4-bit
    codes, scores, corner states; the scores also against
@@ -226,8 +232,10 @@ them; the pipeline's dynamic shared memory is printed in phase 5.
 Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
 tie mask, 2 more for the local clamp and running best, 3 more for the
-local argmax and STOP, 4 more for overlap's end window and running best,
-2 more for its argmax; 11 for a Gotoh score, 12 more for its 4-bit code
+local argmax and STOP, 4 more for overlap's end window and running best
+(the scores' bound charges them to the window's len1 + len2 cells a
+pair, the function's work; the codes' to every cell), 2 more for its
+argmax; 11 for a Gotoh score, 12 more for its 4-bit code
 (``OPS_GOTOH_CODE``); 9 more than a code for a run byte (``OPS_RUN``);
 12 a walk step, or a run walk's load) over the card's SMs x 64 INT32
 lanes x ``clocks.max.sm``, and its bytes (inputs read once, outputs
@@ -1379,16 +1387,19 @@ def print_ptxas_report(procs) -> None:
 
 def free_fill_vs_plain(vb_name, batch, mkd):
     """One scoring of a free-boundary fill (``sw`` or ``overlap``): its
-    scores and codes kernels and ``sw_walk`` on its codes against their
-    plain versions, the scores also against the codes kernel's best.
-    Returns the three max |diff| and the codes kernel's outputs."""
+    scores kernel at the rule's W and at every W of ``PIPE_WARPS``, its
+    codes kernel and ``sw_walk`` on its codes against their plain
+    versions, the scores also against the codes kernel's best.  Returns
+    the three max |diff| and the codes kernel's outputs."""
     from nw_tpu_torch.ops import traceback as tb
     from nw_tpu_torch.ops import variants_banded as vb
 
     scores_fn = getattr(vb, f"{vb_name}_scores_banded_batch")
     codes_fn = getattr(vb, f"{vb_name}_fill_codes_banded_batch")
     scores = scores_fn(*batch, *mkd)
-    e_s = max_abs_err(scores, getattr(vb, f"{vb_name}_scores_banded_batch_plain")(*batch, *mkd))
+    want_s = getattr(vb, f"{vb_name}_scores_banded_batch_plain")(*batch, *mkd)
+    e_s = max(max_abs_err(scores, want_s),
+              *(max_abs_err(pipe_fill(vb_name, batch, mkd, W)[0], want_s) for W in PIPE_WARPS))
     got = codes_fn(*batch, *mkd)
     want = getattr(vb, f"{vb_name}_fill_codes_banded_batch_plain")(*batch, *mkd)
     e_s = max(e_s, max_abs_err(scores, got[1]))
@@ -1553,8 +1564,15 @@ def sw_phase(card, bound):
     )
     pairs, b10k = batch_of("score128x10240")
     ms_10k = cuda_ms(lambda: vb.sw_scores_banded_batch(*b10k, m, k, d), 2)
-    rec["sw_scores"]["shape"] = (f"{len(configs['score10240x150'][1])}x{L_SHORT}bp scores "
-                                 f"(at 128x{L_LONG}bp: {ms_10k:.3f} ms)")
+    shapes = [(f"sw_scores 128x{L_LONG}bp", "sw", b10k, 2),
+              (f"sw_scores {len(b150[0])}x{L_SHORT}bp", "sw", b150, 20)]
+    (w10k, one10k, _), (w150, one150, _) = pipe_turns(card, shapes).values()
+    pipe_sweep(card, [shapes[0][:3]])
+    rec["sw_scores"].update(
+        warps=w150, one_warp_ms=statistics.median(one150),
+        shape=(f"{len(b150[0])}x{L_SHORT}bp scores, {w150} warp(s) a pair (at 128x{L_LONG}bp: "
+               f"{ms_10k:.3f} ms at W = {w10k}, W = 1 {statistics.median(one10k):.3f} ms in turns)"),
+    )
     del b10k
     pairs, b3k = batch_of("align128x3072")
     cells = sum(len(a) * len(b) for a, b in pairs)
@@ -1777,22 +1795,35 @@ def variants_phase(card, bound):
 
     rec = {}
     b150, b10k = batch_of(short_pairs), batch_of(long_pairs)
-    cells150 = len(short_pairs) * L_SHORT * L_SHORT
     io150 = tensor_bytes(*b150) + 4 * len(short_pairs)
+
+    def overlap_ops(pairs):  # a score a cell, the end window's ops on its len1 + len2 cells a pair
+        return sum(len(a) * len(b) * OPS_SCORE + (len(a) + len(b)) * OPS_OVERLAP for a, b in pairs)
+
+    def gotoh_ops(pairs):
+        return sum(len(a) * len(b) for a, b in pairs) * OPS_GOTOH
+
     for kname, fn, sc, ops in (
-        ("overlap_scores", vb.overlap_scores_banded_batch, mkd, OPS_SCORE + OPS_OVERLAP),
-        ("gotoh_scores", vb.affine_scores_banded_batch, gotoh, OPS_GOTOH),
+        ("overlap_scores", vb.overlap_scores_banded_batch, mkd, overlap_ops),
+        ("gotoh_scores", vb.affine_scores_banded_batch, gotoh, gotoh_ops),
     ):
         ms_10k = cuda_ms(lambda: fn(*b10k, *sc), 2)
-        b_10k = bound(128 * L_LONG * L_LONG * ops, tensor_bytes(*b10k) + 4 * 128)
+        b_10k = bound(ops(long_pairs), tensor_bytes(*b10k) + 4 * 128)
         cfg = "overlap_score" if kname == "overlap_scores" else "gotoh_score"
         rec[kname] = dict(
             ms=cuda_ms(lambda: fn(*b150, *sc), 20), plain_ms=plain[f"{cfg}10240x150"],
-            **bound(cells150 * ops, io150),
+            **bound(ops(short_pairs), io150),
             shape=(f"{len(short_pairs)}x{L_SHORT}bp scores (at 128x{L_LONG}bp: {ms_10k:.3f} ms, "
                    f"bound {b_10k['bound_ms']:.3f} ms {b_10k['bound_by']}, plain {plain[f'{cfg}128x10240']:.1f} ms "
                    f"at 4 pairs)"),
         )
+    shapes = [(f"overlap_scores 128x{L_LONG}bp", "overlap", b10k, 2),
+              (f"overlap_scores {len(b150[0])}x{L_SHORT}bp", "overlap", b150, 20)]
+    (w10k, one10k, _), (w150, one150, _) = pipe_turns(card, shapes).values()
+    pipe_sweep(card, [shapes[0][:3]])
+    rec["overlap_scores"].update(warps=w150, one_warp_ms=statistics.median(one150))
+    rec["overlap_scores"]["shape"] += (f"; {w150} warp(s) a pair, at 128x{L_LONG}bp W = {w10k}, W = 1 "
+                                       f"{statistics.median(one10k):.3f} ms in turns")
     del b10k
     pairs3k = configs["overlap_align128x3072"][1]
     b3k = batch_of(pairs3k)
@@ -3170,23 +3201,29 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
     return rec
 
 
-# nw_scores and nw_fill_codes at a forced W (warps a pair): phase 3 holds
-# each W against plain, phase 5 times W = 1 against the rule's in turns
-# and sweeps W at config 3 and 128 x 10 240 bp
+# the pipeline at a forced W (warps a pair): phase 3 holds nw_scores and
+# nw_fill_codes at each W against plain, phases 9 and 10 sw_scores and
+# overlap_scores; phases 5, 9 and 10 time W = 1 against the rule's in
+# turns and sweep W
 PIPE_WARPS = (1, 2, 3, 4, 8, 16, 32)
 SWEEP_WARPS = (1, 2, 4, 8, 16, 32)
 PIPE_MODES = ("scores", "counts", "codes", "codes+counts")
 
 
 def pipe_fill(mode, T, mkd, warps=None):
-    """``nw_scores`` (mode "scores") or ``nw_fill_codes`` counts-only,
+    """``nw_scores`` (mode "scores"), ``sw_scores`` ("sw"),
+    ``overlap_scores`` ("overlap") or ``nw_fill_codes`` counts-only,
     codes or codes + counts on T = (tops, sides, lens1, lens2) at
     ``warps`` warps a pair (None: ``fill_warps``'s); the outputs the mode
     has."""
     from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import variants_banded as vb
 
     if mode == "scores":
         return (fb._fill_scores_kernel(fb.fill_scores_banded_batch, *T, *mkd, warps=warps),)
+    if mode in ("sw", "overlap"):
+        wrapper = getattr(vb, f"{mode}_scores_banded_batch")
+        return (fb._fill_scores_kernel(wrapper, *T, *mkd, warps=warps, entry=f"{mode}_scores"),)
     wrapper = fb.fill_scores_counts_banded_batch if mode == "counts" else fb.fill_greedy_counts_banded_batch
     out = fb._fill_codes_kernel(wrapper, *T, *mkd, emit_codes=mode != "counts",
                                 with_counts=mode != "codes", warps=warps)
@@ -3281,12 +3318,10 @@ def pipe_turns(card, shapes):
     return out
 
 
-def pipe_sweep(card, T3):
-    """Phase 5: config 3's codes + counts fill and 128 x 10 240 bp scores
-    at every W of ``SWEEP_WARPS`` (one warm-up, one timed run each)."""
-    T128 = tuple(t[:128] for t in T3)
-    for label, mode, T in (("config 3 codes+counts 256x10240bp", "codes+counts", T3),
-                           ("scores 128x10240bp", "scores", T128)):
+def pipe_sweep(card, shapes):
+    """Phases 5, 9 and 10: each (label, mode, T) of ``shapes`` at every W
+    of ``SWEEP_WARPS`` (one warm-up, one timed run each)."""
+    for label, mode, T in shapes:
         ms = {W: cuda_ms(lambda: pipe_fill(mode, T, (2, 1, 1), W), 1) for W in SWEEP_WARPS}
         log(f"sweep {label} (the rule's W {pipe_rule(mode, T)}): "
             + ", ".join(f"W={W} {x:.3f} ms" for W, x in ms.items()) + f" [{card}]")
@@ -3538,7 +3573,7 @@ def main() -> None:
     shapes = pipe_shapes(T3, T2, T7)
     turns = pipe_turns(card, shapes)
     turn_c, turn_s = turns[shapes[2][0]], turns[shapes[3][0]]  # the records' shapes
-    pipe_sweep(card, T3)
+    pipe_sweep(card, [shape[:3] for shape in shapes[:2]])  # config 3's fill, 128 x 10 240 bp scores
     codes3, _, _ = fb.fill_greedy_counts_banded_batch(tops3, sides3, l13, l23, m, k, d)
     full["nw_walk 256x10240bp"] = cuda_ms(lambda: tb.walk_codes_batch(codes3, l13, l23, 2 * LB), 3)
     cells3 = 256 * L_LONG * L_LONG

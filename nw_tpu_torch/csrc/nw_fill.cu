@@ -30,9 +30,12 @@
 // NEG_INF decay and holds for every scoring.  Score arithmetic wraps as
 // int32, counts wrap mod 2^32.
 //
-// Two kernels.  nw_fill_pipe_kernel (nw_scores, nw_fill_codes) runs W
-// warps on each pair; nw_fill_kernel (the LOCAL, OVERLAP, MASKS and RUNS
-// modes below) runs one warp a pair.
+// Two designs.  The pipeline (pipe_fill) runs W warps on each pair, for
+// three recurrences: Needleman-Wunsch (nw_fill_pipe_kernel: nw_scores,
+// nw_fill_codes) and the LOCAL and OVERLAP score fills
+// (free_pipe_kernel: sw_scores, overlap_scores).  nw_fill_kernel runs one
+// warp a pair: the LOCAL and OVERLAP code fills (sw_fill_codes,
+// overlap_fill_codes) and the MASKS and RUNS modes below.
 //
 // The band sweep, common to both.  The side string's rows are cut into
 // bands of 32 rows, one row per lane; at step t lane jj computes cell
@@ -112,6 +115,25 @@
 // once: 26 MB for one 10240 x 10240 pair).  W = 1 keeps a warp a pair
 // for batches that fill the card.
 //
+// The free score fills on the pipeline (MODE kLocal, kOverlap; scores
+// only) change the global sweep in four places.  Row 0 and column 0 are
+// 0.  No corner: the result is a running best, kept per lane over its
+// rows' cells in a loop-invariant window of columns [lo, hi] (LOCAL:
+// 1..len1 on rows <= len2, the true rectangle; OVERLAP: the end window,
+// row len2's 1..len1 and column len1 of the rows above), reduced over the
+// warp's lanes and then, after the sweep, over the warps through done[]
+// (no warp reads it by then; the shared memory is nw_scores').  LOCAL
+// clamps every cell at 0 (DPX __vimax3_s32_relu).  And as
+// nothing past the true table reaches the best, a free fill sweeps its
+// pair's own ceil(len2/32) bands of ceil((len1+32)/32) chunks.  A chunk
+// reads the best in one of three ways (BEST): untested, max(best, h), in
+// an inner chunk of a LOCAL band above the last (every cell lies in the
+// rectangle); not at all in an inner chunk of an OVERLAP band above the
+// last before column len1's chunks (every cell lies outside the window:
+// the global step without its corner test); tested, best = max(best, h)
+// where lo <= c <= hi, elsewhere.  From a best of 0 that is exactly
+// "h > best in the window" for both recurrences.
+//
 // Code layout, band-major as on the TPU (fill_pallas_banded.py:356-362):
 // codes is uint32[B, nbands, TW, 32] with nbands = ceil(Bs/32) and
 // TW = 2*ceil((A+32)/32).  Cell (j >= 1, i) lives in band (j-1)/32 at
@@ -129,8 +151,9 @@
 // boundary row and the top string are loaded 32 columns at a time, one
 // coalesced load per lane, and handed to lane 0 by shuffle.
 //
-// The LOCAL mode (Smith-Waterman, nw_tpu/models/smith_waterman.py:25-97)
-// is the global sweep with three changes.  Row 0 and column 0 are 0,
+// The LOCAL mode of the one-warp kernel (Smith-Waterman codes,
+// nw_tpu/models/smith_waterman.py:25-97) is the global sweep with three
+// changes.  Row 0 and column 0 are 0,
 // written as the global recurrence writes its boundaries, so the result holds
 // for every scoring (K22 and K18 leave column 0 free and differ at
 // d < 0).  Every cell is clamped at 0 and gets code 3 (STOP) where it is
@@ -145,7 +168,8 @@
 // ties.  The argmax adds ~3 integer ops a step, once per band a
 // reduction.
 //
-// The OVERLAP mode (end-gap-free, nw_tpu/models/overlap.py:49-153) pins
+// The OVERLAP mode of the one-warp kernel (end-gap-free codes,
+// nw_tpu/models/overlap.py:49-153) pins
 // row 0 and column 0 to 0 as LOCAL does, but does not clamp: interior
 // cells are the global recurrence in wrapping int32 and get the global
 // codes, never STOP; column 0 gets STOP, so sw_walk (nw_walk.cu) walks
@@ -249,10 +273,10 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
   constexpr bool BYTES = MASKS || RUNS;  // a byte a cell, row-major, through the ring
   constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
   static_assert(!(FREE && WITH_COUNTS), "a local or overlap fill has no counts");
+  static_assert(!FREE || EMIT_CODES, "the local and overlap score fills run on the pipeline");
   static_assert(!(BYTES && EMIT_CODES), "a masks or runs fill stores bytes, not codes");
   // MASKS, RUNS: the warp's byte ring (dynamic shared memory, kRingBytes)
   extern __shared__ unsigned char mring[];
-  constexpr bool ARGMAX = FREE && EMIT_CODES;
   const int lane = threadIdx.x;
   const int64_t b = blockIdx.x;
   const int M = A + 1;
@@ -374,12 +398,12 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         if (LOCAL) {  // the true rectangle only: padding never reaches the best
           const bool upd = c >= 1 && c <= l1 && j <= l2 && hn > lbest;
           lbest = upd ? hn : lbest;
-          if (ARGMAX) lk = upd ? c + j : lk;
+          lk = upd ? c + j : lk;
         }
         if (OVERLAP) {  // the end boundary of the true rectangle only
           const bool upd = c >= end_lo && c <= end_hi && hn > lbest;
           lbest = upd ? hn : lbest;
-          if (ARGMAX) lk = upd ? c + j : lk;
+          lk = upd ? c + j : lk;
         }
         // lane 31 writes its row over the boundary row, 31 columns
         // behind lane 0's reads of it: lane 31's value of column c
@@ -428,32 +452,28 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         const int ob = __shfl_xor_sync(kFull, lbest, off);
         const int ok = __shfl_xor_sync(kFull, lk, off);
         const int oj = __shfl_xor_sync(kFull, bj, off);
-        if (ARGMAX ? ranks_above(ob, ok, oj, lbest, lk, bj) : ob > lbest) {
+        if (ranks_above(ob, ok, oj, lbest, lk, bj)) {
           lbest = ob;
           lk = ok;
           bj = oj;
         }
       }
-      if (ARGMAX ? ranks_above(lbest, lk, bj, best, best_k, best_j) : lbest > best) {
+      if (ranks_above(lbest, lk, bj, best, best_k, best_j)) {
         best = lbest;
         best_k = lk;
         best_j = bj;
       }
     }
   }
-  if (LOCAL && lane == 0) {
+  if (LOCAL && lane == 0) {  // no positive cell: the argmax is (0, 0)
     scores[b] = best;
-    if (ARGMAX) {  // no positive cell: the argmax is (0, 0)
-      jstar[b] = best > 0 ? best_j : 0;
-      istar[b] = best > 0 ? best_k - best_j : 0;
-    }
+    jstar[b] = best > 0 ? best_j : 0;
+    istar[b] = best > 0 ? best_k - best_j : 0;
   }
-  if (OVERLAP && lane == 0) {
+  if (OVERLAP && lane == 0) {  // no positive cell: the zero-cost corner
     scores[b] = best;
-    if (ARGMAX) {  // no positive cell: the zero-cost corner
-      jstar[b] = best > 0 ? best_j : (l1 == 0 ? l2 : 0);
-      istar[b] = best > 0 ? best_k - best_j : l1;
-    }
+    jstar[b] = best > 0 ? best_j : (l1 == 0 ? l2 : 0);
+    istar[b] = best > 0 ? best_k - best_j : l1;
   }
 }
 
@@ -471,13 +491,18 @@ int launch_fill(const int* tops, const int* sides, const int* lens1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------- the pipeline: W warps a pair (nw_scores, nw_fill_codes) ----------------
+// ---------------- the pipeline: W warps a pair (nw_scores, nw_fill_codes, sw_scores, overlap_scores) ----------------
 
 constexpr int kMaxWarps = 32;  // warps a block of the pipeline
 constexpr int kSlots = 4;      // 32-column chunk slots of a warp's ring
 constexpr int kRing = 32 * kSlots;
 constexpr int kTopPad = -4;    // the staged top outside columns 1..A
 constexpr int kSidePad = -5;   // a side row past Bs
+constexpr int kGlobal = 0;     // the pipeline's Needleman-Wunsch recurrence (kLocal, kOverlap above)
+// the cells of a chunk whose scores the running best of LOCAL / OVERLAP reads
+constexpr int kBestNone = 0;    // none (every chunk of the global sweep)
+constexpr int kBestAll = 1;     // all (LOCAL: a chunk inside the true rectangle)
+constexpr int kBestTested = 2;  // those in the lane's window of columns [lo, hi]
 
 // A column of a handoff row: its score, and with counts its count
 // (bits of a uint32) beside it, one 64-bit shared access.
@@ -485,6 +510,7 @@ template <bool WITH_COUNTS> struct Cell { using type = int; };
 template <> struct Cell<true> { using type = int2; };
 
 template <bool B> struct Flag { static constexpr bool value = B; };
+template <int V> struct Best { static constexpr int value = V; };
 
 // The staged top string's columns: 32*nchunks + 32.
 __host__ __device__ inline int pipe_top_cols(int A) {
@@ -500,16 +526,23 @@ __host__ __device__ inline int pipe_smem(int warps, int A, bool with_counts, boo
   return 4 * words + (top_smem ? 2 * pipe_top_cols(A) : 0);
 }
 
-// TOP_SMEM: the top string is staged in shared memory; else in the
-// pair's row of top16 (int16[B, pipe_top_cols(A)]) in device memory, for
-// a top too long for a block's shared memory, read through L1.
-template <bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
-__global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
+// The pipeline's body, for the recurrence MODE (kGlobal, kLocal or
+// kOverlap; the free ones score-only).  TOP_SMEM: the top string is
+// staged in shared memory; else in the pair's row of top16
+// (int16[B, pipe_top_cols(A)]) in device memory, for a top too long for
+// a block's shared memory, read through L1.
+template <int MODE, bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
+__device__ __forceinline__ void pipe_fill(
     const int* __restrict__ tops, const int* __restrict__ sides,
     const int* __restrict__ lens1, const int* __restrict__ lens2,
     int A, int Bs, int m, int k, int d, int* bnd, unsigned* cbnd,
     unsigned* __restrict__ codes, int* __restrict__ scores,
     unsigned* __restrict__ counts, short* top16) {
+  constexpr bool LOCAL = MODE == kLocal;
+  constexpr bool OVERLAP = MODE == kOverlap;
+  constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
+  static_assert(MODE == kGlobal || (FREE && !EMIT_CODES && !WITH_COUNTS),
+                "the pipeline's local and overlap fills keep scores only");
   using C = typename Cell<WITH_COUNTS>::type;
   extern __shared__ __align__(16) int pipe_sh[];
   const int lane = threadIdx.x & 31;
@@ -517,8 +550,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
   const int W = blockDim.x >> 5;
   const int64_t b = blockIdx.x;
   const int M = A + 1;
-  const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
-  const int nbands = (Bs + 31) >> 5;
+  // 32-step chunks of one band, and the bands; a free fill's best reads
+  // no cell past the true table, so it sweeps that table alone
+  const int nchunks = ((FREE ? lens1[b] + 1 : M) + 31 + 31) >> 5;
+  const int nbands = ((FREE ? lens2[b] : Bs) + 31) >> 5;
   C* const rings = reinterpret_cast<C*>(pipe_sh);
   C* const stage = rings + W * kRing;
   volatile int* done = reinterpret_cast<int*>(stage + 32);
@@ -531,17 +566,18 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
   const int l1 = lens1[b];
   const int l2 = lens2[b];
 
-  // the top string, row 0 (-c*d, one path) into the boundary row, counters
+  // the top string, row 0 (-c*d, one path; 0 in the free fills) into the
+  // boundary row, counters
   for (int x = threadIdx.x; x < pipe_top_cols(A); x += blockDim.x) {
     const int c = x - 31;
     top_s[x] = static_cast<short>(c >= 1 && c <= A ? top[c - 1] : kTopPad);
   }
   for (int c = threadIdx.x; c < M; c += blockDim.x) {
-    brow[c] = wsub(0, wmul(c, d));
+    brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
     if (WITH_COUNTS) crow[c] = 1u;
   }
   if (threadIdx.x < W) done[threadIdx.x] = 0;
-  if (l2 == 0 && threadIdx.x == 0) {
+  if (!FREE && l2 == 0 && threadIdx.x == 0) {
     scores[b] = wsub(0, wmul(l1, d));
     if (WITH_COUNTS) counts[b] = 1u;
   }
@@ -554,11 +590,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
   const C* const in_ring = warp > 0 ? rings + (warp - 1) * kRing : stage;
   const int in_warp = warp > 0 ? warp - 1 : W - 1;
   const short* const top_lane = top_s + 31 - lane;  // column t - lane at [t]
+  int lbest = 0;  // LOCAL, OVERLAP: the best of this lane's rows so far
   for (int band = warp, round = 0; band < nbands; band += W, ++round) {
     const int j = band * 32 + 1 + lane;  // this lane's row
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : kSidePad;
-    const int col0 = wsub(0, wmul(j, d));  // H[j][0]
+    const int col0 = FREE ? 0 : wsub(0, wmul(j, d));  // H[j][0]
     const bool feeds = band + 1 < nbands;  // a band below reads this one's last row
     const bool to_ring = feeds && !last_warp;  // ... from this warp's ring
     // warp 0 reads warp W-1's band of the round before (none in round 0:
@@ -566,7 +603,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
     const int in_base = (warp > 0 ? round : round - 1) * nchunks;
     // the chunk of the true corner's step, in the band that holds row len2
     const int jj_c = l2 - 1 - band * 32;
-    const int corner_q = jj_c >= 0 && jj_c < 32 ? (l1 + jj_c) >> 5 : -1;
+    const int corner_q = !FREE && jj_c >= 0 && jj_c < 32 ? (l1 + jj_c) >> 5 : -1;
+    // LOCAL, OVERLAP: the columns of this lane's row that the best reads,
+    // [lo, hi]: LOCAL 1..len1 (the true rectangle), OVERLAP the end
+    // window (row len2's 1..len1, column len1 of the rows above it);
+    // none below row len2
+    const int lo = OVERLAP && j != l2 ? max(l1, 1) : 1;
+    const int hi = j <= l2 ? l1 : 0;
     unsigned* wbase = EMIT_CODES
         ? codes + ((b * nbands + band) * static_cast<int64_t>(2 * nchunks)) * 32 + lane
         : nullptr;
@@ -603,11 +646,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
       const bool pub_lo = pub_hi && q > 0;
       const short* const tq = top_lane + t0;
 
-      // one chunk of 32 steps; FAST: every lane's column lies in 1..A and
-      // the corner is not in it, so column 0, the columns past A and the
-      // corner need no test
-      auto sweep = [&](auto fast) {
+      // one chunk of 32 steps; FAST: every lane's column lies in 1..A
+      // (free fills: 1..len1) and the corner is not in it, so column 0,
+      // the columns past A and the corner need no test; BEST: the cells
+      // the free fills' best reads
+      auto sweep = [&](auto fast, auto best) {
         constexpr bool FAST = decltype(fast)::value;
+        constexpr int BEST = decltype(best)::value;
 #pragma unroll
         for (int s = 0; s < 32; ++s) {
           int up = __shfl_up_sync(kFull, h, 1);
@@ -626,11 +671,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
           const int cand_d = wadd(up_prev, ch == sch ? m : negk);
           const int cand_u = wsub(up, d);
           const int cand_l = wsub(h, d);
-          // where the candidates are compared again, one DPX three-way max
-          // (exact: the wrapping is in the candidates); for the score
-          // alone nvcc fuses each subtract into its max (VIADDMNMX)
-          int hn = EMIT_CODES || WITH_COUNTS ? __vimax3_s32(cand_d, cand_u, cand_l)
-                                             : max(max(cand_d, cand_u), cand_l);
+          int hn;
+          if constexpr (LOCAL) {  // clamped at 0: one DPX instruction
+            hn = __vimax3_s32_relu(cand_d, cand_u, cand_l);
+          } else {
+            // where the candidates are compared again, one DPX three-way
+            // max (exact: the wrapping is in the candidates); for the
+            // score alone nvcc fuses each subtract into its max (VIADDMNMX)
+            hn = EMIT_CODES || WITH_COUNTS ? __vimax3_s32(cand_d, cand_u, cand_l)
+                                           : max(max(cand_d, cand_u), cand_l);
+          }
           unsigned code = cand_d == hn ? kCodeDiag : (cand_l == hn ? kCodeLeft : kCodeUp);
           unsigned cn = 0;
           if constexpr (WITH_COUNTS) {
@@ -640,15 +690,20 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
           bool in_row = true;
           if constexpr (!FAST) {
             const int c = t0 + s - lane;
-            const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
+            const bool col_zero = c == 0;  // column 0: -j*d, UP, one path (free: 0)
             hn = col_zero ? col0 : hn;
             code = col_zero ? kCodeUp : code;
             cn = col_zero ? 1u : cn;
             in_row = c >= 0 && c <= A;
-            if (in_row && j == l2 && c == l1) {  // the true corner
+            if (!FREE && in_row && j == l2 && c == l1) {  // the true corner
               scores[b] = hn;
               if (WITH_COUNTS) counts[b] = cn;
             }
+          }
+          if constexpr (BEST == kBestAll) lbest = max(lbest, hn);
+          if constexpr (BEST == kBestTested) {  // from a best of 0: "hn > lbest" in the window
+            const int c = t0 + s - lane;
+            lbest = c >= lo && c <= hi ? max(lbest, hn) : lbest;
           }
           if (s < 31 ? pub_lo : pub_hi) {  // this band's last row, for the band below
             C v;
@@ -675,10 +730,32 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
           }
         }
       };
-      if (q > 0 && t0 + 31 <= A && q != corner_q) {
-        sweep(Flag<true>{});
+      const bool inner = q > 0 && t0 + 31 <= (FREE ? l1 : A);  // no column 0, none past the row
+      if constexpr (LOCAL) {
+        // a band above the last lies whole in the true rectangle: an
+        // inner chunk reads the best untested
+        if (!inner) {
+          sweep(Flag<false>{}, Best<kBestTested>{});
+        } else if (feeds) {
+          sweep(Flag<true>{}, Best<kBestAll>{});
+        } else {
+          sweep(Flag<true>{}, Best<kBestTested>{});
+        }
+      } else if constexpr (OVERLAP) {
+        // the end window crosses the last band (row len2) and, in a band
+        // above it, the chunks from column len1's first (lane 0's, at
+        // chunk len1 >> 5) on: an inner chunk before those reads no best
+        if (!inner) {
+          sweep(Flag<false>{}, Best<kBestTested>{});
+        } else if (feeds && q < (l1 >> 5)) {
+          sweep(Flag<true>{}, Best<kBestNone>{});
+        } else {
+          sweep(Flag<true>{}, Best<kBestTested>{});
+        }
+      } else if (inner && q != corner_q) {
+        sweep(Flag<true>{}, Best<kBestNone>{});
       } else {
-        sweep(Flag<false>{});
+        sweep(Flag<false>{}, Best<kBestNone>{});
       }
 
       __syncwarp();  // the chunk's ring writes are in
@@ -699,10 +776,59 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
       if (lane == 0) done[warp] = g + 1;
     }
   }
+  if constexpr (FREE) {
+    // the pair's best: the warp's over its lanes, then the block's over
+    // the warps, through done[], which no warp reads after the barrier
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lbest = max(lbest, __shfl_xor_sync(kFull, lbest, off));
+    __syncthreads();
+    if (lane == 0) done[warp] = lbest;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int best = 0;
+      for (int w = 0; w < W; ++w) best = max(best, done[w]);
+      scores[b] = best;
+    }
+  }
+}
+
+// Needleman-Wunsch on the pipeline (nw_scores, nw_fill_codes).
+template <bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2,
+    int A, int Bs, int m, int k, int d, int* bnd, unsigned* cbnd,
+    unsigned* __restrict__ codes, int* __restrict__ scores,
+    unsigned* __restrict__ counts, short* top16) {
+  pipe_fill<kGlobal, EMIT_CODES, WITH_COUNTS, TOP_SMEM>(
+      tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores, counts, top16);
+}
+
+// The LOCAL and OVERLAP score fills on the pipeline (sw_scores,
+// overlap_scores): a kernel of their own, so the global instantiations
+// keep their machine code.
+template <int MODE, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) free_pipe_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2,
+    int A, int Bs, int m, int k, int d, int* bnd, unsigned* cbnd,
+    unsigned* __restrict__ codes, int* __restrict__ scores,
+    unsigned* __restrict__ counts, short* top16) {
+  pipe_fill<MODE, false, false, TOP_SMEM>(
+      tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores, counts, top16);
+}
+
+template <int MODE, bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
+auto pipe_kernel() {
+  if constexpr (MODE == kGlobal) {
+    return nw_fill_pipe_kernel<EMIT_CODES, WITH_COUNTS, TOP_SMEM>;
+  } else {
+    return free_pipe_kernel<MODE, TOP_SMEM>;
+  }
 }
 
 // top16 null: the top in shared memory; else int16[B, pipe_top_cols(A)].
-template <bool EMIT_CODES, bool WITH_COUNTS>
+template <int MODE, bool EMIT_CODES, bool WITH_COUNTS>
 int launch_pipe(const int* tops, const int* sides, const int* lens1,
                 const int* lens2, int B, int A, int Bs, int m, int k, int d,
                 int warps, short* top16, int* bnd, unsigned* cbnd,
@@ -712,8 +838,8 @@ int launch_pipe(const int* tops, const int* sides, const int* lens1,
   if (warps < 1 || warps > kMaxWarps || A < 0 || Bs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = pipe_smem(warps, A, WITH_COUNTS, !top16);
-  auto kernel = top16 ? nw_fill_pipe_kernel<EMIT_CODES, WITH_COUNTS, false>
-                      : nw_fill_pipe_kernel<EMIT_CODES, WITH_COUNTS, true>;
+  auto kernel = top16 ? pipe_kernel<MODE, EMIT_CODES, WITH_COUNTS, false>()
+                      : pipe_kernel<MODE, EMIT_CODES, WITH_COUNTS, true>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -733,10 +859,10 @@ extern "C" int nw_scores(const int* tops, const int* sides, const int* lens1,
                          const int* lens2, int B, int A, int Bs, int m, int k,
                          int d, int warps, void* top16, int* bnd, int* scores,
                          void* stream) {
-  return launch_pipe<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                   d, warps, static_cast<short*>(top16), bnd,
-                                   nullptr, nullptr, scores, nullptr,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_pipe<kGlobal, false, false>(tops, sides, lens1, lens2, B, A, Bs,
+                                            m, k, d, warps, static_cast<short*>(top16),
+                                            bnd, nullptr, nullptr, scores, nullptr,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 // K2 port: scores, plus greedy codes (emit_codes) and/or uint32 counts
@@ -755,26 +881,27 @@ extern "C" int nw_fill_codes(const int* tops, const int* sides,
   auto cw = static_cast<unsigned*>(codes);
   auto ct = static_cast<unsigned*>(counts);
   if (emit_codes && with_counts)
-    return launch_pipe<true, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                   d, warps, t16, bnd, cb, cw, scores, ct, s);
+    return launch_pipe<kGlobal, true, true>(tops, sides, lens1, lens2, B, A, Bs, m,
+                                            k, d, warps, t16, bnd, cb, cw, scores, ct, s);
   if (emit_codes)
-    return launch_pipe<true, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                    d, warps, t16, bnd, cb, cw, scores, ct, s);
+    return launch_pipe<kGlobal, true, false>(tops, sides, lens1, lens2, B, A, Bs, m,
+                                             k, d, warps, t16, bnd, cb, cw, scores, ct, s);
   if (with_counts)
-    return launch_pipe<false, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                    d, warps, t16, bnd, cb, cw, scores, ct, s);
-  return launch_pipe<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
-                                   d, warps, t16, bnd, cb, cw, scores, ct, s);
+    return launch_pipe<kGlobal, false, true>(tops, sides, lens1, lens2, B, A, Bs, m,
+                                             k, d, warps, t16, bnd, cb, cw, scores, ct, s);
+  return launch_pipe<kGlobal, false, false>(tops, sides, lens1, lens2, B, A, Bs, m,
+                                            k, d, warps, t16, bnd, cb, cw, scores, ct, s);
 }
 
-// K22 / K15 / K18 port: int32 best local scores (>= 0).  bnd is
-// int32[B, A+1] scratch.
+// K22 / K15 / K18 port: int32 best local scores (>= 0), W = warps a
+// pair.  bnd is int32[B, A+1] scratch, top16 as nw_scores's.
 extern "C" int sw_scores(const int* tops, const int* sides, const int* lens1,
                          const int* lens2, int B, int A, int Bs, int m, int k,
-                         int d, int* bnd, int* best, void* stream) {
-  return launch_fill<false, false, kLocal>(tops, sides, lens1, lens2, B, A,
-                                           Bs, m, k, d, bnd, nullptr, nullptr,
-                                           best, nullptr,
+                         int d, int warps, void* top16, int* bnd, int* best,
+                         void* stream) {
+  return launch_pipe<kLocal, false, false>(tops, sides, lens1, lens2, B, A, Bs,
+                                           m, k, d, warps, static_cast<short*>(top16),
+                                           bnd, nullptr, nullptr, best, nullptr,
                                            static_cast<cudaStream_t>(stream));
 }
 
@@ -792,15 +919,15 @@ extern "C" int sw_fill_codes(const int* tops, const int* sides,
       static_cast<cudaStream_t>(stream), jstar, istar);
 }
 
-// K16 / K19 port: int32 best overlap scores (>= 0).  bnd is int32[B, A+1]
-// scratch.
+// K16 / K19 port: int32 best overlap scores (>= 0), W = warps a pair.
+// bnd is int32[B, A+1] scratch, top16 as nw_scores's.
 extern "C" int overlap_scores(const int* tops, const int* sides,
                               const int* lens1, const int* lens2, int B, int A,
-                              int Bs, int m, int k, int d, int* bnd, int* best,
-                              void* stream) {
-  return launch_fill<false, false, kOverlap>(tops, sides, lens1, lens2, B, A,
-                                             Bs, m, k, d, bnd, nullptr,
-                                             nullptr, best, nullptr,
+                              int Bs, int m, int k, int d, int warps, void* top16,
+                              int* bnd, int* best, void* stream) {
+  return launch_pipe<kOverlap, false, false>(tops, sides, lens1, lens2, B, A, Bs,
+                                             m, k, d, warps, static_cast<short*>(top16),
+                                             bnd, nullptr, nullptr, best, nullptr,
                                              static_cast<cudaStream_t>(stream));
 }
 

@@ -16,12 +16,13 @@ that cell back to row 0 or column 0.
   (``overlap.py:49-255``);
 * :func:`overlap_score_batch` — best overlap scores of a batch: one
   launch of ``overlap_scores`` (the port of K16 and K19's score mode) at
-  every batch size and side length;
+  every batch size and side length, W warps a pair on the pipeline of
+  ``nw_scores`` (W from :func:`nw_tpu_torch.ops.fill_banded.fill_warps`);
 * :func:`overlap_align_batch` — one overlap alignment a pair: sub-batches
   whose 2-bit codes fit
   :data:`nw_tpu_torch.models.needleman_wunsch.CODE_BUDGET_BYTES`, each one
-  ``overlap_fill_codes`` (K19's words + argmax mode: codes with STOP on
-  column 0, best, end cell), one ``sw_walk`` (the walk of the local
+  ``overlap_fill_codes`` (K19's words + argmax mode, one warp a pair:
+  codes with STOP on column 0, best, end cell), one ``sw_walk`` (the walk of the local
   codes, which stops at row 0, column 0 or STOP alike: for
   ``_overlap_walk_diag`` and ``_overlap_walk_device``) and the host
   strings;

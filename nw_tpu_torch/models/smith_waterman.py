@@ -11,7 +11,9 @@ walk (diag > left > up) from that cell back to the first cell of score 0.
   (``smith_waterman.py:25-138``);
 * :func:`sw_score_batch` — best local scores of a batch: one launch of
   ``sw_scores`` (the port of K22, K15 and K18's score mode) at every batch
-  size and side length;
+  size and side length, W warps a pair on the pipeline of ``nw_scores``
+  (W from :func:`nw_tpu_torch.ops.fill_banded.fill_warps`: 32 at 128 x
+  10 kb, 1 at 10 240 x 150 bp);
 * :func:`sw_align_batch` — one local alignment a pair: sub-batches whose
   2-bit codes fit :data:`nw_tpu_torch.models.needleman_wunsch.CODE_BUDGET_BYTES`,
   each one ``sw_fill_codes`` (K24 and K18's words mode: codes, best,
@@ -20,8 +22,9 @@ walk (diag > left > up) from that cell back to the first cell of score 0.
 
 ``device="cuda"`` (the default) launches the kernels and raises without a
 card; ``device="cpu"`` runs their plain versions.  There is no
-single-pair route: a small batch of very long pairs runs at one warp a
-pair, as ``nw_tpu`` has no single-pair SW engine either.
+single-pair route, as ``nw_tpu`` has no single-pair SW engine either: a
+small batch of very long pairs takes up to 32 warps a pair for its scores,
+and one warp a pair for its codes (``sw_fill_codes``).
 
 Every output follows ``nw_tpu``'s scan (``sw_fill_diag``) at every
 scoring.  At d < 0 or k < 0 ``nw_tpu``'s K22, K18 and K24, and so its

@@ -31,7 +31,9 @@ raises.  Each wrapper counts
 its launches in ``.launches``.
 
 ``nw_scores`` and ``nw_fill_codes`` run W warps on each pair, a pipeline
-of 32-row bands in one block (``csrc/nw_fill.cu``'s header):
+of 32-row bands in one block (``csrc/nw_fill.cu``'s header), as do
+``sw_scores`` and ``overlap_scores`` (:mod:`nw_tpu_torch.ops.variants_banded`,
+through :func:`_fill_scores_kernel`):
 :func:`fill_warps` picks W from the batch and its buckets, and
 :func:`fill_smem` gives a block's shared memory.  The block stages the
 pair's top string as int16, so top characters are the encoder's (byte
@@ -94,8 +96,8 @@ def _wrap_counts(counts: torch.Tensor) -> torch.Tensor:
 
 # ---------------- the pipeline's shape: W warps a pair ----------------
 
-# nw_scores and nw_fill_codes run a block of W warps on each pair (the
-# pipeline of csrc/nw_fill.cu); these mirror its limits
+# nw_scores, nw_fill_codes, sw_scores and overlap_scores run a block of W
+# warps on each pair (the pipeline of csrc/nw_fill.cu); these mirror its limits
 MAX_WARPS = 32  # a block of 1 024 threads
 SLOTS = 4  # the kernel's kSlots: 32-column chunk slots of a warp's ring
 SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on an H100
@@ -182,9 +184,10 @@ def fill_scores_banded_batch(tops, sides, lens1, lens2, m, k, d) -> torch.Tensor
 fill_scores_banded_batch.launches = 0
 
 
-def _fill_scores_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, warps=None):
-    """Launch ``nw_scores`` for ``wrapper`` (whose count it raises) at
-    ``warps`` warps a pair (default: :func:`fill_warps`)."""
+def _fill_scores_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, warps=None, entry="nw_scores"):
+    """Launch ``entry``, a score-only fill of the pipeline (``nw_scores``,
+    ``sw_scores`` or ``overlap_scores``), for ``wrapper`` (whose count it
+    raises) at ``warps`` warps a pair (default: :func:`fill_warps`)."""
     B, A, Bs = _dims(tops, sides)
     dev = tops.device
     scores = torch.empty(B, dtype=torch.int32, device=dev)
@@ -194,7 +197,7 @@ def _fill_scores_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, warps=None)
         top16 = _top_scratch(B, A, False, dev)
         bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
         kernels.launch(
-            "nw_scores", dev,
+            entry, dev,
             tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
             lens2.data_ptr(), B, A, Bs, m, k, d, warps,
             None if top16 is None else top16.data_ptr(),

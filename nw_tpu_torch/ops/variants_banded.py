@@ -40,12 +40,15 @@ plain PyTorch version in this module:
   (``nw_tpu/ops/variants_pallas.py:429 _affine_arrows_kernel``, 8-bit
   codes, sides <= 1 024).
 
-The first four are the ``LOCAL`` and ``OVERLAP`` modes of the batched
-fill kernel (``csrc/nw_fill.cu``), the last two the score and ``CODES``
-modes of ``csrc/nw_affine.cu``: one warp a pair, at every batch size and
-side length.  A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel or raises.  Each counts its launches
-in ``.launches``.
+The two score fills run the ``LOCAL`` and ``OVERLAP`` recurrences of the
+W-warp pipeline of ``csrc/nw_fill.cu`` (``nw_scores``'s: a block of W
+warps a pair, W from :func:`nw_tpu_torch.ops.fill_banded.fill_warps`,
+launched through :func:`nw_tpu_torch.ops.fill_banded._fill_scores_kernel`).
+The two code fills are the same modes of its one-warp kernel, the last
+two wrappers the score and ``CODES`` modes of ``csrc/nw_affine.cu``, both
+one warp a pair at every batch size and side length.  A wrapper given CPU
+tensors runs the plain version; given CUDA tensors it launches the kernel
+or raises.  Each counts its launches in ``.launches``.
 
 Inputs are those of :mod:`nw_tpu_torch.ops.fill_banded`.  Codes have
 ``nw_fill_codes``'s band-major layout with 0 diag / 1 left / 2 up /
@@ -68,7 +71,7 @@ from typing import Tuple
 
 import torch
 
-from nw_tpu_torch.ops.fill_banded import _check, _contig, _dims
+from nw_tpu_torch.ops.fill_banded import _check, _contig, _dims, _fill_scores_kernel
 from nw_tpu_torch.ops.fill_scan import (
     affine_fill_diag_batch,
     code_shape,
@@ -80,10 +83,10 @@ from nw_tpu_torch.ops.fill_scan import (
 from nw_tpu_torch.runtime import kernels
 
 
-def _launch_scores(wrapper, name, tops, sides, lens1, lens2, scoring, scratch_rows=1):
-    """Launch C entry point ``name`` for ``wrapper`` (whose count it
-    raises): one int32 score a pair, with ``scratch_rows`` int32 boundary
-    rows of A+1 columns a pair."""
+def _launch_scores(wrapper, name, tops, sides, lens1, lens2, scoring, scratch_rows):
+    """Launch C entry point ``name`` (one warp a pair: ``gotoh_scores``)
+    for ``wrapper`` (whose count it raises): one int32 score a pair, with
+    ``scratch_rows`` int32 boundary rows of A+1 columns a pair."""
     B, A, Bs = _dims(tops, sides)
     dev = tops.device
     scores = torch.empty(B, dtype=torch.int32, device=dev)
@@ -134,7 +137,7 @@ def sw_scores_banded_batch(tops, sides, lens1, lens2, m, k, d) -> torch.Tensor:
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return sw_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
-    return _launch_scores(sw_scores_banded_batch, "sw_scores", tops, sides, lens1, lens2, (m, k, d))
+    return _fill_scores_kernel(sw_scores_banded_batch, tops, sides, lens1, lens2, m, k, d, entry="sw_scores")
 
 
 sw_scores_banded_batch.launches = 0
@@ -174,8 +177,8 @@ def overlap_scores_banded_batch(tops, sides, lens1, lens2, m, k, d) -> torch.Ten
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return overlap_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
-    return _launch_scores(
-        overlap_scores_banded_batch, "overlap_scores", tops, sides, lens1, lens2, (m, k, d)
+    return _fill_scores_kernel(
+        overlap_scores_banded_batch, tops, sides, lens1, lens2, m, k, d, entry="overlap_scores"
     )
 
 

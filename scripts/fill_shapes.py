@@ -67,11 +67,11 @@ def main(argv) -> int:
         "codes": lambda T: fb.fill_greedy_counts_banded_batch(*T, 2, 1, 1),
         "codes+counts": lambda T: fb.fill_greedy_counts_banded_batch(*T, 2, 1, 1, with_counts=True),
     }
-    out = {label: cs.cuda_ms(lambda: public[mode](T), reps)
-           for label, mode, T, reps in cs.pipe_shapes(T3, T2, cs.k7_inputs(dev))}
+    shapes = cs.pipe_shapes(T3, T2, cs.k7_inputs(dev))
+    out = {label: cs.cuda_ms(lambda: public[mode](T), reps) for label, mode, T, reps in shapes}
     print(json.dumps({"root": str(root), "package": str(Path(fb.__file__).parent.parent), "ms": out}))
     if sweep:
-        cs.pipe_sweep(torch.cuda.get_device_name(0), T3)
+        cs.pipe_sweep(torch.cuda.get_device_name(0), [shape[:3] for shape in shapes[:2]])
     return 0
 
 

@@ -2,7 +2,7 @@
 CUDA source of nw_tpu_torch, to show that a change left some
 instantiations as they were.
 
-    python3 scripts/sass_compare.py OLD.cu NEW.cu
+    python3 scripts/sass_compare.py [--steps] OLD.cu NEW.cu
 
 Each source is compiled with the package's own nvcc flags
 (``nw_tpu_torch/runtime/kernels.py``), from its own directory (for its
@@ -13,9 +13,16 @@ false, false>`` is ``nw_fill_kernel<1, 0, 0>``) and the file's hash in
 the anonymous namespace's name left out.  For every kernel of OLD the
 script prints IDENTICAL or DIFFERENT (the instruction streams, addresses
 and encodings left out) and lists the kernels that only NEW has, each
-with its count of SASS instructions.  Exit
-status 1 when a kernel of OLD is missing from NEW or differs.  Needs the
-CUDA toolkit (``nvcc``, ``cuobjdump``).
+with its count of SASS instructions.
+``--steps`` also prints, for every kernel of NEW, the SASS instructions
+between consecutive ``SHFL.UP``s of each unrolled 32-step sweep, a
+step's where a step holds one (the score-only fills; with counts a step
+holds two): a run of ``SHFL.UP``s each fewer than 80 instructions after
+the last, cut into sweeps of 32 where its length is a multiple of 32 (the
+compiler lays a chunk's variants one after another), gives one mean
+distance a sweep.  Exit status 1
+when a kernel of OLD is missing from NEW or differs.  Needs the CUDA
+toolkit (``nvcc``, ``cuobjdump``).
 """
 
 from __future__ import annotations
@@ -57,11 +64,34 @@ def sass(src: Path, tmpdir: str) -> dict:
     return out
 
 
+def sweep_steps(code) -> list:
+    """Instructions a step of each unrolled sweep of a kernel's listing."""
+    at = [i for i, ins in enumerate(code) if ins.split()[0].startswith("SHFL.UP")
+          or (ins.startswith("@") and ins.split()[1].startswith("SHFL.UP"))]
+    runs, run = [], at[:1]
+    for i in at[1:]:
+        if i - run[-1] < 80:
+            run.append(i)
+        else:
+            runs.append(run)
+            run = [i]
+    runs.append(run)
+    sweeps = []
+    for r in runs:
+        if len(r) % 32 == 0:
+            sweeps += [r[i : i + 32] for i in range(0, len(r), 32)]
+        elif len(r) >= 16:
+            sweeps.append(r)
+    return [round((r[-1] - r[0]) / (len(r) - 1), 1) for r in sweeps]
+
+
 def main(argv) -> int:
-    if len(argv) != 3:
+    steps = "--steps" in argv
+    paths = [a for a in argv[1:] if a != "--steps"]
+    if len(paths) != 2:
         print(__doc__)
         return 2
-    old, new = (Path(p).resolve() for p in argv[1:])
+    old, new = (Path(p).resolve() for p in paths)
     with tempfile.TemporaryDirectory() as tmpdir:
         a, b = sass(old, tmpdir), sass(new, tmpdir)
     same = True
@@ -69,8 +99,12 @@ def main(argv) -> int:
         verdict = "MISSING" if name not in b else ("IDENTICAL" if b[name] == code else "DIFFERENT")
         same &= verdict == "IDENTICAL"
         print(f"{verdict} {name} ({len(code)} -> {len(b.get(name, []))} instructions)")
+        if steps:
+            print(f"  steps: old {sweep_steps(code)} new {sweep_steps(b.get(name, []))}")
     for name in sorted(set(b) - set(a)):
         print(f"NEW ONLY {name} ({len(b[name])} instructions)")
+        if steps:
+            print(f"  steps: {sweep_steps(b[name])}")
     print("SASS_SAME" if same else "SASS_DIFFERS")
     return 0 if same else 1
 

@@ -577,6 +577,78 @@ def test_overlap_scores_kernel_vs_plain(cuda, mkd):
 
 # the best on the last column in band 0 and on the last row in band 2
 OVERLAP_TWO_BANDS = (b"C" * 20 + b"G" * 40 + b"A" * 20, b"A" * 20 + b"T" * 30 + b"C" * 20)
+# sw_scores / overlap_scores on the pipeline at forced warps a pair
+FREE_WARPS = [1, 2, 3, 4, 8, 16, 32]
+MOTIF = b"ACGTTGCAACGT"
+
+
+def _placed_pairs():
+    """Pairs whose best (SW and overlap) ends in band W, on warp 0 again
+    after a round of W warps (W = 2, 3, 4, 8, 16, 32), or in band 1, on
+    warp 1: the side's last 12 rows match the top's first 12 columns over
+    G / C filler, so the best (24 at 2 1 1) lies on the last row; and
+    equal bests in bands 0 and 1."""
+    out = [(MOTIF + b"C" * 30, b"G" * (32 * W + 20 - len(MOTIF)) + MOTIF) for W in (1, 2, 3, 4, 8, 16, 32)]
+    out.append((b"C" * 9 + MOTIF + b"C" * 20, b"G" * 8 + MOTIF + b"G" * 30 + MOTIF + b"G" * 9))
+    return out + [OVERLAP_TWO_BANDS]
+
+
+def _free_batches(seed, device):
+    """_pipe_batches' two buckets (5 and 35 bands), the second with the
+    placed pairs."""
+    out = _pipe_batches(seed, device)
+    cpu, _ = out[1]
+    extra = enc.upload(enc.encode_batch(_placed_pairs(), 1100, 1100), "cpu")
+    cpu = [torch.cat([x, y]) for x, y in zip(cpu, extra)]
+    return [out[0], (cpu, [x.to(device) for x in cpu])]
+
+
+@pytest.mark.parametrize("kind", ["sw", "overlap"])
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_free_scores_at_forced_warps_vs_plain(cuda, mkd, kind):
+    """sw_scores / overlap_scores on the pipeline at W = 1, 2, 3, 4, 8,
+    16, 32 and at the rule's W, bit for bit against the plain version and
+    equal to the codes kernel's best (one warp a pair)."""
+    wrapper = getattr(variants_banded, f"{kind}_scores_banded_batch")
+    plain = getattr(variants_banded, f"{kind}_scores_banded_batch_plain")
+    codes = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")
+    for cpu, dev in _free_batches(sum(mkd) % 89 + 21, cuda):
+        want = plain(*cpu, *mkd)
+        torch.testing.assert_close(codes(*dev, *mkd)[1].cpu(), want, rtol=0, atol=0)
+        torch.testing.assert_close(wrapper(*dev, *mkd).cpu(), want, rtol=0, atol=0)
+        for warps in FREE_WARPS:
+            got = fill_banded._fill_scores_kernel(wrapper, *dev, *mkd, warps=warps, entry=f"{kind}_scores")
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, msg=f"W = {warps}")
+
+
+@pytest.mark.parametrize("kind", ["sw", "overlap"])
+def test_free_scores_with_the_top_in_device_memory(cuda, kind):
+    """sw_scores / overlap_scores with a top past a block's shared memory
+    (117 000 columns; ~115 000 fit), staged in device memory: W = 1, 3, 32
+    and the rule's W against the codes kernel's best (one warp a pair,
+    the top read from device memory), under 2 1 1 and a wrapping scoring.
+    The first pair's side holds 200 columns of its top from column
+    116 000 (the local best past the columns that fit), the second's ends
+    with its top's last 300 (the overlap best on the last row)."""
+    rng = np.random.default_rng(37)
+    A, Bs = 117_000, 1_600  # 50 bands
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    tops = [letters[rng.integers(0, 4, a)].tobytes() for a in (A, A - 7, A - 30_000)]
+    sides = [letters[rng.integers(0, 4, s)].tobytes() for s in (Bs, Bs - 340, 33)]
+    sides[0] = sides[0][:700] + tops[0][116_000:116_200] + sides[0][900:]
+    sides[1] += tops[1][-300:]
+    dev = enc.upload(enc.encode_batch(list(zip(tops, sides)), A, Bs), cuda)
+    assert not fill_banded.top_in_smem(A, False)
+    wrapper = getattr(variants_banded, f"{kind}_scores_banded_batch")
+    codes = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")
+    for mkd in [(2, 1, 1), (1, 1, 2**30)]:
+        want = codes(*dev, *mkd)[1].cpu().tolist()
+        if mkd == (2, 1, 1):  # the planted best
+            assert want[0 if kind == "sw" else 1] >= 400
+        assert wrapper(*dev, *mkd).cpu().tolist() == want, mkd
+        for warps in (1, 3, 32):
+            got = fill_banded._fill_scores_kernel(wrapper, *dev, *mkd, warps=warps, entry=f"{kind}_scores")
+            assert got.cpu().tolist() == want, (mkd, warps)
 
 
 @pytest.mark.parametrize("mkd", SW_SCORINGS)
