@@ -100,14 +100,14 @@ Phases, in order; any mismatch or exception exits non-zero:
    and 10 240 x 150 bp (scores equal at both W) and the sweep of W
    (``SWEEP_WARPS``) at 128 x 10 240 bp.
 
-10. Overlap and Gotoh scores: (a) ``overlap_scores`` (at the rule's W and
-   every W of ``PIPE_WARPS``), ``overlap_fill_codes`` (codes, best, end
-   cell) with ``sw_walk`` on its codes, and ``gotoh_scores`` bit for bit
-   against their plain versions (phase 9's pairs and a pair whose best
-   lies on the last column in band 0 and on the last row in band 2;
-   overlap under phase 9's scorings, Gotoh
-   under (2,1,3,1), (1,1,1,1), (0,0,0,0), (3,-1,2,1), (2,1,1,3),
-   (1,1,-1,-1) and (1,1,2^28,2^28)); then, with every launch counter set
+10. Overlap and Gotoh scores: (a) ``overlap_scores`` and ``gotoh_scores``
+   (each at the rule's W and every W of ``PIPE_WARPS``),
+   ``overlap_fill_codes`` (codes, best, end cell) with ``sw_walk`` on its
+   codes bit for bit against their plain versions (phase 9's pairs and a
+   pair whose best lies on the last column in band 0 and on the last row
+   in band 2; overlap under phase 9's scorings, Gotoh under (2,1,3,1),
+   (1,1,1,1), (0,0,0,0), (3,-1,2,1), (2,1,1,3), (1,1,-1,-1) and
+   (1,1,2^28,2^28)); then, with every launch counter set
    to 0, (b) ``overlap_align_batch`` of 128 x 3 072 bp and 4 096 x 150 bp,
    ``overlap_score_batch`` of 10 240 x 150 bp and 128 x 10 240 bp, at
    (2,1,1), and ``affine_score_pairs`` of 10 240 x 150 bp and 128 x
@@ -121,11 +121,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``align_batch``'s scores at (2,1,1) (open == extend, k < 2 open: the
    linear score); (c) walls (median of 4 warm runs), pairs/s, GCUPS, each
    kernel's time beside its plain version's and its bound, and
-   ``overlap_scores``' turns and sweep of W as phase 9's.
+   ``overlap_scores``' and ``gotoh_scores``' turns and sweeps of W as
+   phase 9's.
 
 11. Gotoh tracebacks and the batch CLI: (a) ``gotoh_fill_codes`` (4-bit
    codes, scores, corner states; the scores also against
-   ``gotoh_scores``) and ``gotoh_walk`` bit for bit against their plain
+   ``gotoh_scores``; at the rule's W and every W of ``PIPE_WARPS``) and
+   ``gotoh_walk`` (on each W's codes) bit for bit against their plain
    versions (phase 9's pairs and the edge pairs, under phase 10's seven
    Gotoh scorings, (3,1,4,0) and (1,1,1,2^29)); then, with every launch
    counter set to 0, (b) ``affine_align_batch`` of 128 x 3 072 bp
@@ -139,7 +141,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``--checkpoint-dir``, byte-equal to ``NW_TPU_PLATFORM=cpu``, and
    ``python3 -m nw_tpu_torch.batch_cli`` once; (c) walls (median of 4
    warm runs), pairs/s, GCUPS, each kernel's time beside its plain
-   version's and its bound, the walk's ns a step, and the host
+   version's and its bound, the walk's ns a step, ``gotoh_fill_codes`` at
+   W = 1 against the rule's W in turns at 128 x 3 072 bp and 4 096 x
+   150 bp and the sweep of W at 128 x 3 072 bp, and the host
    ``ops_to_strings_batch``, native against numpy, at config 3 and at
    4 096 x 150 bp.
 
@@ -235,7 +239,7 @@ tie mask, 2 more for the local clamp and running best, 3 more for the
 local argmax and STOP, 4 more for overlap's end window and running best
 (the scores' bound charges them to the window's len1 + len2 cells a
 pair, the function's work; the codes' to every cell), 2 more for its
-argmax; 11 for a Gotoh score, 12 more for its 4-bit code
+argmax; 10 for a Gotoh score, 12 more for its 4-bit code
 (``OPS_GOTOH_CODE``); 9 more than a code for a run byte (``OPS_RUN``);
 12 a walk step, or a run walk's load) over the card's SMs x 64 INT32
 lanes x ``clocks.max.sm``, and its bytes (inputs read once, outputs
@@ -282,9 +286,10 @@ OPS_LOCAL, OPS_ARGMAX = 2, 3  # Smith-Waterman: clamp + running best; kk select 
 # overlap: the end window's two compares, the score compare and the
 # running best's select; the kk add and its select (no per-cell STOP)
 OPS_OVERLAP, OPS_OVERLAP_ARGMAX = 4, 2
-# Gotoh: the substitution's compare and select, M's add, two subtracts
-# and a max each for IX and IY, two maxes for best
-OPS_GOTOH = 11
+# Gotoh: the substitution's compare and select, M's add, one M - open
+# (IX's and IY's open alike), an extend subtract and a max each for IX
+# and IY, two maxes for best
+OPS_GOTOH = 10
 # Gotoh's codes: the argmax state's two compares and two selects, the
 # extend bits' two compares, the code's two shifts and two ors, the
 # pack's shift and or (the padded sweep's guards are not the function's)
@@ -1634,9 +1639,11 @@ def variant_kernels_vs_plain(dev, errs):
             if cell != (40, 70, 20):
                 fail(f"overlap_fill_codes: the two-band pair gives {cell}, not (40, 70, 20)")
     for sc in GOTOH_SCORINGS:
-        e = max_abs_err(vb.affine_scores_banded_batch(*batch, *sc), vb.affine_scores_banded_batch_plain(*batch, *sc))
+        want = vb.affine_scores_banded_batch_plain(*batch, *sc)
+        e = max(max_abs_err(pipe_fill("gotoh", batch, sc, W)[0], want) for W in (*PIPE_WARPS, None))
         errs["gotoh_scores"] = max(errs["gotoh_scores"], e)
-        log(f"gotoh_scores vs plain, {len(pairs)} pairs {L1}x{L2}, m k open extend = {sc}: {e}")
+        log(f"gotoh_scores vs plain at W in {PIPE_WARPS} and the rule's {pipe_rule('gotoh', batch)}, "
+            f"{len(pairs)} pairs {L1}x{L2}, m k open extend = {sc}: {e}")
     if any(errs.values()):
         fail(f"an overlap or Gotoh kernel differs from its plain version: {errs}")
 
@@ -1817,13 +1824,15 @@ def variants_phase(card, bound):
                    f"bound {b_10k['bound_ms']:.3f} ms {b_10k['bound_by']}, plain {plain[f'{cfg}128x10240']:.1f} ms "
                    f"at 4 pairs)"),
         )
-    shapes = [(f"overlap_scores 128x{L_LONG}bp", "overlap", b10k, 2),
-              (f"overlap_scores {len(b150[0])}x{L_SHORT}bp", "overlap", b150, 20)]
-    (w10k, one10k, _), (w150, one150, _) = pipe_turns(card, shapes).values()
-    pipe_sweep(card, [shapes[0][:3]])
-    rec["overlap_scores"].update(warps=w150, one_warp_ms=statistics.median(one150))
-    rec["overlap_scores"]["shape"] += (f"; {w150} warp(s) a pair, at 128x{L_LONG}bp W = {w10k}, W = 1 "
-                                       f"{statistics.median(one10k):.3f} ms in turns")
+    shapes = [(f"{kname} {len(b[0])}x{L}bp", mode, b, reps)
+              for kname, mode in (("overlap_scores", "overlap"), ("gotoh_scores", "gotoh"))
+              for b, L, reps in ((b10k, L_LONG, 2), (b150, L_SHORT, 20))]
+    turns = list(pipe_turns(card, shapes).values())
+    pipe_sweep(card, [shapes[0][:3], shapes[2][:3]])  # at 128 x 10 240 bp
+    for kname, (w10k, one10k, _), (w150, one150, _) in (("overlap_scores", *turns[:2]), ("gotoh_scores", *turns[2:])):
+        rec[kname].update(warps=w150, one_warp_ms=statistics.median(one150))
+        rec[kname]["shape"] += (f"; {w150} warp(s) a pair, at 128x{L_LONG}bp W = {w10k}, W = 1 "
+                                f"{statistics.median(one10k):.3f} ms in turns")
     del b10k
     pairs3k = configs["overlap_align128x3072"][1]
     b3k = batch_of(pairs3k)
@@ -1874,17 +1883,20 @@ def gotoh_kernels_vs_plain(dev, errs):
     errs.setdefault("gotoh_fill_codes", 0)
     errs.setdefault("gotoh_walk", 0)
     for sc in GOTOH_ALIGN_SCORINGS:
-        got = vb.affine_fill_codes_banded_batch(*batch, *sc)
         want = vb.affine_fill_codes_banded_batch_plain(*batch, *sc)
-        e_f = max([max_abs_err(g, w) for g, w in zip(got, want)]
-                  + [max_abs_err(got[1], vb.affine_scores_banded_batch(*batch, *sc))])
-        walk_k = tb.walk_gotoh_codes_batch(got[0], l1, l2, got[2], L1 + L2)
         walk_p = tb.walk_gotoh_codes_batch_plain(want[0], l1, l2, want[2], L1 + L2)
-        e_w = max(max_abs_err(g, w) for g, w in zip(walk_k, walk_p))
+        e_f = e_w = 0
+        for W in (*PIPE_WARPS, None):
+            got = pipe_fill("gotoh_codes", batch, sc, W)
+            e_f = max([e_f] + [max_abs_err(g, w) for g, w in zip(got, want)]
+                      + [max_abs_err(got[1], vb.affine_scores_banded_batch(*batch, *sc))])
+            walk_k = tb.walk_gotoh_codes_batch(got[0], l1, l2, got[2], L1 + L2)
+            e_w = max([e_w] + [max_abs_err(g, w) for g, w in zip(walk_k, walk_p)])
         torch.cuda.synchronize()
         errs["gotoh_fill_codes"] = max(errs["gotoh_fill_codes"], e_f)
         errs["gotoh_walk"] = max(errs["gotoh_walk"], e_w)
-        log(f"Gotoh codes and walk vs plain, {len(pairs)} pairs {L1}x{L2}, m k open extend = {sc}: "
+        log(f"Gotoh codes and walk vs plain at W in {PIPE_WARPS} and the rule's "
+            f"{pipe_rule('gotoh_codes', batch)}, {len(pairs)} pairs {L1}x{L2}, m k open extend = {sc}: "
             f"gotoh_fill_codes {e_f} gotoh_walk {e_w}")
     if any(errs.values()):
         fail(f"a Gotoh traceback kernel differs from its plain version: {errs}")
@@ -2082,6 +2094,13 @@ def gotoh_phase(card, bound, c3_strings):
     log(f"gotoh_fill_codes 4096x{L_SHORT}bp: {ms_fill150:.3f} ms, bound "
         f"{bound(len(pairs150) * L_SHORT * L_SHORT * (OPS_GOTOH + OPS_GOTOH_CODE), tensor_bytes(*b150, codes150))['bound_ms']:.4f} ms [{card}]")
     del codes150
+    shapes = [(f"gotoh_fill_codes {len(b[0])}x{L}bp", "gotoh_codes", b, reps)
+              for b, L, reps in ((b3k, L_SW_TB, 2), (b150, L_SHORT, 10))]
+    (w3k, one3k, _), (w150, one150, _) = pipe_turns(card, shapes).values()
+    pipe_sweep(card, [shapes[0][:3]])
+    rec["gotoh_fill_codes"].update(warps=w3k, one_warp_ms=statistics.median(one3k))
+    rec["gotoh_fill_codes"]["shape"] += (f"; {w3k} warps a pair, W = 1 {statistics.median(one3k):.3f} ms in "
+                                         f"turns; at 4096x{L_SHORT}bp W = {w150}, {statistics.median(one150):.3f} ms")
     for name in rec:
         rec[name].update(launches=launches[name], max_abs_err=errs[name])
         log(f"{name}: {rec[name]['ms']:.3f} ms at {rec[name]['shape']}, bound {rec[name]['bound_ms']:.4f} ms "
@@ -3202,9 +3221,9 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
 
 
 # the pipeline at a forced W (warps a pair): phase 3 holds nw_scores and
-# nw_fill_codes at each W against plain, phases 9 and 10 sw_scores and
-# overlap_scores; phases 5, 9 and 10 time W = 1 against the rule's in
-# turns and sweep W
+# nw_fill_codes at each W against plain, phases 9 and 10 sw_scores,
+# overlap_scores and gotoh_scores, phase 11 gotoh_fill_codes; phases 5
+# and 9-11 time W = 1 against the rule's in turns and sweep W
 PIPE_WARPS = (1, 2, 3, 4, 8, 16, 32)
 SWEEP_WARPS = (1, 2, 4, 8, 16, 32)
 PIPE_MODES = ("scores", "counts", "codes", "codes+counts")
@@ -3212,13 +3231,18 @@ PIPE_MODES = ("scores", "counts", "codes", "codes+counts")
 
 def pipe_fill(mode, T, mkd, warps=None):
     """``nw_scores`` (mode "scores"), ``sw_scores`` ("sw"),
-    ``overlap_scores`` ("overlap") or ``nw_fill_codes`` counts-only,
-    codes or codes + counts on T = (tops, sides, lens1, lens2) at
-    ``warps`` warps a pair (None: ``fill_warps``'s); the outputs the mode
-    has."""
+    ``overlap_scores`` ("overlap"), ``gotoh_scores`` ("gotoh"),
+    ``gotoh_fill_codes`` ("gotoh_codes") or ``nw_fill_codes``
+    counts-only, codes or codes + counts on T = (tops, sides, lens1,
+    lens2) under scoring ``mkd`` at ``warps`` warps a pair (None: the
+    rule's); the outputs the mode has."""
     from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import variants_banded as vb
 
+    if mode == "gotoh":
+        return (vb.affine_scores_banded_batch(*T, *mkd, warps=warps),)
+    if mode == "gotoh_codes":
+        return vb.affine_fill_codes_banded_batch(*T, *mkd, warps=warps)
     if mode == "scores":
         return (fb._fill_scores_kernel(fb.fill_scores_banded_batch, *T, *mkd, warps=warps),)
     if mode in ("sw", "overlap"):
@@ -3265,11 +3289,21 @@ def pipe_vs_plain(T, mkd, errs):
 
 
 def pipe_rule(mode, T):
-    """``fill_warps``'s W for ``mode`` on T on this card."""
+    """The rule's W for ``mode`` on T on this card: ``fill_warps``, or
+    for the Gotoh modes ``gotoh_warps``."""
     from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import variants_banded as vb
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return fb.fill_warps(T[0].shape[0], T[0].shape[1], T[1].shape[1], mode in ("counts", "codes+counts"), sms)
+    if mode in ("gotoh", "gotoh_codes"):
+        return vb.gotoh_warps(T[0].shape[0], T[0].shape[1], T[1].shape[1], mode == "gotoh_codes", sms)
+    return fb.fill_warps(T[0].shape[0], T[0].shape[1], T[1].shape[1],
+                         8 if mode in ("counts", "codes+counts") else 4, sms)
+
+
+def pipe_scoring(mode):
+    """The scoring phases 5, 9-11 time ``mode`` at: 2 1 1, Gotoh's 2 1 3 1."""
+    return (2, 1, 3, 1) if mode in ("gotoh", "gotoh_codes") else (2, 1, 1)
 
 
 def k7_inputs(dev):
@@ -3297,21 +3331,21 @@ def pipe_shapes(T3, T2, T7):
 
 
 def pipe_turns(card, shapes):
-    """Phase 5: each (label, mode, T, reps) of ``shapes`` at W = 1 and at
-    the rule's W, timed in turns (1, rule, rule, 1), after checking that
-    both give the same outputs on the card (scoring 2 1 1).  Returns
+    """Phases 5, 9-11: each (label, mode, T, reps) of ``shapes`` at W = 1
+    and at the rule's W, timed in turns (1, rule, rule, 1), after checking
+    that both give the same outputs on the card (``pipe_scoring``).  Returns
     {label: (rule's W, [ms at W = 1], [ms at the rule's W])}."""
     out = {}
     for label, mode, T, reps in shapes:
-        rule = pipe_rule(mode, T)
-        a = pipe_fill(mode, T, (2, 1, 1), 1)
-        b = pipe_fill(mode, T, (2, 1, 1), rule)
+        rule, sc = pipe_rule(mode, T), pipe_scoring(mode)
+        a = pipe_fill(mode, T, sc, 1)
+        b = pipe_fill(mode, T, sc, rule)
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             fail(f"{label}: the outputs at W = {rule} differ from W = 1")
         del a, b
         times = {"one": [], "rule": []}
         for key, W in (("one", 1), ("rule", rule), ("rule", rule), ("one", 1)):
-            times[key].append(cuda_ms(lambda: pipe_fill(mode, T, (2, 1, 1), W), reps))
+            times[key].append(cuda_ms(lambda: pipe_fill(mode, T, sc, W), reps))
         out[label] = (rule, times["one"], times["rule"])
         log(f"turns {label}: W = 1 {[round(x, 3) for x in times['one']]} ms, W = {rule} (the rule's) "
             f"{[round(x, 3) for x in times['rule']]} ms (outputs equal) [{card}]")
@@ -3319,10 +3353,10 @@ def pipe_turns(card, shapes):
 
 
 def pipe_sweep(card, shapes):
-    """Phases 5, 9 and 10: each (label, mode, T) of ``shapes`` at every W
+    """Phases 5, 9-11: each (label, mode, T) of ``shapes`` at every W
     of ``SWEEP_WARPS`` (one warm-up, one timed run each)."""
     for label, mode, T in shapes:
-        ms = {W: cuda_ms(lambda: pipe_fill(mode, T, (2, 1, 1), W), 1) for W in SWEEP_WARPS}
+        ms = {W: cuda_ms(lambda: pipe_fill(mode, T, pipe_scoring(mode), W), 1) for W in SWEEP_WARPS}
         log(f"sweep {label} (the rule's W {pipe_rule(mode, T)}): "
             + ", ".join(f"W={W} {x:.3f} ms" for W, x in ms.items()) + f" [{card}]")
 
@@ -3569,7 +3603,7 @@ def main() -> None:
     T7 = k7_inputs(dev)
     for mode, T in (("codes+counts", T3), ("scores", T3[:128]), ("counts", (tops3[:1], sides3[:1], l13[:1], l23[:1]))):
         log(f"pipeline shared memory, {mode} {T[0].shape[0]}x{T[0].shape[1]}bp at W = {pipe_rule(mode, T)}: "
-            f"{fb.fill_smem(pipe_rule(mode, T), T[0].shape[1], mode != 'scores')} bytes")
+            f"{fb.fill_smem(pipe_rule(mode, T), T[0].shape[1], 4 if mode == 'scores' else 8)} bytes")
     shapes = pipe_shapes(T3, T2, T7)
     turns = pipe_turns(card, shapes)
     turn_c, turn_s = turns[shapes[2][0]], turns[shapes[3][0]]  # the records' shapes

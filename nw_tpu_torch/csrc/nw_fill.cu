@@ -35,7 +35,9 @@
 // nw_fill_codes) and the LOCAL and OVERLAP score fills
 // (free_pipe_kernel: sw_scores, overlap_scores).  nw_fill_kernel runs one
 // warp a pair: the LOCAL and OVERLAP code fills (sw_fill_codes,
-// overlap_fill_codes) and the MASKS and RUNS modes below.
+// overlap_fill_codes) and the MASKS and RUNS modes below.  The
+// pipeline's protocol (its waits, fences and staging) lives in
+// nw_common.cuh, which nw_affine.cu's Gotoh fills run too.
 //
 // The band sweep, common to both.  The side string's rows are cut into
 // bands of 32 rows, one row per lane; at step t lane jj computes cell
@@ -228,7 +230,17 @@
 
 namespace {
 
+using nw::Flag;
 using nw::kFull;
+using nw::kMaxWarps;
+using nw::kRing;
+using nw::kSidePad;
+using nw::kSlots;
+using nw::pipe_post;
+using nw::pipe_smem;
+using nw::pipe_stage_top;
+using nw::pipe_top_cols;
+using nw::pipe_wait;
 using nw::wadd;
 using nw::wmul;
 using nw::wsub;
@@ -493,12 +505,7 @@ int launch_fill(const int* tops, const int* sides, const int* lens1,
 
 // ---------------- the pipeline: W warps a pair (nw_scores, nw_fill_codes, sw_scores, overlap_scores) ----------------
 
-constexpr int kMaxWarps = 32;  // warps a block of the pipeline
-constexpr int kSlots = 4;      // 32-column chunk slots of a warp's ring
-constexpr int kRing = 32 * kSlots;
-constexpr int kTopPad = -4;    // the staged top outside columns 1..A
-constexpr int kSidePad = -5;   // a side row past Bs
-constexpr int kGlobal = 0;     // the pipeline's Needleman-Wunsch recurrence (kLocal, kOverlap above)
+constexpr int kGlobal = 0;  // the pipeline's Needleman-Wunsch recurrence (kLocal, kOverlap above)
 // the cells of a chunk whose scores the running best of LOCAL / OVERLAP reads
 constexpr int kBestNone = 0;    // none (every chunk of the global sweep)
 constexpr int kBestAll = 1;     // all (LOCAL: a chunk inside the true rectangle)
@@ -509,22 +516,7 @@ constexpr int kBestTested = 2;  // those in the lane's window of columns [lo, hi
 template <bool WITH_COUNTS> struct Cell { using type = int; };
 template <> struct Cell<true> { using type = int2; };
 
-template <bool B> struct Flag { static constexpr bool value = B; };
 template <int V> struct Best { static constexpr int value = V; };
-
-// The staged top string's columns: 32*nchunks + 32.
-__host__ __device__ inline int pipe_top_cols(int A) {
-  return 32 * ((A + 1 + 31 + 31) >> 5) + 32;
-}
-
-// Dynamic shared memory of a pipeline block, in bytes: the W rings and
-// warp 0's staged row above (a Cell a column), done[W], and (TOP_SMEM)
-// the int16 top string.
-// (nw_tpu_torch/ops/fill_banded.py:fill_smem computes the same.)
-__host__ __device__ inline int pipe_smem(int warps, int A, bool with_counts, bool top_smem) {
-  const int words = warps + (warps * kRing + 32) * (with_counts ? 2 : 1);
-  return 4 * words + (top_smem ? 2 * pipe_top_cols(A) : 0);
-}
 
 // The pipeline's body, for the recurrence MODE (kGlobal, kLocal or
 // kOverlap; the free ones score-only).  TOP_SMEM: the top string is
@@ -568,10 +560,7 @@ __device__ __forceinline__ void pipe_fill(
 
   // the top string, row 0 (-c*d, one path; 0 in the free fills) into the
   // boundary row, counters
-  for (int x = threadIdx.x; x < pipe_top_cols(A); x += blockDim.x) {
-    const int c = x - 31;
-    top_s[x] = static_cast<short>(c >= 1 && c <= A ? top[c - 1] : kTopPad);
-  }
+  pipe_stage_top(top_s, top, A);
   for (int c = threadIdx.x; c < M; c += blockDim.x) {
     brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
     if (WITH_COUNTS) crow[c] = 1u;
@@ -621,11 +610,7 @@ __device__ __forceinline__ void pipe_fill(
       const int t0 = q << 5;
       // the row above's columns t0 .. t0+31 are in (the band above has
       // completed chunk q+1), and this chunk's slots have been read
-      const int need_in = in_base + min(q + 2, nchunks);
-      const int need_out = g - kSlots + 1;
-      while (done[in_warp] < need_in || (to_ring && done[warp + 1] < need_out)) {
-      }
-      __threadfence_block();
+      pipe_wait(done, in_warp, in_base + min(q + 2, nchunks), to_ring, warp + 1, g - kSlots + 1);
       const C* above = in_ring + (g & (kSlots - 1)) * 32;
       if (warp == 0) {  // stage the chunk of the boundary row
         const int cx = t0 + lane;
@@ -771,9 +756,7 @@ __device__ __forceinline__ void pipe_fill(
           }
         }
       }
-      __threadfence_block();  // the chunk's reads and writes precede its count
-      __syncwarp();
-      if (lane == 0) done[warp] = g + 1;
+      pipe_post(done, warp, lane, g);
     }
   }
   if constexpr (FREE) {
@@ -837,7 +820,7 @@ int launch_pipe(const int* tops, const int* sides, const int* lens1,
   if (B <= 0) return 0;
   if (warps < 1 || warps > kMaxWarps || A < 0 || Bs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = pipe_smem(warps, A, WITH_COUNTS, !top16);
+  const int smem = pipe_smem(warps, A, sizeof(typename Cell<WITH_COUNTS>::type), !top16);
   auto kernel = top16 ? pipe_kernel<MODE, EMIT_CODES, WITH_COUNTS, false>()
                       : pipe_kernel<MODE, EMIT_CODES, WITH_COUNTS, true>();
   if (smem > 48 * 1024) {

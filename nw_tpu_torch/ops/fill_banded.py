@@ -33,7 +33,8 @@ its launches in ``.launches``.
 ``nw_scores`` and ``nw_fill_codes`` run W warps on each pair, a pipeline
 of 32-row bands in one block (``csrc/nw_fill.cu``'s header), as do
 ``sw_scores`` and ``overlap_scores`` (:mod:`nw_tpu_torch.ops.variants_banded`,
-through :func:`_fill_scores_kernel`):
+through :func:`_fill_scores_kernel`) and, with cells of their own,
+``gotoh_scores`` and ``gotoh_fill_codes`` (``csrc/nw_affine.cu``):
 :func:`fill_warps` picks W from the batch and its buckets, and
 :func:`fill_smem` gives a block's shared memory.  The block stages the
 pair's top string as int16, so top characters are the encoder's (byte
@@ -114,32 +115,34 @@ def top_cols(A: int) -> int:
     return 32 * ((A + 1 + 62) // 32) + 32
 
 
-def fill_smem(warps: int, A: int, with_counts: bool, staged: bool = True) -> int:
+def fill_smem(warps: int, A: int, cell: int, staged: bool = True) -> int:
     """Bytes of dynamic shared memory of one pipeline block (the kernel's
-    ``pipe_smem``): the warps' chunk counters, rings (and count rings),
-    warp 0's staged row above, and, when ``staged``, the top string as
-    int16."""
-    words = warps + (warps * 32 * SLOTS + 32) * (2 if with_counts else 1)
-    return 4 * words + (2 * top_cols(A) if staged else 0)
+    ``pipe_smem``): the warps' chunk counters, rings and warp 0's staged
+    row above (``cell`` bytes a column: 4 for a score, 8 for a score and
+    a count, Gotoh's ``variants_banded.GOTOH_CELL``), and, when
+    ``staged``, the top string as int16."""
+    return 4 * warps + cell * (warps * 32 * SLOTS + 32) + (2 * top_cols(A) if staged else 0)
 
 
-def top_in_smem(A: int, with_counts: bool) -> bool:
+def top_in_smem(A: int, cell: int) -> bool:
     """Whether a block stages an A-column top in shared memory (it fits
-    beside one warp's ring), else in device memory."""
-    return fill_smem(1, A, with_counts) <= SMEM_LIMIT
+    beside one warp's ring of ``cell``-byte columns), else in device
+    memory."""
+    return fill_smem(1, A, cell) <= SMEM_LIMIT
 
 
-def fill_warps(B: int, A: int, Bs: int, with_counts: bool, sms: int) -> int:
+def fill_warps(B: int, A: int, Bs: int, cell: int, sms: int) -> int:
     """W, the warps a pair of a batch of ``B`` pairs at buckets (A, Bs):
     one where the batch alone gives every one of the ``sms`` SMs
     ``WARPS_PER_SM`` warps, else enough to give each about that many,
     never more than the pair's 32-row bands, ``MAX_WARPS`` or what the
-    shared memory holds."""
+    shared memory holds (rings of ``cell`` bytes a column, as
+    :func:`fill_smem`)."""
     nbands = -(-Bs // 32)
     per_sm = max(1, -(-B // sms))  # pairs an SM takes
     warps = max(1, min(MAX_WARPS, nbands, -(-WARPS_PER_SM // per_sm)))
-    staged = top_in_smem(A, with_counts)
-    while warps > 1 and fill_smem(warps, A, with_counts, staged) > SMEM_LIMIT:
+    staged = top_in_smem(A, cell)
+    while warps > 1 and fill_smem(warps, A, cell, staged) > SMEM_LIMIT:
         warps -= 1
     return warps
 
@@ -149,23 +152,24 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _pipe_warps(B, A, Bs, with_counts, device, warps):
-    """The rule's W, or ``warps`` checked against the kernel's limits."""
+def _pipe_warps(B, A, Bs, cell, device, warps):
+    """The rule's W, or ``warps`` checked against the kernel's limits
+    (``cell`` as :func:`fill_smem`)."""
     if warps is None:
-        warps = fill_warps(B, A, Bs, with_counts, _sms(device))
+        warps = fill_warps(B, A, Bs, cell, _sms(device))
     if not 1 <= warps <= MAX_WARPS:
         raise ValueError(f"warps must lie in [1, {MAX_WARPS}], not {warps}")
-    if fill_smem(warps, A, with_counts, top_in_smem(A, with_counts)) > SMEM_LIMIT:
+    if fill_smem(warps, A, cell, top_in_smem(A, cell)) > SMEM_LIMIT:
         raise ValueError(
             f"a {A}-column top string does not fit a block's shared memory at {warps} warps"
         )
     return warps
 
 
-def _top_scratch(B, A, with_counts, device):
+def _top_scratch(B, A, cell, device):
     """The int16 rows a pipeline launch stages its tops in, when they do
     not fit shared memory (else None: the kernel's argument is null)."""
-    if top_in_smem(A, with_counts):
+    if top_in_smem(A, cell):
         return None
     return torch.empty((B, top_cols(A)), dtype=torch.int16, device=device)
 
@@ -192,9 +196,9 @@ def _fill_scores_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, warps=None,
     dev = tops.device
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        warps = _pipe_warps(B, A, Bs, False, dev, warps)
+        warps = _pipe_warps(B, A, Bs, 4, dev, warps)
         tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
-        top16 = _top_scratch(B, A, False, dev)
+        top16 = _top_scratch(B, A, 4, dev)
         bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
         kernels.launch(
             entry, dev,
@@ -230,9 +234,10 @@ def _fill_codes_kernel(wrapper, tops, sides, lens1, lens2, m, k, d, emit_codes, 
         if emit_codes else None
     )
     if B:
-        warps = _pipe_warps(B, A, Bs, with_counts, dev, warps)
+        cell = 8 if with_counts else 4  # a score, and a count
+        warps = _pipe_warps(B, A, Bs, cell, dev, warps)
         tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
-        top16 = _top_scratch(B, A, with_counts, dev)
+        top16 = _top_scratch(B, A, cell, dev)
         bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
         cbnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev) if with_counts else None
         kernels.launch(

@@ -44,11 +44,12 @@ The two score fills run the ``LOCAL`` and ``OVERLAP`` recurrences of the
 W-warp pipeline of ``csrc/nw_fill.cu`` (``nw_scores``'s: a block of W
 warps a pair, W from :func:`nw_tpu_torch.ops.fill_banded.fill_warps`,
 launched through :func:`nw_tpu_torch.ops.fill_banded._fill_scores_kernel`).
-The two code fills are the same modes of its one-warp kernel, the last
-two wrappers the score and ``CODES`` modes of ``csrc/nw_affine.cu``, both
-one warp a pair at every batch size and side length.  A wrapper given CPU
-tensors runs the plain version; given CUDA tensors it launches the kernel
-or raises.  Each counts its launches in ``.launches``.
+The two code fills are the same modes of its one-warp kernel.  The last
+two wrappers run the Gotoh fill of ``csrc/nw_affine.cu`` on the same
+pipeline, with a ring cell of their own (:data:`GOTOH_CELL`), W from
+:func:`gotoh_warps` or forced by ``warps``.  A wrapper given CPU tensors
+runs the plain version; given CUDA tensors it launches the kernel or
+raises.  Each counts its launches in ``.launches``.
 
 Inputs are those of :mod:`nw_tpu_torch.ops.fill_banded`.  Codes have
 ``nw_fill_codes``'s band-major layout with 0 diag / 1 left / 2 up /
@@ -71,7 +72,9 @@ from typing import Tuple
 
 import torch
 
-from nw_tpu_torch.ops.fill_banded import _check, _contig, _dims, _fill_scores_kernel
+from nw_tpu_torch.ops.fill_banded import (
+    _check, _contig, _dims, _fill_scores_kernel, _pipe_warps, _top_scratch, fill_warps,
+)
 from nw_tpu_torch.ops.fill_scan import (
     affine_fill_diag_batch,
     code_shape,
@@ -81,26 +84,6 @@ from nw_tpu_torch.ops.fill_scan import (
     sw_fill_diag_batch,
 )
 from nw_tpu_torch.runtime import kernels
-
-
-def _launch_scores(wrapper, name, tops, sides, lens1, lens2, scoring, scratch_rows):
-    """Launch C entry point ``name`` (one warp a pair: ``gotoh_scores``)
-    for ``wrapper`` (whose count it raises): one int32 score a pair, with
-    ``scratch_rows`` int32 boundary rows of A+1 columns a pair."""
-    B, A, Bs = _dims(tops, sides)
-    dev = tops.device
-    scores = torch.empty(B, dtype=torch.int32, device=dev)
-    if B:
-        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
-        bnd = torch.empty((B, scratch_rows, A + 1), dtype=torch.int32, device=dev)
-        kernels.launch(
-            name, dev,
-            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
-            lens2.data_ptr(), B, A, Bs, *scoring,
-            bnd.data_ptr(), scores.data_ptr(),
-        )
-        wrapper.launches += 1
-    return scores
 
 
 def _launch_codes(wrapper, name, tops, sides, lens1, lens2, m, k, d):
@@ -216,17 +199,56 @@ def overlap_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
     return _codes_plain(overlap_fill_diag_batch, tops, sides, lens1, lens2, m, k, d)
 
 
-def affine_scores_banded_batch(tops, sides, lens1, lens2, m, k, open_, extend) -> torch.Tensor:
+# bytes of a Gotoh ring cell (the kernel's Cell<CODES>): best h and IY of
+# the row below, and with codes the state bits and an unused word
+GOTOH_CELL = {False: 8, True: 16}
+
+
+def gotoh_warps(B: int, A: int, Bs: int, codes: bool, sms: int) -> int:
+    """W, the warps a pair of ``gotoh_scores`` (``codes`` False) or
+    ``gotoh_fill_codes``: :func:`nw_tpu_torch.ops.fill_banded.fill_warps`
+    with the Gotoh ring cell."""
+    return fill_warps(B, A, Bs, GOTOH_CELL[codes], sms)
+
+
+def _gotoh_kernel(wrapper, tops, sides, lens1, lens2, scoring, codes, warps):
+    """Launch ``gotoh_fill_codes`` (``codes``) or ``gotoh_scores`` for
+    ``wrapper`` (whose count it raises) at ``warps`` warps a pair
+    (default: :func:`gotoh_warps`): (codes or None, scores, states or
+    None)."""
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    cell = GOTOH_CELL[codes]
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    states = torch.empty(B, dtype=torch.int32, device=dev) if codes else None
+    words = torch.empty(code_shape(B, A, Bs, bits=4), dtype=torch.int32, device=dev) if codes else None
+    if B:
+        warps = _pipe_warps(B, A, Bs, cell, dev, warps)
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        top16 = _top_scratch(B, A, cell, dev)
+        # the boundary rows a pair: best h and IY of a band's last row for
+        # the row below, and with codes its state bits
+        bnd = torch.empty((B, 3 if codes else 2, A + 1), dtype=torch.int32, device=dev)
+        out = (words.data_ptr(), scores.data_ptr(), states.data_ptr()) if codes else (scores.data_ptr(),)
+        kernels.launch(
+            "gotoh_fill_codes" if codes else "gotoh_scores", dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
+            B, A, Bs, *scoring, warps, None if top16 is None else top16.data_ptr(),
+            bnd.data_ptr(), *out,
+        )
+        wrapper.launches += 1
+    return words, scores, states
+
+
+def affine_scores_banded_batch(tops, sides, lens1, lens2, m, k, open_, extend, warps=None) -> torch.Tensor:
     """int32[B] Gotoh affine-gap global scores, one per pair (true
-    corner; 0 for the empty pair)."""
+    corner; 0 for the empty pair).  ``warps``: the kernel's warps a pair
+    (default :func:`gotoh_warps`; a CUDA launch only)."""
     _check(tops, sides, lens1, lens2, m, k, open_, extend)
     if tops.device.type == "cpu":
         return affine_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, open_, extend)
-    # three boundary rows a pair: best, M and IY of a band's last row
-    return _launch_scores(
-        affine_scores_banded_batch, "gotoh_scores", tops, sides, lens1, lens2,
-        (m, k, open_, extend), scratch_rows=3,
-    )
+    return _gotoh_kernel(affine_scores_banded_batch, tops, sides, lens1, lens2,
+                         (m, k, open_, extend), False, warps)[1]
 
 
 affine_scores_banded_batch.launches = 0
@@ -238,32 +260,19 @@ def affine_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, open_, ext
 
 
 def affine_fill_codes_banded_batch(
-    tops, sides, lens1, lens2, m, k, open_, extend
+    tops, sides, lens1, lens2, m, k, open_, extend, warps=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(codes int32[B, nbands, TW, 32], scores int32[B], states int32[B]):
     the 4-bit Gotoh code of every cell of the bucket table (bits 0-1 M's
     predecessor state, bit 2 IX extends, bit 3 IY extends), the Gotoh
     global score and the argmax state (0 M, 1 IX, 2 IY) at each true
-    corner, where the walk starts."""
+    corner, where the walk starts.  ``warps`` as
+    :func:`affine_scores_banded_batch`'s."""
     _check(tops, sides, lens1, lens2, m, k, open_, extend)
     if tops.device.type == "cpu":
         return affine_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, open_, extend)
-    B, A, Bs = _dims(tops, sides)
-    dev = tops.device
-    codes = torch.empty(code_shape(B, A, Bs, bits=4), dtype=torch.int32, device=dev)
-    scores, states = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(2))
-    if B:
-        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
-        # four boundary rows a pair: best, M, IY and the argmax state
-        bnd = torch.empty((B, 4, A + 1), dtype=torch.int32, device=dev)
-        kernels.launch(
-            "gotoh_fill_codes", dev,
-            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
-            B, A, Bs, m, k, open_, extend, bnd.data_ptr(), codes.data_ptr(),
-            scores.data_ptr(), states.data_ptr(),
-        )
-        affine_fill_codes_banded_batch.launches += 1
-    return codes, scores, states
+    return _gotoh_kernel(affine_fill_codes_banded_batch, tops, sides, lens1, lens2,
+                         (m, k, open_, extend), True, warps)
 
 
 affine_fill_codes_banded_batch.launches = 0

@@ -59,8 +59,8 @@ SIGNATURES = {
     "sw_walk": [P, P, P, I, I, I, I, P, P, P, P, P],
     "overlap_scores": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],
     "overlap_fill_codes": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P],
-    "gotoh_scores": [P, P, P, P, I, I, I, I, I, I, I, P, P, P],
-    "gotoh_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P],
+    "gotoh_scores": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P],
+    "gotoh_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "gotoh_walk": [P, P, P, P, I, I, I, I, P, P, P],
 }
 

@@ -17,10 +17,12 @@ with its count of SASS instructions.
 ``--steps`` also prints, for every kernel of NEW, the SASS instructions
 between consecutive ``SHFL.UP``s of each unrolled 32-step sweep, a
 step's where a step holds one (the score-only fills; with counts a step
-holds two): a run of ``SHFL.UP``s each fewer than 80 instructions after
-the last, cut into sweeps of 32 where its length is a multiple of 32 (the
-compiler lays a chunk's variants one after another), gives one mean
-distance a sweep.  Exit status 1
+holds two, in the Gotoh fills two, with codes three): a run of
+``SHFL.UP``s each fewer than 80 instructions after the last, cut into
+sweeps of 32 where its length is a multiple of 32 (the compiler lays a
+chunk's variants one after another), gives one mean distance a sweep,
+and the sweep's local-memory (spill) instructions beside it where it has
+any (``+Nlocal``).  Exit status 1
 when a kernel of OLD is missing from NEW or differs.  Needs the CUDA
 toolkit (``nvcc``, ``cuobjdump``).
 """
@@ -64,10 +66,16 @@ def sass(src: Path, tmpdir: str) -> dict:
     return out
 
 
+def opcode(ins: str) -> str:
+    """An instruction's opcode, past its predicate."""
+    return ins.split()[1 if ins.startswith("@") else 0]
+
+
 def sweep_steps(code) -> list:
-    """Instructions a step of each unrolled sweep of a kernel's listing."""
-    at = [i for i, ins in enumerate(code) if ins.split()[0].startswith("SHFL.UP")
-          or (ins.startswith("@") and ins.split()[1].startswith("SHFL.UP"))]
+    """Instructions a step of each unrolled sweep of a kernel's listing,
+    and beside each sweep (as ``+Nlocal``) its local-memory (spill)
+    loads and stores, where it has any."""
+    at = [i for i, ins in enumerate(code) if opcode(ins).startswith("SHFL.UP")]
     runs, run = [], at[:1]
     for i in at[1:]:
         if i - run[-1] < 80:
@@ -82,7 +90,12 @@ def sweep_steps(code) -> list:
             sweeps += [r[i : i + 32] for i in range(0, len(r), 32)]
         elif len(r) >= 16:
             sweeps.append(r)
-    return [round((r[-1] - r[0]) / (len(r) - 1), 1) for r in sweeps]
+    out = []
+    for r in sweeps:
+        step = round((r[-1] - r[0]) / (len(r) - 1), 1)
+        local = sum(opcode(ins).startswith(("LDL", "STL")) for ins in code[r[0] : r[-1] + 1])
+        out.append(f"{step}+{local}local" if local else step)
+    return out
 
 
 def main(argv) -> int:

@@ -1,23 +1,27 @@
-"""Time the Smith-Waterman and overlap score fills (``sw_scores``,
-``overlap_scores``) through their public wrappers at ``chip_smoke.py``'s
-phase-9 / phase-10 shapes, 128 x 10 240 bp and 10 240 x 150 bp, so that
-two trees can be compared on one card in turns.
+"""Time the pipeline's variant fills through their public wrappers at
+``chip_smoke.py``'s shapes, so that two trees can be compared on one card
+in turns: the Smith-Waterman, overlap and Gotoh score fills
+(``sw_scores``, ``overlap_scores``, ``gotoh_scores``) at phase 10's
+128 x 10 240 bp and 10 240 x 150 bp, and the Gotoh code fill
+(``gotoh_fill_codes``) at phase 11's 128 x 3 072 bp and 4 096 x 150 bp.
 
     python3 scripts/variant_shapes.py [--check] [ROOT]
 
 ROOT (default: this checkout) is the tree whose ``nw_tpu_torch`` is
-imported and built; the inputs (random ACGT pairs from phase 10's seed)
-and the timing come from this checkout's ``chip_smoke.py``.
-``--check`` first holds ROOT's two score fills at the rule's W against
-their plain versions on phase 9's check pairs under every scoring of
-``SW_SCORINGS``.  To compare a change with its parent, unpack the parent
-into a git-ignored directory (``git archive HEAD | tar -x -C
+imported and built; the inputs (random ACGT pairs from phases 10 and
+11's seeds) and the timing come from this checkout's ``chip_smoke.py``.
+``--check`` first holds ROOT's fills at the rule's W against their plain
+versions on phase 9's check pairs: SW and overlap under every scoring of
+``SW_SCORINGS``, Gotoh (scores, codes and corner states) under every
+scoring of ``GOTOH_ALIGN_SCORINGS``.  To compare a change with its parent, unpack
+the parent into a git-ignored directory (``git archive HEAD | tar -x -C
 build/parent``) and run, in one call on the card: parent, change,
 change, parent.  Prints the card's name and power limit, then one JSON
 line: {shape: ms} of the kernels (mean device time by CUDA events after a
-warm-up) and {shape: s} of the model entry points ``sw_score_batch`` /
-``overlap_score_batch`` on the same pairs, host to host (median of 3
-warm runs, chip_smoke.py phases 9 and 10's walls).
+warm-up), {shape: s} of the model entry points ``sw_score_batch`` /
+``overlap_score_batch`` / ``affine_score_pairs`` / ``affine_align_batch``
+on the same pairs, host to host (median of 3 warm runs, chip_smoke.py
+phases 9-11's walls).
 """
 
 from __future__ import annotations
@@ -33,6 +37,17 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent.parent
+GOTOH = (2, 1, 3, 1)  # chip_smoke.py phases 10-11's Gotoh scoring
+
+
+def wall(fn, pairs, sc) -> float:
+    """Median of 3 warm host-to-host runs of ``fn(pairs, *sc)``."""
+    runs = []
+    for _ in range(4):  # a warm-up, then 3 timed
+        t0 = time.perf_counter()
+        fn(pairs, *sc)
+        runs.append(time.perf_counter() - t0)
+    return statistics.median(runs[1:])
 
 
 def main(argv) -> int:
@@ -45,11 +60,11 @@ def main(argv) -> int:
     spec.loader.exec_module(cs)
     import torch
 
+    from nw_tpu_torch.models import affine as af
     from nw_tpu_torch.models import overlap as ov
     from nw_tpu_torch.models import smith_waterman as sw
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import variants_banded as vb
-    from nw_tpu_torch.runtime import kernels
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -59,34 +74,48 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     kinds = ("sw", "overlap")
     if check:
-        pairs = cs.variant_pairs(10, [cs.OVERLAP_TWO_BANDS])
+        pairs = cs.variant_pairs(10, [cs.OVERLAP_TWO_BANDS, *cs.EDGE])
         T = enc.upload(enc.encode_batch(pairs, max(len(a) for a, _ in pairs),
                                         max(len(b) for _, b in pairs)), dev)
         errs = {kind: max(cs.max_abs_err(getattr(vb, f"{kind}_scores_banded_batch")(*T, *mkd),
                                          getattr(vb, f"{kind}_scores_banded_batch_plain")(*T, *mkd))
                           for mkd in cs.SW_SCORINGS) for kind in kinds}
-        print(f"{len(pairs)} pairs vs plain under {len(cs.SW_SCORINGS)} scorings: max |diff| {errs}")
+        errs["gotoh"] = max(
+            max(cs.max_abs_err(vb.affine_scores_banded_batch(*T, *sc), vb.affine_scores_banded_batch_plain(*T, *sc)),
+                *(cs.max_abs_err(g, w) for g, w in zip(vb.affine_fill_codes_banded_batch(*T, *sc),
+                                                       vb.affine_fill_codes_banded_batch_plain(*T, *sc))))
+            for sc in cs.GOTOH_ALIGN_SCORINGS)
+        print(f"{len(pairs)} pairs vs plain under {len(cs.SW_SCORINGS)} / {len(cs.GOTOH_ALIGN_SCORINGS)} "
+              f"scorings: max |diff| {errs}")
         if any(errs.values()):
-            print("FAIL: a score fill differs from its plain version", file=sys.stderr)
+            print("FAIL: a fill differs from its plain version", file=sys.stderr)
             return 1
-    rng = np.random.default_rng(13)  # phase 10's pairs
-    shapes = {f"128x{cs.L_LONG}bp": (cs.rand_pairs(rng, 128, cs.L_LONG, cs.L_LONG), 3),
-              f"10240x{cs.L_SHORT}bp": (cs.rand_pairs(rng, 10240, cs.L_SHORT, cs.L_SHORT), 20)}
+    rng10, rng11 = np.random.default_rng(13), np.random.default_rng(14)  # phases 10 and 11's pairs
+    long_pairs = cs.rand_pairs(rng10, 128, cs.L_LONG, cs.L_LONG)
+    shapes = {  # label: (pairs, reps, score fills or the code fill)
+        f"128x{cs.L_LONG}bp": (long_pairs, 3, True),
+        f"10240x{cs.L_SHORT}bp": (cs.rand_pairs(rng10, 10240, cs.L_SHORT, cs.L_SHORT), 20, True),
+        f"128x{cs.L_SW_TB}bp": (cs.rand_pairs(rng11, 128, cs.L_SW_TB, cs.L_SW_TB), 3, False),
+        f"4096x{cs.L_SHORT}bp": (cs.rand_pairs(rng11, 4096, cs.L_SHORT, cs.L_SHORT), 20, False),
+    }
     out, walls = {}, {}
-    for label, (pairs, reps) in shapes.items():
+    for label, (pairs, reps, scores) in shapes.items():
         L = len(pairs[0][0])
         T = enc.upload(enc.encode_batch(pairs, L, L), dev)
-        for kind in kinds:
-            fn = getattr(vb, f"{kind}_scores_banded_batch")
-            out[f"{kind}_scores {label}"] = cs.cuda_ms(lambda: fn(*T, 2, 1, 1), reps)
+        if scores:
+            for kind in kinds:
+                fn = getattr(vb, f"{kind}_scores_banded_batch")
+                out[f"{kind}_scores {label}"] = cs.cuda_ms(lambda: fn(*T, 2, 1, 1), reps)
+            out[f"gotoh_scores {label}"] = cs.cuda_ms(lambda: vb.affine_scores_banded_batch(*T, *GOTOH), reps)
+        else:
+            out[f"gotoh_fill_codes {label}"] = cs.cuda_ms(lambda: vb.affine_fill_codes_banded_batch(*T, *GOTOH), reps)
         del T
-        for name, model in (("sw_score_batch", sw.sw_score_batch), ("overlap_score_batch", ov.overlap_score_batch)):
-            runs = []
-            for _ in range(4):  # a warm-up, then 3 timed
-                t0 = time.perf_counter()
-                model(pairs, 2, 1, 1)
-                runs.append(time.perf_counter() - t0)
-            walls[f"{name} {label}"] = statistics.median(runs[1:])
+        models = ((("sw_score_batch", sw.sw_score_batch, (2, 1, 1)),
+                   ("overlap_score_batch", ov.overlap_score_batch, (2, 1, 1)),
+                   ("affine_score_pairs", af.affine_score_pairs, GOTOH)) if scores
+                  else (("affine_align_batch", af.affine_align_batch, GOTOH),))
+        for name, model, sc in models:
+            walls[f"{name} {label}"] = wall(model, pairs, sc)
     print(json.dumps({"root": str(root), "package": str(Path(vb.__file__).parent.parent),
                       "ms": out, "walls_s": walls}))
     return 0

@@ -37,7 +37,7 @@ def test_rule_keeps_one_warp_where_the_batch_fills_the_card(shape, with_counts):
     """Config 2 (10 240 x 150 bp, 5 bands) and K5's 4 096 pairs keep one
     warp a pair."""
     B, L = shape
-    assert fill_warps(B, L, L, with_counts, H100_SMS) == 1
+    assert fill_warps(B, L, L, 8 if with_counts else 4, H100_SMS) == 1
 
 
 @pytest.mark.parametrize("with_counts", [False, True])
@@ -46,13 +46,14 @@ def test_rule_stays_inside_the_block_and_the_bands(A, with_counts):
     """1 <= W <= min(32, bands), a block of at most 1 024 threads, and
     the shared memory the wrapper computes within a block's 232 448
     bytes, at every batch size."""
+    cell = 8 if with_counts else 4
     for B in BATCHES:
         for Bs in SIDES:
-            W = fill_warps(B, A, Bs, with_counts, H100_SMS)
+            W = fill_warps(B, A, Bs, cell, H100_SMS)
             nbands = -(-Bs // 32)
             assert 1 <= W <= max(1, min(MAX_WARPS, nbands)), (B, Bs, W)
             assert 32 * W <= 1024
-            assert fill_smem(W, A, with_counts) <= SMEM_LIMIT == 232_448, (B, Bs, W)
+            assert fill_smem(W, A, cell) <= SMEM_LIMIT == 232_448, (B, Bs, W)
 
 
 @pytest.mark.parametrize("B,Bs,want", [(256, 10240, 16), (128, 10240, 32), (4, 10240, 32),
@@ -60,15 +61,15 @@ def test_rule_stays_inside_the_block_and_the_bands(A, with_counts):
 def test_rule_fills_small_batches_of_long_pairs(B, Bs, want):
     """About WARPS_PER_SM warps an SM: config 3 (256 pairs, two an SM)
     takes 16 warps a pair, 128 pairs 32."""
-    assert fill_warps(B, Bs, Bs, True, H100_SMS) == want
+    assert fill_warps(B, Bs, Bs, 8, H100_SMS) == want
 
 
 def test_rule_fits_a_100_kb_pair_with_counts():
     """The counts-only reference of a 100 000 bp pair (B = 1): 32 warps'
     rings and the 200 KB top pass the limit, so W drops to 31."""
-    assert fill_smem(32, 100_000, True) > SMEM_LIMIT
-    assert fill_warps(1, 100_000, 100_000, True, H100_SMS) == 31
-    assert fill_warps(1, 100_000, 100_000, False, H100_SMS) == 32
+    assert fill_smem(32, 100_000, 8) > SMEM_LIMIT
+    assert fill_warps(1, 100_000, 100_000, 8, H100_SMS) == 31
+    assert fill_warps(1, 100_000, 100_000, 4, H100_SMS) == 32
 
 
 def test_shared_memory_layout():
@@ -76,8 +77,8 @@ def test_shared_memory_layout():
     x 32 cells, warp 0's 32 staged cells (a cell 4 bytes, 8 with counts),
     and the int16 top of 32 * ceil((A+32)/32) + 32 columns."""
     nchunks = -(-(10240 + 32) // 32)
-    assert fill_smem(16, 10240, True) == 4 * 16 + 8 * (16 * 128 + 32) + 2 * (32 * nchunks + 32) == 37312
-    assert fill_smem(1, 150, False) == 4 + 4 * (128 + 32) + 2 * (32 * 6 + 32)
+    assert fill_smem(16, 10240, 8) == 4 * 16 + 8 * (16 * 128 + 32) + 2 * (32 * nchunks + 32) == 37312
+    assert fill_smem(1, 150, 4) == 4 + 4 * (128 + 32) + 2 * (32 * 6 + 32)
 
 
 def test_forced_warps_are_checked():
@@ -85,11 +86,11 @@ def test_forced_warps_are_checked():
     the top in a block's shared memory, raises before any launch."""
     for bad in (0, 33):
         with pytest.raises(ValueError, match="warps"):
-            fill_banded._pipe_warps(4, 100, 100, True, torch.device("cpu"), bad)
+            fill_banded._pipe_warps(4, 100, 100, 8, torch.device("cpu"), bad)
     with pytest.raises(ValueError, match="shared memory"):
-        fill_banded._pipe_warps(1, 100_000, 100_000, True, torch.device("cpu"), 32)
-    assert fill_banded._pipe_warps(4, 100, 100, True, torch.device("cpu"), 3) == 3
-    assert fill_banded._pipe_warps(1, 100_000, 100_000, False, torch.device("cpu"), 32) == 32
+        fill_banded._pipe_warps(1, 100_000, 100_000, 8, torch.device("cpu"), 32)
+    assert fill_banded._pipe_warps(4, 100, 100, 8, torch.device("cpu"), 3) == 3
+    assert fill_banded._pipe_warps(1, 100_000, 100_000, 4, torch.device("cpu"), 32) == 32
 
 
 @pytest.mark.parametrize("with_counts", [False, True])
@@ -97,14 +98,15 @@ def test_a_top_past_shared_memory_is_staged_in_device_memory(with_counts):
     """Past ~115 000 columns the top goes to an int16 row in device
     memory: the block's shared memory is then the rings alone, and the
     rule gives W as for any long pair."""
-    assert fill_banded.top_in_smem(100_000, with_counts)
+    cell = 8 if with_counts else 4
+    assert fill_banded.top_in_smem(100_000, cell)
     A = 115_489 if with_counts else 116_500
-    assert not fill_banded.top_in_smem(A, with_counts)
-    assert fill_warps(1, A, A, with_counts, H100_SMS) == 32
-    assert fill_banded._pipe_warps(1, A, A, with_counts, torch.device("cpu"), 32) == 32
-    assert fill_smem(32, A, with_counts, staged=False) == 4 * 32 + 4 * (32 * 128 + 32) * (1 + with_counts)
-    assert fill_banded._top_scratch(2, A, with_counts, "cpu").shape == (2, fill_banded.top_cols(A))
-    assert fill_banded._top_scratch(2, 100_000, with_counts, "cpu") is None
+    assert not fill_banded.top_in_smem(A, cell)
+    assert fill_warps(1, A, A, cell, H100_SMS) == 32
+    assert fill_banded._pipe_warps(1, A, A, cell, torch.device("cpu"), 32) == 32
+    assert fill_smem(32, A, cell, staged=False) == 4 * 32 + 4 * (32 * 128 + 32) * (1 + with_counts)
+    assert fill_banded._top_scratch(2, A, cell, "cpu").shape == (2, fill_banded.top_cols(A))
+    assert fill_banded._top_scratch(2, 100_000, cell, "cpu") is None
 
 
 def _cut_batch(W, Bs, seed):

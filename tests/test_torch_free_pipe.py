@@ -105,7 +105,7 @@ def _scan_padded(kind, tops, sides, l1, l2, mkd):
 def test_rule_at_the_variant_shapes(B, L, want):
     """fill_warps' W for the score fills (no counts): 32 warps a pair at
     128 x 10 240 bp (bench.py:583), one at 10 240 x 150 bp (bench.py:517)."""
-    assert fill_warps(B, L, L, False, H100_SMS) == want
+    assert fill_warps(B, L, L, 4, H100_SMS) == want
 
 
 @pytest.mark.parametrize("W,A,want", [(32, 10_240, 37_248), (1, 150, 1_092)])
@@ -113,7 +113,7 @@ def test_shared_memory_is_nw_scores(W, A, want):
     """The bests go through done[] after the sweep: a block's shared
     memory is nw_scores' (done[W], W rings of 4 x 32 int32 cells, warp
     0's 32 staged cells, the int16 top)."""
-    assert fill_smem(W, A, False) == 4 * W + 4 * (W * 128 + 32) + 2 * top_cols(A) == want
+    assert fill_smem(W, A, 4) == 4 * W + 4 * (W * 128 + 32) + 2 * top_cols(A) == want
     assert want <= SMEM_LIMIT
 
 
@@ -135,8 +135,8 @@ def test_forced_warps_are_checked(kind):
             launch(100, bad)
     with pytest.raises(ValueError, match="shared memory"):
         launch(112_000, 32)
-    assert fill_banded.top_in_smem(112_000, False)
-    assert 1 < fill_warps(1, 112_000, 112_000, False, H100_SMS) < 32
+    assert fill_banded.top_in_smem(112_000, 4)
+    assert 1 < fill_warps(1, 112_000, 112_000, 4, H100_SMS) < 32
     assert wrapper.launches == launches
 
 

@@ -149,7 +149,7 @@ def test_pipeline_with_the_top_in_device_memory(cuda):
     ps = [(letters[rng.integers(0, 4, a)].tobytes(), letters[rng.integers(0, 4, s)].tobytes())
           for a, s in ((A, Bs), (A - 7, Bs - 40), (A - 30_000, 33))]
     dev = enc.upload(enc.encode_batch(ps, A, Bs), cuda)
-    assert not fill_banded.top_in_smem(A, False) and not fill_banded.top_in_smem(A, True)
+    assert not fill_banded.top_in_smem(A, 4) and not fill_banded.top_in_smem(A, 8)
     pairs = [tuple(torch.from_numpy(enc.encode(x)).to(cuda) for x in p) for p in ps]
     for mkd in [(2, 1, 1), (1, 1, 2**30)]:
         want = [fill_single.score_count_fold(t, s, *mkd) for t, s in pairs]
@@ -168,7 +168,7 @@ def test_align_batch_long_pairs_at_the_rules_warps(cuda):
     scores, counts and alignments on the card equal device='cpu'."""
     ps = _pairs(11, 3, 900, 1100) + _pairs(12, 1, 1000, 1001, "AC") + EDGE
     nbands = -(-max(len(b) for _, b in ps) // 32)
-    assert fill_banded.fill_warps(len(ps), 1100, 1100, True,
+    assert fill_banded.fill_warps(len(ps), 1100, 1100, 8,
                                   torch.cuda.get_device_properties(cuda).multi_processor_count) == min(32, nbands)
     got = align_batch(ps, 2, 1, 1, device="cuda", traceback_strings=True, count=True)
     want = align_batch(ps, 2, 1, 1, device="cpu", traceback_strings=True, count=True)
@@ -638,7 +638,7 @@ def test_free_scores_with_the_top_in_device_memory(cuda, kind):
     sides[0] = sides[0][:700] + tops[0][116_000:116_200] + sides[0][900:]
     sides[1] += tops[1][-300:]
     dev = enc.upload(enc.encode_batch(list(zip(tops, sides)), A, Bs), cuda)
-    assert not fill_banded.top_in_smem(A, False)
+    assert not fill_banded.top_in_smem(A, 4)
     wrapper = getattr(variants_banded, f"{kind}_scores_banded_batch")
     codes = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")
     for mkd in [(2, 1, 1), (1, 1, 2**30)]:
@@ -696,6 +696,64 @@ def test_gotoh_codes_and_walk_kernels_vs_plain(cuda, sc):
     w_ops, w_n = traceback.walk_gotoh_codes_batch_plain(want[0], cpu[2], cpu[3], want[2], S)
     torch.testing.assert_close(g_ops.cpu(), w_ops, rtol=0, atol=0)
     torch.testing.assert_close(g_n.cpu(), w_n, rtol=0, atol=0)
+
+
+def _gotoh_at(T, sc, warps, S):
+    """gotoh_scores and gotoh_fill_codes on T at ``warps`` warps a pair
+    (None: the rule's), and gotoh_walk on the codes: (scores, codes,
+    scores of the codes fill, states, walk ops, walk lengths)."""
+    scores = variants_banded.affine_scores_banded_batch(*T, *sc, warps=warps)
+    codes, sc2, states = variants_banded.affine_fill_codes_banded_batch(*T, *sc, warps=warps)
+    ops, n = traceback.walk_gotoh_codes_batch(codes, T[2], T[3], states, S)
+    return scores, codes, sc2, states, ops, n
+
+
+@pytest.mark.parametrize("sc", GOTOH_ALIGN_SCORINGS)
+def test_gotoh_at_forced_warps_vs_plain(cuda, sc):
+    """gotoh_scores and gotoh_fill_codes on the pipeline at W = 1, 2, 3,
+    4, 8, 16, 32 and at the rule's W: scores, codes, corner states and
+    gotoh_walk's walk on the codes, bit for bit against the plain
+    versions, on _free_batches' two buckets (5 and 35 bands; corners on
+    warp 1, in the last band and back on warp 0 after a round)."""
+    for cpu, dev in _free_batches(sum(sc) % 79 + 23, cuda):
+        S = cpu[0].shape[1] + cpu[1].shape[1]
+        w_codes, w_scores, w_states = variants_banded.affine_fill_codes_banded_batch_plain(*cpu, *sc)
+        w_ops, w_n = traceback.walk_gotoh_codes_batch_plain(w_codes, cpu[2], cpu[3], w_states, S)
+        want = (w_scores, w_codes, w_scores, w_states, w_ops, w_n)
+        for warps in (*FREE_WARPS, None):
+            got = _gotoh_at(dev, sc, warps, S)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0, msg=f"W = {warps or 'rule'}")
+
+
+def test_gotoh_with_the_top_in_device_memory(cuda):
+    """A bucket of 117 000 columns stages its tops in device memory
+    (~114 000 fit shared memory beside a Gotoh ring): the same pairs (tops
+    up to 100 000 bp, sides up to 1 600) in a 100 032-column bucket,
+    whose tops lie in shared memory, give the same scores, corner states
+    and walks at W = 1 there as at W = 1, 3, 32 and the rule's here,
+    under 2 1 3 1 and a scoring near the sentinel.  The first pair's
+    side holds 200 columns of its top from column 99 000, the second
+    ends with its top's last 300, so their walks pass the far columns."""
+    rng = np.random.default_rng(41)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    tops = [letters[rng.integers(0, 4, a)].tobytes() for a in (100_000, 99_993, 70_000)]
+    sides = [letters[rng.integers(0, 4, s)].tobytes() for s in (1_600, 1_260, 33)]
+    sides[0] = sides[0][:700] + tops[0][99_000:99_200] + sides[0][900:]
+    sides[1] += tops[1][-300:]
+    ps = list(zip(tops, sides))
+    big = enc.upload(enc.encode_batch(ps, 117_000, 1_600), cuda)
+    small = enc.upload(enc.encode_batch(ps, 100_032, 1_600), cuda)
+    for codes in (False, True):
+        cell = variants_banded.GOTOH_CELL[codes]
+        assert not fill_banded.top_in_smem(117_000, cell) and fill_banded.top_in_smem(100_032, cell)
+    S = 117_000 + 1_600
+    for sc in [(2, 1, 3, 1), (1, 1, 1, 2**29)]:
+        want = _gotoh_at(small, sc, 1, S)
+        for warps in (1, 3, 32, None):
+            got = _gotoh_at(big, sc, warps, S)
+            for i in (0, 2, 3, 4, 5):  # scores, states and walks (the codes' widths differ)
+                assert torch.equal(got[i], want[i]), (sc, warps, i)
 
 
 @pytest.mark.parametrize("sc", GOTOH_ALIGN_SCORINGS)
