@@ -35,7 +35,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    pairs of 0-700 bp, tie-dense pairs, the edge pairs and all-'A'
    24 x 16 (the count wraps), under every scoring; ``nw_score_count`` on
    a 20 000 x 20 000 pair (above 2^28 cells) against its plain version
-   and ``nw_fill_codes`` counts-only, and its time at 1 to 32 warps;
+   and ``nw_fill_codes`` counts-only; the time of both kernels of the
+   single-pair pipeline (``nw_score_count``, ``nw_fill_codes_single``)
+   at the rule's W and each W of ``SINGLE_SWEEP`` at 20 000 and 100 000
+   bp;
 7. the CLI (``python3 -m nw_tpu_torch``, the native runtime built from
    nw_tpu_torch/runtime/cc): goldens of tests/test_cli.py as subprocesses;
    then, in-process with every launch counter set to 0 until the last
@@ -272,6 +275,7 @@ L_LONG = 10240  # bench.py:231 bench_config3 / bench.py:127 banded scores
 L_SHORT = 150  # BASELINE config 2
 L_HUGE = 100_000  # BASELINE config 5's pair length
 L_CROSS = 20_000  # (L+1)^2 > 2^28: past nw_tpu's huge-route threshold
+SINGLE_SWEEP = (4, 8, 12, 16, 24, 32)  # phase 6: the single-pair pipeline's sweep of W
 CROSSOVER = (1024, 2048, 4096, 10240, L_HUGE)  # scores of 2, 8, 23 pairs: K1 vs K11 route
 # int32 operations a cell (or a walk step) of each kernel mode, for the bound
 OPS_SCORE, OPS_COUNT, OPS_CODE, OPS_WALK_STEP = 7, 8, 6, 12
@@ -612,18 +616,23 @@ def single_phase(card, errs):
         f"({plain_sc_ms:.1f} ms), nw_fill_codes {want}")
     if got != want or e:
         fail("nw_score_count differs from its plain version or nw_fill_codes above 2^28 cells")
-    # (blocks, warps): one warp alone, one SM, and one block an SM
-    # (blocks None) at 4 to 32 warps; the default (None, 8) twice
-    sweep = {}
-    for blocks, warps in [(None, 8), (1, 1), (1, 32), (None, 4), (None, 16), (None, 32), (None, 8)]:
-        sweep.setdefault((blocks, warps), []).append(cuda_ms(
-            lambda: fs.score_count_fold(tb_[0], sb_[0], 2, 1, 1, warps=warps, blocks=blocks), 1
-        ))
-    for (blocks, warps), ms in sweep.items():
-        log(f"nw_score_count {L_CROSS}x{L_CROSS}bp, blocks {blocks or 'one an SM'} x {warps} warps: "
-            f"{[round(x, 3) for x in ms]} ms = {L_CROSS * L_CROSS / (min(ms) * 1e6):.2f} GCUPS [{card}]")
     log(f"nw_score_count {L_CROSS}x{L_CROSS}bp plain version: {plain_sc_ms:.1f} ms [{card}]")
-    return {"plain_sc_ms": plain_sc_ms, "sc_ms_cross": min(sweep[(None, 8)])}
+    # the sweep of W (warps a block, blocks by the rule) of both kernels of
+    # the single-pair pipeline; the rule's W (None) first and last
+    sweep = {}
+    big = rand_pairs(np.random.default_rng(L_HUGE), 1, L_HUGE, L_HUGE)[0]  # phase 7's and 8's pair
+    for L, (t, s) in ((L_CROSS, (tb_[0], sb_[0])),
+                      (L_HUGE, tuple(torch.from_numpy(enc.encode(x)).to(dev) for x in big))):
+        for name, fn in (("nw_score_count", fs.score_count_fold),
+                         ("nw_fill_codes_single", fs.fill_codes_single)):
+            for warps in (None, *SINGLE_SWEEP, None):
+                sweep.setdefault((name, L, warps), []).append(
+                    cuda_ms(lambda: fn(t, s, 2, 1, 1, warps=warps), 1))
+            rule = fs.pipe_shape(L, L, dev)
+            log(f"{name} {L}x{L}bp by W (blocks by the rule; the rule: {rule[0]} blocks x {rule[1]} "
+                f"warps): { {w or 'rule': [round(x, 3) for x in ms] for (n, l, w), ms in sweep.items() if (n, l) == (name, L)} } "
+                f"ms [{card}]")
+    return {"plain_sc_ms": plain_sc_ms, "sc_ms_cross": min(sweep["nw_score_count", L_CROSS, None])}
 
 
 def cli_phase(card, errs):

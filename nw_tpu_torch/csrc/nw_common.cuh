@@ -20,8 +20,8 @@ __device__ __forceinline__ int wmul(int a, int b) {
 }
 
 // ---------------- the W-warp pipeline's protocol ----------------
-// (nw_fill.cu's header describes it; nw_fill.cu's pipe_fill and
-// nw_affine.cu's Gotoh fill run it, each with cells of its own)
+// (nw_fill.cu's header describes it; nw_fill.cu's pipe_fill, nw_single.cu's
+// single-pair fill across a grid and nw_affine.cu's Gotoh fill run it)
 
 constexpr int kMaxWarps = 32;  // warps a block of the pipeline
 constexpr int kSlots = 4;      // 32-column chunk slots of a warp's ring
@@ -31,6 +31,11 @@ constexpr int kSidePad = -5;   // a side row past Bs
 
 // a compile-time flag, for a lambda's variants of a chunk
 template <bool B> struct Flag { static constexpr bool value = B; };
+
+// A column of a Needleman-Wunsch handoff row: its score, and with counts
+// its count (bits of a uint32) beside it, one 64-bit access.
+template <bool WITH_COUNTS> struct Cell { using type = int; };
+template <> struct Cell<true> { using type = int2; };
 
 // The staged top string's columns: 32*nchunks + 32.
 __host__ __device__ inline int pipe_top_cols(int A) {

@@ -230,6 +230,7 @@
 
 namespace {
 
+using nw::Cell;
 using nw::Flag;
 using nw::kFull;
 using nw::kMaxWarps;
@@ -510,11 +511,6 @@ constexpr int kGlobal = 0;  // the pipeline's Needleman-Wunsch recurrence (kLoca
 constexpr int kBestNone = 0;    // none (every chunk of the global sweep)
 constexpr int kBestAll = 1;     // all (LOCAL: a chunk inside the true rectangle)
 constexpr int kBestTested = 2;  // those in the lane's window of columns [lo, hi]
-
-// A column of a handoff row: its score, and with counts its count
-// (bits of a uint32) beside it, one 64-bit shared access.
-template <bool WITH_COUNTS> struct Cell { using type = int; };
-template <> struct Cell<true> { using type = int2; };
 
 template <int V> struct Best { static constexpr int value = V; };
 

@@ -1,7 +1,8 @@
 // Single-pair Needleman-Wunsch fills for Hopper (sm_90a): the warps of
 // one cooperative grid sweep ONE pair together.
 //
-// Replaces six TPU (Pallas) kernels, as modes of one template:
+// Replaces these TPU (Pallas) kernels, in three kernels (single_pipe_kernel,
+// the template nw_single_kernel, nw_refill_kernel):
 //   K8  nw_tpu/ops/fill_pallas_single.py:250 _make_score_count_kernel
 //       (score_count_fold)                                 -> nw_score_count
 //   K2  nw_tpu/ops/fill_pallas_banded.py:342 _make_banded_arrows_kernel
@@ -31,6 +32,9 @@
 //       (fill_arrows_fold_batch: the tie masks of a batch of long pairs,
 //       one pair at a time)                                -> nw_fill_masks,
 //                                                             a pair at a time
+// nw_score_count and nw_fill_codes_single run single_pipe_kernel (the
+// single-pair pipeline, below); nw_refill_blocks runs nw_refill_kernel;
+// the others run nw_single_kernel, whose every band hands off through L2.
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163 on the
 // pair's exact (len2+1) x (len1+1) table, with row 0 (-c*d, LEFT, one
@@ -39,10 +43,11 @@
 // (fill_pallas_single.py:277-284) and holds for every scoring.  Scores
 // wrap as int32, counts as uint32.  The 0 x 0 pair gives score 0, count 1.
 //
-// Design.  The side string's rows are cut into bands of 32 rows, one row
-// per lane; a warp sweeps its band as nw_fill.cu does (the up neighbour
-// by __shfl_up_sync, the diagonal one the up value of the previous step,
-// lane 0 fed the row above the band 32 columns at a time).  G blocks of
+// nw_single_kernel.  The side string's rows are cut into bands of 32
+// rows, one row per lane; a warp sweeps its band as nw_fill.cu does (the
+// up neighbour by __shfl_up_sync, the diagonal one the up value of the
+// previous step, lane 0 fed the row above the band 32 columns at a
+// time).  G blocks of
 // W warps own the pair, P = G*W warps in all: global warp g = block*W +
 // warp takes bands g, g+P, g+2P, ..., so up to P bands are in flight as a
 // pipelined wavefront over the card, each one two 32-column chunks behind
@@ -78,16 +83,17 @@
 // coalesced store a row.  Scores (only for -t tables) keep the per-lane
 // store.
 //
-// nw_fill_codes_single stores each cell's 2-bit greedy code (0 diag,
-// 1 left, 2 up, by diag > left > up) in nw_fill.cu's band-major layout:
-// a lane packs 16 steps into a word and after the step with
-// (t & 15) == 15 the 32 lanes store their words together at
-// [band, t >> 4, lane], one coalesced 128-byte store per 16 steps, so the
-// tensor is bit-equal to nw_fill_codes's for the same pair, every word
-// written (cells outside the table 0).  Given a seed row (row r0 of the
-// pair, scores only) it fills rows r0+1 .. r0+Bs instead: band 0 reads
-// its row above from the seed, column 0 stays -j*d with the global j.
-// nw_score_single is the score pipeline without counts; given ckpt it
+// The codes (nw_fill_codes_single; nw_fill_tile's codes mode): each
+// cell's 2-bit greedy code (0 diag, 1 left, 2 up, by diag > left > up)
+// in nw_fill.cu's band-major layout: a lane packs 16 steps into a word
+// and after the step with (t & 15) == 15 the 32 lanes store their words
+// together at [band, t >> 4, lane], one coalesced 128-byte store per 16
+// steps, so the tensor is bit-equal to nw_fill_codes's for the same
+// pair, every word written (cells outside the table 0).  Given a seed
+// row (row r0 of the pair, scores only) nw_fill_codes_single fills rows
+// r0+1 .. r0+Bs instead: band 0 reads its row above from the seed,
+// column 0 stays -j*d with the global j.
+// nw_score_single is nw_single_kernel without counts; given ckpt it
 // also writes row r*C (lane 31 of a band, every column) into ckpt[r],
 // row 0 included, through the ring's __stcg path.  nw_last_row (its
 // LAST_ROW mode, K9) writes row Bs, whatever Bs, into an int32[A+1] row:
@@ -132,19 +138,80 @@
 // holds G*S rows, at most a row a band: half the bytes of the group's
 // codes.
 //
-// What bounds it on the H100: the serial chain of each step (one shuffle
-// and a few dependent integer ops, ~70-110 cycles for one warp alone,
-// PERF.md section 6); with W warps interleaving on an SM the step's
-// issued instructions (~40-50 a step for a warp, four schedulers) become
-// the SM's bound, and across SMs the wavefront's critical path (two
-// chunks a band, plus one band's sweep) bounds the pair.  The codes mode
-// adds one coalesced 128-byte store a warp per 16 steps (2.5 GB for a
-// 100 000 bp pair, ~2 ms over the score-only mode on an H100 80GB HBM3 at
-// 700 W, PERF.md section 6); a re-fill of one block of C rows has only
-// C/32 bands, so it runs on few warps and its band's sweep (A+32 steps)
-// is its critical path.  The grouped re-fill puts every band of G blocks
-// in flight at once (up to 32 warps an SM), so its G blocks take about
-// one band's sweep with the SMs' issue slots shared by ~24 warps each.
+// The single-pair pipeline (single_pipe_kernel: nw_score_count, with
+// counts; nw_fill_codes_single, with codes).  nw_fill.cu's pipeline (its
+// header, "The pipeline") on G blocks of W warps of a cooperative grid,
+// one pair a grid (W and G: nw_tpu_torch/ops/fill_banded.py single_warps,
+// single_blocks).  Band b runs on block (b / W) % G, warp b % W, so up to
+// P = G*W bands are in flight, and a warp takes its bands b, b+P, ... in
+// rounds.  Within a block consecutive bands hand off as in nw_fill.cu,
+// through the warps' shared rings of kSlots chunk slots (nw_common.cuh's
+// pipe_wait / pipe_post, block-scope fences), and a step is pipe_fill's
+// Needleman-Wunsch step: an int2 (score, count) ring cell with counts,
+// an int32 one without, the int16 staged top (in shared memory, or in the
+// block's row of a device scratch past ~115 000 columns), the untested
+// inner chunk and DPX __vimax3_s32.  Only warp W-1 of block g hands its
+// band's last row on, to warp 0 of block (g+1) % G: after each chunk it
+// copies the chunk from its ring into bnd[(g+1) % G], the boundary row
+// of the block after, through L2 (__stcg: another SM's L1 may hold a
+// stale line), and after chunks 0, kHandoff, 2*kHandoff, ... and the last
+// it publishes the chunks it has completed, counted over its bands, in
+// flags[g] (a __threadfence first).  Warp 0 of block g+1, before chunks
+// 0, kHandoff, ..., spins until flags[g] covers the chunk after the
+// group's last (lane 31 trails lane 0 by 31 columns), fences, loads the
+// group's kHandoff chunks of its row (__ldcg, a cell a lane a chunk, into
+// registers) and stages one chunk a chunk in shared memory, as pipe_fill
+// stages bnd.  So L2 carries one handoff every W bands, with one fence
+// and one spin every kHandoff chunks, where nw_single_kernel pays them
+// for every band and chunk.  Block 0's row holds row 0 (-c*d, one path)
+// or the seed first; block 0's warp 0 then reads block G-1's bands of the
+// round before.
+//
+// It cannot deadlock.  The launch is cooperative, so every block is
+// co-resident and no spin waits on a block that never runs.  A band
+// waits on the band above it (its row) and, inside a block, on the band
+// below it in the same round (the ring slots it overwrites have been
+// read); warp W-1 never waits for a reader (a boundary row is a whole
+// row), so every wait between blocks is a "row above" wait, on a smaller
+// band, and nw_fill.cu's argument for its rings covers the rest.  A
+// warp's band of round r waits on nothing of a later round.
+//
+// Reusing a boundary row.  bnd[g+1] is rewritten by band b+P (block g's
+// warp W-1, one round later) while band b+1 (block g+1's warp 0) reads
+// band b's row from it.  Band b+P copies its chunk q's columns (t0-31 ..
+// t0) only after completing chunk q, which needed band b+P-1 to have
+// completed chunk q+1, which needed band b+P-2 to have completed chunk
+// q+2, and so on: the unbroken chain of "row above" waits from band b+P
+// down to band b+1 (kHandoff's groups only lengthen a link) gives band
+// b+1 at least q+1 chunks completed, so it has loaded every column up to
+// t0 before any of them is overwritten; each link's fence (block-scope in
+// a block, gpu-scope between blocks) orders its load before the store.
+// With P = 1 the one warp loads a group of its row before rewriting any
+// of its columns.  The boundary rows are G rows of A+1 cells: 8 bytes
+// with counts, 4 without (105.6 MB for nw_score_count at 100 kb on 132
+// blocks).
+//
+// What bounds it on the H100.  nw_single_kernel: the serial chain of
+// each step (six shuffles with counts, four without, and a few dependent
+// integer ops) and, every 32-column chunk of every band, an L2 poll, a
+// gpu-scope fence and the loads of the row above; so its ~8 warps an SM
+// run at the pace of that handoff, not of issue (4 warps a block beat 8
+// on nw_score_count's old instantiation at 20 kb, PERF.md section 6).
+// The codes mode adds one coalesced 128-byte store a warp per 16 steps
+// (2.5 GB for a 100 000 bp pair, ~2 ms, PERF.md section 6).  The grouped
+// re-fill puts every band of G blocks in flight at once (up to 32 warps
+// an SM), so its G blocks take about one band's sweep with the SMs'
+// issue slots shared by ~24 warps each.  single_pipe_kernel: the
+// wavefront's critical path, about 2*nbands + nchunks chunks of 32 steps
+// (each band two chunks behind the one above, then the last band's
+// sweep: ~9 400 chunks at 100 kb), at the step's latency, plus kHandoff-1
+// chunks of lag and an L2 round trip every W bands.  A block's W bands
+// start two chunks apart, so ~nchunks/(2W) consecutive blocks hold the
+// wavefront at once: W near nchunks/(2*SMs) spreads it over every SM
+// (12 warps an SM at 100 kb), and more warps an SM slow each one's step
+// (~127 cycles with counts, ~104 with codes at 12 warps an SM, against
+// ~86 for a warp alone; PERF.md section 6), which, not the
+// handoff, holds a 100 kb pair at ~2x its bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -153,12 +220,35 @@
 
 namespace {
 
+using nw::Cell;
+using nw::Flag;
 using nw::kFull;
+using nw::kRing;
+using nw::kSidePad;
+using nw::kSlots;
+using nw::pipe_post;
+using nw::pipe_smem;
+using nw::pipe_stage_top;
+using nw::pipe_top_cols;
+using nw::pipe_wait;
 using nw::wadd;
 using nw::wmul;
 using nw::wsub;
 
 constexpr int kMaxWarps = 32;
+// chunks a handoff between blocks carries (a power of 2): warp W-1
+// publishes its boundary row every kHandoff chunks, and warp 0 loads
+// kHandoff chunks of it at once, one fence and one spin for them all.
+// In a build-flag trial on an H100 2 was a few percent faster than 1 at
+// 20 and 100 kb, and 4 no faster than 2 (PERF.md section 6)
+constexpr int kHandoff = 2;
+
+// warp W-1 publishes its count after chunk q: after chunks 0, kHandoff,
+// 2*kHandoff, ... (counts 1, kHandoff+1, ...: where warp 0's group of
+// kHandoff chunks from chunk q' needs count q'+kHandoff+1) and the last
+__device__ __forceinline__ bool publishes_after(int q, int nchunks) {
+  return (q & (kHandoff - 1)) == 0 || q + 1 == nchunks;
+}
 constexpr unsigned kMaskDiag = 1u;
 constexpr unsigned kMaskLeft = 2u;
 constexpr unsigned kMaskUp = 4u;
@@ -505,21 +595,273 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_refill_kernel(
   }
 }
 
+
+// ---------------- K8, K14: the W-warp pipeline across a cooperative grid ----------------
+
+// The pipeline's NW fill of one pair on G blocks of W warps (header,
+// "The single-pair pipeline"): band b on block (b / W) % G, warp b % W.
+// TOP_SMEM: the top string is staged in shared memory; else in the
+// block's row of top16 (int16[G, pipe_top_cols(A)]).  bnd is [G, A+1]
+// cells, row g the row above block g's warp 0 (row 0, or the seed, in
+// row 0 first); flags int32[G] zeroed.  With a seed (row r0 of the pair)
+// rows r0+1 .. r0+Bs are filled, column 0 -(r0+j)*d.
+template <bool WITH_COUNTS, bool EMIT_CODES, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
+    const int* __restrict__ top, const int* __restrict__ side, int A, int Bs,
+    int r0, const int* __restrict__ seed, int m, int k, int d, short* top16,
+    typename Cell<WITH_COUNTS>::type* bnd, int* flags, unsigned* __restrict__ codes,
+    int* __restrict__ score, unsigned* __restrict__ count) {
+  using C = typename Cell<WITH_COUNTS>::type;
+  extern __shared__ __align__(16) int single_sh[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int G = gridDim.x;
+  const int blk = blockIdx.x;
+  const int M = A + 1;
+  const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
+  const int nbands = (Bs + 31) >> 5;
+  C* const rings = reinterpret_cast<C*>(single_sh);
+  C* const stage = rings + W * kRing;
+  volatile int* done = reinterpret_cast<int*>(stage + 32);
+  short* const top_s = TOP_SMEM ? reinterpret_cast<short*>(const_cast<int*>(done) + W)
+                                : top16 + static_cast<int64_t>(blk) * pipe_top_cols(A);
+  // warp 0 reads its row above from bnd[blk], published by flags[blk-1]
+  // (block 0: by flags[G-1]); warp W-1 writes bnd[blk+1], flags[blk]
+  const C* const bnd_in = bnd + static_cast<int64_t>(blk) * M;
+  C* const bnd_out = bnd + static_cast<int64_t>((blk + 1) % G) * M;
+  volatile int* const flag_in = flags + (blk + G - 1) % G;
+  volatile int* const flag_out = flags + blk;
+
+  // the top string; row 0 (-c*d, one path) or the seed into block 0's
+  // boundary row; counters
+  pipe_stage_top(top_s, top, A);
+  if (blk == 0) {
+    for (int c = threadIdx.x; c < M; c += blockDim.x) {
+      const int v = seed ? seed[c] : wsub(0, wmul(c, d));
+      if constexpr (WITH_COUNTS) {
+        __stcg(bnd + c, make_int2(v, 1));
+      } else {
+        __stcg(bnd + c, v);
+      }
+    }
+    if (Bs == 0 && threadIdx.x == 0) {  // the corner is on the row above
+      *score = seed ? seed[A] : wsub(0, wmul(A, d));
+      if (WITH_COUNTS) *count = 1u;
+    }
+  }
+  if (threadIdx.x < W) done[threadIdx.x] = 0;
+  __syncthreads();
+
+  const int negk = wsub(0, k);
+  const bool last_warp = warp == W - 1;
+  C* const out_ring = rings + warp * kRing;
+  // the row above: the previous warp's ring, or (warp 0) the staged chunk
+  const C* const in_ring = warp > 0 ? rings + (warp - 1) * kRing : stage;
+  const short* const top_lane = top_s + 31 - lane;  // column t - lane at [t]
+  int seen = 0;  // warp 0: the last value read from flag_in
+  C pre[kHandoff];  // warp 0: the row above's next kHandoff chunks, a cell a lane
+  for (int band = blk * W + warp, round = 0; band < nbands; band += G * W, ++round) {
+    const int j = band * 32 + 1 + lane;  // this lane's row
+    const bool row_ok = j <= Bs;
+    const int sch = row_ok ? side[j - 1] : kSidePad;
+    const int col0 = wsub(0, wmul(r0 + j, d));  // H[r0+j][0]
+    const bool feeds = band + 1 < nbands;  // a band below reads this one's last row
+    const bool to_ring = feeds && !last_warp;  // ... from this warp's ring
+    // warp 0 reads block blk-1's warp W-1 band of this round; block 0 block
+    // G-1's of the round before (none in round 0: bnd[0] holds row 0)
+    const int in_base = (warp > 0 || blk > 0 ? round : round - 1) * nchunks;
+    // the chunk of the corner's step, in the band that holds row Bs
+    const int jj_c = Bs - 1 - band * 32;
+    const int corner_q = jj_c >= 0 && jj_c < 32 ? (A + jj_c) >> 5 : -1;
+    unsigned* wbase = EMIT_CODES
+        ? codes + (band * static_cast<int64_t>(2 * nchunks)) * 32 + lane : nullptr;
+    int h = 0, up_prev = 0;  // own last value, last up
+    unsigned cnt = 0, cup_prev = 0, pack = 0;
+
+    for (int q = 0; q < nchunks; ++q) {
+      const int g = round * nchunks + q;  // chunks of this warp before this one
+      const int t0 = q << 5;
+      const C* above = in_ring + (g & (kSlots - 1)) * 32;
+      if (warp > 0) {
+        // the row above's columns t0 .. t0+31 are in (the band above has
+        // completed chunk q+1), and this chunk's slots have been read
+        pipe_wait(done, warp - 1, in_base + min(q + 2, nchunks), to_ring, warp + 1, g - kSlots + 1);
+      } else {
+        pipe_wait(done, 0, 0, to_ring, 1, g - kSlots + 1);  // the slots alone
+        // every kHandoff chunks, the next kHandoff chunks of the row above
+        // (the band above has completed the chunk after the last of them)
+        const int slot = q & (kHandoff - 1);
+        if (slot == 0) {
+          const int need = in_base + min(q + kHandoff + 1, nchunks);
+          if (seen < need) {
+            while ((seen = *flag_in) < need) {
+            }
+            __threadfence();
+          }
+#pragma unroll
+          for (int i = 0; i < kHandoff; ++i) {
+            const int cx = t0 + 32 * i + lane;
+            pre[i] = cx < M ? __ldcg(bnd_in + cx) : C{};
+          }
+        }
+        C v = pre[0];
+#pragma unroll
+        for (int i = 1; i < kHandoff; ++i) v = slot == i ? pre[i] : v;
+        stage[lane] = v;
+        above = stage;
+        __syncwarp();
+      }
+      // lane 31 writes columns t0-31 .. t0-1 (steps 0..30, none in chunk 0)
+      // into slot g-1 at 1..31 and column t0 (step 31) into slot g at 0
+      C* const out_lo = out_ring + ((g - 1) & (kSlots - 1)) * 32 + 1;
+      C* const out_hi = out_ring + (g & (kSlots - 1)) * 32;
+      const bool pub_hi = lane == 31 && feeds;
+      const bool pub_lo = pub_hi && q > 0;
+      const short* const tq = top_lane + t0;
+
+      // one chunk of 32 steps; FAST: every lane's column lies in 1..A and
+      // the corner is not in it, so column 0, the columns past A and the
+      // corner need no test
+      auto sweep = [&](auto fast) {
+        constexpr bool FAST = decltype(fast)::value;
+#pragma unroll
+        for (int s = 0; s < 32; ++s) {
+          int up = __shfl_up_sync(kFull, h, 1);
+          [[maybe_unused]] unsigned cup = 0;
+          if constexpr (WITH_COUNTS) {
+            cup = __shfl_up_sync(kFull, cnt, 1);
+            const int2 a = above[s];
+            up = lane == 0 ? a.x : up;
+            cup = lane == 0 ? static_cast<unsigned>(a.y) : cup;
+          } else {
+            const int a = above[s];
+            up = lane == 0 ? a : up;
+          }
+          const int ch = tq[s];
+
+          const int cand_d = wadd(up_prev, ch == sch ? m : negk);
+          const int cand_u = wsub(up, d);
+          const int cand_l = wsub(h, d);
+          // one DPX three-way max (exact: the wrapping is in the candidates)
+          int hn = __vimax3_s32(cand_d, cand_u, cand_l);
+          unsigned code = cand_d == hn ? 0u : (cand_l == hn ? kCodeLeft : kCodeUp);
+          unsigned cn = 0;
+          if constexpr (WITH_COUNTS) {
+            cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
+                 (cand_u == hn ? cup : 0u);
+          }
+          bool in_row = true;
+          if constexpr (!FAST) {
+            const int c = t0 + s - lane;
+            const bool col_zero = c == 0;  // column 0: -(r0+j)*d, UP, one path
+            hn = col_zero ? col0 : hn;
+            code = col_zero ? kCodeUp : code;
+            cn = col_zero ? 1u : cn;
+            in_row = c >= 0 && c <= A;
+            if (in_row && j == Bs && c == A) {  // the corner
+              *score = hn;
+              if (WITH_COUNTS) *count = cn;
+            }
+          }
+          if (s < 31 ? pub_lo : pub_hi) {  // this band's last row, for the band below
+            C v;
+            if constexpr (WITH_COUNTS) {
+              v = make_int2(hn, static_cast<int>(cn));
+            } else {
+              v = hn;
+            }
+            (s < 31 ? out_lo[s] : out_hi[0]) = v;
+          }
+          if constexpr (EMIT_CODES) {
+            // rows past Bs store 0: per cell in a tested chunk, per word here
+            pack |= (FAST || (in_row && row_ok) ? code : 0u) << (2 * (s & 15));
+            if ((s & 15) == 15) {  // static: every lane stores together
+              wbase[static_cast<int64_t>((t0 + s) >> 4) * 32] = FAST && !row_ok ? 0u : pack;
+              pack = 0;
+            }
+          }
+          up_prev = up;
+          h = hn;
+          if constexpr (WITH_COUNTS) {
+            cup_prev = cup;
+            cnt = cn;
+          }
+        }
+      };
+      if (q > 0 && t0 + 31 <= A && q != corner_q) {  // no column 0, none past the row, no corner
+        sweep(Flag<true>{});
+      } else {
+        sweep(Flag<false>{});
+      }
+
+      __syncwarp();  // the chunk's ring writes are in
+      if (last_warp && feeds) {  // columns t0-31 .. t0 into block blk+1's boundary row
+        const int col = t0 - 31 + lane;
+        if (col >= 0 && col < M) __stcg(bnd_out + col, lane < 31 ? out_lo[lane] : out_hi[0]);
+        // published after chunks 0, kHandoff, 2*kHandoff, ... and the last,
+        // as g+1: the counts the reader's groups of kHandoff chunks wait for
+        if (publishes_after(q, nchunks)) {
+          __syncwarp();
+          if (lane == 0) {
+            __threadfence();
+            *flag_out = g + 1;
+          }
+        }
+      }
+      pipe_post(done, warp, lane, g);
+    }
+  }
+}
+
+// top16 null: the top in shared memory; else int16[blocks, pipe_top_cols(A)].
+template <bool WITH_COUNTS, bool EMIT_CODES>
+int launch_single_pipe(const int* top, const int* side, int A, int Bs, int r0,
+                       const int* seed, int m, int k, int d, int blocks, int warps,
+                       short* top16, void* bnd, int* flags, unsigned* codes, int* score,
+                       unsigned* count, cudaStream_t stream) {
+  using C = typename Cell<WITH_COUNTS>::type;
+  if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 0 || r0 < 0 ||
+      (r0 > 0 && !seed))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = pipe_smem(warps, A, sizeof(C), !top16);
+  auto kernel = top16 ? single_pipe_kernel<WITH_COUNTS, EMIT_CODES, false>
+                      : single_pipe_kernel<WITH_COUNTS, EMIT_CODES, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // cooperative: all blocks co-resident (or the launch is refused), since
+  // a block's warp 0 spins on the block before it
+  C* cells = static_cast<C*>(bnd);
+  void* args[] = {&top, &side, &A, &Bs, &r0, &seed, &m, &k, &d, &top16,
+                  &cells, &flags, &codes, &score, &count};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(kernel), dim3(blocks), dim3(32 * warps), args,
+      static_cast<size_t>(smem), stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it; the caller gets this launch's error
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// K8 port: one pair's corner score and uint32 solution count, O(A+B)
-// device memory.  top int32[A], side int32[Bs] (exact lengths); blocks x
-// warps warps; ring / cring are [min(blocks*warps, bands), A+1] scratch,
-// done int32[blocks*warps] zeroed; score / count one element each.
+// K8 port: one pair's corner score and uint32 count, O(A+B) device
+// memory, on the single-pair pipeline of blocks x warps warps.  top
+// int32[A], side int32[Bs] (exact lengths); top16 null, or
+// int16[blocks, 32*ceil((A+32)/32) + 32] scratch for a top that does not
+// fit a block's shared memory; bnd int32[blocks, A+1, 2] scratch, flags
+// int32[blocks] zeroed; score / count one element each.
 extern "C" int nw_score_count(const int* top, const int* side, int A, int Bs,
                               int m, int k, int d, int blocks, int warps,
-                              int* ring, void* cring, int* done, int* score,
+                              void* top16, void* bnd, int* flags, int* score,
                               void* count, void* stream) {
-  const Outs out{nullptr, nullptr, nullptr, nullptr, 0, score,
-                 static_cast<unsigned*>(count)};
-  return launch_single<true, false, false, false>(
-      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring,
-      static_cast<unsigned*>(cring), done, out, static_cast<cudaStream_t>(stream));
+  return launch_single_pipe<true, false>(
+      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, static_cast<short*>(top16), bnd,
+      flags, nullptr, score, static_cast<unsigned*>(count), static_cast<cudaStream_t>(stream));
 }
 
 // K2 pack_bits=8 port for one pair (and K10's, a pair at a time): tie
@@ -544,22 +886,21 @@ extern "C" int nw_fill_masks(const int* top, const int* side, int A, int Bs,
 }
 
 // K14 port (seed null, r0 0): the 2-bit greedy codes of the whole pair,
-// uint32[ceil(Bs/32), 2*ceil((A+32)/32), 32], and its corner score.
-// K13 port a block a launch (seed int32[A+1] = row r0 of the pair; the
-// checkpointed traceback runs nw_refill_blocks): the codes of rows
-// r0+1 .. r0+Bs (side = the pair's side from row r0+1 on, Bs rows), in
-// the same layout, and H[r0+Bs][A].  ring is [min(blocks*warps, bands),
-// A+1] scratch, done int32[blocks*warps] zeroed.
+// uint32[ceil(Bs/32), 2*ceil((A+32)/32), 32], and its corner score, on
+// the single-pair pipeline of blocks x warps warps.  K13 port a block a
+// launch (seed int32[A+1] = row r0 of the pair; the checkpointed
+// traceback runs nw_refill_blocks): the codes of rows r0+1 .. r0+Bs (side
+// = the pair's side from row r0+1 on, Bs rows), in the same layout, and
+// H[r0+Bs][A].  top16 as nw_score_count's, bnd int32[blocks, A+1]
+// scratch, flags int32[blocks] zeroed.
 extern "C" int nw_fill_codes_single(const int* top, const int* side, int A,
                                     int Bs, int r0, const int* seed, int m,
                                     int k, int d, int blocks, int warps,
-                                    int* ring, int* done, void* codes,
+                                    void* top16, void* bnd, int* flags, void* codes,
                                     int* score, void* stream) {
-  const Outs out{nullptr, nullptr, static_cast<unsigned*>(codes), nullptr, 0,
-                 score, nullptr};
-  return launch_single<false, false, false, true>(
-      top, side, A, Bs, r0, seed, m, k, d, blocks, warps, ring, nullptr, done,
-      out, static_cast<cudaStream_t>(stream));
+  return launch_single_pipe<false, true>(
+      top, side, A, Bs, r0, seed, m, k, d, blocks, warps, static_cast<short*>(top16), bnd,
+      flags, static_cast<unsigned*>(codes), score, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // K11 port (ckpt null): one pair's corner score, nothing stored per cell.

@@ -40,7 +40,10 @@ through :func:`_fill_scores_kernel`) and, with cells of their own,
 pair's top string as int16, so top characters are the encoder's (byte
 values and negative pads): in shared memory, or, for a bucket too long
 for it (:func:`top_in_smem`, about 115 000 columns), in an int16 scratch
-row in device memory.
+row in device memory.  :func:`single_warps` and :func:`single_blocks`
+give the shape of the same pipeline across a cooperative grid, one pair
+on G blocks of W warps (``nw_score_count``, ``nw_fill_codes_single``;
+:mod:`nw_tpu_torch.ops.fill_single`).
 
 Inputs are int32 tops[B, A] / sides[B, Bs] encoded with the PAD_TOP /
 PAD_SIDE sentinels, and int32 lens1 / lens2[B].  Counts come back as
@@ -108,6 +111,18 @@ SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on an H100
 # 43.0 / 38.5 / 36.7 ms at W = 8 / 16 / 32 and 128 x 10 240 bp scores
 # (one pair an SM) 14.6 / 8.7 / 8.0 ms at W = 8 / 16 / 32
 WARPS_PER_SM = 32
+# the single-pair pipeline's W: its wavefront's bands spread over the
+# SMs, no fewer than SINGLE_WARPS_MIN (a narrow wavefront: fewer blocks,
+# fewer handoffs between them) and no more than SINGLE_WARPS_MAX (more
+# warps an SM slow each one's step more than they add).  The sweep of W
+# (scripts/single_shapes.py --sweep; PERF.md section 6) on an H100 80GB
+# HBM3 at 700 W gave nw_score_count at W = 4 / 8 / 12 / 16 / 24: 2.11 /
+# 2.04 / 2.14 / 2.39 / 3.09 ms at 10 240 bp, 10.52 / 9.41 / 9.86 / 11.01 /
+# 14.58 at 50 000 bp, 33.85 / 21.29 / 19.62 / 21.99 / 29.15 at 100 000 bp
+# and 146.9 / 84.0 / 65.3 / 59.0 / 61.3 at 200 000 bp (nw_fill_codes_single
+# alike)
+SINGLE_WARPS_MIN = 8
+SINGLE_WARPS_MAX = 16
 
 
 def top_cols(A: int) -> int:
@@ -147,6 +162,27 @@ def fill_warps(B: int, A: int, Bs: int, cell: int, sms: int) -> int:
     return warps
 
 
+def single_warps(A: int, Bs: int, sms: int) -> int:
+    """W, the warps a block of the single-pair pipeline (``nw_score_count``,
+    ``nw_fill_codes_single``: one pair on a cooperative grid of blocks) at
+    an (A, Bs) pair: the bands in flight at once (each band two chunks
+    behind the one above it: about half a band's ``ceil((A+32)/32)``
+    chunks, or all the pair's bands) spread over the ``sms`` SMs, within
+    ``SINGLE_WARPS_MIN`` .. ``SINGLE_WARPS_MAX`` and no more than the
+    bands.  (The top goes to device memory where it does not fit beside
+    W warps' rings: :func:`_top_scratch`.)"""
+    nbands = -(-Bs // 32)
+    wave = min(nbands, -(-((A + 63) // 32) // 2))
+    return max(1, min(nbands, SINGLE_WARPS_MAX, max(SINGLE_WARPS_MIN, -(-wave // sms))))
+
+
+def single_blocks(Bs: int, warps: int, sms: int) -> int:
+    """G, the blocks of a single-pair pipeline launch of ``warps`` warps a
+    block: as many as the pair's bands fill, one an SM at most (past that
+    the bands wrap around to block 0)."""
+    return max(1, min(sms, -(-Bs // (32 * warps))))
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -166,10 +202,13 @@ def _pipe_warps(B, A, Bs, cell, device, warps):
     return warps
 
 
-def _top_scratch(B, A, cell, device):
-    """The int16 rows a pipeline launch stages its tops in, when they do
-    not fit shared memory (else None: the kernel's argument is null)."""
-    if top_in_smem(A, cell):
+def _top_scratch(B, A, cell, device, warps=1):
+    """The int16 rows a pipeline launch stages its tops in (a row a pair;
+    the single-pair pipeline's, a row a block), when they do not fit
+    shared memory beside ``warps`` warps' rings (the batched pipeline's
+    ``warps`` 1: :func:`top_in_smem`), else None: the kernel's argument is
+    null."""
+    if fill_smem(warps, A, cell) <= SMEM_LIMIT:
         return None
     return torch.empty((B, top_cols(A)), dtype=torch.int16, device=device)
 
@@ -458,7 +497,7 @@ def fill_arrows_banded_single(
     up (row 0 LEFT, column 0 UP, the origin 0), not the TPU kernel's
     packed band-major words.  top / side: int32[A] / int32[Bs]; len1 /
     len2 default to A / Bs; ``warps`` / ``blocks`` as
-    :func:`nw_tpu_torch.ops.fill_single.score_count_fold`.
+    :func:`nw_tpu_torch.ops.fill_single.score_fold`.
     """
     len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
     if top.device.type == "cpu":

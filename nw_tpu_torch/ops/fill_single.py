@@ -1,9 +1,16 @@
 """Single-pair fills: the ports of K8, K11, K12, K13 and K14.
 
-All launch modes of one kernel template (``csrc/nw_single.cu``:
-``blocks`` co-resident blocks of ``warps`` warps on the pair, a pipelined
-wavefront of 32-row bands) on CUDA tensors, and run their plain PyTorch
-versions on CPU tensors:
+Each wrapper launches its kernel of ``csrc/nw_single.cu`` on CUDA
+tensors (``blocks`` co-resident blocks of ``warps`` warps on one pair, a
+pipelined wavefront of 32-row bands) and runs its plain PyTorch version
+on CPU tensors.  :func:`score_count_fold` and :func:`fill_codes_single`
+run the W-warp pipeline across the grid (``single_pipe_kernel``: bands
+hand off through shared memory inside a block and through one
+device-memory row between blocks; W and G from
+:func:`nw_tpu_torch.ops.fill_banded.single_warps` / ``single_blocks``);
+:func:`fill_codes_blocks` runs ``nw_refill_kernel``; the others run
+``nw_single_kernel``, whose every band hands off through L2, at
+:data:`WARPS` warps a block:
 
 * :func:`score_count_fold` — score and uint32 count, nothing stored per
   cell (``nw_score_count``; K8,
@@ -55,7 +62,10 @@ from nw_tpu_torch.ops.fill_scan import (
 )
 from nw_tpu_torch.runtime import kernels
 
-WARPS = 8  # warps a block (1..32): past ~8 an SM is issue-bound
+# warps a block (1..32) of the entries on nw_single_kernel, whose bands
+# hand off through L2: the handoff, not issue, sets the pace (4 warps
+# beat 8 on nw_score_count's old kernel at 20 kb, PERF.md section 6)
+WARPS = 8
 # warps an SM holds at once: the kernels' launch bounds cap a thread at 64
 # registers, so 32 warps fill an SM's 65 536 (a cooperative launch of more
 # is refused)
@@ -79,7 +89,7 @@ def check_pair(top, side, m, k, d, len1, len2, warps, blocks) -> Tuple[int, int]
     len2 = side.shape[0] if len2 is None else int(len2)
     if not (0 <= len1 <= top.shape[0] and 0 <= len2 <= side.shape[0]):
         raise ValueError("lengths must lie in [0, len(top)] / [0, len(side)]")
-    if not 1 <= warps <= 32:
+    if warps is not None and not 1 <= warps <= 32:
         raise ValueError(f"warps must lie in [1, 32], not {warps}")
     if blocks is not None and blocks < 1:
         raise ValueError(f"blocks must be at least 1, not {blocks}")
@@ -114,8 +124,8 @@ def check_batch(tops, sides, lens1, lens2, *scoring):
 
 
 def launch_shape(len2: int, warps: int, blocks: Optional[int], device) -> Tuple[int, int]:
-    """(blocks, warps) of a single-pair launch: by default one block an
-    SM, no more than the pair's 32-row bands fill."""
+    """(blocks, warps) of a ``nw_single_kernel`` launch: by default one
+    block an SM, no more than the pair's 32-row bands fill."""
     if blocks is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         blocks = max(1, min(sms, -(-len2 // (32 * warps))))
@@ -140,16 +150,47 @@ def single_scratch(len1: int, len2: int, blocks: int, warps: int, device,
     return ring, cring, done, score, count
 
 
+def pipe_shape(len1: int, len2: int, device, warps=None, blocks=None) -> Tuple[int, int]:
+    """(blocks, warps) of a single-pipeline launch (``nw_score_count``,
+    ``nw_fill_codes_single``) on an (len1, len2) pair: by default the
+    rule's (:func:`~nw_tpu_torch.ops.fill_banded.single_warps`,
+    ``single_blocks``) where not forced (:func:`check_pair` checks a
+    forced shape)."""
+    from nw_tpu_torch.ops import fill_banded as fb  # fill_banded imports this module
+
+    if warps is None:
+        warps = fb.single_warps(len1, len2, fb._sms(device))
+    if blocks is None:
+        blocks = fb.single_blocks(len2, warps, fb._sms(device))
+    return blocks, warps
+
+
+def pipe_scratch(len1: int, blocks: int, warps: int, cell: int, device):
+    """The scratch of a single-pipeline launch of ``blocks`` blocks of
+    ``warps`` warps: (top16, bnd, flags).  top16 is the blocks' int16 rows
+    of the staged top string, or None where it fits shared memory beside
+    the warps' rings (:func:`~nw_tpu_torch.ops.fill_banded._top_scratch`);
+    bnd the blocks' boundary rows, int32[blocks, len1+1, cell/4] (row g
+    the row above block g's first warp: a score a column, with counts a
+    score and a count); flags the blocks' zeroed chunk counters."""
+    from nw_tpu_torch.ops import fill_banded as fb
+
+    top16 = fb._top_scratch(blocks, len1, cell, device, warps)
+    bnd = torch.empty((blocks, len1 + 1, cell // 4), dtype=torch.int32, device=device)
+    flags = torch.zeros(blocks, dtype=torch.int32, device=device)
+    return top16, bnd, flags
+
+
 def score_count_fold(
     top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int,
     len1: Optional[int] = None, len2: Optional[int] = None,
-    warps: int = WARPS, blocks: Optional[int] = None,
+    warps: Optional[int] = None, blocks: Optional[int] = None,
 ) -> Tuple[int, int]:
     """(optimal score, solution count mod 2^32) of one pair.
 
     top / side: int32[A] / int32[Bs] encoded strings (padding past the
-    true lengths is ignored); len1 / len2 default to A / Bs.  ``blocks``
-    defaults to one an SM, as many as the pair's bands fill.
+    true lengths is ignored); len1 / len2 default to A / Bs.  ``warps``
+    (a block) and ``blocks`` default to :func:`pipe_shape`'s rule.
     """
     len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
     if top.device.type == "cpu":
@@ -157,12 +198,14 @@ def score_count_fold(
     dev = top.device
     top = top[:len1].contiguous()
     side = side[:len2].contiguous()
-    blocks, warps = launch_shape(len2, warps, blocks, dev)
-    ring, cring, done, score, count = single_scratch(len1, len2, blocks, warps, dev)
+    blocks, warps = pipe_shape(len1, len2, dev, warps, blocks)
+    top16, bnd, flags = pipe_scratch(len1, blocks, warps, 8, dev)  # a score and a count a cell
+    score = torch.empty(1, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
     kernels.launch(
         "nw_score_count", dev,
         top.data_ptr(), side.data_ptr(), len1, len2, m, k, d, blocks, warps,
-        ring.data_ptr(), cring.data_ptr(), done.data_ptr(),
+        None if top16 is None else top16.data_ptr(), bnd.data_ptr(), flags.data_ptr(),
         score.data_ptr(), count.data_ptr(),
     )
     score_count_fold.launches += 1
@@ -201,8 +244,10 @@ def score_fold(
     The K11 port (``nw_tpu/ops/fill_strips.py:62``) without checkpoints,
     the K12 port (``nw_tpu/ops/checkpoint_traceback.py:61``) with them:
     the TPU kernel dumps its rolling anti-diagonal state every C
-    diagonals, the port a DP row every C rows.  Arguments as
-    :func:`score_count_fold`.
+    diagonals, the port a DP row every C rows.  top / side / len1 / len2
+    as :func:`score_count_fold`; ``warps`` a block (default
+    :data:`WARPS`) and ``blocks`` (default one an SM, as many as the
+    pair's bands fill) as :func:`launch_shape`.
     """
     len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
     C = checkpoint_every
@@ -265,7 +310,7 @@ def last_row(
     mode of the single-pair pipeline, on CUDA tensors; :func:`last_row_plain`
     on CPU tensors.  Row 0 and column 0 are written explicitly, so the
     row is ``fill_scan``'s at every scoring (K9's rests on its NEG_INF
-    decay).  Arguments as :func:`score_count_fold`.
+    decay).  Arguments as :func:`score_fold`.
     """
     len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
     if top.device.type == "cpu":
@@ -311,7 +356,7 @@ def fill_arrows_fold_batch(
     pair's table goes through ``nw_fill_masks`` (every SM on the pair, the
     fused count with it) straight into its slice of the batch's table, on
     CUDA tensors; :func:`fill_arrows_fold_batch_plain` on CPU tensors.
-    ``warps`` / ``blocks`` as :func:`score_count_fold`.
+    ``warps`` / ``blocks`` as :func:`score_fold`.
     """
     check_batch(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
@@ -380,7 +425,7 @@ def fill_codes_single(
     top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int,
     len1: Optional[int] = None, len2: Optional[int] = None,
     r0: int = 0, seed: Optional[torch.Tensor] = None,
-    warps: int = WARPS, blocks: Optional[int] = None,
+    warps: Optional[int] = None, blocks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(codes, score): the 2-bit greedy codes of rows r0+1 .. len2 of one
     pair and ``H[len2][len1]`` as an int32 0-d tensor.
@@ -415,15 +460,17 @@ def fill_codes_single(
     top = top[:len1].contiguous()
     side = side[r0:len2].contiguous()
     rows = len2 - r0
-    blocks, warps = launch_shape(rows, warps, blocks, dev)
-    ring, _, done, score, _ = single_scratch(len1, rows, blocks, warps, dev, with_counts=False)
+    blocks, warps = pipe_shape(len1, rows, dev, warps, blocks)
+    top16, bnd, flags = pipe_scratch(len1, blocks, warps, 4, dev)  # a score a cell
+    score = torch.empty(1, dtype=torch.int32, device=dev)
     codes = torch.empty(code_shape(1, len1, rows), dtype=torch.int32, device=dev)
     seed = None if seed is None else seed[: len1 + 1].contiguous()
     kernels.launch(
         "nw_fill_codes_single", dev,
         top.data_ptr(), side.data_ptr(), len1, rows, r0,
         None if seed is None else seed.data_ptr(), m, k, d, blocks, warps,
-        ring.data_ptr(), done.data_ptr(), codes.data_ptr(), score.data_ptr(),
+        None if top16 is None else top16.data_ptr(), bnd.data_ptr(), flags.data_ptr(),
+        codes.data_ptr(), score.data_ptr(),
     )
     if seed is None:
         fill_codes_single.launches += 1

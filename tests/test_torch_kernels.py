@@ -142,7 +142,9 @@ def test_pipeline_with_the_top_in_device_memory(cuda):
     is staged in device memory: scores, counts and codes at W = 1, 3, 32
     against the single-pair kernels, whose codes share nw_fill_codes's
     layout (the first pair fills both buckets), under 2 1 1 and a
-    wrapping scoring."""
+    wrapping scoring; the single-pair kernels, which stage it in device
+    memory too, at the same W against their rule's shape and, on the
+    short-sided pair, against their plain versions."""
     rng = np.random.default_rng(31)
     A, Bs = 117_000, 1_600  # 50 bands
     letters = np.frombuffer(b"ACGT", np.uint8)
@@ -154,6 +156,11 @@ def test_pipeline_with_the_top_in_device_memory(cuda):
     for mkd in [(2, 1, 1), (1, 1, 2**30)]:
         want = [fill_single.score_count_fold(t, s, *mkd) for t, s in pairs]
         want_codes = fill_single.fill_codes_single(*pairs[0], *mkd)[0]
+        # the single-pair pipeline stages this top in device memory too:
+        # on the short-sided pair against its plain versions
+        cpu = [torch.from_numpy(enc.encode(x)) for x in ps[2]]
+        assert want[2] == fill_single.score_count_fold_plain(*cpu, *mkd)
+        plain_codes, plain_score = fill_single.fill_codes_single_plain(*cpu, *mkd)
         for warps in (1, 3, 32):
             scores = _pipe_fill("scores", dev, mkd, warps)[0].cpu().tolist()
             sc, ct = (x.cpu().tolist() for x in _pipe_fill("counts", dev, mkd, warps))
@@ -161,6 +168,10 @@ def test_pipeline_with_the_top_in_device_memory(cuda):
             assert scores == sc == sc2.cpu().tolist() == [w[0] for w in want], (mkd, warps)
             assert ct == ct2.cpu().tolist() == [w[1] for w in want], (mkd, warps)
             assert torch.equal(codes[0], want_codes[0]), (mkd, warps)
+            # the single-pair kernels at this W, blocks by the rule
+            assert [fill_single.score_count_fold(t, s, *mkd, warps=warps) for t, s in pairs] == want
+            got_codes, got_score = fill_single.fill_codes_single(*pairs[2], *mkd, warps=warps)
+            assert torch.equal(got_codes.cpu(), plain_codes) and int(got_score) == int(plain_score)
 
 
 def test_align_batch_long_pairs_at_the_rules_warps(cuda):
@@ -206,12 +217,17 @@ def _pair_tensors(s1, s2):
 # (blocks, warps): one warp; one block; several blocks whose warps take
 # more than one band each (up to 7 bands a pair); the default
 SHAPES = [(1, 1), (1, 32), (2, 2), (3, 1), (None, 8)]
+# the single-pair pipeline (nw_score_count, nw_fill_codes_single): SHAPES,
+# every W of a block with blocks by the rule, the rule's shape, and 2
+# blocks of 3 warps, which wrap around over the 700 bp pair's 22 bands
+SINGLE_PIPE_SHAPES = SHAPES + [(None, w) for w in (1, 2, 3, 4, 16, 32)] + [(None, None), (2, 3)]
+PAIR_700 = [(b"ACGTTGCA" * 80 + b"ACG", b"GATTACCA" * 87 + b"GCTA")]  # 643 x 700
 
 
-@pytest.mark.parametrize("blocks,warps", SHAPES)
+@pytest.mark.parametrize("blocks,warps", SINGLE_PIPE_SHAPES)
 @pytest.mark.parametrize("mkd", SCORINGS)
 def test_score_count_kernel_vs_plain(cuda, mkd, blocks, warps):
-    for s1, s2 in _single_pairs(sum(mkd) + 3):
+    for s1, s2 in _single_pairs(sum(mkd) + 3) + PAIR_700:
         top, side = _pair_tensors(s1, s2)
         got = fill_single.score_count_fold(
             top.to(cuda), side.to(cuda), *mkd, warps=warps, blocks=blocks
@@ -285,21 +301,26 @@ def test_cli_route_on_card(cuda, monkeypatch, args, launches):
     ) == launches
 
 
-def test_single_pair_kernels_across_blocks_at_10kb(cuda):
-    """Many blocks, several bands a warp, against the one-warp batch fill
-    (nw_fill_codes counts-only) on a 4 000 x 3 000 pair."""
+@pytest.mark.parametrize("blocks,warps", [(None, 8), (7, 3), (1, 32), (50, 1), (None, None), (None, 32), (3, 4)])
+def test_single_pair_kernels_across_blocks_at_10kb(cuda, blocks, warps):
+    """Many blocks, several bands a warp (P = blocks x warps under the
+    pair's 94 bands wraps around), against the batch fill (nw_fill_codes
+    counts-only) on a 4 000 x 3 000 pair; nw_fill_masks at the same
+    shape (its default W where the pipeline's rule picks one), and
+    nw_fill_codes_single's codes and corner against nw_fill_codes at
+    B = 1."""
     s1, s2 = _pairs(99, 1, 4000, 4001)[0][0], _pairs(98, 1, 3000, 3001)[0][0]
     top, side = (t.to(cuda) for t in _pair_tensors(s1, s2))
-    want_sc, want_ct = fill_banded.fill_scores_counts_banded_batch(
-        top[None], side[None], torch.tensor([4000], dtype=torch.int32, device=cuda),
-        torch.tensor([3000], dtype=torch.int32, device=cuda), 2, 1, 1,
-    )
+    lens = (_lens(4000, cuda), _lens(3000, cuda))
+    want_sc, want_ct = fill_banded.fill_scores_counts_banded_batch(top[None], side[None], *lens, 2, 1, 1)
     want = (int(want_sc[0]), int(want_ct[0]))
-    for blocks, warps in [(None, 8), (7, 3), (1, 32), (50, 1)]:
-        assert fill_single.score_count_fold(top, side, 2, 1, 1, warps=warps, blocks=blocks) == want
-        assert fill_banded.fill_arrows_banded_single(
-            top, side, 2, 1, 1, warps=warps, blocks=blocks
-        )[2:] == want
+    assert fill_single.score_count_fold(top, side, 2, 1, 1, warps=warps, blocks=blocks) == want
+    assert fill_banded.fill_arrows_banded_single(
+        top, side, 2, 1, 1, warps=warps or fill_single.WARPS, blocks=blocks
+    )[2:] == want
+    codes, score = fill_single.fill_codes_single(top, side, 2, 1, 1, warps=warps, blocks=blocks)
+    batch = fill_banded.fill_greedy_counts_banded_batch(top[None], side[None], *lens, 2, 1, 1)
+    assert torch.equal(codes, batch[0]) and int(score) == int(batch[1][0]) == want[0]
 
 
 def _one(s, cuda=None):
@@ -311,12 +332,13 @@ def _lens(x, cuda):
     return torch.tensor([x], dtype=torch.int32, device=cuda)
 
 
-@pytest.mark.parametrize("blocks,warps", SHAPES)
+@pytest.mark.parametrize("blocks,warps", SINGLE_PIPE_SHAPES)
 @pytest.mark.parametrize("mkd", SCORINGS)
 def test_codes_single_kernel_vs_plain_and_nw_fill_codes(cuda, mkd, blocks, warps):
     """K14 port: bit-equal to its plain version and to nw_fill_codes at
-    B = 1, lengths not multiples of 16 or 32 included."""
-    for s1, s2 in _single_pairs(sum(mkd) + 5) + [(b"ACGTACGTACGTACG", b"A" * 33)]:
+    B = 1, lengths not multiples of 16 or 32 included; its seeded mode
+    (rows r0+1 .. r1 from row r0, r0 > 0) on the 700 bp pair."""
+    for s1, s2 in _single_pairs(sum(mkd) + 5) + [(b"ACGTACGTACGTACG", b"A" * 33)] + PAIR_700:
         top, side = _pair_tensors(s1, s2)
         got = fill_single.fill_codes_single(
             top.to(cuda), side.to(cuda), *mkd, warps=warps, blocks=blocks
@@ -330,6 +352,16 @@ def test_codes_single_kernel_vs_plain_and_nw_fill_codes(cuda, mkd, blocks, warps
         )
         torch.testing.assert_close(got[0], batch[0], rtol=0, atol=0)
         assert int(got[1]) == int(batch[1][0])
+    top, side = _pair_tensors(*PAIR_700[0])
+    ck = fill_single.score_fold_plain(top, side, *mkd, checkpoint_every=224)[1]
+    for r in range(1, ck.shape[0]):
+        kw = {"len2": min(side.shape[0], 224 * r + 224), "r0": 224 * r}
+        got = fill_single.fill_codes_single(
+            top.to(cuda), side.to(cuda), *mkd, seed=ck[r].to(cuda), warps=warps, blocks=blocks, **kw
+        )
+        want = fill_single.fill_codes_single_plain(top, side, *mkd, seed=ck[r], **kw)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+        assert int(got[1]) == int(want[1]), kw
 
 
 @pytest.mark.parametrize("blocks,warps", SHAPES)
