@@ -2480,8 +2480,9 @@ L_ARROWS = 2048  # fill_arrows_auto's batched-masks limit (LANES_ARROWS_MAX_SIDE
 L_ROUTE = 4096  # align_batch's mask route against its codes route: 16 x 4 096 bp
 # (pairs, bp) of the route comparison: the two the rule is held to first,
 # then both sides of its crossover
-ROUTE_SHAPES = [(4, L_LONG), (16, L_ROUTE), (1, L_ROUTE), (2, L_ROUTE), (4, L_ROUTE), (8, L_ROUTE),
-                (2, L_LONG), (3, L_LONG), (8, L_LONG), (16, L_LONG), (23, L_LONG)]
+ROUTE_SHAPES = [(4, L_LONG), (16, L_ROUTE), (1, L_ROUTE), (2, L_ROUTE), (3, L_ROUTE), (4, L_ROUTE),
+                (8, L_ROUTE), (2, L_LONG), (3, L_LONG), (5, L_LONG), (6, L_LONG), (8, L_LONG), (16, L_LONG),
+                (23, L_LONG)]
 COUNT_WARPS = (1, 2, 3, 4, 8, 16, 32)  # phase 13 (a): nw_count_masks at each forced W
 COUNT_SWEEP = (1, 2, 4, 8, 16, 32)  # phase 13: the sweep of W at the timed shapes
 MASK_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel

@@ -8,6 +8,10 @@
 //   K2  nw_tpu/ops/fill_pallas_banded.py:342 _make_banded_arrows_kernel
 //       in its pack_bits=8 tie-mask mode for one pair (build_arrows_call,
 //       fill_arrows_banded_single)                         -> nw_fill_masks
+//   K10 nw_tpu/ops/fill_pallas_single.py:422 _make_arrows_kernel
+//       (fill_arrows_fold_batch: the tie masks of a batch of long pairs,
+//       one pair at a time)                                -> nw_fill_masks,
+//                                                             a pair at a time
 //   K14 nw_tpu/parallel/huge_pair.py:246 _make_fold_chunk_kernel_blocked
 //       (config-5 fill with 2-bit walk words and the corner capture)
 //                                                          -> nw_fill_codes_single
@@ -28,13 +32,11 @@
 //   K9  nw_tpu/ops/fill_pallas_single.py:83 _make_kernel
 //       (last_row_pallas: one pair's row H[len2, 0..A], for
 //       Hirschberg)                                        -> nw_last_row
-//   K10 nw_tpu/ops/fill_pallas_single.py:422 _make_arrows_kernel
-//       (fill_arrows_fold_batch: the tie masks of a batch of long pairs,
-//       one pair at a time)                                -> nw_fill_masks,
-//                                                             a pair at a time
-// nw_score_count and nw_fill_codes_single run single_pipe_kernel (the
-// single-pair pipeline, below); nw_refill_blocks runs nw_refill_kernel;
-// the others run nw_single_kernel, whose every band hands off through L2.
+// nw_score_count, nw_fill_masks, nw_fill_codes_single, nw_score_single
+// and nw_last_row run single_pipe_kernel (the single-pair pipeline,
+// below), each in a mode of its own; nw_refill_blocks runs
+// nw_refill_kernel; nw_fill_tile runs nw_single_kernel, whose every band
+// hands off through L2.
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163 on the
 // pair's exact (len2+1) x (len1+1) table, with row 0 (-c*d, LEFT, one
@@ -43,45 +45,66 @@
 // (fill_pallas_single.py:277-284) and holds for every scoring.  Scores
 // wrap as int32, counts as uint32.  The 0 x 0 pair gives score 0, count 1.
 //
-// nw_single_kernel.  The side string's rows are cut into bands of 32
-// rows, one row per lane; a warp sweeps its band as nw_fill.cu does (the
-// up neighbour by __shfl_up_sync, the diagonal one the up value of the
-// previous step, lane 0 fed the row above the band 32 columns at a
-// time).  G blocks of
-// W warps own the pair, P = G*W warps in all: global warp g = block*W +
-// warp takes bands g, g+P, g+2P, ..., so up to P bands are in flight as a
-// pipelined wavefront over the card, each one two 32-column chunks behind
-// the band above it (consecutive bands share a block, W at a time).  Band
-// b reads band b-1's last row (score and count) from a ring of P
-// boundary rows in global memory (slot (b-1)%P) and writes its own into
-// slot b%P, through L2 only (__ldcg / __stcg: another SM's L1 may hold a
-// stale line).  After every chunk each warp publishes the number of
-// chunks it has completed, over all its bands, in a global counter
-// (monotonic, so a reader never sees a later band's reset); the next
-// band's warp spins on it before it loads a chunk (gpu-scope fence after
-// the data and before the flag, and after the flag and before the data).
-// The launch is cooperative, so every block is co-resident and no spin
-// can wait on a block that never runs.  Reusing slot b%P is safe: band
-// b+P writes column c only after band b+P-1 has published past c, which
-// by the same rule needs band b+1 to have loaded column c.  With one warp
-// in all the ring is one row, read and written in place as nw_fill.cu
-// does.
+// nw_single_kernel (nw_fill_tile only).  The side string's rows are cut
+// into bands of 32 rows, one row per lane; a warp sweeps its band as
+// nw_fill.cu does (the up neighbour by __shfl_up_sync, the diagonal one
+// the up value of the previous step, lane 0 fed the row above the band
+// 32 columns at a time).  G blocks of W warps own the tile, P = G*W warps
+// in all: global warp g = block*W + warp takes bands g, g+P, g+2P, ..., so
+// up to P bands are in flight as a pipelined wavefront over the card,
+// each one two 32-column chunks behind the band above it.  Band b reads
+// band b-1's last row from a ring of P boundary rows in global memory
+// (slot (b-1)%P) and writes its own into slot b%P, through L2 only
+// (__ldcg / __stcg: another SM's L1 may hold a stale line).  After every
+// chunk each warp publishes the number of chunks it has completed, over
+// all its bands, in a global counter (monotonic, so a reader never sees a
+// later band's reset); the next band's warp spins on it before it loads
+// a chunk (gpu-scope fence after the data and before the flag, and after
+// the flag and before the data).  The launch is cooperative, so every
+// block is co-resident and no spin can wait on a block that never runs.
+// Reusing slot b%P is safe: band b+P writes column c only after band
+// b+P-1 has published past c, which by the same rule needs band b+1 to
+// have loaded column c.  With one warp in all the ring is one row, read
+// and written in place as nw_fill.cu does.  The template keeps the flags
+// and branches of the single-pair modes it served before they moved to
+// single_pipe_kernel (counts, a scores table, checkpoint rows, row Bs),
+// dead in every TILE instantiation, so that TILE's machine code stays as
+// it was until nw_fill_tile moves too.
 //
-// nw_fill_masks also stores each cell's 3-bit tie mask (bit0 diag, bit1
-// left, bit2 up; row 0 LEFT, column 0 UP, origin 0) into a rectangular
-// row-major uint8[len2+1, len1+1] and, when asked, its int32 score into
-// an int32 table of the same shape.  The masks' rows may be wider than the
-// pair (a row stride ldm >= len1+1): K10's port writes each pair of a
-// batch into its slice of one uint8[B, Bs+1, A+1] table.  The 32 lanes of a warp hold 32
-// different rows, so a per-step store of a mask is 32 transactions,
-// which made the masks cost ~6x the fill on the H100 (PERF.md, section
-// 6).  So each lane writes
-// its mask into the warp's 32-row x 64-column byte ring in shared memory
-// (column c in slot c % 64; at any time the live columns span 63), and
-// after every 32-step chunk the warp stores the 32 columns that every
-// lane has finished, row by row: 32 lanes on 32 consecutive bytes, one
-// coalesced store a row.  Scores (only for -t tables) keep the per-lane
-// store.
+// nw_fill_tile (TILE) fills one tile of a pair whose rows are sharded
+// over ranks (nw_tpu_torch/parallel/huge_pair.py): rows r0+1 .. r0+Bs and
+// columns c0+1 .. c0+C.  It is the same pipeline with the tile as its
+// table: band 0 reads the top halo (row r0 at columns c0 .. c0+C, the
+// corner first) as its seed, column 0 of the tile is the left edge input
+// (column c0 at rows r0+1 .. r0+Bs) instead of -j*d, and it writes the
+// right edge (column c0+C) and the bottom edge (row r0+Bs at columns
+// c0+1 .. c0+C) for the next tile and the next rank, and its bottom-right
+// cell as the score.  Its codes go into the rank's code table of the full
+// width (the layout below, global step c0 + c + lane): a tile boundary
+// cuts words, so a tile ORs its bits into the (zeroed) table's words
+// that it shares with the tile on its left or right (the tiles of a rank
+// run in order on one stream) and stores the others whole.  Its masks go
+// into a row-major uint8[Bs, width+1] table of the rank's rows, through
+// the warp's mask ring (below).  The tile with c0 = 0 also stores column
+// 0 (UP); no tile stores row r0.
+//
+// The tie masks (nw_fill_masks; nw_fill_tile's masks mode): each cell's
+// 3-bit tie mask (bit0 diag, bit1 left, bit2 up; row 0 LEFT, column 0 UP,
+// origin 0) into a rectangular row-major uint8[len2+1, len1+1], in rows
+// of ldm >= len1+1 bytes (K10's port writes each pair of a batch into its
+// slice of one uint8[B, Bs+1, A+1] table) and, when asked, its int32
+// score into an int32 table of the same shape (rows of len1+1).  The 32
+// lanes of a warp hold 32 different rows, so a per-step store of a mask
+// is 32 transactions, which made the masks cost ~6x the fill on the H100
+// (PERF.md, section 6).  So each lane writes its mask into the warp's
+// 32-row x 64-column byte ring in shared memory (column c in slot c % 64;
+// at any time the live columns span 63), and after every 32-step chunk
+// the warp stores the 32 columns that every lane has finished, row by
+// row: 32 lanes on 32 consecutive bytes, one coalesced store a row (in
+// nw_fill_masks, a whole band's 32 rows with no test a row, which took
+// a sixth off a 10 240 bp pair's fill on the H100, PERF.md section 6).
+// Scores (only for -t tables, which are small) keep a store a lane a
+// cell.
 //
 // The codes (nw_fill_codes_single; nw_fill_tile's codes mode): each
 // cell's 2-bit greedy code (0 diag, 1 left, 2 up, by diag > left > up)
@@ -93,29 +116,19 @@
 // row (row r0 of the pair, scores only) nw_fill_codes_single fills rows
 // r0+1 .. r0+Bs instead: band 0 reads its row above from the seed,
 // column 0 stays -j*d with the global j.
-// nw_score_single is nw_single_kernel without counts; given ckpt it
-// also writes row r*C (lane 31 of a band, every column) into ckpt[r],
-// row 0 included, through the ring's __stcg path.  nw_last_row (its
-// LAST_ROW mode, K9) writes row Bs, whatever Bs, into an int32[A+1] row:
-// the lane of row Bs stores each of its cells (row 0's -c*d when Bs is
-// 0), column 0 explicit as everywhere, so the row follows fill_scan at
-// every scoring (K9 rests on the NEG_INF decay).
 //
-// nw_fill_tile (TILE) fills one tile of a pair whose rows are sharded
-// over ranks (nw_tpu_torch/parallel/huge_pair.py): rows r0+1 .. r0+Bs and
-// columns c0+1 .. c0+C.  It is the same pipeline with the tile as its
-// table: band 0 reads the top halo (row r0 at columns c0 .. c0+C, the
-// corner first) as its seed, column 0 of the tile is the left edge input
-// (column c0 at rows r0+1 .. r0+Bs) instead of -j*d, and it writes the
-// right edge (column c0+C) and the bottom edge (row r0+Bs at columns
-// c0+1 .. c0+C) for the next tile and the next rank, and its bottom-right
-// cell as the score.  Its codes go into the rank's code table of the full
-// width (the layout above, global step c0 + c + lane): a tile boundary
-// cuts words, so a tile ORs its bits into the (zeroed) table's words
-// that it shares with the tile on its left or right (the tiles of a rank
-// run in order on one stream) and stores the others whole.  Its masks go into a
-// row-major uint8[Bs, width+1] table of the rank's rows.  The tile with
-// c0 = 0 also stores column 0 (UP); no tile stores row r0.
+// The rows of scores (nw_score_single, nw_last_row).  nw_score_single
+// stores nothing per cell; given ckpt it also writes rows 0, C, 2C, ...
+// below row Bs into ckpt[0], ckpt[1], ...: row r*C (r >= 1) is lane 31's
+// row of band r*C/32 - 1, which feeds the band below and so has that row
+// in its ring slots already; after each chunk the warp copies the chunk's
+// 32 columns from there into the checkpoint row, one coalesced store a
+// chunk (block 0 writes row 0 beside its boundary row).  nw_last_row
+// writes row Bs, whatever Bs, into an int32[A+1] row: the lane of row Bs
+// in the last band (which feeds no ring) stores each of its cells, A+1
+// stores off the step's chain in one band (row 0's -c*d when Bs is 0),
+// column 0 explicit as everywhere, so the row follows fill_scan at every
+// scoring (K9 rests on the NEG_INF decay).
 //
 // The grouped re-fill (nw_refill_blocks: the codes mode's step in a
 // kernel of its own, nw_refill_kernel, so that the template's other
@@ -138,8 +151,10 @@
 // holds G*S rows, at most a row a band: half the bytes of the group's
 // codes.
 //
-// The single-pair pipeline (single_pipe_kernel: nw_score_count, with
-// counts; nw_fill_codes_single, with codes).  nw_fill.cu's pipeline (its
+// The single-pair pipeline (single_pipe_kernel, in the mode OUT: counts
+// for nw_score_count; codes for nw_fill_codes_single; rows of scores for
+// nw_score_single and nw_last_row; tie masks, with counts, for
+// nw_fill_masks).  nw_fill.cu's pipeline (its
 // header, "The pipeline") on G blocks of W warps of a cooperative grid,
 // one pair a grid (W and G: nw_tpu_torch/ops/fill_banded.py single_warps,
 // single_blocks).  Band b runs on block (b / W) % G, warp b % W, so up to
@@ -149,7 +164,8 @@
 // pipe_wait / pipe_post, block-scope fences), and a step is pipe_fill's
 // Needleman-Wunsch step: an int2 (score, count) ring cell with counts,
 // an int32 one without, the int16 staged top (in shared memory, or in the
-// block's row of a device scratch past ~115 000 columns), the untested
+// block's row of a device scratch past ~115 000 columns, or where W
+// warps' mask rings leave no room for it), the untested
 // inner chunk and DPX __vimax3_s32.  Only warp W-1 of block g hands its
 // band's last row on, to warp 0 of block (g+1) % G: after each chunk it
 // copies the chunk from its ring into bnd[(g+1) % G], the boundary row
@@ -165,7 +181,11 @@
 // and one spin every kHandoff chunks, where nw_single_kernel pays them
 // for every band and chunk.  Block 0's row holds row 0 (-c*d, one path)
 // or the seed first; block 0's warp 0 then reads block G-1's bands of the
-// round before.
+// round before.  The modes' outputs ride on this without a wait of their
+// own: the masks mode's ring is the warp's alone (a __syncwarp orders its
+// flush before the next chunk's writes), a checkpoint row is copied out of
+// slots that only their writer rewrites, after the chunk (as warp W-1
+// copies its row into bnd), and row Bs needs no ring.
 //
 // It cannot deadlock.  The launch is cooperative, so every block is
 // co-resident and no spin waits on a block that never runs.  A band
@@ -187,21 +207,24 @@
 // t0 before any of them is overwritten; each link's fence (block-scope in
 // a block, gpu-scope between blocks) orders its load before the store.
 // With P = 1 the one warp loads a group of its row before rewriting any
-// of its columns.  The boundary rows are G rows of A+1 cells: 8 bytes
-// with counts, 4 without (105.6 MB for nw_score_count at 100 kb on 132
-// blocks).
+// of its columns.  The checkpoint and mask copies change no slot and add
+// no wait, so the argument stands as it is.  The boundary rows are G rows
+// of A+1 cells: 8 bytes with counts, 4 without (105.6 MB for
+// nw_score_count at 100 kb on 132 blocks).
 //
 // What bounds it on the H100.  nw_single_kernel: the serial chain of
-// each step (six shuffles with counts, four without, and a few dependent
-// integer ops) and, every 32-column chunk of every band, an L2 poll, a
-// gpu-scope fence and the loads of the row above; so its ~8 warps an SM
-// run at the pace of that handoff, not of issue (4 warps a block beat 8
-// on nw_score_count's old instantiation at 20 kb, PERF.md section 6).
-// The codes mode adds one coalesced 128-byte store a warp per 16 steps
-// (2.5 GB for a 100 000 bp pair, ~2 ms, PERF.md section 6).  The grouped
-// re-fill puts every band of G blocks in flight at once (up to 32 warps
-// an SM), so its G blocks take about one band's sweep with the SMs'
-// issue slots shared by ~24 warps each.  single_pipe_kernel: the
+// each step (four shuffles, a few dependent integer ops) and, every
+// 32-column chunk of every band, an L2 poll, a gpu-scope fence and the
+// loads of the row above; so its ~8 warps an SM run at the pace of that
+// handoff, not of issue (4 warps a block beat 8 on nw_score_count's old
+// instantiation at 20 kb, PERF.md section 6).  The codes mode adds one
+// coalesced 128-byte store a warp per 16 steps (2.5 GB for a 100 000 bp
+// pair, ~2 ms, PERF.md section 6); the masks mode a shared-memory byte
+// store a step and 32 coalesced 32-byte row stores a chunk (a byte a
+// cell: 0.1 GB for a 10 240 bp pair).  The grouped re-fill puts every
+// band of G blocks in flight at once (up to 32 warps an SM), so its G
+// blocks take about one band's sweep with the SMs' issue slots shared by
+// ~24 warps each.  single_pipe_kernel: the
 // wavefront's critical path, about 2*nbands + nchunks chunks of 32 steps
 // (each band two chunks behind the one above, then the last band's
 // sweep: ~9 400 chunks at 100 kb), at the step's latency, plus kHandoff-1
@@ -258,6 +281,25 @@ constexpr int kTileBytes = 32 * kRingCols;
 
 constexpr unsigned kCodeLeft = 1u;
 constexpr unsigned kCodeUp = 2u;
+
+// The modes of single_pipe_kernel (its OUT): what a launch writes
+// besides the corner score (header, "The single-pair pipeline").
+constexpr int kOutCount = 0;        // with counts: the corner count (K8)
+constexpr int kOutCodes = 1;        // the 2-bit codes (K14, K13 a block a launch)
+constexpr int kOutRows = 2;         // rows of scores: checkpoint rows, row Bs (K11, K12, K9)
+constexpr int kOutMasks = 3;        // with counts: the tie masks and the count (K2 one pair, K10)
+constexpr int kOutMasksScores = 4;  // ... and the int32 scores of every cell (-t)
+
+// The outputs of single_pipe_kernel's rows and masks modes (null where
+// the mode or the caller has none).
+struct PipeOuts {
+  int* ckpt;             // int32[ceil(Bs/every), A+1]: rows 0, every, 2*every, ... below row Bs
+  int every;             // a multiple of 32
+  int* last;             // int32[A+1]: row Bs
+  unsigned char* masks;  // uint8 rows 0 .. Bs of ldm >= A+1 bytes
+  int ldm;
+  int* hs;               // int32[Bs+1, A+1]
+};
 
 // The edges of a TILE launch (unused otherwise).
 struct Tile {
@@ -604,14 +646,20 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_refill_kernel(
 // block's row of top16 (int16[G, pipe_top_cols(A)]).  bnd is [G, A+1]
 // cells, row g the row above block g's warp 0 (row 0, or the seed, in
 // row 0 first); flags int32[G] zeroed.  With a seed (row r0 of the pair)
-// rows r0+1 .. r0+Bs are filled, column 0 -(r0+j)*d.
-template <bool WITH_COUNTS, bool EMIT_CODES, bool TOP_SMEM>
+// rows r0+1 .. r0+Bs are filled, column 0 -(r0+j)*d.  OUT (kOut*) picks
+// what is written besides the corner: codes, or out's rows or masks.
+template <bool WITH_COUNTS, int OUT, bool TOP_SMEM>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
     const int* __restrict__ top, const int* __restrict__ side, int A, int Bs,
     int r0, const int* __restrict__ seed, int m, int k, int d, short* top16,
     typename Cell<WITH_COUNTS>::type* bnd, int* flags, unsigned* __restrict__ codes,
-    int* __restrict__ score, unsigned* __restrict__ count) {
+    int* __restrict__ score, unsigned* __restrict__ count, PipeOuts out) {
   using C = typename Cell<WITH_COUNTS>::type;
+  constexpr bool EMIT_CODES = OUT == kOutCodes;
+  constexpr bool ROWS = OUT == kOutRows;
+  constexpr bool MASKS = OUT >= kOutMasks;
+  constexpr bool HS = OUT == kOutMasksScores;
+  static_assert(!MASKS || WITH_COUNTS, "the masks mode carries the count");
   extern __shared__ __align__(16) int single_sh[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -626,6 +674,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
   volatile int* done = reinterpret_cast<int*>(stage + 32);
   short* const top_s = TOP_SMEM ? reinterpret_cast<short*>(const_cast<int*>(done) + W)
                                 : top16 + static_cast<int64_t>(blk) * pipe_top_cols(A);
+  // MASKS: the warp's 32-row x 64-column byte ring of tie masks, past the
+  // staged top (or past done[W])
+  [[maybe_unused]] unsigned char* const mring =
+      (TOP_SMEM ? reinterpret_cast<unsigned char*>(top_s + pipe_top_cols(A))
+                : reinterpret_cast<unsigned char*>(const_cast<int*>(done) + W)) +
+      warp * kTileBytes;
   // warp 0 reads its row above from bnd[blk], published by flags[blk-1]
   // (block 0: by flags[G-1]); warp W-1 writes bnd[blk+1], flags[blk]
   const C* const bnd_in = bnd + static_cast<int64_t>(blk) * M;
@@ -643,6 +697,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
         __stcg(bnd + c, make_int2(v, 1));
       } else {
         __stcg(bnd + c, v);
+      }
+      if constexpr (ROWS) {  // row 0: checkpoint row 0, or row Bs when Bs is 0
+        if (out.ckpt && Bs > 0) out.ckpt[c] = v;
+        if (out.last && Bs == 0) out.last[c] = v;
+      }
+      if constexpr (MASKS) {  // row 0: LEFT, the origin 0
+        out.masks[c] = c == 0 ? 0 : kMaskLeft;
+        if constexpr (HS) out.hs[c] = v;
       }
     }
     if (Bs == 0 && threadIdx.x == 0) {  // the corner is on the row above
@@ -676,6 +738,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
     const int corner_q = jj_c >= 0 && jj_c < 32 ? (A + jj_c) >> 5 : -1;
     unsigned* wbase = EMIT_CODES
         ? codes + (band * static_cast<int64_t>(2 * nchunks)) * 32 + lane : nullptr;
+    // ROWS: a checkpoint row r*every (r >= 1) is lane 31's row of a band
+    // that feeds the band below, so this warp's ring holds it: copied out
+    // after each chunk
+    [[maybe_unused]] int* const ckpt_row =
+        ROWS && out.ckpt && feeds && (band * 32 + 32) % out.every == 0
+            ? out.ckpt + static_cast<int64_t>((band * 32 + 32) / out.every) * M : nullptr;
+    // ROWS: row Bs, stored a cell a step by its lane of the last band
+    [[maybe_unused]] const bool last_band = ROWS && out.last && band == nbands - 1;
+    [[maybe_unused]] const int last_lane = (Bs - 1) & 31;
+    [[maybe_unused]] const int64_t rowoff = static_cast<int64_t>(j) * M;  // HS: row j
     int h = 0, up_prev = 0;  // own last value, last up
     unsigned cnt = 0, cup_prev = 0, pack = 0;
 
@@ -722,9 +794,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
 
       // one chunk of 32 steps; FAST: every lane's column lies in 1..A and
       // the corner is not in it, so column 0, the columns past A and the
-      // corner need no test
-      auto sweep = [&](auto fast) {
+      // corner need no test; LAST (ROWS): the band of row Bs, whose lane
+      // stores its cells
+      auto sweep = [&](auto fast, auto lastrow) {
         constexpr bool FAST = decltype(fast)::value;
+        constexpr bool LAST = decltype(lastrow)::value;
 #pragma unroll
         for (int s = 0; s < 32; ++s) {
           int up = __shfl_up_sync(kFull, h, 1);
@@ -751,6 +825,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
             cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
                  (cand_u == hn ? cup : 0u);
           }
+          [[maybe_unused]] unsigned mask = 0;
+          if constexpr (MASKS) {
+            mask = (cand_d == hn ? kMaskDiag : 0u) | (cand_l == hn ? kMaskLeft : 0u) |
+                   (cand_u == hn ? kMaskUp : 0u);
+          }
           bool in_row = true;
           if constexpr (!FAST) {
             const int c = t0 + s - lane;
@@ -758,6 +837,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
             hn = col_zero ? col0 : hn;
             code = col_zero ? kCodeUp : code;
             cn = col_zero ? 1u : cn;
+            if constexpr (MASKS) mask = col_zero ? kMaskUp : mask;
             in_row = c >= 0 && c <= A;
             if (in_row && j == Bs && c == A) {  // the corner
               *score = hn;
@@ -781,6 +861,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
               pack = 0;
             }
           }
+          if constexpr (MASKS) {  // column c in slot c % 64 of the lane's row
+            mring[lane * kRingCols + ((t0 + s - lane) & (kRingCols - 1))] = mask;
+            if constexpr (HS) {
+              if (in_row && row_ok) out.hs[rowoff + t0 + s - lane] = hn;
+            }
+          }
+          if constexpr (LAST) {
+            if (lane == last_lane && in_row) out.last[t0 + s - lane] = hn;
+          }
           up_prev = up;
           h = hn;
           if constexpr (WITH_COUNTS) {
@@ -789,10 +878,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
           }
         }
       };
-      if (q > 0 && t0 + 31 <= A && q != corner_q) {  // no column 0, none past the row, no corner
-        sweep(Flag<true>{});
+      const bool fast_chunk = q > 0 && t0 + 31 <= A && q != corner_q;  // no column 0, none past the row, no corner
+      if (ROWS && last_band) {
+        if constexpr (ROWS) fast_chunk ? sweep(Flag<true>{}, Flag<true>{}) : sweep(Flag<false>{}, Flag<true>{});
+      } else if (fast_chunk) {
+        sweep(Flag<true>{}, Flag<false>{});
       } else {
-        sweep(Flag<false>{});
+        sweep(Flag<false>{}, Flag<false>{});
       }
 
       __syncwarp();  // the chunk's ring writes are in
@@ -810,23 +902,53 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
         }
       }
       pipe_post(done, warp, lane, g);
+      if constexpr (ROWS) {
+        if (ckpt_row) {  // columns t0-31 .. t0 of lane 31's row, from the ring
+          const int col = t0 - 31 + lane;
+          if (col >= 0 && col < M) ckpt_row[col] = lane < 31 ? out_lo[lane] : out_hi[0];
+        }
+      }
+      if constexpr (MASKS) {  // every lane has finished columns t0-31 .. t0
+        const int col = t0 - 31 + lane;
+        const bool col_ok = col >= 0 && col <= A;
+        const int rows = Bs - band * 32;  // this band's rows, if fewer than 32
+        const unsigned char* src = mring + (col & (kRingCols - 1));
+        unsigned char* dst = out.masks + static_cast<int64_t>(band * 32 + 1) * out.ldm + col;
+        if (col_ok && rows >= 32) {  // a whole band: no test a row
+#pragma unroll 8
+          for (int r = 0; r < 32; ++r) {  // 32 lanes on 32 consecutive bytes of a row
+            *dst = src[r * kRingCols];
+            dst += out.ldm;
+          }
+        } else {
+#pragma unroll 4
+          for (int r = 0; r < 32; ++r) {
+            const unsigned char v = src[r * kRingCols];
+            if (col_ok && r < rows) dst[static_cast<int64_t>(r) * out.ldm] = v;
+          }
+        }
+        __syncwarp();  // read before the next chunk overwrites the slots
+      }
     }
   }
 }
 
 // top16 null: the top in shared memory; else int16[blocks, pipe_top_cols(A)].
-template <bool WITH_COUNTS, bool EMIT_CODES>
+// The masks modes add each warp's mask ring to the block's shared memory.
+template <bool WITH_COUNTS, int OUT>
 int launch_single_pipe(const int* top, const int* side, int A, int Bs, int r0,
                        const int* seed, int m, int k, int d, int blocks, int warps,
                        short* top16, void* bnd, int* flags, unsigned* codes, int* score,
-                       unsigned* count, cudaStream_t stream) {
+                       unsigned* count, cudaStream_t stream, PipeOuts out = PipeOuts{}) {
   using C = typename Cell<WITH_COUNTS>::type;
+  constexpr bool MASKS = OUT >= kOutMasks;
   if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 0 || r0 < 0 ||
-      (r0 > 0 && !seed))
+      (r0 > 0 && !seed) || (out.ckpt && (out.every < 32 || out.every % 32)) ||
+      (MASKS && (!out.masks || out.ldm < A + 1 || r0 > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = pipe_smem(warps, A, sizeof(C), !top16);
-  auto kernel = top16 ? single_pipe_kernel<WITH_COUNTS, EMIT_CODES, false>
-                      : single_pipe_kernel<WITH_COUNTS, EMIT_CODES, true>;
+  const int smem = pipe_smem(warps, A, sizeof(C), !top16) + (MASKS ? warps * kTileBytes : 0);
+  auto kernel = top16 ? single_pipe_kernel<WITH_COUNTS, OUT, false>
+                      : single_pipe_kernel<WITH_COUNTS, OUT, true>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -836,7 +958,7 @@ int launch_single_pipe(const int* top, const int* side, int A, int Bs, int r0,
   // a block's warp 0 spins on the block before it
   C* cells = static_cast<C*>(bnd);
   void* args[] = {&top, &side, &A, &Bs, &r0, &seed, &m, &k, &d, &top16,
-                  &cells, &flags, &codes, &score, &count};
+                  &cells, &flags, &codes, &score, &count, &out};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(kernel), dim3(blocks), dim3(32 * warps), args,
       static_cast<size_t>(smem), stream);
@@ -859,7 +981,7 @@ extern "C" int nw_score_count(const int* top, const int* side, int A, int Bs,
                               int m, int k, int d, int blocks, int warps,
                               void* top16, void* bnd, int* flags, int* score,
                               void* count, void* stream) {
-  return launch_single_pipe<true, false>(
+  return launch_single_pipe<true, kOutCount>(
       top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, static_cast<short*>(top16), bnd,
       flags, nullptr, score, static_cast<unsigned*>(count), static_cast<cudaStream_t>(stream));
 }
@@ -867,22 +989,24 @@ extern "C" int nw_score_count(const int* top, const int* side, int A, int Bs,
 // K2 pack_bits=8 port for one pair (and K10's, a pair at a time): tie
 // masks uint8[Bs+1, A+1] in rows of ldm >= A+1 bytes, the int32 scores of
 // the table (rows of A+1) when hs is not null, the corner score and the
-// fused uint32 count.
+// fused uint32 count, on the single-pair pipeline; top16 (sized for W
+// warps' mask rings beside the top), bnd and flags as nw_score_count's.
 extern "C" int nw_fill_masks(const int* top, const int* side, int A, int Bs,
                              int m, int k, int d, int blocks, int warps,
-                             int* ring, void* cring, int* done, void* masks,
+                             void* top16, void* bnd, int* flags, void* masks,
                              int ldm, int* hs, int* score, void* count,
                              void* stream) {
-  if (ldm < A + 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto cr = static_cast<unsigned*>(cring);
+  const PipeOuts out{nullptr, 0, nullptr, static_cast<unsigned char*>(masks), ldm, hs};
+  auto t16 = static_cast<short*>(top16);
+  auto cnt = static_cast<unsigned*>(count);
   auto s = static_cast<cudaStream_t>(stream);
-  const Outs out{static_cast<unsigned char*>(masks), hs, nullptr, nullptr, 0,
-                 score, static_cast<unsigned*>(count), nullptr, ldm};
   if (hs)
-    return launch_single<true, true, true, false>(
-        top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, cr, done, out, s);
-  return launch_single<true, true, false, false>(
-      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, cr, done, out, s);
+    return launch_single_pipe<true, kOutMasksScores>(
+        top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, t16, bnd, flags, nullptr, score,
+        cnt, s, out);
+  return launch_single_pipe<true, kOutMasks>(
+      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, t16, bnd, flags, nullptr, score,
+      cnt, s, out);
 }
 
 // K14 port (seed null, r0 0): the 2-bit greedy codes of the whole pair,
@@ -898,35 +1022,35 @@ extern "C" int nw_fill_codes_single(const int* top, const int* side, int A,
                                     int k, int d, int blocks, int warps,
                                     void* top16, void* bnd, int* flags, void* codes,
                                     int* score, void* stream) {
-  return launch_single_pipe<false, true>(
+  return launch_single_pipe<false, kOutCodes>(
       top, side, A, Bs, r0, seed, m, k, d, blocks, warps, static_cast<short*>(top16), bnd,
       flags, static_cast<unsigned*>(codes), score, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // K11 port (ckpt null): one pair's corner score, nothing stored per cell.
 // K12 port: also rows 0, C, 2C, ... below the last row into ckpt,
-// int32[ceil(Bs/C), A+1]; C = every, a multiple of 32.  ring / done as
-// nw_fill_codes_single.
+// int32[ceil(Bs/C), A+1]; C = every, a multiple of 32.  On the
+// single-pair pipeline; top16, bnd and flags as nw_fill_codes_single's.
 extern "C" int nw_score_single(const int* top, const int* side, int A, int Bs,
                                int m, int k, int d, int blocks, int warps,
-                               int* ring, int* done, int* ckpt, int every,
+                               void* top16, void* bnd, int* flags, int* ckpt, int every,
                                int* score, void* stream) {
-  const Outs out{nullptr, nullptr, nullptr, ckpt, every, score, nullptr};
-  return launch_single<false, false, false, false>(
-      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, nullptr, done,
-      out, static_cast<cudaStream_t>(stream));
+  return launch_single_pipe<false, kOutRows>(
+      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, static_cast<short*>(top16), bnd,
+      flags, nullptr, score, nullptr, static_cast<cudaStream_t>(stream),
+      PipeOuts{ckpt, every, nullptr, nullptr, 0, nullptr});
 }
 
 // K9 port: one pair's row Bs, H[Bs][0..A], into last int32[A+1], and its
-// corner score; ring / done as nw_score_single.
+// corner score; top16, bnd and flags as nw_score_single's.
 extern "C" int nw_last_row(const int* top, const int* side, int A, int Bs,
                            int m, int k, int d, int blocks, int warps,
-                           int* ring, int* done, int* last, int* score,
+                           void* top16, void* bnd, int* flags, int* last, int* score,
                            void* stream) {
-  const Outs out{nullptr, nullptr, nullptr, nullptr, 0, score, nullptr, last, 0};
-  return launch_single<false, false, false, false>(
-      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, ring, nullptr, done,
-      out, static_cast<cudaStream_t>(stream));
+  return launch_single_pipe<false, kOutRows>(
+      top, side, A, Bs, 0, nullptr, m, k, d, blocks, warps, static_cast<short*>(top16), bnd,
+      flags, nullptr, score, nullptr, static_cast<cudaStream_t>(stream),
+      PipeOuts{nullptr, 0, last, nullptr, 0, nullptr});
 }
 
 // K14's mesh half (codes non-null: 2-bit codes; masks and codes null:

@@ -35,29 +35,32 @@ HUGE_PAIR_MIN_SIDE = 32768
 # The K1 port runs a batch's pairs side by side, a block of W warps each,
 # in a time ~L^2 whatever their number up to one pair an SM; the K11
 # port runs them one after another, each on every SM, in ~L a pair.
-# Timed by chip_smoke.py phase 8 on an H100 80GB HBM3 at 700 W (PERF.md,
-# section 6: 2, 8 and 23 pairs of 1 024 to 10 240 bp, 2 of 100 000 bp),
-# K1 took 0.24-0.29, 0.48-0.51, 1.43-1.51, 8.2-8.3 and 765 ms at 1, 2, 4,
-# 10 and 100 kb, K11 0.32, 0.63, 1.24, 3.06 and 42.9 ms a pair: K11's
-# route wins once L passes ~5 000 bp for each pair of the batch (2 pairs
-# of 10 kb, not 8; at 100 kb the times cross at ~17 pairs, the rule at
-# 20).  It was timed from 1 024 bp up.
+# Timed in turns by scripts/single_shapes.py --routes on an H100 80GB
+# HBM3 at 700 W (PERF.md, section 6), K1 took 1.43-1.56, 8.15-8.36 and
+# 765 ms at 4 096, 10 240 and 100 000 bp, K11 0.61, 1.47 and 14.8 ms a
+# pair: K11's route won at 2 pairs of 4 096 bp (1.18-1.22 against
+# 1.45-1.51 ms) and 4 of 10 240 (5.89 against 8.24-8.26), K1's at 4 of
+# 4 096 (1.49-1.56 against 2.39) and 6 of 10 240 (8.21-8.24 against
+# 8.76-8.79): the costs cross at ~1 650-1 850 bp for each pair of the
+# batch (at 100 kb past the 24 pairs that BANDED_MIN_BATCH allows).
+# Timed from 1 024 bp up (chip_smoke.py phase 8).
 SINGLE_PAIR_MIN_SIDE = 1024
-SINGLE_PAIR_SIDE_PER_PAIR = 5000
+SINGLE_PAIR_SIDE_PER_PAIR = 2000
 # sides up to this go through the batched mask fill in fill_arrows_auto,
 # longer ones a pair at a time (nw_tpu fill_auto.py:294-309)
 LANES_ARROWS_MAX_SIDE = 2048
 # align_batch's mask route (tie masks a pair at a time, every SM on it,
 # then one walk) against its codes route (a block a pair), strings and
-# counts, timed by chip_smoke.py phase 13 on an H100 80GB HBM3 at 700 W
-# (PERF.md, section 6): the mask route costs ~0.68 us a bp of side a
-# pair (27.7 ms for 4 x 10 240 bp), the codes route 20.3-26.3 ms at
-# 10 240 bp for 2 to 23 pairs and 4.3-5.9 ms at 4 096 bp for 1 to 16.
-# The mask route won at 1 x 4 096 bp (4.06 against 4.34 ms) and 2 x
-# 10 240 bp (17.0 against 20.3), the codes route at 2 x 4 096 bp and 3 x
-# 10 240 bp (20.7 against 22.6) and every larger batch timed: the costs
-# cross at nb ~ L / 4 000
-MASK_SIDE_PER_PAIR = 4000
+# counts, timed in turns by scripts/single_shapes.py --routes (chip_smoke.py
+# phase 13's batches) on an H100 80GB HBM3 at 700 W (PERF.md, section 6):
+# the mask route costs ~0.33 us a bp of side a pair (16.9 ms for 4 x
+# 10 240 bp), the codes route 19.8-24.7 ms at 10 240 bp for 2 to 23 pairs
+# and 3.8-5.9 ms at 4 096 bp for 1 to 16.  The mask route won at 2 x
+# 4 096 bp (3.78 against 4.03 ms) and 4 x 10 240 bp (16.9 against 21.2),
+# the codes route at 4 x 4 096 bp (4.41 against 6.77) and 8 x 10 240 bp
+# (22.1 against 27.4) and every larger batch timed: the costs cross at nb
+# ~ L / 1 900
+MASK_SIDE_PER_PAIR = 2000
 
 
 def takes_single_pair_route(nb: int, L1: int, L2: int) -> bool:

@@ -21,9 +21,10 @@ each with its plain PyTorch version in this module:
   mode of ``csrc/nw_fill.cu``; K2's ``with_runs`` mode);
 * :func:`fill_arrows_banded_single` — one pair's rectangular 3-bit tie
   masks, optionally its per-cell scores, its score and its fused count
-  (``nw_fill_masks`` in ``csrc/nw_single.cu``, K2's ``pack_bits=8`` mode
-  for one pair; its plain version lives in
-  :mod:`nw_tpu_torch.ops.fill_single`, whose K10 port uses it too).
+  (``nw_fill_masks`` in ``csrc/nw_single.cu``, the single-pair pipeline's
+  masks mode; K2's ``pack_bits=8`` mode for one pair; its plain version
+  lives in :mod:`nw_tpu_torch.ops.fill_single`, whose K10 port uses it
+  too).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (``csrc/nw_fill.cu``, ``csrc/nw_single.cu``) or
@@ -42,8 +43,10 @@ values and negative pads): in shared memory, or, for a bucket too long
 for it (:func:`top_in_smem`, about 115 000 columns), in an int16 scratch
 row in device memory.  :func:`single_warps` and :func:`single_blocks`
 give the shape of the same pipeline across a cooperative grid, one pair
-on G blocks of W warps (``nw_score_count``, ``nw_fill_codes_single``;
-:mod:`nw_tpu_torch.ops.fill_single`).
+on G blocks of W warps (``nw_score_count``, ``nw_fill_codes_single``,
+``nw_score_single``, ``nw_last_row`` in :mod:`nw_tpu_torch.ops.fill_single`;
+``nw_fill_masks``, whose warps each add a ring of tie masks to the
+block's shared memory).
 
 Inputs are int32 tops[B, A] / sides[B, Bs] encoded with the PAD_TOP /
 PAD_SIDE sentinels, and int32 lens1 / lens2[B].  Counts come back as
@@ -79,8 +82,7 @@ from nw_tpu_torch.ops.fill_scan import (
     zero_outside,
 )
 from nw_tpu_torch.ops.fill_single import (
-    WARPS, check_batch as _check, check_pair, fill_arrows_banded_single_plain, launch_shape,
-    single_scratch,
+    check_batch as _check, check_pair, fill_arrows_banded_single_plain, pipe_scratch, pipe_shape,
 )
 from nw_tpu_torch.runtime import kernels
 
@@ -104,6 +106,7 @@ def _wrap_counts(counts: torch.Tensor) -> torch.Tensor:
 # warps on each pair (the pipeline of csrc/nw_fill.cu); these mirror its limits
 MAX_WARPS = 32  # a block of 1 024 threads
 SLOTS = 4  # the kernel's kSlots: 32-column chunk slots of a warp's ring
+MASK_RING = 32 * 64  # bytes of a warp's ring of tie masks (nw_single.cu's kTileBytes)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on an H100
 # the warps an SM should hold: the sweep of W (scripts/fill_shapes.py
 # --sweep, chip_smoke.py phase 5; PERF.md section 6) on an H100 80GB
@@ -130,13 +133,15 @@ def top_cols(A: int) -> int:
     return 32 * ((A + 1 + 62) // 32) + 32
 
 
-def fill_smem(warps: int, A: int, cell: int, staged: bool = True) -> int:
+def fill_smem(warps: int, A: int, cell: int, staged: bool = True, masks: bool = False) -> int:
     """Bytes of dynamic shared memory of one pipeline block (the kernel's
     ``pipe_smem``): the warps' chunk counters, rings and warp 0's staged
     row above (``cell`` bytes a column: 4 for a score, 8 for a score and
-    a count, Gotoh's ``variants_banded.GOTOH_CELL``), and, when
-    ``staged``, the top string as int16."""
-    return 4 * warps + cell * (warps * 32 * SLOTS + 32) + (2 * top_cols(A) if staged else 0)
+    a count, Gotoh's ``variants_banded.GOTOH_CELL``), when ``staged`` the
+    top string as int16, and with ``masks`` (``nw_fill_masks``) each
+    warp's ring of tie masks."""
+    return (4 * warps + cell * (warps * 32 * SLOTS + 32) + (2 * top_cols(A) if staged else 0)
+            + (MASK_RING * warps if masks else 0))
 
 
 def top_in_smem(A: int, cell: int) -> bool:
@@ -202,13 +207,13 @@ def _pipe_warps(B, A, Bs, cell, device, warps):
     return warps
 
 
-def _top_scratch(B, A, cell, device, warps=1):
+def _top_scratch(B, A, cell, device, warps=1, masks=False):
     """The int16 rows a pipeline launch stages its tops in (a row a pair;
     the single-pair pipeline's, a row a block), when they do not fit
     shared memory beside ``warps`` warps' rings (the batched pipeline's
-    ``warps`` 1: :func:`top_in_smem`), else None: the kernel's argument is
-    null."""
-    if fill_smem(warps, A, cell) <= SMEM_LIMIT:
+    ``warps`` 1: :func:`top_in_smem`; with ``masks``, their rings of tie
+    masks too), else None: the kernel's argument is null."""
+    if fill_smem(warps, A, cell, masks=masks) <= SMEM_LIMIT:
         return None
     return torch.empty((B, top_cols(A)), dtype=torch.int16, device=device)
 
@@ -488,7 +493,7 @@ def fill_runs_banded_batch_plain(
 def fill_arrows_banded_single(
     top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int,
     len1: Optional[int] = None, len2: Optional[int] = None,
-    with_scores: bool = False, warps: int = WARPS, blocks: Optional[int] = None,
+    with_scores: bool = False, warps: Optional[int] = None, blocks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int, int]:
     """One pair's whole table: (masks uint8[len2+1, len1+1], scores
     int32[len2+1, len1+1] or None, score, count mod 2^32).
@@ -496,8 +501,10 @@ def fill_arrows_banded_single(
     Masks are rectangular and row-major, bit0 diag / bit1 left / bit2
     up (row 0 LEFT, column 0 UP, the origin 0), not the TPU kernel's
     packed band-major words.  top / side: int32[A] / int32[Bs]; len1 /
-    len2 default to A / Bs; ``warps`` / ``blocks`` as
-    :func:`nw_tpu_torch.ops.fill_single.score_fold`.
+    len2 default to A / Bs.  ``nw_fill_masks`` (the single-pair
+    pipeline's masks mode; ``warps`` a block and ``blocks`` default to
+    :func:`nw_tpu_torch.ops.fill_single.pipe_shape`'s rule) on CUDA
+    tensors, :func:`fill_arrows_banded_single_plain` on CPU tensors.
     """
     len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
     if top.device.type == "cpu":
@@ -510,13 +517,15 @@ def fill_arrows_banded_single(
         torch.empty((len2 + 1, len1 + 1), dtype=torch.int32, device=dev)
         if with_scores else None
     )
-    blocks, warps = launch_shape(len2, warps, blocks, dev)
-    ring, cring, done, score, count = single_scratch(len1, len2, blocks, warps, dev)
+    blocks, warps = pipe_shape(len1, len2, dev, warps, blocks)
+    top16, bnd, flags = pipe_scratch(len1, blocks, warps, 8, dev, masks=True)
+    score = torch.empty(1, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
     kernels.launch(
         "nw_fill_masks", dev,
         top.data_ptr(), side.data_ptr(), len1, len2, m, k, d, blocks, warps,
-        ring.data_ptr(), cring.data_ptr(), done.data_ptr(), masks.data_ptr(), len1 + 1,
-        scores.data_ptr() if with_scores else None,
+        None if top16 is None else top16.data_ptr(), bnd.data_ptr(), flags.data_ptr(),
+        masks.data_ptr(), len1 + 1, scores.data_ptr() if with_scores else None,
         score.data_ptr(), count.data_ptr(),
     )
     fill_arrows_banded_single.launches += 1

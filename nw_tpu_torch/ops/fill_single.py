@@ -1,16 +1,17 @@
-"""Single-pair fills: the ports of K8, K11, K12, K13 and K14.
+"""Single-pair fills: the ports of K8 to K14 and K28.
 
 Each wrapper launches its kernel of ``csrc/nw_single.cu`` on CUDA
 tensors (``blocks`` co-resident blocks of ``warps`` warps on one pair, a
 pipelined wavefront of 32-row bands) and runs its plain PyTorch version
-on CPU tensors.  :func:`score_count_fold` and :func:`fill_codes_single`
-run the W-warp pipeline across the grid (``single_pipe_kernel``: bands
-hand off through shared memory inside a block and through one
-device-memory row between blocks; W and G from
-:func:`nw_tpu_torch.ops.fill_banded.single_warps` / ``single_blocks``);
-:func:`fill_codes_blocks` runs ``nw_refill_kernel``; the others run
-``nw_single_kernel``, whose every band hands off through L2, at
-:data:`WARPS` warps a block:
+on CPU tensors.  :func:`score_count_fold`, :func:`score_fold`,
+:func:`last_row`, :func:`fill_arrows_fold_batch` (and
+:func:`nw_tpu_torch.ops.fill_banded.fill_arrows_banded_single`) and
+:func:`fill_codes_single` run the W-warp pipeline across the grid
+(``single_pipe_kernel``, a mode each: bands hand off through shared
+memory inside a block and through one device-memory row between blocks;
+W and G from :func:`pipe_shape`); :func:`fill_codes_blocks` runs
+``nw_refill_kernel`` and :func:`fill_tile` ``nw_single_kernel``, whose
+bands hand off through L2, both at :data:`WARPS` warps a block:
 
 * :func:`score_count_fold` — score and uint32 count, nothing stored per
   cell (``nw_score_count``; K8,
@@ -30,7 +31,7 @@ device-memory row between blocks; W and G from
   runs it: G consecutive blocks of rows re-filled from their seed rows
   in one launch (``nw_refill_blocks``);
 * :func:`last_row` — one pair's DP row ``H[len2, 0..len1]``
-  (``nw_last_row``, the ``LAST_ROW`` mode of ``nw_score_single``; K9,
+  (``nw_last_row``, the rows mode of ``nw_score_single``; K9,
   ``nw_tpu/ops/fill_pallas_single.py:83``, ``last_row_pallas`` at
   ``:169``), for :mod:`nw_tpu_torch.ops.hirschberg`;
 * :func:`fill_arrows_fold_batch` — the rectangular tie masks, scores
@@ -62,9 +63,10 @@ from nw_tpu_torch.ops.fill_scan import (
 )
 from nw_tpu_torch.runtime import kernels
 
-# warps a block (1..32) of the entries on nw_single_kernel, whose bands
-# hand off through L2: the handoff, not issue, sets the pace (4 warps
-# beat 8 on nw_score_count's old kernel at 20 kb, PERF.md section 6)
+# warps a block (1..32) of nw_fill_tile (nw_single_kernel) and
+# nw_refill_blocks, whose bands hand off through L2: the handoff, not
+# issue, sets the pace (4 warps beat 8 on nw_score_count's old kernel at
+# 20 kb, PERF.md section 6)
 WARPS = 8
 # warps an SM holds at once: the kernels' launch bounds cap a thread at 64
 # registers, so 32 warps fill an SM's 65 536 (a cooperative launch of more
@@ -89,14 +91,19 @@ def check_pair(top, side, m, k, d, len1, len2, warps, blocks) -> Tuple[int, int]
     len2 = side.shape[0] if len2 is None else int(len2)
     if not (0 <= len1 <= top.shape[0] and 0 <= len2 <= side.shape[0]):
         raise ValueError("lengths must lie in [0, len(top)] / [0, len(side)]")
-    if warps is not None and not 1 <= warps <= 32:
-        raise ValueError(f"warps must lie in [1, 32], not {warps}")
-    if blocks is not None and blocks < 1:
-        raise ValueError(f"blocks must be at least 1, not {blocks}")
+    check_shape(warps, blocks)
     # the kernels' chunk counters are int32: bands * chunks < 2^31
     if (len2 // 32 + 1) * (len1 // 32 + 3) >= 2**31:
         raise ValueError(f"a {len1} x {len2} table is too large")
     return len1, len2
+
+
+def check_shape(warps, blocks) -> None:
+    """Validate a forced launch shape (None: the rule's)."""
+    if warps is not None and not 1 <= warps <= 32:
+        raise ValueError(f"warps must lie in [1, 32], not {warps}")
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks must be at least 1, not {blocks}")
 
 
 def check_batch(tops, sides, lens1, lens2, *scoring):
@@ -124,35 +131,30 @@ def check_batch(tops, sides, lens1, lens2, *scoring):
 
 
 def launch_shape(len2: int, warps: int, blocks: Optional[int], device) -> Tuple[int, int]:
-    """(blocks, warps) of a ``nw_single_kernel`` launch: by default one
-    block an SM, no more than the pair's 32-row bands fill."""
+    """(blocks, warps) of a ``nw_single_kernel`` launch (``nw_fill_tile``):
+    by default one block an SM, no more than the tile's 32-row bands
+    fill."""
     if blocks is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         blocks = max(1, min(sms, -(-len2 // (32 * warps))))
     return blocks, warps
 
 
-def single_scratch(len1: int, len2: int, blocks: int, warps: int, device,
-                   with_counts: bool = True):
-    """The ring of boundary rows (scores, and counts when asked) one
-    pair's band pipeline hands down (one per warp, no more than there
-    are bands), the zeroed per-warp chunk counters, and the two
-    one-element outputs."""
+def single_scratch(len1: int, len2: int, blocks: int, warps: int, device):
+    """The scratch of a ``nw_single_kernel`` launch (``nw_fill_tile``):
+    the ring of boundary rows its band pipeline hands down (one per
+    warp, no more than there are bands), the zeroed per-warp chunk
+    counters, and the one-element score."""
     rows = max(1, min(blocks * warps, -(-len2 // 32)))
     ring = torch.empty((rows, len1 + 1), dtype=torch.int32, device=device)
-    cring = (
-        torch.empty((rows, len1 + 1), dtype=torch.int32, device=device)
-        if with_counts else None
-    )
     done = torch.zeros(blocks * warps, dtype=torch.int32, device=device)
     score = torch.empty(1, dtype=torch.int32, device=device)
-    count = torch.empty(1, dtype=torch.int32, device=device)
-    return ring, cring, done, score, count
+    return ring, done, score
 
 
 def pipe_shape(len1: int, len2: int, device, warps=None, blocks=None) -> Tuple[int, int]:
-    """(blocks, warps) of a single-pipeline launch (``nw_score_count``,
-    ``nw_fill_codes_single``) on an (len1, len2) pair: by default the
+    """(blocks, warps) of a single-pipeline launch (every mode of
+    ``single_pipe_kernel``) on an (len1, len2) pair: by default the
     rule's (:func:`~nw_tpu_torch.ops.fill_banded.single_warps`,
     ``single_blocks``) where not forced (:func:`check_pair` checks a
     forced shape)."""
@@ -165,17 +167,18 @@ def pipe_shape(len1: int, len2: int, device, warps=None, blocks=None) -> Tuple[i
     return blocks, warps
 
 
-def pipe_scratch(len1: int, blocks: int, warps: int, cell: int, device):
+def pipe_scratch(len1: int, blocks: int, warps: int, cell: int, device, masks: bool = False):
     """The scratch of a single-pipeline launch of ``blocks`` blocks of
     ``warps`` warps: (top16, bnd, flags).  top16 is the blocks' int16 rows
     of the staged top string, or None where it fits shared memory beside
-    the warps' rings (:func:`~nw_tpu_torch.ops.fill_banded._top_scratch`);
+    the warps' rings (with ``masks``, ``nw_fill_masks``'s, their rings of
+    tie masks too; :func:`~nw_tpu_torch.ops.fill_banded._top_scratch`);
     bnd the blocks' boundary rows, int32[blocks, len1+1, cell/4] (row g
     the row above block g's first warp: a score a column, with counts a
     score and a count); flags the blocks' zeroed chunk counters."""
     from nw_tpu_torch.ops import fill_banded as fb
 
-    top16 = fb._top_scratch(blocks, len1, cell, device, warps)
+    top16 = fb._top_scratch(blocks, len1, cell, device, warps, masks)
     bnd = torch.empty((blocks, len1 + 1, cell // 4), dtype=torch.int32, device=device)
     flags = torch.zeros(blocks, dtype=torch.int32, device=device)
     return top16, bnd, flags
@@ -233,7 +236,7 @@ def checkpoint_rows(len2: int, every: int) -> int:
 def score_fold(
     top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int,
     len1: Optional[int] = None, len2: Optional[int] = None,
-    checkpoint_every: Optional[int] = None, warps: int = WARPS,
+    checkpoint_every: Optional[int] = None, warps: Optional[int] = None,
     blocks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(score, checkpoints) of one pair: the score as an int32 0-d tensor
@@ -244,10 +247,10 @@ def score_fold(
     The K11 port (``nw_tpu/ops/fill_strips.py:62``) without checkpoints,
     the K12 port (``nw_tpu/ops/checkpoint_traceback.py:61``) with them:
     the TPU kernel dumps its rolling anti-diagonal state every C
-    diagonals, the port a DP row every C rows.  top / side / len1 / len2
-    as :func:`score_count_fold`; ``warps`` a block (default
-    :data:`WARPS`) and ``blocks`` (default one an SM, as many as the
-    pair's bands fill) as :func:`launch_shape`.
+    diagonals, the port a DP row every C rows.  ``nw_score_single``, the
+    single-pair pipeline's rows mode, copies each checkpoint row out of
+    the ring that hands it to the band below.  top / side / len1 / len2
+    / ``warps`` / ``blocks`` as :func:`score_count_fold`.
     """
     len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
     C = checkpoint_every
@@ -258,8 +261,9 @@ def score_fold(
     dev = top.device
     top = top[:len1].contiguous()
     side = side[:len2].contiguous()
-    blocks, warps = launch_shape(len2, warps, blocks, dev)
-    ring, _, done, score, _ = single_scratch(len1, len2, blocks, warps, dev, with_counts=False)
+    blocks, warps = pipe_shape(len1, len2, dev, warps, blocks)
+    top16, bnd, flags = pipe_scratch(len1, blocks, warps, 4, dev)  # a score a cell
+    score = torch.empty(1, dtype=torch.int32, device=dev)
     ckpt = (
         torch.empty((checkpoint_rows(len2, C), len1 + 1), dtype=torch.int32, device=dev)
         if C is not None else None
@@ -267,7 +271,7 @@ def score_fold(
     kernels.launch(
         "nw_score_single", dev,
         top.data_ptr(), side.data_ptr(), len1, len2, m, k, d, blocks, warps,
-        ring.data_ptr(), done.data_ptr(),
+        None if top16 is None else top16.data_ptr(), bnd.data_ptr(), flags.data_ptr(),
         ckpt.data_ptr() if C is not None and len2 else None, C or 0,
         score.data_ptr(),
     )
@@ -300,17 +304,18 @@ def score_fold_plain(top, side, m, k, d, len1=None, len2=None, checkpoint_every=
 def last_row(
     top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int,
     len1: Optional[int] = None, len2: Optional[int] = None,
-    warps: int = WARPS, blocks: Optional[int] = None,
+    warps: Optional[int] = None, blocks: Optional[int] = None,
 ) -> torch.Tensor:
     """int32[len1+1]: row ``len2`` of one pair's table, ``H[len2, 0..len1]``,
     in O(len1 + len2) device memory, for Hirschberg's split.
 
     The K9 port (``nw_tpu/ops/fill_pallas_single.py:83 _make_kernel``,
-    ``last_row_pallas`` at ``:169``): ``nw_last_row``, the ``LAST_ROW``
-    mode of the single-pair pipeline, on CUDA tensors; :func:`last_row_plain`
-    on CPU tensors.  Row 0 and column 0 are written explicitly, so the
-    row is ``fill_scan``'s at every scoring (K9's rests on its NEG_INF
-    decay).  Arguments as :func:`score_fold`.
+    ``last_row_pallas`` at ``:169``): ``nw_last_row``, the single-pair
+    pipeline's rows mode (the lane of row len2 stores it), on CUDA
+    tensors; :func:`last_row_plain` on CPU tensors.  Row 0 and column 0
+    are written explicitly, so the row is ``fill_scan``'s at every
+    scoring (K9's rests on its NEG_INF decay).  Arguments as
+    :func:`score_count_fold`.
     """
     len1, len2 = check_pair(top, side, m, k, d, len1, len2, warps, blocks)
     if top.device.type == "cpu":
@@ -318,13 +323,15 @@ def last_row(
     dev = top.device
     top = top[:len1].contiguous()
     side = side[:len2].contiguous()
-    blocks, warps = launch_shape(len2, warps, blocks, dev)
-    ring, _, done, score, _ = single_scratch(len1, len2, blocks, warps, dev, with_counts=False)
+    blocks, warps = pipe_shape(len1, len2, dev, warps, blocks)
+    top16, bnd, flags = pipe_scratch(len1, blocks, warps, 4, dev)  # a score a cell
+    score = torch.empty(1, dtype=torch.int32, device=dev)
     row = torch.empty(len1 + 1, dtype=torch.int32, device=dev)
     kernels.launch(
         "nw_last_row", dev,
         top.data_ptr(), side.data_ptr(), len1, len2, m, k, d, blocks, warps,
-        ring.data_ptr(), done.data_ptr(), row.data_ptr(), score.data_ptr(),
+        None if top16 is None else top16.data_ptr(), bnd.data_ptr(), flags.data_ptr(),
+        row.data_ptr(), score.data_ptr(),
     )
     last_row.launches += 1
     return row
@@ -344,7 +351,7 @@ def last_row_plain(top, side, m, k, d, len1=None, len2=None) -> torch.Tensor:
 
 
 def fill_arrows_fold_batch(
-    tops, sides, lens1, lens2, m, k, d, warps: int = WARPS, blocks: Optional[int] = None,
+    tops, sides, lens1, lens2, m, k, d, warps: Optional[int] = None, blocks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(masks uint8[B, Bs+1, A+1], scores int32[B], counts int64[B] in
     [0, 2^32)): the rectangular tie masks of a batch, in the
@@ -353,12 +360,15 @@ def fill_arrows_fold_batch(
 
     The K10 port (``nw_tpu/ops/fill_pallas_single.py:422
     _make_arrows_kernel``, ``fill_arrows_fold_batch`` at ``:530``): each
-    pair's table goes through ``nw_fill_masks`` (every SM on the pair, the
-    fused count with it) straight into its slice of the batch's table, on
+    pair's table goes through ``nw_fill_masks`` (the single-pair
+    pipeline's masks mode, every SM on the pair, the fused count with it)
+    straight into its slice of the batch's table (rows of A+1 bytes), on
     CUDA tensors; :func:`fill_arrows_fold_batch_plain` on CPU tensors.
-    ``warps`` / ``blocks`` as :func:`score_fold`.
+    ``warps`` / ``blocks`` force every pair's shape, else each takes
+    :func:`pipe_shape`'s rule.
     """
     check_batch(tops, sides, lens1, lens2, m, k, d)
+    check_shape(warps, blocks)
     if tops.device.type == "cpu":
         return fill_arrows_fold_batch_plain(tops, sides, lens1, lens2, m, k, d)
     B, A = tops.shape
@@ -371,13 +381,13 @@ def fill_arrows_fold_batch(
         check_pair(tops[b], sides[b], m, k, d, l1, l2, warps, blocks)
         top = tops[b, :l1].contiguous()
         side = sides[b, :l2].contiguous()
-        nb, nw = launch_shape(l2, warps, blocks, dev)
-        ring, cring, done, _, _ = single_scratch(l1, l2, nb, nw, dev)
+        nb, nw = pipe_shape(l1, l2, dev, warps, blocks)
+        top16, bnd, flags = pipe_scratch(l1, nb, nw, 8, dev, masks=True)
         kernels.launch(
             "nw_fill_masks", dev,
             top.data_ptr(), side.data_ptr(), l1, l2, m, k, d, nb, nw,
-            ring.data_ptr(), cring.data_ptr(), done.data_ptr(), masks[b].data_ptr(), A + 1,
-            None, scores[b:].data_ptr(), counts[b:].data_ptr(),
+            None if top16 is None else top16.data_ptr(), bnd.data_ptr(), flags.data_ptr(),
+            masks[b].data_ptr(), A + 1, None, scores[b:].data_ptr(), counts[b:].data_ptr(),
         )
         fill_arrows_fold_batch.launches += 1
     return masks, scores, counts.to(torch.int64) & U32
@@ -662,7 +672,7 @@ def fill_tile(
     H = side.shape[0]
     top, side, halo, left = (t.contiguous() for t in (top, side, halo, left))
     blocks, warps = launch_shape(H, warps, blocks, dev)
-    ring, _, done, score, _ = single_scratch(C, H, blocks, warps, dev, with_counts=False)
+    ring, done, score = single_scratch(C, H, blocks, warps, dev)
     right = torch.empty(H, dtype=torch.int32, device=dev)
     bottom = torch.empty(max(C, 1), dtype=torch.int32, device=dev)
     kernels.launch(

@@ -9,8 +9,11 @@ Each source is compiled with the package's own nvcc flags
 includes), and disassembled with ``cuobjdump -sass``.  Kernels are
 matched by mangled name, with a template argument written as a bool or
 as an int of the same value counted as one (``nw_fill_kernel<true,
-false, false>`` is ``nw_fill_kernel<1, 0, 0>``) and the file's hash in
-the anonymous namespace's name left out.  For every kernel of OLD the
+false, false>`` is ``nw_fill_kernel<1, 0, 0>``), the file's hash in
+the anonymous namespace's name left out and, for a template, its
+parameter types left out (a kernel given a new last parameter, which
+its old instantiations do not read, keeps its key; where two kernels of
+one file would share a key, both keep their whole names).  For every kernel of OLD the
 script prints IDENTICAL or DIFFERENT (the instruction streams, addresses
 and encodings left out) and lists the kernels that only NEW has, each
 with its count of SASS instructions.
@@ -44,6 +47,8 @@ from nw_tpu_torch.runtime import kernels  # noqa: E402
 TEMPLATE_ARG = re.compile(r"L[bi](\d+)E")
 # the anonymous namespace's name carries a hash of the file
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+# a template's name and arguments, before its parameter types
+TEMPLATE = re.compile(r"(.+?I(?:L\d+E)+E)E")
 
 
 def sass(src: Path, tmpdir: str) -> dict:
@@ -63,7 +68,9 @@ def sass(src: Path, tmpdir: str) -> dict:
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
         if m and name:
             out[name].append(re.sub(r"\s+", " ", m.group(1)).strip())
-    return out
+    keys = {name: (TEMPLATE.match(name) or re.match(r"(.*)", name)).group(1) for name in out}
+    shared = {k for k in keys.values() if list(keys.values()).count(k) > 1}
+    return {(name if keys[name] in shared else keys[name]): code for name, code in out.items()}
 
 
 def opcode(ins: str) -> str:

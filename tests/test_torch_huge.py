@@ -462,14 +462,14 @@ def test_scores_of_a_small_batch_of_long_pairs_take_k11(monkeypatch):
 @pytest.mark.parametrize(
     "nb,L1,L2,single",
     [
-        (1, 5000, 5000, True),  # one pair needs 5 000 bp
-        (1, 4096, 100_000, False),  # the shorter bucket decides
-        (2, 10240, 10240, True),  # K11 was faster on the card here
-        (8, 10240, 10240, False),  # and K1 here
-        (4, 1024, 1024, False),  # short sides: K1
-        (8, 2048, 2048, False),
+        (1, 2000, 2000, True),  # one pair needs 2 000 bp
+        (1, 1999, 100_000, False),  # the shorter bucket decides
+        (5, 10240, 10240, True),  # K11 was faster on the card at 4 pairs
+        (6, 10240, 10240, False),  # and K1 at 6
+        (2, 4096, 4096, True),  # K11 at 2 pairs of 4 kb
+        (3, 4096, 4096, False),  # K1 by 3 (at 4 on the card)
         (23, 4096, 4096, False),
-        (20, 100_000, 100_000, True),  # 20 pairs of 100 kb: 5 000 bp a pair
+        (23, 100_000, 100_000, True),  # 23 pairs of 100 kb: 2 000 bp a pair
         (24, 100_000, 100_000, False),  # BANDED_MIN_BATCH pairs: K1
         (0, 4096, 4096, False),
     ],

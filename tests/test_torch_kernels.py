@@ -217,9 +217,10 @@ def _pair_tensors(s1, s2):
 # (blocks, warps): one warp; one block; several blocks whose warps take
 # more than one band each (up to 7 bands a pair); the default
 SHAPES = [(1, 1), (1, 32), (2, 2), (3, 1), (None, 8)]
-# the single-pair pipeline (nw_score_count, nw_fill_codes_single): SHAPES,
-# every W of a block with blocks by the rule, the rule's shape, and 2
-# blocks of 3 warps, which wrap around over the 700 bp pair's 22 bands
+# the single-pair pipeline (nw_score_count, nw_fill_codes_single,
+# nw_score_single, nw_fill_masks): SHAPES, every W of a block with blocks
+# by the rule, the rule's shape, and 2 blocks of 3 warps, which wrap
+# around over the 700 bp pair's 22 bands
 SINGLE_PIPE_SHAPES = SHAPES + [(None, w) for w in (1, 2, 3, 4, 16, 32)] + [(None, None), (2, 3)]
 PAIR_700 = [(b"ACGTTGCA" * 80 + b"ACG", b"GATTACCA" * 87 + b"GCTA")]  # 643 x 700
 
@@ -236,10 +237,12 @@ def test_score_count_kernel_vs_plain(cuda, mkd, blocks, warps):
 
 
 @pytest.mark.parametrize("with_scores", [False, True])
-@pytest.mark.parametrize("blocks,warps", SHAPES)
+@pytest.mark.parametrize("blocks,warps", SINGLE_PIPE_SHAPES)
 @pytest.mark.parametrize("mkd", SCORINGS)
 def test_fill_masks_kernel_vs_plain(cuda, mkd, blocks, warps, with_scores):
-    for s1, s2 in _single_pairs(sum(mkd) + 4):
+    """nw_fill_masks (the single-pair pipeline's masks mode) at every
+    shape of the pipeline's tests, the 700 bp pair's 22 bands included."""
+    for s1, s2 in _single_pairs(sum(mkd) + 4) + PAIR_700:
         top, side = _pair_tensors(s1, s2)
         got = fill_banded.fill_arrows_banded_single(
             top.to(cuda), side.to(cuda), *mkd, with_scores=with_scores,
@@ -306,7 +309,7 @@ def test_single_pair_kernels_across_blocks_at_10kb(cuda, blocks, warps):
     """Many blocks, several bands a warp (P = blocks x warps under the
     pair's 94 bands wraps around), against the batch fill (nw_fill_codes
     counts-only) on a 4 000 x 3 000 pair; nw_fill_masks at the same
-    shape (its default W where the pipeline's rule picks one), and
+    shape, and
     nw_fill_codes_single's codes and corner against nw_fill_codes at
     B = 1."""
     s1, s2 = _pairs(99, 1, 4000, 4001)[0][0], _pairs(98, 1, 3000, 3001)[0][0]
@@ -315,9 +318,7 @@ def test_single_pair_kernels_across_blocks_at_10kb(cuda, blocks, warps):
     want_sc, want_ct = fill_banded.fill_scores_counts_banded_batch(top[None], side[None], *lens, 2, 1, 1)
     want = (int(want_sc[0]), int(want_ct[0]))
     assert fill_single.score_count_fold(top, side, 2, 1, 1, warps=warps, blocks=blocks) == want
-    assert fill_banded.fill_arrows_banded_single(
-        top, side, 2, 1, 1, warps=warps or fill_single.WARPS, blocks=blocks
-    )[2:] == want
+    assert fill_banded.fill_arrows_banded_single(top, side, 2, 1, 1, warps=warps, blocks=blocks)[2:] == want
     codes, score = fill_single.fill_codes_single(top, side, 2, 1, 1, warps=warps, blocks=blocks)
     batch = fill_banded.fill_greedy_counts_banded_batch(top[None], side[None], *lens, 2, 1, 1)
     assert torch.equal(codes, batch[0]) and int(score) == int(batch[1][0]) == want[0]
@@ -454,11 +455,11 @@ def test_count_masks_at_forced_warps_vs_plain(cuda, warps):
             torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("blocks,warps", SHAPES)
+@pytest.mark.parametrize("blocks,warps", SINGLE_PIPE_SHAPES)
 @pytest.mark.parametrize("mkd", SCORINGS)
 def test_score_single_kernel_vs_plain(cuda, mkd, blocks, warps):
-    """K11 port: the score alone."""
-    for s1, s2 in _single_pairs(sum(mkd) + 7):
+    """K11 port: the score alone, at every shape of the pipeline's tests."""
+    for s1, s2 in _single_pairs(sum(mkd) + 7) + PAIR_700:
         top, side = _pair_tensors(s1, s2)
         got = fill_single.score_fold(top.to(cuda), side.to(cuda), *mkd, warps=warps, blocks=blocks)
         assert got[1] is None
@@ -921,7 +922,7 @@ def test_fold_masks_kernel_vs_plain(cuda, mkd):
     cpu, dev = _inputs(sum(mkd) + 21, cuda)
     want = fill_single.fill_arrows_fold_batch_plain(*cpu, *mkd)
     batched = fill_banded.fill_masks_banded_batch(*dev, *mkd, with_counts=True)
-    for blocks, warps in [(1, 1), (3, 1), (None, 8)]:
+    for blocks, warps in [(1, 1), (3, 1), (None, 8), (None, None), (2, 3), (None, 32)]:
         got = fill_single.fill_arrows_fold_batch(*dev, *mkd, warps=warps, blocks=blocks)
         for g, w, b in zip(got, want, batched):
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
@@ -930,8 +931,9 @@ def test_fold_masks_kernel_vs_plain(cuda, mkd):
 
 @pytest.mark.parametrize("mkd", SCORINGS)
 def test_last_row_kernel_vs_plain(cuda, mkd):
-    """nw_last_row (K9's port) at every row count, multiples of 32 or
-    not, 0 included, against the plain fill's rows."""
+    """nw_last_row (K9's port) at rows 0, len2 / 3 and len2 against
+    the plain fill's rows, at several shapes, the rule's and wrapping
+    blocks included."""
     from nw_tpu_torch.ops.fill_scan import diag_to_matrix, fill_diag
 
     for s1, s2 in _single_pairs(sum(mkd) + 22):
@@ -939,10 +941,124 @@ def test_last_row_kernel_vs_plain(cuda, mkd):
         H = diag_to_matrix(fill_diag(top, side, *mkd, with_arrows=False, with_scores=True)["scores"],
                            len(s1), len(s2))
         for len2 in sorted({0, len(s2) // 3, len(s2)}):
-            for blocks, warps in [(1, 1), (2, 2), (None, 8)]:
+            for blocks, warps in [(1, 1), (2, 2), (None, 8), (None, None), (2, 3), (None, 32)]:
                 got = fill_single.last_row(top.to(cuda), side.to(cuda), *mkd, len2=len2,
                                            warps=warps, blocks=blocks)
                 torch.testing.assert_close(got.cpu(), H[len2], rtol=0, atol=0)
+
+
+def _rows_and_masks_vs_table(cuda, pairs, shapes, mkd, cuts=(32, 224)):
+    """K11, K12 (every C of ``cuts``), K9 (rows 0, len2 / 3, len2),
+    nw_fill_masks (with and without scores) and K10 (into a bucket wider
+    than the pairs: rows of ldm > A+1 bytes) on ``pairs`` at every
+    (blocks, warps) of ``shapes``, against the plain versions' body (the
+    anti-diagonal fill with scores and counts of every pair at once, on
+    the CPU)."""
+    from nw_tpu_torch.ops.fill_scan import diag_to_matrix, fill_diag_batch
+
+    A, B = max(len(a) for a, _ in pairs) + 7, max(len(b) for _, b in pairs)
+    arrays = enc.encode_batch(pairs, A, B)
+    cpu, dev = enc.upload(arrays, "cpu"), enc.upload(arrays, cuda)
+    ref = fill_diag_batch(*cpu, *mkd, with_counts=True, with_scores=True)
+    for b, (s1, s2) in enumerate(pairs):
+        la, lb = len(s1), len(s2)
+        t, s = dev[0][b, :la], dev[1][b, :lb]
+        masks = diag_to_matrix(ref["arrows"][b], la, lb)
+        hs = diag_to_matrix(ref["scores"][b], la, lb)
+        want = (int(ref["score"][b]), int(ref["count"][b]))
+        for blocks, warps in shapes:
+            kw = {"warps": warps, "blocks": blocks}
+            msg = f"{la} x {lb}, blocks {blocks}, warps {warps}"
+            assert int(fill_single.score_fold(t, s, *mkd, **kw)[0]) == want[0], msg
+            for C in cuts:
+                sc, ck = fill_single.score_fold(t, s, *mkd, checkpoint_every=C, **kw)
+                assert int(sc) == want[0], msg
+                torch.testing.assert_close(ck.cpu(), hs[0:lb:C], rtol=0, atol=0, msg=f"{msg}, C {C}")
+            for j in sorted({0, lb // 3, lb}):
+                row = fill_single.last_row(t, s, *mkd, len2=j, **kw)
+                torch.testing.assert_close(row.cpu(), hs[j], rtol=0, atol=0, msg=f"{msg}, row {j}")
+            for with_scores in (False, True):
+                got = fill_banded.fill_arrows_banded_single(t, s, *mkd, with_scores=with_scores, **kw)
+                torch.testing.assert_close(got[0].cpu(), masks, rtol=0, atol=0, msg=msg)
+                if with_scores:
+                    torch.testing.assert_close(got[1].cpu(), hs, rtol=0, atol=0, msg=msg)
+                assert got[2:] == want, msg
+    want = fill_single.fill_arrows_fold_batch_plain(*cpu, *mkd)
+    for blocks, warps in shapes:
+        for g, w in zip(fill_single.fill_arrows_fold_batch(*dev, *mkd, warps=warps, blocks=blocks), want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0, msg=f"K10, blocks {blocks}, warps {warps}")
+
+
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_rows_and_masks_modes_at_every_warp(cuda, mkd):
+    """The single-pair pipeline's rows (K11, K12, K9) and masks (K2 for
+    one pair, K10) modes at every W of 1 .. 32 with blocks by the rule,
+    at the rule's shape and at 2 blocks of 3 warps (the 700 bp pair's 22
+    bands wrap around to block 0), on the 700 bp pair, a tie-dense pair,
+    all-'A' 24 x 16 (the count wraps) and the edge pairs; the plain
+    wrappers themselves on the 700 bp pair at the rule's shape."""
+    pairs = PAIR_700 + _pairs(sum(mkd) + 33, 1, 300, 400, "AC") + [(b"A" * 24, b"A" * 16)] + EDGE
+    shapes = [(None, w) for w in range(1, 33)] + [(None, None), (2, 3)]
+    _rows_and_masks_vs_table(cuda, pairs, shapes, mkd)
+    top, side = _pair_tensors(*PAIR_700[0])
+    tc, sc = top.to(cuda), side.to(cuda)
+    for C in (None, 224):
+        got, want = fill_single.score_fold(tc, sc, *mkd, checkpoint_every=C), fill_single.score_fold_plain(
+            top, side, *mkd, checkpoint_every=C)
+        assert int(got[0]) == int(want[0]) and (C is None or torch.equal(got[1].cpu(), want[1]))
+    torch.testing.assert_close(fill_single.last_row(tc, sc, *mkd).cpu(), fill_single.last_row_plain(top, side, *mkd),
+                               rtol=0, atol=0)
+    got = fill_banded.fill_arrows_banded_single(tc, sc, *mkd, with_scores=True)
+    want = fill_banded.fill_arrows_banded_single_plain(top, side, *mkd, with_scores=True)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    assert got[2:] == want[2:]
+
+
+# sides one short of, on and one past 32 W (W = 2, 3), 32 G W (G = 2, W =
+# 3) and r C rows (C = 32, 224, 1 280; r = 1, 2) under a 75 bp top
+CUT_SIDES = sorted({63, 64, 65, 95, 96, 97, 191, 192, 193}
+                   | {r * C + e for C in (32, 224, 1280) for r in (1, 2) for e in (-1, 0, 1)})
+CUT_SHAPES = [(None, None), (None, 1), (None, 2), (None, 3), (2, 3), (None, 32)]
+
+
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_rows_and_masks_modes_at_the_cuts(cuda, mkd):
+    """The rows and masks modes on sides at the pipeline's cuts (the band
+    that wraps to block 0, the last band's row Bs) and K12's (a
+    checkpoint row one short of, on and one past the last row), with
+    checkpoints every 32, 224 and 1 280 rows."""
+    rng = np.random.default_rng(sum(mkd) + 34)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    top = letters[rng.integers(0, 4, 75)].tobytes()
+    pairs = [(top, letters[rng.integers(0, 4, n)].tobytes()) for n in CUT_SIDES]
+    _rows_and_masks_vs_table(cuda, pairs, CUT_SHAPES, mkd, cuts=(32, 224, 1280))
+
+
+def test_rows_and_masks_modes_with_the_top_in_device_memory(cuda):
+    """A top past shared memory (117 000 columns): nw_fill_masks against
+    nw_fill_masks_batch at B = 1 (masks, score, count), K12's rows and
+    K9's rows against nw_fill_masks's scores table, K11 against nw_scores,
+    at W = 1, 3, 32 and the rule's, under 2 1 1 and a wrapping scoring."""
+    rng = np.random.default_rng(35)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    A, Bs = 117_000, 200
+    pair = (letters[rng.integers(0, 4, A)].tobytes(), letters[rng.integers(0, 4, Bs)].tobytes())
+    T = enc.upload(enc.encode_batch([pair], A, Bs), cuda)
+    t, s = T[0][0], T[1][0]
+    assert not fill_banded.top_in_smem(A, 4) and not fill_banded.top_in_smem(A, 8)
+    for mkd in [(2, 1, 1), (1, 1, 2**30)]:
+        masks, score, count = fill_banded.fill_masks_banded_batch(*T, *mkd, with_counts=True)
+        assert int(fill_banded.fill_scores_banded_batch(*T, *mkd)[0]) == int(score[0])
+        for warps in (1, 3, 32, None):
+            got = fill_banded.fill_arrows_banded_single(t, s, *mkd, with_scores=True, warps=warps)
+            assert torch.equal(got[0], masks[0]) and got[2:] == (int(score[0]), int(count[0])), warps
+            hs = got[1]
+            sc, ck = fill_single.score_fold(t, s, *mkd, checkpoint_every=32, warps=warps)
+            assert int(sc) == int(score[0]) and torch.equal(ck, hs[0:Bs:32]), warps
+            assert int(fill_single.score_fold(t, s, *mkd, warps=warps)[0]) == int(score[0])
+            for j in (0, 64, 131, Bs):
+                assert torch.equal(fill_single.last_row(t, s, *mkd, len2=j, warps=warps), hs[j]), (warps, j)
 
 
 @pytest.mark.parametrize("mkd", [(2, 1, 1), (1, 1, 2**30)])
