@@ -179,7 +179,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    inputs on the card (both edges, the corner and the table), the mask
    walk's 20 000 bp relay against the plain relay (ops and final state),
    each timed; the 1-rank path's one tile (the whole 100 000 bp pair)
-   against ``nw_fill_codes_single`` (codes and corner), both timed.
+   against ``nw_fill_codes_single`` (codes and corner), both timed (the
+   ``nw_fill_tile`` record's ``one_rank_tile_ms`` and
+   ``fill_codes_single_ms``).
 
 13. The tie-mask routes and Hirschberg: (a) ``nw_fill_masks_batch`` (K2's
    batched tie masks, with and without counts), ``nw_count_masks`` (K6,
@@ -2345,6 +2347,7 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
         fail("the 1-rank tile's codes or corner differ from nw_fill_codes_single's")
     log(f"1-rank tile (the whole {L_HUGE} bp pair, codes) {ms_whole:.3f} ms against nw_fill_codes_single "
         f"{ms_single:.3f} ms: codes and corner equal [{card}]")
+    rec["nw_fill_tile"].update(one_rank_tile_ms=ms_whole, fill_codes_single_ms=ms_single)
     del table, whole
     torch.cuda.empty_cache()
     # the mask walk relayed over the 20 kb pair's 4 blocks of K28 masks, against its plain relay

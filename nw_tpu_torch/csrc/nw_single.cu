@@ -1,8 +1,8 @@
 // Single-pair Needleman-Wunsch fills for Hopper (sm_90a): the warps of
 // one cooperative grid sweep ONE pair together.
 //
-// Replaces these TPU (Pallas) kernels, in three kernels (single_pipe_kernel,
-// the template nw_single_kernel, nw_refill_kernel):
+// Replaces these TPU (Pallas) kernels, in two kernels (the template
+// single_pipe_kernel, nw_refill_kernel):
 //   K8  nw_tpu/ops/fill_pallas_single.py:250 _make_score_count_kernel
 //       (score_count_fold)                                 -> nw_score_count
 //   K2  nw_tpu/ops/fill_pallas_banded.py:342 _make_banded_arrows_kernel
@@ -32,11 +32,10 @@
 //   K9  nw_tpu/ops/fill_pallas_single.py:83 _make_kernel
 //       (last_row_pallas: one pair's row H[len2, 0..A], for
 //       Hirschberg)                                        -> nw_last_row
-// nw_score_count, nw_fill_masks, nw_fill_codes_single, nw_score_single
-// and nw_last_row run single_pipe_kernel (the single-pair pipeline,
-// below), each in a mode of its own; nw_refill_blocks runs
-// nw_refill_kernel; nw_fill_tile runs nw_single_kernel, whose every band
-// hands off through L2.
+// nw_score_count, nw_fill_masks, nw_fill_codes_single, nw_score_single,
+// nw_last_row and nw_fill_tile run single_pipe_kernel (the single-pair
+// pipeline, below), each in a mode of its own; nw_refill_blocks runs
+// nw_refill_kernel.
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163 on the
 // pair's exact (len2+1) x (len1+1) table, with row 0 (-c*d, LEFT, one
@@ -45,48 +44,33 @@
 // (fill_pallas_single.py:277-284) and holds for every scoring.  Scores
 // wrap as int32, counts as uint32.  The 0 x 0 pair gives score 0, count 1.
 //
-// nw_single_kernel (nw_fill_tile only).  The side string's rows are cut
-// into bands of 32 rows, one row per lane; a warp sweeps its band as
-// nw_fill.cu does (the up neighbour by __shfl_up_sync, the diagonal one
-// the up value of the previous step, lane 0 fed the row above the band
-// 32 columns at a time).  G blocks of W warps own the tile, P = G*W warps
-// in all: global warp g = block*W + warp takes bands g, g+P, g+2P, ..., so
-// up to P bands are in flight as a pipelined wavefront over the card,
-// each one two 32-column chunks behind the band above it.  Band b reads
-// band b-1's last row from a ring of P boundary rows in global memory
-// (slot (b-1)%P) and writes its own into slot b%P, through L2 only
-// (__ldcg / __stcg: another SM's L1 may hold a stale line).  After every
-// chunk each warp publishes the number of chunks it has completed, over
-// all its bands, in a global counter (monotonic, so a reader never sees a
-// later band's reset); the next band's warp spins on it before it loads
-// a chunk (gpu-scope fence after the data and before the flag, and after
-// the flag and before the data).  The launch is cooperative, so every
-// block is co-resident and no spin can wait on a block that never runs.
-// Reusing slot b%P is safe: band b+P writes column c only after band
-// b+P-1 has published past c, which by the same rule needs band b+1 to
-// have loaded column c.  With one warp in all the ring is one row, read
-// and written in place as nw_fill.cu does.  The template keeps the flags
-// and branches of the single-pair modes it served before they moved to
-// single_pipe_kernel (counts, a scores table, checkpoint rows, row Bs),
-// dead in every TILE instantiation, so that TILE's machine code stays as
-// it was until nw_fill_tile moves too.
-//
-// nw_fill_tile (TILE) fills one tile of a pair whose rows are sharded
-// over ranks (nw_tpu_torch/parallel/huge_pair.py): rows r0+1 .. r0+Bs and
-// columns c0+1 .. c0+C.  It is the same pipeline with the tile as its
-// table: band 0 reads the top halo (row r0 at columns c0 .. c0+C, the
-// corner first) as its seed, column 0 of the tile is the left edge input
-// (column c0 at rows r0+1 .. r0+Bs) instead of -j*d, and it writes the
-// right edge (column c0+C) and the bottom edge (row r0+Bs at columns
-// c0+1 .. c0+C) for the next tile and the next rank, and its bottom-right
-// cell as the score.  Its codes go into the rank's code table of the full
-// width (the layout below, global step c0 + c + lane): a tile boundary
-// cuts words, so a tile ORs its bits into the (zeroed) table's words
-// that it shares with the tile on its left or right (the tiles of a rank
-// run in order on one stream) and stores the others whole.  Its masks go
-// into a row-major uint8[Bs, width+1] table of the rank's rows, through
-// the warp's mask ring (below).  The tile with c0 = 0 also stores column
-// 0 (UP); no tile stores row r0.
+// The tiles (nw_fill_tile: single_pipe_kernel's kOutTile* modes) fill one
+// tile of a pair whose rows are sharded over ranks
+// (nw_tpu_torch/parallel/huge_pair.py): rows r0+1 .. r0+Bs and columns
+// c0+1 .. c0+C.  A tile is a pair with a seed row and a left edge: the
+// kernel runs it as a table of A = e + C columns, e = c0 % 16, whose
+// column x is the pair's column c0 - e + x.  Its first e columns are
+// idle (their values are never read past column e, and nothing of them
+// is stored), so that the kernel's step t is the pair's step c0 - e + t
+// and a code word's index and bits are static in t, as in the whole
+// pair's codes mode.  Column e is the tile's left edge (column c0 at rows
+// r0+1 .. r0+Bs, from left[] where the other modes compute -(r0+j)*d),
+// block 0's boundary row holds the top halo (row r0 at columns c0 ..
+// c0+C, the corner first) from column e on, the right edge (column c0+C)
+// is stored by each row's lane at its step off the chain, the bottom edge
+// (row r0+Bs) is the rows mode's row Bs, stored a cell a step by its lane
+// in the last band, and the cell (r0+Bs, c0+C) is the corner score.  The
+// codes go into the rank's table of the pair's width (the band-major
+// layout below at the pair's steps): a tile's code words hold only its
+// own columns except a few at each end of a band, which share columns
+// with the tile on the left or the right (a lane's word spans 16 steps,
+// its lanes 31 columns apart); those it ORs into the zeroed table (the
+// tiles of a rank run in order on one stream), the others it stores
+// whole, and the chunks whose columns all lie strictly inside the tile
+// test nothing.  The tie masks go into a row-major uint8[Bs, width+1]
+// table of the rank's rows (no row r0) through the masks mode's ring and
+// whole-band flush.  The tile with c0 = 0 also stores column 0 (UP); no
+// tile stores row r0.
 //
 // The tie masks (nw_fill_masks; nw_fill_tile's masks mode): each cell's
 // 3-bit tie mask (bit0 diag, bit1 left, bit2 up; row 0 LEFT, column 0 UP,
@@ -100,9 +84,10 @@
 // 32-row x 64-column byte ring in shared memory (column c in slot c % 64;
 // at any time the live columns span 63), and after every 32-step chunk
 // the warp stores the 32 columns that every lane has finished, row by
-// row: 32 lanes on 32 consecutive bytes, one coalesced store a row (in
-// nw_fill_masks, a whole band's 32 rows with no test a row, which took
-// a sixth off a 10 240 bp pair's fill on the H100, PERF.md section 6).
+// row: 32 lanes on 32 consecutive bytes, one coalesced store a row (a
+// whole band's 32 rows with no test a row, which took a sixth off a
+// 10 240 bp pair's fill on the H100, PERF.md section 6; a row test only
+// in a short last band).
 // Scores (only for -t tables, which are small) keep a store a lane a
 // cell.
 //
@@ -130,31 +115,43 @@
 // column 0 explicit as everywhere, so the row follows fill_scan at every
 // scoring (K9 rests on the NEG_INF decay).
 //
-// The grouped re-fill (nw_refill_blocks: the codes mode's step in a
-// kernel of its own, nw_refill_kernel, so that the template's other
-// instantiations keep their machine code).  A checkpointed traceback
-// re-fills every block of C rows from its checkpoint row; one block is
-// only C/32 bands, too few for the card, and given their seed rows the
-// blocks are independent.  So one cooperative launch re-fills G consecutive blocks:
-// bands are numbered over the group (band b is block b / (C/32)), and P
-// warps take bands b, b+P, ... as above.  A band that starts a block
-// reads its row above from that block's seed and waits on no band; the
-// others read band b-1's last row from the ring, column 0 is -(r0+j)*d
-// with the group's r0, and each block's last row stores its corner.
-// The ring: block g owns slots g*S .. g*S+S-1, S = min(P, C/32), and
-// band b of it (its l-th) writes slot g*S + l%S.  The argument above
-// for reusing a slot needs an unbroken chain of waits from band b+1 to
-// band b+P-1, and a block start breaks it (band b+P could overwrite a
-// slot shared across a block start before band b+1 read it); within one
-// block no band starts a block, so reuse there is safe by that argument,
-// and with S = C/32 (P >= C/32) no slot is reused at all.  The ring
-// holds G*S rows, at most a row a band: half the bytes of the group's
-// codes.
+// The grouped re-fill (nw_refill_blocks, nw_refill_kernel: the codes
+// mode's step, every band handing off through L2).  A checkpointed
+// traceback re-fills every block of C rows from its checkpoint row; one
+// block is only C/32 bands, too few for the card, and given their seed
+// rows the blocks are independent.  So one cooperative launch re-fills G
+// consecutive blocks: bands are numbered over the group (band b is block
+// b / (C/32)), one row a lane, and a warp sweeps its band as nw_fill.cu
+// does (the up neighbour by __shfl_up_sync, the diagonal one the up
+// value of the previous step, lane 0 fed the row above 32 columns at a
+// time).  The launch's P warps in all (blocks x warps) take bands g,
+// g+P, g+2P, ... (global warp g), so up to P bands are in flight, each
+// two 32-column chunks behind the band above it.  A band that starts a
+// block reads its row above from that block's seed and waits on no band;
+// the others read band b-1's last row from a ring of boundary rows in
+// device memory, through L2 only (__ldcg / __stcg: another SM's L1 may
+// hold a stale line), column 0 is -(r0+j)*d with the group's r0, and
+// each block's last row stores its corner.  After every chunk each warp
+// publishes the chunks it has completed, over all its bands, in a global
+// counter (monotonic, so a reader never sees a later band's reset); the
+// next band's warp spins on it before it loads a chunk (a gpu-scope
+// fence after the data and before the count, and after the count and
+// before the data); the launch is cooperative, so no spin waits on a
+// block that never runs.  The ring: block g owns slots g*S .. g*S+S-1,
+// S = min(P, C/32), and band b of it (its l-th) writes slot g*S + l%S.
+// With S = C/32 (P >= C/32) no slot is reused.  Else band b+P reuses
+// band b's slot, which is safe: band b+P writes column c only after band
+// b+P-1 has published past c, which by the same rule needs band b+1 to
+// have loaded column c, an unbroken chain of waits from band b+1 to band
+// b+P-1 inside one block (no band there starts a block: a block start
+// would break the chain).  The ring holds G*S rows, at most a row a
+// band: half the bytes of the group's codes.
 //
 // The single-pair pipeline (single_pipe_kernel, in the mode OUT: counts
 // for nw_score_count; codes for nw_fill_codes_single; rows of scores for
 // nw_score_single and nw_last_row; tie masks, with counts, for
-// nw_fill_masks).  nw_fill.cu's pipeline (its
+// nw_fill_masks; a tile's edges, with codes or tie masks, for
+// nw_fill_tile).  nw_fill.cu's pipeline (its
 // header, "The pipeline") on G blocks of W warps of a cooperative grid,
 // one pair a grid (W and G: nw_tpu_torch/ops/fill_banded.py single_warps,
 // single_blocks).  Band b runs on block (b / W) % G, warp b % W, so up to
@@ -178,14 +175,17 @@
 // group's kHandoff chunks of its row (__ldcg, a cell a lane a chunk, into
 // registers) and stages one chunk a chunk in shared memory, as pipe_fill
 // stages bnd.  So L2 carries one handoff every W bands, with one fence
-// and one spin every kHandoff chunks, where nw_single_kernel pays them
-// for every band and chunk.  Block 0's row holds row 0 (-c*d, one path)
-// or the seed first; block 0's warp 0 then reads block G-1's bands of the
+// and one spin every kHandoff chunks (a kernel whose every band handed
+// off through L2 paid them for every band and chunk, and ran at the pace
+// of that handoff: 2.6-2.9x slower on a 100 kb pair, PERF.md section 6).
+// Block 0's row holds row 0 (-c*d, one path), the seed or a tile's halo
+// first; block 0's warp 0 then reads block G-1's bands of the
 // round before.  The modes' outputs ride on this without a wait of their
 // own: the masks mode's ring is the warp's alone (a __syncwarp orders its
 // flush before the next chunk's writes), a checkpoint row is copied out of
 // slots that only their writer rewrites, after the chunk (as warp W-1
-// copies its row into bnd), and row Bs needs no ring.
+// copies its row into bnd), and row Bs and a tile's right edge need no
+// ring.
 //
 // It cannot deadlock.  The launch is cooperative, so every block is
 // co-resident and no spin waits on a block that never runs.  A band
@@ -212,19 +212,14 @@
 // of A+1 cells: 8 bytes with counts, 4 without (105.6 MB for
 // nw_score_count at 100 kb on 132 blocks).
 //
-// What bounds it on the H100.  nw_single_kernel: the serial chain of
-// each step (four shuffles, a few dependent integer ops) and, every
-// 32-column chunk of every band, an L2 poll, a gpu-scope fence and the
-// loads of the row above; so its ~8 warps an SM run at the pace of that
-// handoff, not of issue (4 warps a block beat 8 on nw_score_count's old
-// instantiation at 20 kb, PERF.md section 6).  The codes mode adds one
-// coalesced 128-byte store a warp per 16 steps (2.5 GB for a 100 000 bp
-// pair, ~2 ms, PERF.md section 6); the masks mode a shared-memory byte
-// store a step and 32 coalesced 32-byte row stores a chunk (a byte a
-// cell: 0.1 GB for a 10 240 bp pair).  The grouped re-fill puts every
-// band of G blocks in flight at once (up to 32 warps an SM), so its G
-// blocks take about one band's sweep with the SMs' issue slots shared by
-// ~24 warps each.  single_pipe_kernel: the
+// What bounds it on the H100.  The codes modes add one coalesced 128-byte
+// store a warp per 16 steps (2.5 GB for a 100 000 bp pair, ~2 ms, PERF.md
+// section 6); the masks modes a shared-memory byte store a step and 32
+// coalesced 32-byte row stores a chunk (a byte a cell: 0.1 GB for a
+// 10 240 bp pair).  The grouped re-fill puts every band of G blocks in
+// flight at once (up to 32 warps an SM), so its G blocks take about one
+// band's sweep with the SMs' issue slots shared by ~24 warps each, its
+// every band handing off through L2.  single_pipe_kernel: the
 // wavefront's critical path, about 2*nbands + nchunks chunks of 32 steps
 // (each band two chunks behind the one above, then the last band's
 // sweep: ~9 400 chunks at 100 kb), at the step's latency, plus kHandoff-1
@@ -234,7 +229,10 @@
 // (12 warps an SM at 100 kb), and more warps an SM slow each one's step
 // (~127 cycles with counts, ~104 with codes at 12 warps an SM, against
 // ~86 for a warp alone; PERF.md section 6), which, not the
-// handoff, holds a 100 kb pair at ~2x its bound.
+// handoff, holds a 100 kb pair at ~2x its bound.  A tile pays the same
+// path for its own bands and chunks (a tile of H rows x C columns: about
+// 2*H/32 + (C+e)/32 chunks), so a rank's tiles in a row pay the 2*H/32
+// chunks of its wavefront's depth once a tile.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -289,255 +287,31 @@ constexpr int kOutCodes = 1;        // the 2-bit codes (K14, K13 a block a launc
 constexpr int kOutRows = 2;         // rows of scores: checkpoint rows, row Bs (K11, K12, K9)
 constexpr int kOutMasks = 3;        // with counts: the tie masks and the count (K2 one pair, K10)
 constexpr int kOutMasksScores = 4;  // ... and the int32 scores of every cell (-t)
+// a tile (K14's mesh half, K28): its right and bottom edges and corner ...
+constexpr int kOutTile = 5;       // ... alone (scores)
+constexpr int kOutTileCodes = 6;  // ... and the 2-bit codes
+constexpr int kOutTileMasks = 7;  // ... and the tie masks
 
-// The outputs of single_pipe_kernel's rows and masks modes (null where
-// the mode or the caller has none).
+// The outputs of single_pipe_kernel's rows, masks and tile modes (null
+// where the mode or the caller has none).
 struct PipeOuts {
   int* ckpt;             // int32[ceil(Bs/every), A+1]: rows 0, every, 2*every, ... below row Bs
   int every;             // a multiple of 32
-  int* last;             // int32[A+1]: row Bs
-  unsigned char* masks;  // uint8 rows 0 .. Bs of ldm >= A+1 bytes
+  int* last;             // int32[A+1]: row Bs (a tile's bottom edge from column e+1 on)
+  unsigned char* masks;  // uint8 rows 0 .. Bs of ldm >= A+1 bytes (a tile's: rows 1 .. Bs)
   int ldm;
   int* hs;               // int32[Bs+1, A+1]
+  // a tile (header, "The tiles"), in the kernel's columns: the pair's
+  // column c0 - e + x is column x
+  const int* left;  // int32[Bs]: column e, the tile's left edge
+  int* right;       // int32[Bs]: column A, the tile's right edge
+  int e;            // idle columns before the left edge: c0 % 16
+  int keep;         // the first column the tile stores: e, or e+1 past a tile on its left
+  int lo_own;       // a code word whose columns lie in lo_own .. hi_own is
+  int hi_own;       // the tile's alone (stored whole); else OR'd into the table
+  int tw;           // code words of a band row of the rank's table
+  int words;        // ... from the tile's first, (c0 - e) / 16, on
 };
-
-// The edges of a TILE launch (unused otherwise).
-struct Tile {
-  const int* left;  // int32[Bs]: column c0 at rows r0+1 .. r0+Bs
-  int* right;       // int32[Bs]: column c0+C
-  int* bottom;      // int32[C]: row r0+Bs at columns c0+1 .. c0+C
-  int c0;           // first column of the tile's left edge
-  int width;        // A of the whole pair: the code / mask tables' width
-};
-
-// What a launch writes besides its ring (null where the mode has none).
-struct Outs {
-  unsigned char* masks;  // uint8[Bs+1, A+1]
-  int* hs;               // int32[Bs+1, A+1]
-  unsigned* codes;       // uint32[nbands, TW, 32]
-  int* ckpt;             // int32[ceil(Bs/every), A+1]
-  int every;             // rows between two checkpoint rows
-  int* score;
-  unsigned* count;
-  int* last;             // int32[A+1]: row Bs (LAST_ROW)
-  int ldm;               // the masks' row stride (0: A+1)
-};
-
-template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES,
-          bool TILE = false>
-__global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_single_kernel(
-    const int* __restrict__ top, const int* __restrict__ side, int A, int Bs,
-    int r0, const int* __restrict__ seed, int m, int k, int d, int* ring,
-    unsigned* cring, int* done, Outs out, Tile tile) {
-  static_assert(!TILE || (!WITH_COUNTS && !EMIT_SCORES), "a tile has no counts");
-  // with TILE, A and top are the tile's (C columns from top + c0), seed
-  // is the top halo; c0 and the tables' width come from tile
-  extern __shared__ unsigned char rings[];  // EMIT_MASKS: one ring a warp
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  unsigned char* mring = rings + warp * kTileBytes;
-  const int W = blockDim.x >> 5;
-  const int P = gridDim.x * W;  // warps in all
-  const int gwarp = blockIdx.x * W + warp;
-  const int M = A + 1;
-  const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
-  const int c0 = TILE ? tile.c0 : 0;
-  const int Mw = TILE ? tile.width + 1 : M;  // the tables' row of columns
-  const int ldm = TILE ? Mw : (out.ldm ? out.ldm : M);  // the masks' row stride
-  const int TW = 2 * ((Mw + 31 + 31) >> 5);  // code words of a band row
-  const int cmin = c0 > 0 ? 1 : 0;  // a tile's column 0 is the last tile's
-  const int nbands = (Bs + 31) >> 5;
-  volatile int* vdone = done;  // chunks completed, per global warp (zeroed)
-  unsigned char* __restrict__ masks = out.masks;
-  int* __restrict__ hs = out.hs;
-
-  const int gthread = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int c = gthread; !TILE && c < M; c += gridDim.x * blockDim.x) {  // row 0
-    if (EMIT_MASKS) masks[c] = c == 0 ? 0 : kMaskLeft;
-    if (EMIT_SCORES) hs[c] = wsub(0, wmul(c, d));
-    if (out.ckpt && Bs > 0) __stcg(out.ckpt + c, wsub(0, wmul(c, d)));
-    if (out.last && Bs == 0) out.last[c] = wsub(0, wmul(c, d));
-  }
-  if (!TILE && Bs == 0 && gthread == 0) {  // the corner is on the row above
-    *out.score = seed ? seed[A] : wsub(0, wmul(A, d));
-    if (WITH_COUNTS) *out.count = 1u;
-  }
-
-  const int negk = wsub(0, k);
-  const int prev_warp = (gwarp + P - 1) % P;
-  for (int band = gwarp, round = 0; band < nbands; band += P, ++round) {
-    const int j = band * 32 + 1 + lane;  // this lane's row in the launch
-    const bool row_ok = j <= Bs;
-    const int sch = row_ok ? side[j - 1] : -5;
-    // H[r0+j][0], or a tile's left edge
-    const int col0 = TILE ? (row_ok ? tile.left[j - 1] : 0) : wsub(0, wmul(r0 + j, d));
-    const int64_t rowoff = static_cast<int64_t>(j) * M;
-    const int64_t in_slot = static_cast<int64_t>((band + P - 1) % P) * M;
-    const int64_t out_slot = static_cast<int64_t>(band % P) * M;
-    // band-1's warp has completed this many chunks before band-1 began
-    const int pred_base = band > 0 ? ((band - 1) / P) * nchunks : 0;
-    unsigned* wbase = EMIT_CODES
-        ? out.codes + static_cast<int64_t>(band) * TW * 32 + lane : nullptr;
-    // rows r*C (C = out.every) below the last go to ckpt[r]
-    const bool dump = out.ckpt && lane == 31 && j < Bs && j % out.every == 0;
-    int* dump_row = dump ? out.ckpt + static_cast<int64_t>(j / out.every) * M : nullptr;
-    int* const last = !TILE && out.last && j == Bs ? out.last : nullptr;  // row Bs's lane
-    int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
-    unsigned cnt = 0, cup_prev = 0, pack = 0;
-
-    for (int q = 0; q < nchunks; ++q) {
-      const int t0 = q << 5;
-      const int cx = t0 + lane;
-      int bval;
-      unsigned cbval = 0u;
-      if (band == 0) {  // the row above is row 0 (-c*d, one path) or the seed
-        bval = seed ? (cx < M ? seed[cx] : 0) : wsub(0, wmul(cx, d));
-        cbval = 1u;
-      } else {
-        // columns t0 .. t0+31 of band-1's last row are written once
-        // band-1 has completed chunk q+1 (lane 31 trails lane 0 by 31)
-        const int target = pred_base + min(q + 2, nchunks);
-        while (vdone[prev_warp] < target) {
-        }
-        __threadfence();
-        bval = cx < M ? __ldcg(ring + in_slot + cx) : 0;
-        if (WITH_COUNTS) cbval = cx < M ? __ldcg(cring + in_slot + cx) : 0u;
-      }
-      const int tval = (cx >= 1 && cx <= A) ? top[cx - 1] : -4;
-#pragma unroll 8
-      for (int s = 0; s < 32; ++s) {
-        const int c = t0 + s - lane;
-        int up = __shfl_up_sync(kFull, h, 1);
-        const int ch_in = __shfl_up_sync(kFull, ch, 1);
-        const int b_up = __shfl_sync(kFull, bval, s);
-        const int b_ch = __shfl_sync(kFull, tval, s);
-        unsigned cup = 0u;
-        if (WITH_COUNTS) {
-          cup = __shfl_up_sync(kFull, cnt, 1);
-          const unsigned cb_up = __shfl_sync(kFull, cbval, s);
-          cup = lane == 0 ? cb_up : cup;
-        }
-        up = lane == 0 ? b_up : up;
-        ch = lane == 0 ? b_ch : ch_in;
-
-        const int cand_d = wadd(up_prev, ch == sch ? m : negk);
-        const int cand_u = wsub(up, d);
-        const int cand_l = wsub(h, d);
-        int hn = max(max(cand_d, cand_u), cand_l);
-        const bool is_d = cand_d == hn, is_l = cand_l == hn, is_u = cand_u == hn;
-        unsigned cn = 0u;
-        if (WITH_COUNTS)
-          cn = (is_d ? cup_prev : 0u) + (is_l ? cnt : 0u) + (is_u ? cup : 0u);
-        unsigned mask = (is_d ? kMaskDiag : 0u) | (is_l ? kMaskLeft : 0u) |
-                        (is_u ? kMaskUp : 0u);
-        unsigned code = is_d ? 0u : (is_l ? kCodeLeft : kCodeUp);
-        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
-        hn = col_zero ? col0 : hn;
-        cn = col_zero ? 1u : cn;
-        mask = col_zero ? kMaskUp : mask;
-        code = col_zero ? kCodeUp : code;
-        const bool in_row = c >= 0 && c <= A;
-        const bool kept = c >= cmin && c <= A && row_ok;  // stored here
-        if (EMIT_MASKS) mring[lane * kRingCols + (c & (kRingCols - 1))] = mask;
-        if (EMIT_SCORES && in_row && row_ok) hs[rowoff + c] = hn;
-        if (EMIT_CODES) {
-          const int g = c0 + t0 + s;  // step in the table's words
-          pack |= (kept ? code : 0u) << (2 * (g & 15));
-          if ((g & 15) == 15) {  // every lane stores together
-            // the word holds columns g-15-lane .. g-lane: a tile's own
-            // unless it reaches into the tile on the left or the right,
-            // whose bits it then joins (a load in the chain: boundary
-            // words only)
-            // (a tile's sweep runs up to 31 steps past the table's last
-            // word: those words, all zero, are not stored)
-            const bool own = !TILE || ((c0 == 0 || g - 15 - lane > c0) &&
-                                       (g - lane <= c0 + A || c0 + A == tile.width) &&
-                                       (g >> 4) < TW);
-            if (own) {
-              wbase[static_cast<int64_t>(g >> 4) * 32] = pack;
-            } else if (pack) {
-              wbase[static_cast<int64_t>(g >> 4) * 32] |= pack;
-            }
-            pack = 0u;
-          }
-        }
-        if (TILE && row_ok && c == A) tile.right[j - 1] = hn;
-        if (TILE && j == Bs && c >= 1 && c <= A) tile.bottom[c - 1] = hn;
-        if (in_row && j == Bs && c == A) {  // the corner
-          *out.score = hn;
-          if (WITH_COUNTS) *out.count = cn;
-        }
-        if (lane == 31 && in_row) {  // this band's last row, for band+1
-          __stcg(ring + out_slot + c, hn);
-          if (WITH_COUNTS) __stcg(cring + out_slot + c, cn);
-        }
-        if (dump && in_row) __stcg(dump_row + c, hn);
-        if (last && in_row) last[c] = hn;
-        up_prev = up;
-        h = hn;
-        if (WITH_COUNTS) {
-          cup_prev = cup;
-          cnt = cn;
-        }
-      }
-      __syncwarp();  // the chunk's loads and stores precede the flag
-      if (lane == 31) {
-        __threadfence();
-        vdone[gwarp] = round * nchunks + q + 1;
-      }
-      if (EMIT_MASKS) {  // every lane has finished columns t0-31 .. t0
-        const int col = t0 - 31 + lane;
-        const bool col_ok = col >= cmin && col <= A;
-        const unsigned char* src = mring + (col & (kRingCols - 1));
-        // a tile's table holds no row r0: its row of j is j - 1
-        unsigned char* dst =
-            masks + static_cast<int64_t>(band * 32 + (TILE ? 0 : 1)) * ldm + c0 + col;
-#pragma unroll 4
-        for (int r = 0; r < 32; ++r) {
-          const unsigned char v = src[r * kRingCols];
-          if (col_ok && band * 32 + 1 + r <= Bs) dst[static_cast<int64_t>(r) * ldm] = v;
-        }
-        __syncwarp();  // read before the next chunk overwrites the slots
-      }
-    }
-    if (TILE && EMIT_CODES && pack) {  // the band's last word, when c0 % 16 > 0
-      wbase[static_cast<int64_t>((c0 + nchunks * 32 - 1) >> 4) * 32] |= pack;
-    }
-  }
-}
-
-template <bool WITH_COUNTS, bool EMIT_MASKS, bool EMIT_SCORES, bool EMIT_CODES,
-          bool TILE = false>
-int launch_single(const int* top, const int* side, int A, int Bs, int r0,
-                  const int* seed, int m, int k, int d, int blocks, int warps,
-                  int* ring, unsigned* cring, int* done, Outs out,
-                  cudaStream_t stream, Tile tile = Tile{}) {
-  if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 0 ||
-      r0 < 0 || (r0 > 0 && !seed) || (out.ckpt && (out.every < 32 || out.every % 32)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (TILE && (Bs < 1 || !seed || !tile.left || !tile.right || (A > 0 && !tile.bottom) ||
-               tile.c0 < 0 || tile.c0 + A > tile.width))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int smem = EMIT_MASKS ? warps * kTileBytes : 0;  // up to 64 KB
-  auto kernel = nw_single_kernel<WITH_COUNTS, EMIT_MASKS, EMIT_SCORES, EMIT_CODES, TILE>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  // cooperative: all blocks co-resident (or the launch is refused), since
-  // a band spins on the band above it, which another block may run
-  void* args[] = {&top, &side, &A, &Bs, &r0, &seed, &m, &k, &d, &ring,
-                  &cring, &done, &out, &tile};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(kernel), dim3(blocks), dim3(32 * warps), args,
-      static_cast<size_t>(smem), stream);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it; the caller gets this launch's error
-    return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------- K13, grouped: G blocks of one pair in one launch ----------------
 
@@ -638,7 +412,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_refill_kernel(
 }
 
 
-// ---------------- K8, K14: the W-warp pipeline across a cooperative grid ----------------
+// ---------------- the W-warp pipeline across a cooperative grid ----------------
 
 // The pipeline's NW fill of one pair on G blocks of W warps (header,
 // "The single-pair pipeline"): band b on block (b / W) % G, warp b % W.
@@ -647,7 +421,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_refill_kernel(
 // cells, row g the row above block g's warp 0 (row 0, or the seed, in
 // row 0 first); flags int32[G] zeroed.  With a seed (row r0 of the pair)
 // rows r0+1 .. r0+Bs are filled, column 0 -(r0+j)*d.  OUT (kOut*) picks
-// what is written besides the corner: codes, or out's rows or masks.
+// what is written besides the corner: codes, or out's rows or masks; a
+// tile (kOutTile*: header, "The tiles") has seed = its halo from column
+// out.e on and out.left as its column out.e.
 template <bool WITH_COUNTS, int OUT, bool TOP_SMEM>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
     const int* __restrict__ top, const int* __restrict__ side, int A, int Bs,
@@ -655,11 +431,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
     typename Cell<WITH_COUNTS>::type* bnd, int* flags, unsigned* __restrict__ codes,
     int* __restrict__ score, unsigned* __restrict__ count, PipeOuts out) {
   using C = typename Cell<WITH_COUNTS>::type;
-  constexpr bool EMIT_CODES = OUT == kOutCodes;
+  constexpr bool TILE = OUT >= kOutTile;
+  constexpr bool EMIT_CODES = OUT == kOutCodes || OUT == kOutTileCodes;
   constexpr bool ROWS = OUT == kOutRows;
-  constexpr bool MASKS = OUT >= kOutMasks;
+  constexpr bool MASKS = OUT == kOutMasks || OUT == kOutMasksScores || OUT == kOutTileMasks;
   constexpr bool HS = OUT == kOutMasksScores;
-  static_assert(!MASKS || WITH_COUNTS, "the masks mode carries the count");
+  constexpr bool LASTROW = ROWS || TILE;  // row Bs stored by its lane (a tile's bottom edge)
+  static_assert(TILE ? !WITH_COUNTS : !MASKS || WITH_COUNTS,
+                "the masks mode carries the count; a tile has none");
   extern __shared__ __align__(16) int single_sh[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -692,7 +471,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
   pipe_stage_top(top_s, top, A);
   if (blk == 0) {
     for (int c = threadIdx.x; c < M; c += blockDim.x) {
-      const int v = seed ? seed[c] : wsub(0, wmul(c, d));
+      int v;
+      if constexpr (TILE) {  // the halo from the left edge's column on; 0 in the idle ones
+        v = c >= out.e ? seed[c - out.e] : 0;
+      } else {
+        v = seed ? seed[c] : wsub(0, wmul(c, d));
+      }
       if constexpr (WITH_COUNTS) {
         __stcg(bnd + c, make_int2(v, 1));
       } else {
@@ -702,12 +486,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
         if (out.ckpt && Bs > 0) out.ckpt[c] = v;
         if (out.last && Bs == 0) out.last[c] = v;
       }
-      if constexpr (MASKS) {  // row 0: LEFT, the origin 0
+      if constexpr (MASKS && !TILE) {  // row 0: LEFT, the origin 0
         out.masks[c] = c == 0 ? 0 : kMaskLeft;
         if constexpr (HS) out.hs[c] = v;
       }
     }
-    if (Bs == 0 && threadIdx.x == 0) {  // the corner is on the row above
+    if (!TILE && Bs == 0 && threadIdx.x == 0) {  // the corner is on the row above
       *score = seed ? seed[A] : wsub(0, wmul(A, d));
       if (WITH_COUNTS) *count = 1u;
     }
@@ -721,13 +505,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
   // the row above: the previous warp's ring, or (warp 0) the staged chunk
   const C* const in_ring = warp > 0 ? rings + (warp - 1) * kRing : stage;
   const short* const top_lane = top_s + 31 - lane;  // column t - lane at [t]
+  // column 0: the left edge (a tile's column e); the first column stored
+  const int cl = TILE ? out.e : 0;
+  [[maybe_unused]] const int ck = TILE ? out.keep : 0;
   int seen = 0;  // warp 0: the last value read from flag_in
   C pre[kHandoff];  // warp 0: the row above's next kHandoff chunks, a cell a lane
   for (int band = blk * W + warp, round = 0; band < nbands; band += G * W, ++round) {
     const int j = band * 32 + 1 + lane;  // this lane's row
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : kSidePad;
-    const int col0 = wsub(0, wmul(r0 + j, d));  // H[r0+j][0]
+    // H[r0+j][0], or a tile's left edge
+    const int col0 = TILE ? (row_ok ? out.left[j - 1] : 0) : wsub(0, wmul(r0 + j, d));
     const bool feeds = band + 1 < nbands;  // a band below reads this one's last row
     const bool to_ring = feeds && !last_warp;  // ... from this warp's ring
     // warp 0 reads block blk-1's warp W-1 band of this round; block 0 block
@@ -736,16 +524,18 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
     // the chunk of the corner's step, in the band that holds row Bs
     const int jj_c = Bs - 1 - band * 32;
     const int corner_q = jj_c >= 0 && jj_c < 32 ? (A + jj_c) >> 5 : -1;
+    // a tile's rows in the rank's table: tw words a band row, codes from
+    // the tile's first word on
     unsigned* wbase = EMIT_CODES
-        ? codes + (band * static_cast<int64_t>(2 * nchunks)) * 32 + lane : nullptr;
+        ? codes + (band * static_cast<int64_t>(TILE ? out.tw : 2 * nchunks)) * 32 + lane : nullptr;
     // ROWS: a checkpoint row r*every (r >= 1) is lane 31's row of a band
     // that feeds the band below, so this warp's ring holds it: copied out
     // after each chunk
     [[maybe_unused]] int* const ckpt_row =
         ROWS && out.ckpt && feeds && (band * 32 + 32) % out.every == 0
             ? out.ckpt + static_cast<int64_t>((band * 32 + 32) / out.every) * M : nullptr;
-    // ROWS: row Bs, stored a cell a step by its lane of the last band
-    [[maybe_unused]] const bool last_band = ROWS && out.last && band == nbands - 1;
+    // LASTROW: row Bs, stored a cell a step by its lane of the last band
+    [[maybe_unused]] const bool last_band = LASTROW && out.last && band == nbands - 1;
     [[maybe_unused]] const int last_lane = (Bs - 1) & 31;
     [[maybe_unused]] const int64_t rowoff = static_cast<int64_t>(j) * M;  // HS: row j
     int h = 0, up_prev = 0;  // own last value, last up
@@ -794,8 +584,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
 
       // one chunk of 32 steps; FAST: every lane's column lies in 1..A and
       // the corner is not in it, so column 0, the columns past A and the
-      // corner need no test; LAST (ROWS): the band of row Bs, whose lane
-      // stores its cells
+      // corner need no test (a tile's: in e+1 .. A-1, so its idle columns,
+      // its right edge and its shared code words need none either); LAST
+      // (LASTROW): the band of row Bs, whose lane stores its cells
       auto sweep = [&](auto fast, auto lastrow) {
         constexpr bool FAST = decltype(fast)::value;
         constexpr bool LAST = decltype(lastrow)::value;
@@ -831,17 +622,22 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
                    (cand_u == hn ? kMaskUp : 0u);
           }
           bool in_row = true;
+          [[maybe_unused]] bool kept = true;  // TILE: a cell the tile stores
           if constexpr (!FAST) {
             const int c = t0 + s - lane;
-            const bool col_zero = c == 0;  // column 0: -(r0+j)*d, UP, one path
+            const bool col_zero = c == cl;  // column 0: -(r0+j)*d, UP, one path
             hn = col_zero ? col0 : hn;
             code = col_zero ? kCodeUp : code;
             cn = col_zero ? 1u : cn;
             if constexpr (MASKS) mask = col_zero ? kMaskUp : mask;
-            in_row = c >= 0 && c <= A;
+            in_row = c >= cl && c <= A;
             if (in_row && j == Bs && c == A) {  // the corner
               *score = hn;
               if (WITH_COUNTS) *count = cn;
+            }
+            if constexpr (TILE) {
+              kept = c >= ck && c <= A && row_ok;
+              if (row_ok && c == A) out.right[j - 1] = hn;  // the right edge
             }
           }
           if (s < 31 ? pub_lo : pub_hi) {  // this band's last row, for the band below
@@ -853,7 +649,24 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
             }
             (s < 31 ? out_lo[s] : out_hi[0]) = v;
           }
-          if constexpr (EMIT_CODES) {
+          if constexpr (EMIT_CODES && TILE && !FAST) {
+            pack |= (kept ? code : 0u) << (2 * (s & 15));
+            if ((s & 15) == 15) {  // static: every lane stores together
+              // the word holds columns t0+s-15-lane .. t0+s-lane; one past
+              // the table's last word (a band's sweep ends up to 31 steps
+              // past it) holds none and is not stored
+              const int w = (t0 + s) >> 4;
+              if (w < out.words) {
+                unsigned* const p = wbase + static_cast<int64_t>(w) * 32;
+                if (t0 + s - 15 - lane >= out.lo_own && t0 + s - lane <= out.hi_own) {
+                  *p = pack;
+                } else if (pack) {  // shared with a neighbouring tile
+                  *p |= pack;
+                }
+              }
+              pack = 0;
+            }
+          } else if constexpr (EMIT_CODES) {
             // rows past Bs store 0: per cell in a tested chunk, per word here
             pack |= (FAST || (in_row && row_ok) ? code : 0u) << (2 * (s & 15));
             if ((s & 15) == 15) {  // static: every lane stores together
@@ -867,7 +680,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
               if (in_row && row_ok) out.hs[rowoff + t0 + s - lane] = hn;
             }
           }
-          if constexpr (LAST) {
+          if constexpr (LAST) {  // (a tile's row holds its idle columns and column e too)
             if (lane == last_lane && in_row) out.last[t0 + s - lane] = hn;
           }
           up_prev = up;
@@ -878,9 +691,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
           }
         }
       };
-      const bool fast_chunk = q > 0 && t0 + 31 <= A && q != corner_q;  // no column 0, none past the row, no corner
-      if (ROWS && last_band) {
-        if constexpr (ROWS) fast_chunk ? sweep(Flag<true>{}, Flag<true>{}) : sweep(Flag<false>{}, Flag<true>{});
+      const bool fast_chunk = TILE ? t0 - 31 > cl && t0 + 31 < A  // none of the tile's ends
+                                   : q > 0 && t0 + 31 <= A && q != corner_q;  // no column 0, none past the row, no corner
+      if (LASTROW && last_band) {
+        if constexpr (LASTROW) fast_chunk ? sweep(Flag<true>{}, Flag<true>{}) : sweep(Flag<false>{}, Flag<true>{});
       } else if (fast_chunk) {
         sweep(Flag<true>{}, Flag<false>{});
       } else {
@@ -910,10 +724,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) single_pipe_kernel(
       }
       if constexpr (MASKS) {  // every lane has finished columns t0-31 .. t0
         const int col = t0 - 31 + lane;
-        const bool col_ok = col >= 0 && col <= A;
+        const bool col_ok = col >= ck && col <= A;
         const int rows = Bs - band * 32;  // this band's rows, if fewer than 32
         const unsigned char* src = mring + (col & (kRingCols - 1));
-        unsigned char* dst = out.masks + static_cast<int64_t>(band * 32 + 1) * out.ldm + col;
+        // (a tile's table has no row r0: row j at j-1)
+        unsigned char* dst = out.masks + static_cast<int64_t>(band * 32 + (TILE ? 0 : 1)) * out.ldm + col;
         if (col_ok && rows >= 32) {  // a whole band: no test a row
 #pragma unroll 8
           for (int r = 0; r < 32; ++r) {  // 32 lanes on 32 consecutive bytes of a row
@@ -941,10 +756,13 @@ int launch_single_pipe(const int* top, const int* side, int A, int Bs, int r0,
                        short* top16, void* bnd, int* flags, unsigned* codes, int* score,
                        unsigned* count, cudaStream_t stream, PipeOuts out = PipeOuts{}) {
   using C = typename Cell<WITH_COUNTS>::type;
-  constexpr bool MASKS = OUT >= kOutMasks;
+  constexpr bool TILE = OUT >= kOutTile;
+  constexpr bool MASKS = OUT == kOutMasks || OUT == kOutMasksScores || OUT == kOutTileMasks;
   if (warps < 1 || warps > kMaxWarps || blocks < 1 || A < 0 || Bs < 0 || r0 < 0 ||
       (r0 > 0 && !seed) || (out.ckpt && (out.every < 32 || out.every % 32)) ||
-      (MASKS && (!out.masks || out.ldm < A + 1 || r0 > 0)))
+      (MASKS && (!out.masks || out.ldm < A + 1 || r0 > 0)) ||
+      (TILE && (Bs < 1 || !seed || !out.left || !out.right || !out.last || out.e < 0 ||
+                out.e > A || (OUT == kOutTileCodes && !codes))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = pipe_smem(warps, A, sizeof(C), !top16) + (MASKS ? warps * kTileBytes : 0);
   auto kernel = top16 ? single_pipe_kernel<WITH_COUNTS, OUT, false>
@@ -1057,33 +875,55 @@ extern "C" int nw_last_row(const int* top, const int* side, int A, int Bs,
 // scores only) and K28 (masks non-null: 3-bit tie masks) on one tile of a
 // pair whose rows are sharded: rows r0+1 .. r0+H (side = the pair's side
 // from row r0+1 on, H >= 1 rows) and columns c0+1 .. c0+C of a pair of
-// width A (top = the whole top string).  halo int32[C+1] is row r0 at
-// columns c0 .. c0+C, left int32[H] column c0 at rows r0+1 .. r0+H; right
-// int32[H] and bottom int32[C] receive column c0+C and row r0+H, score the
-// cell (r0+H, c0+C).  codes uint32[ceil(H/32), 2*ceil((A+32)/32), 32]
-// (zeroed before the rank's first tile: tiles OR their bits in) or masks
-// uint8[H, A+1] hold the rank's rows; the tile with c0 = 0 also writes
-// column 0.  ring is [min(blocks*warps, bands), C+1] scratch, done
-// int32[blocks*warps] zeroed.
+// width A (top = the whole top string), on the single-pair pipeline of
+// blocks x warps warps (header, "The tiles").  halo int32[C+1] is row r0
+// at columns c0 .. c0+C, left int32[H] column c0 at rows r0+1 .. r0+H;
+// right int32[H] receives column c0+C, bottom int32[c0 % 16 + C + 1] row
+// r0+H at columns c0 - c0 % 16 .. c0+C (the tile's bottom edge from
+// bottom[c0 % 16 + 1] on), score the cell (r0+H, c0+C).  codes
+// uint32[ceil(H/32), 2*ceil((A+32)/32), 32] (zeroed before the rank's
+// first tile: a tile ORs the words it shares with its neighbours) or
+// masks uint8[H, A+1] hold the rank's rows; the tile with c0 = 0 also
+// writes column 0.  top16, bnd and flags as nw_fill_codes_single's at
+// c0 % 16 + C columns.
 extern "C" int nw_fill_tile(const int* top, const int* side, int A, int C,
                             int H, int c0, const int* halo, const int* left,
                             int m, int k, int d, int blocks, int warps,
-                            int* ring, int* done, void* codes, void* masks,
+                            void* top16, void* bnd, int* flags, void* codes, void* masks,
                             int* right, int* bottom, int* score, void* stream) {
-  if (codes && masks) return static_cast<int>(cudaErrorInvalidValue);
-  const Outs out{static_cast<unsigned char*>(masks), nullptr,
-                 static_cast<unsigned*>(codes), nullptr, 0, score, nullptr};
-  const Tile tile{left, right, bottom, c0, A};
+  if ((codes && masks) || c0 < 0 || C < 0 || c0 > A - C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int e = c0 & 15;
+  const int first = (c0 - e) >> 4;        // the tile's first code word of a band row
+  const int tw = 2 * ((A + 1 + 31 + 31) >> 5);  // code words of a band row
+  const int last = e + C;                 // the kernel's last column: the tile's right edge
+  PipeOuts out{};
+  out.last = bottom;
+  out.masks = masks ? static_cast<unsigned char*>(masks) + (c0 - e) : nullptr;
+  out.ldm = A + 1;
+  out.left = left;
+  out.right = right;
+  out.e = e;
+  out.keep = c0 > 0 ? e + 1 : 0;       // column c0 is the tile's on the left
+  out.lo_own = c0 > 0 ? e + 1 : -32;  // (left of column 0: no column)
+  out.hi_own = c0 + C < A ? last : 1 << 30;  // (past column A: no column)
+  out.tw = tw;
+  out.words = tw - first;
+  auto cw = codes ? static_cast<unsigned*>(codes) + static_cast<int64_t>(first) * 32 : nullptr;
+  auto t16 = static_cast<short*>(top16);
   auto s = static_cast<cudaStream_t>(stream);
-  const int* tp = top + c0;
+  const int* tp = top + (c0 - e);  // the kernel's column x is the pair's c0 - e + x
   if (codes)
-    return launch_single<false, false, false, true, true>(
-        tp, side, C, H, 0, halo, m, k, d, blocks, warps, ring, nullptr, done, out, s, tile);
+    return launch_single_pipe<false, kOutTileCodes>(
+        tp, side, last, H, 0, halo, m, k, d, blocks, warps, t16, bnd, flags, cw, score, nullptr,
+        s, out);
   if (masks)
-    return launch_single<false, true, false, false, true>(
-        tp, side, C, H, 0, halo, m, k, d, blocks, warps, ring, nullptr, done, out, s, tile);
-  return launch_single<false, false, false, false, true>(
-      tp, side, C, H, 0, halo, m, k, d, blocks, warps, ring, nullptr, done, out, s, tile);
+    return launch_single_pipe<false, kOutTileMasks>(
+        tp, side, last, H, 0, halo, m, k, d, blocks, warps, t16, bnd, flags, nullptr, score,
+        nullptr, s, out);
+  return launch_single_pipe<false, kOutTile>(
+      tp, side, last, H, 0, halo, m, k, d, blocks, warps, t16, bnd, flags, nullptr, score,
+      nullptr, s, out);
 }
 
 // K13 port, grouped: rows r0+1 .. r0+Bs of a pair (side = the pair's side

@@ -5,13 +5,13 @@ tensors (``blocks`` co-resident blocks of ``warps`` warps on one pair, a
 pipelined wavefront of 32-row bands) and runs its plain PyTorch version
 on CPU tensors.  :func:`score_count_fold`, :func:`score_fold`,
 :func:`last_row`, :func:`fill_arrows_fold_batch` (and
-:func:`nw_tpu_torch.ops.fill_banded.fill_arrows_banded_single`) and
-:func:`fill_codes_single` run the W-warp pipeline across the grid
-(``single_pipe_kernel``, a mode each: bands hand off through shared
-memory inside a block and through one device-memory row between blocks;
-W and G from :func:`pipe_shape`); :func:`fill_codes_blocks` runs
-``nw_refill_kernel`` and :func:`fill_tile` ``nw_single_kernel``, whose
-bands hand off through L2, both at :data:`WARPS` warps a block:
+:func:`nw_tpu_torch.ops.fill_banded.fill_arrows_banded_single`),
+:func:`fill_codes_single` and :func:`fill_tile` run the W-warp pipeline
+across the grid (``single_pipe_kernel``, a mode each: bands hand off
+through shared memory inside a block and through one device-memory row
+between blocks; W and G from :func:`pipe_shape`); :func:`fill_codes_blocks`
+runs ``nw_refill_kernel``, whose bands hand off through L2, at
+:data:`WARPS` warps a block:
 
 * :func:`score_count_fold` — score and uint32 count, nothing stored per
   cell (``nw_score_count``; K8,
@@ -63,10 +63,9 @@ from nw_tpu_torch.ops.fill_scan import (
 )
 from nw_tpu_torch.runtime import kernels
 
-# warps a block (1..32) of nw_fill_tile (nw_single_kernel) and
-# nw_refill_blocks, whose bands hand off through L2: the handoff, not
-# issue, sets the pace (4 warps beat 8 on nw_score_count's old kernel at
-# 20 kb, PERF.md section 6)
+# warps a block (1..32) of nw_refill_blocks, whose bands hand off
+# through L2: the handoff, not issue, sets the pace (4 warps beat 8 on
+# nw_score_count's kernel of that design at 20 kb, PERF.md section 6)
 WARPS = 8
 # warps an SM holds at once: the kernels' launch bounds cap a thread at 64
 # registers, so 32 warps fill an SM's 65 536 (a cooperative launch of more
@@ -128,28 +127,6 @@ def check_batch(tops, sides, lens1, lens2, *scoring):
         (lo1, lo2), (hi1, hi2) = lo.tolist(), hi.tolist()
         if min(lo1, lo2) < 0 or hi1 > tops.shape[1] or hi2 > sides.shape[1]:
             raise ValueError("lengths must lie in [0, bucket]")
-
-
-def launch_shape(len2: int, warps: int, blocks: Optional[int], device) -> Tuple[int, int]:
-    """(blocks, warps) of a ``nw_single_kernel`` launch (``nw_fill_tile``):
-    by default one block an SM, no more than the tile's 32-row bands
-    fill."""
-    if blocks is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        blocks = max(1, min(sms, -(-len2 // (32 * warps))))
-    return blocks, warps
-
-
-def single_scratch(len1: int, len2: int, blocks: int, warps: int, device):
-    """The scratch of a ``nw_single_kernel`` launch (``nw_fill_tile``):
-    the ring of boundary rows its band pipeline hands down (one per
-    warp, no more than there are bands), the zeroed per-warp chunk
-    counters, and the one-element score."""
-    rows = max(1, min(blocks * warps, -(-len2 // 32)))
-    ring = torch.empty((rows, len1 + 1), dtype=torch.int32, device=device)
-    done = torch.zeros(blocks * warps, dtype=torch.int32, device=device)
-    score = torch.empty(1, dtype=torch.int32, device=device)
-    return ring, done, score
 
 
 def pipe_shape(len1: int, len2: int, device, warps=None, blocks=None) -> Tuple[int, int]:
@@ -644,7 +621,7 @@ def fill_tile(
     top: torch.Tensor, side: torch.Tensor, m: int, k: int, d: int, c0: int, C: int,
     halo: torch.Tensor, left: torch.Tensor,
     codes: Optional[torch.Tensor] = None, masks: Optional[torch.Tensor] = None,
-    warps: int = WARPS, blocks: Optional[int] = None,
+    warps: Optional[int] = None, blocks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fill rows r0+1 .. r0+H, columns c0+1 .. c0+C of one pair:
     (right, bottom, score).
@@ -662,23 +639,30 @@ def fill_tile(
     also stores column 0 (UP); row r0 is the halo, not the tile's.
 
     K14's mesh half (scores, codes; ``nw_tpu/parallel/huge_pair.py:246``)
-    and K28 (masks; ``:70``) as the ``nw_fill_tile`` kernel on CUDA
-    tensors, :func:`fill_tile_plain` on CPU tensors.
+    and K28 (masks; ``:70``) as ``nw_fill_tile``, the single-pair
+    pipeline's tile modes (the tile as a pair of ``c0 % 16 + C`` columns
+    whose first ``c0 % 16`` are idle, so that its code words line up with
+    the rank's table), on CUDA tensors; :func:`fill_tile_plain` on CPU
+    tensors.  ``warps`` / ``blocks`` default to :func:`pipe_shape`'s rule
+    at (C, H).
     """
     _check_tile(top, side, m, k, d, c0, C, halo, left, codes, masks, warps, blocks)
     if top.device.type == "cpu":
         return fill_tile_plain(top, side, m, k, d, c0, C, halo, left, codes, masks)
     dev = top.device
     H = side.shape[0]
+    e = c0 % 16  # the kernel's idle columns before the tile's column c0
     top, side, halo, left = (t.contiguous() for t in (top, side, halo, left))
-    blocks, warps = launch_shape(H, warps, blocks, dev)
-    ring, done, score = single_scratch(C, H, blocks, warps, dev)
+    blocks, warps = pipe_shape(C, H, dev, warps, blocks)
+    top16, bnd, flags = pipe_scratch(e + C, blocks, warps, 4, dev, masks=masks is not None)
+    score = torch.empty(1, dtype=torch.int32, device=dev)
     right = torch.empty(H, dtype=torch.int32, device=dev)
-    bottom = torch.empty(max(C, 1), dtype=torch.int32, device=dev)
+    bottom = torch.empty(e + C + 1, dtype=torch.int32, device=dev)  # row r0+H from column c0 - e
     kernels.launch(
         "nw_fill_tile", dev,
         top.data_ptr(), side.data_ptr(), top.shape[0], C, H, c0, halo.data_ptr(),
-        left.data_ptr(), m, k, d, blocks, warps, ring.data_ptr(), done.data_ptr(),
+        left.data_ptr(), m, k, d, blocks, warps,
+        None if top16 is None else top16.data_ptr(), bnd.data_ptr(), flags.data_ptr(),
         None if codes is None else codes.data_ptr(),
         None if masks is None else masks.data_ptr(),
         right.data_ptr(), bottom.data_ptr(), score.data_ptr(),
@@ -689,7 +673,7 @@ def fill_tile(
         fill_tile.mask_launches += 1
     else:
         fill_tile.score_launches += 1
-    return right, bottom[:C], score[0]
+    return right, bottom[e + 1 :], score[0]
 
 
 fill_tile.launches = 0

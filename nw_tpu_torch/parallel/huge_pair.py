@@ -160,12 +160,16 @@ def tile_chunk(A: int, B: int, nseq: int) -> int:
     """The port's default chunk: the width (a multiple of 32 columns)
     whose phase loop takes the fewest band steps,
     ``nphases x (2H + C)``.  A tile of H rows x C columns runs its 32-row
-    bands as a wavefront of its own, each band two 32-column steps behind
-    the one above, so each launch pays a depth of 2H steps again: more
-    chunks overlap the ranks better and pay that depth more often.  The
-    count is what the fills measured on a card a rank follow
-    (``scripts/sharded_cards.py``): one tile of the whole width at 1 or 2
-    ranks of a square pair, 3 chunks at 4 (2 for a 20 kb pair)."""
+    bands as a wavefront of its own (``nw_fill_tile`` on the single-pair
+    pipeline: each band two 32-column chunks behind the one above), so
+    each launch pays a depth of 2H steps again: more chunks overlap the
+    ranks better and pay that depth more often.  A tile's time follows
+    its 2H + C steps (5.6-6.0 us per 100 steps for every chunk of a
+    100 kb pair at 1, 2 and 4 ranks on an H100 80GB HBM3 at 700 W,
+    ``scripts/sharded_cards.py 4 2 1``), and the count picks the fills
+    it times fastest: one tile of the whole width at 1 or 2 ranks of a
+    square pair (16.9 / 22.3 ms), 3 chunks at 4 (28.7 ms, within 2.5% of
+    2 chunks' 28.0), 2 for a 20 kb pair."""
     H = max(1, -(-B // nseq))
     best = None
     for nch in range(1, max(1, -(-A // 32)) + 1):

@@ -120,10 +120,13 @@ class RankGroup:
         self._procs: List[subprocess.Popen] = []
         self._replies: List[queue.Queue] = []
         for rank in range(world_size):
+            # cwd: "-m" puts it first on the path, so a rank imports this
+            # tree's nw_tpu_torch whatever directory its caller runs in
             proc = subprocess.Popen(
                 [sys.executable, "-m", "nw_tpu_torch.parallel.workers", str(rank),
                  str(world_size), address, backend, device, axis],
                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=dict(env, LOCAL_RANK=str(rank)),
+                cwd=str(_REPO),
             )
             replies: queue.Queue = queue.Queue()
             threading.Thread(target=self._pump, args=(proc, replies), daemon=True).start()

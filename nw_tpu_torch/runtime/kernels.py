@@ -53,7 +53,7 @@ SIGNATURES = {
     "nw_refill_blocks": [P, P, I, I, I, I, P, I, I, I, I, I, P, P, P, P, P],
     "nw_score_single": [P, P, I, I, I, I, I, I, I, P, P, P, P, I, P, P],
     "nw_walk_window": [P, I, I, I, P, I, P, I, P],
-    "nw_fill_tile": [P, P, I, I, I, I, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
+    "nw_fill_tile": [P, P, I, I, I, I, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P, P],
     "sw_scores": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],
     "sw_fill_codes": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P],
     "sw_walk": [P, P, P, I, I, I, I, P, P, P, P, P],

@@ -2,7 +2,7 @@
 public wrappers, and the walls of the paths that run them, so that two
 trees can be compared on one card in turns.
 
-    python3 scripts/single_shapes.py [--check] [--sweep] [--routes] [--kernels] [ROOT]
+    python3 scripts/single_shapes.py [--check] [--sweep] [--routes] [--kernels] [--tiles] [ROOT]
 
 ROOT (default: this checkout) is the tree whose ``nw_tpu_torch`` is
 imported and built; the inputs and the timing come from this checkout's
@@ -25,7 +25,13 @@ codes route and checkpointed (``block_diagonals`` 1 280), and
 one) with its host leaves, host rows and card rows (``nw_last_row``)
 timed apart.
 
-``--kernels`` times the kernels alone, not the walls.
+``--kernels`` times the kernels alone, not the walls.  ``--tiles`` times
+``fill_tile`` (``nw_fill_tile``) alone, in each mode at the sharded
+path's tile shapes (``TILES``: rank 0's first tile at 2 ranks of the
+100 000 bp pair, codes and scores, and at 4 ranks of its 20 000 bp
+prefix, masks, with row 0 and column 0 as its edges) and the 1-rank
+path's one tile (the whole pair, codes) beside ``fill_codes_single``
+(mean of 3 after a warm-up, CUDA events).
 ``--check`` first holds ROOT's single-pair pipeline against the plain
 versions under every scoring, on random, tie-dense and edge pairs: K8
 and K14 (and K14's seeded mode) at every forced W of ``WARPS`` and the
@@ -77,6 +83,10 @@ K9_SPLITS = ((10_240, 5_120), (20_000, 10_000), (2_560, 1_280), (640, 320), (256
 CUT_SIDES = sorted({63, 64, 65, 95, 96, 97, 191, 192, 193}
                    | {r * C + e for C in (32, 224, 1280) for r in (1, 2) for e in (-1, 0, 1)})
 CUT_SHAPES = ((None, None), (None, 1), (None, 2), (None, 3), (2, 3), (None, 32))
+# --tiles: (mode, ranks, bp, rows H, columns C) of the timed tiles, as
+# tile_chunk cut the path's first tiles when they were taken
+TILES = (("codes", 2, 100_000, 50_000, 100_000), ("scores", 2, 100_000, 50_000, 100_000),
+         ("masks", 4, 20_000, 5_000, 10_016), ("codes", 1, 100_000, 100_000, 100_000))
 # --routes: (pairs, bp) of the K11 route against the K1 route
 SCORE_ROUTES = [(nb, 10_240) for nb in (2, 4, 6, 8, 23)] + [(nb, 4_096) for nb in (1, 2, 4)] + [(2, 100_000)]
 
@@ -398,6 +408,30 @@ def times(cs, dev, walls=True) -> dict:
     return out
 
 
+def tiles(cs, dev) -> dict:
+    """--tiles (module doc): {shape: device ms}."""
+    import numpy as np
+    import torch
+
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_single as fs
+
+    big = cs.rand_pairs(np.random.default_rng(cs.L_HUGE), 1, cs.L_HUGE, cs.L_HUGE)[0]
+    top, side = (torch.from_numpy(enc.encode(x)).to(dev) for x in big)
+    out = {}
+    for mode, world, L, H, C in TILES:
+        halo = torch.arange(0, -(C + 1), -1, dtype=torch.int32, device=dev)  # row 0 at 2 1 1
+        left = torch.arange(-1, -(H + 1), -1, dtype=torch.int32, device=dev)  # column 0
+        table = cs.tile_table(mode, L, H)
+        out[f"nw_fill_tile {mode} {H}x{C} ({world} ranks, {L} bp)"] = cs.cuda_ms(
+            lambda: cs.first_tile(fs.fill_tile, top[:L], side[:H], (2, 1, 1), C, halo, left, mode, table), 3)
+        del table
+        torch.cuda.empty_cache()
+    out[f"nw_fill_codes_single {cs.L_HUGE}x{cs.L_HUGE}bp"] = cs.cuda_ms(
+        lambda: fs.fill_codes_single(top, side, 2, 1, 1), 3)
+    return out
+
+
 def sweep(cs, dev, tensors_of) -> None:
     """--sweep (module doc)."""
     import torch
@@ -444,7 +478,7 @@ def sweep(cs, dev, tensors_of) -> None:
 
 def main(argv) -> int:
     do_check, do_sweep, do_routes = "--check" in argv, "--sweep" in argv, "--routes" in argv
-    do_walls = "--kernels" not in argv
+    do_walls, do_tiles = "--kernels" not in argv, "--tiles" in argv
     args = [a for a in argv[1:] if not a.startswith("--")]
     root = Path(args[0]).resolve() if args else HERE
     sys.path.insert(0, str(root))  # root's nw_tpu_torch
@@ -470,7 +504,7 @@ def main(argv) -> int:
         if any(errs.values()):
             print("FAIL: a single-pair kernel differs from its plain version", file=sys.stderr)
             return 1
-    out = times(cs, dev, do_walls)
+    out = tiles(cs, dev) if do_tiles else times(cs, dev, do_walls)
     print(json.dumps({"root": str(root), "package": str(Path(fs.__file__).parent.parent), "ms": out}),
           flush=True)
     if do_sweep:

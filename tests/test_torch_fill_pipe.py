@@ -2,7 +2,7 @@
 its rule for W, its shared memory, and the plain path against nw_tpu's
 K1 / K2 at the side lengths where a pipeline of W warps cuts.
 
-The pipeline runs only on the card (``tests/test_torch_kernels.py``,
+The pipeline runs only on the card (``tests/test_torch_kernels_batch.py``,
 ``-m cuda``, holds it at forced W against the plain versions); on CPU
 tensors its wrappers run those plain versions.  So here the plain path
 is held against K1 and K2 in interpret mode (as tests/test_banded.py

@@ -3,7 +3,7 @@
 shared memory at their shapes, the checks of a forced W, and the plain
 path against nw_tpu's K18 / K19 and its scans where the pipeline cuts.
 
-The pipeline runs only on the card (``tests/test_torch_kernels.py``,
+The pipeline runs only on the card (``tests/test_torch_kernels_variants.py``,
 ``-m cuda``, holds both fills at every forced W against the plain
 versions); on CPU tensors the wrappers run those plain versions.  So
 here the plain path is held against K18 / K19 in interpret mode (small

@@ -8,6 +8,7 @@ fixed seeds with numpy.  Tolerance: exact (equal int32 scores, equal
 uint32 counts and statistics, byte-equal ops).
 """
 
+import inspect
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -25,6 +26,7 @@ from nw_tpu.parallel import data_parallel as jdp
 from nw_tpu.parallel import huge_pair as jhp
 from nw_tpu_torch import NWAligner
 from nw_tpu_torch.ops import encode as enc
+from nw_tpu_torch.ops import fill_banded as tfb
 from nw_tpu_torch.ops import fill_single as tfs
 from nw_tpu_torch.ops import traceback as ttb
 from nw_tpu_torch.ops.fill_scan import diag_to_matrix, fill_diag
@@ -99,12 +101,21 @@ def _assert_port(group, a, b, mkd, chunk, score, ops, engine=None):
 
 # ---------------- the tile, plain ----------------
 
+# (rows H a block, columns C a chunk) of the chained tiles, a pair each
+PLAIN_GRIDS = [(2, 9), (7, 8), (13, 13), (16, 16), (33, 64), (20, 1)]
+# the geometries the tile kernel treats apart, each over every pair: tiles
+# from c0 % 16 of 15, 1, 14, 2, ... (chunks of 15, 17, 31, 33 and 45
+# columns), row blocks one short of and one past a band (31, 33)
+CUT_GRIDS = [(31, 15), (33, 17), (31, 31), (33, 33), (31, 45), (33, 45)]
 
+
+@pytest.mark.parametrize("grid", [None] + CUT_GRIDS)
 @pytest.mark.parametrize("mkd", ORDINARY + LARGE)
-def test_plain_tiles_stitch_to_the_whole_pair(mkd):
+def test_plain_tiles_stitch_to_the_whole_pair(mkd, grid):
     """The plain tile chained over a grid of row blocks and column chunks
-    gives the whole pair's codes, tie masks, last row and corner."""
-    grids = [(2, 9), (7, 8), (13, 13), (16, 16), (33, 64), (20, 1)]
+    gives the whole pair's codes, tie masks, last row and corner (grid
+    None: PLAIN_GRIDS, a grid a pair)."""
+    grids = PLAIN_GRIDS if grid is None else [grid]
     for n, (a, b) in enumerate(_pairs(sum(mkd) % 1000, 2) + EDGE):
         if not b:
             continue
@@ -127,6 +138,41 @@ def test_plain_tiles_stitch_to_the_whole_pair(mkd):
                                                       seed=rect[r0]) if r0 else \
                         fill_codes_single_plain(top, side, *mkd, len2=r1)
                     torch.testing.assert_close(t, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "C,H,blocks,warps",
+    [
+        (100_000, 50_000, 131, 12),  # rank 0's tile at 2 ranks of the 100 kb pair
+        (100_000, 100_000, 132, 12),  # the 1-rank tile: the whole pair
+        (10_016, 5_000, 20, 8),  # K28's tile at 4 ranks of the 20 kb pair
+        (150, 700, 3, 8),
+        (45, 40, 1, 2),  # as few warps as bands
+        (0, 33, 1, 2),
+    ],
+)
+def test_tile_takes_the_pipelines_rule(monkeypatch, C, H, blocks, warps):
+    """fill_tile's launch shape defaults to the single-pair pipeline's
+    rule at (C, H) (pipe_shape: single_warps / single_blocks on the
+    H100's 132 SMs), and a forced one passes as given."""
+    params = inspect.signature(tfs.fill_tile).parameters
+    assert params["warps"].default is None and params["blocks"].default is None
+    monkeypatch.setattr(tfb, "_sms", lambda device: 132)
+    assert tfs.pipe_shape(C, H, torch.device("cpu")) == (blocks, warps)
+    assert tfs.pipe_shape(C, H, torch.device("cpu"), warps=3, blocks=2) == (2, 3)
+
+
+@pytest.mark.parametrize("warps,blocks", [(0, None), (33, None), (None, 0), (-1, 2)])
+def test_tile_refuses_a_bad_forced_shape(warps, blocks):
+    """A forced W outside [1, 32] or G below 1 raises before any launch,
+    in every mode of fill_tile."""
+    top, side = torch.from_numpy(enc.encode(b"GATTACA")), torch.from_numpy(enc.encode(b"GCAT"))
+    halo, left = thp._gaps(0, 8, 1, "cpu"), thp._gaps(1, 5, 1, "cpu")
+    for mode in ("scores", "codes", "masks"):
+        table = thp._new_table(mode, 7, 4, "cpu")
+        codes, masks = (table, None) if mode == "codes" else (None, table)
+        with pytest.raises(ValueError, match="warps" if blocks is None else "blocks|warps"):
+            tfs.fill_tile(top, side, 2, 1, 1, 0, 7, halo, left, codes, masks, warps=warps, blocks=blocks)
 
 
 @pytest.mark.parametrize("window", [16, 48])
@@ -178,6 +224,18 @@ def test_masks_engine_matches_nw_tpu_pallas(ranks, la, lb, C, mkd):
     a, b = _rand(rng, la, la + 1), _rand(rng, lb, lb + 1)
     score, ops = _nw_tpu_align(a, b, mkd, 4, engine="pallas", chunk=C, interpret=True)
     _assert_port(ranks[4], a, b, mkd, C, score, ops, engine="pallas")
+
+
+@pytest.mark.parametrize("lb,C", [(124, 15), (132, 17), (124, 33), (132, 45)])
+def test_masks_engine_at_unaligned_chunks_matches_nw_tpu_pallas(ranks, lb, C):
+    """engine="pallas" on 4 ranks of 31 and 33 rows with chunks of 15, 17,
+    33 and 45 columns (tiles from c0 % 16 of 15, 14, 1, 2, 13, ...)
+    against nw_tpu's engine="pallas" in interpret mode (its chunk 8: a
+    multiple of 4), on a 100 bp top."""
+    rng = np.random.default_rng(lb * 7 + C)
+    a, b = _rand(rng, 100, 101), _rand(rng, lb, lb + 1)
+    score, ops = _nw_tpu_align(a, b, (2, 1, 1), 4, engine="pallas", chunk=8, interpret=True)
+    _assert_port(ranks[4], a, b, (2, 1, 1), C, score, ops, engine="pallas")
 
 
 @pytest.mark.parametrize("mkd", LARGE)

@@ -3,7 +3,7 @@ K14) on the CPU: its launch rule, the top's placement, its scratch, the
 checks of a forced shape, and the plain path against nw_tpu at the side
 lengths where the pipeline cuts.
 
-The pipeline runs only on the card (``tests/test_torch_kernels.py``,
+The pipeline runs only on the card (``tests/test_torch_kernels_single.py``,
 ``-m cuda``, holds both kernels at every forced W, at blocks that wrap
 around and at the rule's shape against the plain versions); on CPU
 tensors the wrappers run those plain versions.  So here the plain path

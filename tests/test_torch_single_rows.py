@@ -5,7 +5,7 @@ once the masks' rings are counted, their scratch, the checks of a forced
 shape, and the plain paths against nw_tpu at the side lengths where the
 pipeline cuts.
 
-The kernels run only on the card (``tests/test_torch_kernels.py``, ``-m
+The kernels run only on the card (``tests/test_torch_kernels_single.py``, ``-m
 cuda``, holds them at every forced W, at blocks that wrap around and at
 the rule's shape against the plain versions); on CPU tensors the
 wrappers run those plain versions.  So here the plain paths are held
