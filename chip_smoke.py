@@ -85,8 +85,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    launch (``REFILL_GROUPS``), the scores-only crossover of ``nw_scores``
    (a block a pair) against ``score_fold``, peak device memory.
 
-9. Smith-Waterman: (a) ``sw_scores`` (at the rule's W and every W of
-   ``PIPE_WARPS``), ``sw_fill_codes`` (codes, best, argmax) and
+9. Smith-Waterman: (a) ``sw_scores`` and ``sw_fill_codes`` (codes, best,
+   argmax; both at the rule's W and every W of ``PIPE_WARPS``) and
    ``sw_walk`` bit for bit against their plain versions (40 random pairs
    of 0-60 bp and 48 of 0-700 bp, tie-dense pairs, the edge pairs, equal
    bests in two bands, under ``SW_SCORINGS``: ``SCORINGS`` and
@@ -101,14 +101,15 @@ Phases, in order; any mismatch or exception exits non-zero:
    beside its plain version's and its bound, ``sw_scores`` at W = 1
    against the rule's W in turns (1, rule, rule, 1) at 128 x 10 240 bp
    and 10 240 x 150 bp (scores equal at both W) and the sweep of W
-   (``SWEEP_WARPS``) at 128 x 10 240 bp.
+   (``SWEEP_WARPS``) at 128 x 10 240 bp, ``sw_fill_codes`` in turns the
+   same way at 128 x 3 072 bp and 4 096 x 150 bp.
 
-10. Overlap and Gotoh scores: (a) ``overlap_scores`` and ``gotoh_scores``
-   (each at the rule's W and every W of ``PIPE_WARPS``),
-   ``overlap_fill_codes`` (codes, best, end cell) with ``sw_walk`` on its
-   codes bit for bit against their plain versions (phase 9's pairs and a
-   pair whose best lies on the last column in band 0 and on the last row
-   in band 2; overlap under phase 9's scorings, Gotoh under (2,1,3,1),
+10. Overlap and Gotoh scores: (a) ``overlap_scores``, ``gotoh_scores`` and
+   ``overlap_fill_codes`` (codes, best, end cell; each at the rule's W and
+   every W of ``PIPE_WARPS``) with ``sw_walk`` on its codes bit for bit
+   against their plain versions (phase 9's pairs and a pair whose best
+   lies on the last column in band 0 and on the last row in band 2;
+   overlap under phase 9's scorings, Gotoh under (2,1,3,1),
    (1,1,1,1), (0,0,0,0), (3,-1,2,1), (2,1,1,3), (1,1,-1,-1) and
    (1,1,2^28,2^28)); then, with every launch counter set
    to 0, (b) ``overlap_align_batch`` of 128 x 3 072 bp and 4 096 x 150 bp,
@@ -123,9 +124,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``affine_score_pairs(..., 2, 1, 1, 1)`` of the 10 kb pairs equals
    ``align_batch``'s scores at (2,1,1) (open == extend, k < 2 open: the
    linear score); (c) walls (median of 4 warm runs), pairs/s, GCUPS, each
-   kernel's time beside its plain version's and its bound, and
+   kernel's time beside its plain version's and its bound,
    ``overlap_scores``' and ``gotoh_scores``' turns and sweeps of W as
-   phase 9's.
+   phase 9's, and ``overlap_fill_codes``' turns as ``sw_fill_codes``'.
 
 11. Gotoh tracebacks and the batch CLI: (a) ``gotoh_fill_codes`` (4-bit
    codes, scores, corner states; the scores also against
@@ -289,8 +290,9 @@ OPS_SCORE, OPS_COUNT, OPS_CODE, OPS_WALK_STEP = 7, 8, 6, 12
 # (or, select), up's byte where the code is up (select)
 OPS_RUN = 9
 OPS_LOCAL, OPS_ARGMAX = 2, 3  # Smith-Waterman: clamp + running best; kk select + STOP
-# overlap: the end window's two compares, the score compare and the
-# running best's select; the kk add and its select (no per-cell STOP)
+# overlap, on each cell of its end window (len1 + len2 a pair): the
+# window's two compares, the score compare and the running best's select;
+# the kk add and its select (no per-cell STOP)
 OPS_OVERLAP, OPS_OVERLAP_ARGMAX = 4, 2
 # Gotoh: the substitution's compare and select, M's add, one M - open
 # (IX's and IY's open alike), an extend subtract and a max each for IX
@@ -1403,10 +1405,11 @@ def print_ptxas_report(procs) -> None:
 
 def free_fill_vs_plain(vb_name, batch, mkd):
     """One scoring of a free-boundary fill (``sw`` or ``overlap``): its
-    scores kernel at the rule's W and at every W of ``PIPE_WARPS``, its
-    codes kernel and ``sw_walk`` on its codes against their plain
-    versions, the scores also against the codes kernel's best.  Returns
-    the three max |diff| and the codes kernel's outputs."""
+    scores kernel and its codes kernel (codes, best and its cell) at the
+    rule's W and at every W of ``PIPE_WARPS``, and ``sw_walk`` on the
+    codes against their plain versions, the scores also against the
+    codes kernel's best.  Returns the three max |diff| and the codes
+    kernel's outputs at the rule's W."""
     from nw_tpu_torch.ops import traceback as tb
     from nw_tpu_torch.ops import variants_banded as vb
 
@@ -1419,7 +1422,8 @@ def free_fill_vs_plain(vb_name, batch, mkd):
     got = codes_fn(*batch, *mkd)
     want = getattr(vb, f"{vb_name}_fill_codes_banded_batch_plain")(*batch, *mkd)
     e_s = max(e_s, max_abs_err(scores, got[1]))
-    e_c = max(max_abs_err(g, w) for g, w in zip(got, want))
+    e_c = max(max_abs_err(g, w) for W in (None, *PIPE_WARPS)
+              for g, w in zip(got if W is None else pipe_fill(f"{vb_name}_codes", batch, mkd, W), want))
     walk_k = tb.walk_sw_codes_batch(got[0], got[2], got[3])
     walk_p = tb.walk_sw_codes_batch_plain(want[0], want[2], want[3])
     e_w = max(max_abs_err(g, w) for g, w in zip(walk_k, walk_p))
@@ -1612,6 +1616,13 @@ def sw_phase(card, bound):
     del codes
     _, b4k = batch_of("align4096x150")
     ms_fill150 = cuda_ms(lambda: vb.sw_fill_codes_banded_batch(*b4k, m, k, d), 10)
+    (w3k, one3k, _), (w150c, _, _) = pipe_turns(card, [
+        (f"sw_fill_codes 128x{L_SW_TB}bp", "sw_codes", b3k, 3),
+        (f"sw_fill_codes 4096x{L_SHORT}bp", "sw_codes", b4k, 10),
+    ]).values()
+    rec["sw_fill_codes"].update(warps=w3k, one_warp_ms=statistics.median(one3k))
+    rec["sw_fill_codes"]["shape"] += (f"; {w3k} warps a pair, W = 1 {statistics.median(one3k):.3f} ms in turns; "
+                                      f"4096x{L_SHORT}bp {ms_fill150:.3f} ms at W = {w150c}")
     for name in rec:
         rec[name].update(launches=launches[name], max_abs_err=errs[name])
         log(f"{name}: {rec[name]['ms']:.3f} ms at {rec[name]['shape']}, bound {rec[name]['bound_ms']:.4f} ms "
@@ -1854,16 +1865,24 @@ def variants_phase(card, bound):
     steps = int(tb.walk_sw_codes_batch(codes, js, is_)[1].sum())
     k4_fill, k4_walk = kern4["overlap_align128x3072"]
     p_fill, p_walk = plain["overlap_align128x3072"]
+    # a score and a code a cell, the end window's argmax on its len1 + len2 cells a pair
+    window = sum(len(a) + len(b) for a, b in pairs3k) * (OPS_OVERLAP + OPS_OVERLAP_ARGMAX)
     rec["overlap_fill_codes"] = dict(
         ms=ms_fill, plain_ms=p_fill,
-        **bound(cells * (OPS_SCORE + OPS_OVERLAP + OPS_OVERLAP_ARGMAX + OPS_CODE),
-                tensor_bytes(*b3k, codes, best, js, is_)),
+        **bound(cells * (OPS_SCORE + OPS_CODE) + window, tensor_bytes(*b3k, codes, best, js, is_)),
         shape=f"128x{L_SW_TB}bp codes+best+argmax (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_fill:.3f} ms)",
     )
     walk_bound = bound(steps * OPS_WALK_STEP, tensor_bytes(js, is_) + 12 * len(pairs3k) + 5 * steps)
     del codes
     b4k = batch_of(configs["overlap_align4096x150"][1])
     ms_fill150 = cuda_ms(lambda: vb.overlap_fill_codes_banded_batch(*b4k, *mkd), 10)
+    (w3k, one3k, _), (w150c, _, _) = pipe_turns(card, [
+        (f"overlap_fill_codes 128x{L_SW_TB}bp", "overlap_codes", b3k, 3),
+        (f"overlap_fill_codes 4096x{L_SHORT}bp", "overlap_codes", b4k, 10),
+    ]).values()
+    rec["overlap_fill_codes"].update(warps=w3k, one_warp_ms=statistics.median(one3k))
+    rec["overlap_fill_codes"]["shape"] += (f"; {w3k} warps a pair, W = 1 {statistics.median(one3k):.3f} ms in "
+                                           f"turns; 4096x{L_SHORT}bp {ms_fill150:.3f} ms at W = {w150c}")
     for name in rec:
         rec[name].update(launches=launches[name], max_abs_err=errs[name])
         log(f"{name}: {rec[name]['ms']:.3f} ms at {rec[name]['shape']}, bound {rec[name]['bound_ms']:.4f} ms "
@@ -3244,7 +3263,8 @@ PIPE_MODES = ("scores", "counts", "codes", "codes+counts")
 
 def pipe_fill(mode, T, mkd, warps=None):
     """``nw_scores`` (mode "scores"), ``sw_scores`` ("sw"),
-    ``overlap_scores`` ("overlap"), ``gotoh_scores`` ("gotoh"),
+    ``overlap_scores`` ("overlap"), ``sw_fill_codes`` ("sw_codes"),
+    ``overlap_fill_codes`` ("overlap_codes"), ``gotoh_scores`` ("gotoh"),
     ``gotoh_fill_codes`` ("gotoh_codes") or ``nw_fill_codes``
     counts-only, codes or codes + counts on T = (tops, sides, lens1,
     lens2) under scoring ``mkd`` at ``warps`` warps a pair (None: the
@@ -3252,6 +3272,8 @@ def pipe_fill(mode, T, mkd, warps=None):
     from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import variants_banded as vb
 
+    if mode in ("sw_codes", "overlap_codes"):
+        return getattr(vb, f"{mode.removesuffix('_codes')}_fill_codes_banded_batch")(*T, *mkd, warps=warps)
     if mode == "gotoh":
         return (vb.affine_scores_banded_batch(*T, *mkd, warps=warps),)
     if mode == "gotoh_codes":

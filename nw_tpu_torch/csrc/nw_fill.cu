@@ -32,11 +32,11 @@
 //
 // Two designs.  The pipeline (pipe_fill) runs W warps on each pair, for
 // three recurrences: Needleman-Wunsch (nw_fill_pipe_kernel: nw_scores,
-// nw_fill_codes) and the LOCAL and OVERLAP score fills
-// (free_pipe_kernel: sw_scores, overlap_scores).  nw_fill_kernel runs one
-// warp a pair: the LOCAL and OVERLAP code fills (sw_fill_codes,
-// overlap_fill_codes) and the MASKS and RUNS modes below.  The
-// pipeline's protocol (its waits, fences and staging) lives in
+// nw_fill_codes) and the LOCAL and OVERLAP fills, scores
+// (free_pipe_kernel: sw_scores, overlap_scores) and codes with the best
+// cell (free_codes_pipe_kernel: sw_fill_codes, overlap_fill_codes).
+// nw_fill_kernel runs one warp a pair: the MASKS and RUNS modes below.
+// The pipeline's protocol (its waits, fences and staging) lives in
 // nw_common.cuh, which nw_affine.cu's Gotoh fills run too.
 //
 // The band sweep, common to both.  The side string's rows are cut into
@@ -136,6 +136,36 @@
 // where lo <= c <= hi, elsewhere.  From a best of 0 that is exactly
 // "h > best in the window" for both recurrences.
 //
+// The free code fills on the pipeline (free_codes_pipe_kernel; Smith-
+// Waterman codes, nw_tpu/models/smith_waterman.py:25-97, and end-gap-free
+// codes, nw_tpu/models/overlap.py:49-153) are the score fills with codes
+// and the best's cell.  They write every code of the bucket table, so
+// they sweep nw_fill_codes's ceil(Bs/32) bands of ceil((A+32)/32)
+// chunks, the cells past the true table on the encoder's pads.  Row 0
+// and column 0 are 0, written as the global recurrence writes its
+// boundaries, so the result holds for every scoring (K22 and K18 leave
+// column 0 free and differ at d < 0).  Column 0 gets code 3 (STOP),
+// where the walk (sw_walk, nw_walk.cu) ends; LOCAL also gets STOP on
+// every cell of score 0 (a local start); OVERLAP's interior cells take
+// the global codes in wrapping int32, never STOP.  The best cell follows
+// the scan's tie rule: the key ranks a higher score, then a smaller
+// anti-diagonal kk = i + j, then a smaller row j (ranks_above;
+// nw_tpu/ops/variants_banded.py:1230-1240).  A lane is one row and
+// sweeps its columns in order, so in a band it keeps its row's first
+// best on a strictly greater score (a compare and two selects; DPX
+// __vibmax_s32 with its predicate gave as many SASS instructions); every
+// lane at band step t lies on kk = 32 band + 1 + t, so it keeps t, not
+// kk.  A later band can hold an equal score on an earlier diagonal,
+// so at a band's end the lane merges its row's best into its own by the
+// whole key; after the sweep a butterfly merges the lanes and thread 0
+// the warps, whose bests cross through the rings, free after the
+// barrier (the shared memory stays nw_scores').  The window and the
+// chunk classes are the score fills', with one more: a chunk of no row
+// of the true table, past column len1, or (OVERLAP) above row len2
+// before column len1 reads no best.  When no cell beats 0 the cell is
+// (0, 0) for LOCAL and the zero-cost corner (0, len1), or (len2, 0) when
+// len1 is 0, for OVERLAP (overlap.py:91-97).
+//
 // Code layout, band-major as on the TPU (fill_pallas_banded.py:356-362):
 // codes is uint32[B, nbands, TW, 32] with nbands = ceil(Bs/32) and
 // TW = 2*ceil((A+32)/32).  Cell (j >= 1, i) lives in band (j-1)/32 at
@@ -152,36 +182,6 @@
 // overwrites in place with the band's last row, 31 columns behind; the
 // boundary row and the top string are loaded 32 columns at a time, one
 // coalesced load per lane, and handed to lane 0 by shuffle.
-//
-// The LOCAL mode of the one-warp kernel (Smith-Waterman codes,
-// nw_tpu/models/smith_waterman.py:25-97) is the global sweep with three
-// changes.  Row 0 and column 0 are 0,
-// written as the global recurrence writes its boundaries, so the result holds
-// for every scoring (K22 and K18 leave column 0 free and differ at
-// d < 0).  Every cell is clamped at 0 and gets code 3 (STOP) where it is
-// 0, as does column 0.  The best cell of the true rectangle is kept with
-// the scan's tie rule (first anti-diagonal kk = i + j, then lowest row):
-// a lane is one row and sweeps its columns in order, so it keeps its
-// row's first kk on a strictly greater score; at the end of a band a
-// warp reduction merges the lanes, and the band's winner merges into
-// the pair's, both by the key (higher score, smaller kk, smaller j) of
-// nw_tpu/ops/variants_banded.py:1230-1240.  A later band can hold an
-// equal score on an earlier diagonal, so the first band does not win
-// ties.  The argmax adds ~3 integer ops a step, once per band a
-// reduction.
-//
-// The OVERLAP mode of the one-warp kernel (end-gap-free codes,
-// nw_tpu/models/overlap.py:49-153) pins
-// row 0 and column 0 to 0 as LOCAL does, but does not clamp: interior
-// cells are the global recurrence in wrapping int32 and get the global
-// codes, never STOP; column 0 gets STOP, so sw_walk (nw_walk.cu) walks
-// both modes' codes.  The best is kept over the end boundary only, the
-// interior cells of the true rectangle on row len2 or column len1: the
-// lane of row len2 considers its columns 1..len1, a lane above it only
-// column len1, by the same key and reductions as LOCAL, from a best of
-// 0.  When no cell beats 0 the argmax is the zero-cost corner (j, i) =
-// (0, len1), or (len2, 0) when len1 is 0 (overlap.py:91-97).  The end
-// window is two compares a step on a lane's loop-invariant column range.
 //
 // The MASKS mode is the global sweep storing each cell's 3-bit tie mask
 // (bit0 diag, bit1 left, bit2 up; the ARROW_* bits) instead of a code,
@@ -256,7 +256,8 @@ constexpr unsigned kMaskUp = 4u;
 constexpr int kRingCols = 64;  // columns of the MASKS mode's byte ring
 constexpr int kRingBytes = 32 * kRingCols;
 
-// the recurrence a one-warp fill runs (the pipeline runs Needleman-Wunsch)
+// the free recurrences of the pipeline (kGlobal below), and the one-warp
+// kernel's modes
 constexpr int kLocal = 1;    // Smith-Waterman
 constexpr int kOverlap = 2;  // overlap: free end gaps
 constexpr int kMasks = 3;    // Needleman-Wunsch storing tie masks
@@ -270,6 +271,9 @@ __device__ __forceinline__ bool ranks_above(int sb, int sk, int sj, int tb,
   return sb > tb || (sb == tb && (sk < tk || (sk == tk && sj < tj)));
 }
 
+// The one-warp kernel runs MASKS and RUNS only; EMIT_CODES stays false
+// (the code fills run on the pipeline), kept so that its instantiations
+// keep their names.
 template <bool EMIT_CODES, bool WITH_COUNTS, int MODE>
 __global__ void __launch_bounds__(32) nw_fill_kernel(
     const int* __restrict__ tops, const int* __restrict__ sides,
@@ -277,18 +281,11 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
     int A, int Bs, int m, int k, int d,
     int* __restrict__ bnd, unsigned* __restrict__ cbnd,
     unsigned* __restrict__ codes, int* __restrict__ scores,
-    unsigned* __restrict__ counts, int* __restrict__ jstar,
-    int* __restrict__ istar) {
-  constexpr bool LOCAL = MODE == kLocal;
-  constexpr bool OVERLAP = MODE == kOverlap;
+    unsigned* __restrict__ counts) {
   constexpr bool MASKS = MODE == kMasks;
   constexpr bool RUNS = MODE == kRuns;
-  constexpr bool BYTES = MASKS || RUNS;  // a byte a cell, row-major, through the ring
-  constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
-  static_assert(!(FREE && WITH_COUNTS), "a local or overlap fill has no counts");
-  static_assert(!FREE || EMIT_CODES, "the local and overlap score fills run on the pipeline");
-  static_assert(!(BYTES && EMIT_CODES), "a masks or runs fill stores bytes, not codes");
-  // MASKS, RUNS: the warp's byte ring (dynamic shared memory, kRingBytes)
+  static_assert((MASKS || RUNS) && !EMIT_CODES, "the one-warp kernel stores masks or run bytes");
+  // the warp's byte ring (dynamic shared memory, kRingBytes)
   extern __shared__ unsigned char mring[];
   const int lane = threadIdx.x;
   const int64_t b = blockIdx.x;
@@ -301,42 +298,31 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
   unsigned* crow = WITH_COUNTS ? cbnd + b * M : nullptr;
   const int l1 = lens1[b];
   const int l2 = lens2[b];
-  // MASKS, RUNS: this pair's table, uint8[Bs+1, A+1] (codes holds the batch's)
-  unsigned char* pm = BYTES
-      ? reinterpret_cast<unsigned char*>(codes) + b * (Bs + 1) * static_cast<int64_t>(M)
-      : nullptr;
+  // this pair's table, uint8[Bs+1, A+1] (codes holds the batch's)
+  unsigned char* pm = reinterpret_cast<unsigned char*>(codes) + b * (Bs + 1) * static_cast<int64_t>(M);
 
-  // row 0: H[0][c] = -c*d, LEFT, one path; 0 in the local and overlap modes
+  // row 0: H[0][c] = -c*d, LEFT, one path
   for (int c = lane; c < M; c += 32) {
-    brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
+    brow[c] = wsub(0, wmul(c, d));
     if (WITH_COUNTS) crow[c] = 1u;
     if (MASKS) pm[c] = c >= 1 && c <= l1 ? kMaskLeft : 0u;
     if (RUNS) pm[c] = c >= 1 && c <= l1 ? min(static_cast<unsigned>(c), kRunCap) << 2 | kCodeLeft : 0u;
   }
-  if (!FREE && l2 == 0 && lane == 0) {
+  if (l2 == 0 && lane == 0) {
     scores[b] = wsub(0, wmul(l1, d));
     if (WITH_COUNTS) counts[b] = 1u;
   }
   __syncwarp();
 
-  int best = 0, best_k = 0, best_j = 0;  // local, overlap: the pair's best cell so far
   const int negk = wsub(0, k);
   for (int band = 0; band < nbands; ++band) {
     const int j = band * 32 + 1 + lane;  // this lane's row
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : -5;
-    const int col0 = FREE ? 0 : wsub(0, wmul(j, d));  // H[j][0]
-    // overlap: this lane's end-boundary columns, all of row len2, else
-    // column len1 of the rows above it (none below len2)
-    const int end_lo = j == l2 ? 1 : max(l1, 1);
-    const int end_hi = j <= l2 ? l1 : -1;
-    unsigned* wbase = EMIT_CODES
-        ? codes + ((b * nbands + band) * static_cast<int64_t>(2 * nchunks)) * 32 + lane
-        : nullptr;
+    const int col0 = wsub(0, wmul(j, d));  // H[j][0]
     int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
-    unsigned cnt = 0, cup_prev = 0, pack = 0;
+    unsigned cnt = 0, cup_prev = 0;
     unsigned v = 0, v2 = 0;  // runs: own byte of the last step and of the one before
-    int lbest = 0, lk = 0;  // local, overlap: this row's best and its first kk
 
     for (int t0 = 0; t0 < 32 * nchunks; t0 += 32) {
       // the next 32 columns of the row above and of the top string;
@@ -370,9 +356,6 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         const int cand_u = wsub(up, d);
         const int cand_l = wsub(h, d);
         int hn = max(max(cand_d, cand_u), cand_l);
-        if (LOCAL) hn = max(hn, 0);
-        unsigned code = cand_d == hn ? kCodeDiag : (cand_l == hn ? kCodeLeft : kCodeUp);
-        if (LOCAL) code = hn <= 0 ? kCodeStop : code;  // a local start
         unsigned mask = 0u;
         if (MASKS) {
           mask = (cand_d == hn ? kMaskDiag : 0u) | (cand_l == hn ? kMaskLeft : 0u) |
@@ -383,9 +366,8 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
           cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
                (cand_u == hn ? cup : 0u);
         }
-        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path (local, overlap: 0, STOP)
+        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
         hn = col_zero ? col0 : hn;
-        code = col_zero ? (FREE ? kCodeStop : kCodeUp) : code;
         cn = col_zero ? 1u : cn;
         if (MASKS) {  // 0 outside the true table; a slot of c < 0 is written again before it is stored
           mask = col_zero ? kMaskUp : mask;
@@ -404,19 +386,9 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
           mring[lane * kRingCols + (c & (kRingCols - 1))] = j <= l2 && c <= l1 ? vn : 0u;
         }
         const bool in_row = c >= 0 && c <= A;
-        if (!FREE && in_row && j == l2 && c == l1) {  // the true corner
+        if (in_row && j == l2 && c == l1) {  // the true corner
           scores[b] = hn;
           if (WITH_COUNTS) counts[b] = cn;
-        }
-        if (LOCAL) {  // the true rectangle only: padding never reaches the best
-          const bool upd = c >= 1 && c <= l1 && j <= l2 && hn > lbest;
-          lbest = upd ? hn : lbest;
-          lk = upd ? c + j : lk;
-        }
-        if (OVERLAP) {  // the end boundary of the true rectangle only
-          const bool upd = c >= end_lo && c <= end_hi && hn > lbest;
-          lbest = upd ? hn : lbest;
-          lk = upd ? c + j : lk;
         }
         // lane 31 writes its row over the boundary row, 31 columns
         // behind lane 0's reads of it: lane 31's value of column c
@@ -424,13 +396,6 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
         if (lane == 31 && in_row) {
           brow[c] = hn;
           if (WITH_COUNTS) crow[c] = cn;
-        }
-        if (EMIT_CODES) {
-          pack |= (in_row && row_ok ? code : 0u) << (2 * (s & 15));
-          if ((s & 15) == 15) {  // static: every lane stores together
-            wbase[static_cast<int64_t>((t0 + s) >> 4) * 32] = pack;
-            pack = 0;
-          }
         }
         up_prev = up;
         h = hn;
@@ -443,68 +408,33 @@ __global__ void __launch_bounds__(32) nw_fill_kernel(
           cnt = cn;
         }
       }
-      if (BYTES) {  // every lane has finished columns t0-31 .. t0: store them, row by row
-        __syncwarp();
-        const int col = t0 - 31 + lane;
-        if (col >= 0 && col <= A) {
-          const unsigned char* src = mring + (col & (kRingCols - 1));
-          unsigned char* dst = pm + static_cast<int64_t>(band * 32 + 1) * M + col;
-          const int rows = min(32, Bs - band * 32);
-          for (int r = 0; r < rows; ++r) dst[static_cast<int64_t>(r) * M] = src[r * kRingCols];
-        }
-        __syncwarp();  // read before the next chunk overwrites the slots
+      // every lane has finished columns t0-31 .. t0: store them, row by row
+      __syncwarp();
+      const int col = t0 - 31 + lane;
+      if (col >= 0 && col <= A) {
+        const unsigned char* src = mring + (col & (kRingCols - 1));
+        unsigned char* dst = pm + static_cast<int64_t>(band * 32 + 1) * M + col;
+        const int rows = min(32, Bs - band * 32);
+        for (int r = 0; r < rows; ++r) dst[static_cast<int64_t>(r) * M] = src[r * kRingCols];
       }
+      __syncwarp();  // read before the next chunk overwrites the slots
     }
     __syncwarp();  // the band's boundary row is complete before the next band reads it
-    if (FREE) {
-      // the band's best over its lanes (butterfly: every lane ends with
-      // it), then over the bands so far, by one key
-      int bj = j;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const int ob = __shfl_xor_sync(kFull, lbest, off);
-        const int ok = __shfl_xor_sync(kFull, lk, off);
-        const int oj = __shfl_xor_sync(kFull, bj, off);
-        if (ranks_above(ob, ok, oj, lbest, lk, bj)) {
-          lbest = ob;
-          lk = ok;
-          bj = oj;
-        }
-      }
-      if (ranks_above(lbest, lk, bj, best, best_k, best_j)) {
-        best = lbest;
-        best_k = lk;
-        best_j = bj;
-      }
-    }
-  }
-  if (LOCAL && lane == 0) {  // no positive cell: the argmax is (0, 0)
-    scores[b] = best;
-    jstar[b] = best > 0 ? best_j : 0;
-    istar[b] = best > 0 ? best_k - best_j : 0;
-  }
-  if (OVERLAP && lane == 0) {  // no positive cell: the zero-cost corner
-    scores[b] = best;
-    jstar[b] = best > 0 ? best_j : (l1 == 0 ? l2 : 0);
-    istar[b] = best > 0 ? best_k - best_j : l1;
   }
 }
 
-template <bool EMIT_CODES, bool WITH_COUNTS, int MODE>
+template <bool WITH_COUNTS, int MODE>
 int launch_fill(const int* tops, const int* sides, const int* lens1,
                 const int* lens2, int B, int A, int Bs, int m, int k, int d,
-                int* bnd, unsigned* cbnd, unsigned* codes, int* scores,
-                unsigned* counts, cudaStream_t stream, int* jstar = nullptr,
-                int* istar = nullptr) {
+                int* bnd, unsigned* cbnd, unsigned* bytes, int* scores,
+                unsigned* counts, cudaStream_t stream) {
   if (B <= 0) return 0;
-  constexpr int ring = MODE == kMasks || MODE == kRuns ? kRingBytes : 0;
-  nw_fill_kernel<EMIT_CODES, WITH_COUNTS, MODE><<<B, 32, ring, stream>>>(
-      tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores,
-      counts, jstar, istar);
+  nw_fill_kernel<false, WITH_COUNTS, MODE><<<B, 32, kRingBytes, stream>>>(
+      tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, bytes, scores, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------- the pipeline: W warps a pair (nw_scores, nw_fill_codes, sw_scores, overlap_scores) ----------------
+// ---------------- the pipeline: W warps a pair (nw_scores, nw_fill_codes, the free fills) ----------------
 
 constexpr int kGlobal = 0;  // the pipeline's Needleman-Wunsch recurrence (kLocal, kOverlap above)
 // the cells of a chunk whose scores the running best of LOCAL / OVERLAP reads
@@ -515,22 +445,26 @@ constexpr int kBestTested = 2;  // those in the lane's window of columns [lo, hi
 template <int V> struct Best { static constexpr int value = V; };
 
 // The pipeline's body, for the recurrence MODE (kGlobal, kLocal or
-// kOverlap; the free ones score-only).  TOP_SMEM: the top string is
+// kOverlap; the free ones without counts).  TOP_SMEM: the top string is
 // staged in shared memory; else in the pair's row of top16
 // (int16[B, pipe_top_cols(A)]) in device memory, for a top too long for
-// a block's shared memory, read through L1.
+// a block's shared memory, read through L1.  jstar, istar: the free code
+// fills' best cell.
 template <int MODE, bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
 __device__ __forceinline__ void pipe_fill(
     const int* __restrict__ tops, const int* __restrict__ sides,
     const int* __restrict__ lens1, const int* __restrict__ lens2,
     int A, int Bs, int m, int k, int d, int* bnd, unsigned* cbnd,
     unsigned* __restrict__ codes, int* __restrict__ scores,
-    unsigned* __restrict__ counts, short* top16) {
+    unsigned* __restrict__ counts, short* top16, int* __restrict__ jstar = nullptr,
+    int* __restrict__ istar = nullptr) {
   constexpr bool LOCAL = MODE == kLocal;
   constexpr bool OVERLAP = MODE == kOverlap;
   constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
-  static_assert(MODE == kGlobal || (FREE && !EMIT_CODES && !WITH_COUNTS),
-                "the pipeline's local and overlap fills keep scores only");
+  constexpr bool ARGMAX = FREE && EMIT_CODES;  // the code fills: the best's cell too
+  constexpr bool TRIM = FREE && !EMIT_CODES;   // the score fills: the true table alone
+  static_assert(MODE == kGlobal || (FREE && !WITH_COUNTS),
+                "the pipeline's local and overlap fills keep no counts");
   using C = typename Cell<WITH_COUNTS>::type;
   extern __shared__ __align__(16) int pipe_sh[];
   const int lane = threadIdx.x & 31;
@@ -538,10 +472,11 @@ __device__ __forceinline__ void pipe_fill(
   const int W = blockDim.x >> 5;
   const int64_t b = blockIdx.x;
   const int M = A + 1;
-  // 32-step chunks of one band, and the bands; a free fill's best reads
-  // no cell past the true table, so it sweeps that table alone
-  const int nchunks = ((FREE ? lens1[b] + 1 : M) + 31 + 31) >> 5;
-  const int nbands = ((FREE ? lens2[b] : Bs) + 31) >> 5;
+  // 32-step chunks of one band, and the bands; a free score fill's best
+  // reads no cell past the true table, so it sweeps that table alone (a
+  // code fill writes every code of the bucket table)
+  const int nchunks = ((TRIM ? lens1[b] + 1 : M) + 31 + 31) >> 5;
+  const int nbands = ((TRIM ? lens2[b] : Bs) + 31) >> 5;
   C* const rings = reinterpret_cast<C*>(pipe_sh);
   C* const stage = rings + W * kRing;
   volatile int* done = reinterpret_cast<int*>(stage + 32);
@@ -575,7 +510,11 @@ __device__ __forceinline__ void pipe_fill(
   const C* const in_ring = warp > 0 ? rings + (warp - 1) * kRing : stage;
   const int in_warp = warp > 0 ? warp - 1 : W - 1;
   const short* const top_lane = top_s + 31 - lane;  // column t - lane at [t]
-  int lbest = 0;  // LOCAL, OVERLAP: the best of this lane's rows so far
+  // LOCAL, OVERLAP: the best of this lane's rows so far (ARGMAX: of its
+  // row in this band, and lt the band step of that row's first such cell)
+  int lbest = 0;
+  [[maybe_unused]] int lt = 0;
+  [[maybe_unused]] int rb = 0, rk = 0, rj = 0;  // ARGMAX: the lane's best cell (score, kk, j)
   for (int band = warp, round = 0; band < nbands; band += W, ++round) {
     const int j = band * 32 + 1 + lane;  // this lane's row
     const bool row_ok = j <= Bs;
@@ -595,6 +534,11 @@ __device__ __forceinline__ void pipe_fill(
     // none below row len2
     const int lo = OVERLAP && j != l2 ? max(l1, 1) : 1;
     const int hi = j <= l2 ? l1 : 0;
+    // ARGMAX: every row of the band lies in the true table (rows_in), none
+    // does (rows_out), every row lies above row len2 (rows_above)
+    [[maybe_unused]] const bool rows_in = band * 32 + 32 <= l2;
+    [[maybe_unused]] const bool rows_out = band * 32 >= l2;
+    [[maybe_unused]] const bool rows_above = band * 32 + 32 < l2;
     unsigned* wbase = EMIT_CODES
         ? codes + ((b * nbands + band) * static_cast<int64_t>(2 * nchunks)) * 32 + lane
         : nullptr;
@@ -628,8 +572,8 @@ __device__ __forceinline__ void pipe_fill(
       const short* const tq = top_lane + t0;
 
       // one chunk of 32 steps; FAST: every lane's column lies in 1..A
-      // (free fills: 1..len1) and the corner is not in it, so column 0,
-      // the columns past A and the corner need no test; BEST: the cells
+      // (free score fills: 1..len1) and the corner is not in it, so column
+      // 0, the columns past A and the corner need no test; BEST: the cells
       // the free fills' best reads
       auto sweep = [&](auto fast, auto best) {
         constexpr bool FAST = decltype(fast)::value;
@@ -663,6 +607,7 @@ __device__ __forceinline__ void pipe_fill(
                                            : max(max(cand_d, cand_u), cand_l);
           }
           unsigned code = cand_d == hn ? kCodeDiag : (cand_l == hn ? kCodeLeft : kCodeUp);
+          if constexpr (LOCAL && ARGMAX) code = hn == 0 ? kCodeStop : code;  // a local start
           unsigned cn = 0;
           if constexpr (WITH_COUNTS) {
             cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
@@ -671,9 +616,9 @@ __device__ __forceinline__ void pipe_fill(
           bool in_row = true;
           if constexpr (!FAST) {
             const int c = t0 + s - lane;
-            const bool col_zero = c == 0;  // column 0: -j*d, UP, one path (free: 0)
+            const bool col_zero = c == 0;  // column 0: -j*d, UP, one path (free: 0, STOP)
             hn = col_zero ? col0 : hn;
-            code = col_zero ? kCodeUp : code;
+            code = col_zero ? (FREE ? kCodeStop : kCodeUp) : code;
             cn = col_zero ? 1u : cn;
             in_row = c >= 0 && c <= A;
             if (!FREE && in_row && j == l2 && c == l1) {  // the true corner
@@ -681,8 +626,17 @@ __device__ __forceinline__ void pipe_fill(
               if (WITH_COUNTS) counts[b] = cn;
             }
           }
-          if constexpr (BEST == kBestAll) lbest = max(lbest, hn);
-          if constexpr (BEST == kBestTested) {  // from a best of 0: "hn > lbest" in the window
+          if constexpr (ARGMAX && BEST != kBestNone) {  // a tie keeps the row's first step
+            bool gain = hn > lbest;
+            if constexpr (BEST == kBestTested) {
+              const int c = t0 + s - lane;
+              gain = gain && c >= lo && c <= hi;
+            }
+            lbest = gain ? hn : lbest;
+            lt = gain ? t0 + s : lt;
+          } else if constexpr (BEST == kBestAll) {
+            lbest = max(lbest, hn);
+          } else if constexpr (BEST == kBestTested) {  // from a best of 0: "hn > lbest" in the window
             const int c = t0 + s - lane;
             lbest = c >= lo && c <= hi ? max(lbest, hn) : lbest;
           }
@@ -711,8 +665,23 @@ __device__ __forceinline__ void pipe_fill(
           }
         }
       };
-      const bool inner = q > 0 && t0 + 31 <= (FREE ? l1 : A);  // no column 0, none past the row
-      if constexpr (LOCAL) {
+      const bool inner = q > 0 && t0 + 31 <= (TRIM ? l1 : A);  // no column 0, none past the row
+      if constexpr (ARGMAX) {
+        // the window's cells in this chunk: none (no row in the true
+        // table, the columns past len1, or OVERLAP's rows above len2 before
+        // column len1), all (LOCAL: a chunk inside the true rectangle) or
+        // some; only a chunk that crosses the window tests its cells
+        const bool none = rows_out || t0 - 31 > l1 || (OVERLAP && rows_above && t0 + 31 < l1);
+        if (!inner) {
+          sweep(Flag<false>{}, Best<kBestTested>{});
+        } else if (none) {
+          sweep(Flag<true>{}, Best<kBestNone>{});
+        } else if (LOCAL && rows_in && t0 + 31 <= l1) {
+          sweep(Flag<true>{}, Best<kBestAll>{});
+        } else {
+          sweep(Flag<true>{}, Best<kBestTested>{});
+        }
+      } else if constexpr (LOCAL) {
         // a band above the last lies whole in the true rectangle: an
         // inner chunk reads the best untested
         if (!inner) {
@@ -754,8 +723,54 @@ __device__ __forceinline__ void pipe_fill(
       }
       pipe_post(done, warp, lane, g);
     }
+    if constexpr (ARGMAX) {  // this row's best cell into the lane's, by the key
+      const int kk = band * 32 + 1 + lt;
+      if (ranks_above(lbest, kk, j, rb, rk, rj)) {
+        rb = lbest;
+        rk = kk;
+        rj = j;
+      }
+      lbest = 0;
+    }
   }
-  if constexpr (FREE) {
+  if constexpr (ARGMAX) {
+    // the pair's best cell: the warp's over its lanes (butterfly), then
+    // the block's over the warps through the rings, which no warp reads
+    // after the barrier
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int ob = __shfl_xor_sync(kFull, rb, off);
+      const int ok = __shfl_xor_sync(kFull, rk, off);
+      const int oj = __shfl_xor_sync(kFull, rj, off);
+      if (ranks_above(ob, ok, oj, rb, rk, rj)) {
+        rb = ob;
+        rk = ok;
+        rj = oj;
+      }
+    }
+    int* const cells = reinterpret_cast<int*>(rings);
+    __syncthreads();
+    if (lane == 0) {
+      cells[3 * warp] = rb;
+      cells[3 * warp + 1] = rk;
+      cells[3 * warp + 2] = rj;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < W; ++w) {
+        if (ranks_above(cells[3 * w], cells[3 * w + 1], cells[3 * w + 2], rb, rk, rj)) {
+          rb = cells[3 * w];
+          rk = cells[3 * w + 1];
+          rj = cells[3 * w + 2];
+        }
+      }
+      // no positive cell: LOCAL (0, 0); OVERLAP the zero-cost corner
+      // (0, len1), or (len2, 0) when len1 is 0
+      scores[b] = rb;
+      jstar[b] = rb > 0 ? rj : (OVERLAP && l1 == 0 ? l2 : 0);
+      istar[b] = rb > 0 ? rk - rj : (OVERLAP ? l1 : 0);
+    }
+  } else if constexpr (FREE) {
     // the pair's best: the warp's over its lanes, then the block's over
     // the warps, through done[], which no warp reads after the barrier
 #pragma unroll
@@ -797,22 +812,39 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) free_pipe_kernel(
       tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores, counts, top16);
 }
 
+// The LOCAL and OVERLAP code fills on the pipeline (sw_fill_codes,
+// overlap_fill_codes): the codes of the whole bucket table, the best and
+// its cell; a kernel of their own, as the score fills'.
+template <int MODE, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) free_codes_pipe_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2,
+    int A, int Bs, int m, int k, int d, int* bnd, unsigned* __restrict__ codes,
+    int* __restrict__ best, int* __restrict__ jstar, int* __restrict__ istar,
+    short* top16) {
+  pipe_fill<MODE, true, false, TOP_SMEM>(tops, sides, lens1, lens2, A, Bs, m, k, d, bnd,
+                                         nullptr, codes, best, nullptr, top16, jstar, istar);
+}
+
 template <int MODE, bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
 auto pipe_kernel() {
   if constexpr (MODE == kGlobal) {
     return nw_fill_pipe_kernel<EMIT_CODES, WITH_COUNTS, TOP_SMEM>;
+  } else if constexpr (EMIT_CODES) {
+    return free_codes_pipe_kernel<MODE, TOP_SMEM>;
   } else {
     return free_pipe_kernel<MODE, TOP_SMEM>;
   }
 }
 
 // top16 null: the top in shared memory; else int16[B, pipe_top_cols(A)].
+// jstar, istar: the free code fills' best cell.
 template <int MODE, bool EMIT_CODES, bool WITH_COUNTS>
 int launch_pipe(const int* tops, const int* sides, const int* lens1,
                 const int* lens2, int B, int A, int Bs, int m, int k, int d,
                 int warps, short* top16, int* bnd, unsigned* cbnd,
                 unsigned* codes, int* scores, unsigned* counts,
-                cudaStream_t stream) {
+                cudaStream_t stream, int* jstar = nullptr, int* istar = nullptr) {
   if (B <= 0) return 0;
   if (warps < 1 || warps > kMaxWarps || A < 0 || Bs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -824,8 +856,13 @@ int launch_pipe(const int* tops, const int* sides, const int* lens1,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k,
-                                          d, bnd, cbnd, codes, scores, counts, top16);
+  if constexpr (MODE != kGlobal && EMIT_CODES) {
+    kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k, d,
+                                            bnd, codes, scores, jstar, istar, top16);
+  } else {
+    kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k,
+                                            d, bnd, cbnd, codes, scores, counts, top16);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -886,16 +923,18 @@ extern "C" int sw_scores(const int* tops, const int* sides, const int* lens1,
 
 // K24 / K18 words port: local 2-bit codes (0 diag, 1 left, 2 up,
 // 3 STOP) in nw_fill_codes's layout, best local scores and their cells
-// (j*, i*), int32[B] each.  bnd is int32[B, A+1] scratch.
+// (j*, i*), int32[B] each, W = warps a pair.  bnd is int32[B, A+1]
+// scratch, top16 as nw_scores's.
 extern "C" int sw_fill_codes(const int* tops, const int* sides,
                              const int* lens1, const int* lens2, int B, int A,
-                             int Bs, int m, int k, int d, int* bnd,
-                             void* codes, int* best, int* jstar, int* istar,
-                             void* stream) {
-  return launch_fill<true, false, kLocal>(
-      tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd, nullptr,
-      static_cast<unsigned*>(codes), best, nullptr,
-      static_cast<cudaStream_t>(stream), jstar, istar);
+                             int Bs, int m, int k, int d, int warps, void* top16,
+                             int* bnd, void* codes, int* best, int* jstar,
+                             int* istar, void* stream) {
+  return launch_pipe<kLocal, true, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                          d, warps, static_cast<short*>(top16), bnd,
+                                          nullptr, static_cast<unsigned*>(codes), best,
+                                          nullptr, static_cast<cudaStream_t>(stream),
+                                          jstar, istar);
 }
 
 // K16 / K19 port: int32 best overlap scores (>= 0), W = warps a pair.
@@ -912,16 +951,18 @@ extern "C" int overlap_scores(const int* tops, const int* sides,
 
 // K19 words + argmax port: overlap 2-bit codes (0 diag, 1 left, 2 up,
 // 3 STOP on column 0) in nw_fill_codes's layout, best overlap scores and
-// their end cells (j*, i*), int32[B] each.  bnd is int32[B, A+1] scratch.
+// their end cells (j*, i*), int32[B] each, W = warps a pair.  bnd is
+// int32[B, A+1] scratch, top16 as nw_scores's.
 extern "C" int overlap_fill_codes(const int* tops, const int* sides,
                                   const int* lens1, const int* lens2, int B,
-                                  int A, int Bs, int m, int k, int d, int* bnd,
-                                  void* codes, int* best, int* jstar,
-                                  int* istar, void* stream) {
-  return launch_fill<true, false, kOverlap>(
-      tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd, nullptr,
-      static_cast<unsigned*>(codes), best, nullptr,
-      static_cast<cudaStream_t>(stream), jstar, istar);
+                                  int A, int Bs, int m, int k, int d, int warps,
+                                  void* top16, int* bnd, void* codes, int* best,
+                                  int* jstar, int* istar, void* stream) {
+  return launch_pipe<kOverlap, true, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                            d, warps, static_cast<short*>(top16), bnd,
+                                            nullptr, static_cast<unsigned*>(codes), best,
+                                            nullptr, static_cast<cudaStream_t>(stream),
+                                            jstar, istar);
 }
 
 // K2 pack_bits=8 port for a batch: tie masks uint8[B, Bs+1, A+1]
@@ -937,10 +978,10 @@ extern "C" int nw_fill_masks_batch(const int* tops, const int* sides,
   auto s = static_cast<cudaStream_t>(stream);
   auto mk = static_cast<unsigned*>(masks);  // the kernel reads it as bytes
   if (with_counts)
-    return launch_fill<false, true, kMasks>(
+    return launch_fill<true, kMasks>(
         tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd,
         static_cast<unsigned*>(cbnd), mk, scores, static_cast<unsigned*>(counts), s);
-  return launch_fill<false, false, kMasks>(tops, sides, lens1, lens2, B, A, Bs,
+  return launch_fill<false, kMasks>(tops, sides, lens1, lens2, B, A, Bs,
                                            m, k, d, bnd, nullptr, mk, scores,
                                            nullptr, s);
 }
@@ -959,10 +1000,10 @@ extern "C" int nw_fill_runs_batch(const int* tops, const int* sides,
   auto s = static_cast<cudaStream_t>(stream);
   auto rb = static_cast<unsigned*>(runs);  // the kernel reads it as bytes
   if (with_counts)
-    return launch_fill<false, true, kRuns>(
+    return launch_fill<true, kRuns>(
         tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd,
         static_cast<unsigned*>(cbnd), rb, scores, static_cast<unsigned*>(counts), s);
-  return launch_fill<false, false, kRuns>(tops, sides, lens1, lens2, B, A, Bs,
+  return launch_fill<false, kRuns>(tops, sides, lens1, lens2, B, A, Bs,
                                           m, k, d, bnd, nullptr, rb, scores,
                                           nullptr, s);
 }

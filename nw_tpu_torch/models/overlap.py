@@ -21,8 +21,9 @@ that cell back to row 0 or column 0.
 * :func:`overlap_align_batch` — one overlap alignment a pair: sub-batches
   whose 2-bit codes fit
   :data:`nw_tpu_torch.models.needleman_wunsch.CODE_BUDGET_BYTES`, each one
-  ``overlap_fill_codes`` (K19's words + argmax mode, one warp a pair:
-  codes with STOP on column 0, best, end cell), one ``sw_walk`` (the walk of the local
+  ``overlap_fill_codes`` (K19's words + argmax mode, W warps a pair on
+  the same pipeline: codes with STOP on column 0, best, end cell), one
+  ``sw_walk`` (the walk of the local
   codes, which stops at row 0, column 0 or STOP alike: for
   ``_overlap_walk_diag`` and ``_overlap_walk_device``) and the host
   strings;

@@ -17,14 +17,15 @@ walk (diag > left > up) from that cell back to the first cell of score 0.
 * :func:`sw_align_batch` — one local alignment a pair: sub-batches whose
   2-bit codes fit :data:`nw_tpu_torch.models.needleman_wunsch.CODE_BUDGET_BYTES`,
   each one ``sw_fill_codes`` (K24 and K18's words mode: codes, best,
-  argmax), one ``sw_walk`` and the host strings;
+  argmax; W warps a pair on the same pipeline, a kernel of its own), one
+  ``sw_walk`` and the host strings;
 * :func:`sw_align` — :func:`sw_align_batch` of one pair.
 
 ``device="cuda"`` (the default) launches the kernels and raises without a
 card; ``device="cpu"`` runs their plain versions.  There is no
 single-pair route, as ``nw_tpu`` has no single-pair SW engine either: a
-small batch of very long pairs takes up to 32 warps a pair for its scores,
-and one warp a pair for its codes (``sw_fill_codes``).
+small batch of very long pairs takes up to 32 warps a pair for its scores
+and for its codes (``sw_fill_codes``).
 
 Every output follows ``nw_tpu``'s scan (``sw_fill_diag``) at every
 scoring.  At d < 0 or k < 0 ``nw_tpu``'s K22, K18 and K24, and so its

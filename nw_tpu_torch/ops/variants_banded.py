@@ -40,12 +40,14 @@ plain PyTorch version in this module:
   (``nw_tpu/ops/variants_pallas.py:429 _affine_arrows_kernel``, 8-bit
   codes, sides <= 1 024).
 
-The two score fills run the ``LOCAL`` and ``OVERLAP`` recurrences of the
+The four free fills run the ``LOCAL`` and ``OVERLAP`` recurrences of the
 W-warp pipeline of ``csrc/nw_fill.cu`` (``nw_scores``'s: a block of W
-warps a pair, W from :func:`nw_tpu_torch.ops.fill_banded.fill_warps`,
-launched through :func:`nw_tpu_torch.ops.fill_banded._fill_scores_kernel`).
-The two code fills are the same modes of its one-warp kernel.  The last
-two wrappers run the Gotoh fill of ``csrc/nw_affine.cu`` on the same
+warps a pair, W from :func:`nw_tpu_torch.ops.fill_banded.fill_warps`):
+the score fills launched through
+:func:`nw_tpu_torch.ops.fill_banded._fill_scores_kernel`, the code fills
+(a kernel of their own, ``free_codes_pipe_kernel``, with the best's
+cell) through :func:`_launch_codes`, W forced by ``warps`` there.  The
+last two wrappers run the Gotoh fill of ``csrc/nw_affine.cu`` on the same
 pipeline, with a ring cell of their own (:data:`GOTOH_CELL`), W from
 :func:`gotoh_warps` or forced by ``warps``.  A wrapper given CPU tensors
 runs the plain version; given CUDA tensors it launches the kernel or
@@ -86,20 +88,25 @@ from nw_tpu_torch.ops.fill_scan import (
 from nw_tpu_torch.runtime import kernels
 
 
-def _launch_codes(wrapper, name, tops, sides, lens1, lens2, m, k, d):
-    """Launch C entry point ``name`` for ``wrapper`` (whose count it
-    raises): codes, best and its cell (j*, i*)."""
+def _launch_codes(wrapper, name, tops, sides, lens1, lens2, m, k, d, warps=None):
+    """Launch C entry point ``name`` (``sw_fill_codes`` or
+    ``overlap_fill_codes``) for ``wrapper`` (whose count it raises) at
+    ``warps`` warps a pair (default: :func:`fill_warps`): codes, best and
+    its cell (j*, i*)."""
     B, A, Bs = _dims(tops, sides)
     dev = tops.device
     codes = torch.empty(code_shape(B, A, Bs), dtype=torch.int32, device=dev)
     best, j_star, i_star = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     if B:
+        warps = _pipe_warps(B, A, Bs, 4, dev, warps)
         tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        top16 = _top_scratch(B, A, 4, dev)
         bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
         kernels.launch(
             name, dev,
             tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(),
-            lens2.data_ptr(), B, A, Bs, m, k, d, bnd.data_ptr(),
+            lens2.data_ptr(), B, A, Bs, m, k, d, warps,
+            None if top16 is None else top16.data_ptr(), bnd.data_ptr(),
             codes.data_ptr(), best.data_ptr(), j_star.data_ptr(), i_star.data_ptr(),
         )
         wrapper.launches += 1
@@ -134,15 +141,17 @@ def sw_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
 
 
 def sw_fill_codes_banded_batch(
-    tops, sides, lens1, lens2, m, k, d
+    tops, sides, lens1, lens2, m, k, d, warps=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(codes int32[B, nbands, TW, 32], best int32[B], j* int32[B],
     i* int32[B]): the local code of every cell of the bucket table, the
-    best local score and its cell."""
+    best local score and its cell.  ``warps``: the kernel's warps a pair
+    (default :func:`fill_warps`; a CUDA launch only)."""
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return sw_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
-    return _launch_codes(sw_fill_codes_banded_batch, "sw_fill_codes", tops, sides, lens1, lens2, m, k, d)
+    return _launch_codes(sw_fill_codes_banded_batch, "sw_fill_codes", tops, sides, lens1, lens2, m, k, d,
+                         warps)
 
 
 sw_fill_codes_banded_batch.launches = 0
@@ -176,16 +185,17 @@ def overlap_scores_banded_batch_plain(tops, sides, lens1, lens2, m, k, d):
 
 
 def overlap_fill_codes_banded_batch(
-    tops, sides, lens1, lens2, m, k, d
+    tops, sides, lens1, lens2, m, k, d, warps=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(codes int32[B, nbands, TW, 32], best int32[B], j* int32[B],
     i* int32[B]): the overlap code of every cell of the bucket table
-    (STOP on column 0), the best overlap score and its end cell."""
+    (STOP on column 0), the best overlap score and its end cell.
+    ``warps`` as :func:`sw_fill_codes_banded_batch`'s."""
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return overlap_fill_codes_banded_batch_plain(tops, sides, lens1, lens2, m, k, d)
     return _launch_codes(
-        overlap_fill_codes_banded_batch, "overlap_fill_codes", tops, sides, lens1, lens2, m, k, d
+        overlap_fill_codes_banded_batch, "overlap_fill_codes", tops, sides, lens1, lens2, m, k, d, warps
     )
 
 

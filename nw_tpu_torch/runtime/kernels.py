@@ -55,10 +55,10 @@ SIGNATURES = {
     "nw_walk_window": [P, I, I, I, P, I, P, I, P],
     "nw_fill_tile": [P, P, I, I, I, I, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P, P],
     "sw_scores": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],
-    "sw_fill_codes": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P],
+    "sw_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
     "sw_walk": [P, P, P, I, I, I, I, P, P, P, P, P],
     "overlap_scores": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],
-    "overlap_fill_codes": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P],
+    "overlap_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
     "gotoh_scores": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P],
     "gotoh_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "gotoh_walk": [P, P, P, P, I, I, I, I, P, P, P],

@@ -2,8 +2,9 @@
 ``chip_smoke.py``'s shapes, so that two trees can be compared on one card
 in turns: the Smith-Waterman, overlap and Gotoh score fills
 (``sw_scores``, ``overlap_scores``, ``gotoh_scores``) at phase 10's
-128 x 10 240 bp and 10 240 x 150 bp, and the Gotoh code fill
-(``gotoh_fill_codes``) at phase 11's 128 x 3 072 bp and 4 096 x 150 bp.
+128 x 10 240 bp and 10 240 x 150 bp, and the code fills
+(``sw_fill_codes``, ``overlap_fill_codes``, ``gotoh_fill_codes``) at
+phase 11's 128 x 3 072 bp and 4 096 x 150 bp.
 
     python3 scripts/variant_shapes.py [--check] [ROOT]
 
@@ -12,16 +13,17 @@ imported and built; the inputs (random ACGT pairs from phases 10 and
 11's seeds) and the timing come from this checkout's ``chip_smoke.py``.
 ``--check`` first holds ROOT's fills at the rule's W against their plain
 versions on phase 9's check pairs: SW and overlap under every scoring of
-``SW_SCORINGS``, Gotoh (scores, codes and corner states) under every
-scoring of ``GOTOH_ALIGN_SCORINGS``.  To compare a change with its parent, unpack
+``SW_SCORINGS`` (the code fills, with the best's cell and ``sw_walk`` on
+their codes, at every W of ``PIPE_WARPS`` too), Gotoh (scores, codes and
+corner states) under every scoring of ``GOTOH_ALIGN_SCORINGS``.  To compare a change with its parent, unpack
 the parent into a git-ignored directory (``git archive HEAD | tar -x -C
 build/parent``) and run, in one call on the card: parent, change,
 change, parent.  Prints the card's name and power limit, then one JSON
 line: {shape: ms} of the kernels (mean device time by CUDA events after a
 warm-up), {shape: s} of the model entry points ``sw_score_batch`` /
-``overlap_score_batch`` / ``affine_score_pairs`` / ``affine_align_batch``
-on the same pairs, host to host (median of 3 warm runs, chip_smoke.py
-phases 9-11's walls).
+``overlap_score_batch`` / ``affine_score_pairs`` / ``sw_align_batch`` /
+``overlap_align_batch`` / ``affine_align_batch`` on the same pairs, host
+to host (median of 3 warm runs, chip_smoke.py phases 9-11's walls).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ def main(argv) -> int:
     from nw_tpu_torch.models import overlap as ov
     from nw_tpu_torch.models import smith_waterman as sw
     from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
     from nw_tpu_torch.ops import variants_banded as vb
 
     if not torch.cuda.is_available():
@@ -80,6 +83,16 @@ def main(argv) -> int:
         errs = {kind: max(cs.max_abs_err(getattr(vb, f"{kind}_scores_banded_batch")(*T, *mkd),
                                          getattr(vb, f"{kind}_scores_banded_batch_plain")(*T, *mkd))
                           for mkd in cs.SW_SCORINGS) for kind in kinds}
+        for kind in kinds:
+            e = 0
+            for mkd in cs.SW_SCORINGS:
+                want = getattr(vb, f"{kind}_fill_codes_banded_batch_plain")(*T, *mkd)
+                walk = tb.walk_sw_codes_batch_plain(want[0], want[2], want[3])
+                for W in (None, *cs.PIPE_WARPS):
+                    got = cs.pipe_fill(f"{kind}_codes", T, mkd, W)
+                    got_walk = tb.walk_sw_codes_batch(got[0], got[2], got[3])
+                    e = max(e, *(cs.max_abs_err(g, w) for g, w in zip((*got, *got_walk), (*want, *walk))))
+            errs[f"{kind}_codes"] = e
         errs["gotoh"] = max(
             max(cs.max_abs_err(vb.affine_scores_banded_batch(*T, *sc), vb.affine_scores_banded_batch_plain(*T, *sc)),
                 *(cs.max_abs_err(g, w) for g, w in zip(vb.affine_fill_codes_banded_batch(*T, *sc),
@@ -108,12 +121,17 @@ def main(argv) -> int:
                 out[f"{kind}_scores {label}"] = cs.cuda_ms(lambda: fn(*T, 2, 1, 1), reps)
             out[f"gotoh_scores {label}"] = cs.cuda_ms(lambda: vb.affine_scores_banded_batch(*T, *GOTOH), reps)
         else:
+            for kind in kinds:
+                fn = getattr(vb, f"{kind}_fill_codes_banded_batch")
+                out[f"{kind}_fill_codes {label}"] = cs.cuda_ms(lambda: fn(*T, 2, 1, 1), reps)
             out[f"gotoh_fill_codes {label}"] = cs.cuda_ms(lambda: vb.affine_fill_codes_banded_batch(*T, *GOTOH), reps)
         del T
         models = ((("sw_score_batch", sw.sw_score_batch, (2, 1, 1)),
                    ("overlap_score_batch", ov.overlap_score_batch, (2, 1, 1)),
                    ("affine_score_pairs", af.affine_score_pairs, GOTOH)) if scores
-                  else (("affine_align_batch", af.affine_align_batch, GOTOH),))
+                  else (("sw_align_batch", sw.sw_align_batch, (2, 1, 1)),
+                        ("overlap_align_batch", ov.overlap_align_batch, (2, 1, 1)),
+                        ("affine_align_batch", af.affine_align_batch, GOTOH)))
         for name, model, sc in models:
             walls[f"{name} {label}"] = wall(model, pairs, sc)
     print(json.dumps({"root": str(root), "package": str(Path(vb.__file__).parent.parent),

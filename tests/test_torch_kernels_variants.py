@@ -7,6 +7,8 @@ the card: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_varia
 Every output is an integer: comparisons are exact (tolerance 0).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -78,19 +80,24 @@ def test_overlap_scores_kernel_vs_plain(cuda, mkd):
 
 # the best on the last column in band 0 and on the last row in band 2
 OVERLAP_TWO_BANDS = (b"C" * 20 + b"G" * 40 + b"A" * 20, b"A" * 20 + b"T" * 30 + b"C" * 20)
-# sw_scores / overlap_scores on the pipeline at forced warps a pair
+# the free fills on the pipeline at forced warps a pair
 FREE_WARPS = [1, 2, 3, 4, 8, 16, 32]
 MOTIF = b"ACGTTGCAACGT"
+MOTIF2 = b"TTAGCCATGGAC"  # far from MOTIF: their cross alignments score well below 24
 
 
 def _placed_pairs():
     """Pairs whose best (SW and overlap) ends in band W, on warp 0 again
     after a round of W warps (W = 2, 3, 4, 8, 16, 32), or in band 1, on
     warp 1: the side's last 12 rows match the top's first 12 columns over
-    G / C filler, so the best (24 at 2 1 1) lies on the last row; and
-    equal bests in bands 0 and 1."""
+    G / C filler, so the best (24 at 2 1 1) lies on the last row; equal
+    bests in bands 0 and 1; and for each W equal bests in bands 0 and W
+    on one lane of warp 0 (MOTIF2 at the top's end on row 20, diagonal
+    100, and MOTIF at its start on row 20 + 32 W, diagonal 32 + 32 W)."""
     out = [(MOTIF + b"C" * 30, b"G" * (32 * W + 20 - len(MOTIF)) + MOTIF) for W in (1, 2, 3, 4, 8, 16, 32)]
     out.append((b"C" * 9 + MOTIF + b"C" * 20, b"G" * 8 + MOTIF + b"G" * 30 + MOTIF + b"G" * 9))
+    out += [(MOTIF + b"C" * 56 + MOTIF2, b"G" * 8 + MOTIF2 + b"G" * (32 * W - len(MOTIF)) + MOTIF)
+            for W in FREE_WARPS]
     return out + [OVERLAP_TWO_BANDS]
 
 
@@ -108,14 +115,12 @@ def _free_batches(seed, device):
 @pytest.mark.parametrize("mkd", SW_SCORINGS)
 def test_free_scores_at_forced_warps_vs_plain(cuda, mkd, kind):
     """sw_scores / overlap_scores on the pipeline at W = 1, 2, 3, 4, 8,
-    16, 32 and at the rule's W, bit for bit against the plain version and
-    equal to the codes kernel's best (one warp a pair)."""
+    16, 32 and at the rule's W, bit for bit against the plain version
+    (the code fills, on the same pipeline, are held apart below)."""
     wrapper = getattr(variants_banded, f"{kind}_scores_banded_batch")
     plain = getattr(variants_banded, f"{kind}_scores_banded_batch_plain")
-    codes = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")
     for cpu, dev in _free_batches(sum(mkd) % 89 + 21, cuda):
         want = plain(*cpu, *mkd)
-        torch.testing.assert_close(codes(*dev, *mkd)[1].cpu(), want, rtol=0, atol=0)
         torch.testing.assert_close(wrapper(*dev, *mkd).cpu(), want, rtol=0, atol=0)
         for warps in FREE_WARPS:
             got = fill_banded._fill_scores_kernel(wrapper, *dev, *mkd, warps=warps, entry=f"{kind}_scores")
@@ -123,33 +128,137 @@ def test_free_scores_at_forced_warps_vs_plain(cuda, mkd, kind):
 
 
 @pytest.mark.parametrize("kind", ["sw", "overlap"])
-def test_free_scores_with_the_top_in_device_memory(cuda, kind):
-    """sw_scores / overlap_scores with a top past a block's shared memory
-    (117 000 columns; ~115 000 fit), staged in device memory: W = 1, 3, 32
-    and the rule's W against the codes kernel's best (one warp a pair,
-    the top read from device memory), under 2 1 1 and a wrapping scoring.
-    The first pair's side holds 200 columns of its top from column
-    116 000 (the local best past the columns that fit), the second's ends
-    with its top's last 300 (the overlap best on the last row)."""
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_free_codes_at_forced_warps_vs_plain(cuda, mkd, kind):
+    """sw_fill_codes / overlap_fill_codes on the pipeline at W = 1, 2, 3,
+    4, 8, 16, 32 and at the rule's W: codes, best, j*, i* and sw_walk's
+    walk on the codes bit for bit against the plain versions, on
+    _free_batches' two buckets (5 and 35 bands; bests on warp 1, in the
+    last band, back on warp 0 after a round, and equal in bands 0 and W
+    on one lane)."""
+    wrapper = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")
+    plain = getattr(variants_banded, f"{kind}_fill_codes_banded_batch_plain")
+    for cpu, dev in _free_batches(sum(mkd) % 83 + 25, cuda):
+        want = plain(*cpu, *mkd)
+        w_walk = traceback.walk_sw_codes_batch_plain(want[0], want[2], want[3])
+        for warps in (*FREE_WARPS, None):
+            got = wrapper(*dev, *mkd, warps=warps)
+            g_walk = traceback.walk_sw_codes_batch(got[0], got[2], got[3])
+            names = ("codes", "best", "j*", "i*", "ops", "n", "i_end", "j_end")
+            for name, g, w in zip(names, (*got, *g_walk), (*want, *w_walk)):
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0,
+                                           msg=lambda m: f"{name} at W = {warps or 'rule'}: {m}")
+
+
+def _far_pairs():
+    """Three pairs in a bucket of 117 000 columns, past a block's shared
+    memory (~115 000 fit), 50 bands: the first pair's side holds 200
+    columns of its top from column 116 000 (the local best past the
+    columns that fit), the second's ends with its top's last 300 (the
+    overlap best on the last row)."""
     rng = np.random.default_rng(37)
-    A, Bs = 117_000, 1_600  # 50 bands
+    A, Bs = 117_000, 1_600
     letters = np.frombuffer(b"ACGT", np.uint8)
     tops = [letters[rng.integers(0, 4, a)].tobytes() for a in (A, A - 7, A - 30_000)]
     sides = [letters[rng.integers(0, 4, s)].tobytes() for s in (Bs, Bs - 340, 33)]
     sides[0] = sides[0][:700] + tops[0][116_000:116_200] + sides[0][900:]
     sides[1] += tops[1][-300:]
-    dev = enc.upload(enc.encode_batch(list(zip(tops, sides)), A, Bs), cuda)
     assert not fill_banded.top_in_smem(A, 4)
+    return list(zip(tops, sides)), A, Bs
+
+
+def _best_cell_host(kind, top, side, m, k, d):
+    """(best, j*, i*) of one pair by a row sweep on the host, a reference
+    apart from the pipeline: int64 rows (the scorings here do not wrap
+    int32), row 0 and column 0 at 0, the left chain of a row as a running
+    max, LOCAL clamped at 0; the best cell over the window (LOCAL: the
+    rectangle; OVERLAP: row len2 and column len1) by the scan's tie rule
+    (higher score, then the smaller i + j, then the smaller j), from a
+    best of 0 (else (0, 0), or the zero-cost corner for overlap)."""
+    t = np.frombuffer(top, np.uint8)
+    l1, l2 = len(top), len(side)
+    cols = np.arange(l1 + 1, dtype=np.int64)
+    h = np.zeros(l1 + 1, np.int64)
+    best = (0, 0, 0)  # score, i + j, j
+    for j in range(1, l2 + 1):
+        e = np.zeros(l1 + 1, np.int64)
+        e[1:] = np.maximum(h[:-1] + np.where(t == side[j - 1], m, -k), h[1:] - d)
+        if kind == "sw":
+            e = np.maximum(e, 0)
+        h = np.maximum.accumulate(e + cols * d) - cols * d
+        if kind == "sw" or j == l2:
+            i = int(np.argmax(h[1:])) + 1 if l1 else 0
+        else:
+            i = l1
+        if i and (h[i] > best[0] or (h[i] == best[0] and i + j < best[1])):
+            best = (int(h[i]), i + j, j)
+    if best[0] > 0:
+        return best[0], best[2], best[1] - best[2]
+    return (0, 0, 0) if kind == "sw" else (0, l2 if l1 == 0 else 0, l1)
+
+
+@functools.lru_cache(maxsize=None)
+def _far_want(kind, mkd):
+    """_best_cell_host of each of _far_pairs under mkd."""
+    return [_best_cell_host(kind, a, s, *mkd) for a, s in _far_pairs()[0]]
+
+
+def _rescore(aligned, m, k, d):
+    """The score of each aligned (X, Y) pair of byte strings."""
+    out = []
+    for X, Y in aligned:
+        x, y = np.frombuffer(X, np.uint8), np.frombuffer(Y, np.uint8)
+        gap = (x == ord("-")) | (y == ord("-"))
+        out.append(int(np.where(gap, -d, np.where(x == y, m, -k)).sum()))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["sw", "overlap"])
+def test_free_scores_with_the_top_in_device_memory(cuda, kind):
+    """sw_scores / overlap_scores with a top past a block's shared memory
+    (_far_pairs), staged in device memory: W = 1, 3, 32 and the rule's W
+    against the host's row sweep (_best_cell_host), under 2 1 1 and a
+    wrapping scoring."""
+    pairs, A, Bs = _far_pairs()
+    dev = enc.upload(enc.encode_batch(pairs, A, Bs), cuda)
     wrapper = getattr(variants_banded, f"{kind}_scores_banded_batch")
-    codes = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")
     for mkd in [(2, 1, 1), (1, 1, 2**30)]:
-        want = codes(*dev, *mkd)[1].cpu().tolist()
+        want = [w[0] for w in _far_want(kind, mkd)]
         if mkd == (2, 1, 1):  # the planted best
             assert want[0 if kind == "sw" else 1] >= 400
         assert wrapper(*dev, *mkd).cpu().tolist() == want, mkd
         for warps in (1, 3, 32):
             got = fill_banded._fill_scores_kernel(wrapper, *dev, *mkd, warps=warps, entry=f"{kind}_scores")
             assert got.cpu().tolist() == want, (mkd, warps)
+
+
+@pytest.mark.parametrize("kind", ["sw", "overlap"])
+def test_free_codes_with_the_top_in_device_memory(cuda, kind):
+    """sw_fill_codes / overlap_fill_codes with the top in device memory
+    (_far_pairs) at W = 1, 3, 32 and the rule's W, under 2 1 1 and a
+    wrapping scoring: the best and its cell equal the host's row sweep,
+    the codes are the same at every W, and sw_walk's alignment on them
+    spells the pair's substrings and re-scores to the best."""
+    pairs, A, Bs = _far_pairs()
+    dev = enc.upload(enc.encode_batch(pairs, A, Bs), cuda)
+    wrapper = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")
+    for mkd in [(2, 1, 1), (1, 1, 2**30)]:
+        want = _far_want(kind, mkd)
+        first = None
+        for warps in (1, 3, 32, None):
+            codes, best, js, is_ = wrapper(*dev, *mkd, warps=warps)
+            got = list(zip(best.tolist(), js.tolist(), is_.tolist()))
+            assert got == want, (mkd, warps)
+            if first is None:
+                first = codes
+                ops, n, i_end, j_end = (t.cpu().numpy() for t in traceback.walk_sw_codes_batch(codes, js, is_))
+                trunc = [(a[:i], s[:j]) for (a, s), (_, j, i) in zip(pairs, want)]
+                aligned = traceback.ops_to_strings_batch(ops, n, trunc)
+                for (a, s), (X, Y), ie, je, (_, j, i) in zip(pairs, aligned, i_end, j_end, want):
+                    assert X.replace(b"-", b"") == a[ie:i] and Y.replace(b"-", b"") == s[je:j]
+                assert _rescore(aligned, *mkd) == [w[0] for w in want], mkd
+            else:
+                assert torch.equal(codes, first), (mkd, warps)
 
 
 @pytest.mark.parametrize("mkd", SW_SCORINGS)
