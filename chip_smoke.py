@@ -8,14 +8,20 @@ flat-fill API.
 Phases, in order; any mismatch or exception exits non-zero:
 
 1. the card (nvidia-smi name and power limit), torch / CUDA / Triton;
-2. build the CUDA kernels from nw_tpu_torch/csrc (seconds printed);
+2. build the CUDA kernels from nw_tpu_torch/csrc (seconds printed); the
+   cycles of one dependent shared-memory load (the ``nw_smem_chase``
+   probe, for the walks' span floor);
 3. every kernel bit for bit against its plain PyTorch version on the card:
    64 random pairs of 0-700 bp, tie-dense two-letter pairs and the edge
    pairs, under the scorings (2,1,1), (1,1,1), (0,0,0), (3,-1,2) and,
    where the int32 arithmetic wraps, (1,1,2^30), (1,2^30,1) and
    (2^31-1,-2^31,2^30) (``SCORINGS``; phases 6, 8, 9 and 10 use them too);
    ``nw_scores`` and ``nw_fill_codes`` (counts, codes, codes + counts) at
-   every W of ``PIPE_WARPS`` warps a pair and at the rule's W;
+   every W of ``PIPE_WARPS`` warps a pair and at the rule's W; ``nw_walk``
+   also at the walk edge shapes (``walk_edge_pairs``: LEFT runs of 700 x
+   3, UP runs of 3 x 700, corners on band and word-column edges, the edge
+   pairs; the first alone, B = 1; 5 000 pairs of 0-60 bp; cut after 1,
+   77 and 300 ops);
 4. the main path, ``NWAligner(...).align_batch``, with every launch
    counter set to 0 first: config 3 (256 random 10240 bp pairs, strings
    and counts; each alignment re-scored on the host, 4 pairs against the
@@ -59,7 +65,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``nw_walk_window`` bit for bit against their plain versions (24 random
    pairs of 0-700 bp, tie-dense pairs, the edge pairs, every scoring, 1
    to 8 warps and several blocks), the codes also against
-   ``nw_fill_codes`` at B = 1; ``nw_refill_blocks`` over every block of a
+   ``nw_fill_codes`` at B = 1; ``nw_walk_window`` chained over blocks of
+   32, 64 and 96 rows of the walk edge shapes and from starts outside a
+   block; ``nw_refill_blocks`` over every block of a
    4 096 bp pair (C = 128) at its default launch and at 2 blocks of 3
    warps against its plain version under every scoring; then, with every
    launch counter set to 0, (b) ``align_huge`` on both routes at 10 240 bp
@@ -249,7 +257,12 @@ argmax; 10 for a Gotoh score, 12 more for its 4-bit code
 (``OPS_GOTOH_CODE``); 9 more than a code for a run byte (``OPS_RUN``);
 12 a walk step, or a run walk's load) over the card's SMs x 64 INT32
 lanes x ``clocks.max.sm``, and its bytes (inputs read once, outputs
-written once) over 3.35 TB/s.  The last lines before the record give
+written once) over 3.35 TB/s.  A walk's record also has
+``span_floor_ms``, the latency floor of a walk that takes one dependent
+load a step (the walks' design, not the function's bound, which stays
+``bound_ms``): its longest walk (the window walks: their sum; the run
+walk: its loads) times one dependent shared-memory load's cycles over
+``clocks.max.sm``; the code walks' records add their ns a step.  The last lines before the record give
 the script's total seconds.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -434,6 +447,13 @@ class Bound:
 
     def __init__(self, sms: int, clock_hz: float):
         self.ops_per_s = sms * INT32_LANES_PER_SM * clock_hz
+        self.clock_hz = clock_hz
+        self.smem_cycles = None  # one dependent shared-memory load, set in phase 2
+
+    def span(self, steps: int) -> float:
+        """A walk's span floor in ms: ``steps`` dependent shared-memory
+        loads in series at the highest SM clock."""
+        return steps * self.smem_cycles / self.clock_hz * 1e3
 
     def __call__(self, ops: float, nbytes: float) -> dict:
         t_ops, t_bytes = ops / self.ops_per_s, nbytes / HBM_BYTES_PER_S
@@ -826,6 +846,102 @@ def walk_chain(walk, chain, len1, len2):
     return state, ops
 
 
+def smem_load_cycles(steps: int = 1 << 16) -> float:
+    """Cycles of one dependent shared-memory load on the card: the
+    ``nw_smem_chase`` probe's chase of ``steps`` loads, timed with
+    ``clock64()``, the least of 3 runs."""
+    from nw_tpu_torch.runtime import kernels
+
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    best = None
+    for _ in range(3):
+        kernels.launch("nw_smem_chase", out.device, steps, out.data_ptr())
+        torch.cuda.synchronize()
+        best = min(best or float("inf"), int(out[0]) / steps)
+    return best
+
+
+def walk_edge_pairs():
+    """The shapes the code walks' staging must get right: LEFT runs longer
+    than several segments (700 x 3), UP runs across 22 bands (3 x 700),
+    corners on band edges (len2 = 32q - 1, 32q, 32q + 1) and on word-column
+    edges (len1 = 16q - 31 +- 1), the edge pairs."""
+    rng = np.random.default_rng(18)
+
+    def one(n):
+        return rand_pairs(rng, 1, n, n)[0][0]
+
+    return (
+        [(one(700), one(3)), (one(3), one(700)), (b"A" * 700, b"A" * 3), (b"C" * 3, b"C" * 700)]
+        + [(one(100), one(32 * q + e)) for q in (1, 2, 5) for e in (-1, 0, 1)]
+        + [(one(16 * q - 31 + e), one(70)) for q in (3, 4, 9) for e in (-1, 0, 1)]
+        + EDGE
+    )
+
+
+def walk_edges_vs_plain(dev, errs):
+    """Phase 3: ``nw_walk`` against its plain version under every scoring:
+    the walk edge shapes, the first of them alone (B = 1), a batch of 5 000
+    short pairs (more warps than 132 SMs hold at once), and the edge shapes
+    cut after 1, 77 and 300 ops."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+
+    pairs = walk_edge_pairs()
+    L1, L2 = max(len(a) for a, _ in pairs), max(len(b) for _, b in pairs)
+    T = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    Ts = enc.upload(enc.encode_batch(rand_pairs(np.random.default_rng(5000), 5000, 0, 60), 60, 60), dev)
+    e = 0
+    for mkd in SCORINGS:
+        for TT, S in ((T, L1 + L2), (tuple(x[:1] for x in T), L1 + L2), (Ts, 120), (T, 1), (T, 77), (T, 300)):
+            codes = fb.fill_greedy_counts_banded_batch(*TT, *mkd)[0]
+            want = tb.walk_codes_batch_plain(codes, *TT[2:], S)
+            e = max(e, *(max_abs_err(g, w) for g, w in zip(tb.walk_codes_batch(codes, *TT[2:], S), want)))
+    errs["nw_walk"] = max(errs["nw_walk"], e)
+    log(f"nw_walk vs plain at the walk edge shapes ({len(pairs)} pairs, B = 1, 5 000 x 0-60 bp, cuts "
+        f"after 1, 77, 300 ops) x {len(SCORINGS)} scorings: max |diff| {e}")
+
+
+def window_edges_vs_plain(dev, errs):
+    """Phase 8 (a): ``nw_walk_window`` chained over blocks of 32, 64 and 96
+    rows (the last, from row 0, included) of each walk edge shape, against
+    its plain version under every scoring; and starts outside a block's
+    rows or columns, which leave the state as it was."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import traceback as tb
+
+    e = 0
+    for mkd in SCORINGS:
+        for s1, s2 in walk_edge_pairs():
+            top, side = (torch.from_numpy(enc.encode(x)).to(dev) for x in (s1, s2))
+            for C in (32, 64, 96):
+                _, ck = fs.score_fold(top, side, *mkd, checkpoint_every=C)
+                chain = []
+                for b in range(ck.shape[0] - 1, -1, -1):
+                    r0, r1 = b * C, min(len(s2), (b + 1) * C)
+                    codes, _ = fs.fill_codes_single(top, side, *mkd, len2=r1, r0=r0, seed=ck[b] if r0 else None)
+                    chain.append((r0, codes))
+                if not chain:  # no row to walk (len2 = 0): nw_walk's checks hold it
+                    continue
+                want = walk_chain(tb.walk_codes_window_plain, chain, len(s1), len(s2))
+                got = walk_chain(tb.walk_codes_window, chain, len(s1), len(s2))
+                e = max(e, *(max_abs_err(g, w) for g, w in zip(got, want)))
+                r0, codes = chain[0]
+                ops = torch.full((8,), 3, dtype=torch.int8, device=dev)
+                for start in ([len(s1), r0 + 32 * codes.shape[1] + 1, 0], [16 * codes.shape[2] - 31, r0 + 1, 0],
+                              [0, r0 - 1, 0]):
+                    state = torch.tensor(start, dtype=torch.int32, device=dev)
+                    tb.walk_codes_window(codes, state, r0, ops)
+                    e = max(e, max_abs_err(state, torch.tensor(start)), max_abs_err(ops, torch.full((8,), 3)))
+    errs["nw_walk_window"] = max(errs.get("nw_walk_window", 0), e)
+    log(f"nw_walk_window vs plain, chained over blocks of 32, 64, 96 rows of the walk edge shapes, "
+        f"starts outside the block, {len(SCORINGS)} scorings: max |diff| {e}")
+    if e:
+        fail(f"nw_walk_window differs from its plain version at the walk edge shapes: {e}")
+
+
 def modes_vs_plain_10k(pair, C, errs, plain):
     """Phase 8: K14, K12, K11, K13 and the window walk against their
     plain versions on a 10 240 bp pair at ``align_huge``'s block size C
@@ -1063,6 +1179,7 @@ def huge_phase(card, bound):
     errs = {}
     plain = {}
     huge_modes_vs_plain(dev, errs)
+    window_edges_vs_plain(dev, errs)
     grouped_refill_vs_plain(dev, errs, plain)
 
     wrappers = {"fill_codes_single": fs.fill_codes_single, "fill_codes_blocks": fs.fill_codes_blocks,
@@ -1300,11 +1417,15 @@ def huge_phase(card, bound):
     rec["nw_walk_window"] = dict(
         ms=ms_ww, **bound(steps * OPS_WALK_STEP, steps * 5),
         shape=f"1x{L_HUGE}bp, {steps} steps in {len(blocks)} chained windows",
+        span_floor_ms=bound.span(steps), ns_per_step=ms_ww * 1e6 / steps, smem_load_cycles=bound.smem_cycles,
     )
     log(f"align_huge {L_HUGE} bp kernels: codes fill {ms14:.3f} ms, nw_walk {ms_walk:.3f} ms "
         f"({steps} steps); checkpointed: dump {ms12:.3f} ms, {len(blocks)} refills {ms13:.3f} ms "
         f"(G = {G_big}; one block a launch {ms13_old:.3f} ms), {len(blocks)} window walks {ms_ww:.3f} ms "
         f"[{card}]")
+    log(f"{L_HUGE} bp walks, {steps} steps: nw_walk {ms_walk * 1e6 / steps:.1f} ns a step, "
+        f"{len(blocks)} windows {ms_ww * 1e6 / steps:.1f} ns a step; span floor {bound.span(steps):.4f} ms "
+        f"({bound.smem_cycles:.2f} cycles a load) [{card}]")
     del ck
     torch.cuda.empty_cache()
 
@@ -1599,7 +1720,8 @@ def sw_phase(card, bound):
     ms_fill = cuda_ms(lambda: vb.sw_fill_codes_banded_batch(*b3k, m, k, d), 3)
     codes, best, js, is_ = vb.sw_fill_codes_banded_batch(*b3k, m, k, d)
     ms_walk = cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js, is_), 5)
-    steps = int(tb.walk_sw_codes_batch(codes, js, is_)[1].sum())
+    n_walk = tb.walk_sw_codes_batch(codes, js, is_)[1]
+    steps = int(n_walk.sum())
     k4_fill, k4_walk = kern4["align128x3072"]
     p_fill, p_walk = plain["align128x3072"]
     rec["sw_fill_codes"] = dict(
@@ -1612,6 +1734,7 @@ def sw_phase(card, bound):
         ms=ms_walk, plain_ms=p_walk,
         **bound(steps * OPS_WALK_STEP, tensor_bytes(js, is_) + 12 * len(pairs) + 5 * steps),
         shape=f"128x{L_SW_TB}bp, {steps} steps (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_walk:.3f} ms)",
+        span_floor_ms=bound.span(int(n_walk.max())),
     )
     del codes
     _, b4k = batch_of("align4096x150")
@@ -1862,7 +1985,8 @@ def variants_phase(card, bound):
     ms_fill = cuda_ms(lambda: vb.overlap_fill_codes_banded_batch(*b3k, *mkd), 3)
     codes, best, js, is_ = vb.overlap_fill_codes_banded_batch(*b3k, *mkd)
     ms_walk = cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js, is_), 5)
-    steps = int(tb.walk_sw_codes_batch(codes, js, is_)[1].sum())
+    n_walk = tb.walk_sw_codes_batch(codes, js, is_)[1]
+    steps, span = int(n_walk.sum()), bound.span(int(n_walk.max()))
     k4_fill, k4_walk = kern4["overlap_align128x3072"]
     p_fill, p_walk = plain["overlap_align128x3072"]
     # a score and a code a cell, the end window's argmax on its len1 + len2 cells a pair
@@ -1888,12 +2012,12 @@ def variants_phase(card, bound):
         log(f"{name}: {rec[name]['ms']:.3f} ms at {rec[name]['shape']}, bound {rec[name]['bound_ms']:.4f} ms "
             f"({rec[name]['bound_by']}), plain {rec[name]['plain_ms']:.1f} ms [{card}]")
     log(f"sw_walk on overlap codes 128x{L_SW_TB}bp: {ms_walk:.3f} ms, {steps} steps, bound "
-        f"{walk_bound['bound_ms']:.4f} ms ({walk_bound['bound_by']}), plain {p_walk:.1f} ms at 4 pairs "
-        f"(kernel there {k4_walk:.3f} ms) [{card}]")
+        f"{walk_bound['bound_ms']:.4f} ms ({walk_bound['bound_by']}), span floor {span:.4f} ms, plain "
+        f"{p_walk:.1f} ms at 4 pairs (kernel there {k4_walk:.3f} ms) [{card}]")
     log(f"overlap_fill_codes 4096x{L_SHORT}bp: {ms_fill150:.3f} ms [{card}]")
     log(f"phase 10 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"phase seconds {time.perf_counter() - t_phase:.1f} [{card}]")
-    walk = dict(launches=launches["sw_walk"], max_abs_err=errs["sw_walk"], ms=ms_walk)
+    walk = dict(launches=launches["sw_walk"], max_abs_err=errs["sw_walk"], ms=ms_walk, span_floor_ms=span)
     return rec, walk
 
 
@@ -2111,6 +2235,7 @@ def gotoh_phase(card, bound, c3_strings):
         ms=ms_walk, plain_ms=p_walk,
         **bound(steps * OPS_WALK_STEP, tensor_bytes(l1, l2, states, n) + 5 * steps),
         shape=f"128x{L_SW_TB}bp, {steps} steps (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_walk:.3f} ms)",
+        span_floor_ms=bound.span(int(n.max())),
     )
     ns_step = ms_walk * 1e6 / (steps / len(pairs3k))
     log(f"gotoh_walk 128x{L_SW_TB}bp: {steps} steps, {ns_step:.1f} ns a step of one walk; codes "
@@ -2390,7 +2515,7 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
     errs["nw_walk_window/masks"] = max(errs["nw_walk_window/masks"], max_abs_err(k_ops, p_ops),
                                        max_abs_err(k_state, p_state))
     rec["nw_walk_window/masks"] = dict(
-        ms=ms_walk, **bound(steps * OPS_WALK_STEP, steps * 2),
+        ms=ms_walk, **bound(steps * OPS_WALK_STEP, steps * 2), span_floor_ms=bound.span(steps),
         plain_ms=plain_walk, launches=launches["nw_walk_window/masks"],
         max_abs_err=errs["nw_walk_window/masks"],
         shape=f"{L_PALLAS}bp, {steps} steps relayed over 4 blocks of {H} rows of tie masks "
@@ -2846,7 +2971,7 @@ def masks_phase(card, bound):
         rec["nw_walk_masks"] = dict(
             ms=walk_ms, plain_ms=o["plain_walk_ms"],
             **bound(steps * OPS_WALK_STEP, tensor_bytes(*T[2:], o["n"]) + 2 * steps),
-            shape=f"128x{L_ARROWS}bp, {steps} steps")
+            span_floor_ms=bound.span(int(o["n"].max())), shape=f"128x{L_ARROWS}bp, {steps} steps")
         for nb, L in ((10240, L_SHORT), (4, L_LONG)):
             ob = out[nb, L]
             log(f"phase 13 kernels at {nb}x{L}bp: nw_fill_masks_batch "
@@ -3128,7 +3253,7 @@ def flat_path(card, bound, c2):
         ms=cuda_ms(lambda: tb.walk_codes_batch(codes5, *T5[2:], 2 * L5), 10), plain_ms=k5_walk_plain_ms,
         launches=k5_launches[1], max_abs_err=e5,
         **bound(steps5 * OPS_WALK_STEP, tensor_bytes(*T5[2:], n5) + 5 * steps5),
-        shape=f"{len(p5)}x{L_SHORT}bp, {steps5} steps (K5's shape)")
+        span_floor_ms=bound.span(int(n5.max())), shape=f"{len(p5)}x{L_SHORT}bp, {steps5} steps (K5's shape)")
     for name, fields in rec.items():
         log(f"kernel {name}: {fields['ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms ({fields['bound_by']}), "
             f"plain {fields['plain_ms']:.1f} ms, {fields['launches']} launches, {fields['shape']} [{card}]")
@@ -3233,6 +3358,7 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
         "nw_walk_runs": dict(
             ms=sum(walk_ms), plain_ms=plain_walk_ms,
             **bound(n_loads * OPS_WALK_STEP, tensor_bytes(*T3[2:]) + 4 * nb + n_loads + steps),
+            span_floor_ms=bound.span(int(loads.max())),
             shape=f"{nb}x{LB}bp in {len(parts)} launches ({' + '.join(f'{x:.3f}' for x in walk_ms)} ms), "
                   f"{n_loads} loads for {steps} steps ({n_loads / nb:.1f} a pair, max {int(loads.max())}, "
                   f"against nw_walk's {steps / nb:.1f} steps a pair; nw_walk {walk_codes_ms:.3f} ms at {nb}x{LB}bp; "
@@ -3456,6 +3582,9 @@ def main() -> None:
     kernels.load()
     log(f"kernel build+load: {time.perf_counter() - t0:.1f} s ({kernels.library_path().name})")
     print_ptxas_report(ptxas)
+    bound.smem_cycles = smem_load_cycles()
+    log(f"one dependent shared-memory load: {bound.smem_cycles:.2f} cycles (nw_smem_chase, clock64); "
+        f"a walk's span floor is its steps x that / {clock_mhz:.0f} MHz [{card}]")
 
     # 3. each kernel bit for bit against its plain version
     cfg = AlignConfig()
@@ -3474,6 +3603,7 @@ def main() -> None:
         )
         torch.cuda.synchronize()
         log(f"kernel vs plain, {len(small)} pairs {L1}x{L2} bucket, m k d = {mkd}: {errs}")
+    walk_edges_vs_plain(dev, errs)
     if any(errs.values()):
         fail(f"kernel differs from its plain version: {errs}")
 
@@ -3617,7 +3747,10 @@ def main() -> None:
     }
     log(f"nw_scores 10240x150bp: kernel {k_scores_ms:.3f} ms, plain {plain_scores_ms:.1f} ms [{card}]")
     log(f"nw_fill_codes codes+counts 4x10240bp: kernel {k_fill_ms:.3f} ms, plain {plain_fill_ms:.1f} ms [{card}]")
-    log(f"nw_walk 4x10240bp: kernel {k_walk_ms:.3f} ms, plain {plain_walk_ms:.1f} ms [{card}]")
+    walk_steps = int(k_n.max())
+    log(f"nw_walk 4x10240bp: kernel {k_walk_ms:.3f} ms, plain {plain_walk_ms:.1f} ms; longest walk "
+        f"{walk_steps} steps, {k_walk_ms * 1e6 / walk_steps:.1f} ns a step, span floor "
+        f"{bound.span(walk_steps):.4f} ms [{card}]")
     del p_codes, k_codes
     torch.cuda.empty_cache()
 
@@ -3645,6 +3778,7 @@ def main() -> None:
     pipe_sweep(card, [shape[:3] for shape in shapes[:2]])  # config 3's fill, 128 x 10 240 bp scores
     codes3, _, _ = fb.fill_greedy_counts_banded_batch(tops3, sides3, l13, l23, m, k, d)
     full["nw_walk 256x10240bp"] = cuda_ms(lambda: tb.walk_codes_batch(codes3, l13, l23, 2 * LB), 3)
+    steps3 = int(tb.walk_codes_batch(codes3, l13, l23, 2 * LB)[1].max())
     cells3 = 256 * L_LONG * L_LONG
     full_bounds = {  # bytes: inputs, plus codes (2 bits a cell), scores and counts out
         "nw_scores 128x10240bp": bound(cells3 // 2 * OPS_SCORE, tensor_bytes(*T3) // 2 + 4 * 128),
@@ -3658,6 +3792,8 @@ def main() -> None:
         b = full_bounds[name]
         log(f"kernel {name}: {ms:.3f} ms" + (f", bound {b['bound_ms']:.3f} ms ({b['bound_by']})" if b else "")
             + f" [{card}]")
+    log(f"nw_walk 256x10240bp: longest walk {steps3} steps, {full['nw_walk 256x10240bp'] * 1e6 / steps3:.1f} "
+        f"ns a step, span floor {bound.span(steps3):.4f} ms [{card}]")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     c3_strings = (r3.ops, r3.ops_len, c3)  # phase 11 times the host strings on them
     del codes3, tops3, sides3
@@ -3708,7 +3844,11 @@ def main() -> None:
             "replaces": "nw_tpu/ops/banded_traceback.py:115",
             "launches": launches["nw_walk"], "max_abs_err": errs["nw_walk"],
             "ms": k_walk_ms, "plain_ms": plain_walk_ms, **bounds["nw_walk"],
-            "shape": f"4x{L_LONG}bp walk",
+            "shape": f"4x{L_LONG}bp walk, longest {walk_steps} steps; config 3 "
+                     f"{full['nw_walk 256x10240bp']:.3f} ms, longest {steps3} steps, span floor "
+                     f"{bound.span(steps3):.4f} ms",
+            "span_floor_ms": bound.span(walk_steps), "ns_per_step": k_walk_ms * 1e6 / walk_steps,
+            "smem_load_cycles": bound.smem_cycles,
         },
         {
             "name": "nw_fill_masks", "route": "cuda", "source": single_src,

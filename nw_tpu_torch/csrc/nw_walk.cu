@@ -10,20 +10,60 @@
 // and its on-device stitch (device_stitch_pack) have no counterpart:
 // each pair's ops come out in order in one pass.
 //
-// Design.  One thread per pair.  It starts at the true corner
-// (len2, len1), reads the 2-bit code of its cell from the band-major
-// layout of nw_fill.cu (0 diag, 1 left, 2 up; the code IS the op),
-// writes it, and steps to the predecessor until it reaches the origin;
-// on row 0, which is not stored, it steps LEFT.  ops[b] must arrive
-// filled with OP_NONE (3); the thread writes its n real ops in walk
-// order (corner -> origin).
+// Contract.  A walk starts at the true corner (len2, len1), reads the
+// 2-bit code of its cell from the band-major layout of nw_fill.cu (word
+// (band, t >> 4, jj) of code row 32 * band + jj, column i, t = i + jj;
+// 0 diag, 1 left, 2 up: the code IS the op), writes it, and steps to the
+// predecessor until it reaches the origin; on row 0, which is not
+// stored, it steps LEFT.  ops[b] must arrive filled with OP_NONE (3); the
+// walk writes its n real ops in walk order (corner -> origin).
 //
-// What bounds it on the H100: the chain of dependent loads — each step's
-// address depends on the previous step's code, and a diagonal step moves
-// to another row, i.e. another cache line, so one walk of 20 000 steps
-// is ~20 000 serial L2/HBM round trips.  Pairs walk in parallel; nothing
-// in the design hides the per-step latency (prefetching the words around
-// the path is left for later).
+// What holds it back on the H100: the chain of dependent loads.  Each
+// step's address depends on the previous step's code, so a walk of N
+// steps is N loads in series whatever the card's bandwidth: its bytes (the
+// codes it reads, 2 bits a step; the bound) would take under a
+// microsecond.  A design that takes one dependent load a step has a
+// latency floor, the span: the longest walk's steps times one dependent
+// shared-memory load (23 cycles on an H100, by nw_smem_chase below).  The
+// span is this design's floor, not the function's bound: a walk that
+// composed steps ahead (a table of two-step deltas, say) would halve the
+// chain.  So the design keeps each step's load in shared memory, its
+// chain short, and a warp's lanes on one path.
+//
+// Design (walk_staged, shared by nw_walk and nw_walk_window's codes
+// mode).  A warp a walk; nw_walk packs kWalkWarps walks a block so that
+// a batch spreads over the SMs.  The walk's geometry makes its reads
+// predictable: inside a band a step takes (t, jj) to (t-2, jj-1) (DIAG),
+// (t-1, jj) (LEFT) or (t-1, jj-1) (UP), so t never rises and the band's
+// word columns t >> 4 are read in falling order; and since i never rises,
+// every band above is entered at a column <= (i + 31) >> 4.  So the warp
+// keeps a ring of R = D + 1 slots in shared memory, each a segment of K
+// word columns [top - K + 1, top] of one band (K x 128 contiguous bytes,
+// a column's 32 words), copied by the TMA's one-dimensional form
+// (cp.async.bulk, completing on the slot's mbarrier).  On entering band b
+// it waits for b's slot and issues band b - D's copy with top = (i + 31)
+// >> 4, so D bands are in flight while the walk runs; a walk that leaves
+// its segment below (a LEFT run longer than it, or a band entered past its
+// columns) re-copies the band's slot at its column and waits.  From the
+// slot the warp expands kTableCols columns, lane jj its row, into a table
+// of byte deltas (walk_staged's note), so that a step is one shared-memory
+// byte load and one subtract, the next cell's address; every lane walks
+// the same path (broadcast loads, no divergence), lane 0 stages the op
+// bytes in a 128-byte buffer and the warp stores them 32 bytes an
+// instruction, row 0's LEFT run likewise.  Tensor cores have no part in a
+// walk.  K = kSegCols, D = kDepth and the warps a block are constants (16,
+// 2, 2, from the sweep of scripts/walk_profile.py --sweep, which rebuilds
+// this file with -DNW_WALK_SEG_COLS= and the others: K and D hardly
+// matter once a segment covers the drift of the band D bands ahead).
+//
+// What the card showed (an H100, scripts/walk_profile.py's clock64
+// counters and scripts/walk_shapes.py): a step costs ~80 cycles at 100 kb
+// (42 ns, 3.6x the span): ~48 walking the table (its chain is two
+// SASS instructions, LDS.U8 -> IADD: a 23-cycle load and an add; the rest
+// is the loop's tests and the steps a group of kUnroll spends on a band's
+// last sentinel), ~13 expanding it, ~7 issuing the next band's copy, ~2
+// waiting for one, ~2 storing ops.  Hiding the per-band work behind the
+// walk (a second warp a walk) is left for later.
 //
 // nw_walk_masks is the same walk over the rectangular 3-bit tie masks of
 // a batch, uint8[B, Bs+1, A+1] (nw_fill.cu's MASKS mode, or
@@ -46,17 +86,18 @@
 // fallback to the per-cell engine) was a limit of its traced loop and
 // has no counterpart.  Bound by the chain of dependent loads, one a run
 // instead of one a step, each to another row of the table on a diagonal
-// run; the op stores are the same as nw_walk's.
+// run; one thread stores the ops a byte at a time.
 //
 // nw_walk_window is the same walk over ONE block of rows (j0, j0+rows]
 // of one pair, re-filled from a checkpoint row by nw_fill_codes_single:
 // the block walk of nw_tpu/ops/checkpoint_traceback.py:353-373 and the
 // relay walk of nw_tpu/parallel/huge_pair.py:871 (_make_relay_walk,
-// _make_arrow_at_pallasb), both jnp loops on the TPU.  One thread reads
+// _make_arrow_at_pallasb), both jnp loops on the TPU.  It reads
 // (i, j, n) from device memory, walks until it reaches row j0 (or, when
 // j0 is 0, the origin, stepping LEFT along row 0), and writes (i, j, n)
 // back, so the blocks of a pair chain on one stream with no host sync.
-// Code row of cell row j: j - j0 - 1.  Its masks mode walks the 3-bit tie
+// Its codes mode is one warp on walk_staged's ring (a launch a window);
+// code row of cell row j: j - j0 - 1.  Its masks mode walks the 3-bit tie
 // masks (bit0 diag, bit1 left, bit2 up) of a rank's rows of a sharded pair
 // instead, uint8[rows, A+1] row-major from nw_fill_tile's masks mode
 // (K28): the first set bit in diag > left > up order, UP where none is
@@ -68,7 +109,7 @@
 // nw_tpu/models/smith_waterman.py:220 _sw_walk_packed (over K24's words)
 // and nw_tpu/ops/variants_banded.py:1300-1360 (_sw_walk_device, over
 // K18's).  One thread a pair starts at its best cell (j*, i*), follows
-// the codes with walk()'s lookup and stops on a STOP code (a cell of
+// the codes with code_at's lookup and stops on a STOP code (a cell of
 // score 0, a local start) or on row 0 or column 0, whose cells are 0 and
 // not stored: not nw_walk's rule, which steps LEFT along row 0.  It
 // writes its ops in walk order and the cell where it stopped.  It walks
@@ -102,8 +143,8 @@ constexpr int kOpLeft = 1;
 constexpr int kOpUp = 2;
 constexpr int kCodeStop = 3;
 
-// what nw_walk_kernel walks
-constexpr int kWalkCodes = 0;  // band-major 2-bit codes (nw_fill_codes)
+// the byte tables nw_walk_kernel and nw_walk_window_kernel walk (the
+// band-major 2-bit codes go through walk_staged)
 constexpr int kWalkMasks = 1;  // row-major 3-bit tie masks
 constexpr int kWalkRuns = 2;   // row-major run bytes (nw_fill_runs_batch)
 
@@ -122,25 +163,15 @@ __device__ __forceinline__ int mask_op(unsigned v) {
   return (v & 1u) ? kOpDiag : ((v & 2u) ? kOpLeft : kOpUp);
 }
 
-// The op of row r (of the stored rows), column i: a 2-bit code (stride =
-// TW) or, with MASKS, a tie mask of a row-major table (stride = A+1)
-template <bool MASKS>
-__device__ __forceinline__ int op_at(const void* __restrict__ base, int stride,
-                                     int r, int i) {
-  if (MASKS)
-    return mask_op(static_cast<const unsigned char*>(base)[static_cast<int64_t>(r) * stride + i]);
-  return code_at(static_cast<const unsigned*>(base), stride, r, i);
-}
-
-// Walk from (i, j) over the ops of rows j0+1 .. , writing ops from out[n];
-// stops at row j0 when j0 > 0, else at the origin, or after S ops.
-template <bool MASKS = false>
-__device__ __forceinline__ void walk(const void* __restrict__ base, int stride,
-                                     int j0, int S, int& i, int& j, int& n,
-                                     signed char* __restrict__ out) {
+// Walk from (i, j) over the tie masks of rows j0+1 .. (a row-major table,
+// `stride` = A+1 masks a row), writing ops from out[n]; stops at row j0
+// when j0 > 0, else at the origin, or after S ops.
+__device__ __forceinline__ void walk_masks(const unsigned char* __restrict__ base, int stride,
+                                           int j0, int S, int& i, int& j, int& n,
+                                           signed char* __restrict__ out) {
   while ((j > j0 || (j0 == 0 && i > 0)) && n < S) {
     int a = kOpLeft;  // row 0 is not stored: LEFT to the origin
-    if (j > 0) a = op_at<MASKS>(base, stride, j - j0 - 1, i);
+    if (j > 0) a = mask_op(base[static_cast<int64_t>(j - j0 - 1) * stride + i]);
     out[n++] = static_cast<signed char>(a);
     i -= a != kOpUp;
     j -= a != kOpLeft;
@@ -173,9 +204,8 @@ __device__ __forceinline__ void walk_runs(const unsigned char* __restrict__ base
   }
 }
 
-// kWalkCodes: a pair's nbands bands of 2-bit codes, TW words a band row;
-// kWalkMasks / kWalkRuns: a pair's nbands = Bs+1 rows of TW = A+1 tie
-// masks / run bytes
+// a pair's nbands = Bs+1 rows of TW = A+1 tie masks (kWalkMasks) or run
+// bytes (kWalkRuns), a thread a pair
 template <int LAYOUT>
 __global__ void nw_walk_kernel(const void* __restrict__ codes,
                                const int* __restrict__ lens1,
@@ -183,41 +213,374 @@ __global__ void nw_walk_kernel(const void* __restrict__ codes,
                                int nbands, int TW, int S,
                                signed char* __restrict__ ops,
                                int* __restrict__ ns) {
-  constexpr bool BYTES = LAYOUT != kWalkCodes;
   const int bi = blockIdx.x * blockDim.x + threadIdx.x;
   if (bi >= B) return;
   const int64_t b = bi;
   int i = lens1[b];
   int j = lens2[b];
   int n = 0;
-  // the stored rows start at row 1: a byte table's row 0 is skipped
-  const void* base = BYTES
-      ? static_cast<const void*>(static_cast<const unsigned char*>(codes) +
-                                 (b * nbands + 1) * static_cast<int64_t>(TW))
-      : static_cast<const void*>(static_cast<const unsigned*>(codes) + b * nbands * TW * 32);
+  // the stored rows start at row 1: the table's row 0 is skipped
+  const unsigned char* base =
+      static_cast<const unsigned char*>(codes) + (b * nbands + 1) * static_cast<int64_t>(TW);
   if (LAYOUT == kWalkRuns)
-    walk_runs(static_cast<const unsigned char*>(base), TW, S, i, j, n, ops + b * S);
+    walk_runs(base, TW, S, i, j, n, ops + b * S);
   else
-    walk<LAYOUT == kWalkMasks>(base, TW, 0, S, i, j, n, ops + b * S);
+    walk_masks(base, TW, 0, S, i, j, n, ops + b * S);
   ns[b] = n;
 }
 
-// codes mode: nbands bands of 2-bit codes, TW words a band row; MASKS:
-// `nbands` rows of `TW` = A+1 masks
-template <bool MASKS>
+// One block of rows of one pair, one thread: `nbands` rows of `TW` = A+1
+// tie masks (LAYOUT is kWalkMasks, the one byte table a window walks)
+template <int LAYOUT>
 __global__ void nw_walk_window_kernel(const void* __restrict__ codes,
                                       int nbands, int TW, int j0,
                                       int* __restrict__ state, int S,
                                       signed char* __restrict__ ops) {
   int i = state[0], j = state[1], n = state[2];
-  // a start outside the block's codes walks nowhere (n stays short)
-  const int rows = MASKS ? nbands : 32 * nbands;
-  const int cols = MASKS ? TW : 16 * TW - 31;
-  if (j < j0 || j > j0 + rows || i < 0 || i >= cols || n < 0) return;
-  walk<MASKS>(codes, TW, j0, S, i, j, n, ops);
+  // a start outside the block's masks walks nowhere (n stays short)
+  if (j < j0 || j > j0 + nbands || i < 0 || i >= TW || n < 0) return;
+  walk_masks(static_cast<const unsigned char*>(codes), TW, j0, S, i, j, n, ops);
   state[0] = i;
   state[1] = j;
   state[2] = n;
+}
+
+// ---- the staged walk over band-major 2-bit codes ----
+
+// The staged walk's own min and max: CUDA's, called here as well, change
+// how walk_runs's max compiles, and these leave the kept kernels' machine
+// code as it was
+__device__ __forceinline__ int imin(int x, int y) { return x < y ? x : y; }
+__device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
+
+constexpr int kOpBuf = 128;  // op bytes a warp stages before a store
+constexpr int kColBytes = 128;  // a word column: a band's 32 rows x 4 bytes
+constexpr int kUnroll = 8;  // steps between two tests of the walk's loop
+// The delta table: word columns expanded at a time (a band's walk spans
+// ~5 on a diagonal path), and its row: a 16-byte block of sentinels, then
+// 16 cells a byte a column; its deltas (up to kRowBytes + 2) fit a byte
+constexpr int kTableCols = 6;
+constexpr int kRowBytes = 16 * (kTableCols + 1);
+
+// The staging: K word columns a segment, D bands copied ahead of the walk
+// into a ring of R = D + 1 slots, walks (warps) a block of nw_walk.  From
+// a sweep on an H100; scripts/walk_profile.py --sweep rebuilds this file
+// with others.
+#ifndef NW_WALK_SEG_COLS
+#define NW_WALK_SEG_COLS 16
+#endif
+#ifndef NW_WALK_DEPTH
+#define NW_WALK_DEPTH 2
+#endif
+#ifndef NW_WALK_WARPS
+#define NW_WALK_WARPS 2
+#endif
+constexpr int kSegCols = NW_WALK_SEG_COLS;
+constexpr int kDepth = NW_WALK_DEPTH;
+constexpr int kRing = kDepth + 1;
+constexpr int kWalkWarps = NW_WALK_WARPS;
+
+// A warp's shared memory: the ring's slots, the delta table (33 rows),
+// the 256-entry expansion table, the ring's mbarriers and segment starts,
+// the op buffer; a multiple of 128 bytes
+constexpr int kWarpBytes =
+    (kRing * kSegCols * kColBytes + 33 * kRowBytes + 1024 + kRing * 12 + kOpBuf + 127) & ~127;
+static_assert(kWalkWarps * kWarpBytes <= 48 * 1024, "a block's staging past 48 KB of shared memory");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One warp's ring of code segments.  Every lane holds the same copy of
+// its registers; lane 0 alone issues the copies, every lane waits.
+struct CodeRing {
+  const unsigned* codes;  // the walk's table: word (band, w, jj) at (band*TW + w)*32 + jj
+  int TW;
+  unsigned* seg;          // kRing slots of kSegCols*32 words
+  uint32_t bars;          // shared address of slot 0's mbarrier (8 bytes a slot)
+  int* lo;                // each slot's first column; below 0 past a wrap (see load)
+  unsigned phase;         // bit s: the parity of slot s's next completion
+  unsigned pending;       // bit s: slot s has a copy in flight
+  bool lane0;
+
+  __device__ void init() {
+    if (lane0) {
+      for (int s = 0; s < kRing; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bars + 8 * s) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    phase = pending = 0;
+    __syncwarp();
+  }
+
+  // Copy word columns [top - kSegCols + 1, top] (cut at 0) of band b into slot
+  // s, top = tv, a column t >> 4.  A tv below 0 (a walk that left column 0,
+  // which codes a fill writes never send it to) wraps to the band's last
+  // columns, as the plain versions' negative indexing reads them.  The
+  // warp's reads of the slot are done (their values used) and ordered
+  // before the copy by __syncwarp, as a consumer's release orders them in
+  // a TMA pipeline.
+  __device__ void load(int s, int b, int tv) {
+    const int wrap = tv < 0 ? TW : 0;
+    const int top = imax(imin(tv + wrap, TW - 1), 0);
+    const int l = imax(top - kSegCols + 1, 0);
+    lo[s] = l - wrap;
+    __syncwarp();
+    if (lane0) {
+      const uint32_t bar = bars + 8 * s;
+      const uint32_t bytes = (top - l + 1) * kColBytes;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(bar), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          ::"r"(smem_u32(seg + s * kSegCols * 32)),
+          "l"(codes + (static_cast<int64_t>(b) * TW + l) * 32), "r"(bytes), "r"(bar)
+          : "memory");
+    }
+    pending |= 1u << s;
+  }
+
+  __device__ void wait(int s) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT;\n"
+        "}\n" ::"r"(bars + 8 * s), "r"((phase >> s) & 1u) : "memory");
+    phase ^= 1u << s;
+    pending &= ~(1u << s);
+  }
+
+  // No copy may outlive the block: wait for the ones the walk left behind
+  __device__ void drain() {
+    for (int s = 0; s < kRing; ++s)
+      if (pending >> s & 1u) wait(s);
+  }
+};
+
+// The op of a delta-table cell's value v
+__device__ __forceinline__ signed char delta_op(unsigned v) {
+  return static_cast<signed char>(v == 1u ? kOpLeft
+                                  : v == kRowBytes + 1u ? kOpUp
+                                  : v == kRowBytes + 2u ? kOpDiag : kCodeStop);
+}
+
+// One step of the walk over the delta table: the byte at shared address p,
+// and p moved back by it (one PTX load and subtract, so that the chain of
+// steps stays a load and a subtract a step)
+__device__ __forceinline__ unsigned step(uint32_t& p) {
+  unsigned v;
+  asm volatile("ld.shared.u8 %0, [%1];\n\tsub.s32 %1, %1, %0;" : "=r"(v), "+r"(p) : : "memory");
+  return v;
+}
+
+// out[from .. to) from the op buffer's values (to - from <= kOpBuf), 32
+// bytes an instruction across the warp
+__device__ __forceinline__ void flush_ops(const unsigned char* buf, int from, int to, int lane,
+                                          signed char* __restrict__ out) {
+  __syncwarp();
+  for (int q = lane; q < to - from; q += 32) out[from + q] = delta_op(buf[q]);
+  __syncwarp();
+}
+
+// Walk from (i, j) over the 2-bit codes of rows j0+1 .. j0+32*nbands
+// (`codes`, band-major, TW words a band row), writing ops from out[n];
+// stops at row j0 when j0 > 0, else at the origin (LEFT along row 0), or
+// after S ops.  A warp, every lane with the same (i, j, n) in and out;
+// wsmem is its kWarpBytes of shared memory.
+//
+// On entering a band (or leaving its table below) the warp expands the
+// kTableCols word columns of the staged segment from the walk's cell's
+// column down into a table of bytes, lane jj its row: cell (t, jj) at byte
+// (jj + 1) * kRowBytes + 16 + t - 16 * c0 holds how far back its
+// predecessor lies, 1 (LEFT), kRowBytes + 1 (UP) or kRowBytes + 2 (DIAG).
+// Row jj = -1 and each row's first 16 bytes hold 0, and so does a cell of
+// code 3 (none a fill writes): a walk that reads 0 has left the band, the
+// table, or met such a code, and stays there.  A step is then one byte
+// load and one subtract on the walk's shared-memory pointer; its byte goes
+// to the op buffer at a fixed offset, and the op comes from it at the flush.
+__device__ __forceinline__ void walk_staged(const unsigned* __restrict__ codes, int TW,
+                                            unsigned char* wsmem, int j0, int S,
+                                            int& i, int& j, int& n,
+                                            signed char* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  unsigned char* table = wsmem + kRing * kSegCols * kColBytes;
+  unsigned* lut = reinterpret_cast<unsigned*>(table + 33 * kRowBytes);
+  unsigned char* buf = reinterpret_cast<unsigned char*>(lut + 256) + kRing * 12;
+  int flushed = n;  // out[flushed .. n) wait in buf
+  if (j > j0 && n < S) {
+    CodeRing ring{codes, TW, reinterpret_cast<unsigned*>(wsmem), smem_u32(lut + 256),
+                  reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(lut + 256) + 8 * kRing),
+                  0, 0, lane == 0};
+    ring.init();
+    const int r = j - j0 - 1;
+    int band = r >> 5, jj = r & 31, t = i + jj;
+    int s = band % kRing;  // band's slot; band - q's is (s - q) mod kRing
+    ring.load(s, band, t >> 4);
+    for (int q = 1; q <= kDepth && band - q >= 0; ++q)
+      ring.load((s - q + kRing) % kRing, band - q, (i + 31) >> 4);
+    // the sentinels, and the expansion of a byte of 4 codes into 4 cells
+    for (int q = lane; q < 33 * kRowBytes / 16; q += 32)
+      reinterpret_cast<uint4*>(table)[q] = make_uint4(0, 0, 0, 0);
+    constexpr unsigned deltas = (kRowBytes + 2) | 1u << 8 | (kRowBytes + 1) << 16;  // codes 0-2; 3 -> 0
+    for (int q = lane; q < 256; q += 32)
+      lut[q] = __byte_perm(deltas, 0, (q & 3) | (q & 12) << 2 | (q & 48) << 4 | (q & 192) << 6);
+    __syncwarp();
+    int c0 = 0;
+    uint32_t p = 0;  // the shared address of the walk's cell in the table
+    for (bool cut = false; !cut;) {  // a band a pass, from its first row jj down
+      ring.wait(s);
+      for (bool fresh = true;;) {
+        if (fresh) {  // the table from t's column down, from the staged segment
+          __syncwarp();  // every lane's reads of the table before it is rewritten
+          if ((t >> 4) < ring.lo[s]) {  // below the segment: copy the band's columns at t
+            if (t < -16 * TW) {  // off the table (codes no fill writes): stop
+              cut = true;
+              break;
+            }
+            ring.load(s, band, t >> 4);
+            ring.wait(s);
+          }
+          const int ctop = t >> 4, lo = ring.lo[s];
+          c0 = imax(ctop - kTableCols + 1, lo);
+          const unsigned* col = ring.seg + (s * kSegCols + c0 - lo) * 32 + lane;
+          uint4* row = reinterpret_cast<uint4*>(table + (lane + 1) * kRowBytes + 16);
+          // every column, without a branch (a column past ctop, where the
+          // walk never goes, repeats ctop's), all loads before any store so
+          // that they overlap
+          unsigned w[kTableCols], d[4 * kTableCols];
+#pragma unroll
+          for (int c = 0; c < kTableCols; ++c) w[c] = col[32 * imin(c, ctop - c0)];
+#pragma unroll
+          for (int q = 0; q < 4 * kTableCols; ++q) d[q] = lut[w[q >> 2] >> 8 * (q & 3) & 255];
+#pragma unroll
+          for (int c = 0; c < kTableCols; ++c)
+            row[c] = make_uint4(d[4 * c], d[4 * c + 1], d[4 * c + 2], d[4 * c + 3]);
+          __syncwarp();
+          p = smem_u32(table) + (jj + 1) * kRowBytes + 16 + t - 16 * c0;
+          fresh = false;
+        }
+        const int lim = imin(S, flushed + kOpBuf);
+        unsigned v = 1;
+        while (n + kUnroll <= lim) {
+          unsigned char* at = buf + (n - flushed);
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            v = step(p);
+            if (lane == 0) at[u] = v;
+            n += v != 0;
+          }
+          if (v == 0) break;
+        }
+        if (v != 0) {
+          while (n < lim) {
+            v = step(p);
+            if (lane == 0) buf[n - flushed] = v;
+            n += v != 0;
+            if (v == 0) break;
+          }
+        }
+        const int a = static_cast<int>(p - smem_u32(table)), row = a / kRowBytes, off = a - row * kRowBytes;
+        jj = row - 1;
+        t = 16 * c0 + off - 16;
+        if (v != 0) {  // the buffer is full, or the cut after S ops
+          flush_ops(buf, flushed, n, lane, out);
+          flushed = n;
+          if (n == S) {
+            cut = true;
+            break;
+          }
+          continue;
+        }
+        if (jj < 0) break;  // the band's last row is done
+        if (off < 16) {  // below the table's columns
+          fresh = true;
+          continue;
+        }
+        // a code 3: its op, and the diagonal's move, as the plain walks
+        if (lane == 0) buf[n - flushed] = kCodeStop;
+        ++n;
+        p -= kRowBytes + 2;
+      }
+      if (cut || band == 0) break;  // band 0's last row done: row j0
+      // into the band above at its row jj = 31: i = t + 1 (jj was -1); its
+      // slot s - 1, band - kDepth's the slot just left
+      --band;
+      jj = 31;
+      t += 32;
+      const int left = s;
+      s = s ? s - 1 : kRing - 1;
+      if (band - kDepth >= 0) ring.load(left, band - kDepth, (t - jj + 31) >> 4);
+    }
+    i = t - jj;
+    j = j0 + 32 * band + jj + 1;
+    ring.drain();
+  }
+  flush_ops(buf, flushed, n, lane, out);
+  if (j0 == 0 && j == 0 && i > 0 && n < S) {  // row 0: LEFT to the origin
+    const int m = imin(i, S - n);
+    for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpLeft);
+    n += m;
+    i -= m;
+  }
+}
+
+// A batch of pairs, a warp a pair, kWalkWarps pairs a block: a pair's
+// nbands bands of 2-bit codes, TW words a band row
+__global__ void nw_walk_staged_kernel(const unsigned* __restrict__ codes,
+                                      const int* __restrict__ lens1,
+                                      const int* __restrict__ lens2, int B,
+                                      int nbands, int TW, int S,
+                                      signed char* __restrict__ ops,
+                                      int* __restrict__ ns) {
+  __shared__ __align__(128) unsigned char smem[kWalkWarps * kWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWalkWarps + warp;
+  if (b >= B) return;
+  int i = lens1[b];
+  int j = lens2[b];
+  int n = 0;
+  walk_staged(codes + b * nbands * TW * 32, TW, smem + warp * kWarpBytes, 0, S, i, j, n,
+              ops + b * S);
+  if ((threadIdx.x & 31) == 0) ns[b] = n;
+}
+
+// One block of rows of one pair, one warp: nbands bands of 2-bit codes
+__global__ void nw_walk_window_staged_kernel(const unsigned* __restrict__ codes,
+                                             int nbands, int TW, int j0,
+                                             int* __restrict__ state, int S,
+                                             signed char* __restrict__ ops) {
+  __shared__ __align__(128) unsigned char smem[kWarpBytes];
+  int i = state[0], j = state[1], n = state[2];
+  // a start outside the block's codes walks nowhere (n stays short)
+  if (j < j0 || j > j0 + 32 * nbands || i < 0 || i >= 16 * TW - 31 || n < 0) return;
+  walk_staged(codes, TW, smem, j0, S, i, j, n, ops);
+  if (threadIdx.x == 0) {
+    state[0] = i;
+    state[1] = j;
+    state[2] = n;
+  }
+}
+
+// A measurement probe, on no path: the cycles of `steps` dependent
+// shared-memory loads (a chase through 1 024 words whose values are
+// shared addresses), for the walks' span floor
+__global__ void smem_chase_kernel(int steps, long long* __restrict__ out) {
+  __shared__ unsigned next[1024];
+  for (int q = threadIdx.x; q < 1024; q += blockDim.x) next[q] = smem_u32(&next[(q + 33) & 1023]);
+  __syncthreads();
+  if (threadIdx.x) return;
+  unsigned p = smem_u32(&next[0]);
+  for (int q = 0; q < 64; ++q) asm volatile("ld.shared.u32 %0, [%0];" : "+r"(p));
+  const long long c0 = clock64();
+  for (int q = 0; q < steps; q += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) asm volatile("ld.shared.u32 %0, [%0];" : "+r"(p));
+  }
+  const long long c1 = clock64();
+  out[0] = c1 - c0;
+  out[1] = p;  // keeps the chain live
 }
 
 __global__ void sw_walk_kernel(const unsigned* __restrict__ codes,
@@ -298,16 +661,33 @@ __global__ void gotoh_walk_kernel(const unsigned* __restrict__ codes,
 
 }  // namespace
 
-// codes: uint32[B, nbands, TW, 32] from nw_fill_codes; ops: int8[B, S]
-// prefilled with OP_NONE; ns: int32[B].  S must be >= every len1 + len2.
+// A table of codes the bulk copies can read: 16-byte aligned (an empty
+// one is never read)
+static bool codes_aligned(const void* codes, int64_t words) {
+  return words == 0 || (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+}
+
+// codes: uint32[B, nbands, TW, 32] from nw_fill_codes, 16-byte aligned;
+// ops: int8[B, S] prefilled with OP_NONE; ns: int32[B].  S must be >=
+// every len1 + len2.
 extern "C" int nw_walk(const void* codes, const int* lens1, const int* lens2,
                        int B, int nbands, int TW, int S, signed char* ops,
                        int* ns, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
-  nw_walk_kernel<kWalkCodes><<<(B + threads - 1) / threads, threads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      codes, lens1, lens2, B, nbands, TW, S, ops, ns);
+  if (!codes_aligned(codes, static_cast<int64_t>(nbands) * TW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  nw_walk_staged_kernel<<<(B + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(codes), lens1, lens2, B, nbands, TW, S, ops, ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cycles of `steps` (a multiple of 8) dependent shared-memory loads
+// into out[0] (int64[2], out[1] the chase's end): a probe for the walks'
+// span floor, on no path
+extern "C" int nw_smem_chase(int steps, long long* out, void* stream) {
+  if (steps < 8 || steps % 8) return static_cast<int>(cudaErrorInvalidValue);
+  smem_chase_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(steps, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,22 +737,27 @@ extern "C" int sw_walk(const void* codes, const int* jstar, const int* istar,
 }
 
 // codes: uint32[1, nbands, TW, 32] of rows j0+1 .. j0+32*nbands (from
-// nw_fill_codes_single or nw_fill_tile); state: int32[3] = (i, j, n), read
-// and written back; ops: int8[S], written from ops[n].  A start with j
-// outside [j0, j0 + 32*nbands] or i + 32 > 16*TW leaves state as it was.
-// masks != 0: codes is uint8[nbands, TW] instead, the tie masks of rows
-// j0+1 .. j0+nbands with TW = A+1 columns (nw_fill_tile's masks mode), and
-// a start outside [j0, j0 + nbands] x [0, TW) leaves state as it was.
+// nw_fill_codes_single or nw_fill_tile), 16-byte aligned; state: int32[3]
+// = (i, j, n), read and written back; ops: int8[S], written from ops[n].
+// A start with j outside [j0, j0 + 32*nbands] or i + 32 > 16*TW leaves
+// state as it was.  One warp on walk_staged's ring.  masks != 0: codes is
+// uint8[nbands, TW] instead, the tie masks of rows j0+1 .. j0+nbands with
+// TW = A+1 columns (nw_fill_tile's masks mode), walked by one thread; a
+// start outside [j0, j0 + nbands] x [0, TW) leaves state as it was.
 extern "C" int nw_walk_window(const void* codes, int nbands, int TW, int j0,
                               int* state, int S, signed char* ops, int masks,
                               void* stream) {
   if (nbands < 0 || TW < 0 || j0 < 0 || S < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (masks)
-    nw_walk_window_kernel<true><<<1, 1, 0, s>>>(codes, nbands, TW, j0, state, S, ops);
-  else
-    nw_walk_window_kernel<false><<<1, 1, 0, s>>>(codes, nbands, TW, j0, state, S, ops);
+  if (masks) {
+    nw_walk_window_kernel<kWalkMasks><<<1, 1, 0, s>>>(codes, nbands, TW, j0, state, S, ops);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!codes_aligned(codes, static_cast<int64_t>(nbands) * TW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  nw_walk_window_staged_kernel<<<1, 32, 0, s>>>(static_cast<const unsigned*>(codes), nbands, TW,
+                                                j0, state, S, ops);
   return static_cast<int>(cudaGetLastError());
 }
 

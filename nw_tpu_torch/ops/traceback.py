@@ -266,6 +266,13 @@ def _check_walk_args(codes, lens1, lens2, per_word=16):
             raise ValueError("lengths must lie inside the code table")
 
 
+def _check_codes_aligned(codes):
+    """The code walks' bulk copies read a table of codes that starts on a
+    16-byte boundary."""
+    if codes.device.type == "cuda" and codes.numel() and codes.data_ptr() % 16:
+        raise ValueError("codes must start on a 16-byte boundary")
+
+
 def walk_codes_batch(
     codes: torch.Tensor, lens1: torch.Tensor, lens2: torch.Tensor,
     max_steps: int,
@@ -278,10 +285,15 @@ def walk_codes_batch(
     be >= every len1 + len2.  Returns ops int8[B, max_steps] (OP_NONE
     padded) and n int32[B].
 
-    A CUDA tensor goes through the ``nw_walk`` kernel (one thread per
-    pair); a CPU tensor through :func:`walk_codes_batch_plain`.
+    A CUDA tensor goes through the ``nw_walk`` kernel (a warp a pair,
+    each reading its codes from segments of word columns copied into
+    shared memory bands ahead of it, six columns at a time expanded into a
+    table of byte deltas); a CPU tensor through
+    :func:`walk_codes_batch_plain`.
     """
     _check_walk_args(codes, lens1, lens2)
+    codes = codes.contiguous()
+    _check_codes_aligned(codes)
     if codes.device.type == "cpu":
         return walk_codes_batch_plain(codes, lens1, lens2, max_steps)
     B, nbands, TW, _ = codes.shape
@@ -290,7 +302,7 @@ def walk_codes_batch(
     )
     n = torch.empty(B, dtype=torch.int32, device=codes.device)
     if B:
-        codes, lens1, lens2 = (t.contiguous() for t in (codes, lens1, lens2))
+        lens1, lens2 = lens1.contiguous(), lens2.contiguous()
         kernels.launch(
             "nw_walk", codes.device,
             codes.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
@@ -363,15 +375,17 @@ def walk_codes_window(
     Because the start lives in device memory, the blocks of one pair
     chain on one stream with no host sync.
 
-    A CUDA tensor goes through the ``nw_walk_window`` kernel (one
-    thread); a CPU tensor through :func:`walk_codes_window_plain`.
+    A CUDA tensor goes through the ``nw_walk_window`` kernel (one warp
+    on :func:`walk_codes_batch`'s staging); a CPU tensor through
+    :func:`walk_codes_window_plain`.
     """
     _check_window_args(codes, state, ops)
     if j0 < 0:
         raise ValueError(f"j0 must be >= 0, not {j0}")
+    codes = codes.contiguous()
+    _check_codes_aligned(codes)
     if codes.device.type == "cpu":
         return walk_codes_window_plain(codes, state, j0, ops)
-    codes = codes.contiguous()
     _, nbands, TW, _ = codes.shape
     kernels.launch(
         "nw_walk_window", codes.device,

@@ -2,7 +2,7 @@
 CUDA source of nw_tpu_torch, to show that a change left some
 instantiations as they were.
 
-    python3 scripts/sass_compare.py [--steps] OLD.cu NEW.cu
+    python3 scripts/sass_compare.py [--steps] [--diff] OLD.cu NEW.cu
 
 Each source is compiled with the package's own nvcc flags
 (``nw_tpu_torch/runtime/kernels.py``), from its own directory (for its
@@ -25,13 +25,15 @@ holds two, in the Gotoh fills two, with codes three): a run of
 sweeps of 32 where its length is a multiple of 32 (the compiler lays a
 chunk's variants one after another), gives one mean distance a sweep,
 and the sweep's local-memory (spill) instructions beside it where it has
-any (``+Nlocal``).  Exit status 1
+any (``+Nlocal``).  ``--diff`` prints, under each DIFFERENT kernel, a
+unified diff of its two instruction streams (at most 80 lines).  Exit status 1
 when a kernel of OLD is missing from NEW or differs.  Needs the CUDA
 toolkit (``nvcc``, ``cuobjdump``).
 """
 
 from __future__ import annotations
 
+import difflib
 import os
 import re
 import subprocess
@@ -107,7 +109,8 @@ def sweep_steps(code) -> list:
 
 def main(argv) -> int:
     steps = "--steps" in argv
-    paths = [a for a in argv[1:] if a != "--steps"]
+    diff = "--diff" in argv
+    paths = [a for a in argv[1:] if a not in ("--steps", "--diff")]
     if len(paths) != 2:
         print(__doc__)
         return 2
@@ -119,6 +122,8 @@ def main(argv) -> int:
         verdict = "MISSING" if name not in b else ("IDENTICAL" if b[name] == code else "DIFFERENT")
         same &= verdict == "IDENTICAL"
         print(f"{verdict} {name} ({len(code)} -> {len(b.get(name, []))} instructions)")
+        if diff and verdict == "DIFFERENT":
+            print("\n".join(list(difflib.unified_diff(code, b[name], "old", "new", lineterm=""))[:80]))
         if steps:
             print(f"  steps: old {sweep_steps(code)} new {sweep_steps(b.get(name, []))}")
     for name in sorted(set(b) - set(a)):

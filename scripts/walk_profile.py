@@ -1,0 +1,206 @@
+"""Where a staged code walk's cycles go, and how its staging's constants
+(``nw_tpu_torch/csrc/nw_walk.cu``: K = ``NW_WALK_SEG_COLS`` word columns
+a segment, D = ``NW_WALK_DEPTH`` bands copied ahead, ``NW_WALK_WARPS``
+walks a block) move its time: copies of the source built apart from the
+package, one a staging, with ``-D`` (all compiles started together).
+
+    python3 scripts/walk_profile.py [--sweep]
+
+Without ``--sweep``: an instrumented copy in ``build/walk_profile/``,
+``clock64()`` counters around the sections of ``walk_staged`` (waiting
+for a band's copy, expanding the delta table, issuing the next band's
+copy, walking the table, storing ops, the whole walk; summed over a
+launch's walks by ``atomicAdd``), at the source's staging and two others;
+its ``nw_walk`` (the package's library fills the codes) runs on
+``chip_smoke.py``'s 100 000 bp pair, one walk, and on config 3's 256 x
+10 240 bp pairs.  A line a run: its device ms (CUDA events) and each
+section's cycles a step.  The counters cost a few cycles a section, so
+the copy runs a little slower than the package's kernel.
+``--sweep``: uninstrumented copies at the stagings of ``SWEEP``, timed
+(mean device ms by CUDA events after a warm-up) on the same two walks
+and on the 100 000 bp pair's 79 chained windows (``nw_walk_window``);
+a staging whose block passes 48 KB of shared memory does not compile and
+prints as such.  Prints the card's name and power limit first.  Needs the
+card and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+OUT = HERE / "build" / "walk_profile"
+SECTIONS = ("wait", "expand", "prefetch", "walk", "flush", "total")
+# (K, D, warps): the profiled stagings, the source's first; the sweep's
+PROFILED = [(16, 2, 2), (16, 1, 4), (8, 2, 4)]
+SWEEP = [(4, 2, 2), (8, 1, 2), (8, 2, 2), (8, 3, 2), (16, 1, 2), (16, 2, 2), (16, 3, 2), (16, 4, 2),
+         (32, 2, 2), (32, 3, 2), (16, 2, 1), (16, 2, 3), (16, 2, 4), (8, 2, 4), (8, 2, 6), (4, 1, 8)]
+
+# (anchor in nw_walk.cu, text to put in its place): the counters
+EDITS = [
+    ("namespace {\n", "__device__ unsigned long long g_prof[8];\nnamespace {\n"),
+    ("  int flushed = n;  // out[flushed .. n) wait in buf\n",
+     "  int flushed = n;  // out[flushed .. n) wait in buf\n"
+     "  long long T0, tw = 0, te = 0, tl = 0, tk = 0, tf = 0, tt = clock64();\n"),
+    ("      ring.wait(s);\n      for (bool fresh = true;;) {\n",
+     "      T0 = clock64();\n      ring.wait(s);\n      tw += clock64() - T0;\n      for (bool fresh = true;;) {\n"),
+    ("        if (fresh) {  // the table from t's column down, from the staged segment\n",
+     "        if (fresh) {  // the table from t's column down, from the staged segment\n          T0 = clock64();\n"),
+    ("          fresh = false;\n", "          fresh = false;\n          te += clock64() - T0;\n"),
+    ("        const int lim = imin(S, flushed + kOpBuf);\n",
+     "        T0 = clock64();\n        const int lim = imin(S, flushed + kOpBuf);\n"),
+    ("        const int a = static_cast<int>(p", "        tk += clock64() - T0;\n        const int a = static_cast<int>(p"),
+    ("          flush_ops(buf, flushed, n, lane, out);\n          flushed = n;\n",
+     "          T0 = clock64();\n          flush_ops(buf, flushed, n, lane, out);\n          tf += clock64() - T0;\n"
+     "          flushed = n;\n"),
+    ("      if (band - kDepth >= 0) ring.load(left, band - kDepth, (t - jj + 31) >> 4);\n",
+     "      T0 = clock64();\n      if (band - kDepth >= 0) ring.load(left, band - kDepth, (t - jj + 31) >> 4);\n"
+     "      tl += clock64() - T0;\n"),
+    ("    ring.drain();\n",
+     "    ring.drain();\n    if (lane == 0) {\n"
+     "      const long long c[8] = {tw, te, tl, tk, tf, clock64() - tt, n, 1};\n"
+     "      for (int q = 0; q < 8; ++q) atomicAdd(&g_prof[q], static_cast<unsigned long long>(c[q]));\n"
+     "    }\n"),
+]
+TAIL = r'''
+extern "C" int prof_get(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof)));
+}
+extern "C" int prof_zero() {
+  const unsigned long long z[8] = {0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_prof, z, sizeof(z)));
+}
+'''
+
+
+def instrumented_source() -> str:
+    src = (HERE / "nw_tpu_torch" / "csrc" / "nw_walk.cu").read_text()
+    for anchor, text in EDITS:
+        if src.count(anchor) != 1:
+            raise SystemExit(f"walk_profile: anchor not found once in nw_walk.cu: {anchor!r}")
+        src = src.replace(anchor, text)
+    return src + TAIL
+
+
+def build(src: Path, stagings) -> dict:
+    """{(K, D, warps): ctypes library, or None where it does not compile}
+    of ``src`` built once a staging, every nvcc started together."""
+    from nw_tpu_torch.runtime import kernels
+
+    procs = {}
+    for K, D, W in stagings:
+        so = OUT / f"lib{src.stem}-{K}-{D}-{W}.so"
+        defs = [f"-DNW_WALK_SEG_COLS={K}", f"-DNW_WALK_DEPTH={D}", f"-DNW_WALK_WARPS={W}"]
+        procs[(K, D, W)] = (so, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, *defs, "-shared", "-o",
+                                                  str(so), str(src)], stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for st, (so, proc) in procs.items():
+        err = proc.communicate()[1]
+        if proc.returncode:
+            print(f"K={st[0]} D={st[1]} warps={st[2]}: does not compile: {err.strip().splitlines()[-1:]}")
+            libs[st] = None
+            continue
+        lib = ctypes.CDLL(str(so))
+        for name in ("nw_walk", "nw_walk_window"):
+            getattr(lib, name).argtypes = kernels.SIGNATURES[name]
+        libs[st] = lib
+    return libs
+
+
+def main(argv) -> int:
+    sys.path.insert(0, str(HERE))
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import numpy as np
+    import torch
+
+    from nw_tpu_torch import AlignConfig
+    from nw_tpu_torch.ops import checkpoint_traceback as ckt
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import traceback as tb
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    OUT.mkdir(parents=True, exist_ok=True)
+    sweep = "--sweep" in argv
+    if sweep:
+        libs = build(HERE / "nw_tpu_torch" / "csrc" / "nw_walk.cu", SWEEP)
+    else:
+        src = OUT / "nw_walk_prof.cu"
+        src.write_text(instrumented_source())
+        libs = build(src, PROFILED)
+
+    big = cs.rand_pairs(np.random.default_rng(cs.L_HUGE), 1, cs.L_HUGE, cs.L_HUGE)[0]
+    top, side = (torch.from_numpy(enc.encode(x)).cuda() for x in big)
+    codes, _ = fs.fill_codes_single(top, side, 2, 1, 1)
+    lh = torch.tensor([cs.L_HUGE], dtype=torch.int32, device="cuda")
+    c3, _ = cs.config_pairs()
+    LB = AlignConfig().bucket_for(cs.L_LONG)
+    T3 = enc.upload(enc.encode_batch(c3, LB, LB), "cuda")
+    codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check(err):
+        if err:
+            raise SystemExit(f"walk_profile: a launch failed ({err})")
+
+    def walk_fn(lib, cd, l1, l2, S):
+        B = cd.shape[0]
+        ops = torch.full((B, S), tb.OP_NONE, dtype=torch.int8, device="cuda")
+        n = torch.empty(B, dtype=torch.int32, device="cuda")
+        args = (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[1], cd.shape[2], S,
+                ops.data_ptr(), n.data_ptr(), stream)
+        return lambda: check(lib.nw_walk(*args))
+
+    runs = ((f"1x{cs.L_HUGE}bp", codes, lh, lh, 2 * cs.L_HUGE), (f"256x{cs.L_LONG}bp", codes3, T3[2], T3[3], 2 * LB))
+    if sweep:
+        C = ckt.auto_block_diagonals(cs.L_HUGE, cs.L_HUGE)
+        _, ck = fs.score_fold(top, side, 2, 1, 1, checkpoint_every=C)
+        group, _ = fs.fill_codes_blocks(top, side, 2, 1, 1, cs.L_HUGE, cs.L_HUGE, 0, C, ck)
+        blocks = [(r * C, min(cs.L_HUGE, r * C + C)) for r in range(ck.shape[0])][::-1]
+        chain = [(r0, group[:, r0 // 32 : -(-r1 // 32)]) for r0, r1 in blocks]
+        for (K, D, W), lib in libs.items():
+            if lib is None:
+                continue
+            ms = {name: cs.cuda_ms(walk_fn(lib, cd, l1, l2, S), 3) for name, cd, l1, l2, S in runs}
+
+            def window(codes, state, r0, ops, lib=lib):
+                check(lib.nw_walk_window(codes.data_ptr(), codes.shape[1], codes.shape[2], r0,
+                                         state.data_ptr(), ops.shape[0], ops.data_ptr(), 0, stream))
+
+            ms[f"{len(chain)} windows at {cs.L_HUGE}bp"] = cs.cuda_ms(
+                lambda: cs.walk_chain(window, chain, cs.L_HUGE, cs.L_HUGE), 3)
+            print(f"K={K} D={D} warps={W}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+        return 0
+    host = (ctypes.c_ulonglong * 8)()
+    for (K, D, W), lib in libs.items():
+        lib.prof_get.argtypes = [ctypes.c_void_p]
+        for name, cd, l1, l2, S in runs:
+            fn = walk_fn(lib, cd, l1, l2, S)
+            fn()  # warm-up
+            lib.prof_zero()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            lib.prof_get(host)
+            steps = host[6]
+            cyc = {k: round(host[q] / steps, 1) for q, k in enumerate(SECTIONS)}
+            print(f"{name} K={K} D={D} warps={W}: {e0.elapsed_time(e1):.3f} ms, {steps} steps in "
+                  f"{host[7]} walks; cycles a step {cyc}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

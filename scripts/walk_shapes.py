@@ -1,0 +1,170 @@
+"""Time the code walks through their public wrappers at ``chip_smoke.py``'s
+shapes, so that two trees can be compared on one card in turns:
+``nw_walk`` (``walk_codes_batch``) on the 100 000 bp pair's codes (from
+``fill_codes_single``), at config 3 (256 x 10 240 bp) and at 4 x 10 240
+bp, and ``nw_walk_window``'s codes mode (``walk_codes_window``) chained
+over the 100 000 bp pair's 79 blocks (re-filled in one
+``fill_codes_blocks`` launch, as ``traceback_checkpointed`` walks them);
+and the walls of ``align_huge`` at 100 000 bp on both routes and of
+config 3's ``align_batch`` (strings and counts).
+
+    python3 scripts/walk_shapes.py [--check] [--sass] [ROOT]
+
+ROOT (default: this checkout) is the tree whose ``nw_tpu_torch`` is
+imported and built; the inputs (``chip_smoke.py``'s seeds) and the timing
+come from this checkout's ``chip_smoke.py``.  To compare a change with its
+parent, unpack the parent into a git-ignored directory (``git archive
+HEAD | tar -x -C build/parent``) and run, in one call on the card: parent,
+change, change, parent.  Prints the card's name and power limit, then
+one JSON line: {shape: ms} of the kernels (mean device time by CUDA
+events after a warm-up), each walk's steps (its longest walk; the
+windows' sum) and ns a step, {shape: s} of the walls (median of 3 warm
+runs, host to host) and, where ROOT has the ``nw_smem_chase`` probe, the
+cycles of one dependent shared-memory load and each walk's span floor
+(its steps times that load over ``clocks.max.sm``: the latency floor of a
+walk that takes one dependent load a step).
+``--check`` first holds ROOT's walks against their plain versions at
+``chip_smoke.py``'s walk edge shapes (phase 3's and phase 8's checks).
+``--sass`` runs ``scripts/sass_compare.py --diff`` on ``build/parent``'s
+``nw_walk.cu`` against ROOT's, prints ``ptxas -v`` of both and writes
+the staged kernels' SASS to ``build/walk_sass.txt``.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def wall(fn) -> float:
+    """Median of 3 warm host-to-host runs of ``fn()``."""
+    runs = []
+    for _ in range(4):  # a warm-up, then 3 timed
+        t0 = time.perf_counter()
+        fn()
+        runs.append(time.perf_counter() - t0)
+    return statistics.median(runs[1:])
+
+
+def sass_report(root: Path) -> None:
+    """sass_compare.py parent vs ROOT, ptxas -v of both, the staged
+    kernels' SASS into build/walk_sass.txt."""
+    from nw_tpu_torch.runtime import kernels
+
+    old = HERE / "build" / "parent" / "nw_tpu_torch" / "csrc" / "nw_walk.cu"
+    new = root / "nw_tpu_torch" / "csrc" / "nw_walk.cu"
+    subprocess.run([sys.executable, str(HERE / "scripts" / "sass_compare.py"), "--diff", str(old), str(new)])
+    for src in (old, new):
+        res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", "/dev/null",
+                              str(src)], capture_output=True, text=True, cwd=src.parent)
+        print(f"ptxas -v {src}:\n{res.stderr}")
+    spec = importlib.util.spec_from_file_location("sass_compare", HERE / "scripts" / "sass_compare.py")
+    sc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sc)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        code = sc.sass(new, tmpdir)
+    out = HERE / "build" / "walk_sass.txt"
+    out.parent.mkdir(exist_ok=True)
+    with open(out, "w") as f:
+        for name, ins in code.items():
+            if "staged" in name or "chase" in name:
+                f.write(f"Function : {name} ({len(ins)} instructions)\n")
+                f.writelines(f"{q:5d}  {x}\n" for q, x in enumerate(ins))
+    print(f"SASS of the staged walks and the chase: {out}")
+
+
+def main(argv) -> int:
+    flags = {a for a in argv[1:] if a.startswith("--")}
+    args = [a for a in argv[1:] if not a.startswith("--")]
+    root = Path(args[0]).resolve() if args else HERE
+    sys.path.insert(0, str(root))  # root's nw_tpu_torch
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import numpy as np
+    import torch
+
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.ops import checkpoint_traceback as ckt
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.runtime import kernels
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    dev = torch.device("cuda")
+    kernels.load()
+    if "--sass" in flags:
+        sass_report(root)
+    if "--check" in flags:
+        errs = {"nw_walk": 0}
+        cs.walk_edges_vs_plain(dev, errs)
+        cs.window_edges_vs_plain(dev, errs)
+        if any(errs.values()):
+            print(f"FAIL: a walk differs from its plain version: {errs}", file=sys.stderr)
+            return 1
+    cycles = cs.smem_load_cycles() if "nw_smem_chase" in kernels.SIGNATURES else None
+
+    big = cs.rand_pairs(np.random.default_rng(cs.L_HUGE), 1, cs.L_HUGE, cs.L_HUGE)[0]  # phase 8's pair
+    top, side = (torch.from_numpy(enc.encode(x)).to(dev) for x in big)
+    lh = torch.tensor([cs.L_HUGE], dtype=torch.int32, device=dev)
+    codes, _ = fs.fill_codes_single(top, side, 2, 1, 1)
+    c3, _ = cs.config_pairs()
+    LB = AlignConfig().bucket_for(cs.L_LONG)
+    T3 = enc.upload(enc.encode_batch(c3, LB, LB), dev)
+    codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
+    T4, codes4 = tuple(x[:4] for x in T3), codes3[:4]
+    # the checkpointed route's 79 blocks, re-filled in one launch, walked last first
+    C = ckt.auto_block_diagonals(cs.L_HUGE, cs.L_HUGE)
+    _, ck = fs.score_fold(top, side, 2, 1, 1, checkpoint_every=C)
+    group, _ = fs.fill_codes_blocks(top, side, 2, 1, 1, cs.L_HUGE, cs.L_HUGE, 0, C, ck)
+    blocks = [(r * C, min(cs.L_HUGE, r * C + C)) for r in range(ck.shape[0])][::-1]
+    chain = [(r0, group[:, r0 // 32 : -(-r1 // 32)]) for r0, r1 in blocks]
+
+    walks = {
+        f"nw_walk 1x{cs.L_HUGE}bp": (lambda: tb.walk_codes_batch(codes, lh, lh, 2 * cs.L_HUGE), 3),
+        f"nw_walk 256x{cs.L_LONG}bp": (lambda: tb.walk_codes_batch(codes3, *T3[2:], 2 * LB), 5),
+        f"nw_walk 4x{cs.L_LONG}bp": (lambda: tb.walk_codes_batch(codes4, *T4[2:], 2 * LB), 5),
+        f"nw_walk_window {len(chain)} windows at {cs.L_HUGE}bp": (
+            lambda: cs.walk_chain(tb.walk_codes_window, chain, cs.L_HUGE, cs.L_HUGE), 3),
+    }
+    ms, steps = {}, {}
+    for name, (fn, reps) in walks.items():
+        ms[name] = cs.cuda_ms(fn, reps)
+        out = fn()
+        steps[name] = int(out[0][2]) if "window" in name else int(out[1].max())
+    rec = {"root": str(root), "package": str(Path(tb.__file__).parent.parent), "ms": ms, "steps": steps,
+           "ns_per_step": {k: ms[k] * 1e6 / steps[k] for k in ms}, "smem_load_cycles": cycles,
+           "span_ms": {k: steps[k] * cycles / (clock_mhz * 1e3) for k in ms} if cycles else None}
+    del codes, codes3, codes4, group, chain
+    torch.cuda.empty_cache()
+    a211 = NWAligner(AlignConfig(scoring=ScoringParams(2, 1, 1)), device="cuda")
+    rec["walls_s"] = {
+        f"align_huge {cs.L_HUGE}bp codes route": wall(lambda: a211.align_huge(*big)),
+        f"align_huge {cs.L_HUGE}bp checkpointed (C = {C})": wall(lambda: a211.align_huge(*big, block_diagonals=C)),
+        f"config3 align_batch 256x{cs.L_LONG}bp strings+counts": wall(
+            lambda: a211.align_batch(c3, traceback_strings=True, count=True).alignment_strings()),
+    }
+    print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -84,6 +84,56 @@ def _single_pairs(seed):
     )
 
 
+# the shapes the code walks' staging (nw_walk, nw_walk_window) must get
+# right: LEFT runs longer than several segments, UP runs across bands,
+# corners on band edges (len2 = 32q - 1, 32q, 32q + 1) and on word-column
+# edges (len1 = 16q - 31 +- 1), the edge pairs
+WALK_EDGE_SHAPES = ["left_runs", "up_runs", "band_edges", "column_edges", "edge"]
+
+
+def _walk_edge_pairs(shape):
+    rng = np.random.default_rng(18)
+
+    def one(n):
+        return "".join(rng.choice(list("ACGT"), n)).encode()
+
+    if shape == "left_runs":
+        return [(one(700), one(3)), (b"A" * 700, b"A" * 3), (one(520), one(1))]
+    if shape == "up_runs":
+        return [(one(3), one(700)), (b"C" * 3, b"C" * 700), (one(1), one(520))]
+    if shape == "band_edges":
+        return [(one(100), one(32 * q + e)) for q in (1, 2, 5) for e in (-1, 0, 1)]
+    if shape == "column_edges":
+        return [(one(16 * q - 31 + e), one(70)) for q in (3, 4, 9) for e in (-1, 0, 1)]
+    assert shape == "edge"
+    return list(EDGE)
+
+
+def _window_chain(s1, s2, mkd, C, fill_codes, score_fold, device=None):
+    """(r0, codes) of every block of C rows of one pair, the last block
+    first, each re-filled from its checkpoint row, as
+    traceback_checkpointed walks them (none when len2 is 0)."""
+    top, side = _pair_tensors(s1, s2)
+    if device is not None:
+        top, side = top.to(device), side.to(device)
+    _, ckpt = score_fold(top, side, *mkd, checkpoint_every=C)
+    chain = []
+    for b in range(ckpt.shape[0] - 1, -1, -1):
+        r0, r1 = b * C, min(len(s2), (b + 1) * C)
+        codes, _ = fill_codes(top, side, *mkd, len2=r1, r0=r0, seed=ckpt[b] if r0 else None)
+        chain.append((r0, codes))
+    return chain
+
+
+def _walk_chain(walk, chain, len1, len2, device=None):
+    """(state, ops) of ``walk`` chained over ``chain`` from the corner."""
+    state = torch.tensor([len1, len2, 0], dtype=torch.int32, device=device)
+    ops = torch.full((len1 + len2,), 3, dtype=torch.int8, device=device)
+    for r0, codes in chain:
+        walk(codes, state, r0, ops)
+    return state, ops
+
+
 def _pair_tensors(s1, s2):
     return torch.from_numpy(enc.encode(s1)), torch.from_numpy(enc.encode(s2))
 
