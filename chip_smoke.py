@@ -169,7 +169,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    against the plain tile (on the host CPU); 7 pairs of 1-160 bp and the
    edge pairs in 4 blocks x chunks of 45 columns against the plain tile
    under every scoring; ``nw_walk_window``'s masks mode relayed over
-   each pair's blocks against its plain version and ``nw_walk``; then,
+   each pair's blocks against its plain version and ``nw_walk``, and
+   chained over blocks of 32, 64 and 96 rows of its staging's edge shapes
+   and of random bytes (``mask_window_edges_vs_plain``); then,
    with every rank's launch counters set to 0, (b)
    ``huge_pair_align_sharded`` (twice: cold, as a rank's first launch of
    a kernel loads it, and warm) and ``huge_pair_score_sharded`` on phase
@@ -184,8 +186,12 @@ Phases, in order; any mismatch or exception exits non-zero:
    seconds and peak device memory; (d) each tile mode on one tile of the
    path's shape (rank 0's first, as ``tile_chunk`` cuts it, with row 0
    and column 0 as its edges: codes and scores at 2 ranks and 100 000 bp,
-   masks at 4 ranks and 20 000 bp) against the plain tile on the same
-   inputs on the card (both edges, the corner and the table), the mask
+   masks at 4 ranks and 20 000 bp), timed; the timed launch's outputs
+   against the plain tile on the same inputs on the card (both edges,
+   the corner and the table; a tile deeper than ``PLAIN_TILE_ROWS``: its
+   right edge and table on the plain tile's first whole code bands under
+   that, its bottom edge and corner the scores mode's against the codes
+   mode's), the mask
    walk's 20 000 bp relay against the plain relay (ops and final state),
    each timed; the 1-rank path's one tile (the whole 100 000 bp pair)
    against ``nw_fill_codes_single`` (codes and corner), both timed (the
@@ -198,7 +204,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    (``fill_arrows_fold_batch``, K10) and ``nw_last_row`` (K9, rows 0,
    len2/3 and len2) bit for bit against their plain versions under every
    scoring (30 random and tie-dense pairs of 0-700 bp, the edge pairs,
-   all-'A' 24 x 16); then, with every launch counter set to 0,
+   all-'A' 24 x 16), and ``nw_walk_masks`` at its staging's edge shapes
+   and over random bytes (``mask_walk_edges_vs_plain``); then, with every
+   launch counter set to 0,
    (b) ``fill_arrows_auto`` + count + walk + host strings at 10 240 x
    150 bp and 128 x 2 048 bp and (c) at 4 x 10 240 bp (the pair-at-a-time
    route): every alignment re-scores to its score, scores and counts
@@ -262,7 +270,8 @@ written once) over 3.35 TB/s.  A walk's record also has
 load a step (the walks' design, not the function's bound, which stays
 ``bound_ms``): its longest walk (the window walks: their sum; the run
 walk: its loads) times one dependent shared-memory load's cycles over
-``clocks.max.sm``; the code walks' records add their ns a step.  The last lines before the record give
+``clocks.max.sm``; the staged walks' records (codes and tie masks) add
+their ns a step, ``nw_walk_masks``'s its 4 x 10 240 bp time.  The last lines before the record give
 the script's total seconds.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -861,22 +870,41 @@ def smem_load_cycles(steps: int = 1 << 16) -> float:
     return best
 
 
-def walk_edge_pairs():
-    """The shapes the code walks' staging must get right: LEFT runs longer
-    than several segments (700 x 3), UP runs across 22 bands (3 x 700),
-    corners on band edges (len2 = 32q - 1, 32q, 32q + 1) and on word-column
-    edges (len1 = 16q - 31 +- 1), the edge pairs."""
+# the shapes the code walks' staging (nw_walk, nw_walk_window) must get
+# right: LEFT runs longer than several segments, UP runs across bands,
+# corners on band edges (len2 = 32q - 1, 32q, 32q + 1) and on word-column
+# edges (len1 = 16q - 31 +- 1), the edge pairs
+WALK_EDGE_SHAPES = ("left_runs", "up_runs", "band_edges", "column_edges", "edge")
+# the shapes the masks walks' staging (nw_walk_masks, nw_walk_window's
+# masks mode) must get right: the code walks' LEFT runs, UP runs, band
+# edges and edge pairs, tie-dense pairs (one letter repeated) and rows of
+# A+1 = 113 .. 128 bytes (every offset mod 16 of a row piece; a batch of
+# them at bucket widths 129 .. 144)
+MASK_WALK_EDGE_SHAPES = ("left_runs", "up_runs", "band_edges", "ties", "strides", "edge")
+MASK_STRIDES = range(16)
+
+
+def walk_edge_pairs(shape=None):
+    """The pairs of one of ``WALK_EDGE_SHAPES``, or (None) of them all:
+    LEFT runs of 700 x 3, UP runs across 22 bands (3 x 700), corners on
+    band and word-column edges, the edge pairs (the cases the tests share)."""
+    if shape is None:
+        return [p for sh in WALK_EDGE_SHAPES for p in walk_edge_pairs(sh)]
     rng = np.random.default_rng(18)
 
     def one(n):
-        return rand_pairs(rng, 1, n, n)[0][0]
+        return "".join(rng.choice(list("ACGT"), n)).encode()
 
-    return (
-        [(one(700), one(3)), (one(3), one(700)), (b"A" * 700, b"A" * 3), (b"C" * 3, b"C" * 700)]
-        + [(one(100), one(32 * q + e)) for q in (1, 2, 5) for e in (-1, 0, 1)]
-        + [(one(16 * q - 31 + e), one(70)) for q in (3, 4, 9) for e in (-1, 0, 1)]
-        + EDGE
-    )
+    if shape == "left_runs":
+        return [(one(700), one(3)), (b"A" * 700, b"A" * 3), (one(520), one(1))]
+    if shape == "up_runs":
+        return [(one(3), one(700)), (b"C" * 3, b"C" * 700), (one(1), one(520))]
+    if shape == "band_edges":
+        return [(one(100), one(32 * q + e)) for q in (1, 2, 5) for e in (-1, 0, 1)]
+    if shape == "column_edges":
+        return [(one(16 * q - 31 + e), one(70)) for q in (3, 4, 9) for e in (-1, 0, 1)]
+    assert shape == "edge"
+    return list(EDGE)
 
 
 def walk_edges_vs_plain(dev, errs):
@@ -940,6 +968,118 @@ def window_edges_vs_plain(dev, errs):
         f"starts outside the block, {len(SCORINGS)} scorings: max |diff| {e}")
     if e:
         fail(f"nw_walk_window differs from its plain version at the walk edge shapes: {e}")
+
+
+def mask_edge_pairs(shape=None):
+    """The pairs of one of ``MASK_WALK_EDGE_SHAPES``, or (None) of them
+    all: the code walks' LEFT runs, UP runs, band edges and edge pairs,
+    tie-dense pairs (one letter repeated) and 16 pairs of 112 + e x 70 bp
+    (rows of A+1 = 113 .. 128 bytes: every offset mod 16 of a row piece)."""
+    if shape is None:
+        return [p for sh in MASK_WALK_EDGE_SHAPES for p in mask_edge_pairs(sh)]
+    if shape == "ties":
+        return [(b"G" * 333, b"G" * 290), (b"T" * 64, b"T" * 700), (b"A" * 700, b"A" * 64)]
+    if shape == "strides":
+        rng = np.random.default_rng(19)
+        return [("".join(rng.choice(list("ACGT"), 112 + e)).encode(), "".join(rng.choice(list("ACGT"), 70)).encode())
+                for e in MASK_STRIDES]
+    return walk_edge_pairs(shape)
+
+
+def random_masks(rng, B, N, M):
+    """uint8[B, N, M] of random bytes 0-255 but row 0 LEFT (2), column 0 UP
+    (4) and the origin 0, as the fills write those: every bit pattern a
+    cell can hold, the ones no fill writes included."""
+    m = rng.integers(0, 256, (B, N, M), dtype=np.uint8)
+    m[:, 0, :] = 2
+    m[:, :, 0] = 4
+    m[:, 0, 0] = 0
+    return torch.from_numpy(m)
+
+
+def mask_walk_edges_vs_plain(dev, errs):
+    """Phase 13: ``nw_walk_masks`` against its plain version under every
+    scoring: the masks edge shapes in one batch, the first alone (B = 1),
+    cut after 1, 77 and 300 ops, 16 batches of widths A + 1 = 129 .. 144
+    (every row offset mod 16), 5 000 short pairs (more warps than 132 SMs
+    hold at once); and tables of random bytes of widths 113 .. 128."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+
+    pairs = mask_edge_pairs()
+    L1, L2 = max(len(a) for a, _ in pairs), max(len(b) for _, b in pairs)
+    T = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    strided = [enc.upload(enc.encode_batch(mask_edge_pairs("strides"), 128 + e, 70), dev) for e in MASK_STRIDES]
+    Ts = enc.upload(enc.encode_batch(rand_pairs(np.random.default_rng(5000), 5000, 0, 60), 60, 60), dev)
+    runs = [(T, L1 + L2), (tuple(x[:1] for x in T), L1 + L2), (Ts, 120), (T, 1), (T, 77), (T, 300)]
+    runs += [(TT, 198 + e) for e, TT in enumerate(strided)]
+    e = 0
+    for mkd in SCORINGS:
+        for TT, S in runs:
+            masks = fb.fill_masks_banded_batch(*TT, *mkd)[0]
+            want = tb.walk_masks_batch_plain(masks, *TT[2:], S)
+            e = max(e, *(max_abs_err(g, w) for g, w in zip(tb.walk_masks_batch(masks, *TT[2:], S), want)))
+    rng = np.random.default_rng(190)
+    for M in range(113, 129):
+        masks = random_masks(rng, 3, 200, M).to(dev)
+        l1 = torch.tensor([M - 1, M - 7, 40], dtype=torch.int32, device=dev)
+        l2 = torch.tensor([199, 161, 96], dtype=torch.int32, device=dev)
+        want = tb.walk_masks_batch_plain(masks, l1, l2, 200 + M)
+        e = max(e, *(max_abs_err(g, w) for g, w in zip(tb.walk_masks_batch(masks, l1, l2, 200 + M), want)))
+    errs["nw_walk_masks"] = max(errs["nw_walk_masks"], e)
+    log(f"nw_walk_masks vs plain at the masks edge shapes ({len(pairs)} pairs, B = 1, cuts after 1, 77, "
+        f"300 ops, widths A + 1 = 129 .. 144, 5 000 x 0-60 bp) x {len(SCORINGS)} scorings, and random "
+        f"bytes of widths 113 .. 128: max |diff| {e}")
+    if e:
+        fail(f"nw_walk_masks differs from its plain version at the masks edge shapes: {e}")
+
+
+def mask_window_edges_vs_plain(dev, errs, name="nw_walk_window/masks"):
+    """Phase 12: ``nw_walk_window``'s masks mode chained over blocks of 32,
+    64 and 96 rows of each masks edge shape's table down to row 0, and over
+    a table of random bytes, against its plain version under every scoring
+    (tolerance 0 on ops and the state after every block); starts outside a
+    block's rows or columns leave the state and ops as they were."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+
+    def chain(masks, len1, len2, C):
+        e = 0
+        st_k = torch.tensor([len1, len2, 0], dtype=torch.int32, device=dev)
+        st_p = st_k.cpu()
+        ops_k = torch.full((len1 + len2,), tb.OP_NONE, dtype=torch.int8, device=dev)
+        ops_p = ops_k.cpu()
+        for r0 in range(-(-len2 // C) * C - C, -1, -C):
+            rows = masks[r0 + 1 : min(r0 + C, len2) + 1].contiguous()
+            tb.walk_masks_window(rows, st_k, r0, ops_k)
+            tb.walk_masks_window_plain(rows.cpu(), st_p, r0, ops_p)
+            e = max(e, max_abs_err(st_k, st_p))
+        return max(e, max_abs_err(ops_k, ops_p), int(st_p[:2].tolist() != [0, 0]))
+
+    e = 0
+    pairs = [p for p in mask_edge_pairs() if p[1]]
+    for mkd in SCORINGS:
+        for s1, s2 in pairs:
+            T = enc.upload(enc.encode_batch([(s1, s2)], len(s1), len(s2)), dev)
+            masks = fb.fill_masks_banded_batch(*T, *mkd)[0][0]
+            for C in (32, 64, 96):
+                e = max(e, chain(masks, len(s1), len(s2), C))
+            rows = masks[1:33].contiguous()
+            ops = torch.full((8,), 3, dtype=torch.int8, device=dev)
+            for start in ([len(s1), 33, 0], [len(s1) + 1, 1, 0], [-1, 1, 0], [len(s1), 1, -1], [0, 31, 0]):
+                state = torch.tensor(start, dtype=torch.int32, device=dev)
+                tb.walk_masks_window(rows, state, 32 if start[1] == 31 else 0, ops)
+                e = max(e, max_abs_err(state, torch.tensor(start)), max_abs_err(ops, torch.full((8,), 3)))
+    masks = random_masks(np.random.default_rng(191), 1, 301, 117)[0].to(dev)
+    for C in (32, 64, 96):
+        e = max(e, chain(masks, 116, 300, C))
+    errs[name] = max(errs.get(name, 0), e)
+    log(f"nw_walk_window masks mode vs plain, chained over blocks of 32, 64, 96 rows of {len(pairs)} masks "
+        f"edge shapes x {len(SCORINGS)} scorings and of random bytes, starts outside the block: max |diff| {e}")
+    if e:
+        fail(f"nw_walk_window's masks mode differs from its plain version at the masks edge shapes: {e}")
 
 
 def modes_vs_plain_10k(pair, C, errs, plain):
@@ -2294,6 +2434,11 @@ SHARDED_COUNTERS = {
 TILE_MODES = {"codes": "nw_fill_tile", "scores": "nw_fill_tile/scores", "masks": "nw_fill_tile/masks"}
 L_TILE = 3000  # phase 12 (a): the pair whose 4 row blocks x 5 chunks are checked
 L_PALLAS = 20_000  # phase 12 (b): the masks engine's pair, 4 ranks
+# phase 12 (d): a path tile's rows held against the plain tile (its time
+# goes with rows + columns anti-diagonals: ~2 of the 100 kb tile's 2.5
+# minutes are its 100 000 columns); a deeper tile is held on its first
+# whole code bands under this; the 20 kb masks tile's whole depth
+PLAIN_TILE_ROWS = 5_000
 
 
 def tile_table(mode, A, H):
@@ -2414,6 +2559,9 @@ def sharded_phase(card, bound):
         f"under every scoring): max |diff| {errs} in {time.perf_counter() - t0:.1f} s")
     if any(errs.values()):
         fail(f"a tile mode or the mask walk differs from its plain version: {errs}")
+    t0 = time.perf_counter()
+    mask_window_edges_vs_plain(torch.device("cuda"), errs)
+    log(f"phase 12 (a) the masks window walk at the masks edge shapes: {time.perf_counter() - t0:.1f} s")
 
     # (b) the path at full width, (c) the data-parallel batch
     groups = {}
@@ -2425,6 +2573,31 @@ def sharded_phase(card, bound):
     finally:
         for g in groups.values():
             g.close(kill=True)
+
+
+def relay_tables(big):
+    """Phase 12 (d)'s relay: the 20 kb prefix of ``big`` (phase 8's pair) in
+    4 ranks' blocks of K28 tie masks on the card, chained in one process:
+    (the blocks' tables, their rows H)."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.parallel import huge_pair as hp
+
+    top, side = (torch.from_numpy(enc.encode(x[:L_PALLAS])).cuda() for x in big)
+    H = -(-L_PALLAS // 4)
+    return hp.chain_tiles(top, side, 2, 1, 1, H, hp.tile_chunk(L_PALLAS, L_PALLAS, 4), "masks")[0], H
+
+
+def relay(walk, tables, H, where="cuda"):
+    """(state, ops) of ``walk`` (``walk_masks_window`` or its plain
+    version) relayed over ``tables`` from the corner, on ``where``."""
+    from nw_tpu_torch.ops.traceback import OP_NONE
+
+    A, B = tables[0].shape[1] - 1, H * (len(tables) - 1) + tables[-1].shape[0]
+    state = torch.tensor([A, B, 0], dtype=torch.int32, device=where)
+    ops = torch.full((A + B,), OP_NONE, dtype=torch.int8, device=where)
+    for p in range(len(tables) - 1, -1, -1):
+        walk(tables[p].to(where), state, p * H, ops)
+    return state, ops
 
 
 def path_tiles_vs_plain(card, bound, big, launches, errs):
@@ -2441,6 +2614,7 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
     t_all, s_all = (torch.from_numpy(enc.encode(x)).to(dev) for x in big)
     mkd = (2, 1, 1)
     plain_runs = {}  # (ranks, L) -> (plain ms, its outputs): the codes mode's edges are the scores mode's
+    edges = {}  # mode -> the full-depth tile's (right, bottom, corner)
     for name, mode, world, L in (("nw_fill_tile", "codes", 2, L_HUGE),
                                  ("nw_fill_tile/scores", "scores", 2, L_HUGE),
                                  ("nw_fill_tile/masks", "masks", 4, L_PALLAS)):
@@ -2450,20 +2624,29 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
         halo = torch.arange(0, -(C + 1), -1, dtype=torch.int32, device=dev)
         left = torch.arange(-1, -(H + 1), -1, dtype=torch.int32, device=dev)
         table = tile_table(mode, L, H)
-        ms = cuda_ms(lambda: first_tile(fs.fill_tile, top, side[:H], mkd, C, halo, left, mode, table), 2)
-        table = tile_table(mode, L, H)
-        got = first_tile(fs.fill_tile, top, side[:H], mkd, C, halo, left, mode, table)
+        launch = lambda: first_tile(fs.fill_tile, top, side[:H], mkd, C, halo, left, mode, table)  # noqa: E731
+        ms = cuda_ms(launch, 2)
+        got = launch()  # the timed launch's outputs, checked below
+        # its first Hp rows, whole code bands, held against the plain tile of Hp rows
+        Hp = H if H <= PLAIN_TILE_ROWS else PLAIN_TILE_ROWS - PLAIN_TILE_ROWS % 32
         if (world, L) not in plain_runs:
-            want_table = tile_table(mode, L, H)
+            want_table = tile_table(mode, L, Hp)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            want = first_tile(fs.fill_tile_plain, top, side[:H], mkd, C, halo, left, mode, want_table)
+            want = first_tile(fs.fill_tile_plain, top, side[:Hp], mkd, C, halo, left[:Hp], mode, want_table)
             torch.cuda.synchronize()
             plain_runs[world, L] = ((time.perf_counter() - t0) * 1e3, want, want_table)
         p_ms, want, want_table = plain_runs[world, L]
-        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        e = max_abs_err(got[0][:Hp], want[0])
+        if Hp == H:
+            e = max(e, max_abs_err(got[1], want[1]), max_abs_err(got[2], want[2]))
+        else:  # the bottom edge and corner of all H rows: the scores mode's against the codes mode's
+            edges[mode] = got
+            if mode == "scores":
+                e = max([e] + [max_abs_err(g, w) for g, w in zip(got, edges["codes"])])
         if table is not None:
-            e = max(e, 0 if torch.equal(table, want_table) else max_abs_err(table, want_table))
+            part = table[:Hp] if mode == "masks" else table[:, :Hp // 32]
+            e = max(e, 0 if torch.equal(part, want_table) else max_abs_err(part, want_table))
         errs[name] = max(errs[name], e)
         cells = H * C
         ops_cell = OPS_SCORE + (OPS_CODE if mode != "scores" else 0)
@@ -2471,13 +2654,18 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
         in_bytes = 4 * (C + H + C + 1 + H)  # top chunk, side rows, halo, left
         rec[name] = dict(
             ms=ms, **bound(cells * ops_cell, in_bytes + out_bytes + 4 * (H + C + 1)),
-            plain_ms=p_ms, launches=launches[name], max_abs_err=errs[name],
+            plain_ms=p_ms, plain_rows=Hp, launches=launches[name], max_abs_err=errs[name],
             shape=f"one tile of {H} rows x {C} columns (rank 0's first of {nch} at {world} ranks, "
-                  f"{L} bp); plain_ms: fill_tile_plain on the card on the same inputs"
+                  f"{L} bp); ms: all {H} rows; plain_ms: fill_tile_plain on the card "
+                  + (f"on all plain_rows = {Hp} rows, the timed launch's edges, corner and table held "
+                     f"against it" if Hp == H else
+                     f"on the first plain_rows = {Hp} rows only (not a ratio against ms), the timed "
+                     f"launch's right edge and table there held against it, its bottom edge and corner "
+                     f"against the other 100 kb mode's")
                   + (", in codes mode (its edges are this mode's)" if mode == "scores" else ""),
         )
         del table, got
-    del plain_runs, want, want_table
+    del plain_runs, edges, want, want_table
     torch.cuda.empty_cache()
     # the 1-rank path's one tile (the whole pair) against nw_fill_codes_single, which it generalises
     row0 = torch.arange(0, -(L_HUGE + 1), -1, dtype=torch.int32, device=dev)
@@ -2495,32 +2683,25 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
     del table, whole
     torch.cuda.empty_cache()
     # the mask walk relayed over the 20 kb pair's 4 blocks of K28 masks, against its plain relay
-    H = -(-L_PALLAS // 4)
-    tables, _, _ = hp.chain_tiles(t_all[:L_PALLAS], s_all[:L_PALLAS], *mkd, H,
-                                  hp.tile_chunk(L_PALLAS, L_PALLAS, 4), "masks")
-
-    def relay(walk, where):
-        state = torch.tensor([L_PALLAS, L_PALLAS, 0], dtype=torch.int32, device=where)
-        ops = torch.full((2 * L_PALLAS,), tb.OP_NONE, dtype=torch.int8, device=where)
-        for p in range(len(tables) - 1, -1, -1):
-            walk(tables[p] if where == "cuda" else tables[p].cpu(), state, p * H, ops)
-        return state, ops
-
-    ms_walk = cuda_ms(lambda: relay(tb.walk_masks_window, "cuda"), 2)
-    k_state, k_ops = relay(tb.walk_masks_window, "cuda")
+    tables, H = relay_tables(big)
+    ms_walk = cuda_ms(lambda: relay(tb.walk_masks_window, tables, H), 2)
+    k_state, k_ops = relay(tb.walk_masks_window, tables, H)
     steps = int(k_state[2])
     t0 = time.perf_counter()
-    p_state, p_ops = relay(tb.walk_masks_window_plain, "cpu")
+    p_state, p_ops = relay(tb.walk_masks_window_plain, tables, H, "cpu")
     plain_walk = (time.perf_counter() - t0) * 1e3
     errs["nw_walk_window/masks"] = max(errs["nw_walk_window/masks"], max_abs_err(k_ops, p_ops),
                                        max_abs_err(k_state, p_state))
     rec["nw_walk_window/masks"] = dict(
         ms=ms_walk, **bound(steps * OPS_WALK_STEP, steps * 2), span_floor_ms=bound.span(steps),
+        ns_per_step=ms_walk * 1e6 / steps, smem_load_cycles=bound.smem_cycles,
         plain_ms=plain_walk, launches=launches["nw_walk_window/masks"],
         max_abs_err=errs["nw_walk_window/masks"],
         shape=f"{L_PALLAS}bp, {steps} steps relayed over 4 blocks of {H} rows of tie masks "
               f"(plain_ms: the plain relay on the host CPU, ops and state compared)",
     )
+    log(f"nw_walk_window masks mode: the {L_PALLAS} bp relay {ms_walk:.3f} ms, {steps} steps, "
+        f"{ms_walk * 1e6 / steps:.1f} ns a step; span floor {bound.span(steps):.4f} ms [{card}]")
     del tables
     torch.cuda.empty_cache()
     return rec
@@ -2628,8 +2809,8 @@ L_ROUTE = 4096  # align_batch's mask route against its codes route: 16 x 4 096 b
 # (pairs, bp) of the route comparison: the two the rule is held to first,
 # then both sides of its crossover
 ROUTE_SHAPES = [(4, L_LONG), (16, L_ROUTE), (1, L_ROUTE), (2, L_ROUTE), (3, L_ROUTE), (4, L_ROUTE),
-                (8, L_ROUTE), (2, L_LONG), (3, L_LONG), (5, L_LONG), (6, L_LONG), (8, L_LONG), (16, L_LONG),
-                (23, L_LONG)]
+                (8, L_ROUTE), (2, L_LONG), (3, L_LONG), (5, L_LONG), (6, L_LONG), (7, L_LONG), (8, L_LONG),
+                (16, L_LONG), (23, L_LONG)]
 COUNT_WARPS = (1, 2, 3, 4, 8, 16, 32)  # phase 13 (a): nw_count_masks at each forced W
 COUNT_SWEEP = (1, 2, 4, 8, 16, 32)  # phase 13: the sweep of W at the timed shapes
 MASK_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel
@@ -2738,6 +2919,14 @@ class forced_route:
         nwm.takes_mask_route = self.saved
 
 
+def mask_path_batches():
+    """Phase 13 (b), (c)'s batches as (key, pairs, bp, pairs' bytes):
+    10 240 x 150 bp, 128 x 2 048 bp, 4 x 10 240 bp."""
+    rng = np.random.default_rng(131)
+    return [(key, nb, L, rand_pairs(rng, nb, L, L)) for key, nb, L in
+            (("b", 10240, L_SHORT), ("b", 128, L_ARROWS), ("c", 4, L_LONG))]
+
+
 def masks_path(card, a211, route_pairs, big, p10, timers):
     """Phase 13 (b)-(e) with every new kernel's launch counter from 0:
     fill_arrows_auto, count and walk at 10 240 x 150 bp, 128 x 2 048 bp
@@ -2754,10 +2943,8 @@ def masks_path(card, a211, route_pairs, big, p10, timers):
     wrappers = mask_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    rng = np.random.default_rng(131)
     out = {}
-    for key, nb, L in (("b", 10240, L_SHORT), ("b", 128, L_ARROWS), ("c", 4, L_LONG)):
-        ps = rand_pairs(rng, nb, L, L)
+    for key, nb, L, ps in mask_path_batches():
         T = enc.upload(enc.encode_batch(ps, L, L), dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2840,6 +3027,7 @@ def masks_phase(card, bound):
         errs = {name: 0 for name in MASK_KERNELS}
         t0 = time.perf_counter()
         mask_kernels_vs_plain(dev, errs)
+        mask_walk_edges_vs_plain(dev, errs)
         log(f"phase 13 (a) seconds {time.perf_counter() - t0:.1f}")
         route_pairs = {(nb, L): rand_pairs(np.random.default_rng(nb * L), nb, L, L) for nb, L in ROUTE_SHAPES}
         timers = {"_small_align": 0.0, "_host_last_row": 0.0, "_device_last_row": 0.0}
@@ -2968,17 +3156,23 @@ def masks_phase(card, bound):
             shape=f"128x{L_ARROWS}bp masks, {W} warps a pair; 4x{L_LONG}bp {min(turns4[W4]):.3f} ms at "
                   f"W = {W4} (one warp a pair {min(turns4[1]):.3f} ms in turns)",
             warps=W, one_warp_ms=min(turns[1]))
+        oc = out[4, L_LONG]
+        walk4_ms = cuda_ms(lambda: tb.walk_masks_batch(oc["masks"], *oc["T"][2:], 2 * L_LONG), 3)
+        longest, longest4 = int(o["n"].max()), int(oc["n"].max())
         rec["nw_walk_masks"] = dict(
             ms=walk_ms, plain_ms=o["plain_walk_ms"],
             **bound(steps * OPS_WALK_STEP, tensor_bytes(*T[2:], o["n"]) + 2 * steps),
-            span_floor_ms=bound.span(int(o["n"].max())), shape=f"128x{L_ARROWS}bp, {steps} steps")
+            span_floor_ms=bound.span(longest), ns_per_step=walk_ms * 1e6 / longest,
+            smem_load_cycles=bound.smem_cycles, ms_4x10240bp=walk4_ms,
+            shape=f"128x{L_ARROWS}bp, {steps} steps, longest {longest}; 4x{L_LONG}bp {walk4_ms:.3f} ms, "
+                  f"longest {longest4} steps ({walk4_ms * 1e6 / longest4:.1f} ns a step), span floor "
+                  f"{bound.span(longest4):.4f} ms")
         for nb, L in ((10240, L_SHORT), (4, L_LONG)):
             ob = out[nb, L]
             log(f"phase 13 kernels at {nb}x{L}bp: nw_fill_masks_batch "
                 f"{cuda_ms(lambda: fb.fill_masks_banded_batch(*ob['T'], 2, 1, 1), 3):.3f} ms, nw_count_masks "
                 f"{cuda_ms(lambda: pc.count_masks_batch(ob['masks'], *ob['T'][2:]), 2):.3f} ms, nw_walk_masks "
                 f"{cuda_ms(lambda: tb.walk_masks_batch(ob['masks'], *ob['T'][2:], 2 * L), 2):.3f} ms [{card}]")
-        oc = out[4, L_LONG]
         fold_ms = cuda_ms(lambda: fs.fill_arrows_fold_batch(*oc["T"], 2, 1, 1), 2)
         one_ms = cuda_ms(lambda: fs.fill_arrows_fold_batch(*(t[:1] for t in oc["T"]), 2, 1, 1), 3)
         rec["nw_fill_masks/fold"] = dict(

@@ -70,11 +70,35 @@
 // nw_fill_masks a pair at a time): the jnp walk of
 // nw_tpu/ops/traceback.py:38 traceback_greedy, vmapped at :197-207 over
 // the masks of K2's pack_bits=8 mode and of K10.  Each step takes the
-// first set bit in diag > left > up order, UP where none is set; row 0
-// steps LEFT, as nw_walk.  One thread a pair, bound by the same chain of
-// dependent loads (a byte a cell: a diagonal step moves to another row).
+// first set bit of bits 0-2 in diag > left > up order, UP where none is
+// set (bits 3-7 are not read); row 0 steps LEFT, as nw_walk.  Its design
+// (walk_masks_staged) is walk_staged's over row-major bytes.  A warp a
+// walk, kMaskWarps walks a block.  The walk's cells again fall in column
+// and row, so each band's columns [top - kMaskCols + 1, top], top = the
+// walk's i on entering the band D below, are copied into a ring slot D
+// bands ahead.  A band's slot is 32 row pieces, not one contiguous run:
+// rows start A+1 bytes apart, at any offset mod 16, so a 2-D TMA copy
+// (whose global stride is a multiple of 16 bytes) cannot take them.
+// Each piece is widened to the 16-byte blocks that hold it and copied by
+// 16-byte cp.async (LDGSTS), the band's blocks spread over the warp's
+// lanes, each lane arriving on the slot's mbarrier when its copies land;
+// a one-dimensional bulk copy a row (cp.async.bulk) cost five times as
+// many cycles a step to issue (~50 against ~10, walk_profile.py's
+// counters on an H100).  Row jj's lane keeps its offset in its first
+// block.  A widened copy never touches an unmapped page:
+// each 16-byte block it reads holds a byte of the row piece, which lies
+// in the table, and a page is a whole number of aligned 16-byte blocks.
+// From the slot, each lane expands kMaskTableCols bytes of its row, from
+// the walk's column down, into a table of byte deltas (LEFT 1, UP a
+// table row, DIAG a table row + 1) with a funnel shift and four byte
+// operations a word of four cells, so that a step is again one
+// shared-memory byte load and one subtract on the chain; a walk that
+// leaves the table's columns expands it again, one that leaves the slot's
+// re-copies it at its column and waits.  Tensor cores have no part in a
+// walk.  A table whose column 0 is not UP (no fill writes one) stops the
+// walk where it leaves column 0.
 //
-// nw_walk_runs is nw_walk_masks's kernel in its third mode: the run-skip
+// nw_walk_runs is nw_walk_kernel in its one mode: the run-skip
 // walk over the run bytes min(run, 63) << 2 | code of nw_fill.cu's RUNS
 // mode (nw_fill_runs_batch), the counterpart of
 // nw_tpu/ops/banded_traceback.py:187 _make_runs_walk_loop.  Each
@@ -102,7 +126,8 @@
 // instead, uint8[rows, A+1] row-major from nw_fill_tile's masks mode
 // (K28): the first set bit in diag > left > up order, UP where none is
 // set, as the relay walk over K28's words does
-// (nw_tpu/parallel/huge_pair.py:894-903, _make_arrow_at_pallas).
+// (nw_tpu/parallel/huge_pair.py:894-903, _make_arrow_at_pallas); one warp
+// on walk_masks_staged's ring, a launch a window.
 //
 // sw_walk is the Smith-Waterman walk over the local codes of
 // nw_fill.cu's LOCAL mode (sw_fill_codes): the jnp loops
@@ -143,10 +168,10 @@ constexpr int kOpLeft = 1;
 constexpr int kOpUp = 2;
 constexpr int kCodeStop = 3;
 
-// the byte tables nw_walk_kernel and nw_walk_window_kernel walk (the
-// band-major 2-bit codes go through walk_staged)
-constexpr int kWalkMasks = 1;  // row-major 3-bit tie masks
-constexpr int kWalkRuns = 2;   // row-major run bytes (nw_fill_runs_batch)
+// the byte table nw_walk_kernel walks, its template argument (the
+// band-major 2-bit codes go through walk_staged, the tie masks through
+// walk_masks_staged)
+constexpr int kWalkRuns = 2;  // row-major run bytes (nw_fill_runs_batch)
 
 // The 2-bit code of code row r, column i (band-major, TW words a band row)
 __device__ __forceinline__ int code_at(const unsigned* __restrict__ base,
@@ -156,26 +181,6 @@ __device__ __forceinline__ int code_at(const unsigned* __restrict__ base,
   const int t = i + jj;
   const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 4)) * 32 + jj];
   return (w >> (2 * (t & 15))) & 3u;
-}
-
-// The op of a 3-bit tie mask: its first set bit, diag > left > up
-__device__ __forceinline__ int mask_op(unsigned v) {
-  return (v & 1u) ? kOpDiag : ((v & 2u) ? kOpLeft : kOpUp);
-}
-
-// Walk from (i, j) over the tie masks of rows j0+1 .. (a row-major table,
-// `stride` = A+1 masks a row), writing ops from out[n]; stops at row j0
-// when j0 > 0, else at the origin, or after S ops.
-__device__ __forceinline__ void walk_masks(const unsigned char* __restrict__ base, int stride,
-                                           int j0, int S, int& i, int& j, int& n,
-                                           signed char* __restrict__ out) {
-  while ((j > j0 || (j0 == 0 && i > 0)) && n < S) {
-    int a = kOpLeft;  // row 0 is not stored: LEFT to the origin
-    if (j > 0) a = mask_op(base[static_cast<int64_t>(j - j0 - 1) * stride + i]);
-    out[n++] = static_cast<signed char>(a);
-    i -= a != kOpUp;
-    j -= a != kOpLeft;
-  }
 }
 
 // The run-skip walk from (i, j) to the origin over run bytes of rows
@@ -204,8 +209,8 @@ __device__ __forceinline__ void walk_runs(const unsigned char* __restrict__ base
   }
 }
 
-// a pair's nbands = Bs+1 rows of TW = A+1 tie masks (kWalkMasks) or run
-// bytes (kWalkRuns), a thread a pair
+// a pair's nbands = Bs+1 rows of TW = A+1 run bytes, a thread a pair
+// (LAYOUT is kWalkRuns, the one table it walks)
 template <int LAYOUT>
 __global__ void nw_walk_kernel(const void* __restrict__ codes,
                                const int* __restrict__ lens1,
@@ -222,27 +227,8 @@ __global__ void nw_walk_kernel(const void* __restrict__ codes,
   // the stored rows start at row 1: the table's row 0 is skipped
   const unsigned char* base =
       static_cast<const unsigned char*>(codes) + (b * nbands + 1) * static_cast<int64_t>(TW);
-  if (LAYOUT == kWalkRuns)
-    walk_runs(base, TW, S, i, j, n, ops + b * S);
-  else
-    walk_masks(base, TW, 0, S, i, j, n, ops + b * S);
+  walk_runs(base, TW, S, i, j, n, ops + b * S);
   ns[b] = n;
-}
-
-// One block of rows of one pair, one thread: `nbands` rows of `TW` = A+1
-// tie masks (LAYOUT is kWalkMasks, the one byte table a window walks)
-template <int LAYOUT>
-__global__ void nw_walk_window_kernel(const void* __restrict__ codes,
-                                      int nbands, int TW, int j0,
-                                      int* __restrict__ state, int S,
-                                      signed char* __restrict__ ops) {
-  int i = state[0], j = state[1], n = state[2];
-  // a start outside the block's masks walks nowhere (n stays short)
-  if (j < j0 || j > j0 + nbands || i < 0 || i >= TW || n < 0) return;
-  walk_masks(static_cast<const unsigned char*>(codes), TW, j0, S, i, j, n, ops);
-  state[0] = i;
-  state[1] = j;
-  state[2] = n;
 }
 
 // ---- the staged walk over band-major 2-bit codes ----
@@ -375,13 +361,43 @@ __device__ __forceinline__ unsigned step(uint32_t& p) {
   return v;
 }
 
-// out[from .. to) from the op buffer's values (to - from <= kOpBuf), 32
-// bytes an instruction across the warp
+// out[from .. to) from the op buffer's values (to - from <= kOpBuf), OP
+// the op of a value, 32 bytes an instruction across the warp
+template <signed char (*OP)(unsigned)>
 __device__ __forceinline__ void flush_ops(const unsigned char* buf, int from, int to, int lane,
                                           signed char* __restrict__ out) {
   __syncwarp();
-  for (int q = lane; q < to - from; q += 32) out[from + q] = delta_op(buf[q]);
+  for (int q = lane; q < to - from; q += 32) out[from + q] = OP(buf[q]);
   __syncwarp();
+}
+
+// Steps from the delta table's cell at shared address p until it reads 0
+// (the walk has left the table), the op buffer is full or the walk has n
+// = S ops; lane 0 puts each step's byte at buf[n - flushed].  Returns the
+// last byte read.
+__device__ __forceinline__ unsigned walk_table(uint32_t& p, int& n, int flushed, int S,
+                                               unsigned char* buf, int lane) {
+  const int lim = imin(S, flushed + kOpBuf);
+  unsigned v = 1;
+  while (n + kUnroll <= lim) {
+    unsigned char* at = buf + (n - flushed);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      v = step(p);
+      if (lane == 0) at[u] = v;
+      n += v != 0;
+    }
+    if (v == 0) break;
+  }
+  if (v != 0) {
+    while (n < lim) {
+      v = step(p);
+      if (lane == 0) buf[n - flushed] = v;
+      n += v != 0;
+      if (v == 0) break;
+    }
+  }
+  return v;
 }
 
 // Walk from (i, j) over the 2-bit codes of rows j0+1 .. j0+32*nbands
@@ -461,31 +477,12 @@ __device__ __forceinline__ void walk_staged(const unsigned* __restrict__ codes, 
           p = smem_u32(table) + (jj + 1) * kRowBytes + 16 + t - 16 * c0;
           fresh = false;
         }
-        const int lim = imin(S, flushed + kOpBuf);
-        unsigned v = 1;
-        while (n + kUnroll <= lim) {
-          unsigned char* at = buf + (n - flushed);
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            v = step(p);
-            if (lane == 0) at[u] = v;
-            n += v != 0;
-          }
-          if (v == 0) break;
-        }
-        if (v != 0) {
-          while (n < lim) {
-            v = step(p);
-            if (lane == 0) buf[n - flushed] = v;
-            n += v != 0;
-            if (v == 0) break;
-          }
-        }
+        const unsigned v = walk_table(p, n, flushed, S, buf, lane);
         const int a = static_cast<int>(p - smem_u32(table)), row = a / kRowBytes, off = a - row * kRowBytes;
         jj = row - 1;
         t = 16 * c0 + off - 16;
         if (v != 0) {  // the buffer is full, or the cut after S ops
-          flush_ops(buf, flushed, n, lane, out);
+          flush_ops<delta_op>(buf, flushed, n, lane, out);
           flushed = n;
           if (n == S) {
             cut = true;
@@ -517,7 +514,7 @@ __device__ __forceinline__ void walk_staged(const unsigned* __restrict__ codes, 
     j = j0 + 32 * band + jj + 1;
     ring.drain();
   }
-  flush_ops(buf, flushed, n, lane, out);
+  flush_ops<delta_op>(buf, flushed, n, lane, out);
   if (j0 == 0 && j == 0 && i > 0 && n < S) {  // row 0: LEFT to the origin
     const int m = imin(i, S - n);
     for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpLeft);
@@ -556,6 +553,284 @@ __global__ void nw_walk_window_staged_kernel(const unsigned* __restrict__ codes,
   // a start outside the block's codes walks nowhere (n stays short)
   if (j < j0 || j > j0 + 32 * nbands || i < 0 || i >= 16 * TW - 31 || n < 0) return;
   walk_staged(codes, TW, smem, j0, S, i, j, n, ops);
+  if (threadIdx.x == 0) {
+    state[0] = i;
+    state[1] = j;
+    state[2] = n;
+  }
+}
+
+// ---- the staged walk over row-major tie masks ----
+
+// Its staging: columns a row piece (a multiple of 16), bands copied ahead
+// into a ring of D + 1 slots, walks (warps) a block of nw_walk_masks, and
+// the columns of the delta table.  From a sweep on an H100 (a deeper ring
+// copies a band at a column further right of where the walk enters it,
+// so more re-copies); scripts/walk_profile.py --masks --sweep rebuilds
+// this file with others.
+#ifndef NW_WALK_MASK_COLS
+#define NW_WALK_MASK_COLS 128
+#endif
+#ifndef NW_WALK_MASK_DEPTH
+#define NW_WALK_MASK_DEPTH 1
+#endif
+#ifndef NW_WALK_MASK_WARPS
+#define NW_WALK_MASK_WARPS 2
+#endif
+#ifndef NW_WALK_MASK_TABLE
+#define NW_WALK_MASK_TABLE 64
+#endif
+constexpr int kMaskCols = NW_WALK_MASK_COLS;
+constexpr int kMaskDepth = NW_WALK_MASK_DEPTH;
+constexpr int kMaskRing = kMaskDepth + 1;
+constexpr int kMaskWarps = NW_WALK_MASK_WARPS;
+constexpr int kMaskTableCols = NW_WALK_MASK_TABLE;
+constexpr int kMaskPitch = kMaskCols + 16;  // a slot's row: the piece widened to 16-byte blocks
+constexpr int kMaskBlocks = kMaskPitch / 16;
+// a delta table row: a 16-byte block of sentinels, then a byte a column;
+// its deltas (up to kMaskRowBytes + 1) fit a byte
+constexpr int kMaskRowBytes = 16 + kMaskTableCols;
+static_assert(kMaskCols % 16 == 0 && kMaskTableCols % 16 == 0 && kMaskTableCols <= kMaskCols &&
+              kMaskRowBytes + 1 < 256, "the masks walk's staging");
+// A warp's shared memory: the ring's slots, the delta table (33 rows), the
+// ring's mbarriers and segment starts, the op buffer; a multiple of 128
+constexpr int kMaskWarpBytes =
+    (kMaskRing * 32 * kMaskPitch + 33 * kMaskRowBytes + kMaskRing * 12 + kOpBuf + 127) & ~127;
+static_assert(kMaskWarps * kMaskWarpBytes <= 48 * 1024, "a block's staging past 48 KB of shared memory");
+
+// One warp's ring of band segments of a row-major table: slot s holds, in
+// row jj of 32, the 16-byte blocks of band b's row 32b + jj that cover
+// columns [lo[s], top].  Every lane holds the same copy of the registers
+// but `lane`; the lanes share a band's copies, every lane waits.
+struct MaskRing {
+  const unsigned char* masks;  // row r of the walk's table at masks + r * TW
+  int TW, rows;
+  unsigned char* seg;  // kMaskRing slots of 32 rows of kMaskPitch bytes
+  uint32_t bars;       // shared address of slot 0's mbarrier (8 bytes a slot)
+  int* lo;             // each slot's first column
+  unsigned phase;      // bit s: the parity of slot s's next completion
+  unsigned pending;    // bit s: slot s has a copy in flight
+  int lane;
+
+  __device__ void init() {
+    if (lane == 0) {
+      for (int s = 0; s < kMaskRing; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;" ::"r"(bars + 8 * s) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    phase = pending = 0;
+    __syncwarp();
+  }
+
+  // The row's offset in its slot: where column lo[s] lies in its first block
+  __device__ int offset(int s, int b) const {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(masks + static_cast<int64_t>(32 * b + lane) * TW + lo[s]) &
+                            15);
+  }
+
+  // Copy band b's columns [top - kMaskCols + 1, top] (cut at 0 and A) into
+  // slot s by 16-byte cp.async, each lane arriving on the slot's mbarrier
+  // when its copies land (a row past the table copies nothing).  The
+  // warp's reads of the slot are done and ordered before the copy by
+  // __syncwarp, as in CodeRing::load.
+  __device__ void load(int s, int b, int top) {
+    top = imax(imin(top, TW - 1), 0);
+    const int l = imax(top - kMaskCols + 1, 0);
+    const int row = 32 * b + lane;
+    const uintptr_t from = reinterpret_cast<uintptr_t>(masks + static_cast<int64_t>(row) * TW + l);
+    const uintptr_t first = from & ~static_cast<uintptr_t>(15);
+    // the row's last block that holds a byte of its piece, -1 past the table
+    const int last = row < rows ? static_cast<int>((from + (top - l) - first) >> 4) : -1;
+    const uint32_t dst = smem_u32(seg + s * 32 * kMaskPitch);
+    __syncwarp();
+    lo[s] = l;
+    // turn k: lane q copies block c of row r, 32k + q = r * kMaskBlocks + c,
+    // so that a turn reads a few rows' neighbouring blocks, not 32 rows
+    // (5-7% faster a walk)
+    for (int k = 0; k < kMaskBlocks; ++k) {
+      const int q = 32 * k + lane, r = q / kMaskBlocks, c = q - r * kMaskBlocks;
+      const uint64_t at = static_cast<uint64_t>(__shfl_sync(0xffffffffu, static_cast<unsigned>(first >> 32), r)) << 32 |
+                          __shfl_sync(0xffffffffu, static_cast<unsigned>(first), r);
+      if (c <= __shfl_sync(0xffffffffu, last, r))
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                     ::"r"(dst + r * kMaskPitch + 16 * c), "l"(at + 16 * c) : "memory");
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bars + 8 * s) : "memory");
+    pending |= 1u << s;
+  }
+
+  __device__ void wait(int s) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "MWAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra MWAIT;\n"
+        "}\n" ::"r"(bars + 8 * s), "r"((phase >> s) & 1u) : "memory");
+    phase ^= 1u << s;
+    pending &= ~(1u << s);
+  }
+
+  // No copy may outlive the block: wait for the ones the walk left behind
+  __device__ void drain() {
+    for (int s = 0; s < kMaskRing; ++s)
+      if (pending >> s & 1u) wait(s);
+  }
+};
+
+// Four tie masks (a byte each) -> their delta-table bytes: DIAG
+// kMaskRowBytes + 1 where bit 0 is set, else LEFT 1 where bit 1 is, else
+// UP kMaskRowBytes; bits 2-7 are not read
+__device__ __forceinline__ unsigned mask_deltas(unsigned x) {
+  const unsigned diag = x & 0x01010101u;
+  const unsigned left = (x >> 1) & ~x & 0x01010101u;
+  return kMaskRowBytes * 0x01010101u + diag - left * (kMaskRowBytes - 1);
+}
+
+// The op of a masks delta-table cell's value v (never a sentinel's 0)
+__device__ __forceinline__ signed char mask_delta_op(unsigned v) {
+  return static_cast<signed char>(v == 1u ? kOpLeft : v == kMaskRowBytes ? kOpUp : kOpDiag);
+}
+
+// Walk from (i, j) over the tie masks of rows j0+1 .. j0+rows (`masks`,
+// row-major, TW = A+1 bytes a row: cell row j at row j - j0 - 1), writing
+// ops from out[n]; stops at row j0 when j0 > 0, else at the origin (LEFT
+// along row 0), or after S ops.  A warp, every lane with the same (i, j,
+// n) in and out; wsmem is its kMaskWarpBytes of shared memory.
+//
+// On entering a band (or leaving its table's columns) each lane jj
+// expands columns [c0, c0 + kMaskTableCols) of its row from the slot into
+// row jj + 1 of a table of bytes: cell (jj, i) at byte (jj + 1) *
+// kMaskRowBytes + 16 + i - c0 holds how far back its predecessor lies, 1
+// (LEFT), kMaskRowBytes (UP) or kMaskRowBytes + 1 (DIAG).  Row jj = -1 and
+// each row's first 16 bytes hold 0: a walk that reads 0 has left the band
+// or the table's columns, and stays there.  c0 is the walk's column less
+// kMaskTableCols - 1, cut at the slot's first column, so that every cell
+// the walk can reach from its cell in the table (rows jj and below,
+// columns c0 .. i) lies in the slot.  A step is one byte load and one
+// subtract; its byte goes to the op buffer, and its op comes from it at
+// the flush.
+__device__ __forceinline__ void walk_masks_staged(const unsigned char* __restrict__ masks, int TW,
+                                                  int rows, unsigned char* wsmem, int j0, int S,
+                                                  int& i, int& j, int& n,
+                                                  signed char* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  unsigned char* table = wsmem + kMaskRing * 32 * kMaskPitch;
+  unsigned char* books = table + 33 * kMaskRowBytes;  // the mbarriers, then lo
+  unsigned char* buf = books + kMaskRing * 12;
+  int flushed = n;  // out[flushed .. n) wait in buf
+  if (j > j0 && n < S) {
+    MaskRing slots{masks, TW, rows, wsmem, smem_u32(books),
+                   reinterpret_cast<int*>(books + 8 * kMaskRing), 0, 0, lane};
+    slots.init();
+    const int r = j - j0 - 1;
+    int band = r >> 5, jj = r & 31;
+    int s = band % kMaskRing;  // band's slot; band - q's is (s - q) mod kMaskRing
+    for (int q = 0; q <= kMaskDepth && band - q >= 0; ++q)
+      slots.load((s - q + kMaskRing) % kMaskRing, band - q, i);
+    for (int q = lane; q < 33 * kMaskRowBytes / 16; q += 32)
+      reinterpret_cast<uint4*>(table)[q] = make_uint4(0, 0, 0, 0);
+    __syncwarp();
+    int c0 = 0;
+    uint32_t p = 0;  // the shared address of the walk's cell in the table
+    for (bool cut = false; !cut;) {  // a band a pass, from its row jj down
+      slots.wait(s);
+      for (bool fresh = true;;) {
+        if (fresh) {  // the table from i's column down, from the band's slot
+          __syncwarp();  // every lane's reads of the table before it is rewritten
+          if (i < 0) {  // left column 0 (whose cells a fill writes UP): stop
+            cut = true;
+            break;
+          }
+          if (i < slots.lo[s]) {  // left of the slot: copy the band's columns at i
+            slots.load(s, band, i);
+            slots.wait(s);
+          }
+          const int lo = slots.lo[s];
+          c0 = imax(i - kMaskTableCols + 1, lo);
+          // the lane's row from byte `at` of its slot row, a word of four
+          // cells at a time: loads first, so that they overlap
+          const int at = slots.offset(s, band) + c0 - lo;
+          const unsigned* src =
+              reinterpret_cast<const unsigned*>(slots.seg + (s * 32 + lane) * kMaskPitch) + (at >> 2);
+          unsigned w[kMaskTableCols / 4 + 1], d[kMaskTableCols / 4];
+#pragma unroll
+          for (int q = 0; q <= kMaskTableCols / 4; ++q) w[q] = src[q];
+#pragma unroll
+          for (int q = 0; q < kMaskTableCols / 4; ++q) d[q] = mask_deltas(__funnelshift_r(w[q], w[q + 1], 8 * (at & 3)));
+          uint4* row = reinterpret_cast<uint4*>(table + (lane + 1) * kMaskRowBytes + 16);
+#pragma unroll
+          for (int c = 0; c < kMaskTableCols / 16; ++c)
+            row[c] = make_uint4(d[4 * c], d[4 * c + 1], d[4 * c + 2], d[4 * c + 3]);
+          __syncwarp();
+          p = smem_u32(table) + (jj + 1) * kMaskRowBytes + 16 + i - c0;
+          fresh = false;
+        }
+        const unsigned v = walk_table(p, n, flushed, S, buf, lane);
+        const int a = static_cast<int>(p - smem_u32(table)), row = a / kMaskRowBytes;
+        jj = row - 1;
+        i = c0 + a - row * kMaskRowBytes - 16;
+        if (v != 0) {  // the buffer is full, or the cut after S ops
+          flush_ops<mask_delta_op>(buf, flushed, n, lane, out);
+          flushed = n;
+          if (n == S) {
+            cut = true;
+            break;
+          }
+          continue;
+        }
+        if (jj < 0) break;  // the band's last row is done
+        fresh = true;  // left of the table's columns
+      }
+      if (cut || band == 0) break;  // band 0's last row done: row j0
+      // into the band above at its row 31, column i; its slot s - 1,
+      // band - kMaskDepth's the slot just left
+      --band;
+      jj = 31;
+      const int left = s;
+      s = s ? s - 1 : kMaskRing - 1;
+      if (band - kMaskDepth >= 0) slots.load(left, band - kMaskDepth, i);
+    }
+    j = j0 + 32 * band + jj + 1;
+    slots.drain();
+  }
+  flush_ops<mask_delta_op>(buf, flushed, n, lane, out);
+  if (j0 == 0 && j == 0 && i > 0 && n < S) {  // row 0: LEFT to the origin
+    const int m = imin(i, S - n);
+    for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpLeft);
+    n += m;
+    i -= m;
+  }
+}
+
+// A batch of pairs, a warp a pair, kMaskWarps pairs a block: a pair's Bs+1
+// rows of TW = A+1 tie masks, row 0 not read
+__global__ void nw_walk_masks_staged_kernel(const unsigned char* __restrict__ masks,
+                                            const int* __restrict__ lens1,
+                                            const int* __restrict__ lens2, int B, int Bs,
+                                            int TW, int S, signed char* __restrict__ ops,
+                                            int* __restrict__ ns) {
+  __shared__ __align__(128) unsigned char smem[kMaskWarps * kMaskWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kMaskWarps + warp;
+  if (b >= B) return;
+  int i = lens1[b];
+  int j = lens2[b];
+  int n = 0;
+  walk_masks_staged(masks + (b * (Bs + 1) + 1) * TW, TW, Bs, smem + warp * kMaskWarpBytes, 0, S, i, j,
+                    n, ops + b * S);
+  if ((threadIdx.x & 31) == 0) ns[b] = n;
+}
+
+// One block of rows of one pair, one warp: `rows` rows of TW = A+1 tie masks
+__global__ void nw_walk_window_masks_staged_kernel(const unsigned char* __restrict__ masks, int rows,
+                                                   int TW, int j0, int* __restrict__ state, int S,
+                                                   signed char* __restrict__ ops) {
+  __shared__ __align__(128) unsigned char smem[kMaskWarpBytes];
+  int i = state[0], j = state[1], n = state[2];
+  // a start outside the block's masks walks nowhere (n stays short)
+  if (j < j0 || j > j0 + rows || i < 0 || i >= TW || n < 0) return;
+  walk_masks_staged(masks, TW, rows, smem, j0, S, i, j, n, ops);
   if (threadIdx.x == 0) {
     state[0] = i;
     state[1] = j;
@@ -692,17 +967,17 @@ extern "C" int nw_smem_chase(int steps, long long* out, void* stream) {
 }
 
 // masks: uint8[B, Bs+1, A+1] tie masks (row-major, a pair's table after
-// another); ops: int8[B, S] prefilled with OP_NONE; ns: int32[B].  S must
-// be >= every len1 + len2.
+// another, at any alignment); ops: int8[B, S] prefilled with OP_NONE; ns:
+// int32[B].  S must be >= every len1 + len2.  A warp a pair on
+// walk_masks_staged's ring.
 extern "C" int nw_walk_masks(const void* masks, const int* lens1,
                              const int* lens2, int B, int A, int Bs, int S,
                              signed char* ops, int* ns, void* stream) {
   if (B <= 0) return 0;
   if (A < 0 || Bs < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  nw_walk_kernel<kWalkMasks><<<(B + threads - 1) / threads, threads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      masks, lens1, lens2, B, Bs + 1, A + 1, S, ops, ns);
+  nw_walk_masks_staged_kernel<<<(B + kMaskWarps - 1) / kMaskWarps, 32 * kMaskWarps, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(masks), lens1, lens2, B, Bs, A + 1, S, ops, ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -742,8 +1017,9 @@ extern "C" int sw_walk(const void* codes, const int* jstar, const int* istar,
 // A start with j outside [j0, j0 + 32*nbands] or i + 32 > 16*TW leaves
 // state as it was.  One warp on walk_staged's ring.  masks != 0: codes is
 // uint8[nbands, TW] instead, the tie masks of rows j0+1 .. j0+nbands with
-// TW = A+1 columns (nw_fill_tile's masks mode), walked by one thread; a
-// start outside [j0, j0 + nbands] x [0, TW) leaves state as it was.
+// TW = A+1 columns (nw_fill_tile's masks mode, at any alignment), walked
+// by one warp on walk_masks_staged's ring; a start outside [j0, j0 +
+// nbands] x [0, TW) leaves state as it was.
 extern "C" int nw_walk_window(const void* codes, int nbands, int TW, int j0,
                               int* state, int S, signed char* ops, int masks,
                               void* stream) {
@@ -751,7 +1027,8 @@ extern "C" int nw_walk_window(const void* codes, int nbands, int TW, int j0,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (masks) {
-    nw_walk_window_kernel<kWalkMasks><<<1, 1, 0, s>>>(codes, nbands, TW, j0, state, S, ops);
+    nw_walk_window_masks_staged_kernel<<<1, 32, 0, s>>>(static_cast<const unsigned char*>(codes), nbands,
+                                                       TW, j0, state, S, ops);
     return static_cast<int>(cudaGetLastError());
   }
   if (!codes_aligned(codes, static_cast<int64_t>(nbands) * TW))

@@ -50,17 +50,20 @@ SINGLE_PAIR_SIDE_PER_PAIR = 2000
 # longer ones a pair at a time (nw_tpu fill_auto.py:294-309)
 LANES_ARROWS_MAX_SIDE = 2048
 # align_batch's mask route (tie masks a pair at a time, every SM on it,
-# then one walk) against its codes route (a block a pair), strings and
-# counts, timed in turns by scripts/single_shapes.py --routes (chip_smoke.py
-# phase 13's batches) on an H100 80GB HBM3 at 700 W (PERF.md, section 6):
-# the mask route costs ~0.33 us a bp of side a pair (16.9 ms for 4 x
-# 10 240 bp), the codes route 19.8-24.7 ms at 10 240 bp for 2 to 23 pairs
-# and 3.8-5.9 ms at 4 096 bp for 1 to 16.  The mask route won at 2 x
-# 4 096 bp (3.78 against 4.03 ms) and 4 x 10 240 bp (16.9 against 21.2),
-# the codes route at 4 x 4 096 bp (4.41 against 6.77) and 8 x 10 240 bp
-# (22.1 against 27.4) and every larger batch timed: the costs cross at nb
-# ~ L / 1 900
-MASK_SIDE_PER_PAIR = 2000
+# then one walk, a warp a pair) against its codes route (a block a pair),
+# strings and counts, timed in turns by scripts/single_shapes.py --routes
+# (chip_smoke.py phase 13's batches) on an H100 80GB HBM3 at 700 W
+# (PERF.md, section 6): the mask route costs ~2.6 ms a pair at 10 240 bp
+# (12.1 ms for 4 pairs, 16.8 for 6), the codes route 18.7-21.2 ms at
+# 10 240 bp for 2 to 23 pairs and 3.6-4.3 ms at 4 096 bp for 1 to 16.  The
+# mask route won at 6 x 10 240 bp (16.8 against 18.9 ms) and 2 x 4 096 bp
+# (3.1 against 3.8), the codes route at 7 x 10 240 bp (19.8 against 20.1)
+# and 3 x 4 096 bp (3.9 against 4.2) and every larger batch timed.  Timed
+# again by scripts/walk_shapes.py --masks, 19 pairs of runs in turns, twice
+# (medians): at 6 x 10 240 bp the mask route won all 38 (16.9, 17.4
+# against 18.9, 19.3 ms), at 7 the codes route all 38 (18.9, 19.0 against
+# 19.5, 19.5).  The costs cross at nb ~ L / 1 500
+MASK_SIDE_PER_PAIR = 1500
 
 
 def takes_single_pair_route(nb: int, L1: int, L2: int) -> bool:

@@ -125,8 +125,11 @@ def walk_masks_batch(
     int8[B, max_steps] (OP_NONE padded) and n int32[B], as
     :func:`traceback_greedy_batch`.
 
-    A CUDA tensor goes through the ``nw_walk_masks`` kernel (one thread
-    a pair); a CPU tensor through :func:`walk_masks_batch_plain`.
+    A CUDA tensor goes through the ``nw_walk_masks`` kernel (a warp a
+    pair, each band's row pieces copied into shared memory one band ahead
+    of it by 16-byte ``cp.async``, the band's blocks spread over the
+    warp's lanes, and expanded into a table of byte deltas); a CPU
+    tensor through :func:`walk_masks_batch_plain`.
     """
     check_masks(masks, lens1, lens2)
     if masks.device.type == "cpu":
@@ -444,8 +447,9 @@ def walk_masks_window(
     order, UP where none is set (``nw_tpu/parallel/huge_pair.py:894-903``);
     the same stops and ``state`` / ``ops`` updates.
 
-    A CUDA tensor goes through ``nw_walk_window``'s masks mode (one
-    thread); a CPU tensor through :func:`walk_masks_window_plain`.
+    A CUDA tensor goes through ``nw_walk_window``'s masks mode (one warp
+    on :func:`walk_masks_batch`'s staging); a CPU tensor through
+    :func:`walk_masks_window_plain`.
     """
     _check_window_args(masks, state, ops, masks=True)
     if j0 < 0:

@@ -1,25 +1,33 @@
-"""Where a staged code walk's cycles go, and how its staging's constants
-(``nw_tpu_torch/csrc/nw_walk.cu``: K = ``NW_WALK_SEG_COLS`` word columns
-a segment, D = ``NW_WALK_DEPTH`` bands copied ahead, ``NW_WALK_WARPS``
-walks a block) move its time: copies of the source built apart from the
+"""Where a staged walk's cycles go, and how its staging's constants move
+its time: copies of ``nw_tpu_torch/csrc/nw_walk.cu`` built apart from the
 package, one a staging, with ``-D`` (all compiles started together).
 
-    python3 scripts/walk_profile.py [--sweep]
+    python3 scripts/walk_profile.py [--sweep] [--masks]
 
+The code walk (``walk_staged``): K = ``NW_WALK_SEG_COLS`` word columns a
+segment, D = ``NW_WALK_DEPTH`` bands copied ahead, ``NW_WALK_WARPS`` walks
+a block; its ``nw_walk`` runs on ``chip_smoke.py``'s 100 000 bp pair, one
+walk, and on config 3's 256 x 10 240 bp pairs (the package's library fills
+the codes).  With ``--masks`` the masks walk (``walk_masks_staged``)
+instead: w = ``NW_WALK_MASK_COLS`` columns a row piece, D =
+``NW_WALK_MASK_DEPTH``, ``NW_WALK_MASK_WARPS`` walks a block, E =
+``NW_WALK_MASK_TABLE`` columns of the delta table; its
+``nw_walk_masks`` runs on ``chip_smoke.py`` phase 13's 128 x 2 048 bp and
+4 x 10 240 bp tie masks (from ``fill_arrows_auto``).
 Without ``--sweep``: an instrumented copy in ``build/walk_profile/``,
-``clock64()`` counters around the sections of ``walk_staged`` (waiting
-for a band's copy, expanding the delta table, issuing the next band's
-copy, walking the table, storing ops, the whole walk; summed over a
-launch's walks by ``atomicAdd``), at the source's staging and two others;
-its ``nw_walk`` (the package's library fills the codes) runs on
-``chip_smoke.py``'s 100 000 bp pair, one walk, and on config 3's 256 x
-10 240 bp pairs.  A line a run: its device ms (CUDA events) and each
-section's cycles a step.  The counters cost a few cycles a section, so
-the copy runs a little slower than the package's kernel.
-``--sweep``: uninstrumented copies at the stagings of ``SWEEP``, timed
-(mean device ms by CUDA events after a warm-up) on the same two walks
-and on the 100 000 bp pair's 79 chained windows (``nw_walk_window``);
-a staging whose block passes 48 KB of shared memory does not compile and
+``clock64()`` counters around the walk's sections (waiting for a band's
+copy, expanding the delta table (for the masks walk with its re-copies),
+issuing the next band's copy, walking the table, storing ops, the whole
+walk; summed over a launch's walks by ``atomicAdd``), at the source's
+staging and two others.  A line a run: its device ms (CUDA events) and
+each section's cycles a step.  The counters cost a few cycles a section,
+so the copy runs a little slower than the package's kernel.
+``--sweep``: uninstrumented copies at the stagings of ``SWEEP`` (or
+``MASK_SWEEP``), timed (mean device ms by CUDA events after a warm-up) on
+the same walks and on the chained windows of ``nw_walk_window``'s mode
+(the code walk: the 100 000 bp pair's 79 windows; the masks walk:
+``chip_smoke.py`` phase 12's 20 000 bp relay, 4 blocks of tie masks); a
+staging whose block passes 48 KB of shared memory does not compile and
 prints as such.  Prints the card's name and power limit first.  Needs the
 card and nvcc.
 """
@@ -39,8 +47,18 @@ SECTIONS = ("wait", "expand", "prefetch", "walk", "flush", "total")
 PROFILED = [(16, 2, 2), (16, 1, 4), (8, 2, 4)]
 SWEEP = [(4, 2, 2), (8, 1, 2), (8, 2, 2), (8, 3, 2), (16, 1, 2), (16, 2, 2), (16, 3, 2), (16, 4, 2),
          (32, 2, 2), (32, 3, 2), (16, 2, 1), (16, 2, 3), (16, 2, 4), (8, 2, 4), (8, 2, 6), (4, 1, 8)]
+# (w, D, warps, E): the masks walk's, the source's first
+MASK_PROFILED = [(128, 1, 2, 64), (128, 2, 2, 64), (64, 1, 2, 32)]
+MASK_SWEEP = [(128, 1, 2, 64), (128, 2, 2, 64), (64, 1, 2, 32), (64, 2, 2, 32), (96, 1, 2, 64), (128, 3, 2, 64),
+              (128, 1, 1, 64), (128, 1, 4, 64), (128, 1, 2, 32), (128, 1, 2, 96), (128, 1, 2, 128), (160, 1, 2, 64),
+              (192, 1, 2, 64), (256, 1, 2, 64), (256, 1, 1, 128)]
+CODE_DEFS = ("NW_WALK_SEG_COLS", "NW_WALK_DEPTH", "NW_WALK_WARPS")
+MASK_DEFS = ("NW_WALK_MASK_COLS", "NW_WALK_MASK_DEPTH", "NW_WALK_MASK_WARPS", "NW_WALK_MASK_TABLE")
+# where the masks walk starts in nw_walk.cu: EDITS apply before it, MASK_EDITS after
+MASK_PART = "// ---- the staged walk over row-major tie masks ----\n"
 
 # (anchor in nw_walk.cu, text to put in its place): the counters
+WALK_TABLE = "        const unsigned v = walk_table(p, n, flushed, S, buf, lane);\n"
 EDITS = [
     ("namespace {\n", "__device__ unsigned long long g_prof[8];\nnamespace {\n"),
     ("  int flushed = n;  // out[flushed .. n) wait in buf\n",
@@ -51,17 +69,37 @@ EDITS = [
     ("        if (fresh) {  // the table from t's column down, from the staged segment\n",
      "        if (fresh) {  // the table from t's column down, from the staged segment\n          T0 = clock64();\n"),
     ("          fresh = false;\n", "          fresh = false;\n          te += clock64() - T0;\n"),
-    ("        const int lim = imin(S, flushed + kOpBuf);\n",
-     "        T0 = clock64();\n        const int lim = imin(S, flushed + kOpBuf);\n"),
-    ("        const int a = static_cast<int>(p", "        tk += clock64() - T0;\n        const int a = static_cast<int>(p"),
-    ("          flush_ops(buf, flushed, n, lane, out);\n          flushed = n;\n",
-     "          T0 = clock64();\n          flush_ops(buf, flushed, n, lane, out);\n          tf += clock64() - T0;\n"
-     "          flushed = n;\n"),
+    (WALK_TABLE, "        T0 = clock64();\n" + WALK_TABLE + "        tk += clock64() - T0;\n"),
+    ("          flush_ops<delta_op>(buf, flushed, n, lane, out);\n          flushed = n;\n",
+     "          T0 = clock64();\n          flush_ops<delta_op>(buf, flushed, n, lane, out);\n"
+     "          tf += clock64() - T0;\n          flushed = n;\n"),
     ("      if (band - kDepth >= 0) ring.load(left, band - kDepth, (t - jj + 31) >> 4);\n",
      "      T0 = clock64();\n      if (band - kDepth >= 0) ring.load(left, band - kDepth, (t - jj + 31) >> 4);\n"
      "      tl += clock64() - T0;\n"),
     ("    ring.drain();\n",
      "    ring.drain();\n    if (lane == 0) {\n"
+     "      const long long c[8] = {tw, te, tl, tk, tf, clock64() - tt, n, 1};\n"
+     "      for (int q = 0; q < 8; ++q) atomicAdd(&g_prof[q], static_cast<unsigned long long>(c[q]));\n"
+     "    }\n"),
+]
+MASK_EDITS = [
+    ("  int flushed = n;  // out[flushed .. n) wait in buf\n",
+     "  int flushed = n;  // out[flushed .. n) wait in buf\n"
+     "  long long T0, tw = 0, te = 0, tl = 0, tk = 0, tf = 0, tt = clock64();\n"),
+    ("      slots.wait(s);\n      for (bool fresh = true;;) {\n",
+     "      T0 = clock64();\n      slots.wait(s);\n      tw += clock64() - T0;\n      for (bool fresh = true;;) {\n"),
+    ("        if (fresh) {  // the table from i's column down, from the band's slot\n",
+     "        if (fresh) {  // the table from i's column down, from the band's slot\n          T0 = clock64();\n"),
+    ("          fresh = false;\n", "          fresh = false;\n          te += clock64() - T0;\n"),
+    (WALK_TABLE, "        T0 = clock64();\n" + WALK_TABLE + "        tk += clock64() - T0;\n"),
+    ("          flush_ops<mask_delta_op>(buf, flushed, n, lane, out);\n          flushed = n;\n",
+     "          T0 = clock64();\n          flush_ops<mask_delta_op>(buf, flushed, n, lane, out);\n"
+     "          tf += clock64() - T0;\n          flushed = n;\n"),
+    ("      if (band - kMaskDepth >= 0) slots.load(left, band - kMaskDepth, i);\n",
+     "      T0 = clock64();\n      if (band - kMaskDepth >= 0) slots.load(left, band - kMaskDepth, i);\n"
+     "      tl += clock64() - T0;\n"),
+    ("    slots.drain();\n",
+     "    slots.drain();\n    if (lane == 0) {\n"
      "      const long long c[8] = {tw, te, tl, tk, tf, clock64() - tt, n, 1};\n"
      "      for (int q = 0; q < 8; ++q) atomicAdd(&g_prof[q], static_cast<unsigned long long>(c[q]));\n"
      "    }\n"),
@@ -78,34 +116,47 @@ extern "C" int prof_zero() {
 
 
 def instrumented_source() -> str:
+    """nw_walk.cu with EDITS' counters in the code walk and MASK_EDITS' in
+    the masks walk (each anchor once in its part)."""
     src = (HERE / "nw_tpu_torch" / "csrc" / "nw_walk.cu").read_text()
-    for anchor, text in EDITS:
-        if src.count(anchor) != 1:
-            raise SystemExit(f"walk_profile: anchor not found once in nw_walk.cu: {anchor!r}")
-        src = src.replace(anchor, text)
-    return src + TAIL
+    if src.count(MASK_PART) != 1:
+        raise SystemExit("walk_profile: the masks walk's section not found once in nw_walk.cu")
+    head, tail = src.split(MASK_PART)
+    parts = []
+    for part, edits in ((head, EDITS), (tail, MASK_EDITS)):
+        for anchor, text in edits:
+            if part.count(anchor) != 1:
+                raise SystemExit(f"walk_profile: anchor not found once in its part of nw_walk.cu: {anchor!r}")
+            part = part.replace(anchor, text)
+        parts.append(part)
+    return MASK_PART.join(parts) + TAIL
 
 
-def build(src: Path, stagings) -> dict:
-    """{(K, D, warps): ctypes library, or None where it does not compile}
-    of ``src`` built once a staging, every nvcc started together."""
+def label(defs, staging) -> str:
+    return " ".join(f"{d.removeprefix('NW_WALK_')}={v}" for d, v in zip(defs, staging))
+
+
+def build(src: Path, defs, stagings) -> dict:
+    """{staging: ctypes library, or None where it does not compile} of
+    ``src`` built once a staging (``defs`` = its values), every nvcc
+    started together."""
     from nw_tpu_torch.runtime import kernels
 
     procs = {}
-    for K, D, W in stagings:
-        so = OUT / f"lib{src.stem}-{K}-{D}-{W}.so"
-        defs = [f"-DNW_WALK_SEG_COLS={K}", f"-DNW_WALK_DEPTH={D}", f"-DNW_WALK_WARPS={W}"]
-        procs[(K, D, W)] = (so, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, *defs, "-shared", "-o",
-                                                  str(so), str(src)], stderr=subprocess.PIPE, text=True))
+    for st in stagings:
+        so = OUT / f"lib{src.stem}-{'-'.join(map(str, st))}.so"
+        flags = [f"-D{d}={v}" for d, v in zip(defs, st)]
+        procs[st] = (so, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-shared", "-o",
+                                           str(so), str(src)], stderr=subprocess.PIPE, text=True))
     libs = {}
     for st, (so, proc) in procs.items():
         err = proc.communicate()[1]
         if proc.returncode:
-            print(f"K={st[0]} D={st[1]} warps={st[2]}: does not compile: {err.strip().splitlines()[-1:]}")
+            print(f"{label(defs, st)}: does not compile: {err.strip().splitlines()[-1:]}")
             libs[st] = None
             continue
         lib = ctypes.CDLL(str(so))
-        for name in ("nw_walk", "nw_walk_window"):
+        for name in ("nw_walk", "nw_walk_window", "nw_walk_masks"):
             getattr(lib, name).argtypes = kernels.SIGNATURES[name]
         libs[st] = lib
     return libs
@@ -122,6 +173,7 @@ def main(argv) -> int:
     from nw_tpu_torch import AlignConfig
     from nw_tpu_torch.ops import checkpoint_traceback as ckt
     from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_auto
     from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import fill_single as fs
     from nw_tpu_torch.ops import traceback as tb
@@ -132,22 +184,14 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     OUT.mkdir(parents=True, exist_ok=True)
-    sweep = "--sweep" in argv
+    sweep, masks = "--sweep" in argv, "--masks" in argv
+    defs = MASK_DEFS if masks else CODE_DEFS
     if sweep:
-        libs = build(HERE / "nw_tpu_torch" / "csrc" / "nw_walk.cu", SWEEP)
+        libs = build(HERE / "nw_tpu_torch" / "csrc" / "nw_walk.cu", defs, MASK_SWEEP if masks else SWEEP)
     else:
         src = OUT / "nw_walk_prof.cu"
         src.write_text(instrumented_source())
-        libs = build(src, PROFILED)
-
-    big = cs.rand_pairs(np.random.default_rng(cs.L_HUGE), 1, cs.L_HUGE, cs.L_HUGE)[0]
-    top, side = (torch.from_numpy(enc.encode(x)).cuda() for x in big)
-    codes, _ = fs.fill_codes_single(top, side, 2, 1, 1)
-    lh = torch.tensor([cs.L_HUGE], dtype=torch.int32, device="cuda")
-    c3, _ = cs.config_pairs()
-    LB = AlignConfig().bucket_for(cs.L_LONG)
-    T3 = enc.upload(enc.encode_batch(c3, LB, LB), "cuda")
-    codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
+        libs = build(src, defs, MASK_PROFILED if masks else PROFILED)
     stream = torch.cuda.current_stream().cuda_stream
 
     def check(err):
@@ -158,32 +202,59 @@ def main(argv) -> int:
         B = cd.shape[0]
         ops = torch.full((B, S), tb.OP_NONE, dtype=torch.int8, device="cuda")
         n = torch.empty(B, dtype=torch.int32, device="cuda")
+        if masks:  # (masks, lens1, lens2, B, A, Bs, S, ...)
+            args = (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[2] - 1, cd.shape[1] - 1, S,
+                    ops.data_ptr(), n.data_ptr(), stream)
+            return lambda: check(lib.nw_walk_masks(*args))
         args = (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[1], cd.shape[2], S,
                 ops.data_ptr(), n.data_ptr(), stream)
         return lambda: check(lib.nw_walk(*args))
 
-    runs = ((f"1x{cs.L_HUGE}bp", codes, lh, lh, 2 * cs.L_HUGE), (f"256x{cs.L_LONG}bp", codes3, T3[2], T3[3], 2 * LB))
+    big = cs.rand_pairs(np.random.default_rng(cs.L_HUGE), 1, cs.L_HUGE, cs.L_HUGE)[0]
+    if masks:  # phase 13's 128 x 2 048 bp and 4 x 10 240 bp tie masks
+        runs = []
+        for _, nb, L, ps in cs.mask_path_batches()[1:]:
+            T = enc.upload(enc.encode_batch(ps, L, L), "cuda")
+            runs.append((f"{nb}x{L}bp", fill_auto.fill_arrows_auto(*T, 2, 1, 1)[0], T[2], T[3], 2 * L))
+    else:
+        top, side = (torch.from_numpy(enc.encode(x)).cuda() for x in big)
+        codes, _ = fs.fill_codes_single(top, side, 2, 1, 1)
+        lh = torch.tensor([cs.L_HUGE], dtype=torch.int32, device="cuda")
+        c3, _ = cs.config_pairs()
+        LB = AlignConfig().bucket_for(cs.L_LONG)
+        T3 = enc.upload(enc.encode_batch(c3, LB, LB), "cuda")
+        codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
+        runs = [(f"1x{cs.L_HUGE}bp", codes, lh, lh, 2 * cs.L_HUGE), (f"256x{cs.L_LONG}bp", codes3, T3[2], T3[3], 2 * LB)]
     if sweep:
-        C = ckt.auto_block_diagonals(cs.L_HUGE, cs.L_HUGE)
-        _, ck = fs.score_fold(top, side, 2, 1, 1, checkpoint_every=C)
-        group, _ = fs.fill_codes_blocks(top, side, 2, 1, 1, cs.L_HUGE, cs.L_HUGE, 0, C, ck)
-        blocks = [(r * C, min(cs.L_HUGE, r * C + C)) for r in range(ck.shape[0])][::-1]
-        chain = [(r0, group[:, r0 // 32 : -(-r1 // 32)]) for r0, r1 in blocks]
-        for (K, D, W), lib in libs.items():
+        if masks:
+            tables, H = cs.relay_tables(big)
+            chain_name = f"{len(tables)} windows at {cs.L_PALLAS}bp"
+        else:
+            C = ckt.auto_block_diagonals(cs.L_HUGE, cs.L_HUGE)
+            _, ck = fs.score_fold(top, side, 2, 1, 1, checkpoint_every=C)
+            group, _ = fs.fill_codes_blocks(top, side, 2, 1, 1, cs.L_HUGE, cs.L_HUGE, 0, C, ck)
+            blocks = [(r * C, min(cs.L_HUGE, r * C + C)) for r in range(ck.shape[0])][::-1]
+            chain = [(r0, group[:, r0 // 32 : -(-r1 // 32)]) for r0, r1 in blocks]
+            chain_name = f"{len(chain)} windows at {cs.L_HUGE}bp"
+        for st, lib in libs.items():
             if lib is None:
                 continue
             ms = {name: cs.cuda_ms(walk_fn(lib, cd, l1, l2, S), 3) for name, cd, l1, l2, S in runs}
 
             def window(codes, state, r0, ops, lib=lib):
-                check(lib.nw_walk_window(codes.data_ptr(), codes.shape[1], codes.shape[2], r0,
-                                         state.data_ptr(), ops.shape[0], ops.data_ptr(), 0, stream))
+                rows, TW = (codes.shape[0], codes.shape[1]) if masks else (codes.shape[1], codes.shape[2])
+                check(lib.nw_walk_window(codes.data_ptr(), rows, TW, r0, state.data_ptr(), ops.shape[0],
+                                         ops.data_ptr(), int(masks), stream))
 
-            ms[f"{len(chain)} windows at {cs.L_HUGE}bp"] = cs.cuda_ms(
-                lambda: cs.walk_chain(window, chain, cs.L_HUGE, cs.L_HUGE), 3)
-            print(f"K={K} D={D} warps={W}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+            ms[chain_name] = cs.cuda_ms(
+                (lambda: cs.relay(window, tables, H)) if masks
+                else (lambda: cs.walk_chain(window, chain, cs.L_HUGE, cs.L_HUGE)), 3)
+            print(f"{label(defs, st)}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
         return 0
     host = (ctypes.c_ulonglong * 8)()
-    for (K, D, W), lib in libs.items():
+    for st, lib in libs.items():
+        if lib is None:
+            continue
         lib.prof_get.argtypes = [ctypes.c_void_p]
         for name, cd, l1, l2, S in runs:
             fn = walk_fn(lib, cd, l1, l2, S)
@@ -197,10 +268,9 @@ def main(argv) -> int:
             lib.prof_get(host)
             steps = host[6]
             cyc = {k: round(host[q] / steps, 1) for q, k in enumerate(SECTIONS)}
-            print(f"{name} K={K} D={D} warps={W}: {e0.elapsed_time(e1):.3f} ms, {steps} steps in "
-                  f"{host[7]} walks; cycles a step {cyc}")
+            print(f"{name} {label(defs, st)}: {e0.elapsed_time(e1):.3f} ms, {steps} steps in "
+                  f"{host[7]} walks; cycles a step {cyc}", flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

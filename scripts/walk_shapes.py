@@ -1,14 +1,20 @@
-"""Time the code walks through their public wrappers at ``chip_smoke.py``'s
+"""Time the walks through their public wrappers at ``chip_smoke.py``'s
 shapes, so that two trees can be compared on one card in turns:
 ``nw_walk`` (``walk_codes_batch``) on the 100 000 bp pair's codes (from
 ``fill_codes_single``), at config 3 (256 x 10 240 bp) and at 4 x 10 240
-bp, and ``nw_walk_window``'s codes mode (``walk_codes_window``) chained
-over the 100 000 bp pair's 79 blocks (re-filled in one
-``fill_codes_blocks`` launch, as ``traceback_checkpointed`` walks them);
-and the walls of ``align_huge`` at 100 000 bp on both routes and of
-config 3's ``align_batch`` (strings and counts).
+bp, ``nw_walk_window``'s codes mode (``walk_codes_window``) chained over
+the 100 000 bp pair's 79 blocks (re-filled in one ``fill_codes_blocks``
+launch, as ``traceback_checkpointed`` walks them); ``nw_walk_masks``
+(``walk_masks_batch``) on phase 13's tie masks at 128 x 2 048 bp and 4 x
+10 240 bp (from ``fill_arrows_auto``), ``nw_walk_window``'s masks mode
+(``walk_masks_window``) relayed over phase 12's 20 000 bp pair in 4
+blocks of K28 masks; and the walls of ``align_huge`` at 100 000 bp on
+both routes, of config 3's ``align_batch`` (strings and counts), of phase
+13 (b)'s ``fill_arrows_auto`` + count + walk + host strings at 128 x 2 048
+bp and of ``align_batch``'s mask route at phase 13 (d)'s batches around
+the route rule's crossing.
 
-    python3 scripts/walk_shapes.py [--check] [--sass] [ROOT]
+    python3 scripts/walk_shapes.py [--check] [--sass] [--masks] [ROOT]
 
 ROOT (default: this checkout) is the tree whose ``nw_tpu_torch`` is
 imported and built; the inputs (``chip_smoke.py``'s seeds) and the timing
@@ -22,9 +28,15 @@ windows' sum) and ns a step, {shape: s} of the walls (median of 3 warm
 runs, host to host) and, where ROOT has the ``nw_smem_chase`` probe, the
 cycles of one dependent shared-memory load and each walk's span floor
 (its steps times that load over ``clocks.max.sm``: the latency floor of a
-walk that takes one dependent load a step).
+walk that takes one dependent load a step); the mask route's split at
+phase 13 (d)'s batches (``mask_route_split_ms``: its wall and the device
+ms of its fill and of its walk, from CUDA events around each call) and
+its walls against the codes route's at the rule's crossing, in turns
+(``crossing_ms``).  ``--masks`` times only the masks walks and their
+walls.
 ``--check`` first holds ROOT's walks against their plain versions at
-``chip_smoke.py``'s walk edge shapes (phase 3's and phase 8's checks).
+``chip_smoke.py``'s walk edge shapes (phase 3's, phase 8's and the masks
+walks' of phases 12 and 13).
 ``--sass`` runs ``scripts/sass_compare.py --diff`` on ``build/parent``'s
 ``nw_walk.cu`` against ROOT's, prints ``ptxas -v`` of both and writes
 the staged kernels' SASS to ``build/walk_sass.txt``.
@@ -32,6 +44,7 @@ the staged kernels' SASS to ``build/walk_sass.txt``.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import statistics
@@ -41,6 +54,71 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+# phase 13 (d)'s batches around the mask route rule's crossing: (pairs, bp)
+MASK_ROUTE_SHAPES = [(4, 10_240), (5, 10_240), (2, 4_096), (4, 4_096)]
+# the rule's crossing at 10 240 bp: (pairs, bp) of the two routes in turns
+CROSSING_SHAPES = [(6, 10_240), (7, 10_240)]
+CROSSING_ROUNDS = 10  # rounds of mask, codes, codes, mask
+
+
+def route_split(cs, a211, ps) -> dict:
+    """The forced mask route on ``ps`` (strings and counts): medians of 3
+    warm runs of its wall (host ms) and of the device ms between CUDA
+    events recorded around each call of its fill (``fill_arrows_fold_batch``)
+    and of its walk (``walk_masks_batch``), summed over the run's calls."""
+    import torch
+
+    from nw_tpu_torch.models import needleman_wunsch as nwm
+    from nw_tpu_torch.ops import traceback as tb
+
+    spans = {"fill": [], "walk": []}
+
+    def timed(fn, key):
+        @functools.wraps(fn)  # its launch counter too
+        def run(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            spans[key].append(ev)
+            return out
+        return run
+
+    fill, walk = nwm.fill_arrows_fold_batch, tb.walk_masks_batch
+    nwm.fill_arrows_fold_batch, tb.walk_masks_batch = timed(fill, "fill"), timed(walk, "walk")
+    runs = []
+    try:
+        with cs.forced_route(True):
+            for _ in range(4):  # a warm-up, then 3 timed
+                for v in spans.values():
+                    v.clear()
+                t0 = time.perf_counter()
+                a211.align_batch(ps, traceback_strings=True, count=True)
+                w = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+                runs.append({"wall": w, **{k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}})
+    finally:
+        nwm.fill_arrows_fold_batch, tb.walk_masks_batch = fill, walk
+    return {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
+
+
+def route_turns(cs, a211, ps) -> dict:
+    """Walls (host ms) of ``align_batch`` on ``ps`` (strings and counts) on
+    the mask and the codes route, ``CROSSING_ROUNDS`` rounds in turns; the
+    first run of each route is a warm-up and left out."""
+    runs = {True: [], False: []}
+    for _ in range(CROSSING_ROUNDS):
+        for masks_route in (True, False, False, True):
+            with cs.forced_route(masks_route):
+                t0 = time.perf_counter()
+                a211.align_batch(ps, traceback_strings=True, count=True)
+                runs[masks_route].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for flag, name in ((True, "masks"), (False, "codes")):
+        out[name] = runs[flag][1:]
+        out[name + "_median"] = statistics.median(runs[flag][1:])
+    out["masks_won"] = sum(m < c for m, c in zip(runs[True][1:], runs[False][1:]))
+    return out
 
 
 def wall(fn) -> float:
@@ -96,8 +174,10 @@ def main(argv) -> int:
     from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
     from nw_tpu_torch.ops import checkpoint_traceback as ckt
     from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_auto
     from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import fill_single as fs
+    from nw_tpu_torch.ops import pathcount as pc
     from nw_tpu_torch.ops import traceback as tb
     from nw_tpu_torch.runtime import kernels
 
@@ -113,38 +193,53 @@ def main(argv) -> int:
     kernels.load()
     if "--sass" in flags:
         sass_report(root)
+    masks_only = "--masks" in flags
     if "--check" in flags:
-        errs = {"nw_walk": 0}
-        cs.walk_edges_vs_plain(dev, errs)
-        cs.window_edges_vs_plain(dev, errs)
+        errs = {"nw_walk": 0, "nw_walk_masks": 0}
+        if not masks_only:
+            cs.walk_edges_vs_plain(dev, errs)
+            cs.window_edges_vs_plain(dev, errs)
+        cs.mask_walk_edges_vs_plain(dev, errs)
+        cs.mask_window_edges_vs_plain(dev, errs)
         if any(errs.values()):
             print(f"FAIL: a walk differs from its plain version: {errs}", file=sys.stderr)
             return 1
     cycles = cs.smem_load_cycles() if "nw_smem_chase" in kernels.SIGNATURES else None
 
     big = cs.rand_pairs(np.random.default_rng(cs.L_HUGE), 1, cs.L_HUGE, cs.L_HUGE)[0]  # phase 8's pair
-    top, side = (torch.from_numpy(enc.encode(x)).to(dev) for x in big)
-    lh = torch.tensor([cs.L_HUGE], dtype=torch.int32, device=dev)
-    codes, _ = fs.fill_codes_single(top, side, 2, 1, 1)
-    c3, _ = cs.config_pairs()
-    LB = AlignConfig().bucket_for(cs.L_LONG)
-    T3 = enc.upload(enc.encode_batch(c3, LB, LB), dev)
-    codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
-    T4, codes4 = tuple(x[:4] for x in T3), codes3[:4]
-    # the checkpointed route's 79 blocks, re-filled in one launch, walked last first
-    C = ckt.auto_block_diagonals(cs.L_HUGE, cs.L_HUGE)
-    _, ck = fs.score_fold(top, side, 2, 1, 1, checkpoint_every=C)
-    group, _ = fs.fill_codes_blocks(top, side, 2, 1, 1, cs.L_HUGE, cs.L_HUGE, 0, C, ck)
-    blocks = [(r * C, min(cs.L_HUGE, r * C + C)) for r in range(ck.shape[0])][::-1]
-    chain = [(r0, group[:, r0 // 32 : -(-r1 // 32)]) for r0, r1 in blocks]
-
-    walks = {
-        f"nw_walk 1x{cs.L_HUGE}bp": (lambda: tb.walk_codes_batch(codes, lh, lh, 2 * cs.L_HUGE), 3),
-        f"nw_walk 256x{cs.L_LONG}bp": (lambda: tb.walk_codes_batch(codes3, *T3[2:], 2 * LB), 5),
-        f"nw_walk 4x{cs.L_LONG}bp": (lambda: tb.walk_codes_batch(codes4, *T4[2:], 2 * LB), 5),
-        f"nw_walk_window {len(chain)} windows at {cs.L_HUGE}bp": (
-            lambda: cs.walk_chain(tb.walk_codes_window, chain, cs.L_HUGE, cs.L_HUGE), 3),
-    }
+    walks = {}
+    if not masks_only:
+        top, side = (torch.from_numpy(enc.encode(x)).to(dev) for x in big)
+        lh = torch.tensor([cs.L_HUGE], dtype=torch.int32, device=dev)
+        codes, _ = fs.fill_codes_single(top, side, 2, 1, 1)
+        c3, _ = cs.config_pairs()
+        LB = AlignConfig().bucket_for(cs.L_LONG)
+        T3 = enc.upload(enc.encode_batch(c3, LB, LB), dev)
+        codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
+        T4, codes4 = tuple(x[:4] for x in T3), codes3[:4]
+        # the checkpointed route's 79 blocks, re-filled in one launch, walked last first
+        C = ckt.auto_block_diagonals(cs.L_HUGE, cs.L_HUGE)
+        _, ck = fs.score_fold(top, side, 2, 1, 1, checkpoint_every=C)
+        group, _ = fs.fill_codes_blocks(top, side, 2, 1, 1, cs.L_HUGE, cs.L_HUGE, 0, C, ck)
+        blocks = [(r * C, min(cs.L_HUGE, r * C + C)) for r in range(ck.shape[0])][::-1]
+        chain = [(r0, group[:, r0 // 32 : -(-r1 // 32)]) for r0, r1 in blocks]
+        walks.update({
+            f"nw_walk 1x{cs.L_HUGE}bp": (lambda: tb.walk_codes_batch(codes, lh, lh, 2 * cs.L_HUGE), 3),
+            f"nw_walk 256x{cs.L_LONG}bp": (lambda: tb.walk_codes_batch(codes3, *T3[2:], 2 * LB), 5),
+            f"nw_walk 4x{cs.L_LONG}bp": (lambda: tb.walk_codes_batch(codes4, *T4[2:], 2 * LB), 5),
+            f"nw_walk_window {len(chain)} windows at {cs.L_HUGE}bp": (
+                lambda: cs.walk_chain(tb.walk_codes_window, chain, cs.L_HUGE, cs.L_HUGE), 3),
+        })
+    # phase 13's tie masks, phase 12's relay
+    mask_inputs = []
+    for _, nb, L, ps in cs.mask_path_batches()[1:]:
+        T = enc.upload(enc.encode_batch(ps, L, L), dev)
+        masks = fill_auto.fill_arrows_auto(*T, 2, 1, 1)[0]
+        mask_inputs.append((ps, T, masks))
+        walks[f"nw_walk_masks {nb}x{L}bp"] = (lambda m=masks, T=T, L=L: tb.walk_masks_batch(m, *T[2:], 2 * L), 5)
+    tables, H = cs.relay_tables(big)
+    walks[f"nw_walk_window/masks {len(tables)} windows at {cs.L_PALLAS}bp"] = (
+        lambda: cs.relay(tb.walk_masks_window, tables, H), 3)
     ms, steps = {}, {}
     for name, (fn, reps) in walks.items():
         ms[name] = cs.cuda_ms(fn, reps)
@@ -153,15 +248,38 @@ def main(argv) -> int:
     rec = {"root": str(root), "package": str(Path(tb.__file__).parent.parent), "ms": ms, "steps": steps,
            "ns_per_step": {k: ms[k] * 1e6 / steps[k] for k in ms}, "smem_load_cycles": cycles,
            "span_ms": {k: steps[k] * cycles / (clock_mhz * 1e3) for k in ms} if cycles else None}
-    del codes, codes3, codes4, group, chain
+    walls = {}
+    ps, T, _ = mask_inputs[0]
+
+    def arrows_path():  # phase 13 (b): fill, count, walk, host strings
+        masks, _, _ = fill_auto.fill_arrows_auto(*T, 2, 1, 1)
+        pc.count_masks_batch(masks, *T[2:])
+        ops, n = tb.walk_masks_batch(masks, *T[2:], 2 * cs.L_ARROWS)
+        tb.ops_to_strings_batch(ops.cpu().numpy(), n.cpu().numpy(), ps)
+
+    walls[f"fill_arrows_auto+count+walk+strings {len(ps)}x{cs.L_ARROWS}bp"] = wall(arrows_path)
+    del walks, mask_inputs, tables
+    if not masks_only:
+        del codes, codes3, codes4, group, chain
     torch.cuda.empty_cache()
     a211 = NWAligner(AlignConfig(scoring=ScoringParams(2, 1, 1)), device="cuda")
-    rec["walls_s"] = {
-        f"align_huge {cs.L_HUGE}bp codes route": wall(lambda: a211.align_huge(*big)),
-        f"align_huge {cs.L_HUGE}bp checkpointed (C = {C})": wall(lambda: a211.align_huge(*big, block_diagonals=C)),
-        f"config3 align_batch 256x{cs.L_LONG}bp strings+counts": wall(
-            lambda: a211.align_batch(c3, traceback_strings=True, count=True).alignment_strings()),
-    }
+    split = {}
+    with cs.forced_route(True):
+        for nb, L in MASK_ROUTE_SHAPES:
+            rp = cs.rand_pairs(np.random.default_rng(nb * L), nb, L, L)  # phase 13 (d)'s pairs
+            walls[f"align_batch mask route {nb}x{L}bp strings+counts"] = wall(
+                lambda: a211.align_batch(rp, traceback_strings=True, count=True))
+            split[f"{nb}x{L}bp"] = route_split(cs, a211, rp)
+    rec["mask_route_split_ms"] = split
+    rec["crossing_ms"] = {f"{nb}x{L}bp": route_turns(cs, a211, cs.rand_pairs(np.random.default_rng(nb * L), nb, L, L))
+                          for nb, L in CROSSING_SHAPES}
+    if not masks_only:
+        walls[f"align_huge {cs.L_HUGE}bp codes route"] = wall(lambda: a211.align_huge(*big))
+        walls[f"align_huge {cs.L_HUGE}bp checkpointed (C = {C})"] = wall(
+            lambda: a211.align_huge(*big, block_diagonals=C))
+        walls[f"config3 align_batch 256x{cs.L_LONG}bp strings+counts"] = wall(
+            lambda: a211.align_batch(c3, traceback_strings=True, count=True).alignment_strings())
+    rec["walls_s"] = walls
     print(json.dumps(rec))
     return 0
 

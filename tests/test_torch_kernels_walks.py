@@ -1,7 +1,8 @@
 """CUDA kernels of nw_tpu_torch vs their plain PyTorch versions:
 the code walks (``nw_walk``, the windowed walk over a checkpointed pair)
-at the shapes their shared-memory staging must get right, and the runs
-engine's fill and walk.
+and the tie-mask walks (``nw_walk_masks``, ``nw_walk_window``'s masks
+mode) at the shapes their shared-memory staging must get right, and the
+runs engine's fill and walk.
 
 These need an NVIDIA card (sm_90a) and nvcc; without one they skip.  On
 the card: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_walks.py``.
@@ -17,8 +18,9 @@ from nw_tpu_torch.ops import encode as enc
 from nw_tpu_torch.ops import fill_banded, fill_single, traceback
 
 from torch_kernel_cases import (  # noqa: F401 (cuda is a fixture)
-    SCORINGS, EDGE, WALK_EDGE_SHAPES, cuda, _pairs, _single_pairs, _pair_tensors, _lens,
-    _walk_edge_pairs, _window_chain,
+    SCORINGS, EDGE, MASK_STRIDES, MASK_WALK_EDGE_SHAPES, WALK_EDGE_SHAPES, cuda, _pairs, _single_pairs,
+    _pair_tensors, _lens, mask_edge_pairs, _mask_window_chain, random_masks, _walk_chain,
+    walk_edge_pairs, _window_chain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -34,7 +36,7 @@ def _batch(ps, device):
 def test_walk_kernel_vs_plain_at_edge_shapes(cuda, mkd, shape):
     """nw_walk against its plain version, whole, at B = 1 and cut after 1
     and 77 ops: tolerance 0 on ops and n."""
-    T, S = _batch(_walk_edge_pairs(shape), cuda)
+    T, S = _batch(walk_edge_pairs(shape), cuda)
     codes = fill_banded.fill_greedy_counts_banded_batch(*T, *mkd)[0]
     for TT, cut in ((T, S), (tuple(x[:1] for x in T), S), (T, 1), (T, 77)):
         want = traceback.walk_codes_batch_plain(codes[: TT[0].shape[0]], *TT[2:], max(cut, 1))
@@ -60,7 +62,7 @@ def test_window_walk_kernel_vs_plain_at_edge_shapes(cuda, mkd, C):
     walk edge shapes against its plain version: tolerance 0 on ops and
     the state after every block."""
     for shape in WALK_EDGE_SHAPES:
-        for s1, s2 in _walk_edge_pairs(shape):
+        for s1, s2 in walk_edge_pairs(shape):
             if not s2:
                 continue
             chain = _window_chain(s1, s2, mkd, C, fill_single.fill_codes_single, fill_single.score_fold, cuda)
@@ -79,7 +81,7 @@ def test_window_walk_kernel_vs_plain_at_edge_shapes(cuda, mkd, C):
 def test_window_walk_kernel_start_outside_block(cuda):
     """A start outside a block's rows or columns (or with n < 0) leaves the
     state and ops as they were, as the plain version does."""
-    s1, s2 = _walk_edge_pairs("band_edges")[4]
+    s1, s2 = walk_edge_pairs("band_edges")[4]
     chain = _window_chain(s1, s2, (2, 1, 1), 64, fill_single.fill_codes_single, fill_single.score_fold, cuda)
     for r0, codes in chain:
         for start in ([len(s1), r0 + 32 * codes.shape[1] + 1, 0], [16 * codes.shape[2] - 31, r0 + 1, 0],
@@ -137,6 +139,98 @@ def test_window_walk_kernel_vs_plain(cuda, mkd, C):
         ops, n = traceback.walk_codes_batch(codes, _lens(len(s1), cuda), _lens(len(s2), cuda), max(S, 1))
         assert int(n[0]) == int(want[1])
         torch.testing.assert_close(ops[0, :S].cpu(), want[0], rtol=0, atol=0)
+
+
+def _mask_batches(shape, device):
+    """(tensors on ``device``, S) of the shape's pairs: one batch, or for
+    "strides" one a bucket width A + 1 of 129 .. 144."""
+    ps = mask_edge_pairs(shape)
+    L1, L2 = max(len(a) for a, _ in ps), max(len(b) for _, b in ps)
+    widths = [128 + e for e in MASK_STRIDES] if shape == "strides" else [max(L1, 1)]
+    return [(enc.upload(enc.encode_batch(ps, A, max(L2, 1)), device), A + L2) for A in widths]
+
+
+def _masks_vs_plain(masks, lens1, lens2, S):
+    want = traceback.walk_masks_batch_plain(masks, lens1, lens2, S)
+    for g, w in zip(traceback.walk_masks_batch(masks, lens1, lens2, S), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", MASK_WALK_EDGE_SHAPES)
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_mask_walk_kernel_vs_plain_at_edge_shapes(cuda, mkd, shape):
+    """nw_walk_masks against its plain version over the batched masks
+    fill's tables, whole, at B = 1 and cut after 1 and 77 ops (for
+    "strides" at every row width A + 1 of 129 .. 144): tolerance 0 on ops
+    and n."""
+    for T, S in _mask_batches(shape, cuda):
+        masks = fill_banded.fill_masks_banded_batch(*T, *mkd)[0]
+        for cut in (S, 1, 77):
+            _masks_vs_plain(masks, *T[2:], cut)
+        _masks_vs_plain(masks[:1], *(x[:1] for x in T[2:]), S)
+
+
+def test_mask_walk_kernel_many_short_pairs_and_random_bytes(cuda):
+    """5 000 short pairs (more walks than 132 SMs x the warps a block hold
+    at once) under four scorings, and tables of random bytes (every bit
+    pattern, row 0 LEFT, column 0 UP) at widths 113 .. 128."""
+    T, S = _batch(_pairs(5001, 5000, 0, 60), cuda)
+    for mkd in SCORINGS[:4]:
+        _masks_vs_plain(fill_banded.fill_masks_banded_batch(*T, *mkd)[0], *T[2:], S)
+    for M in range(113, 129):
+        masks = random_masks(np.random.default_rng(M), 3, 200, M).to(cuda)
+        l1 = torch.tensor([M - 1, M - 7, 40], dtype=torch.int32, device=cuda)
+        l2 = torch.tensor([199, 161, 96], dtype=torch.int32, device=cuda)
+        _masks_vs_plain(masks, l1, l2, 200 + M)
+
+
+def _mask_chain_vs_plain(masks, len1, len2, C):
+    """nw_walk_window's masks mode chained over blocks of C rows of one
+    pair's masks (rows as views: any alignment) against its plain version:
+    the state after every block and the ops, tolerance 0."""
+    st_k = torch.tensor([len1, len2, 0], dtype=torch.int32, device=masks.device)
+    st_p = st_k.cpu()
+    ops_k = torch.full((len1 + len2,), traceback.OP_NONE, dtype=torch.int8, device=masks.device)
+    ops_p = ops_k.cpu()
+    for r0, rows in _mask_window_chain(masks, C):
+        traceback.walk_masks_window(rows, st_k, r0, ops_k)
+        traceback.walk_masks_window_plain(rows.cpu(), st_p, r0, ops_p)
+        torch.testing.assert_close(st_k.cpu(), st_p, rtol=0, atol=0)
+    torch.testing.assert_close(ops_k.cpu(), ops_p, rtol=0, atol=0)
+    assert st_p[:2].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("C", [32, 64, 96])
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_mask_window_kernel_vs_plain_at_edge_shapes(cuda, mkd, C):
+    """nw_walk_window's masks mode chained over blocks of C rows down to
+    row 0 at the masks edge shapes (rows of len1 + 1 bytes: "strides"
+    takes every offset mod 16) and over a table of random bytes."""
+    for shape in MASK_WALK_EDGE_SHAPES:
+        for s1, s2 in mask_edge_pairs(shape):
+            if not s2:
+                continue
+            T = enc.upload(enc.encode_batch([(s1, s2)], max(len(s1), 1), len(s2)), cuda)
+            masks = fill_banded.fill_masks_banded_batch(*T, *mkd)[0][0, :, : len(s1) + 1].contiguous()
+            _mask_chain_vs_plain(masks, len(s1), len(s2), C)
+    _mask_chain_vs_plain(random_masks(np.random.default_rng(C), 1, 301, 117)[0].to(cuda), 116, 300, C)
+
+
+def test_mask_window_kernel_start_outside_block(cuda):
+    """A start outside a block's rows or columns (or with n < 0) leaves the
+    state and ops as they were, as the plain version does."""
+    s1, s2 = mask_edge_pairs("band_edges")[4]
+    T = enc.upload(enc.encode_batch([(s1, s2)], len(s1), len(s2)), cuda)
+    masks = fill_banded.fill_masks_banded_batch(*T, 2, 1, 1)[0][0]
+    for r0, rows in _mask_window_chain(masks, 64):
+        for start in ([len(s1), r0 + rows.shape[0] + 1, 0], [len(s1) + 1, r0 + 1, 0], [-1, r0 + 1, 0],
+                      [0, r0 - 1, 0], [len(s1), r0 + 1, -1]):
+            for walk, where in ((traceback.walk_masks_window, cuda), (traceback.walk_masks_window_plain, "cpu")):
+                state = torch.tensor(start, dtype=torch.int32, device=where)
+                ops = torch.full((8,), traceback.OP_NONE, dtype=torch.int8, device=where)
+                walk(rows.to(where), state, r0, ops)
+                assert state.tolist() == start
+                assert ops.tolist() == [traceback.OP_NONE] * 8
 
 
 def _run_inputs(seed, device):

@@ -213,9 +213,10 @@ def test_count_warps_limits(monkeypatch):
 
 def test_mask_route_is_taken_for_small_batches_of_long_pairs():
     take = fill_auto.takes_mask_route
-    assert take(5, 10240, 10240) and take(2, 4096, 4096) and take(8, 32768, 32768)
+    assert take(5, 10240, 10240) and take(6, 10240, 10240) and take(2, 4096, 4096)
+    assert take(8, 32768, 32768)
     assert take(1, 32768, 32768) and take(1, 4096, 4000) and take(2, 10240, 8000)
-    assert not take(6, 10240, 10240)  # too many pairs for their length: the codes route
+    assert not take(7, 10240, 10240)  # too many pairs for their length: the codes route
     assert not take(3, 4096, 4096) and not take(16, 4096, 4096)
     assert not take(24, 10240, 10240)  # a batch that fills the card: the codes route
     assert not take(1, 2048, 2048)  # short sides: the codes route, a quarter of the bytes

@@ -26,7 +26,7 @@ from nw_tpu.ops.fill_scan import fill_diag_batch as j_fill_diag_batch
 from nw_tpu_torch.ops import fill_banded, fill_single
 from nw_tpu_torch.ops import traceback as ttb
 
-from torch_kernel_cases import WALK_EDGE_SHAPES, _walk_chain, _walk_edge_pairs, _window_chain
+from torch_kernel_cases import WALK_EDGE_SHAPES, _walk_chain, walk_edge_pairs, _window_chain
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -49,7 +49,7 @@ def _nw_tpu_walks(ps, mkd):
 def test_walk_codes_batch_plain_at_edge_shapes(shape, mkd):
     """The batch walk over the port's codes equals nw_tpu's walk, whole and
     cut after fewer ops than the longest walk."""
-    ps = _walk_edge_pairs(shape)
+    ps = walk_edge_pairs(shape)
     T, want_ops, want_n = _nw_tpu_walks(ps, mkd)
     S = want_ops.shape[1]
     codes, _, _ = fill_banded.fill_greedy_counts_banded_batch(*T, *mkd)
@@ -69,7 +69,7 @@ def test_walk_codes_window_plain_chained_at_edge_shapes(shape, mkd, C):
     """The window walk chained over blocks of C rows, each re-filled from
     its checkpoint row, down to row 0 (j0 = 0), equals nw_tpu's walk of
     the whole pair and ends at the origin."""
-    ps = [p for p in _walk_edge_pairs(shape) if p[1]]  # a pair with rows to walk
+    ps = [p for p in walk_edge_pairs(shape) if p[1]]  # a pair with rows to walk
     _, want_ops, want_n = _nw_tpu_walks(ps, mkd)
     for b, (s1, s2) in enumerate(ps):
         chain = _window_chain(s1, s2, mkd, C, fill_single.fill_codes_single_plain, fill_single.score_fold_plain)
@@ -83,7 +83,7 @@ def test_walk_codes_window_plain_cut_and_outside_starts(shape):
     """A window walk cut after S ops keeps the ops it wrote and the cell it
     reached, and the next block's walk goes on from there; a start outside
     a block's rows or columns leaves the state and ops as they were."""
-    ps = [p for p in _walk_edge_pairs(shape) if p[1]]
+    ps = [p for p in walk_edge_pairs(shape) if p[1]]
     _, want_ops, want_n = _nw_tpu_walks(ps, (2, 1, 1))
     for b, (s1, s2) in enumerate(ps):
         chain = _window_chain(s1, s2, (2, 1, 1), 32, fill_single.fill_codes_single_plain,

@@ -3,6 +3,9 @@
 and edge pairs made from seeds with numpy, and the batched pipeline's
 launches at a forced W."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -84,29 +87,23 @@ def _single_pairs(seed):
     )
 
 
-# the shapes the code walks' staging (nw_walk, nw_walk_window) must get
-# right: LEFT runs longer than several segments, UP runs across bands,
-# corners on band edges (len2 = 32q - 1, 32q, 32q + 1) and on word-column
-# edges (len1 = 16q - 31 +- 1), the edge pairs
-WALK_EDGE_SHAPES = ["left_runs", "up_runs", "band_edges", "column_edges", "edge"]
+# the walks' edge shapes and the random tie-mask tables, one definition
+# with chip_smoke.py's card checks of the same kernels
+_spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+WALK_EDGE_SHAPES, MASK_WALK_EDGE_SHAPES = chip_smoke.WALK_EDGE_SHAPES, chip_smoke.MASK_WALK_EDGE_SHAPES
+MASK_STRIDES = chip_smoke.MASK_STRIDES
+walk_edge_pairs, mask_edge_pairs, random_masks = (chip_smoke.walk_edge_pairs, chip_smoke.mask_edge_pairs,
+                                                  chip_smoke.random_masks)
 
 
-def _walk_edge_pairs(shape):
-    rng = np.random.default_rng(18)
-
-    def one(n):
-        return "".join(rng.choice(list("ACGT"), n)).encode()
-
-    if shape == "left_runs":
-        return [(one(700), one(3)), (b"A" * 700, b"A" * 3), (one(520), one(1))]
-    if shape == "up_runs":
-        return [(one(3), one(700)), (b"C" * 3, b"C" * 700), (one(1), one(520))]
-    if shape == "band_edges":
-        return [(one(100), one(32 * q + e)) for q in (1, 2, 5) for e in (-1, 0, 1)]
-    if shape == "column_edges":
-        return [(one(16 * q - 31 + e), one(70)) for q in (3, 4, 9) for e in (-1, 0, 1)]
-    assert shape == "edge"
-    return list(EDGE)
+def _mask_window_chain(masks, C):
+    """(r0, rows) of every block of C rows of one pair's rectangular masks
+    uint8[len2+1, A+1], the last block first: rows r0+1 .. r0+C, each a
+    view into ``masks`` (so at any alignment)."""
+    len2 = masks.shape[0] - 1
+    return [(r0, masks[r0 + 1 : min(r0 + C, len2) + 1]) for r0 in range(-(-len2 // C) * C - C, -1, -C)]
 
 
 def _window_chain(s1, s2, mkd, C, fill_codes, score_fold, device=None):
