@@ -98,7 +98,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``sw_walk`` bit for bit against their plain versions (40 random pairs
    of 0-60 bp and 48 of 0-700 bp, tie-dense pairs, the edge pairs, equal
    bests in two bands, under ``SW_SCORINGS``: ``SCORINGS`` and
-   (1,1,-1)); then, with every launch counter set to 0, (b)
+   (1,1,-1)), and ``sw_walk`` on SW and overlap codes at the variant
+   walk edge shapes (``variant_edge_pairs``: LEFT runs of 700 x 3, UP
+   runs of 3 x 700, best cells on band and word-column edges, a stop
+   mid-band, runs along row 0 and column 0, the edge pairs; the first
+   alone, the first 7, 5 000 pairs of 0-60 bp, every pair from each edge
+   start of its table) and over tables of random code words; then, with
+   every launch counter set to 0, (b)
    ``sw_align_batch`` of 128 x 3 072 bp (bench.py:414) and 4 096 x 150 bp
    (bench.py:291), ``sw_score_batch`` of 10 240 x 150 bp (bench.py:517)
    and 128 x 10 240 bp (bench.py:583), all at (2,1,1): every alignment
@@ -110,7 +116,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    against the rule's W in turns (1, rule, rule, 1) at 128 x 10 240 bp
    and 10 240 x 150 bp (scores equal at both W) and the sweep of W
    (``SWEEP_WARPS``) at 128 x 10 240 bp, ``sw_fill_codes`` in turns the
-   same way at 128 x 3 072 bp and 4 096 x 150 bp.
+   same way at 128 x 3 072 bp and 4 096 x 150 bp, ``sw_walk``'s ns a step
+   of the longest walk and its time at 4 096 x 150 bp, and the walls of
+   ``sw_align_batch`` split by CUDA events into its fill and its walk
+   (``route_split``).
 
 10. Overlap and Gotoh scores: (a) ``overlap_scores``, ``gotoh_scores`` and
    ``overlap_fill_codes`` (codes, best, end cell; each at the rule's W and
@@ -134,14 +143,19 @@ Phases, in order; any mismatch or exception exits non-zero:
    linear score); (c) walls (median of 4 warm runs), pairs/s, GCUPS, each
    kernel's time beside its plain version's and its bound,
    ``overlap_scores``' and ``gotoh_scores``' turns and sweeps of W as
-   phase 9's, and ``overlap_fill_codes``' turns as ``sw_fill_codes``'.
+   phase 9's, ``overlap_fill_codes``' turns as ``sw_fill_codes``', and
+   the overlap walk's times and walls split as phase 9's.
 
 11. Gotoh tracebacks and the batch CLI: (a) ``gotoh_fill_codes`` (4-bit
    codes, scores, corner states; the scores also against
    ``gotoh_scores``; at the rule's W and every W of ``PIPE_WARPS``) and
    ``gotoh_walk`` (on each W's codes) bit for bit against their plain
    versions (phase 9's pairs and the edge pairs, under phase 10's seven
-   Gotoh scorings, (3,1,4,0) and (1,1,1,2^29)); then, with every launch
+   Gotoh scorings, (3,1,4,0) and (1,1,1,2^29)), and ``gotoh_walk`` at
+   the variant walk edge shapes (each corner in its state, the first
+   alone, the first 7, 5 000 short pairs, cut after 1 and 77 ops, every
+   pair from each edge start of its table in each state) and over tables
+   of random code words; then, with every launch
    counter set to 0, (b) ``affine_align_batch`` of 128 x 3 072 bp
    (bench.py:414) and 4 096 x 150 bp (bench.py:291) at (2,1,3,1): every
    alignment spells both inputs and re-scores on the host (affine gap
@@ -153,7 +167,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``--checkpoint-dir``, byte-equal to ``NW_TPU_PLATFORM=cpu``, and
    ``python3 -m nw_tpu_torch.batch_cli`` once; (c) walls (median of 4
    warm runs), pairs/s, GCUPS, each kernel's time beside its plain
-   version's and its bound, the walk's ns a step, ``gotoh_fill_codes`` at
+   version's and its bound, the walk's ns a step of the longest walk and
+   its time at 4 096 x 150 bp, the walls split as phase 9's,
+   ``gotoh_fill_codes`` at
    W = 1 against the rule's W in turns at 128 x 3 072 bp and 4 096 x
    150 bp and the sweep of W at 128 x 3 072 bp, and the host
    ``ops_to_strings_batch``, native against numpy, at config 3 and at
@@ -280,6 +296,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import io
 import json
@@ -905,6 +922,244 @@ def walk_edge_pairs(shape=None):
         return [(one(16 * q - 31 + e), one(70)) for q in (3, 4, 9) for e in (-1, 0, 1)]
     assert shape == "edge"
     return list(EDGE)
+
+
+# the shapes the local and Gotoh walks' staging (sw_walk, gotoh_walk) must
+# get right: LEFT runs longer than several segments and UP runs across
+# bands (local ones at a gap cost d <= 0), best cells and corners on band
+# edges (32q - 1, 32q, 32q + 1) and on word-column edges of 2-bit codes (t
+# = i + jj at 16q - 1, 16q, 16q + 1) and of Gotoh's (8q +- 1), a local walk
+# that stops mid-band, Gotoh's runs along column 0 and row 0, the edge pairs
+VARIANT_WALK_EDGE_SHAPES = ("left_runs", "up_runs", "band_edges", "column_edges", "mid_stop",
+                            "boundary_runs", "edge")
+MOTIF_BP = 24  # motif_pair's motif: its local best is 2 * 24 at 2 1 1
+
+
+def motif_pair(L1, L2, seed):
+    """(s1, s2) of L1 x L2 bp (>= MOTIF_BP) that end in one random motif of
+    G and T over fillers of A (s1) and C (s2), which match nothing: the
+    local best lies on the corner (L2, L1)."""
+    motif = "".join(np.random.default_rng(seed).choice(list("GT"), MOTIF_BP)).encode()
+    return b"A" * (L1 - MOTIF_BP) + motif, b"C" * (L2 - MOTIF_BP) + motif
+
+
+def variant_edge_pairs(shape=None):
+    """The pairs of one of ``VARIANT_WALK_EDGE_SHAPES``, or (None) of them
+    all (the cases the tests share)."""
+    if shape is None:
+        return [p for sh in VARIANT_WALK_EDGE_SHAPES for p in variant_edge_pairs(sh)]
+    if shape in ("left_runs", "up_runs"):
+        # a free gap (d = 0) crosses the T's between the G and the C
+        ps = [(b"G" + b"T" * 698 + b"C", b"GC")] + walk_edge_pairs("left_runs")
+        return ps if shape == "left_runs" else [(b, a) for a, b in ps]
+    if shape == "band_edges":
+        return [motif_pair(100, 32 * q + e, 20 + q) for q in (1, 2, 5) for e in (-1, 0, 1)]
+    if shape == "column_edges":  # len2 = 70: the corner's row jj = 5
+        return ([motif_pair(16 * q - 5 + e, 70, 30 + q) for q in (3, 4, 9) for e in (-1, 0, 1)]
+                + [motif_pair(8 * q - 5 + e, 70, 40 + q) for q in (5, 7, 11) for e in (-1, 0, 1)])
+    if shape == "mid_stop":  # the motif ends mid-band; random walks stop anywhere
+        rng = np.random.default_rng(20)
+        motif = motif_pair(MOTIF_BP, MOTIF_BP, 50)[0]
+        return [(b"A" * 50 + motif + b"A" * 60, b"C" * 45 + motif + b"C" * 30)] + rand_pairs(rng, 3, 250, 300)
+    if shape == "boundary_runs":  # Gotoh: runs along column 0 (UP) and row 0 (LEFT)
+        return [(b"ACGT", b"T" * 100 + b"ACGT"), (b"T" * 100 + b"ACGT", b"ACGT"), (b"A", b"C" * 70),
+                (b"C" * 70, b"A"), (b"GT", b"A" * 40)]
+    assert shape == "edge"
+    return list(EDGE) + [(b"AAAA", b"TTTT")]
+
+
+def variant_walk_starts(len1, len2, cells):
+    """(j, i) cells of a len1 x len2 table for walks to start from: rows 0,
+    1, around the band edges 32 and 64, len2; on each, columns 0, 1, len1
+    and the cells around a word-column edge (t = i + (j - 1) % 32 at
+    ``cells`` q - 1 and ``cells`` q for q = 1, 2, 5)."""
+    out = set()
+    for j in {0, 1, 31, 32, 33, 63, 64, 65, len2}:
+        if j > len2:
+            continue
+        jj = (j - 1) & 31
+        cols = {0, 1, len1} | {cells * q + e - jj for q in (1, 2, 5) for e in (-1, 0)}
+        out.update((j, i) for i in cols if 0 <= i <= len1)
+    return sorted(out)
+
+
+def starts_batch(codes, lens1, lens2, cells):
+    """Every pair's ``variant_walk_starts`` as a batch: (its codes, one row
+    a start, j, i int32[...])."""
+    rows, js, is_ = [], [], []
+    for b, (l1, l2) in enumerate(zip(lens1.tolist(), lens2.tolist())):
+        for j, i in variant_walk_starts(l1, l2, cells):
+            rows.append(b)
+            js.append(j)
+            is_.append(i)
+    dev = codes.device
+    rows = torch.tensor(rows, device=dev)
+    return (codes.index_select(0, rows), torch.tensor(js, dtype=torch.int32, device=dev),
+            torch.tensor(is_, dtype=torch.int32, device=dev))
+
+
+def random_code_words(rng, B, nbands, TW):
+    """int32[B, nbands, TW, 32] of random words: every 2-bit code (STOP
+    included) and every 4-bit state pattern, the ones no fill writes
+    and any code on column 0 included."""
+    return torch.from_numpy(rng.integers(0, 2**32, (B, nbands, TW, 32), dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32))
+
+
+def local_walk_edges_vs_plain(dev, errs):
+    """Phase 9 (a): ``sw_walk`` against its plain version on SW and overlap
+    codes under every scoring of ``SW_SCORINGS``: the variant walk edge
+    shapes in one batch from each fill's best, the first pair alone (B =
+    1) and the first 7 (an odd B), both against the batch's plain walks,
+    5 000 short pairs (more warps than 132 SMs hold at once), and every
+    pair from each of its ``variant_walk_starts``; and tables of random
+    code words from random starts and their edge starts."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    def walk_err(codes, js, is_, Bs=(None,)):
+        """max |diff| of the kernel on the first B walks (each of Bs; None:
+        all) against the plain version's on all of them."""
+        want = tb.walk_sw_codes_batch_plain(codes, js, is_)
+        return max(max_abs_err(g, w[:B]) for B in Bs
+                   for g, w in zip(tb.walk_sw_codes_batch(codes[:B], js[:B], is_[:B]), want))
+
+    pairs = variant_edge_pairs()
+    L1, L2 = max(len(a) for a, _ in pairs), max(len(b) for _, b in pairs)
+    T = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    Ts = enc.upload(enc.encode_batch(rand_pairs(np.random.default_rng(5000), 5000, 0, 60), 60, 60), dev)
+    e = 0
+    for mkd in SW_SCORINGS:
+        for kind in ("sw", "overlap"):
+            fill = getattr(vb, f"{kind}_fill_codes_banded_batch")
+            codes, _, js, is_ = fill(*T, *mkd)
+            e = max(e, walk_err(codes, js, is_, (None, 1, 7)), walk_err(*starts_batch(codes, T[2], T[3], 16)))
+            codes, _, js, is_ = fill(*Ts, *mkd)
+            e = max(e, walk_err(codes, js, is_))
+    rng = np.random.default_rng(200)
+    for nbands, TW in ((1, 4), (3, 21), (5, 40)):
+        codes = random_code_words(rng, 7, nbands, TW).to(dev)
+        W1 = 16 * TW - 32
+        js = torch.tensor(rng.integers(0, 32 * nbands + 1, 7), dtype=torch.int32, device=dev)
+        is_ = torch.tensor(rng.integers(0, W1 + 1, 7), dtype=torch.int32, device=dev)
+        lens = torch.full((7,), W1, dtype=torch.int32), torch.full((7,), 32 * nbands, dtype=torch.int32)
+        e = max(e, walk_err(codes, js, is_), walk_err(*starts_batch(codes, *lens, 16)))
+    errs["sw_walk"] = max(errs.get("sw_walk", 0), e)
+    log(f"sw_walk vs plain at the variant walk edge shapes ({len(pairs)} pairs, B = 1, B = 7, 5 000 x 0-60 bp, "
+        f"every edge start) on SW and overlap codes x {len(SW_SCORINGS)} scorings, and random code words: "
+        f"max |diff| {e}")
+    if e:
+        fail(f"sw_walk differs from its plain version at the variant walk edge shapes: {e}")
+
+
+def gotoh_walk_edges_vs_plain(dev, errs):
+    """Phase 11 (a): ``gotoh_walk`` against its plain version under every
+    scoring of ``GOTOH_ALIGN_SCORINGS``: the variant walk edge shapes in one
+    batch from each corner in its state, the first pair alone, the first
+    7 (both against the batch's plain walks), cut after 1 and 77 ops,
+    5 000 short pairs, every pair from each of its ``variant_walk_starts``
+    (on 4-bit codes' column edges) in a state turning with the start and
+    the scoring (row 0 in IX, column 0 in IY, as a walk reaches them); and
+    tables of random code words (every state pattern) from random corners
+    and states."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    def walk_err(codes, l1, l2, st, S, Bs=(None,)):
+        """max |diff| of the kernel on the first B walks (each of Bs; None:
+        all) against the plain version's on all of them."""
+        want = tb.walk_gotoh_codes_batch_plain(codes, l1, l2, st, S)
+        return max(max_abs_err(g, w[:B]) for B in Bs
+                   for g, w in zip(tb.walk_gotoh_codes_batch(codes[:B], l1[:B], l2[:B], st[:B], S), want))
+
+    pairs = variant_edge_pairs()
+    L1, L2 = max(len(a) for a, _ in pairs), max(len(b) for _, b in pairs)
+    T = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    Ts = enc.upload(enc.encode_batch(rand_pairs(np.random.default_rng(5001), 5000, 0, 60), 60, 60), dev)
+    e = 0
+    for q, sc in enumerate(GOTOH_ALIGN_SCORINGS):
+        codes, _, st = vb.affine_fill_codes_banded_batch(*T, *sc)
+        e = max(e, walk_err(codes, *T[2:], st, L1 + L2, (None, 1, 7)),
+                *(walk_err(codes, *T[2:], st, S) for S in (1, 77)))
+        # every edge start in a state that turns with the start and the
+        # scoring (each start in each state over 3 scorings)
+        codes, js, is_ = starts_batch(codes, T[2], T[3], 8)
+        turn = (torch.arange(len(js), device=dev) + q) % 3
+        st = torch.where(js == 0, 1, torch.where(is_ == 0, 2, turn)).to(torch.int32)
+        e = max(e, walk_err(codes, is_, js, st, L1 + L2))
+        codes, _, st = vb.affine_fill_codes_banded_batch(*Ts, *sc)
+        e = max(e, walk_err(codes, *Ts[2:], st, 120))
+    rng = np.random.default_rng(201)
+    for nbands, TW in ((1, 8), (3, 41), (5, 80)):
+        codes = random_code_words(rng, 7, nbands, TW).to(dev)
+        W1 = 8 * TW - 32
+        l1 = torch.tensor(rng.integers(0, W1 + 1, 7), dtype=torch.int32, device=dev)
+        l2 = torch.tensor(rng.integers(0, 32 * nbands + 1, 7), dtype=torch.int32, device=dev)
+        st = torch.tensor(rng.integers(0, 3, 7), dtype=torch.int32, device=dev)
+        e = max(e, walk_err(codes, l1, l2, st, W1 + 32 * nbands))
+    errs["gotoh_walk"] = max(errs.get("gotoh_walk", 0), e)
+    log(f"gotoh_walk vs plain at the variant walk edge shapes ({len(pairs)} pairs, B = 1, B = 7, 5 000 x 0-60 bp, "
+        f"every edge start in turning states, cuts after 1 and 77 ops) x {len(GOTOH_ALIGN_SCORINGS)} scorings, "
+        f"and random code words: max |diff| {e}")
+    if e:
+        fail(f"gotoh_walk differs from its plain version at the variant walk edge shapes: {e}")
+
+
+def variant_align_pairs():
+    """Phases 9-11's alignment batches, drawn as those phases draw them:
+    {"sw" | "overlap" | "gotoh": {"128x3072bp" | "4096x150bp": pairs}}."""
+    rng = np.random.default_rng(11)
+    out = {"sw": {f"128x{L_SW_TB}bp": rand_pairs(rng, 128, L_SW_TB, L_SW_TB),
+                  f"4096x{L_SHORT}bp": rand_pairs(rng, 4096, L_SHORT, L_SHORT)}}
+    rng = np.random.default_rng(13)
+    rand_pairs(rng, 128, L_LONG, L_LONG)  # phase 10's score batches come first
+    rand_pairs(rng, 10240, L_SHORT, L_SHORT)
+    out["overlap"] = {f"128x{L_SW_TB}bp": rand_pairs(rng, 128, L_SW_TB, L_SW_TB),
+                      f"4096x{L_SHORT}bp": rand_pairs(rng, 4096, L_SHORT, L_SHORT)}
+    rng = np.random.default_rng(14)
+    out["gotoh"] = {f"128x{L_SW_TB}bp": rand_pairs(rng, 128, L_SW_TB, L_SW_TB),
+                    f"4096x{L_SHORT}bp": rand_pairs(rng, 4096, L_SHORT, L_SHORT)}
+    return out
+
+
+def route_split(run, targets, reps=3):
+    """Medians of ``reps`` warm runs of ``run()`` (after a warm-up): its
+    wall (host ms) and, for each key of ``targets`` ({key: (module,
+    name)}), the device ms between CUDA events recorded around each call
+    of ``module.name`` in the run, summed: a route's fill and walk inside
+    its wall."""
+    spans = {key: [] for key in targets}
+    saved = {key: getattr(mod, name) for key, (mod, name) in targets.items()}
+
+    def timed(fn, key):
+        @functools.wraps(fn)  # its launch counter too
+        def call(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            spans[key].append(ev)
+            return out
+        return call
+
+    for key, (mod, name) in targets.items():
+        setattr(mod, name, timed(saved[key], key))
+    runs = []
+    try:
+        for _ in range(reps + 1):
+            for v in spans.values():
+                v.clear()
+            t0 = time.perf_counter()
+            run()
+            wall = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            runs.append({"wall": wall, **{k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}})
+    finally:
+        for key, (mod, name) in targets.items():
+            setattr(mod, name, saved[key])
+    return {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
 
 
 def walk_edges_vs_plain(dev, errs):
@@ -1740,6 +1995,9 @@ def sw_phase(card, bound):
     torch.cuda.reset_peak_memory_stats()
     errs = {}
     sw_kernels_vs_plain(dev, errs)
+    t0 = time.perf_counter()
+    local_walk_edges_vs_plain(dev, errs)
+    log(f"phase 9 (a) sw_walk at the variant walk edge shapes: {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(11)
     configs = {  # name: (entry point, pairs, source)
@@ -1870,15 +2128,25 @@ def sw_phase(card, bound):
                 tensor_bytes(*b3k, codes, best, js, is_)),
         shape=f"128x{L_SW_TB}bp codes+best+argmax (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_fill:.3f} ms)",
     )
-    rec["sw_walk"] = dict(
-        ms=ms_walk, plain_ms=p_walk,
-        **bound(steps * OPS_WALK_STEP, tensor_bytes(js, is_) + 12 * len(pairs) + 5 * steps),
-        shape=f"128x{L_SW_TB}bp, {steps} steps (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_walk:.3f} ms)",
-        span_floor_ms=bound.span(int(n_walk.max())),
-    )
+    longest = int(n_walk.max())
     del codes
     _, b4k = batch_of("align4096x150")
     ms_fill150 = cuda_ms(lambda: vb.sw_fill_codes_banded_batch(*b4k, m, k, d), 10)
+    codes, _, js150, is150 = vb.sw_fill_codes_banded_batch(*b4k, m, k, d)
+    ms_walk150 = cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js150, is150), 10)
+    del codes
+    split = {name: route_split(lambda ps=configs[name][1]: sw.sw_align_batch(ps, m, k, d),
+                               {"fill": (sw, "sw_fill_codes_banded_batch"), "walk": (sw, "walk_sw_codes_batch")})
+             for name in ("align128x3072", "align4096x150")}
+    log(f"SW alignments split by CUDA events (medians of 3 warm runs, ms): {split} [{card}]")
+    rec["sw_walk"] = dict(
+        ms=ms_walk, plain_ms=p_walk,
+        **bound(steps * OPS_WALK_STEP, tensor_bytes(js, is_) + 12 * len(pairs) + 5 * steps),
+        shape=(f"128x{L_SW_TB}bp, {steps} steps, longest {longest} (plain_ms at 4x{L_SW_TB}bp, kernel there "
+               f"{k4_walk:.3f} ms); 4096x{L_SHORT}bp {ms_walk150:.3f} ms"),
+        span_floor_ms=bound.span(longest), ns_per_step=ms_walk * 1e6 / longest, ms_4096x150=ms_walk150,
+        route_split_ms=split,
+    )
     (w3k, one3k, _), (w150c, _, _) = pipe_turns(card, [
         (f"sw_fill_codes 128x{L_SW_TB}bp", "sw_codes", b3k, 3),
         (f"sw_fill_codes 4096x{L_SHORT}bp", "sw_codes", b4k, 10),
@@ -1958,6 +2226,7 @@ def variants_phase(card, bound):
     from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
     from nw_tpu_torch.models import affine as af
     from nw_tpu_torch.models import overlap as ov
+    from nw_tpu_torch.models import smith_waterman as sw
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import traceback as tb
     from nw_tpu_torch.ops import variants_banded as vb
@@ -2137,9 +2406,17 @@ def variants_phase(card, bound):
         shape=f"128x{L_SW_TB}bp codes+best+argmax (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_fill:.3f} ms)",
     )
     walk_bound = bound(steps * OPS_WALK_STEP, tensor_bytes(js, is_) + 12 * len(pairs3k) + 5 * steps)
+    longest = int(n_walk.max())
     del codes
     b4k = batch_of(configs["overlap_align4096x150"][1])
     ms_fill150 = cuda_ms(lambda: vb.overlap_fill_codes_banded_batch(*b4k, *mkd), 10)
+    codes, _, js150, is150 = vb.overlap_fill_codes_banded_batch(*b4k, *mkd)
+    ms_walk150 = cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js150, is150), 10)
+    del codes
+    split = {name: route_split(lambda ps=configs[name][1]: ov.overlap_align_batch(ps, *mkd),
+                               {"fill": (ov, "overlap_fill_codes_banded_batch"), "walk": (sw, "walk_sw_codes_batch")})
+             for name in ("overlap_align128x3072", "overlap_align4096x150")}
+    log(f"overlap alignments split by CUDA events (medians of 3 warm runs, ms): {split} [{card}]")
     (w3k, one3k, _), (w150c, _, _) = pipe_turns(card, [
         (f"overlap_fill_codes 128x{L_SW_TB}bp", "overlap_codes", b3k, 3),
         (f"overlap_fill_codes 4096x{L_SHORT}bp", "overlap_codes", b4k, 10),
@@ -2151,13 +2428,15 @@ def variants_phase(card, bound):
         rec[name].update(launches=launches[name], max_abs_err=errs[name])
         log(f"{name}: {rec[name]['ms']:.3f} ms at {rec[name]['shape']}, bound {rec[name]['bound_ms']:.4f} ms "
             f"({rec[name]['bound_by']}), plain {rec[name]['plain_ms']:.1f} ms [{card}]")
-    log(f"sw_walk on overlap codes 128x{L_SW_TB}bp: {ms_walk:.3f} ms, {steps} steps, bound "
-        f"{walk_bound['bound_ms']:.4f} ms ({walk_bound['bound_by']}), span floor {span:.4f} ms, plain "
-        f"{p_walk:.1f} ms at 4 pairs (kernel there {k4_walk:.3f} ms) [{card}]")
+    log(f"sw_walk on overlap codes 128x{L_SW_TB}bp: {ms_walk:.3f} ms, {steps} steps, longest {longest} "
+        f"({ms_walk * 1e6 / longest:.1f} ns a step), bound {walk_bound['bound_ms']:.4f} ms "
+        f"({walk_bound['bound_by']}), span floor {span:.4f} ms, plain {p_walk:.1f} ms at 4 pairs (kernel there "
+        f"{k4_walk:.3f} ms); 4096x{L_SHORT}bp {ms_walk150:.3f} ms [{card}]")
     log(f"overlap_fill_codes 4096x{L_SHORT}bp: {ms_fill150:.3f} ms [{card}]")
     log(f"phase 10 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"phase seconds {time.perf_counter() - t_phase:.1f} [{card}]")
-    walk = dict(launches=launches["sw_walk"], max_abs_err=errs["sw_walk"], ms=ms_walk, span_floor_ms=span)
+    walk = dict(launches=launches["sw_walk"], max_abs_err=errs["sw_walk"], ms=ms_walk, span_floor_ms=span,
+                ns_per_step=ms_walk * 1e6 / longest, ms_4096x150=ms_walk150, route_split_ms=split)
     return rec, walk
 
 
@@ -2235,6 +2514,9 @@ def gotoh_phase(card, bound, c3_strings):
         fail("the native runtime (nw_tpu_torch/runtime/cc) did not build or load")
     errs = {}
     gotoh_kernels_vs_plain(dev, errs)
+    t0 = time.perf_counter()
+    gotoh_walk_edges_vs_plain(dev, errs)
+    log(f"phase 11 (a) gotoh_walk at the variant walk edge shapes: {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(14)
     sc = (2, 1, 3, 1)
@@ -2371,20 +2653,27 @@ def gotoh_phase(card, bound, c3_strings):
         **bound(cells * (OPS_GOTOH + OPS_GOTOH_CODE), tensor_bytes(*b3k, codes, scores, states)),
         shape=f"128x{L_SW_TB}bp codes+scores+states (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_fill:.3f} ms)",
     )
-    rec["gotoh_walk"] = dict(
-        ms=ms_walk, plain_ms=p_walk,
-        **bound(steps * OPS_WALK_STEP, tensor_bytes(l1, l2, states, n) + 5 * steps),
-        shape=f"128x{L_SW_TB}bp, {steps} steps (plain_ms at 4x{L_SW_TB}bp, kernel there {k4_walk:.3f} ms)",
-        span_floor_ms=bound.span(int(n.max())),
-    )
-    ns_step = ms_walk * 1e6 / (steps / len(pairs3k))
-    log(f"gotoh_walk 128x{L_SW_TB}bp: {steps} steps, {ns_step:.1f} ns a step of one walk; codes "
-        f"{tensor_bytes(codes) / 1e9:.3f} GB [{card}]")
+    longest = int(n.max())
+    log(f"gotoh_walk 128x{L_SW_TB}bp: {steps} steps, longest {longest}, {ms_walk * 1e6 / longest:.1f} ns a step "
+        f"of the longest walk; codes {tensor_bytes(codes) / 1e9:.3f} GB [{card}]")
     del codes, ops
     pairs150 = configs["gotoh_align4096x150"][0]
     b150 = enc.upload(enc.encode_batch(pairs150, L_SHORT, L_SHORT), dev)
     ms_fill150 = cuda_ms(lambda: vb.affine_fill_codes_banded_batch(*b150, *sc), 10)
     codes150, _, st150 = vb.affine_fill_codes_banded_batch(*b150, *sc)
+    ms_walk150 = cuda_ms(lambda: tb.walk_gotoh_codes_batch(codes150, b150[2], b150[3], st150, 2 * L_SHORT), 10)
+    split = {name: route_split(lambda ps=configs[name][0]: af.affine_align_batch(ps, *sc),
+                               {"fill": (af, "affine_fill_codes_banded_batch"), "walk": (af, "walk_gotoh_codes_batch")})
+             for name in configs}
+    log(f"Gotoh alignments split by CUDA events (medians of 3 warm runs, ms): {split} [{card}]")
+    rec["gotoh_walk"] = dict(
+        ms=ms_walk, plain_ms=p_walk,
+        **bound(steps * OPS_WALK_STEP, tensor_bytes(l1, l2, states, n) + 5 * steps),
+        shape=(f"128x{L_SW_TB}bp, {steps} steps, longest {longest} (plain_ms at 4x{L_SW_TB}bp, kernel there "
+               f"{k4_walk:.3f} ms); 4096x{L_SHORT}bp {ms_walk150:.3f} ms"),
+        span_floor_ms=bound.span(longest), ns_per_step=ms_walk * 1e6 / longest, ms_4096x150=ms_walk150,
+        route_split_ms=split,
+    )
     ops150, n150 = (t.cpu().numpy() for t in tb.walk_gotoh_codes_batch(codes150, b150[2], b150[3], st150, 2 * L_SHORT))
     log(f"gotoh_fill_codes 4096x{L_SHORT}bp: {ms_fill150:.3f} ms, bound "
         f"{bound(len(pairs150) * L_SHORT * L_SHORT * (OPS_GOTOH + OPS_GOTOH_CODE), tensor_bytes(*b150, codes150))['bound_ms']:.4f} ms [{card}]")
@@ -4012,6 +4301,8 @@ def main() -> None:
     sw_rec["sw_walk"]["launches"] += overlap_walk["launches"]
     sw_rec["sw_walk"]["max_abs_err"] = max(sw_rec["sw_walk"]["max_abs_err"], overlap_walk["max_abs_err"])
     sw_rec["sw_walk"]["shape"] += f"; overlap walks 128x{L_SW_TB}bp {overlap_walk['ms']:.3f} ms"
+    sw_rec["sw_walk"]["overlap"] = {k: overlap_walk[k] for k in ("ms", "span_floor_ms", "ns_per_step", "ms_4096x150",
+                                                                 "route_split_ms")}
 
     single_src = "nw_tpu_torch/csrc/nw_single.cu"
     kernels_line = [
@@ -4079,7 +4370,7 @@ def main() -> None:
                      "nw_tpu/ops/variants_banded.py:60 (K18 scores)",
         "sw_fill_codes": "nw_tpu/ops/variants_pallas.py:253 (K24), nw_tpu/ops/variants_banded.py:60 "
                          "(K18 words + argmax)",
-        "sw_walk": "nw_tpu/models/smith_waterman.py:220, nw_tpu/ops/variants_banded.py:1300, "
+        "sw_walk": "nw_tpu/models/smith_waterman.py:220, nw_tpu/ops/variants_banded.py:1177, "
                    "nw_tpu/models/overlap.py:178, nw_tpu/ops/variants_banded.py:752",
     }
     for name, fields in sw_rec.items():
@@ -4099,7 +4390,7 @@ def main() -> None:
                              "replaces": var_replaces[name], **fields})
     gotoh_replaces = {
         "gotoh_fill_codes": "nw_tpu/ops/variants_banded.py:1413 (K21), nw_tpu/ops/variants_pallas.py:429 (K25)",
-        "gotoh_walk": "nw_tpu/models/affine.py:340, nw_tpu/ops/variants_banded.py:1803",
+        "gotoh_walk": "nw_tpu/models/affine.py:340, nw_tpu/ops/variants_banded.py:1698",
     }
     for name, fields in gotoh_rec.items():
         src = "nw_tpu_torch/csrc/nw_walk.cu" if name == "gotoh_walk" else "nw_tpu_torch/csrc/nw_affine.cu"

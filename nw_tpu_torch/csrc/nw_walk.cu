@@ -31,8 +31,9 @@
 // chain short, and a warp's lanes on one path.
 //
 // Design (walk_staged, shared by nw_walk and nw_walk_window's codes
-// mode).  A warp a walk; nw_walk packs kWalkWarps walks a block so that
-// a batch spreads over the SMs.  The walk's geometry makes its reads
+// mode, and in modes of their own by sw_walk and gotoh_walk).  A warp a
+// walk; nw_walk packs kWalkWarps walks a block so that a batch spreads
+// over the SMs.  The walk's geometry makes its reads
 // predictable: inside a band a step takes (t, jj) to (t-2, jj-1) (DIAG),
 // (t-1, jj) (LEFT) or (t-1, jj-1) (UP), so t never rises and the band's
 // word columns t >> 4 are read in falling order; and since i never rises,
@@ -132,31 +133,37 @@
 // sw_walk is the Smith-Waterman walk over the local codes of
 // nw_fill.cu's LOCAL mode (sw_fill_codes): the jnp loops
 // nw_tpu/models/smith_waterman.py:220 _sw_walk_packed (over K24's words)
-// and nw_tpu/ops/variants_banded.py:1300-1360 (_sw_walk_device, over
-// K18's).  One thread a pair starts at its best cell (j*, i*), follows
-// the codes with code_at's lookup and stops on a STOP code (a cell of
-// score 0, a local start) or on row 0 or column 0, whose cells are 0 and
-// not stored: not nw_walk's rule, which steps LEFT along row 0.  It
-// writes its ops in walk order and the cell where it stopped.  It walks
-// the overlap codes of nw_fill.cu's OVERLAP mode (overlap_fill_codes)
-// unchanged, from the end cell to row 0 or column 0 (whose cells are
-// STOP): the jnp loops nw_tpu/models/overlap.py:178 _overlap_walk_diag
-// and nw_tpu/ops/variants_banded.py:752 _overlap_walk_device.
+// and nw_tpu/ops/variants_banded.py:1177 _sw_walk_device (over K18's).  A
+// walk starts at its best cell (j*, i*), follows the codes and stops on a
+// STOP code (a cell of score 0, a local start) or on row 0 or column 0,
+// whose cells are 0 and not read: not nw_walk's rule, which steps LEFT
+// along row 0.  It writes its ops in walk order and the cell where it
+// stopped.  It walks the overlap codes of nw_fill.cu's OVERLAP mode
+// (overlap_fill_codes) unchanged, from the end cell to row 0 or column 0:
+// the jnp loops nw_tpu/models/overlap.py:178 _overlap_walk_diag and
+// nw_tpu/ops/variants_banded.py:752 _overlap_walk_device.  Its design is
+// walk_staged's in the local mode: a warp a walk on the same ring and
+// table, which ends where the walk reads 0 (a STOP's delta, or column 0,
+// over which each lane writes 0 when it expands its row), kLocalWarps
+// walks a block (1: at 128 pairs a walk an SM).
 //
 // gotoh_walk is Gotoh's three-state walk over the 4-bit codes of
 // nw_affine.cu's CODES mode (gotoh_fill_codes): the jnp loops
 // nw_tpu/models/affine.py:340 _affine_walk_packed (over K25's words) and
-// nw_tpu/ops/variants_banded.py:1803-1873 (the group walk of
-// _affine_walk_device, over K21's).  One thread a pair starts at the
-// true corner in the corner's state.  In state M it emits DIAG and
-// moves to the state in bits 0-1 of its cell; in IX it emits LEFT and
-// stays in IX when bit 2 is set, else moves to M; in IY it emits UP and
-// stays in IY when bit 3 is set, else M.  On row 0 it steps LEFT to the
-// origin and on column 0 UP, whatever its state: it never reads a cell
-// outside the rectangle (nw_tpu's walks read side[j-1] at j = 0 when
-// the states near the sentinel send them there).  Each step reads one
-// 4-bit code, so the walk is bound by the same chain of dependent loads
-// as the others, over twice the bytes of 2-bit codes.
+// nw_tpu/ops/variants_banded.py:1698 _affine_walk_device (over K21's).  A
+// walk starts at the true corner in the corner's state.  In state M it
+// emits DIAG and moves to the state in bits 0-1 of its cell (3 as IY); in
+// IX it emits LEFT and stays in IX when bit 2 is set, else moves to M; in
+// IY it emits UP and stays in IY when bit 3 is set, else M.  On row 0 it
+// steps LEFT to the origin and on column 0 UP, whatever its state: it
+// never reads a cell outside the rectangle (nw_tpu's walks read side[j-1]
+// at j = 0 when the states near the sentinel send them there).  Its design
+// is walk_staged's in the Gotoh mode: a warp a walk on a ring of its own
+// sizes (kGotohSegCols columns of 8 cells, kGotohDepth bands ahead), with
+// the state in the table's address so that a step stays one byte load and
+// one subtract (walk_staged's note); the warp writes the UP run along
+// column 0 as it writes the row-0 LEFT run.  What the card showed
+// for both (an H100, scripts/walk_profile.py --sw / --gotoh): PERF.md.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -172,16 +179,6 @@ constexpr int kCodeStop = 3;
 // band-major 2-bit codes go through walk_staged, the tie masks through
 // walk_masks_staged)
 constexpr int kWalkRuns = 2;  // row-major run bytes (nw_fill_runs_batch)
-
-// The 2-bit code of code row r, column i (band-major, TW words a band row)
-__device__ __forceinline__ int code_at(const unsigned* __restrict__ base,
-                                       int TW, int r, int i) {
-  const int band = r >> 5;
-  const int jj = r & 31;
-  const int t = i + jj;
-  const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 4)) * 32 + jj];
-  return (w >> (2 * (t & 15))) & 3u;
-}
 
 // The run-skip walk from (i, j) to the origin over run bytes of rows
 // 1 .. (row r at base + r * stride), writing ops from out[n]; stops after
@@ -273,16 +270,65 @@ constexpr int kWarpBytes =
     (kRing * kSegCols * kColBytes + 33 * kRowBytes + 1024 + kRing * 12 + kOpBuf + 127) & ~127;
 static_assert(kWalkWarps * kWarpBytes <= 48 * 1024, "a block's staging past 48 KB of shared memory");
 
+// The walks walk_staged serves: Needleman-Wunsch's and Smith-Waterman's
+// (and overlap's) over 2-bit codes, Gotoh's three states over 4-bit codes
+enum WalkMode { kGlobal, kLocal, kGotoh };
+
+// The local walk's walks (warps) a block of sw_walk; the rest of its
+// staging is the code walk's.  From a sweep on an H100
+// (scripts/walk_profile.py --sw --sweep): at 128 pairs one walk an SM.
+#ifndef NW_WALK_LOCAL_WARPS
+#define NW_WALK_LOCAL_WARPS 1
+#endif
+constexpr int kLocalWarps = NW_WALK_LOCAL_WARPS;
+static_assert(kLocalWarps * kWarpBytes <= 48 * 1024, "a block's staging past 48 KB of shared memory");
+
+// Gotoh's staging: K word columns (8 cells each) a segment, D bands ahead,
+// walks a block of gotoh_walk, and the words a delta-table row expands.
+// From a sweep on an H100 (scripts/walk_profile.py --gotoh --sweep, which
+// rebuilds this file with others): one walk a block, the fewest bytes
+// copied ahead (K 16, D 1) and 6 words (48 cells, ~1.5 a band's path) were
+// 6% faster at 128 x 3 kb and 28% at 4 096 x 150 bp than K 24, D 2, 2
+// warps and 7 words.
+#ifndef NW_WALK_GOTOH_SEG_COLS
+#define NW_WALK_GOTOH_SEG_COLS 16
+#endif
+#ifndef NW_WALK_GOTOH_DEPTH
+#define NW_WALK_GOTOH_DEPTH 1
+#endif
+#ifndef NW_WALK_GOTOH_WARPS
+#define NW_WALK_GOTOH_WARPS 1
+#endif
+#ifndef NW_WALK_GOTOH_TABLE
+#define NW_WALK_GOTOH_TABLE 6
+#endif
+constexpr int kGotohSegCols = NW_WALK_GOTOH_SEG_COLS;
+constexpr int kGotohDepth = NW_WALK_GOTOH_DEPTH;
+constexpr int kGotohWarps = NW_WALK_GOTOH_WARPS;
+constexpr int kGotohWords = NW_WALK_GOTOH_TABLE;
+// a Gotoh delta-table row: a 16-byte block of sentinels, then 8 cells a
+// word of 4 bytes, one a state (M, IY, IX, unused); its deltas (up to
+// kGotohRowBytes + 4) fit a byte
+constexpr int kGotohRowBytes = 16 + 32 * kGotohWords;
+constexpr int kSlotIY = 1, kSlotIX = 2;  // a state's byte in a cell (M's is 0)
+static_assert(kGotohRowBytes + 4 < 256 && kGotohWords > 0, "a Gotoh delta past a byte");
+// A warp's shared memory, as kWarpBytes with a 2 KB expansion table
+constexpr int kGotohWarpBytes = ((kGotohDepth + 1) * kGotohSegCols * kColBytes + 33 * kGotohRowBytes + 2048 +
+                                 (kGotohDepth + 1) * 12 + kOpBuf + 127) & ~127;
+static_assert(kGotohWarps * kGotohWarpBytes <= 48 * 1024, "a block's staging past 48 KB of shared memory");
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One warp's ring of code segments.  Every lane holds the same copy of
-// its registers; lane 0 alone issues the copies, every lane waits.
+// One warp's ring of R segments of K code columns.  Every lane holds the
+// same copy of its registers; lane 0 alone issues the copies, every lane
+// waits.
+template <int K, int R>
 struct CodeRing {
   const unsigned* codes;  // the walk's table: word (band, w, jj) at (band*TW + w)*32 + jj
   int TW;
-  unsigned* seg;          // kRing slots of kSegCols*32 words
+  unsigned* seg;          // R slots of K*32 words
   uint32_t bars;          // shared address of slot 0's mbarrier (8 bytes a slot)
   int* lo;                // each slot's first column; below 0 past a wrap (see load)
   unsigned phase;         // bit s: the parity of slot s's next completion
@@ -291,7 +337,7 @@ struct CodeRing {
 
   __device__ void init() {
     if (lane0) {
-      for (int s = 0; s < kRing; ++s)
+      for (int s = 0; s < R; ++s)
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bars + 8 * s) : "memory");
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
@@ -299,7 +345,7 @@ struct CodeRing {
     __syncwarp();
   }
 
-  // Copy word columns [top - kSegCols + 1, top] (cut at 0) of band b into slot
+  // Copy word columns [top - K + 1, top] (cut at 0) of band b into slot
   // s, top = tv, a column t >> 4.  A tv below 0 (a walk that left column 0,
   // which codes a fill writes never send it to) wraps to the band's last
   // columns, as the plain versions' negative indexing reads them.  The
@@ -309,7 +355,7 @@ struct CodeRing {
   __device__ void load(int s, int b, int tv) {
     const int wrap = tv < 0 ? TW : 0;
     const int top = imax(imin(tv + wrap, TW - 1), 0);
-    const int l = imax(top - kSegCols + 1, 0);
+    const int l = imax(top - K + 1, 0);
     lo[s] = l - wrap;
     __syncwarp();
     if (lane0) {
@@ -319,7 +365,7 @@ struct CodeRing {
                    ::"r"(bar), "r"(bytes) : "memory");
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-          ::"r"(smem_u32(seg + s * kSegCols * 32)),
+          ::"r"(smem_u32(seg + s * K * 32)),
           "l"(codes + (static_cast<int64_t>(b) * TW + l) * 32), "r"(bytes), "r"(bar)
           : "memory");
     }
@@ -340,7 +386,7 @@ struct CodeRing {
 
   // No copy may outlive the block: wait for the ones the walk left behind
   __device__ void drain() {
-    for (int s = 0; s < kRing; ++s)
+    for (int s = 0; s < R; ++s)
       if (pending >> s & 1u) wait(s);
   }
 };
@@ -350,6 +396,29 @@ __device__ __forceinline__ signed char delta_op(unsigned v) {
   return static_cast<signed char>(v == 1u ? kOpLeft
                                   : v == kRowBytes + 1u ? kOpUp
                                   : v == kRowBytes + 2u ? kOpDiag : kCodeStop);
+}
+
+// A Gotoh delta-table cell of code c (bits 0-1 M's next state, bit 2 IX
+// extends, bit 3 IY extends): its three state bytes, each how far back the
+// next state's byte of the predecessor lies (rows kGotohRowBytes apart,
+// columns 4).  M (byte 0) steps DIAG into the state of bits 0-1 (3 as IY),
+// kGotohRowBytes + 4 - that state's byte; IY (byte 1) UP into IY or M,
+// kGotohRowBytes + 1 - its byte; IX (byte 2) LEFT into IX or M, 4 + 2 -
+// its byte.  So LEFT is 4 or 6, UP kGotohRowBytes or + 1 and DIAG
+// kGotohRowBytes + 2 to + 4: a delta names its op.
+__host__ __device__ constexpr unsigned gotoh_cell(unsigned c) {
+  return ((c & 3) == 0 ? kGotohRowBytes + 4u : (c & 3) == 1 ? kGotohRowBytes + 4u - kSlotIX
+                                                            : kGotohRowBytes + 4u - kSlotIY) |
+         (c & 8 ? kGotohRowBytes : kGotohRowBytes + kSlotIY) << 8 | (c & 4 ? 4u : 4u + kSlotIX) << 16;
+}
+
+// The op of a walk's step by its delta: the state it left
+template <int MODE>
+__device__ __forceinline__ signed char walk_op(unsigned v) {
+  if constexpr (MODE == kGotoh)
+    return static_cast<signed char>(v < 16u ? kOpLeft : v < kGotohRowBytes + 2u ? kOpUp : kOpDiag);
+  else
+    return delta_op(v);
 }
 
 // One step of the walk over the delta table: the byte at shared address p,
@@ -400,89 +469,162 @@ __device__ __forceinline__ unsigned walk_table(uint32_t& p, int& n, int flushed,
   return v;
 }
 
-// Walk from (i, j) over the 2-bit codes of rows j0+1 .. j0+32*nbands
-// (`codes`, band-major, TW words a band row), writing ops from out[n];
-// stops at row j0 when j0 > 0, else at the origin (LEFT along row 0), or
-// after S ops.  A warp, every lane with the same (i, j, n) in and out;
-// wsmem is its kWarpBytes of shared memory.
+// Walk from (i, j) over the codes of rows j0+1 .. j0+32*nbands (`codes`,
+// band-major, TW words a band row), writing ops from out[n], in one of
+// three modes.  kGlobal (2-bit codes): stops at row j0 when j0 > 0, else
+// at the origin (LEFT along row 0), or after S ops.  kLocal (2-bit codes,
+// 3 STOP): stops on a STOP cell, on row j0 or on column 0, neither of
+// which it reads, or after S ops, and returns the cell where it stopped.
+// kGotoh (4-bit codes, 8 a word): from state st (0 M, 1 IX, else IY) to
+// the origin (LEFT along row 0, UP along column 0, whatever the state), or
+// S ops.  A warp, every lane with the same (i, j, n) in and out; wsmem is
+// its kWarpBytes (kGotohWarpBytes) of shared memory.
 //
-// On entering a band (or leaving its table below) the warp expands the
-// kTableCols word columns of the staged segment from the walk's cell's
-// column down into a table of bytes, lane jj its row: cell (t, jj) at byte
-// (jj + 1) * kRowBytes + 16 + t - 16 * c0 holds how far back its
-// predecessor lies, 1 (LEFT), kRowBytes + 1 (UP) or kRowBytes + 2 (DIAG).
-// Row jj = -1 and each row's first 16 bytes hold 0, and so does a cell of
-// code 3 (none a fill writes): a walk that reads 0 has left the band, the
-// table, or met such a code, and stays there.  A step is then one byte
-// load and one subtract on the walk's shared-memory pointer; its byte goes
-// to the op buffer at a fixed offset, and the op comes from it at the flush.
+// 2-bit codes: on entering a band (or leaving its table below) the warp
+// expands the kTableCols word columns of the staged segment from the
+// walk's cell's column down into a table of bytes, lane jj its row: cell
+// (t, jj), t = i + jj, at byte (jj + 1) * kRowBytes + 16 + t - 16 * c0
+// holds how far back its predecessor lies, 1 (LEFT), kRowBytes + 1 (UP) or
+// kRowBytes + 2 (DIAG).  Row jj = -1 and each row's first 16 bytes hold 0,
+// and so does a cell of code 3: a walk that reads 0 has left the band, the
+// table, or met such a code, and stays there.  kGlobal emits code 3's op
+// and moves on the diagonal, as the plain walk does (no fill writes one);
+// kLocal stops there, and its lane jj writes 0 at column 0 (t = jj), so
+// that it stops there whatever the code.  A step is then one byte load
+// and one subtract on the walk's shared-memory pointer; its byte goes to
+// the op buffer at a fixed offset, and the op comes from it at the flush.
+//
+// Gotoh: the state goes into the address.  A cell is 4 bytes, one a state
+// (gotoh_cell), and the table's rows are rectangular: cell (i, jj) in
+// state slot z at byte (jj + 1) * kGotohRowBytes + 16 + 4 * (i - c0) + z,
+// so that one byte load and one subtract step the walk to its next cell
+// in its next state.  Lane jj expands its row from column c0 = the walk's
+// column less 8 * kGotohWords - 1 (cut at the slot's first cell), reading
+// its own words of the slot (t = i + jj: a funnel shift a word) through a
+// 256-entry table of two cells; it writes 0 over column 0.  A band's path
+// spans ~32 columns of i but ~64 of t, so one expansion of 48 cells serves
+// a band where rows of t as wide would take two.  A walk that reads 0 has
+// left the band, the table's columns, or reached column 0.
+template <int MODE>
 __device__ __forceinline__ void walk_staged(const unsigned* __restrict__ codes, int TW,
                                             unsigned char* wsmem, int j0, int S,
                                             int& i, int& j, int& n,
-                                            signed char* __restrict__ out) {
+                                            signed char* __restrict__ out, int st = 0) {
+  constexpr bool kG = MODE == kGotoh;
+  constexpr int K = kG ? kGotohSegCols : kSegCols, D = kG ? kGotohDepth : kDepth, R = D + 1;
+  constexpr int kShift = kG ? 3 : 4;  // the cells a word: 1 << kShift
+  constexpr int kRow = kG ? kGotohRowBytes : kRowBytes;
   const int lane = threadIdx.x & 31;
-  unsigned char* table = wsmem + kRing * kSegCols * kColBytes;
-  unsigned* lut = reinterpret_cast<unsigned*>(table + 33 * kRowBytes);
-  unsigned char* buf = reinterpret_cast<unsigned char*>(lut + 256) + kRing * 12;
+  unsigned char* table = wsmem + R * K * kColBytes;
+  unsigned* lut = reinterpret_cast<unsigned*>(table + 33 * kRow);
+  unsigned char* books = reinterpret_cast<unsigned char*>(lut + (kG ? 512 : 256));  // mbarriers, then lo
+  unsigned char* buf = books + R * 12;
   int flushed = n;  // out[flushed .. n) wait in buf
   if (j > j0 && n < S) {
-    CodeRing ring{codes, TW, reinterpret_cast<unsigned*>(wsmem), smem_u32(lut + 256),
-                  reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(lut + 256) + 8 * kRing),
-                  0, 0, lane == 0};
+    CodeRing<K, R> ring{codes, TW, reinterpret_cast<unsigned*>(wsmem), smem_u32(books),
+                        reinterpret_cast<int*>(books + 8 * R), 0, 0, lane == 0};
     ring.init();
     const int r = j - j0 - 1;
-    int band = r >> 5, jj = r & 31, t = i + jj;
-    int s = band % kRing;  // band's slot; band - q's is (s - q) mod kRing
-    ring.load(s, band, t >> 4);
-    for (int q = 1; q <= kDepth && band - q >= 0; ++q)
-      ring.load((s - q + kRing) % kRing, band - q, (i + 31) >> 4);
-    // the sentinels, and the expansion of a byte of 4 codes into 4 cells
-    for (int q = lane; q < 33 * kRowBytes / 16; q += 32)
+    // t: the walk's column in the table, i + jj (2-bit codes) or i (Gotoh)
+    int band = r >> 5, jj = r & 31, t = kG ? i : i + jj;
+    int s = band % R;  // band's slot; band - q's is (s - q) mod R
+    ring.load(s, band, (kG ? t + jj : t) >> kShift);
+    for (int q = 1; q <= D && band - q >= 0; ++q)
+      ring.load((s - q + R) % R, band - q, (i + 31) >> kShift);
+    // the sentinels, and the expansion of a byte of codes into cells
+    for (int q = lane; q < 33 * kRow / 16; q += 32)
       reinterpret_cast<uint4*>(table)[q] = make_uint4(0, 0, 0, 0);
-    constexpr unsigned deltas = (kRowBytes + 2) | 1u << 8 | (kRowBytes + 1) << 16;  // codes 0-2; 3 -> 0
-    for (int q = lane; q < 256; q += 32)
-      lut[q] = __byte_perm(deltas, 0, (q & 3) | (q & 12) << 2 | (q & 48) << 4 | (q & 192) << 6);
+    if constexpr (kG) {
+      for (int q = lane; q < 256; q += 32)
+        reinterpret_cast<uint2*>(lut)[q] = make_uint2(gotoh_cell(q & 15), gotoh_cell(q >> 4));
+    } else {
+      constexpr unsigned deltas = (kRowBytes + 2) | 1u << 8 | (kRowBytes + 1) << 16;  // codes 0-2; 3 -> 0
+      for (int q = lane; q < 256; q += 32)
+        lut[q] = __byte_perm(deltas, 0, (q & 3) | (q & 12) << 2 | (q & 48) << 4 | (q & 192) << 6);
+    }
     __syncwarp();
     int c0 = 0;
+    int z = st == 0 ? 0 : st == 1 ? kSlotIX : kSlotIY;  // Gotoh: the state's byte in its cell
     uint32_t p = 0;  // the shared address of the walk's cell in the table
     for (bool cut = false; !cut;) {  // a band a pass, from its first row jj down
       ring.wait(s);
       for (bool fresh = true;;) {
         if (fresh) {  // the table from t's column down, from the staged segment
           __syncwarp();  // every lane's reads of the table before it is rewritten
-          if ((t >> 4) < ring.lo[s]) {  // below the segment: copy the band's columns at t
-            if (t < -16 * TW) {  // off the table (codes no fill writes): stop
-              cut = true;
-              break;
+          if constexpr (kG) {
+            if ((t >> 3) < ring.lo[s]) {  // left of the segment: copy the band's columns at the cell
+              ring.load(s, band, (t + jj) >> 3);
+              ring.wait(s);
             }
-            ring.load(s, band, t >> 4);
-            ring.wait(s);
+            // lane jj's row from column c0 on: cell i holds the code at
+            // i + jj, its words from (c0 + jj) >> 3 on, each funnel-shifted
+            // to its first cell, cut at the walk's word (t + jj) >> 3, the
+            // highest any row it reaches needs (a cell past the walk's,
+            // never visited, repeats it)
+            const int lo = ring.lo[s], ctop = (t + jj) >> 3;
+            c0 = imax(t - 8 * kGotohWords + 1, 8 * lo);
+            const int tl = c0 + lane;
+            const unsigned* col = ring.seg + s * K * 32 + lane;
+            unsigned w[kGotohWords + 1];
+            uint2 d[4 * kGotohWords];
+#pragma unroll
+            for (int c = 0; c <= kGotohWords; ++c) w[c] = col[32 * (imin((tl >> 3) + c, ctop) - lo)];
+#pragma unroll
+            for (int c = 0; c < kGotohWords; ++c) {
+              const unsigned x = __funnelshift_r(w[c], w[c + 1], 4 * (tl & 7));
+#pragma unroll
+              for (int q = 0; q < 4; ++q) d[4 * c + q] = reinterpret_cast<const uint2*>(lut)[x >> 8 * q & 255];
+            }
+            uint4* row = reinterpret_cast<uint4*>(table + (lane + 1) * kGotohRowBytes + 16);
+#pragma unroll
+            for (int c = 0; c < 2 * kGotohWords; ++c)
+              row[c] = make_uint4(d[2 * c].x, d[2 * c].y, d[2 * c + 1].x, d[2 * c + 1].y);
+            if (c0 == 0) reinterpret_cast<unsigned*>(row)[0] = 0;  // column 0: UP whatever its code
+            __syncwarp();
+            p = smem_u32(table) + (jj + 1) * kGotohRowBytes + 16 + 4 * (t - c0) + z;
+          } else {
+            if ((t >> 4) < ring.lo[s]) {  // below the segment: copy the band's columns at t
+              if (t < -16 * TW) {  // off the table (codes no fill writes): stop
+                cut = true;
+                break;
+              }
+              ring.load(s, band, t >> 4);
+              ring.wait(s);
+            }
+            const int ctop = t >> 4, lo = ring.lo[s];
+            c0 = imax(ctop - kTableCols + 1, lo);
+            const unsigned* col = ring.seg + (s * K + c0 - lo) * 32 + lane;
+            uint4* row = reinterpret_cast<uint4*>(table + (lane + 1) * kRowBytes + 16);
+            // every column, without a branch (a column past ctop, where the
+            // walk never goes, repeats ctop's), all loads before any store so
+            // that they overlap
+            unsigned w[kTableCols], d[4 * kTableCols];
+#pragma unroll
+            for (int c = 0; c < kTableCols; ++c) w[c] = col[32 * imin(c, ctop - c0)];
+#pragma unroll
+            for (int q = 0; q < 4 * kTableCols; ++q) d[q] = lut[w[q >> 2] >> 8 * (q & 3) & 255];
+#pragma unroll
+            for (int c = 0; c < kTableCols; ++c)
+              row[c] = make_uint4(d[4 * c], d[4 * c + 1], d[4 * c + 2], d[4 * c + 3]);
+            if constexpr (MODE == kLocal) {  // column 0 (t = jj): a stop whatever its code
+              if (lane >= 16 * c0) table[(lane + 1) * kRowBytes + 16 + lane - 16 * c0] = 0;
+            }
+            __syncwarp();
+            p = smem_u32(table) + (jj + 1) * kRowBytes + 16 + t - 16 * c0;
           }
-          const int ctop = t >> 4, lo = ring.lo[s];
-          c0 = imax(ctop - kTableCols + 1, lo);
-          const unsigned* col = ring.seg + (s * kSegCols + c0 - lo) * 32 + lane;
-          uint4* row = reinterpret_cast<uint4*>(table + (lane + 1) * kRowBytes + 16);
-          // every column, without a branch (a column past ctop, where the
-          // walk never goes, repeats ctop's), all loads before any store so
-          // that they overlap
-          unsigned w[kTableCols], d[4 * kTableCols];
-#pragma unroll
-          for (int c = 0; c < kTableCols; ++c) w[c] = col[32 * imin(c, ctop - c0)];
-#pragma unroll
-          for (int q = 0; q < 4 * kTableCols; ++q) d[q] = lut[w[q >> 2] >> 8 * (q & 3) & 255];
-#pragma unroll
-          for (int c = 0; c < kTableCols; ++c)
-            row[c] = make_uint4(d[4 * c], d[4 * c + 1], d[4 * c + 2], d[4 * c + 3]);
-          __syncwarp();
-          p = smem_u32(table) + (jj + 1) * kRowBytes + 16 + t - 16 * c0;
           fresh = false;
         }
         const unsigned v = walk_table(p, n, flushed, S, buf, lane);
-        const int a = static_cast<int>(p - smem_u32(table)), row = a / kRowBytes, off = a - row * kRowBytes;
+        const int a = static_cast<int>(p - smem_u32(table)), row = a / kRow, off = a - row * kRow;
         jj = row - 1;
-        t = 16 * c0 + off - 16;
+        if constexpr (kG) {
+          t = c0 + ((off - 16) >> 2);
+          z = (off - 16) & 3;
+        } else {
+          t = 16 * c0 + off - 16;
+        }
         if (v != 0) {  // the buffer is full, or the cut after S ops
-          flush_ops<delta_op>(buf, flushed, n, lane, out);
+          flush_ops<walk_op<MODE>>(buf, flushed, n, lane, out);
           flushed = n;
           if (n == S) {
             cut = true;
@@ -495,31 +637,47 @@ __device__ __forceinline__ void walk_staged(const unsigned* __restrict__ codes, 
           fresh = true;
           continue;
         }
-        // a code 3: its op, and the diagonal's move, as the plain walks
-        if (lane == 0) buf[n - flushed] = kCodeStop;
-        ++n;
-        p -= kRowBytes + 2;
+        if constexpr (MODE == kGlobal) {
+          // a code 3: its op, and the diagonal's move, as the plain walks
+          if (lane == 0) buf[n - flushed] = kCodeStop;
+          ++n;
+          p -= kRowBytes + 2;
+        } else {  // a STOP, or column 0: the walk ends on this cell
+          cut = true;
+          break;
+        }
       }
       if (cut || band == 0) break;  // band 0's last row done: row j0
-      // into the band above at its row jj = 31: i = t + 1 (jj was -1); its
-      // slot s - 1, band - kDepth's the slot just left
+      // into the band above at its row jj = 31: i = t + 1 (jj was -1) over
+      // 2-bit codes, i = t over Gotoh's; its slot s - 1, band - D's the
+      // slot just left
       --band;
       jj = 31;
-      t += 32;
+      if constexpr (!kG) t += 32;
       const int left = s;
-      s = s ? s - 1 : kRing - 1;
-      if (band - kDepth >= 0) ring.load(left, band - kDepth, (t - jj + 31) >> 4);
+      s = s ? s - 1 : R - 1;
+      if (band - D >= 0) ring.load(left, band - D, ((kG ? t : t - jj) + 31) >> kShift);
     }
-    i = t - jj;
+    i = kG ? t : t - jj;
     j = j0 + 32 * band + jj + 1;
     ring.drain();
   }
-  flush_ops<delta_op>(buf, flushed, n, lane, out);
-  if (j0 == 0 && j == 0 && i > 0 && n < S) {  // row 0: LEFT to the origin
-    const int m = imin(i, S - n);
-    for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpLeft);
-    n += m;
-    i -= m;
+  flush_ops<walk_op<MODE>>(buf, flushed, n, lane, out);
+  if constexpr (MODE != kLocal) {
+    if (j0 == 0 && j == 0 && i > 0 && n < S) {  // row 0: LEFT to the origin
+      const int m = imin(i, S - n);
+      for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpLeft);
+      n += m;
+      i -= m;
+    }
+  }
+  if constexpr (kG) {
+    if (j0 == 0 && i == 0 && j > 0 && n < S) {  // column 0: UP to the origin
+      const int m = imin(j, S - n);
+      for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpUp);
+      n += m;
+      j -= m;
+    }
   }
 }
 
@@ -538,8 +696,8 @@ __global__ void nw_walk_staged_kernel(const unsigned* __restrict__ codes,
   int i = lens1[b];
   int j = lens2[b];
   int n = 0;
-  walk_staged(codes + b * nbands * TW * 32, TW, smem + warp * kWarpBytes, 0, S, i, j, n,
-              ops + b * S);
+  walk_staged<kGlobal>(codes + b * nbands * TW * 32, TW, smem + warp * kWarpBytes, 0, S, i, j, n,
+                       ops + b * S);
   if ((threadIdx.x & 31) == 0) ns[b] = n;
 }
 
@@ -552,12 +710,58 @@ __global__ void nw_walk_window_staged_kernel(const unsigned* __restrict__ codes,
   int i = state[0], j = state[1], n = state[2];
   // a start outside the block's codes walks nowhere (n stays short)
   if (j < j0 || j > j0 + 32 * nbands || i < 0 || i >= 16 * TW - 31 || n < 0) return;
-  walk_staged(codes, TW, smem, j0, S, i, j, n, ops);
+  walk_staged<kGlobal>(codes, TW, smem, j0, S, i, j, n, ops);
   if (threadIdx.x == 0) {
     state[0] = i;
     state[1] = j;
     state[2] = n;
   }
+}
+
+// The local walk of a batch, a warp a pair, kLocalWarps pairs a block:
+// from each best cell (j*, i*) to its STOP, row 0 or column 0
+__global__ void sw_walk_staged_kernel(const unsigned* __restrict__ codes,
+                                      const int* __restrict__ jstar,
+                                      const int* __restrict__ istar, int B,
+                                      int nbands, int TW, int S,
+                                      signed char* __restrict__ ops,
+                                      int* __restrict__ ns, int* __restrict__ iend,
+                                      int* __restrict__ jend) {
+  __shared__ __align__(128) unsigned char smem[kLocalWarps * kWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kLocalWarps + warp;
+  if (b >= B) return;
+  int i = istar[b];
+  int j = jstar[b];
+  int n = 0;
+  walk_staged<kLocal>(codes + b * nbands * TW * 32, TW, smem + warp * kWarpBytes, 0, S, i, j, n,
+                      ops + b * S);
+  if ((threadIdx.x & 31) == 0) {
+    ns[b] = n;
+    iend[b] = i;
+    jend[b] = j;
+  }
+}
+
+// Gotoh's walk of a batch, a warp a pair, kGotohWarps pairs a block: from
+// each true corner in its state to the origin
+__global__ void gotoh_walk_staged_kernel(const unsigned* __restrict__ codes,
+                                         const int* __restrict__ lens1,
+                                         const int* __restrict__ lens2,
+                                         const int* __restrict__ states, int B,
+                                         int nbands, int TW, int S,
+                                         signed char* __restrict__ ops,
+                                         int* __restrict__ ns) {
+  __shared__ __align__(128) unsigned char smem[kGotohWarps * kGotohWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kGotohWarps + warp;
+  if (b >= B) return;
+  int i = lens1[b];
+  int j = lens2[b];
+  int n = 0;
+  walk_staged<kGotoh>(codes + b * nbands * TW * 32, TW, smem + warp * kGotohWarpBytes, 0, S, i, j, n,
+                      ops + b * S, states[b]);
+  if ((threadIdx.x & 31) == 0) ns[b] = n;
 }
 
 // ---- the staged walk over row-major tie masks ----
@@ -858,82 +1062,6 @@ __global__ void smem_chase_kernel(int steps, long long* __restrict__ out) {
   out[1] = p;  // keeps the chain live
 }
 
-__global__ void sw_walk_kernel(const unsigned* __restrict__ codes,
-                               const int* __restrict__ jstar,
-                               const int* __restrict__ istar, int B,
-                               int nbands, int TW, int S,
-                               signed char* __restrict__ ops,
-                               int* __restrict__ ns, int* __restrict__ iend,
-                               int* __restrict__ jend) {
-  const int bi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bi >= B) return;
-  const int64_t b = bi;
-  const unsigned* base = codes + b * nbands * TW * 32;
-  signed char* out = ops + b * S;
-  int i = istar[b];
-  int j = jstar[b];
-  int n = 0;
-  while (i > 0 && j > 0 && n < S) {
-    const int a = code_at(base, TW, j - 1, i);
-    if (a == kCodeStop) break;
-    out[n++] = static_cast<signed char>(a);
-    i -= a != kOpUp;
-    j -= a != kOpLeft;
-  }
-  ns[b] = n;
-  iend[b] = i;
-  jend[b] = j;
-}
-
-// The 4-bit Gotoh code of code row r, column i (band-major, TW words a band row)
-__device__ __forceinline__ int code4_at(const unsigned* __restrict__ base,
-                                        int TW, int r, int i) {
-  const int band = r >> 5;
-  const int jj = r & 31;
-  const int t = i + jj;
-  const unsigned w = base[(static_cast<int64_t>(band) * TW + (t >> 3)) * 32 + jj];
-  return (w >> (4 * (t & 7))) & 15u;
-}
-
-__global__ void gotoh_walk_kernel(const unsigned* __restrict__ codes,
-                                  const int* __restrict__ lens1,
-                                  const int* __restrict__ lens2,
-                                  const int* __restrict__ states, int B,
-                                  int nbands, int TW, int S,
-                                  signed char* __restrict__ ops,
-                                  int* __restrict__ ns) {
-  const int bi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bi >= B) return;
-  const int64_t b = bi;
-  const unsigned* base = codes + b * nbands * TW * 32;
-  signed char* out = ops + b * S;
-  int i = lens1[b];
-  int j = lens2[b];
-  int st = states[b];
-  int n = 0;
-  while ((i > 0 || j > 0) && n < S) {
-    int a = kOpLeft;  // row 0: LEFT to the origin
-    if (j > 0 && i == 0) {
-      a = kOpUp;  // column 0: UP to the origin
-    } else if (j > 0) {
-      const int c = code4_at(base, TW, j - 1, i);
-      if (st == 0) {  // M: the diagonal, into the state of bits 0-1
-        a = kOpDiag;
-        st = c & 3;
-      } else if (st == 1) {  // IX: LEFT, extending on bit 2
-        st = (c >> 2) & 1;
-      } else {  // IY: UP, extending on bit 3
-        a = kOpUp;
-        st = (c >> 3) & 1 ? 2 : 0;
-      }
-    }
-    out[n++] = static_cast<signed char>(a);
-    i -= a != kOpUp;
-    j -= a != kOpLeft;
-  }
-  ns[b] = n;
-}
-
 }  // namespace
 
 // A table of codes the bulk copies can read: 16-byte aligned (an empty
@@ -996,16 +1124,19 @@ extern "C" int nw_walk_runs(const void* runs, const int* lens1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// codes: uint32[B, nbands, TW, 32] from sw_fill_codes; jstar / istar:
-// int32[B] start cells, inside the code table; ops: int8[B, S] prefilled
-// with OP_NONE; ns, iend, jend: int32[B] (ops written, stop cell).
+// codes: uint32[B, nbands, TW, 32] from sw_fill_codes or
+// overlap_fill_codes, 16-byte aligned; jstar / istar: int32[B] start
+// cells, inside the code table; ops: int8[B, S] prefilled with OP_NONE;
+// ns, iend, jend: int32[B] (ops written, stop cell).  A warp a pair on
+// walk_staged's ring.
 extern "C" int sw_walk(const void* codes, const int* jstar, const int* istar,
                        int B, int nbands, int TW, int S, signed char* ops,
                        int* ns, int* iend, int* jend, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
-  sw_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  if (!codes_aligned(codes, static_cast<int64_t>(nbands) * TW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  sw_walk_staged_kernel<<<(B + kLocalWarps - 1) / kLocalWarps, 32 * kLocalWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(codes), jstar, istar, B, nbands, TW, S, ops,
       ns, iend, jend);
   return static_cast<int>(cudaGetLastError());
@@ -1038,17 +1169,19 @@ extern "C" int nw_walk_window(const void* codes, int nbands, int TW, int j0,
   return static_cast<int>(cudaGetLastError());
 }
 
-// codes: uint32[B, nbands, TW, 32] of 4-bit codes from gotoh_fill_codes;
-// states: int32[B] corner states; ops: int8[B, S] prefilled with
-// OP_NONE; ns: int32[B].  S must be >= every len1 + len2.
+// codes: uint32[B, nbands, TW, 32] of 4-bit codes from gotoh_fill_codes,
+// 16-byte aligned; states: int32[B] corner states; ops: int8[B, S]
+// prefilled with OP_NONE; ns: int32[B].  S must be >= every len1 + len2.
+// A warp a pair on walk_staged's ring, in Gotoh's mode.
 extern "C" int gotoh_walk(const void* codes, const int* lens1,
                           const int* lens2, const int* states, int B,
                           int nbands, int TW, int S, signed char* ops,
                           int* ns, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
-  gotoh_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (!codes_aligned(codes, static_cast<int64_t>(nbands) * TW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  gotoh_walk_staged_kernel<<<(B + kGotohWarps - 1) / kGotohWarps, 32 * kGotohWarps, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(codes), lens1, lens2, states, B, nbands,
       TW, S, ops, ns);
   return static_cast<int>(cudaGetLastError());

@@ -504,10 +504,14 @@ def walk_sw_codes_batch(
     walk order (OP_NONE padded; S bounds i* + j* for any start in the
     table), n int32[B], and the stop cell i_end, j_end int32[B].
 
-    A CUDA tensor goes through the ``sw_walk`` kernel (one thread per
-    pair); a CPU tensor through :func:`walk_sw_codes_batch_plain`.
+    A CUDA tensor goes through the ``sw_walk`` kernel (a warp a pair on
+    :func:`walk_codes_batch`'s staging, which writes a stop over column
+    0 and ends on the first cell that reads 0); a CPU tensor through
+    :func:`walk_sw_codes_batch_plain`.
     """
     _check_walk_args(codes, i_star, j_star)  # a start is checked as a corner is
+    codes = codes.contiguous()
+    _check_codes_aligned(codes)
     if codes.device.type == "cpu":
         return walk_sw_codes_batch_plain(codes, j_star, i_star)
     B, nbands, TW, _ = codes.shape
@@ -516,7 +520,7 @@ def walk_sw_codes_batch(
     ops = torch.full((B, S), OP_NONE, dtype=torch.int8, device=dev)
     n, i_end, j_end = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     if B:
-        codes, j_star, i_star = (t.contiguous() for t in (codes, j_star, i_star))
+        j_star, i_star = j_star.contiguous(), i_star.contiguous()
         kernels.launch(
             "sw_walk", dev,
             codes.data_ptr(), j_star.data_ptr(), i_star.data_ptr(),
@@ -577,19 +581,24 @@ def walk_gotoh_codes_batch(
     len1 + len2.  Returns ops int8[B, max_steps] in walk order (OP_NONE
     padded) and n int32[B].
 
-    A CUDA tensor goes through the ``gotoh_walk`` kernel (one thread per
-    pair); a CPU tensor through :func:`walk_gotoh_codes_batch_plain`.
+    A CUDA tensor goes through the ``gotoh_walk`` kernel (a warp a pair:
+    each band's code columns copied into shared memory bands ahead of it
+    and expanded into a table of byte deltas with the state in the
+    address, a step one shared-memory load and one subtract); a CPU
+    tensor through :func:`walk_gotoh_codes_batch_plain`.
     """
     _check_walk_args(codes, lens1, lens2, per_word=8)
     if states.shape != lens1.shape or states.dtype != torch.int32 or states.device != codes.device:
         raise ValueError("states must be int32[B] on the codes' device")
+    codes = codes.contiguous()
+    _check_codes_aligned(codes)
     if codes.device.type == "cpu":
         return walk_gotoh_codes_batch_plain(codes, lens1, lens2, states, max_steps)
     B, nbands, TW, _ = codes.shape
     ops = torch.full((B, max_steps), OP_NONE, dtype=torch.int8, device=codes.device)
     n = torch.empty(B, dtype=torch.int32, device=codes.device)
     if B:
-        codes, lens1, lens2, states = (t.contiguous() for t in (codes, lens1, lens2, states))
+        lens1, lens2, states = (t.contiguous() for t in (lens1, lens2, states))
         kernels.launch(
             "gotoh_walk", codes.device,
             codes.data_ptr(), lens1.data_ptr(), lens2.data_ptr(), states.data_ptr(),

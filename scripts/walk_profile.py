@@ -2,7 +2,7 @@
 its time: copies of ``nw_tpu_torch/csrc/nw_walk.cu`` built apart from the
 package, one a staging, with ``-D`` (all compiles started together).
 
-    python3 scripts/walk_profile.py [--sweep] [--masks]
+    python3 scripts/walk_profile.py [--sweep] [--masks | --sw | --gotoh]
 
 The code walk (``walk_staged``): K = ``NW_WALK_SEG_COLS`` word columns a
 segment, D = ``NW_WALK_DEPTH`` bands copied ahead, ``NW_WALK_WARPS`` walks
@@ -13,7 +13,16 @@ instead: w = ``NW_WALK_MASK_COLS`` columns a row piece, D =
 ``NW_WALK_MASK_DEPTH``, ``NW_WALK_MASK_WARPS`` walks a block, E =
 ``NW_WALK_MASK_TABLE`` columns of the delta table; its
 ``nw_walk_masks`` runs on ``chip_smoke.py`` phase 13's 128 x 2 048 bp and
-4 x 10 240 bp tie masks (from ``fill_arrows_auto``).
+4 x 10 240 bp tie masks (from ``fill_arrows_auto``).  With ``--sw`` the
+local walk (``walk_staged`` in its local mode, the code walk's K and D,
+``NW_WALK_LOCAL_WARPS`` walks a block, which its sweep varies): its
+``sw_walk`` on the SW and the overlap codes of phases 9-10's 128 x
+3 072 bp and 4 096 x 150 bp alignment batches
+(``chip_smoke.variant_align_pairs``, 2 1 1).  With ``--gotoh`` Gotoh's
+walk (``walk_staged`` in its Gotoh mode): K = ``NW_WALK_GOTOH_SEG_COLS``,
+D = ``NW_WALK_GOTOH_DEPTH``, ``NW_WALK_GOTOH_WARPS`` walks a block, and
+``NW_WALK_GOTOH_TABLE`` words (8 cells each) a delta-table row; its
+``gotoh_walk`` on phase 11's batches (2 1 3 1).
 Without ``--sweep``: an instrumented copy in ``build/walk_profile/``,
 ``clock64()`` counters around the walk's sections (waiting for a band's
 copy, expanding the delta table (for the masks walk with its re-copies),
@@ -24,9 +33,10 @@ each section's cycles a step.  The counters cost a few cycles a section,
 so the copy runs a little slower than the package's kernel.
 ``--sweep``: uninstrumented copies at the stagings of ``SWEEP`` (or
 ``MASK_SWEEP``), timed (mean device ms by CUDA events after a warm-up) on
-the same walks and on the chained windows of ``nw_walk_window``'s mode
-(the code walk: the 100 000 bp pair's 79 windows; the masks walk:
-``chip_smoke.py`` phase 12's 20 000 bp relay, 4 blocks of tie masks); a
+the same walks and, for the code and masks walks, on the chained windows
+of ``nw_walk_window``'s mode (the code walk: the 100 000 bp pair's 79
+windows; the masks walk: ``chip_smoke.py`` phase 12's 20 000 bp relay, 4
+blocks of tie masks); a
 staging whose block passes 48 KB of shared memory does not compile and
 prints as such.  Prints the card's name and power limit first.  Needs the
 card and nvcc.
@@ -52,13 +62,23 @@ MASK_PROFILED = [(128, 1, 2, 64), (128, 2, 2, 64), (64, 1, 2, 32)]
 MASK_SWEEP = [(128, 1, 2, 64), (128, 2, 2, 64), (64, 1, 2, 32), (64, 2, 2, 32), (96, 1, 2, 64), (128, 3, 2, 64),
               (128, 1, 1, 64), (128, 1, 4, 64), (128, 1, 2, 32), (128, 1, 2, 96), (128, 1, 2, 128), (160, 1, 2, 64),
               (192, 1, 2, 64), (256, 1, 2, 64), (256, 1, 1, 128)]
+# (K, D, warps, words): Gotoh's, the source's first
+GOTOH_PROFILED = [(16, 1, 1, 6), (24, 2, 2, 7), (16, 1, 1, 4)]
+GOTOH_SWEEP = [(16, 1, 1, 6), (24, 2, 2, 7), (24, 2, 2, 6), (24, 2, 2, 5), (24, 2, 1, 7), (24, 2, 1, 6),
+               (24, 2, 1, 5), (24, 1, 1, 6), (32, 2, 1, 6), (24, 3, 1, 6), (16, 2, 2, 7), (8, 1, 4, 7),
+               (24, 2, 2, 4), (16, 1, 4, 4), (48, 2, 1, 7), (16, 1, 1, 5), (16, 1, 2, 6), (8, 1, 1, 6)]
+# walks a block of the local walk (its K and D are the code walk's)
+LOCAL_PROFILED, LOCAL_SWEEP = [(1,), (2,)], [(1,), (2,), (3,), (4,), (6,)]
 CODE_DEFS = ("NW_WALK_SEG_COLS", "NW_WALK_DEPTH", "NW_WALK_WARPS")
+LOCAL_DEFS = ("NW_WALK_LOCAL_WARPS",)
 MASK_DEFS = ("NW_WALK_MASK_COLS", "NW_WALK_MASK_DEPTH", "NW_WALK_MASK_WARPS", "NW_WALK_MASK_TABLE")
+GOTOH_DEFS = ("NW_WALK_GOTOH_SEG_COLS", "NW_WALK_GOTOH_DEPTH", "NW_WALK_GOTOH_WARPS", "NW_WALK_GOTOH_TABLE")
 # where the masks walk starts in nw_walk.cu: EDITS apply before it, MASK_EDITS after
 MASK_PART = "// ---- the staged walk over row-major tie masks ----\n"
 
 # (anchor in nw_walk.cu, text to put in its place): the counters
 WALK_TABLE = "        const unsigned v = walk_table(p, n, flushed, S, buf, lane);\n"
+BAND_LOAD = "      if (band - D >= 0) ring.load(left, band - D, ((kG ? t : t - jj) + 31) >> kShift);\n"
 EDITS = [
     ("namespace {\n", "__device__ unsigned long long g_prof[8];\nnamespace {\n"),
     ("  int flushed = n;  // out[flushed .. n) wait in buf\n",
@@ -70,12 +90,10 @@ EDITS = [
      "        if (fresh) {  // the table from t's column down, from the staged segment\n          T0 = clock64();\n"),
     ("          fresh = false;\n", "          fresh = false;\n          te += clock64() - T0;\n"),
     (WALK_TABLE, "        T0 = clock64();\n" + WALK_TABLE + "        tk += clock64() - T0;\n"),
-    ("          flush_ops<delta_op>(buf, flushed, n, lane, out);\n          flushed = n;\n",
-     "          T0 = clock64();\n          flush_ops<delta_op>(buf, flushed, n, lane, out);\n"
+    ("          flush_ops<walk_op<MODE>>(buf, flushed, n, lane, out);\n          flushed = n;\n",
+     "          T0 = clock64();\n          flush_ops<walk_op<MODE>>(buf, flushed, n, lane, out);\n"
      "          tf += clock64() - T0;\n          flushed = n;\n"),
-    ("      if (band - kDepth >= 0) ring.load(left, band - kDepth, (t - jj + 31) >> 4);\n",
-     "      T0 = clock64();\n      if (band - kDepth >= 0) ring.load(left, band - kDepth, (t - jj + 31) >> 4);\n"
-     "      tl += clock64() - T0;\n"),
+    (BAND_LOAD, "      T0 = clock64();\n" + BAND_LOAD + "      tl += clock64() - T0;\n"),
     ("    ring.drain();\n",
      "    ring.drain();\n    if (lane == 0) {\n"
      "      const long long c[8] = {tw, te, tl, tk, tf, clock64() - tt, n, 1};\n"
@@ -156,7 +174,7 @@ def build(src: Path, defs, stagings) -> dict:
             libs[st] = None
             continue
         lib = ctypes.CDLL(str(so))
-        for name in ("nw_walk", "nw_walk_window", "nw_walk_masks"):
+        for name in ("nw_walk", "nw_walk_window", "nw_walk_masks", "sw_walk", "gotoh_walk"):
             getattr(lib, name).argtypes = kernels.SIGNATURES[name]
         libs[st] = lib
     return libs
@@ -177,6 +195,7 @@ def main(argv) -> int:
     from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import fill_single as fs
     from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -185,37 +204,63 @@ def main(argv) -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     OUT.mkdir(parents=True, exist_ok=True)
     sweep, masks = "--sweep" in argv, "--masks" in argv
-    defs = MASK_DEFS if masks else CODE_DEFS
+    walk = "masks" if masks else "sw" if "--sw" in argv else "gotoh" if "--gotoh" in argv else "codes"
+    defs, stagings = {"masks": (MASK_DEFS, (MASK_PROFILED, MASK_SWEEP)),
+                      "gotoh": (GOTOH_DEFS, (GOTOH_PROFILED, GOTOH_SWEEP)),
+                      "sw": (LOCAL_DEFS, (LOCAL_PROFILED, LOCAL_SWEEP))}.get(walk, (CODE_DEFS, (PROFILED, SWEEP)))
     if sweep:
-        libs = build(HERE / "nw_tpu_torch" / "csrc" / "nw_walk.cu", defs, MASK_SWEEP if masks else SWEEP)
+        libs = build(HERE / "nw_tpu_torch" / "csrc" / "nw_walk.cu", defs, stagings[1])
     else:
         src = OUT / "nw_walk_prof.cu"
         src.write_text(instrumented_source())
-        libs = build(src, defs, MASK_PROFILED if masks else PROFILED)
+        libs = build(src, defs, stagings[0])
     stream = torch.cuda.current_stream().cuda_stream
 
     def check(err):
         if err:
             raise SystemExit(f"walk_profile: a launch failed ({err})")
 
-    def walk_fn(lib, cd, l1, l2, S):
+    def walk_fn(lib, cd, l1, l2, S, st=None):
+        """The walk's launch on ``cd``; its outputs stay allocated while the
+        launch lives (the kernel writes them through raw pointers)."""
         B = cd.shape[0]
-        ops = torch.full((B, S), tb.OP_NONE, dtype=torch.int8, device="cuda")
-        n = torch.empty(B, dtype=torch.int32, device="cuda")
-        if masks:  # (masks, lens1, lens2, B, A, Bs, S, ...)
-            args = (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[2] - 1, cd.shape[1] - 1, S,
-                    ops.data_ptr(), n.data_ptr(), stream)
-            return lambda: check(lib.nw_walk_masks(*args))
-        args = (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[1], cd.shape[2], S,
-                ops.data_ptr(), n.data_ptr(), stream)
-        return lambda: check(lib.nw_walk(*args))
+        out = (torch.full((B, S), tb.OP_NONE, dtype=torch.int8, device="cuda"),
+               torch.empty(3, B, dtype=torch.int32, device="cuda"))
+        ptrs = (out[0].data_ptr(), out[1][0].data_ptr())
+        if walk == "sw":  # (codes, j*, i*, B, nbands, TW, S, ops, n, i_end, j_end): l1 is i*, l2 j*
+            fn, args = lib.sw_walk, (cd.data_ptr(), l2.data_ptr(), l1.data_ptr(), B, cd.shape[1], cd.shape[2], S,
+                                     *ptrs, out[1][1].data_ptr(), out[1][2].data_ptr())
+        elif walk == "gotoh":
+            fn, args = lib.gotoh_walk, (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), st.data_ptr(), B, cd.shape[1],
+                                        cd.shape[2], S, *ptrs)
+        elif masks:  # (masks, lens1, lens2, B, A, Bs, S, ...)
+            fn, args = lib.nw_walk_masks, (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[2] - 1,
+                                           cd.shape[1] - 1, S, *ptrs)
+        else:
+            fn, args = lib.nw_walk, (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[1], cd.shape[2], S,
+                                     *ptrs)
+        return lambda out=out: check(fn(*args, stream))
 
     big = cs.rand_pairs(np.random.default_rng(cs.L_HUGE), 1, cs.L_HUGE, cs.L_HUGE)[0]
-    if masks:  # phase 13's 128 x 2 048 bp and 4 x 10 240 bp tie masks
+    # runs: (name, table, lens1 or i*, lens2 or j*, S, Gotoh's states)
+    if walk in ("sw", "gotoh"):  # phases 9-11's alignment batches
+        runs = []
+        batches = cs.variant_align_pairs()
+        for kind in (("sw", "overlap") if walk == "sw" else ("gotoh",)):
+            for shape, ps in batches[kind].items():
+                L = max(max(len(a), len(b)) for a, b in ps)
+                T = enc.upload(enc.encode_batch(ps, L, L), "cuda")
+                if kind == "gotoh":
+                    codes, _, st = vb.affine_fill_codes_banded_batch(*T, 2, 1, 3, 1)
+                    runs.append((f"{shape}", codes, T[2], T[3], 2 * L, st))
+                else:
+                    codes, _, js, is_ = getattr(vb, f"{kind}_fill_codes_banded_batch")(*T, 2, 1, 1)
+                    runs.append((f"{kind} {shape}", codes, is_, js, tb._sw_max_steps(codes), None))
+    elif masks:  # phase 13's 128 x 2 048 bp and 4 x 10 240 bp tie masks
         runs = []
         for _, nb, L, ps in cs.mask_path_batches()[1:]:
             T = enc.upload(enc.encode_batch(ps, L, L), "cuda")
-            runs.append((f"{nb}x{L}bp", fill_auto.fill_arrows_auto(*T, 2, 1, 1)[0], T[2], T[3], 2 * L))
+            runs.append((f"{nb}x{L}bp", fill_auto.fill_arrows_auto(*T, 2, 1, 1)[0], T[2], T[3], 2 * L, None))
     else:
         top, side = (torch.from_numpy(enc.encode(x)).cuda() for x in big)
         codes, _ = fs.fill_codes_single(top, side, 2, 1, 1)
@@ -224,8 +269,15 @@ def main(argv) -> int:
         LB = AlignConfig().bucket_for(cs.L_LONG)
         T3 = enc.upload(enc.encode_batch(c3, LB, LB), "cuda")
         codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
-        runs = [(f"1x{cs.L_HUGE}bp", codes, lh, lh, 2 * cs.L_HUGE), (f"256x{cs.L_LONG}bp", codes3, T3[2], T3[3], 2 * LB)]
+        runs = [(f"1x{cs.L_HUGE}bp", codes, lh, lh, 2 * cs.L_HUGE, None),
+                (f"256x{cs.L_LONG}bp", codes3, T3[2], T3[3], 2 * LB, None)]
     if sweep:
+        if walk in ("sw", "gotoh"):
+            for st, lib in libs.items():
+                if lib is not None:
+                    ms = {name: cs.cuda_ms(walk_fn(lib, *r), 3) for name, *r in runs}
+                    print(f"{label(defs, st)}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
+            return 0
         if masks:
             tables, H = cs.relay_tables(big)
             chain_name = f"{len(tables)} windows at {cs.L_PALLAS}bp"
@@ -239,7 +291,7 @@ def main(argv) -> int:
         for st, lib in libs.items():
             if lib is None:
                 continue
-            ms = {name: cs.cuda_ms(walk_fn(lib, cd, l1, l2, S), 3) for name, cd, l1, l2, S in runs}
+            ms = {name: cs.cuda_ms(walk_fn(lib, *r), 3) for name, *r in runs}
 
             def window(codes, state, r0, ops, lib=lib):
                 rows, TW = (codes.shape[0], codes.shape[1]) if masks else (codes.shape[1], codes.shape[2])
@@ -256,8 +308,8 @@ def main(argv) -> int:
         if lib is None:
             continue
         lib.prof_get.argtypes = [ctypes.c_void_p]
-        for name, cd, l1, l2, S in runs:
-            fn = walk_fn(lib, cd, l1, l2, S)
+        for name, *r in runs:
+            fn = walk_fn(lib, *r)
             fn()  # warm-up
             lib.prof_zero()
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

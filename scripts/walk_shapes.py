@@ -12,9 +12,17 @@ blocks of K28 masks; and the walls of ``align_huge`` at 100 000 bp on
 both routes, of config 3's ``align_batch`` (strings and counts), of phase
 13 (b)'s ``fill_arrows_auto`` + count + walk + host strings at 128 x 2 048
 bp and of ``align_batch``'s mask route at phase 13 (d)'s batches around
-the route rule's crossing.
+the route rule's crossing.  ``--variants`` times the local and Gotoh
+walks instead: ``sw_walk`` (``walk_sw_codes_batch``) on the SW and the
+overlap codes, ``gotoh_walk`` (``walk_gotoh_codes_batch``) on Gotoh's, at
+phases 9-11's 128 x 3 072 bp and 4 096 x 150 bp alignment batches
+(``chip_smoke.variant_align_pairs``), through their wrappers (``ms``) and
+their C entries alone (``launch_ms``: no length check, so no host sync),
+and the walls of ``sw_align_batch``, ``overlap_align_batch`` and
+``affine_align_batch`` on those batches, each split into its fill and its
+walk (``route_split_ms``, medians of 5 warm runs).
 
-    python3 scripts/walk_shapes.py [--check] [--sass] [--masks] [ROOT]
+    python3 scripts/walk_shapes.py [--check] [--sass] [--masks | --variants] [ROOT]
 
 ROOT (default: this checkout) is the tree whose ``nw_tpu_torch`` is
 imported and built; the inputs (``chip_smoke.py``'s seeds) and the timing
@@ -36,7 +44,8 @@ its walls against the codes route's at the rule's crossing, in turns
 walls.
 ``--check`` first holds ROOT's walks against their plain versions at
 ``chip_smoke.py``'s walk edge shapes (phase 3's, phase 8's and the masks
-walks' of phases 12 and 13).
+walks' of phases 12 and 13; with ``--variants`` the variant walks' of
+phases 9 and 11).
 ``--sass`` runs ``scripts/sass_compare.py --diff`` on ``build/parent``'s
 ``nw_walk.cu`` against ROOT's, prints ``ptxas -v`` of both and writes
 the staged kernels' SASS to ``build/walk_sass.txt``.
@@ -44,7 +53,6 @@ the staged kernels' SASS to ``build/walk_sass.txt``.
 
 from __future__ import annotations
 
-import functools
 import importlib.util
 import json
 import statistics
@@ -62,44 +70,70 @@ CROSSING_ROUNDS = 10  # rounds of mask, codes, codes, mask
 
 
 def route_split(cs, a211, ps) -> dict:
-    """The forced mask route on ``ps`` (strings and counts): medians of 3
-    warm runs of its wall (host ms) and of the device ms between CUDA
-    events recorded around each call of its fill (``fill_arrows_fold_batch``)
-    and of its walk (``walk_masks_batch``), summed over the run's calls."""
-    import torch
-
+    """The forced mask route on ``ps`` (strings and counts): its wall and
+    the device ms of its fill (``fill_arrows_fold_batch``) and of its walk
+    (``walk_masks_batch``), ``chip_smoke.route_split``'s medians of 3 warm
+    runs."""
     from nw_tpu_torch.models import needleman_wunsch as nwm
     from nw_tpu_torch.ops import traceback as tb
 
-    spans = {"fill": [], "walk": []}
+    with cs.forced_route(True):
+        return cs.route_split(lambda: a211.align_batch(ps, traceback_strings=True, count=True),
+                              {"fill": (nwm, "fill_arrows_fold_batch"), "walk": (tb, "walk_masks_batch")})
 
-    def timed(fn, key):
-        @functools.wraps(fn)  # its launch counter too
-        def run(*a, **kw):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = fn(*a, **kw)
-            ev[1].record()
-            spans[key].append(ev)
-            return out
-        return run
 
-    fill, walk = nwm.fill_arrows_fold_batch, tb.walk_masks_batch
-    nwm.fill_arrows_fold_batch, tb.walk_masks_batch = timed(fill, "fill"), timed(walk, "walk")
-    runs = []
-    try:
-        with cs.forced_route(True):
-            for _ in range(4):  # a warm-up, then 3 timed
-                for v in spans.values():
-                    v.clear()
-                t0 = time.perf_counter()
-                a211.align_batch(ps, traceback_strings=True, count=True)
-                w = (time.perf_counter() - t0) * 1e3
-                torch.cuda.synchronize()
-                runs.append({"wall": w, **{k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}})
-    finally:
-        nwm.fill_arrows_fold_batch, tb.walk_masks_batch = fill, walk
-    return {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
+def variant_walks(cs, dev) -> tuple:
+    """({name: (walk, reps, launch)}, {name: (alignment, split targets)})
+    of the local and Gotoh walks at phases 9-11's alignment batches (2 1
+    1, Gotoh's 2 1 3 1): the walk through its wrapper, and its C entry
+    alone on outputs allocated once (no wrapper: no length check, whose
+    read-back of the lengths is a host sync)."""
+    import torch
+
+    from nw_tpu_torch.models import affine as af
+    from nw_tpu_torch.models import overlap as ov
+    from nw_tpu_torch.models import smith_waterman as sw
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+    from nw_tpu_torch.runtime import kernels
+
+    def entry(name, *args, B, S):
+        ops = torch.full((B, S), tb.OP_NONE, dtype=torch.int8, device=dev)
+        outs = torch.empty((3, B), dtype=torch.int32, device=dev)
+        ptrs = [ops.data_ptr(), outs[0].data_ptr()] + ([outs[1].data_ptr(), outs[2].data_ptr()] if name == "sw_walk"
+                                                       else [])
+        return lambda keep=(ops, outs): kernels.launch(name, dev, *args, *ptrs)  # keep: the outputs stay allocated
+
+    walks, routes = {}, {}
+    for kind, batches in cs.variant_align_pairs().items():
+        for shape, ps in batches.items():
+            L = max(max(len(a), len(b)) for a, b in ps)
+            T = enc.upload(enc.encode_batch(ps, L, L), dev)
+            reps = 5 if len(ps) == 128 else 10
+            if kind == "gotoh":
+                codes, _, st = vb.affine_fill_codes_banded_batch(*T, 2, 1, 3, 1)
+                B, nbands, TW, _ = codes.shape
+                walks[f"gotoh_walk {shape}"] = (
+                    lambda c=codes, T=T, st=st, L=L: tb.walk_gotoh_codes_batch(c, T[2], T[3], st, 2 * L), reps,
+                    entry("gotoh_walk", codes.data_ptr(), T[2].data_ptr(), T[3].data_ptr(), st.data_ptr(), B,
+                          nbands, TW, 2 * L, B=B, S=2 * L))
+                routes[f"affine_align_batch {shape}"] = (
+                    lambda ps=ps: af.affine_align_batch(ps, 2, 1, 3, 1),
+                    {"fill": (af, "affine_fill_codes_banded_batch"), "walk": (af, "walk_gotoh_codes_batch")})
+                continue
+            model = sw if kind == "sw" else ov
+            fill_name = f"{kind}_fill_codes_banded_batch"
+            codes, _, js, is_ = getattr(vb, fill_name)(*T, 2, 1, 1)
+            B, nbands, TW, _ = codes.shape
+            S = tb._sw_max_steps(codes)
+            walks[f"sw_walk {kind} {shape}"] = (
+                lambda c=codes, js=js, is_=is_: tb.walk_sw_codes_batch(c, js, is_), reps,
+                entry("sw_walk", codes.data_ptr(), js.data_ptr(), is_.data_ptr(), B, nbands, TW, S, B=B, S=S))
+            routes[f"{kind}_align_batch {shape}"] = (
+                lambda ps=ps, f=getattr(model, f"{kind}_align_batch"): f(ps, 2, 1, 1),
+                {"fill": (model, fill_name), "walk": (sw, "walk_sw_codes_batch")})
+    return walks, routes
 
 
 def route_turns(cs, a211, ps) -> dict:
@@ -160,6 +194,33 @@ def sass_report(root: Path) -> None:
     print(f"SASS of the staged walks and the chase: {out}")
 
 
+def time_variants(cs, dev, root, clock_mhz, check) -> int:
+    """``--variants``: the local and Gotoh walks' ms, steps, ns a step and
+    span, and their alignments' walls split into fill and walk."""
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.runtime import kernels
+
+    if check:
+        errs = {}
+        cs.local_walk_edges_vs_plain(dev, errs)
+        cs.gotoh_walk_edges_vs_plain(dev, errs)
+    cycles = cs.smem_load_cycles() if "nw_smem_chase" in kernels.SIGNATURES else None
+    walks, routes = variant_walks(cs, dev)
+    ms, launch_ms, steps = {}, {}, {}
+    for name, (fn, reps, launch) in walks.items():
+        ms[name] = cs.cuda_ms(fn, reps)
+        launch_ms[name] = cs.cuda_ms(launch, reps)
+        steps[name] = int(fn()[1].max())
+    rec = {"root": str(root), "package": str(Path(tb.__file__).parent.parent), "ms": ms, "launch_ms": launch_ms,
+           "steps": steps,
+           "ns_per_step": {k: ms[k] * 1e6 / steps[k] for k in ms}, "smem_load_cycles": cycles,
+           "span_ms": {k: steps[k] * cycles / (clock_mhz * 1e3) for k in ms} if cycles else None}
+    del walks
+    rec["route_split_ms"] = {name: cs.route_split(run, targets, reps=5) for name, (run, targets) in routes.items()}
+    print(json.dumps(rec))
+    return 0
+
+
 def main(argv) -> int:
     flags = {a for a in argv[1:] if a.startswith("--")}
     args = [a for a in argv[1:] if not a.startswith("--")]
@@ -194,6 +255,8 @@ def main(argv) -> int:
     if "--sass" in flags:
         sass_report(root)
     masks_only = "--masks" in flags
+    if "--variants" in flags:
+        return time_variants(cs, dev, root, clock_mhz, "--check" in flags)
     if "--check" in flags:
         errs = {"nw_walk": 0, "nw_walk_masks": 0}
         if not masks_only:

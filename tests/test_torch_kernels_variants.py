@@ -1,6 +1,7 @@
 """CUDA kernels of nw_tpu_torch vs their plain PyTorch versions:
-the Smith-Waterman, overlap and Gotoh fills and walks, and their
-batch paths.
+the Smith-Waterman, overlap and Gotoh fills and walks (the walks also at
+the shapes their shared-memory staging must get right), and their batch
+paths.
 
 These need an NVIDIA card (sm_90a) and nvcc; without one they skip.  On
 the card: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_variants.py``.
@@ -20,7 +21,8 @@ from nw_tpu_torch.models import smith_waterman as sw
 from nw_tpu_torch.ops import fill_banded, traceback, variants_banded
 
 from torch_kernel_cases import (  # noqa: F401 (cuda is a fixture)
-    SCORINGS, EDGE, cuda, _pairs, _pipe_batches,
+    SCORINGS, EDGE, VARIANT_WALK_EDGE_SHAPES, cuda, _pairs, _pipe_batches, random_code_words, starts_batch,
+    variant_edge_pairs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -383,3 +385,121 @@ def test_overlap_and_affine_batch_cuda_vs_cpu(cuda, mkd):
     np.testing.assert_array_equal(
         af.affine_score_pairs(ps, *sc, device="cuda"), af.affine_score_pairs(ps, *sc, device="cpu")
     )
+
+
+def _variant_batch(ps, device):
+    L1, L2 = max(len(a) for a, _ in ps), max(len(b) for _, b in ps)
+    return enc.upload(enc.encode_batch(ps, max(L1, 1), max(L2, 1)), device)
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _sw_walks_equal(codes, js, is_):
+    _same(traceback.walk_sw_codes_batch(codes, js, is_), traceback.walk_sw_codes_batch_plain(codes, js, is_))
+
+
+def _gotoh_walks_equal(codes, l1, l2, states, S):
+    _same(traceback.walk_gotoh_codes_batch(codes, l1, l2, states, S),
+          traceback.walk_gotoh_codes_batch_plain(codes, l1, l2, states, S))
+
+
+@pytest.mark.parametrize("shape", VARIANT_WALK_EDGE_SHAPES)
+@pytest.mark.parametrize("kind", ["sw", "overlap"])
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_sw_walk_kernel_vs_plain_at_edge_shapes(cuda, mkd, kind, shape):
+    """sw_walk on the SW and overlap codes of the variant walk edge shapes
+    against its plain version, from each fill's best, for the first pair
+    alone and from every edge start of each pair's table (rows 0, 1, band
+    and word-column edges, column 0): tolerance 0 on ops, n and the stop
+    cell."""
+    T = _variant_batch(variant_edge_pairs(shape), cuda)
+    codes, _, js, is_ = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")(*T, *mkd)
+    _sw_walks_equal(codes, js, is_)
+    _sw_walks_equal(codes[:1], js[:1], is_[:1])
+    _sw_walks_equal(*starts_batch(codes, T[2], T[3], 16))
+
+
+@pytest.mark.parametrize("kind", ["sw", "overlap"])
+def test_sw_walk_kernel_odd_batch_and_many_short_pairs(cuda, kind):
+    """An odd B and 5 000 short pairs (more walks than 132 SMs hold at
+    once)."""
+    fill = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")
+    for ps in (variant_edge_pairs()[:7], _pairs(5000, 5000, 0, 60)):
+        T = _variant_batch(ps, cuda)
+        for mkd in SW_SCORINGS:
+            codes, _, js, is_ = fill(*T, *mkd)
+            _sw_walks_equal(codes, js, is_)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_sw_walk_kernel_over_random_code_words(cuda, seed):
+    """Tables of random words (every 2-bit code, STOP included, and any
+    code on column 0) from random starts and every edge start: the walk
+    depends on nothing a fill writes."""
+    rng = np.random.default_rng(210 + seed)
+    for nbands, TW in ((1, 4), (3, 21), (6, 50)):
+        codes = random_code_words(rng, 9, nbands, TW).to(cuda)
+        js = torch.tensor(rng.integers(0, 32 * nbands + 1, 9), dtype=torch.int32, device=cuda)
+        is_ = torch.tensor(rng.integers(0, 16 * TW - 31, 9), dtype=torch.int32, device=cuda)
+        _sw_walks_equal(codes, js, is_)
+        full = (torch.full((9,), 16 * TW - 32, dtype=torch.int32), torch.full((9,), 32 * nbands, dtype=torch.int32))
+        _sw_walks_equal(*starts_batch(codes, *full, 16))
+
+
+@pytest.mark.parametrize("shape", VARIANT_WALK_EDGE_SHAPES)
+@pytest.mark.parametrize("sc", GOTOH_ALIGN_SCORINGS)
+def test_gotoh_walk_kernel_vs_plain_at_edge_shapes(cuda, sc, shape):
+    """gotoh_walk on the Gotoh codes of the variant walk edge shapes
+    against its plain version, from each corner in its state, for the
+    first pair alone, cut after 1 and 77 ops, and from every edge start of
+    each pair's table (8-cell word columns) in each state (row 0 in IX,
+    column 0 in IY, as a walk reaches them): tolerance 0 on ops and n."""
+    T = _variant_batch(variant_edge_pairs(shape), cuda)
+    S = T[0].shape[1] + T[1].shape[1]
+    codes, _, states = variants_banded.affine_fill_codes_banded_batch(*T, *sc)
+    for cut in (S, 1, 77):
+        _gotoh_walks_equal(codes, T[2], T[3], states, cut)
+    _gotoh_walks_equal(codes[:1], T[2][:1], T[3][:1], states[:1], S)
+    sub, js, is_ = starts_batch(codes, T[2], T[3], 8)
+    for st in range(3):
+        _gotoh_walks_equal(sub, is_, js, torch.where(js == 0, 1, torch.where(is_ == 0, 2, st)).int(), S)
+
+
+def test_gotoh_walk_kernel_odd_batch_and_many_short_pairs(cuda):
+    """An odd B and 5 000 short pairs."""
+    for ps in (variant_edge_pairs()[:7], _pairs(5001, 5000, 0, 60)):
+        T = _variant_batch(ps, cuda)
+        S = T[0].shape[1] + T[1].shape[1]
+        for sc in GOTOH_ALIGN_SCORINGS:
+            codes, _, states = variants_banded.affine_fill_codes_banded_batch(*T, *sc)
+            _gotoh_walks_equal(codes, T[2], T[3], states, S)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_gotoh_walk_kernel_over_random_code_words(cuda, seed):
+    """Tables of random words (every 4-bit state pattern, any code on row 0
+    and column 0) from random corners in every state, and cut short."""
+    rng = np.random.default_rng(220 + seed)
+    for nbands, TW in ((1, 8), (3, 41), (6, 100)):
+        codes = random_code_words(rng, 9, nbands, TW).to(cuda)
+        l1 = torch.tensor(rng.integers(0, 8 * TW - 31, 9), dtype=torch.int32, device=cuda)
+        l2 = torch.tensor(rng.integers(0, 32 * nbands + 1, 9), dtype=torch.int32, device=cuda)
+        for st in range(4):
+            states = torch.full((9,), st, dtype=torch.int32, device=cuda)
+            for S in (8 * TW + 32 * nbands, 50):
+                _gotoh_walks_equal(codes, l1, l2, states, S)
+
+
+def test_variant_walk_kernels_refuse_misaligned_codes(cuda):
+    """The bulk copies need 16-byte aligned codes: a table starting 4 bytes
+    in is refused, not read."""
+    flat = torch.zeros(1 + 4 * 32, dtype=torch.int32, device=cuda)
+    codes = flat[1:].view(1, 1, 4, 32)
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        traceback.walk_sw_codes_batch(codes, zero, zero)
+    with pytest.raises(ValueError, match="16-byte"):
+        traceback.walk_gotoh_codes_batch(codes, zero, zero, zero, 4)

@@ -87,8 +87,9 @@ def _single_pairs(seed):
     )
 
 
-# the walks' edge shapes and the random tie-mask tables, one definition
-# with chip_smoke.py's card checks of the same kernels
+# the walks' edge shapes, their starts and the random tie-mask and code
+# tables, one definition with chip_smoke.py's card checks of the same
+# kernels
 _spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
@@ -96,6 +97,10 @@ WALK_EDGE_SHAPES, MASK_WALK_EDGE_SHAPES = chip_smoke.WALK_EDGE_SHAPES, chip_smok
 MASK_STRIDES = chip_smoke.MASK_STRIDES
 walk_edge_pairs, mask_edge_pairs, random_masks = (chip_smoke.walk_edge_pairs, chip_smoke.mask_edge_pairs,
                                                   chip_smoke.random_masks)
+VARIANT_WALK_EDGE_SHAPES = chip_smoke.VARIANT_WALK_EDGE_SHAPES
+variant_edge_pairs, variant_walk_starts, starts_batch, random_code_words = (
+    chip_smoke.variant_edge_pairs, chip_smoke.variant_walk_starts, chip_smoke.starts_batch,
+    chip_smoke.random_code_words)
 
 
 def _mask_window_chain(masks, C):
