@@ -215,7 +215,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``fill_codes_single_ms``).
 
 13. The tie-mask routes and Hirschberg: (a) ``nw_fill_masks_batch`` (K2's
-   batched tie masks, with and without counts), ``nw_count_masks`` (K6,
+   batched tie masks, the pipeline's ``MASKS`` mode, with and without
+   counts, at the rule's W and at every W of ``BYTE_WARPS``), ``nw_count_masks`` (K6,
    at the rule's W and at every W of ``COUNT_WARPS``), ``nw_walk_masks``, ``nw_fill_masks`` a pair at a time
    (``fill_arrows_fold_batch``, K10) and ``nw_last_row`` (K9, rows 0,
    len2/3 and len2) bit for bit against their plain versions under every
@@ -242,8 +243,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    each kernel's time beside its plain version's and its bound.
 
 14. The runs walk engine and the flat-fill API: (a) ``nw_fill_runs_batch``
-   (the ``RUNS`` mode of ``nw_fill_kernel``, K2's ``with_runs``, with and
-   without counts) and ``nw_walk_runs`` bit for bit against their plain
+   (the pipeline's ``RUNS`` mode, K2's ``with_runs``, with and without
+   counts, at the rule's W and at every W of ``BYTE_WARPS``) and
+   ``nw_walk_runs`` bit for bit against their plain
    versions under every scoring, on phase 3's pairs and identical 700 bp
    pairs (diagonal runs past the 63 cap and across bands), the run walk's
    ops also against ``nw_walk``'s; then, with every launch counter set to
@@ -254,7 +256,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    both runs kernels launched and no codes kernel; (d) config 3's wall on
    both engines (median of 3 warm runs, in turns), the runs fill at
    config 3 (two launches) beside ``nw_fill_codes`` (one launch, and both
-   at 128 x 10 240 bp in turns), the run walk beside ``nw_walk`` with its
+   at 128 x 10 240 bp in turns, with the masks fill; each with its W),
+   the run walk beside ``nw_walk`` with its
    dependent loads a pair against ``nw_walk``'s steps, both kernels
    against their plain versions on the first config-3 pair; (c) with the
    serving wrappers' counters from 0, ``ops/fill_flat.py`` at K26's shape
@@ -267,9 +270,10 @@ Phases, in order; any mismatch or exception exits non-zero:
 
 Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu``,
 ``nw_affine.cu``, ``nw_single.cu`` and ``nw_count.cu``: registers, static
-shared memory and spills of every instantiation, the ``RUNS`` mode's
-(template mode 4) and the pipeline's (``nw_fill_pipe_kernel``) among
-them; the pipeline's dynamic shared memory is printed in phase 5.
+shared memory and spills of every instantiation, the byte modes'
+(``bytes_pipe_kernel``, template mode 3 masks, 4 runs) and the
+pipeline's (``nw_fill_pipe_kernel``) among them; the pipeline's dynamic
+shared memory is printed in phase 5.
 
 Each kernel's ``bound_ms`` is the larger of its int32 operations (per
 cell: 7 for a score, 8 more for a count, 6 more for a 2-bit code or a
@@ -3101,6 +3105,7 @@ ROUTE_SHAPES = [(4, L_LONG), (16, L_ROUTE), (1, L_ROUTE), (2, L_ROUTE), (3, L_RO
                 (8, L_ROUTE), (2, L_LONG), (3, L_LONG), (5, L_LONG), (6, L_LONG), (7, L_LONG), (8, L_LONG),
                 (16, L_LONG), (23, L_LONG)]
 COUNT_WARPS = (1, 2, 3, 4, 8, 16, 32)  # phase 13 (a): nw_count_masks at each forced W
+BYTE_WARPS = (1, 2, 3, 7, 16, 31, 32)  # phases 13 (a), 14 (a): the byte fills at each forced W
 COUNT_SWEEP = (1, 2, 4, 8, 16, 32)  # phase 13: the sweep of W at the timed shapes
 MASK_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel
     "nw_fill_masks_batch": ("fill_banded", "fill_masks_banded_batch"),
@@ -3121,6 +3126,40 @@ HIRSCHBERG_CPU = (
 )
 
 
+def byte_fill(kind, T, mkd, with_counts=False, warps=None):
+    """``nw_fill_masks_batch`` (kind "masks") or ``nw_fill_runs_batch``
+    ("runs"), the pipeline's byte modes, on T under ``mkd`` at ``warps``
+    warps a pair (None: the rule's): (table, scores[, counts])."""
+    from nw_tpu_torch.ops import fill_banded as fb
+
+    out = getattr(fb, f"fill_{kind}_banded_batch")(*T, *mkd, with_counts=with_counts, warps=warps)
+    return tuple(x for x in out if x is not None)
+
+
+def byte_rule(T, with_counts):
+    """The rule's W of the byte fills on T on this card (``fill_warps``
+    with each warp's byte ring counted)."""
+    from nw_tpu_torch.ops import fill_banded as fb
+
+    return fb.fill_warps(T[0].shape[0], T[0].shape[1], T[1].shape[1], 8 if with_counts else 4,
+                         torch.cuda.get_device_properties(0).multi_processor_count, ring=fb.BYTE_RING)
+
+
+def bytes_vs_plain(kind, T, mkd, want):
+    """Max |diff| of a byte fill at every W of ``BYTE_WARPS`` and at the
+    rule's, with and without counts, against ``want`` = (table, scores,
+    counts), the plain outputs with counts on the card (compared there;
+    the host computes |diff| only for an output that differs)."""
+    e = 0
+    for wc in (False, True):
+        for W in (*BYTE_WARPS, None):
+            got = byte_fill(kind, T, mkd, wc, W)
+            for g, w in zip(got, want[: 2 + wc]):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    e = max(e, max_abs_err(g, w))
+    return e
+
+
 def mask_wrappers():
     import importlib
 
@@ -3130,7 +3169,8 @@ def mask_wrappers():
 
 def mask_kernels_vs_plain(dev, errs):
     """Phase 13 (a): every new kernel against its plain version under
-    every scoring, on random 0-700 bp pairs, tie-dense pairs, the edge
+    every scoring (the batched masks at every W of ``BYTE_WARPS`` and the
+    rule's), on random 0-700 bp pairs, tie-dense pairs, the edge
     pairs and all-'A' 24 x 16; the plain versions' body (the
     anti-diagonal fill with scores and counts) runs on every pair at
     once, the plain wrappers themselves on the short pairs."""
@@ -3153,11 +3193,8 @@ def mask_kernels_vs_plain(dev, errs):
         e = {name: 0 for name in MASK_KERNELS}
         ref = fill_diag_batch(tops, sides, l1, l2, *mkd, with_counts=True, with_scores=True)
         want = zero_outside(diag_to_matrix_batch(ref["arrows"]), l1, l2)
-        for wc in (False, True):
-            got = fb.fill_masks_banded_batch(tops, sides, l1, l2, *mkd, with_counts=wc)
-            e["nw_fill_masks_batch"] = max([e["nw_fill_masks_batch"], max_abs_err(got[0], want),
-                                            max_abs_err(got[1], ref["score"])]
-                                           + ([max_abs_err(got[2], ref["count"])] if wc else []))
+        e["nw_fill_masks_batch"] = bytes_vs_plain("masks", batches[0], mkd, (want, ref["score"], ref["count"]))
+        got = fb.fill_masks_banded_batch(tops, sides, l1, l2, *mkd)
         fold = fs.fill_arrows_fold_batch(tops, sides, l1, l2, *mkd)
         e["nw_fill_masks/fold"] = max(max_abs_err(g, w) for g, w in zip(fold, (want, ref["score"], ref["count"])))
         want_count = pc.count_masks_batch_plain(want, l1, l2)
@@ -3183,7 +3220,8 @@ def mask_kernels_vs_plain(dev, errs):
         for name, v in e.items():
             errs[name] = max(errs[name], v)
         log(f"phase 13 (a) kernels vs plain, {len(pairs)} pairs + {len(short)} short, m k d = {mkd} "
-            f"(nw_count_masks at the rule's W and W = {COUNT_WARPS}): {e}")
+            f"(nw_fill_masks_batch at the rule's W {byte_rule(batches[0], False)} and W = {BYTE_WARPS}, "
+            f"nw_count_masks at the rule's W and W = {COUNT_WARPS}): {e}")
         del ref, want
     if any(errs.values()):
         fail(f"a mask-route kernel differs from its plain version: {errs}")
@@ -3433,10 +3471,12 @@ def masks_phase(card, bound):
         count_ms = cuda_ms(lambda: pc.count_masks_batch(masks, *T[2:]), 3)
         walk_ms = cuda_ms(lambda: tb.walk_masks_batch(masks, *T[2:], 2 * L_ARROWS), 3)
         steps = int(o["n"].sum())
+        Wm = byte_rule(T, False)
         rec["nw_fill_masks_batch"] = dict(
             ms=fill_ms, plain_ms=o["plain_fill_ms"],
             **bound(cells * (OPS_SCORE + OPS_CODE), tensor_bytes(*T, masks, o["scores"])),
-            shape=f"128x{L_ARROWS}bp masks (with counts {fill_c_ms:.3f} ms; plain_ms with counts)")
+            shape=f"128x{L_ARROWS}bp masks, {Wm} warps a pair (with counts {fill_c_ms:.3f} ms at W = "
+                  f"{byte_rule(T, True)}; plain_ms with counts)", warps=Wm, counts_ms=fill_c_ms)
         W, turns = count_turns[f"128x{L_ARROWS}bp"]
         W4, turns4 = count_turns[f"4x{L_LONG}bp"]
         rec["nw_count_masks"] = dict(
@@ -3458,7 +3498,7 @@ def masks_phase(card, bound):
                   f"{bound.span(longest4):.4f} ms")
         for nb, L in ((10240, L_SHORT), (4, L_LONG)):
             ob = out[nb, L]
-            log(f"phase 13 kernels at {nb}x{L}bp: nw_fill_masks_batch "
+            log(f"phase 13 kernels at {nb}x{L}bp: nw_fill_masks_batch (W = {byte_rule(ob['T'], False)}) "
                 f"{cuda_ms(lambda: fb.fill_masks_banded_batch(*ob['T'], 2, 1, 1), 3):.3f} ms, nw_count_masks "
                 f"{cuda_ms(lambda: pc.count_masks_batch(ob['masks'], *ob['T'][2:]), 2):.3f} ms, nw_walk_masks "
                 f"{cuda_ms(lambda: tb.walk_masks_batch(ob['masks'], *ob['T'][2:], 2 * L), 2):.3f} ms [{card}]")
@@ -3530,7 +3570,8 @@ class walk_engine:
 
 
 def runs_kernels_vs_plain(dev, small, errs):
-    """Phase 14 (a): nw_fill_runs_batch (with and without counts) and
+    """Phase 14 (a): nw_fill_runs_batch (with and without counts, at
+    every W of ``BYTE_WARPS`` and the rule's) and
     nw_walk_runs against their plain versions under every scoring, on
     phase 3's pairs and identical 700 bp pairs (diagonal runs past the 63
     cap and across 22 bands); the run walk's ops also against nw_walk's
@@ -3550,10 +3591,8 @@ def runs_kernels_vs_plain(dev, small, errs):
     S = L1 + L2
     for mkd in SCORINGS:
         want = fb.fill_runs_banded_batch_plain(*T, *mkd, with_counts=True)
-        e_fill = 0
-        for wc in (False, True):
-            got = fb.fill_runs_banded_batch(*T, *mkd, with_counts=wc)
-            e_fill = max([e_fill] + [max_abs_err(g, w) for g, w in zip(got[: 2 + wc], want)])
+        e_fill = bytes_vs_plain("runs", T, mkd, want)
+        got = fb.fill_runs_banded_batch(*T, *mkd)
         ops, n = tb.walk_runs_batch(got[0], *T[2:], S)
         e_walk = max(max_abs_err(g, w) for g, w in zip((ops, n), tb.walk_runs_batch_plain(want[0], *T[2:], S)))
         codes = fb.fill_greedy_counts_banded_batch(*T, *mkd)[0]
@@ -3561,7 +3600,8 @@ def runs_kernels_vs_plain(dev, small, errs):
         errs["nw_fill_runs_batch"] = max(errs["nw_fill_runs_batch"], e_fill)
         errs["nw_walk_runs"] = max(errs["nw_walk_runs"], e_walk, e_codes)
         log(f"phase 14 (a) runs kernels vs plain, {len(pairs)} pairs {L1}x{L2} bucket, m k d = {mkd}: "
-            f"fill {e_fill}, walk {e_walk}, walk vs nw_walk's ops {e_codes}")
+            f"fill {e_fill} (at the rule's W {byte_rule(T, False)} and W = {BYTE_WARPS}), walk {e_walk}, "
+            f"walk vs nw_walk's ops {e_codes}")
         del want, got, codes
     if any(errs.values()):
         fail(f"a runs kernel differs from its plain version: {errs}")
@@ -3708,11 +3748,13 @@ def flat_path(card, bound, c2):
         shape=f"{len(c2)}x{L_SHORT}bp scores+counts (K26's function; K4's shape)")
     o = masks_out[1024, L_FLAT]
     cells7 = 1024 * L_FLAT * L_FLAT
+    W27 = byte_rule(o["T"], True)
     rec["nw_fill_masks_batch/flat"] = dict(
+        warps=W27,
         ms=cuda_ms(lambda: ff.fill_arrows_flat_batch(*o["T"], 2, 1, 1, with_counts=True), 5), plain_ms=o["plain_ms"],
         launches=launches["fill_arrows_flat_batch"], max_abs_err=max(x["e27"] for x in masks_out.values()),
         **bound(cells7 * (OPS_SCORE + OPS_COUNT + OPS_CODE), tensor_bytes(*o["T"], o["masks"], o["sc"], o["ct"])),
-        shape=f"1024x{L_FLAT}bp masks+counts (K27's function; masks only "
+        shape=f"1024x{L_FLAT}bp masks+counts, {W27} warps a pair (K27's function; masks only "
               f"{cuda_ms(lambda: ff.fill_arrows_flat_batch(*o['T'], 2, 1, 1), 5):.3f} ms; at 128x{L_ARROWS}bp "
               f"masks+counts {cuda_ms(lambda: ff.fill_arrows_flat_batch(*masks_out[128, L_ARROWS]['T'], 2, 1, 1, with_counts=True), 2):.3f} ms)")
     rec["nw_count_masks/flat"] = dict(
@@ -3784,6 +3826,7 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
     sub = nwm.strings_sub_batch(LB, LB, "runs")
     parts = [tuple(t[lo : lo + sub] for t in T3) for lo in range(0, len(c3), sub)]
     fill_ms = [cuda_ms(lambda: fb.fill_runs_banded_batch(*p, 2, 1, 1, with_counts=True), 1) for p in parts]
+    part_warps = [byte_rule(p, True) for p in parts]
     codes_fill_ms = cuda_ms(lambda: fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1, with_counts=True), 1)
     codes3 = fb.fill_greedy_counts_banded_batch(*T3, 2, 1, 1)[0]
     walk_codes_ms = cuda_ms(lambda: tb.walk_codes_batch(codes3, *T3[2:], 2 * LB), 3)
@@ -3812,8 +3855,10 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
     for turn in range(2):
         for kind in (list(fills) if turn == 0 else list(fills)[::-1]):
             same[kind].append(cuda_ms(fills[kind], 0))
-    log(f"phase 14 (d) fills at 128x{LB}bp with counts, one launch each, in turns: "
-        f"{ {k: [round(x, 3) for x in v] for k, v in same.items()} } ms [{card}]")
+    W128 = byte_rule(h, True)
+    log(f"phase 14 (d) fills at 128x{LB}bp with counts, one launch each, in turns (the byte fills at "
+        f"W = {W128}, {byte_rule(h, False)} without counts; nw_fill_codes at "
+        f"{fb.fill_warps(128, LB, LB, 8, torch.cuda.get_device_properties(0).multi_processor_count)}): { {k: [round(x, 3) for x in v] for k, v in same.items()} } ms [{card}]")
     # the plain versions on the first config-3 pair, against the kernels there
     one = tuple(t[:1] for t in T3)
     (p_runs, p_sc, p_ct), plain_fill_ms = cuda_once(lambda: fb.fill_runs_banded_batch_plain(*one, 2, 1, 1, with_counts=True))
@@ -3834,10 +3879,12 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
             ms=sum(fill_ms), plain_ms=plain_fill_ms,
             **bound(cells3 * (OPS_SCORE + OPS_COUNT + OPS_CODE + OPS_RUN), tensor_bytes(*T3) + sum(runs_parts)),
             shape=f"{nb}x{LB}bp run bytes+counts in {len(parts)} launches of {sub} and {nb - sub} pairs "
-                  f"({' + '.join(f'{x:.3f}' for x in fill_ms)} ms; nw_fill_codes codes+counts at {nb}x{LB}bp "
-                  f"{codes_fill_ms:.3f} ms in one; at 128x{LB}bp, in turns, runs {[round(x, 3) for x in same['runs']]} "
-                  f"ms, codes {[round(x, 3) for x in same['codes']]} ms, masks {[round(x, 3) for x in same['masks']]} "
-                  f"ms; plain_ms at 1x{LB}bp)"),
+                  f"at W = {part_warps} ({' + '.join(f'{x:.3f}' for x in fill_ms)} ms; nw_fill_codes "
+                  f"codes+counts at {nb}x{LB}bp {codes_fill_ms:.3f} ms in one; at 128x{LB}bp (W = {W128}), in "
+                  f"turns, runs {[round(x, 3) for x in same['runs']]} ms, codes {[round(x, 3) for x in same['codes']]} "
+                  f"ms, masks {[round(x, 3) for x in same['masks']]} ms, runs without counts "
+                  f"{[round(x, 3) for x in same['runs, no counts']]} ms; plain_ms at 1x{LB}bp)",
+            warps=part_warps, ms_128=min(same["runs"]), masks_ms_128=min(same["masks"])),
         "nw_walk_runs": dict(
             ms=sum(walk_ms), plain_ms=plain_walk_ms,
             **bound(n_loads * OPS_WALK_STEP, tensor_bytes(*T3[2:]) + 4 * nb + n_loads + steps),
@@ -4436,8 +4483,13 @@ def main() -> None:
         kernels_line.append({"name": name, "route": "cuda",
                              "source": runs_src.get(name, "nw_tpu_torch/csrc/nw_fill.cu"),
                              "replaces": runs_replaces[name], **fields})
+    byte_kernels = {"nw_fill_masks_batch": "bytes_pipe_kernel<kMasks>",
+                    "nw_fill_masks_batch/flat": "bytes_pipe_kernel<kMasks>",
+                    "nw_fill_runs_batch": "bytes_pipe_kernel<kRuns>"}
     for kern in kernels_line:
         kern["library_ms"] = None  # no one PyTorch call computes a DP fill or walk
+        if kern["name"] in byte_kernels:  # the pipeline's byte modes, in nw_fill.cu
+            kern["kernel"] = byte_kernels[kern["name"]]
     record = {"kernels": kernels_line}
     log(f"chip_smoke seconds {time.perf_counter() - t_start:.1f}, the kernels' build included [{card}]")
     log(json.dumps(record))

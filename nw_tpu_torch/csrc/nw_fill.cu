@@ -30,16 +30,18 @@
 // NEG_INF decay and holds for every scoring.  Score arithmetic wraps as
 // int32, counts wrap mod 2^32.
 //
-// Two designs.  The pipeline (pipe_fill) runs W warps on each pair, for
-// three recurrences: Needleman-Wunsch (nw_fill_pipe_kernel: nw_scores,
-// nw_fill_codes) and the LOCAL and OVERLAP fills, scores
-// (free_pipe_kernel: sw_scores, overlap_scores) and codes with the best
-// cell (free_codes_pipe_kernel: sw_fill_codes, overlap_fill_codes).
-// nw_fill_kernel runs one warp a pair: the MASKS and RUNS modes below.
-// The pipeline's protocol (its waits, fences and staging) lives in
-// nw_common.cuh, which nw_affine.cu's Gotoh fills run too.
+// One design.  The pipeline (pipe_fill) runs W warps on each pair, for
+// three recurrences: Needleman-Wunsch, with scores, codes or counts
+// (nw_fill_pipe_kernel: nw_scores, nw_fill_codes) or a byte a cell
+// (bytes_pipe_kernel: the MASKS and RUNS modes below,
+// nw_fill_masks_batch and nw_fill_runs_batch), and the LOCAL and
+// OVERLAP fills, scores (free_pipe_kernel: sw_scores, overlap_scores)
+// and codes with the best cell (free_codes_pipe_kernel: sw_fill_codes,
+// overlap_fill_codes).  The pipeline's protocol (its waits, fences and
+// staging) lives in nw_common.cuh, which nw_affine.cu's Gotoh fills run
+// too.
 //
-// The band sweep, common to both.  The side string's rows are cut into
+// The band sweep.  The side string's rows are cut into
 // bands of 32 rows, one row per lane; at step t lane jj computes cell
 // (row j0+jj, column c = t-jj), so a band is a 32-wide wavefront that
 // sweeps the whole top string in A+32 steps, 32 steps a chunk.  The up
@@ -176,28 +178,34 @@
 // Row 0 is not stored: every step there is LEFT.  All offsets are
 // 64-bit: the codes of one 128 x 10 kb sub-batch pass 3 GB.
 //
-// The one-warp kernel (nw_fill_kernel) sweeps its pair's bands in order on
-// one warp.  Lane 0 reads the row above the band from the per-pair
-// boundary row in device memory (plus a count row), which lane 31
-// overwrites in place with the band's last row, 31 columns behind; the
-// boundary row and the top string are loaded 32 columns at a time, one
-// coalesced load per lane, and handed to lane 0 by shuffle.
-//
-// The MASKS mode is the global sweep storing each cell's 3-bit tie mask
-// (bit0 diag, bit1 left, bit2 up; the ARROW_* bits) instead of a code,
-// one byte a cell, row-major: uint8[B, Bs+1, A+1], a pair's rows one
-// after another.  Row 0 is LEFT, column 0 UP, the origin 0, and every
-// cell outside the pair's true (len2+1) x (len1+1) table is 0, all
-// written explicitly (nothing is zeroed first).  The 32 lanes hold 32
-// rows, so a per-step byte store would be 32 transactions; instead each
-// lane writes its mask into the warp's 32-row x 64-column byte ring in
-// shared memory (column c in slot c % 64, at most 63 columns live), and
-// after every 32-step chunk the warp stores the 32 columns that all its
-// lanes have finished, row by row: 32 lanes on 32 consecutive bytes, one
-// coalesced store a row, as nw_single.cu's masks mode does.  The masks
-// are 1 byte a cell against the codes' 2 bits (4x the stores), so at
-// 128 x 2 kb pairs the stores (537 MB) stay well below the sweep's own
-// latency bound.  Counts ride the sweep as in the global mode.
+// The MASKS mode (bytes_pipe_kernel<kMasks>) is the global sweep on the
+// pipeline storing each cell's 3-bit tie mask (bit0 diag, bit1 left,
+// bit2 up; the ARROW_* bits) instead of a code, one byte a cell,
+// row-major: uint8[B, Bs+1, A+1], a pair's rows one after another.  Row
+// 0 is LEFT, column 0 UP, the origin 0, and every cell outside the
+// pair's true (len2+1) x (len1+1) table is 0, all written explicitly
+// (nothing is zeroed first).  The 32 lanes hold 32 rows, so a per-step
+// byte store would be 32 transactions; instead each lane writes its byte
+// into its warp's ring in shared memory (after the pipeline's rings,
+// counters, staged row and top): 32 rows of 64 slots, step t in slot t %
+// 64 (an immediate offset a step), a row every 68 bytes so that the 32
+// lanes' bytes of one step fall in 32 banks.  After every chunk, past its
+// count, and once after the band, the warp stores each row's next 32
+// bytes aligned in device memory: rows start at any byte (A+1 is seldom
+// a multiple of 32), and a 32-byte store across two sectors held
+// every byte mode at ~40 ms at 128 x 10 kb, 2.5x the sweep (PERF.md,
+// section 6).  Each row's piece starts at t0 - 32 or t0 from its
+// 32-aligned base (t0 where its column 0 lies past its r-th byte): its
+// columns are finished and still in the ring, and the pieces follow one
+// another.  Four rows a store, a word a lane, funnel-shifted from the two
+// ring words that hold it; the tests (columns 0..A, 0 past len1 and
+// len2, a byte at a time across a row's ends) only outside the inner
+// pieces of the true table.  The byte ring is its warp's alone, so the
+// flush adds no wait to the pipeline's protocol; a __syncwarp orders it
+// before the next chunk's ring writes.  The bytes go into the ring as
+// computed, so the run chain below reads them unmasked.  Counts ride the
+// int2 ring cell as in the global mode.  A top that does not fit beside
+// W warps' int rings and byte rings is staged in device memory.
 //
 // The RUNS mode is the MASKS mode storing, instead of a tie mask, the
 // byte min(run, 63) << 2 | code: the greedy code (0 diag, 1 left, 2 up,
@@ -215,13 +223,15 @@
 // other a run of one, and the score's two compares pick diag, left or
 // up, so the run adds 3 dependent ops after the score.  Written as the
 // run's min, add and selects on separate fields instead, the step took
-// 1.6x as long (chip_smoke.py phase 14, PERF.md).  Row 0 stores
-// min(c, 63) << 2 | LEFT, column 0 UP (run 0), the origin and every cell
-// outside the true table 0, all explicitly, through the same ring and
-// stores as the masks; counts ride along as in the MASKS mode (K2's
-// with_runs has none).  Like the other byte mode it is bound by the
-// step's latency, one warp a pair; the bytes it stores are the masks'
-// (a byte a cell).
+// 1.6x as long on the one-warp design before the pipeline (chip_smoke.py
+// phase 14, PERF.md).  No byte crosses a band or a warp: lane 0's
+// restart needs none, and a left run lives in the lane's own row, so the
+// pipeline hands on scores and counts alone, and a chunk with no column
+// 0, none past A and no corner runs untested.  Row 0 stores min(c, 63)
+// << 2 | LEFT, column 0 UP (run 0), the origin and every cell outside
+// the true table 0, all explicitly, through the same ring and stores as
+// the masks; counts ride along as in the MASKS mode (K2's with_runs has
+// none).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -253,11 +263,14 @@ constexpr int kCodeStop = 3;
 constexpr unsigned kMaskDiag = 1u;
 constexpr unsigned kMaskLeft = 2u;
 constexpr unsigned kMaskUp = 4u;
-constexpr int kRingCols = 64;  // columns of the MASKS mode's byte ring
-constexpr int kRingBytes = 32 * kRingCols;
+// a warp's byte ring (MASKS, RUNS): 32 rows of 64 slots, a row every
+// 68 bytes (17 words: the 32 lanes' stores of one slot fall in 32 banks)
+constexpr int kRingCols = 64;
+constexpr int kRingRow = 68;
+constexpr int kRingBytes = 32 * kRingRow;
 
-// the free recurrences of the pipeline (kGlobal below), and the one-warp
-// kernel's modes
+// the pipeline's recurrences besides kGlobal (below): the free ones, and
+// Needleman-Wunsch storing a byte a cell
 constexpr int kLocal = 1;    // Smith-Waterman
 constexpr int kOverlap = 2;  // overlap: free end gaps
 constexpr int kMasks = 3;    // Needleman-Wunsch storing tie masks
@@ -271,169 +284,6 @@ __device__ __forceinline__ bool ranks_above(int sb, int sk, int sj, int tb,
   return sb > tb || (sb == tb && (sk < tk || (sk == tk && sj < tj)));
 }
 
-// The one-warp kernel runs MASKS and RUNS only; EMIT_CODES stays false
-// (the code fills run on the pipeline), kept so that its instantiations
-// keep their names.
-template <bool EMIT_CODES, bool WITH_COUNTS, int MODE>
-__global__ void __launch_bounds__(32) nw_fill_kernel(
-    const int* __restrict__ tops, const int* __restrict__ sides,
-    const int* __restrict__ lens1, const int* __restrict__ lens2,
-    int A, int Bs, int m, int k, int d,
-    int* __restrict__ bnd, unsigned* __restrict__ cbnd,
-    unsigned* __restrict__ codes, int* __restrict__ scores,
-    unsigned* __restrict__ counts) {
-  constexpr bool MASKS = MODE == kMasks;
-  constexpr bool RUNS = MODE == kRuns;
-  static_assert((MASKS || RUNS) && !EMIT_CODES, "the one-warp kernel stores masks or run bytes");
-  // the warp's byte ring (dynamic shared memory, kRingBytes)
-  extern __shared__ unsigned char mring[];
-  const int lane = threadIdx.x;
-  const int64_t b = blockIdx.x;
-  const int M = A + 1;
-  const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
-  const int nbands = (Bs + 31) >> 5;
-  const int* top = tops + b * A;
-  const int* side = sides + b * Bs;
-  int* brow = bnd + b * M;
-  unsigned* crow = WITH_COUNTS ? cbnd + b * M : nullptr;
-  const int l1 = lens1[b];
-  const int l2 = lens2[b];
-  // this pair's table, uint8[Bs+1, A+1] (codes holds the batch's)
-  unsigned char* pm = reinterpret_cast<unsigned char*>(codes) + b * (Bs + 1) * static_cast<int64_t>(M);
-
-  // row 0: H[0][c] = -c*d, LEFT, one path
-  for (int c = lane; c < M; c += 32) {
-    brow[c] = wsub(0, wmul(c, d));
-    if (WITH_COUNTS) crow[c] = 1u;
-    if (MASKS) pm[c] = c >= 1 && c <= l1 ? kMaskLeft : 0u;
-    if (RUNS) pm[c] = c >= 1 && c <= l1 ? min(static_cast<unsigned>(c), kRunCap) << 2 | kCodeLeft : 0u;
-  }
-  if (l2 == 0 && lane == 0) {
-    scores[b] = wsub(0, wmul(l1, d));
-    if (WITH_COUNTS) counts[b] = 1u;
-  }
-  __syncwarp();
-
-  const int negk = wsub(0, k);
-  for (int band = 0; band < nbands; ++band) {
-    const int j = band * 32 + 1 + lane;  // this lane's row
-    const bool row_ok = j <= Bs;
-    const int sch = row_ok ? side[j - 1] : -5;
-    const int col0 = wsub(0, wmul(j, d));  // H[j][0]
-    int h = 0, up_prev = 0, ch = -4;  // own last value, last up, top char
-    unsigned cnt = 0, cup_prev = 0;
-    unsigned v = 0, v2 = 0;  // runs: own byte of the last step and of the one before
-
-    for (int t0 = 0; t0 < 32 * nchunks; t0 += 32) {
-      // the next 32 columns of the row above and of the top string;
-      // lane x holds column t0 + x until step t0 + x hands it to lane 0
-      const int cx = t0 + lane;
-      const int bval = cx < M ? brow[cx] : 0;
-      const unsigned cbval = (WITH_COUNTS && cx < M) ? crow[cx] : 0u;
-      const int tval = (cx >= 1 && cx <= A) ? top[cx - 1] : -4;
-#pragma unroll
-      for (int s = 0; s < 32; ++s) {
-        const int c = t0 + s - lane;
-        int up = __shfl_up_sync(kFull, h, 1);
-        const int ch_in = __shfl_up_sync(kFull, ch, 1);
-        const int b_up = __shfl_sync(kFull, bval, s);
-        const int b_ch = __shfl_sync(kFull, tval, s);
-        unsigned cup = 0;
-        if (WITH_COUNTS) {
-          cup = __shfl_up_sync(kFull, cnt, 1);
-          const unsigned cb_up = __shfl_sync(kFull, cbval, s);
-          cup = lane == 0 ? cb_up : cup;
-        }
-        up = lane == 0 ? b_up : up;
-        ch = lane == 0 ? b_ch : ch_in;
-        unsigned vdiag = 0;
-        if (RUNS) {  // lane jj-1's byte two steps back: (j-1, c-1); lane 0 restarts the chain
-          vdiag = __shfl_up_sync(kFull, v2, 1);
-          vdiag = lane == 0 ? 0u : vdiag;
-        }
-
-        const int cand_d = wadd(up_prev, ch == sch ? m : negk);
-        const int cand_u = wsub(up, d);
-        const int cand_l = wsub(h, d);
-        int hn = max(max(cand_d, cand_u), cand_l);
-        unsigned mask = 0u;
-        if (MASKS) {
-          mask = (cand_d == hn ? kMaskDiag : 0u) | (cand_l == hn ? kMaskLeft : 0u) |
-                 (cand_u == hn ? kMaskUp : 0u);
-        }
-        unsigned cn = 0;
-        if (WITH_COUNTS) {
-          cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
-               (cand_u == hn ? cup : 0u);
-        }
-        const bool col_zero = c == 0;  // column 0: -j*d, UP, one path
-        hn = col_zero ? col0 : hn;
-        cn = col_zero ? 1u : cn;
-        if (MASKS) {  // 0 outside the true table; a slot of c < 0 is written again before it is stored
-          mask = col_zero ? kMaskUp : mask;
-          mring[lane * kRingCols + (c & (kRingCols - 1))] = j <= l2 && c <= l1 ? mask : 0u;
-        }
-        unsigned vn = 0u;
-        if (RUNS) {  // the code and its run (column 0: UP, run 0), stored as the masks are
-          // a predecessor of the same code extends its run by one (a byte
-          // plus 4, capped), any other starts one; the score picks the code
-          const unsigned dbyte = (vdiag & 3u) == kCodeDiag ? min(vdiag + 4u, kRunCap << 2 | kCodeDiag)
-                                                           : 1u << 2 | kCodeDiag;
-          const unsigned lbyte = (v & 3u) == kCodeLeft ? min(v + 4u, kRunCap << 2 | kCodeLeft)
-                                                       : 1u << 2 | kCodeLeft;
-          vn = cand_d == hn ? dbyte : (cand_l == hn ? lbyte : kCodeUp);
-          vn = col_zero ? kCodeUp : vn;
-          mring[lane * kRingCols + (c & (kRingCols - 1))] = j <= l2 && c <= l1 ? vn : 0u;
-        }
-        const bool in_row = c >= 0 && c <= A;
-        if (in_row && j == l2 && c == l1) {  // the true corner
-          scores[b] = hn;
-          if (WITH_COUNTS) counts[b] = cn;
-        }
-        // lane 31 writes its row over the boundary row, 31 columns
-        // behind lane 0's reads of it: lane 31's value of column c
-        // depends, through the shuffle chain, on lane 0's load of c
-        if (lane == 31 && in_row) {
-          brow[c] = hn;
-          if (WITH_COUNTS) crow[c] = cn;
-        }
-        up_prev = up;
-        h = hn;
-        if (RUNS) {
-          v2 = v;
-          v = vn;
-        }
-        if (WITH_COUNTS) {
-          cup_prev = cup;
-          cnt = cn;
-        }
-      }
-      // every lane has finished columns t0-31 .. t0: store them, row by row
-      __syncwarp();
-      const int col = t0 - 31 + lane;
-      if (col >= 0 && col <= A) {
-        const unsigned char* src = mring + (col & (kRingCols - 1));
-        unsigned char* dst = pm + static_cast<int64_t>(band * 32 + 1) * M + col;
-        const int rows = min(32, Bs - band * 32);
-        for (int r = 0; r < rows; ++r) dst[static_cast<int64_t>(r) * M] = src[r * kRingCols];
-      }
-      __syncwarp();  // read before the next chunk overwrites the slots
-    }
-    __syncwarp();  // the band's boundary row is complete before the next band reads it
-  }
-}
-
-template <bool WITH_COUNTS, int MODE>
-int launch_fill(const int* tops, const int* sides, const int* lens1,
-                const int* lens2, int B, int A, int Bs, int m, int k, int d,
-                int* bnd, unsigned* cbnd, unsigned* bytes, int* scores,
-                unsigned* counts, cudaStream_t stream) {
-  if (B <= 0) return 0;
-  nw_fill_kernel<false, WITH_COUNTS, MODE><<<B, 32, kRingBytes, stream>>>(
-      tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, bytes, scores, counts);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------- the pipeline: W warps a pair (nw_scores, nw_fill_codes, the free fills) ----------------
 
 constexpr int kGlobal = 0;  // the pipeline's Needleman-Wunsch recurrence (kLocal, kOverlap above)
@@ -445,11 +295,12 @@ constexpr int kBestTested = 2;  // those in the lane's window of columns [lo, hi
 template <int V> struct Best { static constexpr int value = V; };
 
 // The pipeline's body, for the recurrence MODE (kGlobal, kLocal or
-// kOverlap; the free ones without counts).  TOP_SMEM: the top string is
-// staged in shared memory; else in the pair's row of top16
-// (int16[B, pipe_top_cols(A)]) in device memory, for a top too long for
-// a block's shared memory, read through L1.  jstar, istar: the free code
-// fills' best cell.
+// kOverlap, the free ones without counts; kMasks or kRuns, the global
+// recurrence storing a byte a cell into codes, read as uint8[B, Bs+1,
+// A+1]).  TOP_SMEM: the top string is staged in shared memory; else in
+// the pair's row of top16 (int16[B, pipe_top_cols(A)]) in device memory,
+// for a top too long for a block's shared memory, read through L1.
+// jstar, istar: the free code fills' best cell.
 template <int MODE, bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
 __device__ __forceinline__ void pipe_fill(
     const int* __restrict__ tops, const int* __restrict__ sides,
@@ -463,8 +314,11 @@ __device__ __forceinline__ void pipe_fill(
   constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
   constexpr bool ARGMAX = FREE && EMIT_CODES;  // the code fills: the best's cell too
   constexpr bool TRIM = FREE && !EMIT_CODES;   // the score fills: the true table alone
-  static_assert(MODE == kGlobal || (FREE && !WITH_COUNTS),
-                "the pipeline's local and overlap fills keep no counts");
+  constexpr bool MASKS = MODE == kMasks;
+  constexpr bool RUNS = MODE == kRuns;
+  constexpr bool BYTES = MASKS || RUNS;  // a byte a cell, through the warp's byte ring
+  static_assert(MODE == kGlobal || (FREE && !WITH_COUNTS) || (BYTES && !EMIT_CODES),
+                "the pipeline's local and overlap fills keep no counts; the byte modes store no codes");
   using C = typename Cell<WITH_COUNTS>::type;
   extern __shared__ __align__(16) int pipe_sh[];
   const int lane = threadIdx.x & 31;
@@ -488,13 +342,27 @@ __device__ __forceinline__ void pipe_fill(
   unsigned* crow = WITH_COUNTS ? cbnd + b * M : nullptr;
   const int l1 = lens1[b];
   const int l2 = lens2[b];
+  // BYTES: this pair's table, uint8[Bs+1, A+1], and the warp's 32-row x
+  // 64-column byte ring, past the staged top (or past done[W])
+  [[maybe_unused]] unsigned char* const pm =
+      BYTES ? reinterpret_cast<unsigned char*>(codes) + b * (Bs + 1) * static_cast<int64_t>(M)
+            : nullptr;
+  [[maybe_unused]] unsigned char* const mring =
+      BYTES ? (TOP_SMEM ? reinterpret_cast<unsigned char*>(top_s + pipe_top_cols(A))
+                        : reinterpret_cast<unsigned char*>(const_cast<int*>(done) + W)) +
+                  warp * kRingBytes
+            : nullptr;
 
   // the top string, row 0 (-c*d, one path; 0 in the free fills) into the
-  // boundary row, counters
+  // boundary row and (BYTES) the table, counters
   pipe_stage_top(top_s, top, A);
   for (int c = threadIdx.x; c < M; c += blockDim.x) {
     brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
     if (WITH_COUNTS) crow[c] = 1u;
+    // row 0: LEFT (RUNS: a left run from the origin), the origin and the
+    // columns past len1 0
+    if constexpr (MASKS) pm[c] = c >= 1 && c <= l1 ? kMaskLeft : 0u;
+    if constexpr (RUNS) pm[c] = c >= 1 && c <= l1 ? min(static_cast<unsigned>(c), kRunCap) << 2 | kCodeLeft : 0u;
   }
   if (threadIdx.x < W) done[threadIdx.x] = 0;
   if (!FREE && l2 == 0 && threadIdx.x == 0) {
@@ -544,6 +412,55 @@ __device__ __forceinline__ void pipe_fill(
         : nullptr;
     int h = 0, up_prev = 0;  // own last value, last up
     unsigned cnt = 0, cup_prev = 0, pack = 0;
+    [[maybe_unused]] unsigned run1 = 0, run2 = 0;  // RUNS: own byte of the last step and of the one before
+    // BYTES: the band's rows of the bucket table and of the true table,
+    // and its first row in the table
+    [[maybe_unused]] const int band_rows = Bs - band * 32;
+    [[maybe_unused]] const int true_rows = l2 - band * 32;
+    [[maybe_unused]] unsigned char* const prow =
+        BYTES ? pm + static_cast<int64_t>(band * 32 + 1) * M : nullptr;
+    // BYTES: after the chunk that ends at step t0 + 31 (and once more
+    // after the band), store the next aligned 32-byte piece of each row r:
+    // addresses [xs, xs+31] from the row's 32-aligned base, xs = t0 - 32,
+    // or t0 where the row's column 0 lies past its r-th byte (off > r),
+    // so that its columns x - off are finished (lane r has done t0 + 31 -
+    // r) and still in the ring (which holds steps t0 - 32 .., columns t0 -
+    // 32 - r ..), and the pieces follow one another.  Column c of row r is
+    // in slot (c + r) % 64.  0 outside the true table (rows past len2,
+    // columns past len1).  The ring is the warp's alone: no other warp
+    // waits on this.
+    [[maybe_unused]] auto flush = [&](int t0) {
+      // 4 rows a store (r, r + 8, r + 16, r + 24: banks apart), a word a
+      // lane, each word from the two ring words that hold it
+      const bool inner = true_rows >= 32 && t0 >= 64 && t0 + 31 <= l1;  // every cell of every piece in the true table
+      const int w4 = (lane & 7) << 2;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = i + 8 * (lane >> 3);
+        unsigned char* const p = prow + static_cast<int64_t>(r) * M;
+        const int off = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 31);
+        const int c = t0 - 32 + (off > r ? 32 : 0) - off + w4;  // the word's first column
+        const int q = (c + r) & (kRingCols - 1);
+        const unsigned* const ring_r = reinterpret_cast<const unsigned*>(mring + r * kRingRow);
+        unsigned v = __funnelshift_r(ring_r[q >> 2], ring_r[((q >> 2) + 1) & 15], (q & 3) << 3);
+        if (inner) {
+          *reinterpret_cast<unsigned*>(p + c) = v;
+        } else if (r < band_rows) {
+          // 0 past column len1 and row len2; a word across either end of
+          // the row (columns 0..A) a byte at a time
+          const int keep = r < true_rows ? min(max(l1 - c + 1, 0), 4) : 0;  // its bytes up to len1
+          v = keep == 4 ? v : v & ((1u << (8 * keep)) - 1u);
+          if (c >= 0 && c + 3 <= A) {
+            *reinterpret_cast<unsigned*>(p + c) = v;
+          } else {
+            for (int k = 0; k < 4; ++k) {
+              if (c + k >= 0 && c + k <= A) p[c + k] = static_cast<unsigned char>(v >> (8 * k));
+            }
+          }
+        }
+      }
+      __syncwarp();  // read before the next chunk overwrites the slots
+    };
 
     for (int q = 0; q < nchunks; ++q) {
       const int g = round * nchunks + q;  // chunks of this warp before this one
@@ -570,6 +487,9 @@ __device__ __forceinline__ void pipe_fill(
       const bool pub_hi = lane == 31 && feeds;
       const bool pub_lo = pub_hi && q > 0;
       const short* const tq = top_lane + t0;
+      // BYTES: this chunk's 32 slots of the lane's row of the byte ring
+      [[maybe_unused]] unsigned char* const bring =
+          BYTES ? mring + lane * kRingRow + (t0 & kRingCols / 2) : nullptr;
 
       // one chunk of 32 steps; FAST: every lane's column lies in 1..A
       // (free score fills: 1..len1) and the corner is not in it, so column
@@ -581,6 +501,11 @@ __device__ __forceinline__ void pipe_fill(
 #pragma unroll
         for (int s = 0; s < 32; ++s) {
           int up = __shfl_up_sync(kFull, h, 1);
+          [[maybe_unused]] unsigned vdiag = 0;
+          if constexpr (RUNS) {  // lane jj-1's byte two steps back, (j-1, c-1); lane 0 restarts the chain
+            vdiag = __shfl_up_sync(kFull, run2, 1);
+            vdiag = lane == 0 ? 0u : vdiag;
+          }
           [[maybe_unused]] unsigned cup = 0;
           if constexpr (WITH_COUNTS) {
             cup = __shfl_up_sync(kFull, cnt, 1);
@@ -603,8 +528,8 @@ __device__ __forceinline__ void pipe_fill(
             // where the candidates are compared again, one DPX three-way
             // max (exact: the wrapping is in the candidates); for the
             // score alone nvcc fuses each subtract into its max (VIADDMNMX)
-            hn = EMIT_CODES || WITH_COUNTS ? __vimax3_s32(cand_d, cand_u, cand_l)
-                                           : max(max(cand_d, cand_u), cand_l);
+            hn = EMIT_CODES || WITH_COUNTS || BYTES ? __vimax3_s32(cand_d, cand_u, cand_l)
+                                                    : max(max(cand_d, cand_u), cand_l);
           }
           unsigned code = cand_d == hn ? kCodeDiag : (cand_l == hn ? kCodeLeft : kCodeUp);
           if constexpr (LOCAL && ARGMAX) code = hn == 0 ? kCodeStop : code;  // a local start
@@ -613,6 +538,19 @@ __device__ __forceinline__ void pipe_fill(
             cn = (cand_d == hn ? cup_prev : 0u) + (cand_l == hn ? cnt : 0u) +
                  (cand_u == hn ? cup : 0u);
           }
+          [[maybe_unused]] unsigned byte = 0;
+          if constexpr (MASKS) {
+            byte = (cand_d == hn ? kMaskDiag : 0u) | (cand_l == hn ? kMaskLeft : 0u) |
+                   (cand_u == hn ? kMaskUp : 0u);
+          } else if constexpr (RUNS) {
+            // a predecessor of the same code extends its run by one (a byte
+            // plus 4, capped), any other starts one; the score picks the code
+            const unsigned dbyte = (vdiag & 3u) == kCodeDiag ? min(vdiag + 4u, kRunCap << 2 | kCodeDiag)
+                                                             : 1u << 2 | kCodeDiag;
+            const unsigned lbyte = (run1 & 3u) == kCodeLeft ? min(run1 + 4u, kRunCap << 2 | kCodeLeft)
+                                                            : 1u << 2 | kCodeLeft;
+            byte = cand_d == hn ? dbyte : (cand_l == hn ? lbyte : kCodeUp);
+          }
           bool in_row = true;
           if constexpr (!FAST) {
             const int c = t0 + s - lane;
@@ -620,6 +558,7 @@ __device__ __forceinline__ void pipe_fill(
             hn = col_zero ? col0 : hn;
             code = col_zero ? (FREE ? kCodeStop : kCodeUp) : code;
             cn = col_zero ? 1u : cn;
+            if constexpr (BYTES) byte = col_zero ? (MASKS ? kMaskUp : kCodeUp) : byte;  // RUNS: run 0
             in_row = c >= 0 && c <= A;
             if (!FREE && in_row && j == l2 && c == l1) {  // the true corner
               scores[b] = hn;
@@ -656,6 +595,17 @@ __device__ __forceinline__ void pipe_fill(
               wbase[static_cast<int64_t>((t0 + s) >> 4) * 32] = FAST && !row_ok ? 0u : pack;
               pack = 0;
             }
+          }
+          if constexpr (BYTES) {
+            // step t0 + s (column t0 + s - lane) in slot (t0 + s) % 64 of
+            // the lane's row of the ring, as computed (the flush zeroes the
+            // cells outside the true table); a slot of c < 0 is written
+            // again before it is stored
+            bring[s] = byte;
+          }
+          if constexpr (RUNS) {
+            run2 = run1;
+            run1 = byte;
           }
           up_prev = up;
           h = hn;
@@ -722,7 +672,9 @@ __device__ __forceinline__ void pipe_fill(
         }
       }
       pipe_post(done, warp, lane, g);
+      if constexpr (BYTES) flush(t0);
     }
+    if constexpr (BYTES) flush(nchunks << 5);  // the pieces that reach column A
     if constexpr (ARGMAX) {  // this row's best cell into the lane's, by the key
       const int kk = band * 32 + 1 + lt;
       if (ranks_above(lbest, kk, j, rb, rk, rj)) {
@@ -826,9 +778,26 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) free_codes_pipe_kernel(
                                          nullptr, codes, best, nullptr, top16, jstar, istar);
 }
 
+// The byte modes on the pipeline (nw_fill_masks_batch: MODE kMasks,
+// nw_fill_runs_batch: kRuns): the global recurrence storing a byte a cell
+// into bytes, uint8[B, Bs+1, A+1]; a kernel of their own, as the free
+// fills'.
+template <int MODE, bool WITH_COUNTS, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) bytes_pipe_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2,
+    int A, int Bs, int m, int k, int d, int* bnd, unsigned* cbnd,
+    unsigned* __restrict__ bytes, int* __restrict__ scores,
+    unsigned* __restrict__ counts, short* top16) {
+  pipe_fill<MODE, false, WITH_COUNTS, TOP_SMEM>(
+      tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, bytes, scores, counts, top16);
+}
+
 template <int MODE, bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
 auto pipe_kernel() {
-  if constexpr (MODE == kGlobal) {
+  if constexpr (MODE == kMasks || MODE == kRuns) {
+    return bytes_pipe_kernel<MODE, WITH_COUNTS, TOP_SMEM>;
+  } else if constexpr (MODE == kGlobal) {
     return nw_fill_pipe_kernel<EMIT_CODES, WITH_COUNTS, TOP_SMEM>;
   } else if constexpr (EMIT_CODES) {
     return free_codes_pipe_kernel<MODE, TOP_SMEM>;
@@ -838,7 +807,8 @@ auto pipe_kernel() {
 }
 
 // top16 null: the top in shared memory; else int16[B, pipe_top_cols(A)].
-// jstar, istar: the free code fills' best cell.
+// jstar, istar: the free code fills' best cell.  The byte modes add each
+// warp's byte ring to the block's shared memory.
 template <int MODE, bool EMIT_CODES, bool WITH_COUNTS>
 int launch_pipe(const int* tops, const int* sides, const int* lens1,
                 const int* lens2, int B, int A, int Bs, int m, int k, int d,
@@ -848,7 +818,8 @@ int launch_pipe(const int* tops, const int* sides, const int* lens1,
   if (B <= 0) return 0;
   if (warps < 1 || warps > kMaxWarps || A < 0 || Bs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = pipe_smem(warps, A, sizeof(typename Cell<WITH_COUNTS>::type), !top16);
+  const int smem = pipe_smem(warps, A, sizeof(typename Cell<WITH_COUNTS>::type), !top16) +
+                   (MODE == kMasks || MODE == kRuns ? warps * kRingBytes : 0);
   auto kernel = top16 ? pipe_kernel<MODE, EMIT_CODES, WITH_COUNTS, false>()
                       : pipe_kernel<MODE, EMIT_CODES, WITH_COUNTS, true>();
   if (smem > 48 * 1024) {
@@ -967,45 +938,48 @@ extern "C" int overlap_fill_codes(const int* tops, const int* sides,
 
 // K2 pack_bits=8 port for a batch: tie masks uint8[B, Bs+1, A+1]
 // (row-major, a pair's table after another; 0 outside each true table),
-// scores int32[B] and, with with_counts, uint32 counts[B].  bnd / cbnd
-// are [B, A+1] scratch (cbnd only with counts).
+// scores int32[B] and, with with_counts, uint32 counts[B], W = warps a
+// pair.  bnd / cbnd are [B, A+1] scratch (cbnd only with counts); top16
+// null, or int16[B, 32*ceil((A+32)/32) + 32] scratch for a top that does
+// not fit a block's shared memory beside the W warps' rings.
 extern "C" int nw_fill_masks_batch(const int* tops, const int* sides,
                                    const int* lens1, const int* lens2, int B,
                                    int A, int Bs, int m, int k, int d,
-                                   int with_counts, int* bnd, void* cbnd,
-                                   void* masks, int* scores, void* counts,
-                                   void* stream) {
+                                   int with_counts, int warps, void* top16,
+                                   int* bnd, void* cbnd, void* masks,
+                                   int* scores, void* counts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  auto t16 = static_cast<short*>(top16);
+  auto cb = static_cast<unsigned*>(cbnd);
   auto mk = static_cast<unsigned*>(masks);  // the kernel reads it as bytes
+  auto ct = static_cast<unsigned*>(counts);
   if (with_counts)
-    return launch_fill<true, kMasks>(
-        tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd,
-        static_cast<unsigned*>(cbnd), mk, scores, static_cast<unsigned*>(counts), s);
-  return launch_fill<false, kMasks>(tops, sides, lens1, lens2, B, A, Bs,
-                                           m, k, d, bnd, nullptr, mk, scores,
-                                           nullptr, s);
+    return launch_pipe<kMasks, false, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                            d, warps, t16, bnd, cb, mk, scores, ct, s);
+  return launch_pipe<kMasks, false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                           d, warps, t16, bnd, cb, mk, scores, ct, s);
 }
 
 // K2 with_runs port for a batch: run bytes min(run, 63) << 2 | code,
 // uint8[B, Bs+1, A+1] (row-major, a pair's table after another; 0
 // outside each true table), scores int32[B] and, with with_counts,
-// uint32 counts[B].  bnd / cbnd are [B, A+1] scratch (cbnd only with
-// counts).
+// uint32 counts[B], W = warps a pair.  Scratch as nw_fill_masks_batch's.
 extern "C" int nw_fill_runs_batch(const int* tops, const int* sides,
                                   const int* lens1, const int* lens2, int B,
                                   int A, int Bs, int m, int k, int d,
-                                  int with_counts, int* bnd, void* cbnd,
-                                  void* runs, int* scores, void* counts,
-                                  void* stream) {
+                                  int with_counts, int warps, void* top16,
+                                  int* bnd, void* cbnd, void* runs,
+                                  int* scores, void* counts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  auto t16 = static_cast<short*>(top16);
+  auto cb = static_cast<unsigned*>(cbnd);
   auto rb = static_cast<unsigned*>(runs);  // the kernel reads it as bytes
+  auto ct = static_cast<unsigned*>(counts);
   if (with_counts)
-    return launch_fill<true, kRuns>(
-        tops, sides, lens1, lens2, B, A, Bs, m, k, d, bnd,
-        static_cast<unsigned*>(cbnd), rb, scores, static_cast<unsigned*>(counts), s);
-  return launch_fill<false, kRuns>(tops, sides, lens1, lens2, B, A, Bs,
-                                          m, k, d, bnd, nullptr, rb, scores,
-                                          nullptr, s);
+    return launch_pipe<kRuns, false, true>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                           d, warps, t16, bnd, cb, rb, scores, ct, s);
+  return launch_pipe<kRuns, false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
+                                          d, warps, t16, bnd, cb, rb, scores, ct, s);
 }
 
 extern "C" const char* nw_error_string(int err) {

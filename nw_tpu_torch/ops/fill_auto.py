@@ -15,7 +15,7 @@ asks for counts or strings.
 
 :func:`fill_arrows_auto` is the counterpart of ``nw_tpu``'s
 ``fill_arrows_auto`` (``fill_auto.py:283``): a batch's tie masks through
-the batched ``MASKS`` fill (K2's ``pack_bits=8`` mode, one warp a pair)
+the batched ``MASKS`` fill (K2's ``pack_bits=8`` mode, W warps a pair)
 for sides up to ``LANES_ARROWS_MAX_SIDE``, else a pair at a time through
 ``nw_fill_masks`` (K10's port, every SM on one pair).
 """

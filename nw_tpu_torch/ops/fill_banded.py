@@ -13,12 +13,12 @@ each with its plain PyTorch version in this module:
   ``pack_bits=2`` / ``with_counts`` modes);
 * :func:`fill_masks_banded_batch` — the rectangular 3-bit tie masks of
   a batch, scores and optionally counts (``nw_fill_masks_batch``, the
-  ``MASKS`` mode of ``csrc/nw_fill.cu``; K2's batched ``pack_bits=8``
-  mode);
+  ``MASKS`` mode of ``csrc/nw_fill.cu``'s pipeline; K2's batched
+  ``pack_bits=8`` mode);
 * :func:`fill_runs_banded_batch` — the rectangular run bytes of a batch
   (greedy code and same-code run length a cell, for the run-skip walk),
   scores and optionally counts (``nw_fill_runs_batch``, the ``RUNS``
-  mode of ``csrc/nw_fill.cu``; K2's ``with_runs`` mode);
+  mode of ``csrc/nw_fill.cu``'s pipeline; K2's ``with_runs`` mode);
 * :func:`fill_arrows_banded_single` — one pair's rectangular 3-bit tie
   masks, optionally its per-cell scores, its score and its fused count
   (``nw_fill_masks`` in ``csrc/nw_single.cu``, the single-pair pipeline's
@@ -31,8 +31,10 @@ launches the kernel (``csrc/nw_fill.cu``, ``csrc/nw_single.cu``) or
 raises.  Each wrapper counts
 its launches in ``.launches``.
 
-``nw_scores`` and ``nw_fill_codes`` run W warps on each pair, a pipeline
-of 32-row bands in one block (``csrc/nw_fill.cu``'s header), as do
+``nw_scores``, ``nw_fill_codes``, ``nw_fill_masks_batch`` and
+``nw_fill_runs_batch`` run W warps on each pair, a pipeline of 32-row
+bands in one block (``csrc/nw_fill.cu``'s header; the byte modes add a
+byte ring a warp to the block's shared memory), as do
 ``sw_scores`` and ``overlap_scores`` (:mod:`nw_tpu_torch.ops.variants_banded`,
 through :func:`_fill_scores_kernel`) and, with cells of their own,
 ``gotoh_scores`` and ``gotoh_fill_codes`` (``csrc/nw_affine.cu``):
@@ -102,11 +104,13 @@ def _wrap_counts(counts: torch.Tensor) -> torch.Tensor:
 
 # ---------------- the pipeline's shape: W warps a pair ----------------
 
-# nw_scores, nw_fill_codes, sw_scores and overlap_scores run a block of W
-# warps on each pair (the pipeline of csrc/nw_fill.cu); these mirror its limits
+# nw_scores, nw_fill_codes, the byte fills, sw_scores and overlap_scores run
+# a block of W warps on each pair (the pipeline of csrc/nw_fill.cu); these
+# mirror its limits
 MAX_WARPS = 32  # a block of 1 024 threads
 SLOTS = 4  # the kernel's kSlots: 32-column chunk slots of a warp's ring
 MASK_RING = 32 * 64  # bytes of a warp's ring of tie masks (nw_single.cu's kTileBytes)
+BYTE_RING = 32 * 68  # bytes of a warp's byte ring in the byte fills (nw_fill.cu's kRingBytes)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on an H100
 # the warps an SM should hold: the sweep of W (scripts/fill_shapes.py
 # --sweep, chip_smoke.py phase 5; PERF.md section 6) on an H100 80GB
@@ -133,36 +137,38 @@ def top_cols(A: int) -> int:
     return 32 * ((A + 1 + 62) // 32) + 32
 
 
-def fill_smem(warps: int, A: int, cell: int, staged: bool = True, masks: bool = False) -> int:
+def fill_smem(warps: int, A: int, cell: int, staged: bool = True, masks: bool = False,
+              ring: int = 0) -> int:
     """Bytes of dynamic shared memory of one pipeline block (the kernel's
     ``pipe_smem``): the warps' chunk counters, rings and warp 0's staged
     row above (``cell`` bytes a column: 4 for a score, 8 for a score and
     a count, Gotoh's ``variants_banded.GOTOH_CELL``), when ``staged`` the
-    top string as int16, and with ``masks`` (``nw_fill_masks``) each
-    warp's ring of tie masks."""
+    top string as int16, with ``masks`` (``nw_fill_masks``) each warp's
+    ring of tie masks, and ``ring`` bytes a warp more (the byte fills'
+    ``BYTE_RING``)."""
     return (4 * warps + cell * (warps * 32 * SLOTS + 32) + (2 * top_cols(A) if staged else 0)
-            + (MASK_RING * warps if masks else 0))
+            + (MASK_RING * warps if masks else 0) + ring * warps)
 
 
-def top_in_smem(A: int, cell: int) -> bool:
+def top_in_smem(A: int, cell: int, ring: int = 0) -> bool:
     """Whether a block stages an A-column top in shared memory (it fits
-    beside one warp's ring of ``cell``-byte columns), else in device
-    memory."""
-    return fill_smem(1, A, cell) <= SMEM_LIMIT
+    beside one warp's ring of ``cell``-byte columns and its ``ring``
+    bytes), else in device memory."""
+    return fill_smem(1, A, cell, ring=ring) <= SMEM_LIMIT
 
 
-def fill_warps(B: int, A: int, Bs: int, cell: int, sms: int) -> int:
+def fill_warps(B: int, A: int, Bs: int, cell: int, sms: int, ring: int = 0) -> int:
     """W, the warps a pair of a batch of ``B`` pairs at buckets (A, Bs):
     one where the batch alone gives every one of the ``sms`` SMs
     ``WARPS_PER_SM`` warps, else enough to give each about that many,
     never more than the pair's 32-row bands, ``MAX_WARPS`` or what the
-    shared memory holds (rings of ``cell`` bytes a column, as
-    :func:`fill_smem`)."""
+    shared memory holds (rings of ``cell`` bytes a column and ``ring``
+    bytes a warp, the byte fills' ``BYTE_RING``, as :func:`fill_smem`)."""
     nbands = -(-Bs // 32)
     per_sm = max(1, -(-B // sms))  # pairs an SM takes
     warps = max(1, min(MAX_WARPS, nbands, -(-WARPS_PER_SM // per_sm)))
-    staged = top_in_smem(A, cell)
-    while warps > 1 and fill_smem(warps, A, cell, staged) > SMEM_LIMIT:
+    staged = top_in_smem(A, cell, ring)
+    while warps > 1 and fill_smem(warps, A, cell, staged, ring=ring) > SMEM_LIMIT:
         warps -= 1
     return warps
 
@@ -193,27 +199,30 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _pipe_warps(B, A, Bs, cell, device, warps):
+def _pipe_warps(B, A, Bs, cell, device, warps, ring=0):
     """The rule's W, or ``warps`` checked against the kernel's limits
-    (``cell`` as :func:`fill_smem`)."""
+    (``cell`` and ``ring`` as :func:`fill_smem`).  With a ``ring`` (the
+    byte fills) a top that does not fit beside W warps' rings goes to
+    device memory (:func:`_top_scratch`), so only the rings must fit."""
     if warps is None:
-        warps = fill_warps(B, A, Bs, cell, _sms(device))
+        warps = fill_warps(B, A, Bs, cell, _sms(device), ring)
     if not 1 <= warps <= MAX_WARPS:
         raise ValueError(f"warps must lie in [1, {MAX_WARPS}], not {warps}")
-    if fill_smem(warps, A, cell, top_in_smem(A, cell)) > SMEM_LIMIT:
+    if fill_smem(warps, A, cell, not ring and top_in_smem(A, cell), ring=ring) > SMEM_LIMIT:
         raise ValueError(
             f"a {A}-column top string does not fit a block's shared memory at {warps} warps"
         )
     return warps
 
 
-def _top_scratch(B, A, cell, device, warps=1, masks=False):
+def _top_scratch(B, A, cell, device, warps=1, masks=False, ring=0):
     """The int16 rows a pipeline launch stages its tops in (a row a pair;
     the single-pair pipeline's, a row a block), when they do not fit
     shared memory beside ``warps`` warps' rings (the batched pipeline's
     ``warps`` 1: :func:`top_in_smem`; with ``masks``, their rings of tie
-    masks too), else None: the kernel's argument is null."""
-    if fill_smem(warps, A, cell, masks=masks) <= SMEM_LIMIT:
+    masks too; with ``ring``, those bytes a warp), else None: the
+    kernel's argument is null."""
+    if fill_smem(warps, A, cell, masks=masks, ring=ring) <= SMEM_LIMIT:
         return None
     return torch.empty((B, top_cols(A)), dtype=torch.int16, device=device)
 
@@ -359,23 +368,30 @@ def fill_greedy_counts_banded_batch_plain(
 # ---------------- K2 pack_bits=8 and with_runs, a batch: a byte a cell ----------------
 
 
-def _fill_bytes_kernel(wrapper, entry, tops, sides, lens1, lens2, m, k, d, with_counts):
-    """Launch ``entry`` (``nw_fill_masks_batch`` or ``nw_fill_runs_batch``)
-    for ``wrapper`` (whose count it raises): (table uint8[B, Bs+1, A+1],
-    scores int32[B], counts int64[B] or None)."""
+def _fill_bytes_kernel(wrapper, entry, tops, sides, lens1, lens2, m, k, d, with_counts,
+                       warps=None):
+    """Launch ``entry`` (``nw_fill_masks_batch`` or ``nw_fill_runs_batch``,
+    the pipeline's byte modes) for ``wrapper`` (whose count it raises) at
+    ``warps`` warps a pair (default: :func:`fill_warps` with a
+    ``BYTE_RING`` a warp): (table uint8[B, Bs+1, A+1], scores int32[B],
+    counts int64[B] or None)."""
     B, A, Bs = _dims(tops, sides)
     dev = tops.device
     table = torch.empty((B, Bs + 1, A + 1), dtype=torch.uint8, device=dev)
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev) if with_counts else None
     if B:
+        cell = 8 if with_counts else 4  # a score, and a count
+        warps = _pipe_warps(B, A, Bs, cell, dev, warps, ring=BYTE_RING)
         tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        top16 = _top_scratch(B, A, cell, dev, warps, ring=BYTE_RING)
         bnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev)
         cbnd = torch.empty((B, A + 1), dtype=torch.int32, device=dev) if with_counts else None
         kernels.launch(
             entry, dev,
             tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
-            B, A, Bs, m, k, d, int(with_counts), bnd.data_ptr(),
+            B, A, Bs, m, k, d, int(with_counts), warps,
+            None if top16 is None else top16.data_ptr(), bnd.data_ptr(),
             cbnd.data_ptr() if with_counts else None, table.data_ptr(), scores.data_ptr(),
             counts.data_ptr() if with_counts else None,
         )
@@ -384,7 +400,7 @@ def _fill_bytes_kernel(wrapper, entry, tops, sides, lens1, lens2, m, k, d, with_
 
 
 def fill_masks_banded_batch(
-    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False
+    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False, warps: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(masks uint8[B, Bs+1, A+1], scores int32[B], counts int64[B] or
     None): the 3-bit tie masks of every cell of a batch, row-major, 0
@@ -394,14 +410,17 @@ def fill_masks_banded_batch(
     ``fill_arrows_banded_batch`` (``ops/fill_pallas_banded.py:655``) and
     ``fill_arrows_banded_single`` (``:810``, one band over the whole
     table; not this module's one-pair :func:`fill_arrows_banded_single`),
-    with ``with_counts``.  ``nw_fill_masks_batch`` (one warp a pair) on
-    CUDA tensors, :func:`fill_masks_banded_batch_plain` on CPU tensors.
+    with ``with_counts``.  ``nw_fill_masks_batch`` (the pipeline's
+    ``MASKS`` mode, ``warps`` warps a pair, default :func:`fill_warps`
+    with the byte rings counted) on CUDA tensors,
+    :func:`fill_masks_banded_batch_plain` on CPU tensors.
     """
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return fill_masks_banded_batch_plain(tops, sides, lens1, lens2, m, k, d, with_counts)
     return _fill_bytes_kernel(
-        fill_masks_banded_batch, "nw_fill_masks_batch", tops, sides, lens1, lens2, m, k, d, with_counts
+        fill_masks_banded_batch, "nw_fill_masks_batch", tops, sides, lens1, lens2, m, k, d,
+        with_counts, warps,
     )
 
 
@@ -422,7 +441,7 @@ def fill_masks_banded_batch_plain(
 
 
 def fill_runs_banded_batch(
-    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False
+    tops, sides, lens1, lens2, m, k, d, with_counts: bool = False, warps: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(runs uint8[B, Bs+1, A+1], scores int32[B], counts int64[B] or
     None): the run byte of every cell of a batch, row-major, 0 outside
@@ -432,14 +451,16 @@ def fill_runs_banded_batch(
     ``_make_banded_arrows_kernel``, ``ops/fill_pallas_banded.py:342``,
     launched through ``build_arrows_call`` at ``:969`` by the ``runs``
     walk engine), which has no counts; here they ride along.
-    ``nw_fill_runs_batch`` (one warp a pair) on CUDA tensors,
+    ``nw_fill_runs_batch`` (the pipeline's ``RUNS`` mode, ``warps`` warps
+    a pair as :func:`fill_masks_banded_batch`) on CUDA tensors,
     :func:`fill_runs_banded_batch_plain` on CPU tensors.
     """
     _check(tops, sides, lens1, lens2, m, k, d)
     if tops.device.type == "cpu":
         return fill_runs_banded_batch_plain(tops, sides, lens1, lens2, m, k, d, with_counts)
     return _fill_bytes_kernel(
-        fill_runs_banded_batch, "nw_fill_runs_batch", tops, sides, lens1, lens2, m, k, d, with_counts
+        fill_runs_banded_batch, "nw_fill_runs_batch", tops, sides, lens1, lens2, m, k, d,
+        with_counts, warps,
     )
 
 

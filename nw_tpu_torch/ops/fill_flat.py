@@ -15,7 +15,7 @@ On the TPU these are the flat batch-in-lanes kernels, which keep a
   ``count_packed_pallas_batch``) -> :func:`count_flat_batch`.
 
 On the H100 the batched kernels of ``csrc/nw_fill.cu`` (32-row bands, a
-block of W warps or one warp a pair, any side length) and
+block of W warps a pair, any side length) and
 ``csrc/nw_count.cu`` compute the same functions, so each TPU kernel here
 is served by a hand-written kernel of the port that stands in for several
 (ROADMAP's rule):

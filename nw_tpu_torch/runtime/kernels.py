@@ -43,10 +43,10 @@ SIGNATURES = {
     "nw_walk": [P, P, P, I, I, I, I, P, P, P],
     "nw_score_count": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nw_fill_masks": [P, P, I, I, I, I, I, I, I, P, P, P, P, I, P, P, P, P],
-    "nw_fill_masks_batch": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
+    "nw_fill_masks_batch": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
     "nw_count_masks": [P, P, P, I, I, I, I, P, P, P],
     "nw_walk_masks": [P, P, P, I, I, I, I, P, P, P],
-    "nw_fill_runs_batch": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
+    "nw_fill_runs_batch": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
     "nw_walk_runs": [P, P, P, I, I, I, I, P, P, P],
     "nw_last_row": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nw_fill_codes_single": [P, P, I, I, I, P, I, I, I, I, I, P, P, P, P, P, P],

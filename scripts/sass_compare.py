@@ -8,8 +8,8 @@ Each source is compiled with the package's own nvcc flags
 (``nw_tpu_torch/runtime/kernels.py``), from its own directory (for its
 includes), and disassembled with ``cuobjdump -sass``.  Kernels are
 matched by mangled name, with a template argument written as a bool or
-as an int of the same value counted as one (``nw_fill_kernel<true,
-false, false>`` is ``nw_fill_kernel<1, 0, 0>``), the file's hash in
+as an int of the same value counted as one (``nw_fill_pipe_kernel<true,
+false, false>`` is ``nw_fill_pipe_kernel<1, 0, 0>``), the file's hash in
 the anonymous namespace's name left out and, for a template, its
 parameter types left out (a kernel given a new last parameter, which
 its old instantiations do not read, keeps its key; where two kernels of

@@ -1,6 +1,6 @@
 """CUDA kernels of nw_tpu_torch vs their plain PyTorch versions:
-the batched Needleman-Wunsch fills (the W-warp pipeline, the tie-mask
-batch kernel, the count, the flat API) and their routes
+the batched Needleman-Wunsch fills (the W-warp pipeline, its tie-mask
+mode, the count, the flat API) and their routes
 through ``align_batch`` and the CLI.
 
 These need an NVIDIA card (sm_90a) and nvcc; without one they skip.  On
@@ -20,6 +20,7 @@ from nw_tpu_torch.ops import fill_banded, fill_single, traceback
 
 from torch_kernel_cases import (  # noqa: F401 (cuda is a fixture)
     SCORINGS, EDGE, cuda, _pairs, _inputs, PIPE_WARPS, _pipe_batches, _pipe_fill, _pipe_plain,
+    BYTE_WARPS, _byte_batches, _byte_fill, _byte_plain, _bytes_with_the_top_in_device_memory,
 )
 
 pytestmark = pytest.mark.cuda
@@ -235,6 +236,25 @@ def test_batched_masks_count_and_walk_kernels_vs_plain(cuda, mkd, with_counts):
     for g, w in zip(traceback.walk_masks_batch(got[0], *dev[2:], S),
                     traceback.walk_masks_batch_plain(want[0], *cpu[2:], S)):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_masks_pipeline_at_forced_warps_vs_plain(cuda, mkd, with_counts):
+    """nw_fill_masks_batch (the pipeline's MASKS mode) at W = 1, 2, 3, 7,
+    16, 31, 32 warps a pair and the rule's, bit for bit against the plain
+    version: an odd B, B = 1, 5 and 35 bands, 22 bands of diagonals."""
+    for cpu, dev in _byte_batches(sum(mkd) + 40, cuda):
+        want = _byte_plain("masks", cpu, mkd, with_counts)
+        for warps in BYTE_WARPS:
+            got = _byte_fill("masks", dev, mkd, with_counts, warps)
+            assert len(got) == len(want) == 2 + with_counts
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0, msg=f"W = {warps}")
+
+
+def test_masks_pipeline_with_the_top_in_device_memory(cuda):
+    _bytes_with_the_top_in_device_memory("masks", cuda)
 
 
 @pytest.mark.parametrize("strings,count", [(False, True), (True, True)])

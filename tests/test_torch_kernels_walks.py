@@ -20,7 +20,8 @@ from nw_tpu_torch.ops import fill_banded, fill_single, traceback
 from torch_kernel_cases import (  # noqa: F401 (cuda is a fixture)
     SCORINGS, EDGE, MASK_STRIDES, MASK_WALK_EDGE_SHAPES, WALK_EDGE_SHAPES, cuda, _pairs, _single_pairs,
     _pair_tensors, _lens, mask_edge_pairs, _mask_window_chain, random_masks, _walk_chain,
-    walk_edge_pairs, _window_chain,
+    walk_edge_pairs, _window_chain, BYTE_WARPS, _byte_batches, _byte_fill, _byte_plain,
+    _bytes_with_the_top_in_device_memory,
 )
 
 pytestmark = pytest.mark.cuda
@@ -263,6 +264,31 @@ def test_runs_fill_and_walk_kernels_vs_plain(cuda, mkd, with_counts):
     codes = fill_banded.fill_greedy_counts_banded_batch(*dev, *mkd)[0]
     for g, w in zip((ops, n), traceback.walk_codes_batch(codes, *dev[2:], S)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_runs_pipeline_at_forced_warps_vs_plain(cuda, mkd, with_counts):
+    """nw_fill_runs_batch (the pipeline's RUNS mode) at W = 1, 2, 3, 7,
+    16, 31, 32 warps a pair and the rule's, bit for bit against the plain
+    version (an odd B, B = 1, 5 and 35 bands, diagonals past the cap
+    across bands); the rule's run bytes walked by nw_walk_runs as the
+    plain walk does."""
+    for cpu, dev in _byte_batches(sum(mkd) + 50, cuda):
+        want = _byte_plain("runs", cpu, mkd, with_counts)
+        for warps in BYTE_WARPS:
+            got = _byte_fill("runs", dev, mkd, with_counts, warps)
+            assert len(got) == len(want) == 2 + with_counts
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0, msg=f"W = {warps}")
+        S = cpu[0].shape[1] + cpu[1].shape[1]
+        for g, w in zip(traceback.walk_runs_batch(got[0], *dev[2:], S),
+                        traceback.walk_runs_batch_plain(want[0], *cpu[2:], S)):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+def test_runs_pipeline_with_the_top_in_device_memory(cuda):
+    _bytes_with_the_top_in_device_memory("runs", cuda)
 
 
 @pytest.mark.parametrize("strings,count", [(True, True), (True, False)])

@@ -79,6 +79,66 @@ def _pipe_plain(mode, T, mkd):
     return tuple(x for x in out if x is not None)
 
 
+# the pipeline's byte modes (nw_fill_masks_batch, nw_fill_runs_batch) at
+# forced warps a pair and at the rule's (None)
+BYTE_WARPS = [1, 2, 3, 7, 16, 31, 32, None]
+
+
+def _byte_batches(seed, device):
+    """The byte fills' batches: _pipe_batches' two (23 pairs, an odd B,
+    at 5 bands; 35 bands, two rounds of 32 warps), a lone pair (B = 1) of
+    97 rows, and diagonals past the 63 cap across 32-row bands beside a
+    left run past it."""
+    base = _pairs(seed + 50, 1, 700, 701)[0][0]
+    lone = [(_pairs(seed + 4, 1, 60, 300)[0][0], _pairs(seed + 5, 1, 97, 98)[0][1])]
+    runs = [(base, base), (base[:64], base[:64]), (base, base[:300]), (base[:400], base),
+            (b"T" + b"A" * 200, b"T")]
+    out = _pipe_batches(seed, device)
+    for ps, A, Bs in ((lone, 300, 97), (runs, 704, 700)):
+        arrays = enc.encode_batch(ps, A, Bs)
+        out.append((enc.upload(arrays, "cpu"), enc.upload(arrays, device)))
+    return out
+
+
+def _byte_fill(kind, T, mkd, with_counts, warps):
+    """``nw_fill_{kind}_batch`` (kind ``masks`` or ``runs``) at ``warps``
+    warps a pair (None: the rule's): the table, scores and, with counts,
+    counts."""
+    wrapper = getattr(fill_banded, f"fill_{kind}_banded_batch")
+    out = fill_banded._fill_bytes_kernel(wrapper, f"nw_fill_{kind}_batch", *T, *mkd, with_counts, warps)
+    return tuple(x for x in out if x is not None)
+
+
+def _byte_plain(kind, T, mkd, with_counts):
+    out = getattr(fill_banded, f"fill_{kind}_banded_batch_plain")(*T, *mkd, with_counts=with_counts)
+    return tuple(x for x in out if x is not None)
+
+
+def _bytes_with_the_top_in_device_memory(kind, device):
+    """An 80 000-column top fits beside 3 warps' rings but not beside
+    32's, so W = 32 stages it in device memory and W = 1, 3 in shared
+    memory: every W against the plain version under 2 1 1 (with counts),
+    and against W = 3 under a wrapping scoring (without)."""
+    rng = np.random.default_rng(41)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    ps = [(letters[rng.integers(0, 4, a)].tobytes(), letters[rng.integers(0, 4, s)].tobytes())
+          for a, s in ((80_000, 40), (79_990, 33), (50_000, 7))]
+    arrays = enc.encode_batch(ps, 80_000, 40)
+    cpu, dev = enc.upload(arrays, "cpu"), enc.upload(arrays, device)
+    assert fill_banded._top_scratch(3, 80_000, 8, device, 32, ring=fill_banded.BYTE_RING) is not None
+    assert fill_banded._top_scratch(3, 80_000, 8, device, 3, ring=fill_banded.BYTE_RING) is None
+    want = _byte_plain(kind, cpu, (2, 1, 1), True)
+    for warps in (1, 3, 32):
+        got = _byte_fill(kind, dev, (2, 1, 1), True, warps)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0, msg=f"W = {warps}")
+    mkd = (1, 1, 2**30)
+    ref = _byte_fill(kind, dev, mkd, False, 3)
+    got = _byte_fill(kind, dev, mkd, False, 32)
+    for g, w in zip(got, ref):
+        assert torch.equal(g, w)
+
+
 def _single_pairs(seed):
     # several bands (32 rows each) and chunks, ties, edges, a wrapping count
     return (
