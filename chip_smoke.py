@@ -248,7 +248,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``nw_walk_runs`` bit for bit against their plain
    versions under every scoring, on phase 3's pairs and identical 700 bp
    pairs (diagonal runs past the 63 cap and across bands), the run walk's
-   ops also against ``nw_walk``'s; then, with every launch counter set to
+   ops also against ``nw_walk``'s, and ``nw_walk_runs`` at the run walk's
+   edge shapes (``RUNS_WALK_EDGE_SHAPES``: B = 1, an odd B, 5 000 short
+   pairs, cuts after 1, 77 and 300 ops, rows of ``RUNS_WIDTHS`` bytes);
+   then, with every launch counter set to
    0, (b) ``align_batch`` of config 3 (256 x 10 240 bp, strings and
    counts, two sub-batches of run bytes) and of 128 x 3 072 bp under
    ``NW_TPU_WALK_ENGINE=runs``: scores, counts, ops and strings equal the
@@ -258,7 +261,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    config 3 (two launches) beside ``nw_fill_codes`` (one launch, and both
    at 128 x 10 240 bp in turns, with the masks fill; each with its W),
    the run walk beside ``nw_walk`` with its
-   dependent loads a pair against ``nw_walk``'s steps, both kernels
+   dependent loads a pair against ``nw_walk``'s steps, ns a run and the
+   span floor of each launch, the runs engine's config-3 wall split into
+   its fill and its walk by CUDA events, both kernels
    against their plain versions on the first config-3 pair; (c) with the
    serving wrappers' counters from 0, ``ops/fill_flat.py`` at K26's shape
    (10 240 x 150 bp scores and counts), K27's (masks with and without
@@ -1245,6 +1250,50 @@ def mask_edge_pairs(shape=None):
     return walk_edge_pairs(shape)
 
 
+# the shapes the run walk's staging (nw_walk_runs: walk_masks_staged's
+# runs mode, a run a load) must get right: LEFT runs past the 63 cap and
+# past the table's 64 and the slot's 128 columns, at the corner and
+# mid-path; UP runs across bands; pure diagonals across many 32-row bands
+# (32-cell runs from row 31 to row 0 of each); alternating indels (a run
+# a load); walks onto row 0 and column 0 and starts there; the edge
+# pairs; and rows of A+1 bytes around multiples of 16 and of the 128-byte
+# piece (each such pair alone in a bucket of its width)
+RUNS_WALK_EDGE_SHAPES = ("left_runs", "up_runs", "diagonals", "alternating", "boundary", "widths", "edge")
+RUNS_WIDTHS = (63, 64, 65, 127, 128, 129, 143, 144, 145, 255, 256, 257)
+
+
+def runs_edge_pairs(shape=None):
+    """The pairs of one of ``RUNS_WALK_EDGE_SHAPES``, or (None) of them
+    all (the module's note on the shapes)."""
+    if shape is None:
+        return [p for sh in RUNS_WALK_EDGE_SHAPES for p in runs_edge_pairs(sh)]
+    rng = np.random.default_rng(22)
+
+    def one(n, alphabet="ACGT"):
+        return "".join(rng.choice(list(alphabet), n)).encode()
+
+    head, tail = one(90), one(110)
+    if shape == "left_runs":  # at the corner, and a gap of 70 / 140 / 300 columns mid-path
+        return [(one(700), one(3)), (b"A" * 700, b"A" * 3), (one(520), one(1))] + [
+            (head + one(g) + tail, head + tail) for g in (70, 140, 300)]
+    if shape == "up_runs":
+        return [(one(3), one(700)), (b"C" * 3, b"C" * 700)] + [(head + tail, head + one(g) + tail) for g in (70, 300)]
+    if shape == "diagonals":  # 22 bands; the cap + 1; a diagonal entering mid-band and mid-row
+        base = one(700)
+        return [(base, base), (base[:64], base[:64]), (one(45) + base[:400], base[:400]),
+                (base[:300], one(17) + base[:300]), (b"G" * 500, b"G" * 500)]
+    if shape == "alternating":  # a run a load: one-cell diagonals between one-cell gaps
+        return [(b"AT" * 150, b"A" * 150), (b"A" * 150, b"AT" * 150), (b"AC" * 200, b"CA" * 180),
+                (one(400, "AC"), one(380, "AC"))]
+    if shape == "boundary":  # onto row 0 / column 0, and starts on them
+        return [(one(100), one(5)), (one(5), one(100)), (one(64), b""), (b"", one(64)), (one(200), b"G"),
+                (b"G", one(200))]
+    if shape == "widths":
+        return [(one(w - 1), one(70)) for w in RUNS_WIDTHS]
+    assert shape == "edge"
+    return list(EDGE)
+
+
 def random_masks(rng, B, N, M):
     """uint8[B, N, M] of random bytes 0-255 but row 0 LEFT (2), column 0 UP
     (4) and the origin 0, as the fills write those: every bit pattern a
@@ -1292,6 +1341,39 @@ def mask_walk_edges_vs_plain(dev, errs):
         f"bytes of widths 113 .. 128: max |diff| {e}")
     if e:
         fail(f"nw_walk_masks differs from its plain version at the masks edge shapes: {e}")
+
+
+def runs_walk_edges_vs_plain(dev, errs):
+    """Phase 14 (a): ``nw_walk_runs`` against its plain version under every
+    scoring: the run walk's edge shapes in one batch, the first alone (B =
+    1), an odd batch of 7, cut after 1, 77 and 300 ops, each of
+    ``RUNS_WIDTHS`` alone in a bucket of its width and all of them in one
+    (every 16-byte offset of a row piece), and 5 000 short pairs (more
+    warps than 132 SMs hold at once)."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+
+    pairs = runs_edge_pairs()
+    L1, L2 = max(len(a) for a, _ in pairs), max(len(b) for _, b in pairs)
+    T = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    wide = runs_edge_pairs("widths")
+    Ts = enc.upload(enc.encode_batch(rand_pairs(np.random.default_rng(5001), 5000, 0, 60), 60, 60), dev)
+    runs = [(T, L1 + L2), (tuple(x[:1] for x in T), L1 + L2), (tuple(x[:7] for x in T), L1 + L2), (Ts, 120),
+            (T, 1), (T, 77), (T, 300), (enc.upload(enc.encode_batch(wide, 256, 70), dev), 326)]
+    runs += [(enc.upload(enc.encode_batch([p], len(p[0]), 70), dev), len(p[0]) + 70) for p in wide]
+    e = 0
+    for mkd in SCORINGS:
+        for TT, S in runs:
+            table = fb.fill_runs_banded_batch(*TT, *mkd)[0]
+            want = tb.walk_runs_batch_plain(table, *TT[2:], S)
+            e = max(e, *(max_abs_err(g, w) for g, w in zip(tb.walk_runs_batch(table, *TT[2:], S), want)))
+    errs["nw_walk_runs"] = max(errs["nw_walk_runs"], e)
+    log(f"phase 14 (a) nw_walk_runs vs plain at the run walk's edge shapes ({len(pairs)} pairs, B = 1, B = 7, "
+        f"cuts after 1, 77, 300 ops, widths A + 1 = {RUNS_WIDTHS} alone and together, 5 000 x 0-60 bp) x "
+        f"{len(SCORINGS)} scorings: max |diff| {e}")
+    if e:
+        fail(f"nw_walk_runs differs from its plain version at the run walk's edge shapes: {e}")
 
 
 def mask_window_edges_vs_plain(dev, errs, name="nw_walk_window/masks"):
@@ -3472,11 +3554,14 @@ def masks_phase(card, bound):
         walk_ms = cuda_ms(lambda: tb.walk_masks_batch(masks, *T[2:], 2 * L_ARROWS), 3)
         steps = int(o["n"].sum())
         Wm = byte_rule(T, False)
+        counts_bound = bound(cells * (OPS_SCORE + OPS_COUNT + OPS_CODE),
+                             tensor_bytes(*T, masks, o["scores"]) + 8 * len(o["pairs"]))
         rec["nw_fill_masks_batch"] = dict(
             ms=fill_ms, plain_ms=o["plain_fill_ms"],
             **bound(cells * (OPS_SCORE + OPS_CODE), tensor_bytes(*T, masks, o["scores"])),
             shape=f"128x{L_ARROWS}bp masks, {Wm} warps a pair (with counts {fill_c_ms:.3f} ms at W = "
-                  f"{byte_rule(T, True)}; plain_ms with counts)", warps=Wm, counts_ms=fill_c_ms)
+                  f"{byte_rule(T, True)}, bound {counts_bound['bound_ms']:.4f} ms ({counts_bound['bound_by']}); "
+                  f"plain_ms with counts)", warps=Wm, counts_ms=fill_c_ms, counts_bound_ms=counts_bound["bound_ms"])
         W, turns = count_turns[f"128x{L_ARROWS}bp"]
         W4, turns4 = count_turns[f"4x{L_LONG}bp"]
         rec["nw_count_masks"] = dict(
@@ -3575,7 +3660,8 @@ def runs_kernels_vs_plain(dev, small, errs):
     nw_walk_runs against their plain versions under every scoring, on
     phase 3's pairs and identical 700 bp pairs (diagonal runs past the 63
     cap and across 22 bands); the run walk's ops also against nw_walk's
-    over nw_fill_codes's codes."""
+    over nw_fill_codes's codes; nw_walk_runs at the run walk's edge
+    shapes (``runs_walk_edges_vs_plain``)."""
     from nw_tpu_torch import AlignConfig
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import fill_banded as fb
@@ -3603,6 +3689,7 @@ def runs_kernels_vs_plain(dev, small, errs):
             f"fill {e_fill} (at the rule's W {byte_rule(T, False)} and W = {BYTE_WARPS}), walk {e_walk}, "
             f"walk vs nw_walk's ops {e_codes}")
         del want, got, codes
+    runs_walk_edges_vs_plain(dev, errs)
     if any(errs.values()):
         fail(f"a runs kernel differs from its plain version: {errs}")
 
@@ -3749,14 +3836,22 @@ def flat_path(card, bound, c2):
     o = masks_out[1024, L_FLAT]
     cells7 = 1024 * L_FLAT * L_FLAT
     W27 = byte_rule(o["T"], True)
+    o128 = masks_out[128, L_ARROWS]
+    only_ms = cuda_ms(lambda: ff.fill_arrows_flat_batch(*o["T"], 2, 1, 1), 5)
+    ms_128 = cuda_ms(lambda: ff.fill_arrows_flat_batch(*o128["T"], 2, 1, 1, with_counts=True), 2)
+    only_bound = bound(cells7 * (OPS_SCORE + OPS_CODE), tensor_bytes(*o["T"], o["masks"], o["sc"]))
+    bound_128 = bound(128 * L_ARROWS * L_ARROWS * (OPS_SCORE + OPS_COUNT + OPS_CODE),
+                      tensor_bytes(*o128["T"], o128["masks"], o128["sc"], o128["ct"]))
     rec["nw_fill_masks_batch/flat"] = dict(
         warps=W27,
         ms=cuda_ms(lambda: ff.fill_arrows_flat_batch(*o["T"], 2, 1, 1, with_counts=True), 5), plain_ms=o["plain_ms"],
         launches=launches["fill_arrows_flat_batch"], max_abs_err=max(x["e27"] for x in masks_out.values()),
         **bound(cells7 * (OPS_SCORE + OPS_COUNT + OPS_CODE), tensor_bytes(*o["T"], o["masks"], o["sc"], o["ct"])),
-        shape=f"1024x{L_FLAT}bp masks+counts, {W27} warps a pair (K27's function; masks only "
-              f"{cuda_ms(lambda: ff.fill_arrows_flat_batch(*o['T'], 2, 1, 1), 5):.3f} ms; at 128x{L_ARROWS}bp "
-              f"masks+counts {cuda_ms(lambda: ff.fill_arrows_flat_batch(*masks_out[128, L_ARROWS]['T'], 2, 1, 1, with_counts=True), 2):.3f} ms)")
+        masks_only_ms=only_ms, masks_only_bound_ms=only_bound["bound_ms"], ms_128=ms_128,
+        bound_ms_128=bound_128["bound_ms"],
+        shape=f"1024x{L_FLAT}bp masks+counts, {W27} warps a pair (K27's function; masks only {only_ms:.3f} ms, "
+              f"bound {only_bound['bound_ms']:.4f} ms ({only_bound['bound_by']}); at 128x{L_ARROWS}bp masks+counts "
+              f"{ms_128:.3f} ms, bound {bound_128['bound_ms']:.4f} ms ({bound_128['bound_by']}))")
     rec["nw_count_masks/flat"] = dict(
         ms=cuda_ms(lambda: ff.count_flat_batch(o["masks"], *o["T"][2:]), 5), plain_ms=o["count_plain_ms"],
         launches=launches["count_flat_batch"], max_abs_err=max(x["e6"] for x in masks_out.values()),
@@ -3790,6 +3885,7 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
     run-skip walk) and the flat-fill API (K7, K26, K27, K6).  Returns the
     record fields of the new kernels and of the flat API's shapes."""
     from nw_tpu_torch.models import needleman_wunsch as nwm
+    from nw_tpu_torch.ops import banded_traceback as bt
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import traceback as tb
@@ -3841,8 +3937,17 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
         runs_parts.append(tensor_bytes(runs, sc, ct))
         del runs, sc, ct
         torch.cuda.empty_cache()
+    loads_max = [int(x.max()) for x in loads]
     loads = torch.cat(loads)
     n_loads = int(loads.sum())
+    ns_per_run = [ms * 1e6 / lm for ms, lm in zip(walk_ms, loads_max)]  # a launch's longest walk
+    spans = [bound.span(lm) for lm in loads_max]
+    # the runs engine's config-3 wall, its fill and its walk inside it (CUDA events)
+    with walk_engine("runs"):
+        split = route_split(lambda: aligner.align_batch(c3, traceback_strings=True, count=True).alignment_strings(),
+                            {"fill": (bt, "fill_runs_banded_batch"), "walk": (bt, "walk_runs_batch")})
+    log(f"phase 14 (d) the runs engine's config-3 wall {split['wall']:.2f} ms: fill {split['fill']:.3f} ms, walk "
+        f"{split['walk']:.3f} ms (CUDA events around each launch, medians of 3 warm runs) [{card}]")
     # 128 x 10 kb: one launch of each fill on the same inputs, in turns
     h = tuple(t[:128] for t in T3)
     fills = {
@@ -3888,11 +3993,16 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
         "nw_walk_runs": dict(
             ms=sum(walk_ms), plain_ms=plain_walk_ms,
             **bound(n_loads * OPS_WALK_STEP, tensor_bytes(*T3[2:]) + 4 * nb + n_loads + steps),
-            span_floor_ms=bound.span(int(loads.max())),
-            shape=f"{nb}x{LB}bp in {len(parts)} launches ({' + '.join(f'{x:.3f}' for x in walk_ms)} ms), "
+            span_floor_ms=sum(spans), span_floor_ms_launches=spans, launch_ms=walk_ms, ns_per_run=ns_per_run,
+            engine_wall_ms=split["wall"], engine_fill_ms=split["fill"], engine_walk_ms=split["walk"],
+            kernel="nw_walk_runs_staged_kernel (walk_masks_staged<kRuns>)",
+            shape=f"{nb}x{LB}bp in {len(parts)} launches ({' + '.join(f'{x:.3f}' for x in walk_ms)} ms; "
+                  f"{' / '.join(f'{x:.1f}' for x in ns_per_run)} ns a run of each launch's longest walk, span "
+                  f"floors {' + '.join(f'{x:.4f}' for x in spans)} ms), "
                   f"{n_loads} loads for {steps} steps ({n_loads / nb:.1f} a pair, max {int(loads.max())}, "
                   f"against nw_walk's {steps / nb:.1f} steps a pair; nw_walk {walk_codes_ms:.3f} ms at {nb}x{LB}bp; "
-                  f"plain_ms at 1x{LB}bp)"),
+                  f"in the runs engine's config-3 wall of {split['wall']:.1f} ms the walk took {split['walk']:.3f} "
+                  f"ms and the fill {split['fill']:.3f} ms; plain_ms at 1x{LB}bp)"),
     }
     for name, fields in rec.items():
         fields.update(launches=launches[name], max_abs_err=errs[name])

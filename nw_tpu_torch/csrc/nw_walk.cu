@@ -99,19 +99,40 @@
 // walk.  A table whose column 0 is not UP (no fill writes one) stops the
 // walk where it leaves column 0.
 //
-// nw_walk_runs is nw_walk_kernel in its one mode: the run-skip
-// walk over the run bytes min(run, 63) << 2 | code of nw_fill.cu's RUNS
-// mode (nw_fill_runs_batch), the counterpart of
-// nw_tpu/ops/banded_traceback.py:187 _make_runs_walk_loop.  Each
+// nw_walk_runs is the run-skip walk over the run bytes min(run, 63) << 2
+// | code of nw_fill.cu's RUNS mode (nw_fill_runs_batch), the counterpart
+// of nw_tpu/ops/banded_traceback.py:187 _make_runs_walk_loop.  Each
 // dependent load consumes a whole run: diag K moves to (j-K, i-K), left
 // K to (j, i-K), up to (j-1, i); row 0 steps LEFT and column 0 UP to the
-// origin with no load.  The thread writes the expanded op string
-// straight into its row of ops, so the walk needs no record buffer: the
-// TPU engine's record cap (_runs_record_cap, RunsRecordOverflow and its
-// fallback to the per-cell engine) was a limit of its traced loop and
-// has no counterpart.  Bound by the chain of dependent loads, one a run
-// instead of one a step, each to another row of the table on a diagonal
-// run; one thread stores the ops a byte at a time.
+// origin with no load.  The walk writes the expanded op string straight
+// into its row of ops, so it needs no record buffer: the TPU engine's
+// record cap (_runs_record_cap, RunsRecordOverflow and its fallback to
+// the per-cell engine) was a limit of its traced loop and has no
+// counterpart.  The run table has the tie masks' layout, so its design is
+// walk_masks_staged's in a runs mode: a warp a walk, kRunsWarps walks a
+// block, each band's row pieces staged one band ahead by 16-byte cp.async
+// as for the masks.  What is new is the step.  A run's jump (K rows and
+// columns, K columns, a row) no longer fits a byte.  Each lane expands
+// its row into a table of the run bytes themselves, and the walk decodes
+// each on its chain: a load, the code's multiplier picked by a byte
+// permute, and one multiply-add of the run into the address (run_step).
+// A table of 16-bit cells, each its run's whole jump (a load and a
+// subtract on the chain), was measured and dropped: on an H100 its longer
+// expansion and its decode of the ops off the chain cost more than the
+// two operations it saved on it (scripts/walk_profile.py --runs: 106
+// cycles a run walking and 87 expanding against 69 and 46, 0.72 ms a
+// launch at config 3 against 0.49; PERF.md).  A byte whose run lands outside the table (a LEFT run of up
+// to 63 columns, a DIAG run of up to 32, against a table of
+// kRunsTableCols) is expanded as 0, the sentinel of every table here, so
+// the walk expands the table again at its cell, and copies the band's
+// slot again at its column where the slot cut the table.  No fill
+// writes a 0 byte in the true table (a DIAG run is >= 1, LEFT >= 1, UP
+// and column 0 are the byte 2; nw_fill.cu zeroes only the cells outside
+// it).  The expansion works on four bytes at a time with no branch
+// (run_word; a branch a byte, divergent across the lanes, took 4.5-7x
+// its cycles).
+// Each run's K ops go from the warp's lanes straight to device memory,
+// up to 32 bytes a store, the next run's load issued first.
 //
 // nw_walk_window is the same walk over ONE block of rows (j0, j0+rows]
 // of one pair, re-filled from a checkpoint row by nw_fill_codes_single:
@@ -175,64 +196,10 @@ constexpr int kOpLeft = 1;
 constexpr int kOpUp = 2;
 constexpr int kCodeStop = 3;
 
-// the byte table nw_walk_kernel walks, its template argument (the
-// band-major 2-bit codes go through walk_staged, the tie masks through
-// walk_masks_staged)
-constexpr int kWalkRuns = 2;  // row-major run bytes (nw_fill_runs_batch)
-
-// The run-skip walk from (i, j) to the origin over run bytes of rows
-// 1 .. (row r at base + r * stride), writing ops from out[n]; stops after
-// S ops.  A run's cells all carry its code, so a jump never leaves the
-// table: a diag run stops above row 1 (bands restart it) and column 1, a
-// left run at column 1 (column 0 is UP).
-__device__ __forceinline__ void walk_runs(const unsigned char* __restrict__ base,
-                                          int stride, int S, int& i, int& j,
-                                          int& n, signed char* __restrict__ out) {
-  while ((i > 0 || j > 0) && n < S) {
-    int a = kOpLeft, K = i;  // row 0: LEFT to the origin
-    if (j > 0 && i == 0) {
-      a = kOpUp;  // column 0: UP to the origin
-      K = j;
-    } else if (j > 0) {
-      const unsigned v = base[static_cast<int64_t>(j - 1) * stride + i];
-      a = v & 3u;
-      K = a == kOpUp ? 1 : max(static_cast<int>(v >> 2), 1);
-    }
-    K = min(K, S - n);
-    for (int q = 0; q < K; ++q) out[n + q] = static_cast<signed char>(a);
-    n += K;
-    i -= a != kOpUp ? K : 0;
-    j -= a != kOpLeft ? K : 0;
-  }
-}
-
-// a pair's nbands = Bs+1 rows of TW = A+1 run bytes, a thread a pair
-// (LAYOUT is kWalkRuns, the one table it walks)
-template <int LAYOUT>
-__global__ void nw_walk_kernel(const void* __restrict__ codes,
-                               const int* __restrict__ lens1,
-                               const int* __restrict__ lens2, int B,
-                               int nbands, int TW, int S,
-                               signed char* __restrict__ ops,
-                               int* __restrict__ ns) {
-  const int bi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bi >= B) return;
-  const int64_t b = bi;
-  int i = lens1[b];
-  int j = lens2[b];
-  int n = 0;
-  // the stored rows start at row 1: the table's row 0 is skipped
-  const unsigned char* base =
-      static_cast<const unsigned char*>(codes) + (b * nbands + 1) * static_cast<int64_t>(TW);
-  walk_runs(base, TW, S, i, j, n, ops + b * S);
-  ns[b] = n;
-}
-
 // ---- the staged walk over band-major 2-bit codes ----
 
-// The staged walk's own min and max: CUDA's, called here as well, change
-// how walk_runs's max compiles, and these leave the kept kernels' machine
-// code as it was
+// The staged walks' own min and max: the kernels' machine code was checked
+// with these (CUDA's min and max compile to other instructions in places)
 __device__ __forceinline__ int imin(int x, int y) { return x < y ? x : y; }
 __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
 
@@ -790,7 +757,6 @@ constexpr int kMaskRing = kMaskDepth + 1;
 constexpr int kMaskWarps = NW_WALK_MASK_WARPS;
 constexpr int kMaskTableCols = NW_WALK_MASK_TABLE;
 constexpr int kMaskPitch = kMaskCols + 16;  // a slot's row: the piece widened to 16-byte blocks
-constexpr int kMaskBlocks = kMaskPitch / 16;
 // a delta table row: a 16-byte block of sentinels, then a byte a column;
 // its deltas (up to kMaskRowBytes + 1) fit a byte
 constexpr int kMaskRowBytes = 16 + kMaskTableCols;
@@ -802,14 +768,54 @@ constexpr int kMaskWarpBytes =
     (kMaskRing * 32 * kMaskPitch + 33 * kMaskRowBytes + kMaskRing * 12 + kOpBuf + 127) & ~127;
 static_assert(kMaskWarps * kMaskWarpBytes <= 48 * 1024, "a block's staging past 48 KB of shared memory");
 
-// One warp's ring of band segments of a row-major table: slot s holds, in
-// row jj of 32, the 16-byte blocks of band b's row 32b + jj that cover
-// columns [lo[s], top].  Every lane holds the same copy of the registers
-// but `lane`; the lanes share a band's copies, every lane waits.
-struct MaskRing {
+// The run walk's staging, as the masks walk's: columns a row piece, bands
+// copied ahead, walks a block of nw_walk_runs, columns of the table.  From
+// a sweep on an H100 (scripts/walk_profile.py --runs --sweep rebuilds this
+// file with others): the masks walk's values stayed best (0.49 ms a
+// launch at config 3; 1 or 3 walks a block as fast, narrower or wider
+// pieces and tables, a deeper ring 3-80% slower).
+#ifndef NW_WALK_RUNS_COLS
+#define NW_WALK_RUNS_COLS 128
+#endif
+#ifndef NW_WALK_RUNS_DEPTH
+#define NW_WALK_RUNS_DEPTH 1
+#endif
+#ifndef NW_WALK_RUNS_WARPS
+#define NW_WALK_RUNS_WARPS 2
+#endif
+#ifndef NW_WALK_RUNS_TABLE
+#define NW_WALK_RUNS_TABLE 64
+#endif
+constexpr int kRunsCols = NW_WALK_RUNS_COLS;
+constexpr int kRunsRing = NW_WALK_RUNS_DEPTH + 1;
+constexpr int kRunsWarps = NW_WALK_RUNS_WARPS;
+constexpr int kRunsTableCols = NW_WALK_RUNS_TABLE;
+constexpr int kRunCap = 63;  // nw_fill.cu's run cap: a LEFT run's longest jump
+// a table row: a 16-byte block of sentinels, then a byte a column
+constexpr int kRunsRowBytes = 16 + kRunsTableCols;
+// every run's landing lies in a table expanded at its cell (a LEFT run of
+// the cap included); a code's multiplier (a DIAG cell's row + 1) fits a
+// byte
+static_assert(kRunsCols % 16 == 0 && kRunsTableCols % 16 == 0 && kRunsTableCols <= kRunsCols &&
+              kRunsTableCols > kRunCap && kRunsRowBytes + 1 < 256, "the run walk's staging");
+// A warp's shared memory: the ring's slots, the table (33 rows), the ring's
+// mbarriers and segment starts (the ops go straight to device memory)
+constexpr int kRunsWarpBytes = (kRunsRing * 32 * (kRunsCols + 16) + 33 * kRunsRowBytes + kRunsRing * 12 + 127) & ~127;
+static_assert(kRunsWarps * kRunsWarpBytes <= 48 * 1024, "a block's staging past 48 KB of shared memory");
+
+// One warp's ring of RING band segments of a row-major table: slot s
+// holds, in row jj of 32, the 16-byte blocks of band b's row 32b + jj that
+// cover columns [lo[s], top], COLS columns at most.  Every lane holds the
+// same copy of the registers but `lane`; the lanes share a band's copies,
+// every lane waits.
+template <int COLS, int RING>
+struct ByteRing {
+  static constexpr int kPitch = COLS + 16;  // a slot's row: the piece widened to 16-byte blocks
+  static constexpr int kBlocks = kPitch / 16;
+
   const unsigned char* masks;  // row r of the walk's table at masks + r * TW
   int TW, rows;
-  unsigned char* seg;  // kMaskRing slots of 32 rows of kMaskPitch bytes
+  unsigned char* seg;  // RING slots of 32 rows of kPitch bytes
   uint32_t bars;       // shared address of slot 0's mbarrier (8 bytes a slot)
   int* lo;             // each slot's first column
   unsigned phase;      // bit s: the parity of slot s's next completion
@@ -818,7 +824,7 @@ struct MaskRing {
 
   __device__ void init() {
     if (lane == 0) {
-      for (int s = 0; s < kMaskRing; ++s)
+      for (int s = 0; s < RING; ++s)
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;" ::"r"(bars + 8 * s) : "memory");
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
@@ -832,32 +838,32 @@ struct MaskRing {
                             15);
   }
 
-  // Copy band b's columns [top - kMaskCols + 1, top] (cut at 0 and A) into
+  // Copy band b's columns [top - COLS + 1, top] (cut at 0 and A) into
   // slot s by 16-byte cp.async, each lane arriving on the slot's mbarrier
   // when its copies land (a row past the table copies nothing).  The
   // warp's reads of the slot are done and ordered before the copy by
   // __syncwarp, as in CodeRing::load.
   __device__ void load(int s, int b, int top) {
     top = imax(imin(top, TW - 1), 0);
-    const int l = imax(top - kMaskCols + 1, 0);
+    const int l = imax(top - COLS + 1, 0);
     const int row = 32 * b + lane;
     const uintptr_t from = reinterpret_cast<uintptr_t>(masks + static_cast<int64_t>(row) * TW + l);
     const uintptr_t first = from & ~static_cast<uintptr_t>(15);
     // the row's last block that holds a byte of its piece, -1 past the table
     const int last = row < rows ? static_cast<int>((from + (top - l) - first) >> 4) : -1;
-    const uint32_t dst = smem_u32(seg + s * 32 * kMaskPitch);
+    const uint32_t dst = smem_u32(seg + s * 32 * kPitch);
     __syncwarp();
     lo[s] = l;
-    // turn k: lane q copies block c of row r, 32k + q = r * kMaskBlocks + c,
+    // turn k: lane q copies block c of row r, 32k + q = r * kBlocks + c,
     // so that a turn reads a few rows' neighbouring blocks, not 32 rows
     // (5-7% faster a walk)
-    for (int k = 0; k < kMaskBlocks; ++k) {
-      const int q = 32 * k + lane, r = q / kMaskBlocks, c = q - r * kMaskBlocks;
+    for (int k = 0; k < kBlocks; ++k) {
+      const int q = 32 * k + lane, r = q / kBlocks, c = q - r * kBlocks;
       const uint64_t at = static_cast<uint64_t>(__shfl_sync(0xffffffffu, static_cast<unsigned>(first >> 32), r)) << 32 |
                           __shfl_sync(0xffffffffu, static_cast<unsigned>(first), r);
       if (c <= __shfl_sync(0xffffffffu, last, r))
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                     ::"r"(dst + r * kMaskPitch + 16 * c), "l"(at + 16 * c) : "memory");
+                     ::"r"(dst + r * kPitch + 16 * c), "l"(at + 16 * c) : "memory");
     }
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bars + 8 * s) : "memory");
     pending |= 1u << s;
@@ -877,7 +883,7 @@ struct MaskRing {
 
   // No copy may outlive the block: wait for the ones the walk left behind
   __device__ void drain() {
-    for (int s = 0; s < kMaskRing; ++s)
+    for (int s = 0; s < RING; ++s)
       if (pending >> s & 1u) wait(s);
   }
 };
@@ -896,47 +902,141 @@ __device__ __forceinline__ signed char mask_delta_op(unsigned v) {
   return static_cast<signed char>(v == 1u ? kOpLeft : v == kMaskRowBytes ? kOpUp : kOpDiag);
 }
 
-// Walk from (i, j) over the tie masks of rows j0+1 .. j0+rows (`masks`,
-// row-major, TW = A+1 bytes a row: cell row j at row j - j0 - 1), writing
+// The row-major byte tables walk_masks_staged walks
+enum ByteTable { kMasks, kRuns };
+
+// Four run bytes b = min(run, 63) << 2 | code, a word x at columns 4q ..
+// 4q + 3 of the run table (columns from 0) in row jj (J4: jj + 1 in each
+// byte) -> their decoded cells: a byte as it is where its run lands in the
+// table, UP as a run of 1 (6), and 0 where it lands outside (a LEFT or
+// DIAG run past column 0, a DIAG run past row -1) or no fill writes it
+// (a run of 0, code 3).  The bytes side by side, with no branch (a branch
+// a byte diverges across the lanes): the test y >= z of two bytes below
+// 128 is bit 7 of (y | 0x80) - z, and a column past 127 counts as 127 (a
+// run is at most 63).
+__device__ __forceinline__ unsigned run_word(unsigned x, int q, unsigned J4) {
+  constexpr unsigned kOnes = 0x01010101u, kHigh = 0x80808080u;
+  const unsigned X4 = 4 * q + 3 < 128 ? 4u * q * kOnes + 0x03020100u : 0x7f7f7f7fu;
+  const unsigned K4 = x >> 2 & 0x3f3f3f3fu;
+  const unsigned hi = x >> 1;  // bit 0 of a byte: its code's bit 1
+  const unsigned up = hi & ~x & kOnes, diag = ~(hi | x) & kOnes, left = x & ~hi & kOnes;
+  const unsigned xj = ((((X4 | kHigh) - J4) & kHigh) >> 7) * 0xffu;  // X >= J
+  const unsigned dm = diag * 0xffu;
+  const unsigned lim = (((J4 & xj) | (X4 & ~xj)) & dm) | (X4 & ~dm);  // DIAG min(X, J), else X
+  const unsigned fits = ((lim | kHigh) - K4) & ((K4 | kHigh) - kOnes) & kHigh;  // 1 <= K <= lim
+  return (x & (((fits >> 7) & (diag | left)) * 0xffu)) | up * 6u;
+}
+
+// One run of the walk over the run table: the byte at shared address p,
+// and p moved back by its jump: the byte's load, the code's multiplier
+// (DIAG kRunsRowBytes + 1, LEFT 1, UP kRunsRowBytes, code 3 0) picked by a
+// byte permute, and p less the run times it (one PTX sequence, so that
+// the chain stays these four operations)
+__device__ __forceinline__ unsigned run_step(uint32_t& p) {
+  unsigned v;
+  asm volatile(
+      "{\n\t.reg .u32 s, m, k;\n\t"
+      "ld.shared.u8 %0, [%1];\n\t"
+      "and.b32 s, %0, 3;\n\t"
+      "or.b32 s, s, 0x4440;\n\t"
+      "prmt.b32 m, %2, %3, s;\n\t"
+      "shr.u32 k, %0, 2;\n\t"
+      "neg.s32 k, k;\n\t"
+      "mad.lo.s32 %1, k, m, %1;\n\t}"
+      : "=r"(v), "+r"(p)
+      : "r"((kRunsRowBytes + 1u) | 1u << 8 | kRunsRowBytes << 16), "r"(0u)
+      : "memory");
+  return v;
+}
+
+// Runs from the run table's cell at shared address p until the walk reads
+// 0 (its run's landing is not in the table, or it has left the band or
+// met column 0) or has n >= S ops, kUnroll runs between two tests.  Every
+// lane walks the same path; a run's K ops (K <= 63) go straight to
+// out[n ..), lane q writing ops n + q and n + 32 + q, none from S on.
+// Each run is loaded before the one before it is written out, so that
+// its stores (in program order before the next load) wait for nothing.
+// A 0 moves and writes nothing, so the runs after it change nothing; p
+// stays on the 0.  Returns the cell read last (0, or any value once n >=
+// S).
+__device__ __forceinline__ unsigned walk_runs_table(uint32_t& p, int& n, int S, int lane,
+                                                    signed char* __restrict__ out) {
+  unsigned v = run_step(p);
+  while (n < S) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned next = run_step(p);
+      const int a = v & 3u, K = v >> 2;
+      const int q = n + lane;
+      if (lane < K && q < S) out[q] = static_cast<signed char>(a);
+      if (lane + 32 < K && q + 32 < S) out[q + 32] = static_cast<signed char>(a);
+      n += K;
+      v = next;
+    }
+    if (v == 0) break;
+  }
+  return v;
+}
+
+// Walk from (i, j) over a row-major byte table of rows j0+1 .. j0+rows
+// (`masks`, TW = A+1 bytes a row: cell row j at row j - j0 - 1), writing
 // ops from out[n]; stops at row j0 when j0 > 0, else at the origin (LEFT
-// along row 0), or after S ops.  A warp, every lane with the same (i, j,
-// n) in and out; wsmem is its kMaskWarpBytes of shared memory.
+// along row 0; the run table: UP along column 0 too), or after S ops.  A
+// warp, every lane with the same (i, j, n) in and out; wsmem is its
+// kMaskWarpBytes (kRunsWarpBytes) of shared memory.  TABLE kMasks: 3-bit
+// tie masks, a step a cell; kRuns: run bytes, a run a load.
 //
 // On entering a band (or leaving its table's columns) each lane jj
-// expands columns [c0, c0 + kMaskTableCols) of its row from the slot into
-// row jj + 1 of a table of bytes: cell (jj, i) at byte (jj + 1) *
-// kMaskRowBytes + 16 + i - c0 holds how far back its predecessor lies, 1
+// expands columns [c0, c0 + E) of its row from the slot into row jj + 1
+// of a table: a tie mask's cell (jj, i), a byte at (jj + 1) *
+// kMaskRowBytes + 16 + i - c0, holds how far back its predecessor lies, 1
 // (LEFT), kMaskRowBytes (UP) or kMaskRowBytes + 1 (DIAG).  Row jj = -1 and
 // each row's first 16 bytes hold 0: a walk that reads 0 has left the band
 // or the table's columns, and stays there.  c0 is the walk's column less
-// kMaskTableCols - 1, cut at the slot's first column, so that every cell
-// the walk can reach from its cell in the table (rows jj and below,
-// columns c0 .. i) lies in the slot.  A step is one byte load and one
-// subtract; its byte goes to the op buffer, and its op comes from it at
-// the flush.
+// E - 1, cut at the slot's first column, so that every cell the walk can
+// reach from its cell in the table (rows jj and below, columns c0 .. i)
+// lies in the slot.  A step is one byte load and one subtract; its byte
+// goes to the op buffer, and its op comes from it at the flush.
+//
+// The run table's cell (jj, i), a byte at (jj + 1) * kRunsRowBytes + 16 +
+// i - c0, is the run byte as it is, UP as a run of 1, or 0 where the run
+// lands outside the table (run_word), and the lane of row jj writes 0
+// over column 0.  A run is a load and three operations (run_step), the
+// ops written from its byte.  A run of the cap lands in a table
+// expanded at its cell (E > 63) unless the slot cut the table: so a walk
+// that reads 0 on a row jj >= 0 right of column 0 goes on from a table
+// expanded at its cell, and if that cell reads 0 too, from the band's
+// slot copied again at its column.  A run writes its ops straight to
+// device memory, so a run table has no op buffer.
+template <int TABLE>
 __device__ __forceinline__ void walk_masks_staged(const unsigned char* __restrict__ masks, int TW,
                                                   int rows, unsigned char* wsmem, int j0, int S,
                                                   int& i, int& j, int& n,
                                                   signed char* __restrict__ out) {
+  constexpr bool kR = TABLE == kRuns;
+  constexpr int RING = kR ? kRunsRing : kMaskRing, E = kR ? kRunsTableCols : kMaskTableCols;
+  constexpr int ROW = kR ? kRunsRowBytes : kMaskRowBytes;
+  using Ring = ByteRing<kR ? kRunsCols : kMaskCols, RING>;
   const int lane = threadIdx.x & 31;
-  unsigned char* table = wsmem + kMaskRing * 32 * kMaskPitch;
-  unsigned char* books = table + 33 * kMaskRowBytes;  // the mbarriers, then lo
-  unsigned char* buf = books + kMaskRing * 12;
+  unsigned char* table = wsmem + RING * 32 * Ring::kPitch;
+  unsigned char* books = table + 33 * ROW;  // the mbarriers, then lo
+  unsigned char* buf = books + RING * 12;
   int flushed = n;  // out[flushed .. n) wait in buf
-  if (j > j0 && n < S) {
-    MaskRing slots{masks, TW, rows, wsmem, smem_u32(books),
-                   reinterpret_cast<int*>(books + 8 * kMaskRing), 0, 0, lane};
+  if (j > j0 && n < S && (!kR || i > 0)) {
+    Ring slots{masks, TW, rows, wsmem, smem_u32(books), reinterpret_cast<int*>(books + 8 * RING), 0, 0, lane};
     slots.init();
     const int r = j - j0 - 1;
     int band = r >> 5, jj = r & 31;
-    int s = band % kMaskRing;  // band's slot; band - q's is (s - q) mod kMaskRing
-    for (int q = 0; q <= kMaskDepth && band - q >= 0; ++q)
-      slots.load((s - q + kMaskRing) % kMaskRing, band - q, i);
-    for (int q = lane; q < 33 * kMaskRowBytes / 16; q += 32)
+    int s = band % RING;  // band's slot; band - q's is (s - q) mod RING
+    for (int q = 0; q < RING && band - q >= 0; ++q)
+      slots.load((s - q + RING) % RING, band - q, i);
+    for (int q = lane; q < 33 * ROW / 16; q += 32)
       reinterpret_cast<uint4*>(table)[q] = make_uint4(0, 0, 0, 0);
     __syncwarp();
     int c0 = 0;
     uint32_t p = 0;  // the shared address of the walk's cell in the table
+    uint32_t pf = 0;  // the run table: the walk's cell when the table was expanded
+    bool recopy = false;  // the run table: copy the band's slot at the walk's column
     for (bool cut = false; !cut;) {  // a band a pass, from its row jj down
       slots.wait(s);
       for (bool fresh = true;;) {
@@ -946,64 +1046,113 @@ __device__ __forceinline__ void walk_masks_staged(const unsigned char* __restric
             cut = true;
             break;
           }
-          if (i < slots.lo[s]) {  // left of the slot: copy the band's columns at i
+          bool below = i < slots.lo[s];  // left of the slot: copy the band's columns at i
+          if constexpr (kR) below = below || recopy;
+          if (below) {
             slots.load(s, band, i);
             slots.wait(s);
           }
           const int lo = slots.lo[s];
-          c0 = imax(i - kMaskTableCols + 1, lo);
+          c0 = imax(i - E + 1, lo);
           // the lane's row from byte `at` of its slot row, a word of four
           // cells at a time: loads first, so that they overlap
           const int at = slots.offset(s, band) + c0 - lo;
           const unsigned* src =
-              reinterpret_cast<const unsigned*>(slots.seg + (s * 32 + lane) * kMaskPitch) + (at >> 2);
-          unsigned w[kMaskTableCols / 4 + 1], d[kMaskTableCols / 4];
+              reinterpret_cast<const unsigned*>(slots.seg + (s * 32 + lane) * Ring::kPitch) + (at >> 2);
+          unsigned w[E / 4 + 1], d[E / 4];
 #pragma unroll
-          for (int q = 0; q <= kMaskTableCols / 4; ++q) w[q] = src[q];
+          for (int q = 0; q <= E / 4; ++q) w[q] = src[q];
+          if constexpr (kR) {
+            const unsigned J4 = (lane + 1) * 0x01010101u;
 #pragma unroll
-          for (int q = 0; q < kMaskTableCols / 4; ++q) d[q] = mask_deltas(__funnelshift_r(w[q], w[q + 1], 8 * (at & 3)));
-          uint4* row = reinterpret_cast<uint4*>(table + (lane + 1) * kMaskRowBytes + 16);
+            for (int q = 0; q < E / 4; ++q) d[q] = run_word(__funnelshift_r(w[q], w[q + 1], 8 * (at & 3)), q, J4);
+          } else {
 #pragma unroll
-          for (int c = 0; c < kMaskTableCols / 16; ++c)
+            for (int q = 0; q < E / 4; ++q) d[q] = mask_deltas(__funnelshift_r(w[q], w[q + 1], 8 * (at & 3)));
+          }
+          uint4* row = reinterpret_cast<uint4*>(table + (lane + 1) * ROW + 16);
+#pragma unroll
+          for (int c = 0; c < E / 16; ++c)
             row[c] = make_uint4(d[4 * c], d[4 * c + 1], d[4 * c + 2], d[4 * c + 3]);
+          if constexpr (kR) {  // column 0: the walk leaves the table there, UP to the origin
+            if (c0 == 0) reinterpret_cast<unsigned char*>(row)[0] = 0;
+          }
           __syncwarp();
-          p = smem_u32(table) + (jj + 1) * kMaskRowBytes + 16 + i - c0;
+          p = smem_u32(table) + (jj + 1) * ROW + 16 + i - c0;
+          pf = p;
+          recopy = false;
           fresh = false;
         }
-        const unsigned v = walk_table(p, n, flushed, S, buf, lane);
-        const int a = static_cast<int>(p - smem_u32(table)), row = a / kMaskRowBytes;
+        unsigned v;
+        if constexpr (kR)
+          v = walk_runs_table(p, n, S, lane, out);
+        else
+          v = walk_table(p, n, flushed, S, buf, lane);
+        const int a = static_cast<int>(p - smem_u32(table)), row = a / ROW;
         jj = row - 1;
-        i = c0 + a - row * kMaskRowBytes - 16;
-        if (v != 0) {  // the buffer is full, or the cut after S ops
-          flush_ops<mask_delta_op>(buf, flushed, n, lane, out);
-          flushed = n;
-          if (n == S) {
+        i = c0 + a - row * ROW - 16;
+        if constexpr (kR) {
+          if (n >= S) {  // the cut after S ops (p may be a run past it)
             cut = true;
             break;
           }
+          if (jj < 0) break;  // the band's last row is done
+          if (i == 0) {  // column 0: UP to the origin, below
+            cut = true;
+            break;
+          }
+          if (p == pf) {  // no landing in a table expanded at the cell
+            if (c0 <= imax(i - E + 1, 0)) {  // the slot did not cut it: not a fill's run
+              cut = true;
+              break;
+            }
+            recopy = true;
+          }
+          fresh = true;
           continue;
+        } else {
+          if (v != 0) {  // the buffer is full, or the cut after S ops
+            flush_ops<mask_delta_op>(buf, flushed, n, lane, out);
+            flushed = n;
+            if (n == S) {
+              cut = true;
+              break;
+            }
+            continue;
+          }
+          if (jj < 0) break;  // the band's last row is done
+          fresh = true;  // left of the table's columns
         }
-        if (jj < 0) break;  // the band's last row is done
-        fresh = true;  // left of the table's columns
       }
       if (cut || band == 0) break;  // band 0's last row done: row j0
       // into the band above at its row 31, column i; its slot s - 1,
-      // band - kMaskDepth's the slot just left
+      // band - D's the slot just left
       --band;
       jj = 31;
       const int left = s;
-      s = s ? s - 1 : kMaskRing - 1;
-      if (band - kMaskDepth >= 0) slots.load(left, band - kMaskDepth, i);
+      s = s ? s - 1 : RING - 1;
+      if (band - (RING - 1) >= 0) slots.load(left, band - (RING - 1), i);
     }
     j = j0 + 32 * band + jj + 1;
     slots.drain();
   }
-  flush_ops<mask_delta_op>(buf, flushed, n, lane, out);
+  if constexpr (kR)
+    n = imin(n, S);
+  else
+    flush_ops<mask_delta_op>(buf, flushed, n, lane, out);
   if (j0 == 0 && j == 0 && i > 0 && n < S) {  // row 0: LEFT to the origin
     const int m = imin(i, S - n);
     for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpLeft);
     n += m;
     i -= m;
+  }
+  if constexpr (kR) {
+    if (j0 == 0 && i == 0 && j > 0 && n < S) {  // column 0: UP to the origin
+      const int m = imin(j, S - n);
+      for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpUp);
+      n += m;
+      j -= m;
+    }
   }
 }
 
@@ -1021,8 +1170,27 @@ __global__ void nw_walk_masks_staged_kernel(const unsigned char* __restrict__ ma
   int i = lens1[b];
   int j = lens2[b];
   int n = 0;
-  walk_masks_staged(masks + (b * (Bs + 1) + 1) * TW, TW, Bs, smem + warp * kMaskWarpBytes, 0, S, i, j,
-                    n, ops + b * S);
+  walk_masks_staged<kMasks>(masks + (b * (Bs + 1) + 1) * TW, TW, Bs, smem + warp * kMaskWarpBytes, 0, S, i,
+                            j, n, ops + b * S);
+  if ((threadIdx.x & 31) == 0) ns[b] = n;
+}
+
+// The run-skip walk of a batch, a warp a pair, kRunsWarps pairs a block: a
+// pair's Bs+1 rows of TW = A+1 run bytes, row 0 not read
+__global__ void nw_walk_runs_staged_kernel(const unsigned char* __restrict__ runs,
+                                           const int* __restrict__ lens1,
+                                           const int* __restrict__ lens2, int B, int Bs,
+                                           int TW, int S, signed char* __restrict__ ops,
+                                           int* __restrict__ ns) {
+  __shared__ __align__(128) unsigned char smem[kRunsWarps * kRunsWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kRunsWarps + warp;
+  if (b >= B) return;
+  int i = lens1[b];
+  int j = lens2[b];
+  int n = 0;
+  walk_masks_staged<kRuns>(runs + (b * (Bs + 1) + 1) * TW, TW, Bs, smem + warp * kRunsWarpBytes, 0, S, i, j,
+                           n, ops + b * S);
   if ((threadIdx.x & 31) == 0) ns[b] = n;
 }
 
@@ -1034,7 +1202,7 @@ __global__ void nw_walk_window_masks_staged_kernel(const unsigned char* __restri
   int i = state[0], j = state[1], n = state[2];
   // a start outside the block's masks walks nowhere (n stays short)
   if (j < j0 || j > j0 + rows || i < 0 || i >= TW || n < 0) return;
-  walk_masks_staged(masks, TW, rows, smem, j0, S, i, j, n, ops);
+  walk_masks_staged<kMasks>(masks, TW, rows, smem, j0, S, i, j, n, ops);
   if (threadIdx.x == 0) {
     state[0] = i;
     state[1] = j;
@@ -1110,17 +1278,17 @@ extern "C" int nw_walk_masks(const void* masks, const int* lens1,
 }
 
 // runs: uint8[B, Bs+1, A+1] run bytes from nw_fill_runs_batch (row-major,
-// a pair's table after another); ops: int8[B, S] prefilled with OP_NONE;
-// ns: int32[B].  S must be >= every len1 + len2.
+// a pair's table after another, at any alignment); ops: int8[B, S]
+// prefilled with OP_NONE; ns: int32[B].  S must be >= every len1 + len2.
+// A warp a pair on walk_masks_staged's ring, in its runs mode.
 extern "C" int nw_walk_runs(const void* runs, const int* lens1,
                             const int* lens2, int B, int A, int Bs, int S,
                             signed char* ops, int* ns, void* stream) {
   if (B <= 0) return 0;
   if (A < 0 || Bs < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  nw_walk_kernel<kWalkRuns><<<(B + threads - 1) / threads, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      runs, lens1, lens2, B, Bs + 1, A + 1, S, ops, ns);
+  nw_walk_runs_staged_kernel<<<(B + kRunsWarps - 1) / kRunsWarps, 32 * kRunsWarps, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(runs), lens1, lens2, B, Bs, A + 1, S, ops, ns);
   return static_cast<int>(cudaGetLastError());
 }
 

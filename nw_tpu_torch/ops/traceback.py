@@ -175,7 +175,7 @@ def walk_runs_batch(
     max_steps] (OP_NONE padded) and n int32[B], the same as
     :func:`walk_codes_batch` over the same cells' codes.
 
-    A CUDA tensor goes through the ``nw_walk_runs`` kernel (one thread a
+    A CUDA tensor goes through the ``nw_walk_runs`` kernel (a warp a
     pair); a CPU tensor through :func:`walk_runs_batch_plain`.
     """
     check_masks(runs, lens1, lens2)

@@ -41,6 +41,7 @@ def main() -> None:
     clock_mhz = float(smi("clocks.max.sm", "--format=csv,noheader,nounits").split()[0])
     bound = cs.Bound(torch.cuda.get_device_properties(0).multi_processor_count, clock_mhz * 1e6)
     kernels.load()
+    bound.smem_cycles = cs.smem_load_cycles()  # the walks' span floor, as phase 2 sets it
     small = cs.check_pairs()
     c3, c2 = cs.config_pairs()
     aligner = NWAligner(AlignConfig(scoring=ScoringParams(2, 1, 1)), device="cuda")

@@ -2,7 +2,7 @@
 its time: copies of ``nw_tpu_torch/csrc/nw_walk.cu`` built apart from the
 package, one a staging, with ``-D`` (all compiles started together).
 
-    python3 scripts/walk_profile.py [--sweep] [--masks | --sw | --gotoh]
+    python3 scripts/walk_profile.py [--sweep] [--masks | --runs | --sw | --gotoh]
 
 The code walk (``walk_staged``): K = ``NW_WALK_SEG_COLS`` word columns a
 segment, D = ``NW_WALK_DEPTH`` bands copied ahead, ``NW_WALK_WARPS`` walks
@@ -13,7 +13,14 @@ instead: w = ``NW_WALK_MASK_COLS`` columns a row piece, D =
 ``NW_WALK_MASK_DEPTH``, ``NW_WALK_MASK_WARPS`` walks a block, E =
 ``NW_WALK_MASK_TABLE`` columns of the delta table; its
 ``nw_walk_masks`` runs on ``chip_smoke.py`` phase 13's 128 x 2 048 bp and
-4 x 10 240 bp tie masks (from ``fill_arrows_auto``).  With ``--sw`` the
+4 x 10 240 bp tie masks (from ``fill_arrows_auto``).  With ``--runs``
+the run-skip walk (``walk_masks_staged`` in its runs mode): w =
+``NW_WALK_RUNS_COLS``, D = ``NW_WALK_RUNS_DEPTH``, ``NW_WALK_RUNS_WARPS``
+walks a block, E = ``NW_WALK_RUNS_TABLE`` columns of its table; its
+``nw_walk_runs`` on the run bytes of config
+3's two launches (``strings_sub_batch`` pairs each) and of 128 x 10 240
+bp, where a line gives cycles a run (a load: the counters over
+``walk_runs_loads``' loads) as well as a step.  With ``--sw`` the
 local walk (``walk_staged`` in its local mode, the code walk's K and D,
 ``NW_WALK_LOCAL_WARPS`` walks a block, which its sweep varies): its
 ``sw_walk`` on the SW and the overlap codes of phases 9-10's 128 x
@@ -25,7 +32,8 @@ D = ``NW_WALK_GOTOH_DEPTH``, ``NW_WALK_GOTOH_WARPS`` walks a block, and
 ``gotoh_walk`` on phase 11's batches (2 1 3 1).
 Without ``--sweep``: an instrumented copy in ``build/walk_profile/``,
 ``clock64()`` counters around the walk's sections (waiting for a band's
-copy, expanding the delta table (for the masks walk with its re-copies),
+copy, expanding the delta table (for the masks and run walks with their
+re-copies),
 issuing the next band's copy, walking the table, storing ops, the whole
 walk; summed over a launch's walks by ``atomicAdd``), at the source's
 staging and two others.  A line a run: its device ms (CUDA events) and
@@ -67,17 +75,26 @@ GOTOH_PROFILED = [(16, 1, 1, 6), (24, 2, 2, 7), (16, 1, 1, 4)]
 GOTOH_SWEEP = [(16, 1, 1, 6), (24, 2, 2, 7), (24, 2, 2, 6), (24, 2, 2, 5), (24, 2, 1, 7), (24, 2, 1, 6),
                (24, 2, 1, 5), (24, 1, 1, 6), (32, 2, 1, 6), (24, 3, 1, 6), (16, 2, 2, 7), (8, 1, 4, 7),
                (24, 2, 2, 4), (16, 1, 4, 4), (48, 2, 1, 7), (16, 1, 1, 5), (16, 1, 2, 6), (8, 1, 1, 6)]
+# (w, D, warps, E): the run walk's, the source's first
+RUNS_PROFILED = [(128, 1, 2, 64), (128, 1, 2, 128), (96, 1, 2, 64)]
+RUNS_SWEEP = [(128, 1, 2, 64), (64, 1, 2, 64), (96, 1, 2, 64), (160, 1, 2, 64), (192, 1, 2, 64), (256, 1, 1, 64),
+              (128, 2, 2, 64), (128, 3, 1, 64), (128, 1, 1, 64), (128, 1, 3, 64), (96, 1, 4, 64), (128, 1, 2, 80),
+              (128, 1, 2, 96), (128, 1, 2, 128), (160, 1, 2, 96), (192, 1, 2, 192)]
 # walks a block of the local walk (its K and D are the code walk's)
 LOCAL_PROFILED, LOCAL_SWEEP = [(1,), (2,)], [(1,), (2,), (3,), (4,), (6,)]
 CODE_DEFS = ("NW_WALK_SEG_COLS", "NW_WALK_DEPTH", "NW_WALK_WARPS")
 LOCAL_DEFS = ("NW_WALK_LOCAL_WARPS",)
 MASK_DEFS = ("NW_WALK_MASK_COLS", "NW_WALK_MASK_DEPTH", "NW_WALK_MASK_WARPS", "NW_WALK_MASK_TABLE")
+RUNS_DEFS = ("NW_WALK_RUNS_COLS", "NW_WALK_RUNS_DEPTH", "NW_WALK_RUNS_WARPS", "NW_WALK_RUNS_TABLE")
 GOTOH_DEFS = ("NW_WALK_GOTOH_SEG_COLS", "NW_WALK_GOTOH_DEPTH", "NW_WALK_GOTOH_WARPS", "NW_WALK_GOTOH_TABLE")
 # where the masks walk starts in nw_walk.cu: EDITS apply before it, MASK_EDITS after
 MASK_PART = "// ---- the staged walk over row-major tie masks ----\n"
 
 # (anchor in nw_walk.cu, text to put in its place): the counters
 WALK_TABLE = "        const unsigned v = walk_table(p, n, flushed, S, buf, lane);\n"
+# walk_masks_staged's walk: the run table's or the tie masks'
+BYTE_WALK = ("        unsigned v;\n        if constexpr (kR)\n          v = walk_runs_table(p, n, S, lane, out);\n"
+             "        else\n          v = walk_table(p, n, flushed, S, buf, lane);\n")
 BAND_LOAD = "      if (band - D >= 0) ring.load(left, band - D, ((kG ? t : t - jj) + 31) >> kShift);\n"
 EDITS = [
     ("namespace {\n", "__device__ unsigned long long g_prof[8];\nnamespace {\n"),
@@ -109,12 +126,12 @@ MASK_EDITS = [
     ("        if (fresh) {  // the table from i's column down, from the band's slot\n",
      "        if (fresh) {  // the table from i's column down, from the band's slot\n          T0 = clock64();\n"),
     ("          fresh = false;\n", "          fresh = false;\n          te += clock64() - T0;\n"),
-    (WALK_TABLE, "        T0 = clock64();\n" + WALK_TABLE + "        tk += clock64() - T0;\n"),
-    ("          flush_ops<mask_delta_op>(buf, flushed, n, lane, out);\n          flushed = n;\n",
-     "          T0 = clock64();\n          flush_ops<mask_delta_op>(buf, flushed, n, lane, out);\n"
-     "          tf += clock64() - T0;\n          flushed = n;\n"),
-    ("      if (band - kMaskDepth >= 0) slots.load(left, band - kMaskDepth, i);\n",
-     "      T0 = clock64();\n      if (band - kMaskDepth >= 0) slots.load(left, band - kMaskDepth, i);\n"
+    (BYTE_WALK, "        T0 = clock64();\n" + BYTE_WALK + "        tk += clock64() - T0;\n"),
+    ("            flush_ops<mask_delta_op>(buf, flushed, n, lane, out);\n            flushed = n;\n",
+     "            T0 = clock64();\n            flush_ops<mask_delta_op>(buf, flushed, n, lane, out);\n"
+     "            tf += clock64() - T0;\n            flushed = n;\n"),
+    ("      if (band - (RING - 1) >= 0) slots.load(left, band - (RING - 1), i);\n",
+     "      T0 = clock64();\n      if (band - (RING - 1) >= 0) slots.load(left, band - (RING - 1), i);\n"
      "      tl += clock64() - T0;\n"),
     ("    slots.drain();\n",
      "    slots.drain();\n    if (lane == 0) {\n"
@@ -135,7 +152,7 @@ extern "C" int prof_zero() {
 
 def instrumented_source() -> str:
     """nw_walk.cu with EDITS' counters in the code walk and MASK_EDITS' in
-    the masks walk (each anchor once in its part)."""
+    the masks and run walks' template (each anchor once in its part)."""
     src = (HERE / "nw_tpu_torch" / "csrc" / "nw_walk.cu").read_text()
     if src.count(MASK_PART) != 1:
         raise SystemExit("walk_profile: the masks walk's section not found once in nw_walk.cu")
@@ -174,7 +191,7 @@ def build(src: Path, defs, stagings) -> dict:
             libs[st] = None
             continue
         lib = ctypes.CDLL(str(so))
-        for name in ("nw_walk", "nw_walk_window", "nw_walk_masks", "sw_walk", "gotoh_walk"):
+        for name in ("nw_walk", "nw_walk_window", "nw_walk_masks", "nw_walk_runs", "sw_walk", "gotoh_walk"):
             getattr(lib, name).argtypes = kernels.SIGNATURES[name]
         libs[st] = lib
     return libs
@@ -204,8 +221,10 @@ def main(argv) -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     OUT.mkdir(parents=True, exist_ok=True)
     sweep, masks = "--sweep" in argv, "--masks" in argv
-    walk = "masks" if masks else "sw" if "--sw" in argv else "gotoh" if "--gotoh" in argv else "codes"
+    walk = ("masks" if masks else "runs" if "--runs" in argv else "sw" if "--sw" in argv
+            else "gotoh" if "--gotoh" in argv else "codes")
     defs, stagings = {"masks": (MASK_DEFS, (MASK_PROFILED, MASK_SWEEP)),
+                      "runs": (RUNS_DEFS, (RUNS_PROFILED, RUNS_SWEEP)),
                       "gotoh": (GOTOH_DEFS, (GOTOH_PROFILED, GOTOH_SWEEP)),
                       "sw": (LOCAL_DEFS, (LOCAL_PROFILED, LOCAL_SWEEP))}.get(walk, (CODE_DEFS, (PROFILED, SWEEP)))
     if sweep:
@@ -233,9 +252,9 @@ def main(argv) -> int:
         elif walk == "gotoh":
             fn, args = lib.gotoh_walk, (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), st.data_ptr(), B, cd.shape[1],
                                         cd.shape[2], S, *ptrs)
-        elif masks:  # (masks, lens1, lens2, B, A, Bs, S, ...)
-            fn, args = lib.nw_walk_masks, (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[2] - 1,
-                                           cd.shape[1] - 1, S, *ptrs)
+        elif walk in ("masks", "runs"):  # (table, lens1, lens2, B, A, Bs, S, ...)
+            fn, args = (lib.nw_walk_masks if masks else lib.nw_walk_runs), (
+                cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[2] - 1, cd.shape[1] - 1, S, *ptrs)
         else:
             fn, args = lib.nw_walk, (cd.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, cd.shape[1], cd.shape[2], S,
                                      *ptrs)
@@ -256,6 +275,17 @@ def main(argv) -> int:
                 else:
                     codes, _, js, is_ = getattr(vb, f"{kind}_fill_codes_banded_batch")(*T, 2, 1, 1)
                     runs.append((f"{kind} {shape}", codes, is_, js, tb._sw_max_steps(codes), None))
+    elif walk == "runs":  # config 3's two launches and 128 x 10 240 bp of run bytes
+        from nw_tpu_torch.models import needleman_wunsch as nwm
+
+        c3, _ = cs.config_pairs()
+        LB = cs.L_LONG
+        T3 = enc.upload(enc.encode_batch(c3, LB, LB), "cuda")
+        sub = nwm.strings_sub_batch(LB, LB, "runs")
+        parts = [(f"config3 launch {q} ({min(sub, len(c3) - lo)}x{LB}bp)", tuple(t[lo : lo + sub] for t in T3))
+                 for q, lo in enumerate(range(0, len(c3), sub))] + [(f"128x{LB}bp", tuple(t[:128] for t in T3))]
+        runs = [(name, fb.fill_runs_banded_batch(*p, 2, 1, 1)[0], p[2], p[3], 2 * LB, None) for name, p in parts]
+        run_loads = {name: int(tb.walk_runs_loads(r, l1, l2, S)[2].sum()) for name, r, l1, l2, S, _ in runs}
     elif masks:  # phase 13's 128 x 2 048 bp and 4 x 10 240 bp tie masks
         runs = []
         for _, nb, L, ps in cs.mask_path_batches()[1:]:
@@ -272,7 +302,7 @@ def main(argv) -> int:
         runs = [(f"1x{cs.L_HUGE}bp", codes, lh, lh, 2 * cs.L_HUGE, None),
                 (f"256x{cs.L_LONG}bp", codes3, T3[2], T3[3], 2 * LB, None)]
     if sweep:
-        if walk in ("sw", "gotoh"):
+        if walk in ("sw", "gotoh", "runs"):
             for st, lib in libs.items():
                 if lib is not None:
                     ms = {name: cs.cuda_ms(walk_fn(lib, *r), 3) for name, *r in runs}
@@ -320,8 +350,12 @@ def main(argv) -> int:
             lib.prof_get(host)
             steps = host[6]
             cyc = {k: round(host[q] / steps, 1) for q, k in enumerate(SECTIONS)}
+            per_run = ""
+            if walk == "runs":
+                loads = run_loads[name]
+                per_run = f"; {loads} loads, cycles a run {({k: round(host[q] / loads, 1) for q, k in enumerate(SECTIONS)})}"
             print(f"{name} {label(defs, st)}: {e0.elapsed_time(e1):.3f} ms, {steps} steps in "
-                  f"{host[7]} walks; cycles a step {cyc}", flush=True)
+                  f"{host[7]} walks; cycles a step {cyc}{per_run}", flush=True)
     return 0
 
 if __name__ == "__main__":

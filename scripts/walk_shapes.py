@@ -20,9 +20,18 @@ phases 9-11's 128 x 3 072 bp and 4 096 x 150 bp alignment batches
 their C entries alone (``launch_ms``: no length check, so no host sync),
 and the walls of ``sw_align_batch``, ``overlap_align_batch`` and
 ``affine_align_batch`` on those batches, each split into its fill and its
-walk (``route_split_ms``, medians of 5 warm runs).
+walk (``route_split_ms``, medians of 5 warm runs).  ``--runs`` times the
+run-skip walk instead: ``nw_walk_runs`` (``walk_runs_batch``) on the runs
+fill's bytes at config 3 (its two sub-batches of ``strings_sub_batch``
+pairs, the runs engine's launches, and their sum) and at 128 x 10 240
+bp, through its wrapper (``ms``) and its C entry alone (``launch_ms``),
+each launch's loads (its longest walk's and the sum, from
+``walk_runs_loads``) and steps, ns a run of the longest walk and its
+span floor, and the config-3 wall (strings and counts) of the runs
+engine and of the codes engine, each split into its fill and its walk
+(``route_split_ms``, medians of 3 warm runs, the two engines in turns).
 
-    python3 scripts/walk_shapes.py [--check] [--sass] [--masks | --variants] [ROOT]
+    python3 scripts/walk_shapes.py [--check] [--sass] [--masks | --variants | --runs] [ROOT]
 
 ROOT (default: this checkout) is the tree whose ``nw_tpu_torch`` is
 imported and built; the inputs (``chip_smoke.py``'s seeds) and the timing
@@ -45,7 +54,7 @@ walls.
 ``--check`` first holds ROOT's walks against their plain versions at
 ``chip_smoke.py``'s walk edge shapes (phase 3's, phase 8's and the masks
 walks' of phases 12 and 13; with ``--variants`` the variant walks' of
-phases 9 and 11).
+phases 9 and 11; with ``--runs`` the run walk's of phase 14).
 ``--sass`` runs ``scripts/sass_compare.py --diff`` on ``build/parent``'s
 ``nw_walk.cu`` against ROOT's, prints ``ptxas -v`` of both and writes
 the staged kernels' SASS to ``build/walk_sass.txt``.
@@ -221,6 +230,68 @@ def time_variants(cs, dev, root, clock_mhz, check) -> int:
     return 0
 
 
+def time_runs(cs, dev, root, clock_mhz, check) -> int:
+    """``--runs``: the run-skip walk's ms, loads, steps, ns a run and span
+    at config 3's launches and 128 x 10 240 bp, and both engines' config-3
+    walls split into fill and walk."""
+    import torch
+
+    from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
+    from nw_tpu_torch.models import needleman_wunsch as nwm
+    from nw_tpu_torch.ops import banded_traceback as bt
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.runtime import kernels
+
+    if check:
+        cs.runs_walk_edges_vs_plain(dev, {"nw_walk_runs": 0})
+    cycles = cs.smem_load_cycles()
+    c3, _ = cs.config_pairs()
+    LB, S = cs.L_LONG, 2 * cs.L_LONG
+    T3 = enc.upload(enc.encode_batch(c3, LB, LB), dev)
+    sub = nwm.strings_sub_batch(LB, LB, "runs")
+    shapes = {f"config3 launch {q} ({min(sub, len(c3) - lo)}x{LB}bp)": tuple(t[lo : lo + sub] for t in T3)
+              for q, lo in enumerate(range(0, len(c3), sub))}
+    shapes[f"128x{LB}bp"] = tuple(t[:128] for t in T3)
+    ms, launch_ms, loads, loads_max, steps = {}, {}, {}, {}, {}
+    for name, p in shapes.items():
+        runs = fb.fill_runs_banded_batch(*p, 2, 1, 1)[0]
+        B = runs.shape[0]
+        ops = torch.full((B, S), tb.OP_NONE, dtype=torch.int8, device=dev)
+        n = torch.empty(B, dtype=torch.int32, device=dev)
+        ms[name] = cs.cuda_ms(lambda: tb.walk_runs_batch(runs, *p[2:], S), 5)
+        launch_ms[name] = cs.cuda_ms(lambda: kernels.launch(
+            "nw_walk_runs", dev, runs.data_ptr(), p[2].data_ptr(), p[3].data_ptr(), B, runs.shape[2] - 1,
+            runs.shape[1] - 1, S, ops.data_ptr(), n.data_ptr()), 5)
+        _, nn, ld = tb.walk_runs_loads(runs, *p[2:], S)
+        loads[name], loads_max[name], steps[name] = int(ld.sum()), int(ld.max()), int(nn.max())
+        del runs, ops, n
+        torch.cuda.empty_cache()
+    parts = [k for k in shapes if k.startswith("config3")]
+    for d in (ms, launch_ms):
+        d["config3 (both launches)"] = sum(d[k] for k in parts)
+    rec = {"root": str(root), "package": str(Path(tb.__file__).parent.parent), "ms": ms, "launch_ms": launch_ms,
+           "loads": loads, "loads_max": loads_max, "steps": steps, "smem_load_cycles": cycles,
+           "ns_per_run": {k: launch_ms[k] * 1e6 / loads_max[k] for k in shapes},
+           "span_ms": {k: loads_max[k] * cycles / (clock_mhz * 1e3) for k in shapes}}
+    rec["span_ms"]["config3 (both launches)"] = sum(rec["span_ms"][k] for k in parts)
+    del T3
+    torch.cuda.empty_cache()
+    a211 = NWAligner(AlignConfig(scoring=ScoringParams(2, 1, 1)), device="cuda")
+    targets = {"runs": {"fill": (bt, "fill_runs_banded_batch"), "walk": (bt, "walk_runs_batch")},
+               "auto": {"fill": (bt, "fill_greedy_counts_banded_batch"), "walk": (bt, "walk_codes_batch")}}
+    split = {"runs": [], "auto": []}
+    for engine in ("runs", "auto", "auto", "runs"):
+        with cs.walk_engine(engine):
+            split[engine].append(cs.route_split(
+                lambda: a211.align_batch(c3, traceback_strings=True, count=True).alignment_strings(),
+                targets[engine]))
+    rec["route_split_ms"] = {("runs" if e == "runs" else "codes") + " engine config3": v for e, v in split.items()}
+    print(json.dumps(rec))
+    return 0
+
+
 def main(argv) -> int:
     flags = {a for a in argv[1:] if a.startswith("--")}
     args = [a for a in argv[1:] if not a.startswith("--")]
@@ -257,6 +328,8 @@ def main(argv) -> int:
     masks_only = "--masks" in flags
     if "--variants" in flags:
         return time_variants(cs, dev, root, clock_mhz, "--check" in flags)
+    if "--runs" in flags:
+        return time_runs(cs, dev, root, clock_mhz, "--check" in flags)
     if "--check" in flags:
         errs = {"nw_walk": 0, "nw_walk_masks": 0}
         if not masks_only:

@@ -1,8 +1,9 @@
 """CUDA kernels of nw_tpu_torch vs their plain PyTorch versions:
-the code walks (``nw_walk``, the windowed walk over a checkpointed pair)
-and the tie-mask walks (``nw_walk_masks``, ``nw_walk_window``'s masks
-mode) at the shapes their shared-memory staging must get right, and the
-runs engine's fill and walk.
+the code walks (``nw_walk``, the windowed walk over a checkpointed pair),
+the tie-mask walks (``nw_walk_masks``, ``nw_walk_window``'s masks mode)
+and the run-skip walk (``nw_walk_runs``) at the shapes their
+shared-memory staging must get right, and the runs engine's fill and
+walk.
 
 These need an NVIDIA card (sm_90a) and nvcc; without one they skip.  On
 the card: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_walks.py``.
@@ -18,7 +19,8 @@ from nw_tpu_torch.ops import encode as enc
 from nw_tpu_torch.ops import fill_banded, fill_single, traceback
 
 from torch_kernel_cases import (  # noqa: F401 (cuda is a fixture)
-    SCORINGS, EDGE, MASK_STRIDES, MASK_WALK_EDGE_SHAPES, WALK_EDGE_SHAPES, cuda, _pairs, _single_pairs,
+    SCORINGS, EDGE, MASK_STRIDES, MASK_WALK_EDGE_SHAPES, RUNS_WALK_EDGE_SHAPES, RUNS_WIDTHS, WALK_EDGE_SHAPES,
+    cuda, _pairs, _single_pairs, runs_edge_pairs,
     _pair_tensors, _lens, mask_edge_pairs, _mask_window_chain, random_masks, _walk_chain,
     walk_edge_pairs, _window_chain, BYTE_WARPS, _byte_batches, _byte_fill, _byte_plain,
     _bytes_with_the_top_in_device_memory,
@@ -309,3 +311,45 @@ def test_align_batch_runs_engine_cuda_vs_codes(cuda, monkeypatch, strings, count
         np.testing.assert_array_equal(got.ops_len, r.ops_len)
         if count:
             np.testing.assert_array_equal(got.counts, r.counts)
+
+
+def _runs_vs_plain(table, lens1, lens2, S):
+    """nw_walk_runs over a run table on the card against its plain version
+    on the CPU: tolerance 0 on ops and n."""
+    want = traceback.walk_runs_batch_plain(table.cpu(), lens1.cpu(), lens2.cpu(), S)
+    for g, w in zip(traceback.walk_runs_batch(table, lens1, lens2, S), want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    return want
+
+
+@pytest.mark.parametrize("shape", RUNS_WALK_EDGE_SHAPES)
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_runs_walk_kernel_vs_plain_at_edge_shapes(cuda, mkd, shape):
+    """nw_walk_runs (walk_masks_staged's runs mode) against its plain
+    version over the runs fill's tables at the run walk's edge shapes: the
+    shape's batch whole, cut after 1 and 77 ops and one op short of its
+    longest walk, at B = 1 and at an odd B; for "widths" each pair also
+    alone in a bucket of its width A + 1 (``RUNS_WIDTHS``)."""
+    ps = runs_edge_pairs(shape)
+    T, S = _batch(ps, cuda)
+    table = fill_banded.fill_runs_banded_batch(*T, *mkd)[0]
+    longest = int(_runs_vs_plain(table, *T[2:], S)[1].max())
+    for cut in (1, 77, max(longest - 1, 1)):
+        _runs_vs_plain(table, *T[2:], cut)
+    for B in (1, len(ps) - 1 + len(ps) % 2):
+        _runs_vs_plain(table[:B], *(x[:B] for x in T[2:]), S)
+    if shape == "widths":
+        for (s1, s2), w in zip(ps, RUNS_WIDTHS):
+            assert len(s1) + 1 == w
+            T1, S1 = _batch([(s1, s2)], cuda)
+            _runs_vs_plain(fill_banded.fill_runs_banded_batch(*T1, *mkd)[0], *T1[2:], S1)
+
+
+def test_runs_walk_kernel_many_short_pairs(cuda):
+    """5 000 short pairs (more walks than 132 SMs x the walks a block hold
+    at once) under every scoring, whole and cut after 40 ops."""
+    T, S = _batch(_pairs(5002, 5000, 0, 60), cuda)
+    for mkd in SCORINGS:
+        table = fill_banded.fill_runs_banded_batch(*T, *mkd)[0]
+        for cut in (S, 40):
+            _runs_vs_plain(table, *T[2:], cut)

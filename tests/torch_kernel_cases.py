@@ -147,9 +147,9 @@ def _single_pairs(seed):
     )
 
 
-# the walks' edge shapes, their starts and the random tie-mask and code
-# tables, one definition with chip_smoke.py's card checks of the same
-# kernels
+# the walks' edge shapes (the code, masks, variant and run walks'), their
+# starts and the random tie-mask and code tables, one definition with
+# chip_smoke.py's card checks of the same kernels
 _spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
@@ -158,6 +158,8 @@ MASK_STRIDES = chip_smoke.MASK_STRIDES
 walk_edge_pairs, mask_edge_pairs, random_masks = (chip_smoke.walk_edge_pairs, chip_smoke.mask_edge_pairs,
                                                   chip_smoke.random_masks)
 VARIANT_WALK_EDGE_SHAPES = chip_smoke.VARIANT_WALK_EDGE_SHAPES
+RUNS_WALK_EDGE_SHAPES, RUNS_WIDTHS, runs_edge_pairs = (chip_smoke.RUNS_WALK_EDGE_SHAPES, chip_smoke.RUNS_WIDTHS,
+                                                       chip_smoke.runs_edge_pairs)
 variant_edge_pairs, variant_walk_starts, starts_batch, random_code_words = (
     chip_smoke.variant_edge_pairs, chip_smoke.variant_walk_starts, chip_smoke.starts_batch,
     chip_smoke.random_code_words)
