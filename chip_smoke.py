@@ -1,7 +1,7 @@
 """Smoke run of nw_tpu_torch on one NVIDIA card: the batched aligner,
 the byte-parity CLI, the variant models, the batch CLI, the sharded
-runs, the tie-mask routes, Hirschberg, the runs walk engine and the
-flat-fill API.
+runs, the tie-mask routes, Hirschberg, the runs walk engine, the
+flat-fill API, the two-pass walk engines and the resumable runners.
 
     python3 chip_smoke.py
 
@@ -46,7 +46,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    at the rule's W and each W of ``SINGLE_SWEEP`` at 20 000 and 100 000
    bp;
 7. the CLI (``python3 -m nw_tpu_torch``, the native runtime built from
-   nw_tpu_torch/runtime/cc): goldens of tests/test_cli.py as subprocesses;
+   nw_tpu_torch/runtime/cc): goldens of tests/test_cli.py as subprocesses
+   (all started at once);
    then, in-process with every launch counter set to 0 until the last
    CLI call, the same cases and 8 mixed-length tie-dense pairs under
    ``-l -s`` (BASELINE config 4) on the card against
@@ -79,8 +80,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    launched; (c') a 200 000 bp pair on ``align_huge``'s default route
    (checkpointed: its codes pass the 8 GiB budget) equal to the codes
    route under a raised budget, both walls; each mode against its plain
-   version at the sizes (b) and (c) run: on both 10 240 bp pairs (ACGT,
-   and the tie-dense AC) at ``align_huge``'s block size there (whole-pair
+   version at the sizes (b) and (c) run: on the first 10 240 bp pair
+   (ACGT; the tie-dense AC pair's check went to make room for phase 15,
+   which its (b) route checks keep) at ``align_huge``'s block size there (whole-pair
    codes, checkpoint rows, score, a middle block re-filled from the
    kernel's checkpoint, every block in one launch, the chained window
    walks), the score at 20 000 bp, a 1 280-row block (the 100 000 bp
@@ -203,7 +205,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    path's shape (rank 0's first, as ``tile_chunk`` cuts it, with row 0
    and column 0 as its edges: codes and scores at 2 ranks and 100 000 bp,
    masks at 4 ranks and 20 000 bp), timed; the timed launch's outputs
-   against the plain tile on the same inputs on the card (both edges,
+   against the plain tile on the same inputs, on the host CPU in a
+   process of its own started after the build (``HostPlain``; both edges,
    the corner and the table; a tile deeper than ``PLAIN_TILE_ROWS``: its
    right edge and table on the plain tile's first whole code bands under
    that, its bottom edge and corner the scores mode's against the codes
@@ -235,8 +238,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    100 000 bp pair (spells both inputs, re-scores to ``summary_huge``'s
    score; wall, host leaves' share) and of a 10 240 bp pair, on the card
    against ``device="cpu"`` (run in a process of its own meanwhile) byte
-   for byte, and ``nw_last_row`` against ``fill_last_row`` on the card at
-   the top-level split of the 10 240 and 20 000 bp pairs; every new
+   for byte, and ``nw_last_row`` against ``fill_last_row`` (on the host
+   CPU, ``HostPlain``) at the top-level splits of the 10 240 and 20 000
+   bp pairs, timed; every new
    kernel must have launched; ``nw_count_masks`` at one warp a pair
    against the rule's W in turns (1, W, W, 1) at 4 x 10 240 bp, 128 x
    2 048 bp and 1 024 x 256 bp, and the sweep of W (``COUNT_SWEEP``);
@@ -273,6 +277,30 @@ Phases, in order; any mismatch or exception exits non-zero:
    150 bp strings through ``align_batch``, ``nw_fill_codes`` + ``nw_walk``
    against plain); each shape's kernel time, bound and plain time.
 
+15. The two-pass walk engines and the resumable runners: (a)
+   ``nw_fill_span`` (the pipeline over a span of bands from a boundary
+   row: scores, scores + counts, codes) chained over phase 3's table in
+   spans of 12 bands at every W of ``SPAN_WARPS`` and the rule's, and of 1
+   and 5 bands at W = 1 and the rule's, and ``nw_walk_groups`` chained over
+   groups of 1, 2 and 3 bands (ops in place, and as per-group prefixes
+   stitched on the host), bit for bit against their plain versions on the
+   card (the span fill in one span of the whole table, the walk over
+   groups of 2 bands) under every scoring; then,
+   with every launch counter set to 0, (b) ``align_batch`` of config 3
+   under ``NW_TPU_WALK_ENGINE=twopass`` and ``=hoststitch``: scores,
+   counts, ops and strings equal the codes engine's byte for byte, both
+   kernels launched and no codes kernel; config 3's walls on the three
+   engines (median of 3 warm runs, in turns); (c) ``ResumableBandedFill``
+   on 128 x 10 240 bp with counts, killed after one span and resumed,
+   equal to ``fill_scores_counts_banded_batch``; (d)
+   ``ResumableBandedTraceback`` at config 3 killed in pass 1, between the
+   passes and in pass 2 (``RESUME_KILLS``) and resumed, equal to the codes
+   engine; both refuse a wrong key; (e) the kernels at config 3: the
+   checkpoint pass's and the re-fills' spans, the group walks with each
+   group's longest walk and the span floor, the twopass engine's wall
+   split into fills and walks by CUDA events, both kernels against their
+   plain versions on one group of 4 x 10 240 bp.
+
 Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu``,
 ``nw_affine.cu``, ``nw_single.cu`` and ``nw_count.cu``: registers, static
 shared memory and spills of every instantiation, the byte modes'
@@ -305,6 +333,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import atexit
 import functools
 import importlib.util
 import io
@@ -706,14 +735,21 @@ def cli_phase(card, errs):
     if native.load() is None:
         fail("the native runtime (nw_tpu_torch/runtime/cc) did not build or load")
     env = {k: v for k, v in os.environ.items() if k != "NW_TPU_PLATFORM"}
-    for args, stdin, want_out, want_err in GOLDENS:
-        res = subprocess.run(
-            [sys.executable, "-m", "nw_tpu_torch", *args], input=stdin,
-            capture_output=True, env=env, timeout=300,
-        )
-        if (res.returncode, res.stdout, res.stderr) != (0, want_out, want_err):
-            fail(f"python3 -m nw_tpu_torch {args}: got {res.returncode} {res.stdout!r} {res.stderr!r}")
-    log(f"CLI subprocess goldens: {len(GOLDENS)} byte-equal")
+    # the goldens' processes run at once (each mostly imports torch), then are read in turn
+    procs = [subprocess.Popen([sys.executable, "-m", "nw_tpu_torch", *args], stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
+             for args, _, _, _ in GOLDENS]
+    try:
+        for proc, (args, stdin, want_out, want_err) in zip(procs, GOLDENS):
+            out, err = proc.communicate(stdin, timeout=300)
+            if (proc.returncode, out, err) != (0, want_out, want_err):
+                fail(f"python3 -m nw_tpu_torch {args}: got {proc.returncode} {out!r} {err!r}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"CLI subprocess goldens: {len(GOLDENS)} byte-equal (run at once)")
 
     # inputs first: config4_pairs calls nw_fill_masks itself
     rng = np.random.default_rng(7)
@@ -834,11 +870,14 @@ def cli_phase(card, errs):
     }
     top, side = (torch.from_numpy(enc.encode(x)).cuda() for x in big[L_HUGE])
     times["sc_ms"] = cuda_ms(lambda: fs.score_count_fold(top, side, 2, 1, 1), 3)
-    one_warp = cuda_ms(lambda: fs.score_count_fold(top, side, 2, 1, 1, warps=1, blocks=1), 0)
+    # one warp alone on the pair's first 20 000 bp (at 100 kb it took ~17 s of the script)
+    cross = (top[:L_CROSS], side[:L_CROSS])
+    one_warp = cuda_ms(lambda: fs.score_count_fold(*cross, 2, 1, 1, warps=1, blocks=1), 0)
+    cross_ms = cuda_ms(lambda: fs.score_count_fold(*cross, 2, 1, 1), 3)
     log(f"nw_fill_masks {L_LONG}x{L_LONG}bp: {times['fm_ms']:.3f} ms; nw_score_count "
         f"{L_HUGE}x{L_HUGE}bp: {times['sc_ms']:.3f} ms = "
-        f"{L_HUGE * L_HUGE / (times['sc_ms'] * 1e6):.2f} GCUPS, one warp alone "
-        f"{one_warp:.1f} ms [{card}]")
+        f"{L_HUGE * L_HUGE / (times['sc_ms'] * 1e6):.2f} GCUPS; at {L_CROSS}x{L_CROSS}bp {cross_ms:.3f} ms, "
+        f"one warp alone {one_warp:.1f} ms [{card}]")
     return launches, walls, times
 
 
@@ -1716,9 +1755,8 @@ def huge_phase(card, bound):
     # here each 10 240 bp pair at the block size align_huge picks there
     t0 = time.perf_counter()
     C10 = ckt.auto_block_diagonals(L_LONG, L_LONG)
-    for i, p in enumerate(p10):
-        modes_vs_plain_10k(p, C10, errs, plain if i == 0 else None)
-    log(f"single-pair modes vs plain on both {L_LONG} bp pairs (ACGT, AC; C = {C10} rows): "
+    modes_vs_plain_10k(p10[0], C10, errs, plain)
+    log(f"single-pair modes vs plain on the first {L_LONG} bp pair (ACGT; C = {C10} rows): "
         f"{ {n: errs[n] for n in [*HUGE_KERNELS, SEEDED]} } in {time.perf_counter() - t0:.1f} s")
 
     # (c) 100 000 bp, both routes
@@ -2809,23 +2847,134 @@ SHARDED_COUNTERS = {
 TILE_MODES = {"codes": "nw_fill_tile", "scores": "nw_fill_tile/scores", "masks": "nw_fill_tile/masks"}
 L_TILE = 3000  # phase 12 (a): the pair whose 4 row blocks x 5 chunks are checked
 L_PALLAS = 20_000  # phase 12 (b): the masks engine's pair, 4 ranks
-# phase 12 (d): a path tile's rows held against the plain tile (its time
-# goes with rows + columns anti-diagonals: ~2 of the 100 kb tile's 2.5
-# minutes are its 100 000 columns); a deeper tile is held on its first
-# whole code bands under this; the 20 kb masks tile's whole depth
+# phase 12 (d): a path tile's rows held against the plain tile (on the
+# host, ``HostPlain``; its time goes with rows + columns anti-diagonals);
+# a deeper tile is held on its first whole code bands under this; the
+# 20 kb masks tile's whole depth
 PLAIN_TILE_ROWS = 5_000
 
 
-def tile_table(mode, A, H):
+def tile_table(mode, A, H, device="cuda"):
     """A zeroed table of H rows for the tile ``mode``: 2-bit codes, tie
     masks or (scores) none."""
     from nw_tpu_torch.ops.fill_scan import code_shape
 
     if mode == "codes":
-        return torch.zeros(code_shape(1, A, H), dtype=torch.int32, device="cuda")
+        return torch.zeros(code_shape(1, A, H), dtype=torch.int32, device=device)
     if mode == "masks":
-        return torch.zeros((H, A + 1), dtype=torch.uint8, device="cuda")
+        return torch.zeros((H, A + 1), dtype=torch.uint8, device=device)
     return None
+
+
+# phase 12 (d)'s path tile of each mode: (ranks, pair length)
+PATH_TILES = {"codes": (2, L_HUGE), "scores": (2, L_HUGE), "masks": (4, L_PALLAS)}
+
+
+def path_tile_case(world, L, device):
+    """Phase 12 (d)'s tile at ``world`` ranks of phase 8's pair cut to L
+    bp, rank 0's first (row 0 and column 0 as its edges), on ``device``:
+    (top, side, C, halo, left, H, nch, Hp), Hp the rows held against the
+    plain tile (whole code bands under ``PLAIN_TILE_ROWS``, or all H)."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.parallel import huge_pair as hp
+
+    big = rand_pairs(np.random.default_rng(L_HUGE), 1, L_HUGE, L_HUGE)[0]
+    top, side = (torch.from_numpy(enc.encode(x[:L])).to(device) for x in big)
+    H, nch, _ = hp.tile_geometry(L, L, world, hp.tile_chunk(L, L, world))
+    C = min(hp.tile_chunk(L, L, world), L)
+    halo = torch.arange(0, -(C + 1), -1, dtype=torch.int32, device=device)
+    left = torch.arange(-1, -(H + 1), -1, dtype=torch.int32, device=device)
+    Hp = H if H <= PLAIN_TILE_ROWS else PLAIN_TILE_ROWS - PLAIN_TILE_ROWS % 32
+    return top, side, C, halo, left, H, nch, Hp
+
+
+def last_row_case(L, device):
+    """Phase 13 (e)'s ``nw_last_row`` input at the top-level split of the
+    L bp Hirschberg pair (the 10 240 bp pair, or phase 8's cut to L bp):
+    (top, side[:L // 2])."""
+    pair = (rand_pairs(np.random.default_rng(132), 1, L_LONG, L_LONG)[0] if L == L_LONG
+            else tuple(x[:L] for x in rand_pairs(np.random.default_rng(L_HUGE), 1, L_HUGE, L_HUGE)[0]))
+    top, side = (torch.from_numpy(np.frombuffer(x, np.uint8).astype(np.int32)).to(device) for x in pair)
+    return top, side[: L // 2]
+
+
+# plain checks whose inputs come from seeds alone, run on the host CPU in
+# a process of their own from the kernels' build on (``HostPlain``): on
+# the card a plain anti-diagonal sweep pays ~1 ms a diagonal in launches
+# (the 100 kb tile's 105 000 diagonals took 82 s on an H100's host), on
+# the host it overlaps the phases before its own; one thread, as a
+# diagonal's operations are too small for torch's intra-op threads
+HOST_PLAIN_THREADS = 1
+HOST_PLAIN_JOBS = ("tile_codes", "tile_masks", f"last_row_{L_LONG}", f"last_row_{L_CROSS}")
+
+
+def host_plain_job(name):
+    """One ``HOST_PLAIN_JOBS`` entry on the CPU: {array name: array}."""
+    from nw_tpu_torch.ops import fill_single as fs
+
+    kind, arg = name.rsplit("_", 1)
+    if kind == "last_row":
+        return {"row": fs.last_row_plain(*last_row_case(int(arg), "cpu"), 2, 1, 1).numpy()}
+    mode = arg
+    top, side, C, halo, left, H, nch, Hp = path_tile_case(*PATH_TILES[mode], "cpu")
+    table = tile_table(mode, top.shape[0], Hp, "cpu")
+    right, bottom, corner = first_tile(fs.fill_tile_plain, top, side[:Hp], (2, 1, 1), C, halo, left[:Hp], mode,
+                                       table)
+    return {"right": right.numpy(), "bottom": bottom.numpy(), "corner": torch.as_tensor(corner).numpy(),
+            "table": table.numpy()}
+
+
+def host_plain_jobs(directory):
+    """Run every ``HOST_PLAIN_JOBS`` entry on the CPU, each saved as
+    ``directory/<name>.npz`` with its seconds (``python3 -c 'import
+    chip_smoke; chip_smoke.host_plain_jobs(directory)'``, the process
+    ``HostPlain`` starts)."""
+    torch.set_num_threads(HOST_PLAIN_THREADS)
+    for name in HOST_PLAIN_JOBS:
+        t0 = time.perf_counter()
+        out = host_plain_job(name)
+        path = os.path.join(directory, f"{name}.npz")
+        with open(path + ".tmp", "wb") as f:
+            np.savez(f, seconds=np.asarray(time.perf_counter() - t0), **out)
+        os.replace(path + ".tmp", path)
+
+
+class HostPlain:
+    """The process of ``host_plain_jobs``, started at construction;
+    ``get(name)`` waits for it (once) and returns that job's arrays and
+    its host seconds; ``close()`` stops it and removes its files."""
+
+    def __init__(self, parent):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="host_plain_", dir=parent)
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.host_plain_jobs(sys.argv[1])", self.dir],
+            cwd=here, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        )
+        self.t0 = time.perf_counter()
+        self.wall = None
+
+    def get(self, name):
+        if self.wall is None:
+            self.wall = time.perf_counter() - self.t0
+            _, err = self.proc.communicate(timeout=max(60.0, 1000 - self.wall))
+            if self.proc.returncode != 0:
+                fail(f"the host plain jobs failed:\n{err.decode()[-2000:]}")
+            log(f"host plain jobs {HOST_PLAIN_JOBS} ({HOST_PLAIN_THREADS} thread(s)): first needed {self.wall:.1f} s "
+                f"after their start, waited for {time.perf_counter() - self.t0 - self.wall:.1f} s")
+        with np.load(os.path.join(self.dir, f"{name}.npz")) as saved:
+            out = {k: torch.from_numpy(saved[k]) for k in saved.files if k != "seconds"}
+            return out, float(saved["seconds"])
+
+    def close(self):
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def first_tile(tile, top, side, mkd, C, halo, left, mode, table):
@@ -2896,8 +3045,10 @@ def tiles_vs_plain(pair, mkd, H, C, errs, plain_tiles=True):
     errs["nw_walk_window/masks"] = max(errs["nw_walk_window/masks"], e)
 
 
-def sharded_phase(card, bound):
-    """Phase 12: sharded runs.  Returns the new kernels' record fields."""
+def sharded_phase(card, bound, host):
+    """Phase 12: sharded runs (the path tiles' plain versions from
+    ``host``, a :class:`HostPlain`).  Returns the new kernels' record
+    fields."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nw_tpu_torch.parallel.workers import RankGroup
@@ -2944,7 +3095,7 @@ def sharded_phase(card, bound):
         for key, f in pending.items():
             groups[key] = f.result()
         pool.shutdown()
-        return sharded_path(card, bound, groups, starts, errs, t_phase)
+        return sharded_path(card, bound, groups, starts, errs, t_phase, host)
     finally:
         for g in groups.values():
             g.close(kill=True)
@@ -2975,53 +3126,42 @@ def relay(walk, tables, H, where="cuda"):
     return state, ops
 
 
-def path_tiles_vs_plain(card, bound, big, launches, errs):
+def path_tiles_vs_plain(card, bound, big, launches, errs, host):
     """Phase 12 (d): the kernels at the path's shapes against their plain
-    versions on the same inputs, timed.  Returns their record fields."""
+    versions on the same inputs (the tiles' from ``host``, a
+    :class:`HostPlain`), timed.  Returns their record fields."""
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import fill_single as fs
     from nw_tpu_torch.ops import traceback as tb
-    from nw_tpu_torch.parallel import huge_pair as hp
 
     dev = torch.device("cuda")
     # each tile mode on its rank 0's first tile of the path (real edges: row 0, column 0)
     rec = {}
     t_all, s_all = (torch.from_numpy(enc.encode(x)).to(dev) for x in big)
     mkd = (2, 1, 1)
-    plain_runs = {}  # (ranks, L) -> (plain ms, its outputs): the codes mode's edges are the scores mode's
     edges = {}  # mode -> the full-depth tile's (right, bottom, corner)
-    for name, mode, world, L in (("nw_fill_tile", "codes", 2, L_HUGE),
-                                 ("nw_fill_tile/scores", "scores", 2, L_HUGE),
-                                 ("nw_fill_tile/masks", "masks", 4, L_PALLAS)):
-        top, side = t_all[:L], s_all[:L]
-        H, nch, _ = hp.tile_geometry(L, L, world, hp.tile_chunk(L, L, world))
-        C = min(hp.tile_chunk(L, L, world), L)
-        halo = torch.arange(0, -(C + 1), -1, dtype=torch.int32, device=dev)
-        left = torch.arange(-1, -(H + 1), -1, dtype=torch.int32, device=dev)
+    for mode, (world, L) in PATH_TILES.items():
+        name = TILE_MODES[mode]
+        top, side, C, halo, left, H, nch, Hp = path_tile_case(world, L, dev)
         table = tile_table(mode, L, H)
         launch = lambda: first_tile(fs.fill_tile, top, side[:H], mkd, C, halo, left, mode, table)  # noqa: E731
         ms = cuda_ms(launch, 2)
         got = launch()  # the timed launch's outputs, checked below
-        # its first Hp rows, whole code bands, held against the plain tile of Hp rows
-        Hp = H if H <= PLAIN_TILE_ROWS else PLAIN_TILE_ROWS - PLAIN_TILE_ROWS % 32
-        if (world, L) not in plain_runs:
-            want_table = tile_table(mode, L, Hp)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = first_tile(fs.fill_tile_plain, top, side[:Hp], mkd, C, halo, left[:Hp], mode, want_table)
-            torch.cuda.synchronize()
-            plain_runs[world, L] = ((time.perf_counter() - t0) * 1e3, want, want_table)
-        p_ms, want, want_table = plain_runs[world, L]
-        e = max_abs_err(got[0][:Hp], want[0])
+        # its first Hp rows, whole code bands, held against the host's plain tile of Hp rows
+        want, p_s = host.get("tile_masks" if mode == "masks" else "tile_codes")  # the scores mode's: the codes'
+        p_ms = p_s * 1e3
+        e = max_abs_err(got[0][:Hp], want["right"])
         if Hp == H:
-            e = max(e, max_abs_err(got[1], want[1]), max_abs_err(got[2], want[2]))
+            e = max(e, max_abs_err(got[1], want["bottom"]), max_abs_err(got[2], want["corner"]))
         else:  # the bottom edge and corner of all H rows: the scores mode's against the codes mode's
             edges[mode] = got
             if mode == "scores":
                 e = max([e] + [max_abs_err(g, w) for g, w in zip(got, edges["codes"])])
         if table is not None:
             part = table[:Hp] if mode == "masks" else table[:, :Hp // 32]
-            e = max(e, 0 if torch.equal(part, want_table) else max_abs_err(part, want_table))
+            w = want["table"].to(dev)
+            e = max(e, 0 if torch.equal(part, w) else max_abs_err(part, w))
+            del w
         errs[name] = max(errs[name], e)
         cells = H * C
         ops_cell = OPS_SCORE + (OPS_CODE if mode != "scores" else 0)
@@ -3031,7 +3171,8 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
             ms=ms, **bound(cells * ops_cell, in_bytes + out_bytes + 4 * (H + C + 1)),
             plain_ms=p_ms, plain_rows=Hp, launches=launches[name], max_abs_err=errs[name],
             shape=f"one tile of {H} rows x {C} columns (rank 0's first of {nch} at {world} ranks, "
-                  f"{L} bp); ms: all {H} rows; plain_ms: fill_tile_plain on the card "
+                  f"{L} bp); ms: all {H} rows; plain_ms: fill_tile_plain on the host CPU ({HOST_PLAIN_THREADS} "
+                  f"thread(s), in a process of its own during the earlier phases) "
                   + (f"on all plain_rows = {Hp} rows, the timed launch's edges, corner and table held "
                      f"against it" if Hp == H else
                      f"on the first plain_rows = {Hp} rows only (not a ratio against ms), the timed "
@@ -3040,7 +3181,7 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
                   + (", in codes mode (its edges are this mode's)" if mode == "scores" else ""),
         )
         del table, got
-    del plain_runs, edges, want, want_table
+    del edges, want
     torch.cuda.empty_cache()
     # the 1-rank path's one tile (the whole pair) against nw_fill_codes_single, which it generalises
     row0 = torch.arange(0, -(L_HUGE + 1), -1, dtype=torch.int32, device=dev)
@@ -3082,10 +3223,10 @@ def path_tiles_vs_plain(card, bound, big, launches, errs):
     return rec
 
 
-def sharded_path(card, bound, groups, starts, errs, t_phase):
+def sharded_path(card, bound, groups, starts, errs, t_phase, host):
     """Phase 12 (b), (c) on the started rank groups, then (d) the kernels
-    at the path's tile shapes against their plain versions, and their
-    times."""
+    at the path's tile shapes against their plain versions (the tiles'
+    from ``host``, a :class:`HostPlain`), and their times."""
     from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import traceback as tb
@@ -3166,7 +3307,7 @@ def sharded_path(card, bound, groups, starts, errs, t_phase):
     for g in groups.values():
         g.close()
 
-    rec = path_tiles_vs_plain(card, bound, big, launches, errs)
+    rec = path_tiles_vs_plain(card, bound, big, launches, errs, host)
     for name, fields in rec.items():
         log(f"kernel {name}: {fields['ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms "
             f"({fields['bound_by']}), plain {fields['plain_ms']:.1f} ms, {fields['shape']} [{card}]")
@@ -3409,8 +3550,9 @@ def masks_path(card, a211, route_pairs, big, p10, timers):
     return out, routes, (big_xy, hb_wall, hb_split, p10_xy, hb10_wall), launches
 
 
-def masks_phase(card, bound):
-    """Phase 13: the tie-mask routes and Hirschberg.  Returns the new
+def masks_phase(card, bound, host):
+    """Phase 13: the tie-mask routes and Hirschberg (``nw_last_row``'s
+    plain rows from ``host``, a :class:`HostPlain`).  Returns the new
     kernels' record fields."""
     from nw_tpu_torch import AlignConfig, NWAligner, ScoringParams
     from nw_tpu_torch.models import needleman_wunsch as nwm
@@ -3511,15 +3653,15 @@ def masks_phase(card, bound):
         log(f"phase 13 (e) hirschberg_align {L_LONG} bp: card ({hb10_wall:.2f} s) equals device='cpu' "
             f"(its own process, {time.perf_counter() - t_cpu:.1f} s after its start) byte for byte [{card}]")
         k9 = {}
-        for L, pair in ((L_LONG, p10), (L_CROSS, (big[0][:L_CROSS], big[1][:L_CROSS]))):
-            top, side = (torch.from_numpy(np.frombuffer(s, np.uint8).astype(np.int32)).to(dev) for s in pair)
-            h = L // 2  # the top-level split's forward row
-            got = fs.last_row(top, side[:h], 2, 1, 1)
-            plain, plain_ms = cuda_once(lambda: fs.last_row_plain(top, side[:h], 2, 1, 1))
-            errs["nw_last_row"] = max(errs["nw_last_row"], max_abs_err(got, plain))
-            k9[L] = (cuda_ms(lambda: fs.last_row(top, side[:h], 2, 1, 1), 3), plain_ms, top, side[:h])
-            log(f"phase 13 (e) nw_last_row at the top-level split of {L} bp ({L}x{h}): max |diff| vs "
-                f"fill_last_row {errs['nw_last_row']}; kernel {k9[L][0]:.3f} ms, plain {plain_ms:.1f} ms [{card}]")
+        for L in (L_LONG, L_CROSS):
+            top, side = last_row_case(L, dev)  # the top-level split's forward row
+            got = fs.last_row(top, side, 2, 1, 1)
+            plain, plain_s = host.get(f"last_row_{L}")
+            errs["nw_last_row"] = max(errs["nw_last_row"], max_abs_err(got, plain["row"]))
+            k9[L] = (cuda_ms(lambda: fs.last_row(top, side, 2, 1, 1), 3), plain_s * 1e3, top, side)
+            log(f"phase 13 (e) nw_last_row at the top-level split of {L} bp ({L}x{side.shape[0]}): max |diff| vs "
+                f"fill_last_row {errs['nw_last_row']}; kernel {k9[L][0]:.3f} ms, plain {plain_s * 1e3:.1f} ms (on the "
+                f"host CPU, {HOST_PLAIN_THREADS} thread(s)) [{card}]")
         if errs["nw_last_row"]:
             fail(f"nw_last_row differs from fill_last_row at the path's splits: {errs}")
 
@@ -3600,7 +3742,8 @@ def masks_phase(card, bound):
             ms=k9_ms, plain_ms=k9_plain,
             **bound(top.shape[0] * side.shape[0] * OPS_SCORE, tensor_bytes(top, side) + 4 * (top.shape[0] + 1)),
             shape=f"1x{L_LONG}bp, the top-level split's row ({L_LONG}x{side.shape[0]}); at {L_CROSS}bp "
-                  f"{k9[L_CROSS][0]:.3f} ms, plain {k9[L_CROSS][1]:.1f} ms")
+                  f"{k9[L_CROSS][0]:.3f} ms, plain {k9[L_CROSS][1]:.1f} ms; plain_ms on the host CPU "
+                  f"({HOST_PLAIN_THREADS} thread(s), in a process of its own during the earlier phases)")
         for name, fields in rec.items():
             fields.update(launches=launches[name], max_abs_err=errs[name])
             log(f"kernel {name}: {fields['ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms "
@@ -4018,6 +4161,392 @@ def runs_phase(card, bound, aligner, small, c3, r3, aligned3, c2):
     return rec
 
 
+# phase 15: the two-pass engines and the resumable runners
+SPAN_WARPS = (1, 2, 3, 8, 16, 32)  # nw_fill_span at forced warps a pair (and the rule's)
+SPAN_VARIANTS = ("scores", "counts", "codes")
+SPAN_SIZES = (1, 5, 12)  # bands a span in phase 15 (a)'s chains (every W at the last)
+GROUP_SIZES = (1, 2, 3)  # bands a group in nw_walk_groups' chains
+TWOPASS_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel
+    "nw_fill_span": ("fill_banded", "fill_span_banded_batch"),
+    "nw_walk_groups": ("traceback", "walk_codes_groups"),
+}
+TWOPASS_ENGINES = ("twopass", "hoststitch")
+L_RESUME = 128  # ResumableBandedFill's batch: 128 x 10 240 bp with counts
+RESUME_KILLS = (2, 5, 7)  # config 3's 5 groups a span: in pass 1, between the passes, in pass 2
+
+
+def span_chain(T, mkd, variant, S, warps=None, plain=False):
+    """``nw_fill_span`` (``plain``: its plain version, on T's device) in
+    ``variant`` ("scores", "counts", "codes", or for the plain version
+    alone "counts+codes", one fill for every output) over the whole table
+    of T = (tops, sides, lens1, lens2) from row 0, spans of S bands at
+    ``warps`` warps a pair (None: the rule's): after each span its
+    outputs (bnd, [cbnd,] scores, [counts,] [codes]), cloned."""
+    from nw_tpu_torch.ops import fill_banded as fb
+
+    B, A = T[0].shape
+    nbands = -(-T[1].shape[1] // 32)
+    with_counts = variant in ("counts", "counts+codes")
+    emit_codes = variant in ("codes", "counts+codes")
+    bnd, cbnd = fb.span_row0(B, A, mkd[2], with_counts, T[0].device)
+    scores = torch.zeros(B, dtype=torch.int32, device=T[0].device)
+    counts = torch.zeros_like(scores) if with_counts else None
+    out = []
+    for r0 in range(0, max(nbands, 1), S):
+        if plain:
+            codes = fb.fill_span_banded_batch_plain(*T, *mkd, r0, S, bnd, cbnd, scores, counts, emit_codes)
+        else:
+            codes = fb.fill_span_banded_batch(*T, *mkd, r0, S, bnd, cbnd, scores, counts,
+                                              emit_codes=emit_codes, warps=warps)
+        out.append(tuple(x.clone() for x in (bnd, cbnd, scores, counts, codes) if x is not None))
+    return out
+
+
+def groups_walk(walk, codes, lens1, lens2, S, width, prefixes=False):
+    """``walk`` (``walk_codes_groups`` or its plain version) chained over
+    the groups of S bands of a whole table's codes int32[B, nbands, TW,
+    32], last group first, from each corner: (state int32[B, 3], ops
+    int8[B, width]), the ops stitched in place, or with ``prefixes`` each
+    group's ops a prefix of its own, stitched on the host by
+    ``compact_group_ops`` (ops then a CPU tensor)."""
+    from nw_tpu_torch.ops import banded_traceback as bt
+    from nw_tpu_torch.ops.traceback import OP_NONE
+
+    B, nbands = codes.shape[:2]
+    dev = codes.device
+    state = torch.stack([lens1, lens2, torch.zeros_like(lens1)], 1).to(torch.int32).contiguous()
+    groups = range(max(1, -(-nbands // S)) - 1, -1, -1)
+    if not prefixes:
+        ops = torch.full((B, width), OP_NONE, dtype=torch.int8, device=dev)
+        for g in groups:
+            walk(codes[:, g * S : (g + 1) * S].contiguous(), state, 32 * g * S, ops)
+        return state, ops
+    pre = torch.full((len(groups), B, bt._group_cap(width, S)), OP_NONE, dtype=torch.int8, device=dev)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    ng = []
+    for idx, g in enumerate(groups):
+        before = state[:, 2].clone()
+        walk(codes[:, g * S : (g + 1) * S].contiguous(), state, 32 * g * S, pre[idx], zero)
+        ng.append(state[:, 2] - before)
+    ops, _ = bt.compact_group_ops(bt.pack_ops4(pre).cpu().numpy(), torch.stack(ng).cpu().numpy(), width)
+    return state, torch.from_numpy(ops)
+
+
+def span_walk_vs_plain(dev, small, errs):
+    """Phase 15 (a): ``nw_fill_span`` in its three variants, chained over
+    phase 3's table in spans of ``SPAN_SIZES`` bands (at 12 bands at every
+    W of ``SPAN_WARPS`` and the rule's, at 1 and 5 bands at W = 1 and the
+    rule's; the cuda tests hold every W span by span), against its plain
+    version on the card in one span of the whole table with counts and
+    codes: the last span's row, scores and counts, and the codes of all
+    spans; and ``nw_walk_groups`` chained over groups of ``GROUP_SIZES``
+    bands (ops in place, and at 2 bands as prefixes stitched on the host)
+    against its plain version chained over groups of 2 bands, under every
+    scoring."""
+    from nw_tpu_torch import AlignConfig
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+
+    def err(got, want):  # max_abs_err, its host copies only where they differ
+        return 0 if torch.equal(got, want.to(got.device)) else max_abs_err(got, want)
+
+    # the plain span's outputs (bnd, cbnd, scores, counts) each variant has
+    picks = {"scores": (0, 2), "counts": (0, 1, 2, 3), "codes": (0, 2)}
+    cfg = AlignConfig()
+    L1 = cfg.bucket_for(max(len(a) for a, _ in small))
+    L2 = cfg.bucket_for(max(len(b) for _, b in small))
+    T = enc.upload(enc.encode_batch(small, L1, L2), dev)
+    width = L1 + L2
+    secs = {"plain": 0.0, "span": 0.0, "walk": 0.0}
+    for mkd in SCORINGS:
+        t0 = time.perf_counter()
+        (plain,) = span_chain(T, mkd, "counts+codes", -(-L2 // 32), plain=True)
+        codes = plain[4]
+        p_state, p_ops = groups_walk(tb.walk_codes_groups_plain, codes, *T[2:], 2, width)
+        t1 = time.perf_counter()
+        e = 0
+        for variant, pick in picks.items():
+            for S in SPAN_SIZES:
+                for W in ((*SPAN_WARPS, None) if S == SPAN_SIZES[-1] else (1, None)):
+                    got = span_chain(T, mkd, variant, S, W)
+                    e = max(e, *(err(a, plain[x]) for a, x in zip(got[-1], pick)))
+                    if variant == "codes":
+                        e = max(e, err(torch.cat([x[2] for x in got], 1), codes))
+        errs["nw_fill_span"] = max(errs["nw_fill_span"], e)
+        t2 = time.perf_counter()
+        ew = 0
+        for S in GROUP_SIZES:
+            g_state, g_ops = groups_walk(tb.walk_codes_groups, codes, *T[2:], S, width)
+            ew = max(ew, err(g_state, p_state), err(g_ops, p_ops))
+            if S == 2:
+                _, h_ops = groups_walk(tb.walk_codes_groups, codes, *T[2:], S, width, prefixes=True)
+                ew = max(ew, err(h_ops, p_ops))
+        errs["nw_walk_groups"] = max(errs["nw_walk_groups"], ew)
+        t3 = time.perf_counter()
+        for key, dt in (("plain", t1 - t0), ("span", t2 - t1), ("walk", t3 - t2)):
+            secs[key] += dt
+        log(f"phase 15 (a) nw_fill_span ({len(picks)} variants, spans of {SPAN_SIZES} bands, W in {SPAN_WARPS} and "
+            f"the rule's at {SPAN_SIZES[-1]}, 1 and the rule's below) and nw_walk_groups (groups of {GROUP_SIZES} "
+            f"bands) vs plain, {len(small)} pairs {L1}x{L2} bucket, m k d = {mkd}: span {e}, walk {ew}")
+        del plain, codes
+    log(f"phase 15 (a) seconds: the plain versions {secs['plain']:.1f}, the span chains {secs['span']:.1f}, "
+        f"the group walks {secs['walk']:.1f}")
+    if any(errs.values()):
+        fail(f"a two-pass kernel differs from its plain version: {errs}")
+
+
+def twopass_path(card, aligner, c3, r3, aligned3):
+    """Phase 15 (b) with the two-pass kernels' and the codes kernels'
+    launch counters from 0: ``align_batch`` of config 3 on
+    ``NW_TPU_WALK_ENGINE=twopass`` and ``=hoststitch``, held to the codes
+    engine byte for byte.  Returns the launches and each engine's cold
+    wall."""
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+
+    wrappers = wrappers_of(TWOPASS_KERNELS)
+    codes_wrappers = (fb.fill_greedy_counts_banded_batch, tb.walk_codes_batch)
+    for w in (*wrappers.values(), *codes_wrappers):
+        w.launches = 0
+    cold = {}
+    for engine in TWOPASS_ENGINES:
+        with walk_engine(engine):
+            t0 = time.perf_counter()
+            r = aligner.align_batch(c3, traceback_strings=True, count=True)
+            aligned = r.alignment_strings()
+            cold[engine] = time.perf_counter() - t0
+        for f in ("scores", "counts", "ops", "ops_len"):
+            if not np.array_equal(getattr(r, f), getattr(r3, f)):
+                fail(f"config 3 on the {engine} engine: {f} differ from the codes engine's")
+        if aligned != aligned3:
+            fail(f"config 3 on the {engine} engine: strings differ from the codes engine's")
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    codes_launches = sum(w.launches for w in codes_wrappers)
+    log(f"phase 15 (b) path launches: {launches}; the codes kernels {codes_launches}")
+    if not all(launches.values()) or codes_launches:
+        fail(f"the two-pass engines did not run on their own kernels: {launches}, codes kernels {codes_launches}")
+    log(f"phase 15 (b) align_batch config 3 ({len(c3)}x{L_LONG}bp, strings+counts) on NW_TPU_WALK_ENGINE="
+        f"twopass and =hoststitch: scores, counts, ops and strings equal the codes engine's byte for byte; "
+        f"cold walls {', '.join(f'{e} {w:.4f} s' for e, w in cold.items())} [{card}]")
+    return launches
+
+
+def resumable_runs(card, T3, T128, r3, tmp):
+    """Phase 15 (c), (d): ``ResumableBandedFill`` on 128 x 10 240 bp with
+    counts killed after one span and resumed in a fresh runner, against
+    ``fill_scores_counts_banded_batch``; ``ResumableBandedTraceback`` at
+    config 3 killed after spans ``RESUME_KILLS`` (in pass 1, between the
+    passes, in pass 2) and resumed, against the codes engine's outputs;
+    both refuse a wrong key.  Returns their uninterrupted walls."""
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.runtime.checkpoint import ResumableBandedFill, ResumableBandedTraceback
+
+    want_sc, want_ct = (x.cpu().numpy() for x in fb.fill_scores_counts_banded_batch(*T128, 2, 1, 1))
+    fdir = os.path.join(tmp, "fill")
+    try:
+        ResumableBandedFill(fdir, save_every=64).run(*T128, 2, 1, 1, with_counts=True, _abort_after_spans=1)
+        fail("ResumableBandedFill was not stopped after its first span")
+    except KeyboardInterrupt:
+        pass
+    sc, ct = ResumableBandedFill(fdir, save_every=64).run(*T128, 2, 1, 1, with_counts=True)
+    if not (np.array_equal(sc, want_sc) and np.array_equal(ct, want_ct.astype(np.uint32))):
+        fail("ResumableBandedFill resumed after one span differs from fill_scores_counts_banded_batch")
+    try:
+        ResumableBandedFill(fdir, save_every=64).run(*T128, 3, 1, 1, with_counts=True)
+        fail("ResumableBandedFill resumed a fill of another scoring")
+    except ValueError:
+        pass
+    t0 = time.perf_counter()
+    ResumableBandedFill(os.path.join(tmp, "fill_whole"), save_every=64).run(*T128, 2, 1, 1, with_counts=True)
+    walls = {"fill": time.perf_counter() - t0}
+    log(f"phase 15 (c) ResumableBandedFill {L_RESUME}x{L_LONG}bp with counts, spans of 64 bands: killed after span 1 "
+        f"and resumed, scores and counts equal fill_scores_counts_banded_batch's; a wrong key refused; "
+        f"uninterrupted wall {walls['fill']:.3f} s [{card}]")
+    want = (r3.scores, r3.counts, r3.ops, r3.ops_len)
+    for kill in RESUME_KILLS:
+        d = os.path.join(tmp, f"walk{kill}")
+        try:
+            ResumableBandedTraceback(d, save_every=1).run(*T3, 2, 1, 1, with_counts=True, _abort_after_spans=kill)
+            fail(f"ResumableBandedTraceback was not stopped after span {kill}")
+        except KeyboardInterrupt:
+            pass
+        got = ResumableBandedTraceback(d, save_every=1).run(*T3, 2, 1, 1, with_counts=True)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"ResumableBandedTraceback killed after span {kill} and resumed differs from the codes engine")
+    try:
+        ResumableBandedTraceback(os.path.join(tmp, f"walk{RESUME_KILLS[0]}"), save_every=1).run(
+            *T3, 2, 1, 2, with_counts=True)
+        fail("ResumableBandedTraceback resumed a run of another scoring")
+    except ValueError:
+        pass
+    t0 = time.perf_counter()
+    ResumableBandedTraceback(os.path.join(tmp, "walk_whole"), save_every=1).run(*T3, 2, 1, 1, with_counts=True)
+    walls["traceback"] = time.perf_counter() - t0
+    log(f"phase 15 (d) ResumableBandedTraceback config 3 ({T3[0].shape[0]}x{L_LONG}bp, counts, groups of 64 bands, "
+        f"a save a group): killed after spans {RESUME_KILLS} (pass 1, between the passes, pass 2) and resumed, "
+        f"scores, counts, ops and n equal the codes engine's; a wrong key refused; uninterrupted wall "
+        f"{walls['traceback']:.3f} s [{card}]")
+    return walls
+
+
+def twopass_phase(card, bound, aligner, small, c3, r3, aligned3):
+    """Phase 15: the two-pass walk engines (``nw_fill_span``,
+    ``nw_walk_groups``) and the resumable runners.  Returns the record
+    fields of the two kernels."""
+    import tempfile
+
+    from nw_tpu_torch.ops import banded_traceback as bt
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.runtime import kernels
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    errs = {name: 0 for name in TWOPASS_KERNELS}
+    t0 = time.perf_counter()
+    span_walk_vs_plain(dev, small, errs)
+    log(f"phase 15 (a) seconds {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    launches = twopass_path(card, aligner, c3, r3, aligned3)
+
+    # (b) config 3's walls on the three engines, in turns
+    engines = ("auto", *TWOPASS_ENGINES)
+    walls = {e: [] for e in engines}
+    for turn in range(3):
+        for engine in (engines if turn % 2 == 0 else engines[::-1]):
+            with walk_engine(engine):
+                t0 = time.perf_counter()
+                aligner.align_batch(c3, traceback_strings=True, count=True).alignment_strings()
+                walls[engine].append(time.perf_counter() - t0)
+    med = {e: statistics.median(ws) for e, ws in walls.items()}
+    nb, LB = len(c3), L_LONG
+    log(f"phase 15 (b) config 3 ({nb}x{LB}bp, strings+counts) walls in turns (3 warm runs each): "
+        + "; ".join(f"{e} {[round(w, 4) for w in walls[e]]} s, median {med[e]:.4f} s = {nb / med[e]:.1f} pairs/s"
+                    for e in engines)
+        + f"; twopass / codes {med['twopass'] / med['auto']:.3f}, hoststitch / codes "
+          f"{med['hoststitch'] / med['auto']:.3f} [{card}]")
+
+    # (c), (d) the resumable runners
+    T3 = enc.upload(enc.encode_batch(c3, LB, LB), dev)
+    T128 = tuple(t[:L_RESUME] for t in T3)
+    kernels.BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD) as tmp:
+        rwalls = resumable_runs(card, T3, T128, r3, tmp)
+    torch.cuda.empty_cache()
+
+    # (e) the kernels at config 3: the checkpoint pass's spans, the group
+    # re-fills and the group walks, each summed over its 5 launches
+    tp = bt.TwoPass(*T3, 2, 1, 1, with_counts=True)
+    G = tp.ngroups
+
+    def pass1():
+        carry, cps = tp.start(), []
+        tp.checkpoint_pass(carry, lambda g, bnd: cps.append(bnd.clone()))
+        return cps, carry[2], carry[3]
+
+    (cps, sc1, ct1), _ = cuda_once(pass1)
+    pass1_ms = cuda_ms(pass1, 2)
+    junk = torch.empty(nb, dtype=torch.int32, device=dev)
+
+    def refill(g):
+        return fb._fill_span_kernel(*T3, 2, 1, 1, g * tp.S, tp.S, cps[g].clone(), None, junk, None, True)
+
+    refill_ms = [cuda_ms(lambda: refill(g), 2) for g in range(G)]
+    group_codes = [refill(g) for g in range(G)]
+    ops = torch.full((nb, tp.width), 3, dtype=torch.int8, device=dev)
+
+    def walks():
+        state = tp.cursor()
+        for g in range(G - 1, -1, -1):
+            tb.walk_codes_groups(group_codes[g], state, 32 * g * tp.S, ops)
+        return state
+
+    walk_ms = cuda_ms(walks, 3)
+    # each group's longest walk, for the walks' span floor
+    state, longest, steps = tp.cursor(), [], 0
+    for g in range(G - 1, -1, -1):
+        before = state[:, 2].clone()
+        tb.walk_codes_groups(group_codes[g], state, 32 * g * tp.S, ops)
+        longest.append(int((state[:, 2] - before).max()))
+    steps = int(state[:, 2].to(torch.int64).sum())
+    e_path = max(max_abs_err(state[:, 2], torch.from_numpy(r3.ops_len)), max_abs_err(ops, torch.from_numpy(r3.ops)),
+                 max_abs_err(sc1, torch.from_numpy(r3.scores)),
+                 max_abs_err(ct1.to(torch.int64) & 0xFFFFFFFF, torch.from_numpy(r3.counts.astype(np.int64))))
+    if e_path:
+        fail(f"the two-pass kernels at config 3 differ from the codes engine: {e_path}")
+    span_floor = bound.span(sum(longest))
+    del group_codes, cps
+    torch.cuda.empty_cache()
+    # the engine's config-3 wall, its span fills and its group walks inside it (CUDA events)
+    with walk_engine("twopass"):
+        split = route_split(lambda: aligner.align_batch(c3, traceback_strings=True, count=True).alignment_strings(),
+                            {"fill": (bt, "fill_span_checked"), "walk": (bt, "walk_codes_groups")})
+    log(f"phase 15 (e) the twopass engine's config-3 wall {split['wall']:.2f} ms: span fills {split['fill']:.3f} ms, "
+        f"group walks {split['walk']:.3f} ms (CUDA events around each launch, medians of 3 warm runs) [{card}]")
+    # the plain versions: one group (64 bands) of the first 4 config-3 pairs, against the kernels there
+    T4 = tuple(t[:4] for t in T3)
+    b4, c4 = fb.span_row0(4, LB, 1, True, dev)
+    s4, n4 = torch.zeros(4, dtype=torch.int32, device=dev), torch.zeros(4, dtype=torch.int32, device=dev)
+    k_args = [x.clone() for x in (b4, c4, s4, n4)]
+    _, plain_fill_ms = cuda_once(lambda: fb.fill_span_banded_batch_plain(*T4, 2, 1, 1, 0, tp.S, b4, c4, s4, n4))
+    kern_fill_ms = cuda_ms(lambda: fb.fill_span_banded_batch(*T4, 2, 1, 1, 0, tp.S, *[x.clone() for x in k_args]), 2)
+    fb.fill_span_banded_batch(*T4, 2, 1, 1, 0, tp.S, *k_args)
+    e_fill = max(max_abs_err(a, b) for a, b in zip(k_args, (b4, c4, s4, n4)))
+    codes4 = fb.fill_greedy_counts_banded_batch(*T4, 2, 1, 1)[0][:, (G - 1) * tp.S :].contiguous()
+    start4 = torch.stack([T4[2], T4[3], torch.zeros_like(T4[2])], 1).to(torch.int32).contiguous()
+    ops_k = torch.full((4, tp.width), 3, dtype=torch.int8, device=dev)
+    ops_p, st_p = ops_k.clone(), start4.clone()
+    st_k = start4.clone()
+    _, plain_walk_ms = cuda_once(lambda: tb.walk_codes_groups_plain(codes4, st_p, 32 * (G - 1) * tp.S, ops_p))
+    tb.walk_codes_groups(codes4, st_k, 32 * (G - 1) * tp.S, ops_k)
+    kern_walk_ms = cuda_ms(lambda: tb.walk_codes_groups(codes4, start4.clone(), 32 * (G - 1) * tp.S, ops_k.clone()), 3)
+    e_walk = max(max_abs_err(st_k, st_p), max_abs_err(ops_k, ops_p))
+    errs["nw_fill_span"] = max(errs["nw_fill_span"], e_fill)
+    errs["nw_walk_groups"] = max(errs["nw_walk_groups"], e_walk)
+    log(f"phase 15 (e) one group ({tp.S} bands) of 4x{LB}bp vs plain on the card: span fill {e_fill} (kernel "
+        f"{kern_fill_ms:.3f} ms, plain {plain_fill_ms:.1f} ms), the last group's walk {e_walk} (kernel "
+        f"{kern_walk_ms:.3f} ms, plain {plain_walk_ms:.1f} ms) [{card}]")
+    if e_fill or e_walk:
+        fail(f"a two-pass kernel differs from its plain version at the path's width: {errs}")
+    cells3 = nb * LB * LB
+    in_bytes = tensor_bytes(*T3)
+    row_bytes = nb * (LB + 1) * 4  # a boundary row of the batch
+    pass1_bound = bound(cells3 * (OPS_SCORE + OPS_COUNT), G * (in_bytes + 4 * row_bytes) + 8 * nb)
+    refill_bound = bound(cells3 * (OPS_SCORE + OPS_CODE), G * (in_bytes + 2 * row_bytes) + cells3 // 4)
+    fill_total = pass1_ms + sum(refill_ms)
+    rec = {
+        "nw_fill_span": dict(
+            ms=fill_total, plain_ms=plain_fill_ms,
+            bound_ms=pass1_bound["bound_ms"] + refill_bound["bound_ms"],
+            bound_by=pass1_bound["bound_by"] if pass1_bound["bound_ms"] >= refill_bound["bound_ms"]
+            else refill_bound["bound_by"],
+            pass1_ms=pass1_ms, refill_ms=refill_ms, pass1_bound_ms=pass1_bound["bound_ms"],
+            refill_bound_ms=refill_bound["bound_ms"], engine_wall_ms=split["wall"], engine_fill_ms=split["fill"],
+            warps=fb.fill_warps(nb, LB, 32 * tp.S, 8, torch.cuda.get_device_properties(0).multi_processor_count),
+            walls_s=walls, resumable_fill_s=rwalls["fill"], resumable_traceback_s=rwalls["traceback"],
+            shape=f"config 3, {nb}x{LB}bp in {G} groups of {tp.S} bands: the checkpoint pass (scores+counts) "
+                  f"{pass1_ms:.3f} ms in {G} launches, the codes re-fills {' + '.join(f'{x:.3f}' for x in refill_ms)} "
+                  f"ms; plain_ms on one group of 4x{LB}bp (kernel there {kern_fill_ms:.3f} ms)"),
+        "nw_walk_groups": dict(
+            ms=walk_ms, plain_ms=plain_walk_ms,
+            **bound(steps * OPS_WALK_STEP, tensor_bytes(*T3[2:]) + 2 * 12 * nb + steps + steps // 4),
+            span_floor_ms=span_floor, group_longest=longest, ns_per_step=walk_ms * 1e6 / sum(longest),
+            engine_walk_ms=split["walk"],
+            shape=f"config 3 in {G} launches, {steps} steps, each group's longest {longest} (span floor "
+                  f"{span_floor:.4f} ms); plain_ms on the last group of 4x{LB}bp (kernel there {kern_walk_ms:.3f} ms)"),
+    }
+    for name, fields in rec.items():
+        fields.update(launches=launches[name], max_abs_err=errs[name])
+        log(f"kernel {name}: {fields['ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms ({fields['bound_by']}), "
+            f"plain {fields['plain_ms']:.1f} ms, {fields['shape']} [{card}]")
+    log(f"phase 15 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+    return rec
+
+
 # the pipeline at a forced W (warps a pair): phase 3 holds nw_scores and
 # nw_fill_codes at each W against plain, phases 9 and 10 sw_scores,
 # overlap_scores and gotoh_scores, phase 11 gotoh_fill_codes; phases 5
@@ -4221,6 +4750,8 @@ def main() -> None:
     ptxas = start_ptxas_report()
     kernels.load()
     log(f"kernel build+load: {time.perf_counter() - t0:.1f} s ({kernels.library_path().name})")
+    host = HostPlain(kernels.BUILD)  # the seeded plain checks of phases 12 and 13, on the host meanwhile
+    atexit.register(host.close)
     print_ptxas_report(ptxas)
     bound.smem_cycles = smem_load_cycles()
     log(f"one dependent shared-memory load: {bound.smem_cycles:.2f} cycles (nw_smem_chase, clock64); "
@@ -4450,11 +4981,13 @@ def main() -> None:
     var_rec, overlap_walk = variants_phase(card, bound)
     gotoh_rec = gotoh_phase(card, bound, c3_strings)
     # 12. sharded runs (their own ranks and launch counters)
-    sharded_rec = sharded_phase(card, bound)
+    sharded_rec = sharded_phase(card, bound, host)
     # 13. the tie-mask routes and Hirschberg (their own launch counters)
-    masks_rec = masks_phase(card, bound)
+    masks_rec = masks_phase(card, bound, host)
     # 14. the runs walk engine and the flat-fill API (their own launch counters)
     runs_rec = runs_phase(card, bound, aligner, small, c3, r3, aligned, c2)
+    # 15. the two-pass walk engines and the resumable runners (their own launch counters)
+    twopass_rec = twopass_phase(card, bound, aligner, small, c3, r3, aligned)
     sw_rec["sw_walk"]["launches"] += overlap_walk["launches"]
     sw_rec["sw_walk"]["max_abs_err"] = max(sw_rec["sw_walk"]["max_abs_err"], overlap_walk["max_abs_err"])
     sw_rec["sw_walk"]["shape"] += f"; overlap walks 128x{L_SW_TB}bp {overlap_walk['ms']:.3f} ms"
@@ -4593,6 +5126,15 @@ def main() -> None:
         kernels_line.append({"name": name, "route": "cuda",
                              "source": runs_src.get(name, "nw_tpu_torch/csrc/nw_fill.cu"),
                              "replaces": runs_replaces[name], **fields})
+    twopass_replaces = {
+        "nw_fill_span": "nw_tpu/ops/fill_pallas_banded.py:98 (K1) and :342 (K2), band by band with the boundary "
+                        "row carried (banded_traceback.py:77-110, runtime/checkpoint.py:560-580)",
+        "nw_walk_groups": "nw_tpu/ops/banded_traceback.py:115 (_make_walk_loop, global_bands=False)",
+    }
+    twopass_src = {"nw_fill_span": "nw_tpu_torch/csrc/nw_fill.cu", "nw_walk_groups": "nw_tpu_torch/csrc/nw_walk.cu"}
+    for name, fields in twopass_rec.items():
+        kernels_line.append({"name": name, "route": "cuda", "source": twopass_src[name],
+                             "replaces": twopass_replaces[name], **fields})
     byte_kernels = {"nw_fill_masks_batch": "bytes_pipe_kernel<kMasks>",
                     "nw_fill_masks_batch/flat": "bytes_pipe_kernel<kMasks>",
                     "nw_fill_runs_batch": "bytes_pipe_kernel<kRuns>"}

@@ -23,6 +23,10 @@
 //   K2 in its with_runs mode (run bytes for the run-skip walk,
 //      banded_traceback.py:_banded_walk_runs_device), here with
 //      optional fused counts                               -> nw_fill_runs_batch
+//   K1 and K2 (pack_bits=2) called band by band with the boundary row
+//      carried in and out, as the two-pass engine and the resumable
+//      fill run them (banded_traceback.py:77-110,
+//      runtime/checkpoint.py:560-580)                      -> nw_fill_span
 //
 // Semantics are those of nw_tpu/ops/fill_scan.py:24-28, 118-163, with
 // the boundaries written explicitly (row 0: -c*d, LEFT, one path;
@@ -118,6 +122,30 @@
 // only large memory traffic is the code store (2 bits per cell, written
 // once: 26 MB for one 10240 x 10240 pair).  W = 1 keeps a warp a pair
 // for batches that fill the card.
+//
+// The band-span mode (nw_fill_span_kernel, SPAN): the global sweep of
+// bands r0 .. r0 + nb - 1 only, nb = min(span, ceil(Bs/32) - r0), from a
+// boundary row that bnd / cbnd bring in (the row above band r0, row 0
+// from the caller for r0 = 0) instead of row 0 written by the block.  The
+// launch sweeps them as its bands 0 .. nb - 1, local band b on warp b % W,
+// so the rounds, in_base and the wrap-around are the whole sweep's; only
+// the rows (j, column 0's -j*d, the corner's chunk, the pads past Bs) are
+// the table's.  A pair's score and count are written by the span that
+// holds its row len2 (len2 = 0 by the span from band 0, off the seed
+// row's column len1).  The span's last band leaves its last row in bnd /
+// cbnd whichever warp runs it: lane 31 puts it into the warp's ring and
+// the warp copies each finished chunk into bnd, as warp W - 1 does.  On
+// warp w < W - 1 the ring's slots were last read by warp w + 1 in the
+// round before, so the band waits for done[w + 1] to reach min(g -
+// kSlots + 1, its final count) (never for a band w + 1 does not have).
+// The in-place argument above holds for this write too: the span's last
+// band, at chunk q, runs behind warp 0's band of its round by the chain
+// of ring waits, so warp 0 has staged columns up to t0 + 63 of bnd before
+// the band writes columns t0 - 31 .. t0 (on warp 0 itself, up to t0 + 31
+// at the chunk's start, as with W = 1); and every other writer of those
+// columns (warp W - 1's bands of the round before) precedes warp 0's
+// staging of them.  Codes go to codes[b, band - r0], the span's bands in
+// nw_fill_codes's layout.
 //
 // The free score fills on the pipeline (MODE kLocal, kOverlap; scores
 // only) change the global sweep in four places.  Row 0 and column 0 are
@@ -301,14 +329,14 @@ template <int V> struct Best { static constexpr int value = V; };
 // the pair's row of top16 (int16[B, pipe_top_cols(A)]) in device memory,
 // for a top too long for a block's shared memory, read through L1.
 // jstar, istar: the free code fills' best cell.
-template <int MODE, bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
+template <int MODE, bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM, bool SPAN = false>
 __device__ __forceinline__ void pipe_fill(
     const int* __restrict__ tops, const int* __restrict__ sides,
     const int* __restrict__ lens1, const int* __restrict__ lens2,
     int A, int Bs, int m, int k, int d, int* bnd, unsigned* cbnd,
     unsigned* __restrict__ codes, int* __restrict__ scores,
     unsigned* __restrict__ counts, short* top16, int* __restrict__ jstar = nullptr,
-    int* __restrict__ istar = nullptr) {
+    int* __restrict__ istar = nullptr, int r0 = 0, int span = 0) {
   constexpr bool LOCAL = MODE == kLocal;
   constexpr bool OVERLAP = MODE == kOverlap;
   constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
@@ -319,6 +347,7 @@ __device__ __forceinline__ void pipe_fill(
   constexpr bool BYTES = MASKS || RUNS;  // a byte a cell, through the warp's byte ring
   static_assert(MODE == kGlobal || (FREE && !WITH_COUNTS) || (BYTES && !EMIT_CODES),
                 "the pipeline's local and overlap fills keep no counts; the byte modes store no codes");
+  static_assert(!SPAN || MODE == kGlobal, "the band-span mode is the global recurrence's");
   using C = typename Cell<WITH_COUNTS>::type;
   extern __shared__ __align__(16) int pipe_sh[];
   const int lane = threadIdx.x & 31;
@@ -330,7 +359,9 @@ __device__ __forceinline__ void pipe_fill(
   // reads no cell past the true table, so it sweeps that table alone (a
   // code fill writes every code of the bucket table)
   const int nchunks = ((TRIM ? lens1[b] + 1 : M) + 31 + 31) >> 5;
-  const int nbands = ((TRIM ? lens2[b] : Bs) + 31) >> 5;
+  // SPAN: bands r0 .. r0 + nbands - 1 of the table, swept as bands 0 ..
+  // nbands - 1 of this launch (band is local, gband global)
+  const int nbands = SPAN ? min(span, ((Bs + 31) >> 5) - r0) : ((TRIM ? lens2[b] : Bs) + 31) >> 5;
   C* const rings = reinterpret_cast<C*>(pipe_sh);
   C* const stage = rings + W * kRing;
   volatile int* done = reinterpret_cast<int*>(stage + 32);
@@ -356,18 +387,22 @@ __device__ __forceinline__ void pipe_fill(
   // the top string, row 0 (-c*d, one path; 0 in the free fills) into the
   // boundary row and (BYTES) the table, counters
   pipe_stage_top(top_s, top, A);
-  for (int c = threadIdx.x; c < M; c += blockDim.x) {
-    brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
-    if (WITH_COUNTS) crow[c] = 1u;
-    // row 0: LEFT (RUNS: a left run from the origin), the origin and the
-    // columns past len1 0
-    if constexpr (MASKS) pm[c] = c >= 1 && c <= l1 ? kMaskLeft : 0u;
-    if constexpr (RUNS) pm[c] = c >= 1 && c <= l1 ? min(static_cast<unsigned>(c), kRunCap) << 2 | kCodeLeft : 0u;
+  if constexpr (!SPAN) {  // SPAN: bnd / cbnd hold the row above band r0
+    for (int c = threadIdx.x; c < M; c += blockDim.x) {
+      brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
+      if (WITH_COUNTS) crow[c] = 1u;
+      // row 0: LEFT (RUNS: a left run from the origin), the origin and the
+      // columns past len1 0
+      if constexpr (MASKS) pm[c] = c >= 1 && c <= l1 ? kMaskLeft : 0u;
+      if constexpr (RUNS) pm[c] = c >= 1 && c <= l1 ? min(static_cast<unsigned>(c), kRunCap) << 2 | kCodeLeft : 0u;
+    }
   }
   if (threadIdx.x < W) done[threadIdx.x] = 0;
-  if (!FREE && l2 == 0 && threadIdx.x == 0) {
-    scores[b] = wsub(0, wmul(l1, d));
-    if (WITH_COUNTS) counts[b] = 1u;
+  // a corner on row 0 (SPAN: the seed row, which only the span from band
+  // 0 reads as row 0)
+  if (!FREE && l2 == 0 && threadIdx.x == 0 && (!SPAN || r0 == 0)) {
+    scores[b] = SPAN ? brow[l1] : wsub(0, wmul(l1, d));
+    if (WITH_COUNTS) counts[b] = SPAN ? crow[l1] : 1u;
   }
   __syncthreads();
 
@@ -384,17 +419,24 @@ __device__ __forceinline__ void pipe_fill(
   [[maybe_unused]] int lt = 0;
   [[maybe_unused]] int rb = 0, rk = 0, rj = 0;  // ARGMAX: the lane's best cell (score, kk, j)
   for (int band = warp, round = 0; band < nbands; band += W, ++round) {
-    const int j = band * 32 + 1 + lane;  // this lane's row
+    const int gband = SPAN ? r0 + band : band;  // the band in the table
+    const int j = gband * 32 + 1 + lane;  // this lane's row
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : kSidePad;
     const int col0 = FREE ? 0 : wsub(0, wmul(j, d));  // H[j][0]
     const bool feeds = band + 1 < nbands;  // a band below reads this one's last row
     const bool to_ring = feeds && !last_warp;  // ... from this warp's ring
+    // SPAN: the span's last band leaves its last row in bnd / cbnd,
+    // through its ring (whose slots warp + 1, done with its last band a
+    // round before, no longer reads) and the copy after each chunk
+    [[maybe_unused]] const bool leaves = SPAN && !feeds;
+    const bool hands = feeds || leaves;  // lane 31 writes the last row into the ring
+    const bool waits_out = to_ring || (leaves && !last_warp);
     // warp 0 reads warp W-1's band of the round before (none in round 0:
     // the boundary row holds row 0)
     const int in_base = (warp > 0 ? round : round - 1) * nchunks;
     // the chunk of the true corner's step, in the band that holds row len2
-    const int jj_c = l2 - 1 - band * 32;
+    const int jj_c = l2 - 1 - gband * 32;
     const int corner_q = !FREE && jj_c >= 0 && jj_c < 32 ? (l1 + jj_c) >> 5 : -1;
     // LOCAL, OVERLAP: the columns of this lane's row that the best reads,
     // [lo, hi]: LOCAL 1..len1 (the true rectangle), OVERLAP the end
@@ -467,7 +509,8 @@ __device__ __forceinline__ void pipe_fill(
       const int t0 = q << 5;
       // the row above's columns t0 .. t0+31 are in (the band above has
       // completed chunk q+1), and this chunk's slots have been read
-      pipe_wait(done, in_warp, in_base + min(q + 2, nchunks), to_ring, warp + 1, g - kSlots + 1);
+      pipe_wait(done, in_warp, in_base + min(q + 2, nchunks), waits_out, warp + 1,
+                SPAN && !to_ring ? min(g - kSlots + 1, round * nchunks) : g - kSlots + 1);
       const C* above = in_ring + (g & (kSlots - 1)) * 32;
       if (warp == 0) {  // stage the chunk of the boundary row
         const int cx = t0 + lane;
@@ -484,7 +527,7 @@ __device__ __forceinline__ void pipe_fill(
       // into slot g-1 at 1..31 and column t0 (step 31) into slot g at 0
       C* const out_lo = out_ring + ((g - 1) & (kSlots - 1)) * 32 + 1;
       C* const out_hi = out_ring + (g & (kSlots - 1)) * 32;
-      const bool pub_hi = lane == 31 && feeds;
+      const bool pub_hi = lane == 31 && hands;
       const bool pub_lo = pub_hi && q > 0;
       const short* const tq = top_lane + t0;
       // BYTES: this chunk's 32 slots of the lane's row of the byte ring
@@ -659,7 +702,7 @@ __device__ __forceinline__ void pipe_fill(
       }
 
       __syncwarp();  // the chunk's ring writes are in
-      if (last_warp && feeds) {  // columns t0-31 .. t0 into the boundary row
+      if ((last_warp && feeds) || leaves) {  // columns t0-31 .. t0 into the boundary row
         const int col = t0 - 31 + lane;
         if (col >= 0 && col < M) {
           const C v = lane < 31 ? out_lo[lane] : out_hi[0];
@@ -750,6 +793,22 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_pipe_kernel(
       tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores, counts, top16);
 }
 
+// Needleman-Wunsch on the pipeline, bands r0 .. r0 + span - 1 (cut at
+// the table's last) from the row above band r0 in bnd / cbnd, which it
+// leaves holding the span's last row (nw_fill_span): a kernel of its own,
+// so nw_fill_pipe_kernel keeps its machine code.
+template <bool EMIT_CODES, bool WITH_COUNTS, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) nw_fill_span_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2,
+    int A, int Bs, int m, int k, int d, int r0, int span, int* bnd, unsigned* cbnd,
+    unsigned* __restrict__ codes, int* __restrict__ scores,
+    unsigned* __restrict__ counts, short* top16) {
+  pipe_fill<kGlobal, EMIT_CODES, WITH_COUNTS, TOP_SMEM, true>(
+      tops, sides, lens1, lens2, A, Bs, m, k, d, bnd, cbnd, codes, scores, counts, top16,
+      nullptr, nullptr, r0, span);
+}
+
 // The LOCAL and OVERLAP score fills on the pipeline (sw_scores,
 // overlap_scores): a kernel of their own, so the global instantiations
 // keep their machine code.
@@ -834,6 +893,27 @@ int launch_pipe(const int* tops, const int* sides, const int* lens1,
     kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k,
                                             d, bnd, cbnd, codes, scores, counts, top16);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool EMIT_CODES, bool WITH_COUNTS>
+int launch_span(const int* tops, const int* sides, const int* lens1, const int* lens2, int B,
+                int A, int Bs, int m, int k, int d, int r0, int span, int warps, short* top16,
+                int* bnd, unsigned* cbnd, unsigned* codes, int* scores, unsigned* counts,
+                cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (warps < 1 || warps > kMaxWarps || A < 0 || Bs < 0 || r0 < 0 || span < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = pipe_smem(warps, A, sizeof(typename Cell<WITH_COUNTS>::type), !top16);
+  auto kernel = top16 ? nw_fill_span_kernel<EMIT_CODES, WITH_COUNTS, false>
+                      : nw_fill_span_kernel<EMIT_CODES, WITH_COUNTS, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k, d, r0, span,
+                                          bnd, cbnd, codes, scores, counts, top16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -980,6 +1060,38 @@ extern "C" int nw_fill_runs_batch(const int* tops, const int* sides,
                                            d, warps, t16, bnd, cb, rb, scores, ct, s);
   return launch_pipe<kRuns, false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k,
                                           d, warps, t16, bnd, cb, rb, scores, ct, s);
+}
+
+// K1 and K2 as nw_tpu's two-pass engine calls them, band by band with
+// the boundary row carried (the checkpoint pass and the group re-fill):
+// bands r0 .. min(r0 + span, ceil(Bs/32)) - 1 from the row above band r0
+// in bnd (int32[B, A+1]) and, with with_counts, cbnd (uint32[B, A+1]),
+// both left holding the span's last row (its rows past Bs swept over
+// pads).  Writes scores[b] (and counts[b]) only for a pair whose row len2
+// lies in the span (len2 = 0: the span from band 0, off bnd's column
+// len1), and with emit_codes the span's codes, uint32[B, nb, TW, 32] in
+// nw_fill_codes's band-major layout, nb the span's bands.  Three
+// variants: scores, scores + counts, codes (no counts).  W = warps a pair,
+// top16 as nw_scores's.
+extern "C" int nw_fill_span(const int* tops, const int* sides, const int* lens1,
+                            const int* lens2, int B, int A, int Bs, int m, int k, int d,
+                            int r0, int span, int emit_codes, int with_counts, int warps,
+                            void* top16, int* bnd, void* cbnd, void* codes, int* scores,
+                            void* counts, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto t16 = static_cast<short*>(top16);
+  auto cb = static_cast<unsigned*>(cbnd);
+  auto cw = static_cast<unsigned*>(codes);
+  auto ct = static_cast<unsigned*>(counts);
+  if (emit_codes && with_counts) return static_cast<int>(cudaErrorInvalidValue);
+  if (emit_codes)
+    return launch_span<true, false>(tops, sides, lens1, lens2, B, A, Bs, m, k, d, r0, span,
+                                    warps, t16, bnd, cb, cw, scores, ct, s);
+  if (with_counts)
+    return launch_span<false, true>(tops, sides, lens1, lens2, B, A, Bs, m, k, d, r0, span,
+                                    warps, t16, bnd, cb, cw, scores, ct, s);
+  return launch_span<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k, d, r0, span,
+                                   warps, t16, bnd, cb, cw, scores, ct, s);
 }
 
 extern "C" const char* nw_error_string(int err) {

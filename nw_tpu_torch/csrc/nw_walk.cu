@@ -5,10 +5,15 @@
 // of the one-pass and two-pass engines) and
 // nw_tpu/ops/traceback.py:traceback_greedy2.  Those were jnp code, not
 // Pallas; in eager PyTorch a 20 000-step loop of small ops is bound by
-// launch overhead, so the walk is a kernel too.  Because the port fills
-// the codes of the whole sub-batch at once (nw_fill.cu), the group walk
-// and its on-device stitch (device_stitch_pack) have no counterpart:
-// each pair's ops come out in order in one pass.
+// launch overhead, so the walk is a kernel too.  The codes engine fills
+// the codes of the whole sub-batch at once (nw_fill.cu) and walks each
+// pair in one pass (nw_walk).  The two-pass engines re-fill one group of
+// bands at a time (nw_fill_span) and walk every pair whose cursor lies in
+// it (nw_walk_groups: _make_walk_loop with global_bands=False, a warp a
+// pair from its (i, j, n) in device memory to the group's top row); its
+// ops go in place at the running n, the on-device stitch
+// (device_stitch_pack) done as they are written, or as a per-group
+// prefix that the host stitches.
 //
 // Contract.  A walk starts at the true corner (len2, len1), reads the
 // 2-bit code of its cell from the band-major layout of nw_fill.cu (word
@@ -685,6 +690,36 @@ __global__ void nw_walk_window_staged_kernel(const unsigned* __restrict__ codes,
   }
 }
 
+// One group of rows of each pair of a batch, a warp a pair, kWalkWarps
+// pairs a block: nbands bands of 2-bit codes a pair (rows j0+1 ..
+// j0+32*nbands), each walk from its (i, j, n) in state[b] to row j0 (or
+// the origin when j0 is 0), its ops at ops[b * stride + off[b] + t] for
+// its t-th step here (off null: off[b] = n, the op string stitched in
+// place), at most stride - off[b] of them
+__global__ void nw_walk_groups_kernel(const unsigned* __restrict__ codes, int B, int nbands,
+                                      int TW, int j0, int* __restrict__ state,
+                                      const int* __restrict__ off, int stride,
+                                      signed char* __restrict__ ops) {
+  __shared__ __align__(128) unsigned char smem[kWalkWarps * kWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWalkWarps + warp;
+  if (b >= B) return;
+  int* const st = state + 3 * b;
+  int i = st[0], j = st[1], n = st[2];
+  // a start outside the group's codes walks nowhere
+  if (j < j0 || j > j0 + 32 * nbands || i < 0 || i >= 16 * TW - 31 || n < 0) return;
+  const int n0 = n, o = off ? off[b] : n0;
+  if (o < 0 || o > stride) return;
+  // walk_staged writes step n at out[n]: out[n0] is ops[b, o]
+  walk_staged<kGlobal>(codes + b * nbands * TW * 32, TW, smem + warp * kWarpBytes, j0,
+                       n0 + stride - o, i, j, n, ops + b * stride + o - n0);
+  if ((threadIdx.x & 31) == 0) {
+    st[0] = i;
+    st[1] = j;
+    st[2] = n;
+  }
+}
+
 // The local walk of a batch, a warp a pair, kLocalWarps pairs a block:
 // from each best cell (j*, i*) to its STOP, row 0 or column 0
 __global__ void sw_walk_staged_kernel(const unsigned* __restrict__ codes,
@@ -1334,6 +1369,27 @@ extern "C" int nw_walk_window(const void* codes, int nbands, int TW, int j0,
     return static_cast<int>(cudaErrorInvalidValue);
   nw_walk_window_staged_kernel<<<1, 32, 0, s>>>(static_cast<const unsigned*>(codes), nbands, TW,
                                                 j0, state, S, ops);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// codes: uint32[B, nbands, TW, 32], one group's codes of each pair, rows
+// j0+1 .. j0+32*nbands (nw_fill_span's codes mode), 16-byte aligned;
+// state: int32[B, 3] = (i, j, n), read and written back; off: int32[B]
+// or null; ops: int8[B, stride].  Each pair walks from its state to row
+// j0 (the origin when j0 is 0), writing its t-th op here at ops[b, off[b]
+// + t] (off null: at ops[b, n], the op string stitched in place), at most
+// stride - off[b] ops.  A start with j outside [j0, j0 + 32*nbands] or i
+// + 32 > 16*TW leaves its state as it was.  A warp a pair on
+// walk_staged's ring, kWalkWarps pairs a block.
+extern "C" int nw_walk_groups(const void* codes, int B, int nbands, int TW, int j0, int* state,
+                              const int* off, int stride, signed char* ops, void* stream) {
+  if (B <= 0) return 0;
+  if (nbands < 0 || TW < 0 || j0 < 0 || stride < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!codes_aligned(codes, static_cast<int64_t>(nbands) * TW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  nw_walk_groups_kernel<<<(B + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(codes), B, nbands, TW, j0, state, off, stride, ops);
   return static_cast<int>(cudaGetLastError());
 }
 

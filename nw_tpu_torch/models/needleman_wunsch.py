@@ -29,10 +29,13 @@ Counterpart of ``nw_tpu/models/needleman_wunsch.py``:
 * strings, with or without counts -> sub-batches through
   :func:`nw_tpu_torch.ops.banded_traceback.traceback_banded_dispatch`
   on the walk engine ``NW_TPU_WALK_ENGINE`` names: ``nw_fill_codes``
-  then ``nw_walk`` (``auto``, ``onepass``), or ``nw_fill_runs_batch``
-  then ``nw_walk_runs`` (``runs``).  This route stores a value per cell
-  (2 bits of code, or a run byte), so it is cut into sub-batches, sized
-  by :func:`strings_sub_batch` so that one sub-batch's table fits
+  then ``nw_walk`` (``auto``, ``onepass``), ``nw_fill_runs_batch``
+  then ``nw_walk_runs`` (``runs``), or group by group ``nw_fill_span``
+  (a checkpoint pass, then each group's codes re-filled) and
+  ``nw_walk_groups`` (``twopass``, ``hoststitch``).  This route stores a
+  value per cell (2 bits of code, or a run byte; the two-pass engines a
+  group's codes and a row a group), so it is cut into sub-batches, sized
+  by :func:`strings_sub_batch` so that one sub-batch's state fits
   :data:`CODE_BUDGET_BYTES`; every engine gives the same outputs;
 * counts or strings of fewer than ``BANDED_MIN_BATCH`` pairs with sides
   over ``HUGE_PAIR_MIN_SIDE`` -> one pair at a time: counts through
@@ -59,7 +62,7 @@ from nw_tpu_torch.config import AlignConfig, ScoringParams
 from nw_tpu_torch.ops import encode as enc
 from nw_tpu_torch.ops import enumerate_walk, traceback
 from nw_tpu_torch.ops.banded_traceback import (
-    ENGINE_CELL_BITS,
+    engine_pair_bytes,
     resolve_walk_engine,
     traceback_banded_dispatch,
     traceback_banded_finalize,
@@ -130,9 +133,11 @@ def code_bytes_per_pair(L1: int, L2: int, bits: int = 2) -> int:
 def strings_sub_batch(L1: int, L2: int, engine: str) -> int:
     """Pairs a strings sub-batch takes at buckets (L1, L2) on the walk
     engine ``engine``: as many as fit :data:`CODE_BUDGET_BYTES` at the
-    bits a cell the engine stores (2 for codes, 8 for run bytes)."""
-    bits = ENGINE_CELL_BITS[engine]
-    return max(1, CODE_BUDGET_BYTES // code_bytes_per_pair(L1, L2, bits))
+    bytes a pair the engine keeps on the device
+    (:func:`nw_tpu_torch.ops.banded_traceback.engine_pair_bytes`: a whole
+    table of 2-bit codes or run bytes, or the two-pass engines'
+    checkpoint rows and one group's codes)."""
+    return max(1, CODE_BUDGET_BYTES // engine_pair_bytes(L1, L2, engine))
 
 
 @dataclasses.dataclass

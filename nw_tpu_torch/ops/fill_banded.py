@@ -81,6 +81,7 @@ from nw_tpu_torch.ops.fill_scan import (
     diag_to_matrix_batch,
     fill_diag_batch,
     greedy_codes_from_arrows,
+    pack_band_major,
     zero_outside,
 )
 from nw_tpu_torch.ops.fill_single import (
@@ -363,6 +364,187 @@ def fill_greedy_counts_banded_batch_plain(
     )
     codes = greedy_codes_from_arrows(out["arrows"])
     return codes, out["score"], out.get("count")
+
+
+# ---------------- K1 / K2 band by band: a span of bands from a boundary row ----------------
+
+SIDE_PAD = -5  # the pipeline's side character past Bs (nw_common.cuh's kSidePad)
+
+
+def span_bands(Bs: int, r0: int, span: int) -> int:
+    """The bands a span from band ``r0`` of ``span`` bands sweeps in a
+    table of ``Bs`` rows (32 a band): it stops at the table's last."""
+    return max(0, min(span, -(-Bs // 32) - r0))
+
+
+def span_row0(B: int, A: int, d: int, with_counts: bool, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The boundary row a span from band 0 reads, row 0 of every table:
+    (bnd int32[B, A+1] = -c*d in wrapping int32, cbnd int32[B, A+1] = 1
+    or None)."""
+    c = torch.arange(A + 1, dtype=torch.int64, device=device) * -d
+    row = (((c + 2**31) & U32) - 2**31).to(torch.int32)
+    bnd = row.expand(B, A + 1).contiguous()
+    cbnd = torch.ones((B, A + 1), dtype=torch.int32, device=device) if with_counts else None
+    return bnd, cbnd
+
+
+def _check_span(tops, sides, r0, span, bnd, cbnd, scores, counts, emit_codes):
+    B, A, _ = _dims(tops, sides)
+    if r0 < 0 or span < 1:
+        raise ValueError(f"a span needs r0 >= 0 and span >= 1, not {r0}, {span}")
+    if emit_codes and cbnd is not None:
+        raise ValueError("the span's codes variant keeps no counts")
+    if (cbnd is None) != (counts is None):
+        raise ValueError("cbnd and counts go together")
+    for name, t, shape in (("bnd", bnd, (B, A + 1)), ("cbnd", cbnd, (B, A + 1)),
+                           ("scores", scores, (B,)), ("counts", counts, (B,))):
+        if t is None:
+            continue
+        if t.shape != shape or t.dtype != torch.int32 or not t.is_contiguous() or t.device != tops.device:
+            raise ValueError(f"{name} must be a contiguous int32{list(shape)} on the inputs' device")
+
+
+def fill_span_banded_batch(
+    tops, sides, lens1, lens2, m, k, d, r0: int, span: int, bnd: torch.Tensor,
+    cbnd: Optional[torch.Tensor] = None, scores: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None, emit_codes: bool = False, warps: Optional[int] = None,
+) -> Optional[torch.Tensor]:
+    """Bands r0 .. r0+span-1 (cut at the table's last) of a batch's fill,
+    from the boundary row above band r0, in place.
+
+    The port of K1 and K2 as ``nw_tpu``'s two-pass engine and resumable
+    fill call them, band by band with the boundary row carried
+    (``banded_traceback.py:77-110``, ``runtime/checkpoint.py:560-580``).
+    bnd: int32[B, A+1], row 32*r0 of every table (:func:`span_row0` for
+    r0 = 0); with cbnd (int32[B, A+1], uint32 bits) its counts.  Both are
+    left holding the span's last row, 32*(r0+nb) (its rows past Bs swept
+    over the pads).  scores / counts (int32[B], counts as uint32 bits):
+    written only for the pairs whose row len2 lies in the span (len2 = 0:
+    the span from band 0, off bnd's column len1), the others kept.
+    Three variants: scores (no cbnd), scores + counts (cbnd and counts),
+    and ``emit_codes``, which returns the span's codes int32[B, nb, TW,
+    32] in :func:`fill_greedy_counts_banded_batch`'s band-major layout
+    (no counts; else None).  ``nw_fill_span`` at ``warps`` warps a pair
+    (default :func:`fill_warps` at the span's bands) on CUDA tensors,
+    :func:`fill_span_banded_batch_plain` on CPU tensors.
+    """
+    _check(tops, sides, lens1, lens2, m, k, d)
+    if scores is None:
+        scores = torch.empty(tops.shape[0], dtype=torch.int32, device=tops.device)
+    _check_span(tops, sides, r0, span, bnd, cbnd, scores, counts, emit_codes)
+    return fill_span_checked(tops, sides, lens1, lens2, m, k, d, r0, span, bnd, cbnd, scores, counts,
+                             emit_codes, warps)
+
+
+fill_span_banded_batch.launches = 0
+
+
+def fill_span_checked(tops, sides, lens1, lens2, m, k, d, r0, span, bnd, cbnd, scores, counts,
+                      emit_codes=False, warps=None):
+    """:func:`fill_span_banded_batch` on inputs already checked (scores
+    given): ``nw_fill_span`` on CUDA tensors, the plain version on CPU
+    tensors.  For callers that sweep one checked batch span by span,
+    which :func:`fill_span_banded_batch`'s length check would sync each
+    time."""
+    if tops.device.type == "cpu":
+        return fill_span_banded_batch_plain(
+            tops, sides, lens1, lens2, m, k, d, r0, span, bnd, cbnd, scores, counts, emit_codes
+        )
+    return _fill_span_kernel(tops, sides, lens1, lens2, m, k, d, r0, span, bnd, cbnd, scores, counts,
+                             emit_codes, warps)
+
+
+def _fill_span_kernel(tops, sides, lens1, lens2, m, k, d, r0, span, bnd, cbnd, scores, counts,
+                      emit_codes, warps=None):
+    """Launch ``nw_fill_span`` (inputs checked) for
+    :func:`fill_span_banded_batch`, whose count it raises."""
+    B, A, Bs = _dims(tops, sides)
+    dev = tops.device
+    nb = span_bands(Bs, r0, span)
+    codes = (
+        torch.empty(code_shape(B, A, 32 * nb), dtype=torch.int32, device=dev) if emit_codes else None
+    )
+    if B:
+        with_counts = cbnd is not None
+        cell = 8 if with_counts else 4  # a score, and a count
+        warps = _pipe_warps(B, A, 32 * max(nb, 1), cell, dev, warps)
+        tops, sides, lens1, lens2 = _contig(tops, sides, lens1, lens2)
+        top16 = _top_scratch(B, A, cell, dev)
+        kernels.launch(
+            "nw_fill_span", dev,
+            tops.data_ptr(), sides.data_ptr(), lens1.data_ptr(), lens2.data_ptr(),
+            B, A, Bs, m, k, d, r0, span, int(emit_codes), int(with_counts), warps,
+            None if top16 is None else top16.data_ptr(), bnd.data_ptr(),
+            cbnd.data_ptr() if with_counts else None,
+            codes.data_ptr() if emit_codes else None, scores.data_ptr(),
+            counts.data_ptr() if with_counts else None,
+        )
+        fill_span_banded_batch.launches += 1
+    return codes
+
+
+def _as_u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) -> int32 with the same bits."""
+    return (((x & U32) + 2**31) & U32).sub(2**31).to(torch.int32)
+
+
+def fill_span_banded_batch_plain(
+    tops, sides, lens1, lens2, m, k, d, r0: int, span: int, bnd: torch.Tensor,
+    cbnd: Optional[torch.Tensor] = None, scores: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None, emit_codes: bool = False,
+) -> Optional[torch.Tensor]:
+    """Plain version of :func:`fill_span_banded_batch` (the same updates
+    of bnd, cbnd, scores and counts, and the same codes): the
+    anti-diagonal fill of the span's rows seeded with bnd / cbnd."""
+    B, A, Bs = _dims(tops, sides)
+    if scores is None:
+        scores = torch.empty(B, dtype=torch.int32, device=tops.device)
+    nb = span_bands(Bs, r0, span)
+    codes = None
+    if r0 == 0:  # a corner on row 0: the seed row's
+        on0 = lens2 == 0
+        l1 = lens1.to(torch.int64)[:, None]
+        scores.copy_(torch.where(on0, bnd.gather(1, l1)[:, 0], scores))
+        if counts is not None:
+            counts.copy_(torch.where(on0, cbnd.gather(1, l1)[:, 0], counts))
+    if nb > 0:
+        codes = fill_rows_plain(tops, sides, lens1, lens2, m, k, d, 32 * r0, 32 * nb, bnd, cbnd,
+                                scores, counts, emit_codes)
+    elif emit_codes:
+        codes = torch.zeros(code_shape(B, A, 0), dtype=torch.int32, device=tops.device)
+    return codes
+
+
+def fill_rows_plain(tops, sides, lens1, lens2, m, k, d, row0: int, rows: int, bnd, cbnd=None,
+                    scores=None, counts=None, emit_codes=False):
+    """The plain span at any rows: rows row0+1 .. row0+rows of each table
+    (past Bs over ``SIDE_PAD``), seeded with row row0 in bnd (and its
+    counts in cbnd), in place as :func:`fill_span_banded_batch_plain`;
+    with ``emit_codes`` the codes of rows row0+1 .. min(row0+rows, Bs),
+    band-major from row row0+1."""
+    B, A, Bs = _dims(tops, sides)
+    real = max(0, min(rows, Bs - row0))
+    side = torch.cat([sides[:, row0 : row0 + real].to(torch.int32),
+                      torch.full((B, rows - real), SIDE_PAD, dtype=torch.int32, device=tops.device)], 1)
+    l2 = lens2.to(torch.int64) - row0
+    inside = (l2 >= 1) & (l2 <= rows)
+    with_counts = cbnd is not None
+    out = fill_diag_batch(
+        tops, side, lens1, l2.clamp(0, rows), m, k, d, with_arrows=emit_codes,
+        with_counts=with_counts, seed=bnd, cseed=cbnd, row0=row0, with_last=True,
+    )
+    if scores is not None:
+        scores.copy_(torch.where(inside, out["score"], scores))
+    if with_counts and counts is not None:
+        counts.copy_(torch.where(inside, _as_u32_bits(out["count"]), counts))
+    bnd.copy_(out["last"])
+    if with_counts:
+        cbnd.copy_(_as_u32_bits(out["clast"]))
+    if not emit_codes:
+        return None
+    rect = diag_to_matrix_batch(out["arrows"])[:, 1 : real + 1]
+    code = torch.where((rect & 1) != 0, 0, torch.where((rect & 2) != 0, 1, 2)).to(torch.uint8)
+    return pack_band_major(code, 2)
 
 
 # ---------------- K2 pack_bits=8 and with_runs, a batch: a byte a cell ----------------

@@ -61,6 +61,8 @@ def fill_diag_batch(
     row0: int = 0,
     left: Optional[torch.Tensor] = None,
     with_edges: bool = False,
+    cseed: Optional[torch.Tensor] = None,
+    with_last: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Fill a batch of DP tables along anti-diagonals.
 
@@ -86,10 +88,15 @@ def fill_diag_batch(
       with_edges: return ``right`` int32[B, Bs] (column A at rows 1 ..
         Bs) and ``bottom`` int32[B, A] (row Bs at columns 1 .. A), the
         bucket's last column and row, without keeping every cell.
+      cseed: with ``seed``, the counts of its row (int[B, A+1] in [0,
+        2^32)) in place of 1; column 0's counts stay 1 (one path).
+      with_last: return ``last`` int32[B, A+1], row Bs at columns 0 ..
+        A, and with counts ``clast`` (int64, its counts); Bs >= 1.
 
     Returns:
       dict with ``score`` int32[B], and ``arrows`` / ``count`` (int64[B]
-      in [0, 2^32)) / ``scores`` / ``right`` and ``bottom`` when asked.
+      in [0, 2^32)) / ``scores`` / ``right`` and ``bottom`` / ``last``
+      and ``clast`` when asked.
     """
     B, A = tops.shape
     Bs = sides.shape[1]
@@ -130,8 +137,12 @@ def fill_diag_batch(
         left = left.to(device=dev, dtype=i32)
     if with_counts:
         cprev = (j_idx == 0).to(torch.int64).expand(B, N)
+        if cseed is not None:
+            cseed = cseed.to(device=dev, dtype=torch.int64) & U32
+            cprev = torch.where(j_idx == 0, cseed[:, :1], 0)
         cprev2 = torch.zeros((B, N), dtype=torch.int64, device=dev)
         ccaptured = torch.ones(B, dtype=torch.int64, device=dev)
+    last_l, clast_l = [], []  # cell (Bs, kk - Bs) of diagonal kk >= Bs
     arrows_l = [torch.zeros((B, N), dtype=torch.uint8, device=dev)]
     scores_l = [prev]
     right_l, bottom_l = [], []  # cell (Bs, kk - Bs) and (kk - A, A) of diagonal kk
@@ -169,6 +180,8 @@ def fill_diag_batch(
                 bottom_l.append(score[:, Bs].clone())
             if kk > A:
                 right_l.append(score[:, kk - A].clone())
+        if with_last and Bs <= kk <= A + Bs:
+            last_l.append(score[:, Bs].clone())
         if with_arrows:
             arrows_l.append(
                 b_diag.to(torch.uint8)
@@ -181,7 +194,12 @@ def fill_diag_batch(
                 + torch.where(b_left, cprev, 0)
                 + torch.where(b_up, _shift_down(cprev, 0), 0)
             ) & U32
+            if cseed is not None:  # the seed row's counts, column 0's one path
+                cnt = torch.where(on_top_row, cseed[:, min(kk, A)][:, None], cnt)
+                cnt = torch.where(on_left_col, 1, cnt)
             ccaptured = torch.where(hit, cnt[b_ar, j_corner], ccaptured)
+            if with_last and Bs <= kk <= A + Bs:
+                clast_l.append(cnt[:, Bs].clone())
             cprev, cprev2 = cnt, cprev
         prev, prev2 = score, prev
 
@@ -192,6 +210,10 @@ def fill_diag_batch(
         out["count"] = ccaptured
     if with_scores:
         out["scores"] = torch.stack(scores_l, dim=1)
+    if with_last:
+        out["last"] = torch.stack(last_l, dim=1)
+        if with_counts:
+            out["clast"] = torch.stack(clast_l, dim=1)
     if with_edges:
         empty = torch.empty((B, 0), dtype=i32, device=dev)
         out["right"] = torch.stack(right_l, dim=1) if right_l else empty

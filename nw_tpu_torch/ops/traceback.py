@@ -37,6 +37,11 @@ exactly the *first* alignment the reference emits.
   ``nw_tpu/parallel/huge_pair.py:871``), and :func:`walk_masks_window`
   walks that rank's 3-bit tie masks instead (``nw_walk_window``'s masks
   mode; ``_make_arrow_at_pallas``, ``huge_pair.py:944``).
+* :func:`walk_codes_groups` walks one group of rows of every pair of a
+  batch (re-filled from a checkpoint row by the two-pass engines) from
+  cursors kept in device memory (``nw_tpu/ops/banded_traceback.py:115
+  _make_walk_loop``): the ``nw_walk_groups`` kernel on CUDA tensors, its
+  plain version on CPU tensors.
 * :func:`walk_sw_codes_batch` walks the local (Smith-Waterman) codes of
   :func:`nw_tpu_torch.ops.variants_banded.sw_fill_codes_banded_batch`
   from each pair's best cell to its first STOP (the counterpart of
@@ -434,6 +439,102 @@ def _walk_window_plain(op_at, rows: int, width: int, state, j0: int, ops) -> Non
     if steps:
         ops[n : n + len(steps)] = torch.tensor(steps, dtype=torch.int8)
     state.copy_(torch.tensor([i, j, n + len(steps)], dtype=torch.int32))
+
+
+def _check_groups_args(codes, state, j0, ops, off):
+    if codes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"CPU or CUDA tensors expected, got {codes.device}")
+    if codes.dim() != 4 or codes.dtype != torch.int32 or codes.shape[3] != 32:
+        raise ValueError("codes must be int32[B, nbands, TW, 32]")
+    B = codes.shape[0]
+    if state.shape != (B, 3) or state.dtype != torch.int32 or not state.is_contiguous():
+        raise ValueError("state must be a contiguous int32[B, 3]: (i, j, n) a pair")
+    if ops.dim() != 2 or ops.shape[0] != B or ops.dtype != torch.int8 or not ops.is_contiguous():
+        raise ValueError("ops must be a contiguous int8[B, stride]")
+    if off is not None and (off.shape != (B,) or off.dtype != torch.int32 or not off.is_contiguous()):
+        raise ValueError("off must be a contiguous int32[B]")
+    if any(t.device != codes.device for t in (state, ops) + ((off,) if off is not None else ())):
+        raise ValueError("codes, state, off and ops must be on one device")
+    if j0 < 0:
+        raise ValueError(f"j0 must be >= 0, not {j0}")
+
+
+def walk_codes_groups(
+    codes: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor,
+    off: torch.Tensor = None,
+) -> None:
+    """Greedy backward walk of a batch over one group of rows, in place.
+
+    The counterpart of ``nw_tpu/ops/banded_traceback.py:115
+    _make_walk_loop`` (``global_bands=False``): the group walk of the
+    two-pass engines.  codes: int32[B, nbands, TW, 32], each pair's codes
+    of rows j0+1 .. j0+32*nbands (:func:`nw_tpu_torch.ops.fill_banded.fill_span_banded_batch`
+    with ``emit_codes``; code row j - j0 - 1).  state: int32[B, 3] = (i, j,
+    n) a pair, read and written back.  Each pair walks from its cell to
+    row j0 (to the origin, LEFT along row 0, when j0 is 0); a pair whose
+    row lies outside [j0, j0 + 32*nbands] (or whose column lies outside
+    the codes) walks nowhere.  Its t-th op here goes to ``ops[b, off[b] +
+    t]``, at most ``stride - off[b]`` of them (ops: int8[B, stride]);
+    with ``off`` None to ``ops[b, n + t]``, the pair's op string stitched
+    in place.  Because the cursor lives in device memory, the groups chain
+    on one stream with no host sync.
+
+    CUDA tensors go through the ``nw_walk_groups`` kernel (a warp a pair on
+    :func:`walk_codes_batch`'s staging); CPU tensors through
+    :func:`walk_codes_groups_plain`.
+    """
+    _check_groups_args(codes, state, j0, ops, off)
+    codes = codes.contiguous()
+    _check_codes_aligned(codes)
+    if codes.device.type == "cpu":
+        return walk_codes_groups_plain(codes, state, j0, ops, off)
+    B, nbands, TW, _ = codes.shape
+    if B:
+        kernels.launch(
+            "nw_walk_groups", codes.device,
+            codes.data_ptr(), B, nbands, TW, j0, state.data_ptr(),
+            None if off is None else off.data_ptr(), ops.shape[1], ops.data_ptr(),
+        )
+        walk_codes_groups.launches += 1
+
+
+walk_codes_groups.launches = 0
+
+
+def walk_codes_groups_plain(
+    codes: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor,
+    off: torch.Tensor = None,
+) -> None:
+    """Plain version of :func:`walk_codes_groups` (the same updates of
+    ``state`` and ``ops``), a step of every pair at a time."""
+    _check_groups_args(codes, state, j0, ops, off)
+    B, nbands, TW, _ = codes.shape
+    stride = ops.shape[1]
+    b_ar = torch.arange(B, device=codes.device)
+    i, j, n = (state[:, x].to(torch.int64) for x in range(3))
+    n0 = n.clone()
+    o = n0 if off is None else off.to(torch.int64)
+    ok = ((j >= j0) & (j <= j0 + 32 * nbands) & (i >= 0) & (i < 16 * TW - 31) & (n >= 0)
+          & (o >= 0) & (o <= stride))
+    lim = n0 + stride - o
+    while True:
+        active = ok & (n < lim) & ((j > j0) | ((j0 == 0) & (j == 0) & (i > 0)))
+        if not bool(active.any()):
+            break
+        r = (j - j0 - 1).clamp(0, max(32 * nbands - 1, 0))
+        t = (i + (r & 31)).clamp(0, 16 * TW - 1)
+        if nbands:
+            w = codes[b_ar, r >> 5, t >> 4, r & 31].to(torch.int64)
+            a = (w >> (2 * (t & 15))) & 3
+        else:
+            a = torch.zeros_like(i)
+        a = torch.where(j == 0, OP_LEFT, a)
+        at = (o + n - n0).clamp(0, max(stride - 1, 0))
+        ops[b_ar[active], at[active]] = a[active].to(torch.int8)
+        i = i - (active & (a != OP_UP)).to(torch.int64)
+        j = j - (active & (a != OP_LEFT)).to(torch.int64)
+        n = n + active.to(torch.int64)
+    state.copy_(torch.where(ok[:, None], torch.stack([i, j, n], 1), state.to(torch.int64)).to(torch.int32))
 
 
 def walk_masks_window(

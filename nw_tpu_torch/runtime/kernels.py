@@ -40,7 +40,9 @@ I = ctypes.c_int
 SIGNATURES = {
     "nw_scores": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],
     "nw_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
+    "nw_fill_span": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
     "nw_walk": [P, P, P, I, I, I, I, P, P, P],
+    "nw_walk_groups": [P, I, I, I, I, P, P, I, P, P],
     "nw_score_count": [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nw_fill_masks": [P, P, I, I, I, I, I, I, I, P, P, P, P, I, P, P, P, P],
     "nw_fill_masks_batch": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P],

@@ -21,6 +21,7 @@ from nw_tpu_torch.ops import fill_banded, fill_single, traceback
 from torch_kernel_cases import (  # noqa: F401 (cuda is a fixture)
     SCORINGS, EDGE, cuda, _pairs, _inputs, PIPE_WARPS, _pipe_batches, _pipe_fill, _pipe_plain,
     BYTE_WARPS, _byte_batches, _byte_fill, _byte_plain, _bytes_with_the_top_in_device_memory,
+    SPAN_VARIANTS, SPAN_WARPS, span_chain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -301,3 +302,85 @@ def test_flat_api_kernels_vs_plain(cuda, mkd):
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
     torch.testing.assert_close(ff.count_flat_batch(got[0], *dev[2:]).cpu(),
                                ff.count_flat_batch_plain(want[0], *cpu[2:]), rtol=0, atol=0)
+
+
+# ---------------- nw_fill_span: the pipeline over a span of bands ----------------
+
+
+def _span_same(got, want, msg):
+    assert len(got) == len(want), msg
+    for g, w in zip(got, want):
+        assert len(g) == len(w), msg
+        for a, b in zip(g, w):
+            torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0, atol=0, msg=msg)
+
+
+@pytest.mark.parametrize("variant", SPAN_VARIANTS)
+@pytest.mark.parametrize("mkd", SCORINGS)
+def test_span_fill_at_forced_warps_vs_plain(cuda, mkd, variant):
+    """nw_fill_span (scores, scores + counts, codes) chained from row 0
+    over _pipe_batches' tables (5 and 35 bands) in spans of 3 bands (r0 =
+    0, 3, 6, ...: on and off a warp boundary at W = 2, 3, 8, 16), at every
+    W of SPAN_WARPS and the rule's, span by span against the plain chain;
+    spans of 1 band (S = 1) and of 8 at W = 1, 3, 32 and the rule's: the
+    last span's row, scores and counts against the plain chain's, the
+    codes of all spans against the plain chain's."""
+    for cpu, dev in _pipe_batches(sum(mkd) + 9, cuda):
+        want = span_chain(cpu, mkd, variant, 3)
+        for W in SPAN_WARPS:
+            _span_same(span_chain(dev, mkd, variant, 3, W), want, f"S = 3, W = {W}")
+        for S in (1, 8):
+            for W in (1, 3, 32, None):
+                got = span_chain(dev, mkd, variant, S, W)
+                msg = f"S = {S}, W = {W}"
+                n = 2 if variant == "codes" else len(want[-1])  # the codes are the span's own
+                _span_same([got[-1][:n]], [want[-1][:n]], msg)
+                if variant == "codes":
+                    torch.testing.assert_close(torch.cat([x[2] for x in got], 1).cpu(),
+                                               torch.cat([x[2] for x in want], 1), rtol=0, atol=0, msg=msg)
+
+
+def test_span_fill_with_the_top_in_device_memory(cuda):
+    """A 117 000-column top (past a block's shared memory) in device
+    memory: spans of 1 and 3 bands at W = 1, 3 give nw_fill_codes's scores,
+    counts and codes at W = 3 (held to the single-pair kernels by
+    test_pipeline_with_the_top_in_device_memory) and one last row."""
+    rng = np.random.default_rng(33)
+    A, Bs = 117_000, 100  # 4 bands
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    ps = [(letters[rng.integers(0, 4, a)].tobytes(), letters[rng.integers(0, 4, s)].tobytes())
+          for a, s in ((A, Bs), (A - 9, 64), (A - 30_000, 33))]
+    dev = enc.upload(enc.encode_batch(ps, A, Bs), cuda)
+    assert not fill_banded.top_in_smem(A, 4) and not fill_banded.top_in_smem(A, 8)
+    mkd = (2, 1, 1)
+    codes, sc, ct = _pipe_fill("codes+counts", dev, mkd, 3)
+    rows = []
+    for S in (1, 3):
+        for W in (1, 3):
+            got = span_chain(dev, mkd, "counts", S, W)
+            assert torch.equal(got[-1][2], sc) and torch.equal(got[-1][3].to(torch.int64) & 0xFFFFFFFF, ct)
+            rows.append(got[-1][:2])
+            got = span_chain(dev, mkd, "codes", S, W)
+            assert torch.equal(torch.cat([x[2] for x in got], 1), codes) and torch.equal(got[-1][1], sc)
+    assert all(torch.equal(r[0], rows[0][0]) and torch.equal(r[1], rows[0][1]) for r in rows)
+
+
+@pytest.mark.parametrize("engine", ["twopass", "hoststitch"])
+def test_align_batch_twopass_engines_cuda_vs_cpu(cuda, engine, monkeypatch):
+    """align_batch under NW_TPU_WALK_ENGINE=twopass / hoststitch on the card
+    equals the codes engine on the card and the engine on the CPU (long
+    pairs: 35 bands, one group; then groups of 4 bands, 9 groups)."""
+    from nw_tpu_torch.ops import banded_traceback as bt
+
+    ps = _pairs(13, 20, 0, 1100) + _pairs(14, 3, 900, 1100, "AC") + EDGE
+    want = align_batch(ps, 2, 1, 1, device="cuda", traceback_strings=True, count=True)
+    monkeypatch.setenv("NW_TPU_WALK_ENGINE", engine)
+    cpu = align_batch(ps, 2, 1, 1, device="cpu", traceback_strings=True, count=True)
+    for S in (bt.GROUP_BANDS, 4):
+        monkeypatch.setattr(bt, "GROUP_BANDS", S)
+        got = align_batch(ps, 2, 1, 1, device="cuda", traceback_strings=True, count=True)
+        for r in (want, cpu):
+            np.testing.assert_array_equal(got.scores, r.scores)
+            np.testing.assert_array_equal(got.counts, r.counts)
+            np.testing.assert_array_equal(got.ops, r.ops)
+            np.testing.assert_array_equal(got.ops_len, r.ops_len)

@@ -23,7 +23,7 @@ from torch_kernel_cases import (  # noqa: F401 (cuda is a fixture)
     cuda, _pairs, _single_pairs, runs_edge_pairs,
     _pair_tensors, _lens, mask_edge_pairs, _mask_window_chain, random_masks, _walk_chain,
     walk_edge_pairs, _window_chain, BYTE_WARPS, _byte_batches, _byte_fill, _byte_plain,
-    _bytes_with_the_top_in_device_memory,
+    _bytes_with_the_top_in_device_memory, GROUP_SIZES, groups_walk,
 )
 
 pytestmark = pytest.mark.cuda
@@ -353,3 +353,62 @@ def test_runs_walk_kernel_many_short_pairs(cuda):
         table = fill_banded.fill_runs_banded_batch(*T, *mkd)[0]
         for cut in (S, 40):
             _runs_vs_plain(table, *T[2:], cut)
+
+
+# ---------------- nw_walk_groups: the two-pass engines' group walk ----------------
+
+
+@pytest.mark.parametrize("shape", WALK_EDGE_SHAPES)
+def test_walk_groups_vs_plain_at_edge_shapes(cuda, shape):
+    """nw_walk_groups chained over groups of 1, 2 and 3 bands of each walk
+    edge shape's codes, last group first (the shape's pairs, an odd B, and
+    its first pair alone, B = 1), ops in place and as per-group prefixes
+    stitched on the host, against its plain version and nw_walk's plain
+    walk, under 2 1 1 and two wrapping scorings."""
+    ps = walk_edge_pairs(shape)
+    assert len(ps) % 2 == 1
+    T, S = _batch(ps, "cpu")
+    for mkd in (SCORINGS[0], SCORINGS[4], SCORINGS[6]):
+        codes = fill_banded.fill_greedy_counts_banded_batch(*T, *mkd)[0]
+        for B in (len(ps), 1):
+            c, l1, l2 = codes[:B], T[2][:B], T[3][:B]
+            want = traceback.walk_codes_batch_plain(c, l1, l2, S)
+            dc, d1, d2 = c.to(cuda), l1.to(cuda), l2.to(cuda)
+            for G in GROUP_SIZES:
+                p_state, p_ops = groups_walk(traceback.walk_codes_groups_plain, c, l1, l2, G, S)
+                g_state, g_ops = groups_walk(traceback.walk_codes_groups, dc, d1, d2, G, S)
+                torch.testing.assert_close(g_state.cpu(), p_state, rtol=0, atol=0)
+                torch.testing.assert_close(g_ops.cpu(), p_ops, rtol=0, atol=0)
+                torch.testing.assert_close(g_ops.cpu(), want[0], rtol=0, atol=0)
+                torch.testing.assert_close(g_state[:, 2].cpu(), want[1], rtol=0, atol=0)
+                _, h_ops = groups_walk(traceback.walk_codes_groups, dc, d1, d2, G, S, prefixes=True)
+                torch.testing.assert_close(h_ops, want[0], rtol=0, atol=0)
+
+
+def test_walk_groups_starts_outside_and_limits(cuda):
+    """Starts outside a group's rows (above its top row, below its bottom)
+    or columns leave the state and ops as they were; a walk stops after
+    stride - off ops, its ops at off; equal to the plain version."""
+    s1, s2 = walk_edge_pairs("band_edges")[4]  # 100 x 64: a corner on a band edge
+    T, S = _batch([(s1, s2)] * 3, "cpu")
+    codes = fill_banded.fill_greedy_counts_banded_batch(*T, 2, 1, 1)[0]  # 2 bands
+    part = codes[:, 1:].contiguous()
+    TW = codes.shape[2]
+    starts = torch.tensor([[5, 70, 0], [5, 31, 0], [16 * TW - 31, 40, 0]], dtype=torch.int32)
+    for off in (None, torch.tensor([0, 3, 7], dtype=torch.int32)):
+        st_p, st_k = starts.clone(), starts.clone().to(cuda)
+        ops_p = torch.full((3, 12), 3, dtype=torch.int8)
+        ops_k = ops_p.to(cuda)
+        traceback.walk_codes_groups_plain(part, st_p, 32, ops_p, off)
+        traceback.walk_codes_groups(part.to(cuda), st_k, 32, ops_k, None if off is None else off.to(cuda))
+        assert torch.equal(st_p, starts) and (ops_p == 3).all()
+        assert torch.equal(st_k.cpu(), st_p) and torch.equal(ops_k.cpu(), ops_p)
+    # from the corner with 12-wide rows: cut after 12 - off ops
+    full = torch.stack([T[2], T[3], torch.zeros_like(T[2])], 1).contiguous()
+    off = torch.tensor([0, 5, 12], dtype=torch.int32)
+    st_p, ops_p = full.clone(), torch.full((3, 12), 3, dtype=torch.int8)
+    st_k, ops_k = full.clone().to(cuda), ops_p.to(cuda)
+    traceback.walk_codes_groups_plain(codes, st_p, 0, ops_p, off)
+    traceback.walk_codes_groups(codes.to(cuda), st_k, 0, ops_k, off.to(cuda))
+    assert st_p[:, 2].tolist() == [12, 7, 0]
+    assert torch.equal(st_k.cpu(), st_p) and torch.equal(ops_k.cpu(), ops_p)

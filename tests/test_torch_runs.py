@@ -8,7 +8,7 @@ through ``build_arrows_call(..., pack_bits=8, with_runs=True)`` band by
 band as ``nw_tpu``'s ``band_refill`` does; the run bits against the
 definition, written out cell by cell over ``nw_tpu``'s scan masks;
 ``align_batch`` under ``NW_TPU_WALK_ENGINE=runs`` against ``nw_tpu``'s;
-the sub-batch rule; the unported engines.  Pairs of 0 to 300 bp:
+the sub-batch rule.  Pairs of 0 to 300 bp:
 random, tie-dense, pure-diagonal past the 63 cap and past 32-row bands,
 gap-heavy, empty and one-sided.  Every output is an integer, so every
 comparison is exact (tolerance 0).
@@ -295,20 +295,6 @@ def test_align_batch_runs_engine_matches_nw_tpu(monkeypatch, mkd, strings, count
     _assert_same_ops(got.ops, np.asarray(want.ops))
     np.testing.assert_array_equal(got.ops_len, np.asarray(want.ops_len))
     assert got.alignment_strings() == want.alignment_strings()
-
-
-@pytest.mark.parametrize("engine", ["twopass", "hoststitch"])
-def test_unported_engines_raise(monkeypatch, engine):
-    """twopass / hoststitch raise and name the queue item; they never run
-    another engine in their place."""
-    T = enc.upload(enc.encode_batch([(b"GATTACA", b"GCAT")], 8, 8), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        bt.traceback_banded_dispatch(*T, 2, 1, 1, engine=engine)
-    monkeypatch.setenv("NW_TPU_WALK_ENGINE", engine)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        bt.traceback_banded_batch(*T, 2, 1, 1)
-    with pytest.raises(NotImplementedError):
-        NWAligner(device="cpu").align_batch([(b"GATTACA", b"GCAT")], traceback_strings=True)
 
 
 def test_engine_names(monkeypatch):

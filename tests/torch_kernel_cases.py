@@ -163,6 +163,11 @@ RUNS_WALK_EDGE_SHAPES, RUNS_WIDTHS, runs_edge_pairs = (chip_smoke.RUNS_WALK_EDGE
 variant_edge_pairs, variant_walk_starts, starts_batch, random_code_words = (
     chip_smoke.variant_edge_pairs, chip_smoke.variant_walk_starts, chip_smoke.starts_batch,
     chip_smoke.random_code_words)
+# the two-pass kernels' chains: nw_fill_span over a table in spans, nw_walk_groups over its groups
+span_chain, groups_walk = chip_smoke.span_chain, chip_smoke.groups_walk
+SPAN_VARIANTS, GROUP_SIZES = chip_smoke.SPAN_VARIANTS, chip_smoke.GROUP_SIZES
+# nw_fill_span at forced warps a pair, every W of 1-32 kinds, and the rule's (None)
+SPAN_WARPS = [*chip_smoke.SPAN_WARPS, None]
 
 
 def _mask_window_chain(masks, C):
