@@ -1,7 +1,8 @@
 """Smoke run of nw_tpu_torch on one NVIDIA card: the batched aligner,
 the byte-parity CLI, the variant models, the batch CLI, the sharded
 runs, the tie-mask routes, Hirschberg, the runs walk engine, the
-flat-fill API, the two-pass walk engines and the resumable runners.
+flat-fill API, the two-pass walk engines and the resumable runners, and
+the variant tracebacks' two-pass route.
 
     python3 chip_smoke.py
 
@@ -41,7 +42,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    pairs of 0-700 bp, tie-dense pairs, the edge pairs and all-'A'
    24 x 16 (the count wraps), under every scoring; ``nw_score_count`` on
    a 20 000 x 20 000 pair (above 2^28 cells) against its plain version
-   and ``nw_fill_codes`` counts-only; the time of both kernels of the
+   (on the host CPU, ``HostPlain``, phase 12) and ``nw_fill_codes``
+   counts-only; the time of both kernels of the
    single-pair pipeline (``nw_score_count``, ``nw_fill_codes_single``)
    at the rule's W and each W of ``SINGLE_SWEEP`` at 20 000 and 100 000
    bp;
@@ -57,7 +59,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    a 100 000 x 100 000 pair under ``-q -s``, all three against
    ``nw_fill_codes`` counts-only; both single-pair kernels must have
    launched; ``nw_fill_masks`` against its plain version on the 10 kb
-   pair; the CLI's cold start.
+   pair (on the host CPU, ``HostPlain``); the CLI's cold start.
 
 8. huge pairs: (a) the single-pair modes ``nw_fill_codes_single`` (K14,
    and K13 from a seed row, a block a launch), ``nw_refill_blocks`` (K13,
@@ -301,6 +303,34 @@ Phases, in order; any mismatch or exception exits non-zero:
    split into fills and walks by CUDA events, both kernels against their
    plain versions on one group of 4 x 10 240 bp.
 
+16. The variant tracebacks' two-pass route: (a) ``free_fill_span`` (the
+   free pipeline's span mode, SW and overlap, under ``SW_SCORINGS``) and
+   ``gotoh_fill_span`` (``GOTOH_SCORINGS``) chained over the table of
+   phases 9-11's check pairs in spans of 1 and 2 bands (the route at
+   ``GROUP_BANDS`` 1 and 2; under the first scoring also at every W of
+   ``VARIANT_SPAN_WARPS``), bit for bit against their plain versions in
+   one span of the whole table on the card (last row, best cell or
+   corners, every span's codes), and ``sw_walk_groups`` /
+   ``gotoh_walk_groups`` chained over groups of 1 and 2 bands against
+   their plain versions; then, with the four kernels' counters set to 0,
+   (b) the 128 x 3 072 bp SW, overlap and Gotoh batches of phases 9-11
+   through ``free_traceback_dispatch`` / ``affine_traceback_dispatch`` on
+   the two-pass route against the one-pass route byte for byte, and (c)
+   ``sw_align_batch``, ``overlap_align_batch`` and ``affine_align_batch``
+   of 2 x 40 960 bp with ``NW_TPU_ONEPASS_HBM`` one byte below one pair's
+   codes (the two-pass route) against the same calls on the one-pass
+   route: equal outputs, each route's wall and peak device memory, the
+   two-pass route's lower; every kernel must have launched; (b)'s walls
+   in turns (one-pass, two-pass, two-pass, one-pass), each route's wall
+   split by CUDA events (pass 1, re-fills, walks; fill, walk); the kernels
+   at (b)'s shape (pass 1, each re-fill, the walks with each group's
+   longest and the span floor; the walks' median of 5 runs) and their
+   plain versions at (a)'s pairs; (d) the four kernels bit for bit
+   against their plain versions at the main path's shapes: 4 pairs of
+   each (b) batch at the W the whole batch's spans take, pass 1's span of
+   group 0, group 1's re-fill from its checkpoint row and the group walk
+   over it.
+
 Phase 2 also prints ``ptxas -v`` of ``nw_fill.cu``, ``nw_walk.cu``,
 ``nw_affine.cu``, ``nw_single.cu`` and ``nw_count.cu``: registers, static
 shared memory and spills of every instantiation, the byte modes'
@@ -504,6 +534,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_each(fn, reps: int) -> list:
+    """The device ms of each of ``reps`` runs of ``fn`` after one warm-up,
+    by CUDA events around each run (a host stall between two launches
+    shows in one reading, not in their median)."""
+    fn()
+    torch.cuda.synchronize()
+    return [cuda_once(fn)[1] for _ in range(reps)]
+
+
 class Bound:
     """The least time the card could take for a kernel's work: the larger
     of its int32 operations over every SM's INT32 lanes at the highest SM
@@ -625,10 +664,11 @@ def config4_pairs(rng, n, limit):
     return pairs
 
 
-def single_phase(card, errs):
+def single_phase(card, errs, host):
     """Phase 6: nw_score_count / nw_fill_masks against their plain
-    versions, the 2^28+ cross-check and the warps sweep.  Returns the
-    plain and kernel times of ``nw_score_count`` at L_CROSS."""
+    versions, the 2^28+ cross-check (its plain version from ``host``, a
+    :class:`HostPlain`) and the warps sweep.  Returns the plain (host)
+    and kernel times of ``nw_score_count`` at L_CROSS."""
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import fill_single as fs
@@ -692,19 +732,18 @@ def single_phase(card, errs):
     ref = fb.fill_scores_counts_banded_batch(tb_, sb_, l1b, l2b, 2, 1, 1)
     want = (int(ref[0][0]), int(ref[1][0]))
     got = fs.score_count_fold(tb_[0], sb_[0], 2, 1, 1)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    plain = fs.score_count_fold_plain(tb_[0], sb_[0], 2, 1, 1)
-    end.record()
-    torch.cuda.synchronize()
-    plain_sc_ms = start.elapsed_time(end)
+    # its plain version on the host CPU (HostPlain: on the card it took 31-35 s of launches)
+    out, plain_s = host.get(f"score_count_{L_CROSS}")
+    plain = tuple(int(x) for x in out["score_count"])
+    plain_sc_ms = plain_s * 1e3
     e = max(abs(g - w) for g, w in zip(got, plain))
     errs["nw_score_count"] = max(errs["nw_score_count"], e)
     log(f"{L_CROSS} x {L_CROSS} (score, count): nw_score_count {got}, plain {plain} "
-        f"({plain_sc_ms:.1f} ms), nw_fill_codes {want}")
+        f"({plain_sc_ms:.1f} ms on the host CPU), nw_fill_codes {want}")
     if got != want or e:
         fail("nw_score_count differs from its plain version or nw_fill_codes above 2^28 cells")
-    log(f"nw_score_count {L_CROSS}x{L_CROSS}bp plain version: {plain_sc_ms:.1f} ms [{card}]")
+    log(f"nw_score_count {L_CROSS}x{L_CROSS}bp plain version: {plain_sc_ms:.1f} ms on the host CPU "
+        f"({HOST_PLAIN_THREADS} thread(s)) [{card}]")
     # the sweep of W (warps a block, blocks by the rule) of both kernels of
     # the single-pair pipeline; the rule's W (None) first and last
     sweep = {}
@@ -723,10 +762,11 @@ def single_phase(card, errs):
     return {"plain_sc_ms": plain_sc_ms, "sc_ms_cross": min(sweep["nw_score_count", L_CROSS, None])}
 
 
-def cli_phase(card, errs):
+def cli_phase(card, errs, host):
     """Phase 7: the CLI.  Returns (launches per new kernel, walls, the
     time of each new kernel at its full CLI shape); ``nw_fill_masks``
-    against its plain version at 10 kb goes into ``errs``."""
+    against its plain version at 10 kb (from ``host``, a
+    :class:`HostPlain`) goes into ``errs``."""
     from nw_tpu_torch.ops import encode as enc
     from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import fill_single as fs
@@ -831,18 +871,16 @@ def cli_phase(card, errs):
     if b"branches in walk table" not in big_runs["rand10k_q_s_debug"][1][2]:
         fail("CLI debug trace at 10 kb has no branch count")
 
-    # nw_fill_masks against its plain version at the CLI's 10 kb shape
+    # nw_fill_masks against its plain version at the CLI's 10 kb shape (the
+    # plain version on the host CPU, HostPlain: on the card it took ~20 s)
     top, side = (torch.from_numpy(enc.encode(x)).cuda() for x in big[L_LONG])
     got = fb.fill_arrows_banded_single(top, side, 2, 1, 1)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = fb.fill_arrows_banded_single_plain(top, side, 2, 1, 1)
-    end.record()
-    torch.cuda.synchronize()
-    plain_fm_ms = start.elapsed_time(end)
-    e = max([max_abs_err(got[0], want[0])] + [abs(g - w) for g, w in zip(got[2:], want[2:])])
+    want, plain_s = host.get(f"masks_{L_LONG}")
+    plain_fm_ms = plain_s * 1e3
+    e = max([max_abs_err(got[0], want["masks"])]
+            + [abs(g - int(w)) for g, w in zip(got[2:], want["score_count"])])
     errs["nw_fill_masks"] = max(errs["nw_fill_masks"], e)
-    log(f"nw_fill_masks {L_LONG}x{L_LONG}bp vs plain ({plain_fm_ms:.1f} ms): max |diff| {e}; "
+    log(f"nw_fill_masks {L_LONG}x{L_LONG}bp vs plain ({plain_fm_ms:.1f} ms on the host CPU): max |diff| {e}; "
         f"(score, count) {got[2:]} [{card}]")
     if e or got[2:] != refs[L_LONG]:
         fail(f"nw_fill_masks differs from its plain version or nw_fill_codes at {L_LONG} bp")
@@ -2260,7 +2298,7 @@ def sw_phase(card, bound):
     ms_walk150 = cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js150, is150), 10)
     del codes
     split = {name: route_split(lambda ps=configs[name][1]: sw.sw_align_batch(ps, m, k, d),
-                               {"fill": (sw, "sw_fill_codes_banded_batch"), "walk": (sw, "walk_sw_codes_batch")})
+                               {"fill": (vb, "sw_fill_codes_banded_batch"), "walk": (vb, "walk_sw_codes_batch")})
              for name in ("align128x3072", "align4096x150")}
     log(f"SW alignments split by CUDA events (medians of 3 warm runs, ms): {split} [{card}]")
     rec["sw_walk"] = dict(
@@ -2538,7 +2576,7 @@ def variants_phase(card, bound):
     ms_walk150 = cuda_ms(lambda: tb.walk_sw_codes_batch(codes, js150, is150), 10)
     del codes
     split = {name: route_split(lambda ps=configs[name][1]: ov.overlap_align_batch(ps, *mkd),
-                               {"fill": (ov, "overlap_fill_codes_banded_batch"), "walk": (sw, "walk_sw_codes_batch")})
+                               {"fill": (vb, "overlap_fill_codes_banded_batch"), "walk": (vb, "walk_sw_codes_batch")})
              for name in ("overlap_align128x3072", "overlap_align4096x150")}
     log(f"overlap alignments split by CUDA events (medians of 3 warm runs, ms): {split} [{card}]")
     (w3k, one3k, _), (w150c, _, _) = pipe_turns(card, [
@@ -2787,7 +2825,7 @@ def gotoh_phase(card, bound, c3_strings):
     codes150, _, st150 = vb.affine_fill_codes_banded_batch(*b150, *sc)
     ms_walk150 = cuda_ms(lambda: tb.walk_gotoh_codes_batch(codes150, b150[2], b150[3], st150, 2 * L_SHORT), 10)
     split = {name: route_split(lambda ps=configs[name][0]: af.affine_align_batch(ps, *sc),
-                               {"fill": (af, "affine_fill_codes_banded_batch"), "walk": (af, "walk_gotoh_codes_batch")})
+                               {"fill": (vb, "affine_fill_codes_banded_batch"), "walk": (vb, "walk_gotoh_codes_batch")})
              for name in configs}
     log(f"Gotoh alignments split by CUDA events (medians of 3 warm runs, ms): {split} [{card}]")
     rec["gotoh_walk"] = dict(
@@ -2905,14 +2943,26 @@ def last_row_case(L, device):
 # the host it overlaps the phases before its own; one thread, as a
 # diagonal's operations are too small for torch's intra-op threads
 HOST_PLAIN_THREADS = 1
-HOST_PLAIN_JOBS = ("tile_codes", "tile_masks", f"last_row_{L_LONG}", f"last_row_{L_CROSS}")
+HOST_PLAIN_JOBS = (f"score_count_{L_CROSS}", f"masks_{L_LONG}", "tile_codes", "tile_masks", f"last_row_{L_LONG}",
+                   f"last_row_{L_CROSS}")
 
 
 def host_plain_job(name):
     """One ``HOST_PLAIN_JOBS`` entry on the CPU: {array name: array}."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import fill_banded as fb
     from nw_tpu_torch.ops import fill_single as fs
 
     kind, arg = name.rsplit("_", 1)
+    if kind == "score_count":  # phase 6: nw_score_count's pair past 2^28 cells
+        pair = rand_pairs(np.random.default_rng(20), 1, L_CROSS, L_CROSS)[0]
+        top, side = (torch.from_numpy(enc.encode(x)) for x in pair)
+        return {"score_count": np.asarray(fs.score_count_fold_plain(top, side, 2, 1, 1), np.int64)}
+    if kind == "masks":  # phase 7: nw_fill_masks at the CLI's 10 kb shape
+        pair = rand_pairs(np.random.default_rng(L_LONG), 1, L_LONG, L_LONG)[0]
+        top, side = (torch.from_numpy(enc.encode(x)) for x in pair)
+        masks, _, *sc = fb.fill_arrows_banded_single_plain(top, side, 2, 1, 1)
+        return {"masks": masks.numpy(), "score_count": np.asarray(sc, np.int64)}
     if kind == "last_row":
         return {"row": fs.last_row_plain(*last_row_case(int(arg), "cpu"), 2, 1, 1).numpy()}
     mode = arg
@@ -2941,30 +2991,36 @@ def host_plain_jobs(directory):
 
 class HostPlain:
     """The process of ``host_plain_jobs``, started at construction;
-    ``get(name)`` waits for it (once) and returns that job's arrays and
-    its host seconds; ``close()`` stops it and removes its files."""
+    ``get(name)`` waits for that job's file (the jobs run in
+    ``HOST_PLAIN_JOBS``' order) and returns its arrays and its host
+    seconds; ``close()`` stops the process and removes its files."""
 
     def __init__(self, parent):
         import tempfile
 
         self.dir = tempfile.mkdtemp(prefix="host_plain_", dir=parent)
         here = os.path.dirname(os.path.abspath(__file__))
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.host_plain_jobs(sys.argv[1])", self.dir],
-            cwd=here, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-        )
+        self.err = os.path.join(self.dir, "stderr.txt")
+        with open(self.err, "wb") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.host_plain_jobs(sys.argv[1])", self.dir],
+                cwd=here, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL, stderr=err,
+            )
         self.t0 = time.perf_counter()
-        self.wall = None
 
     def get(self, name):
-        if self.wall is None:
-            self.wall = time.perf_counter() - self.t0
-            _, err = self.proc.communicate(timeout=max(60.0, 1000 - self.wall))
-            if self.proc.returncode != 0:
-                fail(f"the host plain jobs failed:\n{err.decode()[-2000:]}")
-            log(f"host plain jobs {HOST_PLAIN_JOBS} ({HOST_PLAIN_THREADS} thread(s)): first needed {self.wall:.1f} s "
-                f"after their start, waited for {time.perf_counter() - self.t0 - self.wall:.1f} s")
-        with np.load(os.path.join(self.dir, f"{name}.npz")) as saved:
+        path = os.path.join(self.dir, f"{name}.npz")
+        t_need = time.perf_counter()
+        while not os.path.exists(path):  # the jobs run in HOST_PLAIN_JOBS' order, each saved when done
+            if self.proc.poll() is not None and not os.path.exists(path):
+                with open(self.err, "rb") as err:
+                    fail(f"the host plain jobs failed before {name}:\n{err.read().decode()[-2000:]}")
+            if time.perf_counter() - self.t0 > 1000:
+                fail(f"the host plain job {name} did not finish within 1000 s")
+            time.sleep(0.2)
+        log(f"host plain job {name} ({HOST_PLAIN_THREADS} thread(s)): needed {t_need - self.t0:.1f} s after the "
+            f"jobs' start, waited for {time.perf_counter() - t_need:.1f} s")
+        with np.load(path) as saved:
             out = {k: torch.from_numpy(saved[k]) for k in saved.files if k != "seconds"}
             return out, float(saved["seconds"])
 
@@ -3781,20 +3837,27 @@ def wrappers_of(table):
             for name, (mod, fn) in table.items()}
 
 
-class walk_engine:
-    """``NW_TPU_WALK_ENGINE`` set to ``engine`` inside the block."""
+class env_var:
+    """The environment variable ``name`` set to ``value`` (None: unset)
+    inside the block."""
 
-    def __init__(self, engine: str):
-        self.engine = engine
+    def __init__(self, name: str, value):
+        self.name, self.value = name, value
 
     def __enter__(self):
-        self.saved = os.environ.get("NW_TPU_WALK_ENGINE")
-        os.environ["NW_TPU_WALK_ENGINE"] = self.engine
+        self.saved = os.environ.pop(self.name, None)
+        if self.value is not None:
+            os.environ[self.name] = str(self.value)
 
     def __exit__(self, *exc):
-        os.environ.pop("NW_TPU_WALK_ENGINE")
+        os.environ.pop(self.name, None)
         if self.saved is not None:
-            os.environ["NW_TPU_WALK_ENGINE"] = self.saved
+            os.environ[self.name] = self.saved
+
+
+def walk_engine(engine: str) -> env_var:
+    """``NW_TPU_WALK_ENGINE`` set to ``engine`` inside the block."""
+    return env_var("NW_TPU_WALK_ENGINE", engine)
 
 
 def runs_kernels_vs_plain(dev, small, errs):
@@ -4547,6 +4610,454 @@ def twopass_phase(card, bound, aligner, small, c3, r3, aligned3):
     return rec
 
 
+# phase 16: the variant two-pass tracebacks
+VARIANT_KINDS = ("sw", "overlap", "gotoh")
+VARIANT_SPAN_WARPS = (1, 2, 7, 16, 32)  # free_fill_span / gotoh_fill_span at forced warps a pair (and the rule's)
+VARIANT_TWOPASS_KERNELS = {  # record name -> (module, wrapper) whose .launches count its kernel
+    "free_fill_span": ("variants_banded", "free_fill_span_banded_batch"),
+    "gotoh_fill_span": ("variants_banded", "affine_fill_span_banded_batch"),
+    "sw_walk_groups": ("traceback", "walk_sw_codes_groups"),
+    "gotoh_walk_groups": ("traceback", "walk_gotoh_codes_groups"),
+}
+L_VARIANT_HUGE = 40_960  # phase 16 (c): 2 pairs of it a model on the two-pass route
+
+
+def variant_span_chain(T, sc, kind, S, warps=None, plain=False, emit_codes=True):
+    """``free_fill_span`` (``kind`` "sw" or "overlap") or
+    ``gotoh_fill_span`` ("gotoh"; ``plain``: their plain versions, on T's
+    device) over the whole table of T = (tops, sides, lens1, lens2) from
+    row 0, spans of S bands at ``warps`` warps a pair (None: the rule's),
+    under scoring ``sc``: after each span its outputs, cloned: (bnd, key,
+    best, j*, i*, [codes]) or Gotoh's (bnd, scores, states, [codes])."""
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    B, A = T[0].shape
+    dev = T[0].device
+    nbands = -(-T[1].shape[1] // 32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    if kind == "gotoh":
+        bufs = (torch.empty((B, 3, A + 1), **i32), torch.zeros(B, **i32), torch.zeros(B, **i32))
+        fill = vb.affine_fill_span_banded_batch_plain if plain else vb.affine_fill_span_banded_batch
+        extra = ()
+    else:
+        bufs = (torch.empty((B, A + 1), **i32), torch.empty((B, 3), **i32),
+                *(torch.empty(B, **i32) for _ in range(3)))
+        fill = vb.free_fill_span_banded_batch_plain if plain else vb.free_fill_span_banded_batch
+        extra = (kind == "sw",)
+    out = []
+    for r0 in range(0, max(nbands, 1), S):
+        if plain:
+            codes = fill(*T, *sc, r0, S, *bufs, *extra, emit_codes)
+        else:
+            codes = fill(*T, *sc, r0, S, *bufs, *extra, emit_codes=emit_codes, warps=warps)
+        out.append(tuple(x.clone() for x in (*bufs, codes) if x is not None))
+    return out
+
+
+def variant_groups_walk(walk, codes, start, S, width):
+    """``walk`` (``walk_sw_codes_groups``, ``walk_gotoh_codes_groups`` or
+    their plain versions) chained over the groups of S bands of a whole
+    table's codes int32[B, nbands, TW, 32], last group first, from the
+    cursors ``start`` (int32[B, 3] or Gotoh's [B, 4]): (state, ops
+    int8[B, width]), the ops stitched in place."""
+    from nw_tpu_torch.ops.traceback import OP_NONE
+
+    B, nbands = codes.shape[:2]
+    state = start.clone()
+    ops = torch.full((B, width), OP_NONE, dtype=torch.int8, device=codes.device)
+    for g in range(max(1, -(-nbands // S)) - 1, -1, -1):
+        walk(codes[:, g * S : (g + 1) * S].contiguous(), state, 32 * g * S, ops)
+    return state, ops
+
+
+def variant_cursor(kind, fill, T):
+    """The walks' start cursors of a whole code fill's outputs ``fill``:
+    (i*, j*, 0) a pair from (codes, best, j*, i*) for "sw" / "overlap",
+    Gotoh's (len1, len2, 0, state) from (codes, scores, states)."""
+    if kind == "gotoh":
+        return torch.stack([T[2], T[3], torch.zeros_like(T[2]), fill[2]], 1).to(torch.int32).contiguous()
+    _, _, js, is_ = fill
+    return torch.stack([is_, js, torch.zeros_like(is_)], 1).to(torch.int32).contiguous()
+
+
+def variant_spans_walks_vs_plain(dev, errs):
+    """Phase 16 (a): ``free_fill_span`` (SW and overlap under
+    ``SW_SCORINGS``) and ``gotoh_fill_span`` (``GOTOH_SCORINGS``)
+    chained over the table of phases 9-11's check pairs in spans of 1 and
+    2 bands, as the two-pass route runs them with ``GROUP_BANDS`` 1 and 2
+    (at the rule's W; under the first scoring also in spans of 2 at every
+    W of ``VARIANT_SPAN_WARPS``), against their plain version in one span
+    of the whole table on the card: the last row, the best cell or the
+    corners, and every span's codes; and ``sw_walk_groups`` /
+    ``gotoh_walk_groups`` chained over groups of 1 and 2 bands of the
+    plain codes from each start against their plain version chained over
+    groups of 2.  Returns the seconds of the plain versions and of the
+    kernels."""
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    def err(got, want):  # max_abs_err, its host copies only where they differ
+        return 0 if torch.equal(got, want) else max_abs_err(got, want)
+
+    pairs = variant_pairs(10, EDGE)
+    L1, L2 = max(len(a) for a, _ in pairs), max(len(b) for _, b in pairs)
+    T = enc.upload(enc.encode_batch(pairs, L1, L2), dev)
+    nbands = -(-L2 // 32)
+    secs = {"plain": 0.0, "kernels": 0.0}
+    for kind in VARIANT_KINDS:
+        gotoh = kind == "gotoh"
+        span_name = "gotoh_fill_span" if gotoh else "free_fill_span"
+        walk_name = "gotoh_walk_groups" if gotoh else "sw_walk_groups"
+        walk = tb.walk_gotoh_codes_groups if gotoh else tb.walk_sw_codes_groups
+        walk_plain = tb.walk_gotoh_codes_groups_plain if gotoh else tb.walk_sw_codes_groups_plain
+        for sc in GOTOH_SCORINGS if gotoh else SW_SCORINGS:
+            t0 = time.perf_counter()
+            (want,) = variant_span_chain(T, sc, kind, nbands, plain=True)
+            codes = want[-1]
+            # the walks' starts: the corner in its state, or the best cell
+            start = variant_cursor(kind, (codes, *want[1:3]) if gotoh else (codes, *want[2:5]), T)
+            width = L1 + L2 if gotoh else tb._sw_max_steps(codes)
+            p_state, p_ops = variant_groups_walk(walk_plain, codes, start, 2, width)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            e_s = e_w = 0
+            first = sc == (GOTOH_SCORINGS if gotoh else SW_SCORINGS)[0]
+            for S, W in ((1, None), (2, None), *((2, W) for W in VARIANT_SPAN_WARPS if first)):
+                got = variant_span_chain(T, sc, kind, S, W)
+                e_s = max(e_s, *(err(g, w) for g, w in zip(got[-1][:-1], want[:-1])),
+                          err(torch.cat([x[-1] for x in got], 1), codes))
+            for S in (1, 2):
+                g_state, g_ops = variant_groups_walk(walk, codes, start, S, width)
+                e_w = max(e_w, err(g_state, p_state), err(g_ops, p_ops))
+            torch.cuda.synchronize()
+            secs["plain"] += t1 - t0
+            secs["kernels"] += time.perf_counter() - t1
+            errs[span_name] = max(errs[span_name], e_s)
+            errs[walk_name] = max(errs[walk_name], e_w)
+            forced = f" (and of 2 at W = {list(VARIANT_SPAN_WARPS)})" if first else ""
+            log(f"phase 16 (a) {kind}: {span_name} in spans of 1 and 2 bands{forced} and {walk_name} in groups of 1 "
+                f"and 2 bands vs plain, {len(pairs)} pairs {L1}x{L2}, scoring {sc}: span {e_s}, walk {e_w}")
+    log(f"phase 16 (a) seconds: the plain versions {secs['plain']:.1f}, the kernels' chains {secs['kernels']:.1f}")
+    if any(errs.values()):
+        fail(f"a variant two-pass kernel differs from its plain version: {errs}")
+    return T
+
+
+def variant_route(kind, T, sc, onepass):
+    """One variant traceback of the encoded batch T on the device
+    (:func:`free_traceback_dispatch` / :func:`affine_traceback_dispatch`),
+    synchronized, on the route ``onepass`` names: ``NW_TPU_ONEPASS_HBM``
+    set far above the batch's codes, or to 0."""
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    with env_var("NW_TPU_ONEPASS_HBM", 1 << 50 if onepass else 0):
+        if kind == "gotoh":
+            out = vb.affine_traceback_dispatch(*T, *sc)
+        else:
+            out = vb.free_traceback_dispatch(*T, *sc, kind == "sw")
+    torch.cuda.synchronize()
+    return out
+
+
+def variant_route_err(a, b) -> int:
+    """max |diff| of two ``VariantWalk`` outputs, field by field."""
+    return max(max_abs_err(x, y) for x, y in zip(a, b) if isinstance(x, torch.Tensor))
+
+
+VARIANT_SCORING = {"sw": (2, 1, 1), "overlap": (2, 1, 1), "gotoh": (2, 1, 3, 1)}
+VARIANT_PATH_PAIRS = 4  # phase 16 (d): the first pairs of (b)'s batch held against the plain versions
+
+
+def variant_path_vs_plain(kind, T, sc, tp, sms):
+    """Phase 16 (d): the four kernels against their plain versions on the
+    card at the main path's shapes: the first ``VARIANT_PATH_PAIRS`` pairs
+    of (b)'s batch T, at the W the two-pass route gives each span of the
+    whole batch (``tp``, its :class:`FreeTwoPass` / :class:`GotohTwoPass`):
+    pass 1's spans of the groups but the last (scores only), then the last
+    group's re-fill from the checkpoint row pass 1 left (codes; the best's
+    key or the corners carried in from pass 1), every output held whole;
+    then the group walk over the last group's codes from every walk's
+    start (at (b)'s shape: group 0, then group 1 of 2).  Returns ({record
+    name: max_abs_err}, the plain versions' ms, the kernels' ms, the log's
+    words)."""
+    from nw_tpu_torch.ops import fill_banded as fb
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    if tp.ngroups < 2:
+        fail(f"phase 16 (d) needs two groups at {kind} 128x{L_SW_TB}bp, not {tp.ngroups}")
+    gotoh = kind == "gotoh"
+    nb = VARIANT_PATH_PAIRS
+    T4 = tuple(t[:nb].contiguous() for t in T)
+    A, Bs = tp.A, tp.Bs
+    dev = T[0].device
+    cell = vb.GOTOH_CELL[True] if gotoh else 4
+    G = tp.ngroups
+    warps = [fb.fill_warps(tp.B, A, 32 * vb.span_bands(Bs, g * tp.S, tp.S), cell, sms) for g in range(G)]
+    i32 = dict(dtype=torch.int32, device=dev)
+    if gotoh:
+        bufs = [torch.empty((nb, 3, A + 1), **i32), torch.zeros(nb, **i32), torch.zeros(nb, **i32)]
+        fill, plain, extra = vb.affine_fill_span_banded_batch, vb.affine_fill_span_banded_batch_plain, ()
+        walk, walk_plain = tb.walk_gotoh_codes_groups, tb.walk_gotoh_codes_groups_plain
+    else:
+        bufs = [torch.empty((nb, A + 1), **i32), torch.zeros((nb, 3), **i32),
+                *(torch.zeros(nb, **i32) for _ in range(3))]
+        fill, plain, extra = vb.free_fill_span_banded_batch, vb.free_fill_span_banded_batch_plain, (kind == "sw",)
+        walk, walk_plain = tb.walk_sw_codes_groups, tb.walk_sw_codes_groups_plain
+    ms = {"plain": 0.0, "kernel": 0.0}
+    errs = []
+    for g in range(G):  # pass 1's spans, then the last group's re-fill from its checkpoint
+        emit = g == G - 1
+        want = [x.clone() for x in bufs]
+        got = [x.clone() for x in bufs]
+        codes_p, t = cuda_once(lambda: plain(*T4, *sc, g * tp.S, tp.S, *want, *extra, emit))
+        ms["plain"] += t
+        codes_k, t = cuda_once(lambda: fill(*T4, *sc, g * tp.S, tp.S, *got, *extra, emit_codes=emit, warps=warps[g]))
+        ms["kernel"] += t
+        errs.append(max([max_abs_err(a, b) for a, b in zip(got, want)]
+                        + ([max_abs_err(codes_k, codes_p)] if emit else [])))
+        bufs = want
+    start = variant_cursor(kind, (codes_p, *bufs[1:3]) if gotoh else (codes_p, *bufs[2:5]), T4)
+    ops_p = torch.full((nb, tp.width), tb.OP_NONE, dtype=torch.int8, device=dev)
+    ops_k, st_p, st_k = ops_p.clone(), start.clone(), start.clone()
+    _, t = cuda_once(lambda: walk_plain(codes_p, st_p, 32 * (G - 1) * tp.S, ops_p))
+    ms["plain"] += t
+    _, t = cuda_once(lambda: walk(codes_p, st_k, 32 * (G - 1) * tp.S, ops_k))
+    ms["kernel"] += t
+    e_walk = max(max_abs_err(st_k, st_p), max_abs_err(ops_k, ops_p))
+    steps = int(st_p[:, 2].sum())
+    span = "gotoh_fill_span" if gotoh else "free_fill_span"
+    walk_name = "gotoh_walk_groups" if gotoh else "sw_walk_groups"
+    words = (f"{nb} pairs in {G} groups of {tp.S} bands, W {warps}: pass 1's spans {errs[:-1]}, the last group's "
+             f"re-fill {errs[-1]}, its walk {e_walk} ({steps} steps)")
+    return {span: max(errs), walk_name: e_walk}, ms, words
+
+
+def variant_twopass_phase(card, bound):
+    """Phase 16: the variant tracebacks' two-pass route (``free_fill_span``,
+    ``gotoh_fill_span``, ``sw_walk_groups``, ``gotoh_walk_groups``).
+    Returns the record fields of the four kernels."""
+    from nw_tpu_torch.models import affine as af
+    from nw_tpu_torch.models import overlap as ov
+    from nw_tpu_torch.models import smith_waterman as sw
+    from nw_tpu_torch.ops import encode as enc
+    from nw_tpu_torch.ops import traceback as tb
+    from nw_tpu_torch.ops import variants_banded as vb
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    torch.cuda.empty_cache()
+    errs = {name: 0 for name in VARIANT_TWOPASS_KERNELS}
+    t0 = time.perf_counter()
+    Tc = variant_spans_walks_vs_plain(dev, errs)
+    log(f"phase 16 (a) seconds {time.perf_counter() - t0:.1f}")
+
+    # (b), (c): the routes, the four kernels' counters from 0
+    wrappers = wrappers_of(VARIANT_TWOPASS_KERNELS)
+    for w in wrappers.values():
+        w.launches = 0
+    batches = {kind: enc.upload(enc.encode_batch(ps[f"128x{L_SW_TB}bp"], L_SW_TB, L_SW_TB), dev)
+               for kind, ps in variant_align_pairs().items()}
+    outs = {}
+    for kind, T in batches.items():
+        sc = VARIANT_SCORING[kind]
+        span = wrappers["gotoh_fill_span" if kind == "gotoh" else "free_fill_span"]
+        spans = [span.launches]  # the route taken: no span fill on the one-pass route, some on the two-pass
+        one = variant_route(kind, T, sc, True)
+        spans.append(span.launches)
+        outs[kind] = (one, variant_route(kind, T, sc, False))
+        spans.append(span.launches)
+        e = variant_route_err(*outs[kind])
+        # the public function (host outputs) on the two-pass route, forced
+        name = "affine" if kind == "gotoh" else kind
+        with env_var("NW_TPU_ONEPASS_HBM", 0):
+            public = getattr(vb, f"{name}_traceback_banded_batch")(*T, *sc)
+        fields = (one.scores, one.ops, one.n) if kind == "gotoh" else (
+            one.scores, one.j_star, one.i_star, one.j_end, one.i_end, one.ops, one.n)
+        e = max(e, *(max_abs_err(torch.from_numpy(p), f) for p, f in zip(public, fields)))
+        if e or spans[1] != spans[0] or spans[2] == spans[1]:
+            fail(f"phase 16 (b) {kind} 128x{L_SW_TB}bp: the two-pass route (and {name}_traceback_banded_batch on it) "
+                 f"differs from the one-pass route ({e}), or a route was not taken (span fills {spans})")
+    launches_b = {name: w.launches for name, w in wrappers.items()}
+    log(f"phase 16 (b) launches (128x{L_SW_TB}bp, the two-pass route of each model): {launches_b}")
+
+    # (c) one long batch a model past the budget: the model path (two-pass) vs the one-pass route
+    rng = np.random.default_rng(16)
+    long_pairs = rand_pairs(rng, 2, L_VARIANT_HUGE, L_VARIANT_HUGE)
+    models = {"sw": lambda: sw.sw_align_batch(long_pairs, 2, 1, 1),
+              "overlap": lambda: ov.overlap_align_batch(long_pairs, 2, 1, 1),
+              "gotoh": lambda: af.affine_align_batch(long_pairs, 2, 1, 3, 1)}
+    peaks, walls_c = {}, {}
+    one_pair = {kind: vb.code_table_bytes(L_VARIANT_HUGE, L_VARIANT_HUGE, 4 if kind == "gotoh" else 2)
+                for kind in models}
+    for kind, run in models.items():
+        res = {}
+        for budget in (one_pair[kind] - 1, None):  # None: the default budget
+            with env_var("NW_TPU_ONEPASS_HBM", budget):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res[budget is None] = run()
+                walls_c[kind, budget is None] = time.perf_counter() - t0
+                peaks[kind, budget is None] = torch.cuda.max_memory_allocated()
+        if res[False] != res[True]:
+            fail(f"phase 16 (c) {kind} 2x{L_VARIANT_HUGE}bp: the two-pass model path differs from the one-pass route")
+        if peaks[kind, False] >= peaks[kind, True]:
+            fail(f"phase 16 (c) {kind}: the two-pass route's peak memory is not below the one-pass route's")
+        log(f"phase 16 (c) {kind} 2x{L_VARIANT_HUGE}bp (NW_TPU_ONEPASS_HBM = {one_pair[kind] - 1}, one byte below "
+            f"one pair's codes): the model path on the two-pass route equals the one-pass route; walls two-pass "
+            f"{walls_c[kind, False]:.3f} s, one-pass {walls_c[kind, True]:.3f} s; peak device memory two-pass "
+            f"{peaks[kind, False] / 2**20:.1f} MiB, one-pass {peaks[kind, True] / 2**20:.1f} MiB [{card}]")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    launches_c = {name: launches[name] - launches_b[name] for name in launches}
+    log(f"phase 16 (c) launches: {launches_c}; (b) and (c) {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the variant two-pass route never launched: {launches}")
+
+    # (b) walls in turns (one-pass, two-pass, two-pass, one-pass), each
+    # split by CUDA events into pass 1, the re-fills and the walks
+    walls = {}
+    for kind, T in batches.items():
+        sc = VARIANT_SCORING[kind]
+        for onepass in (True, False, False, True):
+            t0 = time.perf_counter()
+            variant_route(kind, T, sc, onepass)
+            walls.setdefault((kind, onepass), []).append((time.perf_counter() - t0) * 1e3)
+    splits = {}
+    for kind, T in batches.items():
+        sc = VARIANT_SCORING[kind]
+        cls = vb.GotohTwoPass if kind == "gotoh" else vb.FreeTwoPass
+        fill = "affine_fill_codes_banded_batch" if kind == "gotoh" else f"{kind}_fill_codes_banded_batch"
+        walk = "walk_gotoh_codes_batch" if kind == "gotoh" else "walk_sw_codes_batch"
+        splits[kind, False] = route_split(lambda: variant_route(kind, T, sc, False),
+                                          {"pass1": (cls, "_sweep"), "refill": (cls, "_refill"), "walk": (cls, "_walk")})
+        splits[kind, True] = route_split(lambda: variant_route(kind, T, sc, True),
+                                         {"fill": (vb, fill), "walk": (vb, walk)})
+        two, one = splits[kind, False], splits[kind, True]
+        log(f"phase 16 (b) {kind} 128x{L_SW_TB}bp {sc} walls in turns (one-pass, two-pass, two-pass, one-pass): "
+            f"one-pass {[round(w, 3) for w in walls[kind, True]]} ms, two-pass "
+            f"{[round(w, 3) for w in walls[kind, False]]} ms; split by CUDA events (medians of 3 warm runs): "
+            f"two-pass wall {two['wall']:.3f} ms = pass 1 {two['pass1']:.3f} + re-fills {two['refill']:.3f} + walks "
+            f"{two['walk']:.3f} ms; one-pass wall {one['wall']:.3f} ms = fill {one['fill']:.3f} + walk "
+            f"{one['walk']:.3f} ms [{card}]")
+
+    # the kernels at (b)'s shape, each summed over its launches, and their
+    # plain versions on the card at the check pairs (one scoring)
+    rec = {}
+    for kind in VARIANT_KINDS:
+        T = batches[kind]
+        sc = VARIANT_SCORING[kind]
+        tp = (vb.GotohTwoPass(*T, *sc) if kind == "gotoh" else vb.FreeTwoPass(*T, *sc, kind == "sw"))
+
+        def pass1():
+            carry, cps = tp.start(), []
+            tp.checkpoint_pass(carry, lambda g, bnd: cps.append(bnd.clone()))
+            return cps, carry
+
+        (cps, carry), _ = cuda_once(pass1)
+        pass1_ms = cuda_ms(pass1, 2)
+        refill_ms = [cuda_ms(lambda: tp._refill(g, cps[g].clone()), 2) for g in range(tp.ngroups)]
+        group_codes = [tp._refill(g, cps[g].clone()) for g in range(tp.ngroups)]
+        start = tp.cursor(carry[2]) if kind == "gotoh" else tp.cursor(carry[3], carry[4])
+        ops = torch.full((tp.B, tp.width), tb.OP_NONE, dtype=torch.int8, device=dev)
+
+        def walks(longest=None):
+            state = start.clone()
+            for g in range(tp.ngroups - 1, -1, -1):
+                before = state[:, 2].clone()
+                tp._walk(group_codes[g], state, 32 * g * tp.S, ops)
+                if longest is not None:
+                    longest.append(int((state[:, 2] - before).max()))
+            return state
+
+        walk_runs = cuda_each(walks, 5)
+        walk_ms = statistics.median(walk_runs)
+        longest = []
+        state = walks(longest)
+        steps = int(state[:, 2].to(torch.int64).sum())
+        want = outs[kind][0]
+        e_path = max(max_abs_err(state[:, 2], want.n), max_abs_err(ops[:, : want.ops.shape[1]], want.ops),
+                     max_abs_err(carry[1] if kind == "gotoh" else carry[2], want.scores))
+        if e_path:
+            fail(f"phase 16 {kind}: the two-pass kernels at 128x{L_SW_TB}bp differ from the one-pass route: {e_path}")
+        del group_codes, cps
+        e_d, ms_d, words = variant_path_vs_plain(kind, T, sc, tp, sms)
+        for name, e in e_d.items():
+            errs[name] = max(errs[name], e)
+        log(f"phase 16 (d) {kind} 128x{L_SW_TB}bp's first {words} vs plain on the card (plain {ms_d['plain']:.1f} "
+            f"ms, kernels {ms_d['kernel']:.3f} ms) [{card}]")
+        if any(e_d.values()):
+            fail(f"phase 16 (d) {kind}: a two-pass kernel differs from its plain version at the path's shapes: {e_d}")
+        cells = tp.B * L_SW_TB * L_SW_TB
+        in_bytes = tensor_bytes(*T)
+        gotoh = kind == "gotoh"
+        row_bytes = tp.B * (L_SW_TB + 1) * (12 if gotoh else 4)  # a boundary row of the batch
+        if gotoh:
+            p1 = bound(cells * OPS_GOTOH, tp.ngroups * (in_bytes + 2 * row_bytes) + 8 * tp.B)
+            rf = bound(cells * (OPS_GOTOH + OPS_GOTOH_CODE), tp.ngroups * (in_bytes + 2 * row_bytes) + cells // 2)
+        else:
+            extra = OPS_LOCAL + OPS_ARGMAX if kind == "sw" else 0
+            p1 = bound(cells * (OPS_SCORE + extra), tp.ngroups * (in_bytes + 2 * row_bytes) + 24 * tp.B)
+            rf = bound(cells * (OPS_SCORE + extra + OPS_CODE), tp.ngroups * (in_bytes + 2 * row_bytes) + cells // 4)
+        # the plain versions on the card at the check pairs: one span of
+        # the whole table, and the group walk over it in groups of 2 bands
+        nbc = -(-Tc[1].shape[1] // 32)
+        (want_c,), plain_ms = cuda_once(lambda: variant_span_chain(Tc, sc, kind, nbc, plain=True))
+        kern_ms = cuda_ms(lambda: variant_span_chain(Tc, sc, kind, nbc), 2)
+        codes_c = want_c[-1]
+        start_c = variant_cursor(kind, (codes_c, *want_c[1:3]) if gotoh else (codes_c, *want_c[2:5]), Tc)
+        width_c = Tc[0].shape[1] + Tc[1].shape[1] if gotoh else tb._sw_max_steps(codes_c)
+        walk_k = tb.walk_gotoh_codes_groups if gotoh else tb.walk_sw_codes_groups
+        walk_p = tb.walk_gotoh_codes_groups_plain if gotoh else tb.walk_sw_codes_groups_plain
+        _, plain_walk_ms = cuda_once(lambda: variant_groups_walk(walk_p, codes_c, start_c, 2, width_c))
+        kern_walk_ms = cuda_ms(lambda: variant_groups_walk(walk_k, codes_c, start_c, 2, width_c), 3)
+        del want_c, codes_c
+        span = "gotoh_fill_span" if gotoh else "free_fill_span"
+        walk_name = "gotoh_walk_groups" if gotoh else "sw_walk_groups"
+        fields = rec.setdefault(span, {"per_model": {}})
+        fields["per_model"][kind] = dict(
+            ms=pass1_ms + sum(refill_ms), pass1_ms=pass1_ms, refill_ms=refill_ms,
+            bound_ms=p1["bound_ms"] + rf["bound_ms"],
+            bound_by=p1["bound_by"] if p1["bound_ms"] >= rf["bound_ms"] else rf["bound_by"],
+            plain_ms=plain_ms, kernel_ms_check_pairs=kern_ms, path_check_ms=ms_d, groups=tp.ngroups, group_bands=tp.S,
+            warps=vb.gotoh_warps(tp.B, L_SW_TB, 32 * tp.S, True, sms) if gotoh
+            else vb.fill_warps(tp.B, L_SW_TB, 32 * tp.S, 4, sms),
+            split_ms=splits[kind, False], onepass_split_ms=splits[kind, True],
+            walls_ms={"onepass": walls[kind, True], "twopass": walls[kind, False]},
+            long_pairs={"walls_s": [walls_c[kind, False], walls_c[kind, True]],
+                        "peak_bytes": [peaks[kind, False], peaks[kind, True]]})
+        rec.setdefault(walk_name, {"per_model": {}})["per_model"][kind] = dict(
+            ms=walk_ms, runs_ms=walk_runs, plain_ms=plain_walk_ms, kernel_ms_check_pairs=kern_walk_ms, steps=steps,
+            group_longest=longest, span_floor_ms=bound.span(sum(longest)),
+            ns_per_step=walk_ms * 1e6 / max(sum(longest), 1),
+            **bound(steps * OPS_WALK_STEP, 2 * tensor_bytes(start) + 5 * steps))
+        log(f"phase 16 {kind} kernels at 128x{L_SW_TB}bp ({tp.ngroups} groups of {tp.S} bands): {span} pass 1 "
+            f"{pass1_ms:.3f} ms + re-fills {' + '.join(f'{x:.3f}' for x in refill_ms)} ms, bound "
+            f"{p1['bound_ms']:.4f} + {rf['bound_ms']:.4f} ms; {walk_name} {walk_ms:.3f} ms (median of "
+            f"{[round(x, 3) for x in walk_runs]} ms), {steps} steps, each "
+            f"group's longest {longest}, span floor {bound.span(sum(longest)):.4f} ms; at the check pairs the plain "
+            f"span {plain_ms:.1f} ms (kernels {kern_ms:.3f} ms), the plain group walk {plain_walk_ms:.1f} ms "
+            f"(kernels {kern_walk_ms:.3f} ms) [{card}]")
+    out = {}
+    for name, fields in rec.items():
+        per = fields["per_model"]
+        lead = "gotoh" if name.startswith("gotoh") else "sw"  # the record's numbers; overlap's in per_model
+        out[name] = dict(per[lead], per_model=per, launches=launches[name], launches_b=launches_b[name],
+                         launches_c=launches_c[name], max_abs_err=errs[name],
+                         shape=f"{lead} 128x{L_SW_TB}bp {VARIANT_SCORING[lead]}, the two-pass route's launches summed "
+                               f"(per_model: each model's); plain_ms on the card at phase 16 (a)'s check pairs "
+                               f"(kernel_ms_check_pairs beside it)")
+        log(f"kernel {name}: {out[name]['ms']:.3f} ms, bound {out[name]['bound_ms']:.4f} ms "
+            f"({out[name]['bound_by']}), plain {out[name]['plain_ms']:.1f} ms, launches (b) {launches_b[name]} "
+            f"(c) {launches_c[name]} [{card}]")
+    log(f"phase 16 peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"seconds {time.perf_counter() - t_phase:.1f} [{card}]")
+    return out
+
+
 # the pipeline at a forced W (warps a pair): phase 3 holds nw_scores and
 # nw_fill_codes at each W against plain, phases 9 and 10 sw_scores,
 # overlap_scores and gotoh_scores, phase 11 gotoh_fill_codes; phases 5
@@ -4750,7 +5261,7 @@ def main() -> None:
     ptxas = start_ptxas_report()
     kernels.load()
     log(f"kernel build+load: {time.perf_counter() - t0:.1f} s ({kernels.library_path().name})")
-    host = HostPlain(kernels.BUILD)  # the seeded plain checks of phases 12 and 13, on the host meanwhile
+    host = HostPlain(kernels.BUILD)  # the seeded plain checks of phases 6, 7, 12 and 13, on the host meanwhile
     atexit.register(host.close)
     print_ptxas_report(ptxas)
     bound.smem_cycles = smem_load_cycles()
@@ -4971,8 +5482,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 6. the single-pair kernels; 7. the CLI (its own launch counters)
-    single = single_phase(card, errs)
-    cli_launches, cli_walls, cli_times = cli_phase(card, errs)
+    single = single_phase(card, errs, host)
+    cli_launches, cli_walls, cli_times = cli_phase(card, errs, host)
     # 8. huge pairs; 9. Smith-Waterman (their own launch counters)
     huge = huge_phase(card, bound)
     sw_rec = sw_phase(card, bound)
@@ -4988,6 +5499,8 @@ def main() -> None:
     runs_rec = runs_phase(card, bound, aligner, small, c3, r3, aligned, c2)
     # 15. the two-pass walk engines and the resumable runners (their own launch counters)
     twopass_rec = twopass_phase(card, bound, aligner, small, c3, r3, aligned)
+    # 16. the variant tracebacks' two-pass route (their own launch counters)
+    variant_twopass_rec = variant_twopass_phase(card, bound)
     sw_rec["sw_walk"]["launches"] += overlap_walk["launches"]
     sw_rec["sw_walk"]["max_abs_err"] = max(sw_rec["sw_walk"]["max_abs_err"], overlap_walk["max_abs_err"])
     sw_rec["sw_walk"]["shape"] += f"; overlap walks 128x{L_SW_TB}bp {overlap_walk['ms']:.3f} ms"
@@ -5135,6 +5648,22 @@ def main() -> None:
     for name, fields in twopass_rec.items():
         kernels_line.append({"name": name, "route": "cuda", "source": twopass_src[name],
                              "replaces": twopass_replaces[name], **fields})
+    variant_twopass_replaces = {
+        "free_fill_span": "nw_tpu/ops/variants_banded.py:60 (K18) and :423 (K19), band by band with the boundary "
+                          "row carried (_sw_walk_device :1177, _overlap_walk_device :752)",
+        "gotoh_fill_span": "nw_tpu/ops/variants_banded.py:1413 (K21; K20's scores), band by band with the boundary "
+                           "rows carried (_affine_walk_device :1698)",
+        "sw_walk_groups": "nw_tpu/ops/variants_banded.py:1300 and :868 (the group walks of _sw_walk_device and "
+                          "_overlap_walk_device)",
+        "gotoh_walk_groups": "nw_tpu/ops/variants_banded.py:1803 (the group walk of _affine_walk_device)",
+    }
+    variant_twopass_src = {"free_fill_span": "nw_tpu_torch/csrc/nw_fill.cu",
+                           "gotoh_fill_span": "nw_tpu_torch/csrc/nw_affine.cu",
+                           "sw_walk_groups": "nw_tpu_torch/csrc/nw_walk.cu",
+                           "gotoh_walk_groups": "nw_tpu_torch/csrc/nw_walk.cu"}
+    for name, fields in variant_twopass_rec.items():
+        kernels_line.append({"name": name, "route": "cuda", "source": variant_twopass_src[name],
+                             "replaces": variant_twopass_replaces[name], **fields})
     byte_kernels = {"nw_fill_masks_batch": "bytes_pipe_kernel<kMasks>",
                     "nw_fill_masks_batch/flat": "bytes_pipe_kernel<kMasks>",
                     "nw_fill_runs_batch": "bytes_pipe_kernel<kRuns>"}

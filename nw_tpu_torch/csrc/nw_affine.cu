@@ -96,6 +96,20 @@
 // between them; with W = 1, warp 0 reads the rows a chunk ahead of
 // rewriting them in place.
 //
+// The band-span mode (gotoh_span_kernel, gotoh_fill_span: the Gotoh
+// traceback's checkpoint pass and group re-fill) is nw_fill.cu's span
+// over the Gotoh cell: bands r0 .. r0 + nb - 1 from the hand-on row in
+// bnd (best h, IY of the row below, state bits; row 0 written here when
+// r0 is 0, its gap costs only then), the rows, column 0's IY gap and the
+// corner global, the span's last band leaving its row in bnd whichever
+// warp runs it (nw_fill.cu's waits and in-place argument, which do not
+// depend on the cell).  The ring cell always carries the state bits, so
+// the seeded row enters exactly as a band's hand-off does, at every
+// scoring (a row of true values: the sentinel's decay never enters);
+// each pair's score and corner state are written by the span that holds
+// its row len2, so the checkpoint pass is the scores sweep and needs no
+// codes.
+//
 // A chunk whose every column lies in 1..A and that holds no corner (all
 // but a few chunks of a band) runs a step with no test of column 0, of
 // the row's end or of the corner (FAST).  A tested chunk applies the
@@ -159,13 +173,21 @@ template <> struct Cell<true> { using type = int4; };
 // The Gotoh fill on the pipeline.  TOP_SMEM: the top string is staged in
 // shared memory; else in the pair's row of top16 (int16[B,
 // pipe_top_cols(A)]) in device memory.  bnd is int32[B, 2|3, A+1].
-template <bool CODES, bool TOP_SMEM>
-__global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
+// CODES: the ring cell carries the state bits (and the corner's state is
+// written); STORE: the codes are stored.  SPAN: bands r0 .. r0 + nbands -
+// 1 only, nbands = min(span, ceil(Bs/32) - r0), from the row above band
+// r0 in bnd (row 0 written here when r0 is 0), left holding the span's
+// last row (nw_fill.cu's band-span mode, its header): codes at
+// codes[b, band - r0], the corner's score and state by the span that
+// holds row len2.
+template <bool CODES, bool TOP_SMEM, bool SPAN, bool STORE>
+__device__ __forceinline__ void gotoh_fill(
     const int* __restrict__ tops, const int* __restrict__ sides,
     const int* __restrict__ lens1, const int* __restrict__ lens2, int A, int Bs,
     int m, int k, int op, int ex, int* bnd, short* top16,
     unsigned* __restrict__ codes, int* __restrict__ scores,
-    int* __restrict__ states) {
+    int* __restrict__ states, int r0, int span) {
+  static_assert(CODES || !STORE, "codes are stored from the state bits");
   using C = typename Cell<CODES>::type;
   extern __shared__ __align__(16) int gotoh_sh[];
   const int lane = threadIdx.x & 31;
@@ -174,7 +196,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
   const int64_t b = blockIdx.x;
   const int M = A + 1;
   const int nchunks = (M + 31 + 31) >> 5;  // 32-step chunks of one band
-  const int nbands = (Bs + 31) >> 5;
+  const int nbands = SPAN ? min(span, ((Bs + 31) >> 5) - r0) : (Bs + 31) >> 5;
   C* const rings = reinterpret_cast<C*>(gotoh_sh);
   C* const stage = rings + W * kRing;
   volatile int* done = reinterpret_cast<int*>(stage + 32);
@@ -191,7 +213,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
   // the top string; row 0 into the boundary rows (M(0,0) = 0, else M
   // and IY do not exist; IX(0,c) is the gap); counters
   pipe_stage_top(top_s, top, A);
-  for (int c = threadIdx.x; c < M; c += blockDim.x) {
+  for (int c = threadIdx.x; c < M && (!SPAN || r0 == 0); c += blockDim.x) {
     const int mv = c == 0 ? 0 : kNeg;
     const int xv = c == 0 ? kNeg : gap_cost(c, op, ex);
     const int hv = max(max(mv, xv), kNeg);
@@ -201,7 +223,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
     if (CODES) brow[2 * M + c] = argmax_state(mv, xv, kNeg, hv) | (ye > yo) << 3;
   }
   if (threadIdx.x < W) done[threadIdx.x] = 0;
-  if (l2 == 0 && threadIdx.x == 0) {
+  if (l2 == 0 && threadIdx.x == 0 && (!SPAN || r0 == 0)) {
     scores[b] = l1 == 0 ? 0 : max(gap_cost(l1, op, ex), kNeg);
     if (CODES) {  // the corner (0, l1) of row 0
       const int xv = gap_cost(l1, op, ex);
@@ -218,18 +240,24 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
   const int in_warp = warp > 0 ? warp - 1 : W - 1;
   const short* const top_lane = top_s + 31 - lane;  // column t - lane at [t]
   for (int band = warp, round = 0; band < nbands; band += W, ++round) {
-    const int j = band * 32 + 1 + lane;  // this lane's row
+    const int gband = SPAN ? r0 + band : band;  // the band in the table
+    const int j = gband * 32 + 1 + lane;  // this lane's row
     const bool row_ok = j <= Bs;
     const int sch = row_ok ? side[j - 1] : kSidePad;
     const bool feeds = band + 1 < nbands;  // a band below reads this one's last row
     const bool to_ring = feeds && !last_warp;  // ... from this warp's ring
+    // SPAN: the span's last band leaves its last row in bnd, as
+    // nw_fill.cu's span does (its waits and in-place argument hold here)
+    [[maybe_unused]] const bool leaves = SPAN && !feeds;
+    const bool hands = feeds || leaves;  // lane 31 writes the last row into the ring
+    const bool waits_out = to_ring || (leaves && !last_warp);
     // warp 0 reads warp W-1's band of the round before (none in round 0:
     // the boundary rows hold row 0)
     const int in_base = (warp > 0 ? round : round - 1) * nchunks;
     // the chunk of the true corner's step, in the band that holds row len2
-    const int jj_c = l2 - 1 - band * 32;
+    const int jj_c = l2 - 1 - gband * 32;
     const int corner_q = jj_c >= 0 && jj_c < 32 ? (l1 + jj_c) >> 5 : -1;
-    unsigned* wbase = CODES
+    unsigned* wbase = STORE
         ? codes + ((b * nbands + band) * static_cast<int64_t>(4 * nchunks)) * 32 + lane
         : nullptr;
     // own best at the last column, the row above's best one column back,
@@ -246,7 +274,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
       const int t0 = q << 5;
       // the row above's columns t0 .. t0+31 are in (the band above has
       // completed chunk q+1), and this chunk's slots have been read
-      pipe_wait(done, in_warp, in_base + min(q + 2, nchunks), to_ring, warp + 1, g - kSlots + 1);
+      pipe_wait(done, in_warp, in_base + min(q + 2, nchunks), waits_out, warp + 1,
+                SPAN && !to_ring ? min(g - kSlots + 1, round * nchunks) : g - kSlots + 1);
       const C* above = in_ring + (g & (kSlots - 1)) * 32;
       if (warp == 0) {  // stage the chunk of the boundary rows
         const int cx = t0 + lane;
@@ -263,7 +292,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
       // into slot g-1 at 1..31 and column t0 (step 31) into slot g at 0
       C* const out_lo = out_ring + ((g - 1) & (kSlots - 1)) * 32 + 1;
       C* const out_hi = out_ring + (g & (kSlots - 1)) * 32;
-      const bool pub_hi = lane == 31 && feeds;
+      const bool pub_hi = lane == 31 && hands;
       const bool pub_lo = pub_hi && q > 0;
       const short* const tq = top_lane + t0;
 
@@ -337,13 +366,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
             }
             (s < 31 ? out_lo[s] : out_hi[0]) = cell;
           }
-          if constexpr (CODES) {
+          if constexpr (STORE) {
             // rows past Bs store 0: per cell in a tested chunk, per word here
             pack |= (keep ? code : 0u) << (4 * (s & 7));
             if ((s & 7) == 7) {  // static: every lane stores together
               wbase[static_cast<int64_t>((t0 + s) >> 3) * 32] = FAST && !row_ok ? 0u : pack;
               pack = 0;
             }
+          }
+          if constexpr (CODES) {
             v_diag = v_up;
             v = vn;
           }
@@ -362,7 +393,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
       }
 
       __syncwarp();  // the chunk's ring writes are in
-      if (last_warp && feeds) {  // columns t0-31 .. t0 into the boundary rows
+      if ((last_warp && feeds) || leaves) {  // columns t0-31 .. t0 into the boundary rows
         const int col = t0 - 31 + lane;
         if (col >= 0 && col < M) {
           const C cell = lane < 31 ? out_lo[lane] : out_hi[0];
@@ -374,6 +405,32 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
       pipe_post(done, warp, lane, g);
     }
   }
+}
+
+template <bool CODES, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_pipe_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2, int A, int Bs,
+    int m, int k, int op, int ex, int* bnd, short* top16,
+    unsigned* __restrict__ codes, int* __restrict__ scores,
+    int* __restrict__ states) {
+  gotoh_fill<CODES, TOP_SMEM, false, CODES>(tops, sides, lens1, lens2, A, Bs, m, k, op, ex, bnd,
+                                            top16, codes, scores, states, 0, 0);
+}
+
+// The band-span mode (gotoh_fill_span): a kernel of its own, so
+// gotoh_pipe_kernel keeps its machine code.  The ring cell always carries
+// the state bits (a re-fill reads them off its checkpoint row); STORE: the
+// span's codes are stored.
+template <bool STORE, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) gotoh_span_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2, int A, int Bs,
+    int m, int k, int op, int ex, int r0, int span, int* bnd, short* top16,
+    unsigned* __restrict__ codes, int* __restrict__ scores,
+    int* __restrict__ states) {
+  gotoh_fill<true, TOP_SMEM, true, STORE>(tops, sides, lens1, lens2, A, Bs, m, k, op, ex, bnd,
+                                          top16, codes, scores, states, r0, span);
 }
 
 // top16 null: the top in shared memory; else int16[B, pipe_top_cols(A)].
@@ -394,6 +451,26 @@ int launch_gotoh(const int* tops, const int* sides, const int* lens1,
   }
   kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k, op,
                                           ex, bnd, top16, codes, scores, states);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool STORE>
+int launch_gotoh_span(const int* tops, const int* sides, const int* lens1, const int* lens2,
+                      int B, int A, int Bs, int m, int k, int op, int ex, int r0, int span,
+                      int warps, short* top16, int* bnd, unsigned* codes, int* scores,
+                      int* states, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (warps < 1 || warps > kMaxWarps || A < 0 || Bs < 0 || r0 < 0 || span < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = pipe_smem(warps, A, sizeof(typename Cell<true>::type), !top16);
+  auto kernel = top16 ? gotoh_span_kernel<STORE, false> : gotoh_span_kernel<STORE, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k, op, ex, r0,
+                                          span, bnd, top16, codes, scores, states);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -430,4 +507,29 @@ extern "C" int gotoh_fill_codes(const int* tops, const int* sides,
                             extend, warps, static_cast<short*>(top16), bnd,
                             static_cast<unsigned*>(codes), scores, states,
                             static_cast<cudaStream_t>(stream));
+}
+
+// K21 (and K20, its scores) as nw_tpu's Gotoh two-pass traceback calls
+// them, band by band with the boundary rows carried (the checkpoint pass
+// and the group re-fill): bands r0 .. min(r0 + span, ceil(Bs/32)) - 1
+// from the rows above band r0 in bnd (int32[B, 3, A+1]: best h, IY of the
+// row below, state bits; row 0 is written here when r0 is 0), left
+// holding the span's last row (its rows past Bs swept over pads).  Writes
+// scores[b] and states[b] only for a pair whose row len2 lies in the span
+// (len2 = 0: the span from band 0), and with emit_codes the span's 4-bit
+// codes, uint32[B, nb, 4*ceil((A+32)/32), 32] in gotoh_fill_codes's
+// layout, nb the span's bands.  W = warps a pair, top16 as gotoh_scores's.
+extern "C" int gotoh_fill_span(const int* tops, const int* sides, const int* lens1,
+                               const int* lens2, int B, int A, int Bs, int m, int k, int open,
+                               int extend, int r0, int span, int emit_codes, int warps,
+                               void* top16, int* bnd, void* codes, int* scores, int* states,
+                               void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto t16 = static_cast<short*>(top16);
+  auto cw = static_cast<unsigned*>(codes);
+  if (emit_codes)
+    return launch_gotoh_span<true>(tops, sides, lens1, lens2, B, A, Bs, m, k, open, extend, r0,
+                                   span, warps, t16, bnd, cw, scores, states, s);
+  return launch_gotoh_span<false>(tops, sides, lens1, lens2, B, A, Bs, m, k, open, extend, r0,
+                                  span, warps, t16, bnd, cw, scores, states, s);
 }

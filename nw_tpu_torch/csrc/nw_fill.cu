@@ -147,6 +147,18 @@
 // staging of them.  Codes go to codes[b, band - r0], the span's bands in
 // nw_fill_codes's layout.
 //
+// The free recurrences take the same span (free_span_kernel,
+// free_fill_span: the variant tracebacks' checkpoint pass and group
+// re-fill).  A span from band 0 writes row 0 (all 0) itself; column 0 is
+// 0 on every row and gets STOP, as in the code fills.  The best cell
+// needs the whole table, so the span is the code fill's ARGMAX sweep
+// (every chunk of the bucket's rows, the window tests global), with or
+// without the stores, and its key (score, kk, j) crosses spans in
+// key[b]: thread 0 merges the spans before (ignored at r0 = 0) into the
+// span's own by the whole key, as the lanes and warps merge (a later
+// span can hold an equal score on an earlier anti-diagonal), and writes
+// the merged key and the best's cell as the code fills give it.
+//
 // The free score fills on the pipeline (MODE kLocal, kOverlap; scores
 // only) change the global sweep in four places.  Row 0 and column 0 are
 // 0.  No corner: the result is a running best, kept per lane over its
@@ -336,18 +348,19 @@ __device__ __forceinline__ void pipe_fill(
     int A, int Bs, int m, int k, int d, int* bnd, unsigned* cbnd,
     unsigned* __restrict__ codes, int* __restrict__ scores,
     unsigned* __restrict__ counts, short* top16, int* __restrict__ jstar = nullptr,
-    int* __restrict__ istar = nullptr, int r0 = 0, int span = 0) {
+    int* __restrict__ istar = nullptr, int r0 = 0, int span = 0, int* key = nullptr) {
   constexpr bool LOCAL = MODE == kLocal;
   constexpr bool OVERLAP = MODE == kOverlap;
   constexpr bool FREE = LOCAL || OVERLAP;  // row 0 and column 0 are 0; a best cell is kept
-  constexpr bool ARGMAX = FREE && EMIT_CODES;  // the code fills: the best's cell too
-  constexpr bool TRIM = FREE && !EMIT_CODES;   // the score fills: the true table alone
+  // the code fills and the free spans: the best's cell too
+  constexpr bool ARGMAX = FREE && (EMIT_CODES || SPAN);
+  constexpr bool TRIM = FREE && !EMIT_CODES && !SPAN;  // the score fills: the true table alone
   constexpr bool MASKS = MODE == kMasks;
   constexpr bool RUNS = MODE == kRuns;
   constexpr bool BYTES = MASKS || RUNS;  // a byte a cell, through the warp's byte ring
   static_assert(MODE == kGlobal || (FREE && !WITH_COUNTS) || (BYTES && !EMIT_CODES),
                 "the pipeline's local and overlap fills keep no counts; the byte modes store no codes");
-  static_assert(!SPAN || MODE == kGlobal, "the band-span mode is the global recurrence's");
+  static_assert(!SPAN || MODE == kGlobal || FREE, "the band-span mode is the global and free recurrences'");
   using C = typename Cell<WITH_COUNTS>::type;
   extern __shared__ __align__(16) int pipe_sh[];
   const int lane = threadIdx.x & 31;
@@ -387,7 +400,9 @@ __device__ __forceinline__ void pipe_fill(
   // the top string, row 0 (-c*d, one path; 0 in the free fills) into the
   // boundary row and (BYTES) the table, counters
   pipe_stage_top(top_s, top, A);
-  if constexpr (!SPAN) {  // SPAN: bnd / cbnd hold the row above band r0
+  // SPAN: bnd / cbnd hold the row above band r0 (a free span from band 0
+  // writes row 0, all 0, itself)
+  if (!SPAN || (FREE && r0 == 0)) {
     for (int c = threadIdx.x; c < M; c += blockDim.x) {
       brow[c] = FREE ? 0 : wsub(0, wmul(c, d));
       if (WITH_COUNTS) crow[c] = 1u;
@@ -446,9 +461,9 @@ __device__ __forceinline__ void pipe_fill(
     const int hi = j <= l2 ? l1 : 0;
     // ARGMAX: every row of the band lies in the true table (rows_in), none
     // does (rows_out), every row lies above row len2 (rows_above)
-    [[maybe_unused]] const bool rows_in = band * 32 + 32 <= l2;
-    [[maybe_unused]] const bool rows_out = band * 32 >= l2;
-    [[maybe_unused]] const bool rows_above = band * 32 + 32 < l2;
+    [[maybe_unused]] const bool rows_in = gband * 32 + 32 <= l2;
+    [[maybe_unused]] const bool rows_out = gband * 32 >= l2;
+    [[maybe_unused]] const bool rows_above = gband * 32 + 32 < l2;
     unsigned* wbase = EMIT_CODES
         ? codes + ((b * nbands + band) * static_cast<int64_t>(2 * nchunks)) * 32 + lane
         : nullptr;
@@ -719,7 +734,7 @@ __device__ __forceinline__ void pipe_fill(
     }
     if constexpr (BYTES) flush(nchunks << 5);  // the pieces that reach column A
     if constexpr (ARGMAX) {  // this row's best cell into the lane's, by the key
-      const int kk = band * 32 + 1 + lt;
+      const int kk = gband * 32 + 1 + lt;
       if (ranks_above(lbest, kk, j, rb, rk, rj)) {
         rb = lbest;
         rk = kk;
@@ -758,6 +773,20 @@ __device__ __forceinline__ void pipe_fill(
           rk = cells[3 * w + 1];
           rj = cells[3 * w + 2];
         }
+      }
+      if constexpr (SPAN) {
+        // the spans before this one: their best cell, merged by the whole
+        // key (a later band can hold an equal score on an earlier
+        // anti-diagonal); a span from band 0 starts the key
+        int* const kb = key + 3 * b;
+        if (r0 > 0 && ranks_above(kb[0], kb[1], kb[2], rb, rk, rj)) {
+          rb = kb[0];
+          rk = kb[1];
+          rj = kb[2];
+        }
+        kb[0] = rb;
+        kb[1] = rk;
+        kb[2] = rj;
       }
       // no positive cell: LOCAL (0, 0); OVERLAP the zero-cost corner
       // (0, len1), or (len2, 0) when len1 is 0
@@ -837,6 +866,24 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) free_codes_pipe_kernel(
                                          nullptr, codes, best, nullptr, top16, jstar, istar);
 }
 
+// The LOCAL and OVERLAP fills band by band (free_fill_span): bands r0 ..
+// r0 + span - 1 (cut at the table's last) from the row above band r0 in
+// bnd (row 0 written here when r0 is 0), left holding the span's last
+// row; the best cell merged into key (int32[B, 3]: score, kk, j) and
+// written out as the code fills write it, and with EMIT_CODES the span's
+// codes.  A kernel of its own, as the score fills'.
+template <int MODE, bool EMIT_CODES, bool TOP_SMEM>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) free_span_kernel(
+    const int* __restrict__ tops, const int* __restrict__ sides,
+    const int* __restrict__ lens1, const int* __restrict__ lens2,
+    int A, int Bs, int m, int k, int d, int r0, int span, int* bnd,
+    unsigned* __restrict__ codes, int* key, int* __restrict__ best,
+    int* __restrict__ jstar, int* __restrict__ istar, short* top16) {
+  pipe_fill<MODE, EMIT_CODES, false, TOP_SMEM, true>(tops, sides, lens1, lens2, A, Bs, m, k, d, bnd,
+                                                     nullptr, codes, best, nullptr, top16, jstar,
+                                                     istar, r0, span, key);
+}
+
 // The byte modes on the pipeline (nw_fill_masks_batch: MODE kMasks,
 // nw_fill_runs_batch: kRuns): the global recurrence storing a byte a cell
 // into bytes, uint8[B, Bs+1, A+1]; a kernel of their own, as the free
@@ -914,6 +961,27 @@ int launch_span(const int* tops, const int* sides, const int* lens1, const int* 
   }
   kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k, d, r0, span,
                                           bnd, cbnd, codes, scores, counts, top16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE, bool EMIT_CODES>
+int launch_free_span(const int* tops, const int* sides, const int* lens1, const int* lens2, int B,
+                     int A, int Bs, int m, int k, int d, int r0, int span, int warps, short* top16,
+                     int* bnd, unsigned* codes, int* key, int* best, int* jstar, int* istar,
+                     cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (warps < 1 || warps > kMaxWarps || A < 0 || Bs < 0 || r0 < 0 || span < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = pipe_smem(warps, A, sizeof(int), !top16);
+  auto kernel = top16 ? free_span_kernel<MODE, EMIT_CODES, false>
+                      : free_span_kernel<MODE, EMIT_CODES, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<B, 32 * warps, smem, stream>>>(tops, sides, lens1, lens2, A, Bs, m, k, d, r0, span,
+                                          bnd, codes, key, best, jstar, istar, top16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1092,6 +1160,40 @@ extern "C" int nw_fill_span(const int* tops, const int* sides, const int* lens1,
                                     warps, t16, bnd, cb, cw, scores, ct, s);
   return launch_span<false, false>(tops, sides, lens1, lens2, B, A, Bs, m, k, d, r0, span,
                                    warps, t16, bnd, cb, cw, scores, ct, s);
+}
+
+// K18 and K19 as nw_tpu's variant two-pass tracebacks call them, band by
+// band with the boundary row carried (the checkpoint pass with its argmax,
+// and the group re-fill): the LOCAL (local != 0) or OVERLAP fill of bands
+// r0 .. min(r0 + span, ceil(Bs/32)) - 1 from the row above band r0 in bnd
+// (int32[B, A+1]; row 0 is written here when r0 is 0), left holding the
+// span's last row (its rows past Bs swept over pads).  key (int32[B, 3]:
+// score, kk = i + j, j) carries the best cell of the spans before; the
+// span's is merged into it by the scan's tie rule (a span from band 0
+// starts it), and best / jstar / istar (int32[B]) get the merged best and
+// its cell as sw_fill_codes / overlap_fill_codes give them.  With
+// emit_codes, the span's codes, uint32[B, nb, TW, 32] in nw_fill_codes's
+// band-major layout, nb the span's bands.  W = warps a pair, top16 as
+// nw_scores's.
+extern "C" int free_fill_span(const int* tops, const int* sides, const int* lens1,
+                              const int* lens2, int B, int A, int Bs, int m, int k, int d,
+                              int local, int r0, int span, int emit_codes, int warps, void* top16,
+                              int* bnd, void* codes, int* key, int* best, int* jstar, int* istar,
+                              void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto t16 = static_cast<short*>(top16);
+  auto cw = static_cast<unsigned*>(codes);
+  if (local && emit_codes)
+    return launch_free_span<kLocal, true>(tops, sides, lens1, lens2, B, A, Bs, m, k, d, r0, span,
+                                          warps, t16, bnd, cw, key, best, jstar, istar, s);
+  if (local)
+    return launch_free_span<kLocal, false>(tops, sides, lens1, lens2, B, A, Bs, m, k, d, r0, span,
+                                           warps, t16, bnd, cw, key, best, jstar, istar, s);
+  if (emit_codes)
+    return launch_free_span<kOverlap, true>(tops, sides, lens1, lens2, B, A, Bs, m, k, d, r0, span,
+                                            warps, t16, bnd, cw, key, best, jstar, istar, s);
+  return launch_free_span<kOverlap, false>(tops, sides, lens1, lens2, B, A, Bs, m, k, d, r0, span,
+                                           warps, t16, bnd, cw, key, best, jstar, istar, s);
 }
 
 extern "C" const char* nw_error_string(int err) {

@@ -13,7 +13,14 @@
 // pair from its (i, j, n) in device memory to the group's top row); its
 // ops go in place at the running n, the on-device stitch
 // (device_stitch_pack) done as they are written, or as a per-group
-// prefix that the host stitches.
+// prefix that the host stitches.  The variant tracebacks' two-pass route
+// walks the same way over its own re-filled groups: sw_walk_groups (the
+// local walk over SW and overlap codes, _sw_walk_device's and
+// _overlap_walk_device's group walks), whose finished walk lies below
+// every group above it and so walks nowhere there, its (i, j) the cell
+// where it stopped; and gotoh_walk_groups (_affine_walk_device's), whose
+// cursor carries the walk's state (0 M, 1 IX, 2 IY) across the groups'
+// edges, the state walk_staged's Gotoh mode leaves on row j0.
 //
 // Contract.  A walk starts at the true corner (len2, len1), reads the
 // 2-bit code of its cell from the band-major layout of nw_fill.cu (word
@@ -448,9 +455,11 @@ __device__ __forceinline__ unsigned walk_table(uint32_t& p, int& n, int flushed,
 // 3 STOP): stops on a STOP cell, on row j0 or on column 0, neither of
 // which it reads, or after S ops, and returns the cell where it stopped.
 // kGotoh (4-bit codes, 8 a word): from state st (0 M, 1 IX, else IY) to
-// the origin (LEFT along row 0, UP along column 0, whatever the state), or
-// S ops.  A warp, every lane with the same (i, j, n) in and out; wsmem is
-// its kWarpBytes (kGotohWarpBytes) of shared memory.
+// row j0 when j0 > 0, else to the origin (LEFT along row 0), UP along
+// column 0 down to row j0 whatever the state, or S ops, and returns the
+// state it is in there (the state it reached column 0 or row 0 in).  A
+// warp, every lane with the same (i, j, n) in and out; wsmem is its
+// kWarpBytes (kGotohWarpBytes) of shared memory.
 //
 // 2-bit codes: on entering a band (or leaving its table below) the warp
 // expands the kTableCols word columns of the staged segment from the
@@ -478,10 +487,10 @@ __device__ __forceinline__ unsigned walk_table(uint32_t& p, int& n, int flushed,
 // a band where rows of t as wide would take two.  A walk that reads 0 has
 // left the band, the table's columns, or reached column 0.
 template <int MODE>
-__device__ __forceinline__ void walk_staged(const unsigned* __restrict__ codes, int TW,
-                                            unsigned char* wsmem, int j0, int S,
-                                            int& i, int& j, int& n,
-                                            signed char* __restrict__ out, int st = 0) {
+__device__ __forceinline__ int walk_staged(const unsigned* __restrict__ codes, int TW,
+                                           unsigned char* wsmem, int j0, int S,
+                                           int& i, int& j, int& n,
+                                           signed char* __restrict__ out, int st = 0) {
   constexpr bool kG = MODE == kGotoh;
   constexpr int K = kG ? kGotohSegCols : kSegCols, D = kG ? kGotohDepth : kDepth, R = D + 1;
   constexpr int kShift = kG ? 3 : 4;  // the cells a word: 1 << kShift
@@ -632,6 +641,7 @@ __device__ __forceinline__ void walk_staged(const unsigned* __restrict__ codes, 
     }
     i = kG ? t : t - jj;
     j = j0 + 32 * band + jj + 1;
+    if constexpr (kG) st = z == 0 ? 0 : (z == kSlotIX ? 1 : 2);
     ring.drain();
   }
   flush_ops<walk_op<MODE>>(buf, flushed, n, lane, out);
@@ -644,13 +654,14 @@ __device__ __forceinline__ void walk_staged(const unsigned* __restrict__ codes, 
     }
   }
   if constexpr (kG) {
-    if (j0 == 0 && i == 0 && j > 0 && n < S) {  // column 0: UP to the origin
-      const int m = imin(j, S - n);
+    if (i == 0 && j > j0 && n < S) {  // column 0: UP to row j0 (the origin)
+      const int m = imin(j - j0, S - n);
       for (int q = lane; q < m; q += 32) out[n + q] = static_cast<signed char>(kOpUp);
       n += m;
       j -= m;
     }
   }
+  return st;
 }
 
 // A batch of pairs, a warp a pair, kWalkWarps pairs a block: a pair's
@@ -742,6 +753,63 @@ __global__ void sw_walk_staged_kernel(const unsigned* __restrict__ codes,
     ns[b] = n;
     iend[b] = i;
     jend[b] = j;
+  }
+}
+
+// The local walk of one group of rows of each pair of a batch, a warp a
+// pair, kLocalWarps pairs a block: nw_walk_groups_kernel's contract over
+// local or overlap codes.  A walk goes from its (i, j, n) in state[b] to
+// its STOP, column 0 or row j0; one that stopped on a STOP or on column 0
+// lies below row j0 and so walks nowhere in the groups above, and (i, j)
+// is then the cell where it stopped (sw_walk's i_end, j_end).
+__global__ void sw_walk_groups_kernel(const unsigned* __restrict__ codes, int B, int nbands,
+                                      int TW, int j0, int* __restrict__ state,
+                                      const int* __restrict__ off, int stride,
+                                      signed char* __restrict__ ops) {
+  __shared__ __align__(128) unsigned char smem[kLocalWarps * kWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kLocalWarps + warp;
+  if (b >= B) return;
+  int* const st = state + 3 * b;
+  int i = st[0], j = st[1], n = st[2];
+  // a start outside the group's codes walks nowhere
+  if (j < j0 || j > j0 + 32 * nbands || i < 0 || i >= 16 * TW - 31 || n < 0) return;
+  const int n0 = n, o = off ? off[b] : n0;
+  if (o < 0 || o > stride) return;
+  walk_staged<kLocal>(codes + b * nbands * TW * 32, TW, smem + warp * kWarpBytes, j0,
+                      n0 + stride - o, i, j, n, ops + b * stride + o - n0);
+  if ((threadIdx.x & 31) == 0) {
+    st[0] = i;
+    st[1] = j;
+    st[2] = n;
+  }
+}
+
+// Gotoh's walk of one group of rows of each pair of a batch, a warp a
+// pair, kGotohWarps pairs a block: nw_walk_groups_kernel's contract over
+// 4-bit codes, the cursor state[b] = (i, j, n, st) carrying the walk's
+// state across the groups' edges.
+__global__ void gotoh_walk_groups_kernel(const unsigned* __restrict__ codes, int B, int nbands,
+                                         int TW, int j0, int* __restrict__ state,
+                                         const int* __restrict__ off, int stride,
+                                         signed char* __restrict__ ops) {
+  __shared__ __align__(128) unsigned char smem[kGotohWarps * kGotohWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kGotohWarps + warp;
+  if (b >= B) return;
+  int* const st = state + 4 * b;
+  int i = st[0], j = st[1], n = st[2];
+  // a start outside the group's codes walks nowhere
+  if (j < j0 || j > j0 + 32 * nbands || i < 0 || i >= 8 * TW - 31 || n < 0) return;
+  const int n0 = n, o = off ? off[b] : n0;
+  if (o < 0 || o > stride) return;
+  const int s = walk_staged<kGotoh>(codes + b * nbands * TW * 32, TW, smem + warp * kGotohWarpBytes,
+                                    j0, n0 + stride - o, i, j, n, ops + b * stride + o - n0, st[3]);
+  if ((threadIdx.x & 31) == 0) {
+    st[0] = i;
+    st[1] = j;
+    st[2] = n;
+    st[3] = s;
   }
 }
 
@@ -1408,5 +1476,36 @@ extern "C" int gotoh_walk(const void* codes, const int* lens1,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(codes), lens1, lens2, states, B, nbands,
       TW, S, ops, ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The local walk of one group, as nw_walk_groups: codes uint32[B, nbands,
+// TW, 32] of rows j0+1 .. j0+32*nbands from free_fill_span, 16-byte
+// aligned; state int32[B, 3] = (i, j, n); ops int8[B, stride].
+extern "C" int sw_walk_groups(const void* codes, int B, int nbands, int TW, int j0, int* state,
+                              const int* off, int stride, signed char* ops, void* stream) {
+  if (B <= 0) return 0;
+  if (nbands < 0 || TW < 0 || j0 < 0 || stride < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!codes_aligned(codes, static_cast<int64_t>(nbands) * TW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  sw_walk_groups_kernel<<<(B + kLocalWarps - 1) / kLocalWarps, 32 * kLocalWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(codes), B, nbands, TW, j0, state, off, stride, ops);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Gotoh's walk of one group, as nw_walk_groups: codes uint32[B, nbands,
+// TW, 32] of 4-bit codes of rows j0+1 .. j0+32*nbands from
+// gotoh_fill_span, 16-byte aligned; state int32[B, 4] = (i, j, n, state:
+// 0 M, 1 IX, 2 IY); ops int8[B, stride].
+extern "C" int gotoh_walk_groups(const void* codes, int B, int nbands, int TW, int j0, int* state,
+                                 const int* off, int stride, signed char* ops, void* stream) {
+  if (B <= 0) return 0;
+  if (nbands < 0 || TW < 0 || j0 < 0 || stride < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!codes_aligned(codes, static_cast<int64_t>(nbands) * TW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  gotoh_walk_groups_kernel<<<(B + kGotohWarps - 1) / kGotohWarps, 32 * kGotohWarps, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(codes), B, nbands, TW, j0, state, off, stride, ops);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,10 @@ that does not exist and its boundary gaps (``affine.py:28-100``).  With
   :data:`nw_tpu_torch.models.needleman_wunsch.CODE_BUDGET_BYTES`, each
   one ``gotoh_fill_codes`` (the port of K21 and K25: codes, corner
   scores and states), one ``gotoh_walk`` and the host strings, at every
-  batch size and side length;
+  batch size and side length; a pair whose codes alone pass the budget
+  takes the two-pass route of
+  :func:`nw_tpu_torch.ops.variants_banded.affine_traceback_banded_batch`
+  (``gotoh_fill_span``, ``gotoh_walk_groups``);
 * :func:`affine_align` — :func:`affine_align_batch` of one pair.
 
 ``device="cuda"`` (the default) launches the kernels and raises without
@@ -54,15 +57,16 @@ import torch
 from nw_tpu_torch.models.needleman_wunsch import (
     CODE_BUDGET_BYTES,
     _as_bytes,
-    code_bytes_per_pair,
     resolve_device,
 )
 from nw_tpu_torch.ops import encode as enc
 from nw_tpu_torch.ops.fill_scan import affine_fill_diag_batch
-from nw_tpu_torch.ops.traceback import ops_to_strings_batch, walk_gotoh_codes_batch
+from nw_tpu_torch.ops.traceback import ops_to_strings_batch
 from nw_tpu_torch.ops.variants_banded import (
-    affine_fill_codes_banded_batch,
     affine_scores_banded_batch,
+    affine_traceback_dispatch,
+    onepass_budget,
+    variant_sub_batch,
 )
 
 GAP = ord("-")
@@ -165,10 +169,15 @@ def affine_align_batch(pairs: Sequence[Pair], m: int, k: int, open_: int, extend
     affine_align_batch``).
 
     The batch is padded to its longest strings and cut into sub-batches
-    whose 4-bit codes fit ``CODE_BUDGET_BYTES``; each runs one
-    ``gotoh_fill_codes`` and one ``gotoh_walk`` from the corners in their
-    states, then the strings are built on the host.  Scores are the
-    scan's (``affine_fill_arrows``) at every scoring.
+    by :func:`nw_tpu_torch.ops.variants_banded.variant_sub_batch` under
+    ``CODE_BUDGET_BYTES`` (``NW_TPU_ONEPASS_HBM`` when set): as many pairs
+    as whole 4-bit code tables fit, each sub-batch one ``gotoh_fill_codes``
+    and one ``gotoh_walk`` from the corners in their states; or, when one
+    pair's table does not fit, sub-batches on the two-pass route of
+    :func:`nw_tpu_torch.ops.variants_banded.affine_traceback_banded_batch`
+    (``gotoh_fill_span``, ``gotoh_walk_groups``).  Then the strings are
+    built on the host.  Scores are the scan's (``affine_fill_arrows``) at
+    every scoring.
     """
     dev = resolve_device(device, "affine_align_batch")
     norm = [(_as_bytes(a), _as_bytes(b)) for a, b in pairs]
@@ -176,16 +185,15 @@ def affine_align_batch(pairs: Sequence[Pair], m: int, k: int, open_: int, extend
         return []
     L1 = max(len(a) for a, _ in norm)
     L2 = max(len(b) for _, b in norm)
-    chunk = max(1, CODE_BUDGET_BYTES // max(code_bytes_per_pair(L1, L2, bits=4), 1))
+    budget = onepass_budget(CODE_BUDGET_BYTES)
+    chunk = variant_sub_batch(L1, L2, 4, budget)
     out = []
     for lo in range(0, len(norm), chunk):
         sub = norm[lo : lo + chunk]
         tops, sides, l1, l2 = enc.upload(enc.encode_batch(sub, L1, L2), dev)
-        codes, scores, states = affine_fill_codes_banded_batch(tops, sides, l1, l2, m, k, open_, extend)
-        ops, n = walk_gotoh_codes_batch(codes, l1, l2, states, max(L1 + L2, 1))
-        del codes
-        strs = ops_to_strings_batch(ops.cpu().numpy(), n.cpu().numpy(), sub)
-        scores = scores.cpu().numpy()
+        res = affine_traceback_dispatch(tops, sides, l1, l2, m, k, open_, extend, budget)
+        strs = ops_to_strings_batch(res.ops.cpu().numpy(), res.n.cpu().numpy(), sub)
+        scores = res.scores.cpu().numpy()
         out.extend((int(scores[b]), X, Y) for b, (X, Y) in enumerate(strs))
     return out
 

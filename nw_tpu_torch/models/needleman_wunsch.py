@@ -74,10 +74,10 @@ from nw_tpu_torch.ops.fill_auto import (
     takes_mask_route,
 )
 from nw_tpu_torch.ops.fill_banded import (
-    code_shape,
     fill_arrows_banded_single,
     fill_scores_counts_banded_batch,
 )
+from nw_tpu_torch.ops.fill_scan import code_table_bytes
 from nw_tpu_torch.ops.checkpoint_traceback import huge_walk_budget, traceback_checkpointed
 from nw_tpu_torch.ops.fill_single import fill_arrows_fold_batch, fill_codes_single, score_count_fold
 
@@ -126,8 +126,7 @@ def code_bytes_per_pair(L1: int, L2: int, bits: int = 2) -> int:
     (uint8[L2+1, L1+1])."""
     if bits == 8:
         return (L1 + 1) * (L2 + 1)
-    _, nbands, TW, lanes = code_shape(1, L1, L2, bits)
-    return nbands * TW * lanes * 4
+    return code_table_bytes(L1, L2, bits)
 
 
 def strings_sub_batch(L1: int, L2: int, engine: str) -> int:

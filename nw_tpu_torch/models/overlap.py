@@ -26,7 +26,9 @@ that cell back to row 0 or column 0.
   ``sw_walk`` (the walk of the local
   codes, which stops at row 0, column 0 or STOP alike: for
   ``_overlap_walk_diag`` and ``_overlap_walk_device``) and the host
-  strings;
+  strings; a pair whose codes alone pass the budget takes the two-pass
+  route of :func:`nw_tpu_torch.ops.variants_banded.overlap_traceback_banded_batch`
+  (``free_fill_span``, ``sw_walk_groups``);
 * :func:`overlap_align` — :func:`overlap_align_batch` of one pair.
 
 ``device="cuda"`` (the default) launches the kernels and raises without a
@@ -45,10 +47,7 @@ from nw_tpu_torch.models.needleman_wunsch import _as_bytes, resolve_device
 from nw_tpu_torch.models.smith_waterman import walk_align_batch
 from nw_tpu_torch.ops import encode as enc
 from nw_tpu_torch.ops.fill_scan import overlap_fill_diag_batch
-from nw_tpu_torch.ops.variants_banded import (
-    overlap_fill_codes_banded_batch,
-    overlap_scores_banded_batch,
-)
+from nw_tpu_torch.ops.variants_banded import overlap_scores_banded_batch
 
 Pair = Tuple[str | bytes, str | bytes]
 Cell = Tuple[int, int]
@@ -125,12 +124,14 @@ def overlap_align_batch(pairs: Sequence[Pair], m: int = 2, k: int = 1, d: int = 
     substrings.
 
     The batch is padded to its longest strings and cut into sub-batches
-    whose 2-bit codes fit ``CODE_BUDGET_BYTES``; each runs one
-    ``overlap_fill_codes`` and one ``sw_walk``, then the strings of
-    ``(s1[:i_end], s2[:j_end])`` are built on the host.
+    (:func:`nw_tpu_torch.models.smith_waterman.walk_align_batch`: one
+    ``overlap_fill_codes`` and one ``sw_walk`` each, or the two-pass route
+    of :func:`nw_tpu_torch.ops.variants_banded.overlap_traceback_banded_batch`
+    for a pair whose codes alone pass ``CODE_BUDGET_BYTES``), then the
+    strings of ``(s1[:i_end], s2[:j_end])`` are built on the host.
     """
     dev = resolve_device(device, "overlap_align_batch")
-    return walk_align_batch(overlap_fill_codes_banded_batch, pairs, m, k, d, dev)
+    return walk_align_batch(False, pairs, m, k, d, dev)
 
 
 def overlap_align(s1: str | bytes, s2: str | bytes, m: int = 2, k: int = 1, d: int = 1,

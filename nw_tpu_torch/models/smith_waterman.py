@@ -18,7 +18,10 @@ walk (diag > left > up) from that cell back to the first cell of score 0.
   2-bit codes fit :data:`nw_tpu_torch.models.needleman_wunsch.CODE_BUDGET_BYTES`,
   each one ``sw_fill_codes`` (K24 and K18's words mode: codes, best,
   argmax; W warps a pair on the same pipeline, a kernel of its own), one
-  ``sw_walk`` and the host strings;
+  ``sw_walk`` and the host strings; a pair whose codes alone pass the
+  budget takes the two-pass route of
+  :func:`nw_tpu_torch.ops.variants_banded.sw_traceback_banded_batch`
+  (``free_fill_span``, ``sw_walk_groups``);
 * :func:`sw_align` — :func:`sw_align_batch` of one pair.
 
 ``device="cuda"`` (the default) launches the kernels and raises without a
@@ -43,15 +46,16 @@ import torch
 from nw_tpu_torch.models.needleman_wunsch import (
     CODE_BUDGET_BYTES,
     _as_bytes,
-    code_bytes_per_pair,
     resolve_device,
 )
 from nw_tpu_torch.ops import encode as enc
 from nw_tpu_torch.ops.fill_scan import sw_fill_diag_batch
-from nw_tpu_torch.ops.traceback import ops_to_strings_batch, walk_sw_codes_batch
+from nw_tpu_torch.ops.traceback import ops_to_strings_batch
 from nw_tpu_torch.ops.variants_banded import (
-    sw_fill_codes_banded_batch,
+    free_traceback_dispatch,
+    onepass_budget,
     sw_scores_banded_batch,
+    variant_sub_batch,
 )
 
 Pair = Tuple[str | bytes, str | bytes]
@@ -123,44 +127,48 @@ def sw_align_batch(pairs: Sequence[Pair], m: int = 2, k: int = 1, d: int = 1,
     ``sw_align_batch`` (``smith_waterman.py:269``).
 
     The batch is padded to its longest strings and cut into sub-batches
-    whose 2-bit codes fit ``CODE_BUDGET_BYTES``; each runs one
-    ``sw_fill_codes`` and one ``sw_walk``, then the strings of
-    ``(s1[:i*], s2[:j*])`` are built on the host.
+    (:func:`walk_align_batch`); each runs
+    :func:`nw_tpu_torch.ops.variants_banded.free_traceback_dispatch`'s
+    route, then the strings of ``(s1[:i*], s2[:j*])`` are built on the
+    host.
     """
     dev = resolve_device(device, "sw_align_batch")
-    return [row[:4] for row in walk_align_batch(sw_fill_codes_banded_batch, pairs, m, k, d, dev)]
+    return [row[:4] for row in walk_align_batch(True, pairs, m, k, d, dev)]
 
 
-def walk_align_batch(fill_codes, pairs: Sequence[Pair], m: int, k: int, d: int,
+def walk_align_batch(local: bool, pairs: Sequence[Pair], m: int, k: int, d: int,
                      dev: torch.device) -> List[Tuple[int, bytes, bytes, Tuple[int, int], Tuple[int, int]]]:
-    """The alignments of a free-boundary fill (local or overlap):
-    ``(best, X, Y, (j, i) where the walk stopped, (j*, i*))`` a pair.
+    """The alignments of a free-boundary fill, local (``local``) or
+    overlap: ``(best, X, Y, (j, i) where the walk stopped, (j*, i*))`` a
+    pair.
 
-    ``fill_codes`` is a codes wrapper of
-    :mod:`nw_tpu_torch.ops.variants_banded` (codes with STOP, best, j*,
-    i*).  The batch is padded to its longest strings and cut into
-    sub-batches whose 2-bit codes fit ``CODE_BUDGET_BYTES``; each runs
-    one fill and one ``sw_walk`` from (j*, i*), then the strings of
-    ``(s1[:i*], s2[:j*])`` are built on the host.
+    The batch is padded to its longest strings and cut into sub-batches by
+    :func:`nw_tpu_torch.ops.variants_banded.variant_sub_batch` under
+    ``CODE_BUDGET_BYTES`` (``NW_TPU_ONEPASS_HBM`` when set): as many pairs
+    as whole 2-bit code tables fit, each sub-batch one fill of its codes
+    (``sw_fill_codes`` / ``overlap_fill_codes``) and one ``sw_walk`` from
+    (j*, i*); or, when one pair's table does not fit, sub-batches on the
+    two-pass route (pass 1's span fills, then each group re-filled and
+    walked, last first: ``free_fill_span``, ``sw_walk_groups``).  Then the
+    strings of ``(s1[:i*], s2[:j*])`` are built on the host.
     """
     norm = [(_as_bytes(a), _as_bytes(b)) for a, b in pairs]
     if not norm:
         return []
     L1 = max(len(a) for a, _ in norm)
     L2 = max(len(b) for _, b in norm)
-    chunk = max(1, CODE_BUDGET_BYTES // max(code_bytes_per_pair(L1, L2), 1))  # no rows: no codes
+    budget = onepass_budget(CODE_BUDGET_BYTES)
+    chunk = variant_sub_batch(L1, L2, 2, budget)
     out = []
     for lo in range(0, len(norm), chunk):
         sub = norm[lo : lo + chunk]
         tops, sides, l1, l2 = enc.upload(enc.encode_batch(sub, L1, L2), dev)
-        codes, best, j_star, i_star = fill_codes(tops, sides, l1, l2, m, k, d)
-        ops, n, i_end, j_end = walk_sw_codes_batch(codes, j_star, i_star)
-        del codes
+        res = free_traceback_dispatch(tops, sides, l1, l2, m, k, d, local, budget)
         best, j_star, i_star, n, i_end, j_end = (
-            t.cpu().numpy() for t in (best, j_star, i_star, n, i_end, j_end)
+            t.cpu().numpy() for t in (res.scores, res.j_star, res.i_star, res.n, res.i_end, res.j_end)
         )
         trunc = [(s1[: i_star[b]], s2[: j_star[b]]) for b, (s1, s2) in enumerate(sub)]
-        strs = ops_to_strings_batch(ops.cpu().numpy(), n, trunc)
+        strs = ops_to_strings_batch(res.ops.cpu().numpy(), n, trunc)
         out.extend(
             (int(best[b]), X, Y, (int(j_end[b]), int(i_end[b])), (int(j_star[b]), int(i_star[b])))
             for b, (X, Y) in enumerate(strs)

@@ -134,6 +134,12 @@ class TwoPass:
     tops[B, A] / sides[B, Bs] / lens1 / lens2[B] on one device), shared
     by :func:`traceback_banded_dispatch` and the resumable runner: the
     counterpart of ``nw_tpu/ops/banded_traceback.py:55 _make_group_fns``.
+    The variant tracebacks' two-pass route runs the same passes over
+    their own fills and walks
+    (:class:`nw_tpu_torch.ops.variants_banded.FreeTwoPass`,
+    :class:`~nw_tpu_torch.ops.variants_banded.GotohTwoPass`), which
+    override :meth:`start`, :meth:`_sweep`, :meth:`_refill`, :meth:`_walk`
+    and the cursor.
 
     Group g holds bands g*S .. g*S+S-1 (rows 32*g*S+1 .. 32*(g+1)*S, the
     last group cut at the table's last band), S = :func:`group_bands`.
@@ -147,9 +153,13 @@ class TwoPass:
 
     def __init__(self, tops, sides, lens1, lens2, m, k, d, with_counts: bool = False):
         _check(tops, sides, lens1, lens2, m, k, d)
-        self.T = (tops, sides, lens1, lens2)
-        self.mkd = (m, k, d)
+        self._setup(tops, sides, lens1, lens2, (m, k, d))
         self.with_counts = with_counts
+
+    def _setup(self, tops, sides, lens1, lens2, scoring) -> None:
+        """The groups' geometry of a checked batch, ``scoring`` the fill's."""
+        self.T = (tops, sides, lens1, lens2)
+        self.mkd = scoring
         self.B, self.A = tops.shape
         self.Bs = sides.shape[1]
         self.S = group_bands(self.Bs)
@@ -169,19 +179,33 @@ class TwoPass:
     def _span(self, g, bnd, cbnd, scores, counts, emit_codes):
         return fill_span_checked(*self.T, *self.mkd, g * self.S, self.S, bnd, cbnd, scores, counts, emit_codes)
 
+    def _sweep(self, g, carry) -> None:
+        """Pass 1 over group g, in place on ``carry``."""
+        bnd, cbnd, scores, counts = carry
+        self._span(g, bnd, cbnd, scores, counts, False)
+
+    def _refill(self, g, row) -> torch.Tensor:
+        """Group g's codes, re-filled from its checkpoint ``row``
+        (consumed)."""
+        junk = torch.empty(self.B, dtype=torch.int32, device=self.device)
+        return self._span(g, row, None, junk, None, True)
+
+    def _walk(self, codes, state, j0, ops, off=None) -> None:
+        walk_codes_groups(codes, state, j0, ops, off)
+
     def checkpoint_pass(self, carry, keep, done: int = 0, every: Optional[int] = None, on_span=None) -> None:
         """Pass 1 from group ``done`` on, in place on ``carry`` = (bnd,
-        cbnd, scores, counts) (:meth:`start`'s, or a saved one):
+        cbnd, scores, counts) (:meth:`start`'s, or a saved one; a
+        variant's own carry, its boundary row first):
         ``keep(g, bnd)`` takes the checkpoint row entering group g before
         ``nw_fill_span`` (scores, or scores + counts) sweeps the group, and
         ``on_span(done)`` follows every ``every`` groups (default: all),
         ``done`` the groups swept so far."""
-        bnd, cbnd, scores, counts = carry
         every = every or self.ngroups
         while done < self.ngroups:
             for g in range(done, min(done + every, self.ngroups)):
-                keep(g, bnd)
-                self._span(g, bnd, cbnd, scores, counts, False)
+                keep(g, carry[0])
+                self._sweep(g, carry)
             done = min(done + every, self.ngroups)
             if on_span is not None:
                 on_span(done)
@@ -209,7 +233,6 @@ class TwoPass:
         G, dev = self.ngroups, self.device
         every = every or G
         zero = torch.zeros(self.B, dtype=torch.int32, device=dev)
-        junk = torch.empty(self.B, dtype=torch.int32, device=dev)
         while done < G:
             n = min(every, G - done)
             if ops is None:
@@ -217,13 +240,13 @@ class TwoPass:
                 ng = torch.empty((n, self.B), dtype=torch.int32, device=dev)
             for idx in range(n):
                 g = G - 1 - (done + idx)
-                codes = self._span(g, checkpoint(g), None, junk, None, True)
+                codes = self._refill(g, checkpoint(g))
                 if ops is None:
                     before = state[:, 2].clone()
-                    walk_codes_groups(codes, state, 32 * g * self.S, prefixes[idx], zero)
+                    self._walk(codes, state, 32 * g * self.S, prefixes[idx], zero)
                     ng[idx] = state[:, 2] - before
                 else:
-                    walk_codes_groups(codes, state, 32 * g * self.S, ops)
+                    self._walk(codes, state, 32 * g * self.S, ops)
                 del codes
             done += n
             if on_span is not None:

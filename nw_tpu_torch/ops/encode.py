@@ -1,6 +1,8 @@
 """Host-side sequence encoding, padding and upload.
 
-Same arrays as ``nw_tpu/ops/encode.py``:
+Same arrays and functions as ``nw_tpu/ops/encode.py`` (``encode``,
+``decode``, ``pad_to``, ``encode_pair``, ``encode_batch``,
+``encode_batch_u8``), plus :func:`upload`:
 
 * characters are their byte value (0..255);
 * the two sequences of a pair are padded with *distinct* sentinels
@@ -27,6 +29,34 @@ def encode(seq: str | bytes) -> np.ndarray:
     if isinstance(seq, str):
         seq = seq.encode("utf-8")
     return np.frombuffer(bytes(seq), dtype=np.uint8).astype(np.int32)
+
+
+def decode(arr) -> str:
+    """Inverse of :func:`encode`: the characters of an int32 vector (numpy
+    or a tensor), its pad sentinels dropped."""
+    arr = np.asarray(arr.cpu() if isinstance(arr, torch.Tensor) else arr)
+    return bytes(int(c) for c in arr if c >= 0).decode("utf-8")
+
+
+def pad_to(arr: np.ndarray, length: int, fill: int) -> np.ndarray:
+    """int32[length]: ``arr`` followed by ``fill``; a longer ``arr``
+    raises ``ValueError``."""
+    if arr.shape[0] > length:
+        raise ValueError(f"sequence length {arr.shape[0]} exceeds bucket {length}")
+    out = np.full((length,), fill, dtype=np.int32)
+    out[: arr.shape[0]] = arr
+    return out
+
+
+def encode_pair(
+    s1: str | bytes, s2: str | bytes, len1: int | None = None, len2: int | None = None
+) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Encode a (top, side) pair padded to (len1, len2), each defaulting
+    to its string's length: (top codes, side codes, true len1, true
+    len2)."""
+    a, b = encode(s1), encode(s2)
+    n1, n2 = a.shape[0], b.shape[0]
+    return pad_to(a, n1 if len1 is None else len1, PAD_TOP), pad_to(b, n2 if len2 is None else len2, PAD_SIDE), n1, n2
 
 
 def encode_batch(

@@ -277,11 +277,19 @@ def overlap_fill_diag_batch(
     return _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local=False)
 
 
-def _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local):
+def _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local, seed=None,
+                          with_last=False):
     """The sweep of :func:`sw_fill_diag_batch` (``local``) and
     :func:`overlap_fill_diag_batch`: both pin row 0 and column 0 to 0 and
     keep a best cell; local alignment also clamps at 0 and reads the
-    whole rectangle, overlap only its end boundary."""
+    whole rectangle, overlap only its end boundary.
+
+    ``seed`` int32[B, A+1]: the plain row-block fill, as
+    :func:`fill_diag_batch`'s: the side strings are rows of a larger
+    table below a row whose scores ``seed`` holds, in row 0's place
+    (lens2 then counts the true rows from that row, and may be <= 0 or
+    past Bs).  With ``with_last``, ``last`` int32[B, A+1]: row Bs at
+    columns 0 .. A."""
     B, A = tops.shape
     Bs = sides.shape[1]
     N = Bs + 1
@@ -300,8 +308,12 @@ def _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local
     rows_ok = (j_idx >= 1) & (j_idx <= lens2)  # [B, N]
 
     prev = torch.zeros((B, N), dtype=i32, device=dev)
+    if seed is not None:
+        seed = seed.to(device=dev, dtype=i32)
+        prev[:, 0] = seed[:, 0]
     prev2 = torch.zeros((B, N), dtype=i32, device=dev)
     best = torch.zeros(B, dtype=i32, device=dev)
+    last_l = []  # cell (Bs, kk - Bs) of diagonal kk >= Bs
     if local:  # no positive cell: (0, 0)
         arg = torch.zeros((B, 2), dtype=torch.int64, device=dev)
     else:  # the zero-cost corner (0, len1), or (len2, 0) when len1 is 0
@@ -328,6 +340,10 @@ def _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local
         else:
             live = interior
         score = torch.where(interior, score, 0)
+        if seed is not None and kk <= A:  # the seed row in row 0's place
+            score[:, 0] = seed[:, kk]
+        if with_last and Bs <= kk <= A + Bs:
+            last_l.append(score[:, Bs].clone())
         if with_arrows:
             arrows_l.append(
                 ((cand_diag == score) & live).to(torch.uint8)
@@ -353,6 +369,8 @@ def _free_fill_diag_batch(tops, sides, lens1, lens2, m, k, d, with_arrows, local
     out = {"score": best, "argmax": arg.to(i32)}
     if with_arrows:
         out["arrows"] = torch.stack(arrows_l, dim=1)
+    if with_last:
+        out["last"] = torch.stack(last_l, dim=1)
     return out
 
 
@@ -508,6 +526,23 @@ def fill_diag(
     return {key: v[0] for key, v in out.items()}
 
 
+def num_diagonals(len1: int, len2: int) -> int:
+    """Number of anti-diagonals of the (len2+1) x (len1+1) table
+    (``fill_scan.py:42``)."""
+    return len1 + len2 + 1
+
+
+def fill_matrix(top, side, m: int, k: int, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores int32, tie masks uint8), both rectangular (len2+1, len1+1),
+    of one whole pair, int32 top[len1] / side[len2] (tensors or numpy
+    arrays): :func:`fill_diag` turned into rows, as ``fill_scan.py:222
+    fill_matrix`` gives them, as tensors on the inputs' device."""
+    top, side = torch.as_tensor(top), torch.as_tensor(side)
+    len1, len2 = int(top.shape[0]), int(side.shape[0])
+    out = fill_diag(top, side, m, k, d, with_scores=True)
+    return diag_to_matrix(out["scores"], len1, len2), diag_to_matrix(out["arrows"], len1, len2)
+
+
 def fill_last_row(top, side, m, k, d, len1=None, len2=None, every=None) -> torch.Tensor:
     """int32[A+1]: the scores of DP row ``len2`` for columns 0..A (valid
     through ``len1``; ``fill_scan.py:238 fill_last_row``), read off the
@@ -586,6 +621,13 @@ def code_shape(B: int, A: int, Bs: int, bits: int = 2) -> Tuple[int, int, int, i
     nbands = -(-Bs // BAND_ROWS)
     steps = -(-(A + BAND_ROWS) // BAND_ROWS) * BAND_ROWS  # whole 32-step chunks
     return (B, nbands, steps * bits // 32, BAND_ROWS)
+
+
+def code_table_bytes(A: int, Bs: int, bits: int = 2) -> int:
+    """Device bytes of one pair's whole code table at buckets (A, Bs),
+    ``bits`` a code (:func:`code_shape`)."""
+    _, nbands, TW, lanes = code_shape(1, A, Bs, bits)
+    return nbands * TW * lanes * 4
 
 
 def greedy_codes_from_arrows(arrows: torch.Tensor, local: bool = False) -> torch.Tensor:

@@ -441,14 +441,15 @@ def _walk_window_plain(op_at, rows: int, width: int, state, j0: int, ops) -> Non
     state.copy_(torch.tensor([i, j, n + len(steps)], dtype=torch.int32))
 
 
-def _check_groups_args(codes, state, j0, ops, off):
+def _check_groups_args(codes, state, j0, ops, off, cursor=3):
     if codes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"CPU or CUDA tensors expected, got {codes.device}")
     if codes.dim() != 4 or codes.dtype != torch.int32 or codes.shape[3] != 32:
         raise ValueError("codes must be int32[B, nbands, TW, 32]")
     B = codes.shape[0]
-    if state.shape != (B, 3) or state.dtype != torch.int32 or not state.is_contiguous():
-        raise ValueError("state must be a contiguous int32[B, 3]: (i, j, n) a pair")
+    if state.shape != (B, cursor) or state.dtype != torch.int32 or not state.is_contiguous():
+        what = "(i, j, n)" if cursor == 3 else "(i, j, n, state)"
+        raise ValueError(f"state must be a contiguous int32[B, {cursor}]: {what} a pair")
     if ops.dim() != 2 or ops.shape[0] != B or ops.dtype != torch.int8 or not ops.is_contiguous():
         raise ValueError("ops must be a contiguous int8[B, stride]")
     if off is not None and (off.shape != (B,) or off.dtype != torch.int32 or not off.is_contiguous()):
@@ -535,6 +536,164 @@ def walk_codes_groups_plain(
         j = j - (active & (a != OP_LEFT)).to(torch.int64)
         n = n + active.to(torch.int64)
     state.copy_(torch.where(ok[:, None], torch.stack([i, j, n], 1), state.to(torch.int64)).to(torch.int32))
+
+
+def _launch_groups(wrapper, entry, codes, state, j0, ops, off) -> None:
+    """Launch group walk ``entry`` (``sw_walk_groups``, ``gotoh_walk_groups``)
+    for ``wrapper``, whose count it raises."""
+    B, nbands, TW, _ = codes.shape
+    if B:
+        kernels.launch(
+            entry, codes.device,
+            codes.data_ptr(), B, nbands, TW, j0, state.data_ptr(),
+            None if off is None else off.data_ptr(), ops.shape[1], ops.data_ptr(),
+        )
+        wrapper.launches += 1
+
+
+def walk_sw_codes_groups(
+    codes: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor,
+    off: torch.Tensor = None,
+) -> None:
+    """Greedy local walk of a batch over one group of rows, in place: the
+    group walk of the variant tracebacks' two-pass route
+    (``nw_tpu/ops/variants_banded.py:1300`` and ``:868``, the group walks
+    of ``_sw_walk_device`` and ``_overlap_walk_device``).
+
+    :func:`walk_codes_groups`'s contract over local or overlap codes of
+    rows j0+1 .. j0+32*nbands
+    (:func:`nw_tpu_torch.ops.variants_banded.free_fill_span_banded_batch`
+    with ``emit_codes``): each pair walks from its cursor (i, j, n) as
+    :func:`walk_sw_codes_batch` walks, and stops on a STOP cell or on
+    column 0 (the walk's end: (i, j) is then the cell it stopped on, its
+    i_end / j_end) or on row j0 (the group above goes on from there; row
+    0 ends it too).  A walk that ended lies below row j0, so the groups
+    above leave it as it is.
+
+    CUDA tensors go through the ``sw_walk_groups`` kernel (a warp a pair
+    on ``sw_walk``'s staging); CPU tensors through
+    :func:`walk_sw_codes_groups_plain`.
+    """
+    _check_groups_args(codes, state, j0, ops, off)
+    codes = codes.contiguous()
+    _check_codes_aligned(codes)
+    if codes.device.type == "cpu":
+        return walk_sw_codes_groups_plain(codes, state, j0, ops, off)
+    _launch_groups(walk_sw_codes_groups, "sw_walk_groups", codes, state, j0, ops, off)
+
+
+walk_sw_codes_groups.launches = 0
+
+
+def _groups_cursor(codes, state, j0, ops, off, per_word):
+    """The plain group walks' start: (i, j, n, the pairs whose cursor lies
+    in the group, the ops' offsets, each pair's op cap)."""
+    B, nbands, TW, _ = codes.shape
+    stride = ops.shape[1]
+    i, j, n = (state[:, x].to(torch.int64) for x in range(3))
+    o = n.clone() if off is None else off.to(torch.int64)
+    ok = ((j >= j0) & (j <= j0 + 32 * nbands) & (i >= 0) & (i < per_word * TW - 31) & (n >= 0)
+          & (o >= 0) & (o <= stride))
+    return i, j, n, ok, o, n + stride - o
+
+
+def walk_sw_codes_groups_plain(
+    codes: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor,
+    off: torch.Tensor = None,
+) -> None:
+    """Plain version of :func:`walk_sw_codes_groups` (the same updates of
+    ``state`` and ``ops``), a step of every pair at a time."""
+    _check_groups_args(codes, state, j0, ops, off)
+    B, nbands, TW, _ = codes.shape
+    b_ar = torch.arange(B, device=codes.device)
+    i, j, n, live, o, lim = _groups_cursor(codes, state, j0, ops, off, 16)
+    ok, n0 = live.clone(), n.clone()
+    while True:
+        live = live & (n < lim) & (j > j0) & (i > 0)
+        if not bool(live.any()):
+            break
+        r = (j - j0 - 1).clamp(0, max(32 * nbands - 1, 0))
+        t = (i + (r & 31)).clamp(0, 16 * TW - 1)
+        w = codes[b_ar, r >> 5, t >> 4, r & 31].to(torch.int64)
+        a = (w >> (2 * (t & 15))) & 3
+        live = live & (a != 3)
+        at = (o + n - n0).clamp(0, max(ops.shape[1] - 1, 0))
+        ops[b_ar[live], at[live]] = a[live].to(torch.int8)
+        i = i - (live & (a != OP_UP)).to(torch.int64)
+        j = j - (live & (a != OP_LEFT)).to(torch.int64)
+        n = n + live.to(torch.int64)
+    state.copy_(torch.where(ok[:, None], torch.stack([i, j, n], 1), state.to(torch.int64)).to(torch.int32))
+
+
+def walk_gotoh_codes_groups(
+    codes: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor,
+    off: torch.Tensor = None,
+) -> None:
+    """Gotoh's three-state walk of a batch over one group of rows, in
+    place: the group walk of the Gotoh traceback's two-pass route
+    (``nw_tpu/ops/variants_banded.py:1803``, ``_affine_walk_device``).
+
+    :func:`walk_codes_groups`'s contract over 4-bit codes of rows j0+1 ..
+    j0+32*nbands
+    (:func:`nw_tpu_torch.ops.variants_banded.affine_fill_span_banded_batch`
+    with ``emit_codes``), the cursor ``state`` int32[B, 4] = (i, j, n,
+    st) carrying the walk's state (0 M, 1 IX, 2 IY) across the groups'
+    edges: each pair walks as :func:`walk_gotoh_codes_batch` walks, down
+    to row j0 (the origin when j0 is 0), UP along column 0 and LEFT along
+    row 0 in any state.
+
+    CUDA tensors go through the ``gotoh_walk_groups`` kernel (a warp a
+    pair on ``gotoh_walk``'s staging); CPU tensors through
+    :func:`walk_gotoh_codes_groups_plain`.
+    """
+    _check_groups_args(codes, state, j0, ops, off, cursor=4)
+    codes = codes.contiguous()
+    _check_codes_aligned(codes)
+    if codes.device.type == "cpu":
+        return walk_gotoh_codes_groups_plain(codes, state, j0, ops, off)
+    _launch_groups(walk_gotoh_codes_groups, "gotoh_walk_groups", codes, state, j0, ops, off)
+
+
+walk_gotoh_codes_groups.launches = 0
+
+
+def walk_gotoh_codes_groups_plain(
+    codes: torch.Tensor, state: torch.Tensor, j0: int, ops: torch.Tensor,
+    off: torch.Tensor = None,
+) -> None:
+    """Plain version of :func:`walk_gotoh_codes_groups` (the same updates
+    of ``state`` and ``ops``), a step of every pair at a time."""
+    _check_groups_args(codes, state, j0, ops, off, cursor=4)
+    B, nbands, TW, _ = codes.shape
+    b_ar = torch.arange(B, device=codes.device)
+    i, j, n, ok, o, lim = _groups_cursor(codes, state, j0, ops, off, 8)
+    st = state[:, 3].to(torch.int64)
+    n0 = n.clone()
+    while True:
+        active = ok & (n < lim) & ((j > j0) | ((j0 == 0) & (j == 0) & (i > 0)))
+        if not bool(active.any()):
+            break
+        r = (j - j0 - 1).clamp(0, max(32 * nbands - 1, 0))
+        t = (i + (r & 31)).clamp(0, 8 * TW - 1)
+        if nbands:
+            w = codes[b_ar, r >> 5, t >> 3, r & 31].to(torch.int64)
+            c = (w >> (4 * (t & 7))) & 15
+        else:
+            c = torch.zeros_like(i)
+        a = torch.where(st == 0, OP_DIAG, torch.where(st == 1, OP_LEFT, OP_UP))
+        nxt = torch.where(
+            st == 0, c & 3,
+            torch.where(st == 1, (c >> 2) & 1, torch.where(((c >> 3) & 1) != 0, 2, 0)),
+        )
+        edge = (j == 0) | (i == 0)  # row 0: LEFT, column 0: UP, in any state
+        a = torch.where(j == 0, OP_LEFT, torch.where(i == 0, OP_UP, a))
+        st = torch.where(active & ~edge, nxt, st)
+        at = (o + n - n0).clamp(0, max(ops.shape[1] - 1, 0))
+        ops[b_ar[active], at[active]] = a[active].to(torch.int8)
+        i = i - (active & (a != OP_UP)).to(torch.int64)
+        j = j - (active & (a != OP_LEFT)).to(torch.int64)
+        n = n + active.to(torch.int64)
+    state.copy_(torch.where(ok[:, None], torch.stack([i, j, n, st], 1), state.to(torch.int64)).to(torch.int32))
 
 
 def walk_masks_window(

@@ -65,6 +65,10 @@ SIGNATURES = {
     "gotoh_scores": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P],
     "gotoh_fill_codes": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "gotoh_walk": [P, P, P, P, I, I, I, I, P, P, P],
+    "free_fill_span": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P, P],
+    "gotoh_fill_span": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P],
+    "sw_walk_groups": [P, I, I, I, I, P, P, I, P, P],
+    "gotoh_walk_groups": [P, I, I, I, I, P, P, I, P, P],
 }
 
 

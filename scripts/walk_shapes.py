@@ -129,7 +129,7 @@ def variant_walks(cs, dev) -> tuple:
                           nbands, TW, 2 * L, B=B, S=2 * L))
                 routes[f"affine_align_batch {shape}"] = (
                     lambda ps=ps: af.affine_align_batch(ps, 2, 1, 3, 1),
-                    {"fill": (af, "affine_fill_codes_banded_batch"), "walk": (af, "walk_gotoh_codes_batch")})
+                    {"fill": (vb, "affine_fill_codes_banded_batch"), "walk": (vb, "walk_gotoh_codes_batch")})
                 continue
             model = sw if kind == "sw" else ov
             fill_name = f"{kind}_fill_codes_banded_batch"
@@ -141,7 +141,7 @@ def variant_walks(cs, dev) -> tuple:
                 entry("sw_walk", codes.data_ptr(), js.data_ptr(), is_.data_ptr(), B, nbands, TW, S, B=B, S=S))
             routes[f"{kind}_align_batch {shape}"] = (
                 lambda ps=ps, f=getattr(model, f"{kind}_align_batch"): f(ps, 2, 1, 1),
-                {"fill": (model, fill_name), "walk": (sw, "walk_sw_codes_batch")})
+                {"fill": (vb, fill_name), "walk": (vb, "walk_sw_codes_batch")})
     return walks, routes
 
 

@@ -1,7 +1,8 @@
 """CUDA kernels of nw_tpu_torch vs their plain PyTorch versions:
 the Smith-Waterman, overlap and Gotoh fills and walks (the walks also at
-the shapes their shared-memory staging must get right), and their batch
-paths.
+the shapes their shared-memory staging must get right), their batch
+paths, and the variant tracebacks' two-pass route (the span fills, the
+group walks, the three tracebacks on both routes).
 
 These need an NVIDIA card (sm_90a) and nvcc; without one they skip.  On
 the card: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_variants.py``.
@@ -21,8 +22,9 @@ from nw_tpu_torch.models import smith_waterman as sw
 from nw_tpu_torch.ops import fill_banded, traceback, variants_banded
 
 from torch_kernel_cases import (  # noqa: F401 (cuda is a fixture)
-    SCORINGS, EDGE, VARIANT_WALK_EDGE_SHAPES, cuda, _pairs, _pipe_batches, random_code_words, starts_batch,
-    variant_edge_pairs,
+    SCORINGS, EDGE, GROUP_SIZES, VARIANT_KINDS, VARIANT_SPAN_WARPS, VARIANT_WALK_EDGE_SHAPES, cuda, _pairs,
+    _pipe_batches, random_code_words, starts_batch, variant_cursor, variant_edge_pairs, variant_groups_walk,
+    variant_span_chain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -503,3 +505,176 @@ def test_variant_walk_kernels_refuse_misaligned_codes(cuda):
         traceback.walk_sw_codes_batch(codes, zero, zero)
     with pytest.raises(ValueError, match="16-byte"):
         traceback.walk_gotoh_codes_batch(codes, zero, zero, zero, 4)
+
+
+# ---------------- the variant two-pass route: span fills and group walks ----------------
+
+
+def _whole_span(T, sc, kind):
+    """The plain span fill over T's whole table in one span, with codes:
+    (bnd, key, best, j*, i*, codes) or Gotoh's (bnd, scores, states,
+    codes)."""
+    (want,) = variant_span_chain(T, sc, kind, max(1, -(-T[1].shape[1] // 32)), plain=True)
+    return want
+
+
+def _chain_same(got, want, msg, codes=True):
+    """A span chain's last outputs and (``codes``) its spans' codes side by
+    side against one span of the whole table."""
+    n = len(want) - 1
+    for g, w in zip(got[-1][:n], want[:n]):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0, msg=msg)
+    if codes:
+        torch.testing.assert_close(torch.cat([x[n] for x in got], 1).cpu(), want[n], rtol=0, atol=0, msg=msg)
+
+
+def _spans_vs_plain(cpu, dev, sc, kind):
+    """The span fill of ``kind`` chained over the whole table in spans of 3
+    bands (r0 = 0, 3, 6, ...: on and off a warp boundary at W = 2, 7, 16)
+    at every W of VARIANT_SPAN_WARPS and the rule's, in spans of 1 band (S
+    = 1) at W = 1, 7 and the rule's, and as pass 1 sweeps it (no codes) at
+    the rule's W, against one plain span of the whole table."""
+    want = _whole_span(cpu, sc, kind)
+    for S, Ws in ((3, VARIANT_SPAN_WARPS), (1, (1, 7, None))):
+        for W in Ws:
+            _chain_same(variant_span_chain(dev, sc, kind, S, W), want, f"S = {S}, W = {W}")
+    _chain_same(variant_span_chain(dev, sc, kind, 3, emit_codes=False), want, "no codes", codes=False)
+
+
+@pytest.mark.parametrize("kind", ["sw", "overlap"])
+@pytest.mark.parametrize("mkd", SW_SCORINGS)
+def test_free_span_at_forced_warps_vs_plain(cuda, mkd, kind):
+    """free_fill_span (LOCAL, OVERLAP) on _free_batches' two buckets (5 and
+    35 bands; bests on warp 1, in the last band, back on warp 0 after a
+    round, and equal in bands 0 and W on one lane, so the best's key is
+    merged across spans): the last row, the key, best, j*, i* and the
+    codes bit for bit against the plain span."""
+    for cpu, dev in _free_batches(sum(mkd) % 71 + 31, cuda):
+        _spans_vs_plain(cpu, dev, mkd, kind)
+
+
+@pytest.mark.parametrize("sc", GOTOH_ALIGN_SCORINGS)
+def test_gotoh_span_at_forced_warps_vs_plain(cuda, sc):
+    """gotoh_fill_span on _free_batches' two buckets under the alignments'
+    scorings (near the sentinel too): the last rows (h, IY, state bits),
+    the scores and corner states, and the codes bit for bit against the
+    plain span."""
+    for cpu, dev in _free_batches(sum(sc) % 73 + 29, cuda):
+        _spans_vs_plain(cpu, dev, sc, "gotoh")
+
+
+@pytest.mark.parametrize("kind", VARIANT_KINDS)
+def test_variant_span_with_the_top_in_device_memory(cuda, kind):
+    """A 117 000-column top (past a block's shared memory) in device
+    memory: spans of 1 and 3 bands at W = 1, 3 give the whole-table code
+    fill's codes, best and cell (Gotoh: scores and corner states) at W =
+    3 (held to a host row sweep by the free code fills' own test, and to
+    the single-pair kernels for Gotoh) and one last row."""
+    rng = np.random.default_rng(34)
+    A, Bs = 117_000, 100  # 4 bands
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    ps = [(letters[rng.integers(0, 4, a)].tobytes(), letters[rng.integers(0, 4, s)].tobytes())
+          for a, s in ((A, Bs), (A - 9, 64), (A - 30_000, 33))]
+    dev = enc.upload(enc.encode_batch(ps, A, Bs), cuda)
+    cell = variants_banded.GOTOH_CELL[True] if kind == "gotoh" else 4
+    assert not fill_banded.top_in_smem(A, cell)
+    if kind == "gotoh":
+        sc = (2, 1, 3, 1)
+        codes, *outs = variants_banded.affine_fill_codes_banded_batch(*dev, *sc, warps=3)
+        picks = (1, 2)  # scores, states
+    else:
+        sc = (2, 1, 1)
+        codes, *outs = getattr(variants_banded, f"{kind}_fill_codes_banded_batch")(*dev, *sc, warps=3)
+        picks = (2, 3, 4)  # best, j*, i*
+    rows = []
+    for S in (1, 3):
+        for W in (1, 3):
+            got = variant_span_chain(dev, sc, kind, S, W)
+            assert torch.equal(torch.cat([x[-1] for x in got], 1), codes), f"S = {S}, W = {W}"
+            assert all(torch.equal(got[-1][p], o) for p, o in zip(picks, outs)), f"S = {S}, W = {W}"
+            rows.append(got[-1][0])
+    assert all(torch.equal(r, rows[0]) for r in rows)
+
+
+def _group_walks_vs_plain(kind, codes, start, width, want, cuda):
+    """The group walk of ``kind`` chained over groups of GROUP_SIZES bands
+    of ``codes`` from the cursors ``start`` on the card, against its plain
+    version chained the same way and against the one-pass plain walk
+    ``want`` (ops, n[, i_end, j_end])."""
+    walk = traceback.walk_gotoh_codes_groups if kind == "gotoh" else traceback.walk_sw_codes_groups
+    plain = traceback.walk_gotoh_codes_groups_plain if kind == "gotoh" else traceback.walk_sw_codes_groups_plain
+    for G in GROUP_SIZES:
+        p_state, p_ops = variant_groups_walk(plain, codes, start, G, width)
+        g_state, g_ops = variant_groups_walk(walk, codes.to(cuda), start.to(cuda), G, width)
+        torch.testing.assert_close(g_state.cpu(), p_state, rtol=0, atol=0, msg=f"G = {G}")
+        torch.testing.assert_close(g_ops.cpu(), p_ops, rtol=0, atol=0, msg=f"G = {G}")
+        torch.testing.assert_close(p_ops, want[0], rtol=0, atol=0, msg=f"G = {G}")
+        torch.testing.assert_close(p_state[:, 2], want[1], rtol=0, atol=0, msg=f"G = {G}")
+        if kind != "gotoh":  # where the walk stopped
+            torch.testing.assert_close(p_state[:, 0], want[2], rtol=0, atol=0, msg=f"G = {G}")
+            torch.testing.assert_close(p_state[:, 1], want[3], rtol=0, atol=0, msg=f"G = {G}")
+
+
+@pytest.mark.parametrize("shape", VARIANT_WALK_EDGE_SHAPES)
+@pytest.mark.parametrize("kind", VARIANT_KINDS)
+def test_variant_walk_groups_vs_plain_at_edge_shapes(cuda, kind, shape):
+    """sw_walk_groups (SW and overlap codes) and gotoh_walk_groups chained
+    over groups of 1, 2 and 3 bands, last group first, of each variant walk
+    edge shape's codes, from each fill's start (the best cell, or the
+    corner in its state) for the shape's pairs, the first pair alone (B =
+    1) and an odd B, and from every edge start of each pair's table (Gotoh:
+    in a state turning with the start), against the plain group walk and
+    the one-pass plain walk, under three scorings (wrapping ones too)."""
+    ps = variant_edge_pairs(shape)
+    T = _variant_batch(ps, "cpu")
+    odd = len(ps) - 1 + len(ps) % 2
+    if kind == "gotoh":
+        width = T[0].shape[1] + T[1].shape[1]
+        for q, sc in enumerate((GOTOH_ALIGN_SCORINGS[0], GOTOH_ALIGN_SCORINGS[5], GOTOH_ALIGN_SCORINGS[-1])):
+            fill = variants_banded.affine_fill_codes_banded_batch_plain(*T, *sc)
+            codes, _, states = fill
+            start = variant_cursor("gotoh", fill, T)
+            for B in sorted({len(ps), 1, odd}):
+                want = traceback.walk_gotoh_codes_batch_plain(codes[:B], T[2][:B], T[3][:B], states[:B], width)
+                _group_walks_vs_plain(kind, codes[:B], start[:B], width, want, cuda)
+            sub, js, is_ = starts_batch(codes, T[2], T[3], 8)
+            st = torch.where(js == 0, 1, torch.where(is_ == 0, 2, (torch.arange(len(js)) + q) % 3)).int()
+            want = traceback.walk_gotoh_codes_batch_plain(sub, is_, js, st, width)
+            _group_walks_vs_plain(kind, sub, torch.stack([is_, js, torch.zeros_like(js), st], 1).contiguous(),
+                                  width, want, cuda)
+        return
+    for mkd in (SW_SCORINGS[0], SW_SCORINGS[4], SW_SCORINGS[-1]):
+        fill = getattr(variants_banded, f"{kind}_fill_codes_banded_batch_plain")(*T, *mkd)
+        codes = fill[0]
+        start = variant_cursor(kind, fill, T)
+        width = traceback._sw_max_steps(codes)
+        for B in sorted({len(ps), 1, odd}):
+            want = traceback.walk_sw_codes_batch_plain(codes[:B], fill[2][:B], fill[3][:B])
+            _group_walks_vs_plain(kind, codes[:B], start[:B], width, want, cuda)
+        sub, js, is_ = starts_batch(codes, T[2], T[3], 16)
+        want = traceback.walk_sw_codes_batch_plain(sub, js, is_)
+        _group_walks_vs_plain(kind, sub, torch.stack([is_, js, torch.zeros_like(js)], 1).contiguous(), width, want,
+                              cuda)
+
+
+@pytest.mark.parametrize("kind", VARIANT_KINDS)
+def test_variant_tracebacks_on_both_routes_cuda_vs_cpu(cuda, kind, monkeypatch):
+    """sw_ / overlap_ / affine_traceback_banded_batch on the card, with
+    NW_TPU_ONEPASS_HBM at 0 (the two-pass route, groups of 4 bands and the
+    default height) and unset (the one-pass route), equal the plain route
+    on the CPU (long pairs: 35 bands)."""
+    from nw_tpu_torch.ops import banded_traceback as bt
+
+    ps = _pairs(17, 20, 0, 1100) + _pairs(18, 3, 900, 1100, "AC") + EDGE
+    name = "affine" if kind == "gotoh" else kind
+    fn = getattr(variants_banded, f"{name}_traceback_banded_batch")
+    sc = (2, 1, 3, 1) if kind == "gotoh" else (2, 1, 1)
+    monkeypatch.delenv("NW_TPU_ONEPASS_HBM", raising=False)
+    want = fn(*_variant_batch(ps, "cpu"), *sc)
+    got = fn(*_variant_batch(ps, cuda), *sc)
+    _same([torch.from_numpy(g) for g in got], [torch.from_numpy(w) for w in want])
+    monkeypatch.setenv("NW_TPU_ONEPASS_HBM", "0")
+    for S in (4, bt.GROUP_BANDS):
+        monkeypatch.setattr(bt, "GROUP_BANDS", S)
+        got = fn(*_variant_batch(ps, cuda), *sc)
+        _same([torch.from_numpy(g) for g in got], [torch.from_numpy(w) for w in want])

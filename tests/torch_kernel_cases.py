@@ -168,6 +168,13 @@ span_chain, groups_walk = chip_smoke.span_chain, chip_smoke.groups_walk
 SPAN_VARIANTS, GROUP_SIZES = chip_smoke.SPAN_VARIANTS, chip_smoke.GROUP_SIZES
 # nw_fill_span at forced warps a pair, every W of 1-32 kinds, and the rule's (None)
 SPAN_WARPS = [*chip_smoke.SPAN_WARPS, None]
+# the variant two-pass route's chains: free_fill_span / gotoh_fill_span over a
+# table in spans, sw_walk_groups / gotoh_walk_groups over its groups
+variant_span_chain, variant_groups_walk, variant_cursor = (chip_smoke.variant_span_chain,
+                                                           chip_smoke.variant_groups_walk, chip_smoke.variant_cursor)
+VARIANT_KINDS = chip_smoke.VARIANT_KINDS
+# the variant span fills at forced warps a pair (and the rule's, None)
+VARIANT_SPAN_WARPS = [*chip_smoke.VARIANT_SPAN_WARPS, None]
 
 
 def _mask_window_chain(masks, C):
